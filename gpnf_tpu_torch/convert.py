@@ -1,0 +1,85 @@
+"""Carry the JAX package's mAR-SCF parameters into the port's modules.
+
+The port's modules are named after the JAX parameter tree, so a JAX path
+such as `levels/0/steps/coupling/net/blocks/3/attn/in_proj/v` is the
+state-dict key `levels.0.steps.<j>.coupling.net.blocks.3.attn.in_proj.v`.
+Two input forms are accepted:
+
+- the nested pytree of numpy arrays (after `jax.device_get`);
+- the flat `"params/levels/0/steps/..."` dict that the JAX
+  `CheckpointManager` writes into its .npz files.
+
+Each level's `steps` may be K-stacked (a leading K axis on every leaf, the
+JAX default `scan_steps=True`) or a list of K step trees; stacked steps are
+unstacked here. A missing or extra key, or a shape mismatch, raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_STEPS = re.compile(r"^(levels/\d+/steps)/(.+)$")
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts/lists -> {"a/b/0/c": array}, the JAX checkpoint layout."""
+    out = {}
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def _as_flat(params: Any) -> Dict[str, np.ndarray]:
+    is_flat = isinstance(params, Mapping) and all(
+        not isinstance(v, (Mapping, list, tuple)) for v in params.values())
+    flat = ({k: np.asarray(v) for k, v in params.items()} if is_flat
+            else flatten(params))
+    if flat and all(k.startswith("params/") for k in flat):
+        flat = {k[len("params/"):]: v for k, v in flat.items()}
+    return flat
+
+
+def jax_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """JAX mAR-SCF params (either form) -> {state-dict key: array}."""
+    out = {}
+    for key, value in _as_flat(params).items():
+        m = _STEPS.match(key)
+        if m and not m.group(2).split("/")[0].isdigit():  # K-stacked steps
+            for j in range(value.shape[0]):
+                out[f"{m.group(1)}/{j}/{m.group(2)}".replace("/", ".")] = value[j]
+        else:
+            out[key.replace("/", ".")] = value
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, params: Any) -> torch.nn.Module:
+    """Copy JAX params into `model` (on its device); raise on any mismatch."""
+    arrays = jax_to_state_dict(params)
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(arrays))
+    extra = sorted(set(arrays) - set(expected))
+    if missing or extra:
+        raise ValueError(f"checkpoint does not match the model: missing "
+                         f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                         f"extra {extra[:8]}{'...' if len(extra) > 8 else ''}"
+                         f" — stale checkpoint for a different architecture?")
+    state = {}
+    for key, ref in expected.items():
+        value = arrays[key]
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(
+                f"checkpoint leaf '{key}' has shape {tuple(value.shape)} but "
+                f"the model expects {tuple(ref.shape)} — stale checkpoint for "
+                f"a different architecture?")
+        state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    model.load_state_dict(state, strict=True)
+    return model

@@ -1,0 +1,87 @@
+"""CIFAR-10 and synthetic image datasets as shuffling numpy loaders.
+
+Counterpart of the cifar10/synthetic part of gpnf_tpu/data/datasets.py:
+the CIFAR-10 python pickle batches are read from disk when present,
+otherwise a deterministic synthetic set stands in. Pixels are float32 NCHW
+in [-0.5, 0.5]. Not ported yet: the training augmentation (CIFAR shift and
+flip) and the MNIST and ImageNet-32/64 readers.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+class NumpyLoader:
+    """Mini-batch iterator over uint8 NCHW images."""
+
+    def __init__(self, images: np.ndarray, batch_size: int, *, shuffle: bool,
+                 seed: int = 0, drop_last: bool = True):
+        self.images = images
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = drop_last
+
+    def __len__(self):
+        n = self.images.shape[0] // self.batch_size
+        if not self.drop_last and self.images.shape[0] % self.batch_size:
+            n += 1
+        return n
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        idx = np.arange(self.images.shape[0])
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        end = ((len(idx) // self.batch_size) * self.batch_size
+               if self.drop_last else len(idx))
+        for start in range(0, end, self.batch_size):
+            batch = self.images[idx[start: start + self.batch_size]]
+            yield batch.astype(np.float32) / 255.0 - 0.5
+
+
+def _load_cifar10(root: str):
+    base = os.path.join(root, "cifar-10-batches-py")
+    if not os.path.isdir(base):
+        return None
+
+    def read(fn):
+        # the CIFAR-10 distribution format; read only from a local data root
+        with open(os.path.join(base, fn), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        return d[b"data"].reshape(-1, 3, 32, 32)
+
+    train = np.concatenate([read(f"data_batch_{i}") for i in range(1, 6)])
+    return train.astype(np.uint8), read("test_batch").astype(np.uint8)
+
+
+def _synthetic(size: int, n_train: int = 2048, n_test: int = 512, seed: int = 7):
+    """Deterministic structured images (smooth gradients + texture)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+
+    def make(n):
+        phase = rng.uniform(0, 2 * np.pi, (n, 3, 1, 1)).astype(np.float32)
+        freq = rng.uniform(1, 4, (n, 3, 1, 1)).astype(np.float32)
+        img = 0.5 + 0.5 * np.sin(2 * np.pi * freq * (xx + yy)[None, None] + phase)
+        img = img + rng.normal(0, 0.08, (n, 3, size, size)).astype(np.float32)
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    return make(n_train), make(n_test)
+
+
+def get_dataset(name: str, batch_size: int, data_root: Optional[str] = None,
+                seed: int = 0):
+    """Returns (train_loader, test_loader, image_shape (H, W, C))."""
+    name = name.lower()
+    if name not in ("cifar10", "synthetic"):
+        raise ValueError(f"dataset {name!r} is not ported yet "
+                         f"(cifar10 and synthetic are)")
+    root = data_root or os.environ.get("GPNF_DATA_ROOT", "./data")
+    loaded = _load_cifar10(root) if name == "cifar10" else None
+    train, test = loaded if loaded is not None else _synthetic(32)
+    return (NumpyLoader(train, batch_size, shuffle=True, seed=seed),
+            NumpyLoader(test, batch_size, shuffle=False), (32, 32, 3))

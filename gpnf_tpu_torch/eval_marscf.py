@@ -1,0 +1,72 @@
+"""Serve an mAR-SCF checkpoint written by the JAX package: test bits/dim
+over the test loader, then an ancestral-sample grid as a PNG.
+
+The counterpart of `train_marscf.py --from_checkpoint`, with the same flags
+plus --device (default cuda; a host without a card raises unless
+--device cpu is given). Reads <checkpoint_dir>/marscf_<ds>_<coupling>_<K>_<C>/
+best.npz and writes samples/torch_<same id>.png. TF32 is switched off: the
+serving path is float32 throughout.
+
+    python -m gpnf_tpu_torch.eval_marscf --dataset_name synthetic \
+        --coupling mixlogcdf --L 3 --K 4 --C 96 --device cuda
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dataset_name", default="cifar10",
+                   choices=["cifar10", "synthetic"])
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--coupling", default="mixlogcdf", choices=["mixlogcdf"])
+    p.add_argument("--batch_size", default=128, type=int)
+    p.add_argument("--L", default=3, type=int)
+    p.add_argument("--K", default=32, type=int)
+    p.add_argument("--C", default=512, type=int)
+    p.add_argument("--checkpoint_dir", default="./checkpoints")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    from .data.datasets import get_dataset
+    from .models.marscf import MarScfConfig, MarScfFlow
+    from .training.checkpoints import restore_best
+    from .training.loop import evaluate, save_sample_grid
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {device} "
+          f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
+          f", tf32 off")
+
+    _, test_loader, image_shape = get_dataset(args.dataset_name,
+                                              args.batch_size, args.data_root)
+    cfg = MarScfConfig(image_shape=image_shape, L=args.L, K=args.K,
+                       hidden_channels=args.C)
+    model = MarScfFlow(cfg, device=device).eval()
+    setting_id = f"marscf_{args.dataset_name}_{args.coupling}_{args.K}_{args.C}"
+    restore_best(model, os.path.join(args.checkpoint_dir, setting_id))
+    print("Checkpoint loaded!")
+
+    gen = lambda k: torch.Generator(device=device).manual_seed(args.seed + k)
+    nll = evaluate(model, test_loader, generator=gen(1))
+    print(f"Test NLL (bits/dim): {nll:.3f}")
+    path, nan_count = save_sample_grid(
+        model, f"./samples/torch_{setting_id}.png", n=args.batch_size,
+        generator=gen(2))
+    print(f"samples -> {path} ({nan_count} NaN before the clamp)")
+    return {"nll": nll, "samples": path, "nan_count": nan_count}
+
+
+if __name__ == "__main__":
+    main()

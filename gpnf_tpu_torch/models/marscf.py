@@ -1,0 +1,188 @@
+"""mAR-SCF: multi-scale autoregressive normalizing flow for images.
+
+Counterpart of gpnf_tpu/models/marscf.py for the MixLogCDF coupling with
+the ConvLSTM prior, in eval mode. A flow step is actnorm -> invconv (PLU)
+-> attention -> attention (permuted) -> coupling -> tuple flip; a level is
+squeeze -> K steps -> channel split, the split-off half scored by the
+prior. The K steps of a level are a plain loop (the JAX package scans a
+stacked copy; `convert.py` unstacks it).
+
+Not ported yet: the affine coupling, the Gaussian split prior, models
+without attention, dropout and training. The JAX package's compile and
+memory options (scan_steps, scan_unroll, remat*, precompute_wn,
+prior_scan_unroll, fused_gated_conv) change no numbers and have no
+counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.actnorm import ActNorm
+from ..ops.attention import InvertibleAttention
+from ..ops.basic import Squeeze, TupleFlip, split_channels
+from ..ops.invconv import InvConv1x1
+from ..ops.mixlogcdf import MixLogCDFCoupling
+from ..utils.device import resolve_device
+from .prior import ChannelPriorMultiScale
+
+
+@dataclass(frozen=True)
+class MarScfConfig:
+    image_shape: Tuple[int, int, int] = (32, 32, 3)  # H, W, C
+    L: int = 3
+    K: int = 4
+    hidden_channels: int = 96
+    num_blocks: int = 10
+    num_components: int = 32
+    prior_hidden: int = 32
+    prior_layers: int = 3
+
+
+class FlowStep(nn.Module):
+    def __init__(self, cfg: MarScfConfig, channels: int, *, generator=None):
+        super().__init__()
+        self.actnorm = ActNorm(channels)
+        self.invconv = InvConv1x1(channels, generator=generator)
+        self.attn1 = InvertibleAttention(channels, generator=generator)
+        self.attn2 = InvertibleAttention(channels, generator=generator)
+        self.coupling = MixLogCDFCoupling(
+            channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
+            num_components=cfg.num_components, generator=generator)
+        self.tuple_flip = TupleFlip()
+
+    def _after_actnorm(self, x, logdet):
+        x, logdet = self.invconv(x, logdet)
+        x, logdet = self.attn1(x, logdet)
+        x, logdet = self.attn2(x, logdet, permute=True)
+        x, logdet = self.coupling(x, logdet)
+        return self.tuple_flip.forward(x, logdet)
+
+    def forward(self, x, logdet):
+        return self._after_actnorm(*self.actnorm(x, logdet))
+
+    def inverse(self, y, logdet):
+        y, logdet = self.tuple_flip.inverse(y, logdet)
+        y, logdet = self.coupling.inverse(y, logdet)
+        y, logdet = self.attn2.inverse(y, logdet, permute=True)
+        y, logdet = self.attn1.inverse(y, logdet)
+        y, logdet = self.invconv.inverse(y, logdet)
+        return self.actnorm.inverse(y, logdet)
+
+    def ddi(self, x, logdet):
+        """forward() with the actnorm initialised from `x` first."""
+        return self._after_actnorm(*self.actnorm.ddi(x, logdet))
+
+
+class Level(nn.Module):
+    def __init__(self, cfg: MarScfConfig, channels: int, *, generator=None):
+        super().__init__()
+        self.steps = nn.ModuleList(FlowStep(cfg, channels, generator=generator)
+                                   for _ in range(cfg.K))
+
+    def forward(self, z, logdet):
+        for step in self.steps:
+            z, logdet = step(z, logdet)
+        return z, logdet
+
+    def inverse(self, z, logdet):
+        for step in reversed(self.steps):
+            z, logdet = step.inverse(z, logdet)
+        return z, logdet
+
+
+class MarScfFlow(nn.Module):
+    """Image density model in bits/dim; forward = encode, inverse = sample.
+
+    Parameters are drawn on the CPU from `generator` (a CPU torch.Generator,
+    or seed 0) and then moved to `device`, so the same seed gives the same
+    weights on every device. `device` defaults to CUDA and raises on a host
+    without a card; pass device="cpu" to run the plain PyTorch versions of
+    the kernels."""
+
+    def __init__(self, cfg: MarScfConfig, *, device="cuda", generator=None):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        h, w, c = cfg.image_shape
+        if c not in (1, 3):
+            raise ValueError(f"image channels must be 1 or 3, got {c}")
+        self.squeeze = Squeeze(2)
+        levels, self.level_shapes = [], []
+        for i in range(cfg.L):
+            c, h, w = c * 4, h // 2, w // 2
+            levels.append(Level(cfg, c, generator=generator))
+            self.level_shapes.append((c, h, w))
+            if i < cfg.L - 1:
+                c = c // 2
+        self.levels = nn.ModuleList(levels)
+        hh, ww, cc = cfg.image_shape
+        self.prior = ChannelPriorMultiScale(
+            cc, hh, ww, cfg.L, hidden_size=cfg.prior_hidden,
+            num_layers=cfg.prior_layers, generator=generator)
+        self.num_dims = hh * ww * cc
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.prior.levels[0].encoder.embed_w.device
+
+    # -- density -------------------------------------------------------------
+    def encode(self, z, logdet):
+        """Runs the flow and adds the prior log-probs -> (final z, objective)."""
+        for i, level in enumerate(self.levels):
+            z, logdet = level(*self.squeeze.forward(z, logdet))
+            if i < self.cfg.L - 1:
+                z1, z2 = split_channels(z)
+                logdet = logdet + self.prior.log_likelihood((z1, z2), i + 1)
+                z = z1
+        return z, logdet + self.prior.log_likelihood(z, self.cfg.L)
+
+    def dequantize(self, x, generator=None, noise=None):
+        """x + U[0, 1)/256; `noise` (x's shape) replaces the draw."""
+        if noise is None:
+            noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                               device=x.device)
+        return x + noise * (1.0 / 256.0)
+
+    def forward(self, x, *, generator=None, noise=None):
+        """x in [-0.5, 0.5] -> (z, nll in bits/dim per image)."""
+        z = self.dequantize(x, generator, noise)
+        logdet = torch.full((x.shape[0],), -math.log(256.0) * self.num_dims,
+                            dtype=torch.float32, device=x.device)
+        z, objective = self.encode(z, logdet)
+        return z, -objective / (math.log(2.0) * self.num_dims)
+
+    # -- sampling ------------------------------------------------------------
+    def sample(self, batch: int, eps_std: float = 1.0, generator=None):
+        cfg, device = self.cfg, self.device
+        z = self.prior.sample(cfg.L, batch=batch, eps_std=eps_std,
+                              generator=generator, device=device)
+        zero = torch.zeros((batch,), device=device, dtype=z.dtype)
+        for i in reversed(range(cfg.L)):
+            if i < cfg.L - 1:
+                z2 = self.prior.sample(i + 1, z1=z, eps_std=eps_std,
+                                       generator=generator)
+                z = torch.cat([z, z2], dim=1)
+            z, _ = self.levels[i].inverse(z, zero)
+            z, _ = self.squeeze.inverse(z, zero)
+        return z
+
+    # -- data-dependent init -------------------------------------------------
+    @torch.no_grad()
+    def ddi(self, x, *, generator=None, noise=None):
+        """Initialise every actnorm, in place, from a prototype batch."""
+        z = self.dequantize(x, generator, noise)
+        logdet = torch.zeros((x.shape[0],), device=x.device)
+        for i, level in enumerate(self.levels):
+            z, logdet = self.squeeze.forward(z, logdet)
+            for step in level.steps:
+                z, logdet = step.ddi(z, logdet)
+            if i < self.cfg.L - 1:
+                z, _ = split_channels(z)

@@ -1,0 +1,80 @@
+"""Convolution primitives of the coupling networks.
+
+Counterpart of gpnf_tpu/ops/conv.py: NCHW "SAME" convolutions with OIHW
+weights, and the weight-normalised conv and dense layers (torch's
+weight_norm: w = g * v / ||v||, the norm over every axis but the output
+axis). `Conv2d`/`Conv2dZeros` (affine coupling) are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def same_pad(k: int, dilation: int):
+    """(low, high) padding that keeps a stride-1 output the input's size."""
+    total = dilation * (k - 1)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *,
+           dilation: int = 1) -> torch.Tensor:
+    """Stride-1 "SAME" 2-D convolution, x (B, C, H, W), w (O, I, kh, kw)."""
+    (ph0, ph1), (pw0, pw1) = (same_pad(w.shape[2], dilation),
+                              same_pad(w.shape[3], dilation))
+    if ph0 == ph1 and pw0 == pw1:
+        return F.conv2d(x, w, b, padding=(ph0, pw0), dilation=dilation)
+    x = F.pad(x, (pw0, pw1, ph0, ph1))
+    return F.conv2d(x, w, b, dilation=dilation)
+
+
+def uniform_(shape, bound: float, generator=None) -> torch.Tensor:
+    """U(-bound, bound) on the CPU, drawn from `generator`."""
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class WNConv2d(nn.Module):
+    """Weight-normalised conv with torch's default Conv2d init."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
+                 generator=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_ch * kernel_size * kernel_size)
+        v = uniform_((out_ch, in_ch, kernel_size, kernel_size), bound,
+                     generator)
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(torch.sqrt(torch.sum(v.reshape(out_ch, -1) ** 2,
+                                                   dim=-1)))
+        self.b = nn.Parameter(uniform_((out_ch,), bound, generator))
+
+    def effective_weight(self) -> torch.Tensor:
+        norm = torch.sqrt(torch.sum(self.v.reshape(self.v.shape[0], -1) ** 2,
+                                    dim=-1))
+        return self.v * (self.g / norm).reshape(-1, 1, 1, 1)
+
+    def forward(self, x):
+        return conv2d(x, self.effective_weight(), self.b)
+
+
+class WNDense(nn.Module):
+    """Weight-normalised linear layer on the last axis."""
+
+    def __init__(self, in_f: int, out_f: int, *, bias: bool = True,
+                 generator=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_f)
+        v = uniform_((out_f, in_f), bound, generator)
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(torch.sqrt(torch.sum(v ** 2, dim=-1)))
+        self.b = (nn.Parameter(uniform_((out_f,), bound, generator))
+                  if bias else None)
+
+    def effective_weight(self) -> torch.Tensor:
+        norm = torch.sqrt(torch.sum(self.v ** 2, dim=-1))
+        return self.v * (self.g / norm)[:, None]
+
+    def forward(self, x):
+        return F.linear(x, self.effective_weight(), self.b)

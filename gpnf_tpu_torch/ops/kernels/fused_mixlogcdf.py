@@ -1,0 +1,62 @@
+"""MixLogCDF coupling forward transform and its per-element log-det.
+
+Counterpart of gpnf_tpu/ops/pallas/fused_mixlogcdf.py `mixlogcdf_forward`.
+The CUDA kernel is gpnf_tpu_torch/csrc/mixlogcdf_forward.cu; its header says
+what bounds it on the H100 and how it is laid out. `mixlogcdf_plain` is the
+same function in plain PyTorch (the JAX package's `_reference`): the wrapper
+runs it for CPU tensors, and the tests and chip_smoke.py hold the kernel
+against it.
+
+Not yet ported: the backward (autograd of the plain version, as the JAX
+package differentiates its jnp reference).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import logistic
+from . import _native
+
+MAX_COMPONENTS = 32  # kMaxK of the kernel
+
+
+def mixlogcdf_plain(x, a, b, pi, mu, s):
+    """x/a/b (B, D); pi/mu/s (B, K, D) -> (y, elementwise ldj), both (B, D)."""
+    u = torch.exp(logistic.mixture_log_cdf(x, pi, mu, s))
+    u, scale_ldj = logistic.logit_transform(u)
+    y = (u + b) * torch.exp(a)
+    ldj = logistic.mixture_log_pdf(x, pi, mu, s) + scale_ldj + a
+    return y, ldj
+
+
+def mixlogcdf_forward(x, a, b, pi, mu, s):
+    """(y, ldj) of the MixLogCDF transform. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if x.dim() != 2 or pi.dim() != 3:
+        raise ValueError(f"mixlogcdf_forward: x {tuple(x.shape)} and pi "
+                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+    bsz, k, d = pi.shape
+    for name, t in (("x", x), ("a", a), ("b", b)):
+        if t.shape != (bsz, d):
+            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {(bsz, d)}")
+    for name, t in (("mu", mu), ("s", s)):
+        if t.shape != pi.shape:
+            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
+    if all(t.device.type == "cpu" for t in (x, a, b, pi, mu, s)):
+        return mixlogcdf_plain(x, a, b, pi, mu, s)
+    device = _native.check_cuda_inputs("mixlogcdf_forward", x=x, a=a, b=b,
+                                       pi=pi, mu=mu, s=s)
+    if k > MAX_COMPONENTS:
+        raise ValueError(f"mixlogcdf_forward: K={k} > {MAX_COMPONENTS}")
+    y = torch.empty_like(x)
+    ldj = torch.empty_like(x)
+    _native.launch("mixlogcdf_forward", "gpnf_mixlogcdf_forward", device,
+                   *(t.data_ptr() for t in (x, a, b, pi, mu, s, y, ldj)),
+                   bsz, k, d)
+    mixlogcdf_forward.launches += 1
+    return y, ldj
+
+
+mixlogcdf_forward.launches = 0

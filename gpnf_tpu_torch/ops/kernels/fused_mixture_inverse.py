@@ -1,0 +1,97 @@
+"""Inverse of the logistic-mixture CDF: bisection, then clipped Newton.
+
+Counterpart of gpnf_tpu/ops/pallas/fused_mixture_inverse.py
+`mixture_inverse`. The CUDA kernel is gpnf_tpu_torch/csrc/mixture_inverse.cu;
+its header says what bounds it on the H100 and how it is laid out.
+`mixture_inverse_plain` is the same fixed schedule in plain PyTorch (the
+JAX package's `_inv_body`): the wrapper runs it for CPU tensors, and the
+tests and chip_smoke.py hold the kernel against it.
+
+Not yet ported: the implicit-function backward.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _native
+
+BISECT_ITERS = 26
+NEWTON_ITERS = 4
+MAX_COMPONENTS = 32  # kMaxK of the kernel
+
+
+def _sum_k(t):
+    """Sum over the component axis of (B, K, D) in k order, as the kernel
+    adds: the fixed schedule magnifies a last-bit difference in log CDF
+    where the CDF is flat, so the plain version rounds as the kernel does."""
+    acc = t[:, 0]
+    for k in range(1, t.shape[1]):
+        acc = acc + t[:, k]
+    return acc
+
+
+def _logsumexp_k(t):
+    m = torch.amax(t, dim=1)
+    return torch.log(_sum_k(torch.exp(t - m[:, None]))) + m
+
+
+def mixture_inverse_plain(y, pi, mu, s):
+    """y (B, D) in (0, 1); pi/mu/s (B, K, D) -> x (B, D) with CDF(x) = y."""
+    pmax = torch.amax(pi, dim=1, keepdim=True)
+    log_pi = (pi - pmax) - torch.log(_sum_k(torch.exp(pi - pmax)))[:, None]
+    inv_s = torch.exp(-s)
+
+    def terms(x):
+        z = (x[:, None, :] - mu) * inv_s
+        l1p = torch.log1p(torch.exp(-torch.abs(z)))
+        return z, l1p, log_pi + (torch.clamp(z, max=0.0) - l1p)
+
+    def log_pdf(z, l1p):
+        return _logsumexp_k(log_pi + z - s - 2.0 * (torch.clamp(z, min=0.0)
+                                                    + l1p))
+
+    scale_sum = _sum_k(torch.exp(s))
+    lb = torch.amin(mu, dim=1) - 20.0 * scale_sum
+    ub = torch.amax(mu, dim=1) + 20.0 * scale_sum
+    log_y = torch.log(y)
+    x = torch.zeros_like(y)
+    for _ in range(BISECT_ITERS):
+        gt = _logsumexp_k(terms(x)[2]) > log_y
+        x, lb, ub = (torch.where(gt, (x + lb) * 0.5, (x + ub) * 0.5),
+                     torch.where(gt, lb, x), torch.where(gt, x, ub))
+    for _ in range(NEWTON_ITERS):
+        z, l1p, t_cdf = terms(x)
+        log_cdf = _logsumexp_k(t_cdf)
+        step = (log_cdf - log_y) * torch.exp(log_cdf - log_pdf(z, l1p))
+        x = torch.minimum(torch.maximum(x - step, lb), ub)
+    return x
+
+
+def mixture_inverse(y, pi, mu, s):
+    """x with mixture CDF(x) = y. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if y.dim() != 2 or pi.dim() != 3:
+        raise ValueError(f"mixture_inverse: y {tuple(y.shape)} and pi "
+                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+    bsz, k, d = pi.shape
+    if y.shape != (bsz, d):
+        raise ValueError(f"mixture_inverse: 'y' has shape {tuple(y.shape)}, "
+                         f"expected {(bsz, d)}")
+    for name, t in (("mu", mu), ("s", s)):
+        if t.shape != pi.shape:
+            raise ValueError(f"mixture_inverse: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
+    if all(t.device.type == "cpu" for t in (y, pi, mu, s)):
+        return mixture_inverse_plain(y, pi, mu, s)
+    device = _native.check_cuda_inputs("mixture_inverse", y=y, pi=pi, mu=mu,
+                                       s=s)
+    if k > MAX_COMPONENTS:
+        raise ValueError(f"mixture_inverse: K={k} > {MAX_COMPONENTS}")
+    x = torch.empty_like(y)
+    _native.launch("mixture_inverse", "gpnf_mixture_inverse", device,
+                   *(t.data_ptr() for t in (y, pi, mu, s, x)), bsz, k, d)
+    mixture_inverse.launches += 1
+    return x
+
+
+mixture_inverse.launches = 0
