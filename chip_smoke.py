@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's mAR-SCF serving path on one NVIDIA card.
+"""Drive the PyTorch port's mAR-SCF training and serving paths on one
+NVIDIA card.
 
     python3 chip_smoke.py [--out DIR] [--seed N] [--profile]
 
@@ -7,18 +8,29 @@ Phases, each of which raises (exit code != 0) when it fails:
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: nvcc compiles every kernel source of gpnf_tpu_torch/csrc at once;
   3. kernels: each hand-written kernel against its plain PyTorch version at
-     the serving path's shapes (batch 64, the three levels), with its time,
-     the plain version's time, a library call's time where one PyTorch
-     call computes the same function, and its bound on this card;
-  4. serve: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
-     32 components, ConvLSTM prior; random weights from --seed) after ddi,
-     test bits/dim over 4 synthetic batches of 64, with the launch counts;
-  5. sample: a 64-image ancestral-sample grid written as a PNG;
-  6. card vs CPU: encode bits/dim and eps_std=0 samples on the same
-     weights, and each level's K steps run forward then inverse on the card;
-  7. timings: eval and sample images/s at batch 64, peak device memory;
-  8. with --profile: device time by kernel over one eval batch and one
-     sampling pass (torch.profiler), and the device's busy share.
+     the paths' shapes (batch 64, the three levels), with its time, the
+     plain version's time, a library call's time where one PyTorch call
+     computes the same function, and its bound on this card; the
+     attention forward at dropout rate 0 and 0.2 (one seed for kernel and
+     plain version: the same mask), its backward at 0 and 0.2 (dseq, dW,
+     and two calls bit for bit the same);
+  4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
+     32 components, ConvLSTM prior, dropout 0.2; random weights from
+     --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
+     warmup: every loss finite and the last 5 below the first, the launch
+     counts per step; then train images/s (median of 3 windows of 10
+     steps), peak device memory, one step at batch 256, and a checkpoint
+     written and restored bit for bit;
+  5. serve: the same configuration after ddi, in eval mode, test bits/dim
+     over 4 synthetic batches of 64, with the launch counts;
+  6. sample: a 64-image ancestral-sample grid written as a PNG;
+  7. card vs CPU: encode bits/dim and eps_std=0 samples on the same
+     weights, each level's K steps run forward then inverse on the card,
+     and one training step at batch 4, dropout 0 (loss and gradient);
+  8. timings: eval and sample images/s at batch 64, peak device memory;
+  9. with --profile: device time by kernel over one train step, one eval
+     batch and one sampling pass (torch.profiler), and the device's busy
+     share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -29,6 +41,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,8 +56,11 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 BATCH = 64
 FLAGSHIP = dict(image_shape=(32, 32, 3), L=3, K=4, hidden_channels=96,
-                num_blocks=10, num_components=32, prior_hidden=32,
-                prior_layers=3)
+                num_blocks=10, num_components=32, drop_prob=0.2,
+                prior_hidden=32, prior_layers=3)
+RATE = FLAGSHIP["drop_prob"]
+TRAIN_STEPS, WINDOW_STEPS, WINDOWS = 20, 10, 3
+WARM_UP = 64  # samples: updates 0 and 1 run at lr 0, full lr from update 2
 # (attention S, mixture D = half the level's channels x H x W) per level
 LEVELS = [(256, 1536), (64, 768), (16, 384)]
 # operations per (element, mixture component), each fp32 add/mul/compare and
@@ -129,16 +145,18 @@ def check_kernels(device, model, timer):
     c, heads, k = w.shape[1], block.attn.num_heads, FLAGSHIP["num_components"]
     results = {}
 
-    def record(name, level, err, ms, plain_ms, library_ms, bytes_moved, ops):
+    def record(name, level, err, ms, plain_ms, library_ms, bytes_moved, ops,
+               **extra):
         bound_ms, bound_by = bound(bytes_moved, ops)
-        row = dict(level=level, max_abs_err=err[0], max_rel_err=err[1], ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(level=level, **extra, max_abs_err=err[0],
+                   max_rel_err=err[1], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         results.setdefault(name, []).append(row)
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
-        log(f"  {name} level {level}: max abs err {err[0]:.3g} max rel err "
-            f"{err[1]:.3g} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} | "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        tag = "".join(f" {k} {v}" for k, v in extra.items())
+        log(f"  {name} level {level}{tag}: max abs err {err[0]:.3g} max rel "
+            f"err {err[1]:.3g} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
+            f"{lib} | bound {bound_ms * 1e3:.2f} us ({bound_by})")
 
     def library_attention(seq, w):
         b, s, _ = seq.shape
@@ -147,23 +165,70 @@ def check_kernels(device, model, timer):
         return F.scaled_dot_product_attention(qq, kk, vv).transpose(
             1, 2).reshape(b, s, c)
 
+    def library_backward_ms(seq, w, g):
+        """Autograd backward of F.linear + SDPA (rate 0), the graph built
+        once and its backward timed alone."""
+        seq_r, w_r = seq.clone().requires_grad_(), w.clone().requires_grad_()
+        with torch.enable_grad():
+            out = library_attention(seq_r, w_r)
+        return timer(lambda: torch.autograd.grad(out, (seq_r, w_r), g,
+                                                 retain_graph=True))
+
+    dh = c // heads
     with torch.no_grad():
         for level, (s, d) in enumerate(LEVELS):
-            seq = randn(BATCH, s, c)
-            got = kernels.fused_attention_proj(seq, w, heads)
-            want = kernels.attention_proj_plain(seq, w, heads)
-            torch.cuda.synchronize()
-            err = max_errs(got, want)
-            if err[0] > 1e-5:
-                raise AssertionError(f"attention level {level}: max abs err "
-                                     f"{err[0]} > 1e-5")
-            dh = c // heads
-            record("fused_attention_proj", level, err,
-                   timer(lambda: kernels.fused_attention_proj(seq, w, heads)),
-                   timer(lambda: kernels.attention_proj_plain(seq, w, heads)),
-                   timer(lambda: library_attention(seq, w)),
-                   4 * (2 * BATCH * s * c + 3 * c * c),
-                   2 * BATCH * s * c * 3 * c + 4 * BATCH * heads * s * s * dh)
+            seq, g = randn(BATCH, s, c), randn(BATCH, s, c)
+            seed = torch.tensor([4321 + level], dtype=torch.int32,
+                                device=device)
+            fwd_bytes = 4 * (2 * BATCH * s * c + 3 * c * c)
+            core = 2 * BATCH * heads * s * s * dh  # one S x S x Dh product
+            proj = 2 * BATCH * s * c * 3 * c
+            for rate in (0.0, RATE):
+                # one seed for kernel and plain version: the same mask, so
+                # a single differing keep bit shows as an O(p * v) error
+                run = lambda: kernels.fused_attention_proj(seq, w, heads, rate,
+                                                           seed)
+                plain = lambda: kernels.attention_proj_plain(seq, w, heads,
+                                                             rate, seed)
+                err = max_errs(run(), plain())
+                if err[0] > 1e-5:
+                    raise AssertionError(f"attention level {level} rate "
+                                         f"{rate}: max abs err {err[0]} > 1e-5")
+                # no PyTorch call draws the kernel's mask: a library time
+                # at rate 0 only
+                record("fused_attention_proj", level, err, timer(run),
+                       timer(plain),
+                       timer(lambda: library_attention(seq, w))
+                       if rate == 0.0 else None,
+                       fwd_bytes, proj + 2 * core, rate=rate)
+            for rate in (0.0, RATE):
+                run = lambda: kernels.fused_attention_proj_bwd(seq, w, g, heads,
+                                                               rate, seed)
+                plain = lambda: kernels.attention_proj_plain_bwd(
+                    seq, w, g, heads, rate, seed)
+                got, again, want = run(), run(), plain()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"attention bwd level {level} rate "
+                                         f"{rate}: two calls differ")
+                errs = [max_errs(x, y) for x, y in zip(got, want)]
+                # dW sums B*S rows in another order than cuBLAS: held to
+                # the scale of each output
+                over_scale = 0.0
+                for name, x, y in zip(("dseq", "dW"), got, want):
+                    scale = float(y.abs().max())
+                    diff = float((x - y).abs().max())
+                    over_scale = max(over_scale, diff / scale)
+                    if diff > 1e-4 * scale:
+                        raise AssertionError(
+                            f"attention bwd level {level} rate {rate}: {name} "
+                            f"max abs err {diff} > 1e-4 x max |plain| {scale}")
+                err = tuple(max(e[i] for e in errs) for i in range(2))
+                record("fused_attention_proj_bwd", level, err, timer(run),
+                       timer(plain),
+                       library_backward_ms(seq, w, g) if rate == 0.0 else None,
+                       4 * (3 * BATCH * s * c + 2 * 3 * c * c),
+                       3 * proj + 5 * core, rate=rate, deterministic=True,
+                       err_over_scale=float(f"{over_scale:.3g}"))
 
             args = (randn(BATCH, d, s=0.5), randn(BATCH, d, s=0.1),
                     randn(BATCH, d, s=0.1), randn(BATCH, k, d),
@@ -207,7 +272,105 @@ def check_kernels(device, model, timer):
     return results
 
 
-# -- phases 4-7 ------------------------------------------------------------------
+# -- phase 4 -------------------------------------------------------------------
+def train(device, loader, out_dir, seed, card):
+    """The flagship training path: ddi, then Adamax steps with dropout."""
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training.checkpoints import CheckpointManager
+    from gpnf_tpu_torch.training.loop import bits_per_dim_loss, train_step
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    cfg = MarScfConfig(**FLAGSHIP)
+    model = MarScfFlow(cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed + 10))
+    batches = [torch.from_numpy(b).to(device) for b, _ in zip(loader, range(16))]
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    model.ddi(batches[0], generator=gen)
+    model.train()
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=WARM_UP,
+                       batch_size=BATCH)
+    step = 0
+
+    def one_step():
+        nonlocal step
+        loss = train_step(model, opt, batches[step % len(batches)], gen)
+        step += 1
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(TRAIN_STEPS)]  # gate: each read
+    counts = kernels.launch_counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log(f"  {TRAIN_STEPS} steps at batch {BATCH}, dropout {RATE}, warmup "
+        f"{WARM_UP} samples: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"bits/dim; launches per step {per_step}")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
+            "mixlogcdf_forward": 12, "mixture_inverse": 0}
+    if per_step != want:
+        raise AssertionError(f"train launches per step {per_step} != {want}")
+    last5 = statistics.mean(losses[-5:])
+    if not (all(math.isfinite(x) for x in losses) and last5 < losses[0]):
+        raise AssertionError(f"train losses not finite and falling: {losses}")
+    if opt.total_notfinite:
+        raise AssertionError(f"{opt.total_notfinite} non-finite updates")
+
+    window_s = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_STEPS):
+            loss = one_step()
+        float(loss)  # each window ends in a loss read
+        window_s.append(time.perf_counter() - t0)
+    images_per_s = WINDOW_STEPS * BATCH / statistics.median(window_s)
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"  train {images_per_s:.1f} images/s (median of {WINDOWS} windows of "
+        f"{WINDOW_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
+    log(f"  train peak device memory {peak / 2 ** 30:.3f} GiB at batch "
+        f"{BATCH} [{card}]")
+
+    # one step at batch 256 (bench.py's batch): does it fit on this card?
+    big = torch.cat([batches[i % len(batches)] for i in range(4)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        opt.zero_grad()
+        bits_per_dim_loss(model, big, gen).backward()
+        torch.cuda.synchronize()
+        peak_256 = torch.cuda.max_memory_allocated(device)
+        log(f"  a batch-256 forward and backward fits: peak "
+            f"{peak_256 / 2 ** 30:.3f} GiB [{card}]")
+    except torch.cuda.OutOfMemoryError:
+        peak_256 = None
+        log(f"  a batch-256 forward and backward does not fit [{card}]")
+    opt.zero_grad()
+    del big
+    torch.cuda.empty_cache()
+
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    ckpt = CheckpointManager(ckpt_dir)
+    ckpt.save(step, model, metric=losses[-1])
+    restored = MarScfFlow(cfg, device=device,
+                          generator=torch.Generator().manual_seed(seed + 12))
+    ckpt.restore(restored, best=True)
+    want_state, got_state = model.state_dict(), restored.state_dict()
+    same = all(torch.equal(want_state[k], got_state[k]) for k in want_state)
+    log(f"  checkpoint step_{step}.npz ({len(want_state)} tensors) restored "
+        f"bit for bit: {same}")
+    if not same or set(want_state) != set(got_state):
+        raise AssertionError("checkpoint restore is not bit for bit")
+    shutil.rmtree(ckpt_dir)  # 2 x 185 MB
+    return {"losses": losses, "launches": counts,
+            "launches_per_step": per_step, "train_images_per_s": images_per_s,
+            "train_window_s": window_s, "train_peak_memory_bytes": peak,
+            "batch_256_peak_memory_bytes": peak_256}, one_step
+
+
+# -- phases 5-8 ------------------------------------------------------------------
 def serve(model, loader, device, seed):
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.training.loop import evaluate
@@ -222,6 +385,7 @@ def serve(model, loader, device, seed):
     if not (math.isfinite(nll) and nll < 30.0):
         raise AssertionError(f"eval bits/dim {nll} is not finite and < 30")
     want = {"fused_attention_proj": 120 * n_batches,
+            "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
@@ -239,8 +403,8 @@ def sample(model, out_dir, device, seed):
     counts = kernels.launch_counts()
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
-    want = {"fused_attention_proj": 120, "mixlogcdf_forward": 0,
-            "mixture_inverse": 12}
+    want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
+            "mixlogcdf_forward": 0, "mixture_inverse": 12}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
     with open(path, "rb") as f:
@@ -294,7 +458,38 @@ def card_vs_cpu(model, batch, device):
             z = y[:, : y.shape[1] // 2]
     if not max(round_trip) <= 1e-3:
         raise AssertionError(f"round trip {round_trip} > 1e-3")
-    return bpd_diff, sample_rel, round_trip
+
+    # one training step at batch 4, dropout 0: the same weights, images and
+    # dequantisation noise; loss and every parameter's gradient
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    cfg = MarScfConfig(**{**FLAGSHIP, "drop_prob": 0.0})
+    x = torch.from_numpy(batch[:4])
+    noise = torch.rand(x.shape, generator=torch.Generator().manual_seed(8))
+    step = {}
+    for dev in ("cpu", device):
+        net = MarScfFlow(cfg, device=dev)
+        net.load_state_dict(model.state_dict())
+        loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
+        loss.backward()
+        step[str(dev)] = (float(loss.detach()), torch.cat(
+            [p.grad.reshape(-1) for p in net.parameters()]).cpu())
+    (loss_cpu, g_cpu), (loss_card, g_card) = step["cpu"], step[str(device)]
+    train_loss_diff = abs(loss_card - loss_cpu)
+    grad_scale = float(g_cpu.abs().max())
+    grad_rel = float((g_card - g_cpu).abs().max()) / grad_scale
+    log(f"  train step at batch 4, dropout 0: loss card {loss_card:.6f} CPU "
+        f"{loss_cpu:.6f} (diff {train_loss_diff:.3g}, bar 1e-4 bits/dim); "
+        f"{g_cpu.numel()} gradients, max abs diff / max abs value "
+        f"{grad_scale:.3g}: {grad_rel:.3g} (bar 1e-3)")
+    if not (train_loss_diff <= 1e-4 and grad_rel <= 1e-3
+            and torch.isfinite(g_card).all()):
+        raise AssertionError(f"train step card vs CPU: loss diff "
+                             f"{train_loss_diff}, gradient {grad_rel}")
+    return {"encode_bpd_card_vs_cpu": bpd_diff,
+            "sample_rel_err_card_vs_float64": sample_rel,
+            "round_trip_max_abs_err": round_trip,
+            "train_loss_card_vs_cpu": train_loss_diff,
+            "train_grad_rel_err_card_vs_cpu": grad_rel}
 
 
 def timings(model, loader, device, card):
@@ -329,20 +524,23 @@ def timings(model, loader, device, card):
     return out
 
 
-def profile(model, loader, device, card):
-    """Device time by kernel over one eval batch and one sampling pass, and
-    the device's busy share of the host-clock window (torch.profiler)."""
+def profile(model, loader, device, card, train_step_fn):
+    """Device time by kernel over one train step, one eval batch and one
+    sampling pass, and the device's busy share of the host-clock window
+    (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     batch = torch.from_numpy(next(iter(loader))).to(device)
-    runs = {"eval batch": lambda gen: model(batch, generator=gen),
-            "sample pass": lambda gen: model.sample(BATCH, generator=gen)}
+    runs = {"train step": (lambda gen: train_step_fn(), True),
+            "eval batch": (lambda gen: model(batch, generator=gen), False),
+            "sample pass": (lambda gen: model.sample(BATCH, generator=gen),
+                            False)}
     out = {}
-    for label, fn in runs.items():
+    for label, (fn, grad) in runs.items():
         gen = torch.Generator(device=device).manual_seed(30)
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             fn(gen)
             torch.cuda.synchronize()
             with torch_profile(activities=[ProfilerActivity.CPU,
@@ -353,7 +551,10 @@ def profile(model, loader, device, card):
                 wall_us = (time.perf_counter() - t0) * 1e6
         by_name = {}
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # kernels only: annotations such as Optimizer.step#Adamax.step
+            # are ranges over other kernels
+            if (e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
                 name = e.name.replace("(anonymous namespace)::", "")
                 name = name.removeprefix("void ").split("(")[0][:70]
                 tot, cnt = by_name.get(name, (0.0, 0))
@@ -376,13 +577,14 @@ def main():
                    help="where the sample grid and chip_smoke.json go")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
-                   help="also trace one eval batch and one sampling pass")
+                   help="also trace one train step, one eval batch and one "
+                        "sampling pass")
     args = p.parse_args()
 
     log("== 1. device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
-                         "is False); the port's serving path needs the card")
+                         "is False); the port's paths need the card")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -421,21 +623,27 @@ def main():
     timer = Timer(device)
     per_level = check_kernels(device, model, timer)
 
-    log("== 4. serve: flagship eval bits/dim")
+    log(f"== 4. train: flagship, dropout {RATE}, batch {BATCH}")
+    trained, train_step_fn = train(device, train_loader, args.out, args.seed,
+                                   card)
+    log("== 5. serve: flagship eval bits/dim")
     nll, eval_counts = serve(model, loader, device, args.seed)
-    log("== 5. sample: ancestral grid")
+    log("== 6. sample: ancestral grid")
     sample_counts, nan_count = sample(model, args.out, device, args.seed)
-    log("== 6. card vs CPU")
-    bpd_diff, sample_rel, round_trip = card_vs_cpu(model, proto, device)
-    log("== 7. timings")
+    log("== 7. card vs CPU")
+    checks = card_vs_cpu(model, proto, device)
+    log("== 8. timings")
     times = timings(model, loader, device, card)
     if args.profile:
-        log("== 8. profile: device time by kernel")
-        times["profile"] = profile(model, loader, device, card)
+        log("== 9. profile: device time by kernel")
+        times["profile"] = profile(model, loader, device, card, train_step_fn)
+    del train_step_fn
 
+    attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
+                 "gpnf_tpu/ops/pallas/fused_attention.py:")
     meta = {
-        "fused_attention_proj": ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
-                                 "gpnf_tpu/ops/pallas/fused_attention.py:393"),
+        "fused_attention_proj": (attention[0], attention[1] + "393"),
+        "fused_attention_proj_bwd": (attention[0], attention[1] + "416"),
         "mixlogcdf_forward": ("gpnf_tpu_torch/csrc/mixlogcdf_forward.cu",
                               "gpnf_tpu/ops/pallas/fused_mixlogcdf.py:33"),
         "mixture_inverse": ("gpnf_tpu_torch/csrc/mixture_inverse.cu",
@@ -444,22 +652,28 @@ def main():
     record = []
     for kernel in kernels.KERNELS:
         name = kernel.__name__
-        top = per_level[name][0]  # level 0: the largest shape on the path
+        # level 0 (the largest shape on the paths), at the training rate;
+        # the library call (F.linear + SDPA, its backward) at rate 0
+        rows = [r for r in per_level[name] if r["level"] == 0]
+        top = [r for r in rows if r.get("rate", RATE) == RATE][0]
+        library_ms = rows[0]["library_ms"]
+        launches = {"train": trained["launches"][name],
+                    "eval": eval_counts[name], "sample": sample_counts[name]}
         record.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": eval_counts[name] + sample_counts[name],
+            "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in per_level[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"],
-            "shape": f"level 0, batch {BATCH}", "per_level": per_level[name]})
-    summary = {"card": card, "build_s": build_s, "eval_bits_per_dim": nll,
-               "nan_before_clamp": nan_count,
-               "encode_bpd_card_vs_cpu": bpd_diff,
-               "sample_rel_err_card_vs_float64": sample_rel,
-               "round_trip_max_abs_err": round_trip, **times,
-               "kernels": record}
+            "library_ms": library_ms,
+            "shape": f"level 0, batch {BATCH}" + (
+                f", rate {RATE}; library_ms at rate 0" if "rate" in top
+                else ""),
+            "per_level": per_level[name]})
+    summary = {"card": card, "build_s": build_s, "train": trained,
+               "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
+               **checks, **times, "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     log(json.dumps({"kernels": record}))

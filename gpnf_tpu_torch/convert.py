@@ -1,4 +1,4 @@
-"""Carry the JAX package's mAR-SCF parameters into the port's modules.
+"""Carry mAR-SCF parameters between the JAX package and the port's modules.
 
 The port's modules are named after the JAX parameter tree, so a JAX path
 such as `levels/0/steps/coupling/net/blocks/3/attn/in_proj/v` is the
@@ -12,6 +12,10 @@ Two input forms are accepted:
 Each level's `steps` may be K-stacked (a leading K axis on every leaf, the
 JAX default `scan_steps=True`) or a list of K step trees; stacked steps are
 unstacked here. A missing or extra key, or a shape mismatch, raises.
+
+`state_dict_to_jax` is the way back: the port's state dict as the flat
+JAX dict with each level's K steps stacked again, the layout the JAX
+`CheckpointManager` writes under "params/".
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 _STEPS = re.compile(r"^(levels/\d+/steps)/(.+)$")
+_STEP_KEY = re.compile(r"^(levels\.\d+\.steps)\.(\d+)\.(.+)$")
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -58,6 +63,27 @@ def jax_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
                 out[f"{m.group(1)}/{j}/{m.group(2)}".replace("/", ".")] = value[j]
         else:
             out[key.replace("/", ".")] = value
+    return out
+
+
+def state_dict_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{state-dict key: tensor} -> {"levels/0/steps/...": array} with the K
+    steps of each level stacked on a leading axis (inverse of
+    `jax_to_state_dict`)."""
+    out, steps = {}, {}
+    for key, value in state.items():
+        arr = value.detach().cpu().numpy()
+        m = _STEP_KEY.match(key)
+        if m:
+            steps.setdefault((m.group(1), m.group(3)), {})[int(m.group(2))] = arr
+        else:
+            out[key.replace(".", "/")] = arr
+    for (prefix, rest), by_step in steps.items():
+        if sorted(by_step) != list(range(len(by_step))):
+            raise ValueError(f"steps of {prefix} are not 0..K-1: "
+                             f"{sorted(by_step)}")
+        out[f"{prefix}.{rest}".replace(".", "/")] = np.stack(
+            [by_step[j] for j in range(len(by_step))])
     return out
 
 

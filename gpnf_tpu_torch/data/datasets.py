@@ -3,8 +3,10 @@
 Counterpart of the cifar10/synthetic part of gpnf_tpu/data/datasets.py:
 the CIFAR-10 python pickle batches are read from disk when present,
 otherwise a deterministic synthetic set stands in. Pixels are float32 NCHW
-in [-0.5, 0.5]. Not ported yet: the training augmentation (CIFAR shift and
-flip) and the MNIST and ImageNet-32/64 readers.
+in [-0.5, 0.5]. The CIFAR-10 training loader augments on the host with the
+JAX package's shift-and-flip (its numpy path; the JAX package's optional
+C++ pass makes the same decisions). Not ported yet: the MNIST and
+ImageNet-32/64 readers.
 """
 from __future__ import annotations
 
@@ -16,13 +18,15 @@ import numpy as np
 
 
 class NumpyLoader:
-    """Mini-batch iterator over uint8 NCHW images."""
+    """Mini-batch iterator over uint8 NCHW images; augment="cifar" shifts
+    and flips each training image."""
 
     def __init__(self, images: np.ndarray, batch_size: int, *, shuffle: bool,
-                 seed: int = 0, drop_last: bool = True):
+                 augment: str = "none", seed: int = 0, drop_last: bool = True):
         self.images = images
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.augment = augment
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
 
@@ -40,7 +44,31 @@ class NumpyLoader:
                if self.drop_last else len(idx))
         for start in range(0, end, self.batch_size):
             batch = self.images[idx[start: start + self.batch_size]]
+            if self.augment == "cifar":
+                n = batch.shape[0]
+                shifts = self.rng.integers(0, 6, size=n).astype(np.int32)
+                horiz = (self.rng.random(n) < 0.5).astype(np.uint8)
+                flip = (self.rng.random(n) < 0.5).astype(np.uint8)
+                batch = shift_flip(batch, 3, shifts, horiz, flip)
             yield batch.astype(np.float32) / 255.0 - 0.5
+
+
+def shift_flip(batch: np.ndarray, pixels: int, shifts, horizontal,
+               flip) -> np.ndarray:
+    """Edge-pad by `pixels`, crop at offset shifts[i] along one axis
+    (horizontal[i] picks which), and mirror left-right where flip[i]."""
+    n, _, h, w = batch.shape
+    padded = np.pad(batch, ((0, 0), (0, 0), (pixels, pixels), (pixels, pixels)),
+                    mode="edge")
+    out = np.empty_like(batch)
+    for i in range(n):
+        s = int(shifts[i])
+        if horizontal[i]:
+            img = padded[i, :, pixels: pixels + h, s: s + w]
+        else:
+            img = padded[i, :, s: s + h, pixels: pixels + w]
+        out[i] = img[:, :, ::-1] if flip[i] else img
+    return out
 
 
 def _load_cifar10(root: str):
@@ -82,6 +110,8 @@ def get_dataset(name: str, batch_size: int, data_root: Optional[str] = None,
                          f"(cifar10 and synthetic are)")
     root = data_root or os.environ.get("GPNF_DATA_ROOT", "./data")
     loaded = _load_cifar10(root) if name == "cifar10" else None
+    augment = "cifar" if name == "cifar10" else "none"
     train, test = loaded if loaded is not None else _synthetic(32)
-    return (NumpyLoader(train, batch_size, shuffle=True, seed=seed),
+    return (NumpyLoader(train, batch_size, shuffle=True, augment=augment,
+                        seed=seed),
             NumpyLoader(test, batch_size, shuffle=False), (32, 32, 3))

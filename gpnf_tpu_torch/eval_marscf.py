@@ -38,7 +38,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from .data.datasets import get_dataset
     from .models.marscf import MarScfConfig, MarScfFlow
-    from .training.checkpoints import restore_best
+    from .training.checkpoints import CheckpointManager
     from .training.loop import evaluate, save_sample_grid
     from .utils.device import resolve_device
 
@@ -55,7 +55,8 @@ def main(argv=None) -> dict:
                        hidden_channels=args.C)
     model = MarScfFlow(cfg, device=device).eval()
     setting_id = f"marscf_{args.dataset_name}_{args.coupling}_{args.K}_{args.C}"
-    restore_best(model, os.path.join(args.checkpoint_dir, setting_id))
+    CheckpointManager(os.path.join(args.checkpoint_dir, setting_id)).restore(
+        model, best=True)
     print("Checkpoint loaded!")
 
     gen = lambda k: torch.Generator(device=device).manual_seed(args.seed + k)

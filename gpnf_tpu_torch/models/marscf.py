@@ -1,14 +1,19 @@
 """mAR-SCF: multi-scale autoregressive normalizing flow for images.
 
 Counterpart of gpnf_tpu/models/marscf.py for the MixLogCDF coupling with
-the ConvLSTM prior, in eval mode. A flow step is actnorm -> invconv (PLU)
+the ConvLSTM prior. A flow step is actnorm -> invconv (PLU)
 -> attention -> attention (permuted) -> coupling -> tuple flip; a level is
 squeeze -> K steps -> channel split, the split-off half scored by the
 prior. The K steps of a level are a plain loop (the JAX package scans a
-stacked copy; `convert.py` unstacks it).
+stacked copy; `convert.py` unstacks it and stacks it back).
 
-Not ported yet: the affine coupling, the Gaussian split prior, models
-without attention, dropout and training. The JAX package's compile and
+Training mode is PyTorch's: `model.train()` turns on the couplings'
+dropout (`drop_prob`, 0.2 as in the JAX package) and the prior's
+(`prior_dp_rate`, 0), `model.eval()` turns them off; the JAX package
+passes `train=True` instead. `ddi` always runs without dropout.
+
+Not ported yet: the affine coupling, the Gaussian split prior and models
+without attention. The JAX package's compile and
 memory options (scan_steps, scan_unroll, remat*, precompute_wn,
 prior_scan_unroll, fused_gated_conv) change no numbers and have no
 counterpart here.
@@ -39,8 +44,10 @@ class MarScfConfig:
     hidden_channels: int = 96
     num_blocks: int = 10
     num_components: int = 32
+    drop_prob: float = 0.2
     prior_hidden: int = 32
     prior_layers: int = 3
+    prior_dp_rate: float = 0.0
 
 
 class FlowStep(nn.Module):
@@ -52,18 +59,19 @@ class FlowStep(nn.Module):
         self.attn2 = InvertibleAttention(channels, generator=generator)
         self.coupling = MixLogCDFCoupling(
             channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
-            num_components=cfg.num_components, generator=generator)
+            num_components=cfg.num_components, drop_prob=cfg.drop_prob,
+            generator=generator)
         self.tuple_flip = TupleFlip()
 
-    def _after_actnorm(self, x, logdet):
+    def _after_actnorm(self, x, logdet, generator=None):
         x, logdet = self.invconv(x, logdet)
         x, logdet = self.attn1(x, logdet)
         x, logdet = self.attn2(x, logdet, permute=True)
-        x, logdet = self.coupling(x, logdet)
+        x, logdet = self.coupling(x, logdet, generator)
         return self.tuple_flip.forward(x, logdet)
 
-    def forward(self, x, logdet):
-        return self._after_actnorm(*self.actnorm(x, logdet))
+    def forward(self, x, logdet, generator=None):
+        return self._after_actnorm(*self.actnorm(x, logdet), generator)
 
     def inverse(self, y, logdet):
         y, logdet = self.tuple_flip.inverse(y, logdet)
@@ -84,9 +92,9 @@ class Level(nn.Module):
         self.steps = nn.ModuleList(FlowStep(cfg, channels, generator=generator)
                                    for _ in range(cfg.K))
 
-    def forward(self, z, logdet):
+    def forward(self, z, logdet, generator=None):
         for step in self.steps:
-            z, logdet = step(z, logdet)
+            z, logdet = step(z, logdet, generator)
         return z, logdet
 
     def inverse(self, z, logdet):
@@ -125,7 +133,8 @@ class MarScfFlow(nn.Module):
         hh, ww, cc = cfg.image_shape
         self.prior = ChannelPriorMultiScale(
             cc, hh, ww, cfg.L, hidden_size=cfg.prior_hidden,
-            num_layers=cfg.prior_layers, generator=generator)
+            num_layers=cfg.prior_layers, dp_rate=cfg.prior_dp_rate,
+            generator=generator)
         self.num_dims = hh * ww * cc
         self.to(device)
 
@@ -134,15 +143,17 @@ class MarScfFlow(nn.Module):
         return self.prior.levels[0].encoder.embed_w.device
 
     # -- density -------------------------------------------------------------
-    def encode(self, z, logdet):
-        """Runs the flow and adds the prior log-probs -> (final z, objective)."""
+    def encode(self, z, logdet, generator=None):
+        """Runs the flow and adds the prior log-probs -> (final z, objective).
+        In training mode `generator` draws the dropout."""
         for i, level in enumerate(self.levels):
-            z, logdet = level(*self.squeeze.forward(z, logdet))
+            z, logdet = level(*self.squeeze.forward(z, logdet), generator)
             if i < self.cfg.L - 1:
                 z1, z2 = split_channels(z)
-                logdet = logdet + self.prior.log_likelihood((z1, z2), i + 1)
+                logdet = logdet + self.prior.log_likelihood((z1, z2), i + 1,
+                                                            generator)
                 z = z1
-        return z, logdet + self.prior.log_likelihood(z, self.cfg.L)
+        return z, logdet + self.prior.log_likelihood(z, self.cfg.L, generator)
 
     def dequantize(self, x, generator=None, noise=None):
         """x + U[0, 1)/256; `noise` (x's shape) replaces the draw."""
@@ -152,11 +163,12 @@ class MarScfFlow(nn.Module):
         return x + noise * (1.0 / 256.0)
 
     def forward(self, x, *, generator=None, noise=None):
-        """x in [-0.5, 0.5] -> (z, nll in bits/dim per image)."""
+        """x in [-0.5, 0.5] -> (z, nll in bits/dim per image). `generator`
+        draws the dequantisation noise and, in training mode, the dropout."""
         z = self.dequantize(x, generator, noise)
         logdet = torch.full((x.shape[0],), -math.log(256.0) * self.num_dims,
                             dtype=torch.float32, device=x.device)
-        z, objective = self.encode(z, logdet)
+        z, objective = self.encode(z, logdet, generator)
         return z, -objective / (math.log(2.0) * self.num_dims)
 
     # -- sampling ------------------------------------------------------------
@@ -177,12 +189,18 @@ class MarScfFlow(nn.Module):
     # -- data-dependent init -------------------------------------------------
     @torch.no_grad()
     def ddi(self, x, *, generator=None, noise=None):
-        """Initialise every actnorm, in place, from a prototype batch."""
-        z = self.dequantize(x, generator, noise)
-        logdet = torch.zeros((x.shape[0],), device=x.device)
-        for i, level in enumerate(self.levels):
-            z, logdet = self.squeeze.forward(z, logdet)
-            for step in level.steps:
-                z, logdet = step.ddi(z, logdet)
-            if i < self.cfg.L - 1:
-                z, _ = split_channels(z)
+        """Initialise every actnorm, in place, from a prototype batch (in eval
+        mode, as the JAX package's ddi runs without dropout)."""
+        was_training = self.training
+        self.eval()
+        try:
+            z = self.dequantize(x, generator, noise)
+            logdet = torch.zeros((x.shape[0],), device=x.device)
+            for i, level in enumerate(self.levels):
+                z, logdet = self.squeeze.forward(z, logdet)
+                for step in level.steps:
+                    z, logdet = step.ddi(z, logdet)
+                if i < self.cfg.L - 1:
+                    z, _ = split_channels(z)
+        finally:
+            self.train(was_training)

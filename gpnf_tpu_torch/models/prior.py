@@ -3,7 +3,9 @@
 Counterpart of gpnf_tpu/models/prior.py. The channels of a level's latent
 are the autoregressive sequence: the teacher-forced likelihood is one pass
 of the ConvLSTM over the channel axis, and ancestral sampling is a loop
-over channels that carries the LSTM state and the previous channel.
+over channels that carries the LSTM state and the previous channel. In
+training, `dp_rate` > 0 zeroes whole channels of the teacher-forced input
+(one keep per (sample, channel), not rescaled), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ class ChannelPriorUniScale(nn.Module):
 
     def __init__(self, nc_base: int, height: int, width: int, level: int,
                  tot_levels: int, hidden_size: int = 32, num_layers: int = 1,
-                 *, generator=None):
+                 dp_rate: float = 0.0, *, generator=None):
         super().__init__()
+        self.dp_rate = dp_rate
         self.height = height // (2 ** level)
         self.width = width // (2 ** level)
         self.is_final = level == tot_levels
@@ -105,14 +108,19 @@ class ChannelPriorUniScale(nn.Module):
         return -0.5 * (logs * 2.0 + ((z - mean) ** 2) * torch.exp(-2.0 * logs)
                        + LOG2PI)
 
-    def log_likelihood(self, z):
+    def log_likelihood(self, z, generator=None):
         """z = (z1, z2) for intermediate levels, z for the final one -> (B,)."""
         z1, z2 = z if isinstance(z, tuple) else (None, z)
         b, t = z2.shape[:2]
         z2_seq = z2[:, :, None]  # (B, T, 1, H, W)
+        z2_in = z2_seq
+        if self.training and self.dp_rate > 0.0:
+            keep = torch.rand((b, t, 1, 1, 1), generator=generator,
+                              device=z2.device) >= self.dp_rate
+            z2_in = torch.where(keep, z2_seq, 0.0)
         zeros = torch.zeros((b, 1, 1, self.height, self.width), dtype=z2.dtype,
                             device=z2.device)
-        lstm_input = torch.cat([zeros, z2_seq[:, :-1]], dim=1)
+        lstm_input = torch.cat([zeros, z2_in[:, :-1]], dim=1)
         if z1 is not None:
             cond = self.cond(z1)[:, None].expand(b, t, 4, self.height,
                                                  self.width)
@@ -148,16 +156,17 @@ class ChannelPriorMultiScale(nn.Module):
     """One ChannelPriorUniScale per level, levels 1..L."""
 
     def __init__(self, nc_base: int, height: int, width: int, levels: int,
-                 hidden_size: int = 32, num_layers: int = 2, *, generator=None):
+                 hidden_size: int = 32, num_layers: int = 2,
+                 dp_rate: float = 0.0, *, generator=None):
         super().__init__()
         self.levels = nn.ModuleList(
             ChannelPriorUniScale(nc_base, height, width, level, levels,
                                  hidden_size=hidden_size, num_layers=num_layers,
-                                 generator=generator)
+                                 dp_rate=dp_rate, generator=generator)
             for level in range(1, levels + 1))
 
-    def log_likelihood(self, z, level):
-        return self.levels[level - 1].log_likelihood(z)
+    def log_likelihood(self, z, level, generator=None):
+        return self.levels[level - 1].log_likelihood(z, generator)
 
     def sample(self, level, z1=None, batch=None, eps_std=1.0, generator=None,
                device=None):

@@ -29,10 +29,13 @@ SOURCES = ("fused_attention_proj", "mixlogcdf_forward", "mixture_inverse")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
+_F = ctypes.c_float
 # C signature of every entry point: argument types, restype int (a cudaError_t)
 SIGNATURES = {
     "fused_attention_proj": {
-        "gpnf_attention_proj_fwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P],
     },
     "mixlogcdf_forward": {
         "gpnf_mixlogcdf_forward": [_P] * 8 + [_I, _I, _I, _P],
@@ -57,7 +60,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of one source, named by a hash of the source, the shared
+    headers of csrc/ and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -108,7 +114,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> torch.device:
     """Raise unless every tensor is a contiguous float32 CUDA tensor on one
-    device that needs no gradient (this slice has no backward kernels)."""
+    device. Tensors that require grad are taken as they are: the kernels
+    run inside the forward and backward of `torch.autograd.Function`s."""
     device = None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
@@ -124,9 +131,6 @@ def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> torch.device:
                             f"kernel takes float32")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: '{arg}' is not contiguous")
-        if t.requires_grad:
-            raise RuntimeError(f"{kernel}: '{arg}' requires grad, and this "
-                               f"kernel has no backward yet")
     return device
 
 

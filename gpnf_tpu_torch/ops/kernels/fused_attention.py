@@ -1,28 +1,97 @@
 """Multi-head attention with the qkv projection inside the kernel.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py `fused_attention_proj`
-(forward, dropout rate 0). The CUDA kernel is
-gpnf_tpu_torch/csrc/fused_attention_proj.cu; its header says what bounds it
-on the H100 and how it is laid out. `attention_proj_plain` is the same
-function in plain PyTorch: the wrapper runs it for CPU tensors, and the
-tests and chip_smoke.py hold the kernel against it.
+(forward and backward, dropout inside both). The CUDA kernels are in
+gpnf_tpu_torch/csrc/fused_attention_proj.cu; its header says what bounds
+them on the H100 and how they are laid out. `attention_proj_plain` and
+`attention_proj_plain_bwd` are the same functions in plain PyTorch: the
+wrappers run them for CPU tensors, and the tests and chip_smoke.py hold the
+kernels against them.
 
-Not yet ported: dropout inside the kernel (rate > 0, training) and
-`fused_attention_long` (S > 512, the 64-px path).
+Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
+Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
+`bits >= rate * 2^32`; kept weights are scaled by 1 / (1 - rate). The bits
+are a pure function of (seed, b, h, i, j), so the backward regenerates
+the forward's mask in any order. `dropout_keep_plain` computes the same
+bits in torch integer arithmetic. They cannot match the JAX package's
+masks, which come from the TPU's own generator.
+
+Not yet ported: `fused_attention_long` (S > 512, the 64-px path).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
-HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # Dh values the kernel is built for
+HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # Dh values the kernels are built for
+K_CHUNK = 1024  # (b, s) rows per partial sum of dW in the backward
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
 
 
-def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor,
-                         num_heads: int) -> torch.Tensor:
-    """seq (B, S, C), w (3C, C) with rows [k | v | q] -> (B, S, C)."""
+def keep_threshold(rate: float) -> int:
+    """uint32 threshold of the keep test `bits >= threshold`."""
+    return min(int(rate * (1 << 32)), (1 << 32) - 1)
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit words of m * c for uint32 values held in int64.
+
+    The constant m is split into 16-bit limbs, so no partial product
+    reaches 2^63: x, y < 2^48."""
+    x = c * (m & 0xFFFF)
+    y = c * (m >> 16)
+    hi = (y + (x >> 16)) >> 16
+    lo = (((y & 0xFFFF) << 16) + x) & _U32
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (or ints) holding uint32 values; the
+    arguments broadcast. Returns the four output words."""
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + _W0) & _U32
+            k1 = (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_keep_plain(seed: torch.Tensor, batch: int, heads: int,
+                       seq_len: int, rate: float) -> torch.Tensor:
+    """Keep mask (B, H, S, S) of the kernels, on the seed's device.
+
+    On the CPU, batch rows go through Philox in chunks of at most 2^18
+    counters, whose int64 temporaries stay in cache (4x faster than one
+    pass over the whole batch); on the card in one pass."""
+    dev = seed.device
+    idx = lambda n, dim: torch.arange(n, dtype=torch.int64, device=dev).reshape(
+        [n if d == dim else 1 for d in range(4)])
+    quads = (seq_len + 3) // 4
+    key = seed.to(torch.int64) & _U32
+    rows = (max(1, (1 << 18) // (heads * seq_len * quads))
+            if dev.type == "cpu" else batch)
+    keep = []
+    for b0 in range(0, batch, rows):
+        n = min(rows, batch - b0)
+        words = philox4x32_10(idx(quads, 3), idx(seq_len, 2), idx(heads, 1),
+                              idx(n, 0) + b0, key, 0)
+        bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+        bits = bits.reshape(n, heads, seq_len, 4 * quads)[..., :seq_len]
+        keep.append(bits >= keep_threshold(rate))
+    return torch.cat(keep)
+
+
+def _split_heads(seq, w, num_heads):
+    """k, v and the scaled q, each (B, H, S, Dh)."""
     b, s, c = seq.shape
     dh = c // num_heads
     qkv = torch.matmul(seq, w.t())
@@ -31,42 +100,165 @@ def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor,
         return t.reshape(b, s, num_heads, dh).transpose(1, 2)
 
     k, v, q = (heads(t) for t in qkv.split(c, dim=-1))
-    p = torch.softmax(torch.matmul(q * dh ** -0.5, k.transpose(-1, -2)), -1)
-    return torch.matmul(p, v).transpose(1, 2).reshape(b, s, c)
+    return k, v, q * dh ** -0.5
 
 
-def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
-                         rate: float = 0.0) -> torch.Tensor:
-    """softmax(q k^T / sqrt(Dh)) v over `num_heads` heads, [k|v|q] = seq w^T.
+def _merge_heads(t):
+    b, h, s, dh = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * dh)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+
+def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """seq (B, S, C), w (3C, C) with rows [k | v | q] -> (B, S, C)."""
+    k, v, q = _split_heads(seq, w, num_heads)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     if rate > 0.0:
-        raise NotImplementedError(
-            "fused_attention_proj: dropout (rate > 0) is not ported yet")
+        keep = dropout_keep_plain(seed, seq.shape[0], num_heads, seq.shape[1],
+                                  rate)
+        p = torch.where(keep, p / (1.0 - rate), 0.0)
+    return _merge_heads(torch.matmul(p, v))
+
+
+def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None):
+    """(dseq, dW) of `attention_proj_plain` for the cotangent g (B, S, C),
+    by the formulas of the JAX module's docstring:
+        dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
+        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q
+    then dseq = dqkv w and dW = dqkv^T seq."""
+    b, s, c = seq.shape
+    dh = c // num_heads
+    k, v, q = _split_heads(seq, w, num_heads)
+    gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
+    dpd = torch.matmul(gh, v.transpose(-1, -2))
+    if rate > 0.0:
+        keep = dropout_keep_plain(seed, b, num_heads, s, rate)
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dpd / (1.0 - rate), 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = torch.matmul(pd.transpose(-1, -2), gh)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k) * dh ** -0.5
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([_merge_heads(dk), _merge_heads(dv), _merge_heads(dq)],
+                     dim=-1)
+    dseq = torch.matmul(dqkv, w)
+    dw = torch.einsum("bso,bsc->oc", dqkv, seq)
+    return dseq, dw
+
+
+def _validate(seq, w, num_heads, rate, seed):
     if seq.dim() != 3 or w.shape != (3 * seq.shape[2], seq.shape[2]):
         raise ValueError(f"fused_attention_proj: seq {tuple(seq.shape)} and "
                          f"w {tuple(w.shape)} are not (B, S, C) and (3C, C)")
+    if seq.shape[2] % num_heads:
+        raise ValueError(f"fused_attention_proj: C={seq.shape[2]} is not a "
+                         f"multiple of {num_heads} heads")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fused_attention_proj: dropout rate {rate} is not "
+                         f"in [0, 1)")
+    if rate > 0.0 and (seed is None or seed.shape != (1,)
+                       or seed.dtype != torch.int32):
+        raise ValueError("fused_attention_proj: dropout needs a (1,) int32 "
+                         "seed tensor")
+
+
+def _cuda_args(kernel, seq, w, num_heads, rate, seed, **more):
+    """Checks for a launch; returns (device, seed pointer, threshold,
+    keep scale)."""
+    device = _native.check_cuda_inputs(kernel, seq=seq, w=w, **more)
     b, s, c = seq.shape
-    if c % num_heads:
-        raise ValueError(f"fused_attention_proj: C={c} is not a multiple of "
-                         f"{num_heads} heads")
-    if seq.device.type == "cpu" and w.device.type == "cpu":
-        return attention_proj_plain(seq, w, num_heads)
-    device = _native.check_cuda_inputs("fused_attention_proj", seq=seq, w=w)
     if s > MAX_S:
         raise NotImplementedError(
-            f"fused_attention_proj: S={s} > {MAX_S} is fused_attention_long's "
-            f"range, not ported yet")
+            f"{kernel}: S={s} > {MAX_S} is fused_attention_long's range, not "
+            f"ported yet")
     if c // num_heads not in HEAD_DIMS:
-        raise ValueError(f"fused_attention_proj: head width {c // num_heads} "
-                         f"not in {HEAD_DIMS}")
+        raise ValueError(f"{kernel}: head width {c // num_heads} not in "
+                         f"{HEAD_DIMS}")
+    if rate == 0.0:
+        return device, None, 0, 1.0
+    if seed.device != device:
+        raise ValueError(f"{kernel}: seed is on {seed.device}, expected "
+                         f"{device}")
+    return device, seed.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _forward(seq, w, num_heads, rate, seed):
+    _validate(seq, w, num_heads, rate, seed)
+    if seq.device.type == "cpu" and w.device.type == "cpu":
+        return attention_proj_plain(seq, w, num_heads, rate, seed)
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_proj", seq, w, num_heads, rate, seed)
+    b, s, c = seq.shape
     out = torch.empty_like(seq)
     _native.launch("fused_attention_proj", "gpnf_attention_proj_fwd", device,
-                   seq.data_ptr(), w.data_ptr(), out.data_ptr(), b, s, c,
-                   num_heads)
+                   seed_ptr, seq.data_ptr(), w.data_ptr(), out.data_ptr(), b,
+                   s, c, num_heads, threshold, scale)
     fused_attention_proj.launches += 1
     return out
 
 
+def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
+                             g: torch.Tensor, num_heads: int,
+                             rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None):
+    """(dseq, dW) of `fused_attention_proj` for the cotangent g, with the
+    forward's dropout mask regenerated from `seed`. CPU tensors take the
+    plain version; CUDA tensors launch the kernels or raise."""
+    if g.shape != seq.shape:
+        raise ValueError(f"fused_attention_proj_bwd: g {tuple(g.shape)} is "
+                         f"not seq's {tuple(seq.shape)}")
+    _validate(seq, w, num_heads, rate, seed)
+    if all(t.device.type == "cpu" for t in (seq, w, g)):
+        return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_proj_bwd", seq, w, num_heads, rate, seed, g=g)
+    b, s, c = seq.shape
+    parts = -(-b * s // K_CHUNK)
+    dqkv = torch.empty((b, s, 3 * c), dtype=seq.dtype, device=device)
+    partial = torch.empty((parts, 3 * c, c), dtype=seq.dtype, device=device)
+    dseq = torch.empty_like(seq)
+    dw = torch.empty_like(w)
+    _native.launch("fused_attention_proj", "gpnf_attention_proj_bwd", device,
+                   seed_ptr, seq.data_ptr(), w.data_ptr(), g.data_ptr(),
+                   dqkv.data_ptr(), partial.data_ptr(), dseq.data_ptr(),
+                   dw.data_ptr(), b, s, c, num_heads, threshold, scale,
+                   K_CHUNK)
+    fused_attention_proj_bwd.launches += 1
+    return dseq, dw
+
+
+class _AttentionProj(torch.autograd.Function):
+    """Saves (seq, w, seed), the residuals of the JAX package's
+    `_vjp_fwd_proj`: the projection and the mask are recomputed."""
+
+    @staticmethod
+    def forward(ctx, seq, w, seed, num_heads, rate):
+        ctx.save_for_backward(seq, w, seed)
+        ctx.num_heads, ctx.rate = num_heads, rate
+        return _forward(seq, w, num_heads, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        seq, w, seed = ctx.saved_tensors
+        dseq, dw = fused_attention_proj_bwd(seq, w, g.contiguous(),
+                                            ctx.num_heads, ctx.rate, seed)
+        return dseq, dw, None, None, None
+
+
+def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(softmax(q k^T / sqrt(Dh))) v over `num_heads` heads, with
+    [k|v|q] = seq w^T; `seed` is a (1,) int32 tensor on seq's device, read
+    only when rate > 0. Differentiable in seq and w. CPU tensors take the
+    plain versions; CUDA tensors launch the kernels or raise."""
+    return _AttentionProj.apply(seq, w, seed, num_heads, rate)
+
+
 fused_attention_proj.launches = 0
+fused_attention_proj_bwd.launches = 0

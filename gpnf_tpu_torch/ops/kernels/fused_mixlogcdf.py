@@ -5,10 +5,9 @@ The CUDA kernel is gpnf_tpu_torch/csrc/mixlogcdf_forward.cu; its header says
 what bounds it on the H100 and how it is laid out. `mixlogcdf_plain` is the
 same function in plain PyTorch (the JAX package's `_reference`): the wrapper
 runs it for CPU tensors, and the tests and chip_smoke.py hold the kernel
-against it.
-
-Not yet ported: the backward (autograd of the plain version, as the JAX
-package differentiates its jnp reference).
+against it. The backward is autograd of the plain version on the saved
+inputs, as the JAX package's `_bwd` differentiates its jnp reference: the
+Pallas kernel has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -29,21 +28,8 @@ def mixlogcdf_plain(x, a, b, pi, mu, s):
     return y, ldj
 
 
-def mixlogcdf_forward(x, a, b, pi, mu, s):
-    """(y, ldj) of the MixLogCDF transform. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if x.dim() != 2 or pi.dim() != 3:
-        raise ValueError(f"mixlogcdf_forward: x {tuple(x.shape)} and pi "
-                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+def _forward(x, a, b, pi, mu, s):
     bsz, k, d = pi.shape
-    for name, t in (("x", x), ("a", a), ("b", b)):
-        if t.shape != (bsz, d):
-            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
-                             f"{tuple(t.shape)}, expected {(bsz, d)}")
-    for name, t in (("mu", mu), ("s", s)):
-        if t.shape != pi.shape:
-            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
-                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
     if all(t.device.type == "cpu" for t in (x, a, b, pi, mu, s)):
         return mixlogcdf_plain(x, a, b, pi, mu, s)
     device = _native.check_cuda_inputs("mixlogcdf_forward", x=x, a=a, b=b,
@@ -57,6 +43,41 @@ def mixlogcdf_forward(x, a, b, pi, mu, s):
                    bsz, k, d)
     mixlogcdf_forward.launches += 1
     return y, ldj
+
+
+class _MixLogCDF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, pi, mu, s):
+        ctx.save_for_backward(x, a, b, pi, mu, s)
+        return _forward(x, a, b, pi, mu, s)
+
+    @staticmethod
+    def backward(ctx, gy, gldj):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = mixlogcdf_plain(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, (gy, gldj)) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   inputs, [g for _, g in pairs])
+
+
+def mixlogcdf_forward(x, a, b, pi, mu, s):
+    """(y, ldj) of the MixLogCDF transform, differentiable in every input.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if x.dim() != 2 or pi.dim() != 3:
+        raise ValueError(f"mixlogcdf_forward: x {tuple(x.shape)} and pi "
+                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+    bsz, k, d = pi.shape
+    for name, t in (("x", x), ("a", a), ("b", b)):
+        if t.shape != (bsz, d):
+            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {(bsz, d)}")
+    for name, t in (("mu", mu), ("s", s)):
+        if t.shape != pi.shape:
+            raise ValueError(f"mixlogcdf_forward: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
+    return _MixLogCDF.apply(x, a, b, pi, mu, s)
 
 
 mixlogcdf_forward.launches = 0

@@ -5,14 +5,15 @@ Counterpart of gpnf_tpu/ops/pallas/fused_mixture_inverse.py
 its header says what bounds it on the H100 and how it is laid out.
 `mixture_inverse_plain` is the same fixed schedule in plain PyTorch (the
 JAX package's `_inv_body`): the wrapper runs it for CPU tensors, and the
-tests and chip_smoke.py hold the kernel against it.
-
-Not yet ported: the implicit-function backward.
+tests and chip_smoke.py hold the kernel against it. The backward is the
+JAX package's implicit-function VJP in plain PyTorch: at CDF(x; theta) = y,
+dx/dy = 1 / pdf(x) and dx/dtheta = -(dCDF/dtheta) / pdf(x).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import logistic
 from . import _native
 
 BISECT_ITERS = 26
@@ -67,20 +68,8 @@ def mixture_inverse_plain(y, pi, mu, s):
     return x
 
 
-def mixture_inverse(y, pi, mu, s):
-    """x with mixture CDF(x) = y. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if y.dim() != 2 or pi.dim() != 3:
-        raise ValueError(f"mixture_inverse: y {tuple(y.shape)} and pi "
-                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+def _forward(y, pi, mu, s):
     bsz, k, d = pi.shape
-    if y.shape != (bsz, d):
-        raise ValueError(f"mixture_inverse: 'y' has shape {tuple(y.shape)}, "
-                         f"expected {(bsz, d)}")
-    for name, t in (("mu", mu), ("s", s)):
-        if t.shape != pi.shape:
-            raise ValueError(f"mixture_inverse: '{name}' has shape "
-                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
     if all(t.device.type == "cpu" for t in (y, pi, mu, s)):
         return mixture_inverse_plain(y, pi, mu, s)
     device = _native.check_cuda_inputs("mixture_inverse", y=y, pi=pi, mu=mu,
@@ -92,6 +81,40 @@ def mixture_inverse(y, pi, mu, s):
                    *(t.data_ptr() for t in (y, pi, mu, s, x)), bsz, k, d)
     mixture_inverse.launches += 1
     return x
+
+
+class _MixtureInverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, pi, mu, s):
+        x = _forward(y, pi, mu, s)
+        ctx.save_for_backward(x, pi, mu, s)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *theta = ctx.saved_tensors
+        gx = g / torch.exp(logistic.mixture_log_pdf(x, *theta))
+        theta = [t.detach().requires_grad_() for t in theta]
+        with torch.enable_grad():
+            cdf = torch.exp(logistic.mixture_log_cdf(x, *theta))
+        return (gx, *torch.autograd.grad(cdf, theta, -gx))
+
+
+def mixture_inverse(y, pi, mu, s):
+    """x with mixture CDF(x) = y, differentiable in every input. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    if y.dim() != 2 or pi.dim() != 3:
+        raise ValueError(f"mixture_inverse: y {tuple(y.shape)} and pi "
+                         f"{tuple(pi.shape)} are not (B, D) and (B, K, D)")
+    bsz, k, d = pi.shape
+    if y.shape != (bsz, d):
+        raise ValueError(f"mixture_inverse: 'y' has shape {tuple(y.shape)}, "
+                         f"expected {(bsz, d)}")
+    for name, t in (("mu", mu), ("s", s)):
+        if t.shape != pi.shape:
+            raise ValueError(f"mixture_inverse: '{name}' has shape "
+                             f"{tuple(t.shape)}, expected {tuple(pi.shape)}")
+    return _MixtureInverse.apply(y, pi, mu, s)
 
 
 mixture_inverse.launches = 0

@@ -1,7 +1,15 @@
 """MixLogCDF (Flow++) coupling and its gated conv/attention network.
 
-Counterpart of gpnf_tpu/ops/mixlogcdf.py, in eval mode (no dropout: the
-training slice adds it).
+Counterpart of gpnf_tpu/ops/mixlogcdf.py. In training mode
+(`nn.Module.train()`, the JAX package's `train=True`) the blocks drop out
+with rate `drop_prob`: GatedConv drops whole (sample, channel) maps after
+its second concat-ELU (torch's Dropout2d), and GatedAttn drops attention
+weights inside the kernel from a seed drawn on the device. The random
+numbers come from the `generator` passed to forward (the device's default
+generator when None); JAX's keys give other numbers, so the port matches
+the JAX package bit for bit only in eval mode or at rate 0. The JAX
+modules' default drop_prob of the coupling (0.2) is MarScfConfig's here:
+the modules default to 0.
 
 Forward:  u = logit(MixLogCDF(x_change)); y = (u + b) * exp(a)
 Inverse:  u = y*exp(-a) - b; x = MixLogCDF^{-1}(sigmoid(u).clip(1e-5, 1-1e-5))
@@ -29,6 +37,14 @@ def concat_elu(x, dim=1):
     return F.elu(torch.cat([x, -x], dim=dim))
 
 
+def channel_dropout(x, rate: float, generator=None):
+    """Dropout2d on NCHW: one keep per (sample, channel), kept maps scaled
+    by 1 / (1 - rate)."""
+    keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                      device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class LayerNorm(nn.Module):
     """nn.LayerNorm(C) on channel-last tensors, parameters gamma/beta."""
 
@@ -43,15 +59,19 @@ class LayerNorm(nn.Module):
 
 
 class GatedConv(nn.Module):
-    """PixelCNN++ gated residual conv: concat-ELU -> 3x3 -> concat-ELU -> 1x1 GLU."""
+    """PixelCNN++ gated residual conv: concat-ELU -> 3x3 -> concat-ELU
+    [-> Dropout2d in training] -> 1x1 GLU."""
 
-    def __init__(self, num_ch: int, *, generator=None):
+    def __init__(self, num_ch: int, drop_prob: float = 0.0, *, generator=None):
         super().__init__()
+        self.drop_prob = drop_prob
         self.conv = WNConv2d(2 * num_ch, num_ch, 3, generator=generator)
         self.gate = WNConv2d(2 * num_ch, 2 * num_ch, 1, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = concat_elu(self.conv(concat_elu(x)))
+        if self.training and self.drop_prob > 0.0:
+            h = channel_dropout(h, self.drop_prob, generator)
         a, b = torch.chunk(self.gate(h), 2, dim=1)
         return a * torch.sigmoid(b)
 
@@ -72,42 +92,53 @@ def sinusoidal_pos_enc(seq_len: int, num_channels: int, device=None):
 
 
 class GatedAttn(nn.Module):
-    """Gated multi-head self-attention over the flattened spatial axis."""
+    """Gated multi-head self-attention over the flattened spatial axis;
+    attention dropout inside the kernel in training."""
 
-    def __init__(self, d_model: int, num_heads: int = 4, *, generator=None):
+    def __init__(self, d_model: int, num_heads: int = 4,
+                 drop_prob: float = 0.0, *, generator=None):
         super().__init__()
         self.num_heads = num_heads
+        self.drop_prob = drop_prob
         self.in_proj = WNDense(d_model, 3 * d_model, bias=False,
                                generator=generator)
         self.gate = WNDense(d_model, 2 * d_model, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x (B, H, W, C) channel-last."""
         b, h, w, c = x.shape
         seq = x.reshape(b, h * w, c) + sinusoidal_pos_enc(h * w, c, x.device)
+        rate, seed = 0.0, None
+        if self.training and self.drop_prob > 0.0:
+            # drawn on the device: no host sync per call
+            rate = self.drop_prob
+            seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
+                                 dtype=torch.int32, device=x.device)
         attn = fused_attention_proj(seq.contiguous(),
                                     self.in_proj.effective_weight().contiguous(),
-                                    self.num_heads)
+                                    self.num_heads, rate, seed)
         a, g = torch.chunk(self.gate(attn.reshape(b, h, w, c)), 2, dim=-1)
         return a * torch.sigmoid(g)
 
 
 class ConvAttnBlock(nn.Module):
-    def __init__(self, num_ch: int, use_attn: bool, *, generator=None):
+    def __init__(self, num_ch: int, use_attn: bool, drop_prob: float = 0.0, *,
+                 generator=None):
         super().__init__()
-        self.conv = GatedConv(num_ch, generator=generator)
+        self.conv = GatedConv(num_ch, drop_prob, generator=generator)
         self.norm1 = LayerNorm(num_ch)
         self.use_attn = use_attn
         if use_attn:
-            self.attn = GatedAttn(num_ch, generator=generator)
+            self.attn = GatedAttn(num_ch, drop_prob=drop_prob,
+                                  generator=generator)
             self.norm2 = LayerNorm(num_ch)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x (B, C, H, W) -> (B, C, H, W)."""
-        x = (self.conv(x) + x).permute(0, 2, 3, 1)
+        x = (self.conv(x, generator) + x).permute(0, 2, 3, 1)
         x = self.norm1(x)
         if self.use_attn:
-            x = self.norm2(self.attn(x) + x)
+            x = self.norm2(self.attn(x, generator) + x)
         return x.permute(0, 3, 1, 2)
 
 
@@ -115,22 +146,23 @@ class MixLogCDFNet(nn.Module):
     """Produces (a, b, pi, mu, scales) with K mixture components per element."""
 
     def __init__(self, in_ch: int, num_ch: int, num_blocks: int,
-                 num_components: int, use_attn: bool = True, *, generator=None):
+                 num_components: int, use_attn: bool = True,
+                 drop_prob: float = 0.0, *, generator=None):
         super().__init__()
         self.k = num_components
         self.in_conv = WNConv2d(in_ch, num_ch, 3, generator=generator)
         self.blocks = nn.ModuleList(
-            ConvAttnBlock(num_ch, use_attn, generator=generator)
+            ConvAttnBlock(num_ch, use_attn, drop_prob, generator=generator)
             for _ in range(num_blocks))
         self.out_conv = WNConv2d(num_ch, in_ch * (2 + 3 * num_components), 3,
                                  generator=generator)
         self.rescale = nn.Parameter(torch.ones(in_ch, 1, 1))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         b, c, h, w = x.shape
         y = self.in_conv(x)
         for blk in self.blocks:
-            y = blk(y)
+            y = blk(y, generator)
         y = self.out_conv(y).reshape(b, 2 + 3 * self.k, c, h, w)
         a, t = y[:, 0], y[:, 1]
         pi = y[:, 2: 2 + self.k]
@@ -141,15 +173,15 @@ class MixLogCDFNet(nn.Module):
 
 class MixLogCDFCoupling(nn.Module):
     def __init__(self, in_ch: int, mid_ch: int, num_blocks: int = 10,
-                 num_components: int = 32, use_attn: bool = True, *,
-                 generator=None):
+                 num_components: int = 32, use_attn: bool = True,
+                 drop_prob: float = 0.0, *, generator=None):
         super().__init__()
         self.net = MixLogCDFNet(in_ch // 2, mid_ch, num_blocks, num_components,
-                                use_attn, generator=generator)
+                                use_attn, drop_prob, generator=generator)
 
-    def forward(self, x, logdet):
+    def forward(self, x, logdet, generator=None):
         x_change, x_id = split_channels(x)
-        a, b, pi, mu, s = self.net(x_id)
+        a, b, pi, mu, s = self.net(x_id, generator)
         bsz, k = x_change.shape[0], pi.shape[1]
         flat = lambda t: t.reshape(bsz, -1).contiguous()
         mix = lambda t: t.reshape(bsz, k, -1).contiguous()

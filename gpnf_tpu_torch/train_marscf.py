@@ -1,0 +1,70 @@
+"""Train mAR-SCF (MixLogCDF couplings, ConvLSTM prior) with the PyTorch port.
+
+The counterpart of `train_marscf.py` without `--from_checkpoint` (that is
+`python -m gpnf_tpu_torch.eval_marscf`), with the flags that apply to the
+port plus --device (default cuda; a host without a card raises unless
+--device cpu is given). Adamax at lr 1e-4 with the lagged warmup counted in
+samples, dropout 0.2 in the couplings, float32 with TF32 off; the best
+test NLL's parameters go to <checkpoint_dir>/marscf_<ds>_mixlogcdf_<K>_<C>/
+in the JAX package's npz layout, so either package restores them.
+
+    python -m gpnf_tpu_torch.train_marscf --dataset_name cifar10 \\
+        --batch_size 64 --L 3 --K 4 --C 96 --device cuda
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dataset_name", default="cifar10",
+                   choices=["cifar10", "synthetic"])
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--coupling", default="mixlogcdf", choices=["mixlogcdf"])
+    p.add_argument("--batch_size", default=128, type=int)
+    p.add_argument("--warm_up", default=10000, type=int,
+                   help="warmup in samples")
+    p.add_argument("--L", default=3, type=int)
+    p.add_argument("--K", default=32, type=int)
+    p.add_argument("--C", default=512, type=int)
+    p.add_argument("--max_steps", default=None, type=int)
+    p.add_argument("--epochs", default=100000, type=int)
+    p.add_argument("--eval_every_steps", default=None, type=int,
+                   help="eval/ckpt every N steps instead of per epoch")
+    p.add_argument("--checkpoint_dir", default="./checkpoints")
+    p.add_argument("--log_path", default=None,
+                   help="append the log and eval records here as JSON lines")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    from .models.marscf import MarScfConfig
+    from .training.loop import TrainConfig, train
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {device} "
+          f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
+          f", tf32 off")
+    model_cfg = MarScfConfig(L=args.L, K=args.K, hidden_channels=args.C)
+    train_cfg = TrainConfig(
+        dataset=args.dataset_name, data_root=args.data_root,
+        batch_size=args.batch_size, warm_up=args.warm_up, epochs=args.epochs,
+        eval_every_steps=args.eval_every_steps, max_steps=args.max_steps,
+        checkpoint_dir=args.checkpoint_dir, log_path=args.log_path,
+        seed=args.seed, device=args.device)
+    _, best = train(model_cfg, train_cfg)
+    print(f"best test NLL (bits/dim): {best:.4f}")
+    return {"best_test_nll": best}
+
+
+if __name__ == "__main__":
+    main()

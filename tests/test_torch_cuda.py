@@ -94,3 +94,115 @@ def test_small_model_encode_on_card_matches_cpu(cuda_device):
     _close(obj_card / (np.log(2.0) * 16 * 16 * 3),
            obj_cpu / (np.log(2.0) * 16 * 16 * 3), rtol=0, atol=1e-4)
     _close(zf_card, zf_cpu, rtol=0, atol=1e-4)
+
+
+def _attention_inputs(device, s, batch=2, c=96, seed=0):
+    r = np.random.default_rng(seed)
+    return (_normal(r, (batch, s, c), 0.5).to(device),
+            _normal(r, (3 * c, c), 0.1).to(device),
+            _normal(r, (batch, s, c)).to(device),
+            torch.tensor([1234 + s], dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 64, 16])
+def test_attention_kernel_with_dropout_matches_plain_on_card(cuda_device, s):
+    """The same mask in kernel and plain version: one differing keep bit
+    would show as an error of order p * v, far above the 1e-5 bar."""
+    seq, w, _, seed = _attention_inputs(cuda_device, s)
+    _close(kernels.fused_attention_proj(seq, w, 4, 0.2, seed),
+           kernels.attention_proj_plain(seq, w, 4, 0.2, seed), rtol=0,
+           atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [512, 256, 64, 16])
+def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, s, rate):
+    """dseq and dW of the backward kernels against the plain backward; at
+    S=512 the kernel reads g from global memory (shared memory is full)."""
+    seq, w, g, seed = _attention_inputs(cuda_device, s)
+    before = kernels.fused_attention_proj_bwd.launches
+    dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate, seed)
+    assert kernels.fused_attention_proj_bwd.launches == before + 1
+    want_dseq, want_dw = kernels.attention_proj_plain_bwd(seq, w, g, 4, rate,
+                                                          seed)
+    _close(dseq, want_dseq, rtol=1e-4, atol=1e-5)
+    _close(dw, want_dw, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_repeat_bit_for_bit(cuda_device):
+    seq, w, g, seed = _attention_inputs(cuda_device, 256, batch=8)
+    outs = [kernels.fused_attention_proj(seq, w, 4, 0.2, seed)
+            for _ in range(2)]
+    grads = [kernels.fused_attention_proj_bwd(seq, w, g, 4, 0.2, seed)
+             for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])  # dW: fixed-order sums
+
+
+@pytest.mark.cuda
+def test_attention_autograd_launches_both_kernels(cuda_device):
+    seq, w, g, seed = _attention_inputs(cuda_device, 64)
+    seq.requires_grad_()
+    w.requires_grad_()
+    counts = (kernels.fused_attention_proj.launches,
+              kernels.fused_attention_proj_bwd.launches)
+    kernels.fused_attention_proj(seq, w, 4, 0.2, seed).backward(g)
+    assert (kernels.fused_attention_proj.launches,
+            kernels.fused_attention_proj_bwd.launches) == (counts[0] + 1,
+                                                           counts[1] + 1)
+    want = kernels.attention_proj_plain_bwd(seq.detach(), w.detach(), g, 4,
+                                            0.2, seed)
+    _close(seq.grad, want[0], rtol=1e-4, atol=1e-5)
+    _close(w.grad, want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mixlogcdf_backward_on_card_matches_plain_autograd(cuda_device):
+    r = np.random.default_rng(4)
+    b, k, d = 8, 32, 384
+    args = [t.to(cuda_device).requires_grad_() for t in (
+        _normal(r, (b, d), 0.5), _normal(r, (b, d), 0.1), _normal(r, (b, d), 0.1),
+        _normal(r, (b, k, d)), _normal(r, (b, k, d)), _normal(r, (b, k, d), 0.3))]
+    gy, gl = _normal(r, (b, d)).to(cuda_device), _normal(r, (b, d)).to(cuda_device)
+    y, ldj = kernels.mixlogcdf_forward(*args)
+    got = torch.autograd.grad([y, ldj], args, [gy, gl])
+    y, ldj = kernels.mixlogcdf_plain(*args)
+    want = torch.autograd.grad([y, ldj], args, [gy, gl])
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, rtol=1e-4, atol=1e-5)
+
+
+def _flat_grads(model):
+    return torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+
+
+@pytest.mark.cuda
+def test_small_model_train_step_on_card_matches_cpu(cuda_device):
+    """Loss and every gradient of one training step at dropout 0 (the same
+    weights, images and dequantisation noise), card against CPU."""
+    cfg = MarScfConfig(**SMALL, drop_prob=0.0)
+    cpu = MarScfFlow(cfg, device="cpu")
+    card = MarScfFlow(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(5)
+    x = torch.from_numpy(r.random((4, 3, 16, 16), dtype=np.float32) - 0.5)
+    noise = torch.from_numpy(r.random((4, 3, 16, 16), dtype=np.float32))
+    kernels.reset_launch_counts()
+    loss_card = torch.mean(card(x.to(cuda_device),
+                                noise=noise.to(cuda_device))[1])
+    loss_card.backward()
+    counts = kernels.launch_counts()
+    loss_cpu = torch.mean(cpu(x, noise=noise)[1])
+    loss_cpu.backward()
+    assert counts["fused_attention_proj"] == counts[
+        "fused_attention_proj_bwd"] == 2 * 2 * 2
+    assert counts["mixlogcdf_forward"] == 2 * 2
+    _close(loss_card, loss_cpu, rtol=0, atol=1e-4)
+    g_card, g_cpu = _flat_grads(card), _flat_grads(cpu)
+    assert torch.isfinite(g_card).all()
+    scale = float(g_cpu.abs().max())
+    _close(g_card, g_cpu, rtol=1e-3, atol=1e-4 * scale)

@@ -31,7 +31,8 @@ NUM_DIMS = 16 * 16 * 3
 def models():
     jm = JaxFlow(JaxConfig(**SMALL))  # scan_steps=True: K-stacked steps
     params = jax.device_get(jm.init(jax.random.PRNGKey(0)))
-    tm = MarScfFlow(MarScfConfig(**SMALL), device="cpu")
+    # eval mode: the JAX calls below run with train=False (no dropout)
+    tm = MarScfFlow(MarScfConfig(**SMALL), device="cpu").eval()
     convert.load_jax_params(tm, params)
     return jm, params, tm
 

@@ -17,6 +17,11 @@ from gpnf_tpu_torch import convert
 # abs difference there (the maxima quoted in CHANGES.md come from it)
 REPORT = os.environ.get("GPNF_TORCH_PARITY_REPORT")
 
+# The suite runs in parallel workers that keep every core busy; there torch's
+# OpenMP pool waits on descheduled threads at each of the thousands of small
+# ops of a whole-model test (a 6 s CLI test took 375 s). One thread each.
+torch.set_num_threads(1)
+
 
 def rng(seed=0):
     return np.random.default_rng(seed)
