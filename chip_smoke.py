@@ -30,7 +30,29 @@ Phases, each of which raises (exit code != 0) when it fails:
   8. timings: eval and sample images/s at batch 64, peak device memory;
   9. with --profile: device time by kernel over one train step, one eval
      batch and one sampling pass (torch.profiler), and the device's busy
-     share.
+     share;
+ 10. GP kernels: the Cholesky (n = 1000, 1024, 2048, 4096 in float32 and
+     1024 in float64, against the plain version and by its residual; NaN
+     without an error on a matrix that is not positive definite), the
+     triangular solve (n = 1024 and 4096, p = 1 and n, both ways), the
+     affine coupling ((1024, 384), (1024, 192), (4096, 384)), each with its
+     time, the plain version's, the library call's and its bound; and each
+     kernel's backward on the card against float64 autograd of the plain
+     version on the CPU;
+ 11. the flow -> GP run of `train_gp --flow` at full size (n_train 1024,
+     n_test 256, 16x16x3, affine L=2 K=2 hidden 32, Gaussian priors, 100
+     pretrain + 150 fit steps each for the raw, frozen and joint models)
+     and the tabular mode: every NLML finite and falling, the joint fit
+     below the frozen one, positive posterior variances, the launches of
+     one joint NLML + gradient at n = 1024 counted from 0 (cholesky 1,
+     tril_solve 4, fused_affine_forward 4); then the joint NLML and every
+     gradient at n = 128 on the frozen and on the joint model's weights:
+     the card against the CPU in float64, and the card's float32 against
+     float64 on the CPU taking the card's ReLU pieces;
+ 12. GP timings: the joint NLML + gradient at n = 1024, 2048 and 4096
+     (`bench_flow_gp`), the joint fit's steps/s, peak device memory; with
+     --profile, device time by kernel over one joint NLML + gradient at
+     n = 1024 and 4096.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -50,10 +72,11 @@ import time
 import torch
 import torch.nn.functional as F
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s of
+# fp32 outside the tensor cores, which is also the fp64 peak (fp64 on the
+# tensor cores, DMMA)
 PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
+PEAK_OPS = 67e12
 BATCH = 64
 FLAGSHIP = dict(image_shape=(32, 32, 3), L=3, K=4, hidden_channels=96,
                 num_blocks=10, num_components=32, drop_prob=0.2,
@@ -71,6 +94,24 @@ MIXLOGCDF_OPS = 30  # log-softmax 5, z 4, log-sigmoid/softplus 8, terms 5,
 MIXINV_OPS = 458    # 26 bisection evaluations x 13 (z 2, log-sigmoid 6,
                     # term 1, max-then-sum logsumexp 4) + 4 Newton x 28
                     # (the log-CDF terms 13, the log-PDF terms 15) + setup 8
+AFFINE_OPS = 10     # per element: add, exp, log1p, two selects, add,
+                    # divide, multiply-add, sum
+GP_KERNELS = ("fused_affine_forward", "cholesky", "tril_solve")
+NO_GP = dict.fromkeys(GP_KERNELS, 0)  # the flagship paths launch none
+# the titular flow -> GP run (the JAX package's docs/evidence record of
+# `train_gp.py --flow`)
+GP_RUN = ["--flow", "--n_train", "1024", "--n_test", "256", "--steps", "150",
+          "--image_size", "16", "--flow_C", "32", "--flow_pretrain_steps",
+          "100", "--device", "cuda"]
+GP_PER_STEP = {"cholesky": 1, "tril_solve": 4, "fused_affine_forward": 4}
+# phase 10's shapes: the titular n = 1024 (and a ragged 1000), the bench's
+# 2048 and 4096; the affine coupling's two levels at n = 1024, and n = 4096
+CHOL_CASES = ((1000, torch.float32), (1024, torch.float32),
+              (2048, torch.float32), (4096, torch.float32),
+              (1024, torch.float64))
+SOLVE_SIZES = (1024, 4096)
+AFFINE_SHAPES = ((1024, 384), (1024, 192), (4096, 384))
+BENCH_SIZES = (1024, 2048, 4096)
 
 
 def log(msg=""):
@@ -120,7 +161,7 @@ class Timer:
 
 
 def bound(bytes_moved, ops):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_FP32
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -309,7 +350,7 @@ def train(device, loader, out_dir, seed, card):
         f"bits/dim; launches per step {per_step}")
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
-            "mixlogcdf_forward": 12, "mixture_inverse": 0}
+            "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
     last5 = statistics.mean(losses[-5:])
@@ -386,7 +427,8 @@ def serve(model, loader, device, seed):
         raise AssertionError(f"eval bits/dim {nll} is not finite and < 30")
     want = {"fused_attention_proj": 120 * n_batches,
             "fused_attention_proj_bwd": 0,
-            "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0}
+            "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
+            **NO_GP}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
     return nll, counts
@@ -404,7 +446,7 @@ def sample(model, out_dir, device, seed):
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
-            "mixlogcdf_forward": 0, "mixture_inverse": 12}
+            "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
     with open(path, "rb") as f:
@@ -524,19 +566,23 @@ def timings(model, loader, device, card):
     return out
 
 
-def profile(model, loader, device, card, train_step_fn):
-    """Device time by kernel over one train step, one eval batch and one
-    sampling pass, and the device's busy share of the host-clock window
-    (torch.profiler)."""
+def flagship_runs(model, loader, device, train_step_fn):
+    """One train step, one eval batch and one sampling pass, for profile()."""
+    batch = torch.from_numpy(next(iter(loader))).to(device)
+    return {"train step": (lambda gen: train_step_fn(), True),
+            "eval batch": (lambda gen: model(batch, generator=gen), False),
+            "sample pass": (lambda gen: model.sample(BATCH, generator=gen),
+                            False)}
+
+
+def profile(runs, device, card):
+    """Device time by kernel over each run {label: (fn(generator), grad)},
+    after one warm-up call, and the device's busy share of the host-clock
+    window (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    batch = torch.from_numpy(next(iter(loader))).to(device)
-    runs = {"train step": (lambda gen: train_step_fn(), True),
-            "eval batch": (lambda gen: model(batch, generator=gen), False),
-            "sample pass": (lambda gen: model.sample(BATCH, generator=gen),
-                            False)}
     out = {}
     for label, (fn, grad) in runs.items():
         gen = torch.Generator(device=device).manual_seed(30)
@@ -571,14 +617,359 @@ def profile(model, loader, device, card, train_step_fn):
     return out
 
 
+# -- phases 10-12: the flow -> GP head ---------------------------------------------
+def _rel(got, want):
+    """max |got - want| / max |want|, in float64 on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_gp_kernels(device, timer):
+    """Phase 10: the three kernels of the GP path against their plain
+    versions, with times, bounds and the backward of each."""
+    from gpnf_tpu_torch.ops import kernels
+
+    slow = Timer(device, iters=3, warmup=1)  # the plain versions: thousands
+    gen = torch.Generator(device=device).manual_seed(4321)  # of launches each
+    results = {}
+
+    def spd(n, dtype):
+        x = torch.randn((n, n), generator=gen, device=device,
+                        dtype=torch.float64)
+        return (x @ x.T / n + torch.eye(n, dtype=torch.float64,
+                                        device=device)).to(dtype)
+
+    def record(name, shape, err, ms, plain_ms, library_ms, bytes_moved, ops,
+               **extra):
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        row = dict(shape=shape, **extra, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        results.setdefault(name, []).append(row)
+        lib = "n/a" if library_ms is None else f"{library_ms:.4f} ms"
+        tag = "".join(f" {k} {v}" for k, v in extra.items())
+        log(f"  {name} {shape}{tag}: err {err:.3g} | kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {lib} | bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+
+    with torch.no_grad():
+        for n, dtype in CHOL_CASES:
+            a = spd(n, dtype)
+            l = kernels.cholesky(a)
+            plain = kernels.cholesky_plain(a)
+            err, resid = _rel(l, plain), _rel(l @ l.T, a)
+            bar = 1e-5 if dtype == torch.float32 else 1e-12
+            log(f"  cholesky n={n} {dtype}: |L - plain| / max|L| {err:.3g}, "
+                f"|L L^T - A| / max|A| {resid:.3g} (bar {bar:g} each)")
+            if not (err <= bar and resid <= bar
+                    and int(torch.count_nonzero(torch.triu(l, 1))) == 0):
+                raise AssertionError(f"cholesky n={n} {dtype}: err {err}, "
+                                     f"residual {resid}")
+            size = a.element_size()
+            record("cholesky", f"n={n}", err * float(plain.abs().max()),
+                   timer(lambda: kernels.cholesky(a)),
+                   slow(lambda: kernels.cholesky_plain(a)),
+                   timer(lambda: torch.linalg.cholesky_ex(a)),
+                   2 * n * n * size, n ** 3 / 3, dtype=str(dtype).removeprefix("torch."), residual=resid)
+        bad = spd(512, torch.float32)
+        bad[300, 300] = -1.0
+        l_bad = kernels.cholesky(bad)  # raises nothing, reads nothing back
+        torch.cuda.synchronize()
+        if not (torch.isnan(l_bad).any() and torch.isfinite(l_bad[:300, :300]).all()):
+            raise AssertionError("cholesky of a matrix that is not positive "
+                                 "definite gave no NaN")
+        log("  cholesky of a matrix that is not positive definite: NaN, no "
+            "error")
+
+        for n in SOLVE_SIZES:
+            l = kernels.cholesky(spd(n, torch.float32))
+            for p in (1, n):
+                b = torch.randn((n, p), generator=gen, device=device)
+                for trans in (False, True):
+                    x = kernels.tril_solve(l, b, trans=trans)
+                    plain = kernels.tril_solve_plain(l, b, trans=trans)
+                    op = l.T if trans else l
+                    err, resid = _rel(x, plain), _rel(op @ x, b)
+                    if not (err <= 1e-5 and resid <= 1e-5):
+                        raise AssertionError(
+                            f"tril_solve n={n} p={p} trans={trans}: err "
+                            f"{err}, residual {resid} (bar 1e-5 each)")
+                    record("tril_solve", f"n={n} p={p}",
+                           err * float(plain.abs().max()),
+                           timer(lambda: kernels.tril_solve(l, b, trans=trans)),
+                           slow(lambda: kernels.tril_solve_plain(
+                               l, b, trans=trans)),
+                           timer(lambda: torch.linalg.solve_triangular(
+                               op, b, upper=trans)),
+                           4 * (n * (n + 1) / 2 + 2 * n * p), n * n * p,
+                           trans=trans, residual=resid)
+
+        for bsz, d in AFFINE_SHAPES:
+            x2, shift, raw = (torch.randn((bsz, d), generator=gen,
+                                          device=device) * s
+                              for s in (1.0, 0.1, 1.0))
+            got = kernels.fused_affine_forward(x2, shift, raw)
+            want = kernels.fused_affine_plain(x2, shift, raw)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            # ldj sums d terms of O(1): held at 1e-5 relative to its scale
+            if not (float((got[0] - want[0]).abs().max()) <= 1e-5
+                    and _rel(got[1], want[1]) <= 1e-5):
+                raise AssertionError(f"fused_affine_forward ({bsz}, {d}): "
+                                     f"err {err}")
+            record("fused_affine_forward", f"({bsz}, {d})", err,
+                   timer(lambda: kernels.fused_affine_forward(x2, shift, raw)),
+                   timer(lambda: kernels.fused_affine_plain(x2, shift, raw)),
+                   None, 4 * (4 * bsz * d + bsz), AFFINE_OPS * bsz * d)
+
+    # backward of each kernel on the card (float64) against float64 autograd
+    # of the plain version on the CPU, n = 256
+    n, backward = 256, {}
+    b0 = spd(n, torch.float64).cpu()
+    cot = torch.randn((n, n), dtype=torch.float64)
+    rhs = torch.randn((n, 3), dtype=torch.float64)
+    l0 = kernels.cholesky_plain(b0)
+    pairs = {"cholesky": (kernels.cholesky, kernels.cholesky_plain),
+             "tril_solve": (kernels.tril_solve, kernels.tril_solve_plain),
+             "fused_affine_forward": (kernels.fused_affine_forward,
+                                      kernels.fused_affine_plain)}
+    for name, (kernel, plain) in pairs.items():
+        grads = []
+        for dev, fn in ((device, kernel), ("cpu", plain)):
+            if name == "cholesky":
+                b = b0.to(dev).requires_grad_()
+                args = (b,)
+                loss = (fn(0.5 * (b + b.T)) * cot.to(dev)).sum()
+            elif name == "tril_solve":
+                args = (l0.to(dev).requires_grad_(), rhs.to(dev).requires_grad_())
+                loss = sum((fn(*args, trans=tr) ** 2).sum() for tr in (False, True))
+            else:
+                args = tuple(t_.clone().to(dev).requires_grad_() for t_ in
+                             (cot[:64, :96], cot[64:128, :96],
+                              cot[128:192, :96]))
+                y, ldj = fn(*args)
+                loss = (y * y).sum() + ldj.sum()
+            grads.append([torch.tril(g) if name == "tril_solve" and i == 0
+                          else g for i, g in enumerate(
+                              torch.autograd.grad(loss, args))])
+        backward[name] = max(_rel(g, w) for g, w in zip(*grads))
+        log(f"  {name} backward on the card (float64) vs CPU float64 autograd "
+            f"of the plain version: {backward[name]:.3g} of the largest "
+            f"(bar 1e-10)")
+        if not backward[name] <= 1e-10:
+            raise AssertionError(f"{name} backward: {backward[name]}")
+    return results, backward
+
+
+def gp_run(device, card):
+    """Phase 11: the titular `train_gp --flow` run and the tabular mode, the
+    launches of one joint NLML + gradient, then the card against the CPU on
+    the same weights."""
+    import numpy as np
+
+    from gpnf_tpu_torch import bench_flow_gp, train_gp
+    from gpnf_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = train_gp.main(GP_RUN)
+    tab = train_gp.main(["--device", "cuda"])
+    counts = kernels.launch_counts()
+    log(f"  launches on the whole GP path {counts}; per joint fit step on "
+        f"average {out['joint']['launches_per_step']}")
+    if any(counts[k] for k in counts if k not in GP_KERNELS):
+        raise AssertionError(f"the GP path launched a flagship kernel: {counts}")
+    fgp, x, y = bench_flow_gp.build(1024, device, np.random.default_rng(0))
+    kernels.reset_launch_counts()
+    bench_flow_gp.nlml_and_grad(fgp, x, y)
+    per_step = kernels.launch_counts()
+    want = {**dict.fromkeys(per_step, 0), **GP_PER_STEP}
+    log(f"  launches of one joint NLML + gradient at n=1024 {per_step} (want "
+        f"{want})")
+    if per_step != want:
+        raise AssertionError(f"joint NLML + gradient launches {per_step}")
+    del fgp, x, y
+    runs = {m: out[m] for m in ("raw", "frozen", "joint")}
+    runs["tabular"] = tab
+    for mode, r in runs.items():
+        losses = r["losses"]
+        log(f"  {mode}: NLML {r['nlml_start']:.4f} -> {r['nlml_end']:.4f}, "
+            f"test RMSE {r['rmse']:.4f}, fit {r['fit_s']:.2f} s "
+            f"({len(losses) / r['fit_s']:.1f} steps/s), min posterior var "
+            f"{r['min_var']:.3g} [{card}]")
+        if not (all(math.isfinite(v) for v in losses)
+                and r["nlml_end"] < r["nlml_start"] and r["min_var"] > 0):
+            raise AssertionError(f"{mode}: NLML not finite and falling, or a "
+                                 f"variance <= 0: {r['nlml_start']} -> "
+                                 f"{r['nlml_end']}, {r['min_var']}")
+    pre = out["pretrain_losses"]
+    log(f"  pretrain bits/dim {pre[0]:.4f} -> {pre[-1]:.4f} over {len(pre)} "
+        f"steps")
+    if not out["joint"]["nlml_end"] < out["frozen"]["nlml_end"]:
+        raise AssertionError("the joint fit did not end below the frozen one")
+    checks = {m: card_vs_cpu_gp(out[m]["model"], device, m)
+              for m in ("frozen", "joint")}
+    return out, tab, counts, checks
+
+
+def _joint_nlml_grads(fgp, flat, imgs, y, dev, dtype, relu=None):
+    """(NLML, {parameter name: its gradient}, the model) of a copy of `fgp`
+    on `dev` in `dtype`, its weights carried through convert.py.
+
+    `relu` = ("record", signs) appends the sign of every input to the
+    couplings' ReLUs (the outputs of NNNet.conv1 and conv2) to `signs`;
+    ("apply", signs) gives each such input that lies on the other side a
+    value of +-1e-30 with an unchanged gradient, so that this run takes the
+    recorded pieces of the piecewise-linear flow, and returns how many
+    moved."""
+    from gpnf_tpu_torch import convert, train_gp
+    from gpnf_tpu_torch.models.gp import FlowGP, GPConfig, GPRegression
+    from gpnf_tpu_torch.ops.coupling import NNNet
+
+    port = FlowGP(train_gp.build_flow(train_gp.parse_args(GP_RUN), dev),
+                  GPRegression(GPConfig(ard=False), fgp.gp.input_dim,
+                               device=dev)).to(dtype)
+    convert.load_jax_params(port, flat, dtype=None)
+    moved = [0]
+    if relu is not None:
+        how, signs = relu
+        todo = iter(signs)
+
+        def hook(mod, inp, out):
+            if how == "record":
+                signs.append((out > 0).cpu())
+                return None
+            want = next(todo).to(out.device)
+            other = want != (out > 0)
+            moved[0] += int(other.sum())
+            tiny = torch.where(want, 1e-30, -1e-30).to(out.dtype)
+            return out + torch.where(other, tiny - out, 0.0).detach()
+
+        for net in port.flow.modules():
+            if isinstance(net, NNNet):
+                net.conv1.register_forward_hook(hook)
+                net.conv2.register_forward_hook(hook)
+    loss = port.joint_nlml(torch.from_numpy(imgs).to(dev, dtype),
+                           torch.from_numpy(y).to(dev, dtype))
+    loss.backward()
+    return float(loss.detach()), {
+        k: (p.grad if p.grad is not None else torch.zeros_like(p))
+        .reshape(-1).double().cpu() for k, p in port.named_parameters()}, \
+        port, moved[0]
+
+
+def card_vs_cpu_gp(fgp, device, mode, n=128):
+    """The joint NLML and every gradient at n new images, on the card and on
+    the CPU, with the weights of the `mode` fit.
+
+    Float64: card within 1e-10 of the CPU (NLML relative to max(1, |NLML|),
+    gradients of the largest). Float32 is held against float64 on the CPU
+    taking the card's ReLU pieces: the flow is piecewise linear, and a ReLU
+    input within float32 rounding of 0 moves a gradient by up to 1e-2 of
+    the largest on whichever side rounds it across. Frozen model (its Gram
+    conditioned near 2e3): NLML within 1e-4, gradients within 1e-3. The
+    joint fit drives the noise down until that Gram is conditioned near
+    2e5, where two float32 implementations land 1e-4 to 1e-2 from float64
+    and either may be the closer, so there each of the card's two
+    distances must be within 3x the float32 CPU's (on the same pieces) or
+    within cond x 2^-24, the first-order float32 error of a solve."""
+    from gpnf_tpu_torch import convert, train_gp
+
+    imgs, y = train_gp.make_image_regression(n, 16, 0.1, seed=7)
+    flat = convert.state_dict_to_jax(fgp.state_dict())
+    cpu, f32, f64 = torch.device("cpu"), torch.float32, torch.float64
+    run = lambda dev, dtype, relu=None: _joint_nlml_grads(
+        fgp, flat, imgs, y, dev, dtype, relu)
+    signs = []
+    card32 = run(device, f32, ("record", signs))
+    cpu32, ref = (run(cpu, dtype, ("apply", signs)) for dtype in (f32, f64))
+    card64, cpu64 = run(device, f64), run(cpu, f64)
+    with torch.no_grad():
+        port = cpu64[2]
+        z = port.feature_fn(torch.from_numpy(imgs).double())
+        ev = torch.linalg.eigvalsh(port.gp.gram(z) + (
+            torch.exp(port.gp.log_noise) + 1e-6) * torch.eye(n).double())
+    out = {"gram_condition": float(ev[-1] / ev[0]),
+           "relu_inputs_moved": {"cpu_float32": cpu32[3],
+                                 "cpu_float64": ref[3]}}
+    log(f"  {mode} weights: the Gram's condition number at n={n}: "
+        f"{out['gram_condition']:.4g}; ReLU inputs on the other side of the "
+        f"card's: CPU float32 {cpu32[3]}, CPU float64 {ref[3]}")
+
+    def dist(a, b):
+        """|NLML a - b| relative to max(1, |NLML b|), max |grad a - grad b|
+        over max |grad b|, and the parameter where the latter peaks."""
+        (va, ga, *_), (vb, gb, *_) = a, b
+        worst = {k: float((ga[k] - gb[k]).abs().max()) for k in gb}
+        top = max(worst, key=worst.get)
+        scale = max(float(g.abs().max()) for g in gb.values())
+        return abs(va - vb) / max(1.0, abs(vb)), worst[top] / scale, top
+
+    failed = [f"{name}: a gradient is not finite"
+              for name, r in (("float32", card32), ("float64", card64))
+              if not all(torch.isfinite(g).all() for g in r[1].values())]
+    d64, d_card, d_cpu = dist(card64, cpu64), dist(card32, ref), dist(cpu32,
+                                                                      ref)
+    out.update(float64=d64, float32_from_float64={"card": d_card,
+                                                  "cpu": d_cpu})
+    log(f"  {mode} weights, n={n}, card vs CPU in float64: NLML {d64[0]:.3g}, "
+        f"{sum(g.numel() for g in cpu64[1].values())} gradients "
+        f"{d64[1]:.3g} of the largest ({d64[2]}) (bar 1e-10 each)")
+    log(f"  {mode} weights, float32 from float64 on the card's ReLU pieces "
+        f"(NLML, gradients): card {d_card[0]:.3g} / {d_card[1]:.3g} "
+        f"({d_card[2]}), CPU {d_cpu[0]:.3g} / {d_cpu[1]:.3g} ({d_cpu[2]})")
+    if not (d64[0] <= 1e-10 and d64[1] <= 1e-10):
+        failed.append(f"float64 card vs CPU {d64}")
+    if mode == "frozen" and not (d_card[0] <= 1e-4 and d_card[1] <= 1e-3):
+        failed.append(f"float32 card from float64 {d_card} (bars 1e-4, 1e-3)")
+    first_order = out["gram_condition"] * 2.0 ** -24
+    if mode == "joint" and not all(c <= max(3 * r, first_order) for c, r in
+                                   zip(d_card[:2], d_cpu[:2])):
+        failed.append(f"float32 card from float64 {d_card}: above 3x the "
+                      f"float32 CPU's {d_cpu} and cond x 2^-24 "
+                      f"{first_order:.3g}")
+    if failed:
+        raise AssertionError(f"{mode} weights: " + "; ".join(failed))
+    return out
+
+
+def gp_timings(device, card, out, with_profile):
+    """Phase 12: the bench's joint NLML + gradient, the joint fit's steps/s;
+    with --profile, device time by kernel over one joint NLML + gradient at
+    n = 1024 and 4096."""
+    import numpy as np
+
+    from gpnf_tpu_torch import bench_flow_gp
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for n in BENCH_SIZES:
+        rows.append(bench_flow_gp.measure(n, device, rng, reps=10))
+        log(f"  joint NLML + gradient n={n}: {rows[-1]['ms']:.3f} ms, peak "
+            f"{rows[-1]['peak_memory_bytes'] / 2 ** 30:.3f} GiB, value "
+            f"{rows[-1]['value_check']:.4f} [{card}]")
+    joint = out["joint"]
+    steps_per_s = len(joint["losses"]) / joint["fit_s"]
+    log(f"  joint fit at n=1024: {steps_per_s:.2f} steps/s [{card}]")
+    result = {"bench": rows, "joint_fit_steps_per_s": steps_per_s}
+    if with_profile:
+        runs = {}
+        for n in (1024, 4096):
+            fgp, x, y = bench_flow_gp.build(n, device, rng)
+            runs[f"joint NLML + gradient n={n}"] = (
+                lambda gen, f=fgp, x=x, y=y: bench_flow_gp.nlml_and_grad(
+                    f, x, y), True)
+        result["profile"] = profile(runs, device, card)
+    return result
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                    help="where the sample grid and chip_smoke.json go")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
-                   help="also trace one train step, one eval batch and one "
-                        "sampling pass")
+                   help="also trace one train step, one eval batch, one "
+                        "sampling pass and one joint NLML + gradient at "
+                        "n = 1024 and 4096")
     args = p.parse_args()
 
     log("== 1. device")
@@ -636,8 +1027,15 @@ def main():
     times = timings(model, loader, device, card)
     if args.profile:
         log("== 9. profile: device time by kernel")
-        times["profile"] = profile(model, loader, device, card, train_step_fn)
+        times["profile"] = profile(flagship_runs(model, loader, device,
+                                                 train_step_fn), device, card)
     del train_step_fn
+    log("== 10. GP kernels vs plain versions")
+    gp_kernels, gp_backward = check_gp_kernels(device, timer)
+    log("== 11. flow -> GP: train_gp --flow at full size, tabular, card vs CPU")
+    gp_out, gp_tab, gp_counts, gp_checks = gp_run(device, card)
+    log("== 12. GP timings")
+    gp_times = gp_timings(device, card, gp_out, args.profile)
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -648,32 +1046,68 @@ def main():
                               "gpnf_tpu/ops/pallas/fused_mixlogcdf.py:33"),
         "mixture_inverse": ("gpnf_tpu_torch/csrc/mixture_inverse.cu",
                             "gpnf_tpu/ops/pallas/fused_mixture_inverse.py:70"),
+        "fused_affine_forward": ("gpnf_tpu_torch/csrc/fused_affine.cu",
+                                 "gpnf_tpu/ops/pallas/fused_coupling.py:22"),
+        "cholesky": ("gpnf_tpu_torch/csrc/cholesky.cu",
+                     "gpnf_tpu/ops/pallas/cholesky.py:220"),
+        "tril_solve": ("gpnf_tpu_torch/csrc/tril_solve.cu",
+                       "gpnf_tpu/ops/pallas/trisolve.py:84"),
     }
+    # the headline shape of each GP kernel on the titular run (n = 1024):
+    # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
+    # the affine coupling of level 0
+    gp_headline = {"cholesky": ("n=1024", {"dtype": "float32"}),
+                   "tril_solve": ("n=1024 p=1024", {"trans": True}),
+                   "fused_affine_forward": ("(1024, 384)", {})}
     record = []
     for kernel in kernels.KERNELS:
         name = kernel.__name__
-        # level 0 (the largest shape on the paths), at the training rate;
-        # the library call (F.linear + SDPA, its backward) at rate 0
-        rows = [r for r in per_level[name] if r["level"] == 0]
-        top = [r for r in rows if r.get("rate", RATE) == RATE][0]
-        library_ms = rows[0]["library_ms"]
         launches = {"train": trained["launches"][name],
-                    "eval": eval_counts[name], "sample": sample_counts[name]}
-        record.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1],
-            "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in per_level[name]),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": library_ms,
-            "shape": f"level 0, batch {BATCH}" + (
-                f", rate {RATE}; library_ms at rate 0" if "rate" in top
-                else ""),
-            "per_level": per_level[name]})
+                    "eval": eval_counts[name], "sample": sample_counts[name],
+                    "gp": gp_counts[name]}
+        entry = {"name": name, "route": "cuda", "source": meta[name][0],
+                 "replaces": meta[name][1],
+                 "launches": sum(launches.values()),
+                 "launches_by_path": launches}
+        if name in GP_KERNELS:
+            rows = gp_kernels[name]
+            shape, extra = gp_headline[name]
+            top = [r for r in rows if r["shape"] == shape and all(
+                r.get(k) == v for k, v in extra.items())][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=shape + "".join(f", {k} {v}" for k, v in extra.items()),
+                backward_rel_err_vs_cpu_float64=gp_backward[name],
+                per_shape=rows)
+            if name == "cholesky":  # one CUDA factorization serves both
+                entry["also_replaces"] = "gpnf_tpu/ops/pallas/cholesky.py:291"
+        else:
+            # level 0 (the largest shape on the paths), at the training
+            # rate; the library call (F.linear + SDPA, its backward) at rate 0
+            rows = [r for r in per_level[name] if r["level"] == 0]
+            top = [r for r in rows if r.get("rate", RATE) == RATE][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in per_level[name]),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=rows[0]["library_ms"],
+                shape=f"level 0, batch {BATCH}" + (
+                    f", rate {RATE}; library_ms at rate 0" if "rate" in top
+                    else ""),
+                per_level=per_level[name])
+        record.append(entry)
+    gp_summary = {
+        "launches": gp_counts, "tabular": gp_tab, "card_vs_cpu": gp_checks,
+        **gp_times,
+        "pretrain_losses": gp_out["pretrain_losses"],
+        **{m: {k: v for k, v in gp_out[m].items() if k != "model"}
+           for m in ("raw", "frozen", "joint")}}
     summary = {"card": card, "build_s": build_s, "train": trained,
                "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
-               **checks, **times, "kernels": record}
+               **checks, **times, "gp": gp_summary, "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     log(json.dumps({"kernels": record}))

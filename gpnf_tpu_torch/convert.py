@@ -1,4 +1,4 @@
-"""Carry mAR-SCF parameters between the JAX package and the port's modules.
+"""Carry parameters between the JAX package and the port's modules.
 
 The port's modules are named after the JAX parameter tree, so a JAX path
 such as `levels/0/steps/coupling/net/blocks/3/attn/in_proj/v` is the
@@ -11,7 +11,16 @@ Two input forms are accepted:
 
 Each level's `steps` may be K-stacked (a leading K axis on every leaf, the
 JAX default `scan_steps=True`) or a list of K step trees; stacked steps are
-unstacked here. A missing or extra key, or a shape mismatch, raises.
+unstacked here, wherever they sit in the tree: a JAX `FlowGP` joint tree
+{"gp": {...}, "flow": {...}} loads whole into the port's `FlowGP`, whose
+state-dict keys are `gp.log_lengthscale` and `flow.levels.0...`. The
+Gaussian-prior flow's splits are `splits/<i>/conv/{w,b,logs}` and the
+affine coupling's convs carry `an_bias`/`an_logs` (Conv2d) or `b`/`logs`
+(Conv2dZeros), the same names in both packages. A missing or extra key,
+or a shape mismatch, raises. Leaves are cast to float32 unless the caller
+asks for another dtype or, with dtype=None, keeps the source's (load into
+a `model.double()` to run in float64). `gp_params_from_jax` loads a JAX
+GP hyperparameter dict alone.
 
 `state_dict_to_jax` is the way back: the port's state dict as the flat
 JAX dict with each level's K steps stacked again, the layout the JAX
@@ -20,13 +29,14 @@ JAX dict with each level's K steps stacked again, the layout the JAX
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-_STEPS = re.compile(r"^(levels/\d+/steps)/(.+)$")
-_STEP_KEY = re.compile(r"^(levels\.\d+\.steps)\.(\d+)\.(.+)$")
+_STEPS = re.compile(r"^((?:[^/]+/)*?levels/\d+/steps)/(.+)$")
+_STEP_KEY = re.compile(r"^((?:[^.]+\.)*?levels\.\d+\.steps)\.(\d+)\.(.+)$")
+GP_KEYS = ("log_lengthscale", "log_variance", "log_noise")
 
 
 def flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -87,8 +97,11 @@ def state_dict_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray
     return out
 
 
-def load_jax_params(model: torch.nn.Module, params: Any) -> torch.nn.Module:
-    """Copy JAX params into `model` (on its device); raise on any mismatch."""
+def load_jax_params(model: torch.nn.Module, params: Any,
+                    dtype: Optional[torch.dtype] = torch.float32
+                    ) -> torch.nn.Module:
+    """Copy JAX params into `model` (on its device, cast to `dtype`, or in
+    the source's dtype with dtype=None); raise on any mismatch."""
     arrays = jax_to_state_dict(params)
     expected = model.state_dict()
     missing = sorted(set(expected) - set(arrays))
@@ -106,6 +119,19 @@ def load_jax_params(model: torch.nn.Module, params: Any) -> torch.nn.Module:
                 f"checkpoint leaf '{key}' has shape {tuple(value.shape)} but "
                 f"the model expects {tuple(ref.shape)} — stale checkpoint for "
                 f"a different architecture?")
-        state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+        tensor = torch.from_numpy(np.array(value))
+        state[key] = tensor if dtype is None else tensor.to(dtype)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def gp_params_from_jax(gp: torch.nn.Module, params: Mapping[str, Any],
+                       dtype: Optional[torch.dtype] = torch.float32
+                       ) -> torch.nn.Module:
+    """Copy a JAX `GPRegression` param dict {"log_lengthscale",
+    "log_variance", "log_noise"} into the port's `GPRegression`."""
+    if set(params) != set(GP_KEYS):
+        raise ValueError(f"GP params have keys {sorted(params)}, expected "
+                         f"{sorted(GP_KEYS)}")
+    return load_jax_params(gp, {k: np.asarray(v) for k, v in params.items()},
+                           dtype)

@@ -1,22 +1,24 @@
 """mAR-SCF: multi-scale autoregressive normalizing flow for images.
 
-Counterpart of gpnf_tpu/models/marscf.py for the MixLogCDF coupling with
-the ConvLSTM prior. A flow step is actnorm -> invconv (PLU)
--> attention -> attention (permuted) -> coupling -> tuple flip; a level is
-squeeze -> K steps -> channel split, the split-off half scored by the
-prior. The K steps of a level are a plain loop (the JAX package scans a
-stacked copy; `convert.py` unstacks it and stacks it back).
+Counterpart of gpnf_tpu/models/marscf.py. A flow step is actnorm -> invconv
+(PLU) -> [attention -> attention (permuted)] -> coupling [-> tuple flip];
+a level is squeeze -> K steps -> channel split, the split-off half scored
+by the prior. The coupling is MixLogCDF (with a tuple flip after it) or
+affine (`coupling`), the attentions are optional (`use_attention`), and the
+prior is the ConvLSTM channel-AR prior or a learned Gaussian per split with
+a standard normal on the last level (`prior`), with the JAX package's names
+and defaults. The K steps of a level are a plain loop (the JAX package
+scans a stacked copy; `convert.py` unstacks it and stacks it back). The
+whole model also runs in float64 (`model.double()`).
 
 Training mode is PyTorch's: `model.train()` turns on the couplings'
 dropout (`drop_prob`, 0.2 as in the JAX package) and the prior's
 (`prior_dp_rate`, 0), `model.eval()` turns them off; the JAX package
 passes `train=True` instead. `ddi` always runs without dropout.
 
-Not ported yet: the affine coupling, the Gaussian split prior and models
-without attention. The JAX package's compile and
-memory options (scan_steps, scan_unroll, remat*, precompute_wn,
-prior_scan_unroll, fused_gated_conv) change no numbers and have no
-counterpart here.
+The JAX package's compile and memory options (scan_steps, scan_unroll,
+remat*, precompute_wn, prior_scan_unroll, fused_gated_conv, compute_dtype)
+change no numbers and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch.nn as nn
 
 from ..ops.actnorm import ActNorm
 from ..ops.attention import InvertibleAttention
-from ..ops.basic import Squeeze, TupleFlip, split_channels
+from ..ops.basic import GaussianDiag, Squeeze, TupleFlip, split_channels
+from ..ops.coupling import AffineCoupling, Split2dGaussian
 from ..ops.invconv import InvConv1x1
 from ..ops.mixlogcdf import MixLogCDFCoupling
 from ..utils.device import resolve_device
@@ -42,9 +45,12 @@ class MarScfConfig:
     L: int = 3
     K: int = 4
     hidden_channels: int = 96
+    coupling: str = "mixlogcdf"  # "mixlogcdf" | "affine"
+    use_attention: bool = True
     num_blocks: int = 10
     num_components: int = 32
     drop_prob: float = 0.2
+    prior: str = "convlstm"  # "convlstm" | "gaussian"
     prior_hidden: int = 32
     prior_layers: int = 3
     prior_dp_rate: float = 0.0
@@ -55,35 +61,54 @@ class FlowStep(nn.Module):
         super().__init__()
         self.actnorm = ActNorm(channels)
         self.invconv = InvConv1x1(channels, generator=generator)
-        self.attn1 = InvertibleAttention(channels, generator=generator)
-        self.attn2 = InvertibleAttention(channels, generator=generator)
-        self.coupling = MixLogCDFCoupling(
-            channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
-            num_components=cfg.num_components, drop_prob=cfg.drop_prob,
-            generator=generator)
-        self.tuple_flip = TupleFlip()
+        self.use_attention = cfg.use_attention
+        if cfg.use_attention:
+            self.attn1 = InvertibleAttention(channels, generator=generator)
+            self.attn2 = InvertibleAttention(channels, generator=generator)
+        if cfg.coupling == "mixlogcdf":
+            self.coupling = MixLogCDFCoupling(
+                channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
+                num_components=cfg.num_components, drop_prob=cfg.drop_prob,
+                generator=generator)
+            self.tuple_flip = TupleFlip()
+        elif cfg.coupling == "affine":
+            self.coupling = AffineCoupling(channels, channels,
+                                           cfg.hidden_channels,
+                                           generator=generator)
+            self.tuple_flip = None
+        else:
+            raise ValueError(f"unknown coupling {cfg.coupling!r}")
 
-    def _after_actnorm(self, x, logdet, generator=None):
+    def _after_actnorm(self, x, logdet, generator=None, ddi=False):
         x, logdet = self.invconv(x, logdet)
-        x, logdet = self.attn1(x, logdet)
-        x, logdet = self.attn2(x, logdet, permute=True)
-        x, logdet = self.coupling(x, logdet, generator)
-        return self.tuple_flip.forward(x, logdet)
+        if self.use_attention:
+            x, logdet = self.attn1(x, logdet)
+            x, logdet = self.attn2(x, logdet, permute=True)
+        if ddi and isinstance(self.coupling, AffineCoupling):
+            x, logdet = self.coupling.ddi(x, logdet)
+        else:
+            x, logdet = self.coupling(x, logdet, generator)
+        if self.tuple_flip is not None:
+            x, logdet = self.tuple_flip.forward(x, logdet)
+        return x, logdet
 
     def forward(self, x, logdet, generator=None):
         return self._after_actnorm(*self.actnorm(x, logdet), generator)
 
     def inverse(self, y, logdet):
-        y, logdet = self.tuple_flip.inverse(y, logdet)
+        if self.tuple_flip is not None:
+            y, logdet = self.tuple_flip.inverse(y, logdet)
         y, logdet = self.coupling.inverse(y, logdet)
-        y, logdet = self.attn2.inverse(y, logdet, permute=True)
-        y, logdet = self.attn1.inverse(y, logdet)
+        if self.use_attention:
+            y, logdet = self.attn2.inverse(y, logdet, permute=True)
+            y, logdet = self.attn1.inverse(y, logdet)
         y, logdet = self.invconv.inverse(y, logdet)
         return self.actnorm.inverse(y, logdet)
 
     def ddi(self, x, logdet):
-        """forward() with the actnorm initialised from `x` first."""
-        return self._after_actnorm(*self.actnorm.ddi(x, logdet))
+        """forward() with the actnorms (the step's, and the affine
+        coupling's fused ones) initialised from `x` first."""
+        return self._after_actnorm(*self.actnorm.ddi(x, logdet), ddi=True)
 
 
 class Level(nn.Module):
@@ -130,17 +155,27 @@ class MarScfFlow(nn.Module):
             if i < cfg.L - 1:
                 c = c // 2
         self.levels = nn.ModuleList(levels)
+        self.final_shape = (c, h, w)
         hh, ww, cc = cfg.image_shape
-        self.prior = ChannelPriorMultiScale(
-            cc, hh, ww, cfg.L, hidden_size=cfg.prior_hidden,
-            num_layers=cfg.prior_layers, dp_rate=cfg.prior_dp_rate,
-            generator=generator)
+        if cfg.prior == "convlstm":
+            self.prior = ChannelPriorMultiScale(
+                cc, hh, ww, cfg.L, hidden_size=cfg.prior_hidden,
+                num_layers=cfg.prior_layers, dp_rate=cfg.prior_dp_rate,
+                generator=generator)
+            self.splits = None
+        elif cfg.prior == "gaussian":
+            self.prior = None
+            self.splits = nn.ModuleList(
+                Split2dGaussian(self.level_shapes[i][0])
+                for i in range(cfg.L - 1))
+        else:
+            raise ValueError(f"unknown prior {cfg.prior!r}")
         self.num_dims = hh * ww * cc
         self.to(device)
 
     @property
     def device(self) -> torch.device:
-        return self.prior.levels[0].encoder.embed_w.device
+        return next(self.parameters()).device
 
     # -- density -------------------------------------------------------------
     def encode(self, z, logdet, generator=None):
@@ -149,10 +184,15 @@ class MarScfFlow(nn.Module):
         for i, level in enumerate(self.levels):
             z, logdet = level(*self.squeeze.forward(z, logdet), generator)
             if i < self.cfg.L - 1:
+                if self.prior is None:
+                    z, logdet = self.splits[i](z, logdet)
+                    continue
                 z1, z2 = split_channels(z)
                 logdet = logdet + self.prior.log_likelihood((z1, z2), i + 1,
                                                             generator)
                 z = z1
+        if self.prior is None:
+            return z, logdet + GaussianDiag.logp(None, None, z)
         return z, logdet + self.prior.log_likelihood(z, self.cfg.L, generator)
 
     def dequantize(self, x, generator=None, noise=None):
@@ -167,21 +207,29 @@ class MarScfFlow(nn.Module):
         draws the dequantisation noise and, in training mode, the dropout."""
         z = self.dequantize(x, generator, noise)
         logdet = torch.full((x.shape[0],), -math.log(256.0) * self.num_dims,
-                            dtype=torch.float32, device=x.device)
+                            dtype=x.dtype, device=x.device)
         z, objective = self.encode(z, logdet, generator)
         return z, -objective / (math.log(2.0) * self.num_dims)
 
     # -- sampling ------------------------------------------------------------
     def sample(self, batch: int, eps_std: float = 1.0, generator=None):
         cfg, device = self.cfg, self.device
-        z = self.prior.sample(cfg.L, batch=batch, eps_std=eps_std,
-                              generator=generator, device=device)
+        if self.prior is None:
+            z = GaussianDiag.sample_eps(
+                (batch, *self.final_shape), eps_std, generator,
+                dtype=next(self.parameters()).dtype, device=device)
+        else:
+            z = self.prior.sample(cfg.L, batch=batch, eps_std=eps_std,
+                                  generator=generator, device=device)
         zero = torch.zeros((batch,), device=device, dtype=z.dtype)
         for i in reversed(range(cfg.L)):
             if i < cfg.L - 1:
-                z2 = self.prior.sample(i + 1, z1=z, eps_std=eps_std,
-                                       generator=generator)
-                z = torch.cat([z, z2], dim=1)
+                if self.prior is None:
+                    z, _ = self.splits[i].inverse(z, zero, eps_std, generator)
+                else:
+                    z2 = self.prior.sample(i + 1, z1=z, eps_std=eps_std,
+                                           generator=generator)
+                    z = torch.cat([z, z2], dim=1)
             z, _ = self.levels[i].inverse(z, zero)
             z, _ = self.squeeze.inverse(z, zero)
         return z
@@ -195,7 +243,7 @@ class MarScfFlow(nn.Module):
         self.eval()
         try:
             z = self.dequantize(x, generator, noise)
-            logdet = torch.zeros((x.shape[0],), device=x.device)
+            logdet = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
             for i, level in enumerate(self.levels):
                 z, logdet = self.squeeze.forward(z, logdet)
                 for step in level.steps:

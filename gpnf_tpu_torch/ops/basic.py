@@ -81,7 +81,8 @@ class TupleFlip:
 
 
 class GaussianDiag:
-    """Diagonal Gaussian log-density (sampling is not ported yet)."""
+    """Diagonal Gaussian log-density and sampling; the noise comes from the
+    caller's torch.Generator (the JAX package's from a key)."""
 
     @staticmethod
     def likelihood(mean, logs, x):
@@ -93,3 +94,17 @@ class GaussianDiag:
     @staticmethod
     def logp(mean, logs, x):
         return sum_except_batch(GaussianDiag.likelihood(mean, logs, x))
+
+    @staticmethod
+    def sample(mean, logs, eps_std=None, generator=None):
+        eps_std = 1.0 if eps_std is None else eps_std
+        eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                          device=mean.device) * eps_std
+        return mean + torch.exp(logs) * eps
+
+    @staticmethod
+    def sample_eps(shape, eps_std=None, generator=None, dtype=torch.float32,
+                   device=None):
+        eps_std = 1.0 if eps_std is None else eps_std
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device) * eps_std

@@ -1,9 +1,11 @@
 """Convolution primitives of the coupling networks.
 
 Counterpart of gpnf_tpu/ops/conv.py: NCHW "SAME" convolutions with OIHW
-weights, and the weight-normalised conv and dense layers (torch's
+weights; Glow's `Conv2d` (normal(0, 0.05) init with a fused actnorm) and
+`Conv2dZeros` (zero init, learnable per-channel log-scale) of the affine
+coupling; and the weight-normalised conv and dense layers (torch's
 weight_norm: w = g * v / ||v||, the norm over every axis but the output
-axis). `Conv2d`/`Conv2dZeros` (affine coupling) are not ported yet.
+axis).
 """
 from __future__ import annotations
 
@@ -34,6 +36,53 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *,
 def uniform_(shape, bound: float, generator=None) -> torch.Tensor:
     """U(-bound, bound) on the CPU, drawn from `generator`."""
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class Conv2d(nn.Module):
+    """Conv with normal(0, 0.05) weights and a fused actnorm:
+    (conv(x) + an_bias) * exp(an_logs)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
+                 generator=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.randn(
+            (out_ch, in_ch, kernel_size, kernel_size),
+            generator=generator) * 0.05)
+        self.an_bias = nn.Parameter(torch.zeros(out_ch))
+        self.an_logs = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x):
+        return (conv2d(x, self.w) + self.an_bias.reshape(1, -1, 1, 1)) * \
+            torch.exp(self.an_logs).reshape(1, -1, 1, 1)
+
+    @torch.no_grad()
+    def ddi(self, x, eps: float = 1e-6):
+        """Set the fused actnorm from the batch `x` in place (zero mean,
+        unit std per output channel); return forward(x)."""
+        y = conv2d(x, self.w)
+        mean = torch.mean(y, dim=(0, 2, 3))
+        var = torch.mean((y - mean.reshape(1, -1, 1, 1)) ** 2, dim=(0, 2, 3))
+        self.an_bias.copy_(-mean)
+        self.an_logs.copy_(torch.log(1.0 / (torch.sqrt(var) + eps)))
+        return self(x)
+
+
+class Conv2dZeros(nn.Module):
+    """Zero-initialised conv whose output is scaled per channel by
+    exp(3 * logs)."""
+
+    LOGSCALE_FACTOR = 3.0
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros((out_ch, in_ch, kernel_size,
+                                           kernel_size)))
+        self.b = nn.Parameter(torch.zeros(out_ch))
+        self.logs = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x):
+        return conv2d(x, self.w, self.b) * torch.exp(
+            self.logs * self.LOGSCALE_FACTOR).reshape(1, -1, 1, 1)
 
 
 class WNConv2d(nn.Module):

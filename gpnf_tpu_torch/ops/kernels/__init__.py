@@ -4,13 +4,16 @@ Each module holds a wrapper with a `launches` count, the kernel's plain
 PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
+from .cholesky import cholesky, cholesky_plain
 from .fused_attention import (attention_proj_plain, attention_proj_plain_bwd,
                               fused_attention_proj, fused_attention_proj_bwd)
+from .fused_coupling import fused_affine_forward, fused_affine_plain
 from .fused_mixlogcdf import mixlogcdf_forward, mixlogcdf_plain
 from .fused_mixture_inverse import mixture_inverse, mixture_inverse_plain
+from .trisolve import tril_solve, tril_solve_plain
 
 KERNELS = (fused_attention_proj, fused_attention_proj_bwd, mixlogcdf_forward,
-           mixture_inverse)
+           mixture_inverse, fused_affine_forward, cholesky, tril_solve)
 
 
 def reset_launch_counts() -> None:

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gpnf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention_proj", "mixlogcdf_forward", "mixture_inverse")
+SOURCES = ("fused_attention_proj", "mixlogcdf_forward", "mixture_inverse",
+           "fused_affine", "tril_solve", "cholesky")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,7 +44,21 @@ SIGNATURES = {
     "mixture_inverse": {
         "gpnf_mixture_inverse": [_P] * 5 + [_I, _I, _I, _P],
     },
+    "fused_affine": {
+        "gpnf_fused_affine_f32": [_P] * 5 + [_I, _I, _P],
+        "gpnf_fused_affine_f64": [_P] * 5 + [_I, _I, _P],
+    },
+    "tril_solve": {
+        "gpnf_tril_solve_f32": [_P] * 3 + [_I] * 3 + [_P],
+        "gpnf_tril_solve_f64": [_P] * 3 + [_I] * 3 + [_P],
+    },
+    "cholesky": {
+        "gpnf_cholesky_f32": [_P, _P, _I, _P],
+        "gpnf_cholesky_f64": [_P, _P, _I, _P],
+    },
 }
+# the C entry point's suffix for each dtype a kernel takes
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -112,11 +127,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> torch.device:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on one
-    device. Tensors that require grad are taken as they are: the kernels
-    run inside the forward and backward of `torch.autograd.Function`s."""
-    device = None
+def check_cuda_inputs(kernel: str, *, dtypes=(torch.float32,),
+                      **tensors: torch.Tensor) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    all of one dtype among `dtypes` (the kernel's instantiations). Tensors
+    that require grad are taken as they are: the kernels run inside the
+    forward and backward of `torch.autograd.Function`s."""
+    device, dtype = None, None
     for arg, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{kernel}: '{arg}' is on {t.device}, the kernel "
@@ -126,9 +143,11 @@ def check_cuda_inputs(kernel: str, **tensors: torch.Tensor) -> torch.device:
         elif t.device != device:
             raise ValueError(f"{kernel}: '{arg}' is on {t.device}, expected "
                              f"{device}")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes or (dtype is not None and t.dtype != dtype):
             raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
-                            f"kernel takes float32")
+                            f"kernel takes one of {tuple(dtypes)}, the same "
+                            f"for every input")
+        dtype = t.dtype
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: '{arg}' is not contiguous")
     return device

@@ -206,3 +206,135 @@ def test_small_model_train_step_on_card_matches_cpu(cuda_device):
     assert torch.isfinite(g_card).all()
     scale = float(g_cpu.abs().max())
     _close(g_card, g_cpu, rtol=1e-3, atol=1e-4 * scale)
+
+
+# -- the GP head's kernels: Cholesky, triangular solve, affine coupling ----------
+def _spd(n, dtype, seed=0):
+    """X X^T / n + I: eigenvalues in [1, 5], well conditioned."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((n, n)))
+    return (x @ x.T / n + torch.eye(n, dtype=torch.float64)).to(dtype)
+
+
+def _rel(got, want):
+    return float((got.cpu().double() - want.cpu().double()).abs().max()
+                 / want.cpu().double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n", [64, 200, 1000, 1024])
+def test_cholesky_kernel_matches_plain_on_card(cuda_device, n, dtype, bar):
+    """Against the plain version on the card, relative to max |L|, and by
+    the residual max |L L^T - A| / max |A| (both bars: 1e-5 in float32,
+    1e-12 in float64); the upper triangle is exactly zero."""
+    a = _spd(n, dtype).to(cuda_device)
+    before = kernels.cholesky.launches
+    l = kernels.cholesky(a)
+    assert kernels.cholesky.launches == before + 1
+    assert _rel(l, kernels.cholesky_plain(a)) <= bar
+    assert _rel(l @ l.T, a) <= bar
+    assert int(torch.count_nonzero(torch.triu(l, 1))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cholesky_kernel_gives_nan_when_not_positive_definite(cuda_device,
+                                                              dtype):
+    a = _spd(300, dtype).to(cuda_device)
+    a[150, 150] = -5.0
+    l = kernels.cholesky(a)  # raises nothing
+    assert torch.isnan(l).any()
+    assert torch.isfinite(l[:150, :150]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("n,p", [(200, 1), (200, 5), (1024, 1), (1000, 300),
+                                 (256, 256)])
+def test_tril_solve_kernel_matches_plain_on_card(cuda_device, n, p, trans,
+                                                 dtype, bar):
+    l = torch.linalg.cholesky(_spd(n, torch.float64, seed=1)).to(
+        dtype).contiguous()
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal((n, p))).to(
+        dtype)
+    l, b = l.to(cuda_device), b.to(cuda_device)
+    x = kernels.tril_solve(l, b, trans=trans)
+    assert _rel(x, kernels.tril_solve_plain(l, b, trans=trans)) <= 10 * bar
+    op = l.T if trans else l
+    assert _rel(op @ x, b) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1024, 384), (1024, 192), (7, 1000)])
+def test_fused_affine_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    r = np.random.default_rng(3)
+    x2, shift, raw = (torch.from_numpy(r.standard_normal(shape) * s).to(
+        dtype).to(cuda_device) for s in (1.0, 0.1, 3.0))
+    raw[0, 0] = -200.0  # log sigmoid stays finite
+    y, ldj = kernels.fused_affine_forward(x2, shift, raw)
+    y_p, ldj_p = kernels.fused_affine_plain(x2, shift, raw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(y, y_p, rtol=tol, atol=tol)
+    torch.testing.assert_close(ldj, ldj_p, rtol=tol, atol=tol * shape[1])
+    assert torch.isfinite(ldj).all()
+
+
+@pytest.mark.cuda
+def test_gp_kernel_backwards_on_card_match_float64_cpu(cuda_device):
+    """Each kernel's backward through its autograd.Function on the card
+    (float64) against autograd of the plain version on the CPU (float64)."""
+    n = 256
+    r = np.random.default_rng(4)
+    b0 = _spd(n, torch.float64)
+    g_l = torch.from_numpy(r.standard_normal((n, n)))
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        b = b0.to(dev).requires_grad_()
+        a = 0.5 * (b + b.T)
+        fn = kernels.cholesky if dev != "cpu" else kernels.cholesky_plain
+        grads.append(torch.autograd.grad((fn(a) * g_l.to(dev)).sum(), b)[0])
+    assert _rel(grads[0], grads[1]) <= 1e-10
+    l0 = torch.linalg.cholesky(b0).contiguous()
+    rhs = torch.from_numpy(r.standard_normal((n, 3)))
+    for trans in (False, True):
+        grads = []
+        for dev in (cuda_device, "cpu"):
+            l, b = (t.to(dev).requires_grad_() for t in (l0, rhs))
+            fn = (kernels.tril_solve if dev != "cpu"
+                  else kernels.tril_solve_plain)
+            x = fn(l, b, trans=trans)
+            grads.append(torch.autograd.grad((x * x).sum(), (l, b)))
+        for got, want in zip(*grads):
+            assert _rel(torch.tril(got), torch.tril(want)) <= 1e-10
+    x2, shift, raw = (torch.from_numpy(r.standard_normal((64, 96)))
+                      for _ in range(3))
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        args = [t.to(dev).requires_grad_() for t in (x2, shift, raw)]
+        fn = (kernels.fused_affine_forward if dev != "cpu"
+              else kernels.fused_affine_plain)
+        y, ldj = fn(*args)
+        grads.append(torch.autograd.grad((y * y).sum() + ldj.sum(), args))
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_gp_kernel_wrappers_reject_bad_inputs_on_card(cuda_device):
+    a = _spd(64, torch.float32).to(cuda_device)
+    with pytest.raises(TypeError):
+        kernels.cholesky(a.half())
+    with pytest.raises(TypeError):  # one dtype for every input
+        kernels.tril_solve(a, a[:, :3].double())
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kernels.tril_solve(a, a[:, :3].cpu())
+    with pytest.raises(ValueError):
+        kernels.cholesky(a[:, :10])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.cholesky(a.T)
+    with pytest.raises(ValueError):
+        kernels.fused_affine_forward(a, a, a[:, :3])

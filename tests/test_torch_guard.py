@@ -37,6 +37,7 @@ def test_guard_sees_the_whole_port():
     assert (ROOT / "chip_smoke.py").exists()
     names = {p.name for p in FILES}
     assert {"marscf.py", "fused_attention.py", "convert.py",
-            "eval_marscf.py"} <= names
+            "eval_marscf.py", "gp.py", "fused_coupling.py", "cholesky.py",
+            "trisolve.py", "train_gp.py", "bench_flow_gp.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("gpnf_tpu.ops")
     assert not _forbidden("gpnf_tpu_torch.ops")
