@@ -52,7 +52,24 @@ Phases, each of which raises (exit code != 0) when it fails:
  12. GP timings: the joint NLML + gradient at n = 1024, 2048 and 4096
      (`bench_flow_gp`), the joint fit's steps/s, peak device memory; with
      --profile, device time by kernel over one joint NLML + gradient at
-     n = 1024 and 4096.
+     n = 1024 and 4096;
+ 13. long attention: the long-sequence kernels (forward and backward)
+     against their plain versions at the 64-px row's level 0 (batch 64,
+     S = 1024) and a ragged (batch 4, S = 576), at dropout rate 0 and 0.2
+     (rate 0.2 compared at batch 8: the plain mask at batch 64 needs ~10
+     GB), two backward calls bit for bit the same, S = 2049 refused; each
+     with its time, the plain version's, SDPA's (rate 0) and its bound;
+ 14. the ImageNet-64 row (`bench.py`'s BENCH_IMAGE=64 configuration: the
+     flagship at 64x64x3; random weights from --seed, the synthetic set at
+     64 px, as no ImageNet-64 files are in the checkout): ddi, 10 Adamax
+     steps at batch 64 with dropout 0.2 (every loss finite, the last below
+     the first, exact launch counts per step), train images/s (median of 3
+     windows of 5 steps) and peak device memory; eval bits/dim over 2
+     batches and one 64-image sampling pass as a PNG, each with its launch
+     counts and images/s; with --profile, device time by kernel over one
+     64-px train step, eval batch and sampling pass;
+ 15. card vs CPU at 64 px on phase 14's weights, batch 2: encode bits/dim,
+     and one training step at dropout 0 (loss and every gradient).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -112,6 +129,22 @@ CHOL_CASES = ((1000, torch.float32), (1024, torch.float32),
 SOLVE_SIZES = (1024, 4096)
 AFFINE_SHAPES = ((1024, 384), (1024, 192), (4096, 384))
 BENCH_SIZES = (1024, 2048, 4096)
+# the ImageNet-64 row (bench.py BENCH_IMAGE=64): the flagship at 64 px
+IMAGENET64 = dict(FLAGSHIP, image_shape=(64, 64, 3))
+TRAIN64_STEPS, WINDOW64_STEPS = 10, 5
+# level 0 at 64 px has S = 32 * 32 = 1024 > 512: the long attention entry
+PER_STEP_64 = {"fused_attention_proj": 80, "fused_attention_proj_bwd": 80,
+               "fused_attention_long": 40, "fused_attention_long_bwd": 40,
+               "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP}
+# per eval batch and per sampling pass at 64 px
+EVAL_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
+           "mixlogcdf_forward": 12}
+SAMPLE_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
+             "mixture_inverse": 12}
+NO_LONG = {"fused_attention_long": 0, "fused_attention_long_bwd": 0}
+# phase 13's (batch, S): the 64-px level 0, and a ragged sequence
+LONG_CASES = ((BATCH, 1024), (4, 576))
+LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
 
 
 def log(msg=""):
@@ -350,7 +383,8 @@ def train(device, loader, out_dir, seed, card):
         f"bits/dim; launches per step {per_step}")
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
-            "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP}
+            "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
+            **NO_LONG}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
     last5 = statistics.mean(losses[-5:])
@@ -428,7 +462,7 @@ def serve(model, loader, device, seed):
     want = {"fused_attention_proj": 120 * n_batches,
             "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP}
+            **NO_GP, **NO_LONG}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
     return nll, counts
@@ -446,7 +480,8 @@ def sample(model, out_dir, device, seed):
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
-            "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP}
+            "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
+            **NO_LONG}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
     with open(path, "rb") as f:
@@ -961,16 +996,303 @@ def gp_timings(device, card, out, with_profile):
     return result
 
 
+# -- phases 13-15: the ImageNet-64 row ----------------------------------------------
+def check_long_kernels(device, timer, w, heads):
+    """Phase 13: the long-sequence attention kernels against their plain
+    versions on qkv = seq w^T (w of the 64-px model's level 0), with times,
+    bounds and the library's (SDPA, rate 0) times."""
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.ops.kernels.fused_attention import MAX_S_LONG
+
+    gen = torch.Generator(device=device).manual_seed(5678)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    c = w.shape[1]
+    dh = c // heads
+    results = {}
+
+    def record(name, batch, s, rate, err, ms, plain_ms, library_ms,
+               forward):
+        scores = batch * heads * s * s
+        core = 2 * scores * dh  # one S x S x Dh product
+        rows = batch * s
+        if forward:  # qkv in, out; two products and the softmax
+            bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
+        else:  # qkv and g in, dqkv out; five products and dS
+            bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
+        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+        row = dict(batch=batch, s=s, rate=rate,
+                   max_abs_err=None if err is None else err[0],
+                   max_rel_err=None if err is None else err[1], ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        results.setdefault(name, []).append(row)
+        ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
+        log(f"  {name} B={batch} S={s} rate {rate}: max abs err "
+            f"{'n/a' if err is None else f'{err[0]:.3g}'} | kernel {ms:.4f} "
+            f"ms plain {ms_or_na(plain_ms)} library {ms_or_na(library_ms)} | "
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+
+    def sdpa_inputs(qkv, grad):
+        b, s, _ = qkv.shape
+        k, v, q = (t_.reshape(b, s, heads, dh).transpose(1, 2).contiguous()
+                   .requires_grad_(grad) for t_ in qkv.split(c, dim=-1))
+        return q, k, v
+
+    def library_fwd_ms(qkv):
+        q, k, v = sdpa_inputs(qkv, False)
+        return timer(lambda: F.scaled_dot_product_attention(q, k, v))
+
+    def library_bwd_ms(qkv, g):
+        """Autograd backward of SDPA, the graph built once and its backward
+        timed alone."""
+        b, s, _ = qkv.shape
+        q, k, v = sdpa_inputs(qkv, True)
+        g4 = g.reshape(b, s, heads, dh).transpose(1, 2)
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), g4,
+                                                 retain_graph=True))
+
+    with torch.no_grad():
+        for batch, s in LONG_CASES:
+            qkv = torch.matmul(randn(batch, s, c) * 0.5, w.t())
+            g = randn(batch, s, c)
+            seed = torch.tensor([8765 + s], dtype=torch.int32, device=device)
+            for rate in (0.0, RATE):
+                # one seed for kernel and plain version: the same mask
+                fwd = lambda x: kernels.attention_long_qkv(x, heads, rate,
+                                                           seed)
+                bwd = lambda x, y: kernels.attention_long_qkv_bwd(
+                    x, y, heads, rate, seed)
+                nb = batch if rate == 0.0 else min(batch, LONG_DROPOUT_BATCH)
+                sub, g_sub = qkv[:nb], g[:nb]
+                plain = lambda: kernels.attention_long_plain(sub, heads, rate,
+                                                             seed)
+                err = max_errs(fwd(sub), plain())
+                if err[0] > 1e-5:
+                    raise AssertionError(f"long attention B={nb} S={s} rate "
+                                         f"{rate}: max abs err {err[0]} > 1e-5")
+                record("fused_attention_long", nb, s, rate, err,
+                       timer(lambda: fwd(sub)), timer(plain),
+                       library_fwd_ms(sub) if rate == 0.0 else None, True)
+                plain_b = lambda: kernels.attention_long_plain_bwd(
+                    sub, g_sub, heads, rate, seed)
+                got, again, want = bwd(sub, g_sub), bwd(sub, g_sub), plain_b()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"long attention bwd B={nb} S={s} "
+                                         f"rate {rate}: two calls differ")
+                scale = float(want.abs().max())
+                over_scale = float((got - want).abs().max()) / scale
+                if not over_scale <= 1e-4:
+                    raise AssertionError(
+                        f"long attention bwd B={nb} S={s} rate {rate}: dqkv "
+                        f"max abs err / max |plain| = {over_scale} > 1e-4")
+                record("fused_attention_long_bwd", nb, s, rate,
+                       max_errs(got, want), timer(lambda: bwd(sub, g_sub)),
+                       timer(plain_b),
+                       library_bwd_ms(sub, g_sub) if rate == 0.0 else None,
+                       False)
+                results["fused_attention_long_bwd"][-1].update(
+                    deterministic=True,
+                    err_over_scale=float(f"{over_scale:.3g}"))
+                if nb < batch:  # the kernels alone at the path's batch
+                    record("fused_attention_long", batch, s, rate, None,
+                           timer(lambda: fwd(qkv)), None, None, True)
+                    record("fused_attention_long_bwd", batch, s, rate, None,
+                           timer(lambda: bwd(qkv, g)), None, None, False)
+        too_long = torch.zeros((1, MAX_S_LONG + 1, 3 * c), device=device)
+        try:
+            kernels.attention_long_qkv(too_long, heads)
+        except ValueError as e:
+            log(f"  S = {too_long.shape[1]} refused: {e}")
+        else:
+            raise AssertionError("the long attention took S > 2048")
+    return results
+
+
+def imagenet64_row(model, device, out_dir, seed, card, with_profile):
+    """Phase 14: the 64-px row through the port's trainer and server."""
+    from gpnf_tpu_torch.data.datasets import NumpyLoader, get_dataset
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training.loop import (evaluate, sample_images,
+                                              save_sample_grid, train_step)
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    train_loader, test_loader, shape = get_dataset("imagenet_64", BATCH,
+                                                   seed=seed)
+    log(f"  imagenet_64: {train_loader.images.shape[0]} training and "
+        f"{test_loader.images.shape[0]} test images of {shape} (the "
+        f"synthetic set: no ImageNet-64 files in the checkout)")
+    batches = [torch.from_numpy(b).to(device)
+               for b, _ in zip(train_loader, range(8))]
+    gen = torch.Generator(device=device).manual_seed(seed + 41)
+    model.ddi(batches[0], generator=gen)
+    model.train()
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=WARM_UP,
+                       batch_size=BATCH)
+    step = 0
+
+    def one_step():
+        nonlocal step
+        loss = train_step(model, opt, batches[step % len(batches)], gen)
+        step += 1
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(TRAIN64_STEPS)]
+    counts = kernels.launch_counts()
+    per_step = {k: v / TRAIN64_STEPS for k, v in counts.items()}
+    log(f"  {TRAIN64_STEPS} steps at batch {BATCH}, dropout {RATE}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} bits/dim; launches per step "
+        f"{per_step}")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    if per_step != PER_STEP_64:
+        raise AssertionError(f"64-px train launches per step {per_step} != "
+                             f"{PER_STEP_64}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"64-px train losses not finite and falling: "
+                             f"{losses}")
+    if opt.total_notfinite:
+        raise AssertionError(f"{opt.total_notfinite} non-finite updates")
+    window_s = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WINDOW64_STEPS):
+            loss = one_step()
+        float(loss)
+        window_s.append(time.perf_counter() - t0)
+    train_ips = WINDOW64_STEPS * BATCH / statistics.median(window_s)
+    train_peak = torch.cuda.max_memory_allocated(device)
+    log(f"  train {train_ips:.2f} images/s (median of {WINDOWS} windows of "
+        f"{WINDOW64_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
+    log(f"  train peak device memory {train_peak / 2 ** 30:.3f} GiB at batch "
+        f"{BATCH} [{card}]")
+
+    model.eval()
+    loader = NumpyLoader(test_loader.images[:2 * BATCH], BATCH, shuffle=False)
+    egen = lambda k: torch.Generator(device=device).manual_seed(seed + k)
+    kernels.reset_launch_counts()
+    nll = evaluate(model, loader, generator=egen(42))
+    eval_counts = kernels.launch_counts()
+    want = {k: EVAL_64.get(k, 0) * len(loader) for k in eval_counts}
+    log(f"  eval bits/dim {nll:.4f} over {len(loader)} batches of {BATCH}; "
+        f"launches {eval_counts}")
+    if eval_counts != want:
+        raise AssertionError(f"64-px eval launches {eval_counts} != {want}")
+    if not (math.isfinite(nll) and nll < 30.0):
+        raise AssertionError(f"64-px eval bits/dim {nll} not finite and < 30")
+
+    kernels.reset_launch_counts()
+    path, nan_count = save_sample_grid(
+        model, os.path.join(out_dir, "samples64.png"), n=BATCH,
+        generator=egen(43))
+    sample_counts = kernels.launch_counts()
+    want = {k: SAMPLE_64.get(k, 0) for k in sample_counts}
+    log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
+        f"before the clamp; launches {sample_counts}")
+    if sample_counts != want:
+        raise AssertionError(f"64-px sampling launches {sample_counts} != "
+                             f"{want}")
+    with open(path, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"{path} is not a PNG")
+
+    eval_s, sample_s = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(3):
+        t0 = time.perf_counter()
+        evaluate(model, loader, generator=egen(50 + i))
+        eval_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        sample_images(model, BATCH, generator=egen(60 + i))
+        sample_s.append(time.perf_counter() - t0)
+    serve_peak = torch.cuda.max_memory_allocated(device)
+    eval_ips = len(loader) * BATCH / statistics.median(eval_s)
+    sample_ips = BATCH / statistics.median(sample_s)
+    log(f"  eval {eval_ips:.2f} images/s (median of 3 passes over "
+        f"{len(loader) * BATCH} images: {eval_s} s) [{card}]")
+    log(f"  sample {sample_ips:.2f} images/s (median of 3 passes of {BATCH} "
+        f"images: {sample_s} s); serving peak {serve_peak / 2 ** 30:.3f} GiB "
+        f"[{card}]")
+    out = {"losses": losses, "launches": counts, "launches_per_step": per_step,
+           "train_images_per_s": train_ips, "train_window_s": window_s,
+           "train_peak_memory_bytes": train_peak, "eval_bits_per_dim": nll,
+           "eval_launches": eval_counts, "sample_launches": sample_counts,
+           "nan_before_clamp": nan_count, "eval_images_per_s": eval_ips,
+           "sample_images_per_s": sample_ips, "eval_s": eval_s,
+           "sample_s": sample_s, "serve_peak_memory_bytes": serve_peak}
+    if with_profile:
+        batch = batches[0]
+        model.train()
+        runs = {"64-px train step": (lambda g_: one_step(), True)}
+        out["profile"] = profile(runs, device, card)
+        model.eval()
+        out["profile"].update(profile({
+            "64-px eval batch": (lambda g_: model(batch, generator=g_), False),
+            "64-px sample pass": (lambda g_: model.sample(BATCH, generator=g_),
+                                  False)}, device, card))
+    return out, batches[0][:2].cpu()
+
+
+def card_vs_cpu_64(model, x, device):
+    """Phase 15: encode bits/dim and one training step at dropout 0 on the
+    64-px weights, batch 2, card against CPU."""
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+
+    model.eval()
+    cpu = copy.deepcopy(model).to("cpu")
+    logdet = torch.zeros(2)
+    scale = math.log(2.0) * model.num_dims
+    with torch.no_grad():
+        _, obj_card = model.encode(x.to(device), logdet.to(device))
+        _, obj_cpu = cpu.encode(x, logdet)
+    bpd_diff = float((obj_card.cpu() - obj_cpu).abs().max()) / scale
+    log(f"  encode bits/dim card vs CPU: max diff {bpd_diff:.3g} (bar 1e-3)")
+    if not bpd_diff <= 1e-3:
+        raise AssertionError(f"64-px encode card vs CPU {bpd_diff} > 1e-3")
+    del cpu
+    cfg = MarScfConfig(**{**IMAGENET64, "drop_prob": 0.0})
+    noise = torch.rand(x.shape, generator=torch.Generator().manual_seed(9))
+    step = {}
+    for dev in ("cpu", device):
+        net = MarScfFlow(cfg, device=dev)
+        net.load_state_dict(model.state_dict())
+        loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
+        loss.backward()
+        step[str(dev)] = (float(loss.detach()), torch.cat(
+            [p.grad.reshape(-1) for p in net.parameters()]).cpu())
+        del net
+    (loss_cpu, g_cpu), (loss_card, g_card) = step["cpu"], step[str(device)]
+    loss_diff = abs(loss_card - loss_cpu)
+    grad_scale = float(g_cpu.abs().max())
+    grad_rel = float((g_card - g_cpu).abs().max()) / grad_scale
+    log(f"  train step at batch 2, dropout 0: loss card {loss_card:.6f} CPU "
+        f"{loss_cpu:.6f} (diff {loss_diff:.3g}, bar 1e-4 bits/dim); "
+        f"{g_cpu.numel()} gradients, max abs diff / max abs value "
+        f"{grad_scale:.3g}: {grad_rel:.3g} (bar 1e-3)")
+    if not (loss_diff <= 1e-4 and grad_rel <= 1e-3
+            and torch.isfinite(g_card).all()):
+        raise AssertionError(f"64-px train step card vs CPU: loss diff "
+                             f"{loss_diff}, gradient {grad_rel}")
+    return {"encode_bpd_card_vs_cpu": bpd_diff,
+            "train_loss_card_vs_cpu": loss_diff,
+            "train_grad_rel_err_card_vs_cpu": grad_rel}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join("build", "chip_smoke"),
                    help="where the sample grid and chip_smoke.json go")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
-                   help="also trace one train step, one eval batch, one "
-                        "sampling pass and one joint NLML + gradient at "
-                        "n = 1024 and 4096")
+                   help="also trace one train step, one eval batch and "
+                        "one sampling pass at 32 and at 64 px, and one joint "
+                        "NLML + gradient at n = 1024 and 4096")
     args = p.parse_args()
+    t_start = time.perf_counter()
 
     log("== 1. device")
     if not torch.cuda.is_available():
@@ -1037,6 +1359,19 @@ def main():
     log("== 12. GP timings")
     gp_times = gp_timings(device, card, gp_out, args.profile)
 
+    model64 = MarScfFlow(MarScfConfig(**IMAGENET64), device=device,
+                         generator=torch.Generator().manual_seed(args.seed + 40))
+    attn64 = model64.levels[0].steps[0].coupling.net.blocks[0].attn
+    log("== 13. long attention kernels vs plain versions (64-px level 0)")
+    with torch.no_grad():
+        w64 = attn64.in_proj.effective_weight().contiguous()  # (288, 96)
+    long_kernels = check_long_kernels(device, timer, w64, attn64.num_heads)
+    log(f"== 14. the ImageNet-64 row: train, eval, sample at batch {BATCH}")
+    row64, x64 = imagenet64_row(model64, device, args.out, args.seed, card,
+                                args.profile)
+    log("== 15. card vs CPU at 64 px")
+    row64.update(card_vs_cpu_64(model64, x64, device))
+
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
     meta = {
@@ -1052,6 +1387,10 @@ def main():
                      "gpnf_tpu/ops/pallas/cholesky.py:220"),
         "tril_solve": ("gpnf_tpu_torch/csrc/tril_solve.cu",
                        "gpnf_tpu/ops/pallas/trisolve.py:84"),
+        "fused_attention_long": ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
+                                 attention[1] + "533"),
+        "fused_attention_long_bwd": (
+            "gpnf_tpu_torch/csrc/fused_attention_long.cu", attention[1] + "554"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -1064,7 +1403,10 @@ def main():
         name = kernel.__name__
         launches = {"train": trained["launches"][name],
                     "eval": eval_counts[name], "sample": sample_counts[name],
-                    "gp": gp_counts[name]}
+                    "gp": gp_counts[name],
+                    "train64": row64["launches"][name],
+                    "eval64": row64["eval_launches"][name],
+                    "sample64": row64["sample_launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -1084,6 +1426,21 @@ def main():
                 per_shape=rows)
             if name == "cholesky":  # one CUDA factorization serves both
                 entry["also_replaces"] = "gpnf_tpu/ops/pallas/cholesky.py:291"
+        elif name in long_kernels:
+            # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
+            # bound on the same inputs (rate 0.2's rows in per_case)
+            rows = long_kernels[name]
+            top = [r for r in rows if (r["batch"], r["s"], r["rate"]) ==
+                   (*LONG_CASES[0], 0.0)][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows
+                                if r["max_abs_err"] is not None),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=f"64-px level 0: batch {BATCH}, S 1024, rate 0; "
+                      f"library_ms SDPA",
+                per_case=rows)
         else:
             # level 0 (the largest shape on the paths), at the training
             # rate; the library call (F.linear + SDPA, its backward) at rate 0
@@ -1107,9 +1464,11 @@ def main():
            for m in ("raw", "frozen", "joint")}}
     summary = {"card": card, "build_s": build_s, "train": trained,
                "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
-               **checks, **times, "gp": gp_summary, "kernels": record}
+               **checks, **times, "gp": gp_summary, "imagenet64": row64,
+               "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    log(f"== phases 1-15 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,28 @@
-"""CIFAR-10 and synthetic image datasets as shuffling numpy loaders.
+"""CIFAR-10, ImageNet-32/64 and synthetic image datasets as shuffling
+numpy loaders.
 
-Counterpart of the cifar10/synthetic part of gpnf_tpu/data/datasets.py:
-the CIFAR-10 python pickle batches are read from disk when present,
-otherwise a deterministic synthetic set stands in. Pixels are float32 NCHW
-in [-0.5, 0.5]. The CIFAR-10 training loader augments on the host with the
-JAX package's shift-and-flip (its numpy path; the JAX package's optional
-C++ pass makes the same decisions). Not ported yet: the MNIST and
-ImageNet-32/64 readers.
+Counterpart of the cifar10/imagenet/synthetic part of
+gpnf_tpu/data/datasets.py: the CIFAR-10 python pickle batches, the
+downsampled-ImageNet npz shards (train_data_batch_*.npz and val_data.npz)
+or an image folder of PNGs (<root>/train/**.png and <root>/val/**.png) are
+read from disk when present, otherwise a deterministic synthetic set of the
+dataset's size stands in. Pixels are float32 NCHW in [-0.5, 0.5]. The
+CIFAR-10 training loader augments on the host with the JAX package's
+shift-and-flip (its numpy path; the JAX package's optional C++ pass makes
+the same decisions). Not ported yet: the MNIST reader.
 """
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 from typing import Iterator, Optional
 
 import numpy as np
+
+from ..utils.png import read_png
+
+SIZES = {"cifar10": 32, "imagenet_32": 32, "imagenet_64": 64, "synthetic": 32}
 
 
 class NumpyLoader:
@@ -86,6 +94,46 @@ def _load_cifar10(root: str):
     return train.astype(np.uint8), read("test_batch").astype(np.uint8)
 
 
+def _load_imagenet_npz(root: str, size: int):
+    """Downsampled-ImageNet npz shards: train_data_batch_*.npz and
+    val_data.npz, each with a `data` array of rows of 3 * size * size."""
+    train_files = sorted(glob.glob(os.path.join(root,
+                                                "train_data_batch_*.npz")))
+    val = os.path.join(root, "val_data.npz")
+    if not train_files or not os.path.exists(val):
+        return None
+
+    def read(fn):
+        with np.load(fn) as d:
+            return d["data"].reshape(-1, 3, size, size).astype(np.uint8)
+
+    return np.concatenate([read(f) for f in train_files]), read(val)
+
+
+def _load_imagefolder(root: str, size: int):
+    """<root>/train/**.png and <root>/val/**.png, class folders allowed and
+    ignored (the density model is unconditional); every image size x size."""
+
+    def read_split(split):
+        paths = sorted(glob.glob(os.path.join(root, split, "**", "*.png"),
+                                 recursive=True))
+        if not paths:
+            return None
+        imgs = []
+        for path in paths:
+            img = read_png(path)  # (H, W, 3) uint8
+            if img.shape[:2] != (size, size):
+                raise ValueError(f"{path}: expected {size}x{size}, got "
+                                 f"{img.shape}")
+            imgs.append(np.transpose(img, (2, 0, 1)))
+        return np.stack(imgs).astype(np.uint8)
+
+    train, val = read_split("train"), read_split("val")
+    if train is None or val is None:
+        return None
+    return train, val
+
+
 def _synthetic(size: int, n_train: int = 2048, n_test: int = 512, seed: int = 7):
     """Deterministic structured images (smooth gradients + texture)."""
     rng = np.random.default_rng(seed)
@@ -105,13 +153,19 @@ def get_dataset(name: str, batch_size: int, data_root: Optional[str] = None,
                 seed: int = 0):
     """Returns (train_loader, test_loader, image_shape (H, W, C))."""
     name = name.lower()
-    if name not in ("cifar10", "synthetic"):
+    if name not in SIZES:
         raise ValueError(f"dataset {name!r} is not ported yet "
-                         f"(cifar10 and synthetic are)")
+                         f"({', '.join(SIZES)} are)")
     root = data_root or os.environ.get("GPNF_DATA_ROOT", "./data")
-    loaded = _load_cifar10(root) if name == "cifar10" else None
+    size = SIZES[name]
+    loaded = None
+    if name == "cifar10":
+        loaded = _load_cifar10(root)
+    elif name.startswith("imagenet"):
+        loaded = (_load_imagenet_npz(root, size)
+                  or _load_imagefolder(root, size))
     augment = "cifar" if name == "cifar10" else "none"
-    train, test = loaded if loaded is not None else _synthetic(32)
+    train, test = loaded if loaded is not None else _synthetic(size)
     return (NumpyLoader(train, batch_size, shuffle=True, augment=augment,
                         seed=seed),
-            NumpyLoader(test, batch_size, shuffle=False), (32, 32, 3))
+            NumpyLoader(test, batch_size, shuffle=False), (size, size, 3))

@@ -21,13 +21,16 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset_name", default="cifar10",
-                   choices=["cifar10", "synthetic"])
+                   choices=["cifar10", "imagenet_32", "imagenet_64",
+                            "synthetic"])
     p.add_argument("--data_root", default=None)
-    p.add_argument("--coupling", default="mixlogcdf", choices=["mixlogcdf"])
+    p.add_argument("--coupling", default="mixlogcdf",
+                   choices=["mixlogcdf", "affine"])
     p.add_argument("--batch_size", default=128, type=int)
     p.add_argument("--L", default=3, type=int)
     p.add_argument("--K", default=32, type=int)
     p.add_argument("--C", default=512, type=int)
+    p.add_argument("--no_attention", action="store_true")
     p.add_argument("--checkpoint_dir", default="./checkpoints")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda")
@@ -52,7 +55,8 @@ def main(argv=None) -> dict:
     _, test_loader, image_shape = get_dataset(args.dataset_name,
                                               args.batch_size, args.data_root)
     cfg = MarScfConfig(image_shape=image_shape, L=args.L, K=args.K,
-                       hidden_channels=args.C)
+                       hidden_channels=args.C, coupling=args.coupling,
+                       use_attention=not args.no_attention)
     model = MarScfFlow(cfg, device=device).eval()
     setting_id = f"marscf_{args.dataset_name}_{args.coupling}_{args.K}_{args.C}"
     CheckpointManager(os.path.join(args.checkpoint_dir, setting_id)).restore(

@@ -5,15 +5,19 @@ PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
 from .cholesky import cholesky, cholesky_plain
-from .fused_attention import (attention_proj_plain, attention_proj_plain_bwd,
+from .fused_attention import (attention_long_plain, attention_long_plain_bwd,
+                              attention_long_qkv, attention_long_qkv_bwd,
+                              attention_proj_plain, attention_proj_plain_bwd,
+                              fused_attention_long, fused_attention_long_bwd,
                               fused_attention_proj, fused_attention_proj_bwd)
 from .fused_coupling import fused_affine_forward, fused_affine_plain
 from .fused_mixlogcdf import mixlogcdf_forward, mixlogcdf_plain
 from .fused_mixture_inverse import mixture_inverse, mixture_inverse_plain
 from .trisolve import tril_solve, tril_solve_plain
 
-KERNELS = (fused_attention_proj, fused_attention_proj_bwd, mixlogcdf_forward,
-           mixture_inverse, fused_affine_forward, cholesky, tril_solve)
+KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
+           fused_attention_long_bwd, mixlogcdf_forward, mixture_inverse,
+           fused_affine_forward, cholesky, tril_solve)
 
 
 def reset_launch_counts() -> None:

@@ -25,8 +25,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gpnf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention_proj", "mixlogcdf_forward", "mixture_inverse",
-           "fused_affine", "tril_solve", "cholesky")
+SOURCES = ("fused_attention_proj", "fused_attention_long", "mixlogcdf_forward",
+           "mixture_inverse", "fused_affine", "tril_solve", "cholesky")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,10 @@ SIGNATURES = {
     "fused_attention_proj": {
         "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P],
+    },
+    "fused_attention_long": {
+        "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
     },
     "mixlogcdf_forward": {
         "gpnf_mixlogcdf_forward": [_P] * 8 + [_I, _I, _I, _P],

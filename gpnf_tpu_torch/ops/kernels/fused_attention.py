@@ -1,12 +1,20 @@
-"""Multi-head attention with the qkv projection inside the kernel.
+"""Multi-head self-attention kernels: the fused-projection entry for
+S <= 512 and the long-sequence entry for 512 < S <= 2048.
 
-Counterpart of gpnf_tpu/ops/pallas/fused_attention.py `fused_attention_proj`
-(forward and backward, dropout inside both). The CUDA kernels are in
-gpnf_tpu_torch/csrc/fused_attention_proj.cu; its header says what bounds
-them on the H100 and how they are laid out. `attention_proj_plain` and
-`attention_proj_plain_bwd` are the same functions in plain PyTorch: the
-wrappers run them for CPU tensors, and the tests and chip_smoke.py hold the
-kernels against them.
+Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
+- `fused_attention_proj` (forward and backward, dropout inside both), with
+  the qkv projection inside the kernels: gpnf_tpu_torch/csrc/
+  fused_attention_proj.cu. `attention_proj_plain` and
+  `attention_proj_plain_bwd` are its plain PyTorch versions.
+- `fused_attention_long` (`_fwd_kernel_bh`, `_bwd_kernel_bh`): the
+  projection and dseq/dW are torch.matmul outside the kernels, as the JAX
+  package leaves them to XLA; the kernels take the packed qkv (B, S, 3C)
+  and tile the key axis: gpnf_tpu_torch/csrc/fused_attention_long.cu.
+  `attention_long_plain` and `attention_long_plain_bwd` are its plain
+  versions at the kernels' own boundary (qkv in, out or dqkv out).
+Each source's header says what bounds its kernels on the H100 and how they
+are laid out. The wrappers run the plain versions for CPU tensors, and the
+tests and chip_smoke.py hold the kernels against them.
 
 Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
 Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
@@ -14,9 +22,8 @@ Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
 are a pure function of (seed, b, h, i, j), so the backward regenerates
 the forward's mask in any order. `dropout_keep_plain` computes the same
 bits in torch integer arithmetic. They cannot match the JAX package's
-masks, which come from the TPU's own generator.
-
-Not yet ported: `fused_attention_long` (S > 512, the 64-px path).
+masks, which come from the TPU's own generator. Both entries draw the
+same bits, so at one seed they drop the same scores.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch
 from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
+MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # Dh values the kernels are built for
 K_CHUNK = 1024  # (b, s) rows per partial sum of dW in the backward
 
@@ -90,11 +98,12 @@ def dropout_keep_plain(seed: torch.Tensor, batch: int, heads: int,
     return torch.cat(keep)
 
 
-def _split_heads(seq, w, num_heads):
-    """k, v and the scaled q, each (B, H, S, Dh)."""
-    b, s, c = seq.shape
+def _split_qkv(qkv, num_heads):
+    """k, v and the scaled q of the packed qkv (B, S, 3C), each
+    (B, H, S, Dh)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
     dh = c // num_heads
-    qkv = torch.matmul(seq, w.t())
 
     def heads(t):
         return t.reshape(b, s, num_heads, dh).transpose(1, 2)
@@ -108,29 +117,31 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
+def attention_long_plain(qkv: torch.Tensor, num_heads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """seq (B, S, C), w (3C, C) with rows [k | v | q] -> (B, S, C)."""
-    k, v, q = _split_heads(seq, w, num_heads)
+    """qkv (B, S, 3C) packed [k | v | q], q not yet scaled -> (B, S, C)."""
+    k, v, q = _split_qkv(qkv, num_heads)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     if rate > 0.0:
-        keep = dropout_keep_plain(seed, seq.shape[0], num_heads, seq.shape[1],
+        keep = dropout_keep_plain(seed, qkv.shape[0], num_heads, qkv.shape[1],
                                   rate)
         p = torch.where(keep, p / (1.0 - rate), 0.0)
     return _merge_heads(torch.matmul(p, v))
 
 
-def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
-                             seed: Optional[torch.Tensor] = None):
-    """(dseq, dW) of `attention_proj_plain` for the cotangent g (B, S, C),
-    by the formulas of the JAX module's docstring:
+def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                             num_heads: int, rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """dqkv (B, S, 3C), packed [dK | dV | dq * Dh^-1/2], of
+    `attention_long_plain` for the cotangent g (B, S, C), by the formulas of
+    the JAX module's docstring:
         dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
-        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q
-    then dseq = dqkv w and dW = dqkv^T seq."""
-    b, s, c = seq.shape
-    dh = c // num_heads
-    k, v, q = _split_heads(seq, w, num_heads)
+        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q"""
+    b, s, c3 = qkv.shape
+    dh = c3 // 3 // num_heads
+    k, v, q = _split_qkv(qkv, num_heads)
     gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     dpd = torch.matmul(gh, v.transpose(-1, -2))
@@ -144,41 +155,71 @@ def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
     dq = torch.matmul(ds, k) * dh ** -0.5
     dk = torch.matmul(ds.transpose(-1, -2), q)
-    dqkv = torch.cat([_merge_heads(dk), _merge_heads(dv), _merge_heads(dq)],
+    return torch.cat([_merge_heads(dk), _merge_heads(dv), _merge_heads(dq)],
                      dim=-1)
-    dseq = torch.matmul(dqkv, w)
-    dw = torch.einsum("bso,bsc->oc", dqkv, seq)
-    return dseq, dw
 
 
-def _validate(seq, w, num_heads, rate, seed):
-    if seq.dim() != 3 or w.shape != (3 * seq.shape[2], seq.shape[2]):
-        raise ValueError(f"fused_attention_proj: seq {tuple(seq.shape)} and "
-                         f"w {tuple(w.shape)} are not (B, S, C) and (3C, C)")
-    if seq.shape[2] % num_heads:
-        raise ValueError(f"fused_attention_proj: C={seq.shape[2]} is not a "
-                         f"multiple of {num_heads} heads")
+def _project_bwd(dqkv, seq, w):
+    """(dseq, dW) of qkv = seq w^T for the cotangent dqkv."""
+    return torch.matmul(dqkv, w), torch.einsum("bso,bsc->oc", dqkv, seq)
+
+
+def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """seq (B, S, C), w (3C, C) with rows [k | v | q] -> (B, S, C)."""
+    return attention_long_plain(torch.matmul(seq, w.t()), num_heads, rate,
+                                seed)
+
+
+def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None):
+    """(dseq, dW) of `attention_proj_plain` for the cotangent g (B, S, C):
+    dqkv as `attention_long_plain_bwd`, then dseq = dqkv w and
+    dW = dqkv^T seq."""
+    dqkv = attention_long_plain_bwd(torch.matmul(seq, w.t()), g, num_heads,
+                                    rate, seed)
+    return _project_bwd(dqkv, seq, w)
+
+
+def _check_heads_and_rate(kernel, c, num_heads, rate, seed):
+    if c % num_heads:
+        raise ValueError(f"{kernel}: C={c} is not a multiple of {num_heads} "
+                         f"heads")
     if not 0.0 <= rate < 1.0:
-        raise ValueError(f"fused_attention_proj: dropout rate {rate} is not "
-                         f"in [0, 1)")
+        raise ValueError(f"{kernel}: dropout rate {rate} is not in [0, 1)")
     if rate > 0.0 and (seed is None or seed.shape != (1,)
                        or seed.dtype != torch.int32):
-        raise ValueError("fused_attention_proj: dropout needs a (1,) int32 "
-                         "seed tensor")
+        raise ValueError(f"{kernel}: dropout needs a (1,) int32 seed tensor")
 
 
-def _cuda_args(kernel, seq, w, num_heads, rate, seed, **more):
-    """Checks for a launch; returns (device, seed pointer, threshold,
-    keep scale)."""
-    device = _native.check_cuda_inputs(kernel, seq=seq, w=w, **more)
-    b, s, c = seq.shape
-    if s > MAX_S:
-        raise NotImplementedError(
-            f"{kernel}: S={s} > {MAX_S} is fused_attention_long's range, not "
-            f"ported yet")
-    if c // num_heads not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head width {c // num_heads} not in "
+def _validate(seq, w, num_heads, rate, seed, kernel="fused_attention_proj"):
+    if seq.dim() != 3 or w.shape != (3 * seq.shape[2], seq.shape[2]):
+        raise ValueError(f"{kernel}: seq {tuple(seq.shape)} and w "
+                         f"{tuple(w.shape)} are not (B, S, C) and (3C, C)")
+    _check_heads_and_rate(kernel, seq.shape[2], num_heads, rate, seed)
+
+
+def _validate_qkv(kernel, qkv, num_heads, rate, seed):
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"{kernel}: qkv {tuple(qkv.shape)} is not (B, S, 3C)")
+    _check_heads_and_rate(kernel, qkv.shape[2] // 3, num_heads, rate, seed)
+
+
+def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed, **tensors):
+    """The kernel's own limits (S, head width, float32), then device and
+    layout; returns (device, seed pointer, threshold, keep scale)."""
+    if seq_len > max_s:
+        raise ValueError(f"{kernel}: S={seq_len} > {max_s}, beyond the "
+                         f"kernel's range")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head width {head_dim} not in "
                          f"{HEAD_DIMS}")
+    for arg, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
+                            f"kernel takes float32 only")
+    device = _native.check_cuda_inputs(kernel, **tensors)
     if rate == 0.0:
         return device, None, 0, 1.0
     if seed.device != device:
@@ -191,9 +232,10 @@ def _forward(seq, w, num_heads, rate, seed):
     _validate(seq, w, num_heads, rate, seed)
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return attention_proj_plain(seq, w, num_heads, rate, seed)
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_proj", seq, w, num_heads, rate, seed)
     b, s, c = seq.shape
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_proj", s, c // num_heads, MAX_S, rate, seed, seq=seq,
+        w=w)
     out = torch.empty_like(seq)
     _native.launch("fused_attention_proj", "gpnf_attention_proj_fwd", device,
                    seed_ptr, seq.data_ptr(), w.data_ptr(), out.data_ptr(), b,
@@ -215,9 +257,10 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
     _validate(seq, w, num_heads, rate, seed)
     if all(t.device.type == "cpu" for t in (seq, w, g)):
         return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_proj_bwd", seq, w, num_heads, rate, seed, g=g)
     b, s, c = seq.shape
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_proj_bwd", s, c // num_heads, MAX_S, rate, seed,
+        seq=seq, w=w, g=g)
     parts = -(-b * s // K_CHUNK)
     dqkv = torch.empty((b, s, 3 * c), dtype=seq.dtype, device=device)
     partial = torch.empty((parts, 3 * c, c), dtype=seq.dtype, device=device)
@@ -260,5 +303,101 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     return _AttentionProj.apply(seq, w, seed, num_heads, rate)
 
 
+# -- the long-sequence entry: qkv in, the key axis tiled in the kernels ---------
+def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
+                       seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel at its own boundary: qkv (B, S, 3C) packed
+    [k | v | q] -> (B, S, C). CPU tensors take `attention_long_plain`; CUDA
+    tensors launch the kernel or raise (S > 2048, a head width outside
+    HEAD_DIMS, anything but float32)."""
+    _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
+    if qkv.device.type == "cpu":
+        return attention_long_plain(qkv, num_heads, rate, seed)
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_long", s, c // num_heads, MAX_S_LONG, rate, seed,
+        qkv=qkv)
+    out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
+    _native.launch("fused_attention_long", "gpnf_attention_long_fwd", device,
+                   seed_ptr, qkv.data_ptr(), out.data_ptr(), b, s, c,
+                   num_heads, threshold, scale)
+    fused_attention_long.launches += 1
+    return out
+
+
+def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
+                           rate: float = 0.0,
+                           seed: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The backward kernels at their own boundary: dqkv (B, S, 3C) of
+    `attention_long_qkv` for the cotangent g (B, S, C), the mask regenerated
+    from `seed`. CPU tensors take `attention_long_plain_bwd`; CUDA tensors
+    launch the kernels or raise."""
+    _validate_qkv("fused_attention_long_bwd", qkv, num_heads, rate, seed)
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    if g.shape != (b, s, c):
+        raise ValueError(f"fused_attention_long_bwd: g {tuple(g.shape)} is "
+                         f"not {(b, s, c)}")
+    if qkv.device.type == "cpu" and g.device.type == "cpu":
+        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_long_bwd", s, c // num_heads, MAX_S_LONG, rate, seed,
+        qkv=qkv, g=g)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, num_heads, s, 3), dtype=qkv.dtype, device=device)
+    _native.launch("fused_attention_long", "gpnf_attention_long_bwd", device,
+                   seed_ptr, qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                   stats.data_ptr(), b, s, c, num_heads, threshold, scale)
+    fused_attention_long_bwd.launches += 1
+    return dqkv
+
+
+def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
+                             g: torch.Tensor, num_heads: int,
+                             rate: float = 0.0,
+                             seed: Optional[torch.Tensor] = None):
+    """(dseq, dW) of `fused_attention_long` for the cotangent g: the
+    projection recomputed, dqkv from the kernels, then dseq = dqkv w and
+    dW = dqkv^T seq as torch.matmul (the JAX package's `_vjp_bwd_long`)."""
+    _validate(seq, w, num_heads, rate, seed, "fused_attention_long_bwd")
+    dqkv = attention_long_qkv_bwd(torch.matmul(seq, w.t()), g, num_heads,
+                                  rate, seed)
+    return _project_bwd(dqkv, seq, w)
+
+
+class _AttentionLong(torch.autograd.Function):
+    """Saves (seq, w, seed), the residuals of the JAX package's
+    `_vjp_fwd_long`: the projection and the mask are recomputed."""
+
+    @staticmethod
+    def forward(ctx, seq, w, seed, num_heads, rate):
+        ctx.save_for_backward(seq, w, seed)
+        ctx.num_heads, ctx.rate = num_heads, rate
+        return attention_long_qkv(torch.matmul(seq, w.t()), num_heads, rate,
+                                  seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        seq, w, seed = ctx.saved_tensors
+        dseq, dw = fused_attention_long_bwd(seq, w, g.contiguous(),
+                                            ctx.num_heads, ctx.rate, seed)
+        return dseq, dw, None, None, None
+
+
+def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
+                         rate: float = 0.0,
+                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`fused_attention_proj`'s function for MAX_S < S <= MAX_S_LONG, with
+    the projection as torch.matmul outside the kernels. Differentiable in
+    seq and w. CPU tensors take the plain versions; CUDA tensors launch the
+    kernels or raise."""
+    _validate(seq, w, num_heads, rate, seed, "fused_attention_long")
+    return _AttentionLong.apply(seq, w, seed, num_heads, rate)
+
+
 fused_attention_proj.launches = 0
 fused_attention_proj_bwd.launches = 0
+fused_attention_long.launches = 0
+fused_attention_long_bwd.launches = 0

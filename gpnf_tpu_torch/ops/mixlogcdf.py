@@ -17,7 +17,9 @@ Inverse:  u = y*exp(-a) - b; x = MixLogCDF^{-1}(sigmoid(u).clip(1e-5, 1-1e-5))
 The gated convs run NCHW; the layer norms and the attention run
 channel-last, as the JAX package's NCHW layout does. The mixture transform
 and the mixture inverse are the two kernels of `ops.kernels`, and every
-GatedAttn is the fused-projection attention kernel.
+GatedAttn is an attention kernel: the fused-projection one for S <= 512,
+the long-sequence one above (the 64-px level 0, S = 1024), as the JAX
+package dispatches.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import torch.nn.functional as F
 from . import logistic
 from .basic import split_channels, sum_except_batch
 from .conv import WNConv2d, WNDense
-from .kernels import fused_attention_proj, mixlogcdf_forward, mixture_inverse
+from .kernels import (fused_attention_long, fused_attention_proj,
+                      mixlogcdf_forward, mixture_inverse)
+from .kernels.fused_attention import MAX_S
 
 
 def concat_elu(x, dim=1):
@@ -114,9 +118,11 @@ class GatedAttn(nn.Module):
             rate = self.drop_prob
             seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
                                  dtype=torch.int32, device=x.device)
-        attn = fused_attention_proj(seq.contiguous(),
-                                    self.in_proj.effective_weight().contiguous(),
-                                    self.num_heads, rate, seed)
+        fused = (fused_attention_proj if h * w <= MAX_S
+                 else fused_attention_long)
+        attn = fused(seq.contiguous(),
+                     self.in_proj.effective_weight().contiguous(),
+                     self.num_heads, rate, seed)
         a, g = torch.chunk(self.gate(attn.reshape(b, h, w, c)), 2, dim=-1)
         return a * torch.sigmoid(g)
 

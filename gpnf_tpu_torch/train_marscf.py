@@ -1,14 +1,18 @@
-"""Train mAR-SCF (MixLogCDF couplings, ConvLSTM prior) with the PyTorch port.
+"""Train mAR-SCF (ConvLSTM prior) with the PyTorch port.
 
 The counterpart of `train_marscf.py` without `--from_checkpoint` (that is
 `python -m gpnf_tpu_torch.eval_marscf`), with the flags that apply to the
 port plus --device (default cuda; a host without a card raises unless
---device cpu is given). Adamax at lr 1e-4 with the lagged warmup counted in
-samples, dropout 0.2 in the couplings, float32 with TF32 off; the best
-test NLL's parameters go to <checkpoint_dir>/marscf_<ds>_mixlogcdf_<K>_<C>/
-in the JAX package's npz layout, so either package restores them.
+--device cpu is given). The coupling is MixLogCDF (the port's default) or
+affine, the invertible attentions are on unless --no_attention. Adamax at
+lr 1e-4 with the lagged warmup counted in samples, dropout 0.2 in the
+MixLogCDF couplings, float32 with TF32 off; the best test NLL's parameters
+go to <checkpoint_dir>/marscf_<ds>_<coupling>_<K>_<C>/ in the JAX
+package's npz layout, so either package restores them.
 
     python -m gpnf_tpu_torch.train_marscf --dataset_name cifar10 \\
+        --batch_size 64 --L 3 --K 4 --C 96 --device cuda
+    python -m gpnf_tpu_torch.train_marscf --dataset_name imagenet_64 \\
         --batch_size 64 --L 3 --K 4 --C 96 --device cuda
 """
 from __future__ import annotations
@@ -21,15 +25,18 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--dataset_name", default="cifar10",
-                   choices=["cifar10", "synthetic"])
+                   choices=["cifar10", "imagenet_32", "imagenet_64",
+                            "synthetic"])
     p.add_argument("--data_root", default=None)
-    p.add_argument("--coupling", default="mixlogcdf", choices=["mixlogcdf"])
+    p.add_argument("--coupling", default="mixlogcdf",
+                   choices=["mixlogcdf", "affine"])
     p.add_argument("--batch_size", default=128, type=int)
     p.add_argument("--warm_up", default=10000, type=int,
                    help="warmup in samples")
     p.add_argument("--L", default=3, type=int)
     p.add_argument("--K", default=32, type=int)
     p.add_argument("--C", default=512, type=int)
+    p.add_argument("--no_attention", action="store_true")
     p.add_argument("--max_steps", default=None, type=int)
     p.add_argument("--epochs", default=100000, type=int)
     p.add_argument("--eval_every_steps", default=None, type=int,
@@ -54,7 +61,9 @@ def main(argv=None) -> dict:
     print(f"device: {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
           f", tf32 off")
-    model_cfg = MarScfConfig(L=args.L, K=args.K, hidden_channels=args.C)
+    model_cfg = MarScfConfig(L=args.L, K=args.K, hidden_channels=args.C,
+                             coupling=args.coupling,
+                             use_attention=not args.no_attention)
     train_cfg = TrainConfig(
         dataset=args.dataset_name, data_root=args.data_root,
         batch_size=args.batch_size, warm_up=args.warm_up, epochs=args.epochs,

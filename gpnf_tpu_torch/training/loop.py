@@ -104,8 +104,8 @@ def train(model_cfg, train_cfg: TrainConfig, *, log_fn=print):
     opt = AdamaxWarmup(model.parameters(), lr=train_cfg.lr,
                        warm_up=train_cfg.warm_up,
                        batch_size=train_cfg.batch_size)
-    setting_id = (f"marscf_{train_cfg.dataset}_mixlogcdf_{model_cfg.K}_"
-                  f"{model_cfg.hidden_channels}")
+    setting_id = (f"marscf_{train_cfg.dataset}_{model_cfg.coupling}_"
+                  f"{model_cfg.K}_{model_cfg.hidden_channels}")
     ckpt = CheckpointManager(os.path.join(train_cfg.checkpoint_dir, setting_id))
 
     log_file = None

@@ -2,7 +2,10 @@
 CheckpointManager; the port's CLI restores it on the CPU, evaluates test
 bits/dim over the synthetic test set and writes a PNG sample grid. The
 bits/dim must equal the JAX model's on the same images and the same
-dequantisation noise."""
+dequantisation noise. Also the training CLI's checkpoint directory for an
+affine model without attention, which the eval CLIs of both packages look
+up, and a training run on ImageNet-32 npz shards."""
+import json
 import math
 import os
 
@@ -14,7 +17,8 @@ import torch
 from gpnf_tpu.models.marscf import MarScfConfig as JaxConfig
 from gpnf_tpu.models.marscf import MarScfFlow as JaxFlow
 from gpnf_tpu.training.checkpoints import CheckpointManager
-from gpnf_tpu_torch import eval_marscf
+from gpnf_tpu_torch import eval_marscf, train_marscf
+from gpnf_tpu_torch.data import datasets
 from gpnf_tpu_torch.data.datasets import get_dataset
 from torch_parity import close
 
@@ -54,3 +58,50 @@ def test_cli_restores_jax_checkpoint_and_matches_jax(tmp_path, monkeypatch):
     assert result["samples"] == os.path.join(
         ".", "samples", png.name) and png.exists()
     assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_affine_checkpoint_dir_is_the_one_the_eval_clis_read(tmp_path,
+                                                            monkeypatch):
+    """`--coupling affine --no_attention`: the best checkpoint lands under
+    marscf_<ds>_affine_<K>_<C>, the JAX package's name, so the port's eval
+    CLI restores it, and the JAX CheckpointManager reads it into the JAX
+    model of the same configuration."""
+    synthetic = datasets._synthetic
+    monkeypatch.setattr(datasets, "_synthetic",
+                        lambda size: synthetic(size, n_train=16, n_test=8))
+    monkeypatch.chdir(tmp_path)
+    flags = ["--dataset_name", "synthetic", "--coupling", "affine",
+             "--no_attention", "--batch_size", "8", "--L", "1", "--K", "1",
+             "--C", "8", "--checkpoint_dir", "ck", "--device", "cpu"]
+    out = train_marscf.main(flags + ["--max_steps", "1"])
+    run = tmp_path / "ck" / "marscf_synthetic_affine_1_8"
+    assert (run / "best.npz").exists()
+    assert json.loads((run / "meta.json").read_text())["best_step"] == 1
+    result = eval_marscf.main(flags)
+    close(result["nll"], out["best_test_nll"], rtol=0, atol=1e-5)
+    jm = JaxFlow(JaxConfig(image_shape=(32, 32, 3), L=1, K=1,
+                           hidden_channels=8, coupling="affine",
+                           use_attention=False))
+    restored = CheckpointManager(str(run)).restore(
+        {"params": jm.init(jax.random.PRNGKey(0))}, best=True)["params"]
+    assert jax.tree.leaves(restored)
+
+
+def test_train_cli_on_imagenet_32_npz_shards(tmp_path, monkeypatch):
+    """One step on downsampled-ImageNet npz shards written here (4 training
+    and 2 validation images of 32x32x3), then the eval and the checkpoint."""
+    r = np.random.default_rng(0)
+    data = tmp_path / "data"
+    data.mkdir()
+    np.savez(data / "train_data_batch_1.npz",
+             data=r.integers(0, 256, (4, 3 * 32 * 32), np.uint8))
+    np.savez(data / "val_data.npz",
+             data=r.integers(0, 256, (2, 3 * 32 * 32), np.uint8))
+    monkeypatch.chdir(tmp_path)
+    out = train_marscf.main([
+        "--dataset_name", "imagenet_32", "--data_root", str(data), "--L", "1",
+        "--K", "1", "--C", "8", "--batch_size", "2", "--max_steps", "1",
+        "--checkpoint_dir", "ck", "--device", "cpu"])
+    assert math.isfinite(out["best_test_nll"])
+    run = tmp_path / "ck" / "marscf_imagenet_32_mixlogcdf_1_8"
+    assert (run / "best.npz").exists() and (run / "step_1.npz").exists()

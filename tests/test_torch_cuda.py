@@ -16,6 +16,8 @@ from gpnf_tpu_torch.ops import kernels, logistic
 
 SMALL = dict(image_shape=(16, 16, 3), L=2, K=2, hidden_channels=16,
              num_blocks=2, num_components=4, prior_hidden=8, prior_layers=3)
+# level 0 of a 48x48 image is S = 24 * 24 = 576: the long attention entry
+SMALL_48 = dict(SMALL, image_shape=(48, 48, 3), K=1)
 
 
 @pytest.fixture
@@ -206,6 +208,125 @@ def test_small_model_train_step_on_card_matches_cpu(cuda_device):
     assert torch.isfinite(g_card).all()
     scale = float(g_cpu.abs().max())
     _close(g_card, g_cpu, rtol=1e-3, atol=1e-4 * scale)
+
+
+# -- the long-sequence attention (512 < S <= 2048) ----------------------------------
+def _qkv_inputs(device, s, batch=2, c=96, seed=0):
+    """qkv (B, S, 3C) as the projection gives it, a cotangent and a seed."""
+    seq, w, g, seed_t = _attention_inputs(device, s, batch, c, seed)
+    return torch.matmul(seq, w.t()), g, seed_t
+
+
+def _rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [576, 1024, 2048])
+def test_long_attention_kernel_matches_plain_on_card(cuda_device, s, rate):
+    """One seed for kernel and plain version: the same mask, so a single
+    differing keep bit shows as an error far above the 1e-5 bar."""
+    qkv, _, seed = _qkv_inputs(cuda_device, s)
+    before = kernels.fused_attention_long.launches
+    out = kernels.attention_long_qkv(qkv, 4, rate, seed)
+    assert kernels.fused_attention_long.launches == before + 1
+    _close(out, kernels.attention_long_plain(qkv, 4, rate, seed), rtol=0,
+           atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [576, 1024, 2048])
+def test_long_attention_bwd_kernel_matches_plain_on_card(cuda_device, s,
+                                                         rate):
+    """dqkv within 1e-4 of its largest magnitude."""
+    qkv, g, seed = _qkv_inputs(cuda_device, s)
+    before = kernels.fused_attention_long_bwd.launches
+    dqkv = kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed)
+    assert kernels.fused_attention_long_bwd.launches == before + 1
+    want = kernels.attention_long_plain_bwd(qkv, g, 4, rate, seed)
+    assert torch.isfinite(dqkv).all()
+    assert _rel_max(dqkv, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_long_attention_bwd_repeats_bit_for_bit(cuda_device):
+    qkv, g, seed = _qkv_inputs(cuda_device, 1024, batch=4)
+    first = kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed)
+    assert torch.equal(first, kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2,
+                                                             seed))
+
+
+@pytest.mark.cuda
+def test_long_attention_autograd_launches_both_kernels(cuda_device):
+    seq, w, g, seed = _attention_inputs(cuda_device, 576)
+    seq.requires_grad_()
+    w.requires_grad_()
+    counts = (kernels.fused_attention_long.launches,
+              kernels.fused_attention_long_bwd.launches)
+    kernels.fused_attention_long(seq, w, 4, 0.2, seed).backward(g)
+    assert (kernels.fused_attention_long.launches,
+            kernels.fused_attention_long_bwd.launches) == (counts[0] + 1,
+                                                           counts[1] + 1)
+    want = kernels.attention_proj_plain_bwd(seq.detach(), w.detach(), g, 4,
+                                            0.2, seed)
+    _close(seq.grad, want[0], rtol=1e-4, atol=1e-5)
+    _close(w.grad, want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_long_attention_rejects_what_the_kernels_do_not_take(cuda_device):
+    qkv, g, _ = _qkv_inputs(cuda_device, 2049, batch=1)
+    with pytest.raises(ValueError, match="2048"):
+        kernels.attention_long_qkv(qkv, 4)
+    with pytest.raises(ValueError, match="2048"):
+        kernels.attention_long_qkv_bwd(qkv, g, 4)
+    qkv, g, _ = _qkv_inputs(cuda_device, 576, batch=1)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.attention_long_qkv(qkv.double(), 4)
+    with pytest.raises(ValueError, match="head width"):
+        kernels.attention_long_qkv(qkv, 8)  # Dh = 96 / 8 = 12
+    strided = torch.zeros((1, 576, 192), device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.attention_long_qkv_bwd(qkv, strided, 4)
+
+
+@pytest.mark.cuda
+def test_small_48px_model_on_card_matches_cpu(cuda_device):
+    """Encode (eval mode) and one training step at dropout 0, card against
+    CPU: bits/dim within 1e-4, the loss within 1e-4 and every gradient
+    within 1e-3 of the largest; level 0 launches the long kernels."""
+    cfg = MarScfConfig(**SMALL_48, drop_prob=0.0)
+    cpu = MarScfFlow(cfg, device="cpu")
+    card = MarScfFlow(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(6)
+    x = torch.from_numpy(r.random((2, 3, 48, 48), dtype=np.float32) - 0.5)
+    noise = torch.from_numpy(r.random((2, 3, 48, 48), dtype=np.float32))
+    scale = np.log(2.0) * 48 * 48 * 3
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        _, obj_card = card.eval().encode(x.to(cuda_device),
+                                         torch.zeros(2, device=cuda_device))
+        _, obj_cpu = cpu.eval().encode(x, torch.zeros(2))
+    _close(obj_card / scale, obj_cpu / scale, rtol=0, atol=1e-4)
+    kernels.reset_launch_counts()
+    loss_card = torch.mean(card.train()(x.to(cuda_device),
+                                        noise=noise.to(cuda_device))[1])
+    loss_card.backward()
+    counts = kernels.launch_counts()
+    loss_cpu = torch.mean(cpu.train()(x, noise=noise)[1])
+    loss_cpu.backward()
+    # level 0 (S = 576): K * num_blocks long calls; level 1 (S = 144): proj
+    assert counts["fused_attention_long"] == counts[
+        "fused_attention_long_bwd"] == 2
+    assert counts["fused_attention_proj"] == counts[
+        "fused_attention_proj_bwd"] == 2
+    _close(loss_card, loss_cpu, rtol=0, atol=1e-4)
+    g_card, g_cpu = _flat_grads(card), _flat_grads(cpu)
+    assert torch.isfinite(g_card).all()
+    assert _rel_max(g_card.cpu(), g_cpu) <= 1e-3
 
 
 # -- the GP head's kernels: Cholesky, triangular solve, affine coupling ----------
