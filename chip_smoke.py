@@ -69,7 +69,25 @@ Phases, each of which raises (exit code != 0) when it fails:
      counts and images/s; with --profile, device time by kernel over one
      64-px train step, eval batch and sampling pass;
  15. card vs CPU at 64 px on phase 14's weights, batch 2: encode bits/dim,
-     and one training step at dropout 0 (loss and every gradient).
+     and one training step at dropout 0 (loss and every gradient);
+ 16. the fused GatedConv (MarScfConfig.fused_gated_conv=True): its forward
+     and backward kernels against their plain versions at batch 64 on the
+     32-px levels' 16x16, 8x8, 4x4 and the 64-px level 0's 32x32, C = 96,
+     rate 0 and 0.2 (one seed: the same mask), two backward calls bit for
+     bit the same, float64 and C = 12 refused, each with its time, the
+     plain version's, the port's unfused chain's (forward, forward +
+     backward) and its bound; the flagship with the flag on phase 4's seeds
+     and batches (ddi, 20 steps, launches 120 / 120 gated conv, 120 / 120
+     attention, 12 mixlogcdf a step, train images/s and peak memory beside
+     phase 4's), eval over 4 batches and one sampling pass on phase 5's
+     weights (120 gated-conv launches each, images/s; with --profile, one
+     fused train step traced), fused against unfused encode on the card
+     (1e-5 bits/dim), card against CPU at batch 4 (encode, one training
+     step at dropout 0); the 64-px row with the flag on phase 14's weights:
+     one warm-up step, then one window of 5 steps (the same depth as phase
+     14; one window where phase 14 times three) with exact launch counts
+     and peak memory, and one eval batch. Every earlier phase asserts that
+     the default path launches no gated-conv kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -136,6 +154,9 @@ TRAIN64_STEPS, WINDOW64_STEPS = 10, 5
 PER_STEP_64 = {"fused_attention_proj": 80, "fused_attention_proj_bwd": 80,
                "fused_attention_long": 40, "fused_attention_long_bwd": 40,
                "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP}
+FGC = ("fused_gated_conv", "fused_gated_conv_bwd")
+NO_FGC = dict.fromkeys(FGC, 0)  # the default paths launch none
+PER_STEP_64.update(NO_FGC)
 # per eval batch and per sampling pass at 64 px
 EVAL_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
            "mixlogcdf_forward": 12}
@@ -347,15 +368,17 @@ def check_kernels(device, model, timer):
 
 
 # -- phase 4 -------------------------------------------------------------------
-def train(device, loader, out_dir, seed, card):
-    """The flagship training path: ddi, then Adamax steps with dropout."""
+def train(device, loader, out_dir, seed, card, fused=False):
+    """The flagship training path: ddi, then Adamax steps with dropout; with
+    `fused`, MarScfConfig(fused_gated_conv=True) on the same seeds and
+    batches, without the batch-256 step and the checkpoint."""
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.training.checkpoints import CheckpointManager
     from gpnf_tpu_torch.training.loop import bits_per_dim_loss, train_step
     from gpnf_tpu_torch.training.optim import AdamaxWarmup
 
-    cfg = MarScfConfig(**FLAGSHIP)
+    cfg = MarScfConfig(**FLAGSHIP, fused_gated_conv=fused)
     model = MarScfFlow(cfg, device=device,
                        generator=torch.Generator().manual_seed(seed + 10))
     batches = [torch.from_numpy(b).to(device) for b, _ in zip(loader, range(16))]
@@ -384,7 +407,7 @@ def train(device, loader, out_dir, seed, card):
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
             "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_LONG}
+            **NO_LONG, **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
     last5 = statistics.mean(losses[-5:])
@@ -407,6 +430,11 @@ def train(device, loader, out_dir, seed, card):
         f"{WINDOW_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
     log(f"  train peak device memory {peak / 2 ** 30:.3f} GiB at batch "
         f"{BATCH} [{card}]")
+    out = {"losses": losses, "launches": counts,
+           "launches_per_step": per_step, "train_images_per_s": images_per_s,
+           "train_window_s": window_s, "train_peak_memory_bytes": peak}
+    if fused:
+        return out, one_step
 
     # one step at batch 256 (bench.py's batch): does it fit on this card?
     big = torch.cat([batches[i % len(batches)] for i in range(4)])
@@ -439,14 +467,13 @@ def train(device, loader, out_dir, seed, card):
     if not same or set(want_state) != set(got_state):
         raise AssertionError("checkpoint restore is not bit for bit")
     shutil.rmtree(ckpt_dir)  # 2 x 185 MB
-    return {"losses": losses, "launches": counts,
-            "launches_per_step": per_step, "train_images_per_s": images_per_s,
-            "train_window_s": window_s, "train_peak_memory_bytes": peak,
-            "batch_256_peak_memory_bytes": peak_256}, one_step
+    return {**out, "batch_256_peak_memory_bytes": peak_256}, one_step
 
 
 # -- phases 5-8 ------------------------------------------------------------------
 def serve(model, loader, device, seed):
+    """Eval bits/dim over `loader`, with the launch counts of the model's
+    path (the gated-conv kernel's when the model has the flag)."""
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.training.loop import evaluate
 
@@ -459,29 +486,33 @@ def serve(model, loader, device, seed):
         f"launches {counts}")
     if not (math.isfinite(nll) and nll < 30.0):
         raise AssertionError(f"eval bits/dim {nll} is not finite and < 30")
+    fgc = 120 * n_batches if model.cfg.fused_gated_conv else 0
     want = {"fused_attention_proj": 120 * n_batches,
             "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP, **NO_LONG}
+            **NO_GP, **NO_LONG, "fused_gated_conv": fgc,
+            "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
     return nll, counts
 
 
-def sample(model, out_dir, device, seed):
+def sample(model, out_dir, device, seed, name="samples.png"):
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.training.loop import save_sample_grid
 
     kernels.reset_launch_counts()
     path, nan_count = save_sample_grid(
-        model, os.path.join(out_dir, "samples.png"), n=BATCH, eps_std=1.0,
+        model, os.path.join(out_dir, name), n=BATCH, eps_std=1.0,
         generator=torch.Generator(device=device).manual_seed(seed + 2))
     counts = kernels.launch_counts()
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
-            **NO_LONG}
+            **NO_LONG, "fused_gated_conv":
+                120 if model.cfg.fused_gated_conv else 0,
+            "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
     with open(path, "rb") as f:
@@ -536,12 +567,25 @@ def card_vs_cpu(model, batch, device):
     if not max(round_trip) <= 1e-3:
         raise AssertionError(f"round trip {round_trip} > 1e-3")
 
-    # one training step at batch 4, dropout 0: the same weights, images and
-    # dequantisation noise; loss and every parameter's gradient
+    train_loss_diff, grad_rel = train_step_card_vs_cpu(
+        model, torch.from_numpy(batch[:4]), device, FLAGSHIP, 8)
+    return {"encode_bpd_card_vs_cpu": bpd_diff,
+            "sample_rel_err_card_vs_float64": sample_rel,
+            "round_trip_max_abs_err": round_trip,
+            "train_loss_card_vs_cpu": train_loss_diff,
+            "train_grad_rel_err_card_vs_cpu": grad_rel}
+
+
+def train_step_card_vs_cpu(model, x, device, config, noise_seed):
+    """One training step at dropout 0 on `model`'s weights (config = the
+    model's MarScfConfig keywords), the same images and dequantisation
+    noise on the CPU and the card: (loss diff, max gradient diff over the
+    largest gradient), held to 1e-4 bits/dim and 1e-3."""
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
-    cfg = MarScfConfig(**{**FLAGSHIP, "drop_prob": 0.0})
-    x = torch.from_numpy(batch[:4])
-    noise = torch.rand(x.shape, generator=torch.Generator().manual_seed(8))
+
+    cfg = MarScfConfig(**{**config, "drop_prob": 0.0})
+    noise = torch.rand(x.shape,
+                       generator=torch.Generator().manual_seed(noise_seed))
     step = {}
     for dev in ("cpu", device):
         net = MarScfFlow(cfg, device=dev)
@@ -550,23 +594,20 @@ def card_vs_cpu(model, batch, device):
         loss.backward()
         step[str(dev)] = (float(loss.detach()), torch.cat(
             [p.grad.reshape(-1) for p in net.parameters()]).cpu())
+        del net
     (loss_cpu, g_cpu), (loss_card, g_card) = step["cpu"], step[str(device)]
-    train_loss_diff = abs(loss_card - loss_cpu)
+    loss_diff = abs(loss_card - loss_cpu)
     grad_scale = float(g_cpu.abs().max())
     grad_rel = float((g_card - g_cpu).abs().max()) / grad_scale
-    log(f"  train step at batch 4, dropout 0: loss card {loss_card:.6f} CPU "
-        f"{loss_cpu:.6f} (diff {train_loss_diff:.3g}, bar 1e-4 bits/dim); "
-        f"{g_cpu.numel()} gradients, max abs diff / max abs value "
+    log(f"  train step at batch {x.shape[0]}, dropout 0: loss card "
+        f"{loss_card:.6f} CPU {loss_cpu:.6f} (diff {loss_diff:.3g}, bar 1e-4 "
+        f"bits/dim); {g_cpu.numel()} gradients, max abs diff / max abs value "
         f"{grad_scale:.3g}: {grad_rel:.3g} (bar 1e-3)")
-    if not (train_loss_diff <= 1e-4 and grad_rel <= 1e-3
+    if not (loss_diff <= 1e-4 and grad_rel <= 1e-3
             and torch.isfinite(g_card).all()):
         raise AssertionError(f"train step card vs CPU: loss diff "
-                             f"{train_loss_diff}, gradient {grad_rel}")
-    return {"encode_bpd_card_vs_cpu": bpd_diff,
-            "sample_rel_err_card_vs_float64": sample_rel,
-            "round_trip_max_abs_err": round_trip,
-            "train_loss_card_vs_cpu": train_loss_diff,
-            "train_grad_rel_err_card_vs_cpu": grad_rel}
+                             f"{loss_diff}, gradient {grad_rel}")
+    return loss_diff, grad_rel
 
 
 def timings(model, loader, device, card):
@@ -1237,14 +1278,12 @@ def imagenet64_row(model, device, out_dir, seed, card, with_profile):
     return out, batches[0][:2].cpu()
 
 
-def card_vs_cpu_64(model, x, device):
-    """Phase 15: encode bits/dim and one training step at dropout 0 on the
-    64-px weights, batch 2, card against CPU."""
-    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
-
+def encode_and_step_card_vs_cpu(model, x, device, config, noise_seed):
+    """Phases 15 and 16: encode bits/dim (eval mode) and one training step
+    at dropout 0 on `model`'s weights and the images x, card against CPU."""
     model.eval()
     cpu = copy.deepcopy(model).to("cpu")
-    logdet = torch.zeros(2)
+    logdet = torch.zeros(x.shape[0])
     scale = math.log(2.0) * model.num_dims
     with torch.no_grad():
         _, obj_card = model.encode(x.to(device), logdet.to(device))
@@ -1252,34 +1291,238 @@ def card_vs_cpu_64(model, x, device):
     bpd_diff = float((obj_card.cpu() - obj_cpu).abs().max()) / scale
     log(f"  encode bits/dim card vs CPU: max diff {bpd_diff:.3g} (bar 1e-3)")
     if not bpd_diff <= 1e-3:
-        raise AssertionError(f"64-px encode card vs CPU {bpd_diff} > 1e-3")
+        raise AssertionError(f"encode card vs CPU {bpd_diff} > 1e-3")
     del cpu
-    cfg = MarScfConfig(**{**IMAGENET64, "drop_prob": 0.0})
-    noise = torch.rand(x.shape, generator=torch.Generator().manual_seed(9))
-    step = {}
-    for dev in ("cpu", device):
-        net = MarScfFlow(cfg, device=dev)
-        net.load_state_dict(model.state_dict())
-        loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
-        loss.backward()
-        step[str(dev)] = (float(loss.detach()), torch.cat(
-            [p.grad.reshape(-1) for p in net.parameters()]).cpu())
-        del net
-    (loss_cpu, g_cpu), (loss_card, g_card) = step["cpu"], step[str(device)]
-    loss_diff = abs(loss_card - loss_cpu)
-    grad_scale = float(g_cpu.abs().max())
-    grad_rel = float((g_card - g_cpu).abs().max()) / grad_scale
-    log(f"  train step at batch 2, dropout 0: loss card {loss_card:.6f} CPU "
-        f"{loss_cpu:.6f} (diff {loss_diff:.3g}, bar 1e-4 bits/dim); "
-        f"{g_cpu.numel()} gradients, max abs diff / max abs value "
-        f"{grad_scale:.3g}: {grad_rel:.3g} (bar 1e-3)")
-    if not (loss_diff <= 1e-4 and grad_rel <= 1e-3
-            and torch.isfinite(g_card).all()):
-        raise AssertionError(f"64-px train step card vs CPU: loss diff "
-                             f"{loss_diff}, gradient {grad_rel}")
+    loss_diff, grad_rel = train_step_card_vs_cpu(model, x, device, config,
+                                                 noise_seed)
     return {"encode_bpd_card_vs_cpu": bpd_diff,
             "train_loss_card_vs_cpu": loss_diff,
             "train_grad_rel_err_card_vs_cpu": grad_rel}
+
+
+# -- phase 16: the fused GatedConv (MarScfConfig.fused_gated_conv) -------------------
+# (H, W) of every GatedConv at the 32-px levels 0 / 1 / 2 and the 64-px level 0
+GCONV_SHAPES = ((16, 16), (8, 8), (4, 4), (32, 32))
+FGC_PER_PASS = 120  # L * K * num_blocks gated convs a forward
+
+
+def check_gated_conv_kernels(device, timer, gconv):
+    """Phase 16: the gated-conv kernels against their plain versions at batch
+    64 and every level's shape, rate 0 and 0.2 (one seed: the same mask),
+    two backward calls bit for bit the same, float64 and an unbuilt width
+    refused. Times: each kernel, its plain version, the port's unfused chain
+    (the GatedConv module + x in NCHW: two cuDNN convs and ATen, the default
+    path) forward and forward + backward, and the fused module (weight norm
+    + kernels) forward + backward; no single PyTorch call computes the
+    block, so there is no library time."""
+    from gpnf_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(2468)
+    c = gconv.conv.b.shape[0]
+    with torch.no_grad():
+        w1 = gconv.conv.effective_weight().permute(2, 3, 1, 0).contiguous()
+        wg = gconv.gate.effective_weight()[:, :, 0, 0].t().contiguous()
+    b1, bg = gconv.conv.b.detach(), gconv.gate.b.detach()
+    weight_floats = w1.numel() + b1.numel() + wg.numel() + bg.numel()
+    params = list(gconv.parameters())
+    results = {name: [] for name in FGC}
+    names = ("dx", "dw1", "db1", "dwg", "dbg")
+    for h, w in GCONV_SHAPES:
+        x = torch.randn((BATCH, h, w, c), generator=gen, device=device)
+        g = torch.randn((BATCH, h, w, c), generator=gen, device=device)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        g_nchw = g.permute(0, 3, 1, 2).contiguous()
+        seed = torch.tensor([1357 + h], dtype=torch.int32, device=device)
+        pixels = BATCH * h * w
+        fwd_ops = 2 * pixels * (9 * 2 * c * c + 4 * c * c)
+        for rate in (0.0, RATE):
+            wts = (x, w1, b1, wg, bg)
+            with torch.no_grad():
+                out = kernels.fused_gated_conv(*wts, rate, seed)
+                want = kernels.gated_conv_plain(*wts, rate, seed)
+                fwd_err = float((out - want).abs().max())
+                fwd_bar = 1e-5 * max(1.0, float(want.abs().max()))
+                got = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
+                again = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
+                want_b = kernels.gated_conv_plain_bwd(*wts, g, rate, seed)
+            over = {n: float((a - b).abs().max() / b.abs().max())
+                    for n, a, b in zip(names, got, want_b)}
+            tag = f"gated conv {h}x{w} rate {rate}"
+            log(f"  {tag}: forward max abs err {fwd_err:.3g} (bar "
+                f"{fwd_bar:.3g}); backward max abs err / max |plain| "
+                + ", ".join(f"{n} {v:.3g}" for n, v in over.items())
+                + " (bars dx 1e-5, weights 1e-4)")
+            if not fwd_err <= fwd_bar:
+                raise AssertionError(f"{tag}: forward err {fwd_err}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{tag}: two backward calls differ")
+            if not (over["dx"] <= 1e-5 and all(
+                    over[n] <= 1e-4 for n in names[1:])):
+                raise AssertionError(f"{tag}: backward {over}")
+            with torch.no_grad():
+                ms = timer(lambda: kernels.fused_gated_conv(*wts, rate, seed))
+                bwd_ms = timer(lambda: kernels.fused_gated_conv_bwd(
+                    *wts, g, rate, seed))
+                plain_ms = timer(lambda: kernels.gated_conv_plain(
+                    *wts, rate, seed))
+                plain_bwd_ms = timer(lambda: kernels.gated_conv_plain_bwd(
+                    *wts, g, rate, seed))
+            gconv.train(rate > 0.0)  # the module's own Dropout2d
+            chain = lambda xx: gconv(xx) + xx
+            with torch.no_grad():
+                unfused_ms = timer(lambda: chain(x_nchw))
+            xr, xr_nchw = (t_.clone().requires_grad_() for t_ in (x, x_nchw))
+            unfused_fb_ms = timer(lambda: torch.autograd.grad(
+                chain(xr_nchw), [xr_nchw] + params, g_nchw))
+            fused_fb_ms = timer(lambda: torch.autograd.grad(
+                gconv.apply_fused(xr), [xr] + params, g))
+            gconv.eval()
+            common = dict(shape=f"{h}x{w}", batch=BATCH, rate=rate,
+                          library_ms=None, unfused_fwd_ms=unfused_ms,
+                          unfused_fwd_bwd_ms=unfused_fb_ms,
+                          fused_module_fwd_bwd_ms=fused_fb_ms)
+            for name, kernel_ms, p_ms, bytes_moved, ops, err in (
+                    ("fused_gated_conv", ms, plain_ms,
+                     4 * (2 * pixels * c + weight_floats), fwd_ops, fwd_err),
+                    ("fused_gated_conv_bwd", bwd_ms, plain_bwd_ms,
+                     4 * (3 * pixels * c + 2 * weight_floats), 3 * fwd_ops,
+                     max(float((a - b).abs().max())
+                         for a, b in zip(got, want_b)))):
+                bound_ms, bound_by = bound(bytes_moved, ops)
+                results[name].append(dict(
+                    common, max_abs_err=err, ms=kernel_ms, plain_ms=p_ms,
+                    bound_ms=bound_ms, bound_by=bound_by))
+                if name == "fused_gated_conv_bwd":
+                    results[name][-1].update(
+                        deterministic=True, err_over_scale=over)
+            log(f"  {tag}: kernel fwd {ms:.4f} ms bwd {bwd_ms:.4f} ms | plain "
+                f"fwd {plain_ms:.4f} bwd {plain_bwd_ms:.4f} ms | unfused "
+                f"chain fwd {unfused_ms:.4f} ms fwd+bwd {unfused_fb_ms:.4f} ms"
+                f" | fused module fwd+bwd {fused_fb_ms:.4f} ms | bounds "
+                f"{results['fused_gated_conv'][-1]['bound_ms'] * 1e3:.2f} / "
+                f"{results['fused_gated_conv_bwd'][-1]['bound_ms'] * 1e3:.2f}"
+                f" us (operations)")
+    x = torch.zeros((2, 4, 4, c), device=device)
+    refusals = {"float64": lambda: kernels.fused_gated_conv(
+                    *(t_.double() for t_ in (x, w1, b1, wg, bg))),
+                "C=12": lambda: kernels.fused_gated_conv(
+                    x[..., :12].contiguous(), w1[:, :, :24, :12].contiguous(),
+                    b1[:12], wg[:24, :24].contiguous(), bg[:24])}
+    for label, call in refusals.items():
+        try:
+            call()
+        except (TypeError, ValueError) as e:
+            log(f"  {label} refused before the device: {e}")
+        else:
+            raise AssertionError(f"the gated-conv kernel took {label}")
+    return results
+
+
+def fused_flagship(device, train_loader, loader, out_dir, seed, card, model,
+                   trained, nll, with_profile):
+    """Phase 16: the flagship at 32 px with the flag: training (phase 4's
+    seeds and batches), eval and sampling on phase 5's weights, the fused
+    against the unfused model on the card, card against CPU."""
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+
+    out, one_step = train(device, train_loader, out_dir, seed, card,
+                          fused=True)
+    log(f"  beside phase 4 (unfused, this run): train "
+        f"{trained['train_images_per_s']:.1f} images/s, peak "
+        f"{trained['train_peak_memory_bytes'] / 2 ** 30:.3f} GiB [{card}]")
+    config = {**FLAGSHIP, "fused_gated_conv": True}
+    served = MarScfFlow(MarScfConfig(**config), device=device).eval()
+    served.load_state_dict(model.state_dict())
+    out["eval_bits_per_dim"], out["eval_launches"] = serve(served, loader,
+                                                           device, seed)
+    log(f"  phase 5's eval bits/dim on the same weights and noise: {nll:.6f}")
+    out["sample_launches"], _ = sample(served, out_dir, device, seed,
+                                       "samples_fgc.png")
+    out.update(timings(served, loader, device, card))
+    if with_profile:
+        out["profile"] = profile({"fused train step": (
+            lambda gen: one_step(), True)}, device, card)
+    del one_step
+    x = torch.from_numpy(next(iter(loader))[:8]).to(device)
+    with torch.no_grad():
+        zero = torch.zeros(x.shape[0], device=device)
+        _, obj_fused = served.encode(x, zero)
+        _, obj_plain = model.eval().encode(x, zero)
+    diff = float((obj_fused - obj_plain).abs().max()) / (
+        math.log(2.0) * model.num_dims)
+    log(f"  encode bits/dim fused vs unfused on the card, same weights: max "
+        f"diff {diff:.3g} (bar 1e-5)")
+    if not diff <= 1e-5:
+        raise AssertionError(f"fused vs unfused encode {diff} > 1e-5")
+    out["encode_bpd_fused_vs_unfused"] = diff
+    out.update(encode_and_step_card_vs_cpu(served, x[:4].cpu(), device,
+                                           config, 10))
+    return out
+
+
+def imagenet64_fused(device, state, seed, card):
+    """Phase 16: one window of 5 training steps at 64 px and batch 64 with
+    the flag, on phase 14's trained weights (after one warm-up step), with
+    exact launch counts and peak memory; one eval batch. The same depth as
+    phase 14, one window instead of three."""
+    from gpnf_tpu_torch.data.datasets import NumpyLoader, get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training.loop import evaluate, train_step
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    model = MarScfFlow(MarScfConfig(**IMAGENET64, fused_gated_conv=True),
+                       device=device)
+    model.load_state_dict(state)
+    train_loader, test_loader, _ = get_dataset("imagenet_64", BATCH, seed=seed)
+    batches = [torch.from_numpy(b).to(device)
+               for b, _ in zip(train_loader, range(WINDOW64_STEPS + 1))]
+    gen = torch.Generator(device=device).manual_seed(seed + 45)
+    model.train()
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=WARM_UP,
+                       batch_size=BATCH)
+    float(train_step(model, opt, batches[-1], gen))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [train_step(model, opt, b, gen) for b in batches[:-1]]
+    losses = [float(v) for v in losses]  # the window ends in loss reads
+    window_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = {k: v / WINDOW64_STEPS for k, v in counts.items()}
+    want = {**PER_STEP_64, **dict.fromkeys(FGC, FGC_PER_PASS)}
+    ips = WINDOW64_STEPS * BATCH / window_s
+    log(f"  {WINDOW64_STEPS} steps at batch {BATCH}, dropout {RATE}: losses "
+        f"{[round(v, 4) for v in losses]}; launches per step {per_step}")
+    log(f"  train {ips:.2f} images/s (one window of {WINDOW64_STEPS} steps: "
+        f"{window_s:.3f} s), peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"[{card}]")
+    if per_step != want:
+        raise AssertionError(f"fused 64-px launches per step {per_step} != "
+                             f"{want}")
+    if not all(math.isfinite(v) for v in losses) or opt.total_notfinite:
+        raise AssertionError(f"fused 64-px losses not finite: {losses}")
+    model.eval()
+    loader = NumpyLoader(test_loader.images[:BATCH], BATCH, shuffle=False)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nll = evaluate(model, loader, generator=torch.Generator(
+        device=device).manual_seed(seed + 46))
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    want = {k: {**EVAL_64, "fused_gated_conv": FGC_PER_PASS}.get(k, 0)
+            for k in eval_counts}
+    log(f"  eval bits/dim {nll:.4f} over one batch of {BATCH} in "
+        f"{eval_s:.3f} s; launches {eval_counts}")
+    if eval_counts != want or not (math.isfinite(nll) and nll < 30.0):
+        raise AssertionError(f"fused 64-px eval: {nll}, launches "
+                             f"{eval_counts} != {want}")
+    return {"losses": losses, "launches": counts, "launches_per_step": per_step,
+            "train_images_per_s": ips, "train_window_s": window_s,
+            "train_peak_memory_bytes": peak, "eval_bits_per_dim": nll,
+            "eval_s": eval_s, "eval_launches": eval_counts}
 
 
 def main():
@@ -1289,8 +1532,9 @@ def main():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="also trace one train step, one eval batch and "
-                        "one sampling pass at 32 and at 64 px, and one joint "
-                        "NLML + gradient at n = 1024 and 4096")
+                        "one sampling pass at 32 and at 64 px, one joint "
+                        "NLML + gradient at n = 1024 and 4096, and one fused "
+                        "train step at 32 px")
     args = p.parse_args()
     t_start = time.perf_counter()
 
@@ -1321,8 +1565,12 @@ def main():
     for name, report in reports.items():
         regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
         log(f"  {name}: {regs[-1] if regs else report.strip()[-200:]}")
-
     os.makedirs(args.out, exist_ok=True)
+    if reports:  # every kernel's registers, shared memory and spills
+        with open(os.path.join(args.out, "ptxas.log"), "w") as f:
+            f.write("".join(f"== {n}\n{r}" for n, r in reports.items()))
+        log(f"  ptxas reports of every kernel in {args.out}/ptxas.log")
+
     model = MarScfFlow(MarScfConfig(**FLAGSHIP), device=device,
                        generator=torch.Generator().manual_seed(args.seed)).eval()
     train_loader, test_loader, _ = get_dataset("synthetic", BATCH,
@@ -1370,7 +1618,20 @@ def main():
     row64, x64 = imagenet64_row(model64, device, args.out, args.seed, card,
                                 args.profile)
     log("== 15. card vs CPU at 64 px")
-    row64.update(card_vs_cpu_64(model64, x64, device))
+    row64.update(encode_and_step_card_vs_cpu(model64, x64, device, IMAGENET64,
+                                             9))
+    state64 = model64.state_dict()
+    del model64, attn64
+
+    log("== 16. fused GatedConv: kernels vs plain versions, the flagship with "
+        "fused_gated_conv=True at 32 and 64 px")
+    gconv = model.levels[0].steps[0].coupling.net.blocks[0].conv
+    gconv_kernels = check_gated_conv_kernels(device, timer, gconv)
+    fgc = fused_flagship(device, train_loader, loader, args.out, args.seed,
+                         card, model, trained, nll, args.profile)
+    torch.cuda.empty_cache()
+    fgc64 = imagenet64_fused(device, state64, args.seed, card)
+    del state64
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -1391,6 +1652,10 @@ def main():
                                  attention[1] + "533"),
         "fused_attention_long_bwd": (
             "gpnf_tpu_torch/csrc/fused_attention_long.cu", attention[1] + "554"),
+        "fused_gated_conv": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
+                             "gpnf_tpu/ops/pallas/fused_gated_conv.py:139"),
+        "fused_gated_conv_bwd": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
+                                 "gpnf_tpu/ops/pallas/fused_gated_conv.py:150"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -1406,7 +1671,12 @@ def main():
                     "gp": gp_counts[name],
                     "train64": row64["launches"][name],
                     "eval64": row64["eval_launches"][name],
-                    "sample64": row64["sample_launches"][name]}
+                    "sample64": row64["sample_launches"][name],
+                    "train_fgc": fgc["launches"][name],
+                    "eval_fgc": fgc["eval_launches"][name],
+                    "sample_fgc": fgc["sample_launches"][name],
+                    "train64_fgc": fgc64["launches"][name],
+                    "eval64_fgc": fgc64["eval_launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -1426,6 +1696,21 @@ def main():
                 per_shape=rows)
             if name == "cholesky":  # one CUDA factorization serves both
                 entry["also_replaces"] = "gpnf_tpu/ops/pallas/cholesky.py:291"
+        elif name in FGC:
+            # the 32-px level 0 (16x16) at the training rate; the unfused
+            # chain's times beside it, as no library call computes the block
+            rows = gconv_kernels[name]
+            top = [r for r in rows if (r["shape"], r["rate"]) ==
+                   ("16x16", RATE)][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=None, unfused_fwd_ms=top["unfused_fwd_ms"],
+                unfused_fwd_bwd_ms=top["unfused_fwd_bwd_ms"],
+                shape=f"32-px level 0 (16x16), batch {BATCH}, C 96, rate "
+                      f"{RATE}",
+                per_case=rows)
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
             # bound on the same inputs (rate 0.2's rows in per_case)
@@ -1465,10 +1750,11 @@ def main():
     summary = {"card": card, "build_s": build_s, "train": trained,
                "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
                **checks, **times, "gp": gp_summary, "imagenet64": row64,
+               "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64},
                "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-15 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-16 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
 // Philox4x32-10 counter-based generator (Salmon et al., "Parallel random
 // numbers: as easy as 1, 2, 3", SC'11), the dropout bits of the port's
-// attention kernels.
+// attention and gated-conv kernels.
 //
 // Replaces: the TPU's in-kernel PRNG (`pltpu.prng_seed` /
-// `pltpu.prng_random_bits`) of gpnf_tpu/ops/pallas/fused_attention.py.
+// `pltpu.prng_random_bits`) of gpnf_tpu/ops/pallas/fused_attention.py and
+// gpnf_tpu/ops/pallas/fused_gated_conv.py.
 //
 // A stateless function of (counter, key): the keep bit of attention score
 // (b, h, i, j) is word (j & 3) of
 //     philox4x32_10({j >> 2, i, h, b}, {seed, 0}),
-// so every thread, block and pass that touches that score regenerates the
-// same bit in any order. The forward and the backward kernels rely on it,
-// and `dropout_keep_plain` in ops/kernels/fused_attention.py computes the
+// and the Dropout2d keep bit of channel j (of 2C) of batch row b in the
+// gated conv is word (j & 3) of
+//     philox4x32_10({j >> 2, b, 0, 0}, {seed, 1}),
+// the key's second word keeping the two streams apart. Every thread, block
+// and pass that touches a score or a channel regenerates the same bit in
+// any order. The forward and the backward kernels rely on it;
+// `dropout_keep_plain` in ops/kernels/fused_attention.py and
+// `gated_conv_keep_plain` in ops/kernels/fused_gated_conv.py compute the
 // same words in torch integer arithmetic.
 #pragma once
 #include <stdint.h>
@@ -53,6 +59,14 @@ __device__ __forceinline__ uint4 attention_dropout_bits(uint32_t seed, int b,
   return philox4x32_10(static_cast<uint32_t>(q), static_cast<uint32_t>(i),
                        static_cast<uint32_t>(h), static_cast<uint32_t>(b),
                        seed, 0u);
+}
+
+// The four Dropout2d keep bits' words of channels 4q .. 4q+3 of batch row b
+// in the gated conv.
+__device__ __forceinline__ uint4 gated_conv_dropout_bits(uint32_t seed, int b,
+                                                         int q) {
+  return philox4x32_10(static_cast<uint32_t>(q), static_cast<uint32_t>(b), 0u,
+                       0u, seed, 1u);
 }
 
 }  // namespace gpnf

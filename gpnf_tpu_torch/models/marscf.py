@@ -16,9 +16,13 @@ dropout (`drop_prob`, 0.2 as in the JAX package) and the prior's
 (`prior_dp_rate`, 0), `model.eval()` turns them off; the JAX package
 passes `train=True` instead. `ddi` always runs without dropout.
 
-The JAX package's compile and memory options (scan_steps, scan_unroll,
-remat*, precompute_wn, prior_scan_unroll, fused_gated_conv, compute_dtype)
-change no numbers and have no counterpart here.
+`fused_gated_conv` (off by default, as in the JAX package) runs every
+coupling block's GatedConv and residual as one `fused_gated_conv` kernel.
+It has the same parameters, and in eval mode or at dropout 0 the same
+numbers up to rounding; its Dropout2d mask comes from Philox. The JAX
+package's compile and memory options (scan_steps, scan_unroll, remat*,
+precompute_wn, prior_scan_unroll, compute_dtype) change no numbers and have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ class MarScfConfig:
     prior_hidden: int = 32
     prior_layers: int = 3
     prior_dp_rate: float = 0.0
+    fused_gated_conv: bool = False
 
 
 class FlowStep(nn.Module):
@@ -69,7 +74,7 @@ class FlowStep(nn.Module):
             self.coupling = MixLogCDFCoupling(
                 channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
                 num_components=cfg.num_components, drop_prob=cfg.drop_prob,
-                generator=generator)
+                generator=generator, fused_gconv=cfg.fused_gated_conv)
             self.tuple_flip = TupleFlip()
         elif cfg.coupling == "affine":
             self.coupling = AffineCoupling(channels, channels,

@@ -11,13 +11,17 @@ from .fused_attention import (attention_long_plain, attention_long_plain_bwd,
                               fused_attention_long, fused_attention_long_bwd,
                               fused_attention_proj, fused_attention_proj_bwd)
 from .fused_coupling import fused_affine_forward, fused_affine_plain
+from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bwd,
+                               gated_conv_keep_plain, gated_conv_plain,
+                               gated_conv_plain_bwd)
 from .fused_mixlogcdf import mixlogcdf_forward, mixlogcdf_plain
 from .fused_mixture_inverse import mixture_inverse, mixture_inverse_plain
 from .trisolve import tril_solve, tril_solve_plain
 
 KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            fused_attention_long_bwd, mixlogcdf_forward, mixture_inverse,
-           fused_affine_forward, cholesky, tril_solve)
+           fused_affine_forward, cholesky, tril_solve, fused_gated_conv,
+           fused_gated_conv_bwd)
 
 
 def reset_launch_counts() -> None:

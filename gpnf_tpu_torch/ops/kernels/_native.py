@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gpnf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_attention_proj", "fused_attention_long", "mixlogcdf_forward",
-           "mixture_inverse", "fused_affine", "tril_solve", "cholesky")
+           "mixture_inverse", "fused_affine", "tril_solve", "cholesky",
+           "fused_gated_conv")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,10 @@ SIGNATURES = {
     "cholesky": {
         "gpnf_cholesky_f32": [_P, _P, _I, _P],
         "gpnf_cholesky_f64": [_P, _P, _I, _P],
+    },
+    "fused_gated_conv": {
+        "gpnf_gated_conv_fwd": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_gated_conv_bwd": [_P] * 16 + [_I] * 4 + [_U, _F, _I, _P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

@@ -4,22 +4,26 @@ Counterpart of gpnf_tpu/ops/mixlogcdf.py. In training mode
 (`nn.Module.train()`, the JAX package's `train=True`) the blocks drop out
 with rate `drop_prob`: GatedConv drops whole (sample, channel) maps after
 its second concat-ELU (torch's Dropout2d), and GatedAttn drops attention
-weights inside the kernel from a seed drawn on the device. The random
-numbers come from the `generator` passed to forward (the device's default
-generator when None); JAX's keys give other numbers, so the port matches
-the JAX package bit for bit only in eval mode or at rate 0. The JAX
-modules' default drop_prob of the coupling (0.2) is MarScfConfig's here:
-the modules default to 0.
+weights. The unfused GatedConv draws its mask with torch.rand from the
+`generator` passed to forward (the device's default generator when None);
+GatedAttn and the fused GatedConv draw a (1,) int32 seed on the device from
+that generator, and their kernels (or plain versions) turn it into a
+Philox mask. JAX's keys give other numbers, so the port matches the JAX
+package bit for bit only in eval mode or at rate 0. The JAX modules'
+default drop_prob of the coupling (0.2) is MarScfConfig's here: the modules
+default to 0.
 
 Forward:  u = logit(MixLogCDF(x_change)); y = (u + b) * exp(a)
 Inverse:  u = y*exp(-a) - b; x = MixLogCDF^{-1}(sigmoid(u).clip(1e-5, 1-1e-5))
 
 The gated convs run NCHW; the layer norms and the attention run
-channel-last, as the JAX package's NCHW layout does. The mixture transform
-and the mixture inverse are the two kernels of `ops.kernels`, and every
-GatedAttn is an attention kernel: the fused-projection one for S <= 512,
-the long-sequence one above (the 64-px level 0, S = 1024), as the JAX
-package dispatches.
+channel-last, as the JAX package's NCHW layout does. With `fused_gconv`
+(MarScfConfig.fused_gated_conv) each block's GatedConv and its residual are
+one `fused_gated_conv` kernel on channel-last x, whose output goes straight
+into the first layer norm. The mixture transform and the mixture inverse
+are kernels of `ops.kernels`, and every GatedAttn is an attention kernel:
+the fused-projection one for S <= 512, the long-sequence one above (the
+64-px level 0, S = 1024), as the JAX package dispatches.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from . import logistic
 from .basic import split_channels, sum_except_batch
 from .conv import WNConv2d, WNDense
 from .kernels import (fused_attention_long, fused_attention_proj,
-                      mixlogcdf_forward, mixture_inverse)
+                      fused_gated_conv, mixlogcdf_forward, mixture_inverse)
 from .kernels.fused_attention import MAX_S
 
 
@@ -78,6 +82,22 @@ class GatedConv(nn.Module):
             h = channel_dropout(h, self.drop_prob, generator)
         a, b = torch.chunk(self.gate(h), 2, dim=1)
         return a * torch.sigmoid(b)
+
+    def apply_fused(self, x, generator=None):
+        """The block + x in one `fused_gated_conv` call, x (B, H, W, C)
+        channel-last and contiguous -> (B, H, W, C): the JAX package's
+        `GatedConv.apply_fused`. Gradients reach v, g and b through the
+        effective weights."""
+        w1 = self.conv.effective_weight().permute(2, 3, 1, 0).contiguous()
+        wg = self.gate.effective_weight()[:, :, 0, 0].t().contiguous()
+        rate, seed = 0.0, None
+        if self.training and self.drop_prob > 0.0:
+            # drawn on the device: no host sync per call
+            rate = self.drop_prob
+            seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
+                                 dtype=torch.int32, device=x.device)
+        return fused_gated_conv(x, w1, self.conv.b, wg, self.gate.b, rate,
+                                seed)
 
 
 def sinusoidal_pos_enc(seq_len: int, num_channels: int, device=None):
@@ -129,11 +149,12 @@ class GatedAttn(nn.Module):
 
 class ConvAttnBlock(nn.Module):
     def __init__(self, num_ch: int, use_attn: bool, drop_prob: float = 0.0, *,
-                 generator=None):
+                 generator=None, fused_gconv: bool = False):
         super().__init__()
         self.conv = GatedConv(num_ch, drop_prob, generator=generator)
         self.norm1 = LayerNorm(num_ch)
         self.use_attn = use_attn
+        self.fused_gconv = fused_gconv
         if use_attn:
             self.attn = GatedAttn(num_ch, drop_prob=drop_prob,
                                   generator=generator)
@@ -141,7 +162,11 @@ class ConvAttnBlock(nn.Module):
 
     def forward(self, x, generator=None):
         """x (B, C, H, W) -> (B, C, H, W)."""
-        x = (self.conv(x, generator) + x).permute(0, 2, 3, 1)
+        if self.fused_gconv:
+            x = self.conv.apply_fused(x.permute(0, 2, 3, 1).contiguous(),
+                                      generator)
+        else:
+            x = (self.conv(x, generator) + x).permute(0, 2, 3, 1)
         x = self.norm1(x)
         if self.use_attn:
             x = self.norm2(self.attn(x, generator) + x)
@@ -153,12 +178,14 @@ class MixLogCDFNet(nn.Module):
 
     def __init__(self, in_ch: int, num_ch: int, num_blocks: int,
                  num_components: int, use_attn: bool = True,
-                 drop_prob: float = 0.0, *, generator=None):
+                 drop_prob: float = 0.0, *, generator=None,
+                 fused_gconv: bool = False):
         super().__init__()
         self.k = num_components
         self.in_conv = WNConv2d(in_ch, num_ch, 3, generator=generator)
         self.blocks = nn.ModuleList(
-            ConvAttnBlock(num_ch, use_attn, drop_prob, generator=generator)
+            ConvAttnBlock(num_ch, use_attn, drop_prob, generator=generator,
+                          fused_gconv=fused_gconv)
             for _ in range(num_blocks))
         self.out_conv = WNConv2d(num_ch, in_ch * (2 + 3 * num_components), 3,
                                  generator=generator)
@@ -180,10 +207,12 @@ class MixLogCDFNet(nn.Module):
 class MixLogCDFCoupling(nn.Module):
     def __init__(self, in_ch: int, mid_ch: int, num_blocks: int = 10,
                  num_components: int = 32, use_attn: bool = True,
-                 drop_prob: float = 0.0, *, generator=None):
+                 drop_prob: float = 0.0, *, generator=None,
+                 fused_gconv: bool = False):
         super().__init__()
         self.net = MixLogCDFNet(in_ch // 2, mid_ch, num_blocks, num_components,
-                                use_attn, drop_prob, generator=generator)
+                                use_attn, drop_prob, generator=generator,
+                                fused_gconv=fused_gconv)
 
     def forward(self, x, logdet, generator=None):
         x_change, x_id = split_channels(x)

@@ -459,3 +459,127 @@ def test_gp_kernel_wrappers_reject_bad_inputs_on_card(cuda_device):
         kernels.cholesky(a.T)
     with pytest.raises(ValueError):
         kernels.fused_affine_forward(a, a, a[:, :3])
+
+
+# -- the fused GatedConv (MarScfConfig.fused_gated_conv) --------------------------
+def _gated_conv_inputs(device, c, h, w, batch=4, seed=0):
+    """x (B, H, W, C), w1 (3, 3, 2C, C), b1, wg (2C, 2C), bg, a cotangent."""
+    r = np.random.default_rng(seed)
+    return [t.to(device) for t in (
+        _normal(r, (batch, h, w, c)), _normal(r, (3, 3, 2 * c, c), (18 * c) ** -0.5),
+        _normal(r, (c,), 0.1), _normal(r, (2 * c, 2 * c), (2 * c) ** -0.5),
+        _normal(r, (2 * c,), 0.1), _normal(r, (batch, h, w, c)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("c,h,w", [(16, 8, 8), (8, 5, 7), (96, 16, 16),
+                                   (96, 8, 8), (96, 4, 4), (96, 32, 32)])
+def test_gated_conv_kernels_match_plain_on_card(cuda_device, c, h, w, rate):
+    """One seed for kernel and plain version: the same mask. Forward within
+    1e-5 x max(1, max |out|); dx within 1e-5 of its largest magnitude and
+    each weight and bias gradient within 1e-4 of its own largest."""
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, c, h, w)
+    seed = torch.tensor([4242 + c], dtype=torch.int32, device=cuda_device)
+    before = (kernels.fused_gated_conv.launches,
+              kernels.fused_gated_conv_bwd.launches)
+    out = kernels.fused_gated_conv(x, w1, b1, wg, bg, rate, seed)
+    grads = kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, rate, seed)
+    assert (kernels.fused_gated_conv.launches,
+            kernels.fused_gated_conv_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = kernels.gated_conv_plain(x, w1, b1, wg, bg, rate, seed)
+    assert float((out - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    want_grads = kernels.gated_conv_plain_bwd(x, w1, b1, wg, bg, g, rate, seed)
+    for name, got, ref in zip(("dx", "dw1", "db1", "dwg", "dbg"), grads,
+                              want_grads):
+        assert torch.isfinite(got).all(), name
+        bar = 1e-5 if name == "dx" else 1e-4
+        assert _rel_max(got, ref) <= bar, name
+
+
+@pytest.mark.cuda
+def test_gated_conv_bwd_repeats_bit_for_bit(cuda_device):
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, 96, 16, 16,
+                                              batch=8)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    first = kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, 0.2, seed)
+    again = kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, 0.2, seed)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_gated_conv_autograd_launches_both_kernels(cuda_device):
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, 16, 8, 8)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    args = [a.clone().requires_grad_() for a in (x, w1, b1, wg, bg)]
+    counts = (kernels.fused_gated_conv.launches,
+              kernels.fused_gated_conv_bwd.launches)
+    kernels.fused_gated_conv(*args, 0.2, seed).backward(g)
+    assert (kernels.fused_gated_conv.launches,
+            kernels.fused_gated_conv_bwd.launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    want = kernels.gated_conv_plain_bwd(x, w1, b1, wg, bg, g, 0.2, seed)
+    for a, ref in zip(args, want):
+        assert _rel_max(a.grad, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gated_conv_rejects_what_the_kernels_do_not_take(cuda_device):
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, 16, 8, 8)
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_gated_conv(*(a.double() for a in (x, w1, b1, wg, bg)))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_gated_conv_bwd(*(a.double() for a in (
+            x, w1, b1, wg, bg, g)))
+    x12, w12, b12, wg12, bg12, _ = _gated_conv_inputs(cuda_device, 12, 8, 8)
+    with pytest.raises(ValueError, match="widths"):
+        kernels.fused_gated_conv(x12, w12, b12, wg12, bg12)
+    with pytest.raises(ValueError, match="w1"):
+        kernels.fused_gated_conv(x, w1[:, :, :, :8], b1, wg, bg)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_gated_conv(x.transpose(1, 2), w1, b1, wg, bg)
+    with pytest.raises(ValueError, match="seed"):
+        kernels.fused_gated_conv(x, w1, b1, wg, bg, 0.2,
+                                 torch.zeros((2,), dtype=torch.int32,
+                                             device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_small_fused_model_on_card_matches_cpu_and_unfused(cuda_device):
+    """The flag on: encode within 1e-4 bits/dim of the CPU and within 1e-5
+    of the unfused model on the card; a training step at dropout 0 within
+    1e-4 (loss) and 1e-3 of the largest gradient; L * K * num_blocks
+    gated-conv launches each way."""
+    cfg = MarScfConfig(**SMALL, drop_prob=0.0, fused_gated_conv=True)
+    cpu = MarScfFlow(cfg, device="cpu")
+    card = MarScfFlow(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    plain = MarScfFlow(MarScfConfig(**SMALL, drop_prob=0.0),
+                       device=cuda_device).eval()
+    plain.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.random((4, 3, 16, 16), dtype=np.float32) - 0.5)
+    noise = torch.from_numpy(r.random((4, 3, 16, 16), dtype=np.float32))
+    scale = np.log(2.0) * 16 * 16 * 3
+    with torch.no_grad():
+        _, obj_card = card.eval().encode(x.to(cuda_device),
+                                         torch.zeros(4, device=cuda_device))
+        _, obj_cpu = cpu.eval().encode(x, torch.zeros(4))
+        _, obj_plain = plain.encode(x.to(cuda_device),
+                                    torch.zeros(4, device=cuda_device))
+    _close(obj_card / scale, obj_cpu / scale, rtol=0, atol=1e-4)
+    _close(obj_card / scale, obj_plain / scale, rtol=0, atol=1e-5)
+    kernels.reset_launch_counts()
+    loss_card = torch.mean(card.train()(x.to(cuda_device),
+                                        noise=noise.to(cuda_device))[1])
+    loss_card.backward()
+    counts = kernels.launch_counts()
+    loss_cpu = torch.mean(cpu.train()(x, noise=noise)[1])
+    loss_cpu.backward()
+    assert counts["fused_gated_conv"] == counts["fused_gated_conv_bwd"] == 8
+    _close(loss_card, loss_cpu, rtol=0, atol=1e-4)
+    g_card, g_cpu = _flat_grads(card), _flat_grads(cpu)
+    assert torch.isfinite(g_card).all()
+    assert _rel_max(g_card.cpu(), g_cpu) <= 1e-3
