@@ -87,7 +87,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      one warm-up step, then one window of 5 steps (the same depth as phase
      14; one window where phase 14 times three) with exact launch counts
      and peak memory, and one eval batch. Every earlier phase asserts that
-     the default path launches no gated-conv kernel.
+     the default path launches no gated-conv kernel;
+ 17. the core attention entries (`fused_attention` on q, k, v and
+     `fused_attention_qkv` on packed qkv, which no path of the system
+     runs): their four kernels against their plain versions at batch 64,
+     4 heads, S = 256 / 64 / 16 / 512 / 100 at Dh = 24 and S = 512 at
+     Dh = 64, rate 0 and 0.2 (one seed: the same mask), two backward calls
+     bit for bit the same, S = 513, Dh = 20 and float64 refused, each with
+     its time, the plain version's, SDPA's (rate 0) and its bound; at rate
+     0.2 and one seed the packed entry against the proj entry and, bit for
+     bit, the long entry, and the q, k, v entry against the packed one;
+     then one drive through both entries' autograd (launches 1 of each).
+     Every earlier phase asserts that its path launches none of the four.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -163,6 +174,11 @@ EVAL_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
 SAMPLE_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
              "mixture_inverse": 12}
 NO_LONG = {"fused_attention_long": 0, "fused_attention_long_bwd": 0}
+# the core attention entries (phase 17): no path of the system runs them
+CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
+        "fused_attention_qkv_bwd")
+NO_CORE = dict.fromkeys(CORE, 0)
+PER_STEP_64.update(NO_CORE)
 # phase 13's (batch, S): the 64-px level 0, and a ragged sequence
 LONG_CASES = ((BATCH, 1024), (4, 576))
 LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
@@ -407,7 +423,7 @@ def train(device, loader, out_dir, seed, card, fused=False):
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
             "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_LONG, **dict.fromkeys(FGC, 120 if fused else 0)}
+            **NO_LONG, **NO_CORE, **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
     last5 = statistics.mean(losses[-5:])
@@ -490,7 +506,7 @@ def serve(model, loader, device, seed):
     want = {"fused_attention_proj": 120 * n_batches,
             "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP, **NO_LONG, "fused_gated_conv": fgc,
+            **NO_GP, **NO_LONG, **NO_CORE, "fused_gated_conv": fgc,
             "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
@@ -510,7 +526,7 @@ def sample(model, out_dir, device, seed, name="samples.png"):
         f"before the clamp; launches {counts}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
-            **NO_LONG, "fused_gated_conv":
+            **NO_LONG, **NO_CORE, "fused_gated_conv":
                 120 if model.cfg.fused_gated_conv else 0,
             "fused_gated_conv_bwd": 0}
     if counts != want:
@@ -1525,6 +1541,227 @@ def imagenet64_fused(device, state, seed, card):
             "eval_s": eval_s, "eval_launches": eval_counts}
 
 
+# -- phase 17: the core attention entries (fused_attention, fused_attention_qkv) --
+# (B, H, S, Dh): the flagship GatedAttn's three levels, the top of the range
+# (S = 512 at Dh = 24 and 64), and a ragged S
+CORE_SHAPES = ((BATCH, 4, 256, 24), (BATCH, 4, 64, 24), (BATCH, 4, 16, 24),
+               (BATCH, 4, 512, 24), (BATCH, 4, 512, 64), (BATCH, 4, 100, 24))
+
+
+def check_core_attention(device, timer):
+    """Phase 17: the four core attention kernels against their plain
+    versions at CORE_SHAPES, rate 0 and 0.2 (one seed: the same mask), two
+    backward calls bit for bit the same, S = 513, Dh = 20 and float64
+    refused; each with its time, the plain version's, SDPA's (rate 0) and
+    its bound. Then the entries against the proj and long entries at rate
+    0.2, and a drive through both public entries' autograd with the counts
+    set to 0 just before: one launch of each kernel."""
+    from gpnf_tpu_torch.ops import kernels
+
+    counts = kernels.launch_counts()
+    if any(counts[n] for n in CORE):
+        raise AssertionError(f"an earlier phase launched a core attention "
+                             f"kernel: {counts}")
+    gen = torch.Generator(device=device).manual_seed(9753)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    results = {name: [] for name in CORE}
+
+    def record(name, shape, rate, err, ms, plain_ms, library_ms):
+        b, h, s, dh = shape
+        scores = b * h * s * s
+        core = 2 * scores * dh  # one S x S x Dh product
+        elems = b * h * s * dh
+        if name in ("fused_attention", "fused_attention_qkv"):
+            # q, k, v in (or qkv), out; two products and the softmax
+            bytes_moved, ops = 4 * 4 * elems, 2 * core
+        else:  # q, k, v, g in, dq, dk, dv out; five products and dS
+            bytes_moved, ops = 4 * 7 * elems, 5 * core
+        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+        results[name].append(dict(
+            shape=list(shape), rate=rate, max_abs_err=err[0],
+            err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
+        log(f"  {name} {shape} rate {rate}: max abs err {err[0]:.3g} (/ max "
+            f"|plain| {err[1]:.3g}) | kernel {ms:.4f} ms plain "
+            f"{ms_or_na(plain_ms)} library {ms_or_na(library_ms)} | bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by})")
+
+    def check(tag, got, want, again=None, bar=None):
+        """Max abs error and max abs error / max |plain| over the outputs;
+        the forward's bar is absolute (1e-5), the backward's relative to
+        each gradient's largest value (1e-4), and two backward calls must
+        agree bit for bit."""
+        if again is not None and not all(
+                torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two calls differ")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        over = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(got, want))
+        if not (err <= 1e-5 if bar is None else over <= bar):
+            raise AssertionError(f"{tag}: max abs err {err}, / max |plain| "
+                                 f"{over}")
+        return err, over
+
+    def sdpa_bwd_ms(q, k, v, g, scale):
+        """Autograd backward of SDPA, the graph built once and its backward
+        timed alone."""
+        q, k, v = (t_.clone().requires_grad_() for t_ in (q, k, v))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                 retain_graph=True))
+
+    with torch.no_grad():
+        for shape in CORE_SHAPES:
+            b, h, s, dh = shape
+            q, k, v, g = (randn(*shape) * 0.5 for _ in range(4))
+            merge = lambda x: x.transpose(1, 2).reshape(b, s, h * dh)
+            # the same heads packed, q unscaled: the same function
+            qkv = torch.cat([merge(k), merge(v), merge(q) * dh ** 0.5],
+                            dim=-1).contiguous()
+            g3 = merge(g).contiguous()
+            kk, vv, qq = (t_.reshape(b, s, h, dh).transpose(1, 2).contiguous()
+                          for t_ in qkv.split(h * dh, dim=-1))
+            seed = torch.tensor([2024 + s + dh], dtype=torch.int32,
+                                device=device)
+            for rate in (0.0, RATE):
+                cases = (
+                    ("fused_attention",
+                     lambda: (kernels.fused_attention(q, k, v, rate, seed),),
+                     lambda: (kernels.attention_plain(q, k, v, rate, seed),),
+                     lambda: F.scaled_dot_product_attention(q, k, v,
+                                                            scale=1.0)),
+                    ("fused_attention_bwd",
+                     lambda: kernels.fused_attention_bwd(q, k, v, g, rate,
+                                                         seed),
+                     lambda: kernels.attention_plain_bwd(q, k, v, g, rate,
+                                                         seed),
+                     lambda: sdpa_bwd_ms(q, k, v, g, 1.0)),
+                    ("fused_attention_qkv",
+                     lambda: (kernels.fused_attention_qkv(qkv, h, rate,
+                                                          seed),),
+                     lambda: (kernels.attention_long_plain(qkv, h, rate,
+                                                           seed),),
+                     lambda: F.scaled_dot_product_attention(qq, kk, vv)),
+                    ("fused_attention_qkv_bwd",
+                     lambda: (kernels.fused_attention_qkv_bwd(qkv, g3, h, rate,
+                                                              seed),),
+                     lambda: (kernels.attention_long_plain_bwd(qkv, g3, h,
+                                                               rate, seed),),
+                     lambda: sdpa_bwd_ms(qq, kk, vv, g, None)))
+                for name, run, plain, library in cases:
+                    backward = name.endswith("_bwd")
+                    err = check(f"{name} {shape} rate {rate}", run(), plain(),
+                                run() if backward else None,
+                                1e-4 if backward else None)
+                    library_ms = None
+                    if rate == 0.0:  # no PyTorch call draws the kernel's mask
+                        library_ms = library() if backward else timer(library)
+                    record(name, shape, rate, err, timer(run), timer(plain),
+                           library_ms)
+
+        # one seed at rate 0.2: every attention entry drops the same scores
+        for s in (256, 64, 16, 100, 512):
+            seq, w = randn(8, s, 96) * 0.5, randn(288, 96) * 0.1
+            g3 = randn(8, s, 96)
+            seed = torch.tensor([77 + s], dtype=torch.int32, device=device)
+            qkv = torch.matmul(seq, w.t())
+            out = kernels.fused_attention_qkv(qkv, 4, RATE, seed)
+            dqkv = kernels.fused_attention_qkv_bwd(qkv, g3, 4, RATE, seed)
+            proj = kernels.fused_attention_proj(seq, w, 4, RATE, seed)
+            dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g3, 4, RATE,
+                                                        seed)
+            kk, vv, qq = (t_.reshape(8, s, 4, 24).transpose(1, 2).contiguous()
+                          for t_ in qkv.split(96, dim=-1))
+            merge = lambda x: x.transpose(1, 2).reshape(8, s, 96)
+            split_out = merge(kernels.fused_attention(qq * 24 ** -0.5, kk, vv,
+                                                      RATE, seed))
+            dq, dk, dv = kernels.fused_attention_bwd(
+                qq * 24 ** -0.5, kk, vv, g3.reshape(8, s, 4, 24).transpose(
+                    1, 2).contiguous(), RATE, seed)
+            split_d = torch.cat([merge(dk), merge(dv), merge(dq) * 24 ** -0.5],
+                                dim=-1)
+            same = {
+                "qkv vs proj out": float((out - proj).abs().max()),
+                "qkv vs proj dseq / max": float(
+                    (torch.matmul(dqkv, w) - dseq).abs().max()
+                    / dseq.abs().max()),
+                "qkv vs proj dW / max": float(
+                    (torch.einsum("bso,bsc->oc", dqkv, seq) - dw).abs().max()
+                    / dw.abs().max()),
+                "split vs packed out": float((split_out - out).abs().max()),
+                "split vs packed dqkv / max": float(
+                    (split_d - dqkv).abs().max() / dqkv.abs().max())}
+            long_equal = (
+                torch.equal(out, kernels.attention_long_qkv(qkv, 4, RATE,
+                                                            seed))
+                and torch.equal(dqkv, kernels.attention_long_qkv_bwd(
+                    qkv, g3, 4, RATE, seed)))
+            log(f"  rate {RATE}, S={s}, one seed: "
+                + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in same.items())
+                + f"; qkv vs long bit for bit: {long_equal}")
+            if not (long_equal and same["qkv vs proj out"] <= 1e-5
+                    and same["split vs packed out"] <= 1e-5 and all(
+                        v_ <= 1e-4 for k_, v_ in same.items() if "/" in k_)):
+                raise AssertionError(f"the attention entries disagree at "
+                                     f"S={s}: {same}, long {long_equal}")
+            results.setdefault("agreement", []).append(
+                dict(s=s, long_bit_for_bit=long_equal, **same))
+
+        refusals = {
+            "S=513": ((1, 4, 513, 24), torch.float32),
+            "Dh=20": ((1, 4, 64, 20), torch.float32),
+            "float64": ((1, 4, 64, 24), torch.float64)}
+        for label, (shape, dtype) in refusals.items():
+            q = torch.zeros(shape, dtype=dtype, device=device)
+            qkv = torch.zeros((1, shape[2], 3 * 4 * shape[3]), dtype=dtype,
+                              device=device)
+            g3 = torch.zeros((1, shape[2], 4 * shape[3]), dtype=dtype,
+                             device=device)
+            for call in (lambda: kernels.fused_attention(q, q, q),
+                         lambda: kernels.fused_attention_bwd(q, q, q, q),
+                         lambda: kernels.fused_attention_qkv(qkv, 4),
+                         lambda: kernels.fused_attention_qkv_bwd(qkv, g3, 4)):
+                try:
+                    call()
+                except (TypeError, ValueError) as e:
+                    message = str(e)
+                else:
+                    raise AssertionError(f"a core attention kernel took "
+                                         f"{label}")
+            log(f"  {label} refused before the device: {message}")
+
+    # the drive: both public entries through autograd at the flagship's
+    # level 0, rate 0.2, the counts set to 0 just before
+    b, h, s, dh = CORE_SHAPES[0]
+    q, k, v, g = (randn(*CORE_SHAPES[0]) * 0.5 for _ in range(4))
+    qkv, g3 = randn(b, s, 3 * h * dh) * 0.5, randn(b, s, h * dh)
+    seed = torch.tensor([31], dtype=torch.int32, device=device)
+    leaves = [t_.clone().requires_grad_() for t_ in (q, k, v, qkv)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kernels.fused_attention(*leaves[:3], RATE, seed).backward(g)
+    kernels.fused_attention_qkv(leaves[3], h, RATE, seed).backward(g3)
+    torch.cuda.synchronize()
+    drive = kernels.launch_counts()
+    want = {name: int(name in CORE) for name in drive}
+    log(f"  drive through fused_attention and fused_attention_qkv (autograd, "
+        f"B={b} H={h} S={s} Dh={dh}, rate {RATE}): launches {drive}")
+    if drive != want:
+        raise AssertionError(f"core attention drive launches {drive} != "
+                             f"{want}")
+    with torch.no_grad():
+        grads = (*kernels.fused_attention_bwd(q, k, v, g, RATE, seed),
+                 kernels.fused_attention_qkv_bwd(qkv, g3, h, RATE, seed))
+    if not all(torch.equal(leaf.grad, want_) and bool(
+            torch.isfinite(leaf.grad).all())
+            for leaf, want_ in zip(leaves, grads)):
+        raise AssertionError("the drive's gradients are not the backward "
+                             "kernels' or not finite")
+    return results, drive
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -1632,6 +1869,12 @@ def main():
     torch.cuda.empty_cache()
     fgc64 = imagenet64_fused(device, state64, args.seed, card)
     del state64
+    torch.cuda.empty_cache()
+    log("== 17. core attention kernels (fused_attention, fused_attention_qkv) "
+        "vs plain versions")
+    t0 = time.perf_counter()
+    core_kernels, core_drive = check_core_attention(device, timer)
+    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -1656,6 +1899,14 @@ def main():
                              "gpnf_tpu/ops/pallas/fused_gated_conv.py:139"),
         "fused_gated_conv_bwd": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
                                  "gpnf_tpu/ops/pallas/fused_gated_conv.py:150"),
+        "fused_attention": ("gpnf_tpu_torch/csrc/fused_attention.cu",
+                            attention[1] + "43"),
+        "fused_attention_bwd": ("gpnf_tpu_torch/csrc/fused_attention.cu",
+                                attention[1] + "62"),
+        "fused_attention_qkv": ("gpnf_tpu_torch/csrc/fused_attention.cu",
+                                attention[1] + "230"),
+        "fused_attention_qkv_bwd": ("gpnf_tpu_torch/csrc/fused_attention.cu",
+                                    attention[1] + "257"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -1676,7 +1927,8 @@ def main():
                     "eval_fgc": fgc["eval_launches"][name],
                     "sample_fgc": fgc["sample_launches"][name],
                     "train64_fgc": fgc64["launches"][name],
-                    "eval64_fgc": fgc64["eval_launches"][name]}
+                    "eval64_fgc": fgc64["eval_launches"][name],
+                    "core_attention": core_drive[name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -1710,6 +1962,20 @@ def main():
                 unfused_fwd_bwd_ms=top["unfused_fwd_bwd_ms"],
                 shape=f"32-px level 0 (16x16), batch {BATCH}, C 96, rate "
                       f"{RATE}",
+                per_case=rows)
+        elif name in CORE:
+            # the 32-px level 0's shape at rate 0: kernel, plain version,
+            # SDPA and bound on the same inputs (every case in per_case)
+            rows = core_kernels[name]
+            top = [r for r in rows if (tuple(r["shape"]), r["rate"]) ==
+                   (CORE_SHAPES[0], 0.0)][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=f"(B, H, S, Dh) {CORE_SHAPES[0]}, rate 0; library_ms "
+                      f"SDPA",
                 per_case=rows)
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
@@ -1751,10 +2017,12 @@ def main():
                "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
                **checks, **times, "gp": gp_summary, "imagenet64": row64,
                "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64},
+               "core_attention": {"drive_launches": core_drive,
+                                  "agreement": core_kernels["agreement"]},
                "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-16 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-17 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,10 @@ coupling block's GatedConv and residual as one `fused_gated_conv` kernel.
 It has the same parameters, and in eval mode or at dropout 0 the same
 numbers up to rounding; its Dropout2d mask comes from Philox. The JAX
 package's compile and memory options (scan_steps, scan_unroll, remat*,
-precompute_wn, prior_scan_unroll, compute_dtype) change no numbers and have
-no counterpart here.
+precompute_wn, prior_scan_unroll) change no numbers and have no
+counterpart here. Its `compute_dtype="bfloat16"` does change numbers (the
+coupling nets run in bf16, the mixture head and log-dets in fp32) and is
+not ported yet: the port runs float32 (or float64) throughout.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ class MarScfConfig:
     hidden_channels: int = 96
     coupling: str = "mixlogcdf"  # "mixlogcdf" | "affine"
     use_attention: bool = True
+    attn_heads: int = 3
     num_blocks: int = 10
     num_components: int = 32
     drop_prob: float = 0.2
@@ -58,18 +61,21 @@ class MarScfConfig:
     prior_hidden: int = 32
     prior_layers: int = 3
     prior_dp_rate: float = 0.0
+    actnorm_scale: float = 1.0
     fused_gated_conv: bool = False
 
 
 class FlowStep(nn.Module):
     def __init__(self, cfg: MarScfConfig, channels: int, *, generator=None):
         super().__init__()
-        self.actnorm = ActNorm(channels)
+        self.actnorm = ActNorm(channels, scale=cfg.actnorm_scale)
         self.invconv = InvConv1x1(channels, generator=generator)
         self.use_attention = cfg.use_attention
         if cfg.use_attention:
-            self.attn1 = InvertibleAttention(channels, generator=generator)
-            self.attn2 = InvertibleAttention(channels, generator=generator)
+            self.attn1 = InvertibleAttention(
+                channels, num_heads=cfg.attn_heads, generator=generator)
+            self.attn2 = InvertibleAttention(
+                channels, num_heads=cfg.attn_heads, generator=generator)
         if cfg.coupling == "mixlogcdf":
             self.coupling = MixLogCDFCoupling(
                 channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,

@@ -2,7 +2,7 @@
 
 Counterpart of gpnf_tpu/ops/actnorm.py. logdet = sum(logs) * H * W, added
 on forward and subtracted on inverse. `ddi` sets the parameters in place
-from a batch (zero mean, unit std per channel after the transform).
+from a batch (zero mean, `scale` std per channel after the transform).
 `MaskedActNorm` is not ported yet.
 """
 from __future__ import annotations
@@ -12,8 +12,10 @@ import torch.nn as nn
 
 
 class ActNorm(nn.Module):
-    def __init__(self, num_channels: int, eps: float = 1e-6):
+    def __init__(self, num_channels: int, scale: float = 1.0,
+                 eps: float = 1e-6):
         super().__init__()
+        self.scale = float(scale)
         self.eps = eps
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.logs = nn.Parameter(torch.zeros(num_channels))
@@ -37,5 +39,5 @@ class ActNorm(nn.Module):
         mean = torch.mean(x, dim=(0, 2, 3))
         var = torch.mean((x - mean.reshape(1, -1, 1, 1)) ** 2, dim=(0, 2, 3))
         self.bias.copy_(-mean)
-        self.logs.copy_(torch.log(1.0 / (torch.sqrt(var) + self.eps)))
+        self.logs.copy_(torch.log(self.scale / (torch.sqrt(var) + self.eps)))
         return self.forward(x, logdet)

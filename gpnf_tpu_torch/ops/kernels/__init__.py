@@ -7,9 +7,12 @@ gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 from .cholesky import cholesky, cholesky_plain
 from .fused_attention import (attention_long_plain, attention_long_plain_bwd,
                               attention_long_qkv, attention_long_qkv_bwd,
+                              attention_plain, attention_plain_bwd,
                               attention_proj_plain, attention_proj_plain_bwd,
+                              fused_attention, fused_attention_bwd,
                               fused_attention_long, fused_attention_long_bwd,
-                              fused_attention_proj, fused_attention_proj_bwd)
+                              fused_attention_proj, fused_attention_proj_bwd,
+                              fused_attention_qkv, fused_attention_qkv_bwd)
 from .fused_coupling import fused_affine_forward, fused_affine_plain
 from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bwd,
                                gated_conv_keep_plain, gated_conv_plain,
@@ -21,7 +24,8 @@ from .trisolve import tril_solve, tril_solve_plain
 KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            fused_attention_long_bwd, mixlogcdf_forward, mixture_inverse,
            fused_affine_forward, cholesky, tril_solve, fused_gated_conv,
-           fused_gated_conv_bwd)
+           fused_gated_conv_bwd, fused_attention, fused_attention_bwd,
+           fused_attention_qkv, fused_attention_qkv_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_attention_proj", "fused_attention_long", "mixlogcdf_forward",
            "mixture_inverse", "fused_affine", "tril_solve", "cholesky",
-           "fused_gated_conv")
+           "fused_gated_conv", "fused_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +64,12 @@ SIGNATURES = {
     "fused_gated_conv": {
         "gpnf_gated_conv_fwd": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
         "gpnf_gated_conv_bwd": [_P] * 16 + [_I] * 4 + [_U, _F, _I, _P],
+    },
+    "fused_attention": {
+        "gpnf_attention_fwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_bwd": [_P] * 9 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_qkv_fwd": [_P] * 3 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

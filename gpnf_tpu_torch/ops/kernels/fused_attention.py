@@ -1,5 +1,6 @@
 """Multi-head self-attention kernels: the fused-projection entry for
-S <= 512 and the long-sequence entry for 512 < S <= 2048.
+S <= 512, the long-sequence entry for 512 < S <= 2048, and the core
+entries on separate q, k, v or a packed qkv for S <= 512.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
 - `fused_attention_proj` (forward and backward, dropout inside both), with
@@ -12,6 +13,14 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   and tile the key axis: gpnf_tpu_torch/csrc/fused_attention_long.cu.
   `attention_long_plain` and `attention_long_plain_bwd` are its plain
   versions at the kernels' own boundary (qkv in, out or dqkv out).
+- `fused_attention` (`_fwd_kernel`, `_bwd_kernel`): q, k, v (B, H, S, Dh),
+  q already scaled; `attention_plain` and `attention_plain_bwd` are its
+  plain versions. `fused_attention_qkv` (`_fwd_kernel_qkv`,
+  `_bwd_kernel_qkv`): packed qkv (B, S, 3C) in, (B, S, C) out; its plain
+  versions are the long entry's, which compute the same function. Both
+  run the long entry's key-tiled kernels (csrc/attention_tiled.cuh) from
+  gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
+  JAX package runs its jnp reference, even on a TPU; the port raises.
 Each source's header says what bounds its kernels on the H100 and how they
 are laid out. The wrappers run the plain versions for CPU tensors, and the
 tests and chip_smoke.py hold the kernels against them.
@@ -22,7 +31,7 @@ Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
 are a pure function of (seed, b, h, i, j), so the backward regenerates
 the forward's mask in any order. `dropout_keep_plain` computes the same
 bits in torch integer arithmetic. They cannot match the JAX package's
-masks, which come from the TPU's own generator. Both entries draw the
+masks, which come from the TPU's own generator. Every entry draws the
 same bits, so at one seed they drop the same scores.
 """
 from __future__ import annotations
@@ -117,17 +126,49 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rate: float = 0.0,
+                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(softmax(q k^T)) v on q, k, v (B, H, S, Dh), q already
+    scaled -> (B, H, S, Dh)."""
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
+    if rate > 0.0:
+        b, h, s, _ = q.shape
+        p = torch.where(dropout_keep_plain(seed, b, h, s, rate),
+                        p / (1.0 - rate), 0.0)
+    return torch.matmul(p, v)
+
+
+def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of `attention_plain` for the cotangent g (B, H, S, Dh),
+    by the formulas of the JAX module's docstring:
+        dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
+        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q"""
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
+    dpd = torch.matmul(g, v.transpose(-1, -2))
+    if rate > 0.0:
+        b, h, s, _ = q.shape
+        keep = dropout_keep_plain(seed, b, h, s, rate)
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dpd / (1.0 - rate), 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = torch.matmul(pd.transpose(-1, -2), g)
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
 def attention_long_plain(qkv: torch.Tensor, num_heads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """qkv (B, S, 3C) packed [k | v | q], q not yet scaled -> (B, S, C)."""
+    """qkv (B, S, 3C) packed [k | v | q], q not yet scaled -> (B, S, C):
+    `attention_plain` on the heads, q scaled by Dh^-1/2. The plain version
+    of both packed entries, `fused_attention_long` and
+    `fused_attention_qkv`."""
     k, v, q = _split_qkv(qkv, num_heads)
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
-    if rate > 0.0:
-        keep = dropout_keep_plain(seed, qkv.shape[0], num_heads, qkv.shape[1],
-                                  rate)
-        p = torch.where(keep, p / (1.0 - rate), 0.0)
-    return _merge_heads(torch.matmul(p, v))
+    return _merge_heads(attention_plain(q, k, v, rate, seed))
 
 
 def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -135,28 +176,15 @@ def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
                              seed: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """dqkv (B, S, 3C), packed [dK | dV | dq * Dh^-1/2], of
-    `attention_long_plain` for the cotangent g (B, S, C), by the formulas of
-    the JAX module's docstring:
-        dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
-        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q"""
+    `attention_long_plain` for the cotangent g (B, S, C), by
+    `attention_plain_bwd` on the heads."""
     b, s, c3 = qkv.shape
     dh = c3 // 3 // num_heads
     k, v, q = _split_qkv(qkv, num_heads)
     gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
-    dpd = torch.matmul(gh, v.transpose(-1, -2))
-    if rate > 0.0:
-        keep = dropout_keep_plain(seed, b, num_heads, s, rate)
-        pd = torch.where(keep, p / (1.0 - rate), 0.0)
-        dp = torch.where(keep, dpd / (1.0 - rate), 0.0)
-    else:
-        pd, dp = p, dpd
-    dv = torch.matmul(pd.transpose(-1, -2), gh)
-    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
-    dq = torch.matmul(ds, k) * dh ** -0.5
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    return torch.cat([_merge_heads(dk), _merge_heads(dv), _merge_heads(dq)],
-                     dim=-1)
+    dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed)
+    return torch.cat([_merge_heads(dk), _merge_heads(dv),
+                      _merge_heads(dq * dh ** -0.5)], dim=-1)
 
 
 def _project_bwd(dqkv, seq, w):
@@ -186,6 +214,10 @@ def _check_heads_and_rate(kernel, c, num_heads, rate, seed):
     if c % num_heads:
         raise ValueError(f"{kernel}: C={c} is not a multiple of {num_heads} "
                          f"heads")
+    _check_rate(kernel, rate, seed)
+
+
+def _check_rate(kernel, rate, seed):
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"{kernel}: dropout rate {rate} is not in [0, 1)")
     if rate > 0.0 and (seed is None or seed.shape != (1,)
@@ -303,7 +335,44 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     return _AttentionProj.apply(seq, w, seed, num_heads, rate)
 
 
-# -- the long-sequence entry: qkv in, the key axis tiled in the kernels ---------
+# -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
+def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, rate, seed):
+    """Launch the packed forward `fn` of library `source` (the long entry's
+    or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks;
+    returns out (B, S, C)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    device, seed_ptr, threshold, scale = _cuda_args(
+        kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv)
+    out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
+    _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
+                   out.data_ptr(), b, s, c, num_heads, threshold, scale)
+    return out
+
+
+def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, rate, seed):
+    """Launch the packed backward `fn` of library `source` on CUDA tensors
+    after the kernel's checks; returns dqkv (B, S, 3C)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    device, seed_ptr, threshold, scale = _cuda_args(
+        kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv, g=g)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, num_heads, s, 3), dtype=qkv.dtype, device=device)
+    _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
+                   g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, c,
+                   num_heads, threshold, scale)
+    return dqkv
+
+
+def _check_cotangent(kernel, qkv, g):
+    b, s, c3 = qkv.shape
+    if g.shape != (b, s, c3 // 3):
+        raise ValueError(f"{kernel}: g {tuple(g.shape)} is not "
+                         f"{(b, s, c3 // 3)}")
+
+
+# -- the long-sequence entry ---------------------------------------------------------
 def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel at its own boundary: qkv (B, S, 3C) packed
@@ -313,15 +382,9 @@ def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
     _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
         return attention_long_plain(qkv, num_heads, rate, seed)
-    b, s, c3 = qkv.shape
-    c = c3 // 3
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_long", s, c // num_heads, MAX_S_LONG, rate, seed,
-        qkv=qkv)
-    out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
-    _native.launch("fused_attention_long", "gpnf_attention_long_fwd", device,
-                   seed_ptr, qkv.data_ptr(), out.data_ptr(), b, s, c,
-                   num_heads, threshold, scale)
+    out = _packed_fwd("fused_attention_long", "fused_attention_long",
+                      "gpnf_attention_long_fwd", MAX_S_LONG, qkv, num_heads,
+                      rate, seed)
     fused_attention_long.launches += 1
     return out
 
@@ -335,21 +398,12 @@ def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     from `seed`. CPU tensors take `attention_long_plain_bwd`; CUDA tensors
     launch the kernels or raise."""
     _validate_qkv("fused_attention_long_bwd", qkv, num_heads, rate, seed)
-    b, s, c3 = qkv.shape
-    c = c3 // 3
-    if g.shape != (b, s, c):
-        raise ValueError(f"fused_attention_long_bwd: g {tuple(g.shape)} is "
-                         f"not {(b, s, c)}")
+    _check_cotangent("fused_attention_long_bwd", qkv, g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_long_bwd", s, c // num_heads, MAX_S_LONG, rate, seed,
-        qkv=qkv, g=g)
-    dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, num_heads, s, 3), dtype=qkv.dtype, device=device)
-    _native.launch("fused_attention_long", "gpnf_attention_long_bwd", device,
-                   seed_ptr, qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                   stats.data_ptr(), b, s, c, num_heads, threshold, scale)
+    dqkv = _packed_bwd("fused_attention_long_bwd", "fused_attention_long",
+                       "gpnf_attention_long_bwd", MAX_S_LONG, qkv, g,
+                       num_heads, rate, seed)
     fused_attention_long_bwd.launches += 1
     return dqkv
 
@@ -397,7 +451,145 @@ def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     return _AttentionLong.apply(seq, w, seed, num_heads, rate)
 
 
+# -- the core entries: separate q, k, v, or packed qkv, S <= 512 --------------------
+def _validate_split(kernel, rate, seed, **tensors):
+    shapes = {arg: tuple(t.shape) for arg, t in tensors.items()}
+    if len(set(shapes.values())) != 1 or len(shapes["q"]) != 4:
+        raise ValueError(f"{kernel}: {shapes} are not one (B, H, S, Dh) "
+                         f"shape")
+    _check_rate(kernel, rate, seed)
+
+
+def _attention_forward(q, k, v, rate, seed):
+    _validate_split("fused_attention", rate, seed, q=q, k=k, v=v)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_plain(q, k, v, rate, seed)
+    b, h, s, dh = q.shape
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention", s, dh, MAX_S, rate, seed, q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    _native.launch("fused_attention", "gpnf_attention_fwd", device, seed_ptr,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, h, s, dh, threshold, scale)
+    fused_attention.launches += 1
+    return out
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of `fused_attention` for the cotangent g (B, H, S, Dh),
+    the forward's mask regenerated from `seed`. CPU tensors take
+    `attention_plain_bwd`; CUDA tensors launch the kernels or raise."""
+    _validate_split("fused_attention_bwd", rate, seed, q=q, k=k, v=v, g=g)
+    if all(t.device.type == "cpu" for t in (q, k, v, g)):
+        return attention_plain_bwd(q, k, v, g, rate, seed)
+    b, h, s, dh = q.shape
+    device, seed_ptr, threshold, scale = _cuda_args(
+        "fused_attention_bwd", s, dh, MAX_S, rate, seed, q=q, k=k, v=v, g=g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((b, h, s, 3), dtype=q.dtype, device=device)
+    _native.launch("fused_attention", "gpnf_attention_bwd", device, seed_ptr,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   stats.data_ptr(), b, h, s, dh, threshold, scale)
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Saves (q, k, v, seed), the residuals of the JAX package's
+    `_vjp_fwd`: the mask is regenerated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, rate):
+        ctx.save_for_backward(q, k, v, seed)
+        ctx.rate = rate
+        return _attention_forward(q, k, v, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, seed = ctx.saved_tensors
+        dq, dk, dv = fused_attention_bwd(q, k, v, g.contiguous(), ctx.rate,
+                                         seed)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rate: float = 0.0,
+                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(softmax(q k^T)) v on q, k, v (B, H, S, Dh), q already scaled;
+    `seed` is a (1,) int32 tensor on q's device, read only when rate > 0.
+    Differentiable in q, k and v. CPU tensors take the plain versions; CUDA
+    tensors launch the kernels or raise (S > 512, a head width outside
+    HEAD_DIMS, anything but float32)."""
+    return _Attention.apply(q, k, v, seed, rate)
+
+
+def _attention_qkv_forward(qkv, num_heads, rate, seed):
+    _validate_qkv("fused_attention_qkv", qkv, num_heads, rate, seed)
+    if qkv.device.type == "cpu":
+        return attention_long_plain(qkv, num_heads, rate, seed)
+    out = _packed_fwd("fused_attention_qkv", "fused_attention",
+                      "gpnf_attention_qkv_fwd", MAX_S, qkv, num_heads, rate,
+                      seed)
+    fused_attention_qkv.launches += 1
+    return out
+
+
+def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                            num_heads: int, rate: float = 0.0,
+                            seed: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """dqkv (B, S, 3C), packed [dK | dV | dq * Dh^-1/2], of
+    `fused_attention_qkv` for the cotangent g (B, S, C), the mask
+    regenerated from `seed`. CPU tensors take `attention_long_plain_bwd`;
+    CUDA tensors launch the kernels or raise."""
+    _validate_qkv("fused_attention_qkv_bwd", qkv, num_heads, rate, seed)
+    _check_cotangent("fused_attention_qkv_bwd", qkv, g)
+    if qkv.device.type == "cpu" and g.device.type == "cpu":
+        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
+    dqkv = _packed_bwd("fused_attention_qkv_bwd", "fused_attention",
+                       "gpnf_attention_qkv_bwd", MAX_S, qkv, g, num_heads,
+                       rate, seed)
+    fused_attention_qkv_bwd.launches += 1
+    return dqkv
+
+
+class _AttentionQkv(torch.autograd.Function):
+    """Saves (qkv, seed), the residuals of the JAX package's
+    `_vjp_fwd_qkv`: the mask is regenerated."""
+
+    @staticmethod
+    def forward(ctx, qkv, seed, num_heads, rate):
+        ctx.save_for_backward(qkv, seed)
+        ctx.num_heads, ctx.rate = num_heads, rate
+        return _attention_qkv_forward(qkv, num_heads, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, seed = ctx.saved_tensors
+        dqkv = fused_attention_qkv_bwd(qkv, g.contiguous(), ctx.num_heads,
+                                       ctx.rate, seed)
+        return dqkv, None, None, None
+
+
+def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
+                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout(softmax(q k^T / sqrt(Dh))) v over `num_heads` heads of the
+    packed qkv (B, S, 3C) laid out [k | v | q] (GatedAttn's in_proj order)
+    -> (B, S, C); `seed` as `fused_attention`'s. Differentiable in qkv. CPU
+    tensors take the plain versions (`attention_long_plain[_bwd]`, the same
+    function); CUDA tensors launch the kernels or raise (S > 512, a head
+    width outside HEAD_DIMS, anything but float32)."""
+    return _AttentionQkv.apply(qkv, seed, num_heads, rate)
+
+
 fused_attention_proj.launches = 0
 fused_attention_proj_bwd.launches = 0
 fused_attention_long.launches = 0
 fused_attention_long_bwd.launches = 0
+fused_attention.launches = 0
+fused_attention_bwd.launches = 0
+fused_attention_qkv.launches = 0
+fused_attention_qkv_bwd.launches = 0

@@ -6,6 +6,7 @@ Pallas `_fwd_kernel_bh` / `_bwd_kernel_bh` in interpret mode, the public
 wrapper's checks. The CUDA kernels themselves are held against the plain
 versions on the card by tests/test_torch_cuda.py."""
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -15,8 +16,10 @@ import torch
 
 from gpnf_tpu.ops.pallas import fused_attention as j_fa
 from gpnf_tpu_torch.ops import kernels
-from gpnf_tpu_torch.ops.kernels import fused_attention as fa
 from torch_parity import close, normal, rng, t
+
+# the module (the package's name `fused_attention` is the entry point)
+fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 
 SEED = jnp.zeros((1,), jnp.int32)
 HEADS = 4

@@ -583,3 +583,131 @@ def test_small_fused_model_on_card_matches_cpu_and_unfused(cuda_device):
     g_card, g_cpu = _flat_grads(card), _flat_grads(cpu)
     assert torch.isfinite(g_card).all()
     assert _rel_max(g_card.cpu(), g_cpu) <= 1e-3
+
+
+# -- the core entries: fused_attention (q, k, v) and fused_attention_qkv --------
+# (B, H, S, Dh): the flagship GatedAttn's three levels, the top of the range
+# (S = 512 at Dh = 24 and 64), and a ragged S
+CORE_SHAPES = [(64, 4, 256, 24), (64, 4, 64, 24), (64, 4, 16, 24),
+               (8, 4, 512, 24), (8, 4, 512, 64), (4, 4, 100, 24)]
+
+
+def _core_inputs(device, shape, seed=0):
+    """q, k, v, g (B, H, S, Dh), q scaled, the packed qkv (B, S, 3C) of the
+    same heads with q unscaled, its cotangent (B, S, C) and a seed."""
+    b, h, s, dh = shape
+    r = np.random.default_rng(seed)
+    q, k, v, g = (_normal(r, shape, 0.5).to(device) for _ in range(4))
+    merge = lambda x: x.transpose(1, 2).reshape(b, s, h * dh)
+    qkv = torch.cat([merge(k), merge(v), merge(q) * dh ** 0.5], dim=-1)
+    seed_t = torch.tensor([4321 + s], dtype=torch.int32, device=device)
+    return q, k, v, g, qkv.contiguous(), merge(g).contiguous(), seed_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("shape", CORE_SHAPES)
+def test_core_attention_kernels_match_plain_on_card(cuda_device, shape, rate,
+                                                    layout):
+    """One seed for kernel and plain version (the same mask): the forward
+    within 1e-5 absolute, every gradient within 1e-4 of its largest; one
+    launch of each kernel a call."""
+    q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, shape)
+    heads = shape[1]
+    if layout == "split":
+        fwd, bwd = kernels.fused_attention, kernels.fused_attention_bwd
+        got = fwd(q, k, v, rate, seed)
+        want = kernels.attention_plain(q, k, v, rate, seed)
+        grads = bwd(q, k, v, g, rate, seed)
+        want_grads = kernels.attention_plain_bwd(q, k, v, g, rate, seed)
+    else:
+        fwd, bwd = kernels.fused_attention_qkv, kernels.fused_attention_qkv_bwd
+        got = fwd(qkv, heads, rate, seed)
+        want = kernels.attention_long_plain(qkv, heads, rate, seed)
+        grads = (bwd(qkv, g3, heads, rate, seed),)
+        want_grads = (kernels.attention_long_plain_bwd(qkv, g3, heads, rate,
+                                                       seed),)
+    _close(got, want, rtol=0, atol=1e-5)
+    for a, b in zip(grads, want_grads):
+        assert torch.isfinite(a).all()
+        assert _rel_max(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_core_attention_bwd_repeats_bit_for_bit(cuda_device):
+    q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, (8, 4, 256, 24))
+    first = kernels.fused_attention_bwd(q, k, v, g, 0.2, seed)
+    again = kernels.fused_attention_bwd(q, k, v, g, 0.2, seed)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert torch.equal(kernels.fused_attention_qkv_bwd(qkv, g3, 4, 0.2, seed),
+                       kernels.fused_attention_qkv_bwd(qkv, g3, 4, 0.2, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 64, 16, 100, 512])
+def test_core_attention_agrees_with_proj_and_long_on_card(cuda_device, s):
+    """Rate 0.2, one seed: fused_attention_qkv(seq w^T) matches
+    fused_attention_proj(seq, w) (1e-5) and attention_long_qkv bit for bit
+    (the same device code), gradients too; fused_attention on the heads of
+    qkv, q scaled, matches fused_attention_qkv merged."""
+    seq, w, g3, seed = _attention_inputs(cuda_device, s, batch=4)
+    heads, c = 4, seq.shape[2]
+    dh = c // heads
+    qkv = torch.matmul(seq, w.t())
+    out = kernels.fused_attention_qkv(qkv, heads, 0.2, seed)
+    _close(out, kernels.fused_attention_proj(seq, w, heads, 0.2, seed),
+           rtol=0, atol=1e-5)
+    assert torch.equal(out, kernels.attention_long_qkv(qkv, heads, 0.2, seed))
+    dqkv = kernels.fused_attention_qkv_bwd(qkv, g3, heads, 0.2, seed)
+    assert torch.equal(dqkv, kernels.attention_long_qkv_bwd(qkv, g3, heads,
+                                                            0.2, seed))
+    dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g3, heads, 0.2, seed)
+    assert _rel_max(torch.matmul(dqkv, w), dseq) <= 1e-4
+    assert _rel_max(torch.einsum("bso,bsc->oc", dqkv, seq), dw) <= 1e-4
+    split = lambda x: x.reshape(4, s, heads, dh).transpose(1, 2).contiguous()
+    k, v, q = (split(x) for x in qkv.split(c, dim=-1))
+    merge = lambda x: x.transpose(1, 2).reshape(4, s, c)
+    q = q * dh ** -0.5
+    _close(merge(kernels.fused_attention(q, k, v, 0.2, seed)), out, rtol=0,
+           atol=1e-6)
+    dq, dk, dv = kernels.fused_attention_bwd(q, k, v, split(g3), 0.2, seed)
+    want = torch.cat([merge(dk), merge(dv), merge(dq) * dh ** -0.5], dim=-1)
+    assert _rel_max(dqkv, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_core_attention_autograd_launches_both_kernels(cuda_device):
+    q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, (4, 4, 64, 24))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, qkv)]
+    counts = [kernels.launch_counts()[n] for n in (
+        "fused_attention", "fused_attention_bwd", "fused_attention_qkv",
+        "fused_attention_qkv_bwd")]
+    kernels.fused_attention(*leaves[:3], 0.2, seed).backward(g)
+    kernels.fused_attention_qkv(leaves[3], 4, 0.2, seed).backward(g3)
+    assert [kernels.launch_counts()[n] for n in (
+        "fused_attention", "fused_attention_bwd", "fused_attention_qkv",
+        "fused_attention_qkv_bwd")] == [c + 1 for c in counts]
+    want = kernels.attention_plain_bwd(q, k, v, g, 0.2, seed)
+    for leaf, w in zip(leaves[:3], want):
+        assert _rel_max(leaf.grad, w) <= 1e-4
+    assert _rel_max(leaves[3].grad, kernels.attention_long_plain_bwd(
+        qkv, g3, 4, 0.2, seed)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_core_attention_rejects_what_the_kernels_do_not_take(cuda_device):
+    """S = 513, Dh = 20 and float64 raise before the device."""
+    cases = {"512": ((1, 4, 513, 24), torch.float32, ValueError),
+             "head width": ((1, 4, 64, 20), torch.float32, ValueError),
+             "float32": ((1, 4, 64, 24), torch.float64, TypeError)}
+    for match, (shape, dtype, error) in cases.items():
+        q, k, v, g, qkv, g3, _ = (t.to(dtype) for t in _core_inputs(
+            cuda_device, shape))
+        heads = shape[1]
+        for call in (lambda: kernels.fused_attention(q, k, v),
+                     lambda: kernels.fused_attention_bwd(q, k, v, g),
+                     lambda: kernels.fused_attention_qkv(qkv, heads),
+                     lambda: kernels.fused_attention_qkv_bwd(qkv, g3, heads)):
+            with pytest.raises(error, match=match):
+                call()

@@ -4,6 +4,7 @@ their gradients vs jax.vjp, the dropout mask's generator, and the
 wrappers' dispatch and checks. The CUDA kernels themselves are held
 against the plain versions on the card by tests/test_torch_cuda.py."""
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,8 @@ from gpnf_tpu_torch.ops import kernels
 from gpnf_tpu_torch.ops.kernels import _native
 from torch_parity import close, normal, rng, t
 
+# the module (the package's name `fused_attention` is the entry point)
+fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 SEED = jnp.zeros((1,), jnp.int32)
 
 
@@ -235,7 +238,7 @@ def test_philox_matches_known_answers():
              ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
               (0xa4093822, 0x299f31d0),
               (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
-    philox = kernels.fused_attention.philox4x32_10
+    philox = fa.philox4x32_10
     for ctr, key, want in cases:
         ctr = [torch.tensor([v], dtype=torch.int64) for v in ctr]
         got = philox(*ctr, torch.tensor([key[0]], dtype=torch.int64), key[1])
@@ -243,7 +246,7 @@ def test_philox_matches_known_answers():
 
 
 def test_dropout_keep_fraction_within_5_sigma():
-    keep = kernels.fused_attention.dropout_keep_plain(
+    keep = fa.dropout_keep_plain(
         torch.tensor([2024], dtype=torch.int32), 16, 4, 128, 0.2)
     n = keep.numel()
     assert n >= 1_000_000
@@ -252,7 +255,7 @@ def test_dropout_keep_fraction_within_5_sigma():
 
 
 def test_dropout_masks_differ_across_seeds_and_heads():
-    mask = lambda seed: kernels.fused_attention.dropout_keep_plain(
+    mask = lambda seed: fa.dropout_keep_plain(
         torch.tensor([seed], dtype=torch.int32), 2, 2, 64, 0.5)
     a, b = mask(1), mask(2)
     assert torch.equal(a, mask(1))  # a pure function of the seed
@@ -261,7 +264,7 @@ def test_dropout_masks_differ_across_seeds_and_heads():
     assert not torch.equal(a[0, 0], a[1, 0])  # batch rows
     # about half the bits differ between unrelated masks
     assert 0.45 < float((a != b).float().mean()) < 0.55
-    assert bool(kernels.fused_attention.dropout_keep_plain(
+    assert bool(fa.dropout_keep_plain(
         torch.tensor([1], dtype=torch.int32), 1, 1, 8, 0.0).all())
 
 

@@ -94,6 +94,38 @@ def test_ddi_matches_jax(models):
     assert np.all(np.isfinite(n(nll))) and float(nll.mean()) < 30.0
 
 
+def test_attn_heads_and_actnorm_scale_match_jax():
+    """A config with both fields off their defaults (L=2, K=1, C=8): the
+    JAX model's weights go through convert.py; ddi's actnorm parameters
+    within 1e-5 and encode bits/dim after ddi within 1e-4 of the JAX
+    model's."""
+    fields = dict(SMALL, K=1, hidden_channels=8, attn_heads=2,
+                  actnorm_scale=0.5)
+    jm = JaxFlow(JaxConfig(**fields))
+    params = jax.device_get(jm.init(jax.random.PRNGKey(1)))
+    tm = MarScfFlow(MarScfConfig(**fields), device="cpu").eval()
+    convert.load_jax_params(tm, params)
+    assert tm.levels[0].steps[0].attn1.num_heads == 2
+    x = _images(batch=4, seed=5)
+    key = jax.random.PRNGKey(6)
+    ddi_params = jax.device_get(jm.ddi(params, jnp.asarray(x), key))
+    want = convert.jax_to_state_dict(ddi_params)
+    noise = np.asarray(jax.random.uniform(key, x.shape, jnp.float32))
+    tm.ddi(t(x), noise=t(noise))
+    got = tm.state_dict()
+    names = [k_ for k_ in want if k_.endswith(("actnorm.bias", "actnorm.logs"))]
+    assert names
+    for name in names:
+        close(got[name], want[name], rtol=1e-5, atol=1e-5)
+    z = _images(seed=7)
+    logdet = np.full((2,), -math.log(256.0) * NUM_DIMS, np.float32)
+    _, obj_j = jm.encode(ddi_params, jnp.asarray(z), jnp.asarray(logdet))
+    with torch.no_grad():
+        _, obj = tm.encode(t(z), t(logdet))
+    bpd = lambda o: -n(o) / (math.log(2.0) * NUM_DIMS)
+    close(bpd(obj), bpd(obj_j), rtol=0, atol=1e-4)
+
+
 def test_levels_round_trip(models):
     _, _, tm = models
     for level, (c, h, w) in zip(tm.levels, tm.level_shapes):
