@@ -32,8 +32,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      batch and one sampling pass (torch.profiler), and the device's busy
      share;
  10. GP kernels: the Cholesky (n = 1000, 1024, 2048, 4096 in float32 and
-     1024 in float64, against the plain version and by its residual; NaN
-     without an error on a matrix that is not positive definite), the
+     1024 in float64, timed; and untimed the edges of its 16- and 64-wide
+     blocking, n = 1, 63, 64, 65, 129, 200, and every size in float64;
+     each against the plain version and by its residual, with its upper
+     triangle zero and two calls bit for bit the same; NaN without an
+     error on a matrix that is not positive definite, the pivot at rows 0,
+     64, 128, 300 and in a ragged last tile; its device launches in one
+     factorization, 2 ceil(n/64) - 1), the
      triangular solve (n = 1024 and 4096, p = 1 and n, both ways), the
      affine coupling ((1024, 384), (1024, 192), (4096, 384)), each with its
      time, the plain version's, the library call's and its bound; and each
@@ -52,7 +57,7 @@ Phases, each of which raises (exit code != 0) when it fails:
  12. GP timings: the joint NLML + gradient at n = 1024, 2048 and 4096
      (`bench_flow_gp`), the joint fit's steps/s, peak device memory; with
      --profile, device time by kernel over one joint NLML + gradient at
-     n = 1024 and 4096;
+     n = 1024 and 4096, the Cholesky's kernels listed whatever their rank;
  13. long attention: the long-sequence kernels (forward and backward)
      against their plain versions at the 64-px row's level 0 (batch 64,
      S = 1024) and a ragged (batch 4, S = 576), at dropout rate 0 and 0.2
@@ -106,12 +111,12 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
@@ -155,6 +160,16 @@ GP_PER_STEP = {"cholesky": 1, "tril_solve": 4, "fused_affine_forward": 4}
 CHOL_CASES = ((1000, torch.float32), (1024, torch.float32),
               (2048, torch.float32), (4096, torch.float32),
               (1024, torch.float64))
+# checked, not timed: the edges of the 16- and 64-wide blocking and the
+# look-ahead (a tile's factor inside the trailing launch), and every size
+# in float64
+CHOL_EDGES = tuple((n, dtype) for dtype in (torch.float32, torch.float64)
+                   for n in (1, 63, 64, 65, 129, 200)) + tuple(
+    (n, torch.float64) for n in (1000, 2048, 4096))
+# (n, row of the negative pivot): the first rows of tiles factored inside a
+# trailing launch (64, 128), the first pivot, one inside a tile, and one in
+# a ragged last tile
+CHOL_NAN = ((512, 0), (512, 64), (512, 128), (512, 300), (200, 195))
 SOLVE_SIZES = (1024, 4096)
 AFFINE_SHAPES = ((1024, 384), (1024, 192), (4096, 384))
 BENCH_SIZES = (1024, 2048, 4096)
@@ -186,48 +201,6 @@ LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
 
 def log(msg=""):
     print(msg, flush=True)
-
-
-def card_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-class Timer:
-    """Median device time of one call of `fn`, from CUDA events.
-
-    Before each call the 50 MB L2 is flushed (the serving path finds a
-    kernel's inputs mostly cold) and the card is held busy with a spin
-    kernel long enough for the host to enqueue the whole call, so the
-    events bracket device work only, not Python's launch overhead."""
-
-    def __init__(self, device, iters=20, warmup=3):
-        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
-        self.iters, self.warmup = iters, warmup
-
-    def __call__(self, fn):
-        for _ in range(self.warmup):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_s = time.perf_counter() - t0  # enqueue time, an upper bound
-        torch.cuda.synchronize()
-        spin_cycles = int(max(host_s, 1e-4) * 2 * 2e9)  # 2x at <= 2 GHz
-        events = []
-        for _ in range(self.iters):
-            self.flush.zero_()
-            torch.cuda._sleep(spin_cycles)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def bound(bytes_moved, ops):
@@ -667,45 +640,60 @@ def flagship_runs(model, loader, device, train_step_fn):
                             False)}
 
 
-def profile(runs, device, card):
+def device_launches(fn):
+    """{kernel name without template arguments: launches} of one call of
+    `fn`: the second of two in one trace, counted after two spin kernels
+    between them. After earlier traces in the process, a trace can miss
+    the first launch of each kernel and the first kernels of its window
+    (seen with --profile); the first call and the spin kernels take those
+    losses."""
+    def run():
+        fn()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(1_000_000)
+        fn()
+
+    from gpnf_tpu_torch.utils.cuda_timing import trace
+
+    events = trace(run)[0]
+    marks = [start for name, start, _ in events if "spin" in name]
+    if not marks:
+        raise AssertionError("the trace holds no spin kernel to count from")
+    out = {}
+    for name, start, _ in events:
+        if start > max(marks):
+            out[name.split("<")[0]] = out.get(name.split("<")[0], 0) + 1
+    return out
+
+
+def profile(runs, device, card, keep=()):
     """Device time by kernel over each run {label: (fn(generator), grad)},
     after one warm-up call, and the device's busy share of the host-clock
-    window (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
+    window (torch.profiler); the twelve kernels that take the most time,
+    and every kernel whose name starts with one of `keep`."""
+    from gpnf_tpu_torch.utils.cuda_timing import trace
 
     out = {}
     for label, (fn, grad) in runs.items():
         gen = torch.Generator(device=device).manual_seed(30)
         with torch.set_grad_enabled(grad):
-            fn(gen)
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn(gen)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
+            events, wall_us = trace(lambda: fn(gen))
         by_name = {}
-        for e in prof.events():
-            # kernels only: annotations such as Optimizer.step#Adamax.step
-            # are ranges over other kernels
-            if (e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)):
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.removeprefix("void ").split("(")[0][:70]
-                tot, cnt = by_name.get(name, (0.0, 0))
-                by_name[name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        for name, _, us in events:
+            tot, cnt = by_name.get(name, (0.0, 0))
+            by_name[name] = (tot + us, cnt + 1)
         busy_us = sum(tot for tot, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        top = ranked[:12]
+        kept = [kv for kv in ranked[12:] if kv[0].startswith(keep)]
         log(f"  {label}: wall {wall_us / 1e3:.3f} ms, device busy "
             f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%) [{card}]")
-        for name, (tot, cnt) in top:
+        for name, (tot, cnt) in top + kept:
             log(f"    {tot / 1e3:9.3f} ms {100 * tot / max(busy_us, 1e-9):5.1f}% "
                 f"x{cnt:<5d} {name}")
         out[label] = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
-                      "top": [[n, t / 1e3, c] for n, (t, c) in top]}
+                      "top": [[n, t / 1e3, c] for n, (t, c) in top],
+                      "kept": [[n, t / 1e3, c] for n, (t, c) in kept]}
     return out
 
 
@@ -720,6 +708,7 @@ def check_gp_kernels(device, timer):
     """Phase 10: the three kernels of the GP path against their plain
     versions, with times, bounds and the backward of each."""
     from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.utils.cuda_timing import Timer
 
     slow = Timer(device, iters=3, warmup=1)  # the plain versions: thousands
     gen = torch.Generator(device=device).manual_seed(4321)  # of launches each
@@ -744,34 +733,58 @@ def check_gp_kernels(device, timer):
             f"{plain_ms:.4f} ms library {lib} | bound {bound_ms * 1e3:.2f} us "
             f"({bound_by})")
 
+    def check_cholesky(n, dtype):
+        a = spd(n, dtype)
+        l = kernels.cholesky(a)
+        plain = kernels.cholesky_plain(a)
+        err, resid = _rel(l, plain), _rel(l @ l.T, a)
+        bar = 1e-5 if dtype == torch.float32 else 1e-12
+        same = torch.equal(l, kernels.cholesky(a))
+        log(f"  cholesky n={n} {dtype}: |L - plain| / max|L| {err:.3g}, "
+            f"|L L^T - A| / max|A| {resid:.3g} (bar {bar:g} each), two "
+            f"calls bit for bit the same: {same}")
+        if not (err <= bar and resid <= bar and same
+                and int(torch.count_nonzero(torch.triu(l, 1))) == 0):
+            raise AssertionError(f"cholesky n={n} {dtype}: err {err}, "
+                                 f"residual {resid}, repeat {same}")
+        return a, plain, err, resid
+
     with torch.no_grad():
+        for n, dtype in CHOL_EDGES:
+            check_cholesky(n, dtype)
         for n, dtype in CHOL_CASES:
-            a = spd(n, dtype)
-            l = kernels.cholesky(a)
-            plain = kernels.cholesky_plain(a)
-            err, resid = _rel(l, plain), _rel(l @ l.T, a)
-            bar = 1e-5 if dtype == torch.float32 else 1e-12
-            log(f"  cholesky n={n} {dtype}: |L - plain| / max|L| {err:.3g}, "
-                f"|L L^T - A| / max|A| {resid:.3g} (bar {bar:g} each)")
-            if not (err <= bar and resid <= bar
-                    and int(torch.count_nonzero(torch.triu(l, 1))) == 0):
-                raise AssertionError(f"cholesky n={n} {dtype}: err {err}, "
-                                     f"residual {resid}")
+            a, plain, err, resid = check_cholesky(n, dtype)
             size = a.element_size()
             record("cholesky", f"n={n}", err * float(plain.abs().max()),
                    timer(lambda: kernels.cholesky(a)),
                    slow(lambda: kernels.cholesky_plain(a)),
                    timer(lambda: torch.linalg.cholesky_ex(a)),
                    2 * n * n * size, n ** 3 / 3, dtype=str(dtype).removeprefix("torch."), residual=resid)
-        bad = spd(512, torch.float32)
-        bad[300, 300] = -1.0
-        l_bad = kernels.cholesky(bad)  # raises nothing, reads nothing back
-        torch.cuda.synchronize()
-        if not (torch.isnan(l_bad).any() and torch.isfinite(l_bad[:300, :300]).all()):
-            raise AssertionError("cholesky of a matrix that is not positive "
-                                 "definite gave no NaN")
-        log("  cholesky of a matrix that is not positive definite: NaN, no "
-            "error")
+        for (n, row), dtype in itertools.product(
+                CHOL_NAN, (torch.float32, torch.float64)):
+            bad = spd(n, dtype)
+            bad[row, row] = -1.0
+            l_bad = kernels.cholesky(bad)  # raises nothing, reads nothing back
+            torch.cuda.synchronize()
+            if not (torch.isnan(l_bad).any()
+                    and torch.isfinite(l_bad[:row, :row]).all()
+                    and int(torch.count_nonzero(torch.triu(l_bad, 1))) == 0):
+                raise AssertionError(f"cholesky n={n} {dtype} with a "
+                                     f"negative pivot at row {row}: no NaN, "
+                                     f"a leading block not finite, or an "
+                                     f"upper triangle not zero")
+        log(f"  cholesky of a matrix that is not positive definite, pivot at "
+            f"(n, row) {CHOL_NAN}, float32 and float64: NaN, no error, the "
+            f"leading block finite, the upper triangle zero")
+        a = spd(1024, torch.float32)
+        want = kernels.cholesky_device_launches(1024)
+        chol = {k: c for k, c in device_launches(
+            lambda: kernels.cholesky(a)).items() if k.startswith("chol_")}
+        log(f"  device launches of one factorization at n=1024: "
+            f"{sum(chol.values())} {chol} (want {want}: 2 ceil(n/64) - 1)")
+        if sum(chol.values()) != want:
+            raise AssertionError(f"cholesky launched {chol}, want {want}")
+        launches_1024 = {"launches": sum(chol.values()), "by_kernel": chol}
 
         for n in SOLVE_SIZES:
             l = kernels.cholesky(spd(n, torch.float32))
@@ -849,6 +862,7 @@ def check_gp_kernels(device, timer):
             f"(bar 1e-10)")
         if not backward[name] <= 1e-10:
             raise AssertionError(f"{name} backward: {backward[name]}")
+    results["cholesky_device_launches_n1024"] = launches_1024
     return results, backward
 
 
@@ -1049,7 +1063,7 @@ def gp_timings(device, card, out, with_profile):
             runs[f"joint NLML + gradient n={n}"] = (
                 lambda gen, f=fgp, x=x, y=y: bench_flow_gp.nlml_and_grad(
                     f, x, y), True)
-        result["profile"] = profile(runs, device, card)
+        result["profile"] = profile(runs, device, card, keep=("chol_",))
     return result
 
 
@@ -1782,6 +1796,8 @@ def main():
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from gpnf_tpu_torch.utils.cuda_timing import Timer, card_line
+
     card = card_line()
     log(f"  {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; TF32 off (cuda.matmul and cudnn)")
@@ -1948,6 +1964,8 @@ def main():
                 per_shape=rows)
             if name == "cholesky":  # one CUDA factorization serves both
                 entry["also_replaces"] = "gpnf_tpu/ops/pallas/cholesky.py:291"
+                entry["device_launches_n1024"] = gp_kernels[
+                    "cholesky_device_launches_n1024"]
         elif name in FGC:
             # the 32-px level 0 (16x16) at the training rate; the unfused
             # chain's times beside it, as no library call computes the block

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -31,18 +30,12 @@ import torch
 
 from .models.gp import FlowGP, GPConfig, GPRegression, flow_feature_fn
 from .models.marscf import MarScfConfig, MarScfFlow
+from .utils.cuda_timing import card_line
 from .utils.device import resolve_device
 
 FLOW = dict(image_shape=(16, 16, 3), L=2, K=2, hidden_channels=32,
             coupling="affine", use_attention=False, num_blocks=2,
             drop_prob=0.0, prior="gaussian")
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def build(n, device, rng):

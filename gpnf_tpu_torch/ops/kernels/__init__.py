@@ -4,7 +4,7 @@ Each module holds a wrapper with a `launches` count, the kernel's plain
 PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
-from .cholesky import cholesky, cholesky_plain
+from .cholesky import cholesky, cholesky_device_launches, cholesky_plain
 from .fused_attention import (attention_long_plain, attention_long_plain_bwd,
                               attention_long_qkv, attention_long_qkv_bwd,
                               attention_plain, attention_plain_bwd,

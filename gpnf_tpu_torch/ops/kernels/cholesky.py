@@ -4,10 +4,11 @@ Counterpart of gpnf_tpu/ops/pallas/cholesky.py `cholesky_blocked`, which
 dispatches to the Pallas kernels `_chol_kernel` and `_hbm_chol_kernel`. On
 the card one set of CUDA kernels (gpnf_tpu_torch/csrc/cholesky.cu, float32
 and float64; its header says what bounds them and how they are laid out)
-serves every n. `cholesky_plain` is the JAX package's CPU path
-(`_blocked_cholesky_xla`: 128-wide panels factored by fused rank-2 steps,
-the trailing update as a product) in plain PyTorch: the wrapper runs it for
-CPU tensors, and the tests and chip_smoke.py hold the kernels against it.
+serves every n, in `cholesky_device_launches(n)` launches. `cholesky_plain`
+is the JAX package's CPU path (`_blocked_cholesky_xla`: 128-wide panels
+factored by fused rank-2 steps, the trailing update as a product) in plain
+PyTorch: the wrapper runs it for CPU tensors, and the tests and
+chip_smoke.py hold the kernels against it.
 Both leave the upper triangle zero and give NaN, without raising, for a
 matrix that is not positive definite. Only the lower triangle of A is read.
 
@@ -70,6 +71,14 @@ def cholesky_plain(a):
             l21 = panel[BLK:]
             a[s + BLK:, s + BLK:] = a[s + BLK:, s + BLK:] - l21 @ l21.T
     return torch.tril(a)[:n, :n]
+
+
+def cholesky_device_launches(n):
+    """Kernel launches of one factorization of an (n, n) matrix on the
+    card: the first diagonal step, then for each later 64-wide panel the
+    panel product and the trailing update, which runs the next panel's
+    diagonal step in one of its blocks (csrc/cholesky.cu)."""
+    return 2 * -(-n // KERNEL_BS) - 1
 
 
 def _phi(x):

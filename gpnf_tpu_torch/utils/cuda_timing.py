@@ -1,0 +1,80 @@
+"""Device timing on the card: the card's name and power limit, a cold-L2
+CUDA-event timer and a torch.profiler trace of kernel launches. Shared by
+chip_smoke.py and the benches."""
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+
+import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+class Timer:
+    """Median device time of one call of `fn`, from CUDA events.
+
+    Before each call the 50 MB L2 is flushed (the serving path finds a
+    kernel's inputs mostly cold) and the card is held busy with a spin
+    kernel long enough for the host to enqueue the whole call, so the
+    events bracket device work only, not Python's launch overhead."""
+
+    def __init__(self, device, iters=20, warmup=3):
+        self.flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
+        self.iters, self.warmup = iters, warmup
+
+    def __call__(self, fn):
+        for _ in range(self.warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0  # enqueue time, an upper bound
+        torch.cuda.synchronize()
+        spin_cycles = int(max(host_s, 1e-4) * 2 * 2e9)  # 2x at <= 2 GHz
+        events = []
+        for _ in range(self.iters):
+            self.flush.zero_()
+            torch.cuda._sleep(spin_cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def trace(fn):
+    """([(kernel name, start us, device us)], host-clock us) of one call of
+    `fn` after one warm-up call (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = []
+    for e in prof.events():
+        # kernels only: annotations such as Optimizer.step#Adamax.step
+        # are ranges over other kernels
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0][:70]
+            events.append((name, e.time_range.start,
+                           e.time_range.elapsed_us()))
+    return events, wall_us

@@ -344,11 +344,13 @@ def _rel(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("n", [64, 200, 1000, 1024])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 200, 1000, 1024, 2048])
 def test_cholesky_kernel_matches_plain_on_card(cuda_device, n, dtype, bar):
     """Against the plain version on the card, relative to max |L|, and by
     the residual max |L L^T - A| / max |A| (both bars: 1e-5 in float32,
-    1e-12 in float64); the upper triangle is exactly zero."""
+    1e-12 in float64); the upper triangle is exactly zero. The sizes are the
+    edges of the 16- and 64-wide blocking and of the diagonal step that
+    runs inside the trailing launch (65, 129: one row past a tile)."""
     a = _spd(n, dtype).to(cuda_device)
     before = kernels.cholesky.launches
     l = kernels.cholesky(a)
@@ -360,13 +362,28 @@ def test_cholesky_kernel_matches_plain_on_card(cuda_device, n, dtype, bar):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,row", [(300, 150), (300, 0), (300, 64),
+                                   (300, 128), (200, 195)])
 def test_cholesky_kernel_gives_nan_when_not_positive_definite(cuda_device,
-                                                              dtype):
-    a = _spd(300, dtype).to(cuda_device)
-    a[150, 150] = -5.0
+                                                              dtype, n, row):
+    """A negative pivot inside a tile, at the first row of the first tile,
+    of tiles factored inside a trailing launch (64, 128), and in a ragged
+    last tile (rows 192-199): NaN, no error, the leading block finite, the
+    upper triangle zero."""
+    a = _spd(n, dtype).to(cuda_device)
+    a[row, row] = -5.0
     l = kernels.cholesky(a)  # raises nothing
     assert torch.isnan(l).any()
-    assert torch.isfinite(l[:150, :150]).all()
+    assert torch.isfinite(l[:row, :row]).all()
+    assert int(torch.count_nonzero(torch.triu(l, 1))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [200, 1024])
+def test_cholesky_kernel_repeats_bit_for_bit(cuda_device, n, dtype):
+    a = _spd(n, dtype, seed=5).to(cuda_device)
+    assert torch.equal(kernels.cholesky(a), kernels.cholesky(a))
 
 
 @pytest.mark.cuda

@@ -41,7 +41,7 @@ def _lower(size, seed=1):
 
 
 # -- Cholesky --------------------------------------------------------------------
-@pytest.mark.parametrize("size", [200, 256])
+@pytest.mark.parametrize("size", [1, 63, 65, 129, 200, 256])
 def test_cholesky_plain_matches_jax_blocked(size):
     a = _spd(size)
     close(kernels.cholesky_plain(t(a)),
@@ -66,11 +66,12 @@ def test_cholesky_plain_matches_pallas_kernels_interpret():
     close(kernels.cholesky_plain(t(a)), want, rtol=1e-5, atol=1e-5)
 
 
-def test_cholesky_plain_gives_nan_when_not_positive_definite():
+@pytest.mark.parametrize("row", [70, 64, 128])
+def test_cholesky_plain_gives_nan_when_not_positive_definite(row):
     a = _spd(130)
-    a[70, 70] = -1.0
+    a[row, row] = -1.0
     l = kernels.cholesky(t(a))  # raises nothing
-    assert torch.isnan(l).any() and torch.isfinite(l[:70, :70]).all()
+    assert torch.isnan(l).any() and torch.isfinite(l[:row, :row]).all()
     assert torch.count_nonzero(torch.triu(torch.nan_to_num(l), 1)) == 0
 
 
