@@ -39,7 +39,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      error on a matrix that is not positive definite, the pivot at rows 0,
      64, 128, 300 and in a ragged last tile; its device launches in one
      factorization, 2 ceil(n/64) - 1), the
-     triangular solve (n = 1024 and 4096, p = 1 and n, both ways), the
+     triangular solve (n = 1024 and 4096, p = 1 and n, both ways, and the
+     posterior's n = 1024, p = 256; its device launches in one solve at
+     n = 1024 and 4096, p = 1 and n, `tril_solve_device_launches`), the
      affine coupling ((1024, 384), (1024, 192), (4096, 384)), each with its
      time, the plain version's, the library call's and its bound; and each
      kernel's backward on the card against float64 autograd of the plain
@@ -171,6 +173,7 @@ CHOL_EDGES = tuple((n, dtype) for dtype in (torch.float32, torch.float64)
 # a ragged last tile
 CHOL_NAN = ((512, 0), (512, 64), (512, 128), (512, 300), (200, 195))
 SOLVE_SIZES = (1024, 4096)
+POSTERIOR_P = 256  # the posterior's L^-1 K_* at n = 1024 (n_test 256)
 AFFINE_SHAPES = ((1024, 384), (1024, 192), (4096, 384))
 BENCH_SIZES = (1024, 2048, 4096)
 # the ImageNet-64 row (bench.py BENCH_IMAGE=64): the flagship at 64 px
@@ -786,11 +789,27 @@ def check_gp_kernels(device, timer):
             raise AssertionError(f"cholesky launched {chol}, want {want}")
         launches_1024 = {"launches": sum(chol.values()), "by_kernel": chol}
 
+        solve_launches = {}
         for n in SOLVE_SIZES:
             l = kernels.cholesky(spd(n, torch.float32))
-            for p in (1, n):
+            for p, ways in ((1, (False, True)), (n, (False, True)),
+                            *(((POSTERIOR_P, (False,)),) if n == 1024
+                              else ())):
                 b = torch.randn((n, p), generator=gen, device=device)
-                for trans in (False, True):
+                if p in (1, n):
+                    # device launches of one solve, the copy of b left out
+                    got = {k: c for k, c in device_launches(
+                        lambda: kernels.tril_solve(l, b)).items()
+                        if not k.startswith("Memcpy")}
+                    want = kernels.tril_solve_device_launches(n, p)
+                    log(f"  device launches of one solve at n={n} p={p}: "
+                        f"{sum(got.values())} {got} (want {want})")
+                    if sum(got.values()) != want:
+                        raise AssertionError(f"tril_solve n={n} p={p} "
+                                             f"launched {got}, want {want}")
+                    solve_launches[f"n={n} p={p}"] = {
+                        "launches": sum(got.values()), "by_kernel": got}
+                for trans in ways:
                     x = kernels.tril_solve(l, b, trans=trans)
                     plain = kernels.tril_solve_plain(l, b, trans=trans)
                     op = l.T if trans else l
@@ -863,6 +882,7 @@ def check_gp_kernels(device, timer):
         if not backward[name] <= 1e-10:
             raise AssertionError(f"{name} backward: {backward[name]}")
     results["cholesky_device_launches_n1024"] = launches_1024
+    results["tril_solve_device_launches"] = solve_launches
     return results, backward
 
 
@@ -1966,6 +1986,9 @@ def main():
                 entry["also_replaces"] = "gpnf_tpu/ops/pallas/cholesky.py:291"
                 entry["device_launches_n1024"] = gp_kernels[
                     "cholesky_device_launches_n1024"]
+            if name == "tril_solve":
+                entry["device_launches"] = gp_kernels[
+                    "tril_solve_device_launches"]
         elif name in FGC:
             # the 32-px level 0 (16x16) at the training rate; the unfused
             # chain's times beside it, as no library call computes the block

@@ -4,34 +4,28 @@
 // Replaces: gpnf_tpu/ops/pallas/trisolve.py, `_solve_kernel` (launched by
 // `pallas_tril_solve` from `tril_solve`): block substitution with each
 // 128 x 128 diagonal block inverted exactly (`_newton_tril_inv`) and the
-// off-diagonal updates as matmuls, L and B resident in VMEM.
+// off-diagonal updates as matmuls, L and B resident in VMEM, one launch.
 //
-// Here, with BS-row blocks (tile_mm.cuh) and X overwritten in place (the
-// wrapper passes a copy of B):
-//   1. invert: one block per diagonal tile, L_jj^-1 by row-wise
-//      substitution into a scratch of nb BS x BS tiles;
-//   2. for each block row j in solve order (j ascending for L, descending
-//      for L^T), two launches:
-//        diag:   X_j = L_jj^-1 X_j   (or L_jj^-T X_j), one block per column
-//                tile of X;
-//        update: X_i -= L_ij X_j     (or L_ji^T X_j) for every later block
-//                row i, one block per (column tile, row tile).
-// The update step is parallel over rows and columns, so a single right-hand
-// column (the NLML's y) still spreads over n/BS blocks, and an n x n one
-// (the Cholesky VJP) over (n/BS)^2. Column tiles are 64 wide, or 4 wide
-// when p < 32: at p = 1 a 64-wide tile spends its update launches on 63
-// padded columns, and the solve took 40% longer with it on an H100
-// (chip_smoke.py phase 10: 0.325 against 0.232 ms at n = 1024, 1.27
-// against 0.90 ms at n = 4096).
+// p < 32: one left-looking sweep launch. X (a copy of B) is overwritten
+// in place. One logical block per (row block i of BS rows, column tile c
+// of TP columns); its index is a ticket from an atomic counter, handed
+// out in solve order (i ascending for L, descending for L^T), so a block
+// only waits on blocks that hold an earlier ticket and are running or
+// done: no deadlock at any n, with no co-residency assumed. Block (i, c):
+//   1. inverts its diagonal tile L_ii in shared memory (`invert_tile`);
+//   2. acc = B_i - sum_j L_ij X_j over the blocks j before i in solve
+//      order, in that fixed order (for L^T the tiles L_ji^T, read along
+//      the rows of L), waiting for each X_j on a ready flag; the L tiles
+//      depend on no flag and are prefetched with cp.async, double-buffered;
+//   3. X_i = L_ii^-1 acc (or L_ii^-T acc), stored, then its flag released.
+// The order of every sum is fixed, so two calls give the same bits.
+// p >= 32 runs the right-looking sweep of one invert launch and 2 n/BS
+// dependent launches (diag, update per block row).
 //
-// What bounds it on the H100: at p = n operations (n^2 p FMAs: 68.7 GFLOP
-// at n = p = 4096, 1.03 ms at 67 TFLOP/s fp32); at p = 1 bytes (L read
-// once, 33.5 MB at n = 4096 in fp32: 10 us at 3.35 TB/s). At p = 1 the
-// 2 n/BS + 1 dependent launches (129 at n = 4096), each a few microseconds
-// of launch and drain, dominate instead: the sequential dependence of the
-// block rows is the limit, not the card.
-//
-// Float32 and float64 (two instantiations).
+// Float32 and float64 (two instantiations). The C entry points take L, X
+// (B on entry), a scratch of int32 words zeroed by the caller
+// (`tril_solve_scratch_words` in ops/kernels/trisolve.py), n, p, trans and
+// the stream.
 #include <cuda_runtime.h>
 
 #include "tile_mm.cuh"
@@ -40,8 +34,279 @@ namespace {
 
 using namespace gpnf;
 
-constexpr int LDT = BS + 1;
+constexpr int LDT = BS + 1;  // stride of a BS x BS tile in shared memory
+constexpr unsigned kFull = 0xffffffffu;
 
+// ---- ordering between blocks ------------------------------------------------
+__device__ __forceinline__ int load_acquire(const int* f) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(f)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* f, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(f), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// one thread spins on the flag (acquire, with a short backoff), then the
+// block's barrier: every thread may then read what the flag's producer
+// stored before it (around L1, which is not coherent across SMs). A flag
+// still unset after 10 s (a scratch that was not zeroed) traps: the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void wait_flag(const int* f) {
+  if (threadIdx.x == 0 && load_acquire(f) == 0) {
+    const unsigned long long t0 = global_ns();
+    unsigned ns = 16;
+    do {
+      __nanosleep(ns);
+      ns = ns < 128 ? 2 * ns : ns;
+      if (global_ns() - t0 > 10000000000ull) __trap();
+    } while (load_acquire(f) == 0);
+  }
+  __syncthreads();
+}
+
+// ---- asynchronous tile copies -----------------------------------------------
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d),
+               "l"(src), "n"(sizeof(T)),
+               "r"(valid ? static_cast<int>(sizeof(T)) : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// As[r][k] (stride LDT) = L[row0 + r][col0 + k], or = L[row0 + k][col0 + r]
+// when `transpose` (a tile of L^T); zero outside the n x n matrix, and
+// above the diagonal when `lower`. Consecutive threads read consecutive
+// columns of L (coalesced) whichever way the tile lands.
+template <typename T>
+__device__ __forceinline__ void load_l_tile(T* As, const T* l, int n,
+                                            int row0, int col0, bool transpose,
+                                            bool lower) {
+  for (int e = threadIdx.x; e < BS * BS; e += kThreads) {
+    const int a = e / BS, b = e % BS;
+    const int gr = row0 + a, gc = col0 + b;
+    const bool ok = gr < n && gc < n && (!lower || b <= a);
+    cp_async(transpose ? &As[b * LDT + a] : &As[a * LDT + b],
+             ok ? l + static_cast<long long>(gr) * n + gc : l, ok);
+  }
+}
+
+// a load at L2, around L1 (ld.global.cg), and never moved across a barrier
+__device__ __forceinline__ float load_cg(const float* a) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ double load_cg(const double* a) {
+  double v;
+  asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(a) : "memory");
+  return v;
+}
+
+// Xs[r][c] (stride LDB) = x[row0 + r][c0 + c] for a BS x TP tile, read
+// around L1 (another block stored it during this launch); zero outside.
+template <typename T, int TP>
+__device__ __forceinline__ void load_x_tile(T* Xs, const T* x, int n, int p,
+                                            int row0, int c0) {
+  using S = TileShape<TP>;
+  for (int e = threadIdx.x; e < BS * TP; e += kThreads) {
+    const int r = e / TP, c = e % TP;
+    const int gr = row0 + r, gc = c0 + c;
+    Xs[r * S::LDB + c] =
+        (gr < n && gc < p) ? load_cg(x + static_cast<long long>(gr) * p + gc)
+                           : T(0);
+  }
+}
+
+// acc (the thread's rows rg + RG a, columns cg + CG b of a BS x TP tile)
+// -= or += As (BS x BS, stride LDT) . Bs (BS x TP, stride LDB), k in order
+template <typename T, int TP, bool kSubtract>
+__device__ __forceinline__ void tile_product(
+    const T* As, const T* Bs,
+    T (&acc)[TileShape<TP>::RPT][TileShape<TP>::CPT]) {
+  using S = TileShape<TP>;
+  const int cg = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+#pragma unroll 8
+  for (int k = 0; k < BS; ++k) {
+    T a[S::RPT], b[S::CPT];
+#pragma unroll
+    for (int i = 0; i < S::RPT; ++i) a[i] = As[(rg + S::RG * i) * LDT + k];
+#pragma unroll
+    for (int j = 0; j < S::CPT; ++j) b[j] = Bs[k * S::LDB + cg + S::CG * j];
+#pragma unroll
+    for (int i = 0; i < S::RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < S::CPT; ++j)
+        acc[i][j] = fma(kSubtract ? -a[i] : a[i], b[j], acc[i][j]);
+  }
+}
+
+// Inv = Ls^-1 (or Ls^-T when `transpose`), both stride LDT, for the lower
+// tile Ls (zero above the diagonal, the identity's rows from `rows` on).
+// Warp w solves columns 8w..8w+7 by forward substitution in registers:
+// lane l holds rows l and l + 32 of its eight columns; at step k the lane
+// of row k scales its entries by 1 / L_kk and passes them by shuffle, and
+// every lane subtracts L[row][k] times them from its rows below k. No
+// block barrier: the eight columns of a warp interleave to hide the chain.
+template <typename T>
+__device__ __forceinline__ void invert_tile(const T* Ls, T* Inv, int rows,
+                                            bool transpose) {
+  const int lane = threadIdx.x & 31, col0 = (threadIdx.x >> 5) * 8;
+  const T d0 = lane < rows ? T(1) / Ls[lane * LDT + lane] : T(1);
+  const T d1 =
+      lane + 32 < rows ? T(1) / Ls[(lane + 32) * LDT + lane + 32] : T(1);
+  T r[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      r[h][q] = (lane + 32 * h == col0 + q) ? T(1) : T(0);
+#pragma unroll
+  for (int k = 0; k < BS; ++k) {
+    const int hk = k >> 5, src = k & 31;
+    const T dk = __shfl_sync(kFull, hk ? d1 : d0, src);
+    T xk[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) xk[q] = __shfl_sync(kFull, r[hk][q], src) * dk;
+#pragma unroll
+    for (int h = hk; h < 2; ++h) {  // rows l + 32 h below k, or row k
+      const T lk = Ls[(lane + 32 * h) * LDT + k];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        r[h][q] = (h == hk && lane == src) ? xk[q] : fma(-lk, xk[q], r[h][q]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int row = lane + 32 * h, col = col0 + q;
+      Inv[transpose ? col * LDT + row : row * LDT + col] = r[h][q];
+    }
+}
+
+template <typename T, int TP>
+constexpr int sweep_smem_bytes() {
+  return (3 * BS * LDT + BS * TileShape<TP>::LDB) * static_cast<int>(sizeof(T));
+}
+
+// One logical block of the left-looking sweep (see the header). sync[0] is
+// the ticket counter, sync[1 + i * ct + c] the ready flag of X_i's column
+// tile c; all zero at launch.
+template <typename T, int TP>
+__global__ void __launch_bounds__(kThreads)
+    trsm_sweep_kernel(const T* __restrict__ l, T* __restrict__ x,
+                      int* __restrict__ sync, int n, int p, int trans) {
+  using S = TileShape<TP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const lbuf = reinterpret_cast<T*>(smem_raw);  // two L tiles
+  T* const inv = lbuf + 2 * BS * LDT;
+  T* const xs = inv + BS * LDT;
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
+  __syncthreads();
+  const int nb = (n + BS - 1) / BS, ct = (p + TP - 1) / TP;
+  const int m = ticket / ct;  // blocks before this one in solve order
+  const int c0 = (ticket - m * ct) * TP;
+  const int i = trans ? nb - 1 - m : m;
+  int* flags = sync + 1 + (ticket - m * ct);  // flags[j * ct]: X_j's tile
+  auto block_j = [&](int s) { return trans ? nb - 1 - s : s; };
+  auto load_step = [&](T* dst, int s) {  // the tile of op(L) at (i, j)
+    const int j = block_j(s);
+    load_l_tile(dst, l, n, trans ? j * BS : i * BS, trans ? i * BS : j * BS,
+                trans != 0, false);
+  };
+
+  load_l_tile(lbuf, l, n, i * BS, i * BS, false, true);
+  cp_async_commit();
+  if (m > 0) load_step(lbuf + BS * LDT, 0);
+  cp_async_commit();
+  const int cg = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+  T acc[S::RPT][S::CPT];
+#pragma unroll
+  for (int a = 0; a < S::RPT; ++a)
+#pragma unroll
+    for (int b = 0; b < S::CPT; ++b) {
+      const int gr = i * BS + rg + S::RG * a, gc = c0 + cg + S::CG * b;
+      acc[a][b] = (gr < n && gc < p) ? x[static_cast<long long>(gr) * p + gc]
+                                     : T(0);
+    }
+  cp_async_wait<1>();
+  __syncthreads();
+  invert_tile(lbuf, inv, min(BS, n - i * BS), trans != 0);
+  __syncthreads();
+
+  for (int s = 0; s < m; ++s) {
+    if (s + 1 < m) load_step(lbuf + (s & 1) * BS * LDT, s + 1);
+    cp_async_commit();
+    const int j = block_j(s);
+    wait_flag(flags + j * ct);
+    load_x_tile<T, TP>(xs, x, n, p, j * BS, c0);
+    cp_async_wait<1>();
+    __syncthreads();
+    tile_product<T, TP, true>(lbuf + ((s + 1) & 1) * BS * LDT, xs, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int a = 0; a < S::RPT; ++a)
+#pragma unroll
+    for (int b = 0; b < S::CPT; ++b)
+      xs[(rg + S::RG * a) * S::LDB + cg + S::CG * b] = acc[a][b];
+  __syncthreads();
+  T out[S::RPT][S::CPT] = {};
+  tile_product<T, TP, false>(inv, xs, out);
+#pragma unroll
+  for (int a = 0; a < S::RPT; ++a)
+#pragma unroll
+    for (int b = 0; b < S::CPT; ++b) {
+      const int gr = i * BS + rg + S::RG * a, gc = c0 + cg + S::CG * b;
+      if (gr < n && gc < p) x[static_cast<long long>(gr) * p + gc] = out[a][b];
+    }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    store_release(flags + i * ct, 1);
+  }
+}
+
+template <typename T, int TP>
+int left_looking(const T* l, T* x, int* sync, int n, int p, int trans,
+                 cudaStream_t stream) {
+  const long long blocks = static_cast<long long>((n + BS - 1) / BS) *
+                           ((p + TP - 1) / TP);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = sweep_smem_bytes<T, TP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      trsm_sweep_kernel<T, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trsm_sweep_kernel<T, TP><<<static_cast<unsigned>(blocks), kThreads, smem,
+                             stream>>>(l, x, sync, n, p, trans);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- p >= 32: the right-looking sweep ----------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     trsm_invert_diag_kernel(const T* __restrict__ l, T* __restrict__ inv,
@@ -123,12 +388,20 @@ __global__ void __launch_bounds__(kThreads)
                     n - i * BS, p - c0, acc, true);
 }
 
-template <typename T, int TP>
-int sweep(const T* l, T* x, const T* inv, int n, int p, int trans,
-          cudaStream_t stream) {
+template <typename T>
+int right_looking(const T* l, T* x, T* inv, int n, int p, int trans,
+                  cudaStream_t stream) {
+  constexpr int TP = 64;
   const int nb = (n + BS - 1) / BS;
+  if (nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * BS * LDT * static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      trsm_invert_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trsm_invert_diag_kernel<T><<<nb, kThreads, smem, stream>>>(l, inv, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const unsigned col_tiles = static_cast<unsigned>((p + TP - 1) / TP);
-  cudaError_t err;
   for (int step = 0; step < nb; ++step) {
     const int j = trans ? nb - 1 - step : step;
     trsm_diag_kernel<T, TP><<<col_tiles, kThreads, 0, stream>>>(
@@ -144,33 +417,27 @@ int sweep(const T* l, T* x, const T* inv, int n, int p, int trans,
 }
 
 template <typename T>
-int tril_solve(const T* l, T* x, T* inv, int n, int p, int trans,
+int tril_solve(const T* l, T* x, void* scratch, int n, int p, int trans,
                cudaStream_t stream) {
-  if (n <= 0 || p <= 0 || (n + BS - 1) / BS > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (p >= 32) {
+    return right_looking<T>(l, x, static_cast<T*>(scratch), n, p, trans,
+                            stream);
   }
-  const int smem = 2 * BS * LDT * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      trsm_invert_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb = (n + BS - 1) / BS;
-  trsm_invert_diag_kernel<T><<<nb, kThreads, smem, stream>>>(l, inv, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  return p >= 32 ? sweep<T, 64>(l, x, inv, n, p, trans, stream)
-                 : sweep<T, 4>(l, x, inv, n, p, trans, stream);
+  return left_looking<T, 4>(l, x, static_cast<int*>(scratch), n, p, trans,
+                            stream);
 }
 
 }  // namespace
 
-extern "C" int gpnf_tril_solve_f32(const float* l, float* x, float* inv, int n,
-                                   int p, int trans, void* stream) {
-  return tril_solve<float>(l, x, inv, n, p, trans,
+extern "C" int gpnf_tril_solve_f32(const float* l, float* x, void* scratch,
+                                   int n, int p, int trans, void* stream) {
+  return tril_solve<float>(l, x, scratch, n, p, trans,
                            static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int gpnf_tril_solve_f64(const double* l, double* x, double* inv,
+extern "C" int gpnf_tril_solve_f64(const double* l, double* x, void* scratch,
                                    int n, int p, int trans, void* stream) {
-  return tril_solve<double>(l, x, inv, n, p, trans,
+  return tril_solve<double>(l, x, scratch, n, p, trans,
                             static_cast<cudaStream_t>(stream));
 }

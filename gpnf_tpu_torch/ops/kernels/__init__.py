@@ -19,7 +19,8 @@ from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bwd,
                                gated_conv_plain_bwd)
 from .fused_mixlogcdf import mixlogcdf_forward, mixlogcdf_plain
 from .fused_mixture_inverse import mixture_inverse, mixture_inverse_plain
-from .trisolve import tril_solve, tril_solve_plain
+from .trisolve import (tril_solve, tril_solve_device_launches,
+                       tril_solve_plain)
 
 KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            fused_attention_long_bwd, mixlogcdf_forward, mixture_inverse,

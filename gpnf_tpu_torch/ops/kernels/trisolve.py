@@ -2,7 +2,8 @@
 
 Counterpart of gpnf_tpu/ops/pallas/trisolve.py `tril_solve`. The CUDA
 kernels are gpnf_tpu_torch/csrc/tril_solve.cu (float32 and float64); its
-header says what bounds them on the H100 and how they are laid out.
+header says what bounds them on the H100 and how they are laid out. A
+solve on the card is `tril_solve_device_launches(n, p)` device launches.
 `tril_solve_plain` is the JAX package's CPU path (`_xla_tril_solve`:
 128-row block substitution, each diagonal block inverted by Newton
 doubling) in plain PyTorch: the wrapper runs it for CPU tensors, and the
@@ -73,6 +74,31 @@ def tril_solve_plain(l, b, *, trans: bool = False):
     return x[:, 0] if vec else x
 
 
+def tril_solve_device_launches(n, p):
+    """Device launches of one solve with an (n, p) right-hand side on the
+    card, the copy of b left out. p < 32: the scratch's zero fill and one
+    left-looking sweep; p >= 32: the invert launch, then per 64-row block a
+    diagonal launch and, but for the last, an update launch."""
+    return 2 if p < 32 else 2 * -(-n // KERNEL_BS)
+
+
+def tril_solve_scratch_words(n, p):
+    """int32 words of the zeroed scratch of one solve: for p < 32 the
+    ticket counter and one ready flag per (64-row block, 4-column tile) of
+    the left-looking sweep; none for p >= 32."""
+    return 1 + -(-n // KERNEL_BS) * -(-p // 4) if p < 32 else 0
+
+
+def _scratch(n, p, dtype, device):
+    """The kernel's scratch: the zeroed words, or for p >= 32 the diagonal
+    tiles' inverses."""
+    if p >= 32:
+        return torch.empty((-(-n // KERNEL_BS), KERNEL_BS, KERNEL_BS),
+                           dtype=dtype, device=device)
+    return torch.zeros(tril_solve_scratch_words(n, p), dtype=torch.int32,
+                       device=device)
+
+
 def _solve(l, b, trans: bool):
     """One solve with a 2-D right-hand side: the plain version for CPU
     tensors, else one kernel launch (counted)."""
@@ -82,11 +108,10 @@ def _solve(l, b, trans: bool):
     device = _native.check_cuda_inputs("tril_solve", dtypes=DTYPES, l=l, b=b)
     n, p = b.shape
     x = b.clone()
-    nb = -(-n // KERNEL_BS)
-    inv = torch.empty((nb, KERNEL_BS, KERNEL_BS), dtype=b.dtype, device=device)
+    scratch = _scratch(n, p, b.dtype, device)
     _native.launch("tril_solve", f"gpnf_tril_solve_{_native.SUFFIX[b.dtype]}",
-                   device, l.data_ptr(), x.data_ptr(), inv.data_ptr(), n, p,
-                   int(trans))
+                   device, l.data_ptr(), x.data_ptr(), scratch.data_ptr(), n,
+                   p, int(trans))
     tril_solve.launches += 1
     return x
 

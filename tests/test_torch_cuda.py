@@ -405,6 +405,66 @@ def test_tril_solve_kernel_matches_plain_on_card(cuda_device, n, p, trans,
     assert _rel(op @ x, b) <= bar
 
 
+def _solve_inputs(n, p, dtype, device, seed=1):
+    l = torch.linalg.cholesky(_spd(n, torch.float64, seed=seed)).to(
+        dtype).contiguous()
+    b = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (n, p))).to(dtype)
+    return l.to(device), b.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("p", [1, 3, 31, 32, 33])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 1000])
+def test_tril_solve_kernel_edges_match_plain_on_card(cuda_device, n, p,
+                                                     trans, dtype, bar):
+    """The ragged edges of the 64-row blocks and of the column tiles (4
+    wide below p = 32, 64 wide from there), against the plain version and
+    by the residual, at the bars of the cases above."""
+    l, b = _solve_inputs(n, p, dtype, cuda_device, seed=n + p)
+    x = kernels.tril_solve(l, b, trans=trans)
+    assert _rel(x, kernels.tril_solve_plain(l, b, trans=trans)) <= 10 * bar
+    op = l.T if trans else l
+    assert _rel(op @ x, b) <= bar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("p", [1, 256])
+@pytest.mark.parametrize("n", [200, 1024])
+def test_tril_solve_kernel_repeats_bit_for_bit(cuda_device, n, p, trans,
+                                               dtype):
+    """Every sum runs in a fixed order, whichever block finishes first."""
+    l, b = _solve_inputs(n, p, dtype, cuda_device, seed=7)
+    assert torch.equal(kernels.tril_solve(l, b, trans=trans),
+                       kernels.tril_solve(l, b, trans=trans))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("n,p", [(4096, 512), (16384, 1)])
+def test_tril_solve_kernel_with_more_blocks_than_the_card_holds(
+        cuda_device, n, p, trans):
+    """More logical blocks (4096 at n = 4096, p = 512), or a longer chain
+    of them (256 at n = 16384, L 1 GiB in float32), than run at once on
+    the card: the tickets keep the solve order, held by the residual."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + p)
+    x0 = torch.randn((n, n), generator=gen, device=cuda_device,
+                     dtype=torch.float64)
+    a = x0 @ x0.T / n + torch.eye(n, dtype=torch.float64, device=cuda_device)
+    del x0
+    l = torch.linalg.cholesky(a).float().contiguous()
+    del a
+    b = torch.randn((n, p), generator=gen, device=cuda_device)
+    x = kernels.tril_solve(l, b, trans=trans)
+    op = l.T if trans else l
+    assert _rel(op @ x, b) <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shape", [(1024, 384), (1024, 192), (7, 1000)])
