@@ -645,22 +645,27 @@ def flagship_runs(model, loader, device, train_step_fn):
 
 def device_launches(fn):
     """{kernel name without template arguments: launches} of one call of
-    `fn`: the second of two in one trace, counted after two spin kernels
-    between them. After earlier traces in the process, a trace can miss
-    the first launch of each kernel and the first kernels of its window
-    (seen with --profile); the first call and the spin kernels take those
-    losses."""
+    `fn`: the last of four in one trace, counted after two spin kernels
+    before it. After earlier traces in the process, a trace can miss the
+    first launch of each kernel and the first kernels of its window (seen
+    with --profile); the first three calls and the spin kernels take those
+    losses, and a trace that lost the spin kernels too is taken again (at
+    most three times)."""
     def run():
-        fn()
+        for _ in range(3):
+            fn()
         torch.cuda._sleep(1_000_000)
         torch.cuda._sleep(1_000_000)
         fn()
 
     from gpnf_tpu_torch.utils.cuda_timing import trace
 
-    events = trace(run)[0]
-    marks = [start for name, start, _ in events if "spin" in name]
-    if not marks:
+    for _ in range(3):
+        events = trace(run)[0]
+        marks = [start for name, start, _ in events if "spin" in name]
+        if marks:
+            break
+    else:
         raise AssertionError("the trace holds no spin kernel to count from")
     out = {}
     for name, start, _ in events:
@@ -792,9 +797,10 @@ def check_gp_kernels(device, timer):
         solve_launches = {}
         for n in SOLVE_SIZES:
             l = kernels.cholesky(spd(n, torch.float32))
-            for p, ways in ((1, (False, True)), (n, (False, True)),
-                            *(((POSTERIOR_P, (False,)),) if n == 1024
-                              else ())):
+            shapes = [(1, (False, True)), (n, (False, True))]
+            if n == 1024:
+                shapes.append((POSTERIOR_P, (False,)))
+            for p, ways in shapes:
                 b = torch.randn((n, p), generator=gen, device=device)
                 if p in (1, n):
                     # device launches of one solve, the copy of b left out

@@ -104,88 +104,71 @@ def dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
-class Cholesky:
+def cholesky_case(n, dtype, device):
     """`a` copied into `out` and factored there in place by a build."""
-    name = "cholesky"
+    a = spd(n, dtype, device)
+    out = torch.empty_like(a)
+    inv = torch.empty((64, 64), dtype=dtype, device=device)
 
-    def cases(self, device):
-        for n, dtype in CHOL_SIZES:
-            yield self.case(n, dtype, device)
+    def run(lib):
+        out.copy_(a)
+        fn = getattr(lib, f"gpnf_cholesky_{_native.SUFFIX[dtype]}")
+        check(fn(out.data_ptr(), inv.data_ptr(), n,
+                 torch.cuda.current_stream().cuda_stream), "cholesky")
+        return out
 
-    def profile_cases(self, device):
-        for n, dtype in CHOL_PROFILE:
-            yield self.case(n, dtype, device)
-
-    @staticmethod
-    def case(n, dtype, device):
-        a = spd(n, dtype, device)
-        out = torch.empty_like(a)
-        inv = torch.empty((64, 64), dtype=dtype, device=device)
-
-        def run(lib):
-            out.copy_(a)
-            fn = getattr(lib, f"gpnf_cholesky_{_native.SUFFIX[dtype]}")
-            check(fn(out.data_ptr(), inv.data_ptr(), n,
-                     torch.cuda.current_stream().cuda_stream), "cholesky")
-            return out
-
-        want = torch.linalg.cholesky(a.double())
-        return ({"n": n, "dtype": dtype_name(dtype)}, run, want,
-                lambda: torch.linalg.cholesky_ex(a), "cholesky_ex_ms")
+    want = torch.linalg.cholesky(a.double())
+    return ({"n": n, "dtype": dtype_name(dtype)}, run, want,
+            lambda: torch.linalg.cholesky_ex(a), "cholesky_ex_ms")
 
 
-class TrilSolve:
+def solve_case(n, p, dtype, trans, device, factors):
     """b copied into x, the scratch's flags zeroed (as the wrapper's fill;
     as many as 4-column tiles need, for any version), then a build's solve
     of op(L) x = b in place. The scratch is also large enough for an
-    inverse per 64 x 64 diagonal tile (the parent's layout)."""
-    name = "tril_solve"
+    inverse per 64 x 64 diagonal tile (the parent's layout). `factors`
+    caches L by (n, dtype)."""
+    if (n, dtype) not in factors:
+        factors[(n, dtype)] = torch.linalg.cholesky(
+            spd(n, torch.float64, device)).to(dtype).contiguous()
+    l = factors[(n, dtype)]
+    gen = torch.Generator(device=device).manual_seed(n + p)
+    b = torch.randn((n, p), generator=gen, device=device, dtype=dtype)
+    x = torch.empty_like(b)
+    words = max(tril_solve_scratch_words(n, p), 1 + -(-n // 64) * -(-p // 4))
+    elem = torch.finfo(dtype).bits // 8
+    scratch = torch.zeros(max(words, -(-n // 64) * 64 * 64 * elem // 4),
+                          dtype=torch.int32, device=device)
+    op = l.T if trans else l
 
-    def __init__(self):
-        self.ls = {}
+    def run(lib):
+        x.copy_(b)
+        scratch[:words].zero_()
+        fn = getattr(lib, f"gpnf_tril_solve_{_native.SUFFIX[dtype]}")
+        check(fn(l.data_ptr(), x.data_ptr(), scratch.data_ptr(), n, p,
+                 int(trans), torch.cuda.current_stream().cuda_stream),
+              "tril_solve")
+        return x
 
-    def factor(self, n, dtype, device):
-        if (n, dtype) not in self.ls:
-            self.ls[(n, dtype)] = torch.linalg.cholesky(
-                spd(n, torch.float64, device)).to(dtype).contiguous()
-        return self.ls[(n, dtype)]
+    want = torch.linalg.solve_triangular(op.double(), b.double(), upper=trans)
+    return ({"n": n, "p": p, "trans": trans, "dtype": dtype_name(dtype)},
+            run, want, lambda: torch.linalg.solve_triangular(op, b,
+                                                             upper=trans),
+            "solve_triangular_ms")
 
-    def cases(self, device):
-        for n, p, dtype in SOLVE_SHAPES:
-            for trans in (False, True):
-                yield self.case(n, p, dtype, trans, device)
 
-    def profile_cases(self, device):
-        for n, p, dtype in SOLVE_PROFILE:
-            yield self.case(n, p, dtype, p > 1, device)
-
-    def case(self, n, p, dtype, trans, device):
-        l = self.factor(n, dtype, device)
-        gen = torch.Generator(device=device).manual_seed(n + p)
-        b = torch.randn((n, p), generator=gen, device=device, dtype=dtype)
-        x = torch.empty_like(b)
-        # the most any version reads zeroed: flags of 4-wide column tiles
-        words = max(tril_solve_scratch_words(n, p), 1 + -(-n // 64) * -(-p // 4))
-        elem = torch.finfo(dtype).bits // 8
-        scratch = torch.zeros(max(words, -(-n // 64) * 64 * 64 * elem // 4),
-                              dtype=torch.int32, device=device)
-        op = l.T if trans else l
-
-        def run(lib):
-            x.copy_(b)
-            scratch[:words].zero_()
-            fn = getattr(lib, f"gpnf_tril_solve_{_native.SUFFIX[dtype]}")
-            check(fn(l.data_ptr(), x.data_ptr(), scratch.data_ptr(), n, p,
-                     int(trans), torch.cuda.current_stream().cuda_stream),
-                  "tril_solve")
-            return x
-
-        want = torch.linalg.solve_triangular(op.double(), b.double(),
-                                             upper=trans)
-        return ({"n": n, "p": p, "trans": trans, "dtype": dtype_name(dtype)},
-                run, want,
-                lambda: torch.linalg.solve_triangular(op, b, upper=trans),
-                "solve_triangular_ms")
+def cases(kernel, device, profile):
+    """(key, run(lib), float64 reference, library call, its key) of each
+    timed shape, or of each profiled one (the solve: L at p = 1, L^T at
+    p = n, as the GP path runs them)."""
+    if kernel == "cholesky":
+        for n, dtype in CHOL_PROFILE if profile else CHOL_SIZES:
+            yield cholesky_case(n, dtype, device)
+        return
+    factors = {}
+    for n, p, dtype in SOLVE_PROFILE if profile else SOLVE_SHAPES:
+        for trans in (p > 1,) if profile else (False, True):
+            yield solve_case(n, p, dtype, trans, device, factors)
 
 
 def by_kernel(fn, prefix):
@@ -205,11 +188,12 @@ def by_kernel(fn, prefix):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=("cholesky", "tril_solve"),
-                   default="cholesky")
+                   required=True)
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=PATH of another <kernel>.cu to time beside")
     p.add_argument("--out", default=None,
-                   help="JSON output (default build/bench_linalg/<kernel>.json)")
+                   help="JSON output (default: build/bench_linalg/"
+                        "<kernel>.json)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_linalg: no CUDA device")
@@ -231,13 +215,13 @@ def main(argv=None):
     print(json.dumps(results[0]), flush=True)
     names = [*refs, "change"]
     timer = Timer(device)
-    bench = Cholesky() if args.kernel == "cholesky" else TrilSolve()
 
     def emit(row):
         results.append(row)
         print(json.dumps(row), flush=True)
 
-    for key, run, want, library, library_key in bench.cases(device):
+    for key, run, want, library, library_key in cases(args.kernel, device,
+                                                      False):
         row = {**key, "card": card}
         scale = want.abs().max()
         for name in names:
@@ -249,7 +233,7 @@ def main(argv=None):
         row.update({f"{name}_ms": times[name] for name in names})
         row[library_key] = timer(library)
         emit(row)
-    for key, run, _, _, _ in bench.profile_cases(device):
+    for key, run, _, _, _ in cases(args.kernel, device, True):
         for name in names:
             kernels, total = by_kernel(lambda lib=libs[name]: run(lib),
                                        KERNEL_PREFIX[args.kernel])

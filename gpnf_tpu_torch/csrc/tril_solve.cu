@@ -6,36 +6,75 @@
 // 128 x 128 diagonal block inverted exactly (`_newton_tril_inv`) and the
 // off-diagonal updates as matmuls, L and B resident in VMEM, one launch.
 //
-// p < 32: one left-looking sweep launch. X (a copy of B) is overwritten
-// in place. One logical block per (row block i of BS rows, column tile c
-// of TP columns); its index is a ticket from an atomic counter, handed
-// out in solve order (i ascending for L, descending for L^T), so a block
-// only waits on blocks that hold an earlier ticket and are running or
-// done: no deadlock at any n, with no co-residency assumed. Block (i, c):
-//   1. inverts its diagonal tile L_ii in shared memory (`invert_tile`);
-//   2. acc = B_i - sum_j L_ij X_j over the blocks j before i in solve
+// Here one left-looking sweep launch, X (a copy of B) overwritten in
+// place. One logical block per (row block i of BS rows, column tile c of
+// TP columns: 4 wide when p < 32, else 64); its index is a ticket from an
+// atomic counter, handed out row by row in solve order (i ascending for
+// L, descending for L^T), so a block only ever waits on blocks that hold
+// an earlier ticket and are running or done: no deadlock at any n or p,
+// with no co-residency assumed. Block (i, c):
+//   1. inverts its diagonal tile L_ii in registers (`invert_tile`);
+//   2. acc = B_i - sum_j L_ij X_j over the row blocks j before i in solve
 //      order, in that fixed order (for L^T the tiles L_ji^T, read along
-//      the rows of L), waiting for each X_j on a ready flag; the L tiles
-//      depend on no flag and are prefetched with cp.async, double-buffered;
-//   3. X_i = L_ii^-1 acc (or L_ii^-T acc), stored, then its flag released.
-// The order of every sum is fixed, so two calls give the same bits.
-// p >= 32 runs the right-looking sweep of one invert launch and 2 n/BS
-// dependent launches (diag, update per block row).
+//      the rows of L), each product summed on its own, then subtracted;
+//      X_j is awaited on its ready flag. The L tiles depend on no flag:
+//      they are prefetched with cp.async, double-buffered, and the next
+//      X_j is loaded during the product when its flag is already set;
+//   3. X_i = L_ii^-1 acc (or L_ii^-T acc), stored, then its flag released
+//      (the stores, a fence, a release store; the waiter's acquire load,
+//      a barrier, and loads of X at L2, around the SM's L1).
+// The order of every sum is fixed, so two calls give the same bits. The
+// row panel of L is read by the column tiles of one row at about the same
+// time, from L2. A solve is one launch, beside the caller's zero fill of
+// the flags (a 64-row block's tile chain was 2 launches, 2 n/64 in all).
+//
+// What bounds it on the H100: at p = n operations (n^2 p FMAs: 68.7 GFLOP
+// at n = p = 4096, 1.03 ms at 67 TFLOP/s fp32); at p = 1 bytes (L read
+// once, 33.5 MB at n = 4096 in fp32: 10 us at 3.35 TB/s). At p = 1 the
+// chain of n/BS dependent steps sets the time instead, ~2.7 us a step:
+// a flag's round trip through L2, the X_j tile's load at L2, a 64 x 64
+// product with the tile already in shared memory, the inverse's product,
+// the stores and the fence (0.15 us of it: a build without the fence took
+// 0.0535 against 0.0570 ms at n = 1024). At p = n the 4 x 4 register tile
+// fed from shared memory: 3.25 ms at n = 4096 is 21 TFLOP/s, two blocks
+// an SM at 128 registers (80 bytes spilled); one block an SM (200
+// registers, no spill) is 10% faster at n = 1024 and 20% slower at 4096.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (bench_linalg.py --kernel
+// tril_solve, medians of 20 cold-L2 calls, each with the copy of B and the
+// flags' zero fill), ms, this version / the 2 n/64-launch right-looking
+// sweep before it / torch.linalg.solve_triangular, float32:
+//   n = 1024, p = 1:     0.0557 / 0.2347 / 0.0745
+//   n = 4096, p = 1:     0.182  / 0.909  / 0.260
+//   n = 1024, p = 1024:  0.144  / 0.417  / 0.291
+//   n = 4096, p = 4096:  3.25   / 5.38   / 2.85
+// and 7.62 / 7.72 / 3.40 at n = p = 4096 in float64.
 //
 // Float32 and float64 (two instantiations). The C entry points take L, X
-// (B on entry), a scratch of int32 words zeroed by the caller
-// (`tril_solve_scratch_words` in ops/kernels/trisolve.py), n, p, trans and
-// the stream.
+// (B on entry), a scratch of `tril_solve_scratch_words(n, p)` int32 words
+// (ops/kernels/trisolve.py) zeroed by the caller, n, p, trans and the
+// stream.
 #include <cuda_runtime.h>
-
-#include "tile_mm.cuh"
 
 namespace {
 
-using namespace gpnf;
-
-constexpr int LDT = BS + 1;  // stride of a BS x BS tile in shared memory
+constexpr int kThreads = 256;
+constexpr int BS = 64;       // row-block height, the diagonal tile's edge
+constexpr int LDT = BS + 1;  // stride of the diagonal tile being inverted
+constexpr int LDA = BS + 4;  // stride of a k-major tile (16-byte rows)
 constexpr unsigned kFull = 0xffffffffu;
+
+// A thread's register tile of a BS x TP output tile: RPT consecutive rows
+// from RPT (t / CG) and CPT consecutive columns from CPT (t % CG), so a
+// k step reads both as 16-byte runs from k-major tiles in shared memory.
+template <int TP>
+struct Shape {
+  static constexpr int RPT = TP >= 64 ? 4 : 1;
+  static constexpr int CPT = TP >= 64 ? 4 : 1;
+  static constexpr int CG = TP / CPT;
+  static constexpr int LDX = TP >= 64 ? TP + 4 : TP;  // stride of an X tile
+  static constexpr int XPT = BS * TP / kThreads;      // X loads a thread
+  static_assert((BS / RPT) * CG == kThreads, "256 threads a tile");
+};
 
 // ---- ordering between blocks ------------------------------------------------
 __device__ __forceinline__ int load_acquire(const int* f) {
@@ -58,9 +97,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
 
 // one thread spins on the flag (acquire, with a short backoff), then the
 // block's barrier: every thread may then read what the flag's producer
-// stored before it (around L1, which is not coherent across SMs). A flag
-// still unset after 10 s (a scratch that was not zeroed) traps: the launch
-// fails with an error instead of hanging the card.
+// stored before it (at L2: L1 is not coherent across SMs). A flag still
+// unset after 10 s (a scratch that was not zeroed) traps: the launch fails
+// with an error instead of hanging the card.
 __device__ __forceinline__ void wait_flag(const int* f) {
   if (threadIdx.x == 0 && load_acquire(f) == 0) {
     const unsigned long long t0 = global_ns();
@@ -74,7 +113,20 @@ __device__ __forceinline__ void wait_flag(const int* f) {
   __syncthreads();
 }
 
-// ---- asynchronous tile copies -----------------------------------------------
+// a load at L2, around L1 (ld.global.cg), never moved across a barrier
+__device__ __forceinline__ float load_cg(const float* a) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(a) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ double load_cg(const double* a) {
+  double v;
+  asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(a) : "memory");
+  return v;
+}
+
+// ---- tiles in shared memory -----------------------------------------------
 template <typename T>
 __device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -93,76 +145,73 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// As[r][k] (stride LDT) = L[row0 + r][col0 + k], or = L[row0 + k][col0 + r]
-// when `transpose` (a tile of L^T); zero outside the n x n matrix, and
-// above the diagonal when `lower`. Consecutive threads read consecutive
-// columns of L (coalesced) whichever way the tile lands.
+// The BS x BS tile of L at (row0, col0) into shared memory with cp.async:
+// element (a, b) to dst[b * ld + a] when `transpose`, else dst[a * ld + b];
+// zero outside the n x n matrix, and above the diagonal when `lower`.
+// Consecutive threads read consecutive columns of L (coalesced).
 template <typename T>
-__device__ __forceinline__ void load_l_tile(T* As, const T* l, int n,
+__device__ __forceinline__ void load_l_tile(T* dst, int ld, const T* l, int n,
                                             int row0, int col0, bool transpose,
                                             bool lower) {
   for (int e = threadIdx.x; e < BS * BS; e += kThreads) {
     const int a = e / BS, b = e % BS;
     const int gr = row0 + a, gc = col0 + b;
     const bool ok = gr < n && gc < n && (!lower || b <= a);
-    cp_async(transpose ? &As[b * LDT + a] : &As[a * LDT + b],
+    cp_async(transpose ? &dst[b * ld + a] : &dst[a * ld + b],
              ok ? l + static_cast<long long>(gr) * n + gc : l, ok);
   }
 }
 
-// a load at L2, around L1 (ld.global.cg), and never moved across a barrier
-__device__ __forceinline__ float load_cg(const float* a) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(a) : "memory");
-  return v;
+// a run of 4 consecutive values from shared memory, in 16-byte loads
+__device__ __forceinline__ void load_run(const float* s, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(s);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
 
-__device__ __forceinline__ double load_cg(const double* a) {
-  double v;
-  asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(a) : "memory");
-  return v;
+__device__ __forceinline__ void load_run(const double* s, double (&v)[4]) {
+  const double2 q0 = *reinterpret_cast<const double2*>(s);
+  const double2 q1 = *reinterpret_cast<const double2*>(s + 2);
+  v[0] = q0.x, v[1] = q0.y, v[2] = q1.x, v[3] = q1.y;
 }
 
-// Xs[r][c] (stride LDB) = x[row0 + r][c0 + c] for a BS x TP tile, read
-// around L1 (another block stored it during this launch); zero outside.
+// acc += A . X for the thread's register tile; At is A k-major (At[k][r],
+// stride LDA), Xs the BS x TP tile (stride LDX); k in a fixed order. A
+// thread with one output (TP = 4) keeps four partial sums over k mod 4,
+// added in a fixed order at the end: a chain of 16 dependent FMAs, not
+// 64, on the p = 1 solve's critical path.
 template <typename T, int TP>
-__device__ __forceinline__ void load_x_tile(T* Xs, const T* x, int n, int p,
-                                            int row0, int c0) {
-  using S = TileShape<TP>;
-  for (int e = threadIdx.x; e < BS * TP; e += kThreads) {
-    const int r = e / TP, c = e % TP;
-    const int gr = row0 + r, gc = c0 + c;
-    Xs[r * S::LDB + c] =
-        (gr < n && gc < p) ? load_cg(x + static_cast<long long>(gr) * p + gc)
-                           : T(0);
-  }
-}
-
-// acc (the thread's rows rg + RG a, columns cg + CG b of a BS x TP tile)
-// -= or += As (BS x BS, stride LDT) . Bs (BS x TP, stride LDB), k in order
-template <typename T, int TP, bool kSubtract>
 __device__ __forceinline__ void tile_product(
-    const T* As, const T* Bs,
-    T (&acc)[TileShape<TP>::RPT][TileShape<TP>::CPT]) {
-  using S = TileShape<TP>;
-  const int cg = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+    const T* At, const T* Xs, T (&acc)[Shape<TP>::RPT][Shape<TP>::CPT]) {
+  using S = Shape<TP>;
+  const int r0 = S::RPT * (threadIdx.x / S::CG);
+  const int c0 = S::CPT * (threadIdx.x % S::CG);
+  if constexpr (S::RPT * S::CPT == 1) {
+    T sum[4] = {};
+#pragma unroll 4
+    for (int k = 0; k < BS; k += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        sum[q] = fma(At[(k + q) * LDA + r0], Xs[(k + q) * S::LDX + c0], sum[q]);
+    }
+    acc[0][0] += (sum[0] + sum[1]) + (sum[2] + sum[3]);
+  } else {
 #pragma unroll 8
-  for (int k = 0; k < BS; ++k) {
-    T a[S::RPT], b[S::CPT];
+    for (int k = 0; k < BS; ++k) {
+      T a[S::RPT], b[S::CPT];
+      load_run(At + k * LDA + r0, a);
+      load_run(Xs + k * S::LDX + c0, b);
 #pragma unroll
-    for (int i = 0; i < S::RPT; ++i) a[i] = As[(rg + S::RG * i) * LDT + k];
+      for (int i = 0; i < S::RPT; ++i)
 #pragma unroll
-    for (int j = 0; j < S::CPT; ++j) b[j] = Bs[k * S::LDB + cg + S::CG * j];
-#pragma unroll
-    for (int i = 0; i < S::RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < S::CPT; ++j)
-        acc[i][j] = fma(kSubtract ? -a[i] : a[i], b[j], acc[i][j]);
+        for (int j = 0; j < S::CPT; ++j)
+          acc[i][j] = fma(a[i], b[j], acc[i][j]);
+    }
   }
 }
 
-// Inv = Ls^-1 (or Ls^-T when `transpose`), both stride LDT, for the lower
-// tile Ls (zero above the diagonal, the identity's rows from `rows` on).
+// The k-major inverse (stride LDA) of the lower tile Ls (stride LDT, zero
+// above the diagonal, the identity's rows from `rows` on): Inv[k][r] =
+// Ls^-1[r][k], or Ls^-1[k][r] when `transpose` (the inverse of L_ii^T).
 // Warp w solves columns 8w..8w+7 by forward substitution in registers:
 // lane l holds rows l and l + 32 of its eight columns; at step k the lane
 // of row k scales its entries by 1 / L_kk and passes them by shuffle, and
@@ -187,7 +236,8 @@ __device__ __forceinline__ void invert_tile(const T* Ls, T* Inv, int rows,
     const T dk = __shfl_sync(kFull, hk ? d1 : d0, src);
     T xk[8];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) xk[q] = __shfl_sync(kFull, r[hk][q], src) * dk;
+    for (int q = 0; q < 8; ++q)
+      xk[q] = __shfl_sync(kFull, r[hk][q], src) * dk;
 #pragma unroll
     for (int h = hk; h < 2; ++h) {  // rows l + 32 h below k, or row k
       const T lk = Ls[(lane + 32 * h) * LDT + k];
@@ -201,98 +251,140 @@ __device__ __forceinline__ void invert_tile(const T* Ls, T* Inv, int rows,
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int row = lane + 32 * h, col = col0 + q;
-      Inv[transpose ? col * LDT + row : row * LDT + col] = r[h][q];
+      Inv[transpose ? row * LDA + col : col * LDA + row] = r[h][q];
     }
 }
 
 template <typename T, int TP>
 constexpr int sweep_smem_bytes() {
-  return (3 * BS * LDT + BS * TileShape<TP>::LDB) * static_cast<int>(sizeof(T));
+  return (3 * BS * LDA + BS * Shape<TP>::LDX) * static_cast<int>(sizeof(T));
 }
 
-// One logical block of the left-looking sweep (see the header). sync[0] is
-// the ticket counter, sync[1 + i * ct + c] the ready flag of X_i's column
-// tile c; all zero at launch.
+// Two blocks an SM in float32 at TP = 64: 128 registers a thread at most
+// (unbounded, ptxas took 171: one block an SM) and 70 KB of shared memory
+// each. Float64's 64-wide tile takes 139 KB: one block an SM.
 template <typename T, int TP>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMinBlocks = sizeof(T) == 4 && TP >= 64 ? 2 : 1;
+
+// One logical block of the sweep (see the header). sync[0] is the ticket
+// counter, sync[1 + i * ct + c] the ready flag of column tile c of X_i;
+// all zero at launch.
+template <typename T, int TP>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, TP>)
     trsm_sweep_kernel(const T* __restrict__ l, T* __restrict__ x,
                       int* __restrict__ sync, int n, int p, int trans) {
-  using S = TileShape<TP>;
+  using S = Shape<TP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const lbuf = reinterpret_cast<T*>(smem_raw);  // two L tiles
-  T* const inv = lbuf + 2 * BS * LDT;
-  T* const xs = inv + BS * LDT;
-  __shared__ int ticket;
+  T* const inv = lbuf + 2 * BS * LDA;
+  T* const xs = inv + BS * LDA;
+  __shared__ int ticket, next_ready;
   if (threadIdx.x == 0) ticket = atomicAdd(sync, 1);
   __syncthreads();
   const int nb = (n + BS - 1) / BS, ct = (p + TP - 1) / TP;
-  const int m = ticket / ct;  // blocks before this one in solve order
-  const int c0 = (ticket - m * ct) * TP;
+  const int m = ticket / ct;  // row blocks before this one in solve order
+  const int tile = ticket - m * ct;
+  const int cc0 = tile * TP;
   const int i = trans ? nb - 1 - m : m;
-  int* flags = sync + 1 + (ticket - m * ct);  // flags[j * ct]: X_j's tile
+  const int* flags = sync + 1 + tile;  // flags[j * ct]: X_j's tile
   auto block_j = [&](int s) { return trans ? nb - 1 - s : s; };
-  auto load_step = [&](T* dst, int s) {  // the tile of op(L) at (i, j)
+  // step s's tile of op(L), k-major: L_ij^T, or for L^T the tile L_ji
+  auto load_step = [&](int s) {
     const int j = block_j(s);
-    load_l_tile(dst, l, n, trans ? j * BS : i * BS, trans ? i * BS : j * BS,
-                trans != 0, false);
+    load_l_tile(lbuf + (s & 1) * BS * LDA, LDA, l, n,
+                trans ? j * BS : i * BS, trans ? i * BS : j * BS, !trans,
+                false);
+  };
+  T xr[S::XPT];  // the next X_j tile, in flight
+  auto load_x = [&](int s) {
+    const int j = block_j(s);
+#pragma unroll
+    for (int e = 0; e < S::XPT; ++e) {
+      const int idx = threadIdx.x + kThreads * e;
+      const int gr = j * BS + idx / TP, gc = cc0 + idx % TP;
+      xr[e] = (gr < n && gc < p)
+                  ? load_cg(x + static_cast<long long>(gr) * p + gc)
+                  : T(0);
+    }
   };
 
-  load_l_tile(lbuf, l, n, i * BS, i * BS, false, true);
+  // the diagonal tile (stride LDT) into the buffer of step 1
+  load_l_tile(lbuf + BS * LDA, LDT, l, n, i * BS, i * BS, false, true);
   cp_async_commit();
-  if (m > 0) load_step(lbuf + BS * LDT, 0);
+  if (m > 0) load_step(0);
   cp_async_commit();
-  const int cg = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+  const int r0 = S::RPT * (threadIdx.x / S::CG);
+  const int c0 = S::CPT * (threadIdx.x % S::CG);
   T acc[S::RPT][S::CPT];
 #pragma unroll
   for (int a = 0; a < S::RPT; ++a)
 #pragma unroll
     for (int b = 0; b < S::CPT; ++b) {
-      const int gr = i * BS + rg + S::RG * a, gc = c0 + cg + S::CG * b;
+      const int gr = i * BS + r0 + a, gc = cc0 + c0 + b;
       acc[a][b] = (gr < n && gc < p) ? x[static_cast<long long>(gr) * p + gc]
                                      : T(0);
     }
   cp_async_wait<1>();
   __syncthreads();
-  invert_tile(lbuf, inv, min(BS, n - i * BS), trans != 0);
+  invert_tile(lbuf + BS * LDA, inv, min(BS, n - i * BS), trans != 0);
+  if (m > 0) {
+    wait_flag(flags + block_j(0) * ct);
+    load_x(0);
+  }
   __syncthreads();
 
   for (int s = 0; s < m; ++s) {
-    if (s + 1 < m) load_step(lbuf + (s & 1) * BS * LDT, s + 1);
+#pragma unroll
+    for (int e = 0; e < S::XPT; ++e) {
+      const int idx = threadIdx.x + kThreads * e;
+      xs[(idx / TP) * S::LDX + idx % TP] = xr[e];
+    }
+    if (s + 1 < m) load_step(s + 1);
     cp_async_commit();
-    const int j = block_j(s);
-    wait_flag(flags + j * ct);
-    load_x_tile<T, TP>(xs, x, n, p, j * BS, c0);
+    if (threadIdx.x == 0) {
+      next_ready = s + 1 < m && load_acquire(flags + block_j(s + 1) * ct);
+    }
     cp_async_wait<1>();
     __syncthreads();
-    tile_product<T, TP, true>(lbuf + ((s + 1) & 1) * BS * LDT, xs, acc);
+    const bool ready = next_ready;
+    if (ready) load_x(s + 1);  // lands during the product
+    T part[S::RPT][S::CPT] = {};
+    tile_product<T, TP>(lbuf + (s & 1) * BS * LDA, xs, part);
+#pragma unroll
+    for (int a = 0; a < S::RPT; ++a)
+#pragma unroll
+      for (int b = 0; b < S::CPT; ++b) acc[a][b] -= part[a][b];
+    if (s + 1 < m && !ready) {
+      wait_flag(flags + block_j(s + 1) * ct);
+      load_x(s + 1);
+    }
     __syncthreads();
   }
 
 #pragma unroll
   for (int a = 0; a < S::RPT; ++a)
 #pragma unroll
-    for (int b = 0; b < S::CPT; ++b)
-      xs[(rg + S::RG * a) * S::LDB + cg + S::CG * b] = acc[a][b];
+    for (int b = 0; b < S::CPT; ++b) xs[(r0 + a) * S::LDX + c0 + b] = acc[a][b];
   __syncthreads();
   T out[S::RPT][S::CPT] = {};
-  tile_product<T, TP, false>(inv, xs, out);
+  tile_product<T, TP>(inv, xs, out);
 #pragma unroll
   for (int a = 0; a < S::RPT; ++a)
 #pragma unroll
     for (int b = 0; b < S::CPT; ++b) {
-      const int gr = i * BS + rg + S::RG * a, gc = c0 + cg + S::CG * b;
+      const int gr = i * BS + r0 + a, gc = cc0 + c0 + b;
       if (gr < n && gc < p) x[static_cast<long long>(gr) * p + gc] = out[a][b];
     }
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    store_release(flags + i * ct, 1);
+    store_release(sync + 1 + tile + i * ct, 1);
   }
 }
 
 template <typename T, int TP>
-int left_looking(const T* l, T* x, int* sync, int n, int p, int trans,
-                 cudaStream_t stream) {
+int sweep(const T* l, T* x, int* sync, int n, int p, int trans,
+          cudaStream_t stream) {
   const long long blocks = static_cast<long long>((n + BS - 1) / BS) *
                            ((p + TP - 1) / TP);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -306,138 +398,24 @@ int left_looking(const T* l, T* x, int* sync, int n, int p, int trans,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- p >= 32: the right-looking sweep ----------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    trsm_invert_diag_kernel(const T* __restrict__ l, T* __restrict__ inv,
-                            int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ls = reinterpret_cast<T*>(smem_raw);
-  T* Xs = Ls + BS * LDT;
-  const int s = blockIdx.x * BS;
-  const int r = min(BS, n - s);
-  for (int e = threadIdx.x; e < BS * BS; e += kThreads) {
-    const int i = e / BS, k = e % BS;
-    T v;
-    if (i < r && k < r) {
-      v = (k <= i) ? l[static_cast<long long>(s + i) * n + s + k] : T(0);
-    } else {
-      v = (i == k) ? T(1) : T(0);
-    }
-    Ls[i * LDT + k] = v;
-  }
-  __syncthreads();
-  invert_lower_tile(Ls, Xs);
-  T* out = inv + static_cast<long long>(blockIdx.x) * BS * BS;
-  for (int e = threadIdx.x; e < BS * BS; e += kThreads) {
-    out[e] = Xs[(e / BS) * LDT + e % BS];
-  }
-}
-
-// X_j[:, c0:c0+TP] = M X_j[:, c0:c0+TP] with M = inv_j or inv_j^T
-template <typename T, int TP>
-__global__ void __launch_bounds__(kThreads)
-    trsm_diag_kernel(const T* __restrict__ inv, T* __restrict__ x, int n,
-                     int p, int j, int trans) {
-  using S = TileShape<TP>;
-  __shared__ T As[BS * LDA];
-  __shared__ T Bs[KC * S::LDB];
-  const int c0 = blockIdx.x * TP;
-  const T* inv_j = inv + static_cast<long long>(j) * BS * BS;
-  T acc[S::RPT][S::CPT] = {};
-  for (int kc = 0; kc < BS; kc += KC) {
-    if (trans) {  // As[r][k] = inv_j[kc + k][r]
-      load_transposed(As, LDA, BS, KC, inv_j, BS, kc, 0, BS, BS);
-    } else {      // As[r][k] = inv_j[r][kc + k]
-      load_direct(As, LDA, BS, KC, inv_j, BS, 0, kc, BS, BS);
-    }
-    load_direct(Bs, S::LDB, KC, TP, x, p, j * BS + kc, c0, n, p);
-    __syncthreads();
-    mma_chunk<T, TP>(As, Bs, acc);
-    __syncthreads();
-  }
-  store_tile<T, TP>(x + static_cast<long long>(j) * BS * p + c0, p,
-                    n - j * BS, p - c0, acc, false);
-}
-
-// X_i[:, c0:c0+TP] -= L_ij X_j (or L_ji^T X_j), i the blockIdx.y-th block
-// row after j in solve order
-template <typename T, int TP>
-__global__ void __launch_bounds__(kThreads)
-    trsm_update_kernel(const T* __restrict__ l, T* __restrict__ x, int n,
-                       int p, int j, int trans) {
-  using S = TileShape<TP>;
-  __shared__ T As[BS * LDA];
-  __shared__ T Bs[KC * S::LDB];
-  const int c0 = blockIdx.x * TP;
-  const int i = trans ? static_cast<int>(blockIdx.y)
-                      : j + 1 + static_cast<int>(blockIdx.y);
-  T acc[S::RPT][S::CPT] = {};
-  for (int kc = 0; kc < BS; kc += KC) {
-    if (trans) {  // As[r][k] = L[j*BS + kc + k][i*BS + r]
-      load_transposed(As, LDA, BS, KC, l, n, j * BS + kc, i * BS, n, n);
-    } else {      // As[r][k] = L[i*BS + r][j*BS + kc + k]
-      load_direct(As, LDA, BS, KC, l, n, i * BS, j * BS + kc, n, n);
-    }
-    load_direct(Bs, S::LDB, KC, TP, x, p, j * BS + kc, c0, n, p);
-    __syncthreads();
-    mma_chunk<T, TP>(As, Bs, acc);
-    __syncthreads();
-  }
-  store_tile<T, TP>(x + static_cast<long long>(i) * BS * p + c0, p,
-                    n - i * BS, p - c0, acc, true);
-}
-
-template <typename T>
-int right_looking(const T* l, T* x, T* inv, int n, int p, int trans,
-                  cudaStream_t stream) {
-  constexpr int TP = 64;
-  const int nb = (n + BS - 1) / BS;
-  if (nb > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * BS * LDT * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      trsm_invert_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  trsm_invert_diag_kernel<T><<<nb, kThreads, smem, stream>>>(l, inv, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  const unsigned col_tiles = static_cast<unsigned>((p + TP - 1) / TP);
-  for (int step = 0; step < nb; ++step) {
-    const int j = trans ? nb - 1 - step : step;
-    trsm_diag_kernel<T, TP><<<col_tiles, kThreads, 0, stream>>>(
-        inv, x, n, p, j, trans);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const int rows = trans ? j : nb - 1 - j;
-    if (rows == 0) continue;
-    trsm_update_kernel<T, TP><<<dim3(col_tiles, rows), kThreads, 0, stream>>>(
-        l, x, n, p, j, trans);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
-template <typename T>
-int tril_solve(const T* l, T* x, void* scratch, int n, int p, int trans,
+int tril_solve(const T* l, T* x, int* sync, int n, int p, int trans,
                cudaStream_t stream) {
   if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (p >= 32) {
-    return right_looking<T>(l, x, static_cast<T*>(scratch), n, p, trans,
-                            stream);
-  }
-  return left_looking<T, 4>(l, x, static_cast<int*>(scratch), n, p, trans,
-                            stream);
+  return p >= 32 ? sweep<T, 64>(l, x, sync, n, p, trans, stream)
+                 : sweep<T, 4>(l, x, sync, n, p, trans, stream);
 }
 
 }  // namespace
 
-extern "C" int gpnf_tril_solve_f32(const float* l, float* x, void* scratch,
-                                   int n, int p, int trans, void* stream) {
-  return tril_solve<float>(l, x, scratch, n, p, trans,
+extern "C" int gpnf_tril_solve_f32(const float* l, float* x, int* sync, int n,
+                                   int p, int trans, void* stream) {
+  return tril_solve<float>(l, x, sync, n, p, trans,
                            static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int gpnf_tril_solve_f64(const double* l, double* x, void* scratch,
+extern "C" int gpnf_tril_solve_f64(const double* l, double* x, int* sync,
                                    int n, int p, int trans, void* stream) {
-  return tril_solve<double>(l, x, scratch, n, p, trans,
+  return tril_solve<double>(l, x, sync, n, p, trans,
                             static_cast<cudaStream_t>(stream));
 }

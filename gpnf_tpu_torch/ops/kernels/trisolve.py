@@ -20,7 +20,7 @@ from . import _native
 
 DTYPES = (torch.float32, torch.float64)
 BLK = 128  # the plain version's block (the JAX package's BLK)
-KERNEL_BS = 64  # the CUDA kernels' block (BS in csrc/tile_mm.cuh)
+KERNEL_BS = 64  # the CUDA kernels' block (BS in csrc/tril_solve.cu)
 
 
 def _newton_tril_inv(d):
@@ -75,28 +75,16 @@ def tril_solve_plain(l, b, *, trans: bool = False):
 
 
 def tril_solve_device_launches(n, p):
-    """Device launches of one solve with an (n, p) right-hand side on the
-    card, the copy of b left out. p < 32: the scratch's zero fill and one
-    left-looking sweep; p >= 32: the invert launch, then per 64-row block a
-    diagonal launch and, but for the last, an update launch."""
-    return 2 if p < 32 else 2 * -(-n // KERNEL_BS)
+    """Device launches of one solve on the card at any (n, p), the copy of
+    b left out: the zero fill of the scratch and one sweep launch."""
+    return 2
 
 
 def tril_solve_scratch_words(n, p):
-    """int32 words of the zeroed scratch of one solve: for p < 32 the
-    ticket counter and one ready flag per (64-row block, 4-column tile) of
-    the left-looking sweep; none for p >= 32."""
-    return 1 + -(-n // KERNEL_BS) * -(-p // 4) if p < 32 else 0
-
-
-def _scratch(n, p, dtype, device):
-    """The kernel's scratch: the zeroed words, or for p >= 32 the diagonal
-    tiles' inverses."""
-    if p >= 32:
-        return torch.empty((-(-n // KERNEL_BS), KERNEL_BS, KERNEL_BS),
-                           dtype=dtype, device=device)
-    return torch.zeros(tril_solve_scratch_words(n, p), dtype=torch.int32,
-                       device=device)
+    """int32 words of the scratch of one solve, zeroed before the launch:
+    the ticket counter and one ready flag per (64-row block, column tile);
+    column tiles are 4 wide when p < 32, else 64."""
+    return 1 + -(-n // KERNEL_BS) * -(-p // (4 if p < 32 else 64))
 
 
 def _solve(l, b, trans: bool):
@@ -108,7 +96,8 @@ def _solve(l, b, trans: bool):
     device = _native.check_cuda_inputs("tril_solve", dtypes=DTYPES, l=l, b=b)
     n, p = b.shape
     x = b.clone()
-    scratch = _scratch(n, p, b.dtype, device)
+    scratch = torch.zeros(tril_solve_scratch_words(n, p), dtype=torch.int32,
+                          device=device)
     _native.launch("tril_solve", f"gpnf_tril_solve_{_native.SUFFIX[b.dtype]}",
                    device, l.data_ptr(), x.data_ptr(), scratch.data_ptr(), n,
                    p, int(trans))
