@@ -105,7 +105,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      0.2 and one seed the packed entry against the proj entry and, bit for
      bit, the long entry, and the q, k, v entry against the packed one;
      then one drive through both entries' autograd (launches 1 of each).
-     Every earlier phase asserts that its path launches none of the four.
+     Every earlier phase asserts that its path launches none of the four;
+ 18. GatedAttn at every width: the lane-split kernels (Dh = 128 and 256,
+     through the long entry's wrappers) against their plain versions at the
+     CLIs' width C = 512 (batch 16, S = 256 / 64 / 16) and at C = 1024
+     (batch 4, S = 256), rate 0 and 0.2 (one seed), two backward calls bit
+     for bit the same, each with its time, the plain version's, SDPA's (rate
+     0) and its bound; the wide route's GEMM kernels (qkv = seq w^T,
+     dseq, dW at S <= 512) against torch.matmul at C = 512, two calls bit
+     for bit, with times and bounds; the whole wide route at C = 512
+     beside autograd of F.linear + SDPA; the flagship's routes (proj at
+     the 32-px levels, the long entry unpadded at the 64-px level 0, bit
+     for bit the long kernels on seq w^T); then `train_marscf` at its default --C 512 and --coupling
+     mixlogcdf on the synthetic set (L 3, K 2, batch 16, 12 steps, the loss
+     finite and the last 3 below the first, exact launch counts) and
+     `eval_marscf` on its checkpoint (bits/dim over the test set, one
+     sampling pass, exact launch counts); with --profile, device time by
+     kernel over one C = 512 train step and eval batch. Every earlier phase
+     asserts that its path launches no lane-split or GEMM kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -197,6 +214,12 @@ CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
 NO_CORE = dict.fromkeys(CORE, 0)
 PER_STEP_64.update(NO_CORE)
+# the lane-split kernels (Dh = 128, 256) and the wide route's GEMMs (the
+# projection and dseq / dW at S <= 512; phase 18): no C = 96 path runs them
+LANES = ("attention_lanes", "attention_lanes_bwd")
+GEMMS = ("attention_qkv_gemm", "attention_dseq_gemm", "attention_dw_gemm")
+NO_WIDE = dict.fromkeys(LANES + GEMMS, 0)
+PER_STEP_64.update(NO_WIDE)
 # phase 13's (batch, S): the 64-px level 0, and a ragged sequence
 LONG_CASES = ((BATCH, 1024), (4, 576))
 LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
@@ -399,7 +422,8 @@ def train(device, loader, out_dir, seed, card, fused=False):
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
             "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_LONG, **NO_CORE, **dict.fromkeys(FGC, 120 if fused else 0)}
+            **NO_LONG, **NO_CORE, **NO_WIDE,
+            **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
     last5 = statistics.mean(losses[-5:])
@@ -482,7 +506,7 @@ def serve(model, loader, device, seed):
     want = {"fused_attention_proj": 120 * n_batches,
             "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP, **NO_LONG, **NO_CORE, "fused_gated_conv": fgc,
+            **NO_GP, **NO_LONG, **NO_CORE, **NO_WIDE, "fused_gated_conv": fgc,
             "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
@@ -502,7 +526,7 @@ def sample(model, out_dir, device, seed, name="samples.png"):
         f"before the clamp; launches {counts}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
             "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
-            **NO_LONG, **NO_CORE, "fused_gated_conv":
+            **NO_LONG, **NO_CORE, **NO_WIDE, "fused_gated_conv":
                 120 if model.cfg.fused_gated_conv else 0,
             "fused_gated_conv_bwd": 0}
     if counts != want:
@@ -1802,6 +1826,349 @@ def check_core_attention(device, timer):
     return results, drive
 
 
+# -- phase 18: GatedAttn at every width, the CLIs' default --C 512 -----------------
+C512_BATCH, C512_STEPS, C512_WARM_UP = 16, 12, 64
+# both CLIs at their defaults (--C 512, --coupling mixlogcdf) on the synthetic
+# set, depth cut to L 3, K 2: 60 GatedAttn a forward (L * K * 10 blocks), 4
+# heads of Dh = 128, the wide route at every level
+C512_ARGS = ["--dataset_name", "synthetic", "--L", "3", "--K", "2",
+             "--batch_size", str(C512_BATCH), "--device", "cuda"]
+C512_ATTN = 3 * 2 * 10
+# (C, batch, S) of the lane-split kernels' checks: the CLIs' width at the
+# 32-px levels' S, and Dh = 256 (C = 1024) at level 0
+LANE_CASES = ((512, C512_BATCH, 256), (512, C512_BATCH, 64),
+              (512, C512_BATCH, 16), (1024, 4, 256))
+
+
+def check_lane_kernels(device, timer):
+    """Phase 18's kernel checks: the lane-split kernels (Dh = 128, 256)
+    through the long entry's wrappers against their plain versions at
+    LANE_CASES, rate 0 and 0.2 (one seed: the same mask), two backward
+    calls bit for bit, each with its time, the plain version's, SDPA's
+    after a head split (rate 0) and its bound; at the CLIs' width the wide
+    route's GEMMs (qkv = seq w^T, dseq, dW) against torch.matmul, two calls
+    bit for bit, with their times and bounds; then the whole wide route
+    (the GEMMs around the lane-split kernels) beside autograd of F.linear +
+    SDPA."""
+    from gpnf_tpu_torch.ops import kernels
+
+    counts = kernels.launch_counts()
+    if any(counts[n] for n in NO_WIDE):
+        raise AssertionError(f"an earlier phase launched a lane-split or "
+                             f"GEMM kernel: {counts}")
+    gen = torch.Generator(device=device).manual_seed(2468)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    heads = 4
+    results = {name: [] for name in (*LANES, *GEMMS, "wide_route")}
+
+    def record(name, c, batch, s, rate, err, ms, plain_ms, library_ms):
+        dh = c // heads
+        scores = batch * heads * s * s
+        core = 2 * scores * dh  # one S x S x Dh product
+        rows = batch * s
+        if name == "attention_lanes":  # qkv in, out; two products, softmax
+            bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
+        else:  # qkv and g in, dqkv out; five products and dS
+            bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
+        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+        results[name].append(dict(
+            c=c, head_dim=dh, batch=batch, s=s, rate=rate, max_abs_err=err[0],
+            err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
+        log(f"  {name} C={c} (Dh {dh}) B={batch} S={s} rate {rate}: max abs "
+            f"err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) | kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{ms_or_na(library_ms)} | bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+
+    def check(tag, got, want, bar):
+        err = float((got - want).abs().max())
+        over = err / float(want.abs().max())
+        if not (bool(torch.isfinite(got).all()) and over <= bar):
+            raise AssertionError(f"{tag}: max abs err {err}, / max |plain| "
+                                 f"{over} > {bar}")
+        return err, over
+
+    def heads_of(x, dh, grad=False):
+        b, s, _ = x.shape
+        x = x.reshape(b, s, heads, dh).transpose(1, 2).contiguous()
+        return x.requires_grad_() if grad else x
+
+    def sdpa_bwd_ms(qkv, g, dh):
+        """Autograd backward of SDPA on the heads, the graph built once and
+        its backward timed alone."""
+        k, v, q = (heads_of(t_, dh, True) for t_ in qkv.split(heads * dh, -1))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), heads_of(
+            g, dh), retain_graph=True))
+
+    def library(seq, w, dh):
+        """F.linear + SDPA: the wide route's function in PyTorch calls."""
+        b, s, c = seq.shape
+        k, v, q = (heads_of(t_, dh) for t_ in F.linear(seq, w).split(c, -1))
+        return F.scaled_dot_product_attention(q, k, v).transpose(
+            1, 2).reshape(b, s, c)
+
+    with torch.no_grad():
+        for c, batch, s in LANE_CASES:
+            dh = c // heads
+            seq, w = randn(batch, s, c) * 0.5, randn(3 * c, c) * 0.1
+            qkv, g = torch.matmul(seq, w.t()), randn(batch, s, c)
+            seed = torch.tensor([1357 + s + c], dtype=torch.int32,
+                                device=device)
+            for rate in (0.0, RATE):
+                fwd = lambda: kernels.attention_long_qkv(qkv, heads, rate, seed)
+                plain = lambda: kernels.attention_long_plain(qkv, heads, rate,
+                                                             seed)
+                # a score sums Dh products of values up to ~2: held to the
+                # output's scale
+                err = check(f"attention_lanes C={c} S={s} rate {rate}",
+                            fwd(), plain(), 1e-5)
+                k4, v4, q4 = (heads_of(t_, dh) for t_ in qkv.split(c, -1))
+                record("attention_lanes", c, batch, s, rate, err, timer(fwd),
+                       timer(plain), timer(
+                           lambda: F.scaled_dot_product_attention(q4, k4, v4))
+                       if rate == 0.0 else None)
+                bwd = lambda: kernels.attention_long_qkv_bwd(qkv, g, heads,
+                                                             rate, seed)
+                plain_b = lambda: kernels.attention_long_plain_bwd(
+                    qkv, g, heads, rate, seed)
+                got = bwd()
+                if not torch.equal(got, bwd()):
+                    raise AssertionError(f"attention_lanes_bwd C={c} S={s} "
+                                         f"rate {rate}: two calls differ")
+                err = check(f"attention_lanes_bwd C={c} S={s} rate {rate}",
+                            got, plain_b(), 1e-4)
+                record("attention_lanes_bwd", c, batch, s, rate, err,
+                       timer(bwd), timer(plain_b),
+                       sdpa_bwd_ms(qkv, g, dh) if rate == 0.0 else None)
+            if c != 512:
+                continue
+            # the wide route's GEMMs at the path's shapes: (m, n, k) of
+            # c (m x n) = A (m x k) B (k x n); torch.matmul is the plain
+            # version, one cuBLAS call (torch.mm) the library's
+            dqkv = randn(batch, s, 3 * c)
+            rows = batch * s
+            for name, fn, plain, lib, (m, n, k) in (
+                    ("attention_qkv_gemm",
+                     lambda: kernels.attention_qkv_gemm(seq, w),
+                     lambda: torch.matmul(seq, w.t()),
+                     lambda: torch.mm(seq.view(rows, c), w.t()),
+                     (rows, 3 * c, c)),
+                    ("attention_dseq_gemm",
+                     lambda: kernels.attention_dseq_gemm(dqkv, w),
+                     lambda: torch.matmul(dqkv, w),
+                     lambda: torch.mm(dqkv.view(rows, 3 * c), w),
+                     (rows, c, 3 * c)),
+                    ("attention_dw_gemm",
+                     lambda: kernels.attention_dw_gemm(dqkv, seq),
+                     lambda: torch.einsum("bso,bsc->oc", dqkv, seq),
+                     lambda: torch.mm(dqkv.view(rows, 3 * c).t(),
+                                      seq.view(rows, c)),
+                     (3 * c, c, rows))):
+                got = fn()
+                if not torch.equal(got, fn()):
+                    raise AssertionError(f"{name} C={c} S={s}: two calls "
+                                         f"differ")
+                # k products a sum, in float32: held to the output's scale
+                err = check(f"{name} C={c} S={s}", got, plain(), 1e-5)
+                bound_ms, bound_by = bound(4 * (m * k + k * n + m * n),
+                                           2 * m * n * k)
+                row = dict(c=c, batch=batch, s=s, m=m, n=n, k=k,
+                           max_abs_err=err[0], err_over_scale=err[1],
+                           ms=timer(fn), plain_ms=timer(plain),
+                           library_ms=timer(lib), bound_ms=bound_ms,
+                           bound_by=bound_by)
+                results[name].append(row)
+                log(f"  {name} C={c} B={batch} S={s} (m {m}, n {n}, k {k}): "
+                    f"max abs err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) "
+                    f"| kernel {row['ms']:.4f} ms plain "
+                    f"{row['plain_ms']:.4f} ms library (torch.mm) "
+                    f"{row['library_ms']:.4f} ms | bound "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            # the whole wide route at the CLIs' width, beside F.linear + SDPA
+            row = dict(c=c, batch=batch, s=s)
+            for rate in (0.0, RATE):
+                row[f"fwd_rate{rate}_ms"] = timer(
+                    lambda: kernels.fused_attention_long(seq, w, heads, rate,
+                                                         seed))
+                row[f"bwd_rate{rate}_ms"] = timer(
+                    lambda: kernels.fused_attention_long_bwd(seq, w, g, heads,
+                                                             rate, seed))
+            row["library_fwd_ms"] = timer(lambda: library(seq, w, dh))
+            seq_r, w_r = seq.clone().requires_grad_(), w.clone().requires_grad_()
+            with torch.enable_grad():
+                out = library(seq_r, w_r, dh)
+            row["library_bwd_ms"] = timer(lambda: torch.autograd.grad(
+                out, (seq_r, w_r), g, retain_graph=True))
+            results["wide_route"].append(row)
+            log(f"  wide route C={c} B={batch} S={s}: "
+                + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in row.items()
+                            if k_.endswith("ms"))
+                + " (library: F.linear + SDPA, its autograd backward)")
+    return results
+
+
+def flagship_routes_unchanged(device, model):
+    """Phase 18: every GatedAttn of the flagship (C = 96) keeps the entry it
+    had before the route: the proj kernel at the 32-px levels, and the long
+    entry unpadded at the 64-px level 0, whose forward and gradients are
+    the long kernels' on qkv = seq w^T, bit for bit."""
+    from gpnf_tpu_torch.ops import kernels
+
+    routes = {}
+    for level, (_, h, w_) in zip(model.levels, model.level_shapes):
+        attns = [m for m in level.modules() if type(m).__name__ == "GatedAttn"]
+        routes[h * w_] = {tuple(m.route(h * w_)) for m in attns}
+    routes[1024] = {tuple(attns[0].route(1024))}  # the 64-px level 0
+    want = {256: {("proj", 24, 24)}, 64: {("proj", 24, 24)},
+            16: {("proj", 24, 24)}, 1024: {("wide", 24, 24)}}
+    log(f"  flagship GatedAttn routes by S: {routes}")
+    if routes != want:
+        raise AssertionError(f"flagship routes {routes} != {want}")
+    gen = torch.Generator(device=device).manual_seed(97)
+    seq = torch.randn((2, 1024, 96), generator=gen, device=device) * 0.5
+    w = torch.randn((288, 96), generator=gen, device=device) * 0.1
+    g = torch.randn((2, 1024, 96), generator=gen, device=device)
+    seed = torch.tensor([11], dtype=torch.int32, device=device)
+    seq_r, w_r = seq.clone().requires_grad_(), w.clone().requires_grad_()
+    out = kernels.fused_attention_long(seq_r, w_r, 4, RATE, seed)
+    out.backward(g)
+    with torch.no_grad():
+        qkv = torch.matmul(seq, w.t())
+        dqkv = kernels.attention_long_qkv_bwd(qkv, g, 4, RATE, seed)
+        same = (torch.equal(out, kernels.attention_long_qkv(qkv, 4, RATE,
+                                                            seed))
+                and torch.equal(seq_r.grad, torch.matmul(dqkv, w))
+                and torch.equal(w_r.grad, torch.einsum("bso,bsc->oc", dqkv,
+                                                       seq)))
+    log(f"  64-px level 0 (S 1024, C 96, rate {RATE}): the wide route is the "
+        f"long kernels on seq w^T, bit for bit: {same}")
+    if not same:
+        raise AssertionError("the unpadded wide route is not the long entry")
+    return {str(k): sorted(v) for k, v in routes.items()}
+
+
+def c512_runs(device):
+    """One train step and one eval batch of the CLIs' default model at
+    phase 18's depth and batch (random weights after ddi), for profile()."""
+    from gpnf_tpu_torch.data.datasets import get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfFlow
+    from gpnf_tpu_torch.train_marscf import model_config, parse_args
+    from gpnf_tpu_torch.training.loop import train_step
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    model = MarScfFlow(model_config(parse_args(C512_ARGS)), device=device)
+    batch = torch.from_numpy(next(iter(get_dataset(
+        "synthetic", C512_BATCH)[0]))).to(device)
+    model.ddi(batch, generator=torch.Generator(device=device).manual_seed(0))
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=C512_WARM_UP,
+                       batch_size=C512_BATCH)
+
+    def eval_batch(gen):
+        return model.eval()(batch, generator=gen)
+
+    return {"C=512 train step": (
+        lambda gen: train_step(model.train(), opt, batch, gen), True),
+        "C=512 eval batch": (eval_batch, False)}
+
+
+def cli_default_width(device, out_dir, card):
+    """Phase 18's drive: `python -m gpnf_tpu_torch.train_marscf` at its
+    default --C 512 and --coupling mixlogcdf on the synthetic set (L 3,
+    K 2, batch 16, 12 steps, a warmup of 4 batches, a loss record a step:
+    the loop's LOG_EVERY set to 1 for the run),
+    then `python -m gpnf_tpu_torch.eval_marscf` on its checkpoint: bits/dim
+    over the test set and one sampling pass. The counts are set to 0 just
+    before each and read just after."""
+    from gpnf_tpu_torch import eval_marscf, train_marscf
+    from gpnf_tpu_torch.data.datasets import get_dataset
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training import loop
+
+    ckpt = os.path.abspath(os.path.join(out_dir, "checkpoints_c512"))
+    log_path = os.path.abspath(os.path.join(out_dir, "train_c512.jsonl"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if os.path.exists(log_path):
+        os.remove(log_path)
+    args = [*C512_ARGS, "--checkpoint_dir", ckpt]
+    n_eval = len(get_dataset("synthetic", C512_BATCH)[1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    log_every, loop.LOG_EVERY = loop.LOG_EVERY, 1
+    try:
+        train_marscf.main([*args, "--max_steps", str(C512_STEPS), "--warm_up",
+                           str(C512_WARM_UP), "--log_path", log_path])
+    finally:
+        loop.LOG_EVERY = log_every
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["nll"] for r in records if "nll" in r]
+    test_nll = [r["test_nll"] for r in records if "test_nll" in r]
+    log(f"  train_marscf {' '.join(args)} --max_steps {C512_STEPS}: losses "
+        f"{[round(x, 4) for x in losses]} bits/dim, test {test_nll}; "
+        f"{train_s:.1f} s with ddi, eval and the checkpoint; peak "
+        f"{peak / 2 ** 30:.3f} GiB [{card}]; launches {train_counts}")
+    # every attention call's forward: the train steps, the eval at the end
+    # of the run over the test set, and ddi's one pass; the backward
+    # recomputes the projection (one more qkv GEMM a step's call)
+    steps = C512_ATTN * C512_STEPS
+    fwd = C512_ATTN * (C512_STEPS + n_eval + 1)
+    if not (len(losses) == C512_STEPS
+            and all(math.isfinite(x) for x in losses + test_nll)
+            and statistics.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"C=512 train losses not finite and falling: "
+                             f"{losses}, test {test_nll}")
+    want = {**dict.fromkeys(train_counts, 0),
+            "fused_attention_long": fwd, "attention_lanes": fwd,
+            "attention_qkv_gemm": fwd + steps,
+            "fused_attention_long_bwd": steps, "attention_lanes_bwd": steps,
+            "attention_dseq_gemm": steps, "attention_dw_gemm": steps,
+            "mixlogcdf_forward": fwd // 10}
+    if train_counts != want:
+        raise AssertionError(f"C=512 train launches {train_counts} != {want}")
+
+    cwd = os.getcwd()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    os.chdir(out_dir)  # the CLI writes its grid under ./samples
+    try:
+        served = eval_marscf.main(args)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    log(f"  eval_marscf: test bits/dim {served['nll']:.4f} over {n_eval} "
+        f"batches of {C512_BATCH}, {served['nan_count']} NaN before the "
+        f"clamp, grid {served['samples']}; {eval_s:.1f} s; launches "
+        f"{eval_counts}")
+    passes = C512_ATTN * (n_eval + 1)  # every eval batch, one sampling pass
+    want = {**dict.fromkeys(eval_counts, 0), "fused_attention_long": passes,
+            "attention_lanes": passes, "attention_qkv_gemm": passes,
+            "mixlogcdf_forward": 6 * n_eval,
+            "mixture_inverse": 6}
+    if not (math.isfinite(served["nll"]) and served["nll"] < 30.0
+            and eval_counts == want):
+        raise AssertionError(f"C=512 eval bits/dim {served['nll']} or "
+                             f"launches {eval_counts} != {want}")
+    shutil.rmtree(ckpt)  # ~1.9 GB of npz
+    return {"losses": losses, "test_nll": test_nll, "train_s": train_s,
+            "train_peak_memory_bytes": peak, "launches": train_counts,
+            "eval_bits_per_dim": served["nll"], "eval_s": eval_s,
+            "eval_launches": eval_counts, "nan_before_clamp":
+                served["nan_count"]}
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -1810,8 +2177,9 @@ def main():
     p.add_argument("--profile", action="store_true",
                    help="also trace one train step, one eval batch and "
                         "one sampling pass at 32 and at 64 px, one joint "
-                        "NLML + gradient at n = 1024 and 4096, and one fused "
-                        "train step at 32 px")
+                        "NLML + gradient at n = 1024 and 4096, one fused "
+                        "train step at 32 px, and one train step and eval "
+                        "batch of the CLIs' default C = 512")
     args = p.parse_args()
     t_start = time.perf_counter()
 
@@ -1917,6 +2285,17 @@ def main():
     t0 = time.perf_counter()
     core_kernels, core_drive = check_core_attention(device, timer)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
+    log("== 18. GatedAttn at every width: the lane-split kernels (Dh = 128, "
+        "256) vs plain versions, the flagship's routes, the CLIs' default "
+        "--C 512 trained and served")
+    t0 = time.perf_counter()
+    lane_kernels = check_lane_kernels(device, timer)
+    flagship_routes = flagship_routes_unchanged(device, model)
+    c512 = cli_default_width(device, args.out, card)
+    if args.profile:
+        c512["profile"] = profile(c512_runs(device), device, card,
+                                  keep=("gpnf::attention_lanes",))
+    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -1949,6 +2328,18 @@ def main():
                                 attention[1] + "230"),
         "fused_attention_qkv_bwd": ("gpnf_tpu_torch/csrc/fused_attention.cu",
                                     attention[1] + "257"),
+        # on phase 18's path (C = 512, S <= 512) the lane-split kernels and
+        # the GEMMs do together what the TPU's proj kernels do at that width
+        "attention_lanes": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                            attention[1] + "393"),
+        "attention_lanes_bwd": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                                attention[1] + "416"),
+        "attention_qkv_gemm": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                               attention[1] + "393"),
+        "attention_dseq_gemm": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                                attention[1] + "416"),
+        "attention_dw_gemm": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                              attention[1] + "416"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -1970,7 +2361,9 @@ def main():
                     "sample_fgc": fgc["sample_launches"][name],
                     "train64_fgc": fgc64["launches"][name],
                     "eval64_fgc": fgc64["eval_launches"][name],
-                    "core_attention": core_drive[name]}
+                    "core_attention": core_drive[name],
+                    "train_c512": c512["launches"][name],
+                    "serve_c512": c512["eval_launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -2024,6 +2417,22 @@ def main():
                 shape=f"(B, H, S, Dh) {CORE_SHAPES[0]}, rate 0; library_ms "
                       f"SDPA",
                 per_case=rows)
+        elif name in LANES or name in GEMMS:
+            # the CLIs' width (C = 512, Dh = 128) at the 32-px level 0, batch
+            # 16; the lane-split kernels at rate 0, beside SDPA (every case,
+            # rate 0.2 and Dh = 256 among them, in per_case)
+            rows = lane_kernels[name]
+            top = [r for r in rows if (r["c"], r["s"], r.get("rate", 0.0))
+                   == (512, 256, 0.0)][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=f"C 512 (4 heads of Dh 128), batch {C512_BATCH}, S 256"
+                      + ("; library_ms torch.mm" if name in GEMMS else
+                         ", rate 0; library_ms SDPA"),
+                per_case=rows)
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
             # bound on the same inputs (rate 0.2's rows in per_case)
@@ -2066,10 +2475,12 @@ def main():
                "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64},
                "core_attention": {"drive_launches": core_drive,
                                   "agreement": core_kernels["agreement"]},
+               "c512": {**c512, "wide_route": lane_kernels["wide_route"],
+                        "flagship_routes": flagship_routes},
                "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-17 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-18 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,11 @@
 //     scaled; the backward gives dq, dk, dv (B, H, S, Dh);
 //   - `_fwd_kernel_qkv` and `_bwd_kernel_qkv` (launched by `_run_qkv`), from
 //     `fused_attention_qkv`: qkv (B, S, 3C) packed [k | v | q], heads split
-//     in the kernel, q scaled by Dh^-1/2 as it is loaded; out (B, S, C); the
-//     backward gives dqkv (B, S, 3C) packed [dK | dV | dq * Dh^-1/2].
+//     in the kernel, q scaled by q_scale (the wrapper's Dh^-1/2) as it is
+//     loaded; out (B, S, C); the backward gives dqkv (B, S, 3C) packed
+//     [dK | dV | dq * q_scale].
+// Head widths: 4, 8, 16, 24, 32, 48, 64 (a thread a row) and 128, 256 (the
+// lane-split kernels of attention_tiled.cuh).
 // For every batch row b and head h:
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate);  out = Pd v
 // and the backward of the JAX module's docstring:
@@ -82,26 +85,27 @@ extern "C" int gpnf_attention_bwd(const int* seed, const float* q,
       }));
 }
 
-// out (B, S, C) from qkv (B, S, 3C) packed [k | v | q].
+// out (B, S, C) from qkv (B, S, 3C) packed [k | v | q], q scaled by
+// q_scale.
 extern "C" int gpnf_attention_qkv_fwd(const int* seed, const float* qkv,
                                       float* out, int batch, int seq_len,
-                                      int channels, int heads,
+                                      int channels, int heads, float q_scale,
                                       uint32_t threshold, float keep_scale,
                                       void* stream) {
   return gpnf::attention_packed_fwd(seed, qkv, out, batch, seq_len, channels,
-                                    heads, kMaxSeqLen, threshold, keep_scale,
-                                    stream);
+                                    heads, kMaxSeqLen, q_scale, threshold,
+                                    keep_scale, stream);
 }
 
-// dqkv (B, S, 3C) packed [dK | dV | dq * Dh^-1/2] from (seed, qkv, g);
+// dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] from (seed, qkv, g);
 // stats is the caller's (B, H, S, 3) scratch.
 extern "C" int gpnf_attention_qkv_bwd(const int* seed, const float* qkv,
                                       const float* g, float* dqkv,
                                       float* stats, int batch, int seq_len,
-                                      int channels, int heads,
+                                      int channels, int heads, float q_scale,
                                       uint32_t threshold, float keep_scale,
                                       void* stream) {
   return gpnf::attention_packed_bwd(seed, qkv, g, dqkv, stats, batch, seq_len,
-                                    channels, heads, kMaxSeqLen, threshold,
-                                    keep_scale, stream);
+                                    channels, heads, kMaxSeqLen, q_scale,
+                                    threshold, keep_scale, stream);
 }

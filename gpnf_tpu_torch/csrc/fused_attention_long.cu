@@ -1,5 +1,9 @@
-// Multi-head self-attention for long sequences (512 < S <= 2048), forward
-// with in-kernel dropout and backward, hand-written for Hopper (sm_90a).
+// Multi-head self-attention for long sequences (512 < S <= 2048), and
+// GatedAttn's wide route at any S <= 2048 where the proj kernel does not fit
+// (ops/kernels/fused_attention.py, `attention_route`; there, at S <= 512,
+// the projection and dseq / dW around these kernels are attention_gemm.cu's):
+// forward with in-kernel dropout and backward, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces: gpnf_tpu/ops/pallas/fused_attention.py, `_fwd_kernel_bh` and
 // `_bwd_kernel_bh` (both launched by `_run_bh`), from
@@ -9,7 +13,10 @@
 //
 // For every batch row b and head h, with qkv (B, S, 3C) packed [k | v | q]:
 //   k = qkv[b, :, h*Dh : (h+1)*Dh],  v = qkv[b, :, C + h*Dh : ...]
-//   q = qkv[b, :, 2C + h*Dh : ...] * Dh^-1/2
+//   q = qkv[b, :, 2C + h*Dh : ...] * q_scale
+// q_scale is Dh^-1/2 (1.f / sqrtf(Dh)), or the true width's where the
+// wrapper zero-padded the heads to a width the kernels are built for (Dh in
+// 4, 8, 16, 24, 32, 48, 64, and 128, 256 by the lane-split kernels).
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate)
 //   out[b, :, h*Dh : (h+1)*Dh] = Pd v
 // The keep bit of score (b, h, i, j) comes from philox.cuh, the same pure
@@ -19,14 +26,17 @@
 // Backward, with g = d out:
 //   dV = Pd^T g;  dPd = g V^T;  dP = keep * dPd / (1 - rate)
 //   dS = P * (dP - D),  D_i = sum_j dP_ij P_ij
-//   dq = dS K * Dh^-1/2;  dK = dS^T q;  dqkv = [dK | dV | dq]
+//   dq = dS K * q_scale;  dK = dS^T q;  dqkv = [dK | dV | dq]
 //
 // What bounds it on the H100: operations. At the 64-px row's level 0
 // (B=64, S=1024, C=96, 4 heads of Dh=24) the forward does two S x S x Dh
 // products of 12.9 GFLOP each plus ~1.3 GOP of softmax: >= ~0.40 ms at the
 // fp32 rate outside the tensor cores (67 TFLOP/s). The backward does five
 // such products (the scores again, dPd, dV, dq, dK), ~64 GFLOP: >= ~0.96
-// ms. The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us.
+// ms. The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At the CLIs'
+// default width (C=512, Dh=128) and the 32-px level 0 (B=16, S=256) the
+// forward's two products are 2.1 GFLOP, >= ~32 us; the backward's five
+// 5.4 GFLOP, >= ~80 us.
 //
 // Design: attention_tiled.cuh, whose key-tiled kernels this file
 // instantiates for the packed layout (PackedQkv), as fused_attention.cu
@@ -34,23 +44,26 @@
 // per (64 queries, head, batch row) with an online softmax forward; a dq
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv
-// (B, S, 3C) directly, so no head split or merge copies.
+// (B, S, 3C) directly, so no head split or merge copies. At Dh = 128 and
+// 256 the same passes run as the header's lane-split kernels: Dh / 32
+// lanes a row, the partial dot products summed by warp shuffles, the tiles
+// in dynamic shared memory.
 #include "attention_tiled.cuh"
 
 namespace {
 constexpr int kMaxSeqLen = 2048;  // the wrappers' MAX_S_LONG
 }  // namespace
 
-// out (B, S, C) from qkv (B, S, 3C); seed is a device (1,) int32, read only
-// when threshold > 0.
+// out (B, S, C) from qkv (B, S, 3C), q scaled by q_scale; seed is a device
+// (1,) int32, read only when threshold > 0.
 extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
                                        float* out, int batch, int seq_len,
-                                       int channels, int heads,
+                                       int channels, int heads, float q_scale,
                                        uint32_t threshold, float keep_scale,
                                        void* stream) {
   return gpnf::attention_packed_fwd(seed, qkv, out, batch, seq_len, channels,
-                                    heads, kMaxSeqLen, threshold, keep_scale,
-                                    stream);
+                                    heads, kMaxSeqLen, q_scale, threshold,
+                                    keep_scale, stream);
 }
 
 // dqkv (B, S, 3C) from (seed, qkv, g); stats is the caller's (B, H, S, 3)
@@ -58,10 +71,10 @@ extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
 extern "C" int gpnf_attention_long_bwd(const int* seed, const float* qkv,
                                        const float* g, float* dqkv,
                                        float* stats, int batch, int seq_len,
-                                       int channels, int heads,
+                                       int channels, int heads, float q_scale,
                                        uint32_t threshold, float keep_scale,
                                        void* stream) {
   return gpnf::attention_packed_bwd(seed, qkv, g, dqkv, stats, batch, seq_len,
-                                    channels, heads, kMaxSeqLen, threshold,
-                                    keep_scale, stream);
+                                    channels, heads, kMaxSeqLen, q_scale,
+                                    threshold, keep_scale, stream);
 }

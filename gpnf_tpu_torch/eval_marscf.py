@@ -40,7 +40,8 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     from .data.datasets import get_dataset
-    from .models.marscf import MarScfConfig, MarScfFlow
+    from .models.marscf import MarScfFlow
+    from .train_marscf import model_config
     from .training.checkpoints import CheckpointManager
     from .training.loop import evaluate, save_sample_grid
     from .utils.device import resolve_device
@@ -54,10 +55,7 @@ def main(argv=None) -> dict:
 
     _, test_loader, image_shape = get_dataset(args.dataset_name,
                                               args.batch_size, args.data_root)
-    cfg = MarScfConfig(image_shape=image_shape, L=args.L, K=args.K,
-                       hidden_channels=args.C, coupling=args.coupling,
-                       use_attention=not args.no_attention)
-    model = MarScfFlow(cfg, device=device).eval()
+    model = MarScfFlow(model_config(args, image_shape), device=device).eval()
     setting_id = f"marscf_{args.dataset_name}_{args.coupling}_{args.K}_{args.C}"
     CheckpointManager(os.path.join(args.checkpoint_dir, setting_id)).restore(
         model, best=True)

@@ -5,10 +5,13 @@ PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
 from .cholesky import cholesky, cholesky_device_launches, cholesky_plain
-from .fused_attention import (attention_long_plain, attention_long_plain_bwd,
+from .fused_attention import (attention_dseq_gemm, attention_dw_gemm,
+                              attention_lanes, attention_lanes_bwd,
+                              attention_long_plain, attention_long_plain_bwd,
                               attention_long_qkv, attention_long_qkv_bwd,
                               attention_plain, attention_plain_bwd,
                               attention_proj_plain, attention_proj_plain_bwd,
+                              attention_qkv_gemm, attention_route,
                               fused_attention, fused_attention_bwd,
                               fused_attention_long, fused_attention_long_bwd,
                               fused_attention_proj, fused_attention_proj_bwd,
@@ -26,7 +29,9 @@ KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            fused_attention_long_bwd, mixlogcdf_forward, mixture_inverse,
            fused_affine_forward, cholesky, tril_solve, fused_gated_conv,
            fused_gated_conv_bwd, fused_attention, fused_attention_bwd,
-           fused_attention_qkv, fused_attention_qkv_bwd)
+           fused_attention_qkv, fused_attention_qkv_bwd, attention_lanes,
+           attention_lanes_bwd, attention_qkv_gemm, attention_dseq_gemm,
+           attention_dw_gemm)
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_attention_proj", "fused_attention_long", "mixlogcdf_forward",
            "mixture_inverse", "fused_affine", "tril_solve", "cholesky",
-           "fused_gated_conv", "fused_attention")
+           "fused_gated_conv", "fused_attention", "attention_gemm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,8 +40,8 @@ SIGNATURES = {
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P],
     },
     "fused_attention_long": {
-        "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_U, _F, _P],
-        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
+        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
     },
     "mixlogcdf_forward": {
         "gpnf_mixlogcdf_forward": [_P] * 8 + [_I, _I, _I, _P],
@@ -68,8 +68,11 @@ SIGNATURES = {
     "fused_attention": {
         "gpnf_attention_fwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
         "gpnf_attention_bwd": [_P] * 9 + [_I] * 4 + [_U, _F, _P],
-        "gpnf_attention_qkv_fwd": [_P] * 3 + [_I] * 4 + [_U, _F, _P],
-        "gpnf_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_qkv_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
+        "gpnf_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
+    },
+    "attention_gemm": {
+        "gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

@@ -1,18 +1,29 @@
-"""Multi-head self-attention kernels: the fused-projection entry for
-S <= 512, the long-sequence entry for 512 < S <= 2048, and the core
+"""Multi-head self-attention kernels: the fused-projection entry, the
+long (or wide) entry for what the proj kernel does not take, and the core
 entries on separate q, k, v or a packed qkv for S <= 512.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
 - `fused_attention_proj` (forward and backward, dropout inside both), with
   the qkv projection inside the kernels: gpnf_tpu_torch/csrc/
   fused_attention_proj.cu. `attention_proj_plain` and
-  `attention_proj_plain_bwd` are its plain PyTorch versions.
+  `attention_proj_plain_bwd` are its plain PyTorch versions. Its kernels
+  keep a whole head and its 3 Dh weight rows in shared memory, so they take
+  only the shapes `attention_route` names "proj".
 - `fused_attention_long` (`_fwd_kernel_bh`, `_bwd_kernel_bh`): the
-  projection and dseq/dW are torch.matmul outside the kernels, as the JAX
-  package leaves them to XLA; the kernels take the packed qkv (B, S, 3C)
-  and tile the key axis: gpnf_tpu_torch/csrc/fused_attention_long.cu.
-  `attention_long_plain` and `attention_long_plain_bwd` are its plain
-  versions at the kernels' own boundary (qkv in, out or dqkv out).
+  kernels take the packed qkv (B, S, 3C) and tile the key axis:
+  gpnf_tpu_torch/csrc/fused_attention_long.cu. `attention_long_plain` and
+  `attention_long_plain_bwd` are its plain versions at the kernels' own
+  boundary (qkv in, out or dqkv out). For S > 512 the projection and
+  dseq/dW are torch.matmul outside the kernels, as the JAX package leaves
+  them to XLA there. It is also GatedAttn's wide route: every S <= 2048
+  and every head width up to 256, a width the kernels are not built for
+  zero-padded to the next one that is (q scaled by the true Dh^-1/2), the
+  outputs sliced back. At S <= 512, where the JAX package computes the
+  projection and dseq/dW inside `_fwd_kernel_proj` and `_bwd_kernel_proj`
+  at every width, the wide route runs them in the GEMM kernels of
+  gpnf_tpu_torch/csrc/attention_gemm.cu (`attention_qkv_gemm`,
+  `attention_dseq_gemm`, `attention_dw_gemm`; plain versions torch.matmul
+  and torch.einsum).
 - `fused_attention` (`_fwd_kernel`, `_bwd_kernel`): q, k, v (B, H, S, Dh),
   q already scaled; `attention_plain` and `attention_plain_bwd` are its
   plain versions. `fused_attention_qkv` (`_fwd_kernel_qkv`,
@@ -21,30 +32,48 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   run the long entry's key-tiled kernels (csrc/attention_tiled.cuh) from
   gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
   JAX package runs its jnp reference, even on a TPU; the port raises.
-Each source's header says what bounds its kernels on the H100 and how they
-are laid out. The wrappers run the plain versions for CPU tensors, and the
-tests and chip_smoke.py hold the kernels against them.
+The key-tiled kernels are built for the head widths HEAD_DIMS: a thread a
+query row up to Dh = 64, and the lane-split kernels at Dh = 128 and 256
+(Dh / 32 lanes a row, 32 dimensions each), whose launches by any entry are
+also counted by `attention_lanes` and `attention_lanes_bwd`.
+`attention_route(S, C, heads)` says which entry GatedAttn takes: the proj
+kernel where its width is built and its forward and backward fit in a
+block's shared memory, the wide route everywhere else. Each source's
+header says what bounds its kernels on the H100 and how they are laid
+out. The wrappers run the plain versions for CPU tensors, and the tests
+and chip_smoke.py hold the kernels against them.
 
 Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
 Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
 `bits >= rate * 2^32`; kept weights are scaled by 1 / (1 - rate). The bits
-are a pure function of (seed, b, h, i, j), so the backward regenerates
-the forward's mask in any order. `dropout_keep_plain` computes the same
-bits in torch integer arithmetic. They cannot match the JAX package's
-masks, which come from the TPU's own generator. Every entry draws the
-same bits, so at one seed they drop the same scores.
+are a pure function of (seed, b, h, i, j), never of Dh, so the backward
+regenerates the forward's mask in any order. `dropout_keep_plain` computes
+the same bits in torch integer arithmetic. They cannot match the JAX
+package's masks, which come from the TPU's own generator. Every entry
+draws the same bits, so at one seed they drop the same scores, padded or
+not.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
-HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # Dh values the kernels are built for
+# Dh values the key-tiled kernels are built for; 128 and 256 run the
+# lane-split kernels
+HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
+LANE_SPLIT_DIMS = (128, 256)
+PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
+# fused_attention_proj.cu: kMaxSharedBytes (227 KB a block on sm_90) in
+# floats, and kRows, the seq rows it stages at a time
+PROJ_SHARED_FLOATS = 232448 // 4
+PROJ_ROWS = 32
 K_CHUNK = 1024  # (b, s) rows per partial sum of dW in the backward
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -107,9 +136,68 @@ def dropout_keep_plain(seed: torch.Tensor, batch: int, heads: int,
     return torch.cat(keep)
 
 
-def _split_qkv(qkv, num_heads):
-    """k, v and the scaled q of the packed qkv (B, S, 3C), each
-    (B, H, S, Dh)."""
+def head_scale(head_dim: int) -> float:
+    """Dh^-1/2 as the packed kernels computed it before they took it as an
+    argument, 1.f / sqrtf(Dh) in float32: the kernel wrappers' default, so
+    every width keeps its bits. The plain versions' Dh ** -0.5 is the
+    correctly rounded value and may differ in the last bit (Dh = 24)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+
+
+class AttentionRoute(NamedTuple):
+    """GatedAttn's entry for one shape: "proj" (`fused_attention_proj`) or
+    "wide" (`fused_attention_long`), the head width, and the width the
+    kernels run: the head width, or the built width it is zero-padded to."""
+    entry: str
+    head_dim: int
+    kernel_head_dim: int
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The narrowest width in HEAD_DIMS that holds `head_dim`."""
+    for width in HEAD_DIMS:
+        if width >= head_dim:
+            return width
+    raise ValueError(f"head width {head_dim} > {HEAD_DIMS[-1]}, the widest "
+                     f"the attention kernels are built for (C > "
+                     f"{4 * HEAD_DIMS[-1]} with 4 heads)")
+
+
+def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
+    """The least shared memory of the proj backward kernel, in floats:
+    fused_attention_proj.cu's bwd_shared_floats with G left in device
+    memory (its fwd_shared_floats and 3 S floats of m, l, D); the
+    forward's is less."""
+    cp = channels + 1
+    return (3 * head_dim * cp + PROJ_ROWS * cp + 3 * seq_len * head_dim
+            + 3 * seq_len)
+
+
+def attention_route(seq_len: int, channels: int,
+                    num_heads: int) -> AttentionRoute:
+    """Which entry computes GatedAttn's attention for S = seq_len, C =
+    channels: the proj kernel where its head width is built, S <= MAX_S
+    and its backward fits a block's shared memory (then the forward fits
+    too; the backward leaves G in device memory where it must), the wide
+    route `fused_attention_long` everywhere else, at the padded width.
+    Decided from the shape alone, before any launch; raises for S >
+    MAX_S_LONG or a head width above 256."""
+    if channels % num_heads:
+        raise ValueError(f"C={channels} is not a multiple of {num_heads} "
+                         f"heads")
+    if seq_len > MAX_S_LONG:
+        raise ValueError(f"S={seq_len} > {MAX_S_LONG}, beyond the attention "
+                         f"kernels' range")
+    dh = channels // num_heads
+    fits = proj_shared_floats(seq_len, channels, dh) <= PROJ_SHARED_FLOATS
+    if dh in PROJ_HEAD_DIMS and seq_len <= MAX_S and fits:
+        return AttentionRoute("proj", dh, dh)
+    return AttentionRoute("wide", dh, padded_head_dim(dh))
+
+
+def _split_qkv(qkv, num_heads, q_scale=None):
+    """k, v and q times q_scale (default Dh ** -0.5) of the packed qkv
+    (B, S, 3C), each (B, H, S, Dh)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
@@ -118,7 +206,7 @@ def _split_qkv(qkv, num_heads):
         return t.reshape(b, s, num_heads, dh).transpose(1, 2)
 
     k, v, q = (heads(t) for t in qkv.split(c, dim=-1))
-    return k, v, q * dh ** -0.5
+    return k, v, q * (dh ** -0.5 if q_scale is None else q_scale)
 
 
 def _merge_heads(t):
@@ -162,29 +250,33 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_long_plain(qkv: torch.Tensor, num_heads: int,
                          rate: float = 0.0,
-                         seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         seed: Optional[torch.Tensor] = None,
+                         q_scale: Optional[float] = None) -> torch.Tensor:
     """qkv (B, S, 3C) packed [k | v | q], q not yet scaled -> (B, S, C):
-    `attention_plain` on the heads, q scaled by Dh^-1/2. The plain version
-    of both packed entries, `fused_attention_long` and
+    `attention_plain` on the heads, q scaled by q_scale (default Dh^-1/2;
+    the wide route passes the true width's scale for padded heads). The
+    plain version of both packed entries, `fused_attention_long` and
     `fused_attention_qkv`."""
-    k, v, q = _split_qkv(qkv, num_heads)
+    k, v, q = _split_qkv(qkv, num_heads, q_scale)
     return _merge_heads(attention_plain(q, k, v, rate, seed))
 
 
 def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
                              num_heads: int, rate: float = 0.0,
-                             seed: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
-    """dqkv (B, S, 3C), packed [dK | dV | dq * Dh^-1/2], of
+                             seed: Optional[torch.Tensor] = None,
+                             q_scale: Optional[float] = None) -> torch.Tensor:
+    """dqkv (B, S, 3C), packed [dK | dV | dq * q_scale], of
     `attention_long_plain` for the cotangent g (B, S, C), by
     `attention_plain_bwd` on the heads."""
     b, s, c3 = qkv.shape
     dh = c3 // 3 // num_heads
-    k, v, q = _split_qkv(qkv, num_heads)
+    if q_scale is None:
+        q_scale = dh ** -0.5
+    k, v, q = _split_qkv(qkv, num_heads, q_scale)
     gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
     dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed)
     return torch.cat([_merge_heads(dk), _merge_heads(dv),
-                      _merge_heads(dq * dh ** -0.5)], dim=-1)
+                      _merge_heads(dq * q_scale)], dim=-1)
 
 
 def _project_bwd(dqkv, seq, w):
@@ -238,15 +330,18 @@ def _validate_qkv(kernel, qkv, num_heads, rate, seed):
     _check_heads_and_rate(kernel, qkv.shape[2] // 3, num_heads, rate, seed)
 
 
-def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed, **tensors):
+def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
+               head_dims=HEAD_DIMS, **tensors):
     """The kernel's own limits (S, head width, float32), then device and
     layout; returns (device, seed pointer, threshold, keep scale)."""
     if seq_len > max_s:
         raise ValueError(f"{kernel}: S={seq_len} > {max_s}, beyond the "
                          f"kernel's range")
-    if head_dim not in HEAD_DIMS:
+    if head_dim not in head_dims:
         raise ValueError(f"{kernel}: head width {head_dim} not in "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}, the widths the kernel is built for "
+                         f"(fused_attention_long, GatedAttn's wide route, "
+                         f"pads any width up to {HEAD_DIMS[-1]})")
     for arg, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
@@ -260,14 +355,30 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed, **tensors):
     return device, seed.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, **tensors):
+    """The proj kernels' shared-memory fit, which `attention_route` checks,
+    then their `_cuda_args`."""
+    b, s, c = seq.shape
+    dh = c // num_heads
+    if (s <= MAX_S and dh in PROJ_HEAD_DIMS
+            and attention_route(s, c, num_heads).entry != "proj"):
+        raise ValueError(
+            f"{kernel}: S={s}, C={c} over {num_heads} heads needs "
+            f"{proj_shared_floats(s, c, dh) * 4} bytes of shared memory, "
+            f"over the {PROJ_SHARED_FLOATS * 4} a block has; "
+            f"fused_attention_long (GatedAttn's wide route) computes the "
+            f"same function there")
+    return _cuda_args(kernel, s, dh, MAX_S, rate, seed, PROJ_HEAD_DIMS,
+                      seq=seq, w=w, **tensors)
+
+
 def _forward(seq, w, num_heads, rate, seed):
     _validate(seq, w, num_heads, rate, seed)
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return attention_proj_plain(seq, w, num_heads, rate, seed)
     b, s, c = seq.shape
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_proj", s, c // num_heads, MAX_S, rate, seed, seq=seq,
-        w=w)
+    device, seed_ptr, threshold, scale = _proj_cuda_args(
+        "fused_attention_proj", seq, w, num_heads, rate, seed)
     out = torch.empty_like(seq)
     _native.launch("fused_attention_proj", "gpnf_attention_proj_fwd", device,
                    seed_ptr, seq.data_ptr(), w.data_ptr(), out.data_ptr(), b,
@@ -290,9 +401,8 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
     if all(t.device.type == "cpu" for t in (seq, w, g)):
         return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
     b, s, c = seq.shape
-    device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_proj_bwd", s, c // num_heads, MAX_S, rate, seed,
-        seq=seq, w=w, g=g)
+    device, seed_ptr, threshold, scale = _proj_cuda_args(
+        "fused_attention_proj_bwd", seq, w, num_heads, rate, seed, g=g)
     parts = -(-b * s // K_CHUNK)
     dqkv = torch.empty((b, s, 3 * c), dtype=seq.dtype, device=device)
     partial = torch.empty((parts, 3 * c, c), dtype=seq.dtype, device=device)
@@ -336,32 +446,61 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
 
 
 # -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
-def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, rate, seed):
+class LaunchCount:
+    """The launch count of kernels that no wrapper of their own launches:
+    the lane-split kernels, which every key-tiled attention entry runs at
+    Dh = 128 and 256. The entry counts the launch too."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+attention_lanes = LaunchCount("attention_lanes")
+attention_lanes_bwd = LaunchCount("attention_lanes_bwd")
+
+
+def _count_lanes(head_dim, counter):
+    if head_dim in LANE_SPLIT_DIMS:
+        counter.launches += 1
+
+
+def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
+                seed):
     """Launch the packed forward `fn` of library `source` (the long entry's
-    or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks;
-    returns out (B, S, C)."""
+    or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks,
+    q scaled by q_scale (None: `head_scale`); returns out (B, S, C)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
+    if q_scale is None:
+        q_scale = head_scale(c // num_heads)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
     _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
-                   out.data_ptr(), b, s, c, num_heads, threshold, scale)
+                   out.data_ptr(), b, s, c, num_heads, q_scale, threshold,
+                   scale)
+    _count_lanes(c // num_heads, attention_lanes)
     return out
 
 
-def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, rate, seed):
+def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
+                seed):
     """Launch the packed backward `fn` of library `source` on CUDA tensors
-    after the kernel's checks; returns dqkv (B, S, 3C)."""
+    after the kernel's checks, q scaled by q_scale (None: `head_scale`);
+    returns dqkv (B, S, 3C)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
+    if q_scale is None:
+        q_scale = head_scale(c // num_heads)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv, g=g)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b, num_heads, s, 3), dtype=qkv.dtype, device=device)
     _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
                    g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, c,
-                   num_heads, threshold, scale)
+                   num_heads, q_scale, threshold, scale)
+    _count_lanes(c // num_heads, attention_lanes_bwd)
     return dqkv
 
 
@@ -372,40 +511,143 @@ def _check_cotangent(kernel, qkv, g):
                          f"{(b, s, c3 // 3)}")
 
 
-# -- the long-sequence entry ---------------------------------------------------------
+# -- the long-sequence (and wide) entry ----------------------------------------------
 def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
-                       seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       seed: Optional[torch.Tensor] = None,
+                       q_scale: Optional[float] = None) -> torch.Tensor:
     """The forward kernel at its own boundary: qkv (B, S, 3C) packed
-    [k | v | q] -> (B, S, C). CPU tensors take `attention_long_plain`; CUDA
+    [k | v | q] -> (B, S, C), q scaled by q_scale (default Dh^-1/2). CPU
+    tensors take `attention_long_plain` with the same arguments; CUDA
     tensors launch the kernel or raise (S > 2048, a head width outside
     HEAD_DIMS, anything but float32)."""
     _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
-        return attention_long_plain(qkv, num_heads, rate, seed)
+        return attention_long_plain(qkv, num_heads, rate, seed, q_scale)
     out = _packed_fwd("fused_attention_long", "fused_attention_long",
                       "gpnf_attention_long_fwd", MAX_S_LONG, qkv, num_heads,
-                      rate, seed)
+                      q_scale, rate, seed)
     fused_attention_long.launches += 1
     return out
 
 
 def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                            rate: float = 0.0,
-                           seed: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           seed: Optional[torch.Tensor] = None,
+                           q_scale: Optional[float] = None) -> torch.Tensor:
     """The backward kernels at their own boundary: dqkv (B, S, 3C) of
     `attention_long_qkv` for the cotangent g (B, S, C), the mask regenerated
-    from `seed`. CPU tensors take `attention_long_plain_bwd`; CUDA tensors
-    launch the kernels or raise."""
+    from `seed`. CPU tensors take `attention_long_plain_bwd` with the same
+    arguments; CUDA tensors launch the kernels or raise."""
     _validate_qkv("fused_attention_long_bwd", qkv, num_heads, rate, seed)
     _check_cotangent("fused_attention_long_bwd", qkv, g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
-        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
+        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed,
+                                        q_scale)
     dqkv = _packed_bwd("fused_attention_long_bwd", "fused_attention_long",
                        "gpnf_attention_long_bwd", MAX_S_LONG, qkv, g,
-                       num_heads, rate, seed)
+                       num_heads, q_scale, rate, seed)
     fused_attention_long_bwd.launches += 1
     return dqkv
+
+
+# -- the wide route's projection at S <= MAX_S: qkv = seq w^T, dseq and dW -------
+def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b):
+    """c = A B (m x n, A m x k, B k x n) by csrc/attention_gemm.cu on CUDA
+    tensors, A read from a transposed where trans_a, B from b where
+    trans_b; c has the given shape. Raises unless a and b hold m k and k n
+    values."""
+    if a.numel() != m * k or b.numel() != k * n or a.dim() != 3:
+        raise ValueError(f"{kernel}: {tuple(a.shape)} and {tuple(b.shape)} "
+                         f"do not make a product")
+    device = _native.check_cuda_inputs(kernel, a=a, b=b)
+    c = torch.empty(shape, dtype=a.dtype, device=device)
+    _native.launch("attention_gemm", "gpnf_attention_gemm", device,
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                   int(trans_a), int(trans_b))
+    return c
+
+
+def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """qkv = seq w^T, seq (B, S, C) and w (3C, C) -> (B, S, 3C): the
+    projection that `_fwd_kernel_proj` computes in its body, on the wide
+    route. CPU tensors take torch.matmul (its plain version); CUDA tensors
+    launch the kernel or raise."""
+    if seq.device.type == "cpu" and w.device.type == "cpu":
+        return torch.matmul(seq, w.t())
+    b, s, c = seq.shape
+    out = _gemm("attention_qkv_gemm", seq, w, (b, s, w.shape[0]), b * s,
+                w.shape[0], c, False, True)
+    attention_qkv_gemm.launches += 1
+    return out
+
+
+def attention_dseq_gemm(dqkv: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dseq = dqkv w, dqkv (B, S, 3C) and w (3C, C) -> (B, S, C), as
+    `_bwd_kernel_proj` computes it. CPU tensors take torch.matmul; CUDA
+    tensors launch the kernel or raise."""
+    if dqkv.device.type == "cpu" and w.device.type == "cpu":
+        return torch.matmul(dqkv, w)
+    b, s, c3 = dqkv.shape
+    out = _gemm("attention_dseq_gemm", dqkv, w, (b, s, w.shape[1]), b * s,
+                w.shape[1], c3, False, False)
+    attention_dseq_gemm.launches += 1
+    return out
+
+
+def attention_dw_gemm(dqkv: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """dW = dqkv^T seq summed over (B, S), dqkv (B, S, 3C) and seq
+    (B, S, C) -> (3C, C), as `_bwd_kernel_proj` computes it. CPU tensors
+    take torch.einsum; CUDA tensors launch the kernel or raise."""
+    if dqkv.device.type == "cpu" and seq.device.type == "cpu":
+        return torch.einsum("bso,bsc->oc", dqkv, seq)
+    b, s, c3 = dqkv.shape
+    out = _gemm("attention_dw_gemm", dqkv, seq, (c3, seq.shape[2]), c3,
+                seq.shape[2], b * s, True, False)
+    attention_dw_gemm.launches += 1
+    return out
+
+
+def _long_project(seq, w):
+    """qkv = seq w^T for the long entry: `attention_qkv_gemm` at S <= MAX_S,
+    where the JAX package computes it inside `_fwd_kernel_proj`; above, as
+    its `fused_attention_long` leaves it to XLA, torch.matmul."""
+    if seq.shape[1] <= MAX_S:
+        return attention_qkv_gemm(seq, w)
+    return torch.matmul(seq, w.t())
+
+
+def _long_project_bwd(dqkv, seq, w):
+    """(dseq, dW) of `_long_project` for the cotangent dqkv."""
+    if seq.shape[1] <= MAX_S:
+        return attention_dseq_gemm(dqkv, w), attention_dw_gemm(dqkv, seq)
+    return _project_bwd(dqkv, seq, w)
+
+
+def _pad_heads(t, head_dim, width):
+    """(B, S, n * head_dim) -> (B, S, n * width), every head zero-padded to
+    `width` channels; t itself where the two are equal."""
+    if width == head_dim:
+        return t
+    b, s, _ = t.shape
+    return F.pad(t.reshape(b, s, -1, head_dim),
+                 (0, width - head_dim)).reshape(b, s, -1)
+
+
+def _unpad_heads(t, head_dim, width):
+    """The inverse of `_pad_heads`: each head's first head_dim channels."""
+    if width == head_dim:
+        return t
+    b, s, _ = t.shape
+    return t.reshape(b, s, -1, width)[..., :head_dim].reshape(b, s, -1)
+
+
+def _wide_widths(c, num_heads):
+    """(Dh, the width the kernels run, q_scale): the true Dh ** -0.5 where
+    the heads are padded, else None, each entry's own default, so that an
+    unpadded call is the long entry's as it always was."""
+    dh = c // num_heads
+    width = padded_head_dim(dh)
+    return dh, width, (None if width == dh else dh ** -0.5)
 
 
 def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
@@ -413,12 +655,17 @@ def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
                              rate: float = 0.0,
                              seed: Optional[torch.Tensor] = None):
     """(dseq, dW) of `fused_attention_long` for the cotangent g: the
-    projection recomputed, dqkv from the kernels, then dseq = dqkv w and
-    dW = dqkv^T seq as torch.matmul (the JAX package's `_vjp_bwd_long`)."""
+    projection recomputed, dqkv from the kernels (heads padded as the
+    forward pads them), then dseq = dqkv w and dW = dqkv^T seq: the GEMM
+    kernels at S <= MAX_S, torch.matmul above (the JAX package's
+    `_vjp_bwd_long`)."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long_bwd")
-    dqkv = attention_long_qkv_bwd(torch.matmul(seq, w.t()), g, num_heads,
-                                  rate, seed)
-    return _project_bwd(dqkv, seq, w)
+    dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
+    dqkv = attention_long_qkv_bwd(
+        _pad_heads(_long_project(seq, w), dh, width),
+        _pad_heads(g, dh, width), num_heads, rate, seed, q_scale)
+    return _long_project_bwd(_unpad_heads(dqkv, dh, width).contiguous(),
+                             seq, w)
 
 
 class _AttentionLong(torch.autograd.Function):
@@ -429,8 +676,11 @@ class _AttentionLong(torch.autograd.Function):
     def forward(ctx, seq, w, seed, num_heads, rate):
         ctx.save_for_backward(seq, w, seed)
         ctx.num_heads, ctx.rate = num_heads, rate
-        return attention_long_qkv(torch.matmul(seq, w.t()), num_heads, rate,
-                                  seed)
+        dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
+        out = attention_long_qkv(
+            _pad_heads(_long_project(seq, w), dh, width), num_heads, rate,
+            seed, q_scale)
+        return _unpad_heads(out, dh, width)
 
     @staticmethod
     def backward(ctx, g):
@@ -443,10 +693,18 @@ class _AttentionLong(torch.autograd.Function):
 def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`fused_attention_proj`'s function for MAX_S < S <= MAX_S_LONG, with
-    the projection as torch.matmul outside the kernels. Differentiable in
-    seq and w. CPU tensors take the plain versions; CUDA tensors launch the
-    kernels or raise."""
+    """`fused_attention_proj`'s function with the projection outside the
+    attention kernels: the JAX package's entry for MAX_S < S <= MAX_S_LONG,
+    and GatedAttn's wide route wherever `attention_route` says the proj
+    kernel does not fit. The projection and dseq / dW are the GEMM kernels
+    (`attention_qkv_gemm`, `attention_dseq_gemm`, `attention_dw_gemm`) at
+    S <= MAX_S, where the JAX package computes them inside the proj
+    kernels, and torch.matmul above, where it leaves them to XLA. A head
+    width outside HEAD_DIMS (up to 256) is zero-padded to the next built
+    one in q, k, v and g, q scaled by the true Dh^-1/2, and the outputs
+    sliced back. Differentiable in seq and w. CPU tensors take the plain
+    versions after the same padding; CUDA tensors launch the kernels or
+    raise."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long")
     return _AttentionLong.apply(seq, w, seed, num_heads, rate)
 
@@ -471,6 +729,7 @@ def _attention_forward(q, k, v, rate, seed):
     _native.launch("fused_attention", "gpnf_attention_fwd", device, seed_ptr,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    b, h, s, dh, threshold, scale)
+    _count_lanes(dh, attention_lanes)
     fused_attention.launches += 1
     return out
 
@@ -493,6 +752,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    stats.data_ptr(), b, h, s, dh, threshold, scale)
+    _count_lanes(dh, attention_lanes_bwd)
     fused_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -531,8 +791,8 @@ def _attention_qkv_forward(qkv, num_heads, rate, seed):
     if qkv.device.type == "cpu":
         return attention_long_plain(qkv, num_heads, rate, seed)
     out = _packed_fwd("fused_attention_qkv", "fused_attention",
-                      "gpnf_attention_qkv_fwd", MAX_S, qkv, num_heads, rate,
-                      seed)
+                      "gpnf_attention_qkv_fwd", MAX_S, qkv, num_heads, None,
+                      rate, seed)
     fused_attention_qkv.launches += 1
     return out
 
@@ -551,7 +811,7 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor,
         return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
     dqkv = _packed_bwd("fused_attention_qkv_bwd", "fused_attention",
                        "gpnf_attention_qkv_bwd", MAX_S, qkv, g, num_heads,
-                       rate, seed)
+                       None, rate, seed)
     fused_attention_qkv_bwd.launches += 1
     return dqkv
 
@@ -593,3 +853,6 @@ fused_attention.launches = 0
 fused_attention_bwd.launches = 0
 fused_attention_qkv.launches = 0
 fused_attention_qkv_bwd.launches = 0
+attention_qkv_gemm.launches = 0
+attention_dseq_gemm.launches = 0
+attention_dw_gemm.launches = 0

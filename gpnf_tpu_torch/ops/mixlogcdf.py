@@ -22,8 +22,12 @@ channel-last, as the JAX package's NCHW layout does. With `fused_gconv`
 one `fused_gated_conv` kernel on channel-last x, whose output goes straight
 into the first layer norm. The mixture transform and the mixture inverse
 are kernels of `ops.kernels`, and every GatedAttn is an attention kernel:
-the fused-projection one for S <= 512, the long-sequence one above (the
-64-px level 0, S = 1024), as the JAX package dispatches.
+the fused-projection one where `attention_route` says it fits (S <= 512,
+a head width it is built for, a block's shared memory: the flagship's C =
+96 at every level but the 64-px level 0), else the wide route, the
+long-sequence entry with its heads zero-padded to a built width (S = 1024
+at 64 px, as the JAX package dispatches; and C = 8, 48, 160, 256, 512 at
+any S, where the JAX package runs its jnp reference).
 """
 from __future__ import annotations
 
@@ -36,9 +40,9 @@ import torch.nn.functional as F
 from . import logistic
 from .basic import split_channels, sum_except_batch
 from .conv import WNConv2d, WNDense
-from .kernels import (fused_attention_long, fused_attention_proj,
-                      fused_gated_conv, mixlogcdf_forward, mixture_inverse)
-from .kernels.fused_attention import MAX_S
+from .kernels import (attention_route, fused_attention_long,
+                      fused_attention_proj, fused_gated_conv, mixlogcdf_forward,
+                      mixture_inverse)
 
 
 def concat_elu(x, dim=1):
@@ -122,11 +126,17 @@ class GatedAttn(nn.Module):
     def __init__(self, d_model: int, num_heads: int = 4,
                  drop_prob: float = 0.0, *, generator=None):
         super().__init__()
+        self.d_model = d_model
         self.num_heads = num_heads
         self.drop_prob = drop_prob
         self.in_proj = WNDense(d_model, 3 * d_model, bias=False,
                                generator=generator)
         self.gate = WNDense(d_model, 2 * d_model, generator=generator)
+
+    def route(self, seq_len: int):
+        """The attention entry for S = seq_len (`attention_route`): "proj"
+        or "wide", and the head width the kernels run."""
+        return attention_route(seq_len, self.d_model, self.num_heads)
 
     def forward(self, x, generator=None):
         """x (B, H, W, C) channel-last."""
@@ -138,7 +148,7 @@ class GatedAttn(nn.Module):
             rate = self.drop_prob
             seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
                                  dtype=torch.int32, device=x.device)
-        fused = (fused_attention_proj if h * w <= MAX_S
+        fused = (fused_attention_proj if self.route(h * w).entry == "proj"
                  else fused_attention_long)
         attn = fused(seq.contiguous(),
                      self.in_proj.effective_weight().contiguous(),

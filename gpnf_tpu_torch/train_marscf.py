@@ -49,9 +49,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def model_config(args, image_shape=(32, 32, 3)):
+    """The MarScfConfig of the parsed flags, for both CLIs (the train loop
+    sets the image shape from the dataset)."""
+    from .models.marscf import MarScfConfig
+
+    return MarScfConfig(image_shape=image_shape, L=args.L, K=args.K,
+                        hidden_channels=args.C, coupling=args.coupling,
+                        use_attention=not args.no_attention)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    from .models.marscf import MarScfConfig
     from .training.loop import TrainConfig, train
     from .utils.device import resolve_device
 
@@ -61,9 +70,7 @@ def main(argv=None) -> dict:
     print(f"device: {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
           f", tf32 off")
-    model_cfg = MarScfConfig(L=args.L, K=args.K, hidden_channels=args.C,
-                             coupling=args.coupling,
-                             use_attention=not args.no_attention)
+    model_cfg = model_config(args)
     train_cfg = TrainConfig(
         dataset=args.dataset_name, data_root=args.data_root,
         batch_size=args.batch_size, warm_up=args.warm_up, epochs=args.epochs,

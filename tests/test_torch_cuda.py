@@ -788,3 +788,132 @@ def test_core_attention_rejects_what_the_kernels_do_not_take(cuda_device):
                      lambda: kernels.fused_attention_qkv_bwd(qkv, g3, heads)):
             with pytest.raises(error, match=match):
                 call()
+
+
+# -- the lane-split kernels (Dh = 128, 256) and GatedAttn at every width -----------
+def _lane_counts():
+    return (kernels.attention_lanes.launches,
+            kernels.attention_lanes_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [16, 64, 100, 256, 1024])
+@pytest.mark.parametrize("dh", [128, 256])
+def test_lane_split_kernels_match_plain_on_card(cuda_device, dh, s, rate):
+    """The long entry at Dh = 128 and 256 (4 heads, batch 2): one seed for
+    kernel and plain version, the forward within 1e-5 of its largest
+    magnitude (outputs reach ~2 at C = 1024, and a score sums 256 products:
+    1.1e-5 absolute, 6e-6 relative, was seen), dqkv within 1e-4 of its
+    largest; two backward calls bit for bit; each call counts one
+    lane-split launch."""
+    qkv, g, seed = _qkv_inputs(cuda_device, s, c=4 * dh, seed=dh + s)
+    before = _lane_counts()
+    out = kernels.attention_long_qkv(qkv, 4, rate, seed)
+    dqkv = kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed)
+    assert _lane_counts() == (before[0] + 1, before[1] + 1)
+    assert _rel_max(out, kernels.attention_long_plain(qkv, 4, rate,
+                                                      seed)) <= 1e-5
+    assert torch.isfinite(dqkv).all()
+    assert _rel_max(dqkv, kernels.attention_long_plain_bwd(
+        qkv, g, 4, rate, seed)) <= 1e-4
+    assert torch.equal(dqkv, kernels.attention_long_qkv_bwd(qkv, g, 4, rate,
+                                                            seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("shape", [(4, 4, 256, 128), (2, 4, 100, 256)])
+def test_core_entries_at_lane_split_widths_match_plain_on_card(
+        cuda_device, shape, layout):
+    """fused_attention and fused_attention_qkv run the lane-split kernels at
+    Dh = 128 and 256: rate 0.2, one seed, against their plain versions."""
+    q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, shape)
+    heads = shape[1]
+    if layout == "split":
+        got = kernels.fused_attention(q, k, v, 0.2, seed)
+        want = kernels.attention_plain(q, k, v, 0.2, seed)
+        grads = kernels.fused_attention_bwd(q, k, v, g, 0.2, seed)
+        want_grads = kernels.attention_plain_bwd(q, k, v, g, 0.2, seed)
+    else:
+        got = kernels.fused_attention_qkv(qkv, heads, 0.2, seed)
+        want = kernels.attention_long_plain(qkv, heads, 0.2, seed)
+        grads = (kernels.fused_attention_qkv_bwd(qkv, g3, heads, 0.2, seed),)
+        want_grads = (kernels.attention_long_plain_bwd(qkv, g3, heads, 0.2,
+                                                       seed),)
+    _close(got, want, rtol=0, atol=1e-5)
+    for a, b in zip(grads, want_grads):
+        assert torch.isfinite(a).all()
+        assert _rel_max(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,s,c", [(16, 256, 512), (16, 16, 512),
+                                       (2, 100, 160), (1, 7, 8)])
+def test_projection_gemms_match_plain_on_card(cuda_device, batch, s, c):
+    """The wide route's GEMM kernels (qkv = seq w^T, dseq = dqkv w, dW =
+    dqkv^T seq) against torch.matmul, within 1e-5 of the largest magnitude
+    (a sum of up to B S float32 products), ragged tiles among the shapes;
+    two calls bit for bit; each call counts one launch."""
+    seq, w, _, _ = _attention_inputs(cuda_device, s, batch, c, seed=s + c)
+    dqkv = _normal(np.random.default_rng(c), (batch, s, 3 * c)).to(
+        cuda_device)
+    for fn, a, b, want in (
+            (kernels.attention_qkv_gemm, seq, w, torch.matmul(seq, w.t())),
+            (kernels.attention_dseq_gemm, dqkv, w, torch.matmul(dqkv, w)),
+            (kernels.attention_dw_gemm, dqkv, seq,
+             torch.einsum("bso,bsc->oc", dqkv, seq))):
+        before = fn.launches
+        got = fn(a, b)
+        assert fn.launches == before + 1
+        assert got.shape == want.shape
+        assert _rel_max(got, want) <= 1e-5, fn.__name__
+        assert torch.equal(got, fn(a, b))
+
+
+# the entry each width takes at the 32-px levels' S = 256, 64, 16
+WIDTH_ROUTES = {8: "www", 48: "www", 128: "ppp", 160: "www", 192: "wpp",
+                512: "www"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 64, 16])
+@pytest.mark.parametrize("c", sorted(WIDTH_ROUTES))
+def test_gated_attn_at_every_width_on_card_matches_cpu(cuda_device, c, s):
+    """GatedAttn (4 heads) on the card against the same weights on the CPU,
+    the plain path, in eval mode (batch 2): output within rtol 1e-4, atol
+    1e-5 (the bar against the JAX GatedAttn), the gradients of x and of the
+    weights within 1e-4 of their largest; the launch counts show the route
+    `attention_route` names (proj, or the long entry with the GEMM kernels
+    around it, and the lane-split kernels at C = 512)."""
+    from gpnf_tpu_torch.ops.mixlogcdf import GatedAttn
+
+    side = int(s ** 0.5)
+    cpu = GatedAttn(c, generator=torch.Generator().manual_seed(c)).eval()
+    card = GatedAttn(c).to(cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(c + s)
+    x, g = _normal(r, (2, side, side, c)), _normal(r, (2, side, side, c), 0.5)
+    wide = WIDTH_ROUTES[c][[256, 64, 16].index(s)] == "w"
+    assert card.route(s).entry == ("wide" if wide else "proj")
+    x_card = x.to(cuda_device).requires_grad_()
+    x_cpu = x.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = card(x_card)
+    out.backward(g.to(cuda_device))
+    counts = kernels.launch_counts()
+    want = cpu(x_cpu)
+    want.backward(g)
+    entry = "fused_attention_long" if wide else "fused_attention_proj"
+    lanes = int(c == 512)
+    # the wide route's projection runs twice (the backward recomputes it)
+    gemms = {"attention_qkv_gemm": 2, "attention_dseq_gemm": 1,
+             "attention_dw_gemm": 1} if wide else {}
+    assert counts == {**dict.fromkeys(counts, 0), entry: 1, entry + "_bwd": 1,
+                      "attention_lanes": lanes, "attention_lanes_bwd": lanes,
+                      **gemms}
+    _close(out, want, rtol=1e-4, atol=1e-5)
+    assert _rel_max(x_card.grad.cpu(), x_cpu.grad) <= 1e-4
+    for (name, p_card), p_cpu in zip(card.named_parameters(),
+                                     cpu.parameters()):
+        assert _rel_max(p_card.grad.cpu(), p_cpu.grad) <= 1e-4, name
