@@ -13,7 +13,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      computes the same function, and its bound on this card; the
      attention forward at dropout rate 0 and 0.2 (one seed for kernel and
      plain version: the same mask), its backward at 0 and 0.2 (dseq, dW,
-     and two calls bit for bit the same);
+     and two calls bit for bit the same), and the backward's stages at
+     each level's shapes: the projection, dseq and dW GEMMs against
+     torch.matmul (torch.mm beside them) and the key-tiled dq and dK/dV
+     kernels at rate 0 and 0.2 against their plain version (SDPA's
+     backward beside them), each two calls bit for bit;
   4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
      32 components, ConvLSTM prior, dropout 0.2; random weights from
      --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
@@ -112,17 +116,21 @@ Phases, each of which raises (exit code != 0) when it fails:
      (batch 4, S = 256), rate 0 and 0.2 (one seed), two backward calls bit
      for bit the same, each with its time, the plain version's, SDPA's (rate
      0) and its bound; the wide route's GEMM kernels (qkv = seq w^T,
-     dseq, dW at S <= 512) against torch.matmul at C = 512, two calls bit
-     for bit, with times and bounds; the whole wide route at C = 512
-     beside autograd of F.linear + SDPA; the flagship's routes (proj at
-     the 32-px levels, the long entry unpadded at the 64-px level 0, bit
-     for bit the long kernels on seq w^T); then `train_marscf` at its default --C 512 and --coupling
+     dseq, dW at S <= 512, K split where few output tiles meet a long K)
+     against torch.matmul at C = 512, two calls bit for bit, with times
+     and bounds; the whole wide route at C = 512 beside autograd of
+     F.linear + SDPA; the flagship's routes (proj at the 32-px levels,
+     whose backward runs the projection GEMM, the key-tiled dq and
+     dK/dV kernels and the dseq and dW GEMMs; the long entry unpadded at
+     the 64-px level 0, bit for bit the long kernels on seq w^T); then `train_marscf` at its default --C 512 and --coupling
      mixlogcdf on the synthetic set (L 3, K 2, batch 16, 12 steps, the loss
      finite and the last 3 below the first, exact launch counts) and
      `eval_marscf` on its checkpoint (bits/dim over the test set, one
      sampling pass, exact launch counts); with --profile, device time by
      kernel over one C = 512 train step and eval batch. Every earlier phase
-     asserts that its path launches no lane-split or GEMM kernel.
+     asserts that its path launches no lane-split kernel, and the GEMM and
+     key-tiled backward kernels exactly as often as its proj backwards run
+     their stages (no C = 96 eval or sampling pass launches them).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -130,6 +138,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import importlib
 import itertools
 import json
 import math
@@ -214,12 +223,28 @@ CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
 NO_CORE = dict.fromkeys(CORE, 0)
 PER_STEP_64.update(NO_CORE)
-# the lane-split kernels (Dh = 128, 256) and the wide route's GEMMs (the
-# projection and dseq / dW at S <= 512; phase 18): no C = 96 path runs them
+# the lane-split kernels (Dh = 128, 256; phase 18): no C = 96 path runs
+# them. The GEMMs (the projection and dseq / dW at S <= 512) run on the wide
+# route and in every proj backward, whose stages are one launch each of
+# PROJ_BWD_STAGES: the projection recomputed, the key-tiled dq and dK/dV
+# kernels (the long entry's backward), dseq and dW
 LANES = ("attention_lanes", "attention_lanes_bwd")
 GEMMS = ("attention_qkv_gemm", "attention_dseq_gemm", "attention_dw_gemm")
 NO_WIDE = dict.fromkeys(LANES + GEMMS, 0)
+PROJ_BWD_STAGES = ("attention_qkv_gemm", "fused_attention_long_bwd",
+                   "attention_dseq_gemm", "attention_dw_gemm")
+
+
+def proj_bwd_stages(calls):
+    """The stage launches of `calls` proj backward calls."""
+    return dict.fromkeys(PROJ_BWD_STAGES, calls)
+
+
+# per 64-px step: the long entry's 40 at level 0 (S = 1024: its projection
+# in torch.matmul) and the 80 proj backwards' stages at levels 1 and 2
 PER_STEP_64.update(NO_WIDE)
+PER_STEP_64.update(proj_bwd_stages(80))
+PER_STEP_64["fused_attention_long_bwd"] = 40 + 80
 # phase 13's (batch, S): the 64-px level 0, and a ragged sequence
 LONG_CASES = ((BATCH, 1024), (4, 576))
 LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
@@ -245,6 +270,8 @@ def max_errs(got, want):
 # -- phase 3 -------------------------------------------------------------------
 def check_kernels(device, model, timer):
     from gpnf_tpu_torch.ops import kernels, logistic
+
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 
     gen = torch.Generator(device=device).manual_seed(1234)
     randn = lambda *shape, s=1.0: torch.randn(shape, generator=gen,
@@ -283,6 +310,78 @@ def check_kernels(device, model, timer):
             out = library_attention(seq_r, w_r)
         return timer(lambda: torch.autograd.grad(out, (seq_r, w_r), g,
                                                  retain_graph=True))
+
+    def sdpa_backward_ms(qkv, g):
+        """Autograd backward of SDPA on the heads of qkv (rate 0): the
+        library call beside the key-tiled backward stage."""
+        b, s, _ = qkv.shape
+        k_, v_, q_ = (t_.reshape(b, s, heads, c // heads).transpose(1, 2)
+                      .contiguous().requires_grad_() for t_ in qkv.split(
+                          c, dim=-1))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q_, k_, v_)
+        g4 = g.reshape(b, s, heads, c // heads).transpose(1, 2)
+        return timer(lambda: torch.autograd.grad(out, (q_, k_, v_), g4,
+                                                 retain_graph=True))
+
+    def check_stages(level, s, seq, w, g, seed, core):
+        """The proj backward's stages at this level's shapes, each against
+        its plain version: the projection, dseq and dW GEMMs (torch.matmul;
+        the bar of phase 18's GEMMs, 1e-5 of the largest |plain|) and the
+        key-tiled dq and dK/dV kernels at rate 0 and 0.2 (phase 13's bar,
+        1e-4 of the largest |plain|), two calls bit for bit each."""
+        rows = BATCH * s
+        qkv = kernels.attention_qkv_gemm(seq, w)
+        dqkv = kernels.attention_long_qkv_bwd(qkv, g, heads, RATE, seed)
+        for name, fn, plain, lib, (m, n, kk) in (
+                ("attention_qkv_gemm",
+                 lambda: kernels.attention_qkv_gemm(seq, w),
+                 lambda: torch.matmul(seq, w.t()),
+                 lambda: torch.mm(seq.view(rows, c), w.t()),
+                 (rows, 3 * c, c)),
+                ("attention_dseq_gemm",
+                 lambda: kernels.attention_dseq_gemm(dqkv, w),
+                 lambda: torch.matmul(dqkv, w),
+                 lambda: torch.mm(dqkv.view(rows, 3 * c), w),
+                 (rows, c, 3 * c)),
+                ("attention_dw_gemm",
+                 lambda: kernels.attention_dw_gemm(dqkv, seq),
+                 lambda: torch.einsum("bso,bsc->oc", dqkv, seq),
+                 lambda: torch.mm(dqkv.view(rows, 3 * c).t(),
+                                  seq.view(rows, c)),
+                 (3 * c, c, rows))):
+            got, want = fn(), plain()
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"{name} level {level}: two calls "
+                                     f"differ")
+            over_scale = float((got - want).abs().max() / want.abs().max())
+            if not over_scale <= 1e-5:
+                raise AssertionError(f"{name} level {level}: max abs err / "
+                                     f"max |plain| {over_scale} > 1e-5")
+            record(name, level, max_errs(got, want), timer(fn), timer(plain),
+                   timer(lib), 4 * (m * kk + kk * n + m * n), 2 * m * n * kk,
+                   m=m, n=n, k=kk, splits=fa.gemm_splits(m, n, kk),
+                   err_over_scale=float(f"{over_scale:.3g}"))
+        for rate in (0.0, RATE):
+            run = lambda: kernels.attention_long_qkv_bwd(qkv, g, heads, rate,
+                                                         seed)
+            plain = lambda: kernels.attention_long_plain_bwd(qkv, g, heads,
+                                                             rate, seed)
+            got, want = run(), plain()
+            if not torch.equal(got, run()):
+                raise AssertionError(f"key-tiled bwd level {level} rate "
+                                     f"{rate}: two calls differ")
+            over_scale = float((got - want).abs().max() / want.abs().max())
+            if not over_scale <= 1e-4:
+                raise AssertionError(f"key-tiled bwd level {level} rate "
+                                     f"{rate}: max abs err / max |plain| "
+                                     f"{over_scale} > 1e-4")
+            record("fused_attention_long_bwd", level, max_errs(got, want),
+                   timer(run), timer(plain),
+                   sdpa_backward_ms(qkv, g) if rate == 0.0 else None,
+                   4 * (2 * rows * 3 * c + rows * c),
+                   5 * core + 5 * BATCH * heads * s * s, rate=rate,
+                   err_over_scale=float(f"{over_scale:.3g}"))
 
     dh = c // heads
     with torch.no_grad():
@@ -339,6 +438,7 @@ def check_kernels(device, model, timer):
                        4 * (3 * BATCH * s * c + 2 * 3 * c * c),
                        3 * proj + 5 * core, rate=rate, deterministic=True,
                        err_over_scale=float(f"{over_scale:.3g}"))
+            check_stages(level, s, seq, w, g, seed, core)
 
             args = (randn(BATCH, d, s=0.5), randn(BATCH, d, s=0.1),
                     randn(BATCH, d, s=0.1), randn(BATCH, k, d),
@@ -422,7 +522,7 @@ def train(device, loader, out_dir, seed, card, fused=False):
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
             "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_LONG, **NO_CORE, **NO_WIDE,
+            **NO_LONG, **NO_CORE, **NO_WIDE, **proj_bwd_stages(120),
             **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
@@ -1853,9 +1953,9 @@ def check_lane_kernels(device, timer):
     from gpnf_tpu_torch.ops import kernels
 
     counts = kernels.launch_counts()
-    if any(counts[n] for n in NO_WIDE):
-        raise AssertionError(f"an earlier phase launched a lane-split or "
-                             f"GEMM kernel: {counts}")
+    if any(counts[n] for n in LANES):
+        raise AssertionError(f"an earlier phase launched a lane-split "
+                             f"kernel: {counts}")
     gen = torch.Generator(device=device).manual_seed(2468)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
     heads = 4
@@ -2013,9 +2113,12 @@ def check_lane_kernels(device, timer):
 
 def flagship_routes_unchanged(device, model):
     """Phase 18: every GatedAttn of the flagship (C = 96) keeps the entry it
-    had before the route: the proj kernel at the 32-px levels, and the long
-    entry unpadded at the 64-px level 0, whose forward and gradients are
-    the long kernels' on qkv = seq w^T, bit for bit."""
+    had before the route: the proj kernel at the 32-px levels, whose
+    backward runs the projection GEMM, the key-tiled dq and dK/dV kernels
+    and the dseq and dW GEMMs (phases 4, 14 and 16 count one launch of
+    each a proj backward), and the long entry unpadded at the 64-px level
+    0, whose forward and gradients are the long kernels' on qkv = seq w^T,
+    bit for bit."""
     from gpnf_tpu_torch.ops import kernels
 
     routes = {}
@@ -2301,7 +2404,11 @@ def main():
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
     meta = {
         "fused_attention_proj": (attention[0], attention[1] + "393"),
-        "fused_attention_proj_bwd": (attention[0], attention[1] + "416"),
+        # the backward's work in three stages of the kernels below: the
+        # projection (attention_gemm.cu), dq and dK/dV (the key-tiled
+        # kernels through fused_attention_long.cu), dseq and dW
+        "fused_attention_proj_bwd": (
+            "gpnf_tpu_torch/csrc/fused_attention_long.cu", attention[1] + "416"),
         "mixlogcdf_forward": ("gpnf_tpu_torch/csrc/mixlogcdf_forward.cu",
                               "gpnf_tpu/ops/pallas/fused_mixlogcdf.py:33"),
         "mixture_inverse": ("gpnf_tpu_torch/csrc/mixture_inverse.cu",
@@ -2424,30 +2531,36 @@ def main():
             rows = lane_kernels[name]
             top = [r for r in rows if (r["c"], r["s"], r.get("rate", 0.0))
                    == (512, 256, 0.0)][0]
+            # the GEMMs in the flagship's proj backward (C = 96): phase 3
+            flagship = per_level.get(name, [])
             entry.update(
-                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows + flagship),
                 ms=top["ms"], plain_ms=top["plain_ms"],
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                 library_ms=top["library_ms"],
                 shape=f"C 512 (4 heads of Dh 128), batch {C512_BATCH}, S 256"
                       + ("; library_ms torch.mm" if name in GEMMS else
                          ", rate 0; library_ms SDPA"),
-                per_case=rows)
+                per_case=rows, **({"flagship_levels": flagship} if flagship
+                                  else {}))
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
             # bound on the same inputs (rate 0.2's rows in per_case)
             rows = long_kernels[name]
             top = [r for r in rows if (r["batch"], r["s"], r["rate"]) ==
                    (*LONG_CASES[0], 0.0)][0]
+            # the backward's kernels in the flagship's proj backward: phase 3
+            flagship = per_level.get(name, [])
             entry.update(
-                max_abs_err=max(r["max_abs_err"] for r in rows
+                max_abs_err=max(r["max_abs_err"] for r in rows + flagship
                                 if r["max_abs_err"] is not None),
                 ms=top["ms"], plain_ms=top["plain_ms"],
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                 library_ms=top["library_ms"],
                 shape=f"64-px level 0: batch {BATCH}, S 1024, rate 0; "
                       f"library_ms SDPA",
-                per_case=rows)
+                per_case=rows, **({"flagship_levels": flagship} if flagship
+                                  else {}))
         else:
             # level 0 (the largest shape on the paths), at the training
             # rate; the library call (F.linear + SDPA, its backward) at rate 0
@@ -2462,6 +2575,14 @@ def main():
                     f", rate {RATE}; library_ms at rate 0" if "rate" in top
                     else ""),
                 per_level=per_level[name])
+            if name == "fused_attention_proj_bwd":
+                entry["stages"] = [
+                    "attention_qkv_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",
+                    "fused_attention_long_bwd: dq and dK/dV (gpnf_tpu_torch/"
+                    "csrc/fused_attention_long.cu, attention_tiled.cuh)",
+                    "attention_dseq_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",
+                    "attention_dw_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu, "
+                    "K split)"]
         record.append(entry)
     gp_summary = {
         "launches": gp_counts, "tabular": gp_tab, "card_vs_cpu": gp_checks,

@@ -1,0 +1,324 @@
+"""Time the proj attention backward and the projection GEMMs on the card
+against another version of their sources.
+
+    python -m gpnf_tpu_torch.bench_attention [--ref NAME=DIR ...] [--out FILE]
+
+DIR holds another version's fused_attention_proj.cu and attention_gemm.cu
+with the headers they include, from before the staged backward: say the
+parent commit's csrc/, from `git archive <commit> gpnf_tpu_torch/csrc | tar
+-x -C build/parent`. Both are built with the package's nvcc flags and
+called through their C entries as that version's wrappers called them: the
+backward in one kernel and its GEMMs, `gpnf_attention_proj_bwd` (dqkv and
+ceil(B S / 1024) partial dW slabs as scratch), and the GEMM without a split
+of K, `gpnf_attention_gemm` with 8 arguments and the stream. Then, on one
+card:
+
+- the proj backward (`kernels.fused_attention_proj_bwd`, `change`) and each
+  ref's at B = 64, 4 heads, (C, S) = (96, 256), (96, 64), (96, 16) (the
+  flagship's 32-px levels) and (192, 64) (Dh = 48), rate 0 and 0.2: dseq
+  and dW against the plain backward on the card (relative to the largest
+  entry), two calls bit for bit, the median device time of one call
+  (chip_smoke's cold-L2 timer, 20 calls) in turns: refs, change, change,
+  refs reversed; the change's stages timed alone; autograd of F.linear +
+  SDPA at rate 0 beside them; the bound; and one call of each under
+  torch.profiler: device launches and time by kernel;
+- the GEMMs of that backward (qkv = seq w^T, dseq, dW) at those shapes and
+  at the CLIs' width (C = 512, B = 16, S = 256 / 64 / 16): the change (K
+  split by `gemm_splits`) and each ref (one split) in turns, `torch.mm`
+  beside them, the error against torch.matmul, two calls bit for bit, and
+  the change's kernel at the splits `gemm_splits` gives for other targets
+  of blocks (`--targets`), the sweep that chose GEMM_BLOCKS.
+
+Prints the card's name and power limit and one JSON object per result, and
+writes all of them to --out.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import itertools
+import json
+import os
+import subprocess
+import time
+
+import torch
+import torch.nn.functional as F
+
+from .ops import kernels
+from .ops.kernels import _native
+from .utils.cuda_timing import Timer, card_line, trace
+
+fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+
+HEADS = 4
+PROJ_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 192, 64))
+WIDE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16))
+RATES = (0.0, 0.2)
+TARGETS = (132, 264, 528, 1056, 2112)
+REF_K_CHUNK = 1024  # the ref wrappers' (b, s) rows per dW partial
+PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12  # H100 SXM: HBM3, fp32 off tensor cores
+OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+REF_SIGNATURES = {
+    "fused_attention_proj": {
+        "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
+    "attention_gemm": {"gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P]},
+}
+
+
+def build_refs(refs):
+    """{name: {source: loaded library}} of each ref DIR, all compiled at once
+    with the package's flags, and {name/source: ptxas lines}."""
+    procs = {}
+    for name, src_dir in refs.items():
+        out = OUT_DIR / name
+        out.mkdir(parents=True, exist_ok=True)
+        for source in REF_SIGNATURES:
+            lib = out / f"{source}.so"
+            cmd = [_native._nvcc(), *_native.NVCC_FLAGS, f"-I{src_dir}", "-o",
+                   str(lib), os.path.join(src_dir, f"{source}.cu")]
+            procs[(name, source)] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True), lib)
+    libs, reports, failed = {}, {}, []
+    for (name, source), (proc, lib) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}/{source}: nvcc exit {proc.returncode}\n{err}")
+            continue
+        reports[f"{name}/{source}"] = _ptxas_lines(out + err)
+        loaded = ctypes.CDLL(str(lib))
+        for fn, argtypes in REF_SIGNATURES[source].items():
+            getattr(loaded, fn).argtypes = argtypes
+            getattr(loaded, fn).restype = ctypes.c_int
+        libs.setdefault(name, {})[source] = loaded
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return libs, reports
+
+
+def _ptxas_lines(report):
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def _check(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ref_proj_bwd(lib, seq, w, g, rate, seed):
+    """A ref's in-kernel backward, called as its wrapper called it."""
+    b, s, c = seq.shape
+    parts = -(-b * s // REF_K_CHUNK)
+    dqkv = torch.empty((b, s, 3 * c), device=seq.device)
+    partial = torch.empty((parts, 3 * c, c), device=seq.device)
+    dseq, dw = torch.empty_like(seq), torch.empty_like(w)
+    _check(lib.gpnf_attention_proj_bwd(
+        seed.data_ptr() if rate > 0 else None, seq.data_ptr(), w.data_ptr(),
+        g.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), dseq.data_ptr(),
+        dw.data_ptr(), b, s, c, HEADS, fa.keep_threshold(rate) if rate else 0,
+        1.0 / (1.0 - rate), REF_K_CHUNK, _stream()), "ref proj bwd")
+    return dseq, dw
+
+
+def ref_gemm(lib, a, b, shape, m, n, k, trans_a, trans_b):
+    c = torch.empty(shape, device=a.device)
+    _check(lib.gpnf_attention_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                   m, n, k, int(trans_a), int(trans_b),
+                                   _stream()), "ref gemm")
+    return c
+
+
+def bound(bytes_moved, ops):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def library_bwd(seq, w, g):
+    """Autograd of F.linear + SDPA (rate 0), the graph built once: the
+    call whose time stands beside the backward's."""
+    seq_r, w_r = seq.clone().requires_grad_(), w.clone().requires_grad_()
+    b, s, c = seq.shape
+    with torch.enable_grad():
+        k, v, q = (x.reshape(b, s, HEADS, c // HEADS).transpose(1, 2)
+                   for x in F.linear(seq_r, w_r).split(c, dim=-1))
+        out = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+            b, s, c)
+    return lambda: torch.autograd.grad(out, (seq_r, w_r), g,
+                                       retain_graph=True)
+
+
+def by_kernel(fn):
+    """{kernel name: [launches, device us]} of one call of `fn`."""
+    out = {}
+    for name, _, us in trace(fn)[0]:
+        row = out.setdefault(name.split("<")[0], [0, 0.0])
+        row[0] += 1
+        row[1] += us
+    return out
+
+
+def proj_rows(device, libs, timer, card):
+    names = [*libs, "change"]
+    for batch, c, s in PROJ_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(c + s)
+        seq = torch.randn((batch, s, c), generator=gen, device=device) * 0.5
+        w = torch.randn((3 * c, c), generator=gen, device=device) * 0.1
+        g = torch.randn((batch, s, c), generator=gen, device=device)
+        seed = torch.tensor([4321 + s], dtype=torch.int32, device=device)
+        dh = c // HEADS
+        proj = 2 * batch * s * c * 3 * c
+        core = 2 * batch * HEADS * s * s * dh
+        bound_ms, bound_by = bound(4 * (3 * batch * s * c + 2 * 3 * c * c),
+                                   3 * proj + 5 * core)
+        for rate in RATES:
+            runs = {name: (lambda lib=lib: ref_proj_bwd(
+                lib["fused_attention_proj"], seq, w, g, rate, seed))
+                for name, lib in libs.items()}
+            runs["change"] = lambda: kernels.fused_attention_proj_bwd(
+                seq, w, g, HEADS, rate, seed)
+            want = kernels.attention_proj_plain_bwd(seq, w, g, HEADS, rate,
+                                                    seed)
+            row = {"kind": "proj_bwd", "batch": batch, "C": c, "S": s,
+                   "rate": rate, "card": card, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            for name, run in runs.items():
+                got, again = run(), run()
+                row[f"{name}_err"] = [_rel(x, y) for x, y in zip(got, want)]
+                row[f"{name}_max_abs_err"] = max(
+                    float((x - y).abs().max()) for x, y in zip(got, want))
+                row[f"{name}_repeats"] = all(torch.equal(x, y)
+                                             for x, y in zip(got, again))
+            times = {name: [] for name in names}
+            for name in [*libs, "change", "change", *reversed(list(libs))]:
+                times[name].append(timer(runs[name]))
+            row.update({f"{name}_ms": times[name] for name in names})
+            qkv = kernels.attention_qkv_gemm(seq, w)
+            dqkv = kernels.attention_long_qkv_bwd(qkv, g, HEADS, rate, seed)
+            row["stages_ms"] = {
+                "qkv_gemm": timer(lambda: kernels.attention_qkv_gemm(seq, w)),
+                "long_bwd": timer(lambda: kernels.attention_long_qkv_bwd(
+                    qkv, g, HEADS, rate, seed)),
+                "dseq_gemm": timer(lambda: kernels.attention_dseq_gemm(dqkv,
+                                                                       w)),
+                "dw_gemm": timer(lambda: kernels.attention_dw_gemm(dqkv,
+                                                                   seq))}
+            row["library_ms"] = (timer(library_bwd(seq, w, g)) if rate == 0.0
+                                 else None)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+
+def gemm_cases(device):
+    """(tag, a, b, shape, m, n, k, trans_a, trans_b, torch.matmul of the
+    same product) of each GEMM of the proj backward and the wide route."""
+    for batch, c, s in PROJ_SHAPES + WIDE_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(7 * c + s)
+        seq = torch.randn((batch, s, c), generator=gen, device=device)
+        w = torch.randn((3 * c, c), generator=gen, device=device) * 0.1
+        dqkv = torch.randn((batch, s, 3 * c), generator=gen, device=device)
+        rows = batch * s
+        yield (f"qkv C={c} S={s} B={batch}", seq, w, (batch, s, 3 * c), rows,
+               3 * c, c, False, True, lambda: torch.mm(
+                   seq.reshape(rows, c), w.t()))
+        yield (f"dseq C={c} S={s} B={batch}", dqkv, w, (batch, s, c), rows, c,
+               3 * c, False, False, lambda: torch.mm(
+                   dqkv.reshape(rows, 3 * c), w))
+        yield (f"dW C={c} S={s} B={batch}", dqkv, seq, (3 * c, c), 3 * c, c,
+               rows, True, False, lambda: torch.mm(
+                   dqkv.reshape(rows, 3 * c).t(), seq.reshape(rows, c)))
+
+
+def gemm_rows(device, libs, timer, card, targets):
+    names = [*libs, "change"]
+    for tag, a, b, shape, m, n, k, trans_a, trans_b, mm in gemm_cases(device):
+        splits = fa.gemm_splits(m, n, k)
+        runs = {name: (lambda lib=lib: ref_gemm(
+            lib["attention_gemm"], a, b, shape, m, n, k, trans_a, trans_b))
+            for name, lib in libs.items()}
+        runs["change"] = lambda sp=splits: fa._gemm(
+            "bench", a, b, shape, m, n, k, trans_a, trans_b, sp)
+        want = mm()
+        bound_ms, bound_by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k)
+        row = {"kind": "gemm", "gemm": tag, "m": m, "n": n, "k": k,
+               "splits": splits, "card": card, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        for name, run in runs.items():
+            got = run().reshape(want.shape)
+            row[f"{name}_err"] = _rel(got, want)
+            row[f"{name}_repeats"] = torch.equal(got, run().reshape(
+                want.shape))
+        times = {name: [] for name in names}
+        for name in [*libs, "change", "change", *reversed(list(libs))]:
+            times[name].append(timer(runs[name]))
+        row.update({f"{name}_ms": times[name] for name in names})
+        row["library_ms"] = timer(mm)
+        sweep = {}
+        for target in targets:
+            sp = fa.gemm_splits(m, n, k, target)
+            if sp not in sweep:
+                sweep[sp] = {"targets": [], "ms": timer(
+                    lambda sp=sp: fa._gemm("bench", a, b, shape, m, n, k,
+                                           trans_a, trans_b, sp))}
+            sweep[sp]["targets"].append(target)
+        row["sweep"] = {str(sp): v for sp, v in sweep.items()}
+        yield row
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--ref", action="append", default=[],
+                   help="NAME=DIR of another version's csrc/")
+    p.add_argument("--targets", default=",".join(map(str, TARGETS)),
+                   help="block targets of the GEMM split sweep")
+    p.add_argument("--out", default=None,
+                   help="JSON output (default: build/bench_attention/"
+                        "bench.json)")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_attention: no CUDA device")
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    refs = dict(spec.split("=", 1) for spec in args.ref)
+    if "change" in refs:
+        raise SystemExit("bench_attention: 'change' names the package's source")
+    t0 = time.perf_counter()
+    change_reports = _native.build(("fused_attention_proj",
+                                    "fused_attention_long", "attention_gemm"))
+    libs, reports = build_refs(refs)
+    results = [{"card": card, "build_s": time.perf_counter() - t0,
+                "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
+                                        for k, v in change_reports.items()}}}]
+    print(json.dumps(results[0]), flush=True)
+    timer = Timer(device)
+    targets = [int(x) for x in args.targets.split(",")]
+    for row in itertools.chain(proj_rows(device, libs, timer, card),
+                               gemm_rows(device, libs, timer, card, targets)):
+        results.append(row)
+        print(json.dumps(row), flush=True)
+    out = args.out or str(OUT_DIR / "bench.json")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
+        json.dump(results, f, indent=1)
+    return results
+
+
+if __name__ == "__main__":
+    main()

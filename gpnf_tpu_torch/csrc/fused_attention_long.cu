@@ -1,7 +1,9 @@
 // Multi-head self-attention for long sequences (512 < S <= 2048), and
 // GatedAttn's wide route at any S <= 2048 where the proj kernel does not fit
 // (ops/kernels/fused_attention.py, `attention_route`; there, at S <= 512,
-// the projection and dseq / dW around these kernels are attention_gemm.cu's):
+// the projection and dseq / dW around these kernels are attention_gemm.cu's),
+// and the backward of the proj route (`fused_attention_proj_bwd`: these
+// backward kernels between attention_gemm.cu's products):
 // forward with in-kernel dropout and backward, hand-written for Hopper
 // (sm_90a).
 //

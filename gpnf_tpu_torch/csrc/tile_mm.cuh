@@ -1,7 +1,7 @@
-// Shared pieces of the blocked linear-algebra kernels (cholesky.cu,
-// tril_solve.cu): tiles of BS x BS, staged through shared memory in
-// k-chunks of KC, multiplied by 256 threads that each hold a small
-// register tile of the output.
+// Shared pieces of the blocked GEMM kernels (cholesky.cu's panel products
+// and trailing update, attention_gemm.cu's projection GEMMs): tiles of
+// BS x BS, staged through shared memory in k-chunks of KC, multiplied by
+// 256 threads that each hold a small register tile of the output.
 //
 // An output tile is BS rows by TP columns. Thread t owns rows
 // rg + RG * a (a < RPT) and columns cg + CG * b (b < CPT), with
@@ -109,32 +109,6 @@ __device__ __forceinline__ void store_tile(T* out, long long ldo, int rows_left,
       T* o = out + static_cast<long long>(r) * ldo + c;
       *o = subtract ? *o - acc[i][j] : acc[i][j];
     }
-  }
-}
-
-// Invert the lower-triangular BS x BS tile Ls (stride BS + 1, identity
-// beyond the ragged edge) into Xs (same stride) by row-wise substitution:
-// row i of X = (e_i - sum_{k<i} L[i][k] X[k]) / L[i][i], all BS columns at
-// once, each column's dot product split over 4 threads of one warp and
-// summed with shuffles. Exact to rounding, as the JAX package's Newton
-// doubling (`_newton_tril_inv`). Call with all 256 threads.
-template <typename T>
-__device__ __forceinline__ void invert_lower_tile(const T* Ls, T* Xs) {
-  constexpr int LD = BS + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = warp * 8 + (lane >> 2);  // column of X, 0..63
-  const int part = lane & 3;             // quarter of the k range
-  for (int i = 0; i < BS; ++i) {
-    T s = T(0);
-#pragma unroll 4
-    for (int k = c + part; k < i; k += 4) s += Ls[i * LD + k] * Xs[k * LD + c];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (part == 0) {
-      const T rhs = (i == c) ? T(1) : T(0);
-      Xs[i * LD + c] = (i < c) ? T(0) : (rhs - s) / Ls[i * LD + i];
-    }
-    __syncthreads();
   }
 }
 

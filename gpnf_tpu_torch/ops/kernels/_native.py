@@ -37,7 +37,6 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fused_attention_proj": {
         "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
-        "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P],
     },
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
@@ -72,7 +71,7 @@ SIGNATURES = {
         "gpnf_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
     },
     "attention_gemm": {
-        "gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P],
+        "gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

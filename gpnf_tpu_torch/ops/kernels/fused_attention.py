@@ -3,12 +3,16 @@ long (or wide) entry for what the proj kernel does not take, and the core
 entries on separate q, k, v or a packed qkv for S <= 512.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
-- `fused_attention_proj` (forward and backward, dropout inside both), with
-  the qkv projection inside the kernels: gpnf_tpu_torch/csrc/
-  fused_attention_proj.cu. `attention_proj_plain` and
-  `attention_proj_plain_bwd` are its plain PyTorch versions. Its kernels
-  keep a whole head and its 3 Dh weight rows in shared memory, so they take
-  only the shapes `attention_route` names "proj".
+- `fused_attention_proj` (forward and backward, dropout inside both): the
+  forward with the qkv projection inside the kernel, gpnf_tpu_torch/csrc/
+  fused_attention_proj.cu, which keeps a whole head and its 3 Dh weight
+  rows in shared memory and so takes only the shapes `attention_route`
+  names "proj"; the backward (`_bwd_kernel_proj`) as three stages of
+  kernels that fill the card: the projection recomputed by the GEMM kernel,
+  dqkv by the long entry's key-tiled kernels, dseq and dW by the GEMM
+  kernel with a split K (`fused_attention_proj_bwd`).
+  `attention_proj_plain` and `attention_proj_plain_bwd` are its plain
+  PyTorch versions.
 - `fused_attention_long` (`_fwd_kernel_bh`, `_bwd_kernel_bh`): the
   kernels take the packed qkv (B, S, 3C) and tile the key axis:
   gpnf_tpu_torch/csrc/fused_attention_long.cu. `attention_long_plain` and
@@ -23,7 +27,9 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   at every width, the wide route runs them in the GEMM kernels of
   gpnf_tpu_torch/csrc/attention_gemm.cu (`attention_qkv_gemm`,
   `attention_dseq_gemm`, `attention_dw_gemm`; plain versions torch.matmul
-  and torch.einsum).
+  and torch.einsum), as the proj backward does. Where few output tiles
+  meet a long K the GEMM splits K (`gemm_splits`) and sums the splits in a
+  fixed order.
 - `fused_attention` (`_fwd_kernel`, `_bwd_kernel`): q, k, v (B, H, S, Dh),
   q already scaled; `attention_plain` and `attention_plain_bwd` are its
   plain versions. `fused_attention_qkv` (`_fwd_kernel_qkv`,
@@ -74,7 +80,12 @@ PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
 # floats, and kRows, the seq rows it stages at a time
 PROJ_SHARED_FLOATS = 232448 // 4
 PROJ_ROWS = 32
-K_CHUNK = 1024  # (b, s) rows per partial sum of dW in the backward
+# attention_gemm.cu (tile_mm.cuh): the output tile's edge and the K chunk a
+# block stages at a time; a split of K is a whole number of chunks
+GEMM_TILE = 64
+GEMM_KC = 32
+# the blocks `gemm_splits` aims at: 8 for each of the H100's 132 SMs
+GEMM_BLOCKS = 8 * 132
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -164,22 +175,21 @@ def padded_head_dim(head_dim: int) -> int:
 
 
 def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
-    """The least shared memory of the proj backward kernel, in floats:
-    fused_attention_proj.cu's bwd_shared_floats with G left in device
-    memory (its fwd_shared_floats and 3 S floats of m, l, D); the
-    forward's is less."""
+    """The shared memory of the proj forward kernel, in floats:
+    fused_attention_proj.cu's fwd_shared_floats (the head's weight rows,
+    the staged seq rows, K, V and Q). The proj backward runs kernels that
+    tile the key axis and hold no whole head, so the forward alone decides
+    the fit."""
     cp = channels + 1
-    return (3 * head_dim * cp + PROJ_ROWS * cp + 3 * seq_len * head_dim
-            + 3 * seq_len)
+    return 3 * head_dim * cp + PROJ_ROWS * cp + 3 * seq_len * head_dim
 
 
 def attention_route(seq_len: int, channels: int,
                     num_heads: int) -> AttentionRoute:
     """Which entry computes GatedAttn's attention for S = seq_len, C =
     channels: the proj kernel where its head width is built, S <= MAX_S
-    and its backward fits a block's shared memory (then the forward fits
-    too; the backward leaves G in device memory where it must), the wide
-    route `fused_attention_long` everywhere else, at the padded width.
+    and its forward fits a block's shared memory, the wide route
+    `fused_attention_long` everywhere else, at the padded width.
     Decided from the shape alone, before any launch; raises for S >
     MAX_S_LONG or a head width above 256."""
     if channels % num_heads:
@@ -356,8 +366,8 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
 
 
 def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, **tensors):
-    """The proj kernels' shared-memory fit, which `attention_route` checks,
-    then their `_cuda_args`."""
+    """The proj forward kernel's shared-memory fit, which `attention_route`
+    checks, then `_cuda_args`."""
     b, s, c = seq.shape
     dh = c // num_heads
     if (s <= MAX_S and dh in PROJ_HEAD_DIMS
@@ -393,28 +403,34 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
                              seed: Optional[torch.Tensor] = None):
     """(dseq, dW) of `fused_attention_proj` for the cotangent g, with the
     forward's dropout mask regenerated from `seed`. CPU tensors take the
-    plain version; CUDA tensors launch the kernels or raise."""
+    plain version; CUDA tensors launch the kernels (`_proj_bwd_stages`) or
+    raise. It takes the shapes the forward takes (`attention_route`'s
+    "proj"). One call counts one launch here and one in each stage's
+    count."""
     if g.shape != seq.shape:
         raise ValueError(f"fused_attention_proj_bwd: g {tuple(g.shape)} is "
                          f"not seq's {tuple(seq.shape)}")
     _validate(seq, w, num_heads, rate, seed)
     if all(t.device.type == "cpu" for t in (seq, w, g)):
         return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
-    b, s, c = seq.shape
-    device, seed_ptr, threshold, scale = _proj_cuda_args(
-        "fused_attention_proj_bwd", seq, w, num_heads, rate, seed, g=g)
-    parts = -(-b * s // K_CHUNK)
-    dqkv = torch.empty((b, s, 3 * c), dtype=seq.dtype, device=device)
-    partial = torch.empty((parts, 3 * c, c), dtype=seq.dtype, device=device)
-    dseq = torch.empty_like(seq)
-    dw = torch.empty_like(w)
-    _native.launch("fused_attention_proj", "gpnf_attention_proj_bwd", device,
-                   seed_ptr, seq.data_ptr(), w.data_ptr(), g.data_ptr(),
-                   dqkv.data_ptr(), partial.data_ptr(), dseq.data_ptr(),
-                   dw.data_ptr(), b, s, c, num_heads, threshold, scale,
-                   K_CHUNK)
+    _proj_cuda_args("fused_attention_proj_bwd", seq, w, num_heads, rate,
+                    seed, g=g)  # the checks; the stages launch
+    dseq, dw = _proj_bwd_stages(seq, w, g, num_heads, rate, seed)
     fused_attention_proj_bwd.launches += 1
     return dseq, dw
+
+
+def _proj_bwd_stages(seq, w, g, num_heads, rate, seed):
+    """`_bwd_kernel_proj`'s work in three stages, each across the whole
+    batch: qkv = seq w^T recomputed (`attention_qkv_gemm`); dqkv by the
+    key-tiled dq and dK/dV kernels (`attention_long_qkv_bwd`, with the
+    forward kernel's q scale, 1.f / sqrtf(Dh), and so its scores and its
+    mask); then dseq = dqkv w and dW = dqkv^T seq (`attention_dseq_gemm`,
+    `attention_dw_gemm`, K split where few output tiles meet a long K).
+    CPU tensors take each wrapper's plain version."""
+    dqkv = attention_long_qkv_bwd(attention_qkv_gemm(seq, w), g, num_heads,
+                                  rate, seed)
+    return attention_dseq_gemm(dqkv, w), attention_dw_gemm(dqkv, seq)
 
 
 class _AttentionProj(torch.autograd.Function):
@@ -550,28 +566,78 @@ def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     return dqkv
 
 
-# -- the wide route's projection at S <= MAX_S: qkv = seq w^T, dseq and dW -------
-def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b):
+# -- the projection at S <= MAX_S: qkv = seq w^T, dseq and dW ---------------------
+def gemm_splits(m: int, n: int, k: int, blocks: int = GEMM_BLOCKS) -> int:
+    """How many ranges of K attention_gemm.cu's kernel sums apart for an
+    (m x n) product over K = k: one where the output tiles alone make
+    `blocks` blocks, else enough that tiles x splits reaches `blocks` (or
+    one split per GEMM_KC chunk of K, where K is shorter), each range a
+    whole number of chunks and none empty; `gemm_chunk` gives the ranges'
+    length. A pure function of the shape: the same shape always sums in
+    the same order.
+
+    `blocks` defaults to GEMM_BLOCKS, 8 x 132 (8 blocks for each SM of the
+    H100), the best of `python -m gpnf_tpu_torch.bench_attention`'s sweep
+    on an H100 80GB HBM3 at 700 W: the nine GEMMs of the flagship's proj
+    backward (C = 96, B = 64, S = 256 / 64 / 16) summed to 0.3908 /
+    0.3656 / 0.3558 / 0.4207 ms at 264 / 528 / 1056 / 2112 blocks, those
+    of C = 192 at S = 64 to 0.2052 / 0.1964 / 0.1899 / 0.2477 and those of
+    the wide route at C = 512 (B = 16) to 1.4899 / 1.4135 / 1.3926 /
+    1.4723. Unpipelined loads leave a block waiting on memory, and more
+    blocks an SM hide it, until the partial sums' traffic outweighs it."""
+    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    if tiles >= blocks:
+        return 1
+    chunks = -(-k // GEMM_KC)
+    per_split = max(1, chunks // -(-blocks // tiles))
+    return -(-chunks // per_split)
+
+
+def gemm_chunk(k: int, splits: int) -> int:
+    """The K rows of each split but the last, as attention_gemm.cu computes
+    them: a whole number of GEMM_KC chunks."""
+    chunks = -(-k // GEMM_KC)
+    return GEMM_KC * -(-chunks // splits)
+
+
+def split_gemm_plain(a: torch.Tensor, b: torch.Tensor,
+                     splits: int) -> torch.Tensor:
+    """a (m, k) b (k, n) as attention_gemm.cu sums it: each split's K range
+    by torch.matmul, then the partials added in split order."""
+    chunk = gemm_chunk(a.shape[1], splits)
+    out = None
+    for k0 in range(0, a.shape[1], chunk):
+        part = torch.matmul(a[:, k0:k0 + chunk], b[k0:k0 + chunk])
+        out = part if out is None else out + part
+    return out
+
+
+def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b, splits=None):
     """c = A B (m x n, A m x k, B k x n) by csrc/attention_gemm.cu on CUDA
     tensors, A read from a transposed where trans_a, B from b where
-    trans_b; c has the given shape. Raises unless a and b hold m k and k n
-    values."""
+    trans_b, K cut into `splits` ranges (default `gemm_splits`); c has the
+    given shape. Raises unless a and b hold m k and k n values."""
     if a.numel() != m * k or b.numel() != k * n or a.dim() != 3:
         raise ValueError(f"{kernel}: {tuple(a.shape)} and {tuple(b.shape)} "
                          f"do not make a product")
     device = _native.check_cuda_inputs(kernel, a=a, b=b)
+    if splits is None:
+        splits = gemm_splits(m, n, k)
     c = torch.empty(shape, dtype=a.dtype, device=device)
+    partial = (torch.empty((splits, m, n), dtype=a.dtype, device=device)
+               if splits > 1 else None)
     _native.launch("attention_gemm", "gpnf_attention_gemm", device,
-                   a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                   int(trans_a), int(trans_b))
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   None if partial is None else partial.data_ptr(), m, n, k,
+                   int(trans_a), int(trans_b), splits)
     return c
 
 
 def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """qkv = seq w^T, seq (B, S, C) and w (3C, C) -> (B, S, 3C): the
     projection that `_fwd_kernel_proj` computes in its body, on the wide
-    route. CPU tensors take torch.matmul (its plain version); CUDA tensors
-    launch the kernel or raise."""
+    route and in the proj backward. CPU tensors take torch.matmul (its
+    plain version); CUDA tensors launch the kernel or raise."""
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return torch.matmul(seq, w.t())
     b, s, c = seq.shape

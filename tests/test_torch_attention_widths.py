@@ -36,8 +36,8 @@ KEY = jax.random.PRNGKey(0)
     (160, 16, "wide", 48), (256, 16, "wide", 64), (512, 16, "wide", 128),
     (512, 256, "wide", 128), (1024, 64, "wide", 256)])
 def test_route_table(c, s, entry, width):
-    """The proj kernel where its width is built and its backward fits a
-    block's 227 KB (fused_attention_proj.cu's bwd_shared_floats); the wide
+    """The proj kernel where its width is built and its forward fits a
+    block's 227 KB (fused_attention_proj.cu's fwd_shared_floats); the wide
     route elsewhere, at the padded width."""
     route = kernels.attention_route(s, c, HEADS)
     assert route == (entry, c // HEADS, width)
@@ -192,9 +192,11 @@ def test_gemm_wrappers_take_plain_versions_on_cpu_and_check_the_device():
 
 def test_route_constants_match_the_cuda_sources():
     """The route's copies of fused_attention_proj.cu (kRows,
-    kMaxSharedBytes, the head widths of both launch switches, the lines of
-    the shared-memory formula) and of attention_tiled.cuh's `with_head_dim`
-    widths are the sources' own: a change to either side fails here."""
+    kMaxSharedBytes, the head widths of its launch switch, the lines of the
+    forward's shared-memory formula, the only proj kernel's) and of
+    attention_tiled.cuh's `with_head_dim` widths, and attention_gemm.cu's
+    tile and K chunk (tile_mm.cuh's BS and KC), are the sources' own: a
+    change to either side fails here."""
     import re
     from pathlib import Path
 
@@ -207,13 +209,24 @@ def test_route_constants_match_the_cuda_sources():
     for switch in re.findall(r"switch \(dh\) \{(.*?)\}", proj, re.S):
         assert tuple(map(int, re.findall(r"case (\d+):", switch))) == \
             fa.PROJ_HEAD_DIMS
-    # the formula `proj_shared_floats` mirrors, with G in device memory
-    for line in ("const size_t cp = static_cast<size_t>(channels) + 1;",
+    # the formula `proj_shared_floats` mirrors: the forward's, the one the
+    # launch checks
+    switches = re.findall(r"switch \(dh\) \{", proj)
+    assert len(switches) == 1
+    for line in ("inline size_t fwd_shared_floats(int seq_len, int channels,",
+                 "const size_t cp = static_cast<size_t>(channels) + 1;",
                  "return 3 * dh * cp + kRows * cp + 3 * static_cast<size_t>"
                  "(seq_len) * dh;",
-                 "return fwd_shared_floats(seq_len, channels, dh) + 3 * "
-                 "seq_len +"):
+                 "if (fwd_shared_floats(seq_len, channels, dh) * sizeof(float) "
+                 "> kMaxSharedBytes) {"):
         assert line in proj
+    assert "shared_floats" not in proj.replace("fwd_shared_floats", "")
+    tile = (csrc / "tile_mm.cuh").read_text()
+    assert re.search(r"constexpr int BS = (\d+);", tile).group(1) == \
+        str(fa.GEMM_TILE)
+    assert re.search(r"constexpr int KC = (\d+);", tile).group(1) == \
+        str(fa.GEMM_KC)
+    assert '#include "tile_mm.cuh"' in (csrc / "attention_gemm.cu").read_text()
     tiled = (csrc / "attention_tiled.cuh").read_text()
     switch = re.search(r"with_head_dim\(.*?switch \(head_dim\) \{(.*?)default:",
                        tiled, re.S).group(1)

@@ -7,12 +7,16 @@ jax, so there it is run without the conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
 from gpnf_tpu_torch.ops import kernels, logistic
+
+fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 
 SMALL = dict(image_shape=(16, 16, 3), L=2, K=2, hidden_channels=16,
              num_blocks=2, num_components=4, prior_hidden=8, prior_layers=3)
@@ -121,8 +125,9 @@ def test_attention_kernel_with_dropout_matches_plain_on_card(cuda_device, s):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("s", [512, 256, 64, 16])
 def test_attention_bwd_kernel_matches_plain_on_card(cuda_device, s, rate):
-    """dseq and dW of the backward kernels against the plain backward; at
-    S=512 the kernel reads g from global memory (shared memory is full)."""
+    """dseq and dW of the backward kernels (the projection GEMM, the
+    key-tiled dq and dK/dV kernels, the dseq and dW GEMMs) against the
+    plain backward, up to the top of the proj range (S = 512)."""
     seq, w, g, seed = _attention_inputs(cuda_device, s)
     before = kernels.fused_attention_proj_bwd.launches
     dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate, seed)
@@ -318,9 +323,10 @@ def test_small_48px_model_on_card_matches_cpu(cuda_device):
     counts = kernels.launch_counts()
     loss_cpu = torch.mean(cpu.train()(x, noise=noise)[1])
     loss_cpu.backward()
-    # level 0 (S = 576): K * num_blocks long calls; level 1 (S = 144): proj
-    assert counts["fused_attention_long"] == counts[
-        "fused_attention_long_bwd"] == 2
+    # level 0 (S = 576): K * num_blocks long calls; level 1 (S = 144): proj,
+    # whose backward runs the long entry's key-tiled kernels too
+    assert counts["fused_attention_long"] == 2
+    assert counts["fused_attention_long_bwd"] == 2 + 2
     assert counts["fused_attention_proj"] == counts[
         "fused_attention_proj_bwd"] == 2
     _close(loss_card, loss_cpu, rtol=0, atol=1e-4)
@@ -906,9 +912,11 @@ def test_gated_attn_at_every_width_on_card_matches_cpu(cuda_device, c, s):
     want.backward(g)
     entry = "fused_attention_long" if wide else "fused_attention_proj"
     lanes = int(c == 512)
-    # the wide route's projection runs twice (the backward recomputes it)
-    gemms = {"attention_qkv_gemm": 2, "attention_dseq_gemm": 1,
-             "attention_dw_gemm": 1} if wide else {}
+    # the wide route's projection runs twice (the backward recomputes it);
+    # the proj backward recomputes it once and runs the long entry's
+    # key-tiled kernels between the GEMMs
+    gemms = {"attention_qkv_gemm": 1 + wide, "attention_dseq_gemm": 1,
+             "attention_dw_gemm": 1, "fused_attention_long_bwd": 1}
     assert counts == {**dict.fromkeys(counts, 0), entry: 1, entry + "_bwd": 1,
                       "attention_lanes": lanes, "attention_lanes_bwd": lanes,
                       **gemms}
@@ -917,3 +925,89 @@ def test_gated_attn_at_every_width_on_card_matches_cpu(cuda_device, c, s):
     for (name, p_card), p_cpu in zip(card.named_parameters(),
                                      cpu.parameters()):
         assert _rel_max(p_card.grad.cpu(), p_cpu.grad) <= 1e-4, name
+
+
+# -- the proj backward as stages, and the GEMM's split K --------------------------
+# (batch, C, S): the flagship's 32-px levels and the proj route's Dh = 48
+PROJ_BWD_SHAPES = [(64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 192, 64)]
+PROJ_BWD_COUNTS = {"fused_attention_proj_bwd": 1, "attention_qkv_gemm": 1,
+                   "fused_attention_long_bwd": 1, "attention_dseq_gemm": 1,
+                   "attention_dw_gemm": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,c,s", PROJ_BWD_SHAPES)
+def test_proj_bwd_at_the_path_shapes_matches_plain_on_card(cuda_device, batch,
+                                                           c, s, rate):
+    """The full batch of the paths, one seed for kernels and plain version
+    (the same mask): dseq and dW within 1e-4 of the largest |plain| (dW sums
+    B S = 1024-16384 rows in another order; chip_smoke's bar at these
+    shapes), two calls bit for bit, and each call launches the entry and
+    each stage once (`PROJ_BWD_COUNTS`), nothing else."""
+    seq, w, g, seed = _attention_inputs(cuda_device, s, batch, c, seed=c + s)
+    kernels.reset_launch_counts()
+    got = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate, seed)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_BWD_COUNTS}
+    again = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate, seed)
+    want = kernels.attention_proj_plain_bwd(seq, w, g, 4, rate, seed)
+    for x, y, z in zip(got, again, want):
+        assert torch.isfinite(x).all()
+        assert _rel_max(x, z) <= 1e-4
+        assert torch.equal(x, y)
+
+
+# (m, n, K) products that few output tiles walk: dW at C = 96 over B S =
+# 1024 / 4096 / 16384 rows, and dseq at C = 512, B = 16, S = 16
+SPLIT_GEMMS = [("dw", 96, 16, 64), ("dw", 96, 64, 64), ("dw", 96, 256, 64),
+               ("dseq", 512, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product,c,s,batch", SPLIT_GEMMS)
+def test_split_gemms_match_matmul_on_card(cuda_device, product, c, s, batch):
+    """Where `gemm_splits` cuts K, the GEMM against torch.matmul within
+    1e-5 of the largest magnitude (the bar of the unsplit GEMMs), two calls
+    bit for bit (the splits summed in a fixed order, no atomics)."""
+    seq, w, _, _ = _attention_inputs(cuda_device, s, batch, c, seed=s + c)
+    dqkv = _normal(np.random.default_rng(c + s), (batch, s, 3 * c)).to(
+        cuda_device)
+    rows = batch * s
+    if product == "dw":
+        fn, a, b, mnk = kernels.attention_dw_gemm, dqkv, seq, (3 * c, c, rows)
+        want = torch.einsum("bso,bsc->oc", dqkv, seq)
+    else:
+        fn, a, b, mnk = kernels.attention_dseq_gemm, dqkv, w, (rows, c, 3 * c)
+        want = torch.matmul(dqkv, w)
+    assert fa.gemm_splits(*mnk) > 1
+    got = fn(a, b)
+    assert _rel_max(got, want) <= 1e-5
+    assert torch.equal(got, fn(a, b))
+
+
+@pytest.mark.cuda
+def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
+    """The proj backward on the card at the flagship's level 1, rate 0.2,
+    under a TorchFunctionMode that raises on every PyTorch product and
+    attention call: its stages are this repo's kernels only."""
+    from torch.overrides import TorchFunctionMode
+
+    banned = {"matmul", "mm", "bmm", "einsum", "linear",
+              "scaled_dot_product_attention", "__matmul__", "__rmatmul__",
+              "addmm", "baddbmm"}
+
+    class NoLibraryProducts(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if getattr(func, "__name__", "") in banned:
+                raise AssertionError(f"library call {func.__name__}")
+            return func(*args, **(kwargs or {}))
+
+    seq, w, g, seed = _attention_inputs(cuda_device, 64, 8)
+    with NoLibraryProducts():
+        dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, 0.2, seed)
+        with pytest.raises(AssertionError, match="library call"):
+            torch.matmul(seq, w.t())  # the mode is in effect
+    want = kernels.attention_proj_plain_bwd(seq, w, g, 4, 0.2, seed)
+    assert _rel_max(dseq, want[0]) <= 1e-4
+    assert _rel_max(dw, want[1]) <= 1e-4
