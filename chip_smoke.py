@@ -110,13 +110,16 @@ Phases, each of which raises (exit code != 0) when it fails:
      bit, the long entry, and the q, k, v entry against the packed one;
      then one drive through both entries' autograd (launches 1 of each).
      Every earlier phase asserts that its path launches none of the four;
- 18. GatedAttn at every width: the lane-split kernels (Dh = 128 and 256,
-     through the long entry's wrappers) against their plain versions at the
-     CLIs' width C = 512 (batch 16, S = 256 / 64 / 16) and at C = 1024
-     (batch 4, S = 256), rate 0 and 0.2 (one seed), two backward calls bit
-     for bit the same, each with its time, the plain version's, SDPA's (rate
-     0) and its bound; the wide route's GEMM kernels (qkv = seq w^T,
-     dseq, dW at S <= 512, K split where few output tiles meet a long K)
+ 18. GatedAttn at every width: the lane-split forward and the tensor-core
+     backward (Dh = 128 and 256, through the long entry's wrappers) against
+     their plain versions at the CLIs' width C = 512 (batch 16, S = 256 /
+     64 / 16) and at C = 1024 (batch 4, S = 256), rate 0 and 0.2 (one
+     seed), two backward calls bit for bit the same, each with its time,
+     the plain version's, SDPA's (rate 0) and its bound (the backward's
+     against 3xTF32's peak, the fp32 one beside it), the backward kernels'
+     registers and spills from the build's ptxas report; the wide route's
+     GEMM kernels (qkv = seq w^T, dseq, dW at S <= 512, K split where few
+     output tiles meet a long K)
      against torch.matmul at C = 512, two calls bit for bit, with times
      and bounds; the whole wide route at C = 512 beside autograd of
      F.linear + SDPA; the flagship's routes (proj at the 32-px levels,
@@ -151,11 +154,13 @@ import time
 import torch
 import torch.nn.functional as F
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s of
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FLOP/s of
 # fp32 outside the tensor cores, which is also the fp64 peak (fp64 on the
-# tensor cores, DMMA)
+# tensor cores, DMMA), and dense TF32 FLOP/s over the three products of
+# 3xTF32, the peak of a kernel whose products run on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+PEAK_OPS_3XTF32 = 495e12 / 3
 BATCH = 64
 FLAGSHIP = dict(image_shape=(32, 32, 3), L=3, K=4, hidden_channels=96,
                 num_blocks=10, num_components=32, drop_prob=0.2,
@@ -254,10 +259,32 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def bound(bytes_moved, ops):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_OPS
+def bound(bytes_moved, ops, peak_ops=PEAK_OPS):
+    """(least ms, "bytes" or "operations") at the card's memory rate and
+    `peak_ops`: PEAK_OPS for SIMT fp32, PEAK_OPS_3XTF32 for a kernel whose
+    products run on the tensor cores."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def ptxas_kernels(report, pattern):
+    """[{kernel, registers, spill_stores, spill_loads}] of the entries of a
+    ptxas report (nvcc -Xptxas -v) whose mangled name holds `pattern`."""
+    rows, row = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            row = {"kernel": name} if pattern in name else None
+            if row:
+                rows.append(row)
+        elif row is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            row["spill_stores"], row["spill_loads"] = nums[1], nums[2]
+        elif row is not None and "registers" in line:
+            row["registers"] = int(line.split("Used ")[1].split()[0])
+    return rows
 
 
 def max_errs(got, want):
@@ -1941,15 +1968,15 @@ LANE_CASES = ((512, C512_BATCH, 256), (512, C512_BATCH, 64),
 
 
 def check_lane_kernels(device, timer):
-    """Phase 18's kernel checks: the lane-split kernels (Dh = 128, 256)
-    through the long entry's wrappers against their plain versions at
-    LANE_CASES, rate 0 and 0.2 (one seed: the same mask), two backward
-    calls bit for bit, each with its time, the plain version's, SDPA's
-    after a head split (rate 0) and its bound; at the CLIs' width the wide
-    route's GEMMs (qkv = seq w^T, dseq, dW) against torch.matmul, two calls
-    bit for bit, with their times and bounds; then the whole wide route
-    (the GEMMs around the lane-split kernels) beside autograd of F.linear +
-    SDPA."""
+    """Phase 18's kernel checks: the lane-split forward and the tensor-core
+    backward (Dh = 128, 256) through the long entry's wrappers against
+    their plain versions at LANE_CASES, rate 0 and 0.2 (one seed: the same
+    mask), two backward calls bit for bit, each with its time, the plain
+    version's, SDPA's after a head split (rate 0) and its bound; at the
+    CLIs' width the wide route's GEMMs (qkv = seq w^T, dseq, dW) against
+    torch.matmul, two calls bit for bit, with their times and bounds; then
+    the whole wide route (the GEMMs around the Dh = 128 kernels) beside
+    autograd of F.linear + SDPA."""
     from gpnf_tpu_torch.ops import kernels
 
     counts = kernels.launch_counts()
@@ -1968,19 +1995,28 @@ def check_lane_kernels(device, timer):
         rows = batch * s
         if name == "attention_lanes":  # qkv in, out; two products, softmax
             bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
-        else:  # qkv and g in, dqkv out; five products and dS
+            peak, extra = PEAK_OPS, {}
+        else:  # qkv and g in, dqkv out; five products and dS, on the
+            # tensor cores in 3xTF32: held to that peak, fp32's beside it
             bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
-        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+            peak = PEAK_OPS_3XTF32
+            fp32_ms, fp32_by = bound(bytes_moved, ops + 5 * scores)
+            extra = dict(bound_peak="3xTF32 165 TFLOP/s",
+                         bound_fp32_ms=fp32_ms, bound_fp32_by=fp32_by)
+        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores, peak)
         results[name].append(dict(
             c=c, head_dim=dh, batch=batch, s=s, rate=rate, max_abs_err=err[0],
             err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            **extra))
         ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
+        fp32 = (f"; fp32 {extra['bound_fp32_ms'] * 1e3:.2f} us" if extra
+                else "")
         log(f"  {name} C={c} (Dh {dh}) B={batch} S={s} rate {rate}: max abs "
             f"err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) | kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
             f"{ms_or_na(library_ms)} | bound {bound_ms * 1e3:.2f} us "
-            f"({bound_by})")
+            f"({bound_by}{fp32})")
 
     def check(tag, got, want, bar):
         err = float((got - want).abs().max())
@@ -2397,7 +2433,8 @@ def main():
     c512 = cli_default_width(device, args.out, card)
     if args.profile:
         c512["profile"] = profile(c512_runs(device), device, card,
-                                  keep=("gpnf::attention_lanes",))
+                                  keep=("gpnf::attention_lanes",
+                                        "gpnf::attention_mma"))
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
@@ -2439,6 +2476,7 @@ def main():
         # the GEMMs do together what the TPU's proj kernels do at that width
         "attention_lanes": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
                             attention[1] + "393"),
+        # the tensor-core dq and dK/dV kernels, on mma_tf32.cuh
         "attention_lanes_bwd": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
                                 attention[1] + "416"),
         "attention_qkv_gemm": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
@@ -2543,6 +2581,16 @@ def main():
                          ", rate 0; library_ms SDPA"),
                 per_case=rows, **({"flagship_levels": flagship} if flagship
                                   else {}))
+            if name == "attention_lanes_bwd":
+                entry.update(
+                    bound_fp32_ms=top["bound_fp32_ms"],
+                    device_kernels=["attention_mma_dq_kernel",
+                                    "attention_mma_dkv_kernel"],
+                    headers=["gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                             "gpnf_tpu_torch/csrc/mma_tf32.cuh",
+                             "gpnf_tpu_torch/csrc/philox.cuh"],
+                    ptxas=ptxas_kernels(reports.get(
+                        "fused_attention_long", ""), "attention_mma_d"))
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
             # bound on the same inputs (rate 0.2's rows in per_case)

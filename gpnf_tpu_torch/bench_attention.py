@@ -1,17 +1,36 @@
-"""Time the proj attention backward and the projection GEMMs on the card
-against another version of their sources.
+"""Time attention kernels on the card against other versions of their
+sources.
 
-    python -m gpnf_tpu_torch.bench_attention [--ref NAME=DIR ...] [--out FILE]
+    python -m gpnf_tpu_torch.bench_attention [--kernel proj|lanes_bwd]
+        [--ref NAME=DIR ...] [--out FILE]
 
-DIR holds another version's fused_attention_proj.cu and attention_gemm.cu
-with the headers they include, from before the staged backward: say the
-parent commit's csrc/, from `git archive <commit> gpnf_tpu_torch/csrc | tar
--x -C build/parent`. Both are built with the package's nvcc flags and
-called through their C entries as that version's wrappers called them: the
-backward in one kernel and its GEMMs, `gpnf_attention_proj_bwd` (dqkv and
-ceil(B S / 1024) partial dW slabs as scratch), and the GEMM without a split
-of K, `gpnf_attention_gemm` with 8 arguments and the stream. Then, on one
-card:
+DIR holds another version's csrc/ (its sources with the headers they
+include): say the parent commit's, from `git archive <commit>
+gpnf_tpu_torch/csrc | tar -x -C build/parent`. Each ref source is built
+with the package's nvcc flags and called through its C entry as that
+version's wrappers called it.
+
+`--kernel lanes_bwd`: the backward at Dh = 128 and 256 (the kernels that
+`attention_lanes_bwd` counts), through fused_attention_long.cu's
+`gpnf_attention_long_bwd` (qkv, g, dqkv and the (B, H, S, 3) stats
+scratch, the C signature every version since the lane-split kernels
+has), at 4 heads and (B, C, S) = (16, 512, 256), (16, 512, 64), (16, 512,
+16) (the CLIs' default width at the 32-px levels, Dh 128) and (4, 1024,
+256) (Dh 256), rate 0 and 0.2: the change (`attention_long_qkv_bwd`) and
+each ref in turns, refs, change, change, refs reversed (the median device
+time of one call, chip_smoke's cold-L2 timer, 20 calls); dqkv against the
+plain backward on the card (relative to its largest entry); two calls bit
+for bit; autograd of SDPA at rate 0 beside them; both bounds (five S x S x
+Dh products and five operations a score at the fp32 rate off the tensor
+cores, 67 TFLOP/s, and at 3xTF32's, 495 / 3 = 165 TFLOP/s); one call of
+each under torch.profiler (device time by kernel); and the ptxas lines
+(registers, spills) of every version's kernels.
+
+`--kernel proj` (the default): DIR's fused_attention_proj.cu and
+attention_gemm.cu, from before the staged backward: the backward in one
+kernel and its GEMMs, `gpnf_attention_proj_bwd` (dqkv and ceil(B S /
+1024) partial dW slabs as scratch), and the GEMM without a split of K,
+`gpnf_attention_gemm` with 8 arguments and the stream. Then, on one card:
 
 - the proj backward (`kernels.fused_attention_proj_bwd`, `change`) and each
   ref's at B = 64, 4 heads, (C, S) = (96, 256), (96, 64), (96, 16) (the
@@ -58,24 +77,33 @@ WIDE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16))
 RATES = (0.0, 0.2)
 TARGETS = (132, 264, 528, 1056, 2112)
 REF_K_CHUNK = 1024  # the ref wrappers' (b, s) rows per dW partial
-PEAK_BYTES, PEAK_OPS = 3.35e12, 67e12  # H100 SXM: HBM3, fp32 off tensor cores
+LANE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16), (4, 1024, 256))
+# H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the tensor
+# cores, and dense TF32 FLOP/s over the three products of 3xTF32 (a kernel
+# on the tensor cores is read against this one)
+PEAK_BYTES, PEAK_OPS, PEAK_OPS_3XTF32 = 3.35e12, 67e12, 495e12 / 3
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 REF_SIGNATURES = {
     "fused_attention_proj": {
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
     "attention_gemm": {"gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P]},
+    "fused_attention_long": {
+        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P]},
 }
+# the sources each --kernel builds, from the package and from each ref
+SOURCES = {"proj": ("fused_attention_proj", "attention_gemm"),
+           "lanes_bwd": ("fused_attention_long",)}
 
 
-def build_refs(refs):
+def build_refs(refs, sources):
     """{name: {source: loaded library}} of each ref DIR, all compiled at once
     with the package's flags, and {name/source: ptxas lines}."""
     procs = {}
     for name, src_dir in refs.items():
         out = OUT_DIR / name
         out.mkdir(parents=True, exist_ok=True)
-        for source in REF_SIGNATURES:
+        for source in sources:
             lib = out / f"{source}.so"
             cmd = [_native._nvcc(), *_native.NVCC_FLAGS, f"-I{src_dir}", "-o",
                    str(lib), os.path.join(src_dir, f"{source}.cu")]
@@ -136,8 +164,11 @@ def ref_gemm(lib, a, b, shape, m, n, k, trans_a, trans_b):
     return c
 
 
-def bound(bytes_moved, ops):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_OPS
+def bound(bytes_moved, ops, peak_ops=PEAK_OPS):
+    """(least ms, "bytes" or "operations") at the card's memory rate and
+    `peak_ops`: PEAK_OPS for SIMT fp32, PEAK_OPS_3XTF32 for a kernel whose
+    products run on the tensor cores."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -223,6 +254,79 @@ def proj_rows(device, libs, timer, card):
             yield row
 
 
+def ref_long_bwd(lib, qkv, g, rate, seed):
+    """A ref's backward at the kernels' boundary, called as its
+    `attention_long_qkv_bwd` called it."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, HEADS, s, 3), device=qkv.device)
+    _check(lib.gpnf_attention_long_bwd(
+        seed.data_ptr() if rate > 0 else None, qkv.data_ptr(), g.data_ptr(),
+        dqkv.data_ptr(), stats.data_ptr(), b, s, c, HEADS,
+        fa.head_scale(c // HEADS), fa.keep_threshold(rate) if rate else 0,
+        1.0 / (1.0 - rate), _stream()), "ref long bwd")
+    return dqkv
+
+
+def sdpa_bwd(qkv, g):
+    """Autograd backward of SDPA on the heads of qkv (rate 0), the graph
+    built once: the call whose time stands beside the backward's."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    heads = lambda x: x.reshape(b, s, HEADS, c // HEADS).transpose(
+        1, 2).contiguous()
+    k, v, q = (heads(x).requires_grad_() for x in qkv.split(c, dim=-1))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v)
+    return lambda: torch.autograd.grad(out, (q, k, v), heads(g),
+                                       retain_graph=True)
+
+
+def lanes_rows(device, libs, timer, card):
+    """The Dh = 128 / 256 backward at LANE_SHAPES: the change and each ref
+    in turns, beside SDPA autograd, both bounds."""
+    names = [*libs, "change"]
+    for batch, c, s in LANE_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(c + s)
+        qkv = torch.randn((batch, s, 3 * c), generator=gen,
+                          device=device) * 0.5
+        g = torch.randn((batch, s, c), generator=gen, device=device)
+        seed = torch.tensor([1357 + s + c], dtype=torch.int32, device=device)
+        dh = c // HEADS
+        scores = batch * HEADS * s * s
+        ops = 5 * 2 * scores * dh + 5 * scores
+        bytes_moved = 4 * (2 * batch * s * 3 * c + batch * s * c)
+        bound_ms, bound_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
+        fp32_ms, fp32_by = bound(bytes_moved, ops)
+        for rate in RATES:
+            runs = {name: (lambda lib=lib: ref_long_bwd(
+                lib["fused_attention_long"], qkv, g, rate, seed))
+                for name, lib in libs.items()}
+            runs["change"] = lambda: kernels.attention_long_qkv_bwd(
+                qkv, g, HEADS, rate, seed)
+            want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate, seed)
+            row = {"kind": "lanes_bwd", "batch": batch, "C": c, "S": s,
+                   "head_dim": dh, "rate": rate, "card": card,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_peak": "3xTF32 165 TFLOP/s",
+                   "bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by}
+            for name, run in runs.items():
+                got, again = run(), run()
+                row[f"{name}_max_abs_err"] = float((got - want).abs().max())
+                row[f"{name}_err"] = _rel(got, want)
+                row[f"{name}_repeats"] = torch.equal(got, again)
+            times = {name: [] for name in names}
+            for name in [*libs, "change", "change", *reversed(list(libs))]:
+                times[name].append(timer(runs[name]))
+            row.update({f"{name}_ms": times[name] for name in names})
+            row["library_ms"] = (timer(sdpa_bwd(qkv, g)) if rate == 0.0
+                                 else None)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+
 def gemm_cases(device):
     """(tag, a, b, shape, m, n, k, trans_a, trans_b, torch.matmul of the
     same product) of each GEMM of the proj backward and the wide route."""
@@ -281,6 +385,9 @@ def gemm_rows(device, libs, timer, card, targets):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--kernel", choices=sorted(SOURCES), default="proj",
+                   help="the proj backward and its GEMMs, or the Dh = 128 / "
+                        "256 backward")
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=DIR of another version's csrc/")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
@@ -300,17 +407,20 @@ def main(argv=None):
     if "change" in refs:
         raise SystemExit("bench_attention: 'change' names the package's source")
     t0 = time.perf_counter()
-    change_reports = _native.build(("fused_attention_proj",
-                                    "fused_attention_long", "attention_gemm"))
-    libs, reports = build_refs(refs)
+    change_reports = _native.build(SOURCES[args.kernel] + (
+        ("fused_attention_long",) if args.kernel == "proj" else ()))
+    libs, reports = build_refs(refs, SOURCES[args.kernel])
     results = [{"card": card, "build_s": time.perf_counter() - t0,
                 "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
                                         for k, v in change_reports.items()}}}]
     print(json.dumps(results[0]), flush=True)
     timer = Timer(device)
     targets = [int(x) for x in args.targets.split(",")]
-    for row in itertools.chain(proj_rows(device, libs, timer, card),
-                               gemm_rows(device, libs, timer, card, targets)):
+    rows = (lanes_rows(device, libs, timer, card)
+            if args.kernel == "lanes_bwd" else itertools.chain(
+                proj_rows(device, libs, timer, card),
+                gemm_rows(device, libs, timer, card, targets)))
+    for row in rows:
         results.append(row)
         print(json.dumps(row), flush=True)
     out = args.out or str(OUT_DIR / "bench.json")

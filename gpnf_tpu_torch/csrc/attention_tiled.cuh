@@ -19,11 +19,10 @@
 //   dS = P * (dP - D),  D_i = sum_j dP_ij P_ij
 //   dq = dS K * q_scale;  dK = dS^T (q_scale q)
 //
-// Design (simple and exact first; tensor cores and TMA are later work).
-// The Pallas kernels hold one head's (S, S) fp32 scores (4 MB at S=1024),
-// and a head's K and V whole (2*S*Dh*4 B, 256 KB at S=512, Dh=64) exceed a
-// 227 KB block. So the key axis is tiled, and shared memory does not grow
-// with S:
+// Design. The Pallas kernels hold one head's (S, S) fp32 scores (4 MB at
+// S=1024), and a head's K and V whole (2*S*Dh*4 B, 256 KB at S=512, Dh=64)
+// exceed a 227 KB block. So the key axis is tiled, and shared memory does not
+// grow with S:
 //   - forward: a block per (64 queries, head, batch row), a thread per
 //     query; q (times q_scale) and the output accumulator sit in registers
 //     (Dh is a template parameter); K and V stream through shared memory in
@@ -40,20 +39,26 @@
 //   No atomics: each output element is written once by one thread, so the
 //   backward repeats bit for bit. The packed layout reads qkv and writes
 //   dqkv (B, S, 3C) in place, with no head split or merge copies.
-// Dh = 128 and 256 (the lane-split kernels below): a thread cannot hold
-// q[Dh] and acc[Dh] (Dh = 64 already takes 255 registers and spills), so a
-// row is held by Dh / 32 adjacent lanes of one warp, 32 dimensions each;
-// the partial dot products are summed across those lanes by shuffles, and
-// every lane runs the same online softmax. Same passes, same Philox calls
-// (one a four keys, the same words), sums in key (or query) order, no
-// atomics: two calls give the same bits. Dh <= 64 runs the thread-a-row
-// kernels, unchanged.
+// Dh = 128 and 256: a thread cannot hold q[Dh] and acc[Dh] (Dh = 64
+// already takes 255 registers and spills). The forward runs the lane-split
+// kernel below: a row is held by Dh / 32 adjacent lanes of one warp, 32
+// dimensions each, the partial dot products summed across those lanes by
+// shuffles, every lane running the same online softmax. The backward runs
+// on the tensor cores: 16-row tiles of a warp, 3xTF32 mma.sync products at
+// about fp32 accuracy (mma_tf32.cuh), cp.async double buffers (the
+// tensor-core backward, below). Same passes, the same Philox words, sums
+// in a fixed order, no atomics: two calls give the same bits. Dh <= 64
+// runs the thread-a-row kernels, unchanged. What bounds the backward at
+// Dh = 128 on the H100: its five S x S x Dh products at 3xTF32's rate
+// (495 / 3 TFLOP/s): >= ~33 us at the CLIs' default C = 512, B = 16, S =
+// 256 (~80 us at the fp32 rate off the tensor cores); the bytes 5 us.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "philox.cuh"
 
 namespace gpnf {
@@ -381,21 +386,20 @@ __global__ void __launch_bounds__(kAttnRows)
   }
 }
 
-// -- the lane-split kernels: Dh = 128 and 256 -----------------------------------
-// Each query row (forward, dq) or key row (dK/dV) is held by kLanes =
-// Dh / 32 adjacent lanes of one warp, each holding 32 of its dimensions:
-// float4 chunk c (of 8) of lane p holds dimensions 4 (c kLanes + p) .. +3,
-// so the kLanes lanes of a row read kLanes adjacent float4s of a
-// shared-memory row at once (no bank conflict; the rows of a warp read the
-// same key, a broadcast). A score's kLanes partial dot products are summed
-// by __shfl_xor_sync across the row's lanes: a butterfly, whose every level
-// adds the same two values in one order or the other, so every lane holds
-// the same bits and runs the same online softmax and keep test. A block is
-// 256 threads, 256 / kLanes rows (64 at Dh = 128, 32 at 256); its two tiles
-// of 64 rows (K and V, or q and g) take 64 KB at Dh = 128 and 128 KB at
-// 256, so they are dynamic shared memory. Every thread runs every loop (a
-// row past S on zeros), so the shuffles always see whole warps.
-constexpr int kMaxRowHeadDim = 64;  // above: the lane-split kernels
+// -- the lane-split forward: Dh = 128 and 256 ---------------------------------
+// Each query row is held by kLanes = Dh / 32 adjacent lanes of one warp, each
+// holding 32 of its dimensions: float4 chunk c (of 8) of lane p holds
+// dimensions 4 (c kLanes + p) .. +3, so the kLanes lanes of a row read kLanes
+// adjacent float4s of a shared-memory row at once (no bank conflict; the rows
+// of a warp read the same key, a broadcast). A score's kLanes partial dot
+// products are summed by __shfl_xor_sync across the row's lanes: a butterfly,
+// whose every level adds the same two values in one order or the other, so
+// every lane holds the same bits and runs the same online softmax and keep
+// test. A block is 256 threads, 256 / kLanes rows (64 at Dh = 128, 32 at 256);
+// its two tiles of 64 rows (K and V) take 64 KB at Dh = 128 and 128 KB at 256,
+// so they are dynamic shared memory. Every thread runs every loop (a row past S
+// on zeros), so the shuffles always see whole warps.
+constexpr int kMaxRowHeadDim = 64;  // above: the kernels below
 constexpr int kLaneDims = 32;       // dimensions a lane holds
 constexpr int kLaneThreads = 256;   // threads a block
 
@@ -555,196 +559,474 @@ __global__ void __launch_bounds__(kLaneThreads)
                  1.f / l);
 }
 
-// Backward kernel 1: kLanes lanes a query row -> dq (times q_scale), and
-// (m, 1/l, D) of the row into stats (B, H, S, 3).
-template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kLaneThreads)
-    attention_lanes_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                              const float* __restrict__ q_in,
-                              const float* __restrict__ k_in,
-                              const float* __restrict__ v_in,
-                              const float* __restrict__ g,
-                              float* __restrict__ dq_out,
-                              float* __restrict__ stats, float q_scale,
-                              uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  constexpr int L = Lanes<DH>::kLanes;
-  extern __shared__ float4 lanes_smem[];
-  float* k_s = reinterpret_cast<float*>(lanes_smem);
-  float* v_s = k_s + kAttnTile * DH;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int part = threadIdx.x % L;
-  const int qi = blockIdx.x * Lanes<DH>::kRows + threadIdx.x / L;
-  const bool valid = qi < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+// -- the tensor-core backward: Dh = 128 and 256 -------------------------------
+// The same passes and the same function as the lane-split backward, with
+// every S x S x Dh product on the tensor cores in 3xTF32 (mma_tf32.cuh) and
+// the streamed tiles copied by cp.async into a double buffer, so the next
+// tile loads while the current one computes. Tiles are padded rows of Dh +
+// 4 floats (mma_tf32.cuh).
+//
+// dq kernel: a block per (kRows queries, head, batch row), a warp per 16
+// query rows. The block's q and g rows sit in shared memory; K and V stream
+// in tiles of kKeys keys. For each tile the warp computes S = q K^T and
+// dPd = g V^T into register accumulators (a thread holds columns 2 tg,
+// 2 tg + 1 of rows gr and gr + 8). Pass A keeps the online (m, l, D) of each
+// row: a thread sums its own columns, the row max is reduced across the 4
+// lanes of a quad, and at the end of the pass the quad adds its 4 partial
+// sums in one order. Pass B forms dS = P (dP - D) in the accumulators, which
+// are the A fragments of dq += dS K as they stand (the k order of
+// mma_tf32.cuh), and writes dq * q_scale and (m, 1/l, D) as before. The
+// keep bits of a thread's two columns of one row are words of one Philox
+// call: the lanes with tg even call it for row gr, the odd ones for row
+// gr + 8, and a pair trades the two words the other needs by shuffle.
+//
+// dK/dV kernel: a block per (kKeys keys, head, batch row); a pair of warps
+// per 16 keys, whose K and V rows sit in shared memory. Query tiles of q, g
+// and the stats stream by cp.async. For each tile the even warp computes
+// S^T = K q^T, the odd one dPd^T = V g^T (16 keys x kQueries queries each);
+// both go to the pair's shared exchange tiles; the pair's 64 threads turn
+// them into Pd and dS, one Philox call for 4 keys of one query (the words
+// of every other kernel); then the even warp accumulates dV += Pd^T g and
+// the odd one dK += dS^T q in registers (Dh / 2 floats a thread). Two named
+// barriers a tile order the pair; one __syncthreads a tile orders the
+// buffer. Queries past S take P = 0, so they add nothing to dK or dV.
+//
+// q comes unscaled from the caller and is copied as it is: scores are
+// scaled by q_scale after the product, dK and dq before the store. Sums run
+// in a fixed order (k steps, then tiles, then the quad's butterfly), and
+// each output element is written once: two calls give the same bits.
+//
+// Shared memory a block (4 warps, 128 threads, each kernel): dq 99 KB at
+// Dh 128 (64 q and g rows, 2 x 2 tiles of 16 keys: two blocks an SM), 195
+// KB at 256; dK/dV 110 KB at Dh 128 (32 K and V rows, 2 x 2 tiles of 32
+// queries: two blocks an SM), 136 KB at 256 (tiles of 16). ptxas (sm_90a,
+// without / with dropout): dq 154 / 155 registers at Dh 128, 220 / 230 at
+// 256; dK/dV 159 / 157 at 128, 212 / 214 at 256; no spills. The tiles and
+// the unroll were chosen on the card by bench_attention --kernel lanes_bwd
+// (NVIDIA H100 80GB HBM3, 700 W): unrolling dq's k loop by 8 took up to 23%
+// off the call against 4, most at rate 0 (2: slower; full: slower at Dh
+// 256); 32-key tiles at Dh 128, two warps a dq block, 8-key tiles at Dh
+// 256, even / odd accumulators in dq and 16-query tiles in dK/dV were no
+// faster.
+template <int DH>
+struct MmaDq {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;          // queries a block
+  static constexpr int kKeys = 16;  // keys a tile
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kRows + 2 * 2 * kKeys) * (DH + kTilePad);
+};
 
-  float4 q[Lanes<DH>::kChunks], gi[Lanes<DH>::kChunks];
-  lane_load<DH>(q, q_in + head + qi * row, part, valid, q_scale);
-  lane_load<DH>(gi, g + lay.out_head(b, h) + qi * lay.out_row(), part, valid,
-                1.f);
+template <int DH>
+struct MmaDkv {
+  static constexpr int kPairs = 2;
+  static constexpr int kThreads = 64 * kPairs;
+  static constexpr int kKeys = 16 * kPairs;             // keys a block
+  static constexpr int kQueries = DH == 128 ? 32 : 16;  // queries a tile
+  static constexpr int kPad = kQueries + 8;  // an exchange row, in floats
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * (kKeys + 2 * kQueries) * (DH + kTilePad) +
+                       2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
+};
 
-  // pass A: m, l and dsum = sum_j exp(s_j - m) dP_j, rescaled together
-  float m = -INFINITY, l = 0.f, dsum = 0.f;
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
-    __syncthreads();
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float score =
-            lanes_sum<L>(lane_dot<DH>(q, k_s + (t + jj) * DH, part));
-        const float dpd =
-            lanes_sum<L>(lane_dot<DH>(gi, v_s + (t + jj) * DH, part));
-        float dp = dpd;
-        if (DROPOUT) {
-          dp = philox_word(bits, jj) >= threshold ? dpd * keep_scale : 0.f;
-        }
-        if (score > m) {
-          const float corr = expf(m - score);
-          l *= corr;
-          dsum *= corr;
-          m = score;
-        }
-        const float e = expf(score - m);
-        l += e;
-        dsum = fmaf(e, dp, dsum);
-      }
-    }
-  }
-  const float inv_l = 1.f / l;
-  const float big_d = dsum * inv_l;
+// The 64 threads of warp pair `pair` wait for each other: named barrier
+// pair + 1 (0 is __syncthreads'), each id a constant, so ptxas reserves
+// only those.
+template <int ID>
+__device__ __forceinline__ void named_barrier_64() {
+  asm volatile("bar.sync %0, 64;" ::"n"(ID) : "memory");
+}
 
-  // pass B: dq_i = sum_j p_ij (dP_ij - D_i) k_j
-  float4 dq[Lanes<DH>::kChunks];
-  lane_fill<DH>(dq, 0.f);
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
-    __syncthreads();
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float* kj = k_s + (t + jj) * DH;
-        const float score = lanes_sum<L>(lane_dot<DH>(q, kj, part));
-        const float dpd =
-            lanes_sum<L>(lane_dot<DH>(gi, v_s + (t + jj) * DH, part));
-        float dp = dpd;
-        if (DROPOUT) {
-          dp = philox_word(bits, jj) >= threshold ? dpd * keep_scale : 0.f;
-        }
-        const float ds = expf(score - m) * inv_l * (dp - big_d);
-        lane_axpy<DH>(dq, ds, kj, part);
-      }
-    }
-  }
-  if (!valid) return;
-  lane_store<DH>(dq_out + head + qi * row, dq, part, q_scale);
-  if (part == 0) {
-    float* st =
-        stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + qi) * 3;
-    st[0] = m;
-    st[1] = inv_l;
-    st[2] = big_d;
+template <int PAIRS>
+__device__ __forceinline__ void pair_sync(int pair) {
+  static_assert(PAIRS <= 2, "one named barrier a pair: add a case");
+  if (pair == 0) {
+    named_barrier_64<1>();
+  } else {
+    named_barrier_64<2>();
   }
 }
 
-// Backward kernel 2: kLanes lanes a key row -> dK and dV.
+// Backward kernel 1 on the tensor cores: dq (times q_scale), and (m, 1/l, D)
+// of each query row into stats (B, H, S, 3).
 template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kLaneThreads)
-    attention_lanes_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                               const float* __restrict__ q_in,
-                               const float* __restrict__ k_in,
-                               const float* __restrict__ v_in,
-                               const float* __restrict__ g,
-                               const float* __restrict__ stats,
-                               float* __restrict__ dk_out,
-                               float* __restrict__ dv_out, float q_scale,
-                               uint32_t threshold, float keep_scale) {
+__global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
+    attention_mma_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                            const float* __restrict__ q_in,
+                            const float* __restrict__ k_in,
+                            const float* __restrict__ v_in,
+                            const float* __restrict__ g,
+                            float* __restrict__ dq_out,
+                            float* __restrict__ stats, float q_scale,
+                            uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
-  constexpr int L = Lanes<DH>::kLanes;
-  extern __shared__ float4 lanes_smem[];
-  float* q_s = reinterpret_cast<float*>(lanes_smem);  // q rows * q_scale
-  float* g_s = q_s + kAttnTile * DH;
-  float* st_s = g_s + kAttnTile * DH;  // m, 1/l, D per query
+  using T = MmaDq<DH>;
+  constexpr int KT = T::kKeys;
+  constexpr int NT = KT / 8;  // columns of 8 keys in a tile
+  constexpr int NK = DH / 8;  // k steps over Dh, and dq's columns of 8
+  constexpr int LD = DH + kTilePad;
+  extern __shared__ float4 mma_smem[];
+  float* q_s = reinterpret_cast<float*>(mma_smem);  // (kRows, LD), unscaled
+  float* g_s = q_s + T::kRows * LD;
+  float* kv_s = g_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const bool odd = tg & 1;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int seq_len = lay.seq_len;
-  const int part = threadIdx.x % L;
-  const int kj = blockIdx.x * Lanes<DH>::kRows + threadIdx.x / L;
-  const bool valid = kj < seq_len;
+  const int i0 = blockIdx.x * T::kRows;
+  const int r0 = 16 * warp;  // the warp's rows in the block
+  const bool active = i0 + r0 < seq_len;
+  const size_t row = lay.in_row();
+  const size_t head = lay.in_head(b, h);
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nk = (seq_len + KT - 1) / KT;
+
+  load_rows_async<DH, T::kRows>(q_s, q_in + head, i0, seq_len, row,
+                                T::kThreads);
+  load_rows_async<DH, T::kRows>(g_s, g + lay.out_head(b, h), i0, seq_len,
+                                lay.out_row(), T::kThreads);
+  load_rows_async<DH, KT>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_async<DH, KT>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                          T::kThreads);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float dsum[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, big_d[2] = {0.f, 0.f};
+  float dq[NK][4];
+#pragma unroll
+  for (int dn = 0; dn < NK; ++dn) {
+    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  }
+  // tiles 0 .. nk - 1 are pass A, nk .. 2 nk - 1 pass B, over the same keys
+  for (int t = 0; t < 2 * nk; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < 2 * nk) {
+      const int jn = ((t + 1) % nk) * KT;
+      float* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
+      load_rows_async<DH, KT>(next, k_in + head, jn, seq_len, row,
+                              T::kThreads);
+      load_rows_async<DH, KT>(next + KT * LD, v_in + head, jn, seq_len, row,
+                              T::kThreads);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int j0 = (t % nk) * KT;
+    const float* k_s = kv_s + (t & 1) * 2 * KT * LD;
+    const float* v_s = k_s + KT * LD;
+
+    // S = q K^T and dPd = g V^T: the warp's 16 rows x the tile's KT keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll 8
+    for (int ks = 0; ks < NK; ++ks) {
+      const int c = 8 * ks + tg;
+      const FragA qa = tile_frag_a<DH>(q_s, r0 + gr, c);
+      const FragA ga = tile_frag_a<DH>(g_s, r0 + gr, c);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma_3xtf32(s[n], qa, tile_frag_bt<DH>(k_s, 8 * n + gr, c));
+        mma_3xtf32(dp[n], ga, tile_frag_bt<DH>(v_s, 8 * n + gr, c));
+      }
+    }
+    // scaled scores (-inf past S) and dP = keep * dPd / (1 - rate)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      if (DROPOUT) {
+        const uint4 r = attention_dropout_bits(
+            seed, b, h, i0 + r0 + gr + (odd ? 8 : 0),
+            (j0 + 8 * n) / 4 + (tg >> 1));
+        const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
+        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+        bits[0] = odd ? got0 : own0;
+        bits[1] = odd ? got1 : own1;
+        bits[2] = odd ? own0 : got0;
+        bits[3] = odd ? own1 : got1;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key = j0 + 8 * n + 2 * tg + (e & 1) < seq_len;
+        s[n][e] = key ? s[n][e] * q_scale : -INFINITY;
+        if (DROPOUT) {
+          dp[n][e] = bits[e] >= threshold ? dp[n][e] * keep_scale : 0.f;
+        }
+      }
+    }
+    if (t < nk) {
+      // pass A: the row max over the quad, then the thread's own sums,
+      // rescaled with m
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float corr = expf(m[r] - mx);
+        l[r] *= corr;
+        dsum[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float ex = expf(s[n][e] - mx);
+            l[r] += ex;
+            dsum[r] = fmaf(ex, dp[n][e], dsum[r]);
+          }
+        }
+        m[r] = mx;
+      }
+      if (t == nk - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+          lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+          float dt = dsum[r] + __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+          dt += __shfl_xor_sync(0xffffffffu, dt, 2);
+          inv_l[r] = 1.f / lt;
+          big_d[r] = dt * inv_l[r];
+        }
+      }
+      continue;
+    }
+    // pass B: dS = P (dP - D) in place, then dq += dS K, 8 keys a k step
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        s[n][e] = expf(s[n][e] - m[r]) * inv_l[r] * (dp[n][e] - big_d[r]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const FragA da = frag_a_from_c(s[n]);
+#pragma unroll
+      for (int dn = 0; dn < NK; ++dn) {
+        mma_3xtf32(dq[dn], da,
+                   tile_frag_b<DH>(k_s, 8 * n + 2 * tg, 8 * dn + gr));
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + r0 + gr + 8 * r;
+    if (i >= seq_len) continue;
+    float* dst = dq_out + head + static_cast<size_t>(i) * row + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < NK; ++dn) {
+      *reinterpret_cast<float2*>(dst + 8 * dn) =
+          make_float2(dq[dn][2 * r] * q_scale, dq[dn][2 * r + 1] * q_scale);
+    }
+    if (tg == 0) {
+      float* st =
+          stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + i) * 3;
+      st[0] = m[r];
+      st[1] = inv_l[r];
+      st[2] = big_d[r];
+    }
+  }
+}
+
+// Backward kernel 2 on the tensor cores: dK and dV.
+template <class Layout, bool DROPOUT>
+__global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
+    attention_mma_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                             const float* __restrict__ q_in,
+                             const float* __restrict__ k_in,
+                             const float* __restrict__ v_in,
+                             const float* __restrict__ g,
+                             const float* __restrict__ stats,
+                             float* __restrict__ dk_out,
+                             float* __restrict__ dv_out, float q_scale,
+                             uint32_t threshold, float keep_scale) {
+  constexpr int DH = Layout::kHeadDim;
+  using T = MmaDkv<DH>;
+  constexpr int QT = T::kQueries;
+  constexpr int NQ = QT / 8;  // columns of 8 queries in a tile
+  constexpr int NK = DH / 8;  // k steps over Dh, and dK's columns of 8
+  constexpr int LD = DH + kTilePad;
+  constexpr int XP = T::kPad;
+  extern __shared__ float4 mma_smem[];
+  float* k_s = reinterpret_cast<float*>(mma_smem);  // (kKeys, LD)
+  float* v_s = k_s + T::kKeys * LD;
+  float* qg_s = v_s + T::kKeys * LD;  // stage st: q (unscaled), g at 2 st QT LD
+  float* st_s = qg_s + 2 * 2 * QT * LD;  // stage st: (m, 1/l, D) at 3 st QT
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int pair = warp >> 1;
+  const int role = warp & 1;  // 0: S^T and dV, 1: dPd^T and dK
+  float* xs = st_s + 2 * 3 * QT + pair * 2 * 16 * XP;  // S^T, then Pd^T
+  float* xd = xs + 16 * XP;                            // dPd^T, then dS^T
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int seq_len = lay.seq_len;
+  const int k0 = blockIdx.x * T::kKeys + 16 * pair;  // the pair's first key
+  const int kr0 = 16 * pair;
+  const bool active = k0 < seq_len;
   const size_t row = lay.in_row();
   const size_t head = lay.in_head(b, h);
   const float* g_head = g + lay.out_head(b, h);
   const float* st_head =
       stats + (static_cast<size_t>(b) * lay.heads + h) * seq_len * 3;
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nq = (seq_len + QT - 1) / QT;
+  const int n_st = 3 * seq_len;
 
-  float4 k[Lanes<DH>::kChunks], v[Lanes<DH>::kChunks];
-  float4 dk[Lanes<DH>::kChunks], dv[Lanes<DH>::kChunks];
-  lane_load<DH>(k, k_in + head + kj * row, part, valid, 1.f);
-  lane_load<DH>(v, v_in + head + kj * row, part, valid, 1.f);
-  lane_fill<DH>(dk, 0.f);
-  lane_fill<DH>(dv, 0.f);
-  const int quad = kj >> 2;
-  const int sel = kj & 3;
-  for (int i0 = 0; i0 < seq_len; i0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(q_s, q_in + head, i0, seq_len, row, q_scale);
-    load_tile<DH>(g_s, g_head, i0, seq_len, lay.out_row(), 1.f);
-    const int ni = min(kAttnTile, seq_len - i0);
-    for (int e = threadIdx.x; e < ni * 3; e += blockDim.x) {
-      st_s[e] = st_head[static_cast<size_t>(i0) * 3 + e];
+  const int kb0 = blockIdx.x * T::kKeys;
+  load_rows_async<DH, T::kKeys>(k_s, k_in + head, kb0, seq_len, row,
+                                T::kThreads);
+  load_rows_async<DH, T::kKeys>(v_s, v_in + head, kb0, seq_len, row,
+                                T::kThreads);
+  auto load_tile_async = [&](int i0, int stage) {
+    float* q_t = qg_s + stage * 2 * QT * LD;
+    load_rows_async<DH, QT>(q_t, q_in + head, i0, seq_len, row, T::kThreads);
+    load_rows_async<DH, QT>(q_t + QT * LD, g_head, i0, seq_len, lay.out_row(),
+                            T::kThreads);
+    for (int e = threadIdx.x; e < 3 * QT; e += T::kThreads) {
+      const bool valid = 3 * i0 + e < n_st;
+      cp_async4(st_s + stage * 3 * QT + e, st_head + (valid ? 3 * i0 + e : 0),
+                valid);
     }
-    __syncthreads();
-    for (int ii = 0; ii < ni; ++ii) {
-      const float* qrow = q_s + ii * DH;
-      const float* grow = g_s + ii * DH;
-      const float score = lanes_sum<L>(lane_dot<DH>(k, qrow, part));
-      const float dpd = lanes_sum<L>(lane_dot<DH>(v, grow, part));
-      const float p = expf(score - st_s[3 * ii]) * st_s[3 * ii + 1];
-      float pd = p, dp = dpd;
-      if (DROPOUT) {
-        const bool keep =
-            philox_word(attention_dropout_bits(seed, b, h, i0 + ii, quad),
-                        sel) >= threshold;
-        pd = keep ? p * keep_scale : 0.f;
-        dp = keep ? dpd * keep_scale : 0.f;
+    cp_async_commit();
+  };
+  load_tile_async(0, 0);
+
+  float acc[NK][4];  // dV (role 0) or dK / q_scale (role 1)
+#pragma unroll
+  for (int dn = 0; dn < NK; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  const float* a_s = role ? v_s : k_s;  // the rows of the first product's A
+  float* x_own = role ? xd : xs;
+  for (int t = 0; t < nq; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < nq) load_tile_async((t + 1) * QT, (t + 1) & 1);
+    if (!active) continue;
+    const int i0 = t * QT;
+    const float* q_t = qg_s + (t & 1) * 2 * QT * LD;
+    const float* g_t = q_t + QT * LD;
+    const float* st = st_s + (t & 1) * 3 * QT;
+
+    // S^T = K q^T (even warp) or dPd^T = V g^T (odd): 16 keys x QT queries,
+    // even and odd k steps in separate accumulators for more products in
+    // flight
+    {
+      const float* b_s = role ? g_t : q_t;
+      float x[2][NQ][4];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[p][n][e] = 0.f;
+        }
       }
-      const float ds = p * (dp - st_s[3 * ii + 2]);
-      lane_axpy<DH>(dv, pd, grow, part);
-      lane_axpy<DH>(dk, ds, qrow, part);
+#pragma unroll 2
+      for (int ks = 0; ks < NK; ks += 2) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int c = 8 * (ks + p) + tg;
+          const FragA fa = tile_frag_a<DH>(a_s, kr0 + gr, c);
+#pragma unroll
+          for (int n = 0; n < NQ; ++n) {
+            mma_3xtf32(x[p][n], fa, tile_frag_bt<DH>(b_s, 8 * n + gr, c));
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        *reinterpret_cast<float2*>(x_own + gr * XP + 8 * n + 2 * tg) =
+            make_float2(x[0][n][0] + x[1][n][0], x[0][n][1] + x[1][n][1]);
+        *reinterpret_cast<float2*>(x_own + (gr + 8) * XP + 8 * n + 2 * tg) =
+            make_float2(x[0][n][2] + x[1][n][2], x[0][n][3] + x[1][n][3]);
+      }
+    }
+    pair_sync<T::kPairs>(pair);
+    // Pd = keep P / (1 - rate) and dS = P (dP - D): one Philox call for the
+    // 4 keys of a quad and one query
+    for (int u = 32 * role + lane; u < 4 * QT; u += 64) {
+      const int qi = u % QT;
+      const int quad = u / QT;
+      const int i = i0 + qi;
+      const float mi = st[3 * qi], li = st[3 * qi + 1], di = st[3 * qi + 2];
+      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, i, k0 / 4 + quad);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int at = (4 * quad + r) * XP + qi;
+        const bool live = i < seq_len && k0 + 4 * quad + r < seq_len;
+        const float p = live ? expf(xs[at] * q_scale - mi) * li : 0.f;
+        float pd = p, dpv = xd[at];
+        if (DROPOUT) {
+          const bool keep = philox_word(bits, r) >= threshold;
+          pd = keep ? p * keep_scale : 0.f;
+          dpv = keep ? dpv * keep_scale : 0.f;
+        }
+        xs[at] = pd;
+        xd[at] = p * (dpv - di);
+      }
+    }
+    pair_sync<T::kPairs>(pair);
+    // dV += Pd^T g (even warp) or dK += dS^T q (odd), 8 queries a k step
+    const float* b2 = role ? q_t : g_t;
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      const float2 top =
+          *reinterpret_cast<const float2*>(x_own + gr * XP + 8 * kk + 2 * tg);
+      const float2 bot = *reinterpret_cast<const float2*>(
+          x_own + (gr + 8) * XP + 8 * kk + 2 * tg);
+      const FragA fa = frag_a(top.x, bot.x, top.y, bot.y);
+#pragma unroll
+      for (int dn = 0; dn < NK; ++dn) {
+        mma_3xtf32(acc[dn], fa,
+                   tile_frag_b<DH>(b2, 8 * kk + 2 * tg, 8 * dn + gr));
+      }
     }
   }
-  if (!valid) return;
-  lane_store<DH>(dk_out + head + kj * row, dk, part, 1.f);
-  lane_store<DH>(dv_out + head + kj * row, dv, part, 1.f);
+  if (!active) return;
+  float* out = role ? dk_out : dv_out;
+  const float scale = role ? q_scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + gr + 8 * r;
+    if (j >= seq_len) continue;
+    float* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < NK; ++dn) {
+      *reinterpret_cast<float2*>(dst + 8 * dn) =
+          make_float2(acc[dn][2 * r] * scale, acc[dn][2 * r + 1] * scale);
+    }
+  }
 }
 
-// Launch `kernel` on kLaneThreads threads a block with `bytes` of dynamic
+// Launch `kernel` on `threads` threads a block with `bytes` of dynamic
 // shared memory (above the 48 KB a static array may take).
 template <class Kernel, class... Args>
-cudaError_t launch_lanes(Kernel kernel, dim3 grid, size_t bytes,
-                         cudaStream_t stream, Args... args) {
+cudaError_t launch_dynamic(Kernel kernel, dim3 grid, int threads, size_t bytes,
+                           cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kLaneThreads, bytes, stream>>>(args...);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -763,10 +1045,15 @@ cudaError_t attention_lanes_fwd(Layout lay, int batch, const int* seed,
   const size_t bytes = 2 * Lanes<Layout::kHeadDim>::kTileBytes;
   auto* kernel = threshold > 0 ? &attention_lanes_fwd_kernel<Layout, true>
                                : &attention_lanes_fwd_kernel<Layout, false>;
-  return launch_lanes(kernel, lanes_grid(lay, batch), bytes, stream, lay, seed,
-                      q, k, v, out, q_scale, threshold, keep_scale);
+  return launch_dynamic(kernel, lanes_grid(lay, batch), kLaneThreads, bytes,
+                        stream, lay, seed, q, k, v, out, q_scale, threshold,
+                        keep_scale);
 }
 
+// The backward at Dh = 128 and 256: the tensor-core dq and dK/dV kernels.
+// cp.async copies 16-byte chunks, so every operand must start 16-byte
+// aligned (the wrappers' fresh tensors do; a view at an odd offset is
+// refused).
 template <class Layout>
 cudaError_t attention_lanes_bwd(Layout lay, int batch, const int* seed,
                                 const float* q, const float* k,
@@ -774,20 +1061,31 @@ cudaError_t attention_lanes_bwd(Layout lay, int batch, const int* seed,
                                 float* dk, float* dv, float* stats,
                                 float q_scale, uint32_t threshold,
                                 float keep_scale, cudaStream_t stream) {
-  const size_t tiles = 2 * Lanes<Layout::kHeadDim>::kTileBytes;
-  auto* dq_kernel = threshold > 0 ? &attention_lanes_dq_kernel<Layout, true>
-                                  : &attention_lanes_dq_kernel<Layout, false>;
-  cudaError_t err = launch_lanes(dq_kernel, lanes_grid(lay, batch), tiles,
-                                 stream, lay, seed, q, k, v, g, dq, stats,
-                                 q_scale, threshold, keep_scale);
+  constexpr int DH = Layout::kHeadDim;
+  using Q = MmaDq<DH>;
+  using KV = MmaDkv<DH>;
+  for (const float* p : {q, k, v, g}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  const dim3 dq_grid((lay.seq_len + Q::kRows - 1) / Q::kRows, lay.heads,
+                     batch);
+  auto* dq_kernel = threshold > 0 ? &attention_mma_dq_kernel<Layout, true>
+                                  : &attention_mma_dq_kernel<Layout, false>;
+  cudaError_t err =
+      launch_dynamic(dq_kernel, dq_grid, Q::kThreads, Q::kBytes, stream, lay,
+                     seed, q, k, v, g, dq, stats, q_scale, threshold,
+                     keep_scale);
   if (err != cudaSuccess) return err;
-  auto* dkv_kernel = threshold > 0
-                         ? &attention_lanes_dkv_kernel<Layout, true>
-                         : &attention_lanes_dkv_kernel<Layout, false>;
-  return launch_lanes(dkv_kernel, lanes_grid(lay, batch),
-                      tiles + sizeof(float) * kAttnTile * 3, stream, lay, seed,
-                      q, k, v, g, static_cast<const float*>(stats), dk, dv,
-                      q_scale, threshold, keep_scale);
+  const dim3 kv_grid((lay.seq_len + KV::kKeys - 1) / KV::kKeys, lay.heads,
+                     batch);
+  auto* dkv_kernel = threshold > 0 ? &attention_mma_dkv_kernel<Layout, true>
+                                   : &attention_mma_dkv_kernel<Layout, false>;
+  return launch_dynamic(dkv_kernel, kv_grid, KV::kThreads, KV::kBytes, stream,
+                        lay, seed, q, k, v, g,
+                        static_cast<const float*>(stats), dk, dv, q_scale,
+                        threshold, keep_scale);
 }
 
 template <class Layout>
@@ -837,7 +1135,7 @@ cudaError_t attention_rows_bwd(Layout lay, int batch, const int* seed,
 }
 
 // The forward of one layout: a thread a query row up to Dh = 64, the
-// lane-split kernels above.
+// lane-split kernel above.
 template <class Layout>
 cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
                                 const float* q, const float* k,
@@ -853,7 +1151,8 @@ cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
   }
 }
 
-// The backward of one layout, as the forward is dispatched.
+// The backward of one layout: a thread a row up to Dh = 64, the
+// tensor-core kernels above.
 template <class Layout>
 cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
                                 const float* q, const float* k,
@@ -870,9 +1169,9 @@ cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
   }
 }
 
-// fn(Layout<D>{seq_len, heads}) for D = head_dim among the widths built
-// (the wrappers' HEAD_DIMS: a thread a row up to 64, the lane-split kernels
-// at 128 and 256); cudaErrorInvalidValue for any other.
+// fn(Layout<D>{seq_len, heads}) for D = head_dim among the widths built (the
+// wrappers' HEAD_DIMS: a thread a row up to 64, the lane-split forward and the
+// tensor-core backward at 128 and 256); cudaErrorInvalidValue for any other.
 template <template <int> class Layout, class Fn>
 cudaError_t with_head_dim(int head_dim, int seq_len, int heads, Fn fn) {
   switch (head_dim) {

@@ -18,7 +18,7 @@
 //   q = qkv[b, :, 2C + h*Dh : ...] * q_scale
 // q_scale is Dh^-1/2 (1.f / sqrtf(Dh)), or the true width's where the
 // wrapper zero-padded the heads to a width the kernels are built for (Dh in
-// 4, 8, 16, 24, 32, 48, 64, and 128, 256 by the lane-split kernels).
+// 4, 8, 16, 24, 32, 48, 64, and 128, 256 by the Dh = 128 / 256 kernels).
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate)
 //   out[b, :, h*Dh : (h+1)*Dh] = Pd v
 // The keep bit of score (b, h, i, j) comes from philox.cuh, the same pure
@@ -38,7 +38,8 @@
 // ms. The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At the CLIs'
 // default width (C=512, Dh=128) and the 32-px level 0 (B=16, S=256) the
 // forward's two products are 2.1 GFLOP, >= ~32 us; the backward's five
-// 5.4 GFLOP, >= ~80 us.
+// 5.4 GFLOP, >= ~80 us, or >= ~33 us on the tensor cores in 3xTF32 (495 / 3
+// TFLOP/s), where its kernels run them.
 //
 // Design: attention_tiled.cuh, whose key-tiled kernels this file
 // instantiates for the packed layout (PackedQkv), as fused_attention.cu
@@ -47,9 +48,10 @@
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv
 // (B, S, 3C) directly, so no head split or merge copies. At Dh = 128 and
-// 256 the same passes run as the header's lane-split kernels: Dh / 32
-// lanes a row, the partial dot products summed by warp shuffles, the tiles
-// in dynamic shared memory.
+// 256 the forward runs as the header's lane-split kernel (Dh / 32 lanes a
+// row, the partial dot products summed by warp shuffles) and the backward
+// as its tensor-core kernels (3xTF32 mma.sync, mma_tf32.cuh), the tiles in
+// dynamic shared memory.
 #include "attention_tiled.cuh"
 
 namespace {

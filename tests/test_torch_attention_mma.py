@@ -1,0 +1,241 @@
+"""The arithmetic of the tensor-core attention backward (Dh = 128 and 256,
+gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh), emulated on the
+CPU: the TF32 rounding of `tf32_bits`, the hi / lo split, the 3xTF32
+product, and the whole backward in the kernels' tile order (key tiles of
+the dq kernel's two passes, query tiles of the dK/dV kernel, k steps of 8
+with three products each) against the JAX package's gradients and the
+port's plain backward. The kernels themselves are held against the plain
+backward on the card by tests/test_torch_cuda.py."""
+import importlib
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpnf_tpu.ops.pallas import fused_attention as jfa
+from gpnf_tpu_torch.ops import kernels
+from torch_parity import close, normal, rng, t
+
+fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+
+HEADS = 4
+CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
+# attention_tiled.cuh at Dh = 128: the dq kernel's key tile, the dK/dV
+# kernel's query tile (test_tile_constants_match_the_cuda_source)
+KEY_TILE, QUERY_TILE = 16, 32
+
+
+def tf32_round(x):
+    """float32 values rounded to TF32 as cvt.rna.tf32.f32 rounds them: to
+    nearest, ties away from zero, the low 13 mantissa bits cleared (half
+    the dropped part added to the magnitude's bits, a carry rounding up,
+    which is what `tf32_bits` does); inf and NaN stay as they are."""
+    a = np.atleast_1d(np.ascontiguousarray(x, dtype=np.float32))
+    bits = a.view(np.uint32)
+    finite = (bits & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(finite, rounded, bits).astype(np.uint32).view(np.float32)
+
+
+def split(x):
+    """(hi, lo) of a float32 tensor: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = torch.from_numpy(tf32_round(x.numpy())).reshape(x.shape)
+    lo = torch.from_numpy(tf32_round((x - hi).numpy())).reshape(x.shape)
+    return hi, lo
+
+
+def mm3(a, b, parity=False):
+    """a @ b in 3xTF32 as `mma_3xtf32` runs it: k steps of 8 in order, each
+    lo*hi, hi*lo, then hi*hi into one float32 accumulator; with `parity`,
+    even and odd steps into two accumulators added at the end (the dK/dV
+    kernel's S^T and dPd^T)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    shape = a.shape[:-1] + b.shape[-1:]
+    acc = [torch.zeros(shape), torch.zeros(shape)]
+    for step, k0 in enumerate(range(0, a.shape[-1], 8)):
+        p = step % 2 if parity else 0
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc[p] = acc[p] + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return acc[0] + acc[1]
+
+
+def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
+    """dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] of the packed
+    attention, as the two kernels compute it: the dq kernel's pass A over
+    key tiles (online m, l, D), its pass B (dS, dq += dS K), then the dK/dV
+    kernel over query tiles (P from the stats, dV += Pd^T g, dK += dS^T q);
+    q unscaled in every product, scores scaled after, dq and dK before the
+    store."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // num_heads
+    q_scale = fa.head_scale(dh)
+    heads = lambda x: x.reshape(b, s, num_heads, dh).transpose(1, 2)
+    k, v, q = (heads(x) for x in qkv.split(c, dim=-1))
+    gh = heads(g)
+    keep = (fa.dropout_keep_plain(seed, b, num_heads, s, rate) if rate > 0
+            else None)
+    scale = 1.0 / (1.0 - rate)
+
+    def scores_and_dp(j0):  # the dq kernel's two products of one key tile
+        kt, vt = k[:, :, j0:j0 + KEY_TILE], v[:, :, j0:j0 + KEY_TILE]
+        sc = mm3(q, kt.transpose(-1, -2)) * q_scale
+        dp = mm3(gh, vt.transpose(-1, -2))
+        if keep is not None:
+            dp = torch.where(keep[..., j0:j0 + KEY_TILE], dp * scale, 0.0)
+        return sc, dp, kt
+
+    m = torch.full((b, num_heads, s), -torch.inf)
+    l = torch.zeros((b, num_heads, s))
+    dsum = torch.zeros((b, num_heads, s))
+    for j0 in range(0, s, KEY_TILE):
+        sc, dp, _ = scores_and_dp(j0)
+        mx = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - mx)
+        ex = torch.exp(sc - mx[..., None])
+        l = l * corr + ex.sum(-1)
+        dsum = dsum * corr + (ex * dp).sum(-1)
+        m = mx
+    inv_l = 1.0 / l
+    big_d = dsum * inv_l
+    dq = torch.zeros_like(q)
+    for j0 in range(0, s, KEY_TILE):
+        sc, dp, kt = scores_and_dp(j0)
+        ds = (torch.exp(sc - m[..., None]) * inv_l[..., None]
+              * (dp - big_d[..., None]))
+        dq = dq + mm3(ds, kt)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for i0 in range(0, s, QUERY_TILE):
+        rows = slice(i0, i0 + QUERY_TILE)
+        qt, gt = q[:, :, rows], gh[:, :, rows]
+        st = mm3(k, qt.transpose(-1, -2), parity=True) * q_scale
+        dpt = mm3(v, gt.transpose(-1, -2), parity=True)
+        p = (torch.exp(st - m[:, :, None, rows])
+             * inv_l[:, :, None, rows])
+        pd = p
+        if keep is not None:
+            kept = keep[:, :, rows].transpose(-1, -2)
+            pd = torch.where(kept, p * scale, 0.0)
+            dpt = torch.where(kept, dpt * scale, 0.0)
+        ds = p * (dpt - big_d[:, :, None, rows])
+        dv = dv + mm3(pd, gt)
+        dk = dk + mm3(ds, qt)
+    merge = lambda x: x.transpose(1, 2).reshape(b, s, c)
+    return torch.cat([merge(dk * q_scale), merge(dv), merge(dq * q_scale)],
+                     dim=-1)
+
+
+# -- TF32 rounding and the split ---------------------------------------------------
+TIE = 1 + 2.0 ** -11  # halfway between 1 and 1 + 2^-10, the TF32 step at 1
+ROUNDING = [
+    (1.0, 1.0),
+    (TIE, 1 + 2.0 ** -10),  # a tie goes away from zero (to even: 1)
+    (-TIE, -(1 + 2.0 ** -10)),
+    (np.nextafter(np.float32(TIE), np.float32(0)), 1.0),  # just below
+    (1 + 3 * 2.0 ** -11, 1 + 2.0 ** -9),  # a tie whose even side is up too
+    (2 - 2.0 ** -23, 2.0),  # the carry reaches the exponent
+    (2.0 ** -149, 0.0),  # the least subnormal, below half a TF32 step
+    (2.0 ** -137, 2.0 ** -136),  # a subnormal tie: away from zero
+    (-(2.0 ** -137), -(2.0 ** -136)),
+    (float(np.finfo(np.float32).max), np.inf),  # past the largest TF32
+    (np.inf, np.inf), (-np.inf, -np.inf)]
+
+
+@pytest.mark.parametrize("x,want", ROUNDING)
+def test_tf32_round_hand_checked(x, want):
+    got = tf32_round(np.float32(x))[0]
+    assert got == np.float32(want) and np.signbit(got) == np.signbit(want)
+    assert got.view(np.uint32) & np.uint32(0x1FFF) == 0
+
+
+def test_tf32_round_keeps_nan():
+    assert np.isnan(tf32_round(np.float32(np.nan))[0])
+
+
+def test_split_reconstructs_within_2_to_the_minus_21():
+    """hi + lo is x within 2^-21 |x| (the split's own bound is 2^-22: lo
+    rounds a remainder below 2^-11 |x| to 11 bits), over 60 binades and
+    both signs; hi and lo are TF32 values."""
+    r = rng(3)
+    x = (r.standard_normal(20000) * 2.0 ** r.integers(-30, 30, 20000)
+         ).astype(np.float32)
+    hi, lo = split(torch.from_numpy(x))
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & np.uint32(0x1FFF)).any()
+    err = np.abs(hi.double().numpy() + lo.double().numpy() - x)
+    assert (err <= 2.0 ** -21 * np.abs(x)).all()
+    assert np.abs(hi.double().numpy() - x).max() > 0  # hi alone is not x
+
+
+@pytest.mark.parametrize("k", [128, 256])
+def test_3xtf32_product_against_float64(k):
+    """mm3 within (K + 16) 2^-24 (|A| |B|) of the float64 product, element
+    by element: each term is within ~3 2^-22 |a||b| of exact (the split's
+    2^-22 on each side and the dropped lo*lo), and a float32 sum of K terms
+    adds at most ~K 2^-24 sum |a||b|. A single TF32 product (hi*hi), whose
+    terms are off by ~2^-11, fails the same bar."""
+    r = rng(k)
+    a = torch.from_numpy(normal(r, (64, k)))
+    b = torch.from_numpy(normal(r, (k, 32)))
+    exact = a.double() @ b.double()
+    bar = (k + 16) * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+    assert ((mm3(a, b).double() - exact).abs() <= bar).all()
+    ah, bh = split(a)[0], split(b)[0]
+    assert ((ah @ bh).double() - exact).abs().gt(bar).any()
+
+
+# -- the whole backward in the kernels' tile order ----------------------------------
+def _inputs(s, batch=2, c=512, seed=0):
+    r = rng(seed + s)
+    return normal(r, (batch, s, 3 * c), 0.5), normal(r, (batch, s, c))
+
+
+@pytest.mark.parametrize("s", [16, 17, 64])
+def test_emulated_backward_matches_jax_grads(s):
+    """Dh 128 (C 512, 4 heads), batch 2, rate 0: the emulated kernels'
+    dqkv against jax.grad of the JAX package's fused_attention_qkv on the
+    CPU, at the bar of tests/test_torch_attention_widths.py."""
+    qkv, g = _inputs(s)
+    seed = jnp.zeros((1,), jnp.int32)
+    want = jax.grad(lambda x: jnp.sum(jfa.fused_attention_qkv(
+        seed, x, HEADS, 0.0, False) * g))(jnp.asarray(qkv))
+    close(emulated_bwd(t(qkv), t(g), HEADS), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [16, 17, 64])
+def test_emulated_backward_matches_the_plain_backward(s, rate):
+    """The same against `attention_long_plain_bwd`, the plain version the
+    card's kernels are held to, at rate 0 and 0.2 (the port's mask at one
+    seed)."""
+    qkv, g = (t(x) for x in _inputs(s, seed=7))
+    seed = torch.tensor([99 + s], dtype=torch.int32)
+    want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate, seed)
+    close(emulated_bwd(qkv, g, HEADS, rate, seed), want, rtol=1e-4,
+          atol=1e-5)
+
+
+def test_tile_constants_match_the_cuda_source():
+    """KEY_TILE and QUERY_TILE are attention_tiled.cuh's own at Dh = 128,
+    and the header's split is the rounding `tf32_round` emulates."""
+    src = (CSRC / "attention_tiled.cuh").read_text()
+
+    def const(struct, name):
+        body = re.search(rf"struct {struct} \{{(.*?)\n\}};", src, re.S).group(1)
+        rhs = re.search(rf"constexpr int {name} = ([^;]*);", body).group(1)
+        ternary = re.fullmatch(r"DH == (\d+) \? (\d+) : (\d+)", rhs)
+        if ternary:
+            return int(ternary.group(2) if ternary.group(1) == "128"
+                       else ternary.group(3))
+        return int(rhs)
+
+    assert const("MmaDq", "kKeys") == KEY_TILE
+    assert const("MmaDkv", "kQueries") == QUERY_TILE
+    header = (CSRC / "mma_tf32.cuh").read_text()
+    assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in header
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header

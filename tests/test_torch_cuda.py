@@ -853,6 +853,95 @@ def test_core_entries_at_lane_split_widths_match_plain_on_card(
         assert _rel_max(a, b) <= 1e-4
 
 
+# the tensor-core backward at Dh = 128 and 256 (attention_tiled.cuh's
+# attention_mma_dq_kernel and attention_mma_dkv_kernel): S off the tiles
+# (17, 100), the CLIs' levels, Dh 256 at C = 1024
+MMA_BWD_CASES = [(128, 16), (128, 17), (128, 64), (128, 100), (128, 256),
+                 (256, 64), (256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "split"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh,s", MMA_BWD_CASES)
+def test_mma_backward_matches_plain_on_card(cuda_device, dh, s, rate, layout):
+    """The tensor-core backward through the long entry (packed qkv) and
+    through fused_attention_bwd (split heads, q scaled), one seed for
+    kernel and plain version: every gradient finite and within 1e-4 of its
+    largest |plain| (the lane-split bar), two calls bit for bit, one
+    `attention_lanes_bwd` count a call."""
+    q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, (2, 4, s, dh),
+                                             seed=dh + s)
+    if layout == "packed":
+        bwd = lambda: (kernels.attention_long_qkv_bwd(qkv, g3, 4, rate,
+                                                      seed),)
+        want = (kernels.attention_long_plain_bwd(qkv, g3, 4, rate, seed),)
+    else:
+        bwd = lambda: kernels.fused_attention_bwd(q, k, v, g, rate, seed)
+        want = kernels.attention_plain_bwd(q, k, v, g, rate, seed)
+    before = kernels.attention_lanes_bwd.launches
+    got = bwd()
+    assert kernels.attention_lanes_bwd.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_max(a, b) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got, bwd()))
+
+
+@pytest.mark.cuda
+def test_mma_backward_refuses_misaligned_operands(cuda_device):
+    """cp.async moves 16-byte chunks: a contiguous qkv that starts off a
+    16-byte boundary is refused before any launch (cudaErrorMisalignedAddress,
+    716), and counts no launch."""
+    qkv, g, seed = _qkv_inputs(cuda_device, 64, c=512)
+    shifted = torch.empty(qkv.numel() + 1, device=cuda_device)[1:].view_as(qkv)
+    shifted.copy_(qkv)
+    before = kernels.attention_lanes_bwd.launches
+    with pytest.raises(RuntimeError, match="CUDA error 716"):
+        kernels.attention_long_qkv_bwd(shifted, g, 4, 0.2, seed)
+    assert kernels.attention_lanes_bwd.launches == before
+    assert torch.equal(kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed),
+                       kernels.attention_long_qkv_bwd(qkv.clone(), g, 4, 0.2,
+                                                      seed))
+
+
+@pytest.mark.cuda
+def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every instantiation of the tensor-core dq and dK/dV kernels (Dh 128
+    and 256, with and without dropout, in both libraries that build them)
+    holds HMMA instructions in its SASS. Skipped only where the toolkit has
+    no cuobjdump to read the SASS with."""
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
+                    "read here")
+    for source in ("fused_attention_long", "fused_attention"):
+        _native.build([source])
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(_native.library_path(source))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        hmma, fn = {}, None
+        for line in sass.splitlines():
+            name = re.search(r"Function : (\S*attention_mma_d\S*)", line)
+            if "Function : " in line:
+                fn = name.group(1) if name else None
+                if fn:
+                    hmma[fn] = 0
+            elif fn and "HMMA" in line:
+                hmma[fn] += 1
+        layouts = 1 if source == "fused_attention_long" else 2
+        assert len(hmma) == 2 * 2 * 2 * layouts, sorted(hmma)
+        assert all(n > 0 for n in hmma.values()), hmma
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,s,c", [(16, 256, 512), (16, 16, 512),
                                        (2, 100, 160), (1, 7, 8)])
@@ -988,9 +1077,11 @@ def test_split_gemms_match_matmul_on_card(cuda_device, product, c, s, batch):
 
 @pytest.mark.cuda
 def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
-    """The proj backward on the card at the flagship's level 1, rate 0.2,
-    under a TorchFunctionMode that raises on every PyTorch product and
-    attention call: its stages are this repo's kernels only."""
+    """The proj backward on the card at the flagship's level 1, and the
+    backward at Dh = 128 (the wide route's whole backward at the CLIs' C =
+    512 and the core entry on split heads: the tensor-core kernels), rate
+    0.2, under a TorchFunctionMode that raises on every PyTorch product and
+    attention call: they run this repo's kernels only."""
     from torch.overrides import TorchFunctionMode
 
     banned = {"matmul", "mm", "bmm", "einsum", "linear",
@@ -1004,10 +1095,23 @@ def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
             return func(*args, **(kwargs or {}))
 
     seq, w, g, seed = _attention_inputs(cuda_device, 64, 8)
+    wide = _attention_inputs(cuda_device, 64, 2, c=512)
+    q, k, v, gh, _, _, core_seed = _core_inputs(cuda_device, (2, 4, 64, 128))
+    lanes = kernels.attention_lanes_bwd.launches
     with NoLibraryProducts():
         dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, 0.2, seed)
+        wide_grads = kernels.fused_attention_long_bwd(*wide[:3], 4, 0.2,
+                                                      wide[3])
+        core_grads = kernels.fused_attention_bwd(q, k, v, gh, 0.2, core_seed)
         with pytest.raises(AssertionError, match="library call"):
             torch.matmul(seq, w.t())  # the mode is in effect
+    assert kernels.attention_lanes_bwd.launches == lanes + 2
     want = kernels.attention_proj_plain_bwd(seq, w, g, 4, 0.2, seed)
     assert _rel_max(dseq, want[0]) <= 1e-4
     assert _rel_max(dw, want[1]) <= 1e-4
+    want = kernels.attention_proj_plain_bwd(*wide[:3], 4, 0.2, wide[3])
+    for got, plain in zip(wide_grads, want):
+        assert _rel_max(got, plain) <= 1e-4
+    want = kernels.attention_plain_bwd(q, k, v, gh, 0.2, core_seed)
+    for got, plain in zip(core_grads, want):
+        assert _rel_max(got, plain) <= 1e-4
