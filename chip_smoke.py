@@ -110,14 +110,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      bit, the long entry, and the q, k, v entry against the packed one;
      then one drive through both entries' autograd (launches 1 of each).
      Every earlier phase asserts that its path launches none of the four;
- 18. GatedAttn at every width: the lane-split forward and the tensor-core
-     backward (Dh = 128 and 256, through the long entry's wrappers) against
-     their plain versions at the CLIs' width C = 512 (batch 16, S = 256 /
-     64 / 16) and at C = 1024 (batch 4, S = 256), rate 0 and 0.2 (one
-     seed), two backward calls bit for bit the same, each with its time,
-     the plain version's, SDPA's (rate 0) and its bound (the backward's
-     against 3xTF32's peak, the fp32 one beside it), the backward kernels'
-     registers and spills from the build's ptxas report; the wide route's
+ 18. GatedAttn at every width: the tensor-core forward and backward (Dh
+     = 128 and 256, through the long entry's wrappers) against their plain
+     versions at the CLIs' width C = 512 (batch 16, S = 256 / 64 / 16) and
+     at C = 1024 (batch 4, S = 256), rate 0 and 0.2 (one seed), two calls
+     of each bit for bit the same, each with its time, the plain
+     version's, SDPA's (rate 0) and its bound (against 3xTF32's peak, the
+     fp32 one beside it), the kernels' registers and spills from the
+     build's ptxas report; the wide route's
      GEMM kernels (qkv = seq w^T, dseq, dW at S <= 512, K split where few
      output tiles meet a long K)
      against torch.matmul at C = 512, two calls bit for bit, with times
@@ -131,7 +131,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      `eval_marscf` on its checkpoint (bits/dim over the test set, one
      sampling pass, exact launch counts); with --profile, device time by
      kernel over one C = 512 train step and eval batch. Every earlier phase
-     asserts that its path launches no lane-split kernel, and the GEMM and
+     asserts that its path launches no Dh = 128 / 256 kernel, and the GEMM and
      key-tiled backward kernels exactly as often as its proj backwards run
      their stages (no C = 96 eval or sampling pass launches them).
 The line before the last is the kernels' JSON record; the last line is
@@ -228,7 +228,7 @@ CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
 NO_CORE = dict.fromkeys(CORE, 0)
 PER_STEP_64.update(NO_CORE)
-# the lane-split kernels (Dh = 128, 256; phase 18): no C = 96 path runs
+# the Dh = 128 / 256 kernels (phase 18): no C = 96 path runs
 # them. The GEMMs (the projection and dseq / dW at S <= 512) run on the wide
 # route and in every proj backward, whose stages are one launch each of
 # PROJ_BWD_STAGES: the projection recomputed, the key-tiled dq and dK/dV
@@ -1961,17 +1961,17 @@ C512_BATCH, C512_STEPS, C512_WARM_UP = 16, 12, 64
 C512_ARGS = ["--dataset_name", "synthetic", "--L", "3", "--K", "2",
              "--batch_size", str(C512_BATCH), "--device", "cuda"]
 C512_ATTN = 3 * 2 * 10
-# (C, batch, S) of the lane-split kernels' checks: the CLIs' width at the
+# (C, batch, S) of the Dh = 128 / 256 kernels' checks: the CLIs' width at the
 # 32-px levels' S, and Dh = 256 (C = 1024) at level 0
 LANE_CASES = ((512, C512_BATCH, 256), (512, C512_BATCH, 64),
               (512, C512_BATCH, 16), (1024, 4, 256))
 
 
 def check_lane_kernels(device, timer):
-    """Phase 18's kernel checks: the lane-split forward and the tensor-core
-    backward (Dh = 128, 256) through the long entry's wrappers against
-    their plain versions at LANE_CASES, rate 0 and 0.2 (one seed: the same
-    mask), two backward calls bit for bit, each with its time, the plain
+    """Phase 18's kernel checks: the tensor-core forward and backward (Dh =
+    128, 256) through the long entry's wrappers against their plain
+    versions at LANE_CASES, rate 0 and 0.2 (one seed: the same mask), two
+    calls of each bit for bit, each with its time, the plain
     version's, SDPA's after a head split (rate 0) and its bound; at the
     CLIs' width the wide route's GEMMs (qkv = seq w^T, dseq, dW) against
     torch.matmul, two calls bit for bit, with their times and bounds; then
@@ -1981,7 +1981,7 @@ def check_lane_kernels(device, timer):
 
     counts = kernels.launch_counts()
     if any(counts[n] for n in LANES):
-        raise AssertionError(f"an earlier phase launched a lane-split "
+        raise AssertionError(f"an earlier phase launched a Dh = 128 / 256 "
                              f"kernel: {counts}")
     gen = torch.Generator(device=device).manual_seed(2468)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
@@ -1993,25 +1993,24 @@ def check_lane_kernels(device, timer):
         scores = batch * heads * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         rows = batch * s
+        # the products on the tensor cores in 3xTF32: held to that peak,
+        # fp32's beside it
         if name == "attention_lanes":  # qkv in, out; two products, softmax
             bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
-            peak, extra = PEAK_OPS, {}
-        else:  # qkv and g in, dqkv out; five products and dS, on the
-            # tensor cores in 3xTF32: held to that peak, fp32's beside it
+        else:  # qkv and g in, dqkv out; five products and dS
             bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
-            peak = PEAK_OPS_3XTF32
-            fp32_ms, fp32_by = bound(bytes_moved, ops + 5 * scores)
-            extra = dict(bound_peak="3xTF32 165 TFLOP/s",
-                         bound_fp32_ms=fp32_ms, bound_fp32_by=fp32_by)
-        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores, peak)
+        fp32_ms, fp32_by = bound(bytes_moved, ops + 5 * scores)
+        extra = dict(bound_peak="3xTF32 165 TFLOP/s", bound_fp32_ms=fp32_ms,
+                     bound_fp32_by=fp32_by)
+        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores,
+                                   PEAK_OPS_3XTF32)
         results[name].append(dict(
             c=c, head_dim=dh, batch=batch, s=s, rate=rate, max_abs_err=err[0],
             err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             **extra))
         ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
-        fp32 = (f"; fp32 {extra['bound_fp32_ms'] * 1e3:.2f} us" if extra
-                else "")
+        fp32 = f"; fp32 {fp32_ms * 1e3:.2f} us"
         log(f"  {name} C={c} (Dh {dh}) B={batch} S={s} rate {rate}: max abs "
             f"err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) | kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
@@ -2060,8 +2059,12 @@ def check_lane_kernels(device, timer):
                                                              seed)
                 # a score sums Dh products of values up to ~2: held to the
                 # output's scale
+                got = fwd()
+                if not torch.equal(got, fwd()):
+                    raise AssertionError(f"attention_lanes C={c} S={s} "
+                                         f"rate {rate}: two calls differ")
                 err = check(f"attention_lanes C={c} S={s} rate {rate}",
-                            fwd(), plain(), 1e-5)
+                            got, plain(), 1e-5)
                 k4, v4, q4 = (heads_of(t_, dh) for t_ in qkv.split(c, -1))
                 record("attention_lanes", c, batch, s, rate, err, timer(fwd),
                        timer(plain), timer(
@@ -2424,7 +2427,7 @@ def main():
     t0 = time.perf_counter()
     core_kernels, core_drive = check_core_attention(device, timer)
     log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
-    log("== 18. GatedAttn at every width: the lane-split kernels (Dh = 128, "
+    log("== 18. GatedAttn at every width: the tensor-core kernels (Dh = 128, "
         "256) vs plain versions, the flagship's routes, the CLIs' default "
         "--C 512 trained and served")
     t0 = time.perf_counter()
@@ -2472,7 +2475,7 @@ def main():
                                 attention[1] + "230"),
         "fused_attention_qkv_bwd": ("gpnf_tpu_torch/csrc/fused_attention.cu",
                                     attention[1] + "257"),
-        # on phase 18's path (C = 512, S <= 512) the lane-split kernels and
+        # on phase 18's path (C = 512, S <= 512) the Dh = 128 kernels and
         # the GEMMs do together what the TPU's proj kernels do at that width
         "attention_lanes": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
                             attention[1] + "393"),
@@ -2564,7 +2567,7 @@ def main():
                 per_case=rows)
         elif name in LANES or name in GEMMS:
             # the CLIs' width (C = 512, Dh = 128) at the 32-px level 0, batch
-            # 16; the lane-split kernels at rate 0, beside SDPA (every case,
+            # 16; the Dh = 128 / 256 kernels at rate 0, beside SDPA (every case,
             # rate 0.2 and Dh = 256 among them, in per_case)
             rows = lane_kernels[name]
             top = [r for r in rows if (r["c"], r["s"], r.get("rate", 0.0))
@@ -2581,16 +2584,19 @@ def main():
                          ", rate 0; library_ms SDPA"),
                 per_case=rows, **({"flagship_levels": flagship} if flagship
                                   else {}))
-            if name == "attention_lanes_bwd":
+            if name in LANES:  # on the tensor cores, mma_tf32.cuh
+                fwd = name == "attention_lanes"
                 entry.update(
                     bound_fp32_ms=top["bound_fp32_ms"],
-                    device_kernels=["attention_mma_dq_kernel",
-                                    "attention_mma_dkv_kernel"],
+                    device_kernels=(["attention_mma_fwd_kernel"] if fwd else
+                                    ["attention_mma_dq_kernel",
+                                     "attention_mma_dkv_kernel"]),
                     headers=["gpnf_tpu_torch/csrc/attention_tiled.cuh",
                              "gpnf_tpu_torch/csrc/mma_tf32.cuh",
                              "gpnf_tpu_torch/csrc/philox.cuh"],
                     ptxas=ptxas_kernels(reports.get(
-                        "fused_attention_long", ""), "attention_mma_d"))
+                        "fused_attention_long", ""),
+                        "attention_mma_fwd" if fwd else "attention_mma_d"))
         elif name in long_kernels:
             # the 64-px level 0 at rate 0: kernel, plain version, SDPA and
             # bound on the same inputs (rate 0.2's rows in per_case)

@@ -1,7 +1,7 @@
 """Time attention kernels on the card against other versions of their
 sources.
 
-    python -m gpnf_tpu_torch.bench_attention [--kernel proj|lanes_bwd]
+    python -m gpnf_tpu_torch.bench_attention [--kernel proj|lanes|lanes_bwd]
         [--ref NAME=DIR ...] [--out FILE]
 
 DIR holds another version's csrc/ (its sources with the headers they
@@ -9,6 +9,16 @@ include): say the parent commit's, from `git archive <commit>
 gpnf_tpu_torch/csrc | tar -x -C build/parent`. Each ref source is built
 with the package's nvcc flags and called through its C entry as that
 version's wrappers called it.
+
+`--kernel lanes`: the forward at Dh = 128 and 256 (the kernel that
+`attention_lanes` counts), through fused_attention_long.cu's
+`gpnf_attention_long_fwd` (qkv in, out), at the shapes and rates of
+`lanes_bwd` below: the change (`attention_long_qkv`) and each ref in the
+same turns; out against the plain forward on the card (relative to its
+largest entry, and the max abs error); two calls bit for bit; SDPA after a
+head split at rate 0 beside them; both bounds (two S x S x Dh products and
+five operations a score); one call of each under torch.profiler; and the
+ptxas lines of every version's kernels.
 
 `--kernel lanes_bwd`: the backward at Dh = 128 and 256 (the kernels that
 `attention_lanes_bwd` counts), through fused_attention_long.cu's
@@ -89,10 +99,12 @@ REF_SIGNATURES = {
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
     "attention_gemm": {"gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P]},
     "fused_attention_long": {
+        "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P]},
 }
 # the sources each --kernel builds, from the package and from each ref
 SOURCES = {"proj": ("fused_attention_proj", "attention_gemm"),
+           "lanes": ("fused_attention_long",),
            "lanes_bwd": ("fused_attention_long",)}
 
 
@@ -254,6 +266,20 @@ def proj_rows(device, libs, timer, card):
             yield row
 
 
+def ref_long_fwd(lib, qkv, rate, seed):
+    """A ref's forward at the kernel's boundary, called as its
+    `attention_long_qkv` called it."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    out = torch.empty((b, s, c), device=qkv.device)
+    _check(lib.gpnf_attention_long_fwd(
+        seed.data_ptr() if rate > 0 else None, qkv.data_ptr(), out.data_ptr(),
+        b, s, c, HEADS, fa.head_scale(c // HEADS),
+        fa.keep_threshold(rate) if rate else 0, 1.0 / (1.0 - rate),
+        _stream()), "ref long fwd")
+    return out
+
+
 def ref_long_bwd(lib, qkv, g, rate, seed):
     """A ref's backward at the kernels' boundary, called as its
     `attention_long_qkv_bwd` called it."""
@@ -283,10 +309,22 @@ def sdpa_bwd(qkv, g):
                                        retain_graph=True)
 
 
-def lanes_rows(device, libs, timer, card):
-    """The Dh = 128 / 256 backward at LANE_SHAPES: the change and each ref
-    in turns, beside SDPA autograd, both bounds."""
+def sdpa_fwd(qkv):
+    """SDPA on the heads of qkv (rate 0), split once: the call whose time
+    stands beside the forward's."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    k, v, q = (x.reshape(b, s, HEADS, c // HEADS).transpose(1, 2).contiguous()
+               for x in qkv.split(c, dim=-1))
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def lanes_rows(device, libs, timer, card, backward):
+    """The Dh = 128 / 256 forward (or backward) at LANE_SHAPES: the change
+    and each ref in turns, beside SDPA (its autograd for the backward),
+    both bounds."""
     names = [*libs, "change"]
+    products = 5 if backward else 2
     for batch, c, s in LANE_SHAPES:
         gen = torch.Generator(device=device).manual_seed(c + s)
         qkv = torch.randn((batch, s, 3 * c), generator=gen,
@@ -295,18 +333,29 @@ def lanes_rows(device, libs, timer, card):
         seed = torch.tensor([1357 + s + c], dtype=torch.int32, device=device)
         dh = c // HEADS
         scores = batch * HEADS * s * s
-        ops = 5 * 2 * scores * dh + 5 * scores
-        bytes_moved = 4 * (2 * batch * s * 3 * c + batch * s * c)
+        ops = products * 2 * scores * dh + 5 * scores
+        bytes_moved = 4 * ((2 if backward else 1) * batch * s * 3 * c
+                           + batch * s * c)
         bound_ms, bound_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
         fp32_ms, fp32_by = bound(bytes_moved, ops)
         for rate in RATES:
-            runs = {name: (lambda lib=lib: ref_long_bwd(
-                lib["fused_attention_long"], qkv, g, rate, seed))
-                for name, lib in libs.items()}
-            runs["change"] = lambda: kernels.attention_long_qkv_bwd(
-                qkv, g, HEADS, rate, seed)
-            want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate, seed)
-            row = {"kind": "lanes_bwd", "batch": batch, "C": c, "S": s,
+            if backward:
+                runs = {name: (lambda lib=lib: ref_long_bwd(
+                    lib["fused_attention_long"], qkv, g, rate, seed))
+                    for name, lib in libs.items()}
+                runs["change"] = lambda: kernels.attention_long_qkv_bwd(
+                    qkv, g, HEADS, rate, seed)
+                want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate,
+                                                        seed)
+            else:
+                runs = {name: (lambda lib=lib: ref_long_fwd(
+                    lib["fused_attention_long"], qkv, rate, seed))
+                    for name, lib in libs.items()}
+                runs["change"] = lambda: kernels.attention_long_qkv(
+                    qkv, HEADS, rate, seed)
+                want = kernels.attention_long_plain(qkv, HEADS, rate, seed)
+            row = {"kind": "lanes_bwd" if backward else "lanes",
+                   "batch": batch, "C": c, "S": s,
                    "head_dim": dh, "rate": rate, "card": card,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_peak": "3xTF32 165 TFLOP/s",
@@ -320,8 +369,8 @@ def lanes_rows(device, libs, timer, card):
             for name in [*libs, "change", "change", *reversed(list(libs))]:
                 times[name].append(timer(runs[name]))
             row.update({f"{name}_ms": times[name] for name in names})
-            row["library_ms"] = (timer(sdpa_bwd(qkv, g)) if rate == 0.0
-                                 else None)
+            library = sdpa_bwd(qkv, g) if backward else sdpa_fwd(qkv)
+            row["library_ms"] = timer(library) if rate == 0.0 else None
             row["profile"] = {name: by_kernel(run)
                               for name, run in runs.items()}
             yield row
@@ -387,7 +436,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=sorted(SOURCES), default="proj",
                    help="the proj backward and its GEMMs, or the Dh = 128 / "
-                        "256 backward")
+                        "256 forward or backward")
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=DIR of another version's csrc/")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
@@ -416,8 +465,8 @@ def main(argv=None):
     print(json.dumps(results[0]), flush=True)
     timer = Timer(device)
     targets = [int(x) for x in args.targets.split(",")]
-    rows = (lanes_rows(device, libs, timer, card)
-            if args.kernel == "lanes_bwd" else itertools.chain(
+    rows = (lanes_rows(device, libs, timer, card, args.kernel == "lanes_bwd")
+            if args.kernel.startswith("lanes") else itertools.chain(
                 proj_rows(device, libs, timer, card),
                 gemm_rows(device, libs, timer, card, targets)))
     for row in rows:

@@ -40,18 +40,16 @@
 //   backward repeats bit for bit. The packed layout reads qkv and writes
 //   dqkv (B, S, 3C) in place, with no head split or merge copies.
 // Dh = 128 and 256: a thread cannot hold q[Dh] and acc[Dh] (Dh = 64
-// already takes 255 registers and spills). The forward runs the lane-split
-// kernel below: a row is held by Dh / 32 adjacent lanes of one warp, 32
-// dimensions each, the partial dot products summed across those lanes by
-// shuffles, every lane running the same online softmax. The backward runs
-// on the tensor cores: 16-row tiles of a warp, 3xTF32 mma.sync products at
-// about fp32 accuracy (mma_tf32.cuh), cp.async double buffers (the
-// tensor-core backward, below). Same passes, the same Philox words, sums
-// in a fixed order, no atomics: two calls give the same bits. Dh <= 64
-// runs the thread-a-row kernels, unchanged. What bounds the backward at
-// Dh = 128 on the H100: its five S x S x Dh products at 3xTF32's rate
-// (495 / 3 TFLOP/s): >= ~33 us at the CLIs' default C = 512, B = 16, S =
-// 256 (~80 us at the fp32 rate off the tensor cores); the bytes 5 us.
+// already takes 255 registers and spills). The forward and the backward
+// run on the tensor cores: 16-row tiles of a warp, 3xTF32 mma.sync
+// products at about fp32 accuracy (mma_tf32.cuh), cp.async double buffers
+// (the tensor-core kernels, below). The same online softmax and passes,
+// the same Philox words, sums in a fixed order, no atomics: two calls give
+// the same bits. Dh <= 64 runs the thread-a-row kernels, unchanged. What
+// bounds them at Dh = 128 on the H100: the S x S x Dh products at 3xTF32's
+// rate (495 / 3 TFLOP/s), two in the forward, five in the backward: >= ~13
+// and ~33 us at the CLIs' default C = 512, B = 16, S = 256 (~32 and ~80 us
+// at the fp32 rate off the tensor cores); the bytes 2.5 and 5 us.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -386,185 +384,14 @@ __global__ void __launch_bounds__(kAttnRows)
   }
 }
 
-// -- the lane-split forward: Dh = 128 and 256 ---------------------------------
-// Each query row is held by kLanes = Dh / 32 adjacent lanes of one warp, each
-// holding 32 of its dimensions: float4 chunk c (of 8) of lane p holds
-// dimensions 4 (c kLanes + p) .. +3, so the kLanes lanes of a row read kLanes
-// adjacent float4s of a shared-memory row at once (no bank conflict; the rows
-// of a warp read the same key, a broadcast). A score's kLanes partial dot
-// products are summed by __shfl_xor_sync across the row's lanes: a butterfly,
-// whose every level adds the same two values in one order or the other, so
-// every lane holds the same bits and runs the same online softmax and keep
-// test. A block is 256 threads, 256 / kLanes rows (64 at Dh = 128, 32 at 256);
-// its two tiles of 64 rows (K and V) take 64 KB at Dh = 128 and 128 KB at 256,
-// so they are dynamic shared memory. Every thread runs every loop (a row past S
-// on zeros), so the shuffles always see whole warps.
-constexpr int kMaxRowHeadDim = 64;  // above: the kernels below
-constexpr int kLaneDims = 32;       // dimensions a lane holds
-constexpr int kLaneThreads = 256;   // threads a block
+constexpr int kMaxRowHeadDim = 64;  // above: the tensor-core kernels below
 
-template <int DH>
-struct Lanes {
-  static constexpr int kLanes = DH / kLaneDims;  // lanes a row
-  static constexpr int kChunks = kLaneDims / 4;  // float4s a lane
-  static constexpr int kRows = kLaneThreads / kLanes;
-  static constexpr size_t kTileBytes = sizeof(float) * kAttnTile * DH;
-};
-
-template <int LANES>
-__device__ __forceinline__ float lanes_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < LANES; off <<= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// The dimensions of row `src` that lane `part` holds, times `scale`; zeros
-// where the row is past S.
-template <int DH>
-__device__ __forceinline__ void lane_load(float4* x, const float* src,
-                                          int part, bool valid, float scale) {
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) {
-    const int d = 4 * (c * Lanes<DH>::kLanes + part);
-    x[c] = valid ? make_float4(src[d] * scale, src[d + 1] * scale,
-                               src[d + 2] * scale, src[d + 3] * scale)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void lane_store(float* dst, const float4* x,
-                                           int part, float scale) {
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) {
-    const int d = 4 * (c * Lanes<DH>::kLanes + part);
-    dst[d] = x[c].x * scale;
-    dst[d + 1] = x[c].y * scale;
-    dst[d + 2] = x[c].z * scale;
-    dst[d + 3] = x[c].w * scale;
-  }
-}
-
-// The lane's part of x . row, row a 16-byte aligned shared-memory row.
-template <int DH>
-__device__ __forceinline__ float lane_dot(const float4* x, const float* row,
-                                          int part) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) {
-    const float4 y = r[c * Lanes<DH>::kLanes + part];
-    s = fmaf(x[c].x, y.x, s);
-    s = fmaf(x[c].y, y.y, s);
-    s = fmaf(x[c].z, y.z, s);
-    s = fmaf(x[c].w, y.w, s);
-  }
-  return s;
-}
-
-// acc += a * (the lane's part of row)
-template <int DH>
-__device__ __forceinline__ void lane_axpy(float4* acc, float a,
-                                          const float* row, int part) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) {
-    const float4 y = r[c * Lanes<DH>::kLanes + part];
-    acc[c].x = fmaf(a, y.x, acc[c].x);
-    acc[c].y = fmaf(a, y.y, acc[c].y);
-    acc[c].z = fmaf(a, y.z, acc[c].z);
-    acc[c].w = fmaf(a, y.w, acc[c].w);
-  }
-}
-
-template <int DH>
-__device__ __forceinline__ void lane_fill(float4* x, float a) {
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) x[c] = make_float4(a, a, a, a);
-}
-
-template <int DH>
-__device__ __forceinline__ void lane_scale(float4* x, float a) {
-#pragma unroll
-  for (int c = 0; c < Lanes<DH>::kChunks; ++c) {
-    x[c].x *= a;
-    x[c].y *= a;
-    x[c].z *= a;
-    x[c].w *= a;
-  }
-}
-
-// The forward: kLanes lanes a query row.
-template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kLaneThreads)
-    attention_lanes_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                               const float* __restrict__ q_in,
-                               const float* __restrict__ k_in,
-                               const float* __restrict__ v_in,
-                               float* __restrict__ out, float q_scale,
-                               uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  constexpr int L = Lanes<DH>::kLanes;
-  extern __shared__ float4 lanes_smem[];
-  float* k_s = reinterpret_cast<float*>(lanes_smem);
-  float* v_s = k_s + kAttnTile * DH;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int part = threadIdx.x % L;
-  const int qi = blockIdx.x * Lanes<DH>::kRows + threadIdx.x / L;
-  const bool valid = qi < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
-
-  float4 q[Lanes<DH>::kChunks], acc[Lanes<DH>::kChunks];
-  lane_load<DH>(q, q_in + head + qi * row, part, valid, q_scale);
-  lane_fill<DH>(acc, 0.f);
-  float m = -INFINITY, l = 0.f;
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
-    __syncthreads();
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float score =
-            lanes_sum<L>(lane_dot<DH>(q, k_s + (t + jj) * DH, part));
-        if (score > m) {
-          const float corr = expf(m - score);
-          l *= corr;
-          lane_scale<DH>(acc, corr);
-          m = score;
-        }
-        const float p = expf(score - m);
-        l += p;
-        float pd = p;
-        if (DROPOUT) {
-          pd = philox_word(bits, jj) >= threshold ? p * keep_scale : 0.f;
-        }
-        lane_axpy<DH>(acc, pd, v_s + (t + jj) * DH, part);
-      }
-    }
-  }
-  if (!valid) return;
-  lane_store<DH>(out + lay.out_head(b, h) + qi * lay.out_row(), acc, part,
-                 1.f / l);
-}
-
-// -- the tensor-core backward: Dh = 128 and 256 -------------------------------
-// The same passes and the same function as the lane-split backward, with
-// every S x S x Dh product on the tensor cores in 3xTF32 (mma_tf32.cuh) and
-// the streamed tiles copied by cp.async into a double buffer, so the next
-// tile loads while the current one computes. Tiles are padded rows of Dh +
-// 4 floats (mma_tf32.cuh).
+// -- the tensor-core kernels: Dh = 128 and 256 --------------------------------
+// The same function and passes as the thread-a-row kernels, with every S x
+// S x Dh product on the tensor cores in 3xTF32 (mma_tf32.cuh) and the
+// streamed tiles copied by cp.async into a double buffer, so the next tile
+// loads while the current one computes. Tiles are padded rows of Dh + 4
+// floats (mma_tf32.cuh). The forward is described above its kernel.
 //
 // dq kernel: a block per (kRows queries, head, batch row), a warp per 16
 // query rows. The block's q and g rows sit in shared memory; K and V stream
@@ -578,7 +405,8 @@ __global__ void __launch_bounds__(kLaneThreads)
 // mma_tf32.cuh), and writes dq * q_scale and (m, 1/l, D) as before. The
 // keep bits of a thread's two columns of one row are words of one Philox
 // call: the lanes with tg even call it for row gr, the odd ones for row
-// gr + 8, and a pair trades the two words the other needs by shuffle.
+// gr + 8, and a pair trades the two words the other needs by shuffle
+// (fragment_keep_words, which the forward calls too).
 //
 // dK/dV kernel: a block per (kKeys keys, head, batch row); a pair of warps
 // per 16 keys, whose K and V rows sit in shared memory. Query tiles of q, g
@@ -648,6 +476,242 @@ __device__ __forceinline__ void pair_sync(int pair) {
   }
 }
 
+// The Philox words of the keep bits of the four scores a thread holds in
+// the C fragment of rows row0 .. row0 + 15 and keys j .. j + 7 (j a
+// multiple of 4): bits[0], bits[1] of row row0 + gr, bits[2], bits[3] of
+// row row0 + gr + 8, keys j + 2 tg and j + 2 tg + 1. One Philox call a
+// lane: the lanes with tg even call it for row gr, the odd ones for row gr
+// + 8, and a pair trades the two words the other needs by shuffle. Every
+// lane of the warp calls it.
+__device__ __forceinline__ void fragment_keep_words(uint32_t (&bits)[4],
+                                                    uint32_t seed, int b,
+                                                    int h, int row0, int j,
+                                                    int lane) {
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const bool odd = tg & 1;
+  const uint4 r = attention_dropout_bits(seed, b, h, row0 + gr + (odd ? 8 : 0),
+                                         j / 4 + (tg >> 1));
+  const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
+  const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+  const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+  bits[0] = odd ? got0 : own0;
+  bits[1] = odd ? got1 : own1;
+  bits[2] = odd ? own0 : got0;
+  bits[3] = odd ? own1 : got1;
+}
+
+// The forward on the tensor cores: a block per (kRows queries, head, batch
+// row), a warp per 16 query rows, whose q rows sit in shared memory. K and
+// V stream in tiles of kKeys keys through a cp.async double buffer. For
+// each tile the warp computes S = q K^T into register accumulators (a
+// thread holds columns 2 tg, 2 tg + 1 of rows gr and gr + 8; the k steps
+// go round kSplits accumulator sets, added in order after, so that more
+// products are in flight than the tile's columns of 8 give), scales it by
+// q_scale (keys past S at -inf), reduces the row max across the quad,
+// forms corr = exp(m_old - m_new), P = exp(s - m) (every term added to the
+// thread's partial denominator, rescaled by corr) and Pd = keep P / (1 -
+// rate) in place: the accumulators are the A fragments of Pd V as they
+// stand (mma_tf32.cuh's k order). Each tile's Pd V is summed from zero and
+// added to the output rows as fmaf(out, corr, Pd V): the tensor cores'
+// fp32 accumulation truncates, and an output summed in place over all 64
+// key tiles of S = 1024 with near-uniform scores drifted past the 1e-5 bar
+// (tests/test_torch_cuda.py's near-uniform case). At the end the quad adds
+// its 4 partial denominators in one order and the warp stores out = acc /
+// l as float2s, rows past S left out.
+//
+// Shared memory a block (4 warps, 64 q rows, 2 x 2 tiles of 16 keys): 66 KB
+// at Dh 128 (three blocks an SM), 130 KB at 256 (one). ptxas (sm_90a, both
+// layouts, without / with dropout): 167 / 167 registers at Dh 128 (165 with
+// dropout on split heads), 255 / 255 at 256; no spills. Chosen on the card
+// by bench_attention --kernel lanes (NVIDIA H100 80GB HBM3, 700 W), rate 0,
+// B 16 / 4: blocks of 4 warps against 1, 2 and 8 (1 and 2 warps were up to
+// 1.7x and 1.1x slower at Dh 128, S 256; 8 up to 1.4x slower at Dh 256);
+// 4 accumulator sets at Dh 128 (0.0672 / 0.0178 / 0.0094 ms at S 256 / 64
+// / 16, against 0.0732 / 0.0201 / 0.0101 with one and 0.0747 / 0.0204 /
+// 0.0101 with two) and 2 at Dh 256 (0.0789 ms, against 0.0826 with one and
+// 0.0801 with four); 32-key tiles (2 sets) were 4% faster at S 256 and 27%
+// slower at S 16.
+template <int DH>
+struct MmaFwd {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // queries a block
+  static constexpr int kKeys = 16;           // keys a tile
+  static constexpr int kSplits = DH == 128 ? 4 : 2;  // sets of S's sums
+  static constexpr size_t kBytes =
+      sizeof(float) * (kRows + 2 * 2 * kKeys) * (DH + kTilePad);
+};
+
+template <class Layout, bool DROPOUT>
+__global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
+    attention_mma_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                             const float* __restrict__ q_in,
+                             const float* __restrict__ k_in,
+                             const float* __restrict__ v_in,
+                             float* __restrict__ out, float q_scale,
+                             uint32_t threshold, float keep_scale) {
+  constexpr int DH = Layout::kHeadDim;
+  using T = MmaFwd<DH>;
+  constexpr int KT = T::kKeys;
+  constexpr int NT = KT / 8;  // columns of 8 keys in a tile
+  constexpr int NK = DH / 8;  // k steps over Dh, and out's columns of 8
+  constexpr int NS = T::kSplits;
+  constexpr int LD = DH + kTilePad;
+  extern __shared__ float4 mma_smem[];
+  float* q_s = reinterpret_cast<float*>(mma_smem);  // (kRows, LD), unscaled
+  float* kv_s = q_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int seq_len = lay.seq_len;
+  const int i0 = blockIdx.x * T::kRows;
+  const int r0 = 16 * warp;  // the warp's rows in the block
+  const bool active = i0 + r0 < seq_len;
+  const size_t row = lay.in_row();
+  const size_t head = lay.in_head(b, h);
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nk = (seq_len + KT - 1) / KT;
+
+  load_rows_async<DH, T::kRows>(q_s, q_in + head, i0, seq_len, row,
+                                T::kThreads);
+  load_rows_async<DH, KT>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_async<DH, KT>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                          T::kThreads);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NK][4];
+#pragma unroll
+  for (int dn = 0; dn < NK; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < nk) {
+      float* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
+      load_rows_async<DH, KT>(next, k_in + head, (t + 1) * KT, seq_len, row,
+                              T::kThreads);
+      load_rows_async<DH, KT>(next + KT * LD, v_in + head, (t + 1) * KT,
+                              seq_len, row, T::kThreads);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int j0 = t * KT;
+    const float* k_s = kv_s + (t & 1) * 2 * KT * LD;
+    const float* v_s = k_s + KT * LD;
+
+    // S = q K^T: the warp's 16 rows x the tile's KT keys, k step ks into
+    // accumulator set ks % NS for more products in flight, the sets added
+    // in order
+    float x[NS][NT][4];
+#pragma unroll
+    for (int p = 0; p < NS; ++p) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        x[p][n][0] = x[p][n][1] = x[p][n][2] = x[p][n][3] = 0.f;
+      }
+    }
+#pragma unroll (8 / NS)
+    for (int ks = 0; ks < NK; ks += NS) {
+#pragma unroll
+      for (int p = 0; p < NS; ++p) {
+        const int c = 8 * (ks + p) + tg;
+        const FragA qa = tile_frag_a<DH>(q_s, r0 + gr, c);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mma_3xtf32(x[p][n], qa, tile_frag_bt<DH>(k_s, 8 * n + gr, c));
+        }
+      }
+    }
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = x[0][n][e];
+#pragma unroll
+        for (int p = 1; p < NS; ++p) s[n][e] += x[p][n][e];
+      }
+    }
+    // scaled scores, -inf past S; the row max over the quad, and the
+    // factor corr that rescales the thread's denominators and output rows
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key = j0 + 8 * n + 2 * tg + (e & 1) < seq_len;
+        s[n][e] = key ? s[n][e] * q_scale : -INFINITY;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = expf(m[r] - mx);
+      l[r] *= corr[r];
+      m[r] = mx;
+    }
+    // P into the denominators, Pd = keep P / (1 - rate) as A fragments
+    FragA pa[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      if (DROPOUT) {
+        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[n][e] = !DROPOUT ? p : bits[e] >= threshold ? p * keep_scale : 0.f;
+      }
+      pa[n] = frag_a_from_c(s[n]);
+    }
+    // out = corr out + Pd V: the tile's product into a zeroed fragment, 8
+    // keys a k step, then added to the rescaled rows by one fmaf each
+#pragma unroll
+    for (int dn = 0; dn < NK; ++dn) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma_3xtf32(pv, pa[n],
+                   tile_frag_b<DH>(v_s, 8 * n + 2 * tg, 8 * dn + gr));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[dn][e] = fmaf(acc[dn][e], corr[e >> 1], pv[e]);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv_l = 1.f / lt;
+    const int i = i0 + r0 + gr + 8 * r;
+    if (i >= seq_len) continue;
+    float* dst = out + lay.out_head(b, h) + static_cast<size_t>(i) *
+                 lay.out_row() + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < NK; ++dn) {
+      *reinterpret_cast<float2*>(dst + 8 * dn) =
+          make_float2(acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
+    }
+  }
+}
+
 // Backward kernel 1 on the tensor cores: dq (times q_scale), and (m, 1/l, D)
 // of each query row into stats (B, H, S, 3).
 template <class Layout, bool DROPOUT>
@@ -674,7 +738,6 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int tg = lane & 3;
-  const bool odd = tg & 1;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int seq_len = lay.seq_len;
@@ -743,16 +806,7 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     for (int n = 0; n < NT; ++n) {
       uint32_t bits[4] = {0u, 0u, 0u, 0u};
       if (DROPOUT) {
-        const uint4 r = attention_dropout_bits(
-            seed, b, h, i0 + r0 + gr + (odd ? 8 : 0),
-            (j0 + 8 * n) / 4 + (tg >> 1));
-        const uint32_t own0 = odd ? r.z : r.x, own1 = odd ? r.w : r.y;
-        const uint32_t got0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
-        const uint32_t got1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
-        bits[0] = odd ? got0 : own0;
-        bits[1] = odd ? got1 : own1;
-        bits[2] = odd ? own0 : got0;
-        bits[3] = odd ? own1 : got1;
+        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1030,24 +1084,25 @@ cudaError_t launch_dynamic(Kernel kernel, dim3 grid, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
+// The forward at Dh = 128 and 256: the tensor-core kernel. cp.async copies
+// 16-byte chunks, so q, k and v must start 16-byte aligned (a view at an
+// odd offset is refused).
 template <class Layout>
-dim3 lanes_grid(Layout lay, int batch) {
-  constexpr int rows = Lanes<Layout::kHeadDim>::kRows;
-  return dim3((lay.seq_len + rows - 1) / rows, lay.heads, batch);
-}
-
-template <class Layout>
-cudaError_t attention_lanes_fwd(Layout lay, int batch, const int* seed,
-                                const float* q, const float* k,
-                                const float* v, float* out, float q_scale,
-                                uint32_t threshold, float keep_scale,
-                                cudaStream_t stream) {
-  const size_t bytes = 2 * Lanes<Layout::kHeadDim>::kTileBytes;
-  auto* kernel = threshold > 0 ? &attention_lanes_fwd_kernel<Layout, true>
-                               : &attention_lanes_fwd_kernel<Layout, false>;
-  return launch_dynamic(kernel, lanes_grid(lay, batch), kLaneThreads, bytes,
-                        stream, lay, seed, q, k, v, out, q_scale, threshold,
-                        keep_scale);
+cudaError_t attention_mma_fwd(Layout lay, int batch, const int* seed,
+                              const float* q, const float* k, const float* v,
+                              float* out, float q_scale, uint32_t threshold,
+                              float keep_scale, cudaStream_t stream) {
+  using T = MmaFwd<Layout::kHeadDim>;
+  for (const float* p : {q, k, v}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  const dim3 grid((lay.seq_len + T::kRows - 1) / T::kRows, lay.heads, batch);
+  auto* kernel = threshold > 0 ? &attention_mma_fwd_kernel<Layout, true>
+                               : &attention_mma_fwd_kernel<Layout, false>;
+  return launch_dynamic(kernel, grid, T::kThreads, T::kBytes, stream, lay,
+                        seed, q, k, v, out, q_scale, threshold, keep_scale);
 }
 
 // The backward at Dh = 128 and 256: the tensor-core dq and dK/dV kernels.
@@ -1143,8 +1198,8 @@ cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
                                 uint32_t threshold, float keep_scale,
                                 cudaStream_t stream) {
   if constexpr (Layout::kHeadDim > kMaxRowHeadDim) {
-    return attention_lanes_fwd(lay, batch, seed, q, k, v, out, q_scale,
-                               threshold, keep_scale, stream);
+    return attention_mma_fwd(lay, batch, seed, q, k, v, out, q_scale,
+                             threshold, keep_scale, stream);
   } else {
     return attention_rows_fwd(lay, batch, seed, q, k, v, out, q_scale,
                               threshold, keep_scale, stream);

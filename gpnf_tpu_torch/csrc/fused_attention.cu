@@ -12,7 +12,7 @@
 //     loaded; out (B, S, C); the backward gives dqkv (B, S, 3C) packed
 //     [dK | dV | dq * q_scale].
 // Head widths: 4, 8, 16, 24, 32, 48, 64 (a thread a row) and 128, 256 (the
-// lane-split forward and the tensor-core backward of attention_tiled.cuh).
+// tensor-core forward and backward of attention_tiled.cuh).
 // For every batch row b and head h:
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate);  out = Pd v
 // and the backward of the JAX module's docstring:

@@ -38,8 +38,8 @@
 // ms. The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At the CLIs'
 // default width (C=512, Dh=128) and the 32-px level 0 (B=16, S=256) the
 // forward's two products are 2.1 GFLOP, >= ~32 us; the backward's five
-// 5.4 GFLOP, >= ~80 us, or >= ~33 us on the tensor cores in 3xTF32 (495 / 3
-// TFLOP/s), where its kernels run them.
+// 5.4 GFLOP, >= ~80 us; on the tensor cores in 3xTF32 (495 / 3 TFLOP/s),
+// where the kernels of both run them, >= ~13 and ~33 us.
 //
 // Design: attention_tiled.cuh, whose key-tiled kernels this file
 // instantiates for the packed layout (PackedQkv), as fused_attention.cu
@@ -48,10 +48,8 @@
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv
 // (B, S, 3C) directly, so no head split or merge copies. At Dh = 128 and
-// 256 the forward runs as the header's lane-split kernel (Dh / 32 lanes a
-// row, the partial dot products summed by warp shuffles) and the backward
-// as its tensor-core kernels (3xTF32 mma.sync, mma_tf32.cuh), the tiles in
-// dynamic shared memory.
+// 256 the forward and the backward run as the header's tensor-core kernels
+// (3xTF32 mma.sync, mma_tf32.cuh), the tiles in dynamic shared memory.
 #include "attention_tiled.cuh"
 
 namespace {

@@ -1,6 +1,7 @@
 // 3xTF32 tensor-core products at about fp32 accuracy, and cp.async copies
 // into padded shared-memory tiles: the building blocks of the attention
-// backward's tensor-core kernels (attention_tiled.cuh, Dh = 128 and 256).
+// forward's and backward's tensor-core kernels (attention_tiled.cuh, Dh =
+// 128 and 256).
 //
 // The arithmetic is that of the yardstick, PyTorch's float32 memory-efficient
 // attention on sm_80 and later (CUTLASS's OpMultiplyAddFastF32): each fp32

@@ -39,10 +39,10 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
   JAX package runs its jnp reference, even on a TPU; the port raises.
 The key-tiled kernels are built for the head widths HEAD_DIMS: a thread a
-query row up to Dh = 64; at Dh = 128 and 256 the lane-split forward (Dh /
-32 lanes a row, 32 dimensions each) and the tensor-core backward (3xTF32
-mma.sync tiles, csrc/mma_tf32.cuh), whose launches by any entry are also
-counted by `attention_lanes` and `attention_lanes_bwd`.
+query row up to Dh = 64; at Dh = 128 and 256 the tensor-core forward and
+backward (3xTF32 mma.sync tiles, csrc/mma_tf32.cuh), whose launches by any
+entry are also counted by `attention_lanes` and `attention_lanes_bwd` (the
+names of the lane-split kernels they replaced).
 `attention_route(S, C, heads)` says which entry GatedAttn takes: the proj
 kernel where its width is built and its forward and backward fit in a
 block's shared memory, the wide route everywhere else. Each source's
@@ -73,7 +73,7 @@ from . import _native
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
 # Dh values the key-tiled kernels are built for; 128 and 256 run the
-# lane-split forward and the tensor-core backward
+# tensor-core forward and backward
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
 LANE_SPLIT_DIMS = (128, 256)
 PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
@@ -465,8 +465,8 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
 # -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
 class LaunchCount:
     """The launch count of kernels that no wrapper of their own launches:
-    the Dh = 128 and 256 kernels (the lane-split forward, the tensor-core
-    backward), which every key-tiled attention entry runs at those widths.
+    the Dh = 128 and 256 kernels (the tensor-core forward and backward),
+    which every key-tiled attention entry runs at those widths.
     The entry counts the launch too."""
 
     def __init__(self, name: str):

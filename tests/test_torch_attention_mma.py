@@ -1,11 +1,14 @@
-"""The arithmetic of the tensor-core attention backward (Dh = 128 and 256,
+"""The arithmetic of the tensor-core attention kernels (Dh = 128 and 256,
 gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh), emulated on the
 CPU: the TF32 rounding of `tf32_bits`, the hi / lo split, the 3xTF32
-product, and the whole backward in the kernels' tile order (key tiles of
-the dq kernel's two passes, query tiles of the dK/dV kernel, k steps of 8
-with three products each) against the JAX package's gradients and the
-port's plain backward. The kernels themselves are held against the plain
-backward on the card by tests/test_torch_cuda.py."""
+product, the forward in its kernel's order (key tiles, the quad's online
+max and partial denominators, P split as the A fragment of Pd V) against
+the JAX package's forward and the port's plain one, and the whole backward
+in the kernels' tile order (key tiles of the dq kernel's two passes, query
+tiles of the dK/dV kernel, k steps of 8 with three products each) against
+the JAX package's gradients and the port's plain backward. The kernels
+themselves are held against the plain versions on the card by
+tests/test_torch_cuda.py."""
 import importlib
 import re
 from pathlib import Path
@@ -25,8 +28,10 @@ fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 HEADS = 4
 CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
 # attention_tiled.cuh at Dh = 128: the dq kernel's key tile, the dK/dV
-# kernel's query tile (test_tile_constants_match_the_cuda_source)
-KEY_TILE, QUERY_TILE = 16, 32
+# kernel's query tile, the forward's key tile; the forward's accumulator
+# sets of S = q K^T by Dh (test_tile_constants_match_the_cuda_source)
+KEY_TILE, QUERY_TILE, FWD_KEY_TILE = 16, 32, 16
+FWD_SPLITS = {128: 4, 256: 2}
 
 
 def tf32_round(x):
@@ -48,20 +53,81 @@ def split(x):
     return hi, lo
 
 
-def mm3(a, b, parity=False):
+def mm3(a, b, sets=1):
     """a @ b in 3xTF32 as `mma_3xtf32` runs it: k steps of 8 in order, each
-    lo*hi, hi*lo, then hi*hi into one float32 accumulator; with `parity`,
-    even and odd steps into two accumulators added at the end (the dK/dV
-    kernel's S^T and dPd^T)."""
+    lo*hi, hi*lo, then hi*hi into one float32 accumulator; with `sets`
+    above 1, step i into accumulator i % sets, the sets added in order at
+    the end (the forward's S = q K^T, the dK/dV kernel's S^T and dPd^T)."""
     ah, al = split(a)
     bh, bl = split(b)
     shape = a.shape[:-1] + b.shape[-1:]
-    acc = [torch.zeros(shape), torch.zeros(shape)]
+    acc = [torch.zeros(shape) for _ in range(sets)]
     for step, k0 in enumerate(range(0, a.shape[-1], 8)):
-        p = step % 2 if parity else 0
+        p = step % sets
         for x, y in ((al, bh), (ah, bl), (ah, bh)):
             acc[p] = acc[p] + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
-    return acc[0] + acc[1]
+    total = acc[0]
+    for part in acc[1:]:
+        total = total + part
+    return total
+
+
+def _keep(seed, b, num_heads, s, rate):
+    return (fa.dropout_keep_plain(seed, b, num_heads, s, rate) if rate > 0
+            else None)
+
+
+def emulated_fwd(qkv, num_heads, rate=0.0, seed=None):
+    """out (B, S, C) of the packed attention as the forward kernel computes
+    it: key tiles of FWD_KEY_TILE keys (past S: zero rows, scores at -inf);
+    S = q K^T in 3xTF32 on unscaled q, its k steps in FWD_SPLITS[Dh]
+    accumulator sets, scaled after; per tile the row max,
+    then the partial denominators of the quad's 4 threads (thread tg holds
+    columns 2 tg, 2 tg + 1 of every 8) rescaled by corr = exp(m_old -
+    m_new); P = exp(s - m) added to the thread's partial in column order;
+    Pd = keep P / (1 - rate), split hi / lo as the A fragment of the tile's
+    Pd V, summed from zero and added as fmaf(acc, corr, Pd V); at the end
+    the quad's partials added as (l0 + l1) + (l2 + l3) and out = acc *
+    (1 / l)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // num_heads
+    q_scale = fa.head_scale(dh)
+    kt_n = FWD_KEY_TILE
+    padded = -(-s // kt_n) * kt_n
+    heads = lambda x: x.reshape(b, s, num_heads, dh).transpose(1, 2)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, padded - s))
+    k, v, q = (heads(x) for x in qkv.split(c, dim=-1))
+    k, v = pad(k), pad(v)
+    live = torch.arange(padded) < s
+    keep = _keep(seed, b, num_heads, s, rate)
+    if keep is not None:
+        keep = torch.nn.functional.pad(keep, (0, padded - s))
+    scale = 1.0 / (1.0 - rate)
+    m = torch.full((b, num_heads, s), -torch.inf)
+    lpart = torch.zeros((b, num_heads, s, 4))
+    acc = torch.zeros_like(q)
+    for j0 in range(0, padded, kt_n):
+        cols = slice(j0, j0 + kt_n)
+        kt = k[:, :, cols].transpose(-1, -2)
+        sc = mm3(q, kt, FWD_SPLITS[dh]) * q_scale
+        sc = torch.where(live[cols], sc, -torch.inf)
+        mx = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - mx)[..., None]
+        lpart = lpart * corr
+        p = torch.exp(sc - mx[..., None])
+        by_thread = p.reshape(b, num_heads, s, kt_n // 8, 4, 2)
+        for n in range(kt_n // 8):
+            for e in range(2):
+                lpart = lpart + by_thread[..., n, :, e]
+        pd = p if keep is None else torch.where(keep[..., cols], p * scale,
+                                                0.0)
+        pv = mm3(pd, v[:, :, cols])  # fmaf: one rounding of acc corr + pv
+        acc = (acc.double() * corr.double() + pv.double()).float()
+        m = mx
+    l = (lpart[..., 0] + lpart[..., 1]) + (lpart[..., 2] + lpart[..., 3])
+    out = acc * (1.0 / l)[..., None]
+    return out.transpose(1, 2).reshape(b, s, c)
 
 
 def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
@@ -78,8 +144,7 @@ def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
     heads = lambda x: x.reshape(b, s, num_heads, dh).transpose(1, 2)
     k, v, q = (heads(x) for x in qkv.split(c, dim=-1))
     gh = heads(g)
-    keep = (fa.dropout_keep_plain(seed, b, num_heads, s, rate) if rate > 0
-            else None)
+    keep = _keep(seed, b, num_heads, s, rate)
     scale = 1.0 / (1.0 - rate)
 
     def scores_and_dp(j0):  # the dq kernel's two products of one key tile
@@ -113,8 +178,8 @@ def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
     for i0 in range(0, s, QUERY_TILE):
         rows = slice(i0, i0 + QUERY_TILE)
         qt, gt = q[:, :, rows], gh[:, :, rows]
-        st = mm3(k, qt.transpose(-1, -2), parity=True) * q_scale
-        dpt = mm3(v, gt.transpose(-1, -2), parity=True)
+        st = mm3(k, qt.transpose(-1, -2), sets=2) * q_scale
+        dpt = mm3(v, gt.transpose(-1, -2), sets=2)
         p = (torch.exp(st - m[:, :, None, rows])
              * inv_l[:, :, None, rows])
         pd = p
@@ -189,10 +254,35 @@ def test_3xtf32_product_against_float64(k):
     assert ((ah @ bh).double() - exact).abs().gt(bar).any()
 
 
-# -- the whole backward in the kernels' tile order ----------------------------------
+# -- the forward in its kernel's order -----------------------------------------------
 def _inputs(s, batch=2, c=512, seed=0):
     r = rng(seed + s)
     return normal(r, (batch, s, 3 * c), 0.5), normal(r, (batch, s, c))
+
+
+@pytest.mark.parametrize("s,c", [(16, 512), (17, 512), (64, 512), (17, 1024)])
+def test_emulated_forward_matches_jax(s, c):
+    """Dh 128 (C 512) and Dh 256 (C 1024), 4 heads, batch 2, rate 0: the
+    emulated forward kernel against the JAX package's fused_attention_qkv
+    on the CPU, at the bar of tests/test_torch_attention_widths.py."""
+    qkv, _ = _inputs(s, c=c)
+    want = jfa.fused_attention_qkv(jnp.zeros((1,), jnp.int32),
+                                   jnp.asarray(qkv), HEADS, 0.0, False)
+    close(emulated_fwd(t(qkv), HEADS), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s,c", [(16, 512), (17, 512), (64, 512), (33, 1024)])
+def test_emulated_forward_matches_the_plain_forward(s, c, rate):
+    """The same against `attention_long_plain`, the plain version the card's
+    kernel is held to, at rate 0 and 0.2 (the port's mask at one seed)."""
+    qkv, _ = (t(x) for x in _inputs(s, c=c, seed=5))
+    seed = torch.tensor([31 + s], dtype=torch.int32)
+    want = kernels.attention_long_plain(qkv, HEADS, rate, seed)
+    close(emulated_fwd(qkv, HEADS, rate, seed), want, rtol=1e-4, atol=1e-5)
+
+
+# -- the whole backward in the kernels' tile order ----------------------------------
 
 
 @pytest.mark.parametrize("s", [16, 17, 64])
@@ -221,21 +311,25 @@ def test_emulated_backward_matches_the_plain_backward(s, rate):
 
 
 def test_tile_constants_match_the_cuda_source():
-    """KEY_TILE and QUERY_TILE are attention_tiled.cuh's own at Dh = 128,
-    and the header's split is the rounding `tf32_round` emulates."""
+    """KEY_TILE, QUERY_TILE and FWD_KEY_TILE are attention_tiled.cuh's own
+    at Dh = 128, and the header's split is the rounding `tf32_round`
+    emulates."""
     src = (CSRC / "attention_tiled.cuh").read_text()
 
-    def const(struct, name):
+    def const(struct, name, dh=128):
         body = re.search(rf"struct {struct} \{{(.*?)\n\}};", src, re.S).group(1)
         rhs = re.search(rf"constexpr int {name} = ([^;]*);", body).group(1)
         ternary = re.fullmatch(r"DH == (\d+) \? (\d+) : (\d+)", rhs)
         if ternary:
-            return int(ternary.group(2) if ternary.group(1) == "128"
+            return int(ternary.group(2) if ternary.group(1) == str(dh)
                        else ternary.group(3))
         return int(rhs)
 
     assert const("MmaDq", "kKeys") == KEY_TILE
     assert const("MmaDkv", "kQueries") == QUERY_TILE
+    assert const("MmaFwd", "kKeys") == FWD_KEY_TILE
+    for dh, sets in FWD_SPLITS.items():
+        assert const("MmaFwd", "kSplits", dh) == sets
     header = (CSRC / "mma_tf32.cuh").read_text()
     assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in header
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header

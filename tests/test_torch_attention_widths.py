@@ -3,7 +3,7 @@ proj kernel or the wide route (the long entry, heads zero-padded to a width
 the kernels are built for), the port's GatedAttn against the JAX GatedAttn
 (which runs `_reference_qkv` on the CPU) at widths the proj kernel does not
 take, the two routes and the padding dropping the same scores at one seed,
-and the CLIs' default model. The CUDA kernels themselves (the lane-split
+and the CLIs' default model. The CUDA kernels themselves (the tensor-core
 ones at Dh = 128 and 256 among them) are held against the plain versions
 on the card by tests/test_torch_cuda.py."""
 import dataclasses

@@ -888,6 +888,85 @@ def test_mma_backward_matches_plain_on_card(cuda_device, dh, s, rate, layout):
     assert all(torch.equal(a, b) for a, b in zip(got, bwd()))
 
 
+# the tensor-core forward at Dh = 128 and 256 (attention_mma_fwd_kernel):
+# S off the tiles (17), the CLIs' levels, and S 1024 through the long
+# entry alone (the core entries take S <= 512)
+MMA_FWD_CASES = [(dh, s, entry) for dh in (128, 256)
+                 for s in (16, 17, 64, 256, 1024)
+                 for entry in ("long", "qkv", "split")
+                 if s <= 512 or entry == "long"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh,s,entry", MMA_FWD_CASES)
+def test_mma_forward_matches_plain_on_card(cuda_device, dh, s, entry, rate):
+    """The tensor-core forward through the long entry and
+    fused_attention_qkv (packed qkv) and fused_attention (split heads, q
+    scaled), one seed for kernel and plain version: finite, within 1e-5
+    of the largest |plain| (the lane-split bar), two calls bit for bit, one
+    `attention_lanes` count a call."""
+    q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, s, dh),
+                                            seed=dh + s)
+    if entry == "split":
+        fwd = lambda: kernels.fused_attention(q, k, v, rate, seed)
+        want = kernels.attention_plain(q, k, v, rate, seed)
+    else:
+        fn = (kernels.attention_long_qkv if entry == "long"
+              else kernels.fused_attention_qkv)
+        fwd = lambda: fn(qkv, 4, rate, seed)
+        want = kernels.attention_long_plain(qkv, 4, rate, seed)
+    before = kernels.attention_lanes.launches
+    got = fwd()
+    assert kernels.attention_lanes.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert _rel_max(got, want) <= 1e-5
+    assert torch.equal(got, fwd())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh", [128, 256])
+def test_mma_forward_holds_near_uniform_rows_at_s_1024(cuda_device, dh,
+                                                       rate):
+    """qkv of std 0.5 at S = 1024 (scores of std ~0.25): each output is a
+    near-uniform mean of 1024 values of V, small beside the sum it is
+    accumulated in. A sum kept in place across the 64 key tiles drifts with
+    the tensor cores' truncating fp32 accumulation; the kernel adds each
+    tile's product in fp32 and stays within 1e-5 of the largest |plain|."""
+    r = np.random.default_rng(dh)
+    qkv = _normal(r, (2, 1024, 3 * 4 * dh), 0.5).to(cuda_device)
+    seed = torch.tensor([2024], dtype=torch.int32, device=cuda_device)
+    got = kernels.attention_long_qkv(qkv, 4, rate, seed)
+    assert _rel_max(got, kernels.attention_long_plain(qkv, 4, rate,
+                                                      seed)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mma_forward_refuses_misaligned_operands(cuda_device):
+    """A packed qkv or a q that starts off a 16-byte boundary is refused
+    before any launch (cudaErrorMisalignedAddress, 716) and counts no
+    launch; the same values aligned give the aligned call's bits."""
+    q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, 64, 128))
+
+    def shifted(x):
+        y = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
+        return y.copy_(x)
+
+    before = kernels.attention_lanes.launches
+    for call in (lambda: kernels.attention_long_qkv(shifted(qkv), 4, 0.2,
+                                                    seed),
+                 lambda: kernels.fused_attention_qkv(shifted(qkv), 4, 0.2,
+                                                     seed),
+                 lambda: kernels.fused_attention(shifted(q), k, v, 0.2,
+                                                 seed)):
+        with pytest.raises(RuntimeError, match="CUDA error 716"):
+            call()
+    assert kernels.attention_lanes.launches == before
+    assert torch.equal(kernels.attention_long_qkv(qkv, 4, 0.2, seed),
+                       kernels.attention_long_qkv(qkv.clone(), 4, 0.2, seed))
+
+
 @pytest.mark.cuda
 def test_mma_backward_refuses_misaligned_operands(cuda_device):
     """cp.async moves 16-byte chunks: a contiguous qkv that starts off a
@@ -905,12 +984,11 @@ def test_mma_backward_refuses_misaligned_operands(cuda_device):
                                                       seed))
 
 
-@pytest.mark.cuda
-def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
-    """Every instantiation of the tensor-core dq and dK/dV kernels (Dh 128
-    and 256, with and without dropout, in both libraries that build them)
-    holds HMMA instructions in its SASS. Skipped only where the toolkit has
-    no cuobjdump to read the SASS with."""
+def _hmma_counts(pattern):
+    """{source: {kernel: HMMA instructions in its SASS}} of the kernels whose
+    mangled name holds `pattern`, in both libraries that build the
+    tensor-core attention kernels; a skip where the toolkit has no
+    cuobjdump to read the SASS with."""
     import os
     import re
     import shutil
@@ -922,6 +1000,7 @@ def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
     if not os.path.exists(cuobjdump):
         pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
                     "read here")
+    counts = {}
     for source in ("fused_attention_long", "fused_attention"):
         _native.build([source])
         sass = subprocess.run([cuobjdump, "-sass",
@@ -930,15 +1009,37 @@ def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
                               check=True).stdout
         hmma, fn = {}, None
         for line in sass.splitlines():
-            name = re.search(r"Function : (\S*attention_mma_d\S*)", line)
+            name = re.search(rf"Function : (\S*{pattern}\S*)", line)
             if "Function : " in line:
                 fn = name.group(1) if name else None
                 if fn:
                     hmma[fn] = 0
             elif fn and "HMMA" in line:
                 hmma[fn] += 1
+        counts[source] = hmma
+    return counts
+
+
+@pytest.mark.cuda
+def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every instantiation of the tensor-core dq and dK/dV kernels (Dh 128
+    and 256, with and without dropout, in both libraries that build them)
+    holds HMMA instructions in its SASS. Skipped only where the toolkit has
+    no cuobjdump to read the SASS with."""
+    for source, hmma in _hmma_counts("attention_mma_d").items():
         layouts = 1 if source == "fused_attention_long" else 2
         assert len(hmma) == 2 * 2 * 2 * layouts, sorted(hmma)
+        assert all(n > 0 for n in hmma.values()), hmma
+
+
+@pytest.mark.cuda
+def test_mma_forward_kernel_runs_on_the_tensor_cores(cuda_device):
+    """Every instantiation of the tensor-core forward (Dh 128 and 256, with
+    and without dropout, in both libraries that build it) holds HMMA
+    instructions in its SASS."""
+    for source, hmma in _hmma_counts("attention_mma_fwd").items():
+        layouts = 1 if source == "fused_attention_long" else 2
+        assert len(hmma) == 2 * 2 * layouts, sorted(hmma)
         assert all(n > 0 for n in hmma.values()), hmma
 
 
