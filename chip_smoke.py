@@ -16,8 +16,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      and two calls bit for bit the same), and the backward's stages at
      each level's shapes: the projection, dseq and dW GEMMs against
      torch.matmul (torch.mm beside them) and the key-tiled dq and dK/dV
-     kernels at rate 0 and 0.2 against their plain version (SDPA's
-     backward beside them), each two calls bit for bit;
+     kernels (on the tensor cores) at rate 0 and 0.2 against their plain
+     version (SDPA's backward beside them), each two calls bit for bit;
+     the backward's bounds with its attention products at 3xTF32's rate,
+     the fp32 rate's beside them;
   4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
      32 components, ConvLSTM prior, dropout 0.2; random weights from
      --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
@@ -69,7 +71,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      S = 1024) and a ragged (batch 4, S = 576), at dropout rate 0 and 0.2
      (rate 0.2 compared at batch 8: the plain mask at batch 64 needs ~10
      GB), two backward calls bit for bit the same, S = 2049 refused; each
-     with its time, the plain version's, SDPA's (rate 0) and its bound;
+     with its time, the plain version's, SDPA's (rate 0) and its bound
+     (the backward's, on the tensor cores, at 3xTF32's rate, the fp32
+     rate's beside it);
  14. the ImageNet-64 row (`bench.py`'s BENCH_IMAGE=64 configuration: the
      flagship at 64x64x3; random weights from --seed, the synthetic set at
      64 px, as no ImageNet-64 files are in the checkout): ddi, 10 Adamax
@@ -105,7 +109,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      4 heads, S = 256 / 64 / 16 / 512 / 100 at Dh = 24 and S = 512 at
      Dh = 64, rate 0 and 0.2 (one seed: the same mask), two backward calls
      bit for bit the same, S = 513, Dh = 20 and float64 refused, each with
-     its time, the plain version's, SDPA's (rate 0) and its bound; at rate
+     its time, the plain version's, SDPA's (rate 0) and its bound (the
+     backward's at 3xTF32's rate, the fp32 rate's beside it); at rate
      0.2 and one seed the packed entry against the proj entry and, bit for
      bit, the long entry, and the q, k, v entry against the packed one;
      then one drive through both entries' autograd (launches 1 of each).
@@ -259,13 +264,27 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def bound(bytes_moved, ops, peak_ops=PEAK_OPS):
+def bound(bytes_moved, ops, peak_ops=PEAK_OPS, tc_ops=0):
     """(least ms, "bytes" or "operations") at the card's memory rate and
     `peak_ops`: PEAK_OPS for SIMT fp32, PEAK_OPS_3XTF32 for a kernel whose
-    products run on the tensor cores."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peak_ops
+    products run on the tensor cores; `tc_ops` more operations at
+    PEAK_OPS_3XTF32 (a call whose GEMMs run off the tensor cores and its
+    attention products on them)."""
+    t_bytes = bytes_moved / PEAK_BYTES
+    t_ops = ops / peak_ops + tc_ops / PEAK_OPS_3XTF32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def tensor_core_bound(bytes_moved, ops):
+    """(bound_ms, bound_by, the record's fp32 fields, the log's note) of a
+    kernel whose products run on the tensor cores in 3xTF32: held to that
+    peak, the bound at the fp32 rate beside it."""
+    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
+    fp32_ms, fp32_by = bound(bytes_moved, ops)
+    return bound_ms, bound_by, dict(
+        bound_peak="3xTF32 165 TFLOP/s", bound_fp32_ms=fp32_ms,
+        bound_fp32_by=fp32_by), f"; fp32 {fp32_ms * 1e3:.2f} us"
 
 
 def ptxas_kernels(report, pattern):
@@ -310,17 +329,28 @@ def check_kernels(device, model, timer):
     results = {}
 
     def record(name, level, err, ms, plain_ms, library_ms, bytes_moved, ops,
-               **extra):
-        bound_ms, bound_by = bound(bytes_moved, ops)
+               tc_ops=0, **extra):
+        """`tc_ops`: the operations that run on the tensor cores (the
+        backward's attention products), bound at 3xTF32's rate, with the
+        bound at the fp32 rate beside it."""
+        bound_ms, bound_by = bound(bytes_moved, ops, tc_ops=tc_ops)
+        if tc_ops:
+            fp32_ms, fp32_by = bound(bytes_moved, ops + tc_ops)
+            extra.update(bound_peak="attention products at 3xTF32 165 "
+                         "TFLOP/s", bound_fp32_ms=fp32_ms,
+                         bound_fp32_by=fp32_by)
         row = dict(level=level, **extra, max_abs_err=err[0],
                    max_rel_err=err[1], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         results.setdefault(name, []).append(row)
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
-        tag = "".join(f" {k} {v}" for k, v in extra.items())
+        tag = "".join(f" {k} {v}" for k, v in extra.items()
+                      if not k.startswith("bound"))
+        fp32 = (f"; fp32 {extra['bound_fp32_ms'] * 1e3:.2f} us" if tc_ops
+                else "")
         log(f"  {name} level {level}{tag}: max abs err {err[0]:.3g} max rel "
             f"err {err[1]:.3g} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms"
-            f"{lib} | bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            f"{lib} | bound {bound_ms * 1e3:.2f} us ({bound_by}{fp32})")
 
     def library_attention(seq, w):
         b, s, _ = seq.shape
@@ -406,8 +436,8 @@ def check_kernels(device, model, timer):
             record("fused_attention_long_bwd", level, max_errs(got, want),
                    timer(run), timer(plain),
                    sdpa_backward_ms(qkv, g) if rate == 0.0 else None,
-                   4 * (2 * rows * 3 * c + rows * c),
-                   5 * core + 5 * BATCH * heads * s * s, rate=rate,
+                   4 * (2 * rows * 3 * c + rows * c), 0,
+                   tc_ops=5 * core + 5 * BATCH * heads * s * s, rate=rate,
                    err_over_scale=float(f"{over_scale:.3g}"))
 
     dh = c // heads
@@ -463,7 +493,8 @@ def check_kernels(device, model, timer):
                        timer(plain),
                        library_backward_ms(seq, w, g) if rate == 0.0 else None,
                        4 * (3 * BATCH * s * c + 2 * 3 * c * c),
-                       3 * proj + 5 * core, rate=rate, deterministic=True,
+                       3 * proj, tc_ops=5 * core, rate=rate,
+                       deterministic=True,
                        err_over_scale=float(f"{over_scale:.3g}"))
             check_stages(level, s, seq, w, g, seed, core)
 
@@ -1263,22 +1294,26 @@ def check_long_kernels(device, timer, w, heads):
         scores = batch * heads * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         rows = batch * s
-        if forward:  # qkv in, out; two products and the softmax
+        extra, fp32 = {}, ""
+        if forward:  # qkv in, out; two products and the softmax, SIMT fp32
             bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
-        else:  # qkv and g in, dqkv out; five products and dS
+            bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+        else:  # qkv and g in, dqkv out; five products and dS on the tensor
+            # cores
             bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
-        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+            bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+                bytes_moved, ops + 5 * scores)
         row = dict(batch=batch, s=s, rate=rate,
                    max_abs_err=None if err is None else err[0],
                    max_rel_err=None if err is None else err[1], ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by, **extra)
         results.setdefault(name, []).append(row)
         ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
         log(f"  {name} B={batch} S={s} rate {rate}: max abs err "
             f"{'n/a' if err is None else f'{err[0]:.3g}'} | kernel {ms:.4f} "
             f"ms plain {ms_or_na(plain_ms)} library {ms_or_na(library_ms)} | "
-            f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            f"bound {bound_ms * 1e3:.2f} us ({bound_by}{fp32})")
 
     def sdpa_inputs(qkv, grad):
         b, s, _ = qkv.shape
@@ -1762,21 +1797,27 @@ def check_core_attention(device, timer):
         scores = b * h * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         elems = b * h * s * dh
+        extra, fp32 = {}, ""
         if name in ("fused_attention", "fused_attention_qkv"):
-            # q, k, v in (or qkv), out; two products and the softmax
+            # q, k, v in (or qkv), out; two products and the softmax, SIMT
+            # fp32 at these widths
             bytes_moved, ops = 4 * 4 * elems, 2 * core
-        else:  # q, k, v, g in, dq, dk, dv out; five products and dS
+            bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+        else:  # q, k, v, g in, dq, dk, dv out; five products and dS on the
+            # tensor cores
             bytes_moved, ops = 4 * 7 * elems, 5 * core
-        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
+            bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+                bytes_moved, ops + 5 * scores)
         results[name].append(dict(
             shape=list(shape), rate=rate, max_abs_err=err[0],
             err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            **extra))
         ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
         log(f"  {name} {shape} rate {rate}: max abs err {err[0]:.3g} (/ max "
             f"|plain| {err[1]:.3g}) | kernel {ms:.4f} ms plain "
             f"{ms_or_na(plain_ms)} library {ms_or_na(library_ms)} | bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            f"{bound_ms * 1e3:.2f} us ({bound_by}{fp32})")
 
     def check(tag, got, want, again=None, bar=None):
         """Max abs error and max abs error / max |plain| over the outputs;
@@ -1993,24 +2034,19 @@ def check_lane_kernels(device, timer):
         scores = batch * heads * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         rows = batch * s
-        # the products on the tensor cores in 3xTF32: held to that peak,
-        # fp32's beside it
+        # the products on the tensor cores in 3xTF32
         if name == "attention_lanes":  # qkv in, out; two products, softmax
             bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
         else:  # qkv and g in, dqkv out; five products and dS
             bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
-        fp32_ms, fp32_by = bound(bytes_moved, ops + 5 * scores)
-        extra = dict(bound_peak="3xTF32 165 TFLOP/s", bound_fp32_ms=fp32_ms,
-                     bound_fp32_by=fp32_by)
-        bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores,
-                                   PEAK_OPS_3XTF32)
+        bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+            bytes_moved, ops + 5 * scores)
         results[name].append(dict(
             c=c, head_dim=dh, batch=batch, s=s, rate=rate, max_abs_err=err[0],
             err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             **extra))
         ms_or_na = lambda v: "n/a" if v is None else f"{v:.4f} ms"
-        fp32 = f"; fp32 {fp32_ms * 1e3:.2f} us"
         log(f"  {name} C={c} (Dh {dh}) B={batch} S={s} rate {rate}: max abs "
             f"err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) | kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
@@ -2565,6 +2601,8 @@ def main():
                 shape=f"(B, H, S, Dh) {CORE_SHAPES[0]}, rate 0; library_ms "
                       f"SDPA",
                 per_case=rows)
+            if "bound_fp32_ms" in top:  # the backward, on the tensor cores
+                entry["bound_fp32_ms"] = top["bound_fp32_ms"]
         elif name in LANES or name in GEMMS:
             # the CLIs' width (C = 512, Dh = 128) at the 32-px level 0, batch
             # 16; the Dh = 128 / 256 kernels at rate 0, beside SDPA (every case,
@@ -2615,6 +2653,16 @@ def main():
                       f"library_ms SDPA",
                 per_case=rows, **({"flagship_levels": flagship} if flagship
                                   else {}))
+            if name == "fused_attention_long_bwd":  # on the tensor cores
+                entry.update(
+                    bound_fp32_ms=top["bound_fp32_ms"],
+                    device_kernels=["attention_mma_dq_kernel",
+                                    "attention_mma_dkv_kernel"],
+                    headers=["gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                             "gpnf_tpu_torch/csrc/mma_tf32.cuh",
+                             "gpnf_tpu_torch/csrc/philox.cuh"],
+                    ptxas=ptxas_kernels(reports.get(
+                        "fused_attention_long", ""), "attention_mma_d"))
         else:
             # level 0 (the largest shape on the paths), at the training
             # rate; the library call (F.linear + SDPA, its backward) at rate 0
@@ -2626,9 +2674,13 @@ def main():
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                 library_ms=rows[0]["library_ms"],
                 shape=f"level 0, batch {BATCH}" + (
-                    f", rate {RATE}; library_ms at rate 0" if "rate" in top
-                    else ""),
+                    f", rate {RATE}; library_ms at rate 0 beside ms_rate_0"
+                    if "rate" in top else ""),
                 per_level=per_level[name])
+            if "rate" in top:  # the kernel at the library call's rate
+                entry["ms_rate_0"] = rows[0]["ms"]
+            if "bound_fp32_ms" in top:
+                entry["bound_fp32_ms"] = top["bound_fp32_ms"]
             if name == "fused_attention_proj_bwd":
                 entry["stages"] = [
                     "attention_qkv_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",

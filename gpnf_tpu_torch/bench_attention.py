@@ -1,8 +1,9 @@
 """Time attention kernels on the card against other versions of their
 sources.
 
-    python -m gpnf_tpu_torch.bench_attention [--kernel proj|lanes|lanes_bwd]
-        [--ref NAME=DIR ...] [--out FILE]
+    python -m gpnf_tpu_torch.bench_attention
+        [--kernel proj|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
+        [--out FILE]
 
 DIR holds another version's csrc/ (its sources with the headers they
 include): say the parent commit's, from `git archive <commit>
@@ -35,6 +36,14 @@ Dh products and five operations a score at the fp32 rate off the tensor
 cores, 67 TFLOP/s, and at 3xTF32's, 495 / 3 = 165 TFLOP/s); one call of
 each under torch.profiler (device time by kernel); and the ptxas lines
 (registers, spills) of every version's kernels.
+
+`--kernel rows_bwd`: the backward at Dh <= 64 (the kernels that the proj
+backward's middle stage and the 64-px level 0 run, which only their entry
+counts), measured as `lanes_bwd` measures it, at 4 heads and (B, C, S) =
+(64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024) (Dh 24: the
+flagship's 32-px levels and the 64-px level 0), (64, 192, 64) (Dh 48),
+(16, 256, 256) (Dh 64), (64, 32, 256) (Dh 8) and (64, 16, 256) (Dh 4),
+rate 0 and 0.2.
 
 `--kernel proj` (the default): DIR's fused_attention_proj.cu and
 attention_gemm.cu, from before the staged backward: the backward in one
@@ -88,6 +97,8 @@ RATES = (0.0, 0.2)
 TARGETS = (132, 264, 528, 1056, 2112)
 REF_K_CHUNK = 1024  # the ref wrappers' (b, s) rows per dW partial
 LANE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16), (4, 1024, 256))
+ROW_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
+              (64, 192, 64), (16, 256, 256), (64, 32, 256), (64, 16, 256))
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the tensor
 # cores, and dense TF32 FLOP/s over the three products of 3xTF32 (a kernel
 # on the tensor cores is read against this one)
@@ -105,7 +116,8 @@ REF_SIGNATURES = {
 # the sources each --kernel builds, from the package and from each ref
 SOURCES = {"proj": ("fused_attention_proj", "attention_gemm"),
            "lanes": ("fused_attention_long",),
-           "lanes_bwd": ("fused_attention_long",)}
+           "lanes_bwd": ("fused_attention_long",),
+           "rows_bwd": ("fused_attention_long",)}
 
 
 def build_refs(refs, sources):
@@ -319,13 +331,14 @@ def sdpa_fwd(qkv):
     return lambda: F.scaled_dot_product_attention(q, k, v)
 
 
-def lanes_rows(device, libs, timer, card, backward):
-    """The Dh = 128 / 256 forward (or backward) at LANE_SHAPES: the change
-    and each ref in turns, beside SDPA (its autograd for the backward),
-    both bounds."""
+def attention_rows(device, libs, timer, card, kind):
+    """The forward (`lanes`) or the backward (`lanes_bwd`, `rows_bwd`) at
+    the kind's shapes: the change and each ref in turns, beside SDPA (its
+    autograd for the backward), both bounds."""
     names = [*libs, "change"]
+    backward = kind != "lanes"
     products = 5 if backward else 2
-    for batch, c, s in LANE_SHAPES:
+    for batch, c, s in ROW_SHAPES if kind == "rows_bwd" else LANE_SHAPES:
         gen = torch.Generator(device=device).manual_seed(c + s)
         qkv = torch.randn((batch, s, 3 * c), generator=gen,
                           device=device) * 0.5
@@ -354,8 +367,7 @@ def lanes_rows(device, libs, timer, card, backward):
                 runs["change"] = lambda: kernels.attention_long_qkv(
                     qkv, HEADS, rate, seed)
                 want = kernels.attention_long_plain(qkv, HEADS, rate, seed)
-            row = {"kind": "lanes_bwd" if backward else "lanes",
-                   "batch": batch, "C": c, "S": s,
+            row = {"kind": kind, "batch": batch, "C": c, "S": s,
                    "head_dim": dh, "rate": rate, "card": card,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_peak": "3xTF32 165 TFLOP/s",
@@ -435,8 +447,8 @@ def gemm_rows(device, libs, timer, card, targets):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=sorted(SOURCES), default="proj",
-                   help="the proj backward and its GEMMs, or the Dh = 128 / "
-                        "256 forward or backward")
+                   help="the proj backward and its GEMMs, the Dh = 128 / "
+                        "256 forward or backward, or the Dh <= 64 backward")
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=DIR of another version's csrc/")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
@@ -465,8 +477,8 @@ def main(argv=None):
     print(json.dumps(results[0]), flush=True)
     timer = Timer(device)
     targets = [int(x) for x in args.targets.split(",")]
-    rows = (lanes_rows(device, libs, timer, card, args.kernel == "lanes_bwd")
-            if args.kernel.startswith("lanes") else itertools.chain(
+    rows = (attention_rows(device, libs, timer, card, args.kernel)
+            if args.kernel != "proj" else itertools.chain(
                 proj_rows(device, libs, timer, card),
                 gemm_rows(device, libs, timer, card, targets)))
     for row in rows:

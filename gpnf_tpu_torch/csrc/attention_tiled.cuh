@@ -23,33 +23,33 @@
 // S=1024), and a head's K and V whole (2*S*Dh*4 B, 256 KB at S=512, Dh=64)
 // exceed a 227 KB block. So the key axis is tiled, and shared memory does not
 // grow with S:
-//   - forward: a block per (64 queries, head, batch row), a thread per
-//     query; q (times q_scale) and the output accumulator sit in registers
-//     (Dh is a template parameter); K and V stream through shared memory in
-//     tiles of 64 keys, read by every thread as warp-wide broadcasts; the
-//     online softmax of the proj kernel (the denominator sums every
-//     exp(s - m); the accumulator adds only the kept terms, scaled); one
-//     Philox call per four keys;
-//   - backward, kernel 1 (a thread per query): pass A over the key tiles
-//     finds m_i, l_i and D_i online (D rescales like the denominator);
-//     pass B accumulates dq_i = sum_j p_ij (dP_ij - D_i) k_j and writes it
-//     times q_scale, and (m_i, 1/l_i, D_i) into a (B, H, S, 3) scratch;
-//   - backward, kernel 2 (a thread per key): loops over query tiles of q,
-//     g and the stats in shared memory and accumulates dV_j and dK_j.
-//   No atomics: each output element is written once by one thread, so the
-//   backward repeats bit for bit. The packed layout reads qkv and writes
-//   dqkv (B, S, 3C) in place, with no head split or merge copies.
-// Dh = 128 and 256: a thread cannot hold q[Dh] and acc[Dh] (Dh = 64
-// already takes 255 registers and spills). The forward and the backward
-// run on the tensor cores: 16-row tiles of a warp, 3xTF32 mma.sync
-// products at about fp32 accuracy (mma_tf32.cuh), cp.async double buffers
-// (the tensor-core kernels, below). The same online softmax and passes,
-// the same Philox words, sums in a fixed order, no atomics: two calls give
-// the same bits. Dh <= 64 runs the thread-a-row kernels, unchanged. What
-// bounds them at Dh = 128 on the H100: the S x S x Dh products at 3xTF32's
-// rate (495 / 3 TFLOP/s), two in the forward, five in the backward: >= ~13
-// and ~33 us at the CLIs' default C = 512, B = 16, S = 256 (~32 and ~80 us
-// at the fp32 rate off the tensor cores); the bytes 2.5 and 5 us.
+//   - forward, Dh <= 64: a block per (64 queries, head, batch row), a
+//     thread per query; q (times q_scale) and the output accumulator sit in
+//     registers (Dh is a template parameter); K and V stream through shared
+//     memory in tiles of 64 keys, read by every thread as warp-wide
+//     broadcasts; the online softmax of the proj kernel (the denominator
+//     sums every exp(s - m); the accumulator adds only the kept terms,
+//     scaled); one Philox call per four keys. At Dh = 128 and 256 a thread
+//     cannot hold q[Dh] and acc[Dh], and the forward runs on the tensor
+//     cores (attention_mma_fwd_kernel, below);
+//   - backward, every width (4 to 256): two tensor-core kernels, 16-row
+//     tiles of a warp, 3xTF32 mma.sync products at about fp32 accuracy
+//     (mma_tf32.cuh), cp.async double buffers. Kernel 1 (dq) runs pass A
+//     over the key tiles for m_i, l_i and D_i online (D rescales like the
+//     denominator), then pass B for dq_i = sum_j p_ij (dP_ij - D_i) k_j,
+//     written times q_scale, with (m_i, 1/l_i, D_i) into a (B, H, S, 3)
+//     scratch; kernel 2 (dK/dV) streams query tiles of q, g and the stats
+//     past a block's keys and accumulates dV_j and dK_j.
+//   No atomics: each output element is written once, and sums run in a
+//   fixed order, so the backward repeats bit for bit. The packed layout
+//   reads qkv and writes dqkv (B, S, 3C) in place, with no head split or
+//   merge copies. What bounds the backward on the H100: the five S x S x Dh
+//   products at 3xTF32's rate (495 / 3 TFLOP/s) and ~5 operations a score:
+//   >= ~33 us at the CLIs' default C = 512, B = 16, S = 256 (Dh 128), ~25
+//   us at the flagship's level 0 (C = 96, B = 64, S = 256, Dh 24) and ~400
+//   us at the 64-px level 0 (S = 1024); the bytes 5-50 us. The forward's two
+//   products: >= ~13 us at C = 512 on the tensor cores, ~25 us at the
+//   flagship's level 0 at the fp32 rate off them.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,8 +61,8 @@
 
 namespace gpnf {
 
-constexpr int kAttnRows = 64;  // queries (forward, dq) or keys (dK/dV) a block
-constexpr int kAttnTile = 64;  // keys (or queries) per shared-memory tile
+constexpr int kAttnRows = 64;  // queries a block of the Dh <= 64 forward
+constexpr int kAttnTile = 64;  // its keys per shared-memory tile
 
 // qkv (B, S, 3C) packed [k | v | q] along the channels, out and g (B, S, C),
 // dqkv (B, S, 3C) packed as qkv. q, k, v (and dq, dk, dv) point at the
@@ -94,19 +94,17 @@ struct SplitHeads {
   __device__ size_t out_row() const { return D; }
 };
 
-// Rows [r0, r0 + kAttnTile) of the (S, Dh) slice that starts at `src` (row
-// stride `stride` floats) into dst (kAttnTile, DH), times `scale`; rows past
-// S are zero.
+// The Dh <= 64 forward's copy: rows [r0, r0 + kAttnTile) of the (S, Dh)
+// slice that starts at `src` (row stride `stride` floats) into dst
+// (kAttnTile, DH); rows past S are zero.
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int seq_len, size_t stride,
-                                          float scale) {
+                                          int r0, int seq_len, size_t stride) {
   for (int e = threadIdx.x; e < kAttnTile * DH; e += blockDim.x) {
     const int r = e / DH;
     const int d = e - r * DH;
-    dst[e] = r0 + r < seq_len
-                 ? src[static_cast<size_t>(r0 + r) * stride + d] * scale
-                 : 0.f;
+    dst[e] = r0 + r < seq_len ? src[static_cast<size_t>(r0 + r) * stride + d]
+                              : 0.f;
   }
 }
 
@@ -139,8 +137,8 @@ __global__ void __launch_bounds__(kAttnRows)
   float m = -INFINITY, l = 0.f;
   for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
     __syncthreads();  // the previous tile is consumed
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
+    load_tile<DH>(k_s, k_in + head, j0, seq_len, row);
+    load_tile<DH>(v_s, v_in + head, j0, seq_len, row);
     __syncthreads();
     if (!valid) continue;
     const int nk = min(kAttnTile, seq_len - j0);
@@ -180,218 +178,17 @@ __global__ void __launch_bounds__(kAttnRows)
   for (int d = 0; d < DH; ++d) o[d] = acc[d] * inv_l;
 }
 
-// Backward kernel 1: a thread per query -> dq (times q_scale), and
-// (m, 1/l, D) of the row into stats (B, H, S, 3).
-template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kAttnRows)
-    attention_tiled_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                              const float* __restrict__ q_in,
-                              const float* __restrict__ k_in,
-                              const float* __restrict__ v_in,
-                              const float* __restrict__ g,
-                              float* __restrict__ dq_out,
-                              float* __restrict__ stats, float q_scale,
-                              uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  __shared__ __align__(16) float k_s[kAttnTile * DH];
-  __shared__ __align__(16) float v_s[kAttnTile * DH];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int qi = blockIdx.x * kAttnRows + threadIdx.x;
-  const bool valid = qi < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+constexpr int kMaxRowHeadDim = 64;  // the widest thread-a-row forward
 
-  float q[DH], gi[DH];
-  const float* g_row = g + lay.out_head(b, h) + qi * lay.out_row();
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = valid ? q_in[head + qi * row + d] * q_scale : 0.f;
-    gi[d] = valid ? g_row[d] : 0.f;
-  }
-
-  // pass A: row max m, denominator l and dsum = sum_j exp(s_j - m) dP_j,
-  // rescaled together whenever m grows
-  float m = -INFINITY, l = 0.f, dsum = 0.f;
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
-    __syncthreads();
-    if (!valid) continue;
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float* kj = k_s + (t + jj) * DH;
-        const float* vj = v_s + (t + jj) * DH;
-        float score = 0.f, dpd = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          score = fmaf(q[d], kj[d], score);
-          dpd = fmaf(gi[d], vj[d], dpd);
-        }
-        float dp = dpd;
-        if (DROPOUT) {
-          dp = philox_word(bits, jj) >= threshold ? dpd * keep_scale : 0.f;
-        }
-        if (score > m) {
-          const float corr = expf(m - score);
-          l *= corr;
-          dsum *= corr;
-          m = score;
-        }
-        const float e = expf(score - m);
-        l += e;
-        dsum = fmaf(e, dp, dsum);
-      }
-    }
-  }
-  const float inv_l = valid ? 1.f / l : 0.f;
-  const float big_d = dsum * inv_l;
-
-  // pass B: dq_i = sum_j p_ij (dP_ij - D_i) k_j
-  float dq[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dq[d] = 0.f;
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row, 1.f);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row, 1.f);
-    __syncthreads();
-    if (!valid) continue;
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float* kj = k_s + (t + jj) * DH;
-        const float* vj = v_s + (t + jj) * DH;
-        float score = 0.f, dpd = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          score = fmaf(q[d], kj[d], score);
-          dpd = fmaf(gi[d], vj[d], dpd);
-        }
-        float dp = dpd;
-        if (DROPOUT) {
-          dp = philox_word(bits, jj) >= threshold ? dpd * keep_scale : 0.f;
-        }
-        const float ds = expf(score - m) * inv_l * (dp - big_d);
-#pragma unroll
-        for (int d = 0; d < DH; ++d) dq[d] = fmaf(ds, kj[d], dq[d]);
-      }
-    }
-  }
-  if (!valid) return;
-  float* dst = dq_out + head + qi * row;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dst[d] = dq[d] * q_scale;
-  float* st =
-      stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + qi) * 3;
-  st[0] = m;
-  st[1] = inv_l;
-  st[2] = big_d;
-}
-
-// Backward kernel 2: a thread per key -> dK and dV.
-template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kAttnRows)
-    attention_tiled_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                               const float* __restrict__ q_in,
-                               const float* __restrict__ k_in,
-                               const float* __restrict__ v_in,
-                               const float* __restrict__ g,
-                               const float* __restrict__ stats,
-                               float* __restrict__ dk_out,
-                               float* __restrict__ dv_out, float q_scale,
-                               uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  __shared__ __align__(16) float q_s[kAttnTile * DH];  // q rows * q_scale
-  __shared__ __align__(16) float g_s[kAttnTile * DH];
-  __shared__ float st_s[kAttnTile * 3];                // m, 1/l, D per query
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int kj = blockIdx.x * kAttnRows + threadIdx.x;
-  const bool valid = kj < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const float* g_head = g + lay.out_head(b, h);
-  const float* st_head =
-      stats + (static_cast<size_t>(b) * lay.heads + h) * seq_len * 3;
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
-
-  float k[DH], v[DH], dk[DH], dv[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    k[d] = valid ? k_in[head + kj * row + d] : 0.f;
-    v[d] = valid ? v_in[head + kj * row + d] : 0.f;
-    dk[d] = 0.f;
-    dv[d] = 0.f;
-  }
-  const int quad = kj >> 2;
-  const int sel = kj & 3;
-  for (int i0 = 0; i0 < seq_len; i0 += kAttnTile) {
-    __syncthreads();
-    load_tile<DH>(q_s, q_in + head, i0, seq_len, row, q_scale);
-    load_tile<DH>(g_s, g_head, i0, seq_len, lay.out_row(), 1.f);
-    const int ni = min(kAttnTile, seq_len - i0);
-    for (int e = threadIdx.x; e < ni * 3; e += blockDim.x) {
-      st_s[e] = st_head[static_cast<size_t>(i0) * 3 + e];
-    }
-    __syncthreads();
-    if (!valid) continue;
-    for (int ii = 0; ii < ni; ++ii) {
-      const float* qrow = q_s + ii * DH;
-      const float* grow = g_s + ii * DH;
-      float score = 0.f, dpd = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        score = fmaf(qrow[d], k[d], score);
-        dpd = fmaf(grow[d], v[d], dpd);
-      }
-      const float p = expf(score - st_s[3 * ii]) * st_s[3 * ii + 1];
-      float pd = p, dp = dpd;
-      if (DROPOUT) {
-        const bool keep =
-            philox_word(attention_dropout_bits(seed, b, h, i0 + ii, quad),
-                        sel) >= threshold;
-        pd = keep ? p * keep_scale : 0.f;
-        dp = keep ? dpd * keep_scale : 0.f;
-      }
-      const float ds = p * (dp - st_s[3 * ii + 2]);
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dv[d] = fmaf(pd, grow[d], dv[d]);
-        dk[d] = fmaf(ds, qrow[d], dk[d]);
-      }
-    }
-  }
-  if (!valid) return;
-  const size_t at = head + kj * row;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    dk_out[at + d] = dk[d];
-    dv_out[at + d] = dv[d];
-  }
-}
-
-constexpr int kMaxRowHeadDim = 64;  // above: the tensor-core kernels below
-
-// -- the tensor-core kernels: Dh = 128 and 256 --------------------------------
-// The same function and passes as the thread-a-row kernels, with every S x
-// S x Dh product on the tensor cores in 3xTF32 (mma_tf32.cuh) and the
-// streamed tiles copied by cp.async into a double buffer, so the next tile
-// loads while the current one computes. Tiles are padded rows of Dh + 4
-// floats (mma_tf32.cuh). The forward is described above its kernel.
+// -- the tensor-core kernels: the backward at every width, the forward at
+// Dh = 128 and 256 --------------------------------------------------------
+// Every S x S x Dh product runs on the tensor cores in 3xTF32
+// (mma_tf32.cuh), and the streamed tiles are copied by cp.async into a
+// double buffer, so the next tile loads while the current one computes.
+// Tiles are padded rows of W + 4 floats, W = kWidth: Dh, or 8 at Dh = 4
+// (one k step of m16n8k8). There the columns past Dh are zeroed once, never
+// copied and never stored, so they add nothing to any product. The forward
+// is described above its kernel.
 //
 // dq kernel: a block per (kRows queries, head, batch row), a warp per 16
 // query rows. The block's q and g rows sit in shared memory; K and V stream
@@ -402,61 +199,91 @@ constexpr int kMaxRowHeadDim = 64;  // above: the tensor-core kernels below
 // lanes of a quad, and at the end of the pass the quad adds its 4 partial
 // sums in one order. Pass B forms dS = P (dP - D) in the accumulators, which
 // are the A fragments of dq += dS K as they stand (the k order of
-// mma_tf32.cuh), and writes dq * q_scale and (m, 1/l, D) as before. The
-// keep bits of a thread's two columns of one row are words of one Philox
-// call: the lanes with tg even call it for row gr, the odd ones for row
-// gr + 8, and a pair trades the two words the other needs by shuffle
+// mma_tf32.cuh), and writes dq * q_scale and (m, 1/l, D). The keep bits of
+// a thread's two columns of one row are words of one Philox call: the
+// lanes with tg even call it for row gr, the odd ones for row gr + 8, and a
+// pair trades the two words the other needs by shuffle
 // (fragment_keep_words, which the forward calls too).
 //
 // dK/dV kernel: a block per (kKeys keys, head, batch row); a pair of warps
 // per 16 keys, whose K and V rows sit in shared memory. Query tiles of q, g
 // and the stats stream by cp.async. For each tile the even warp computes
-// S^T = K q^T, the odd one dPd^T = V g^T (16 keys x kQueries queries each);
-// both go to the pair's shared exchange tiles; the pair's 64 threads turn
-// them into Pd and dS, one Philox call for 4 keys of one query (the words
-// of every other kernel); then the even warp accumulates dV += Pd^T g and
-// the odd one dK += dS^T q in registers (Dh / 2 floats a thread). Two named
-// barriers a tile order the pair; one __syncthreads a tile orders the
-// buffer. Queries past S take P = 0, so they add nothing to dK or dV.
+// S^T = K q^T, the odd one dPd^T = V g^T (16 keys x kQueries queries each,
+// the k steps alternating between two accumulator sets; an odd last step,
+// Dh = 8 and 24, has no partner); both go to the pair's shared exchange
+// tiles; the pair's 64 threads turn them into Pd and dS, one Philox call
+// for 4 keys of one query (the words of every other kernel); then the even
+// warp accumulates dV += Pd^T g and the odd one dK += dS^T q in registers
+// (W / 2 floats a thread). Two named barriers a tile order the pair; one
+// __syncthreads a tile orders the buffer. Queries past S take P = 0, so
+// they add nothing to dK or dV.
 //
 // q comes unscaled from the caller and is copied as it is: scores are
 // scaled by q_scale after the product, dK and dq before the store. Sums run
 // in a fixed order (k steps, then tiles, then the quad's butterfly), and
 // each output element is written once: two calls give the same bits.
 //
-// Shared memory a block (4 warps, 128 threads, each kernel): dq 99 KB at
-// Dh 128 (64 q and g rows, 2 x 2 tiles of 16 keys: two blocks an SM), 195
-// KB at 256; dK/dV 110 KB at Dh 128 (32 K and V rows, 2 x 2 tiles of 32
-// queries: two blocks an SM), 136 KB at 256 (tiles of 16). ptxas (sm_90a,
-// without / with dropout): dq 154 / 155 registers at Dh 128, 220 / 230 at
-// 256; dK/dV 159 / 157 at 128, 212 / 214 at 256; no spills. The tiles and
-// the unroll were chosen on the card by bench_attention --kernel lanes_bwd
-// (NVIDIA H100 80GB HBM3, 700 W): unrolling dq's k loop by 8 took up to 23%
-// off the call against 4, most at rate 0 (2: slower; full: slower at Dh
-// 256); 32-key tiles at Dh 128, two warps a dq block, 8-key tiles at Dh
-// 256, even / odd accumulators in dq and 16-query tiles in dK/dV were no
-// faster.
+// Tiles by width (kKeys of dq, kQueries of dK/dV): 64 and 64 up to Dh 24,
+// 32 and 32 at 32-64, 16 and 32 at 128, 16 and 16 at 256. Shared memory a
+// block (4 warps, 128 threads, each kernel), dq / dK/dV: 18 / 35 KB at Dh
+// 4 and 8, 30 / 45 at 16, 42 / 55 at 24, 36 / 38 at 32, 52 / 50 at 48, 68
+// / 62 at 64, 99 / 110 at 128, 195 / 136 at 256. Registers (ptxas,
+// sm_90a, without / with dropout), dq, then dK/dV: Dh 4 115 / 130, 48 /
+// 48; 8 117 / 134, 56 / 61; 16 125 / 128, 96 / 95; 24 128 / 132, 127 /
+// 120; 32 117 / 128, 123 / 94; 48 127 / 128, 96 / 93; 64 127 / 128, 124 /
+// 124; 128 154 / 155, 159 / 157; 256 218 / 228, 212 / 214. No spills but
+// 8 bytes in dq at Dh 16 with dropout. Chosen on the card by
+// bench_attention --kernel lanes_bwd (Dh 128, 256) and --kernel rows_bwd
+// (Dh <= 64; NVIDIA H100 80GB HBM3, 700 W, rate 0): unrolling dq's k loop
+// by 8 took up to 23% off the call against 4 at Dh 128 (2: slower; full:
+// slower at Dh 256); 32-key tiles at Dh 128, two warps a dq block, 8-key
+// tiles at Dh 256, even / odd accumulators in dq and 16-query tiles in
+// dK/dV were no faster there. At Dh 24, B 64, S 256 / 64 / 16 / 1024,
+// 64-key dq tiles against 32 and 16: 0.2177 / 0.0276 / 0.0177 / 3.06 ms,
+// 0.2282 / 0.0281 / 0.0154 / 3.20, 0.2511 / 0.0308 / 0.0142 / 3.51;
+// 64-query dK/dV tiles against 32: 0.2240 / 0.0278 / 0.0168 / 3.13 and
+// the same 0.2282 / 0.0281 / 0.0154 / 3.20 (both 64, in another call:
+// 0.2123 / 0.0268 / 0.0191 / 2.97); the same held at Dh 8 and 4, while at
+// Dh 48 64-query tiles were 6% slower and 64-key ones level. At Dh <= 8
+// 128-query tiles were 9-20% slower and 128-key ones 1-5% (they spill);
+// two or four sets of dq's and dV's sums (more products in flight) 1-2%
+// slower. So S 16 runs ~24%
+// slower than it would in 32-wide tiles, for 5-7% off the larger S (one
+// set of tiles a width: two would double the instantiations). At Dh 4 the
+// thread-a-row kernels these replace took 0.1200 ms against 0.1204 at
+// rate 0 (0.3%) and 0.1897 against 0.1752 at rate 0.2, the training rate:
+// every width runs these kernels.
 template <int DH>
 struct MmaDq {
+  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's floats
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRows = 16 * kWarps;          // queries a block
-  static constexpr int kKeys = 16;  // keys a tile
+  static constexpr int kRows = 16 * kWarps;  // queries a block
+  static constexpr int kKeys = DH <= 24 ? 64 : DH <= 64 ? 32 : 16;  // a tile
   static constexpr size_t kBytes =
-      sizeof(float) * (2 * kRows + 2 * 2 * kKeys) * (DH + kTilePad);
+      sizeof(float) * (2 * kRows + 2 * 2 * kKeys) * (kWidth + kTilePad);
 };
 
 template <int DH>
 struct MmaDkv {
+  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's floats
   static constexpr int kPairs = 2;
   static constexpr int kThreads = 64 * kPairs;
-  static constexpr int kKeys = 16 * kPairs;             // keys a block
-  static constexpr int kQueries = DH == 128 ? 32 : 16;  // queries a tile
+  static constexpr int kKeys = 16 * kPairs;  // keys a block
+  // queries a tile
+  static constexpr int kQueries = DH <= 24 ? 64 : DH <= 128 ? 32 : 16;
   static constexpr int kPad = kQueries + 8;  // an exchange row, in floats
   static constexpr size_t kBytes =
-      sizeof(float) * (2 * (kKeys + 2 * kQueries) * (DH + kTilePad) +
+      sizeof(float) * (2 * (kKeys + 2 * kQueries) * (kWidth + kTilePad) +
                        2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
 };
+
+// Zero the `floats` floats of dynamic shared memory at smem, then sync: the
+// pad columns of tiles wider than Dh stay zero, as no copy writes them.
+__device__ __forceinline__ void zero_shared(float* smem, int floats) {
+  for (int e = threadIdx.x; e < floats; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
+}
 
 // The 64 threads of warp pair `pair` wait for each other: named barrier
 // pair + 1 (0 is __syncthreads'), each id a constant, so ptxas reserves
@@ -726,10 +553,11 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
                             uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaDq<DH>;
+  constexpr int W = T::kWidth;
   constexpr int KT = T::kKeys;
   constexpr int NT = KT / 8;  // columns of 8 keys in a tile
-  constexpr int NK = DH / 8;  // k steps over Dh, and dq's columns of 8
-  constexpr int LD = DH + kTilePad;
+  constexpr int NK = W / 8;   // k steps over W, and dq's columns of 8
+  constexpr int LD = W + kTilePad;
   extern __shared__ float4 mma_smem[];
   float* q_s = reinterpret_cast<float*>(mma_smem);  // (kRows, LD), unscaled
   float* g_s = q_s + T::kRows * LD;
@@ -749,13 +577,14 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
   const int nk = (seq_len + KT - 1) / KT;
 
-  load_rows_async<DH, T::kRows>(q_s, q_in + head, i0, seq_len, row,
-                                T::kThreads);
-  load_rows_async<DH, T::kRows>(g_s, g + lay.out_head(b, h), i0, seq_len,
-                                lay.out_row(), T::kThreads);
-  load_rows_async<DH, KT>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
-  load_rows_async<DH, KT>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
-                          T::kThreads);
+  if constexpr (W != DH) zero_shared(q_s, T::kBytes / sizeof(float));
+  load_rows_async<DH, T::kRows, W>(q_s, q_in + head, i0, seq_len, row,
+                                   T::kThreads);
+  load_rows_async<DH, T::kRows, W>(g_s, g + lay.out_head(b, h), i0, seq_len,
+                                   lay.out_row(), T::kThreads);
+  load_rows_async<DH, KT, W>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_async<DH, KT, W>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                             T::kThreads);
   cp_async_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -772,10 +601,10 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     if (t + 1 < 2 * nk) {
       const int jn = ((t + 1) % nk) * KT;
       float* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
-      load_rows_async<DH, KT>(next, k_in + head, jn, seq_len, row,
-                              T::kThreads);
-      load_rows_async<DH, KT>(next + KT * LD, v_in + head, jn, seq_len, row,
-                              T::kThreads);
+      load_rows_async<DH, KT, W>(next, k_in + head, jn, seq_len, row,
+                                 T::kThreads);
+      load_rows_async<DH, KT, W>(next + KT * LD, v_in + head, jn, seq_len,
+                                 row, T::kThreads);
       cp_async_commit();
     }
     if (!active) continue;
@@ -793,12 +622,12 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
 #pragma unroll 8
     for (int ks = 0; ks < NK; ++ks) {
       const int c = 8 * ks + tg;
-      const FragA qa = tile_frag_a<DH>(q_s, r0 + gr, c);
-      const FragA ga = tile_frag_a<DH>(g_s, r0 + gr, c);
+      const FragA qa = tile_frag_a<W>(q_s, r0 + gr, c);
+      const FragA ga = tile_frag_a<W>(g_s, r0 + gr, c);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        mma_3xtf32(s[n], qa, tile_frag_bt<DH>(k_s, 8 * n + gr, c));
-        mma_3xtf32(dp[n], ga, tile_frag_bt<DH>(v_s, 8 * n + gr, c));
+        mma_3xtf32(s[n], qa, tile_frag_bt<W>(k_s, 8 * n + gr, c));
+        mma_3xtf32(dp[n], ga, tile_frag_bt<W>(v_s, 8 * n + gr, c));
       }
     }
     // scaled scores (-inf past S) and dP = keep * dPd / (1 - rate)
@@ -871,7 +700,7 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
 #pragma unroll
       for (int dn = 0; dn < NK; ++dn) {
         mma_3xtf32(dq[dn], da,
-                   tile_frag_b<DH>(k_s, 8 * n + 2 * tg, 8 * dn + gr));
+                   tile_frag_b<W>(k_s, 8 * n + 2 * tg, 8 * dn + gr));
       }
     }
   }
@@ -883,6 +712,7 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     float* dst = dq_out + head + static_cast<size_t>(i) * row + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < NK; ++dn) {
+      if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
       *reinterpret_cast<float2*>(dst + 8 * dn) =
           make_float2(dq[dn][2 * r] * q_scale, dq[dn][2 * r + 1] * q_scale);
     }
@@ -910,10 +740,11 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
                              uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaDkv<DH>;
+  constexpr int W = T::kWidth;
   constexpr int QT = T::kQueries;
   constexpr int NQ = QT / 8;  // columns of 8 queries in a tile
-  constexpr int NK = DH / 8;  // k steps over Dh, and dK's columns of 8
-  constexpr int LD = DH + kTilePad;
+  constexpr int NK = W / 8;   // k steps over W, and dK's columns of 8
+  constexpr int LD = W + kTilePad;
   constexpr int XP = T::kPad;
   extern __shared__ float4 mma_smem[];
   float* k_s = reinterpret_cast<float*>(mma_smem);  // (kKeys, LD)
@@ -944,15 +775,17 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
   const int n_st = 3 * seq_len;
 
   const int kb0 = blockIdx.x * T::kKeys;
-  load_rows_async<DH, T::kKeys>(k_s, k_in + head, kb0, seq_len, row,
-                                T::kThreads);
-  load_rows_async<DH, T::kKeys>(v_s, v_in + head, kb0, seq_len, row,
-                                T::kThreads);
+  if constexpr (W != DH) zero_shared(k_s, T::kBytes / sizeof(float));
+  load_rows_async<DH, T::kKeys, W>(k_s, k_in + head, kb0, seq_len, row,
+                                   T::kThreads);
+  load_rows_async<DH, T::kKeys, W>(v_s, v_in + head, kb0, seq_len, row,
+                                   T::kThreads);
   auto load_tile_async = [&](int i0, int stage) {
     float* q_t = qg_s + stage * 2 * QT * LD;
-    load_rows_async<DH, QT>(q_t, q_in + head, i0, seq_len, row, T::kThreads);
-    load_rows_async<DH, QT>(q_t + QT * LD, g_head, i0, seq_len, lay.out_row(),
-                            T::kThreads);
+    load_rows_async<DH, QT, W>(q_t, q_in + head, i0, seq_len, row,
+                               T::kThreads);
+    load_rows_async<DH, QT, W>(q_t + QT * LD, g_head, i0, seq_len,
+                               lay.out_row(), T::kThreads);
     for (int e = threadIdx.x; e < 3 * QT; e += T::kThreads) {
       const bool valid = 3 * i0 + e < n_st;
       cp_async4(st_s + stage * 3 * QT + e, st_head + (valid ? 3 * i0 + e : 0),
@@ -981,7 +814,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
 
     // S^T = K q^T (even warp) or dPd^T = V g^T (odd): 16 keys x QT queries,
     // even and odd k steps in separate accumulators for more products in
-    // flight
+    // flight (an odd NK's last step alone)
     {
       const float* b_s = role ? g_t : q_t;
       float x[2][NQ][4];
@@ -997,11 +830,12 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
       for (int ks = 0; ks < NK; ks += 2) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
+          if (ks + p >= NK) break;
           const int c = 8 * (ks + p) + tg;
-          const FragA fa = tile_frag_a<DH>(a_s, kr0 + gr, c);
+          const FragA fa = tile_frag_a<W>(a_s, kr0 + gr, c);
 #pragma unroll
           for (int n = 0; n < NQ; ++n) {
-            mma_3xtf32(x[p][n], fa, tile_frag_bt<DH>(b_s, 8 * n + gr, c));
+            mma_3xtf32(x[p][n], fa, tile_frag_bt<W>(b_s, 8 * n + gr, c));
           }
         }
       }
@@ -1051,7 +885,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
 #pragma unroll
       for (int dn = 0; dn < NK; ++dn) {
         mma_3xtf32(acc[dn], fa,
-                   tile_frag_b<DH>(b2, 8 * kk + 2 * tg, 8 * dn + gr));
+                   tile_frag_b<W>(b2, 8 * kk + 2 * tg, 8 * dn + gr));
       }
     }
   }
@@ -1065,6 +899,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
     float* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < NK; ++dn) {
+      if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
       *reinterpret_cast<float2*>(dst + 8 * dn) =
           make_float2(acc[dn][2 * r] * scale, acc[dn][2 * r + 1] * scale);
     }
@@ -1105,12 +940,12 @@ cudaError_t attention_mma_fwd(Layout lay, int batch, const int* seed,
                         seed, q, k, v, out, q_scale, threshold, keep_scale);
 }
 
-// The backward at Dh = 128 and 256: the tensor-core dq and dK/dV kernels.
-// cp.async copies 16-byte chunks, so every operand must start 16-byte
-// aligned (the wrappers' fresh tensors do; a view at an odd offset is
-// refused).
+// The backward of one layout, at every width: the tensor-core dq and dK/dV
+// kernels, two launches. cp.async copies 16-byte chunks, so every operand
+// must start 16-byte aligned (the wrappers' fresh tensors do; a view at an
+// odd offset is refused, with no launch).
 template <class Layout>
-cudaError_t attention_lanes_bwd(Layout lay, int batch, const int* seed,
+cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
                                 const float* q, const float* k,
                                 const float* v, const float* g, float* dq,
                                 float* dk, float* dv, float* stats,
@@ -1161,36 +996,8 @@ cudaError_t attention_rows_fwd(Layout lay, int batch, const int* seed,
   return cudaGetLastError();
 }
 
-template <class Layout>
-cudaError_t attention_rows_bwd(Layout lay, int batch, const int* seed,
-                               const float* q, const float* k,
-                               const float* v, const float* g, float* dq,
-                               float* dk, float* dv, float* stats,
-                               float q_scale, uint32_t threshold,
-                               float keep_scale, cudaStream_t stream) {
-  const dim3 grid((lay.seq_len + kAttnRows - 1) / kAttnRows, lay.heads,
-                  batch);
-  if (threshold > 0) {
-    attention_tiled_dq_kernel<Layout, true><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, g, dq, stats, q_scale, threshold, keep_scale);
-  } else {
-    attention_tiled_dq_kernel<Layout, false><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, g, dq, stats, q_scale, threshold, keep_scale);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (threshold > 0) {
-    attention_tiled_dkv_kernel<Layout, true><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, g, stats, dk, dv, q_scale, threshold, keep_scale);
-  } else {
-    attention_tiled_dkv_kernel<Layout, false><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, g, stats, dk, dv, q_scale, threshold, keep_scale);
-  }
-  return cudaGetLastError();
-}
-
 // The forward of one layout: a thread a query row up to Dh = 64, the
-// lane-split kernel above.
+// tensor-core kernel above at 128 and 256.
 template <class Layout>
 cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
                                 const float* q, const float* k,
@@ -1206,27 +1013,10 @@ cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
   }
 }
 
-// The backward of one layout: a thread a row up to Dh = 64, the
-// tensor-core kernels above.
-template <class Layout>
-cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
-                                const float* q, const float* k,
-                                const float* v, const float* g, float* dq,
-                                float* dk, float* dv, float* stats,
-                                float q_scale, uint32_t threshold,
-                                float keep_scale, cudaStream_t stream) {
-  if constexpr (Layout::kHeadDim > kMaxRowHeadDim) {
-    return attention_lanes_bwd(lay, batch, seed, q, k, v, g, dq, dk, dv, stats,
-                               q_scale, threshold, keep_scale, stream);
-  } else {
-    return attention_rows_bwd(lay, batch, seed, q, k, v, g, dq, dk, dv, stats,
-                              q_scale, threshold, keep_scale, stream);
-  }
-}
-
 // fn(Layout<D>{seq_len, heads}) for D = head_dim among the widths built (the
-// wrappers' HEAD_DIMS: a thread a row up to 64, the lane-split forward and the
-// tensor-core backward at 128 and 256); cudaErrorInvalidValue for any other.
+// wrappers' HEAD_DIMS: the forward a thread a row up to 64 and on the tensor
+// cores at 128 and 256, the backward on the tensor cores at every one);
+// cudaErrorInvalidValue for any other.
 template <template <int> class Layout, class Fn>
 cudaError_t with_head_dim(int head_dim, int seq_len, int heads, Fn fn) {
   switch (head_dim) {

@@ -11,8 +11,9 @@
 //     in the kernel, q scaled by q_scale (the wrapper's Dh^-1/2) as it is
 //     loaded; out (B, S, C); the backward gives dqkv (B, S, 3C) packed
 //     [dK | dV | dq * q_scale].
-// Head widths: 4, 8, 16, 24, 32, 48, 64 (a thread a row) and 128, 256 (the
-// tensor-core forward and backward of attention_tiled.cuh).
+// Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256. The forward runs a
+// thread a query row up to 64 and on the tensor cores at 128 and 256; the
+// backward runs on the tensor cores at every width (attention_tiled.cuh).
 // For every batch row b and head h:
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate);  out = Pd v
 // and the backward of the JAX module's docstring:
@@ -27,17 +28,18 @@
 // What bounds it on the H100: operations. At the flagship's level 0 (B=64,
 // S=256, 4 heads of Dh=24) the forward does two S x S x Dh products of 0.81
 // GFLOP each plus ~0.08 GOP of softmax: >= ~25 us at the fp32 rate outside
-// the tensor cores (67 TFLOP/s); the backward five such products: >= ~61
-// us. The bytes (q, k, v, g, out, dq, dk, dv: 25-50 MB) need 8-15 us.
+// the tensor cores (67 TFLOP/s); the backward five such products on the
+// tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~25 us (~61 at the fp32
+// rate). The bytes (q, k, v, g, out, dq, dk, dv: 25-50 MB) need 8-15 us.
 //
 // Design: the key-tiled kernels of attention_tiled.cuh, shared with
 // fused_attention_long.cu, instantiated for both layouts (SplitHeads with
-// q_scale 1, PackedQkv with q_scale Dh^-1/2): a block per (64 queries,
-// head, batch row) with an online softmax; the backward a dq kernel that
-// writes (m, 1/l, D) to a (B, H, S, 3) scratch, then a dK/dV kernel, no
-// atomics, so it repeats bit for bit. The proj kernel's design (one head's
-// K, V and Q whole in shared memory) does not cover the range: at S = 512,
-// Dh = 64 K and V alone take 256 KB, over a block's 227 KB.
+// q_scale 1, PackedQkv with q_scale Dh^-1/2): the forward a block per
+// (queries, head, batch row) with an online softmax; the backward a dq
+// kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch, then a dK/dV
+// kernel, no atomics, so it repeats bit for bit. The proj kernel's design
+// (one head's K, V and Q whole in shared memory) does not cover the range:
+// at S = 512, Dh = 64 K and V alone take 256 KB, over a block's 227 KB.
 #include "attention_tiled.cuh"
 
 namespace {

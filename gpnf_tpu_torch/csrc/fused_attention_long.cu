@@ -34,22 +34,23 @@
 // (B=64, S=1024, C=96, 4 heads of Dh=24) the forward does two S x S x Dh
 // products of 12.9 GFLOP each plus ~1.3 GOP of softmax: >= ~0.40 ms at the
 // fp32 rate outside the tensor cores (67 TFLOP/s). The backward does five
-// such products (the scores again, dPd, dV, dq, dK), ~64 GFLOP: >= ~0.96
-// ms. The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At the CLIs'
-// default width (C=512, Dh=128) and the 32-px level 0 (B=16, S=256) the
-// forward's two products are 2.1 GFLOP, >= ~32 us; the backward's five
-// 5.4 GFLOP, >= ~80 us; on the tensor cores in 3xTF32 (495 / 3 TFLOP/s),
-// where the kernels of both run them, >= ~13 and ~33 us.
+// such products (the scores again, dPd, dV, dq, dK), ~64 GFLOP, on the
+// tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~0.40 ms (~0.96 at the
+// fp32 rate). The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At
+// the CLIs' default width (C=512, Dh=128) and the 32-px level 0 (B=16,
+// S=256) the forward's two products are 2.1 GFLOP and the backward's five
+// 5.4 GFLOP, both on the tensor cores: >= ~13 and ~33 us.
 //
 // Design: attention_tiled.cuh, whose key-tiled kernels this file
 // instantiates for the packed layout (PackedQkv), as fused_attention.cu
 // does for `fused_attention_qkv` (S <= 512) and `fused_attention`: a block
-// per (64 queries, head, batch row) with an online softmax forward; a dq
+// per (queries, head, batch row) with an online softmax forward; a dq
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv
-// (B, S, 3C) directly, so no head split or merge copies. At Dh = 128 and
-// 256 the forward and the backward run as the header's tensor-core kernels
-// (3xTF32 mma.sync, mma_tf32.cuh), the tiles in dynamic shared memory.
+// (B, S, 3C) directly, so no head split or merge copies. The backward at
+// every width, and the forward at Dh = 128 and 256, run as the header's
+// tensor-core kernels (3xTF32 mma.sync, mma_tf32.cuh), the tiles in
+// dynamic shared memory; the forward up to Dh = 64 a thread a query row.
 #include "attention_tiled.cuh"
 
 namespace {

@@ -1,7 +1,7 @@
 // 3xTF32 tensor-core products at about fp32 accuracy, and cp.async copies
 // into padded shared-memory tiles: the building blocks of the attention
-// forward's and backward's tensor-core kernels (attention_tiled.cuh, Dh =
-// 128 and 256).
+// tensor-core kernels (attention_tiled.cuh: the forward at Dh = 128 and
+// 256, the backward at every built width, 4 to 256).
 //
 // The arithmetic is that of the yardstick, PyTorch's float32 memory-efficient
 // attention on sm_80 and later (CUTLASS's OpMultiplyAddFastF32): each fp32
@@ -26,12 +26,17 @@
 // (c0, c2, c1, c3) an A fragment as it stands, with no trip through shared
 // memory (`frag_a_from_c`).
 //
-// Tiles: rows of W floats (W a multiple of 32) padded to W + 4, so float c
-// of row r sits at r (W + 4) + c. A fragment read as A or B^T (rows r0 +
-// gr, r0 a multiple of 8, columns c0 + tg) touches banks 4 gr + tg + const,
-// and one read as B (rows r0 + 2 tg or r0 + 2 tg + 1, columns c0 + gr) banks
-// 8 tg + gr (+ 4) + const: 32 distinct banks either way, so no fragment load
-// conflicts, and every address is a thread's base plus a constant. (An XOR
+// Tiles: rows of W floats (W a multiple of 8: 8, 16, 24, ..., 256) padded
+// to W + 4, so float c of row r sits at r (W + 4) + c, and W + 4 is 4 times
+// an odd number mod 32. A fragment read as A or B^T (rows r0 + gr, columns
+// c0 + tg) touches banks (W + 4) gr + tg + const: the 8 rows fall 4 (odd)
+// gr mod 32 apart, 8 distinct multiples of 4, each with its 4 columns. One
+// read as B (rows r0 + 2 tg or r0 + 2 tg + 1, columns c0 + gr) touches 2 (W
+// + 4) tg + gr + const, and 2 (W + 4) is 8 or 24 mod 32: the 4 rows 8 apart
+// in some order, each with its 8 columns. 32 distinct banks either way at
+// every such W (tests/test_torch_attention_mma.py counts them), so no
+// fragment load conflicts, and every address is a thread's base plus a
+// constant. (An XOR
 // swizzle is conflict-free too but needs arithmetic at every load; the
 // padded kernels ran 7-14% faster, bench_attention --kernel lanes_bwd.)
 #pragma once
@@ -160,13 +165,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows [r0, r0 + ROWS) of the (S, W) slice at `src` (row stride `stride`
-// floats, 16-byte aligned) into the padded tile dst (ROWS, W), by all
-// `threads` threads of the block; rows past S are zero. Asynchronous: the
-// caller commits and waits.
-template <int W, int ROWS>
+// floats, 16-byte aligned) into the padded tile dst (ROWS, TW) of TW-float
+// rows, TW >= W (columns W .. TW - 1 are not written), by all `threads`
+// threads of the block; rows past S are zero. Asynchronous: the caller
+// commits and waits.
+template <int W, int ROWS, int TW = W>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
                                                 int r0, int seq_len,
                                                 size_t stride, int threads) {
+  static_assert(W % 4 == 0 && TW >= W, "whole 16-byte chunks of a row");
   constexpr int kChunks = W / 4;
   for (int e = threadIdx.x; e < ROWS * kChunks; e += threads) {
     const int r = e / kChunks;
@@ -174,7 +181,7 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
     const bool valid = r0 + r < seq_len;
     const float* from =
         src + static_cast<size_t>(valid ? r0 + r : 0) * stride + 4 * c;
-    cp_async16(dst + tile_at<W>(r, 4 * c), from, valid);
+    cp_async16(dst + tile_at<TW>(r, 4 * c), from, valid);
   }
 }
 

@@ -38,11 +38,13 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   run the long entry's key-tiled kernels (csrc/attention_tiled.cuh) from
   gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
   JAX package runs its jnp reference, even on a TPU; the port raises.
-The key-tiled kernels are built for the head widths HEAD_DIMS: a thread a
-query row up to Dh = 64; at Dh = 128 and 256 the tensor-core forward and
-backward (3xTF32 mma.sync tiles, csrc/mma_tf32.cuh), whose launches by any
-entry are also counted by `attention_lanes` and `attention_lanes_bwd` (the
-names of the lane-split kernels they replaced).
+The key-tiled kernels are built for the head widths HEAD_DIMS. The
+backward runs on the tensor cores at every width (dq and dK/dV kernels of
+3xTF32 mma.sync tiles, csrc/mma_tf32.cuh); the forward runs a thread a
+query row up to Dh = 64 and on the tensor cores at 128 and 256. Launches at
+Dh = 128 and 256, by any entry, are also counted by `attention_lanes` and
+`attention_lanes_bwd` (the names of the lane-split kernels those widths
+once ran); every entry counts its own calls at every width.
 `attention_route(S, C, heads)` says which entry GatedAttn takes: the proj
 kernel where its width is built and its forward and backward fit in a
 block's shared memory, the wide route everywhere else. Each source's
@@ -72,8 +74,8 @@ from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
-# Dh values the key-tiled kernels are built for; 128 and 256 run the
-# tensor-core forward and backward
+# Dh values the key-tiled kernels are built for; the backward runs on the
+# tensor cores at each, the forward at 128 and 256
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
 LANE_SPLIT_DIMS = (128, 256)
 PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
@@ -424,7 +426,7 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
 def _proj_bwd_stages(seq, w, g, num_heads, rate, seed):
     """`_bwd_kernel_proj`'s work in three stages, each across the whole
     batch: qkv = seq w^T recomputed (`attention_qkv_gemm`); dqkv by the
-    key-tiled dq and dK/dV kernels (`attention_long_qkv_bwd`, with the
+    tensor-core dq and dK/dV kernels (`attention_long_qkv_bwd`, with the
     forward kernel's q scale, 1.f / sqrtf(Dh), and so its scores and its
     mask); then dseq = dqkv w and dW = dqkv^T seq (`attention_dseq_gemm`,
     `attention_dw_gemm`, K split where few output tiles meet a long K).
@@ -465,9 +467,10 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
 # -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
 class LaunchCount:
     """The launch count of kernels that no wrapper of their own launches:
-    the Dh = 128 and 256 kernels (the tensor-core forward and backward),
-    which every key-tiled attention entry runs at those widths.
-    The entry counts the launch too."""
+    the key-tiled kernels at Dh = 128 and 256 (the tensor-core forward, and
+    the tensor-core backward, which narrower widths run too but count only
+    in their entry), launched by every key-tiled attention entry at those
+    widths. The entry counts the launch too."""
 
     def __init__(self, name: str):
         self.__name__ = name

@@ -1,12 +1,14 @@
-"""The arithmetic of the tensor-core attention kernels (Dh = 128 and 256,
-gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh), emulated on the
-CPU: the TF32 rounding of `tf32_bits`, the hi / lo split, the 3xTF32
-product, the forward in its kernel's order (key tiles, the quad's online
-max and partial denominators, P split as the A fragment of Pd V) against
-the JAX package's forward and the port's plain one, and the whole backward
-in the kernels' tile order (key tiles of the dq kernel's two passes, query
-tiles of the dK/dV kernel, k steps of 8 with three products each) against
-the JAX package's gradients and the port's plain backward. The kernels
+"""The arithmetic of the tensor-core attention kernels
+(gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh: the forward at
+Dh = 128 and 256, the backward at every width), emulated on the CPU: the
+TF32 rounding of `tf32_bits`, the hi / lo split, the 3xTF32 product, the
+forward in its kernel's order (key tiles, the quad's online max and
+partial denominators, P split as the A fragment of Pd V) against the JAX
+package's forward and the port's plain one, and the whole backward in the
+kernels' tile order (key tiles of the dq kernel's two passes, query tiles
+of the dK/dV kernel, k steps of 8 with three products each, the tiles of
+each width as the source sets them) against the JAX package's gradients
+and the port's plain backward; the tiles' shared-memory banks. The kernels
 themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py."""
 import importlib
@@ -27,11 +29,35 @@ fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 
 HEADS = 4
 CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
-# attention_tiled.cuh at Dh = 128: the dq kernel's key tile, the dK/dV
-# kernel's query tile, the forward's key tile; the forward's accumulator
-# sets of S = q K^T by Dh (test_tile_constants_match_the_cuda_source)
-KEY_TILE, QUERY_TILE, FWD_KEY_TILE = 16, 32, 16
+TILED = (CSRC / "attention_tiled.cuh").read_text()
+# attention_tiled.cuh's tiles, which test_tile_constants_match_the_cuda_source
+# holds to the source: the forward's key tile and its accumulator sets of
+# S = q K^T by Dh; by Dh, the tile width and the dq kernel's key tile and
+# the dK/dV kernel's query tile (the emulation reads them from the source,
+# `cuda_const`)
+FWD_KEY_TILE = 16
 FWD_SPLITS = {128: 4, 256: 2}
+BWD_TILES = {4: (8, 64, 64), 8: (8, 64, 64), 16: (16, 64, 64),
+             24: (24, 64, 64), 32: (32, 32, 32), 48: (48, 32, 32),
+             64: (64, 32, 32), 128: (128, 16, 32), 256: (256, 16, 16)}
+
+
+def cuda_const(struct, name, dh):
+    """Constant `name` of attention_tiled.cuh's `struct` at Dh = dh: an
+    integer, DH, or a chain of `DH <op> n ? a : b`."""
+    body = re.search(rf"struct {struct} \{{(.*?)\n\}};", TILED,
+                     re.S).group(1)
+    expr = re.search(rf"constexpr int {name} = ([^;]*);", body).group(1)
+    while True:
+        ternary = re.fullmatch(r"DH (==|<=|<|>=|>) (\d+) \? (\w+) : (.+)",
+                               expr.strip())
+        if not ternary:
+            break
+        op, n, a, b = ternary.groups()
+        holds = {"==": dh == int(n), "<=": dh <= int(n), "<": dh < int(n),
+                 ">=": dh >= int(n), ">": dh > int(n)}[op]
+        expr = a if holds else b
+    return dh if expr.strip() == "DH" else int(expr)
 
 
 def tf32_round(x):
@@ -134,13 +160,17 @@ def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
     """dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] of the packed
     attention, as the two kernels compute it: the dq kernel's pass A over
     key tiles (online m, l, D), its pass B (dS, dq += dS K), then the dK/dV
-    kernel over query tiles (P from the stats, dV += Pd^T g, dK += dS^T q);
-    q unscaled in every product, scores scaled after, dq and dK before the
+    kernel over query tiles (P from the stats, dV += Pd^T g, dK += dS^T q,
+    the k steps of S^T and dPd^T alternating between two accumulator sets,
+    an odd last step alone); each width's tiles read from the source; q
+    unscaled in every product, scores scaled after, dq and dK before the
     store."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
     q_scale = fa.head_scale(dh)
+    key_tile = cuda_const("MmaDq", "kKeys", dh)
+    query_tile = cuda_const("MmaDkv", "kQueries", dh)
     heads = lambda x: x.reshape(b, s, num_heads, dh).transpose(1, 2)
     k, v, q = (heads(x) for x in qkv.split(c, dim=-1))
     gh = heads(g)
@@ -148,17 +178,17 @@ def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
     scale = 1.0 / (1.0 - rate)
 
     def scores_and_dp(j0):  # the dq kernel's two products of one key tile
-        kt, vt = k[:, :, j0:j0 + KEY_TILE], v[:, :, j0:j0 + KEY_TILE]
+        kt, vt = k[:, :, j0:j0 + key_tile], v[:, :, j0:j0 + key_tile]
         sc = mm3(q, kt.transpose(-1, -2)) * q_scale
         dp = mm3(gh, vt.transpose(-1, -2))
         if keep is not None:
-            dp = torch.where(keep[..., j0:j0 + KEY_TILE], dp * scale, 0.0)
+            dp = torch.where(keep[..., j0:j0 + key_tile], dp * scale, 0.0)
         return sc, dp, kt
 
     m = torch.full((b, num_heads, s), -torch.inf)
     l = torch.zeros((b, num_heads, s))
     dsum = torch.zeros((b, num_heads, s))
-    for j0 in range(0, s, KEY_TILE):
+    for j0 in range(0, s, key_tile):
         sc, dp, _ = scores_and_dp(j0)
         mx = torch.maximum(m, sc.amax(-1))
         corr = torch.exp(m - mx)
@@ -169,14 +199,14 @@ def emulated_bwd(qkv, g, num_heads, rate=0.0, seed=None):
     inv_l = 1.0 / l
     big_d = dsum * inv_l
     dq = torch.zeros_like(q)
-    for j0 in range(0, s, KEY_TILE):
+    for j0 in range(0, s, key_tile):
         sc, dp, kt = scores_and_dp(j0)
         ds = (torch.exp(sc - m[..., None]) * inv_l[..., None]
               * (dp - big_d[..., None]))
         dq = dq + mm3(ds, kt)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for i0 in range(0, s, QUERY_TILE):
-        rows = slice(i0, i0 + QUERY_TILE)
+    for i0 in range(0, s, query_tile):
+        rows = slice(i0, i0 + query_tile)
         qt, gt = q[:, :, rows], gh[:, :, rows]
         st = mm3(k, qt.transpose(-1, -2), sets=2) * q_scale
         dpt = mm3(v, gt.transpose(-1, -2), sets=2)
@@ -310,26 +340,80 @@ def test_emulated_backward_matches_the_plain_backward(s, rate):
           atol=1e-5)
 
 
+# the narrow widths: Dh 24 (the flagship's C = 96), 48 (C = 192) and 8 (C =
+# 32; one k step, and 24 three: the dK/dV kernel's odd last step). Against
+# the JAX package (~2 s a case, its compile) each width at the ragged S 17;
+# against the plain backward (which tests/test_torch_attention_long.py
+# holds to the JAX package) every case
+NARROW = [(dh, s) for dh in (24, 48, 8) for s in (16, 17, 64)]
+NARROW_JAX = [(24, 17), (48, 17), (8, 17)]
+
+
+@pytest.mark.parametrize("dh,s", NARROW_JAX)
+def test_emulated_narrow_backward_matches_jax_grads(dh, s):
+    """Dh 24, 48 and 8 (4 heads), batch 2, rate 0: the emulated kernels'
+    dqkv, in each width's tiles, against jax.grad of the JAX package's
+    fused_attention_qkv on the CPU, at the bar of
+    tests/test_torch_attention_widths.py."""
+    qkv, g = _inputs(s, c=HEADS * dh, seed=dh)
+    seed = jnp.zeros((1,), jnp.int32)
+    want = jax.grad(lambda x: jnp.sum(jfa.fused_attention_qkv(
+        seed, x, HEADS, 0.0, False) * g))(jnp.asarray(qkv))
+    close(emulated_bwd(t(qkv), t(g), HEADS), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh,s", NARROW)
+def test_emulated_narrow_backward_matches_the_plain_backward(dh, s, rate):
+    """The same against `attention_long_plain_bwd`, the plain version the
+    card's kernels are held to, at rate 0 and 0.2."""
+    qkv, g = (t(x) for x in _inputs(s, c=HEADS * dh, seed=dh + 7))
+    seed = torch.tensor([77 + s + dh], dtype=torch.int32)
+    want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate, seed)
+    close(emulated_bwd(qkv, g, HEADS, rate, seed), want, rtol=1e-4,
+          atol=1e-5)
+
+
+def test_fragment_loads_hit_32_banks_at_every_width():
+    """Each shared-memory load of `tile_frag_a`, `tile_frag_bt` and
+    `tile_frag_b` (mma_tf32.cuh: lane = 4 gr + tg, the address `tile_at`'s
+    r (W + kTilePad) + c) touches 32 distinct banks, at every built width's
+    tile width W, for every row block and k step of the tile: no
+    conflicts."""
+    header = (CSRC / "mma_tf32.cuh").read_text()
+    pad = int(re.search(r"constexpr int kTilePad = (\d+);", header).group(1))
+    assert "return r * (W + kTilePad) + c;" in header
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for dh in fa.HEAD_DIMS:
+        w = cuda_const("MmaDq", "kWidth", dh)
+        assert w == cuda_const("MmaDkv", "kWidth", dh) and w % 8 == 0
+        at = lambda r, c: r * (w + pad) + c
+        for r0 in (0, 8, 16, 40):
+            for c0 in range(0, w, 8):
+                loads = [  # each (r, c) of a lane, one load instruction
+                    lambda gr, tg: at(r0 + gr, c0 + tg),          # a0, b^T 0
+                    lambda gr, tg: at(r0 + gr + 8, c0 + tg),      # a1
+                    lambda gr, tg: at(r0 + gr, c0 + tg + 4),      # a2, b^T 1
+                    lambda gr, tg: at(r0 + gr + 8, c0 + tg + 4),  # a3
+                    lambda gr, tg: at(r0 + 2 * tg, c0 + gr),      # b 0
+                    lambda gr, tg: at(r0 + 2 * tg + 1, c0 + gr)]  # b 1
+                for load in loads:
+                    banks = {load(gr, tg) % 32 for gr, tg in lanes}
+                    assert len(banks) == 32, (dh, w, r0, c0)
+
+
 def test_tile_constants_match_the_cuda_source():
-    """KEY_TILE, QUERY_TILE and FWD_KEY_TILE are attention_tiled.cuh's own
-    at Dh = 128, and the header's split is the rounding `tf32_round`
-    emulates."""
-    src = (CSRC / "attention_tiled.cuh").read_text()
-
-    def const(struct, name, dh=128):
-        body = re.search(rf"struct {struct} \{{(.*?)\n\}};", src, re.S).group(1)
-        rhs = re.search(rf"constexpr int {name} = ([^;]*);", body).group(1)
-        ternary = re.fullmatch(r"DH == (\d+) \? (\d+) : (\d+)", rhs)
-        if ternary:
-            return int(ternary.group(2) if ternary.group(1) == str(dh)
-                       else ternary.group(3))
-        return int(rhs)
-
-    assert const("MmaDq", "kKeys") == KEY_TILE
-    assert const("MmaDkv", "kQueries") == QUERY_TILE
-    assert const("MmaFwd", "kKeys") == FWD_KEY_TILE
+    """FWD_KEY_TILE, FWD_SPLITS and BWD_TILES are attention_tiled.cuh's own
+    (the backward's by width: the tile width, dq's key tile, dK/dV's query
+    tile), and the header's split is the rounding `tf32_round` emulates."""
+    assert cuda_const("MmaFwd", "kKeys", 128) == FWD_KEY_TILE
     for dh, sets in FWD_SPLITS.items():
-        assert const("MmaFwd", "kSplits", dh) == sets
+        assert cuda_const("MmaFwd", "kSplits", dh) == sets
+    assert sorted(BWD_TILES) == sorted(fa.HEAD_DIMS)
+    for dh, tiles in BWD_TILES.items():
+        assert (cuda_const("MmaDq", "kWidth", dh),
+                cuda_const("MmaDq", "kKeys", dh),
+                cuda_const("MmaDkv", "kQueries", dh)) == tiles, dh
     header = (CSRC / "mma_tf32.cuh").read_text()
     assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in header
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header

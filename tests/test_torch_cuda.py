@@ -853,23 +853,36 @@ def test_core_entries_at_lane_split_widths_match_plain_on_card(
         assert _rel_max(a, b) <= 1e-4
 
 
-# the tensor-core backward at Dh = 128 and 256 (attention_tiled.cuh's
-# attention_mma_dq_kernel and attention_mma_dkv_kernel): S off the tiles
-# (17, 100), the CLIs' levels, Dh 256 at C = 1024
-MMA_BWD_CASES = [(128, 16), (128, 17), (128, 64), (128, 100), (128, 256),
-                 (256, 64), (256, 256)]
+# the tensor-core backward (attention_tiled.cuh's attention_mma_dq_kernel
+# and attention_mma_dkv_kernel): at Dh = 128 and 256, S off the tiles (17,
+# 100), the CLIs' levels, Dh 256 at C = 1024; at the narrow widths (Dh 4
+# pads its tiles to 8; 8 and 24 have an odd number of k steps; 24 the
+# flagship's, 48 and 64 the widest) at S 16, 17, 64, 256, both layouts, and
+# Dh 24 at S 1024 (the 64-px level 0) through the long entry alone (the
+# core entries take S <= 512)
+MMA_BWD_CASES = [(dh, s, layout)
+                 for dh, s in [(128, 16), (128, 17), (128, 64), (128, 100),
+                               (128, 256), (256, 64), (256, 256)]
+                 + [(dh, s) for dh in (4, 8, 24, 48, 64)
+                    for s in (16, 17, 64, 256)]
+                 for layout in ("packed", "split")] + [(24, 1024, "packed")]
+
+
+def _bwd_counter(layout):
+    return (kernels.fused_attention_long_bwd if layout == "packed"
+            else kernels.fused_attention_bwd)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["packed", "split"])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("dh,s", MMA_BWD_CASES)
+@pytest.mark.parametrize("dh,s,layout", MMA_BWD_CASES)
 def test_mma_backward_matches_plain_on_card(cuda_device, dh, s, rate, layout):
     """The tensor-core backward through the long entry (packed qkv) and
     through fused_attention_bwd (split heads, q scaled), one seed for
     kernel and plain version: every gradient finite and within 1e-4 of its
-    largest |plain| (the lane-split bar), two calls bit for bit, one
-    `attention_lanes_bwd` count a call."""
+    largest |plain| (the lane-split bar), two calls bit for bit, one launch
+    a call on the entry's count and, at Dh = 128 and 256 only, on
+    `attention_lanes_bwd`'s."""
     q, k, v, g, qkv, g3, seed = _core_inputs(cuda_device, (2, 4, s, dh),
                                              seed=dh + s)
     if layout == "packed":
@@ -879,13 +892,33 @@ def test_mma_backward_matches_plain_on_card(cuda_device, dh, s, rate, layout):
     else:
         bwd = lambda: kernels.fused_attention_bwd(q, k, v, g, rate, seed)
         want = kernels.attention_plain_bwd(q, k, v, g, rate, seed)
-    before = kernels.attention_lanes_bwd.launches
+    entry = _bwd_counter(layout)
+    before = (entry.launches, kernels.attention_lanes_bwd.launches)
     got = bwd()
-    assert kernels.attention_lanes_bwd.launches == before + 1
+    assert (entry.launches, kernels.attention_lanes_bwd.launches) == (
+        before[0] + 1, before[1] + (dh in (128, 256)))
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert _rel_max(a, b) <= 1e-4
     assert all(torch.equal(a, b) for a, b in zip(got, bwd()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_mma_backward_holds_near_uniform_rows_at_s_1024(cuda_device, rate):
+    """Dh 24 (C = 96, 4 heads) at S = 1024, qkv of std 0.5 (scores of std
+    ~0.25): every row's P is near uniform, and dq and dK / dV are sums over
+    1024 keys or queries of terms that largely cancel, each summed across
+    the key or query tiles in the tensor cores' fp32 accumulators. Within
+    1e-4 of the largest |plain|, the backward's bar."""
+    r = np.random.default_rng(24)
+    qkv = _normal(r, (2, 1024, 3 * 96), 0.5).to(cuda_device)
+    g = _normal(r, (2, 1024, 96)).to(cuda_device)
+    seed = torch.tensor([2025], dtype=torch.int32, device=cuda_device)
+    got = kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed)
+    assert torch.isfinite(got).all()
+    assert _rel_max(got, kernels.attention_long_plain_bwd(
+        qkv, g, 4, rate, seed)) <= 1e-4
 
 
 # the tensor-core forward at Dh = 128 and 256 (attention_mma_fwd_kernel):
@@ -968,17 +1001,21 @@ def test_mma_forward_refuses_misaligned_operands(cuda_device):
 
 
 @pytest.mark.cuda
-def test_mma_backward_refuses_misaligned_operands(cuda_device):
+@pytest.mark.parametrize("c", [512, 96])
+def test_mma_backward_refuses_misaligned_operands(cuda_device, c):
     """cp.async moves 16-byte chunks: a contiguous qkv that starts off a
     16-byte boundary is refused before any launch (cudaErrorMisalignedAddress,
-    716), and counts no launch."""
-    qkv, g, seed = _qkv_inputs(cuda_device, 64, c=512)
+    716), at Dh 128 (C = 512) and at the flagship's Dh 24 (C = 96), and
+    counts no launch."""
+    qkv, g, seed = _qkv_inputs(cuda_device, 64, c=c)
     shifted = torch.empty(qkv.numel() + 1, device=cuda_device)[1:].view_as(qkv)
     shifted.copy_(qkv)
-    before = kernels.attention_lanes_bwd.launches
+    before = (kernels.fused_attention_long_bwd.launches,
+              kernels.attention_lanes_bwd.launches)
     with pytest.raises(RuntimeError, match="CUDA error 716"):
         kernels.attention_long_qkv_bwd(shifted, g, 4, 0.2, seed)
-    assert kernels.attention_lanes_bwd.launches == before
+    assert (kernels.fused_attention_long_bwd.launches,
+            kernels.attention_lanes_bwd.launches) == before
     assert torch.equal(kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed),
                        kernels.attention_long_qkv_bwd(qkv.clone(), g, 4, 0.2,
                                                       seed))
@@ -1022,13 +1059,16 @@ def _hmma_counts(pattern):
 
 @pytest.mark.cuda
 def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
-    """Every instantiation of the tensor-core dq and dK/dV kernels (Dh 128
-    and 256, with and without dropout, in both libraries that build them)
-    holds HMMA instructions in its SASS. Skipped only where the toolkit has
-    no cuobjdump to read the SASS with."""
+    """Every instantiation of the tensor-core dq and dK/dV kernels (the 9
+    built widths, the flagship's Dh 24 among them, with and without
+    dropout, in both libraries that build them) holds HMMA instructions in
+    its SASS. Skipped only where the toolkit has no cuobjdump to read the
+    SASS with."""
     for source, hmma in _hmma_counts("attention_mma_d").items():
         layouts = 1 if source == "fused_attention_long" else 2
-        assert len(hmma) == 2 * 2 * 2 * layouts, sorted(hmma)
+        assert len(hmma) == 2 * 2 * len(fa.HEAD_DIMS) * layouts, sorted(hmma)
+        dh24 = [n for name, n in hmma.items() if "ILi24E" in name]
+        assert len(dh24) == 2 * 2 * layouts, sorted(hmma)
         assert all(n > 0 for n in hmma.values()), hmma
 
 
