@@ -18,8 +18,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      torch.matmul (torch.mm beside them) and the key-tiled dq and dK/dV
      kernels (on the tensor cores) at rate 0 and 0.2 against their plain
      version (SDPA's backward beside them), each two calls bit for bit;
-     the backward's bounds with its attention products at 3xTF32's rate,
-     the fp32 rate's beside them;
+     the GEMMs' and the backward's bounds with their products (on the
+     tensor cores) at 3xTF32's rate, the fp32 rate's beside them;
   4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
      32 components, ConvLSTM prior, dropout 0.2; random weights from
      --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
@@ -123,10 +123,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      version's, SDPA's (rate 0) and its bound (against 3xTF32's peak, the
      fp32 one beside it), the kernels' registers and spills from the
      build's ptxas report; the wide route's
-     GEMM kernels (qkv = seq w^T, dseq, dW at S <= 512, K split where few
-     output tiles meet a long K)
-     against torch.matmul at C = 512, two calls bit for bit, with times
-     and bounds; the whole wide route at C = 512 beside autograd of
+     GEMM kernels (qkv = seq w^T, dseq, dW at S <= 512, 3xTF32 mma.sync
+     tiles, K split where few output tiles meet a long K) against
+     torch.matmul at C = 512, two calls bit for bit, with times and bounds
+     (3xTF32's, fp32's beside them) and their registers; the whole wide route at C = 512 beside autograd of
      F.linear + SDPA; the flagship's routes (proj at the 32-px levels,
      whose backward runs the projection GEMM, the key-tiled dq and
      dK/dV kernels and the dseq and dW GEMMs; the long entry unpadded at
@@ -268,8 +268,8 @@ def bound(bytes_moved, ops, peak_ops=PEAK_OPS, tc_ops=0):
     """(least ms, "bytes" or "operations") at the card's memory rate and
     `peak_ops`: PEAK_OPS for SIMT fp32, PEAK_OPS_3XTF32 for a kernel whose
     products run on the tensor cores; `tc_ops` more operations at
-    PEAK_OPS_3XTF32 (a call whose GEMMs run off the tensor cores and its
-    attention products on them)."""
+    PEAK_OPS_3XTF32 (a call with some of its work off the tensor cores
+    and its products on them)."""
     t_bytes = bytes_moved / PEAK_BYTES
     t_ops = ops / peak_ops + tc_ops / PEAK_OPS_3XTF32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -330,15 +330,20 @@ def check_kernels(device, model, timer):
 
     def record(name, level, err, ms, plain_ms, library_ms, bytes_moved, ops,
                tc_ops=0, **extra):
-        """`tc_ops`: the operations that run on the tensor cores (the
-        backward's attention products), bound at 3xTF32's rate, with the
-        bound at the fp32 rate beside it."""
-        bound_ms, bound_by = bound(bytes_moved, ops, tc_ops=tc_ops)
-        if tc_ops:
+        """`tc_ops`: the operations that run on the tensor cores (the GEMMs'
+        products, the backward's attention products), bound at 3xTF32's
+        rate, with the bound at the fp32 rate beside it; `ops` the rest, at
+        the fp32 rate."""
+        if tc_ops and not ops:  # every product on the tensor cores
+            bound_ms, bound_by, fields, _ = tensor_core_bound(bytes_moved,
+                                                              tc_ops)
+            extra.update(fields)
+        else:
+            bound_ms, bound_by = bound(bytes_moved, ops, tc_ops=tc_ops)
+        if tc_ops and ops:
             fp32_ms, fp32_by = bound(bytes_moved, ops + tc_ops)
-            extra.update(bound_peak="attention products at 3xTF32 165 "
-                         "TFLOP/s", bound_fp32_ms=fp32_ms,
-                         bound_fp32_by=fp32_by)
+            extra.update(bound_peak="products at 3xTF32 165 TFLOP/s",
+                         bound_fp32_ms=fp32_ms, bound_fp32_by=fp32_by)
         row = dict(level=level, **extra, max_abs_err=err[0],
                    max_rel_err=err[1], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -416,8 +421,9 @@ def check_kernels(device, model, timer):
                 raise AssertionError(f"{name} level {level}: max abs err / "
                                      f"max |plain| {over_scale} > 1e-5")
             record(name, level, max_errs(got, want), timer(fn), timer(plain),
-                   timer(lib), 4 * (m * kk + kk * n + m * n), 2 * m * n * kk,
-                   m=m, n=n, k=kk, splits=fa.gemm_splits(m, n, kk),
+                   timer(lib), 4 * (m * kk + kk * n + m * n), 0,
+                   tc_ops=2 * m * n * kk, m=m, n=n, k=kk,
+                   tile=fa.gemm_tile(m, n), splits=fa.gemm_splits(m, n, kk),
                    err_over_scale=float(f"{over_scale:.3g}"))
         for rate in (0.0, RATE):
             run = lambda: kernels.attention_long_qkv_bwd(qkv, g, heads, rate,
@@ -493,7 +499,7 @@ def check_kernels(device, model, timer):
                        timer(plain),
                        library_backward_ms(seq, w, g) if rate == 0.0 else None,
                        4 * (3 * BATCH * s * c + 2 * 3 * c * c),
-                       3 * proj, tc_ops=5 * core, rate=rate,
+                       0, tc_ops=3 * proj + 5 * core, rate=rate,
                        deterministic=True,
                        err_over_scale=float(f"{over_scale:.3g}"))
             check_stages(level, s, seq, w, g, seed, core)
@@ -2020,6 +2026,7 @@ def check_lane_kernels(device, timer):
     autograd of F.linear + SDPA."""
     from gpnf_tpu_torch.ops import kernels
 
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
     counts = kernels.launch_counts()
     if any(counts[n] for n in LANES):
         raise AssertionError(f"an earlier phase launched a Dh = 128 / 256 "
@@ -2149,20 +2156,23 @@ def check_lane_kernels(device, timer):
                                          f"differ")
                 # k products a sum, in float32: held to the output's scale
                 err = check(f"{name} C={c} S={s}", got, plain(), 1e-5)
-                bound_ms, bound_by = bound(4 * (m * k + k * n + m * n),
-                                           2 * m * n * k)
+                # the products on the tensor cores in 3xTF32
+                bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+                    4 * (m * k + k * n + m * n), 2 * m * n * k)
                 row = dict(c=c, batch=batch, s=s, m=m, n=n, k=k,
+                           tile=fa.gemm_tile(m, n),
+                           splits=fa.gemm_splits(m, n, k),
                            max_abs_err=err[0], err_over_scale=err[1],
                            ms=timer(fn), plain_ms=timer(plain),
                            library_ms=timer(lib), bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by, **extra)
                 results[name].append(row)
                 log(f"  {name} C={c} B={batch} S={s} (m {m}, n {n}, k {k}): "
                     f"max abs err {err[0]:.3g} (/ max |plain| {err[1]:.3g}) "
                     f"| kernel {row['ms']:.4f} ms plain "
                     f"{row['plain_ms']:.4f} ms library (torch.mm) "
                     f"{row['library_ms']:.4f} ms | bound "
-                    f"{bound_ms * 1e3:.2f} us ({bound_by})")
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}{fp32})")
             # the whole wide route at the CLIs' width, beside F.linear + SDPA
             row = dict(c=c, batch=batch, s=s)
             for rate in (0.0, RATE):
@@ -2622,6 +2632,13 @@ def main():
                          ", rate 0; library_ms SDPA"),
                 per_case=rows, **({"flagship_levels": flagship} if flagship
                                   else {}))
+            if name in GEMMS:  # on the tensor cores, mma_tf32.cuh
+                entry.update(
+                    bound_fp32_ms=top["bound_fp32_ms"],
+                    device_kernels=["gemm_mma_kernel", "sum_splits_kernel"],
+                    headers=["gpnf_tpu_torch/csrc/mma_tf32.cuh"],
+                    ptxas=ptxas_kernels(reports.get("attention_gemm", ""),
+                                        "gemm_mma_kernel"))
             if name in LANES:  # on the tensor cores, mma_tf32.cuh
                 fwd = name == "attention_lanes"
                 entry.update(

@@ -2,8 +2,8 @@
 sources.
 
     python -m gpnf_tpu_torch.bench_attention
-        [--kernel proj|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
-        [--out FILE]
+        [--kernel proj|gemm|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
+        [--ref-splits parent|change] [--targets N,...] [--out FILE]
 
 DIR holds another version's csrc/ (its sources with the headers they
 include): say the parent commit's, from `git archive <commit>
@@ -44,6 +44,20 @@ counts), measured as `lanes_bwd` measures it, at 4 heads and (B, C, S) =
 flagship's 32-px levels and the 64-px level 0), (64, 192, 64) (Dh 48),
 (16, 256, 256) (Dh 64), (64, 32, 256) (Dh 8) and (64, 16, 256) (Dh 4),
 rate 0 and 0.2.
+
+`--kernel gemm`: the projection GEMMs (qkv = seq w^T, dseq = dqkv w, dW =
+dqkv^T seq; attention_gemm.cu's `gpnf_attention_gemm`, the 11-argument C
+entry every version since the split K has) at the 21 products of
+`gemm_cases` (B 64, C 96 at S 256 / 64 / 16, C 192 at S 64, B 16, C 512
+at S 256 / 64 / 16): the change (K split by `gemm_splits`) and each ref
+(K split as the SIMT kernel's wrapper split it, `parent_gemm_splits`, or
+with `--ref-splits change` by `gemm_splits`, for a tuning variant of the
+change) in turns, refs, change, change, refs reversed, `torch.mm` beside
+them; the error against torch.matmul; two calls bit for bit; the bounds
+at 3xTF32's rate and at fp32's, and the bytes'; the change at the splits
+`gemm_splits` gives for other targets of blocks (`--targets`), the sweep
+that chose GEMM_BLOCKS; one call of each under torch.profiler; and the
+ptxas lines of every version.
 
 `--kernel proj` (the default): DIR's fused_attention_proj.cu and
 attention_gemm.cu, from before the staged backward: the backward in one
@@ -105,6 +119,8 @@ ROW_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
 PEAK_BYTES, PEAK_OPS, PEAK_OPS_3XTF32 = 3.35e12, 67e12, 495e12 / 3
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# the refs' C entries: `--kernel proj`'s GEMM from before the split K (8
+# arguments and the stream), `--kernel gemm`'s with it (11 and the stream)
 REF_SIGNATURES = {
     "fused_attention_proj": {
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
@@ -113,14 +129,21 @@ REF_SIGNATURES = {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P]},
 }
+SPLIT_GEMM_SIGNATURES = {
+    **REF_SIGNATURES,
+    "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P]}}
 # the sources each --kernel builds, from the package and from each ref
 SOURCES = {"proj": ("fused_attention_proj", "attention_gemm"),
+           "gemm": ("attention_gemm",),
            "lanes": ("fused_attention_long",),
            "lanes_bwd": ("fused_attention_long",),
            "rows_bwd": ("fused_attention_long",)}
+# the SIMT GEMM's split of K (64 x 64 output tiles, 32-row chunks, aimed
+# at 8 blocks for each of the 132 SMs): how its wrapper called it
+PARENT_TILE, PARENT_BLOCKS = 64, 8 * 132
 
 
-def build_refs(refs, sources):
+def build_refs(refs, sources, signatures=REF_SIGNATURES):
     """{name: {source: loaded library}} of each ref DIR, all compiled at once
     with the package's flags, and {name/source: ptxas lines}."""
     procs = {}
@@ -142,7 +165,7 @@ def build_refs(refs, sources):
             continue
         reports[f"{name}/{source}"] = _ptxas_lines(out + err)
         loaded = ctypes.CDLL(str(lib))
-        for fn, argtypes in REF_SIGNATURES[source].items():
+        for fn, argtypes in signatures[source].items():
             getattr(loaded, fn).argtypes = argtypes
             getattr(loaded, fn).restype = ctypes.c_int
         libs.setdefault(name, {})[source] = loaded
@@ -185,6 +208,28 @@ def ref_gemm(lib, a, b, shape, m, n, k, trans_a, trans_b):
     _check(lib.gpnf_attention_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                    m, n, k, int(trans_a), int(trans_b),
                                    _stream()), "ref gemm")
+    return c
+
+
+def parent_gemm_splits(m, n, k):
+    """`gemm_splits` as the SIMT GEMM's wrapper computed it."""
+    tiles = -(-m // PARENT_TILE) * -(-n // PARENT_TILE)
+    if tiles >= PARENT_BLOCKS:
+        return 1
+    chunks = -(-k // fa.GEMM_KC)
+    per_split = max(1, chunks // -(-PARENT_BLOCKS // tiles))
+    return -(-chunks // per_split)
+
+
+def ref_split_gemm(lib, a, b, shape, m, n, k, trans_a, trans_b, splits):
+    """A ref's GEMM with a split K, called as its wrapper called it."""
+    c = torch.empty(shape, device=a.device)
+    partial = (torch.empty((splits, m, n), device=a.device) if splits > 1
+               else None)
+    _check(lib.gpnf_attention_gemm(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if partial is None else partial.data_ptr(), m, n, k,
+        int(trans_a), int(trans_b), splits, _stream()), "ref gemm")
     return c
 
 
@@ -408,23 +453,41 @@ def gemm_cases(device):
                    dqkv.reshape(rows, 3 * c).t(), seq.reshape(rows, c)))
 
 
-def gemm_rows(device, libs, timer, card, targets):
+def gemm_rows(device, libs, timer, card, targets, split_refs=None):
+    """The GEMMs of `gemm_cases`: the change and each ref in turns, beside
+    torch.mm. `split_refs` None: the refs are `--kernel proj`'s unsplit
+    GEMM; else a function (m, n, k) -> splits of the refs' split-K entry
+    (`--kernel gemm`), with both bounds and a trace of each call."""
     names = [*libs, "change"]
     for tag, a, b, shape, m, n, k, trans_a, trans_b, mm in gemm_cases(device):
         splits = fa.gemm_splits(m, n, k)
-        runs = {name: (lambda lib=lib: ref_gemm(
-            lib["attention_gemm"], a, b, shape, m, n, k, trans_a, trans_b))
-            for name, lib in libs.items()}
+        if split_refs is None:
+            runs = {name: (lambda lib=lib: ref_gemm(
+                lib["attention_gemm"], a, b, shape, m, n, k, trans_a,
+                trans_b)) for name, lib in libs.items()}
+        else:
+            ref_splits = split_refs(m, n, k)
+            runs = {name: (lambda lib=lib: ref_split_gemm(
+                lib["attention_gemm"], a, b, shape, m, n, k, trans_a,
+                trans_b, ref_splits)) for name, lib in libs.items()}
         runs["change"] = lambda sp=splits: fa._gemm(
             "bench", a, b, shape, m, n, k, trans_a, trans_b, sp)
         want = mm()
-        bound_ms, bound_by = bound(4 * (m * k + k * n + m * n), 2 * m * n * k)
+        bytes_moved, ops = 4 * (m * k + k * n + m * n), 2 * m * n * k
+        bound_ms, bound_by = bound(bytes_moved, ops)
         row = {"kind": "gemm", "gemm": tag, "m": m, "n": n, "k": k,
-               "splits": splits, "card": card, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "splits": splits, "tile": fa.gemm_tile(m, n), "card": card,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if split_refs is not None:
+            tc_ms, tc_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
+            row.update(ref_splits=ref_splits, bound_ms=tc_ms, bound_by=tc_by,
+                       bound_peak="3xTF32 165 TFLOP/s", bound_fp32_ms=bound_ms,
+                       bound_fp32_by=bound_by,
+                       bound_bytes_ms=bytes_moved / PEAK_BYTES * 1e3)
         for name, run in runs.items():
             got = run().reshape(want.shape)
             row[f"{name}_err"] = _rel(got, want)
+            row[f"{name}_max_abs_err"] = float((got - want).abs().max())
             row[f"{name}_repeats"] = torch.equal(got, run().reshape(
                 want.shape))
         times = {name: [] for name in names}
@@ -441,16 +504,24 @@ def gemm_rows(device, libs, timer, card, targets):
                                            trans_a, trans_b, sp))}
             sweep[sp]["targets"].append(target)
         row["sweep"] = {str(sp): v for sp, v in sweep.items()}
+        if split_refs is not None:
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
         yield row
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=sorted(SOURCES), default="proj",
-                   help="the proj backward and its GEMMs, the Dh = 128 / "
-                        "256 forward or backward, or the Dh <= 64 backward")
+                   help="the proj backward and its GEMMs, the GEMMs alone, "
+                        "the Dh = 128 / 256 forward or backward, or the "
+                        "Dh <= 64 backward")
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=DIR of another version's csrc/")
+    p.add_argument("--ref-splits", choices=("parent", "change"),
+                   default="parent",
+                   help="--kernel gemm: split the refs' K as the SIMT "
+                        "GEMM's wrapper did, or as the change's does")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
                    help="block targets of the GEMM split sweep")
     p.add_argument("--out", default=None,
@@ -470,17 +541,24 @@ def main(argv=None):
     t0 = time.perf_counter()
     change_reports = _native.build(SOURCES[args.kernel] + (
         ("fused_attention_long",) if args.kernel == "proj" else ()))
-    libs, reports = build_refs(refs, SOURCES[args.kernel])
+    libs, reports = build_refs(
+        refs, SOURCES[args.kernel],
+        SPLIT_GEMM_SIGNATURES if args.kernel == "gemm" else REF_SIGNATURES)
     results = [{"card": card, "build_s": time.perf_counter() - t0,
                 "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
                                         for k, v in change_reports.items()}}}]
     print(json.dumps(results[0]), flush=True)
     timer = Timer(device)
     targets = [int(x) for x in args.targets.split(",")]
-    rows = (attention_rows(device, libs, timer, card, args.kernel)
-            if args.kernel != "proj" else itertools.chain(
-                proj_rows(device, libs, timer, card),
-                gemm_rows(device, libs, timer, card, targets)))
+    if args.kernel == "gemm":
+        rows = gemm_rows(device, libs, timer, card, targets,
+                         parent_gemm_splits if args.ref_splits == "parent"
+                         else fa.gemm_splits)
+    elif args.kernel == "proj":
+        rows = itertools.chain(proj_rows(device, libs, timer, card),
+                               gemm_rows(device, libs, timer, card, targets))
+    else:
+        rows = attention_rows(device, libs, timer, card, args.kernel)
     for row in rows:
         results.append(row)
         print(json.dumps(row), flush=True)

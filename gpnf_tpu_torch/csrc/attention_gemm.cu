@@ -21,79 +21,260 @@
 //
 // What bounds it on the H100: operations. At the CLIs' width (C = 512) and
 // the 32-px level 0 (B = 16, S = 256) each of the three products is 2 x 4096
-// x 1536 x 512 = 6.4 GFLOP, >= ~96 us at the fp32 rate outside the tensor
-// cores (67 TFLOP/s); the bytes (at most 4 (4096 x 1536 + 4096 x 512 +
-// 1536 x 512) = 36.7 MB) need ~11 us. At the flagship's widths (C = 96)
-// each product is 0.06-0.9 GFLOP: 1-14 us.
+// x 1536 x 512 = 6.4 GFLOP: >= ~39 us at 3xTF32's rate on the tensor cores
+// (495 / 3 TFLOP/s); the bytes (at most 4 (4096 x 1536 + 4096 x 512 +
+// 1536 x 512) = 36.7 MB) need ~11 us. At the flagship's width (C = 96,
+// B = 64, S = 256) each product is 0.9 GFLOP and 25.3 MB: ~5.5 us of
+// operations, ~7.6 us of bytes.
 //
-// Design: tile_mm.cuh's tiles (the Cholesky's GEMM): a block of 256 threads
-// per 64 x 64 tile of c, the K axis staged through shared memory in chunks
-// of 32, each thread a 4 x 4 register tile. A transposed operand is read
-// along its contiguous axis and written transposed into shared memory, so
-// every load from device memory is coalesced.
+// Design: 3xTF32 mma.sync.m16n8k8 tiles (mma_tf32.cuh: each operand split
+// hi + lo, three products a k step), about fp32 accurate. A block computes
+// a BM x BN tile of c with warps of WM x WN (WM / 16 x WN / 8 accumulators
+// of m16n8). K runs in chunks of KC = 32 through a ring of kStages
+// shared-memory stages, filled by cp.async: the chunk kStages - 1 ahead is
+// in flight while a chunk is multiplied (cp.async.wait_group kStages - 2
+// and one barrier a chunk). Each operand's tile keeps the array's own
+// layout, so every copy is of whole rows: a tile whose rows run along k
+// (A of qkv and dseq, B of qkv) has rows of KC + 4 floats; one whose rows
+// run along m or n (A of dW, B of dseq and dW) has KC rows of BM + 8 or
+// BN + 8 floats. Every fragment is read in the natural k order (k = tg,
+// tg + 4), conflict-free at those strides (mma_tf32.cuh's header; the CPU
+// test counts the banks of every load of every instantiation).
+//
+// The tensor cores' fp32 accumulation truncates (attention_tiled.cuh's
+// forward found it): a sum kept in them over K = 1536 takes 576 truncated
+// adds, ~3e-5 of its size if each drops half an ulp of same-sign terms.
+// So each chunk of KC is summed into fresh accumulators (12 adds) and
+// added to the block's fp32 sums with plain, rounded adds; the card test
+// of same-sign inputs holds the result within 1e-5.
+//
+// Operands: the 16-byte path (cp.async of 4 floats) where every base is
+// 16-byte aligned and every row (of A, B and c) a multiple of 4 floats;
+// otherwise the same kernel copies 4 bytes at a time (VEC = false), so any
+// contiguous float32 operand is taken and gives the same bits.
+//
+// Tiles, a pure function of the output's shape (`pick_large`): 128 x 128
+// with 8 warps of 64 x 32 where those tiles cover the output with no
+// ragged edge and make kLargeMinTiles blocks (qkv and dseq at C = 512, B =
+// 16, S = 256), else 64 x 64 with 4 warps of 32 x 32 (a ragged 128-wide
+// edge, as at N = 288, wasted a quarter of the large tiles' products: qkv
+// at C = 96, B 64, S 256 ran 0.0355 ms with them, 0.0289 with 64 x 64).
 // Few output tiles and a long K (dW at C = 96 has 10 tiles and K = B S up
-// to 16,384; dseq at small B S) would leave most SMs idle while a few
-// blocks walk the whole K axis. So K is split: `splits` blocks
-// (blockIdx.z) per tile, split z summing the K rows [z chunk, min(K,
-// (z + 1) chunk)), chunk a multiple of 32. The wrapper picks `splits` from
-// the shape alone (fused_attention.py, `gemm_splits`). With one split the
-// block writes c; with more, each writes its (M x N) partial and a second
-// kernel adds the partials in split order. Every c entry sums its products
-// in one fixed order, so two calls give the same bits; no atomics.
+// to 16,384) would leave most SMs idle while a few blocks walk the whole K
+// axis. So K is split: `splits` blocks (blockIdx.z) per tile, split z
+// summing the K rows [z chunk, min(K, (z + 1) chunk)), chunk a multiple of
+// KC. The wrapper picks `splits` from the shape alone (fused_attention.py,
+// `gemm_splits`: large tiles unsplit, small ones aimed at GEMM_BLOCKS = 2
+// x 132 blocks). With one split the block writes c; with more, each writes
+// its (M x N) partial and a second kernel adds the partials in split
+// order. Every c entry sums its products in one fixed order, so two calls
+// give the same bits; no atomics.
+//
+// ptxas (sm_90a), registers with 16-byte / 4-byte copies, no spills; the
+// dynamic shared memory of 3 stages:
+//   64 x 64:   qkv 123 / 167, dseq 157 / 165, dW 122 / 156; 55,296 bytes
+//   128 x 128: qkv 195 / 240, dseq 231 / 235, dW 189 / 219; 110,592 /
+//              107,520 / 104,448 bytes
+// Chosen on the card (bench_attention --kernel gemm, NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md, PR 16), against variants at the 21 products of
+// its cells: 2 stages up to 4.5% slower, 4 up to 10.3%, the three
+// products of a k step issued pass by pass within 0.7%, 128 x 64 large
+// tiles up to 15.2% and 64 x 32 warps up to 22.2% slower; none of them
+// more than 2.8% faster at any product.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "tile_mm.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-using gpnf::BS;
-using gpnf::KC;
-using gpnf::LDA;
-using gpnf::kThreads;
-using Tile = gpnf::TileShape<gpnf::BS>;
+using gpnf::FragA;
+using gpnf::FragB;
+
+constexpr int KC = 32;  // k rows a stage holds; a split is whole chunks
+constexpr int kKPad = gpnf::kTilePad;  // floats after each KC-float row
+constexpr int kOuterPad = 8;  // floats after each BM- or BN-float row
+constexpr int kLargeMinTiles = 128;  // 128 x 128 tiles from this many up
+constexpr int kSumThreads = 256;
+
+template <int BM_, int BN_, int WM_, int WN_, int STAGES>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int kStages = STAGES;
+  static constexpr int kWarpsN = BN / WN;
+  static constexpr int kThreads = 32 * (BM / WM) * kWarpsN;
+  static constexpr int MI = WM / 16;  // m16 rows of accumulators a warp
+  static constexpr int NI = WN / 8;   // n8 columns
+};
+using Large = Tile<128, 128, 64, 32, 3>;
+using Small = Tile<64, 64, 32, 32, 3>;
+
+// The shared memory of one stage: A's tile, then B's.
+template <class T, bool TRANS_A, bool TRANS_B>
+struct Stage {
+  static constexpr int kLda = TRANS_A ? T::BM + kOuterPad : KC + kKPad;
+  static constexpr int kLdb = TRANS_B ? KC + kKPad : T::BN + kOuterPad;
+  static constexpr int kA = TRANS_A ? KC * kLda : T::BM * kLda;
+  static constexpr int kB = TRANS_B ? T::BN * kLdb : KC * kLdb;
+  static constexpr int kFloats = kA + kB;
+  static constexpr size_t kBytes = sizeof(float) * T::kStages * kFloats;
+};
+
+// Rows [r0, r0 + R) and columns [c0, c0 + W) of the row-major src (row
+// stride ld floats) into dst (R rows of LD floats), zeros where the row
+// is >= rows or the column >= cols. VEC: 16-byte copies (src, ld and cols
+// multiples of 4 floats, so a chunk is all in or all out); else 4 bytes.
+// Asynchronous: the caller commits and waits.
+template <int R, int W, int LD, int THREADS, bool VEC>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long ld, int r0, int c0,
+                                          int rows, int cols) {
+  constexpr int kPer = VEC ? 4 : 1;
+  constexpr int kRow = W / kPer;
+  static_assert((R * kRow) % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < R * kRow / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    const int r = e / kRow;
+    const int c = kPer * (e - r * kRow);
+    const bool valid = r0 + r < rows && c0 + c < cols;
+    const float* from =
+        valid ? src + static_cast<long long>(r0 + r) * ld + c0 + c : src;
+    if (VEC) {
+      gpnf::cp_async16(dst + r * LD + c, from, valid);
+    } else {
+      gpnf::cp_async4(dst + r * LD + c, from, valid);
+    }
+  }
+}
 
 // Split z = blockIdx.z of c = A B: the K rows [z chunk, min(k, (z + 1)
-// chunk)) into out + z m n. Without SPLIT, the whole K axis into c, with
-// the loop bounds of a GEMM that has no split: computed bounds made the
-// unsplit projection 7% slower on the H100 (0.0613 against 0.0572 ms at
-// C = 96, B S = 16384; 0.3369 against 0.3183 at C = 512, B S = 4096).
-template <bool TRANS_A, bool TRANS_B, bool SPLIT>
-__global__ void __launch_bounds__(kThreads)
-    gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                float* __restrict__ out, int m, int n, int k, int chunk) {
-  __shared__ float As[BS * LDA];
-  __shared__ float Bs[KC * Tile::LDB];
-  const int m0 = blockIdx.y * BS, n0 = blockIdx.x * BS;
-  const int k_begin = SPLIT ? blockIdx.z * chunk : 0;
-  const int k_end = SPLIT ? min(k, k_begin + chunk) : k;
-  float acc[Tile::RPT][Tile::CPT] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += KC) {
-    if (TRANS_A) {
-      gpnf::load_transposed(As, LDA, BS, KC, a, m, k0, m0, k_end, m);
-    } else {
-      gpnf::load_direct(As, LDA, BS, KC, a, k, m0, k0, m, k_end);
+// chunk)) into out + z m n (out is c with one split).
+template <class T, bool TRANS_A, bool TRANS_B, bool VEC>
+__global__ void __launch_bounds__(T::kThreads)
+    gemm_mma_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ out, int m, int n, int k, int chunk) {
+  using S = Stage<T, TRANS_A, TRANS_B>;
+  constexpr int MI = T::MI, NI = T::NI;
+  extern __shared__ float4 gemm_smem[];
+  float* smem = reinterpret_cast<float*>(gemm_smem);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * chunk;
+  const int k_end = min(k, k_begin + chunk);
+  const int nk = (k_end - k_begin + KC - 1) / KC;
+  out += static_cast<long long>(blockIdx.z) * m * n;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int wm = (warp / T::kWarpsN) * T::WM;
+  const int wn = (warp % T::kWarpsN) * T::WN;
+
+  auto load_stage = [&](int stage, int k0) {
+    float* as = smem + stage * S::kFloats;
+    float* bs = as + S::kA;
+    if (TRANS_A) {  // a is (k, m): KC rows of BM
+      load_tile<KC, T::BM, S::kLda, T::kThreads, VEC>(as, a, m, k0, m0, k_end,
+                                                      m);
+    } else {  // a is (m, k): BM rows of KC
+      load_tile<T::BM, KC, S::kLda, T::kThreads, VEC>(as, a, k, m0, k0, m,
+                                                      k_end);
     }
-    if (TRANS_B) {
-      gpnf::load_transposed(Bs, Tile::LDB, KC, BS, b, k, n0, k0, n, k_end);
-    } else {
-      gpnf::load_direct(Bs, Tile::LDB, KC, BS, b, n, k0, n0, k_end, n);
+    if (TRANS_B) {  // b is (n, k): BN rows of KC
+      load_tile<T::BN, KC, S::kLdb, T::kThreads, VEC>(bs, b, k, n0, k0, n,
+                                                      k_end);
+    } else {  // b is (k, n): KC rows of BN
+      load_tile<KC, T::BN, S::kLdb, T::kThreads, VEC>(bs, b, n, k0, n0, k_end,
+                                                      n);
     }
-    __syncthreads();
-    gpnf::mma_chunk<float, BS>(As, Bs, acc);
-    __syncthreads();
+  };
+
+#pragma unroll
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < nk) load_stage(s, k_begin + s * KC);
+    gpnf::cp_async_commit();
   }
-  float* part =
-      SPLIT ? out + static_cast<long long>(blockIdx.z) * m * n : out;
-  gpnf::store_tile<float, BS>(part + static_cast<long long>(m0) * n + n0, n,
-                              m - m0, n - n0, acc, false);
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    }
+  }
+  for (int t = 0; t < nk; ++t) {
+    gpnf::cp_async_wait<T::kStages - 2>();
+    __syncthreads();  // chunk t is in; every warp is done with chunk t - 1
+    const int ahead = t + T::kStages - 1;  // into the stage chunk t - 1 held
+    if (ahead < nk) load_stage(ahead % T::kStages, k_begin + ahead * KC);
+    gpnf::cp_async_commit();
+    const float* as = smem + (t % T::kStages) * S::kFloats;
+    const float* bs = as + S::kA;
+    float part[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 8) {
+      FragB fb[NI];
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = wn + 8 * j + gr;
+        fb[j] = TRANS_B ? gpnf::tile_frag_bt<KC>(bs, col, kk + tg)
+                        : gpnf::frag_b_kmajor<S::kLdb>(bs, kk + tg, col);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int row = wm + 16 * i + gr;
+        const FragA fa = TRANS_A
+                             ? gpnf::frag_a_kmajor<S::kLda>(as, kk + tg, row)
+                             : gpnf::tile_frag_a<KC>(as, row, kk + tg);
+#pragma unroll
+        for (int j = 0; j < NI; ++j) gpnf::mma_3xtf32(part[i][j], fa, fb[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+      }
+    }
+  }
+  // c0 (gr, 2 tg), c1 (gr, 2 tg + 1), c2 (gr + 8, 2 tg), c3 (gr + 8, 2 tg + 1)
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + 16 * i + gr + 8 * h;
+      if (row >= m) continue;
+      float* dst = out + static_cast<long long>(row) * n;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tg;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if (VEC && col < n) {  // n a multiple of 4: col + 1 < n too
+          *reinterpret_cast<float2*>(dst + col) = make_float2(x, y);
+        } else {
+          if (col < n) dst[col] = x;
+          if (col + 1 < n) dst[col + 1] = y;
+        }
+      }
+    }
+  }
 }
 
 // c[i] = sum over z of partial[z][i], z in order: the splits' fixed-order
 // sum.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSumThreads)
     sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ c,
                       long long count, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+  const long long i = static_cast<long long>(blockIdx.x) * kSumThreads +
                       threadIdx.x;
   if (i >= count) return;
   float acc = partial[i];
@@ -101,24 +282,48 @@ __global__ void __launch_bounds__(kThreads)
   c[i] = acc;
 }
 
-template <bool TRANS_A, bool TRANS_B>
-cudaError_t launch(const float* a, const float* b, float* c, float* partial,
-                   int m, int n, int k, int splits, int chunk,
-                   cudaStream_t stream) {
-  const dim3 grid((n + BS - 1) / BS, (m + BS - 1) / BS, splits);
-  if (splits == 1) {
-    gemm_kernel<TRANS_A, TRANS_B, false><<<grid, kThreads, 0, stream>>>(
-        a, b, c, m, n, k, chunk);
-    return cudaGetLastError();
-  }
-  gemm_kernel<TRANS_A, TRANS_B, true><<<grid, kThreads, 0, stream>>>(
-      a, b, partial, m, n, k, chunk);
-  cudaError_t err = cudaGetLastError();
+template <class T, bool TRANS_A, bool TRANS_B, bool VEC>
+cudaError_t launch_tiles(const float* a, const float* b, float* out, int m,
+                         int n, int k, int splits, int chunk,
+                         cudaStream_t stream) {
+  using S = Stage<T, TRANS_A, TRANS_B>;
+  const auto kernel = gemm_mma_kernel<T, TRANS_A, TRANS_B, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::kBytes));
   if (err != cudaSuccess) return err;
-  const long long count = static_cast<long long>(m) * n;
-  sum_splits_kernel<<<static_cast<unsigned>((count + kThreads - 1) / kThreads),
-                      kThreads, 0, stream>>>(partial, c, count, splits);
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, splits);
+  kernel<<<grid, T::kThreads, S::kBytes, stream>>>(a, b, out, m, n, k, chunk);
   return cudaGetLastError();
+}
+
+template <bool TRANS_A, bool TRANS_B>
+cudaError_t launch(bool large, bool vec, const float* a, const float* b,
+                   float* out, int m, int n, int k, int splits, int chunk,
+                   cudaStream_t s) {
+  if (large) {
+    return vec ? launch_tiles<Large, TRANS_A, TRANS_B, true>(
+                     a, b, out, m, n, k, splits, chunk, s)
+               : launch_tiles<Large, TRANS_A, TRANS_B, false>(
+                     a, b, out, m, n, k, splits, chunk, s);
+  }
+  return vec ? launch_tiles<Small, TRANS_A, TRANS_B, true>(a, b, out, m, n, k,
+                                                           splits, chunk, s)
+             : launch_tiles<Small, TRANS_A, TRANS_B, false>(
+                   a, b, out, m, n, k, splits, chunk, s);
+}
+
+// 128 x 128 tiles where they cover the output with no ragged edge and make
+// kLargeMinTiles blocks, else 64 x 64 (fused_attention.py's `gemm_tile`
+// mirrors it).
+bool pick_large(int m, int n) {
+  return m % Large::BM == 0 && n % Large::BN == 0 &&
+         static_cast<long long>(m / Large::BM) * (n / Large::BN) >=
+             kLargeMinTiles;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -134,17 +339,30 @@ extern "C" int gpnf_attention_gemm(const float* a, const float* b, float* c,
                                    void* stream) {
   const int chunks = (k + KC - 1) / KC;
   const int chunk = splits > 0 ? KC * ((chunks + splits - 1) / splits) : 0;
-  if (m <= 0 || n <= 0 || k <= 0 || (m + BS - 1) / BS > 65535 ||
+  const bool large = m > 0 && n > 0 && pick_large(m, n);
+  const int block_rows = large ? Large::BM : Small::BM;
+  if (m <= 0 || n <= 0 || k <= 0 || (m + block_rows - 1) / block_rows > 65535 ||
       (trans_a && trans_b) || splits <= 0 || splits > 65535 ||
       static_cast<long long>(splits - 1) * chunk >= k ||
       (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  float* out = splits > 1 ? partial : c;
+  const int lda = trans_a ? m : k, ldb = trans_b ? k : n;
+  const bool vec = aligned16(a) && aligned16(b) && aligned16(out) &&
+                   lda % 4 == 0 && ldb % 4 == 0 && n % 4 == 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      trans_a   ? launch<true, false>(a, b, c, partial, m, n, k, splits, chunk, s)
-      : trans_b ? launch<false, true>(a, b, c, partial, m, n, k, splits, chunk, s)
-                : launch<false, false>(a, b, c, partial, m, n, k, splits, chunk,
-                                       s);
-  return static_cast<int>(err);
+  cudaError_t err =
+      trans_a   ? launch<true, false>(large, vec, a, b, out, m, n, k, splits,
+                                      chunk, s)
+      : trans_b ? launch<false, true>(large, vec, a, b, out, m, n, k, splits,
+                                      chunk, s)
+                : launch<false, false>(large, vec, a, b, out, m, n, k, splits,
+                                       chunk, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long count = static_cast<long long>(m) * n;
+  sum_splits_kernel<<<static_cast<unsigned>((count + kSumThreads - 1) /
+                                            kSumThreads),
+                      kSumThreads, 0, s>>>(partial, c, count, splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // 3xTF32 tensor-core products at about fp32 accuracy, and cp.async copies
 // into padded shared-memory tiles: the building blocks of the attention
 // tensor-core kernels (attention_tiled.cuh: the forward at Dh = 128 and
-// 256, the backward at every built width, 4 to 256).
+// 256, the backward at every built width, 4 to 256) and of the projection
+// GEMMs (attention_gemm.cu).
 //
 // The arithmetic is that of the yardstick, PyTorch's float32 memory-efficient
 // attention on sm_80 and later (CUTLASS's OpMultiplyAddFastF32): each fp32
@@ -39,6 +40,14 @@
 // constant. (An XOR
 // swizzle is conflict-free too but needs arithmetic at every load; the
 // padded kernels ran 7-14% faster, bench_attention --kernel lanes_bwd.)
+// A k-major tile (rows along k, columns along m or n: the GEMM's A of dW
+// and B of dseq and dW) is read in the natural k order by
+// `frag_a_kmajor` and `frag_b_kmajor`: rows k0 + tg, k0 + tg + 4, columns
+// c0 + gr (and c0 + gr + 8), banks LD tg + gr + const. At a row stride LD
+// = 8 mod 32 (attention_gemm.cu pads 64- and 128-float rows by 8) the 4
+// rows fall 8 apart, 32 distinct banks for every load
+// (tests/test_torch_gemm_mma.py counts them, with the GEMM's KC + 4 tiles
+// read by `tile_frag_a` and `tile_frag_bt`).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,6 +148,23 @@ __device__ __forceinline__ FragB tile_frag_b(const float* tile, int r, int c) {
   return frag_b(tile[tile_at<W>(r, c)], tile[tile_at<W>(r + 1, c)]);
 }
 
+// The A fragment of a k-major tile of LD-float rows: rows k, k + 4 (k =
+// k0 + tg), columns r, r + 8 (m = r0 + gr).
+template <int LD>
+__device__ __forceinline__ FragA frag_a_kmajor(const float* tile, int k,
+                                               int r) {
+  return frag_a(tile[k * LD + r], tile[k * LD + r + 8],
+                tile[(k + 4) * LD + r], tile[(k + 4) * LD + r + 8]);
+}
+
+// The B fragment of a k-major tile of LD-float rows: rows k, k + 4 (k =
+// k0 + tg), column c (n = c0 + gr).
+template <int LD>
+__device__ __forceinline__ FragB frag_b_kmajor(const float* tile, int k,
+                                               int c) {
+  return frag_b(tile[k * LD + c], tile[(k + 4) * LD + c]);
+}
+
 // 16 bytes from global src to shared dst, or 16 zero bytes where !valid
 // (src is then not read, but must still be a mapped address).
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -162,6 +188,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Rows [r0, r0 + ROWS) of the (S, W) slice at `src` (row stride `stride`

@@ -1,7 +1,7 @@
-// Shared pieces of the blocked GEMM kernels (cholesky.cu's panel products
-// and trailing update, attention_gemm.cu's projection GEMMs): tiles of
-// BS x BS, staged through shared memory in k-chunks of KC, multiplied by
-// 256 threads that each hold a small register tile of the output.
+// Shared pieces of the blocked GEMM kernels of cholesky.cu (its panel
+// products and trailing update): tiles of BS x BS, staged through shared
+// memory in k-chunks of KC, multiplied by 256 threads that each hold a
+// small register tile of the output.
 //
 // An output tile is BS rows by TP columns. Thread t owns rows
 // rg + RG * a (a < RPT) and columns cg + CG * b (b < CPT), with

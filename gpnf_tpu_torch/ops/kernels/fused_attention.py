@@ -83,12 +83,16 @@ PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
 # floats, and kRows, the seq rows it stages at a time
 PROJ_SHARED_FLOATS = 232448 // 4
 PROJ_ROWS = 32
-# attention_gemm.cu (tile_mm.cuh): the output tile's edge and the K chunk a
-# block stages at a time; a split of K is a whole number of chunks
-GEMM_TILE = 64
+# attention_gemm.cu: the output tiles (BM, BN), large where they cover the
+# output evenly in at least GEMM_LARGE_MIN_TILES blocks, else small
+# (`gemm_tile`), and the K chunk a block stages at a time; a split of K is
+# a whole number of chunks
+GEMM_TILES = {"large": (128, 128), "small": (64, 64)}
+GEMM_LARGE_MIN_TILES = 128
 GEMM_KC = 32
-# the blocks `gemm_splits` aims at: 8 for each of the H100's 132 SMs
-GEMM_BLOCKS = 8 * 132
+# the blocks `gemm_splits` aims at with small tiles: 2 for each of the
+# H100's 132 SMs
+GEMM_BLOCKS = 2 * 132
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -343,6 +347,21 @@ def _validate_qkv(kernel, qkv, num_heads, rate, seed):
     _check_heads_and_rate(kernel, qkv.shape[2] // 3, num_heads, rate, seed)
 
 
+def _aligned(*tensors):
+    """The tensors as the key-tiled kernels take them: a CUDA tensor
+    contiguous and starting on a 16-byte boundary (their cp.async copies
+    move 16-byte chunks), copied into a fresh tensor where it is not; any
+    other tensor as it is, for `_cuda_args` to refuse."""
+    out = []
+    for t in tensors:
+        if t.device.type == "cuda":
+            t = t.contiguous()
+            if t.data_ptr() % 16:
+                t = t.clone()
+        out.append(t)
+    return out
+
+
 def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
                head_dims=HEAD_DIMS, **tensors):
     """The kernel's own limits (S, head width, float32), then device and
@@ -495,6 +514,7 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
     c = c3 // 3
     if q_scale is None:
         q_scale = head_scale(c // num_heads)
+    qkv, = _aligned(qkv)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
@@ -514,6 +534,7 @@ def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
     c = c3 // 3
     if q_scale is None:
         q_scale = head_scale(c // num_heads)
+    qkv, g = _aligned(qkv, g)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv, g=g)
     dqkv = torch.empty_like(qkv)
@@ -572,25 +593,40 @@ def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
 
 
 # -- the projection at S <= MAX_S: qkv = seq w^T, dseq and dW ---------------------
+def gemm_tile(m: int, n: int):
+    """(BM, BN) of the output tiles attention_gemm.cu takes for an (m x n)
+    product, as its `pick_large` chooses them: 128 x 128 where those tiles
+    cover the output with no ragged edge and make GEMM_LARGE_MIN_TILES
+    blocks, else 64 x 64."""
+    bm, bn = GEMM_TILES["large"]
+    if m % bm == 0 and n % bn == 0 and (m // bm) * (n // bn) >= \
+            GEMM_LARGE_MIN_TILES:
+        return bm, bn
+    return GEMM_TILES["small"]
+
+
 def gemm_splits(m: int, n: int, k: int, blocks: int = GEMM_BLOCKS) -> int:
     """How many ranges of K attention_gemm.cu's kernel sums apart for an
-    (m x n) product over K = k: one where the output tiles alone make
-    `blocks` blocks, else enough that tiles x splits reaches `blocks` (or
-    one split per GEMM_KC chunk of K, where K is shorter), each range a
-    whole number of chunks and none empty; `gemm_chunk` gives the ranges'
-    length. A pure function of the shape: the same shape always sums in
-    the same order.
+    (m x n) product over K = k: one with large tiles (`gemm_tile`: they
+    already make a block for nearly every SM) or where the small tiles
+    alone make `blocks` blocks, else enough that tiles x splits reaches
+    `blocks` (or one split per GEMM_KC chunk of K, where K is shorter),
+    each range a whole number of chunks and none empty; `gemm_chunk` gives
+    the ranges' length. A pure function of the shape: the same shape
+    always sums in the same order.
 
-    `blocks` defaults to GEMM_BLOCKS, 8 x 132 (8 blocks for each SM of the
-    H100), the best of `python -m gpnf_tpu_torch.bench_attention`'s sweep
-    on an H100 80GB HBM3 at 700 W: the nine GEMMs of the flagship's proj
-    backward (C = 96, B = 64, S = 256 / 64 / 16) summed to 0.3908 /
-    0.3656 / 0.3558 / 0.4207 ms at 264 / 528 / 1056 / 2112 blocks, those
-    of C = 192 at S = 64 to 0.2052 / 0.1964 / 0.1899 / 0.2477 and those of
-    the wide route at C = 512 (B = 16) to 1.4899 / 1.4135 / 1.3926 /
-    1.4723. Unpipelined loads leave a block waiting on memory, and more
-    blocks an SM hide it, until the partial sums' traffic outweighs it."""
-    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    `blocks` defaults to GEMM_BLOCKS, 2 x 132, the best single target of
+    `python -m gpnf_tpu_torch.bench_attention --kernel gemm`'s sweep on an
+    H100 80GB HBM3 at 700 W: the 21 products of its cells summed to 0.9859
+    / 0.9171 / 1.0733 / 1.1549 / 1.3798 ms at 132 / 264 / 528 / 1056 /
+    2112 blocks (PERF.md, PR 16). The cp.async ring hides a block's loads
+    behind its own products, so few blocks an SM fill it, and each split
+    more writes and reads back an (m x n) partial. A large-tile product
+    split 2 or 3 ways ran 10-30% slower than unsplit."""
+    bm, bn = gemm_tile(m, n)
+    if (bm, bn) == GEMM_TILES["large"]:
+        return 1
+    tiles = -(-m // bm) * -(-n // bn)
     if tiles >= blocks:
         return 1
     chunks = -(-k // GEMM_KC)
@@ -621,10 +657,14 @@ def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b, splits=None):
     """c = A B (m x n, A m x k, B k x n) by csrc/attention_gemm.cu on CUDA
     tensors, A read from a transposed where trans_a, B from b where
     trans_b, K cut into `splits` ranges (default `gemm_splits`); c has the
-    given shape. Raises unless a and b hold m k and k n values."""
+    given shape. Raises unless a and b hold m k and k n values. A strided
+    view is copied into a contiguous tensor first; the kernel takes any
+    alignment (16-byte copies where every base and row allow them, else
+    4-byte ones, with the same bits)."""
     if a.numel() != m * k or b.numel() != k * n or a.dim() != 3:
         raise ValueError(f"{kernel}: {tuple(a.shape)} and {tuple(b.shape)} "
                          f"do not make a product")
+    a, b = a.contiguous(), b.contiguous()
     device = _native.check_cuda_inputs(kernel, a=a, b=b)
     if splits is None:
         splits = gemm_splits(m, n, k)
@@ -794,6 +834,7 @@ def _attention_forward(q, k, v, rate, seed):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_plain(q, k, v, rate, seed)
     b, h, s, dh = q.shape
+    q, k, v = _aligned(q, k, v)
     device, seed_ptr, threshold, scale = _cuda_args(
         "fused_attention", s, dh, MAX_S, rate, seed, q=q, k=k, v=v)
     out = torch.empty_like(q)
@@ -815,6 +856,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if all(t.device.type == "cpu" for t in (q, k, v, g)):
         return attention_plain_bwd(q, k, v, g, rate, seed)
     b, h, s, dh = q.shape
+    q, k, v, g = _aligned(q, k, v, g)
     device, seed_ptr, threshold, scale = _cuda_args(
         "fused_attention_bwd", s, dh, MAX_S, rate, seed, q=q, k=k, v=v, g=g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))

@@ -195,7 +195,7 @@ def test_route_constants_match_the_cuda_sources():
     kMaxSharedBytes, the head widths of its launch switch, the lines of the
     forward's shared-memory formula, the only proj kernel's) and of
     attention_tiled.cuh's `with_head_dim` widths, and attention_gemm.cu's
-    tile and K chunk (tile_mm.cuh's BS and KC), are the sources' own: a
+    tiles, K chunk and large-tile threshold, are the sources' own: a
     change to either side fails here."""
     import re
     from pathlib import Path
@@ -221,12 +221,16 @@ def test_route_constants_match_the_cuda_sources():
                  "> kMaxSharedBytes) {"):
         assert line in proj
     assert "shared_floats" not in proj.replace("fwd_shared_floats", "")
-    tile = (csrc / "tile_mm.cuh").read_text()
-    assert re.search(r"constexpr int BS = (\d+);", tile).group(1) == \
-        str(fa.GEMM_TILE)
-    assert re.search(r"constexpr int KC = (\d+);", tile).group(1) == \
+    gemm = (csrc / "attention_gemm.cu").read_text()
+    for name, (bm, bn) in fa.GEMM_TILES.items():
+        assert re.search(rf"using {name.capitalize()} = Tile<{bm}, {bn}, ",
+                         gemm), name
+    assert re.search(r"constexpr int KC = (\d+);", gemm).group(1) == \
         str(fa.GEMM_KC)
-    assert '#include "tile_mm.cuh"' in (csrc / "attention_gemm.cu").read_text()
+    assert re.search(r"constexpr int kLargeMinTiles = (\d+);",
+                     gemm).group(1) == str(fa.GEMM_LARGE_MIN_TILES)
+    assert '#include "mma_tf32.cuh"' in gemm
+    assert "tile_mm.cuh" not in gemm
     tiled = (csrc / "attention_tiled.cuh").read_text()
     switch = re.search(r"with_head_dim\(.*?switch \(head_dim\) \{(.*?)default:",
                        tiled, re.S).group(1)

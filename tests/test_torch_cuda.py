@@ -292,9 +292,12 @@ def test_long_attention_rejects_what_the_kernels_do_not_take(cuda_device):
         kernels.attention_long_qkv(qkv.double(), 4)
     with pytest.raises(ValueError, match="head width"):
         kernels.attention_long_qkv(qkv, 8)  # Dh = 96 / 8 = 12
+    # a strided cotangent is no refusal: the wrapper copies it contiguous
+    # (aligned) for the kernels, with the contiguous call's bits
     strided = torch.zeros((1, 576, 192), device=cuda_device)[..., ::2]
-    with pytest.raises(ValueError, match="contiguous"):
-        kernels.attention_long_qkv_bwd(qkv, strided, 4)
+    strided.copy_(g)
+    assert torch.equal(kernels.attention_long_qkv_bwd(qkv, strided, 4),
+                       kernels.attention_long_qkv_bwd(qkv, g, 4))
 
 
 @pytest.mark.cuda
@@ -975,57 +978,77 @@ def test_mma_forward_holds_near_uniform_rows_at_s_1024(cuda_device, dh,
                                                       seed)) <= 1e-5
 
 
+def _shifted(x):
+    """x's values in a contiguous tensor that starts one float past a
+    16-byte boundary."""
+    y = torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x)
+    return y.copy_(x)
+
+
 @pytest.mark.cuda
 def test_mma_forward_refuses_misaligned_operands(cuda_device):
-    """A packed qkv or a q that starts off a 16-byte boundary is refused
-    before any launch (cudaErrorMisalignedAddress, 716) and counts no
-    launch; the same values aligned give the aligned call's bits."""
+    """A packed qkv or a q that starts off a 16-byte boundary, or a
+    transposed (strided) q, is copied into an aligned contiguous tensor by
+    the wrapper, not refused: each call gives the aligned call's bits,
+    raises nothing and counts one launch (cp.async moves 16-byte chunks,
+    so the kernel itself still needs aligned operands)."""
     q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, 64, 128))
-
-    def shifted(x):
-        y = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x)
-        return y.copy_(x)
-
-    before = kernels.attention_lanes.launches
-    for call in (lambda: kernels.attention_long_qkv(shifted(qkv), 4, 0.2,
-                                                    seed),
-                 lambda: kernels.fused_attention_qkv(shifted(qkv), 4, 0.2,
-                                                     seed),
-                 lambda: kernels.fused_attention(shifted(q), k, v, 0.2,
-                                                 seed)):
-        with pytest.raises(RuntimeError, match="CUDA error 716"):
-            call()
-    assert kernels.attention_lanes.launches == before
-    assert torch.equal(kernels.attention_long_qkv(qkv, 4, 0.2, seed),
-                       kernels.attention_long_qkv(qkv.clone(), 4, 0.2, seed))
+    q_t = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not q_t.is_contiguous()
+    for call, counter, aligned in (
+            (lambda x: kernels.attention_long_qkv(x, 4, 0.2, seed),
+             kernels.fused_attention_long, qkv),
+            (lambda x: kernels.fused_attention_qkv(x, 4, 0.2, seed),
+             kernels.fused_attention_qkv, qkv),
+            (lambda x: kernels.fused_attention(x, k, v, 0.2, seed),
+             kernels.fused_attention, q)):
+        want = call(aligned)
+        for x in (_shifted(aligned), q_t if aligned is q else None):
+            if x is None:
+                continue
+            before = (counter.launches, kernels.attention_lanes.launches)
+            assert torch.equal(call(x), want)
+            assert (counter.launches,
+                    kernels.attention_lanes.launches) == (before[0] + 1,
+                                                          before[1] + 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [512, 96])
 def test_mma_backward_refuses_misaligned_operands(cuda_device, c):
-    """cp.async moves 16-byte chunks: a contiguous qkv that starts off a
-    16-byte boundary is refused before any launch (cudaErrorMisalignedAddress,
-    716), at Dh 128 (C = 512) and at the flagship's Dh 24 (C = 96), and
-    counts no launch."""
+    """A contiguous qkv or g that starts off a 16-byte boundary, at Dh 128
+    (C = 512) and at the flagship's Dh 24 (C = 96), is copied into an
+    aligned tensor by the wrapper before the tensor-core kernels' cp.async
+    loads: the aligned call's bits, no error, one launch counted; so is
+    the split entry's transposed (strided) g."""
     qkv, g, seed = _qkv_inputs(cuda_device, 64, c=c)
-    shifted = torch.empty(qkv.numel() + 1, device=cuda_device)[1:].view_as(qkv)
-    shifted.copy_(qkv)
-    before = (kernels.fused_attention_long_bwd.launches,
-              kernels.attention_lanes_bwd.launches)
-    with pytest.raises(RuntimeError, match="CUDA error 716"):
-        kernels.attention_long_qkv_bwd(shifted, g, 4, 0.2, seed)
-    assert (kernels.fused_attention_long_bwd.launches,
-            kernels.attention_lanes_bwd.launches) == before
-    assert torch.equal(kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed),
-                       kernels.attention_long_qkv_bwd(qkv.clone(), g, 4, 0.2,
-                                                      seed))
+    want = kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed)
+    lanes = int(c == 512)
+    for args in ((_shifted(qkv), g), (qkv, _shifted(g))):
+        before = (kernels.fused_attention_long_bwd.launches,
+                  kernels.attention_lanes_bwd.launches)
+        assert torch.equal(kernels.attention_long_qkv_bwd(*args, 4, 0.2,
+                                                          seed), want)
+        assert (kernels.fused_attention_long_bwd.launches,
+                kernels.attention_lanes_bwd.launches) == (before[0] + 1,
+                                                          before[1] + lanes)
+    q, k, v, gh, _, _, core_seed = _core_inputs(cuda_device,
+                                                (2, 4, 64, c // 4))
+    gh_t = gh.transpose(-1, -2).contiguous().transpose(-1, -2)
+    want = kernels.fused_attention_bwd(q, k, v, gh, 0.2, core_seed)
+    before = kernels.fused_attention_bwd.launches
+    for got, plain in zip(kernels.fused_attention_bwd(
+            _shifted(q), k, v, gh_t, 0.2, core_seed), want):
+        assert torch.equal(got, plain)
+    assert kernels.fused_attention_bwd.launches == before + 1
 
 
-def _hmma_counts(pattern):
+def _hmma_counts(pattern, sources=("fused_attention_long",
+                                   "fused_attention")):
     """{source: {kernel: HMMA instructions in its SASS}} of the kernels whose
-    mangled name holds `pattern`, in both libraries that build the
-    tensor-core attention kernels; a skip where the toolkit has no
-    cuobjdump to read the SASS with."""
+    mangled name holds `pattern`, in each library of `sources` (by default
+    both that build the tensor-core attention kernels); a skip where the
+    toolkit has no cuobjdump to read the SASS with."""
     import os
     import re
     import shutil
@@ -1038,7 +1061,7 @@ def _hmma_counts(pattern):
         pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
                     "read here")
     counts = {}
-    for source in ("fused_attention_long", "fused_attention"):
+    for source in sources:
         _native.build([source])
         sass = subprocess.run([cuobjdump, "-sass",
                                str(_native.library_path(source))],
@@ -1084,13 +1107,27 @@ def test_mma_forward_kernel_runs_on_the_tensor_cores(cuda_device):
 
 
 @pytest.mark.cuda
+def test_gemm_kernels_run_on_the_tensor_cores(cuda_device):
+    """Every instantiation of the GEMM kernel (three layouts, two tiles,
+    16- and 4-byte copies) holds HMMA instructions in its SASS."""
+    hmma = _hmma_counts("gemm_mma_kernel", ("attention_gemm",))
+    hmma = hmma["attention_gemm"]
+    assert len(hmma) == 3 * 2 * 2, sorted(hmma)
+    assert all(n > 0 for n in hmma.values()), hmma
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("batch,s,c", [(16, 256, 512), (16, 16, 512),
-                                       (2, 100, 160), (1, 7, 8)])
+                                       (2, 100, 160), (1, 7, 8),
+                                       (64, 256, 96), (64, 64, 96),
+                                       (64, 16, 96), (16, 64, 512),
+                                       (1, 7, 6)])
 def test_projection_gemms_match_plain_on_card(cuda_device, batch, s, c):
     """The wide route's GEMM kernels (qkv = seq w^T, dseq = dqkv w, dW =
     dqkv^T seq) against torch.matmul, within 1e-5 of the largest magnitude
-    (a sum of up to B S float32 products), ragged tiles among the shapes;
-    two calls bit for bit; each call counts one launch."""
+    (a sum of up to B S float32 products), ragged tiles among the shapes
+    (and C = 6, rows not a multiple of 4 floats: the 4-byte copies); two
+    calls bit for bit; each call counts one launch."""
     seq, w, _, _ = _attention_inputs(cuda_device, s, batch, c, seed=s + c)
     dqkv = _normal(np.random.default_rng(c), (batch, s, 3 * c)).to(
         cuda_device)
@@ -1105,6 +1142,59 @@ def test_projection_gemms_match_plain_on_card(cuda_device, batch, s, c):
         assert got.shape == want.shape
         assert _rel_max(got, want) <= 1e-5, fn.__name__
         assert torch.equal(got, fn(a, b))
+
+
+def _gemm_calls(seq, w, dqkv):
+    """(wrapper, its two operands, float64 torch.matmul of the product) of
+    the three GEMMs."""
+    d = lambda x: x.double()
+    return ((kernels.attention_qkv_gemm, seq, w,
+             torch.matmul(d(seq), d(w).t())),
+            (kernels.attention_dseq_gemm, dqkv, w, torch.matmul(d(dqkv), d(w))),
+            (kernels.attention_dw_gemm, dqkv, seq,
+             torch.einsum("bso,bsc->oc", d(dqkv), d(seq))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product,batch,s,c", [("dseq", 16, 256, 512),
+                                               ("dw", 64, 256, 96),
+                                               ("qkv", 4, 256, 1024)])
+def test_gemms_hold_same_sign_inputs_on_card(cuda_device, product, batch, s,
+                                             c):
+    """Uniform [0, 1) inputs, the worst case for a biased rounding: every
+    product adds to the sum. dseq over K = 1536, dW over K = B S = 16,384
+    (split), qkv over K = 1024; within 1e-5 of the largest entry of a
+    float64 torch.matmul, two calls bit for bit. The tensor cores' fp32
+    accumulation truncates: the kernel sums each K chunk apart and adds
+    the chunks in fp32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(c + s)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=cuda_device)
+    seq, w, dqkv = rand(batch, s, c), rand(3 * c, c), rand(batch, s, 3 * c)
+    fn, a, b, want = _gemm_calls(seq, w, dqkv)[
+        ("qkv", "dseq", "dw").index(product)]
+    got = fn(a, b)
+    assert _rel_max(got.double(), want) <= 1e-5, fn.__name__
+    assert torch.equal(got, fn(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 512])
+def test_gemms_take_shifted_and_strided_operands_on_card(cuda_device, c):
+    """Each operand of each GEMM at a base one float past a 16-byte
+    boundary (the 4-byte copies), and as a transposed (non-contiguous)
+    view (copied contiguous by the wrapper): the aligned, contiguous call's
+    bits, one launch counted, no error."""
+    r = np.random.default_rng(c)
+    seq, w, dqkv = (_normal(r, shape).to(cuda_device) for shape in (
+        (2, 64, c), (3 * c, c), (2, 64, 3 * c)))
+    strided = lambda x: x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    for fn, a, b, _ in _gemm_calls(seq, w, dqkv):
+        want = fn(a, b)
+        for args in ((_shifted(a), b), (a, _shifted(b)), (strided(a), b),
+                     (a, strided(b))):
+            before = fn.launches
+            assert torch.equal(fn(*args), want), fn.__name__
+            assert fn.launches == before + 1
 
 
 # the entry each width takes at the 32-px levels' S = 256, 64, 16

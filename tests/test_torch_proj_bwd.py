@@ -35,21 +35,23 @@ GEMM_SHAPES = [(288, 96, 16384), (288, 96, 4096), (288, 96, 1024),
 @pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
 def test_gemm_splits_cover_k_in_whole_chunks(m, n, k):
     """The splits cover K exactly, none empty, each a whole number of
-    GEMM_KC chunks; one split where the output tiles alone make
-    GEMM_BLOCKS blocks, else enough splits for GEMM_BLOCKS blocks or one a
-    chunk; the same shape always gives the same split."""
+    GEMM_KC chunks; one split with large tiles (`gemm_tile`) or where the
+    output tiles alone make GEMM_BLOCKS blocks, else enough splits for
+    GEMM_BLOCKS blocks or one a chunk; the same shape always gives the
+    same split."""
     splits = fa.gemm_splits(m, n, k)
     chunk = fa.gemm_chunk(k, splits)
     assert chunk % fa.GEMM_KC == 0
     assert (splits - 1) * chunk < k <= splits * chunk
-    tiles = -(-m // fa.GEMM_TILE) * -(-n // fa.GEMM_TILE)
+    bm, bn = fa.gemm_tile(m, n)
+    tiles = -(-m // bm) * -(-n // bn)
     chunks = -(-k // fa.GEMM_KC)
-    if tiles >= fa.GEMM_BLOCKS:
+    if tiles >= fa.GEMM_BLOCKS or (bm, bn) == fa.GEMM_TILES["large"]:
         assert splits == 1
     else:
         assert tiles * splits >= fa.GEMM_BLOCKS or splits == chunks
     assert fa.gemm_splits(m, n, k) == splits
-    assert fa.GEMM_BLOCKS == 8 * 132
+    assert fa.GEMM_BLOCKS == 2 * 132
 
 
 @pytest.mark.parametrize("m,n,k", [(288, 96, 4096), (100, 30, 1000),

@@ -60,6 +60,45 @@ def _record(got, want, rtol, atol):
                             "rtol": rtol, "atol": atol}) + "\n")
 
 
+# -- the 3xTF32 arithmetic of the tensor-core kernels (csrc/mma_tf32.cuh) --
+def tf32_round(x):
+    """float32 values rounded to TF32 as cvt.rna.tf32.f32 rounds them: to
+    nearest, ties away from zero, the low 13 mantissa bits cleared (half
+    the dropped part added to the magnitude's bits, a carry rounding up,
+    which is what `tf32_bits` does); inf and NaN stay as they are."""
+    a = np.atleast_1d(np.ascontiguousarray(x, dtype=np.float32))
+    bits = a.view(np.uint32)
+    finite = (bits & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(finite, rounded, bits).astype(np.uint32).view(np.float32)
+
+
+def split(x):
+    """(hi, lo) of a float32 tensor: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = torch.from_numpy(tf32_round(x.numpy())).reshape(x.shape)
+    lo = torch.from_numpy(tf32_round((x - hi).numpy())).reshape(x.shape)
+    return hi, lo
+
+
+def mm3(a, b, sets=1):
+    """a @ b in 3xTF32 as `mma_3xtf32` runs it: k steps of 8 in order, each
+    lo*hi, hi*lo, then hi*hi into one float32 accumulator; with `sets`
+    above 1, step i into accumulator i % sets, the sets added in order at
+    the end (the forward's S = q K^T, the dK/dV kernel's S^T and dPd^T)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    shape = a.shape[:-1] + b.shape[-1:]
+    acc = [torch.zeros(shape) for _ in range(sets)]
+    for step, k0 in enumerate(range(0, a.shape[-1], 8)):
+        p = step % sets
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            acc[p] = acc[p] + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    total = acc[0]
+    for part in acc[1:]:
+        total = total + part
+    return total
+
+
 def load(module, jax_params):
     """Copy a JAX param tree into the port module of the same layout."""
     return convert.load_jax_params(module, jax.device_get(jax_params))
