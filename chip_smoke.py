@@ -11,15 +11,16 @@ Phases, each of which raises (exit code != 0) when it fails:
      the paths' shapes (batch 64, the three levels), with its time, the
      plain version's time, a library call's time where one PyTorch call
      computes the same function, and its bound on this card; the
-     attention forward at dropout rate 0 and 0.2 (one seed for kernel and
-     plain version: the same mask), its backward at 0 and 0.2 (dseq, dW,
-     and two calls bit for bit the same), and the backward's stages at
-     each level's shapes: the projection, dseq and dW GEMMs against
-     torch.matmul (torch.mm beside them) and the key-tiled dq and dK/dV
-     kernels (on the tensor cores) at rate 0 and 0.2 against their plain
-     version (SDPA's backward beside them), each two calls bit for bit;
-     the GEMMs' and the backward's bounds with their products (on the
-     tensor cores) at 3xTF32's rate, the fp32 rate's beside them;
+     attention forward (two stages: the projection GEMM, then the
+     tensor-core forward, each timed alone) at dropout rate 0 and 0.2
+     (one seed for kernels and plain version: the same mask), its
+     backward at 0 and 0.2 (dseq, dW), each two calls bit for bit the
+     same, and the backward's stages at each level's shapes: the
+     projection, dseq and dW GEMMs against torch.matmul (torch.mm beside
+     them) and the key-tiled dq and dK/dV kernels (on the tensor cores) at
+     rate 0 and 0.2 against their plain version (SDPA's backward beside
+     them), each two calls bit for bit; the bounds with their products (on
+     the tensor cores) at 3xTF32's rate, the fp32 rate's beside them;
   4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
      32 components, ConvLSTM prior, dropout 0.2; random weights from
      --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
@@ -72,8 +73,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      (rate 0.2 compared at batch 8: the plain mask at batch 64 needs ~10
      GB), two backward calls bit for bit the same, S = 2049 refused; each
      with its time, the plain version's, SDPA's (rate 0) and its bound
-     (the backward's, on the tensor cores, at 3xTF32's rate, the fp32
-     rate's beside it);
+     (forward and backward on the tensor cores: at 3xTF32's rate, the
+     fp32 rate's beside it);
  14. the ImageNet-64 row (`bench.py`'s BENCH_IMAGE=64 configuration: the
      flagship at 64x64x3; random weights from --seed, the synthetic set at
      64 px, as no ImageNet-64 files are in the checkout): ddi, 10 Adamax
@@ -107,10 +108,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      `fused_attention_qkv` on packed qkv, which no path of the system
      runs): their four kernels against their plain versions at batch 64,
      4 heads, S = 256 / 64 / 16 / 512 / 100 at Dh = 24 and S = 512 at
-     Dh = 64, rate 0 and 0.2 (one seed: the same mask), two backward calls
-     bit for bit the same, S = 513, Dh = 20 and float64 refused, each with
-     its time, the plain version's, SDPA's (rate 0) and its bound (the
-     backward's at 3xTF32's rate, the fp32 rate's beside it); at rate
+     Dh = 64, and the packed forward at Dh = 4, 8, 16, 32, 48 (S = 256),
+     rate 0 and 0.2 (one seed: the same mask), two calls of each bit for
+     bit the same, S = 513, Dh = 20 and float64 refused, each with its
+     time, the plain version's, SDPA's (rate 0) and its bound (at 3xTF32's
+     rate, every kernel on the tensor cores; the fp32 rate's beside it); at
+     rate
      0.2 and one seed the packed entry against the proj entry and, bit for
      bit, the long entry, and the q, k, v entry against the packed one;
      then one drive through both entries' autograd (launches 1 of each).
@@ -128,17 +131,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      torch.matmul at C = 512, two calls bit for bit, with times and bounds
      (3xTF32's, fp32's beside them) and their registers; the whole wide route at C = 512 beside autograd of
      F.linear + SDPA; the flagship's routes (proj at the 32-px levels,
-     whose backward runs the projection GEMM, the key-tiled dq and
+     whose forward runs the projection GEMM and the tensor-core forward,
+     and whose backward runs the projection GEMM, the key-tiled dq and
      dK/dV kernels and the dseq and dW GEMMs; the long entry unpadded at
-     the 64-px level 0, bit for bit the long kernels on seq w^T); then `train_marscf` at its default --C 512 and --coupling
+     the 64-px level 0, bit for bit the long kernels on seq w^T); then
+     `train_marscf` at its default --C 512 and --coupling
      mixlogcdf on the synthetic set (L 3, K 2, batch 16, 12 steps, the loss
      finite and the last 3 below the first, exact launch counts) and
      `eval_marscf` on its checkpoint (bits/dim over the test set, one
      sampling pass, exact launch counts); with --profile, device time by
      kernel over one C = 512 train step and eval batch. Every earlier phase
-     asserts that its path launches no Dh = 128 / 256 kernel, and the GEMM and
-     key-tiled backward kernels exactly as often as its proj backwards run
-     their stages (no C = 96 eval or sampling pass launches them).
+     asserts that its path launches no Dh = 128 / 256 kernel, and the GEMM
+     and key-tiled kernels exactly as often as its proj calls run their
+     stages: one projection GEMM and one long forward a proj forward, the
+     four backward stages a proj backward.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -215,46 +221,55 @@ BENCH_SIZES = (1024, 2048, 4096)
 # the ImageNet-64 row (bench.py BENCH_IMAGE=64): the flagship at 64 px
 IMAGENET64 = dict(FLAGSHIP, image_shape=(64, 64, 3))
 TRAIN64_STEPS, WINDOW64_STEPS = 10, 5
-# level 0 at 64 px has S = 32 * 32 = 1024 > 512: the long attention entry
-PER_STEP_64 = {"fused_attention_proj": 80, "fused_attention_proj_bwd": 80,
-               "fused_attention_long": 40, "fused_attention_long_bwd": 40,
-               "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP}
 FGC = ("fused_gated_conv", "fused_gated_conv_bwd")
 NO_FGC = dict.fromkeys(FGC, 0)  # the default paths launch none
-PER_STEP_64.update(NO_FGC)
-# per eval batch and per sampling pass at 64 px
-EVAL_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
-           "mixlogcdf_forward": 12}
-SAMPLE_64 = {"fused_attention_long": 40, "fused_attention_proj": 80,
-             "mixture_inverse": 12}
-NO_LONG = {"fused_attention_long": 0, "fused_attention_long_bwd": 0}
 # the core attention entries (phase 17): no path of the system runs them
 CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
 NO_CORE = dict.fromkeys(CORE, 0)
-PER_STEP_64.update(NO_CORE)
 # the Dh = 128 / 256 kernels (phase 18): no C = 96 path runs
 # them. The GEMMs (the projection and dseq / dW at S <= 512) run on the wide
-# route and in every proj backward, whose stages are one launch each of
-# PROJ_BWD_STAGES: the projection recomputed, the key-tiled dq and dK/dV
-# kernels (the long entry's backward), dseq and dW
+# route and in every proj call, whose stages are one launch each of
+# PROJ_FWD_STAGES (the projection, then the long entry's tensor-core
+# forward) and of PROJ_BWD_STAGES (the projection recomputed, the key-tiled
+# dq and dK/dV kernels of the long entry's backward, dseq and dW)
 LANES = ("attention_lanes", "attention_lanes_bwd")
 GEMMS = ("attention_qkv_gemm", "attention_dseq_gemm", "attention_dw_gemm")
 NO_WIDE = dict.fromkeys(LANES + GEMMS, 0)
+PROJ_FWD_STAGES = ("attention_qkv_gemm", "fused_attention_long")
 PROJ_BWD_STAGES = ("attention_qkv_gemm", "fused_attention_long_bwd",
                    "attention_dseq_gemm", "attention_dw_gemm")
 
 
-def proj_bwd_stages(calls):
-    """The stage launches of `calls` proj backward calls."""
-    return dict.fromkeys(PROJ_BWD_STAGES, calls)
+def proj_stages(fwd_calls, bwd_calls=0):
+    """The stage launches of `fwd_calls` proj forward and `bwd_calls` proj
+    backward calls, with the proj entry's own counts."""
+    out = {"fused_attention_proj": fwd_calls,
+           "fused_attention_proj_bwd": bwd_calls,
+           **dict.fromkeys(PROJ_FWD_STAGES + PROJ_BWD_STAGES, 0)}
+    for name in PROJ_FWD_STAGES:
+        out[name] += fwd_calls
+    for name in PROJ_BWD_STAGES:
+        out[name] += bwd_calls
+    return out
 
 
-# per 64-px step: the long entry's 40 at level 0 (S = 1024: its projection
-# in torch.matmul) and the 80 proj backwards' stages at levels 1 and 2
-PER_STEP_64.update(NO_WIDE)
-PER_STEP_64.update(proj_bwd_stages(80))
-PER_STEP_64["fused_attention_long_bwd"] = 40 + 80
+def plus(counts, **more):
+    """counts with `more` added to its entries."""
+    return {**counts, **{k: counts.get(k, 0) + v for k, v in more.items()}}
+
+
+# at 64 px level 0 has S = 32 * 32 = 1024 > 512: the long entry (its
+# projection in torch.matmul), 40 calls a pass; levels 1 and 2 the proj
+# entry, 80 calls a pass, forward and backward
+PER_STEP_64 = plus({"mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
+                    **NO_FGC, **NO_CORE, **NO_WIDE, **proj_stages(80, 80)},
+                   fused_attention_long=40, fused_attention_long_bwd=40)
+# per eval batch and per sampling pass at 64 px
+EVAL_64 = plus({"mixlogcdf_forward": 12, **proj_stages(80)},
+               fused_attention_long=40)
+SAMPLE_64 = plus({"mixture_inverse": 12, **proj_stages(80)},
+                 fused_attention_long=40)
 # phase 13's (batch, S): the 64-px level 0, and a ragged sequence
 LONG_CASES = ((BATCH, 1024), (4, 576))
 LONG_DROPOUT_BATCH = 8  # rate 0.2 is compared with the plain mask here
@@ -453,26 +468,40 @@ def check_kernels(device, model, timer):
             seed = torch.tensor([4321 + level], dtype=torch.int32,
                                 device=device)
             fwd_bytes = 4 * (2 * BATCH * s * c + 3 * c * c)
-            core = 2 * BATCH * heads * s * s * dh  # one S x S x Dh product
+            scores = BATCH * heads * s * s
+            core = 2 * scores * dh  # one S x S x Dh product
             proj = 2 * BATCH * s * c * 3 * c
+            qkv = kernels.attention_qkv_gemm(seq, w)
             for rate in (0.0, RATE):
-                # one seed for kernel and plain version: the same mask, so
-                # a single differing keep bit shows as an O(p * v) error
+                # one seed for the stages and the plain version: the same
+                # mask, so a single differing keep bit shows as an O(p * v)
+                # error
                 run = lambda: kernels.fused_attention_proj(seq, w, heads, rate,
                                                            seed)
                 plain = lambda: kernels.attention_proj_plain(seq, w, heads,
                                                              rate, seed)
-                err = max_errs(run(), plain())
+                got = run()
+                if not torch.equal(got, run()):
+                    raise AssertionError(f"attention level {level} rate "
+                                         f"{rate}: two calls differ")
+                err = max_errs(got, plain())
                 if err[0] > 1e-5:
                     raise AssertionError(f"attention level {level} rate "
                                          f"{rate}: max abs err {err[0]} > 1e-5")
                 # no PyTorch call draws the kernel's mask: a library time
-                # at rate 0 only
+                # at rate 0 only; the projection and the forward's products
+                # on the tensor cores
                 record("fused_attention_proj", level, err, timer(run),
                        timer(plain),
                        timer(lambda: library_attention(seq, w))
                        if rate == 0.0 else None,
-                       fwd_bytes, proj + 2 * core, rate=rate)
+                       fwd_bytes, 0, tc_ops=proj + 2 * core + 5 * scores,
+                       rate=rate, deterministic=True, stages_ms={
+                           "attention_qkv_gemm": timer(
+                               lambda: kernels.attention_qkv_gemm(seq, w)),
+                           "fused_attention_long": timer(
+                               lambda: kernels.attention_long_qkv(
+                                   qkv, heads, rate, seed))})
             for rate in (0.0, RATE):
                 run = lambda: kernels.fused_attention_proj_bwd(seq, w, g, heads,
                                                                rate, seed)
@@ -584,9 +613,8 @@ def train(device, loader, out_dir, seed, card, fused=False):
         f"{WARM_UP} samples: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"bits/dim; launches per step {per_step}")
     log(f"  losses {[round(x, 4) for x in losses]}")
-    want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 120,
-            "mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_LONG, **NO_CORE, **NO_WIDE, **proj_bwd_stages(120),
+    want = {"mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
+            **NO_CORE, **NO_WIDE, **proj_stages(120, 120),
             **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
@@ -667,10 +695,9 @@ def serve(model, loader, device, seed):
     if not (math.isfinite(nll) and nll < 30.0):
         raise AssertionError(f"eval bits/dim {nll} is not finite and < 30")
     fgc = 120 * n_batches if model.cfg.fused_gated_conv else 0
-    want = {"fused_attention_proj": 120 * n_batches,
-            "fused_attention_proj_bwd": 0,
-            "mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP, **NO_LONG, **NO_CORE, **NO_WIDE, "fused_gated_conv": fgc,
+    want = {"mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
+            **NO_GP, **NO_CORE, **NO_WIDE,
+            **proj_stages(120 * n_batches), "fused_gated_conv": fgc,
             "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
@@ -688,10 +715,9 @@ def sample(model, out_dir, device, seed, name="samples.png"):
     counts = kernels.launch_counts()
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
-    want = {"fused_attention_proj": 120, "fused_attention_proj_bwd": 0,
-            "mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
-            **NO_LONG, **NO_CORE, **NO_WIDE, "fused_gated_conv":
-                120 if model.cfg.fused_gated_conv else 0,
+    want = {"mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
+            **NO_CORE, **NO_WIDE, **proj_stages(120),
+            "fused_gated_conv": 120 if model.cfg.fused_gated_conv else 0,
             "fused_gated_conv_bwd": 0}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
@@ -1300,15 +1326,14 @@ def check_long_kernels(device, timer, w, heads):
         scores = batch * heads * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         rows = batch * s
-        extra, fp32 = {}, ""
-        if forward:  # qkv in, out; two products and the softmax, SIMT fp32
+        # on the tensor cores: qkv in, out, two products and the softmax
+        # forward; qkv and g in, dqkv out, five products and dS backward
+        if forward:
             bytes_moved, ops = 4 * (rows * 3 * c + rows * c), 2 * core
-            bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
-        else:  # qkv and g in, dqkv out; five products and dS on the tensor
-            # cores
+        else:
             bytes_moved, ops = 4 * (2 * rows * 3 * c + rows * c), 5 * core
-            bound_ms, bound_by, extra, fp32 = tensor_core_bound(
-                bytes_moved, ops + 5 * scores)
+        bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+            bytes_moved, ops + 5 * scores)
         row = dict(batch=batch, s=s, rate=rate,
                    max_abs_err=None if err is None else err[0],
                    max_rel_err=None if err is None else err[1], ms=ms,
@@ -1778,12 +1803,15 @@ def imagenet64_fused(device, state, seed, card):
 # (S = 512 at Dh = 24 and 64), and a ragged S
 CORE_SHAPES = ((BATCH, 4, 256, 24), (BATCH, 4, 64, 24), (BATCH, 4, 16, 24),
                (BATCH, 4, 512, 24), (BATCH, 4, 512, 64), (BATCH, 4, 100, 24))
+# the forward's other narrow instantiations, packed, at S = 256
+NARROW_WIDTHS = (4, 8, 16, 32, 48)
 
 
 def check_core_attention(device, timer):
     """Phase 17: the four core attention kernels against their plain
-    versions at CORE_SHAPES, rate 0 and 0.2 (one seed: the same mask), two
-    backward calls bit for bit the same, S = 513, Dh = 20 and float64
+    versions at CORE_SHAPES, rate 0 and 0.2 (one seed: the same mask), and
+    the packed forward at the other narrow widths (NARROW_WIDTHS), two
+    calls of each bit for bit the same, S = 513, Dh = 20 and float64
     refused; each with its time, the plain version's, SDPA's (rate 0) and
     its bound. Then the entries against the proj and long entries at rate
     0.2, and a drive through both public entries' autograd with the counts
@@ -1803,17 +1831,15 @@ def check_core_attention(device, timer):
         scores = b * h * s * s
         core = 2 * scores * dh  # one S x S x Dh product
         elems = b * h * s * dh
-        extra, fp32 = {}, ""
+        # on the tensor cores: q, k, v in (or qkv), out, two products and
+        # the softmax forward; q, k, v, g in, dq, dk, dv out, five products
+        # and dS backward
         if name in ("fused_attention", "fused_attention_qkv"):
-            # q, k, v in (or qkv), out; two products and the softmax, SIMT
-            # fp32 at these widths
             bytes_moved, ops = 4 * 4 * elems, 2 * core
-            bound_ms, bound_by = bound(bytes_moved, ops + 5 * scores)
-        else:  # q, k, v, g in, dq, dk, dv out; five products and dS on the
-            # tensor cores
+        else:
             bytes_moved, ops = 4 * 7 * elems, 5 * core
-            bound_ms, bound_by, extra, fp32 = tensor_core_bound(
-                bytes_moved, ops + 5 * scores)
+        bound_ms, bound_by, extra, fp32 = tensor_core_bound(
+            bytes_moved, ops + 5 * scores)
         results[name].append(dict(
             shape=list(shape), rate=rate, max_abs_err=err[0],
             err_over_scale=err[1], ms=ms, plain_ms=plain_ms,
@@ -1825,12 +1851,12 @@ def check_core_attention(device, timer):
             f"{ms_or_na(plain_ms)} library {ms_or_na(library_ms)} | bound "
             f"{bound_ms * 1e3:.2f} us ({bound_by}{fp32})")
 
-    def check(tag, got, want, again=None, bar=None):
+    def check(tag, got, want, again, bar=None):
         """Max abs error and max abs error / max |plain| over the outputs;
         the forward's bar is absolute (1e-5), the backward's relative to
-        each gradient's largest value (1e-4), and two backward calls must
-        agree bit for bit."""
-        if again is not None and not all(
+        each gradient's largest value (1e-4), and two calls must agree bit
+        for bit."""
+        if not all(
                 torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{tag}: two calls differ")
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -1891,13 +1917,30 @@ def check_core_attention(device, timer):
                 for name, run, plain, library in cases:
                     backward = name.endswith("_bwd")
                     err = check(f"{name} {shape} rate {rate}", run(), plain(),
-                                run() if backward else None,
-                                1e-4 if backward else None)
+                                run(), 1e-4 if backward else None)
                     library_ms = None
                     if rate == 0.0:  # no PyTorch call draws the kernel's mask
                         library_ms = library() if backward else timer(library)
                     record(name, shape, rate, err, timer(run), timer(plain),
                            library_ms)
+
+        for dh in NARROW_WIDTHS:
+            shape = (BATCH, 4, 256, dh)
+            qkv = randn(BATCH, 256, 3 * 4 * dh) * 0.5
+            kk, vv, qq = (t_.reshape(BATCH, 256, 4, dh).transpose(1, 2)
+                          .contiguous() for t_ in qkv.split(4 * dh, dim=-1))
+            seed = torch.tensor([2024 + dh], dtype=torch.int32, device=device)
+            for rate in (0.0, RATE):
+                run = lambda: (kernels.fused_attention_qkv(qkv, 4, rate,
+                                                           seed),)
+                plain = lambda: (kernels.attention_long_plain(qkv, 4, rate,
+                                                              seed),)
+                err = check(f"fused_attention_qkv {shape} rate {rate}", run(),
+                            plain(), run())
+                record("fused_attention_qkv", shape, rate, err, timer(run),
+                       timer(plain), timer(
+                           lambda: F.scaled_dot_product_attention(qq, kk, vv))
+                       if rate == 0.0 else None)
 
         # one seed at rate 0.2: every attention entry drops the same scores
         for s in (256, 64, 16, 100, 512):
@@ -2198,11 +2241,12 @@ def check_lane_kernels(device, timer):
 
 def flagship_routes_unchanged(device, model):
     """Phase 18: every GatedAttn of the flagship (C = 96) keeps the entry it
-    had before the route: the proj kernel at the 32-px levels, whose
+    had before the route: the proj entry at the 32-px levels, whose
+    forward runs the projection GEMM and the tensor-core forward and whose
     backward runs the projection GEMM, the key-tiled dq and dK/dV kernels
     and the dseq and dW GEMMs (phases 4, 14 and 16 count one launch of
-    each a proj backward), and the long entry unpadded at the 64-px level
-    0, whose forward and gradients are the long kernels' on qkv = seq w^T,
+    each a proj call), and the long entry unpadded at the 64-px level 0,
+    whose forward and gradients are the long kernels' on qkv = seq w^T,
     bit for bit."""
     from gpnf_tpu_torch.ops import kernels
 
@@ -2486,15 +2530,15 @@ def main():
                                         "gpnf::attention_mma"))
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
 
-    attention = ("gpnf_tpu_torch/csrc/fused_attention_proj.cu",
+    attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
     meta = {
+        # the forward's work in two stages of the kernels below: the
+        # projection (attention_gemm.cu), then the tensor-core forward
+        # (through fused_attention_long.cu); the backward's in three: the
+        # projection, dq and dK/dV, dseq and dW
         "fused_attention_proj": (attention[0], attention[1] + "393"),
-        # the backward's work in three stages of the kernels below: the
-        # projection (attention_gemm.cu), dq and dK/dV (the key-tiled
-        # kernels through fused_attention_long.cu), dseq and dW
-        "fused_attention_proj_bwd": (
-            "gpnf_tpu_torch/csrc/fused_attention_long.cu", attention[1] + "416"),
+        "fused_attention_proj_bwd": (attention[0], attention[1] + "416"),
         "mixlogcdf_forward": ("gpnf_tpu_torch/csrc/mixlogcdf_forward.cu",
                               "gpnf_tpu/ops/pallas/fused_mixlogcdf.py:33"),
         "mixture_inverse": ("gpnf_tpu_torch/csrc/mixture_inverse.cu",
@@ -2505,10 +2549,8 @@ def main():
                      "gpnf_tpu/ops/pallas/cholesky.py:220"),
         "tril_solve": ("gpnf_tpu_torch/csrc/tril_solve.cu",
                        "gpnf_tpu/ops/pallas/trisolve.py:84"),
-        "fused_attention_long": ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
-                                 attention[1] + "533"),
-        "fused_attention_long_bwd": (
-            "gpnf_tpu_torch/csrc/fused_attention_long.cu", attention[1] + "554"),
+        "fused_attention_long": (attention[0], attention[1] + "533"),
+        "fused_attention_long_bwd": (attention[0], attention[1] + "554"),
         "fused_gated_conv": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
                              "gpnf_tpu/ops/pallas/fused_gated_conv.py:139"),
         "fused_gated_conv_bwd": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
@@ -2541,6 +2583,13 @@ def main():
     gp_headline = {"cholesky": ("n=1024", {"dtype": "float32"}),
                    "tril_solve": ("n=1024 p=1024", {"trans": True}),
                    "fused_affine_forward": ("(1024, 384)", {})}
+    tiled = ["gpnf_tpu_torch/csrc/attention_tiled.cuh",
+             "gpnf_tpu_torch/csrc/mma_tf32.cuh",
+             "gpnf_tpu_torch/csrc/philox.cuh"]
+    # the tensor-core forward at every width; the dq and dK/dV kernels
+    mma_fwd = dict(device_kernels=["attention_mma_fwd_kernel"], headers=tiled)
+    mma_bwd = dict(device_kernels=["attention_mma_dq_kernel",
+                                   "attention_mma_dkv_kernel"], headers=tiled)
     record = []
     for kernel in kernels.KERNELS:
         name = kernel.__name__
@@ -2611,8 +2660,12 @@ def main():
                 shape=f"(B, H, S, Dh) {CORE_SHAPES[0]}, rate 0; library_ms "
                       f"SDPA",
                 per_case=rows)
-            if "bound_fp32_ms" in top:  # the backward, on the tensor cores
-                entry["bound_fp32_ms"] = top["bound_fp32_ms"]
+            entry.update(
+                bound_fp32_ms=top["bound_fp32_ms"],
+                **(mma_bwd if name.endswith("_bwd") else mma_fwd),
+                ptxas=ptxas_kernels(reports.get("fused_attention", ""),
+                                    "attention_mma_d" if name.endswith("_bwd")
+                                    else "attention_mma_fwd"))
         elif name in LANES or name in GEMMS:
             # the CLIs' width (C = 512, Dh = 128) at the 32-px level 0, batch
             # 16; the Dh = 128 / 256 kernels at rate 0, beside SDPA (every case,
@@ -2643,12 +2696,7 @@ def main():
                 fwd = name == "attention_lanes"
                 entry.update(
                     bound_fp32_ms=top["bound_fp32_ms"],
-                    device_kernels=(["attention_mma_fwd_kernel"] if fwd else
-                                    ["attention_mma_dq_kernel",
-                                     "attention_mma_dkv_kernel"]),
-                    headers=["gpnf_tpu_torch/csrc/attention_tiled.cuh",
-                             "gpnf_tpu_torch/csrc/mma_tf32.cuh",
-                             "gpnf_tpu_torch/csrc/philox.cuh"],
+                    **(mma_fwd if fwd else mma_bwd),
                     ptxas=ptxas_kernels(reports.get(
                         "fused_attention_long", ""),
                         "attention_mma_fwd" if fwd else "attention_mma_d"))
@@ -2670,16 +2718,13 @@ def main():
                       f"library_ms SDPA",
                 per_case=rows, **({"flagship_levels": flagship} if flagship
                                   else {}))
-            if name == "fused_attention_long_bwd":  # on the tensor cores
-                entry.update(
-                    bound_fp32_ms=top["bound_fp32_ms"],
-                    device_kernels=["attention_mma_dq_kernel",
-                                    "attention_mma_dkv_kernel"],
-                    headers=["gpnf_tpu_torch/csrc/attention_tiled.cuh",
-                             "gpnf_tpu_torch/csrc/mma_tf32.cuh",
-                             "gpnf_tpu_torch/csrc/philox.cuh"],
-                    ptxas=ptxas_kernels(reports.get(
-                        "fused_attention_long", ""), "attention_mma_d"))
+            bwd = name == "fused_attention_long_bwd"
+            entry.update(  # on the tensor cores, mma_tf32.cuh
+                bound_fp32_ms=top["bound_fp32_ms"],
+                **(mma_bwd if bwd else mma_fwd),
+                ptxas=ptxas_kernels(reports.get("fused_attention_long", ""),
+                                    "attention_mma_d" if bwd
+                                    else "attention_mma_fwd"))
         else:
             # level 0 (the largest shape on the paths), at the training
             # rate; the library call (F.linear + SDPA, its backward) at rate 0
@@ -2698,6 +2743,13 @@ def main():
                 entry["ms_rate_0"] = rows[0]["ms"]
             if "bound_fp32_ms" in top:
                 entry["bound_fp32_ms"] = top["bound_fp32_ms"]
+            if name == "fused_attention_proj":
+                entry["stages"] = [
+                    "attention_qkv_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",
+                    "fused_attention_long: the tensor-core forward "
+                    "attention_mma_fwd_kernel (gpnf_tpu_torch/csrc/"
+                    "fused_attention_long.cu, attention_tiled.cuh)"]
+                entry["stages_ms"] = top["stages_ms"]
             if name == "fused_attention_proj_bwd":
                 entry["stages"] = [
                     "attention_qkv_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",

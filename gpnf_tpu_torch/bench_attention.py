@@ -2,24 +2,33 @@
 sources.
 
     python -m gpnf_tpu_torch.bench_attention
-        [--kernel proj|gemm|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
+        [--kernel proj|gemm|rows|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
         [--ref-splits parent|change] [--targets N,...] [--out FILE]
 
 DIR holds another version's csrc/ (its sources with the headers they
 include): say the parent commit's, from `git archive <commit>
 gpnf_tpu_torch/csrc | tar -x -C build/parent`. Each ref source is built
 with the package's nvcc flags and called through its C entry as that
-version's wrappers called it.
+version's wrappers called it; a tuning variant is a copy of csrc/ with one
+constant changed.
+
+`--kernel rows`: the forward at Dh <= 64 (the kernel of the core entries,
+the long entry at the 64-px level 0, the wide route at padded narrow widths
+and the proj forward's second stage), through fused_attention_long.cu's
+`gpnf_attention_long_fwd` (qkv in, out), at 4 heads, B 64 and Dh 4, 8, 24
+and 64 (C = 4 Dh; other widths by --head-dims), each at S = 256, 64, 16,
+512, 100 (the core entries' shapes) and 1024 (the long entry's), rate 0
+and 0.2: measured as `lanes` below measures it.
 
 `--kernel lanes`: the forward at Dh = 128 and 256 (the kernel that
-`attention_lanes` counts), through fused_attention_long.cu's
-`gpnf_attention_long_fwd` (qkv in, out), at the shapes and rates of
-`lanes_bwd` below: the change (`attention_long_qkv`) and each ref in the
-same turns; out against the plain forward on the card (relative to its
-largest entry, and the max abs error); two calls bit for bit; SDPA after a
-head split at rate 0 beside them; both bounds (two S x S x Dh products and
-five operations a score); one call of each under torch.profiler; and the
-ptxas lines of every version's kernels.
+`attention_lanes` counts), through `gpnf_attention_long_fwd`, at the shapes
+and rates of `lanes_bwd` below: the change (`attention_long_qkv`) and each
+ref in the same turns; out against the plain forward on the card (relative
+to its largest entry, and the max abs error); two calls bit for bit; SDPA
+after a head split at rate 0 beside them; both bounds (two S x S x Dh
+products and five operations a score, at 3xTF32's rate and at fp32's); one
+call of each under torch.profiler; and the ptxas lines of every version's
+kernels.
 
 `--kernel lanes_bwd`: the backward at Dh = 128 and 256 (the kernels that
 `attention_lanes_bwd` counts), through fused_attention_long.cu's
@@ -59,27 +68,27 @@ at 3xTF32's rate and at fp32's, and the bytes'; the change at the splits
 that chose GEMM_BLOCKS; one call of each under torch.profiler; and the
 ptxas lines of every version.
 
-`--kernel proj` (the default): DIR's fused_attention_proj.cu and
-attention_gemm.cu, from before the staged backward: the backward in one
-kernel and its GEMMs, `gpnf_attention_proj_bwd` (dqkv and ceil(B S /
-1024) partial dW slabs as scratch), and the GEMM without a split of K,
-`gpnf_attention_gemm` with 8 arguments and the stream. Then, on one card:
+`--kernel proj` (the default): `fused_attention_proj` at B = 64, 4 heads,
+(C, S) = (96, 256), (96, 64), (96, 16) (the flagship's 32-px levels; the
+64-px levels 1 and 2 have the shapes of the first two) and (192, 64) (Dh =
+48), rate 0 and 0.2, against each ref's fused_attention_proj.cu:
 
-- the proj backward (`kernels.fused_attention_proj_bwd`, `change`) and each
-  ref's at B = 64, 4 heads, (C, S) = (96, 256), (96, 64), (96, 16) (the
-  flagship's 32-px levels) and (192, 64) (Dh = 48), rate 0 and 0.2: dseq
-  and dW against the plain backward on the card (relative to the largest
-  entry), two calls bit for bit, the median device time of one call
-  (chip_smoke's cold-L2 timer, 20 calls) in turns: refs, change, change,
-  refs reversed; the change's stages timed alone; autograd of F.linear +
-  SDPA at rate 0 beside them; the bound; and one call of each under
-  torch.profiler: device launches and time by kernel;
-- the GEMMs of that backward (qkv = seq w^T, dseq, dW) at those shapes and
-  at the CLIs' width (C = 512, B = 16, S = 256 / 64 / 16): the change (K
-  split by `gemm_splits`) and each ref (one split) in turns, `torch.mm`
-  beside them, the error against torch.matmul, two calls bit for bit, and
-  the change's kernel at the splits `gemm_splits` gives for other targets
-  of blocks (`--targets`), the sweep that chose GEMM_BLOCKS.
+- the forward: the change (its two stages, `attention_qkv_gemm` and the
+  tensor-core forward) and each ref's fused kernel
+  (`gpnf_attention_proj_fwd`, every version that has the file) in turns,
+  refs, change, change, refs reversed; out against the plain forward (max
+  abs error, and relative to its largest entry); two calls bit for bit;
+  the change's stages timed alone; F.linear + SDPA at rate 0 beside them;
+  the bound (the projection and two S x S x Dh products at 3xTF32's rate);
+  peak device memory of one call over its inputs; one call of each under
+  torch.profiler;
+- the backward (`kernels.fused_attention_proj_bwd`) and the in-kernel
+  backward of each ref that has one (`gpnf_attention_proj_bwd`, with dqkv
+  and ceil(B S / 1024) partial dW slabs as scratch: the versions before
+  the staged backward) in the same turns: dseq and dW against the plain
+  backward, two calls bit for bit, the change's stages timed alone,
+  autograd of F.linear + SDPA at rate 0 beside them, the bound, and one
+  call of each under torch.profiler.
 
 Prints the card's name and power limit and one JSON object per result, and
 writes all of them to --out.
@@ -89,7 +98,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
-import itertools
 import json
 import os
 import subprocess
@@ -110,40 +118,46 @@ WIDE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16))
 RATES = (0.0, 0.2)
 TARGETS = (132, 264, 528, 1056, 2112)
 REF_K_CHUNK = 1024  # the ref wrappers' (b, s) rows per dW partial
-LANE_SHAPES = ((16, 512, 256), (16, 512, 64), (16, 512, 16), (4, 1024, 256))
-ROW_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
-              (64, 192, 64), (16, 256, 256), (64, 32, 256), (64, 16, 256))
+# (B, C, S) of each --kernel that times the key-tiled kernels alone; `rows`
+# at each width of --head-dims (C = 4 Dh)
+ROW_LENGTHS = (256, 64, 16, 512, 100, 1024)
+ATTENTION_SHAPES = {
+    "rows_bwd": ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
+                 (64, 192, 64), (16, 256, 256), (64, 32, 256), (64, 16, 256)),
+    "lanes": ((16, 512, 256), (16, 512, 64), (16, 512, 16), (4, 1024, 256))}
+ATTENTION_SHAPES["lanes_bwd"] = ATTENTION_SHAPES["lanes"]
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the tensor
 # cores, and dense TF32 FLOP/s over the three products of 3xTF32 (a kernel
 # on the tensor cores is read against this one)
 PEAK_BYTES, PEAK_OPS, PEAK_OPS_3XTF32 = 3.35e12, 67e12, 495e12 / 3
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-# the refs' C entries: `--kernel proj`'s GEMM from before the split K (8
-# arguments and the stream), `--kernel gemm`'s with it (11 and the stream)
+# the refs' C entries; a ref source need not have every entry of its file
+# (the proj forward's file lost its backward with the staged backward)
 REF_SIGNATURES = {
     "fused_attention_proj": {
+        "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
-    "attention_gemm": {"gpnf_attention_gemm": [_P] * 3 + [_I] * 5 + [_P]},
+    "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P]},
 }
-SPLIT_GEMM_SIGNATURES = {
-    **REF_SIGNATURES,
-    "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P]}}
-# the sources each --kernel builds, from the package and from each ref
-SOURCES = {"proj": ("fused_attention_proj", "attention_gemm"),
-           "gemm": ("attention_gemm",),
-           "lanes": ("fused_attention_long",),
-           "lanes_bwd": ("fused_attention_long",),
-           "rows_bwd": ("fused_attention_long",)}
+# the sources each --kernel builds from each ref, and from the package
+REF_SOURCES = {"proj": ("fused_attention_proj",),
+               "gemm": ("attention_gemm",),
+               "rows": ("fused_attention_long",),
+               "lanes": ("fused_attention_long",),
+               "lanes_bwd": ("fused_attention_long",),
+               "rows_bwd": ("fused_attention_long",)}
+CHANGE_SOURCES = {**REF_SOURCES,
+                  "proj": ("attention_gemm", "fused_attention_long")}
 # the SIMT GEMM's split of K (64 x 64 output tiles, 32-row chunks, aimed
 # at 8 blocks for each of the 132 SMs): how its wrapper called it
 PARENT_TILE, PARENT_BLOCKS = 64, 8 * 132
 
 
-def build_refs(refs, sources, signatures=REF_SIGNATURES):
+def build_refs(refs, sources):
     """{name: {source: loaded library}} of each ref DIR, all compiled at once
     with the package's flags, and {name/source: ptxas lines}."""
     procs = {}
@@ -165,9 +179,10 @@ def build_refs(refs, sources, signatures=REF_SIGNATURES):
             continue
         reports[f"{name}/{source}"] = _ptxas_lines(out + err)
         loaded = ctypes.CDLL(str(lib))
-        for fn, argtypes in signatures[source].items():
-            getattr(loaded, fn).argtypes = argtypes
-            getattr(loaded, fn).restype = ctypes.c_int
+        for fn, argtypes in REF_SIGNATURES[source].items():
+            if hasattr(loaded, fn):
+                getattr(loaded, fn).argtypes = argtypes
+                getattr(loaded, fn).restype = ctypes.c_int
         libs.setdefault(name, {})[source] = loaded
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed))
@@ -201,14 +216,6 @@ def ref_proj_bwd(lib, seq, w, g, rate, seed):
         dw.data_ptr(), b, s, c, HEADS, fa.keep_threshold(rate) if rate else 0,
         1.0 / (1.0 - rate), REF_K_CHUNK, _stream()), "ref proj bwd")
     return dseq, dw
-
-
-def ref_gemm(lib, a, b, shape, m, n, k, trans_a, trans_b):
-    c = torch.empty(shape, device=a.device)
-    _check(lib.gpnf_attention_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                                   m, n, k, int(trans_a), int(trans_b),
-                                   _stream()), "ref gemm")
-    return c
 
 
 def parent_gemm_splits(m, n, k):
@@ -271,8 +278,47 @@ def by_kernel(fn):
     return out
 
 
+def ref_proj_fwd(lib, seq, w, rate, seed):
+    """A ref's fused forward, called as its wrapper called it."""
+    b, s, c = seq.shape
+    out = torch.empty_like(seq)
+    _check(lib.gpnf_attention_proj_fwd(
+        seed.data_ptr() if rate > 0 else None, seq.data_ptr(), w.data_ptr(),
+        out.data_ptr(), b, s, c, HEADS,
+        fa.keep_threshold(rate) if rate else 0, 1.0 / (1.0 - rate),
+        _stream()), "ref proj fwd")
+    return out
+
+
+def library_fwd(seq, w):
+    """F.linear + SDPA (rate 0): the calls whose time stands beside the
+    forward's."""
+    b, s, c = seq.shape
+    k, v, q = (x.reshape(b, s, HEADS, c // HEADS).transpose(1, 2)
+               for x in F.linear(seq, w).split(c, dim=-1))
+    return F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+        b, s, c)
+
+
+def _with(libs, fn):
+    """{name: library} of the refs whose fused_attention_proj exports fn."""
+    return {name: lib["fused_attention_proj"] for name, lib in libs.items()
+            if hasattr(lib["fused_attention_proj"], fn)}
+
+
+def _turns(timer, runs):
+    """{name: [ms, ...]} of each run, timed in turns: refs, change, change,
+    refs reversed."""
+    refs = [name for name in runs if name != "change"]
+    times = {name: [] for name in runs}
+    for name in [*refs, "change", "change", *reversed(refs)]:
+        times[name].append(timer(runs[name]))
+    return {f"{name}_ms": ms for name, ms in times.items()}
+
+
 def proj_rows(device, libs, timer, card):
-    names = [*libs, "change"]
+    fwd_refs = _with(libs, "gpnf_attention_proj_fwd")
+    bwd_refs = _with(libs, "gpnf_attention_proj_bwd")
     for batch, c, s in PROJ_SHAPES:
         gen = torch.Generator(device=device).manual_seed(c + s)
         seq = torch.randn((batch, s, c), generator=gen, device=device) * 0.5
@@ -282,16 +328,53 @@ def proj_rows(device, libs, timer, card):
         dh = c // HEADS
         proj = 2 * batch * s * c * 3 * c
         core = 2 * batch * HEADS * s * s * dh
-        bound_ms, bound_by = bound(4 * (3 * batch * s * c + 2 * 3 * c * c),
-                                   3 * proj + 5 * core)
+        scores = batch * HEADS * s * s
         for rate in RATES:
-            runs = {name: (lambda lib=lib: ref_proj_bwd(
-                lib["fused_attention_proj"], seq, w, g, rate, seed))
-                for name, lib in libs.items()}
+            runs = {name: (lambda lib=lib: ref_proj_fwd(lib, seq, w, rate,
+                                                       seed))
+                    for name, lib in fwd_refs.items()}
+            runs["change"] = lambda: kernels.fused_attention_proj(
+                seq, w, HEADS, rate, seed)
+            want = kernels.attention_proj_plain(seq, w, HEADS, rate, seed)
+            bound_ms, bound_by = bound(4 * (2 * batch * s * c + 3 * c * c),
+                                       proj + 2 * core + 5 * scores,
+                                       PEAK_OPS_3XTF32)
+            row = {"kind": "proj_fwd", "batch": batch, "C": c, "S": s,
+                   "rate": rate, "card": card, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_peak": "3xTF32 165 TFLOP/s"}
+            for name, run in runs.items():
+                got = run()
+                row[f"{name}_max_abs_err"] = float((got - want).abs().max())
+                row[f"{name}_err"] = _rel(got, want)
+                row[f"{name}_repeats"] = torch.equal(got, run())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                run()
+                torch.cuda.synchronize()
+                row[f"{name}_peak_bytes_over_inputs"] = (
+                    torch.cuda.max_memory_allocated(device) - base)
+            row.update(_turns(timer, runs))
+            qkv = kernels.attention_qkv_gemm(seq, w)
+            row["stages_ms"] = {
+                "qkv_gemm": timer(lambda: kernels.attention_qkv_gemm(seq, w)),
+                "long_fwd": timer(lambda: kernels.attention_long_qkv(
+                    qkv, HEADS, rate, seed))}
+            row["library_ms"] = (timer(lambda: library_fwd(seq, w))
+                                 if rate == 0.0 else None)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+            runs = {name: (lambda lib=lib: ref_proj_bwd(lib, seq, w, g, rate,
+                                                       seed))
+                    for name, lib in bwd_refs.items()}
             runs["change"] = lambda: kernels.fused_attention_proj_bwd(
                 seq, w, g, HEADS, rate, seed)
             want = kernels.attention_proj_plain_bwd(seq, w, g, HEADS, rate,
                                                     seed)
+            bound_ms, bound_by = bound(4 * (3 * batch * s * c + 2 * 3 * c * c),
+                                       3 * proj + 5 * core)
             row = {"kind": "proj_bwd", "batch": batch, "C": c, "S": s,
                    "rate": rate, "card": card, "bound_ms": bound_ms,
                    "bound_by": bound_by}
@@ -302,11 +385,7 @@ def proj_rows(device, libs, timer, card):
                     float((x - y).abs().max()) for x, y in zip(got, want))
                 row[f"{name}_repeats"] = all(torch.equal(x, y)
                                              for x, y in zip(got, again))
-            times = {name: [] for name in names}
-            for name in [*libs, "change", "change", *reversed(list(libs))]:
-                times[name].append(timer(runs[name]))
-            row.update({f"{name}_ms": times[name] for name in names})
-            qkv = kernels.attention_qkv_gemm(seq, w)
+            row.update(_turns(timer, runs))
             dqkv = kernels.attention_long_qkv_bwd(qkv, g, HEADS, rate, seed)
             row["stages_ms"] = {
                 "qkv_gemm": timer(lambda: kernels.attention_qkv_gemm(seq, w)),
@@ -376,14 +455,16 @@ def sdpa_fwd(qkv):
     return lambda: F.scaled_dot_product_attention(q, k, v)
 
 
-def attention_rows(device, libs, timer, card, kind):
-    """The forward (`lanes`) or the backward (`lanes_bwd`, `rows_bwd`) at
-    the kind's shapes: the change and each ref in turns, beside SDPA (its
+def attention_rows(device, libs, timer, card, kind, head_dims=(4, 8, 24, 64)):
+    """The forward (`rows`, `lanes`) or the backward (`rows_bwd`,
+    `lanes_bwd`) at the kind's shapes (`rows`: B 64 and ROW_LENGTHS at each
+    of `head_dims`): the change and each ref in turns, beside SDPA (its
     autograd for the backward), both bounds."""
-    names = [*libs, "change"]
-    backward = kind != "lanes"
+    backward = kind.endswith("_bwd")
     products = 5 if backward else 2
-    for batch, c, s in ROW_SHAPES if kind == "rows_bwd" else LANE_SHAPES:
+    shapes = ATTENTION_SHAPES.get(kind) or [
+        (64, 4 * dh, s) for dh in head_dims for s in ROW_LENGTHS]
+    for batch, c, s in shapes:
         gen = torch.Generator(device=device).manual_seed(c + s)
         qkv = torch.randn((batch, s, 3 * c), generator=gen,
                           device=device) * 0.5
@@ -422,10 +503,7 @@ def attention_rows(device, libs, timer, card, kind):
                 row[f"{name}_max_abs_err"] = float((got - want).abs().max())
                 row[f"{name}_err"] = _rel(got, want)
                 row[f"{name}_repeats"] = torch.equal(got, again)
-            times = {name: [] for name in names}
-            for name in [*libs, "change", "change", *reversed(list(libs))]:
-                times[name].append(timer(runs[name]))
-            row.update({f"{name}_ms": times[name] for name in names})
+            row.update(_turns(timer, runs))
             library = sdpa_bwd(qkv, g) if backward else sdpa_fwd(qkv)
             row["library_ms"] = timer(library) if rate == 0.0 else None
             row["profile"] = {name: by_kernel(run)
@@ -453,47 +531,36 @@ def gemm_cases(device):
                    dqkv.reshape(rows, 3 * c).t(), seq.reshape(rows, c)))
 
 
-def gemm_rows(device, libs, timer, card, targets, split_refs=None):
+def gemm_rows(device, libs, timer, card, targets, split_refs):
     """The GEMMs of `gemm_cases`: the change and each ref in turns, beside
-    torch.mm. `split_refs` None: the refs are `--kernel proj`'s unsplit
-    GEMM; else a function (m, n, k) -> splits of the refs' split-K entry
-    (`--kernel gemm`), with both bounds and a trace of each call."""
-    names = [*libs, "change"]
+    torch.mm; `split_refs` (m, n, k) -> the splits of the refs' split-K
+    entry; both bounds and a trace of each call."""
     for tag, a, b, shape, m, n, k, trans_a, trans_b, mm in gemm_cases(device):
         splits = fa.gemm_splits(m, n, k)
-        if split_refs is None:
-            runs = {name: (lambda lib=lib: ref_gemm(
-                lib["attention_gemm"], a, b, shape, m, n, k, trans_a,
-                trans_b)) for name, lib in libs.items()}
-        else:
-            ref_splits = split_refs(m, n, k)
-            runs = {name: (lambda lib=lib: ref_split_gemm(
-                lib["attention_gemm"], a, b, shape, m, n, k, trans_a,
-                trans_b, ref_splits)) for name, lib in libs.items()}
+        ref_splits = split_refs(m, n, k)
+        runs = {name: (lambda lib=lib: ref_split_gemm(
+            lib["attention_gemm"], a, b, shape, m, n, k, trans_a, trans_b,
+            ref_splits)) for name, lib in libs.items()}
         runs["change"] = lambda sp=splits: fa._gemm(
             "bench", a, b, shape, m, n, k, trans_a, trans_b, sp)
         want = mm()
         bytes_moved, ops = 4 * (m * k + k * n + m * n), 2 * m * n * k
-        bound_ms, bound_by = bound(bytes_moved, ops)
+        fp32_ms, fp32_by = bound(bytes_moved, ops)
+        bound_ms, bound_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
         row = {"kind": "gemm", "gemm": tag, "m": m, "n": n, "k": k,
-               "splits": splits, "tile": fa.gemm_tile(m, n), "card": card,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        if split_refs is not None:
-            tc_ms, tc_by = bound(bytes_moved, ops, PEAK_OPS_3XTF32)
-            row.update(ref_splits=ref_splits, bound_ms=tc_ms, bound_by=tc_by,
-                       bound_peak="3xTF32 165 TFLOP/s", bound_fp32_ms=bound_ms,
-                       bound_fp32_by=bound_by,
-                       bound_bytes_ms=bytes_moved / PEAK_BYTES * 1e3)
+               "splits": splits, "ref_splits": ref_splits,
+               "tile": fa.gemm_tile(m, n), "card": card,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_peak": "3xTF32 165 TFLOP/s", "bound_fp32_ms": fp32_ms,
+               "bound_fp32_by": fp32_by,
+               "bound_bytes_ms": bytes_moved / PEAK_BYTES * 1e3}
         for name, run in runs.items():
             got = run().reshape(want.shape)
             row[f"{name}_err"] = _rel(got, want)
             row[f"{name}_max_abs_err"] = float((got - want).abs().max())
             row[f"{name}_repeats"] = torch.equal(got, run().reshape(
                 want.shape))
-        times = {name: [] for name in names}
-        for name in [*libs, "change", "change", *reversed(list(libs))]:
-            times[name].append(timer(runs[name]))
-        row.update({f"{name}_ms": times[name] for name in names})
+        row.update(_turns(timer, runs))
         row["library_ms"] = timer(mm)
         sweep = {}
         for target in targets:
@@ -504,18 +571,16 @@ def gemm_rows(device, libs, timer, card, targets, split_refs=None):
                                            trans_a, trans_b, sp))}
             sweep[sp]["targets"].append(target)
         row["sweep"] = {str(sp): v for sp, v in sweep.items()}
-        if split_refs is not None:
-            row["profile"] = {name: by_kernel(run)
-                              for name, run in runs.items()}
+        row["profile"] = {name: by_kernel(run) for name, run in runs.items()}
         yield row
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--kernel", choices=sorted(SOURCES), default="proj",
-                   help="the proj backward and its GEMMs, the GEMMs alone, "
-                        "the Dh = 128 / 256 forward or backward, or the "
-                        "Dh <= 64 backward")
+    p.add_argument("--kernel", choices=sorted(REF_SOURCES), default="proj",
+                   help="the proj forward and backward, the GEMMs, the "
+                        "Dh <= 64 or the Dh = 128 / 256 forward or "
+                        "backward")
     p.add_argument("--ref", action="append", default=[],
                    help="NAME=DIR of another version's csrc/")
     p.add_argument("--ref-splits", choices=("parent", "change"),
@@ -524,6 +589,8 @@ def main(argv=None):
                         "GEMM's wrapper did, or as the change's does")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
                    help="block targets of the GEMM split sweep")
+    p.add_argument("--head-dims", default="4,8,24,64",
+                   help="--kernel rows: the head widths")
     p.add_argument("--out", default=None,
                    help="JSON output (default: build/bench_attention/"
                         "bench.json)")
@@ -539,11 +606,8 @@ def main(argv=None):
     if "change" in refs:
         raise SystemExit("bench_attention: 'change' names the package's source")
     t0 = time.perf_counter()
-    change_reports = _native.build(SOURCES[args.kernel] + (
-        ("fused_attention_long",) if args.kernel == "proj" else ()))
-    libs, reports = build_refs(
-        refs, SOURCES[args.kernel],
-        SPLIT_GEMM_SIGNATURES if args.kernel == "gemm" else REF_SIGNATURES)
+    change_reports = _native.build(CHANGE_SOURCES[args.kernel])
+    libs, reports = build_refs(refs, REF_SOURCES[args.kernel])
     results = [{"card": card, "build_s": time.perf_counter() - t0,
                 "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
                                         for k, v in change_reports.items()}}}]
@@ -555,10 +619,10 @@ def main(argv=None):
                          parent_gemm_splits if args.ref_splits == "parent"
                          else fa.gemm_splits)
     elif args.kernel == "proj":
-        rows = itertools.chain(proj_rows(device, libs, timer, card),
-                               gemm_rows(device, libs, timer, card, targets))
+        rows = proj_rows(device, libs, timer, card)
     else:
-        rows = attention_rows(device, libs, timer, card, args.kernel)
+        rows = attention_rows(device, libs, timer, card, args.kernel,
+                              [int(x) for x in args.head_dims.split(",")])
     for row in rows:
         results.append(row)
         print(json.dumps(row), flush=True)

@@ -6,12 +6,11 @@
 // `_fwd_kernel_proj` (`_kernel_proj_qkv`: qkv = seq w^T) and
 // `_bwd_kernel_proj` (dseq = dqkv w, dW = dqkv^T seq) compute in their own
 // body. For S <= 512 the JAX package runs those kernels at every width. The
-// port runs the proj forward in one kernel (fused_attention_proj.cu) at the
-// shapes `attention_route` names "proj". Everywhere else at S <= 512 the
-// forward, and at every S <= 512 the backward, are these products around the
-// key-tiled kernels of fused_attention_long.cu, which take qkv and give
-// dqkv. Above S = 512 the JAX package's `fused_attention_long` leaves the
-// products to XLA, and so does the port (torch.matmul).
+// port runs the forward and the backward at every S <= 512 as these
+// products around the key-tiled kernels of fused_attention_long.cu, which
+// take qkv and give out or dqkv. Above S = 512 the JAX package's
+// `fused_attention_long` leaves the products to XLA, and so does the port
+// (torch.matmul).
 //
 // One kernel, c (M x N) = A (M x K) B (K x N) in float32, c row-major:
 //   qkv  = seq w^T:    A = seq (B S x C),  B = w^T (w is 3C x C),  N = 3C

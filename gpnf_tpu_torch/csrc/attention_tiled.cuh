@@ -10,9 +10,9 @@
 // q_scale is Dh^-1/2 where the caller hands q unscaled (the packed entries:
 // q is scaled as it is loaded) and 1 where q comes scaled (the separate
 // entry). The keep bit of score (b, h, i, j) is word (j & 3) of Philox at
-// counter (j >> 2, i, h, b) (philox.cuh), the same pure function of
-// (seed, b, h, i, j) as in fused_attention_proj.cu, so at one seed every
-// attention entry drops the same scores.
+// counter (j >> 2, i, h, b) (philox.cuh), a pure function of (seed, b, h,
+// i, j), so at one seed every attention entry drops the same scores, and
+// the backward regenerates the forward's mask.
 //
 // Backward, with g = d out:
 //   dV = Pd^T g;  dPd = g V^T;  dP = keep * dPd / (1 - rate)
@@ -22,34 +22,28 @@
 // Design. The Pallas kernels hold one head's (S, S) fp32 scores (4 MB at
 // S=1024), and a head's K and V whole (2*S*Dh*4 B, 256 KB at S=512, Dh=64)
 // exceed a 227 KB block. So the key axis is tiled, and shared memory does not
-// grow with S:
-//   - forward, Dh <= 64: a block per (64 queries, head, batch row), a
-//     thread per query; q (times q_scale) and the output accumulator sit in
-//     registers (Dh is a template parameter); K and V stream through shared
-//     memory in tiles of 64 keys, read by every thread as warp-wide
-//     broadcasts; the online softmax of the proj kernel (the denominator
-//     sums every exp(s - m); the accumulator adds only the kept terms,
-//     scaled); one Philox call per four keys. At Dh = 128 and 256 a thread
-//     cannot hold q[Dh] and acc[Dh], and the forward runs on the tensor
-//     cores (attention_mma_fwd_kernel, below);
-//   - backward, every width (4 to 256): two tensor-core kernels, 16-row
-//     tiles of a warp, 3xTF32 mma.sync products at about fp32 accuracy
-//     (mma_tf32.cuh), cp.async double buffers. Kernel 1 (dq) runs pass A
-//     over the key tiles for m_i, l_i and D_i online (D rescales like the
-//     denominator), then pass B for dq_i = sum_j p_ij (dP_ij - D_i) k_j,
-//     written times q_scale, with (m_i, 1/l_i, D_i) into a (B, H, S, 3)
-//     scratch; kernel 2 (dK/dV) streams query tiles of q, g and the stats
-//     past a block's keys and accumulates dV_j and dK_j.
+// grow with S. Every kernel, at every width (4 to 256), runs its S x S x Dh
+// products on the tensor cores: 16-row tiles of a warp, 3xTF32 mma.sync at
+// about fp32 accuracy (mma_tf32.cuh), cp.async double buffers.
+//   - forward: a block per (64 queries, head, batch row); K and V stream in
+//     key tiles, the online softmax (the denominator sums every exp(s - m);
+//     the output adds only the kept terms, scaled) runs on the score
+//     fragments in registers, and each tile's Pd V is added in fp32;
+//   - backward: two kernels. Kernel 1 (dq) runs pass A over the key tiles
+//     for m_i, l_i and D_i online (D rescales like the denominator), then
+//     pass B for dq_i = sum_j p_ij (dP_ij - D_i) k_j, written times q_scale,
+//     with (m_i, 1/l_i, D_i) into a (B, H, S, 3) scratch; kernel 2 (dK/dV)
+//     streams query tiles of q, g and the stats past a block's keys and
+//     accumulates dV_j and dK_j.
 //   No atomics: each output element is written once, and sums run in a
-//   fixed order, so the backward repeats bit for bit. The packed layout
-//   reads qkv and writes dqkv (B, S, 3C) in place, with no head split or
-//   merge copies. What bounds the backward on the H100: the five S x S x Dh
-//   products at 3xTF32's rate (495 / 3 TFLOP/s) and ~5 operations a score:
-//   >= ~33 us at the CLIs' default C = 512, B = 16, S = 256 (Dh 128), ~25
-//   us at the flagship's level 0 (C = 96, B = 64, S = 256, Dh 24) and ~400
-//   us at the 64-px level 0 (S = 1024); the bytes 5-50 us. The forward's two
-//   products: >= ~13 us at C = 512 on the tensor cores, ~25 us at the
-//   flagship's level 0 at the fp32 rate off them.
+//   fixed order, so every kernel repeats bit for bit. The packed layout
+//   reads qkv and writes out or dqkv in place, with no head split or merge
+//   copies. What bounds them on the H100: the S x S x Dh products (two
+//   forward, five backward) at 3xTF32's rate (495 / 3 TFLOP/s) and ~5
+//   operations a score. The forward: >= ~13 us at the CLIs' default C =
+//   512, B = 16, S = 256 (Dh 128), ~10 us at the flagship's level 0 (C =
+//   96, B = 64, S = 256, Dh 24) and ~164 us at the 64-px level 0 (S =
+//   1024); the backward ~33, ~25 and ~400 us; the bytes 5-50 us.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,9 +54,6 @@
 #include "philox.cuh"
 
 namespace gpnf {
-
-constexpr int kAttnRows = 64;  // queries a block of the Dh <= 64 forward
-constexpr int kAttnTile = 64;  // its keys per shared-memory tile
 
 // qkv (B, S, 3C) packed [k | v | q] along the channels, out and g (B, S, C),
 // dqkv (B, S, 3C) packed as qkv. q, k, v (and dq, dk, dv) point at the
@@ -94,94 +85,7 @@ struct SplitHeads {
   __device__ size_t out_row() const { return D; }
 };
 
-// The Dh <= 64 forward's copy: rows [r0, r0 + kAttnTile) of the (S, Dh)
-// slice that starts at `src` (row stride `stride` floats) into dst
-// (kAttnTile, DH); rows past S are zero.
-template <int DH>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int seq_len, size_t stride) {
-  for (int e = threadIdx.x; e < kAttnTile * DH; e += blockDim.x) {
-    const int r = e / DH;
-    const int d = e - r * DH;
-    dst[e] = r0 + r < seq_len ? src[static_cast<size_t>(r0 + r) * stride + d]
-                              : 0.f;
-  }
-}
-
-template <class Layout, bool DROPOUT>
-__global__ void __launch_bounds__(kAttnRows)
-    attention_tiled_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                               const float* __restrict__ q_in,
-                               const float* __restrict__ k_in,
-                               const float* __restrict__ v_in,
-                               float* __restrict__ out, float q_scale,
-                               uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  __shared__ __align__(16) float k_s[kAttnTile * DH];
-  __shared__ __align__(16) float v_s[kAttnTile * DH];
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int qi = blockIdx.x * kAttnRows + threadIdx.x;
-  const bool valid = qi < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
-
-  float q[DH], acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    q[d] = valid ? q_in[head + qi * row + d] * q_scale : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  for (int j0 = 0; j0 < seq_len; j0 += kAttnTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<DH>(k_s, k_in + head, j0, seq_len, row);
-    load_tile<DH>(v_s, v_in + head, j0, seq_len, row);
-    __syncthreads();
-    if (!valid) continue;
-    const int nk = min(kAttnTile, seq_len - j0);
-    for (int t = 0; t < nk; t += 4) {
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, qi, (j0 + t) >> 2);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (t + jj >= nk) break;
-        const float* kj = k_s + (t + jj) * DH;
-        float score = 0.f;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) score = fmaf(q[d], kj[d], score);
-        if (score > m) {
-          const float corr = expf(m - score);
-          l *= corr;
-#pragma unroll
-          for (int d = 0; d < DH; ++d) acc[d] *= corr;
-          m = score;
-        }
-        const float p = expf(score - m);
-        l += p;
-        float pd = p;
-        if (DROPOUT) {
-          pd = philox_word(bits, jj) >= threshold ? p * keep_scale : 0.f;
-        }
-        const float* vj = v_s + (t + jj) * DH;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc[d] = fmaf(pd, vj[d], acc[d]);
-      }
-    }
-  }
-  if (!valid) return;
-  const float inv_l = 1.f / l;
-  float* o = out + lay.out_head(b, h) + qi * lay.out_row();
-#pragma unroll
-  for (int d = 0; d < DH; ++d) o[d] = acc[d] * inv_l;
-}
-
-constexpr int kMaxRowHeadDim = 64;  // the widest thread-a-row forward
-
-// -- the tensor-core kernels: the backward at every width, the forward at
-// Dh = 128 and 256 --------------------------------------------------------
+// -- the tensor-core kernels ---------------------------------------------------
 // Every S x S x Dh product runs on the tensor cores in 3xTF32
 // (mma_tf32.cuh), and the streamed tiles are copied by cp.async into a
 // double buffer, so the next tile loads while the current one computes.
@@ -347,27 +251,59 @@ __device__ __forceinline__ void fragment_keep_words(uint32_t (&bits)[4],
 // its 4 partial denominators in one order and the warp stores out = acc /
 // l as float2s, rows past S left out.
 //
-// Shared memory a block (4 warps, 64 q rows, 2 x 2 tiles of 16 keys): 66 KB
-// at Dh 128 (three blocks an SM), 130 KB at 256 (one). ptxas (sm_90a, both
-// layouts, without / with dropout): 167 / 167 registers at Dh 128 (165 with
-// dropout on split heads), 255 / 255 at 256; no spills. Chosen on the card
-// by bench_attention --kernel lanes (NVIDIA H100 80GB HBM3, 700 W), rate 0,
-// B 16 / 4: blocks of 4 warps against 1, 2 and 8 (1 and 2 warps were up to
-// 1.7x and 1.1x slower at Dh 128, S 256; 8 up to 1.4x slower at Dh 256);
-// 4 accumulator sets at Dh 128 (0.0672 / 0.0178 / 0.0094 ms at S 256 / 64
-// / 16, against 0.0732 / 0.0201 / 0.0101 with one and 0.0747 / 0.0204 /
-// 0.0101 with two) and 2 at Dh 256 (0.0789 ms, against 0.0826 with one and
-// 0.0801 with four); 32-key tiles (2 sets) were 4% faster at S 256 and 27%
-// slower at S 16.
+// Tiles by width: kKeys keys a tile and kSplits sets of S's sums, the k
+// steps over W (1, 1, 2, 3, 4, 6, 8, 16, 32 from Dh 4 to 256) dealt round
+// the sets (where they do not divide, the last steps have no partner).
+//
+// Dh <= 64 (4 warps, 64 q rows): 64-key tiles and one set up to Dh 24, 32
+// keys and one set at 32 and 48, 32 keys and four sets at 64; shared
+// memory 15 KB at Dh 4 and 8, 25 at 16, 35 at 24, 27 at 32, 39 at 48, 51 at
+// 64. ptxas (sm_90a, packed, without / with dropout): 79 / 80 registers at
+// Dh 4, 93 / 96 at 8, 127 / 128 at 16, 128 / 128 at 24, 96 / 127 at 32, 96
+// / 128 at 48, 154 / 163 at 64; no spills. Chosen on the card by
+// bench_attention --kernel rows (NVIDIA H100 80GB HBM3, 700 W, B 64, 4
+// heads, rate 0, ms at S 256 / 64 / 16 / 1024): 64-key tiles against 32
+// and 16 at Dh 4 0.0316 / 0.0087 / 0.0080 / 0.3628, 0.0330 / 0.0086 /
+// 0.0073 / 0.3896, 0.0387 / 0.0095 / 0.0070 / 0.4666; at Dh 24 0.0540 /
+// 0.0116 / 0.0089 / 0.6782, 0.0562 / 0.0115 / 0.0081 / 0.7193, 0.0654 /
+// 0.0123 / 0.0078 / 0.8286; at Dh 64 32 keys 0.1145 / 0.0178 / 0.0106 /
+// 1.5459 against 64 0.1281 / 0.0184 / 0.0129 / 1.7315 and 16 0.1313 /
+// 0.0192 / 0.0099 / 1.7234 (two sets). One set against two and four at
+// Dh 24: 0.0540 / 0.0117 / 0.0089 / 0.6784, 0.0539 / 0.0117 / 0.0090 /
+// 0.6806, 0.0557 / 0.0118 / 0.0092 / 0.7072 (rate 0.2, S 1024: 0.9297,
+// 0.9379, 0.9950); at Dh 32 (S 256 / 1024) 0.0658 / 0.8658 against 0.0669
+// / 0.8827 and 0.0716 / 0.9346; at Dh 48 0.0912 / 1.1859, 0.0922 / 1.2014,
+// 0.0957 / 1.2583; at Dh 64 four sets 0.1108 / 0.0167 / 0.0097 / 1.5252
+// against two 0.1148 / 0.0178 / 0.0105 / 1.5455 and one 0.1140 / 0.0177 /
+// 0.0103 / 1.5376. So S 16 runs 7-14% slower than in 16-key tiles, for
+// 10-22% off S 256 and 1024 (one set of tiles a width). The thread-a-row
+// kernel these replace (a thread a query, K and V tiles read as
+// broadcasts) took 0.0471 / 0.0163 / 0.0089 / 0.3678 at Dh 4, 0.1827 /
+// 0.0485 / 0.0174 / 1.6788 at Dh 24 and 0.6881 / 0.1016 / 0.0322 / 6.5557
+// at Dh 64 in the same turns: every width runs this kernel.
+//
+// Dh 128 and 256 (4 warps, 64 q rows, 2 x 2 tiles of 16 keys): 66 KB of
+// shared memory at Dh 128 (three blocks an SM), 130 KB at 256 (one). ptxas
+// (sm_90a, both layouts, without / with dropout): 167 / 167 registers at Dh
+// 128 (165 with dropout on split heads), 255 / 255 at 256; no spills. Chosen
+// on the card by bench_attention --kernel lanes (NVIDIA H100 80GB HBM3, 700
+// W), rate 0, B 16 / 4: blocks of 4 warps against 1, 2 and 8 (1 and 2 warps
+// were up to 1.7x and 1.1x slower at Dh 128, S 256; 8 up to 1.4x slower at
+// Dh 256); 4 accumulator sets at Dh 128 (0.0672 / 0.0178 / 0.0094 ms at S
+// 256 / 64 / 16, against 0.0732 / 0.0201 / 0.0101 with one and 0.0747 /
+// 0.0204 / 0.0101 with two) and 2 at Dh 256 (0.0789 ms, against 0.0826 with
+// one and 0.0801 with four); 32-key tiles (2 sets) were 4% faster at S 256
+// and 27% slower at S 16.
 template <int DH>
 struct MmaFwd {
+  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's floats
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;  // queries a block
-  static constexpr int kKeys = 16;           // keys a tile
-  static constexpr int kSplits = DH == 128 ? 4 : 2;  // sets of S's sums
+  static constexpr int kKeys = DH <= 24 ? 64 : DH <= 64 ? 32 : 16;  // a tile
+  static constexpr int kSplits = DH <= 48 ? 1 : DH == 256 ? 2 : 4;  // S's sets
   static constexpr size_t kBytes =
-      sizeof(float) * (kRows + 2 * 2 * kKeys) * (DH + kTilePad);
+      sizeof(float) * (kRows + 2 * 2 * kKeys) * (kWidth + kTilePad);
 };
 
 template <class Layout, bool DROPOUT>
@@ -380,11 +316,12 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
                              uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaFwd<DH>;
+  constexpr int W = T::kWidth;
   constexpr int KT = T::kKeys;
   constexpr int NT = KT / 8;  // columns of 8 keys in a tile
-  constexpr int NK = DH / 8;  // k steps over Dh, and out's columns of 8
+  constexpr int NK = W / 8;   // k steps over W, and out's columns of 8
   constexpr int NS = T::kSplits;
-  constexpr int LD = DH + kTilePad;
+  constexpr int LD = W + kTilePad;
   extern __shared__ float4 mma_smem[];
   float* q_s = reinterpret_cast<float*>(mma_smem);  // (kRows, LD), unscaled
   float* kv_s = q_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
@@ -403,11 +340,12 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
   const int nk = (seq_len + KT - 1) / KT;
 
-  load_rows_async<DH, T::kRows>(q_s, q_in + head, i0, seq_len, row,
-                                T::kThreads);
-  load_rows_async<DH, KT>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
-  load_rows_async<DH, KT>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
-                          T::kThreads);
+  if constexpr (W != DH) zero_shared(q_s, T::kBytes / sizeof(float));
+  load_rows_async<DH, T::kRows, W>(q_s, q_in + head, i0, seq_len, row,
+                                   T::kThreads);
+  load_rows_async<DH, KT, W>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_async<DH, KT, W>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                             T::kThreads);
   cp_async_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -421,10 +359,10 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + 1 < nk) {
       float* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
-      load_rows_async<DH, KT>(next, k_in + head, (t + 1) * KT, seq_len, row,
-                              T::kThreads);
-      load_rows_async<DH, KT>(next + KT * LD, v_in + head, (t + 1) * KT,
-                              seq_len, row, T::kThreads);
+      load_rows_async<DH, KT, W>(next, k_in + head, (t + 1) * KT, seq_len,
+                                 row, T::kThreads);
+      load_rows_async<DH, KT, W>(next + KT * LD, v_in + head, (t + 1) * KT,
+                                 seq_len, row, T::kThreads);
       cp_async_commit();
     }
     if (!active) continue;
@@ -433,8 +371,8 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
     const float* v_s = k_s + KT * LD;
 
     // S = q K^T: the warp's 16 rows x the tile's KT keys, k step ks into
-    // accumulator set ks % NS for more products in flight, the sets added
-    // in order
+    // accumulator set ks % NS for more products in flight (an odd NK's last
+    // step alone), the sets added in order
     float x[NS][NT][4];
 #pragma unroll
     for (int p = 0; p < NS; ++p) {
@@ -447,11 +385,12 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
     for (int ks = 0; ks < NK; ks += NS) {
 #pragma unroll
       for (int p = 0; p < NS; ++p) {
+        if (ks + p >= NK) break;
         const int c = 8 * (ks + p) + tg;
-        const FragA qa = tile_frag_a<DH>(q_s, r0 + gr, c);
+        const FragA qa = tile_frag_a<W>(q_s, r0 + gr, c);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          mma_3xtf32(x[p][n], qa, tile_frag_bt<DH>(k_s, 8 * n + gr, c));
+          mma_3xtf32(x[p][n], qa, tile_frag_bt<W>(k_s, 8 * n + gr, c));
         }
       }
     }
@@ -513,7 +452,7 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         mma_3xtf32(pv, pa[n],
-                   tile_frag_b<DH>(v_s, 8 * n + 2 * tg, 8 * dn + gr));
+                   tile_frag_b<W>(v_s, 8 * n + 2 * tg, 8 * dn + gr));
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -533,6 +472,7 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
                  lay.out_row() + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < NK; ++dn) {
+      if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
       *reinterpret_cast<float2*>(dst + 8 * dn) =
           make_float2(acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
     }
@@ -919,14 +859,16 @@ cudaError_t launch_dynamic(Kernel kernel, dim3 grid, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
-// The forward at Dh = 128 and 256: the tensor-core kernel. cp.async copies
-// 16-byte chunks, so q, k and v must start 16-byte aligned (a view at an
-// odd offset is refused).
+// The forward of one layout, at every width: the tensor-core kernel, one
+// launch. cp.async copies 16-byte chunks, so q, k and v must start 16-byte
+// aligned (the wrappers' fresh tensors do; a view at an odd offset is
+// refused, with no launch).
 template <class Layout>
-cudaError_t attention_mma_fwd(Layout lay, int batch, const int* seed,
-                              const float* q, const float* k, const float* v,
-                              float* out, float q_scale, uint32_t threshold,
-                              float keep_scale, cudaStream_t stream) {
+cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
+                                const float* q, const float* k,
+                                const float* v, float* out, float q_scale,
+                                uint32_t threshold, float keep_scale,
+                                cudaStream_t stream) {
   using T = MmaFwd<Layout::kHeadDim>;
   for (const float* p : {q, k, v}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
@@ -978,45 +920,9 @@ cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
                         threshold, keep_scale);
 }
 
-template <class Layout>
-cudaError_t attention_rows_fwd(Layout lay, int batch, const int* seed,
-                               const float* q, const float* k,
-                               const float* v, float* out, float q_scale,
-                               uint32_t threshold, float keep_scale,
-                               cudaStream_t stream) {
-  const dim3 grid((lay.seq_len + kAttnRows - 1) / kAttnRows, lay.heads,
-                  batch);
-  if (threshold > 0) {
-    attention_tiled_fwd_kernel<Layout, true><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, out, q_scale, threshold, keep_scale);
-  } else {
-    attention_tiled_fwd_kernel<Layout, false><<<grid, kAttnRows, 0, stream>>>(
-        lay, seed, q, k, v, out, q_scale, threshold, keep_scale);
-  }
-  return cudaGetLastError();
-}
-
-// The forward of one layout: a thread a query row up to Dh = 64, the
-// tensor-core kernel above at 128 and 256.
-template <class Layout>
-cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
-                                const float* q, const float* k,
-                                const float* v, float* out, float q_scale,
-                                uint32_t threshold, float keep_scale,
-                                cudaStream_t stream) {
-  if constexpr (Layout::kHeadDim > kMaxRowHeadDim) {
-    return attention_mma_fwd(lay, batch, seed, q, k, v, out, q_scale,
-                             threshold, keep_scale, stream);
-  } else {
-    return attention_rows_fwd(lay, batch, seed, q, k, v, out, q_scale,
-                              threshold, keep_scale, stream);
-  }
-}
-
 // fn(Layout<D>{seq_len, heads}) for D = head_dim among the widths built (the
-// wrappers' HEAD_DIMS: the forward a thread a row up to 64 and on the tensor
-// cores at 128 and 256, the backward on the tensor cores at every one);
-// cudaErrorInvalidValue for any other.
+// wrappers' HEAD_DIMS; the forward and the backward run on the tensor cores
+// at every one); cudaErrorInvalidValue for any other.
 template <template <int> class Layout, class Fn>
 cudaError_t with_head_dim(int head_dim, int seq_len, int heads, Fn fn) {
   switch (head_dim) {

@@ -11,35 +11,34 @@
 //     in the kernel, q scaled by q_scale (the wrapper's Dh^-1/2) as it is
 //     loaded; out (B, S, C); the backward gives dqkv (B, S, 3C) packed
 //     [dK | dV | dq * q_scale].
-// Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256. The forward runs a
-// thread a query row up to 64 and on the tensor cores at 128 and 256; the
-// backward runs on the tensor cores at every width (attention_tiled.cuh).
+// Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256. The forward and the
+// backward run on the tensor cores at every width (attention_tiled.cuh).
 // For every batch row b and head h:
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate);  out = Pd v
 // and the backward of the JAX module's docstring:
 //   dV = Pd^T g;  dPd = g V^T;  dP = keep * dPd / (1 - rate)
 //   dS = P * (dP - rowsum(dP * P));  dQ = dS K;  dK = dS^T Q
 // The keep bit of score (b, h, i, j) is word (j & 3) of Philox at counter
-// (j >> 2, i, h, b), key (seed, 0) (philox.cuh), as in the proj and long
-// kernels: at one seed all four attention entries drop the same scores.
+// (j >> 2, i, h, b), key (seed, 0) (philox.cuh), as in the long kernels:
+// at one seed every attention entry drops the same scores.
 // The Pallas kernels draw theirs from the TPU's generator, which no other
 // device reproduces.
 //
 // What bounds it on the H100: operations. At the flagship's level 0 (B=64,
 // S=256, 4 heads of Dh=24) the forward does two S x S x Dh products of 0.81
-// GFLOP each plus ~0.08 GOP of softmax: >= ~25 us at the fp32 rate outside
-// the tensor cores (67 TFLOP/s); the backward five such products on the
-// tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~25 us (~61 at the fp32
-// rate). The bytes (q, k, v, g, out, dq, dk, dv: 25-50 MB) need 8-15 us.
+// GFLOP each plus ~0.08 GOP of softmax, the backward five such products,
+// all on the tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~10 and ~25 us
+// (~25 and ~61 at the fp32 rate off them, 67 TFLOP/s). The bytes (q, k, v,
+// g, out, dq, dk, dv: 25-50 MB) need 8-15 us.
 //
 // Design: the key-tiled kernels of attention_tiled.cuh, shared with
 // fused_attention_long.cu, instantiated for both layouts (SplitHeads with
 // q_scale 1, PackedQkv with q_scale Dh^-1/2): the forward a block per
 // (queries, head, batch row) with an online softmax; the backward a dq
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch, then a dK/dV
-// kernel, no atomics, so it repeats bit for bit. The proj kernel's design
-// (one head's K, V and Q whole in shared memory) does not cover the range:
-// at S = 512, Dh = 64 K and V alone take 256 KB, over a block's 227 KB.
+// kernel, no atomics, so it repeats bit for bit. A head's K and V whole in
+// shared memory would not cover the range: at S = 512, Dh = 64 they take
+// 256 KB, over a block's 227 KB.
 #include "attention_tiled.cuh"
 
 namespace {

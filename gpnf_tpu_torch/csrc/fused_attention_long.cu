@@ -1,11 +1,10 @@
-// Multi-head self-attention for long sequences (512 < S <= 2048), and
-// GatedAttn's wide route at any S <= 2048 where the proj kernel does not fit
-// (ops/kernels/fused_attention.py, `attention_route`; there, at S <= 512,
-// the projection and dseq / dW around these kernels are attention_gemm.cu's),
-// and the backward of the proj route (`fused_attention_proj_bwd`: these
-// backward kernels between attention_gemm.cu's products):
-// forward with in-kernel dropout and backward, hand-written for Hopper
-// (sm_90a).
+// Multi-head self-attention for long sequences (512 < S <= 2048), for
+// GatedAttn's wide route at any S <= 2048 (ops/kernels/fused_attention.py,
+// `attention_route`; there, at S <= 512, the projection and dseq / dW
+// around these kernels are attention_gemm.cu's), and for the proj route
+// (`fused_attention_proj` and its backward: these kernels after and between
+// attention_gemm.cu's products): forward with in-kernel dropout and
+// backward, hand-written for Hopper (sm_90a).
 //
 // Replaces: gpnf_tpu/ops/pallas/fused_attention.py, `_fwd_kernel_bh` and
 // `_bwd_kernel_bh` (both launched by `_run_bh`), from
@@ -21,9 +20,8 @@
 // 4, 8, 16, 24, 32, 48, 64, and 128, 256 by the Dh = 128 / 256 kernels).
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate)
 //   out[b, :, h*Dh : (h+1)*Dh] = Pd v
-// The keep bit of score (b, h, i, j) comes from philox.cuh, the same pure
-// function of (seed, b, h, i, j) as in fused_attention_proj.cu, so at one
-// seed the two entries drop the same scores.
+// The keep bit of score (b, h, i, j) comes from philox.cuh, a pure function
+// of (seed, b, h, i, j), so at one seed every entry drops the same scores.
 //
 // Backward, with g = d out:
 //   dV = Pd^T g;  dPd = g V^T;  dP = keep * dPd / (1 - rate)
@@ -32,11 +30,11 @@
 //
 // What bounds it on the H100: operations. At the 64-px row's level 0
 // (B=64, S=1024, C=96, 4 heads of Dh=24) the forward does two S x S x Dh
-// products of 12.9 GFLOP each plus ~1.3 GOP of softmax: >= ~0.40 ms at the
-// fp32 rate outside the tensor cores (67 TFLOP/s). The backward does five
-// such products (the scores again, dPd, dV, dq, dK), ~64 GFLOP, on the
-// tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~0.40 ms (~0.96 at the
-// fp32 rate). The bytes (qkv, g, out, dqkv: 100-180 MB) need 30-53 us. At
+// products of 12.9 GFLOP each plus ~1.3 GOP of softmax, the backward five
+// such products (the scores again, dPd, dV, dq, dK), ~64 GFLOP, all on the
+// tensor cores in 3xTF32 (495 / 3 TFLOP/s): >= ~0.16 and ~0.40 ms (~0.40
+// and ~0.96 at the fp32 rate off them, 67 TFLOP/s). The bytes (qkv, g,
+// out, dqkv: 100-180 MB) need 30-53 us. At
 // the CLIs' default width (C=512, Dh=128) and the 32-px level 0 (B=16,
 // S=256) the forward's two products are 2.1 GFLOP and the backward's five
 // 5.4 GFLOP, both on the tensor cores: >= ~13 and ~33 us.
@@ -47,10 +45,9 @@
 // per (queries, head, batch row) with an online softmax forward; a dq
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv
-// (B, S, 3C) directly, so no head split or merge copies. The backward at
-// every width, and the forward at Dh = 128 and 256, run as the header's
-// tensor-core kernels (3xTF32 mma.sync, mma_tf32.cuh), the tiles in
-// dynamic shared memory; the forward up to Dh = 64 a thread a query row.
+// (B, S, 3C) directly, so no head split or merge copies. The forward and
+// the backward run at every width as the header's tensor-core kernels
+// (3xTF32 mma.sync, mma_tf32.cuh), the tiles in dynamic shared memory.
 #include "attention_tiled.cuh"
 
 namespace {

@@ -1,8 +1,8 @@
 // 3xTF32 tensor-core products at about fp32 accuracy, and cp.async copies
 // into padded shared-memory tiles: the building blocks of the attention
-// tensor-core kernels (attention_tiled.cuh: the forward at Dh = 128 and
-// 256, the backward at every built width, 4 to 256) and of the projection
-// GEMMs (attention_gemm.cu).
+// tensor-core kernels (attention_tiled.cuh: the forward and the backward at
+// every built width, 4 to 256) and of the projection GEMMs
+// (attention_gemm.cu).
 //
 // The arithmetic is that of the yardstick, PyTorch's float32 memory-efficient
 // attention on sm_80 and later (CUTLASS's OpMultiplyAddFastF32): each fp32

@@ -25,9 +25,9 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gpnf_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention_proj", "fused_attention_long", "mixlogcdf_forward",
-           "mixture_inverse", "fused_affine", "tril_solve", "cholesky",
-           "fused_gated_conv", "fused_attention", "attention_gemm")
+SOURCES = ("fused_attention_long", "mixlogcdf_forward", "mixture_inverse",
+           "fused_affine", "tril_solve", "cholesky", "fused_gated_conv",
+           "fused_attention", "attention_gemm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,9 +35,6 @@ _U = ctypes.c_uint32
 _F = ctypes.c_float
 # C signature of every entry point: argument types, restype int (a cudaError_t)
 SIGNATURES = {
-    "fused_attention_proj": {
-        "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
-    },
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],

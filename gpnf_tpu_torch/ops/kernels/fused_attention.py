@@ -1,16 +1,17 @@
 """Multi-head self-attention kernels: the fused-projection entry, the
-long (or wide) entry for what the proj kernel does not take, and the core
+long (or wide) entry for what the proj entry does not take, and the core
 entries on separate q, k, v or a packed qkv for S <= 512.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
-- `fused_attention_proj` (forward and backward, dropout inside both): the
-  forward with the qkv projection inside the kernel, gpnf_tpu_torch/csrc/
-  fused_attention_proj.cu, which keeps a whole head and its 3 Dh weight
-  rows in shared memory and so takes only the shapes `attention_route`
-  names "proj"; the backward (`_bwd_kernel_proj`) as three stages of
-  kernels that fill the card: the projection recomputed by the GEMM kernel,
-  dqkv by the long entry's key-tiled kernels, dseq and dW by the GEMM
-  kernel with a split K (`fused_attention_proj_bwd`).
+- `fused_attention_proj` (forward and backward, dropout inside both), at
+  the shapes `attention_route` names "proj": each as stages of kernels
+  that fill the card, across the whole batch. The forward
+  (`_fwd_kernel_proj`): qkv = seq w^T by the GEMM kernel, then out by the
+  long entry's key-tiled forward (`_proj_fwd_stages`). The backward
+  (`_bwd_kernel_proj`): the projection recomputed by the GEMM kernel, dqkv
+  by the long entry's key-tiled kernels, dseq and dW by the GEMM kernel
+  with a split K (`fused_attention_proj_bwd`). Both use the q scale
+  1.f / sqrtf(Dh), so the backward's scores and mask are the forward's.
   `attention_proj_plain` and `attention_proj_plain_bwd` are its plain
   PyTorch versions.
 - `fused_attention_long` (`_fwd_kernel_bh`, `_bwd_kernel_bh`): the
@@ -39,15 +40,14 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
   JAX package runs its jnp reference, even on a TPU; the port raises.
 The key-tiled kernels are built for the head widths HEAD_DIMS. The
-backward runs on the tensor cores at every width (dq and dK/dV kernels of
-3xTF32 mma.sync tiles, csrc/mma_tf32.cuh); the forward runs a thread a
-query row up to Dh = 64 and on the tensor cores at 128 and 256. Launches at
-Dh = 128 and 256, by any entry, are also counted by `attention_lanes` and
-`attention_lanes_bwd` (the names of the lane-split kernels those widths
-once ran); every entry counts its own calls at every width.
-`attention_route(S, C, heads)` says which entry GatedAttn takes: the proj
-kernel where its width is built and its forward and backward fit in a
-block's shared memory, the wide route everywhere else. Each source's
+forward and the backward run on the tensor cores at every width (3xTF32
+mma.sync tiles, csrc/mma_tf32.cuh: one forward kernel, and the dq and
+dK/dV kernels). Launches at Dh = 128 and 256, by any entry, are also
+counted by `attention_lanes` and `attention_lanes_bwd` (the names of the
+lane-split kernels those widths once ran); every entry counts its own
+calls at every width. `attention_route(S, C, heads)` says which entry
+GatedAttn takes: the proj entry at the shapes its fused forward kernel
+once held, the wide route everywhere else. Each source's
 header says what bounds its kernels on the H100 and how they are laid
 out. The wrappers run the plain versions for CPU tensors, and the tests
 and chip_smoke.py hold the kernels against them.
@@ -74,13 +74,14 @@ from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
-# Dh values the key-tiled kernels are built for; the backward runs on the
-# tensor cores at each, the forward at 128 and 256
+# Dh values the key-tiled kernels are built for, each on the tensor cores
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
 LANE_SPLIT_DIMS = (128, 256)
-PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)  # the proj kernel's
-# fused_attention_proj.cu: kMaxSharedBytes (227 KB a block on sm_90) in
-# floats, and kRows, the seq rows it stages at a time
+# the proj route's rule, the fit of the fused forward kernel it was drawn
+# for (fused_attention_proj.cu, since replaced by the forward's stages): its
+# head widths, kMaxSharedBytes (227 KB a block on sm_90) in floats, and
+# kRows, the seq rows it staged at a time
+PROJ_HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64)
 PROJ_SHARED_FLOATS = 232448 // 4
 PROJ_ROWS = 32
 # attention_gemm.cu: the output tiles (BM, BN), large where they cover the
@@ -182,11 +183,10 @@ def padded_head_dim(head_dim: int) -> int:
 
 
 def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
-    """The shared memory of the proj forward kernel, in floats:
-    fused_attention_proj.cu's fwd_shared_floats (the head's weight rows,
-    the staged seq rows, K, V and Q). The proj backward runs kernels that
-    tile the key axis and hold no whole head, so the forward alone decides
-    the fit."""
+    """The shared memory, in floats, that the fused proj forward kernel
+    took for one head (its weight rows, the staged seq rows, K, V and Q):
+    the rule `attention_route` keeps, though the stages that replaced the
+    kernel hold no whole head."""
     cp = channels + 1
     return 3 * head_dim * cp + PROJ_ROWS * cp + 3 * seq_len * head_dim
 
@@ -194,11 +194,15 @@ def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
 def attention_route(seq_len: int, channels: int,
                     num_heads: int) -> AttentionRoute:
     """Which entry computes GatedAttn's attention for S = seq_len, C =
-    channels: the proj kernel where its head width is built, S <= MAX_S
-    and its forward fits a block's shared memory, the wide route
-    `fused_attention_long` everywhere else, at the padded width.
-    Decided from the shape alone, before any launch; raises for S >
-    MAX_S_LONG or a head width above 256."""
+    channels: the proj entry where the head width is one of
+    PROJ_HEAD_DIMS, S <= MAX_S and the fused forward kernel the route was
+    drawn for fit a block's shared memory (`proj_shared_floats`), the wide
+    route `fused_attention_long` everywhere else, at the padded width.
+    Both entries now run the same kernels at an unpadded width; the rule
+    stays so that every shape keeps its entry, its padding and its bits
+    (folding the two routes is left for later). Decided from the shape
+    alone, before any launch; raises for S > MAX_S_LONG or a head width
+    above 256."""
     if channels % num_heads:
         raise ValueError(f"C={channels} is not a multiple of {num_heads} "
                          f"heads")
@@ -388,18 +392,19 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
 
 
 def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, **tensors):
-    """The proj forward kernel's shared-memory fit, which `attention_route`
-    checks, then `_cuda_args`."""
+    """The proj route's shapes (`attention_route`'s fit rule), then
+    `_cuda_args`."""
     b, s, c = seq.shape
     dh = c // num_heads
     if (s <= MAX_S and dh in PROJ_HEAD_DIMS
             and attention_route(s, c, num_heads).entry != "proj"):
         raise ValueError(
-            f"{kernel}: S={s}, C={c} over {num_heads} heads needs "
+            f"{kernel}: S={s}, C={c} over {num_heads} heads is not a proj "
+            f"shape: its fused forward would have needed "
             f"{proj_shared_floats(s, c, dh) * 4} bytes of shared memory, "
-            f"over the {PROJ_SHARED_FLOATS * 4} a block has; "
-            f"fused_attention_long (GatedAttn's wide route) computes the "
-            f"same function there")
+            f"over the {PROJ_SHARED_FLOATS * 4} a block has "
+            f"(`attention_route`'s rule); fused_attention_long (GatedAttn's "
+            f"wide route) computes the same function there")
     return _cuda_args(kernel, s, dh, MAX_S, rate, seed, PROJ_HEAD_DIMS,
                       seq=seq, w=w, **tensors)
 
@@ -408,15 +413,22 @@ def _forward(seq, w, num_heads, rate, seed):
     _validate(seq, w, num_heads, rate, seed)
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return attention_proj_plain(seq, w, num_heads, rate, seed)
-    b, s, c = seq.shape
-    device, seed_ptr, threshold, scale = _proj_cuda_args(
-        "fused_attention_proj", seq, w, num_heads, rate, seed)
-    out = torch.empty_like(seq)
-    _native.launch("fused_attention_proj", "gpnf_attention_proj_fwd", device,
-                   seed_ptr, seq.data_ptr(), w.data_ptr(), out.data_ptr(), b,
-                   s, c, num_heads, threshold, scale)
+    _proj_cuda_args("fused_attention_proj", seq, w, num_heads, rate,
+                    seed)  # the checks; the stages launch
+    out = _proj_fwd_stages(seq, w, num_heads, rate, seed)
     fused_attention_proj.launches += 1
     return out
+
+
+def _proj_fwd_stages(seq, w, num_heads, rate, seed):
+    """`_fwd_kernel_proj`'s work in two stages, each across the whole
+    batch: qkv = seq w^T (`attention_qkv_gemm`), then out by the
+    tensor-core forward (`attention_long_qkv`, q scaled by `head_scale`,
+    the backward's scale, so its scores and its mask are the ones the
+    backward regenerates). The qkv (B, S, 3C) lives only for the call.
+    CPU tensors take each wrapper's plain version."""
+    return attention_long_qkv(attention_qkv_gemm(seq, w), num_heads, rate,
+                              seed, head_scale(seq.shape[2] // num_heads))
 
 
 def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
@@ -479,17 +491,19 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     """dropout(softmax(q k^T / sqrt(Dh))) v over `num_heads` heads, with
     [k|v|q] = seq w^T; `seed` is a (1,) int32 tensor on seq's device, read
     only when rate > 0. Differentiable in seq and w. CPU tensors take the
-    plain versions; CUDA tensors launch the kernels or raise."""
+    plain versions; CUDA tensors launch the kernels (`_proj_fwd_stages`,
+    `_proj_bwd_stages`) or raise. A call counts one launch here and one
+    in each stage's count, forward and backward alike."""
     return _AttentionProj.apply(seq, w, seed, num_heads, rate)
 
 
 # -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
 class LaunchCount:
     """The launch count of kernels that no wrapper of their own launches:
-    the key-tiled kernels at Dh = 128 and 256 (the tensor-core forward, and
-    the tensor-core backward, which narrower widths run too but count only
-    in their entry), launched by every key-tiled attention entry at those
-    widths. The entry counts the launch too."""
+    the key-tiled kernels at Dh = 128 and 256 (the tensor-core forward and
+    backward, which narrower widths run too but count only in their
+    entry), launched by every key-tiled attention entry at those widths.
+    The entry counts the launch too."""
 
     def __init__(self, name: str):
         self.__name__ = name

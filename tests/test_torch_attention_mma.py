@@ -1,15 +1,17 @@
 """The arithmetic of the tensor-core attention kernels
-(gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh: the forward at
-Dh = 128 and 256, the backward at every width), emulated on the CPU: the
-TF32 rounding of `tf32_bits`, the hi / lo split, the 3xTF32 product, the
-forward in its kernel's order (key tiles, the quad's online max and
-partial denominators, P split as the A fragment of Pd V) against the JAX
-package's forward and the port's plain one, and the whole backward in the
-kernels' tile order (key tiles of the dq kernel's two passes, query tiles
-of the dK/dV kernel, k steps of 8 with three products each, the tiles of
-each width as the source sets them) against the JAX package's gradients
-and the port's plain backward; the tiles' shared-memory banks. The kernels
-themselves are held against the plain versions on the card by
+(gpnf_tpu_torch/csrc/mma_tf32.cuh and attention_tiled.cuh: the forward and
+the backward at every width), emulated on the CPU: the TF32 rounding of
+`tf32_bits`, the hi / lo split, the 3xTF32 product, the forward in its
+kernel's order (key tiles, the quad's online max and partial
+denominators, P split as the A fragment of Pd V, the tiles of each width
+as the source sets them) against the JAX package's forward and the port's
+plain one, and the whole backward in the kernels' tile order (key tiles
+of the dq kernel's two passes, query tiles of the dK/dV kernel, k steps of
+8 with three products each) against the JAX package's gradients and the
+port's plain backward; the tiles' shared-memory banks; and the proj
+forward's two stages (the projection, then the forward at the backward's
+q scale) against the plain and JAX proj forwards and the backward's mask.
+The kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py."""
 import importlib
 import re
@@ -30,13 +32,14 @@ fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 HEADS = 4
 CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
 TILED = (CSRC / "attention_tiled.cuh").read_text()
-# attention_tiled.cuh's tiles, which test_tile_constants_match_the_cuda_source
-# holds to the source: the forward's key tile and its accumulator sets of
-# S = q K^T by Dh; by Dh, the tile width and the dq kernel's key tile and
-# the dK/dV kernel's query tile (the emulation reads them from the source,
-# `cuda_const`)
-FWD_KEY_TILE = 16
-FWD_SPLITS = {128: 4, 256: 2}
+# attention_tiled.cuh's tiles by Dh, which
+# test_tile_constants_match_the_cuda_source holds to the source (the
+# emulations read them from the source, `cuda_const`): the forward's tile
+# width, key tile and accumulator sets of S = q K^T; the backward's tile
+# width, dq kernel's key tile and dK/dV kernel's query tile
+FWD_TILES = {4: (8, 64, 1), 8: (8, 64, 1), 16: (16, 64, 1), 24: (24, 64, 1),
+             32: (32, 32, 1), 48: (48, 32, 1), 64: (64, 32, 4),
+             128: (128, 16, 4), 256: (256, 16, 2)}
 BWD_TILES = {4: (8, 64, 64), 8: (8, 64, 64), 16: (16, 64, 64),
              24: (24, 64, 64), 32: (32, 32, 32), 48: (48, 32, 32),
              64: (64, 32, 32), 128: (128, 16, 32), 256: (256, 16, 16)}
@@ -65,25 +68,31 @@ def _keep(seed, b, num_heads, s, rate):
             else None)
 
 
-def emulated_fwd(qkv, num_heads, rate=0.0, seed=None):
+def emulated_fwd(qkv, num_heads, rate=0.0, seed=None, q_scale=None):
     """out (B, S, C) of the packed attention as the forward kernel computes
-    it: key tiles of FWD_KEY_TILE keys (past S: zero rows, scores at -inf);
-    S = q K^T in 3xTF32 on unscaled q, its k steps in FWD_SPLITS[Dh]
-    accumulator sets, scaled after; per tile the row max,
-    then the partial denominators of the quad's 4 threads (thread tg holds
-    columns 2 tg, 2 tg + 1 of every 8) rescaled by corr = exp(m_old -
-    m_new); P = exp(s - m) added to the thread's partial in column order;
-    Pd = keep P / (1 - rate), split hi / lo as the A fragment of the tile's
-    Pd V, summed from zero and added as fmaf(acc, corr, Pd V); at the end
-    the quad's partials added as (l0 + l1) + (l2 + l3) and out = acc *
-    (1 / l)."""
+    it, in the source's tiles for the width (`MmaFwd`): rows of kWidth
+    floats (Dh 4: four zero pad columns); key tiles of kKeys keys (past S:
+    zero rows, scores at -inf); S = q K^T in 3xTF32 on unscaled q, its k
+    steps dealt round kSplits accumulator sets, scaled by q_scale (default
+    `head_scale`) after; per tile the row max, then the partial
+    denominators of the quad's 4 threads (thread tg holds columns 2 tg,
+    2 tg + 1 of every 8) rescaled by corr = exp(m_old - m_new); P = exp(s -
+    m) added to the thread's partial in column order; Pd = keep P / (1 -
+    rate), split hi / lo as the A fragment of the tile's Pd V, summed from
+    zero and added as fmaf(acc, corr, Pd V); at the end the quad's partials
+    added as (l0 + l1) + (l2 + l3) and out = acc * (1 / l), pad columns
+    dropped."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
-    q_scale = fa.head_scale(dh)
-    kt_n = FWD_KEY_TILE
+    if q_scale is None:
+        q_scale = fa.head_scale(dh)
+    width = cuda_const("MmaFwd", "kWidth", dh)
+    kt_n = cuda_const("MmaFwd", "kKeys", dh)
+    sets = cuda_const("MmaFwd", "kSplits", dh)
     padded = -(-s // kt_n) * kt_n
-    heads = lambda x: x.reshape(b, s, num_heads, dh).transpose(1, 2)
+    heads = lambda x: torch.nn.functional.pad(
+        x.reshape(b, s, num_heads, dh).transpose(1, 2), (0, width - dh))
     pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, padded - s))
     k, v, q = (heads(x) for x in qkv.split(c, dim=-1))
     k, v = pad(k), pad(v)
@@ -98,7 +107,7 @@ def emulated_fwd(qkv, num_heads, rate=0.0, seed=None):
     for j0 in range(0, padded, kt_n):
         cols = slice(j0, j0 + kt_n)
         kt = k[:, :, cols].transpose(-1, -2)
-        sc = mm3(q, kt, FWD_SPLITS[dh]) * q_scale
+        sc = mm3(q, kt, sets) * q_scale
         sc = torch.where(live[cols], sc, -torch.inf)
         mx = torch.maximum(m, sc.amax(-1))
         corr = torch.exp(m - mx)[..., None]
@@ -114,7 +123,7 @@ def emulated_fwd(qkv, num_heads, rate=0.0, seed=None):
         acc = (acc.double() * corr.double() + pv.double()).float()
         m = mx
     l = (lpart[..., 0] + lpart[..., 1]) + (lpart[..., 2] + lpart[..., 3])
-    out = acc * (1.0 / l)[..., None]
+    out = acc[..., :dh] * (1.0 / l)[..., None]
     return out.transpose(1, 2).reshape(b, s, c)
 
 
@@ -274,6 +283,91 @@ def test_emulated_forward_matches_the_plain_forward(s, c, rate):
     close(emulated_fwd(qkv, HEADS, rate, seed), want, rtol=1e-4, atol=1e-5)
 
 
+# the narrow widths of the forward: Dh 4 (tile width 8), 8 (one k step), 24
+# (the flagship's, three k steps: an odd last one) and 64 (the widest).
+# Against the JAX package (~2 s a case) each width at S 100, which spans
+# several key tiles; against the plain forward at S 17 and 100, and at Dh 16,
+# 32 and 48 too
+NARROW_FWD_JAX = [(4, 100), (8, 100), (24, 100), (64, 100)]
+NARROW_FWD = [(dh, s) for dh in (4, 8, 16, 24, 32, 48, 64) for s in (17, 100)]
+
+
+@pytest.mark.parametrize("dh,s", NARROW_FWD_JAX)
+def test_emulated_narrow_forward_matches_jax(dh, s):
+    """Dh 4, 8, 24 and 64 (4 heads), batch 2, rate 0: the emulated forward
+    kernel, in each width's tiles, against the JAX package's
+    fused_attention_qkv on the CPU, at the bar of
+    tests/test_torch_attention_widths.py (rtol 1e-4, atol 1e-5)."""
+    qkv, _ = _inputs(s, c=HEADS * dh, seed=dh)
+    want = jfa.fused_attention_qkv(jnp.zeros((1,), jnp.int32),
+                                   jnp.asarray(qkv), HEADS, 0.0, False)
+    close(emulated_fwd(t(qkv), HEADS), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dh,s", NARROW_FWD)
+def test_emulated_narrow_forward_matches_the_plain_forward(dh, s, rate):
+    """The same at every narrow width against `attention_long_plain`, the
+    plain version the card's kernel is held to, at rate 0 and 0.2 (the
+    port's mask at one seed: a single differing keep bit would show far
+    above the bar)."""
+    qkv, _ = (t(x) for x in _inputs(s, c=HEADS * dh, seed=dh + 3))
+    seed = torch.tensor([55 + s + dh], dtype=torch.int32)
+    want = kernels.attention_long_plain(qkv, HEADS, rate, seed)
+    close(emulated_fwd(qkv, HEADS, rate, seed), want, rtol=1e-4, atol=1e-5)
+
+
+# -- the proj forward as two stages -----------------------------------------------
+def _proj_inputs(s, seed):
+    r = rng(seed + s)
+    return (t(normal(r, (2, s, 96), 0.5)), t(normal(r, (288, 96), 0.1)),
+            t(normal(r, (2, s, 96))))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("s", [16, 64])
+def test_proj_forward_stages_match_the_plain_and_jax_forward(s, rate):
+    """C 96 (the flagship's), 4 heads, batch 2: the proj forward's stages on
+    the CPU, attention_long_plain(seq w^T) at the kernels' q scale
+    `head_scale` (1.f / sqrtf(24), one ulp from 24 ** -0.5), against
+    `attention_proj_plain`; the kernels' order of the second stage
+    (`emulated_fwd`) against both; and at rate 0 against the JAX
+    package's fused_attention_proj (its masks come from the TPU's
+    generator)."""
+    seq, w, _ = _proj_inputs(s, 17)
+    seed = torch.tensor([9 + s], dtype=torch.int32)
+    qkv = torch.matmul(seq, w.t())
+    stages = fa._proj_fwd_stages(seq, w, HEADS, rate, seed)
+    close(stages, kernels.attention_long_plain(qkv, HEADS, rate, seed,
+                                               fa.head_scale(24)), 0, 0)
+    want = kernels.attention_proj_plain(seq, w, HEADS, rate, seed)
+    close(stages, want, rtol=1e-6, atol=1e-7)
+    close(emulated_fwd(qkv, HEADS, rate, seed), want, rtol=1e-4, atol=1e-5)
+    if rate == 0.0:
+        jax_out = jfa.fused_attention_proj(
+            jnp.zeros((1,), jnp.int32), jnp.asarray(seq.numpy()),
+            jnp.asarray(w.numpy()), HEADS, 0.0, False)
+        close(stages, jax_out, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [16, 64])
+def test_proj_forward_mask_is_the_one_its_backward_regenerates(s):
+    """Rate 0.2, one seed: the gradients of the forward's stages (autograd
+    through the CPU composition, which draws its mask once, in the
+    forward) equal `attention_proj_plain_bwd`, which regenerates the mask
+    from the seed; a forward that dropped other scores would give other
+    gradients. Another seed does not match."""
+    seq, w, g = _proj_inputs(s, 23)
+    seed = torch.tensor([41 + s], dtype=torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (seq, w)]
+    fa._proj_fwd_stages(*leaves, HEADS, 0.2, seed).backward(g)
+    want = kernels.attention_proj_plain_bwd(seq, w, g, HEADS, 0.2, seed)
+    for leaf, x in zip(leaves, want):
+        close(leaf.grad, x, rtol=1e-5, atol=1e-6)
+    other = kernels.attention_proj_plain_bwd(seq, w, g, HEADS, 0.2, seed + 1)
+    assert (leaves[0].grad - other[0]).abs().max() > 1e-3
+
+
 # -- the whole backward in the kernels' tile order ----------------------------------
 
 
@@ -340,8 +434,8 @@ def test_fragment_loads_hit_32_banks_at_every_width():
     """Each shared-memory load of `tile_frag_a`, `tile_frag_bt` and
     `tile_frag_b` (mma_tf32.cuh: lane = 4 gr + tg, the address `tile_at`'s
     r (W + kTilePad) + c) touches 32 distinct banks, at every built width's
-    tile width W, for every row block and k step of the tile: no
-    conflicts."""
+    tile width W (one for the forward, the dq and the dK/dV kernels), for
+    every row block and k step of the tile: no conflicts."""
     header = (CSRC / "mma_tf32.cuh").read_text()
     pad = int(re.search(r"constexpr int kTilePad = (\d+);", header).group(1))
     assert "return r * (W + kTilePad) + c;" in header
@@ -349,6 +443,7 @@ def test_fragment_loads_hit_32_banks_at_every_width():
     for dh in fa.HEAD_DIMS:
         w = cuda_const("MmaDq", "kWidth", dh)
         assert w == cuda_const("MmaDkv", "kWidth", dh) and w % 8 == 0
+        assert w == cuda_const("MmaFwd", "kWidth", dh)
         at = lambda r, c: r * (w + pad) + c
         for r0 in (0, 8, 16, 40):
             for c0 in range(0, w, 8):
@@ -365,12 +460,15 @@ def test_fragment_loads_hit_32_banks_at_every_width():
 
 
 def test_tile_constants_match_the_cuda_source():
-    """FWD_KEY_TILE, FWD_SPLITS and BWD_TILES are attention_tiled.cuh's own
-    (the backward's by width: the tile width, dq's key tile, dK/dV's query
-    tile), and the header's split is the rounding `tf32_round` emulates."""
-    assert cuda_const("MmaFwd", "kKeys", 128) == FWD_KEY_TILE
-    for dh, sets in FWD_SPLITS.items():
-        assert cuda_const("MmaFwd", "kSplits", dh) == sets
+    """FWD_TILES and BWD_TILES are attention_tiled.cuh's own, by width (the
+    forward's tile width, key tile and sets of S's sums; the backward's
+    tile width, dq's key tile, dK/dV's query tile), and the header's split
+    is the rounding `tf32_round` emulates."""
+    assert sorted(FWD_TILES) == sorted(fa.HEAD_DIMS)
+    for dh, tiles in FWD_TILES.items():
+        assert (cuda_const("MmaFwd", "kWidth", dh),
+                cuda_const("MmaFwd", "kKeys", dh),
+                cuda_const("MmaFwd", "kSplits", dh)) == tiles, dh
     assert sorted(BWD_TILES) == sorted(fa.HEAD_DIMS)
     for dh, tiles in BWD_TILES.items():
         assert (cuda_const("MmaDq", "kWidth", dh),

@@ -1,11 +1,10 @@
 """GatedAttn at every width the JAX package runs: the route that picks the
-proj kernel or the wide route (the long entry, heads zero-padded to a width
+proj entry or the wide route (the long entry, heads zero-padded to a width
 the kernels are built for), the port's GatedAttn against the JAX GatedAttn
-(which runs `_reference_qkv` on the CPU) at widths the proj kernel does not
+(which runs `_reference_qkv` on the CPU) at widths the proj entry does not
 take, the two routes and the padding dropping the same scores at one seed,
-and the CLIs' default model. The CUDA kernels themselves (the tensor-core
-ones at Dh = 128 and 256 among them) are held against the plain versions
-on the card by tests/test_torch_cuda.py."""
+and the CLIs' default model. The CUDA kernels themselves are held against
+the plain versions on the card by tests/test_torch_cuda.py."""
 import dataclasses
 import importlib
 
@@ -36,9 +35,10 @@ KEY = jax.random.PRNGKey(0)
     (160, 16, "wide", 48), (256, 16, "wide", 64), (512, 16, "wide", 128),
     (512, 256, "wide", 128), (1024, 64, "wide", 256)])
 def test_route_table(c, s, entry, width):
-    """The proj kernel where its width is built and its forward fits a
-    block's 227 KB (fused_attention_proj.cu's fwd_shared_floats); the wide
-    route elsewhere, at the padded width."""
+    """The proj entry where its width is one of PROJ_HEAD_DIMS and the
+    fused forward kernel the rule was drawn for fit a block's 227 KB
+    (`proj_shared_floats`); the wide route elsewhere, at the padded
+    width."""
     route = kernels.attention_route(s, c, HEADS)
     assert route == (entry, c // HEADS, width)
     fits = fa.proj_shared_floats(s, c, c // HEADS) <= fa.PROJ_SHARED_FLOATS
@@ -191,36 +191,35 @@ def test_gemm_wrappers_take_plain_versions_on_cpu_and_check_the_device():
 
 
 def test_route_constants_match_the_cuda_sources():
-    """The route's copies of fused_attention_proj.cu (kRows,
-    kMaxSharedBytes, the head widths of its launch switch, the lines of the
-    forward's shared-memory formula, the only proj kernel's) and of
-    attention_tiled.cuh's `with_head_dim` widths, and attention_gemm.cu's
-    tiles, K chunk and large-tile threshold, are the sources' own: a
-    change to either side fails here."""
+    """The proj route's rule, kept from the fused forward kernel it was
+    drawn for (its kRows, kMaxSharedBytes, head widths and shared-memory
+    formula; the kernel itself is gone, replaced by the GEMM and the
+    tensor-core forward), pinned at the CLIs', the flagship's and the
+    widths tests' shapes: entry ("p" proj, "w" wide) and floats of the
+    formula at S = 256, 64, 16 and 1024 for each C (4 heads), so that
+    every shape keeps the entry, padding and bits it had. Then
+    attention_tiled.cuh's `with_head_dim` widths and attention_gemm.cu's
+    tiles, K chunk and large-tile threshold are the sources' own: a change
+    to either side fails here."""
     import re
     from pathlib import Path
 
     csrc = Path(fa.__file__).resolve().parents[2] / "csrc"
-    proj = (csrc / "fused_attention_proj.cu").read_text()
-    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                       proj).group(1))
-    assert const("kRows") == fa.PROJ_ROWS
-    assert const("kMaxSharedBytes") == 4 * fa.PROJ_SHARED_FLOATS
-    for switch in re.findall(r"switch \(dh\) \{(.*?)\}", proj, re.S):
-        assert tuple(map(int, re.findall(r"case (\d+):", switch))) == \
-            fa.PROJ_HEAD_DIMS
-    # the formula `proj_shared_floats` mirrors: the forward's, the one the
-    # launch checks
-    switches = re.findall(r"switch \(dh\) \{", proj)
-    assert len(switches) == 1
-    for line in ("inline size_t fwd_shared_floats(int seq_len, int channels,",
-                 "const size_t cp = static_cast<size_t>(channels) + 1;",
-                 "return 3 * dh * cp + kRows * cp + 3 * static_cast<size_t>"
-                 "(seq_len) * dh;",
-                 "if (fwd_shared_floats(seq_len, channels, dh) * sizeof(float) "
-                 "> kMaxSharedBytes) {"):
-        assert line in proj
-    assert "shared_floats" not in proj.replace("fwd_shared_floats", "")
+    assert not (csrc / "fused_attention_proj.cu").exists()
+    assert (fa.PROJ_ROWS, fa.PROJ_SHARED_FLOATS, fa.PROJ_HEAD_DIMS) == (
+        32, 232448 // 4, (4, 8, 16, 24, 32, 48, 64))
+    table = {8: ("wwww", (1878, 726, 438, 6486)),
+             48: ("wwww", (12548, 5636, 3908, 40196)),
+             96: ("pppw", (28520, 14696, 11240, 83816)),
+             128: ("pppw", (41088, 22656, 18048, 114816)),
+             160: ("wwww", (55192, 32152, 26392, 147352)),
+             192: ("wppw", (70832, 43184, 36272, 181424)),
+             512: ("wwww", (311712, 237984, 219552, 606624))}
+    for c, (entries, floats) in table.items():
+        for s, entry, n in zip((256, 64, 16, 1024), entries, floats):
+            assert fa.proj_shared_floats(s, c, c // HEADS) == n, (c, s)
+            assert kernels.attention_route(s, c, HEADS).entry[0] == entry, \
+                (c, s)
     gemm = (csrc / "attention_gemm.cu").read_text()
     for name, (bm, bn) in fa.GEMM_TILES.items():
         assert re.search(rf"using {name.capitalize()} = Tile<{bm}, {bn}, ",
@@ -244,9 +243,9 @@ def test_route_constants_match_the_cuda_sources():
     ("proj", 512, 16, "head width 128 not in"), ("long", 2048, 16,
                                                  "head width 512 not in")])
 def test_kernel_wrappers_refuse_before_the_device(entry, c, s, match):
-    """Tensors on the meta device take the kernels' path: the proj kernel
-    refuses what it cannot hold, naming the wide route; the long kernel
-    refuses a head width above 256."""
+    """Tensors on the meta device take the kernels' path: the proj entry
+    refuses a shape outside its route, naming the wide route; the long
+    kernel refuses a head width above 256."""
     seq = torch.zeros((1, s, c), device="meta")
     w = torch.zeros((3 * c, c), device="meta")
     with pytest.raises(ValueError, match=match):

@@ -12,6 +12,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
 from gpnf_tpu_torch.ops import kernels, logistic
@@ -327,8 +328,8 @@ def test_small_48px_model_on_card_matches_cpu(cuda_device):
     loss_cpu = torch.mean(cpu.train()(x, noise=noise)[1])
     loss_cpu.backward()
     # level 0 (S = 576): K * num_blocks long calls; level 1 (S = 144): proj,
-    # whose backward runs the long entry's key-tiled kernels too
-    assert counts["fused_attention_long"] == 2
+    # whose forward and backward run the long entry's key-tiled kernels too
+    assert counts["fused_attention_long"] == 2 + 2
     assert counts["fused_attention_long_bwd"] == 2 + 2
     assert counts["fused_attention_proj"] == counts[
         "fused_attention_proj_bwd"] == 2
@@ -924,13 +925,18 @@ def test_mma_backward_holds_near_uniform_rows_at_s_1024(cuda_device, rate):
         qkv, g, 4, rate, seed)) <= 1e-4
 
 
-# the tensor-core forward at Dh = 128 and 256 (attention_mma_fwd_kernel):
-# S off the tiles (17), the CLIs' levels, and S 1024 through the long
-# entry alone (the core entries take S <= 512)
-MMA_FWD_CASES = [(dh, s, entry) for dh in (128, 256)
+# the tensor-core forward (attention_mma_fwd_kernel) at every width: S off
+# the tiles (17), the CLIs' and the flagship's levels, and S 1024 through
+# the long entry alone (the core entries take S <= 512) at Dh 24 (the 64-px
+# level 0), 64, 128 and 256; Dh 4 pads its tiles to 8, Dh 8 runs one k
+# step, Dh 24 three (an odd last step)
+MMA_FWD_CASES = [(dh, s, entry) for dh in fa.HEAD_DIMS
                  for s in (16, 17, 64, 256, 1024)
                  for entry in ("long", "qkv", "split")
-                 if s <= 512 or entry == "long"]
+                 if s <= 512 or (entry == "long" and dh in (24, 64, 128, 256))]
+FWD_COUNTERS = {"long": kernels.fused_attention_long,
+                "qkv": kernels.fused_attention_qkv,
+                "split": kernels.fused_attention}
 
 
 @pytest.mark.cuda
@@ -941,7 +947,8 @@ def test_mma_forward_matches_plain_on_card(cuda_device, dh, s, entry, rate):
     fused_attention_qkv (packed qkv) and fused_attention (split heads, q
     scaled), one seed for kernel and plain version: finite, within 1e-5
     of the largest |plain| (the lane-split bar), two calls bit for bit, one
-    `attention_lanes` count a call."""
+    launch a call on the entry's count and, at Dh = 128 and 256 only, on
+    `attention_lanes`'."""
     q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, s, dh),
                                             seed=dh + s)
     if entry == "split":
@@ -952,9 +959,11 @@ def test_mma_forward_matches_plain_on_card(cuda_device, dh, s, entry, rate):
               else kernels.fused_attention_qkv)
         fwd = lambda: fn(qkv, 4, rate, seed)
         want = kernels.attention_long_plain(qkv, 4, rate, seed)
-    before = kernels.attention_lanes.launches
+    counter = FWD_COUNTERS[entry]
+    before = (counter.launches, kernels.attention_lanes.launches)
     got = fwd()
-    assert kernels.attention_lanes.launches == before + 1
+    assert (counter.launches, kernels.attention_lanes.launches) == (
+        before[0] + 1, before[1] + (dh in (128, 256)))
     assert torch.isfinite(got).all()
     assert _rel_max(got, want) <= 1e-5
     assert torch.equal(got, fwd())
@@ -962,14 +971,15 @@ def test_mma_forward_matches_plain_on_card(cuda_device, dh, s, entry, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [4, 24, 64, 128, 256])
 def test_mma_forward_holds_near_uniform_rows_at_s_1024(cuda_device, dh,
                                                        rate):
     """qkv of std 0.5 at S = 1024 (scores of std ~0.25): each output is a
     near-uniform mean of 1024 values of V, small beside the sum it is
-    accumulated in. A sum kept in place across the 64 key tiles drifts with
+    accumulated in. A sum kept in place across the key tiles drifts with
     the tensor cores' truncating fp32 accumulation; the kernel adds each
-    tile's product in fp32 and stays within 1e-5 of the largest |plain|."""
+    tile's product in fp32 and stays within 1e-5 of the largest |plain|,
+    at Dh 24 (the 64-px level 0) and at every tile size."""
     r = np.random.default_rng(dh)
     qkv = _normal(r, (2, 1024, 3 * 4 * dh), 0.5).to(cuda_device)
     seed = torch.tensor([2024], dtype=torch.int32, device=cuda_device)
@@ -986,13 +996,16 @@ def _shifted(x):
 
 
 @pytest.mark.cuda
-def test_mma_forward_refuses_misaligned_operands(cuda_device):
+@pytest.mark.parametrize("dh", [4, 24, 128])
+def test_mma_forward_refuses_misaligned_operands(cuda_device, dh):
     """A packed qkv or a q that starts off a 16-byte boundary, or a
     transposed (strided) q, is copied into an aligned contiguous tensor by
     the wrapper, not refused: each call gives the aligned call's bits,
     raises nothing and counts one launch (cp.async moves 16-byte chunks,
-    so the kernel itself still needs aligned operands)."""
-    q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, 64, 128))
+    so the kernel itself still needs aligned operands), at every tile
+    width."""
+    q, k, v, _, qkv, _, seed = _core_inputs(cuda_device, (2, 4, 64, dh))
+    lanes = int(dh == 128)
     q_t = q.transpose(-1, -2).contiguous().transpose(-1, -2)
     assert not q_t.is_contiguous()
     for call, counter, aligned in (
@@ -1010,7 +1023,7 @@ def test_mma_forward_refuses_misaligned_operands(cuda_device):
             assert torch.equal(call(x), want)
             assert (counter.launches,
                     kernels.attention_lanes.launches) == (before[0] + 1,
-                                                          before[1] + 1)
+                                                          before[1] + lanes)
 
 
 @pytest.mark.cuda
@@ -1097,12 +1110,14 @@ def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
 
 @pytest.mark.cuda
 def test_mma_forward_kernel_runs_on_the_tensor_cores(cuda_device):
-    """Every instantiation of the tensor-core forward (Dh 128 and 256, with
-    and without dropout, in both libraries that build it) holds HMMA
-    instructions in its SASS."""
+    """Every instantiation of the tensor-core forward (the 9 built widths,
+    the flagship's Dh 24 among them, with and without dropout, in both
+    libraries that build it) holds HMMA instructions in its SASS."""
     for source, hmma in _hmma_counts("attention_mma_fwd").items():
         layouts = 1 if source == "fused_attention_long" else 2
-        assert len(hmma) == 2 * 2 * layouts, sorted(hmma)
+        assert len(hmma) == 2 * len(fa.HEAD_DIMS) * layouts, sorted(hmma)
+        dh24 = [n for name, n in hmma.items() if "ILi24E" in name]
+        assert len(dh24) == 2 * layouts, sorted(hmma)
         assert all(n > 0 for n in hmma.values()), hmma
 
 
@@ -1230,16 +1245,17 @@ def test_gated_attn_at_every_width_on_card_matches_cpu(cuda_device, c, s):
     counts = kernels.launch_counts()
     want = cpu(x_cpu)
     want.backward(g)
-    entry = "fused_attention_long" if wide else "fused_attention_proj"
     lanes = int(c == 512)
-    # the wide route's projection runs twice (the backward recomputes it);
-    # the proj backward recomputes it once and runs the long entry's
-    # key-tiled kernels between the GEMMs
-    gemms = {"attention_qkv_gemm": 1 + wide, "attention_dseq_gemm": 1,
-             "attention_dw_gemm": 1, "fused_attention_long_bwd": 1}
-    assert counts == {**dict.fromkeys(counts, 0), entry: 1, entry + "_bwd": 1,
+    # either route runs the projection twice (the backward recomputes it)
+    # and the long entry's key-tiled kernels after and between the GEMMs;
+    # the proj entry counts its own calls too
+    proj = {} if wide else {"fused_attention_proj": 1,
+                            "fused_attention_proj_bwd": 1}
+    assert counts == {**dict.fromkeys(counts, 0), "fused_attention_long": 1,
+                      "fused_attention_long_bwd": 1, "attention_qkv_gemm": 2,
+                      "attention_dseq_gemm": 1, "attention_dw_gemm": 1,
                       "attention_lanes": lanes, "attention_lanes_bwd": lanes,
-                      **gemms}
+                      **proj}
     _close(out, want, rtol=1e-4, atol=1e-5)
     assert _rel_max(x_card.grad.cpu(), x_cpu.grad) <= 1e-4
     for (name, p_card), p_cpu in zip(card.named_parameters(),
@@ -1247,12 +1263,60 @@ def test_gated_attn_at_every_width_on_card_matches_cpu(cuda_device, c, s):
         assert _rel_max(p_card.grad.cpu(), p_cpu.grad) <= 1e-4, name
 
 
-# -- the proj backward as stages, and the GEMM's split K --------------------------
+# -- the proj forward and backward as stages, and the GEMM's split K -------------
 # (batch, C, S): the flagship's 32-px levels and the proj route's Dh = 48
 PROJ_BWD_SHAPES = [(64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 192, 64)]
 PROJ_BWD_COUNTS = {"fused_attention_proj_bwd": 1, "attention_qkv_gemm": 1,
                    "fused_attention_long_bwd": 1, "attention_dseq_gemm": 1,
                    "attention_dw_gemm": 1}
+PROJ_FWD_COUNTS = {"fused_attention_proj": 1, "attention_qkv_gemm": 1,
+                   "fused_attention_long": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,c,s", PROJ_BWD_SHAPES)
+def test_proj_fwd_at_the_path_shapes_matches_plain_on_card(cuda_device, batch,
+                                                           c, s, rate):
+    """The full batch of the paths, one seed for the stages and the plain
+    version (the same mask): out within 1e-5 absolute (the proj bar), two
+    calls bit for bit, and each call launches the entry and each stage
+    once (`PROJ_FWD_COUNTS`: the qkv GEMM and the tensor-core forward),
+    nothing else."""
+    seq, w, _, seed = _attention_inputs(cuda_device, s, batch, c, seed=c + s)
+    kernels.reset_launch_counts()
+    got = kernels.fused_attention_proj(seq, w, 4, rate, seed)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_FWD_COUNTS}
+    assert torch.isfinite(got).all()
+    _close(got, kernels.attention_proj_plain(seq, w, 4, rate, seed), rtol=0,
+           atol=1e-5)
+    assert torch.equal(got, kernels.fused_attention_proj(seq, w, 4, rate,
+                                                         seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_proj_autograd_matches_plain_forward_and_backward_on_card(cuda_device,
+                                                                  rate):
+    """fused_attention_proj through autograd at the flagship's level 0
+    (batch 8, S 256, C 96): out and the gradients of seq and w against the
+    plain forward and backward at the same seed. The backward regenerates
+    the mask from the seed, so a forward that dropped other scores than
+    its backward would miss one of the two bars."""
+    seq, w, g, seed = _attention_inputs(cuda_device, 256, batch=8)
+    seq_r, w_r = seq.clone().requires_grad_(), w.clone().requires_grad_()
+    kernels.reset_launch_counts()
+    out = kernels.fused_attention_proj(seq_r, w_r, 4, rate, seed)
+    out.backward(g)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_BWD_COUNTS,
+                      **PROJ_FWD_COUNTS, "attention_qkv_gemm": 2}
+    _close(out, kernels.attention_proj_plain(seq, w, 4, rate, seed), rtol=0,
+           atol=1e-5)
+    want = kernels.attention_proj_plain_bwd(seq, w, g, 4, rate, seed)
+    assert _rel_max(seq_r.grad, want[0]) <= 1e-4
+    assert _rel_max(w_r.grad, want[1]) <= 1e-4
 
 
 @pytest.mark.cuda
@@ -1306,6 +1370,37 @@ def test_split_gemms_match_matmul_on_card(cuda_device, product, c, s, batch):
     assert torch.equal(got, fn(a, b))
 
 
+class NoLibraryProducts(TorchFunctionMode):
+    """Raises on every PyTorch product and attention call."""
+
+    banned = {"matmul", "mm", "bmm", "einsum", "linear",
+              "scaled_dot_product_attention", "__matmul__", "__rmatmul__",
+              "addmm", "baddbmm"}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in self.banned:
+            raise AssertionError(f"library call {func.__name__}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_proj_fwd_runs_no_library_product_on_card(cuda_device):
+    """The proj forward on the card at the flagship's level 1, rate 0.2,
+    under a mode that raises on every PyTorch product and attention call:
+    it runs the qkv GEMM kernel and the tensor-core forward, nothing
+    else."""
+    seq, w, _, seed = _attention_inputs(cuda_device, 64, 8)
+    kernels.reset_launch_counts()
+    with NoLibraryProducts():
+        out = kernels.fused_attention_proj(seq, w, 4, 0.2, seed)
+        with pytest.raises(AssertionError, match="library call"):
+            torch.matmul(seq, w.t())  # the mode is in effect
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_FWD_COUNTS}
+    _close(out, kernels.attention_proj_plain(seq, w, 4, 0.2, seed), rtol=0,
+           atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
     """The proj backward on the card at the flagship's level 1, and the
@@ -1313,18 +1408,6 @@ def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
     512 and the core entry on split heads: the tensor-core kernels), rate
     0.2, under a TorchFunctionMode that raises on every PyTorch product and
     attention call: they run this repo's kernels only."""
-    from torch.overrides import TorchFunctionMode
-
-    banned = {"matmul", "mm", "bmm", "einsum", "linear",
-              "scaled_dot_product_attention", "__matmul__", "__rmatmul__",
-              "addmm", "baddbmm"}
-
-    class NoLibraryProducts(TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            if getattr(func, "__name__", "") in banned:
-                raise AssertionError(f"library call {func.__name__}")
-            return func(*args, **(kwargs or {}))
-
     seq, w, g, seed = _attention_inputs(cuda_device, 64, 8)
     wide = _attention_inputs(cuda_device, 64, 2, c=512)
     q, k, v, gh, _, _, core_seed = _core_inputs(cuda_device, (2, 4, 64, 128))

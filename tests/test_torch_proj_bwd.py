@@ -145,10 +145,11 @@ def test_proj_bwd_refuses_what_the_forward_does_not_hold():
     (192, 164, "proj", "proj"), (192, 165, "proj", "wide"),
     (192, 167, "proj", "wide"), (192, 168, "wide", "wide")])
 def test_route_fit_is_the_forward_kernels(c, s, entry, was):
-    """The shapes at the edge of the proj forward's 227 KB: C = 128 at S =
-    421-433 and C = 192 at S = 165-167 took the wide route while the old
-    in-kernel backward (3 S floats more) decided the fit; now the forward
-    decides it. No S of the 32-px levels (16, 64, 256) is among them."""
+    """The shapes at the edge of the fused proj forward's 227 KB (the rule
+    the route keeps): C = 128 at S = 421-433 and C = 192 at S = 165-167
+    took the wide route while the old in-kernel backward (3 S floats more)
+    decided the fit; the forward's rule decides it. No S of the 32-px
+    levels (16, 64, 256) is among them."""
     assert kernels.attention_route(s, c, HEADS).entry == entry
     floats = fa.proj_shared_floats(s, c, c // HEADS)
     assert (floats <= fa.PROJ_SHARED_FLOATS) == (entry == "proj")
