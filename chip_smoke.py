@@ -20,7 +20,11 @@ Phases, each of which raises (exit code != 0) when it fails:
      them) and the key-tiled dq and dK/dV kernels (on the tensor cores) at
      rate 0 and 0.2 against their plain version (SDPA's backward beside
      them), each two calls bit for bit; the bounds with their products (on
-     the tensor cores) at 3xTF32's rate, the fp32 rate's beside them;
+     the tensor cores) at 3xTF32's rate, the fp32 rate's beside them; the
+     mixture kernels at K 32 (and K 48 at level 0), each two calls bit for
+     bit, the inverse equal to its plain version (which sums over the
+     components in the kernel's lane-group order) with CDF(x) = y within
+     2e-6, the forward within 1e-5;
   4. train: the flagship model (32x32x3, L=3, K=4, hidden 96, 10 blocks,
      32 components, ConvLSTM prior, dropout 0.2; random weights from
      --seed) after ddi, 20 Adamax steps at batch 64 with a 64-sample
@@ -181,14 +185,6 @@ TRAIN_STEPS, WINDOW_STEPS, WINDOWS = 20, 10, 3
 WARM_UP = 64  # samples: updates 0 and 1 run at lr 0, full lr from update 2
 # (attention S, mixture D = half the level's channels x H x W) per level
 LEVELS = [(256, 1536), (64, 768), (16, 384)]
-# operations per (element, mixture component), each fp32 add/mul/compare and
-# each exp/log/log1p counted once; a floor for the bound, since the
-# accurate transcendentals take several instructions each
-MIXLOGCDF_OPS = 30  # log-softmax 5, z 4, log-sigmoid/softplus 8, terms 5,
-                    # two max-then-sum logsumexps 8
-MIXINV_OPS = 458    # 26 bisection evaluations x 13 (z 2, log-sigmoid 6,
-                    # term 1, max-then-sum logsumexp 4) + 4 Newton x 28
-                    # (the log-CDF terms 13, the log-PDF terms 15) + setup 8
 AFFINE_OPS = 10     # per element: add, exp, log1p, two selects, add,
                     # divide, multiply-add, sum
 GP_KERNELS = ("fused_affine_forward", "cholesky", "tril_solve")
@@ -461,6 +457,63 @@ def check_kernels(device, model, timer):
                    tc_ops=5 * core + 5 * BATCH * heads * s * s, rate=rate,
                    err_over_scale=float(f"{over_scale:.3g}"))
 
+    def check_mixture(level, d, kk):
+        """The mixture kernels at (BATCH, kk, d), each two calls bit for bit:
+        the forward within 1e-5 of its plain version, the inverse equal to
+        its plain version (which sums in the kernel's order) and CDF(x) = y
+        within 2e-6."""
+        fmi = kernels.fused_mixture_inverse
+        args = (randn(BATCH, d, s=0.5), randn(BATCH, d, s=0.1),
+                randn(BATCH, d, s=0.1), randn(BATCH, kk, d),
+                randn(BATCH, kk, d), randn(BATCH, kk, d, s=0.3))
+        got = kernels.mixlogcdf_forward(*args)
+        want = kernels.mixlogcdf_plain(*args)
+        again = kernels.mixlogcdf_forward(*args)
+        torch.cuda.synchronize()
+        for g, wv, a in zip(got, want, again):
+            torch.testing.assert_close(g, wv, rtol=1e-5, atol=1e-5)
+            if not torch.equal(g, a):
+                raise AssertionError(f"mixlogcdf_forward level {level} K "
+                                     f"{kk}: two calls differ")
+        err = tuple(max(a, b) for a, b in zip(*(max_errs(g, wv)
+                                                for g, wv in zip(got, want))))
+        record("mixlogcdf_forward", level, err,
+               timer(lambda: kernels.mixlogcdf_forward(*args)),
+               timer(lambda: kernels.mixlogcdf_plain(*args)), None,
+               4 * (3 * BATCH * d + 3 * BATCH * kk * d + 2 * BATCH * d),
+               BATCH * d * kk * kernels.fused_mixlogcdf.OPS_PER_COMPONENT,
+               K=kk, deterministic=True)
+
+        pi, mu, ls = randn(BATCH, kk, d), randn(BATCH, kk, d, s=2.0), \
+            randn(BATCH, kk, d, s=0.4)
+        x_true = randn(BATCH, d, s=2.0)  # y = CDF(x): well-conditioned
+        y = torch.exp(logistic.mixture_log_cdf(x_true, pi, mu, ls)).clamp(
+            1e-5, 1 - 1e-5).contiguous()
+        got = kernels.mixture_inverse(y, pi, mu, ls)
+        want = kernels.mixture_inverse_plain(y, pi, mu, ls)
+        again = kernels.mixture_inverse(y, pi, mu, ls)
+        torch.cuda.synchronize()
+        # and it inverts: CDF(x) = y, the bar of tests/test_mixture_inverse.py
+        residual = float((torch.exp(logistic.mixture_log_cdf(
+            got, pi, mu, ls)) - y).abs().max())
+        log(f"  mixture_inverse level {level} K {kk}: max |CDF(x) - y| "
+            f"{residual:.3g} (bar 2e-6), bit for bit with the plain version "
+            f"(groups of {fmi.GROUP})")
+        if not torch.equal(got, want) or residual > 2e-6:
+            raise AssertionError(
+                f"mixture_inverse level {level} K {kk}: max abs err "
+                f"{max_errs(got, want)[0]} (bar 0) or residual {residual} "
+                f"> 2e-6")
+        if not torch.equal(got, again):
+            raise AssertionError(f"mixture_inverse level {level} K {kk}: two "
+                                 f"calls differ")
+        record("mixture_inverse", level, max_errs(got, want),
+               timer(lambda: kernels.mixture_inverse(y, pi, mu, ls)),
+               timer(lambda: kernels.mixture_inverse_plain(y, pi, mu, ls)),
+               None, 4 * (2 * BATCH * d + 3 * BATCH * kk * d),
+               BATCH * d * kk * fmi.OPS_PER_COMPONENT, K=kk,
+               deterministic=True, residual=float(f"{residual:.3g}"))
+
     dh = c // heads
     with torch.no_grad():
         for level, (s, d) in enumerate(LEVELS):
@@ -533,45 +586,8 @@ def check_kernels(device, model, timer):
                        err_over_scale=float(f"{over_scale:.3g}"))
             check_stages(level, s, seq, w, g, seed, core)
 
-            args = (randn(BATCH, d, s=0.5), randn(BATCH, d, s=0.1),
-                    randn(BATCH, d, s=0.1), randn(BATCH, k, d),
-                    randn(BATCH, k, d), randn(BATCH, k, d, s=0.3))
-            got = kernels.mixlogcdf_forward(*args)
-            want = kernels.mixlogcdf_plain(*args)
-            torch.cuda.synchronize()
-            for g, wv in zip(got, want):
-                torch.testing.assert_close(g, wv, rtol=1e-5, atol=1e-5)
-            err = tuple(max(a, b) for a, b in zip(*(max_errs(g, wv)
-                                                    for g, wv in zip(got, want))))
-            record("mixlogcdf_forward", level, err,
-                   timer(lambda: kernels.mixlogcdf_forward(*args)),
-                   timer(lambda: kernels.mixlogcdf_plain(*args)), None,
-                   4 * (3 * BATCH * d + 3 * BATCH * k * d + 2 * BATCH * d),
-                   BATCH * d * k * MIXLOGCDF_OPS)
-
-            pi, mu, ls = randn(BATCH, k, d), randn(BATCH, k, d, s=2.0), \
-                randn(BATCH, k, d, s=0.4)
-            x_true = randn(BATCH, d, s=2.0)  # y = CDF(x): well-conditioned
-            y = torch.exp(logistic.mixture_log_cdf(x_true, pi, mu, ls)).clamp(
-                1e-5, 1 - 1e-5).contiguous()
-            got = kernels.mixture_inverse(y, pi, mu, ls)
-            want = kernels.mixture_inverse_plain(y, pi, mu, ls)
-            torch.cuda.synchronize()
-            err = max_errs(got, want)
-            # and it inverts: CDF(x) = y, the bar of tests/test_mixture_inverse.py
-            residual = float((torch.exp(logistic.mixture_log_cdf(
-                got, pi, mu, ls)) - y).abs().max())
-            log(f"  mixture_inverse level {level}: max |CDF(x) - y| "
-                f"{residual:.3g} (bar 2e-6)")
-            if err[0] > 1e-4 or residual > 2e-6:
-                raise AssertionError(f"mixture_inverse level {level}: max abs "
-                                     f"err {err[0]} > 1e-4 or residual "
-                                     f"{residual} > 2e-6")
-            record("mixture_inverse", level, err,
-                   timer(lambda: kernels.mixture_inverse(y, pi, mu, ls)),
-                   timer(lambda: kernels.mixture_inverse_plain(y, pi, mu, ls)),
-                   None, 4 * (2 * BATCH * d + 3 * BATCH * k * d),
-                   BATCH * d * k * MIXINV_OPS)
+            check_mixture(level, d, k)
+        check_mixture(0, LEVELS[0][1], 48)  # K above the old kernels' 32
     return results
 
 
@@ -2743,6 +2759,17 @@ def main():
                 entry["ms_rate_0"] = rows[0]["ms"]
             if "bound_fp32_ms" in top:
                 entry["bound_fp32_ms"] = top["bound_fp32_ms"]
+            if name in ("mixlogcdf_forward", "mixture_inverse"):
+                # lane groups over K (mixture_lanes.cuh); ptxas of the
+                # instantiation the paths' K = 32 runs
+                group = kernels.fused_mixture_inverse.GROUP
+                slots = -(-FLAGSHIP["num_components"] // group)
+                entry.update(
+                    headers=["gpnf_tpu_torch/csrc/mixture_lanes.cuh",
+                             "gpnf_tpu_torch/csrc/mma_tf32.cuh"],
+                    lane_group=group,
+                    ptxas=ptxas_kernels(reports.get(name, ""),
+                                        f"{name}_kernelILi{slots}E"))
             if name == "fused_attention_proj":
                 entry["stages"] = [
                     "attention_qkv_gemm (gpnf_tpu_torch/csrc/attention_gemm.cu)",

@@ -157,12 +157,13 @@ CHANGE_SOURCES = {**REF_SOURCES,
 PARENT_TILE, PARENT_BLOCKS = 64, 8 * 132
 
 
-def build_refs(refs, sources):
+def build_refs(refs, sources, signatures=REF_SIGNATURES, out_dir=OUT_DIR):
     """{name: {source: loaded library}} of each ref DIR, all compiled at once
-    with the package's flags, and {name/source: ptxas lines}."""
+    with the package's flags into out_dir/NAME/, and {name/source: ptxas
+    lines}; `signatures` gives each source's C entries."""
     procs = {}
     for name, src_dir in refs.items():
-        out = OUT_DIR / name
+        out = out_dir / name
         out.mkdir(parents=True, exist_ok=True)
         for source in sources:
             lib = out / f"{source}.so"
@@ -179,7 +180,7 @@ def build_refs(refs, sources):
             continue
         reports[f"{name}/{source}"] = _ptxas_lines(out + err)
         loaded = ctypes.CDLL(str(lib))
-        for fn, argtypes in REF_SIGNATURES[source].items():
+        for fn, argtypes in signatures[source].items():
             if hasattr(loaded, fn):
                 getattr(loaded, fn).argtypes = argtypes
                 getattr(loaded, fn).restype = ctypes.c_int

@@ -44,6 +44,7 @@ SIGNATURES = {
     },
     "mixture_inverse": {
         "gpnf_mixture_inverse": [_P] * 5 + [_I, _I, _I, _P],
+        "gpnf_mixture_group": [],
     },
     "fused_affine": {
         "gpnf_fused_affine_f32": [_P] * 5 + [_I, _I, _P],

@@ -1,8 +1,9 @@
 """MixLogCDF coupling forward transform and its per-element log-det.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_mixlogcdf.py `mixlogcdf_forward`.
-The CUDA kernel is gpnf_tpu_torch/csrc/mixlogcdf_forward.cu; its header says
-what bounds it on the H100 and how it is laid out. `mixlogcdf_plain` is the
+The CUDA kernel is gpnf_tpu_torch/csrc/mixlogcdf_forward.cu on the lane
+groups of csrc/mixture_lanes.cuh; their headers say what bounds it on the
+H100 and how it is laid out. `mixlogcdf_plain` is the
 same function in plain PyTorch (the JAX package's `_reference`): the wrapper
 runs it for CPU tensors, and the tests and chip_smoke.py hold the kernel
 against it. The backward is autograd of the plain version on the saved
@@ -15,8 +16,11 @@ import torch
 
 from .. import logistic
 from . import _native
-
-MAX_COMPONENTS = 32  # kMaxK of the kernel
+from .fused_mixture_inverse import MAX_COMPONENTS  # the kernels share it
+# operations per (element, component), each fp32 add/mul/compare and each
+# exp/log/log1p counted once: log-softmax 5, z 4, log-sigmoid/softplus 8,
+# terms 5, two max-then-sum logsumexps 8
+OPS_PER_COMPONENT = 30
 
 
 def mixlogcdf_plain(x, a, b, pi, mu, s):
@@ -32,10 +36,11 @@ def _forward(x, a, b, pi, mu, s):
     bsz, k, d = pi.shape
     if all(t.device.type == "cpu" for t in (x, a, b, pi, mu, s)):
         return mixlogcdf_plain(x, a, b, pi, mu, s)
+    if k > MAX_COMPONENTS:
+        raise ValueError(f"mixlogcdf_forward: K={k} components, the kernel "
+                         f"takes at most {MAX_COMPONENTS}")
     device = _native.check_cuda_inputs("mixlogcdf_forward", x=x, a=a, b=b,
                                        pi=pi, mu=mu, s=s)
-    if k > MAX_COMPONENTS:
-        raise ValueError(f"mixlogcdf_forward: K={k} > {MAX_COMPONENTS}")
     y = torch.empty_like(x)
     ldj = torch.empty_like(x)
     _native.launch("mixlogcdf_forward", "gpnf_mixlogcdf_forward", device,

@@ -1,45 +1,69 @@
 """Inverse of the logistic-mixture CDF: bisection, then clipped Newton.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_mixture_inverse.py
-`mixture_inverse`. The CUDA kernel is gpnf_tpu_torch/csrc/mixture_inverse.cu;
-its header says what bounds it on the H100 and how it is laid out.
-`mixture_inverse_plain` is the same fixed schedule in plain PyTorch (the
-JAX package's `_inv_body`): the wrapper runs it for CPU tensors, and the
-tests and chip_smoke.py hold the kernel against it. The backward is the
-JAX package's implicit-function VJP in plain PyTorch: at CDF(x; theta) = y,
-dx/dy = 1 / pdf(x) and dx/dtheta = -(dCDF/dtheta) / pdf(x).
+`mixture_inverse`. The CUDA kernel is gpnf_tpu_torch/csrc/mixture_inverse.cu
+on the lane groups of csrc/mixture_lanes.cuh; their headers say what bounds
+it on the H100 and how it is laid out. `mixture_inverse_plain` is the same
+fixed schedule in plain PyTorch (the JAX package's `_inv_body`), summing over
+the components in the kernel's order: the wrapper runs it for CPU tensors,
+and the tests and chip_smoke.py hold the kernel to it bit for bit. The
+backward is the JAX package's implicit-function VJP in plain PyTorch: at
+CDF(x; theta) = y, dx/dy = 1 / pdf(x) and dx/dtheta = -(dCDF/dtheta) /
+pdf(x).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .. import logistic
 from . import _native
 
 BISECT_ITERS = 26
 NEWTON_ITERS = 4
-MAX_COMPONENTS = 32  # kMaxK of the kernel
+GROUP = 4             # kGroup of csrc/mixture_lanes.cuh: lanes an element's
+                      # components spread over
+MAX_COMPONENTS = 128  # kMaxK of csrc/mixture_lanes.cuh
+# operations per (element, component), each fp32 add/mul/compare and each
+# exp/log/log1p counted once (a floor for the bound, since the accurate
+# transcendentals take several instructions each): 26 bisection evaluations
+# x 13 (z 2, log-sigmoid 6, term 1, max-then-sum logsumexp 4) + 4 Newton x
+# 23 (the log-CDF terms 13; the log-PDF terms on the same z and log1p 6,
+# their logsumexp 4) + setup 8
+OPS_PER_COMPONENT = 438
 
 
-def _sum_k(t):
-    """Sum over the component axis of (B, K, D) in k order, as the kernel
-    adds: the fixed schedule magnifies a last-bit difference in log CDF
-    where the CDF is flat, so the plain version rounds as the kernel does."""
-    acc = t[:, 0]
-    for k in range(1, t.shape[1]):
-        acc = acc + t[:, k]
-    return acc
+def _sum_k(t, group=GROUP):
+    """Sum over the component axis of (B, K, D) in the kernel's order: lane
+    j of a group of `group` adds its components k = j, j + group, ... in k
+    order, then the lanes' sums meet in a butterfly, lane j + lane j + h
+    for h = group / 2, ..., 1 (missing components add 0, exactly). The
+    fixed schedule magnifies a last-bit difference in log CDF where the CDF
+    is flat, so the plain version rounds as the kernel does. group=1 is the
+    k order of one thread an element."""
+    bsz, k, d = t.shape
+    slots = -(-k // group)
+    lanes = F.pad(t, (0, 0, 0, slots * group - k)).view(bsz, slots, group, d)
+    acc = lanes[:, 0]
+    for i in range(1, slots):
+        acc = acc + lanes[:, i]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
 
 
-def _logsumexp_k(t):
+def _logsumexp_k(t, group):
     m = torch.amax(t, dim=1)
-    return torch.log(_sum_k(torch.exp(t - m[:, None]))) + m
+    return torch.log(_sum_k(torch.exp(t - m[:, None]), group)) + m
 
 
-def mixture_inverse_plain(y, pi, mu, s):
-    """y (B, D) in (0, 1); pi/mu/s (B, K, D) -> x (B, D) with CDF(x) = y."""
+def mixture_inverse_plain(y, pi, mu, s, group=GROUP):
+    """y (B, D) in (0, 1); pi/mu/s (B, K, D) -> x (B, D) with CDF(x) = y,
+    summed over k in the order of a kernel built with `group` lanes."""
     pmax = torch.amax(pi, dim=1, keepdim=True)
-    log_pi = (pi - pmax) - torch.log(_sum_k(torch.exp(pi - pmax)))[:, None]
+    log_pi = (pi - pmax) - torch.log(
+        _sum_k(torch.exp(pi - pmax), group))[:, None]
     inv_s = torch.exp(-s)
 
     def terms(x):
@@ -49,20 +73,20 @@ def mixture_inverse_plain(y, pi, mu, s):
 
     def log_pdf(z, l1p):
         return _logsumexp_k(log_pi + z - s - 2.0 * (torch.clamp(z, min=0.0)
-                                                    + l1p))
+                                                    + l1p), group)
 
-    scale_sum = _sum_k(torch.exp(s))
+    scale_sum = _sum_k(torch.exp(s), group)
     lb = torch.amin(mu, dim=1) - 20.0 * scale_sum
     ub = torch.amax(mu, dim=1) + 20.0 * scale_sum
     log_y = torch.log(y)
     x = torch.zeros_like(y)
     for _ in range(BISECT_ITERS):
-        gt = _logsumexp_k(terms(x)[2]) > log_y
+        gt = _logsumexp_k(terms(x)[2], group) > log_y
         x, lb, ub = (torch.where(gt, (x + lb) * 0.5, (x + ub) * 0.5),
                      torch.where(gt, lb, x), torch.where(gt, x, ub))
     for _ in range(NEWTON_ITERS):
         z, l1p, t_cdf = terms(x)
-        log_cdf = _logsumexp_k(t_cdf)
+        log_cdf = _logsumexp_k(t_cdf, group)
         step = (log_cdf - log_y) * torch.exp(log_cdf - log_pdf(z, l1p))
         x = torch.minimum(torch.maximum(x - step, lb), ub)
     return x
@@ -72,10 +96,16 @@ def _forward(y, pi, mu, s):
     bsz, k, d = pi.shape
     if all(t.device.type == "cpu" for t in (y, pi, mu, s)):
         return mixture_inverse_plain(y, pi, mu, s)
+    if k > MAX_COMPONENTS:
+        raise ValueError(f"mixture_inverse: K={k} components, the kernel "
+                         f"takes at most {MAX_COMPONENTS}")
     device = _native.check_cuda_inputs("mixture_inverse", y=y, pi=pi, mu=mu,
                                        s=s)
-    if k > MAX_COMPONENTS:
-        raise ValueError(f"mixture_inverse: K={k} > {MAX_COMPONENTS}")
+    group = _native.load("mixture_inverse").gpnf_mixture_group()
+    if group != GROUP:
+        raise RuntimeError(f"mixture_inverse: the kernel was built with "
+                           f"{group} lanes an element, the plain version "
+                           f"sums in groups of {GROUP}")
     x = torch.empty_like(y)
     _native.launch("mixture_inverse", "gpnf_mixture_inverse", device,
                    *(t.data_ptr() for t in (y, pi, mu, s, x)), bsz, k, d)

@@ -24,11 +24,14 @@ class Timer:
     Before each call the 50 MB L2 is flushed (the serving path finds a
     kernel's inputs mostly cold) and the card is held busy with a spin
     kernel long enough for the host to enqueue the whole call, so the
-    events bracket device work only, not Python's launch overhead."""
+    events bracket device work only, not Python's launch overhead. The
+    flush writes a 64 MB buffer, which leaves L2 full of dirty lines (as a
+    preceding kernel's outputs do); `dirty=False` reads it instead, which
+    leaves clean ones."""
 
-    def __init__(self, device, iters=20, warmup=3):
+    def __init__(self, device, iters=20, warmup=3, dirty=True):
         self.flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=device)
-        self.iters, self.warmup = iters, warmup
+        self.iters, self.warmup, self.dirty = iters, warmup, dirty
 
     def __call__(self, fn):
         for _ in range(self.warmup):
@@ -41,7 +44,10 @@ class Timer:
         spin_cycles = int(max(host_s, 1e-4) * 2 * 2e9)  # 2x at <= 2 GHz
         events = []
         for _ in range(self.iters):
-            self.flush.zero_()
+            if self.dirty:
+                self.flush.zero_()
+            else:
+                self.flush.max()
             torch.cuda._sleep(spin_cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

@@ -78,9 +78,91 @@ def test_mixture_inverse_kernel_matches_plain_on_card(cuda_device):
     y = torch.exp(logistic.mixture_log_cdf(x_true, pi, mu, s)).clamp(
         1e-5, 1 - 1e-5).contiguous()
     x = kernels.mixture_inverse(y, pi, mu, s)
-    _close(x, kernels.mixture_inverse_plain(y, pi, mu, s), rtol=0, atol=1e-4)
+    # the plain version sums over k in the kernel's order: the same bits
+    assert torch.equal(x, kernels.mixture_inverse_plain(y, pi, mu, s))
     _close(torch.exp(logistic.mixture_log_cdf(x, pi, mu, s)), y, rtol=0,
            atol=2e-6)
+
+
+# (B, K, D) of the mixture kernels: the flagship's three levels at batch 64,
+# then K 48 and 100 (above the old kernels' 32), K 50 (not a multiple of the
+# lane group: pad slots), and D not a multiple of 4 (4-byte staging copies)
+MIX_SHAPES = [(64, 32, 1536), (64, 32, 768), (64, 32, 384), (8, 48, 1536),
+              (8, 100, 768), (8, 50, 768), (8, 32, 383), (8, 50, 383)]
+
+
+def _mixture_inputs(device, b, k, d, flat, seed=7):
+    """pi, mu, s (B, K, D) and y (B, D): y the CDF of moderate x, clipped;
+    or, `flat`, means 12 apart with y at the clamps 1e-5 and 1 - 1e-5 or
+    between two components, where the CDF is flat."""
+    r = np.random.default_rng(seed)
+    pi, s = _normal(r, (b, k, d)), _normal(r, (b, k, d), 0.3 if flat else 0.4)
+    if flat:
+        mu = 12.0 * (torch.arange(k, dtype=torch.float32) - k / 2)[:, None] \
+            + _normal(r, (b, k, d), 0.5)
+        y = torch.from_numpy(r.uniform(0.02, 0.98, (b, d)).astype(np.float32))
+        y[:, 0::4], y[:, 1::4] = 1e-5, 1 - 1e-5
+    else:
+        mu = _normal(r, (b, k, d), 2.0)
+        y = torch.exp(logistic.mixture_log_cdf(_normal(r, (b, d), 2.0), pi,
+                                               mu, s)).clamp(1e-5, 1 - 1e-5)
+    return [a.to(device).contiguous() for a in (y, pi, mu, s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("shape", MIX_SHAPES)
+def test_mixture_inverse_bit_for_bit_at_every_shape_on_card(cuda_device,
+                                                            shape, flat):
+    y, pi, mu, s = _mixture_inputs(cuda_device, *shape, flat)
+    before = kernels.mixture_inverse.launches
+    x = kernels.mixture_inverse(y, pi, mu, s)
+    assert kernels.mixture_inverse.launches == before + 1
+    assert torch.equal(x, kernels.mixture_inverse_plain(y, pi, mu, s))
+    assert torch.equal(x, kernels.mixture_inverse(y, pi, mu, s))
+    _close(torch.exp(logistic.mixture_log_cdf(x, pi, mu, s)), y, rtol=0,
+           atol=2e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MIX_SHAPES)
+def test_mixlogcdf_at_every_shape_on_card(cuda_device, shape):
+    b, k, d = shape
+    r = np.random.default_rng(8)
+    args = [t.to(cuda_device) for t in (
+        _normal(r, (b, d), 0.5), _normal(r, (b, d), 0.1), _normal(r, (b, d), 0.1),
+        _normal(r, (b, k, d)), _normal(r, (b, k, d)), _normal(r, (b, k, d), 0.3))]
+    before = kernels.mixlogcdf_forward.launches
+    got = kernels.mixlogcdf_forward(*args)
+    assert kernels.mixlogcdf_forward.launches == before + 1
+    for g, again, w in zip(got, kernels.mixlogcdf_forward(*args),
+                           kernels.mixlogcdf_plain(*args)):
+        assert torch.equal(g, again)
+        _close(g, w)
+
+
+@pytest.mark.cuda
+def test_mixture_kernels_take_shifted_operands_on_card(cuda_device):
+    """Operands 4 bytes off a 16-byte boundary: 4-byte staging copies, the
+    same bits as aligned copies of the same values."""
+    b, k, d = 8, 32, 768
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, device=cuda_device)
+        out = buf[1:].view(a.shape)
+        out.copy_(a)
+        assert out.data_ptr() % 16 == 4
+        return out
+
+    y, pi, mu, s = _mixture_inputs(cuda_device, b, k, d, False)
+    x = kernels.mixture_inverse(y, pi, mu, s)
+    assert torch.equal(x, kernels.mixture_inverse(
+        y, shifted(pi), shifted(mu), shifted(s)))
+    a = torch.zeros_like(y)
+    fwd = kernels.mixlogcdf_forward(x, a, a, pi, mu, s)
+    for g, w in zip(fwd, kernels.mixlogcdf_forward(
+            x, a, a, shifted(pi), shifted(mu), shifted(s))):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
