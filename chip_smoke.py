@@ -90,24 +90,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      64-px train step, eval batch and sampling pass;
  15. card vs CPU at 64 px on phase 14's weights, batch 2: encode bits/dim,
      and one training step at dropout 0 (loss and every gradient);
- 16. the fused GatedConv (MarScfConfig.fused_gated_conv=True): its forward
-     and backward kernels against their plain versions at batch 64 on the
-     32-px levels' 16x16, 8x8, 4x4 and the 64-px level 0's 32x32, C = 96,
-     rate 0 and 0.2 (one seed: the same mask), two backward calls bit for
-     bit the same, float64 and C = 12 refused, each with its time, the
-     plain version's, the port's unfused chain's (forward, forward +
-     backward) and its bound; the flagship with the flag on phase 4's seeds
-     and batches (ddi, 20 steps, launches 120 / 120 gated conv, 120 / 120
-     attention, 12 mixlogcdf a step, train images/s and peak memory beside
-     phase 4's), eval over 4 batches and one sampling pass on phase 5's
-     weights (120 gated-conv launches each, images/s; with --profile, one
-     fused train step traced), fused against unfused encode on the card
-     (1e-5 bits/dim), card against CPU at batch 4 (encode, one training
-     step at dropout 0); the 64-px row with the flag on phase 14's weights:
-     one warm-up step, then one window of 5 steps (the same depth as phase
-     14; one window where phase 14 times three) with exact launch counts
-     and peak memory, and one eval batch. Every earlier phase asserts that
-     the default path launches no gated-conv kernel;
+ 16. the fused GatedConv (MarScfConfig.fused_gated_conv=True, 3xTF32
+     implicit GEMMs on the tensor cores at any C): its forward and backward
+     kernels against their plain versions at batch 64 on the 32-px levels'
+     16x16, 8x8, 4x4 and the 64-px level 0's 32x32, C = 96, and at batch 16
+     on 16x16 and 4x4 at C = 12, 48, 160 and 512 and on 8x8 at C = 512 (the
+     --C 512 model's three levels), rate 0 and 0.2 (one seed: the same
+     mask), two calls of each bit for bit the same, the device launches of
+     each call (the kernel nodes of a CUDA graph that captures it) against
+     the source's `gpnf_gated_conv_plan`,
+     float64 refused, each C = 96 case with its time, the plain version's,
+     the port's unfused chain's (forward, forward + backward) and its bound
+     (3xTF32's, fp32's beside it), and C = 512 at 16x16 timed; the flagship
+     with the flag on phase 4's seeds and batches (ddi, 20 steps, launches
+     120 / 120 gated conv, 120 / 120 attention, 12 mixlogcdf a step, train
+     images/s, the median of 3 windows of 10 steps as phase 4's, and peak
+     memory beside phase 4's), eval over 4 batches and
+     one sampling pass on phase 5's weights (120 gated-conv launches each,
+     images/s; with --profile, one fused train step traced), fused against
+     unfused encode on the card (1e-5 bits/dim), card against CPU at batch
+     4 (encode, one training step at dropout 0); the 64-px row with the flag
+     on phase 14's weights: one warm-up step, then one window of 5 steps
+     (the same depth as phase 14; one window where phase 14 times three)
+     with exact launch counts and peak memory, and one eval batch; phase
+     18's --C 512 model with the flag: its step-1 loss and encode against
+     the unfused model on the same weights at dropout 0 (1e-5 bits/dim),
+     then 3 train steps and one eval batch with exact launch counts (60
+     gated convs a pass). Every earlier phase asserts that the default path
+     launches no gated-conv kernel;
  17. the core attention entries (`fused_attention` on q, k, v and
      `fused_attention_qkv` on packed qkv, which no path of the system
      runs): their four kernels against their plain versions at batch 64,
@@ -595,7 +605,8 @@ def check_kernels(device, model, timer):
 def train(device, loader, out_dir, seed, card, fused=False):
     """The flagship training path: ddi, then Adamax steps with dropout; with
     `fused`, MarScfConfig(fused_gated_conv=True) on the same seeds and
-    batches, without the batch-256 step and the checkpoint."""
+    batches, timed as the default path is, without the batch-256 step and
+    the checkpoint."""
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.training.checkpoints import CheckpointManager
@@ -650,8 +661,8 @@ def train(device, loader, out_dir, seed, card, fused=False):
         window_s.append(time.perf_counter() - t0)
     images_per_s = WINDOW_STEPS * BATCH / statistics.median(window_s)
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"  train {images_per_s:.1f} images/s (median of {WINDOWS} windows of "
-        f"{WINDOW_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
+    log(f"  train {images_per_s:.1f} images/s (median of {WINDOWS} windows "
+        f"of {WINDOW_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
     log(f"  train peak device memory {peak / 2 ** 30:.3f} GiB at batch "
         f"{BATCH} [{card}]")
     out = {"losses": losses, "launches": counts,
@@ -873,37 +884,6 @@ def flagship_runs(model, loader, device, train_step_fn):
                             False)}
 
 
-def device_launches(fn):
-    """{kernel name without template arguments: launches} of one call of
-    `fn`: the last of four in one trace, counted after two spin kernels
-    before it. After earlier traces in the process, a trace can miss the
-    first launch of each kernel and the first kernels of its window (seen
-    with --profile); the first three calls and the spin kernels take those
-    losses, and a trace that lost the spin kernels too is taken again (at
-    most three times)."""
-    def run():
-        for _ in range(3):
-            fn()
-        torch.cuda._sleep(1_000_000)
-        torch.cuda._sleep(1_000_000)
-        fn()
-
-    from gpnf_tpu_torch.utils.cuda_timing import trace
-
-    for _ in range(3):
-        events = trace(run)[0]
-        marks = [start for name, start, _ in events if "spin" in name]
-        if marks:
-            break
-    else:
-        raise AssertionError("the trace holds no spin kernel to count from")
-    out = {}
-    for name, start, _ in events:
-        if start > max(marks):
-            out[name.split("<")[0]] = out.get(name.split("<")[0], 0) + 1
-    return out
-
-
 def profile(runs, device, card, keep=()):
     """Device time by kernel over each run {label: (fn(generator), grad)},
     after one warm-up call, and the device's busy share of the host-clock
@@ -946,7 +926,7 @@ def check_gp_kernels(device, timer):
     """Phase 10: the three kernels of the GP path against their plain
     versions, with times, bounds and the backward of each."""
     from gpnf_tpu_torch.ops import kernels
-    from gpnf_tpu_torch.utils.cuda_timing import Timer
+    from gpnf_tpu_torch.utils.cuda_timing import Timer, device_launches
 
     slow = Timer(device, iters=3, warmup=1)  # the plain versions: thousands
     gen = torch.Generator(device=device).manual_seed(4321)  # of launches each
@@ -1593,14 +1573,88 @@ def encode_and_step_card_vs_cpu(model, x, device, config, noise_seed):
 # (H, W) of every GatedConv at the 32-px levels 0 / 1 / 2 and the 64-px level 0
 GCONV_SHAPES = ((16, 16), (8, 8), (4, 4), (32, 32))
 FGC_PER_PASS = 120  # L * K * num_blocks gated convs a forward
+# (C, H, W) of the other widths, at phase 18's batch: checked at rate 0 and
+# 0.2, timed at C = 512 on 16 x 16 (the CLIs' width at the 32-px level 0)
+GCONV_WIDTHS = ((12, 16, 16), (12, 4, 4), (48, 16, 16), (48, 4, 4),
+                (160, 16, 16), (160, 4, 4), (512, 16, 16), (512, 8, 8),
+                (512, 4, 4))
+C512_FGC_STEPS = 3  # train steps of the --C 512 model with the flag
+
+
+def _gated_conv_checks(kernels, wts, g, rate, seed, tag):
+    """Forward within 1e-5 x max(1, max |out|) of the plain version, dx
+    within 1e-5 and each weight gradient within 1e-4 of its largest, two
+    calls of each bit for bit; (forward err, backward errs, backward err /
+    max |plain|)."""
+    names = ("dx", "dw1", "db1", "dwg", "dbg")
+    with torch.no_grad():
+        out = kernels.fused_gated_conv(*wts, rate, seed)
+        out_again = kernels.fused_gated_conv(*wts, rate, seed)
+        want = kernels.gated_conv_plain(*wts, rate, seed)
+        got = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
+        again = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
+        want_b = kernels.gated_conv_plain_bwd(*wts, g, rate, seed)
+    fwd_err = float((out - want).abs().max())
+    fwd_bar = 1e-5 * max(1.0, float(want.abs().max()))
+    over = {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in zip(names, got, want_b)}
+    log(f"  {tag}: forward max abs err {fwd_err:.3g} (bar {fwd_bar:.3g}); "
+        f"backward max abs err / max |plain| "
+        + ", ".join(f"{n} {v:.3g}" for n, v in over.items())
+        + " (bars dx 1e-5, weights 1e-4)")
+    if not fwd_err <= fwd_bar:
+        raise AssertionError(f"{tag}: forward err {fwd_err}")
+    if not (torch.equal(out, out_again) and all(
+            torch.equal(a, b) for a, b in zip(got, again))):
+        raise AssertionError(f"{tag}: two calls differ")
+    if not (over["dx"] <= 1e-5 and all(over[n] <= 1e-4 for n in names[1:])):
+        raise AssertionError(f"{tag}: backward {over}")
+    return fwd_err, max(float((a - b).abs().max())
+                        for a, b in zip(got, want_b)), over
+
+
+def _gated_conv_launches(kernels, wts, g, rate, seed, tag):
+    """Device launches of one forward and one backward call (the kernel
+    nodes of a CUDA graph that captures it), held to the source's count
+    (`gated_conv_plan`)."""
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
+    fgc = importlib.import_module(
+        "gpnf_tpu_torch.ops.kernels.fused_gated_conv")
+    b, h, w, c = wts[0].shape
+    got = []
+    with torch.no_grad():
+        for backward, call in (
+                (False, lambda: kernels.fused_gated_conv(*wts, rate, seed)),
+                (True, lambda: kernels.fused_gated_conv_bwd(*wts, g, rate,
+                                                            seed))):
+            want = fgc.gated_conv_plan(b, h, w, c, rate > 0.0, backward)[1]
+            n = graph_launches(call)
+            if n != want:
+                raise AssertionError(f"{tag}: {n} device launches a "
+                                     f"{'backward' if backward else 'forward'}"
+                                     f" call, want {want}")
+            got.append(n)
+    log(f"  {tag}: device launches a call: forward {got[0]}, backward "
+        f"{got[1]}")
+    return {"fwd": got[0], "bwd": got[1]}
+
+
+def _gated_conv_bound(pixels, c, backward):
+    """The bound of one call (3xTF32 on the tensor cores; fp32 beside it)
+    on the bytes and FLOP of `gated_conv_work`."""
+    fgc = importlib.import_module(
+        "gpnf_tpu_torch.ops.kernels.fused_gated_conv")
+    return tensor_core_bound(*fgc.gated_conv_work(pixels, c, backward))
 
 
 def check_gated_conv_kernels(device, timer, gconv):
     """Phase 16: the gated-conv kernels against their plain versions at batch
     64 and every level's shape, rate 0 and 0.2 (one seed: the same mask),
-    two backward calls bit for bit the same, float64 and an unbuilt width
-    refused. Times: each kernel, its plain version, the port's unfused chain
-    (the GatedConv module + x in NCHW: two cuDNN convs and ATen, the default
+    two calls of each bit for bit the same, the device launches of a call,
+    float64 refused; then at the other widths (GCONV_WIDTHS, batch 16).
+    Times: each kernel, its plain version, the port's unfused chain (the
+    GatedConv module + x in NCHW: two cuDNN convs and ATen, the default
     path) forward and forward + backward, and the fused module (weight norm
     + kernels) forward + backward; no single PyTorch call computes the
     block, so there is no library time."""
@@ -1612,10 +1666,8 @@ def check_gated_conv_kernels(device, timer, gconv):
         w1 = gconv.conv.effective_weight().permute(2, 3, 1, 0).contiguous()
         wg = gconv.gate.effective_weight()[:, :, 0, 0].t().contiguous()
     b1, bg = gconv.conv.b.detach(), gconv.gate.b.detach()
-    weight_floats = w1.numel() + b1.numel() + wg.numel() + bg.numel()
     params = list(gconv.parameters())
     results = {name: [] for name in FGC}
-    names = ("dx", "dw1", "db1", "dwg", "dbg")
     for h, w in GCONV_SHAPES:
         x = torch.randn((BATCH, h, w, c), generator=gen, device=device)
         g = torch.randn((BATCH, h, w, c), generator=gen, device=device)
@@ -1623,31 +1675,12 @@ def check_gated_conv_kernels(device, timer, gconv):
         g_nchw = g.permute(0, 3, 1, 2).contiguous()
         seed = torch.tensor([1357 + h], dtype=torch.int32, device=device)
         pixels = BATCH * h * w
-        fwd_ops = 2 * pixels * (9 * 2 * c * c + 4 * c * c)
         for rate in (0.0, RATE):
             wts = (x, w1, b1, wg, bg)
-            with torch.no_grad():
-                out = kernels.fused_gated_conv(*wts, rate, seed)
-                want = kernels.gated_conv_plain(*wts, rate, seed)
-                fwd_err = float((out - want).abs().max())
-                fwd_bar = 1e-5 * max(1.0, float(want.abs().max()))
-                got = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
-                again = kernels.fused_gated_conv_bwd(*wts, g, rate, seed)
-                want_b = kernels.gated_conv_plain_bwd(*wts, g, rate, seed)
-            over = {n: float((a - b).abs().max() / b.abs().max())
-                    for n, a, b in zip(names, got, want_b)}
             tag = f"gated conv {h}x{w} rate {rate}"
-            log(f"  {tag}: forward max abs err {fwd_err:.3g} (bar "
-                f"{fwd_bar:.3g}); backward max abs err / max |plain| "
-                + ", ".join(f"{n} {v:.3g}" for n, v in over.items())
-                + " (bars dx 1e-5, weights 1e-4)")
-            if not fwd_err <= fwd_bar:
-                raise AssertionError(f"{tag}: forward err {fwd_err}")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{tag}: two backward calls differ")
-            if not (over["dx"] <= 1e-5 and all(
-                    over[n] <= 1e-4 for n in names[1:])):
-                raise AssertionError(f"{tag}: backward {over}")
+            fwd_err, bwd_err, over = _gated_conv_checks(kernels, wts, g, rate,
+                                                        seed, tag)
+            launches = _gated_conv_launches(kernels, wts, g, rate, seed, tag)
             with torch.no_grad():
                 ms = timer(lambda: kernels.fused_gated_conv(*wts, rate, seed))
                 bwd_ms = timer(lambda: kernels.fused_gated_conv_bwd(
@@ -1666,44 +1699,78 @@ def check_gated_conv_kernels(device, timer, gconv):
             fused_fb_ms = timer(lambda: torch.autograd.grad(
                 gconv.apply_fused(xr), [xr] + params, g))
             gconv.eval()
-            common = dict(shape=f"{h}x{w}", batch=BATCH, rate=rate,
+            common = dict(shape=f"{h}x{w}", batch=BATCH, c=c, rate=rate,
                           library_ms=None, unfused_fwd_ms=unfused_ms,
                           unfused_fwd_bwd_ms=unfused_fb_ms,
                           fused_module_fwd_bwd_ms=fused_fb_ms)
-            for name, kernel_ms, p_ms, bytes_moved, ops, err in (
-                    ("fused_gated_conv", ms, plain_ms,
-                     4 * (2 * pixels * c + weight_floats), fwd_ops, fwd_err),
-                    ("fused_gated_conv_bwd", bwd_ms, plain_bwd_ms,
-                     4 * (3 * pixels * c + 2 * weight_floats), 3 * fwd_ops,
-                     max(float((a - b).abs().max())
-                         for a, b in zip(got, want_b)))):
-                bound_ms, bound_by = bound(bytes_moved, ops)
+            notes = []
+            for name, kernel_ms, p_ms, backward, err in (
+                    ("fused_gated_conv", ms, plain_ms, False, fwd_err),
+                    ("fused_gated_conv_bwd", bwd_ms, plain_bwd_ms, True,
+                     bwd_err)):
+                bound_ms, bound_by, fp32, note = _gated_conv_bound(
+                    pixels, c, backward)
+                notes.append(f"{bound_ms * 1e3:.2f}{note}")
                 results[name].append(dict(
                     common, max_abs_err=err, ms=kernel_ms, plain_ms=p_ms,
-                    bound_ms=bound_ms, bound_by=bound_by))
-                if name == "fused_gated_conv_bwd":
-                    results[name][-1].update(
-                        deterministic=True, err_over_scale=over)
+                    bound_ms=bound_ms, bound_by=bound_by, **fp32,
+                    device_launches=launches["bwd" if backward else "fwd"]))
+                if backward:
+                    results[name][-1].update(deterministic=True,
+                                             err_over_scale=over)
             log(f"  {tag}: kernel fwd {ms:.4f} ms bwd {bwd_ms:.4f} ms | plain "
                 f"fwd {plain_ms:.4f} bwd {plain_bwd_ms:.4f} ms | unfused "
                 f"chain fwd {unfused_ms:.4f} ms fwd+bwd {unfused_fb_ms:.4f} ms"
                 f" | fused module fwd+bwd {fused_fb_ms:.4f} ms | bounds "
-                f"{results['fused_gated_conv'][-1]['bound_ms'] * 1e3:.2f} / "
-                f"{results['fused_gated_conv_bwd'][-1]['bound_ms'] * 1e3:.2f}"
-                f" us (operations)")
+                f"{notes[0]} / {notes[1]} us (3xTF32, operations)")
     x = torch.zeros((2, 4, 4, c), device=device)
-    refusals = {"float64": lambda: kernels.fused_gated_conv(
-                    *(t_.double() for t_ in (x, w1, b1, wg, bg))),
-                "C=12": lambda: kernels.fused_gated_conv(
-                    x[..., :12].contiguous(), w1[:, :, :24, :12].contiguous(),
-                    b1[:12], wg[:24, :24].contiguous(), bg[:24])}
-    for label, call in refusals.items():
-        try:
-            call()
-        except (TypeError, ValueError) as e:
-            log(f"  {label} refused before the device: {e}")
-        else:
-            raise AssertionError(f"the gated-conv kernel took {label}")
+    try:
+        kernels.fused_gated_conv(*(t_.double() for t_ in (x, w1, b1, wg, bg)))
+    except TypeError as e:
+        log(f"  float64 refused before the device: {e}")
+    else:
+        raise AssertionError("the gated-conv kernel took float64")
+    for cw, h, w in GCONV_WIDTHS:
+        r = lambda *shape, s=1.0: torch.randn(shape, generator=gen,
+                                              device=device) * s
+        x, g = r(C512_BATCH, h, w, cw), r(C512_BATCH, h, w, cw)
+        wts = (x, r(3, 3, 2 * cw, cw, s=(18 * cw) ** -0.5), r(cw, s=0.1),
+               r(2 * cw, 2 * cw, s=(2 * cw) ** -0.5), r(2 * cw, s=0.1))
+        seed = torch.tensor([2468 + cw], dtype=torch.int32, device=device)
+        pixels = C512_BATCH * h * w
+        for rate in (0.0, RATE):
+            tag = f"gated conv C={cw} {h}x{w} batch {C512_BATCH} rate {rate}"
+            fwd_err, bwd_err, over = _gated_conv_checks(kernels, wts, g, rate,
+                                                        seed, tag)
+            launches = _gated_conv_launches(kernels, wts, g, rate, seed, tag)
+            common = dict(shape=f"{h}x{w}", batch=C512_BATCH, c=cw,
+                          rate=rate, library_ms=None)
+            for name, backward, err in (("fused_gated_conv", False, fwd_err),
+                                        ("fused_gated_conv_bwd", True,
+                                         bwd_err)):
+                row = dict(common, max_abs_err=err, device_launches=launches[
+                    "bwd" if backward else "fwd"])
+                if (cw, h, rate) == (512, 16, 0.0):  # the CLIs' level 0
+                    with torch.no_grad():
+                        if backward:
+                            row["ms"] = timer(lambda: kernels.
+                                              fused_gated_conv_bwd(*wts, g))
+                            row["plain_ms"] = timer(
+                                lambda: kernels.gated_conv_plain_bwd(*wts, g))
+                        else:
+                            row["ms"] = timer(
+                                lambda: kernels.fused_gated_conv(*wts))
+                            row["plain_ms"] = timer(
+                                lambda: kernels.gated_conv_plain(*wts))
+                    bound_ms, bound_by, fp32, note = _gated_conv_bound(
+                        pixels, cw, backward)
+                    row.update(bound_ms=bound_ms, bound_by=bound_by, **fp32)
+                    log(f"  {tag}: kernel {'bwd' if backward else 'fwd'} "
+                        f"{row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms"
+                        f" | bound {bound_ms * 1e3:.2f}{note} us")
+                if backward:
+                    row["err_over_scale"] = over
+                results[name].append(row)
     return results
 
 
@@ -1812,6 +1879,109 @@ def imagenet64_fused(device, state, seed, card):
             "train_images_per_s": ips, "train_window_s": window_s,
             "train_peak_memory_bytes": peak, "eval_bits_per_dim": nll,
             "eval_s": eval_s, "eval_launches": eval_counts}
+
+
+def c512_fused(device, seed, card):
+    """Phase 16: phase 18's --C 512 model (the CLIs' default width, L 3, K 2,
+    batch 16; random weights after ddi) with fused_gated_conv=True. On the
+    same weights and batch at dropout 0, the fused and the unfused model's
+    step-1 loss and encode bits/dim within 1e-5; then C512_FGC_STEPS train
+    steps at the model's dropout and one eval batch, with exact launch
+    counts (60 gated convs a pass)."""
+    import dataclasses
+
+    from gpnf_tpu_torch.data.datasets import get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.train_marscf import model_config, parse_args
+    from gpnf_tpu_torch.training.loop import train_step
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    t0 = time.perf_counter()
+    cfg = model_config(parse_args(C512_ARGS))
+    loader = get_dataset("synthetic", C512_BATCH, seed=seed)[0]
+    batches = [torch.from_numpy(b).to(device)
+               for b, _ in zip(loader, range(C512_FGC_STEPS))]
+    plain = MarScfFlow(cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed + 50))
+    plain.ddi(batches[0], generator=torch.Generator(
+        device=device).manual_seed(seed + 51))
+    state = plain.state_dict()
+    del plain
+    log(f"  C=512: the model built and ddi in {time.perf_counter() - t0:.1f} "
+        f"s")
+    out = {}
+    nodrop = dataclasses.replace(cfg, drop_prob=0.0)
+    for name, config in (("unfused", nodrop), ("fused", dataclasses.replace(
+            nodrop, fused_gated_conv=True))):
+        model = MarScfFlow(config, device=device)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            zero = torch.zeros(C512_BATCH, device=device)
+            obj = model.eval().encode(batches[0], zero)[1]
+        opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=C512_WARM_UP,
+                           batch_size=C512_BATCH)
+        loss = float(train_step(model.train(), opt, batches[0],
+                                torch.Generator(device=device).manual_seed(
+                                    seed + 52)))
+        out[name] = (obj / (math.log(2.0) * model.num_dims), loss)
+        del model, opt
+    encode_diff = float((out["fused"][0] - out["unfused"][0]).abs().max())
+    loss_diff = abs(out["fused"][1] - out["unfused"][1])
+    log(f"  C=512 fused vs unfused, same weights, dropout 0 ("
+        f"{time.perf_counter() - t0:.1f} s in): step-1 loss "
+        f"{out['fused'][1]:.6f} / {out['unfused'][1]:.6f} (diff "
+        f"{loss_diff:.3g}), encode bits/dim max diff {encode_diff:.3g} "
+        f"(bar 1e-5 each)")
+    if not (loss_diff <= 1e-5 and encode_diff <= 1e-5):
+        raise AssertionError(f"C=512 fused vs unfused: loss {loss_diff}, "
+                             f"encode {encode_diff}")
+    model = MarScfFlow(dataclasses.replace(cfg, fused_gated_conv=True),
+                       device=device)
+    model.load_state_dict(state)
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=C512_WARM_UP,
+                       batch_size=C512_BATCH)
+    gen = torch.Generator(device=device).manual_seed(seed + 53)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [float(train_step(model.train(), opt, b, gen)) for b in batches]
+    train_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    steps = C512_FGC_STEPS * C512_ATTN
+    want = {**dict.fromkeys(counts, 0), "fused_gated_conv": steps,
+            "fused_gated_conv_bwd": steps, "fused_attention_long": steps,
+            "attention_lanes": steps, "attention_qkv_gemm": 2 * steps,
+            "fused_attention_long_bwd": steps, "attention_lanes_bwd": steps,
+            "attention_dseq_gemm": steps, "attention_dw_gemm": steps,
+            "mixlogcdf_forward": steps // 10}
+    log(f"  C=512 with the flag: {C512_FGC_STEPS} train steps at batch "
+        f"{C512_BATCH}, dropout {cfg.drop_prob}: losses "
+        f"{[round(v, 4) for v in losses]}; {train_s:.2f} s, peak "
+        f"{peak / 2 ** 30:.3f} GiB [{card}]; launches {counts}")
+    if counts != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"C=512 fused train: losses {losses}, launches "
+                             f"{counts} != {want}")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        nll = float(torch.mean(model.eval()(batches[0], generator=gen)[1]))
+    eval_counts = kernels.launch_counts()
+    want = {**dict.fromkeys(eval_counts, 0), "fused_gated_conv": C512_ATTN,
+            "fused_attention_long": C512_ATTN, "attention_lanes": C512_ATTN,
+            "attention_qkv_gemm": C512_ATTN,
+            "mixlogcdf_forward": C512_ATTN // 10}
+    log(f"  C=512 with the flag: eval bits/dim {nll:.4f} over one batch; "
+        f"launches {eval_counts}")
+    if eval_counts != want or not (math.isfinite(nll) and nll < 30.0):
+        raise AssertionError(f"C=512 fused eval: {nll}, launches "
+                             f"{eval_counts} != {want}")
+    return {"step1_loss_fused_vs_unfused": loss_diff,
+            "encode_bpd_fused_vs_unfused": encode_diff, "losses": losses,
+            "train_s": train_s, "train_peak_memory_bytes": peak,
+            "launches": counts, "eval_bits_per_dim": nll,
+            "eval_launches": eval_counts}
 
 
 # -- phase 17: the core attention entries (fused_attention, fused_attention_qkv) --
@@ -2520,14 +2690,25 @@ def main():
 
     log("== 16. fused GatedConv: kernels vs plain versions, the flagship with "
         "fused_gated_conv=True at 32 and 64 px")
+    t0 = time.perf_counter()
     gconv = model.levels[0].steps[0].coupling.net.blocks[0].conv
     gconv_kernels = check_gated_conv_kernels(device, timer, gconv)
+    log(f"  phase 16's kernel checks took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
     fgc = fused_flagship(device, train_loader, loader, args.out, args.seed,
                          card, model, trained, nll, args.profile)
     torch.cuda.empty_cache()
+    log(f"  phase 16's 32-px flagship took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     fgc64 = imagenet64_fused(device, state64, args.seed, card)
     del state64
     torch.cuda.empty_cache()
+    log(f"  phase 16's 64-px row took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    fgc512 = c512_fused(device, args.seed, card)
+    torch.cuda.empty_cache()
+    log(f"  phase 16's C = 512 path took {time.perf_counter() - t1:.1f} s; "
+        f"phase 16 took {time.perf_counter() - t0:.1f} s")
     log("== 17. core attention kernels (fused_attention, fused_attention_qkv) "
         "vs plain versions")
     t0 = time.perf_counter()
@@ -2620,6 +2801,8 @@ def main():
                     "sample_fgc": fgc["sample_launches"][name],
                     "train64_fgc": fgc64["launches"][name],
                     "eval64_fgc": fgc64["eval_launches"][name],
+                    "train_c512_fgc": fgc512["launches"][name],
+                    "eval_c512_fgc": fgc512["eval_launches"][name],
                     "core_attention": core_drive[name],
                     "train_c512": c512["launches"][name],
                     "serve_c512": c512["eval_launches"][name]}
@@ -2651,16 +2834,25 @@ def main():
             # the 32-px level 0 (16x16) at the training rate; the unfused
             # chain's times beside it, as no library call computes the block
             rows = gconv_kernels[name]
-            top = [r for r in rows if (r["shape"], r["rate"]) ==
-                   ("16x16", RATE)][0]
+            top = [r for r in rows if (r["shape"], r["c"], r["rate"]) ==
+                   ("16x16", FLAGSHIP["hidden_channels"], RATE)][0]
             entry.update(
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=top["ms"], plain_ms=top["plain_ms"],
                 bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                bound_fp32_ms=top["bound_fp32_ms"],
                 library_ms=None, unfused_fwd_ms=top["unfused_fwd_ms"],
                 unfused_fwd_bwd_ms=top["unfused_fwd_bwd_ms"],
+                device_launches_a_call=top["device_launches"],
                 shape=f"32-px level 0 (16x16), batch {BATCH}, C 96, rate "
                       f"{RATE}",
+                # 3xTF32 mma.sync implicit GEMMs, mma_tf32.cuh
+                device_kernels=["gated_conv_mma_kernel",
+                                "sum_splits_kernel", "drop_scale_kernel"],
+                headers=["gpnf_tpu_torch/csrc/mma_tf32.cuh",
+                         "gpnf_tpu_torch/csrc/philox.cuh"],
+                ptxas=ptxas_kernels(reports.get("fused_gated_conv", ""),
+                                    "gated_conv_mma_kernel"),
                 per_case=rows)
         elif name in CORE:
             # the 32-px level 0's shape at rate 0: kernel, plain version,
@@ -2795,7 +2987,8 @@ def main():
     summary = {"card": card, "build_s": build_s, "train": trained,
                "eval_bits_per_dim": nll, "nan_before_clamp": nan_count,
                **checks, **times, "gp": gp_summary, "imagenet64": row64,
-               "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64},
+               "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64,
+                                    "c512": fgc512},
                "core_attention": {"drive_launches": core_drive,
                                   "agreement": core_kernels["agreement"]},
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],

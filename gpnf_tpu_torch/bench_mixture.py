@@ -69,9 +69,10 @@ OUT_DIR = _native.BUILD_DIR.parent / "bench_mixture"
 
 def sass_counts(lib_path):
     """{kernel: {"instructions": n, "loops": [instructions of each loop
-    body, from a backward branch to its target], "mufu": {kind: n}}} of
-    the SASS in one built library (cuobjdump -sass; an instruction every
-    16 bytes on sm_90)."""
+    body, from a backward branch to its target], "mufu": {kind: n},
+    "hmma": n}} of the SASS in one built library (cuobjdump -sass; an
+    instruction every 16 bytes on sm_90; HMMA: the tensor cores'
+    products)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -80,13 +81,15 @@ def sass_counts(lib_path):
         head = re.search(r"Function : (\S+)", line)
         if head:
             row = counts[head.group(1)] = {"instructions": 0, "loops": [],
-                                           "mufu": collections.Counter()}
+                                           "mufu": collections.Counter(),
+                                           "hmma": 0}
             continue
         ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if row is None or not ins:
             continue
         addr, op = int(ins.group(1), 16), ins.group(2)
         row["instructions"] += 1
+        row["hmma"] += "HMMA." in op
         for kind in re.findall(r"MUFU\.(\w+)", op):
             row["mufu"][kind] += 1
         target = re.search(r"BRA\s+0x([0-9a-f]+)", op)

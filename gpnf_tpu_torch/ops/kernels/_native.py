@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point: argument types, restype int (a cudaError_t)
 SIGNATURES = {
     "fused_attention_long": {
@@ -59,8 +60,10 @@ SIGNATURES = {
         "gpnf_cholesky_f64": [_P, _P, _I, _P],
     },
     "fused_gated_conv": {
-        "gpnf_gated_conv_fwd": [_P] * 7 + [_I] * 4 + [_U, _F, _P],
-        "gpnf_gated_conv_bwd": [_P] * 16 + [_I] * 4 + [_U, _F, _I, _P],
+        "gpnf_gated_conv_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _L, _P],
+        "gpnf_gated_conv_bwd": [_P] * 16 + [_I] * 4 + [_U, _F, _L, _P],
+        "gpnf_gated_conv_plan": [_I] * 7 + [ctypes.POINTER(_L),
+                                            ctypes.POINTER(_I)],
     },
     "fused_attention": {
         "gpnf_attention_fwd": [_P] * 5 + [_I] * 4 + [_U, _F, _P],

@@ -1,16 +1,19 @@
 """The fused GatedConv block of the coupling networks: concat-ELU -> 3x3
-conv -> concat-ELU -> Dropout2d -> 1x1 GLU gate -> + x, in one kernel.
+conv -> concat-ELU -> Dropout2d -> 1x1 GLU gate -> + x, as a chain of
+tensor-core kernels.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_gated_conv.py (`_fwd_kernel`,
 `_bwd_kernel`): gpnf_tpu_torch/csrc/fused_gated_conv.cu, whose header says
-what bounds the kernels on the H100 and how they are laid out. The public
-functions keep the JAX layout: x (B, H, W, C) channel-last, w1 (3, 3, 2C, C)
-the 3x3 taps input-major, b1 (C,), wg (2C, 2C) the gate input-major, bg
-(2C,), then the dropout rate and a (1,) int32 seed on x's device.
-`gated_conv_plain` and `gated_conv_plain_bwd` are the plain PyTorch
-versions, with the kernel's ELU (exp(z) - 1, as the Pallas `_elu`; the
-unfused chain's F.elu uses expm1). The wrappers run them for CPU tensors;
-CUDA tensors launch the kernels or raise.
+what bounds the kernels on the H100 and how they are laid out: every
+product of the block (the conv, the gate, and in the backward dh, dx and
+the two weight gradients) is one 3xTF32 implicit GEMM of one kernel
+template, at any C. The public functions keep the JAX layout: x (B, H, W,
+C) channel-last, w1 (3, 3, 2C, C) the 3x3 taps input-major, b1 (C,), wg
+(2C, 2C) the gate input-major, bg (2C,), then the dropout rate and a (1,)
+int32 seed on x's device. `gated_conv_plain` and `gated_conv_plain_bwd` are
+the plain PyTorch versions, with the kernel's ELU (exp(z) - 1, as the
+Pallas `_elu`; the unfused chain's F.elu uses expm1). The wrappers run them
+for CPU tensors; CUDA tensors launch the kernels or raise.
 
 Dropout2d: channel j (of 2C) of batch row b is kept when word (j & 3) of
 Philox4x32-10 at counter (j >> 2, b, 0, 0) and key (seed, 1) is
@@ -19,9 +22,15 @@ per (b, channel), constant over space, a pure function of the seed, so the
 backward regenerates the forward's mask. `gated_conv_keep_plain` computes
 the same bits in torch integer arithmetic. The JAX package's masks come
 from the TPU's generator (or jax.random off the TPU) and cannot match.
+
+Each product's tiles and splits of K are pure functions of the shape (the
+source's `pick_tile` and `product_splits`), and split partials are added
+in split order, so two calls give the same bits; `gated_conv_plan` asks
+the source for a call's scratch and device launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -30,8 +39,48 @@ import torch.nn.functional as F
 from . import _native
 from .fused_attention import keep_threshold, philox4x32_10
 
-WIDTHS = (8, 16, 96)  # C values the kernels are built for: tests, flagship
-K_CHUNK = 512  # pixels per partial sum of the weight gradients
+# the pixels a call may take (fused_gated_conv.cu's kMaxPixels: pixel
+# indices exact in a float)
+GATED_CONV_MAX_PIXELS = 1 << 24
+
+
+def gated_conv_plan(batch: int, height: int, width: int, c: int,
+                    dropout: bool, backward: bool = False,
+                    vec: bool = True):
+    """(scratch floats, device launches) of one call, as the source's
+    `gpnf_gated_conv_plan` computes them from the shape: the forward's
+    scratch (h2, the dropout scales, the split products' partials) or the
+    backward's `partial` (the scales, the partials); the launches are each
+    product, a sum of each one whose K is split, and the table of dropout
+    scales at rate > 0. Builds the library on first use."""
+    floats, launches = ctypes.c_longlong(), ctypes.c_int()
+    err = _native.load("fused_gated_conv").gpnf_gated_conv_plan(
+        batch, height, width, c, int(dropout), int(vec), int(backward),
+        ctypes.byref(floats), ctypes.byref(launches))
+    if err != 0:
+        raise ValueError(f"gpnf_gated_conv_plan: shape "
+                         f"{(batch, height, width, c)} refused (CUDA error "
+                         f"{err})")
+    return floats.value, launches.value
+
+
+def gated_conv_work(pixels: int, c: int, backward: bool = False):
+    """(bytes, FLOP) of one call, the work its bound is taken from: x and
+    out once (the backward also g and dx), the weights and biases once (the
+    backward reads them and writes their gradients); 2 (9 2C C + 2C 2C)
+    FLOP a pixel forward (the conv, the gate), three times that
+    backward."""
+    weights = 22 * c * c + 3 * c  # w1, b1, wg, bg
+    ops = 2 * pixels * (9 * 2 * c * c + 4 * c * c)
+    if backward:
+        return 4 * (3 * pixels * c + 2 * weights), 3 * ops
+    return 4 * (2 * pixels * c + weights), ops
+
+
+def _vec(c: int, *tensors) -> bool:
+    """The kernels' 16-byte path: C a multiple of 4 and every operand they
+    copy on a 16-byte boundary (fresh scratch always is)."""
+    return c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def gated_conv_keep_plain(seed: torch.Tensor, batch: int, channels2: int,
@@ -140,16 +189,16 @@ def _validate(kernel, x, w1, b1, wg, bg, rate, seed):
 
 
 def _cuda_args(kernel, rate, seed, **tensors):
-    """The kernels' own limits (width, float32), then device and layout;
+    """The kernels' own limits (float32, pixels), then device and layout;
     returns (device, seed pointer or None, threshold, keep scale)."""
-    c = tensors["x"].shape[3]
-    if c not in WIDTHS:
-        raise ValueError(f"{kernel}: C={c} not in {WIDTHS}, the widths the "
-                         f"kernel is built for")
     for arg, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
                             f"kernel takes float32 only")
+    b, h, w, _ = tensors["x"].shape
+    if b * h * w >= GATED_CONV_MAX_PIXELS:
+        raise ValueError(f"{kernel}: {b * h * w} pixels, the kernels take "
+                         f"fewer than {GATED_CONV_MAX_PIXELS}")
     device = _native.check_cuda_inputs(kernel, **tensors)
     if rate == 0.0:
         return device, None, 0, 1.0
@@ -170,10 +219,15 @@ def _forward(x, w1, b1, wg, bg, rate, seed):
         "fused_gated_conv", rate, seed, x=x, w1=w1, b1=b1, wg=wg, bg=bg)
     out = torch.empty_like(x)
     b, h, w, c = x.shape
+    # h2 (B, H, W, 2C) between the conv and the gate, the dropout scales,
+    # the split products' partials
+    floats, _ = gated_conv_plan(b, h, w, c, rate > 0.0, False,
+                                _vec(c, x, w1, wg))
+    scratch = torch.empty(floats, dtype=x.dtype, device=device)
     _native.launch("fused_gated_conv", "gpnf_gated_conv_fwd", device,
                    seed_ptr, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                   wg.data_ptr(), bg.data_ptr(), out.data_ptr(), b, h, w, c,
-                   threshold, scale)
+                   wg.data_ptr(), bg.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), b, h, w, c, threshold, scale, floats)
     fused_gated_conv.launches += 1
     return out
 
@@ -197,15 +251,17 @@ def fused_gated_conv_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         g=g)
     b, h, w, c = x.shape
     empty = lambda *shape: torch.empty(shape, dtype=x.dtype, device=device)
-    parts = -(-b * h * w // K_CHUNK)
     dx, dw1, db1, dwg, dbg = (torch.empty_like(t) for t in (x, w1, b1, wg, bg))
-    dh, dg2, h2 = empty(b, h, w, c), empty(b, h, w, 2 * c), empty(b, h, w,
-                                                                  2 * c)
-    partial = empty(parts, 18 * c + 1, c)
+    # h, then dh over it; dG2; h2; the dropout scales and the partials
+    hdh, dg2, h2 = empty(b, h, w, c), empty(b, h, w, 2 * c), empty(b, h, w,
+                                                                   2 * c)
+    floats, _ = gated_conv_plan(b, h, w, c, rate > 0.0, True,
+                                _vec(c, x, w1, wg))
+    partial = empty(floats)
     _native.launch("fused_gated_conv", "gpnf_gated_conv_bwd", device,
                    seed_ptr, *(t.data_ptr() for t in (
-                       x, w1, b1, wg, bg, g, dx, dw1, db1, dwg, dbg, dh, dg2,
-                       h2, partial)), b, h, w, c, threshold, scale, K_CHUNK)
+                       x, w1, b1, wg, bg, g, dx, dw1, db1, dwg, dbg, hdh, dg2,
+                       h2, partial)), b, h, w, c, threshold, scale, floats)
     fused_gated_conv_bwd.launches += 1
     return dx, dw1, db1, dwg, dbg
 
@@ -235,7 +291,7 @@ def fused_gated_conv(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     Dropout2d at `rate` from `seed` (a (1,) int32 tensor on x's device,
     read only when rate > 0). Differentiable in x and every weight and
     bias. CPU tensors take the plain versions; CUDA tensors launch the
-    kernels or raise (a C outside WIDTHS, anything but float32)."""
+    kernels or raise (anything but float32)."""
     _validate("fused_gated_conv", x, w1, b1, wg, bg, rate, seed)
     return _GatedConv.apply(x, w1, b1, wg, bg, seed, rate)
 

@@ -84,3 +84,68 @@ def trace(fn):
             events.append((name, e.time_range.start,
                            e.time_range.elapsed_us()))
     return events, wall_us
+
+
+def device_launches(fn):
+    """{kernel name without template arguments: launches} of one call of
+    `fn`: the last of four in one trace, counted after two spin kernels
+    before it. After earlier traces in the process, a trace can miss the
+    first launch of each kernel and the first kernels of its window (seen
+    with --profile), or, rarely, the whole last call (seen after many
+    traces, chip_smoke.py phase 16); the first three calls and the spin
+    kernels take the first losses, and a trace that lost the spin kernels
+    or every kernel after them is taken again (at most three times)."""
+    def run():
+        for _ in range(3):
+            fn()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(1_000_000)
+        fn()
+
+    for _ in range(3):
+        events = trace(run)[0]
+        marks = [start for name, start, _ in events if "spin" in name]
+        if marks and any(start > max(marks) for _, start, _ in events):
+            break
+    else:
+        raise AssertionError("the trace holds no spin kernel, or no kernel "
+                             "after them, to count from")
+    out = {}
+    for name, start, _ in events:
+        if start > max(marks):
+            out[name.split("<")[0]] = out.get(name.split("<")[0], 0) + 1
+    return out
+
+
+def graph_launches(fn) -> int:
+    """Kernel launches of one call of `fn`: the kernel nodes of a CUDA graph
+    that captures the call (libcuda's cuGraphGetNodes and
+    cuGraphNodeGetType), every launch it enqueues on the current stream.
+    No profiler: a trace can lose launches (`device_launches`), a capture
+    cannot. `fn` runs once before the capture (builds, allocations)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    libcuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                           ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kernels, kind = 0, ctypes.c_int()
+    for node in nodes:
+        if libcuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels

@@ -643,12 +643,21 @@ def _gated_conv_inputs(device, c, h, w, batch=4, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("c,h,w", [(16, 8, 8), (8, 5, 7), (96, 16, 16),
-                                   (96, 8, 8), (96, 4, 4), (96, 32, 32)])
+                                   (96, 8, 8), (96, 4, 4), (96, 32, 32),
+                                   (4, 6, 6), (12, 8, 8), (48, 16, 16),
+                                   (160, 8, 8), (512, 16, 16), (512, 8, 8),
+                                   (512, 4, 4), (13, 5, 7), (128, 8, 8),
+                                   (64, 6, 6)])
 def test_gated_conv_kernels_match_plain_on_card(cuda_device, c, h, w, rate):
     """One seed for kernel and plain version: the same mask. Forward within
     1e-5 x max(1, max |out|); dx within 1e-5 of its largest magnitude and
-    each weight and bias gradient within 1e-4 of its own largest."""
-    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, c, h, w)
+    each weight and bias gradient within 1e-4 of its own largest. Every C
+    runs and every tile: C = 13 (and 5 x 7 images) on the 4-byte copies, C
+    = 512 at the --C 512 model's batch 16 on its three levels (16 x 16 on
+    128 x 128 tiles), C = 96 on 64 x 96 (the conv, dw1), C = 128 (the conv,
+    dw1) and 64 (dwg) on 64 x 128, split K at the small images."""
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, c, h, w,
+                                              batch=16 if c == 512 else 4)
     seed = torch.tensor([4242 + c], dtype=torch.int32, device=cuda_device)
     before = (kernels.fused_gated_conv.launches,
               kernels.fused_gated_conv_bwd.launches)
@@ -668,14 +677,81 @@ def test_gated_conv_kernels_match_plain_on_card(cuda_device, c, h, w, rate):
         assert _rel_max(got, ref) <= bar, name
 
 
+# (B, H, W, C) -> (scratch floats, device launches) of the forward and the
+# backward at rate 0, then 0.2: the flagship's 32-px levels, the 64-px level
+# 0, and the --C 512 model's levels
+GATED_CONV_PLANS = {
+    (64, 16, 16, 96): ((3145728, 2), (1659840, 8), (3158016, 3),
+                       (1672128, 9)),
+    (64, 8, 8, 96): ((2752512, 3), (1966080, 9), (2764800, 4), (1978368, 10)),
+    (64, 4, 4, 96): ((884736, 3), (1327872, 10), (897024, 4), (1340160, 11)),
+    (64, 32, 32, 96): ((12582912, 2), (1659840, 8), (12595200, 3),
+                       (1672128, 9)),
+    (16, 16, 16, 512): ((4194304, 2), (1, 6), (4210688, 3), (16384, 7)),
+    (16, 8, 8, 512): ((1048576, 2), (1, 6), (1064960, 3), (16384, 7)),
+    (16, 4, 4, 512): ((1441792, 4), (1310720, 10), (1458176, 5),
+                      (1327104, 11)),
+}
+
+
 @pytest.mark.cuda
-def test_gated_conv_bwd_repeats_bit_for_bit(cuda_device):
-    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, 96, 16, 16,
+@pytest.mark.parametrize("shape", sorted(GATED_CONV_PLANS))
+def test_gated_conv_plan_at_the_paths_shapes(cuda_device, shape):
+    """The source's scratch and launch counts at the paths' shapes: h2 (P
+    2C floats) and the split products' partials, the dropout scales (B 2C)
+    at rate > 0; a launch for each product, its split sum where K is split,
+    and the mask table. A call launches that many kernels (the kernel nodes
+    of a CUDA graph that captures it)."""
+    from gpnf_tpu_torch.ops.kernels.fused_gated_conv import gated_conv_plan
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+    b, h, w, c = shape
+    got = tuple(gated_conv_plan(b, h, w, c, dropout, backward)
+                for dropout in (False, True) for backward in (False, True))
+    assert got == GATED_CONV_PLANS[shape]
+    with pytest.raises(ValueError, match="refused"):
+        gated_conv_plan(0, h, w, c, False)
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, c, h, w, batch=b)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    for i, rate in enumerate((0.0, 0.2)):
+        assert graph_launches(lambda: kernels.fused_gated_conv(
+            x, w1, b1, wg, bg, rate, seed)) == got[2 * i][1]
+        assert graph_launches(lambda: kernels.fused_gated_conv_bwd(
+            x, w1, b1, wg, bg, g, rate, seed)) == got[2 * i + 1][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 160])
+def test_gated_conv_bwd_repeats_bit_for_bit(cuda_device, c):
+    """Two calls of the forward and of the backward give the same bits (the
+    weight gradients' splits are summed in a fixed order)."""
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, c, 16, 16,
                                               batch=8)
     seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(kernels.fused_gated_conv(x, w1, b1, wg, bg, 0.2, seed),
+                       kernels.fused_gated_conv(x, w1, b1, wg, bg, 0.2, seed))
     first = kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, 0.2, seed)
     again = kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, 0.2, seed)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_gated_conv_takes_misaligned_operands(cuda_device):
+    """x and g starting 4 bytes past a 16-byte boundary take the 4-byte
+    copies: the same values as the aligned call, within the plain bars."""
+    x, w1, b1, wg, bg, g = _gated_conv_inputs(cuda_device, 16, 8, 8)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+        t.shape)
+    xs, gs = shift(x), shift(g)
+    assert xs.data_ptr() % 16 == 4 and xs.is_contiguous()
+    out = kernels.fused_gated_conv(xs, w1, b1, wg, bg)
+    want = kernels.gated_conv_plain(x, w1, b1, wg, bg)
+    assert float((out - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    grads = kernels.fused_gated_conv_bwd(xs, w1, b1, wg, bg, gs)
+    for name, got, ref in zip(("dx", "dw1", "db1", "dwg", "dbg"), grads,
+                              kernels.gated_conv_plain_bwd(x, w1, b1, wg, bg,
+                                                           g)):
+        assert _rel_max(got, ref) <= (1e-5 if name == "dx" else 1e-4), name
 
 
 @pytest.mark.cuda
@@ -702,9 +778,14 @@ def test_gated_conv_rejects_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         kernels.fused_gated_conv_bwd(*(a.double() for a in (
             x, w1, b1, wg, bg, g)))
+    # C = 12 is no longer refused: the kernels' result, one launch
     x12, w12, b12, wg12, bg12, _ = _gated_conv_inputs(cuda_device, 12, 8, 8)
-    with pytest.raises(ValueError, match="widths"):
-        kernels.fused_gated_conv(x12, w12, b12, wg12, bg12)
+    before = kernels.fused_gated_conv.launches
+    out = kernels.fused_gated_conv(x12, w12, b12, wg12, bg12)
+    assert kernels.fused_gated_conv.launches == before + 1
+    want = kernels.gated_conv_plain(x12, w12, b12, wg12, bg12)
+    assert float((out - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
     with pytest.raises(ValueError, match="w1"):
         kernels.fused_gated_conv(x, w1[:, :, :, :8], b1, wg, bg)
     with pytest.raises(ValueError, match="contiguous"):

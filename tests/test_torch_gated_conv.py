@@ -22,7 +22,6 @@ from gpnf_tpu.ops.pallas import fused_gated_conv as j_fgc
 from gpnf_tpu_torch import convert
 from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
 from gpnf_tpu_torch.ops import kernels, mixlogcdf
-from gpnf_tpu_torch.ops.kernels.fused_gated_conv import WIDTHS
 from torch_parity import close, load, n, normal, rng, t
 
 SEED = jnp.zeros((1,), jnp.int32)
@@ -279,13 +278,15 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
 
 
 @pytest.mark.parametrize("fault,error,match", [
-    ("width", ValueError, "widths"), ("float64", TypeError, "float32"),
+    ("width", ValueError, "CUDA tensors only"),
+    ("float64", TypeError, "float32"),
     ("seed", ValueError, "seed"), ("w1", ValueError, "w1"),
     ("g", ValueError, "g "), ("not_cuda", ValueError, "CUDA tensors only")])
 def test_wrapper_checks(fault, error, match):
     """The kernels' own limits are checked before the device: a tensor that
     is not on the CPU (here on the meta device) takes the kernels' path and
-    its checks; a bad seed or shape raises on every device."""
+    its checks; a bad seed or shape raises on every device. The kernels
+    take every width: C = 12 passes their checks and reaches the device's."""
     c = 12 if fault == "width" else 16
     dtype = torch.float64 if fault == "float64" else torch.float32
     device = "cpu" if fault in ("seed", "w1", "g") else "meta"
@@ -301,4 +302,3 @@ def test_wrapper_checks(fault, error, match):
             kernels.fused_gated_conv(x, w1, b1, wg, bg, rate, seed)
     with pytest.raises(error, match=match):
         kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg, g, rate, seed)
-    assert WIDTHS[-1] == 96  # the flagship's width is built
