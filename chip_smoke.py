@@ -158,7 +158,23 @@ Phases, each of which raises (exit code != 0) when it fails:
      asserts that its path launches no Dh = 128 / 256 kernel, and the GEMM
      and key-tiled kernels exactly as often as its proj calls run their
      stages: one projection GEMM and one long forward a proj forward, the
-     four backward stages a proj backward.
+     four backward stages a proj backward;
+ 19. serving the flagship in bf16 (MarScfConfig(compute_dtype="bfloat16"),
+     `bench.py`'s default): the bf16 qkv GEMM against its plain version
+     (within one bf16 ulp plus the fp32 sums' spread) at the flagship's
+     three levels and C 512, the bf16 tensor-core forward (within 2^-7
+     max |v|) there and at the 64-px level 0, rate 0 and 0.2, two calls
+     bit for bit, each with its time, the plain version's, the library
+     call's on bf16 and its bound at the bf16 rate, and bf16 HMMA in each
+     kernel's SASS; then phase 5's weights in bf16: eval bits/dim over
+     phase 5's batches (exact launch counts, 2 device launches a proj
+     forward, no backward launch) and its gap to phase 5's float32, one
+     sampling pass (every image finite), a test batch's latents through
+     the sampling path and re-encoded (within 2^-5 of the largest
+     latent at each level), card vs CPU at batch 2, eval images/s in bf16 and float32 in turns, peak
+     memory; one bf16 eval batch of the 64-px row and of phase 18's --C
+     512 model. Every earlier phase asserts that it launches no bf16
+     kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -186,6 +202,7 @@ import torch.nn.functional as F
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
 PEAK_OPS_3XTF32 = 495e12 / 3
+PEAK_OPS_BF16 = 989e12  # dense bf16 on the tensor cores
 BATCH = 64
 FLAGSHIP = dict(image_shape=(32, 32, 3), L=3, K=4, hidden_channels=96,
                 num_blocks=10, num_components=32, drop_prob=0.2,
@@ -241,7 +258,9 @@ NO_CORE = dict.fromkeys(CORE, 0)
 # dq and dK/dV kernels of the long entry's backward, dseq and dW)
 LANES = ("attention_lanes", "attention_lanes_bwd")
 GEMMS = ("attention_qkv_gemm", "attention_dseq_gemm", "attention_dw_gemm")
-NO_WIDE = dict.fromkeys(LANES + GEMMS, 0)
+# the bf16 kernels (phase 19): no float32 path launches them
+BF16 = ("attention_qkv_gemm_bf16", "attention_fwd_bf16")
+NO_WIDE = dict.fromkeys(LANES + GEMMS + BF16, 0)
 PROJ_FWD_STAGES = ("attention_qkv_gemm", "fused_attention_long")
 PROJ_BWD_STAGES = ("attention_qkv_gemm", "fused_attention_long_bwd",
                    "attention_dseq_gemm", "attention_dw_gemm")
@@ -2586,6 +2605,353 @@ def cli_default_width(device, out_dir, card):
             "eval_launches": eval_counts, "nan_before_clamp":
                 served["nan_count"]}
 
+# -- phase 19: serving the flagship in bf16 --------------------------------------
+# (batch, S, C) of the bf16 kernels' checks: the flagship's three levels, and
+# the CLIs' C 512 at the 32-px level 0; the forward also at the 64-px level 0
+BF16_GEMM_CASES = ((BATCH, 256, 96), (BATCH, 64, 96), (BATCH, 16, 96),
+                   (C512_BATCH, 256, 512))
+BF16_FWD_CASES = BF16_GEMM_CASES[:3] + ((BATCH, 1024, 96),
+                                        (C512_BATCH, 256, 512))
+BF16_FWD_BAR = 2.0 ** -7  # x max |v|: P's rounding and the output's
+# latents decoded by the sampling path and re-encoded, against themselves:
+# max abs diff over the largest |latent|, at each level. The bf16 nets see
+# inputs that agree only to the inverse's error, so a bf16 cast may differ
+# by one ulp (2^-8 relative), and 12 couplings compound it both ways: the
+# port on the CPU recovered the latents of 4 and 16 test images within
+# 1.1-1.7% (float32: 3.5e-6)
+BF16_LATENT_BAR = 2.0 ** -4
+BF16_EVAL = plus({"mixlogcdf_forward": 12, **proj_stages(120)},
+                 attention_qkv_gemm_bf16=120, attention_fwd_bf16=120)
+BF16_SAMPLE = plus({"mixture_inverse": 12, **proj_stages(120)},
+                   attention_qkv_gemm_bf16=120, attention_fwd_bf16=120)
+
+
+def _bf16_bound(bytes_moved, ops):
+    """(least ms, "bytes" or "operations") at 3.35 TB/s and the dense bf16
+    tensor-core rate."""
+    return bound(bytes_moved, ops, PEAK_OPS_BF16)
+
+
+def check_bf16_kernels(device, timer, reports):
+    """Phase 19's kernel checks: the bf16 qkv GEMM (within one bf16 ulp of
+    its plain version plus the float32 sums' spread, `bf16_product_close`)
+    and the bf16 tensor-core forward (within 2^-7 max |v|) at
+    BF16_GEMM_CASES / BF16_FWD_CASES, rate 0 and 0.2 for the forward (one
+    seed: the same mask; at S 1024 rate 0.2 compared at batch
+    LONG_DROPOUT_BATCH), two calls bit for bit, each with its time, the
+    plain version's, the library call's (torch.matmul / SDPA on bf16) and
+    its bound at the bf16 rate; the bf16 HMMA of each kernel's SASS and its
+    ptxas registers and spills."""
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+    gen = torch.Generator(device=device).manual_seed(1919)
+    randn = lambda *shape, s=1.0: (torch.randn(
+        shape, generator=gen, device=device) * s).to(torch.bfloat16)
+    rows = {"attention_qkv_gemm_bf16": [], "attention_fwd_bf16": []}
+    for b, s, c in BF16_GEMM_CASES:
+        seq, w = randn(b, s, c, s=0.5), randn(3 * c, c, s=0.1)
+        got = kernels.attention_qkv_gemm(seq, w)
+        want = fa.bf16_matmul(seq, w.t())
+        same = torch.equal(got, kernels.attention_qkv_gemm(seq, w))
+        ok = fa.bf16_product_close(got, want, seq, w)
+        err = float((got.float() - want.float()).abs().max())
+        m, n, k = b * s, 3 * c, c
+        bound_ms, bound_by = _bf16_bound(2 * (m * k + n * k + m * n),
+                                         2 * m * n * k)
+        row = dict(shape=[b, s, c], max_abs_err=err, within_bar=ok,
+                   ms=timer(lambda: kernels.attention_qkv_gemm(seq, w)),
+                   plain_ms=timer(lambda: fa.bf16_matmul(seq, w.t())),
+                   library_ms=timer(lambda: torch.matmul(seq, w.t())),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows["attention_qkv_gemm_bf16"].append(row)
+        log(f"  bf16 qkv GEMM (B, S, C) {(b, s, c)}: max abs err {err:.3g} "
+            f"within one bf16 ulp + the fp32 sums' spread: {ok}; two calls "
+            f"bit for bit: {same} | kernel {row['ms']:.4f} ms plain "
+            f"{row['plain_ms']:.4f} ms torch.matmul (bf16) "
+            f"{row['library_ms']:.4f} ms | bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by})")
+        if not (ok and same):
+            raise AssertionError(f"bf16 qkv GEMM {(b, s, c)}: within bar "
+                                 f"{ok}, repeat {same}")
+    seed = torch.tensor([19], dtype=torch.int32, device=device)
+    for b, s, c in BF16_FWD_CASES:
+        heads, dh = 4, c // 4
+        qkv = randn(b, s, 3 * c)
+        for rate in (0.0, RATE):
+            run = lambda: kernels.attention_long_qkv(qkv, heads, rate, seed)
+            got = run()
+            same = torch.equal(got, run())
+            sub = (b if rate == 0.0 or s <= 256 else LONG_DROPOUT_BATCH)
+            want = kernels.attention_long_plain(qkv[:sub], heads, rate, seed)
+            err = float((got[:sub].float() - want.float()).abs().max())
+            bar = BF16_FWD_BAR * float(qkv[..., c:2 * c].float().abs().max())
+            bound_ms, bound_by = _bf16_bound(2 * b * s * 4 * c,
+                                             4 * b * heads * s * s * dh)
+            row = dict(shape=[b, s, c], head_dim=dh, rate=rate,
+                       max_abs_err=err, bar=bar, ms=timer(run),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            if sub == b:
+                row["plain_ms"] = timer(lambda: kernels.attention_long_plain(
+                    qkv, heads, rate, seed))
+            if rate == 0.0:
+                k_, v_, q_ = (t.reshape(b, s, heads, dh).transpose(1, 2)
+                              for t in qkv.split(c, dim=-1))
+                row["library_ms"] = timer(
+                    lambda: F.scaled_dot_product_attention(q_, k_, v_))
+            rows["attention_fwd_bf16"].append(row)
+            log(f"  bf16 forward (B, S, C) {(b, s, c)}, Dh {dh}, rate {rate}"
+                f": max abs err {err:.3g} (bar {bar:.3g}; compared at batch "
+                f"{sub}); two calls bit for bit: {same} | kernel "
+                f"{row['ms']:.4f} ms plain "
+                f"{row.get('plain_ms', float('nan')):.4f} ms"
+                + (f" SDPA (bf16) {row['library_ms']:.4f} ms"
+                   if rate == 0.0 else "")
+                + f" | bound {bound_ms * 1e3:.2f} us ({bound_by})")
+            if not (err <= bar and same):
+                raise AssertionError(f"bf16 forward {(b, s, c)} rate {rate}:"
+                                     f" err {err} > {bar} or repeat {same}")
+    sass = {}
+    for source, pattern in (("attention_gemm", "gemm_bf16_kernel"),
+                            ("fused_attention_long",
+                             "attention_bf16_fwd_kernel")):
+        hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
+                for fn, row in sass_counts(
+                    _native.library_path(source)).items() if pattern in fn}
+        sass[pattern] = hmma
+        log(f"  {pattern}: HMMA.16816.F32.BF16 instructions in the SASS of "
+            f"each instantiation (cuobjdump -sass): {hmma}")
+        if not hmma or not all(hmma.values()):
+            raise AssertionError(f"{pattern}: no bf16 HMMA in {hmma}")
+    ptxas = {"attention_qkv_gemm_bf16": ptxas_kernels(
+                 reports.get("attention_gemm", ""), "gemm_bf16_kernel"),
+             "attention_fwd_bf16": ptxas_kernels(
+                 reports.get("fused_attention_long", ""),
+                 "attention_bf16_fwd_kernel")}
+    log(f"  ptxas: {ptxas}")
+    return rows, {"sass_bf16_hmma": sass, "ptxas": ptxas}
+
+
+def _decode(model, latents):
+    """The sampling path (`MarScfFlow.sample`'s inverse) from given latents
+    {level: latent}, level L the top one, level i < L the split-off half of
+    level i, in place of the prior's draws."""
+    cfg = model.cfg
+    z = latents[cfg.L]
+    zero = torch.zeros((z.shape[0],), device=z.device)
+    for i in reversed(range(cfg.L)):
+        if i < cfg.L - 1:
+            z = torch.cat([z, latents[i + 1]], dim=1)
+        z, _ = model.levels[i].inverse(z, zero)
+        z, _ = model.squeeze.inverse(z, zero)
+    return z
+
+
+def _reencode(model, x):
+    """{level: latent} of the flow's forward on x (no dequantisation)."""
+    zero = torch.zeros((x.shape[0],), device=x.device)
+    out, z = {}, x
+    for i, level in enumerate(model.levels):
+        z, _ = level(*model.squeeze.forward(z, zero))
+        if i < model.cfg.L - 1:
+            z, out[i + 1] = z[:, : z.shape[1] // 2], z[:, z.shape[1] // 2:]
+    out[model.cfg.L] = z
+    return out
+
+
+def _eval_timed(model, loader, device, seed):
+    """(bits/dim, seconds) of one eval pass."""
+    from gpnf_tpu_torch.training.loop import evaluate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nll = evaluate(model, loader, generator=torch.Generator(
+        device=device).manual_seed(seed))
+    return nll, time.perf_counter() - t0
+
+
+def bf16_flagship(device, model, loader, proto, nll32, out_dir, seed, card):
+    """Phase 19's flagship: phase 5's weights in a compute_dtype="bfloat16"
+    model (eval mode): bits/dim over phase 5's batches and noise with exact
+    launch counts, its gap to phase 5's float32 bits/dim, one proj forward's
+    device launches (a CUDA graph), a sampling pass (every image finite),
+    the sampling path's inverse from the latents of a test batch re-encoded
+    (the prior's samples of random weights reach 1e6 and re-encode to NaN
+    in float32 too, so the latents are the data's), card vs the port on the
+    CPU at batch 2, eval images/s in bf16 and float32 in turns, peak
+    memory."""
+    import dataclasses
+
+    from gpnf_tpu_torch.models.marscf import MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training.loop import save_sample_grid
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
+    cfg16 = dataclasses.replace(model.cfg, compute_dtype="bfloat16")
+    m16 = MarScfFlow(cfg16, device=device).eval()
+    m16.load_state_dict(model.state_dict())
+    n_batches = len(loader)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    nll16, _ = _eval_timed(m16, loader, device, seed + 1)
+    eval_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {k: BF16_EVAL.get(k, 0) * n_batches for k in eval_counts}
+    log(f"  bf16 eval bits/dim {nll16:.6f} over {n_batches} batches of "
+        f"{BATCH} (float32, phase 5: {nll32:.6f}; bf16 - float32 "
+        f"{nll16 - nll32:+.6f}); peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"[{card}]; launches {eval_counts}")
+    if eval_counts != want or not (math.isfinite(nll16) and nll16 < 30.0):
+        raise AssertionError(f"bf16 eval: {nll16}, launches {eval_counts} "
+                             f"!= {want}")
+    attn = m16.levels[0].steps[0].coupling.net.blocks[0].attn
+    with torch.no_grad():
+        w16 = attn.in_proj.effective_weight(torch.bfloat16).contiguous()
+        seq = (torch.randn((BATCH, 256, 96), generator=torch.Generator(
+            device=device).manual_seed(seed + 3), device=device) * 0.5).to(
+                torch.bfloat16)
+        device_launches = graph_launches(
+            lambda: kernels.fused_attention_proj(seq, w16, attn.num_heads))
+    log(f"  one bf16 proj forward at level 0: {device_launches} device "
+        f"launches (the qkv GEMM, the forward)")
+    if device_launches != 2:
+        raise AssertionError(f"bf16 proj forward: {device_launches} device "
+                             f"launches, want 2")
+
+    kernels.reset_launch_counts()
+    path, nan_count = save_sample_grid(
+        m16, os.path.join(out_dir, "samples_bf16.png"), n=BATCH,
+        generator=torch.Generator(device=device).manual_seed(seed + 2))
+    sample_counts = kernels.launch_counts()
+    want = {k: BF16_SAMPLE.get(k, 0) for k in sample_counts}
+    log(f"  bf16 sampling pass: wrote {path}; {nan_count} NaN before the "
+        f"clamp; launches {sample_counts}")
+    if sample_counts != want or nan_count:
+        raise AssertionError(f"bf16 sampling: {nan_count} NaN, launches "
+                             f"{sample_counts} != {want}")
+    x = m16.dequantize(torch.from_numpy(next(iter(loader))).to(device),
+                       generator=torch.Generator(device=device).manual_seed(
+                           seed + 4))
+    with torch.no_grad():
+        latents = _reencode(m16, x)
+        x_back = _decode(m16, latents)
+        again = _reencode(m16, x_back)
+    latent_err = {lv: float((again[lv] - latents[lv]).abs().max()
+                            / latents[lv].abs().max()) for lv in latents}
+    x_err = float((x_back - x).abs().max())
+    log(f"  bf16: a test batch's latents through the sampling path and "
+        f"re-encoded: max abs diff / max |latent| by level {latent_err} "
+        f"(bar {BF16_LATENT_BAR}); the decoded images' max abs diff "
+        f"{x_err:.3g}")
+    if not all(v <= BF16_LATENT_BAR for v in latent_err.values()):
+        raise AssertionError(f"bf16 latents not recovered: {latent_err}")
+    # card vs the port on the CPU at batch 2, the same weights and noise;
+    # the bar is the larger of 1e-3 and half of the bf16-vs-float32 gap the
+    # CPU itself shows on them
+    xb = torch.from_numpy(proto[:2])
+    noise = torch.rand(xb.shape, generator=torch.Generator().manual_seed(19))
+    cpu16 = MarScfFlow(cfg16, device="cpu").eval()
+    cpu16.load_state_dict(model.state_dict())
+    cpu32 = MarScfFlow(model.cfg, device="cpu").eval()
+    cpu32.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        card_bpd = m16(xb.to(device), noise=noise.to(device))[1].cpu()
+        cpu_bpd = cpu16(xb, noise=noise)[1]
+        cpu32_bpd = cpu32(xb, noise=noise)[1]
+    del cpu16, cpu32
+    diff = float((card_bpd - cpu_bpd).abs().max())
+    cpu_gap = float((cpu_bpd - cpu32_bpd).abs().max())
+    bar = max(1e-3, 0.5 * cpu_gap)
+    log(f"  bf16 card vs CPU at batch 2: bits/dim card {card_bpd.tolist()} "
+        f"CPU {cpu_bpd.tolist()} (max diff {diff:.3g}, bar {bar:.3g}: the "
+        f"larger of 1e-3 and half the CPU's bf16-vs-float32 gap "
+        f"{cpu_gap:.3g})")
+    if not (torch.isfinite(card_bpd).all() and diff <= bar):
+        raise AssertionError(f"bf16 card vs CPU {diff} > {bar}")
+
+    # eval images/s, float32 and bf16 in turns on the same weights and
+    # batches, median of 3
+    times = {"float32": [], "bfloat16": []}
+    for i in range(3):
+        for name, net in (("float32", model), ("bfloat16", m16)):
+            times[name].append(_eval_timed(net, loader, device,
+                                           seed + 30 + i)[1])
+    ips = {k: n_batches * BATCH / statistics.median(v)
+           for k, v in times.items()}
+    log(f"  eval images/s (median of 3 passes over {n_batches * BATCH} "
+        f"images, in turns): float32 {ips['float32']:.1f}, bf16 "
+        f"{ips['bfloat16']:.1f} ({times}) [{card}]")
+    return {"eval_bits_per_dim": nll16, "float32_eval_bits_per_dim": nll32,
+            "bf16_minus_float32": nll16 - nll32, "eval_launches": eval_counts,
+            "sample_launches": sample_counts,
+            "proj_device_launches": device_launches,
+            "sample_nan_count": nan_count, "latent_rel_err": latent_err,
+            "decoded_max_abs_err": x_err, "card_vs_cpu": diff,
+            "card_vs_cpu_bar": bar, "cpu_bf16_vs_float32": cpu_gap,
+            "eval_images_per_s": ips, "eval_s": times,
+            "eval_peak_memory_bytes": peak}
+
+
+def bf16_other_models(device, seed, card):
+    """Phase 19's other widths in bf16, one eval batch each on random
+    weights after ddi, beside the float32 model on the same weights and
+    batch: the 64-px row (phase 14's configuration; level 0 the long entry
+    at S 1024, its projection a plain product) and phase 18's --C 512
+    model (L 3, K 2, batch 16; the wide route at Dh 128), with exact launch
+    counts."""
+    import dataclasses
+
+    from gpnf_tpu_torch.data.datasets import NumpyLoader, get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.train_marscf import model_config, parse_args
+
+    out = {}
+    c512 = model_config(parse_args(C512_ARGS))
+    cases = (("imagenet64", MarScfConfig(**IMAGENET64), BATCH, plus(
+                 {"mixlogcdf_forward": 12, **proj_stages(80)},
+                 fused_attention_long=40, attention_qkv_gemm_bf16=80,
+                 attention_fwd_bf16=120)),
+             ("c512", c512, C512_BATCH, {
+                 "fused_attention_long": C512_ATTN, "attention_qkv_gemm":
+                 C512_ATTN, "attention_qkv_gemm_bf16": C512_ATTN,
+                 "attention_fwd_bf16": C512_ATTN, "mixlogcdf_forward": 6}))
+    for name, cfg, batch, per_batch in cases:
+        t0 = time.perf_counter()
+        raw = get_dataset("imagenet_64" if name == "imagenet64" else
+                          "synthetic", batch, seed=seed)[1].images[:batch]
+        loader = NumpyLoader(raw, batch, shuffle=False)
+        model = MarScfFlow(cfg, device=device, generator=torch.Generator(
+            ).manual_seed(seed + 60)).eval()
+        model.ddi(torch.from_numpy(next(iter(loader))).to(device),
+                  generator=torch.Generator(device=device).manual_seed(
+                      seed + 61))
+        m16 = MarScfFlow(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                         device=device).eval()
+        m16.load_state_dict(model.state_dict())
+        nll32, _ = _eval_timed(model, loader, device, seed + 62)
+        kernels.reset_launch_counts()
+        nll16, eval_s = _eval_timed(m16, loader, device, seed + 62)
+        counts = kernels.launch_counts()
+        want = {k: per_batch.get(k, 0) for k in counts}
+        log(f"  {name} in bf16: one eval batch of {batch}, bits/dim "
+            f"{nll16:.6f} (float32 on the same weights {nll32:.6f}, bf16 - "
+            f"float32 {nll16 - nll32:+.6f}), {eval_s:.3f} s with the first "
+            f"call's setup [{card}]; launches {counts}; phase took "
+            f"{time.perf_counter() - t0:.1f} s")
+        if counts != want or not (math.isfinite(nll16) and nll16 < 30.0):
+            raise AssertionError(f"{name} bf16 eval: {nll16}, launches "
+                                 f"{counts} != {want}")
+        out[name] = {"eval_bits_per_dim": nll16,
+                     "float32_eval_bits_per_dim": nll32,
+                     "eval_launches": counts}
+        del model, m16
+        torch.cuda.empty_cache()
+    return out
+
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2608,6 +2974,8 @@ def main():
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products sum in fp32, as the JAX package's (phase 19)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from gpnf_tpu_torch.utils.cuda_timing import Timer, card_line
 
     card = card_line()
@@ -2726,6 +3094,16 @@ def main():
                                   keep=("gpnf::attention_lanes",
                                         "gpnf::attention_mma"))
     log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
+    log("== 19. serving the flagship in bf16: the bf16 qkv GEMM and "
+        "attention forward vs plain versions, the flagship's eval and "
+        "sampling, the 64-px row and --C 512")
+    t0 = time.perf_counter()
+    bf16_rows, bf16_build = check_bf16_kernels(device, timer, reports)
+    log(f"  phase 19's kernel checks took {time.perf_counter() - t0:.1f} s")
+    bf16 = bf16_flagship(device, model, loader, proto, nll, args.out,
+                         args.seed, card)
+    bf16.update(bf16_other_models(device, args.seed, card))
+    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -2773,6 +3151,12 @@ def main():
                                 attention[1] + "416"),
         "attention_dw_gemm": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
                               attention[1] + "416"),
+        # the bf16 serving path (phase 19): the proj forward's two stages
+        # in bf16, the forward also the 64-px level 0's (`_fwd_kernel_bh`)
+        "attention_qkv_gemm_bf16": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                                    attention[1] + "393"),
+        "attention_fwd_bf16": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                               attention[1] + "393"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -2805,7 +3189,11 @@ def main():
                     "eval_c512_fgc": fgc512["eval_launches"][name],
                     "core_attention": core_drive[name],
                     "train_c512": c512["launches"][name],
-                    "serve_c512": c512["eval_launches"][name]}
+                    "serve_c512": c512["eval_launches"][name],
+                    "eval_bf16": bf16["eval_launches"][name],
+                    "sample_bf16": bf16["sample_launches"][name],
+                    "eval64_bf16": bf16["imagenet64"]["eval_launches"][name],
+                    "eval_c512_bf16": bf16["c512"]["eval_launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -2854,6 +3242,29 @@ def main():
                 ptxas=ptxas_kernels(reports.get("fused_gated_conv", ""),
                                     "gated_conv_mma_kernel"),
                 per_case=rows)
+        elif name in BF16:
+            # the flagship's level 0 (the forward at rate 0, beside SDPA);
+            # every case, the 64-px level 0 and C 512 among them, in per_case
+            rows = bf16_rows[name]
+            top = rows[0]
+            gemm = name == "attention_qkv_gemm_bf16"
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=f"level 0 (B, S, C) {tuple(top['shape'])}" + (
+                    "; library_ms torch.matmul on bf16" if gemm else
+                    ", rate 0; library_ms SDPA on bf16"),
+                bound_peak="bf16 989 TFLOP/s", per_case=rows,
+                device_kernels=["gemm_bf16_kernel" if gemm
+                                else "attention_bf16_fwd_kernel"],
+                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh"] + (
+                    [] if gemm else ["gpnf_tpu_torch/csrc/philox.cuh"]),
+                ptxas=bf16_build["ptxas"][name],
+                sass_bf16_hmma=bf16_build["sass_bf16_hmma"][
+                    "gemm_bf16_kernel" if gemm
+                    else "attention_bf16_fwd_kernel"])
         elif name in CORE:
             # the 32-px level 0's shape at rate 0: kernel, plain version,
             # SDPA and bound on the same inputs (every case in per_case)
@@ -2993,10 +3404,10 @@ def main():
                                   "agreement": core_kernels["agreement"]},
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],
                         "flagship_routes": flagship_routes},
-               "kernels": record}
+               "bf16": bf16, "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-18 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-19 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

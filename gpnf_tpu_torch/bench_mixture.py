@@ -70,9 +70,10 @@ OUT_DIR = _native.BUILD_DIR.parent / "bench_mixture"
 def sass_counts(lib_path):
     """{kernel: {"instructions": n, "loops": [instructions of each loop
     body, from a backward branch to its target], "mufu": {kind: n},
-    "hmma": n}} of the SASS in one built library (cuobjdump -sass; an
-    instruction every 16 bytes on sm_90; HMMA: the tensor cores'
-    products)."""
+    "hmma": n, "hmma_ops": {opcode: n}}} of the SASS in one built library
+    (cuobjdump -sass; an instruction every 16 bytes on sm_90; HMMA: the
+    tensor cores' products, by shape and type, e.g.
+    HMMA.16816.F32.BF16)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -82,20 +83,24 @@ def sass_counts(lib_path):
         if head:
             row = counts[head.group(1)] = {"instructions": 0, "loops": [],
                                            "mufu": collections.Counter(),
-                                           "hmma": 0}
+                                           "hmma": 0,
+                                           "hmma_ops": collections.Counter()}
             continue
         ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if row is None or not ins:
             continue
         addr, op = int(ins.group(1), 16), ins.group(2)
         row["instructions"] += 1
-        row["hmma"] += "HMMA." in op
+        if "HMMA." in op:
+            row["hmma"] += 1
+            row["hmma_ops"][re.search(r"HMMA\.\S+", op).group(0)] += 1
         for kind in re.findall(r"MUFU\.(\w+)", op):
             row["mufu"][kind] += 1
         target = re.search(r"BRA\s+0x([0-9a-f]+)", op)
         if target and int(target.group(1), 16) < addr:
             row["loops"].append((addr - int(target.group(1), 16)) // 16 + 1)
-    return {k: dict(v, mufu=dict(v["mufu"])) for k, v in counts.items()}
+    return {k: dict(v, mufu=dict(v["mufu"]), hmma_ops=dict(v["hmma_ops"]))
+            for k, v in counts.items()}
 
 
 def _inverse_inputs(device, b, k, d, gen):

@@ -19,8 +19,11 @@ affine coupling's convs carry `an_bias`/`an_logs` (Conv2d) or `b`/`logs`
 (Conv2dZeros), the same names in both packages. A missing or extra key,
 or a shape mismatch, raises. Leaves are cast to float32 unless the caller
 asks for another dtype or, with dtype=None, keeps the source's (load into
-a `model.double()` to run in float64). `gp_params_from_jax` loads a JAX
-GP hyperparameter dict alone.
+a `model.double()` to run in float64). Parameters are float32 in both
+packages under either compute dtype: a `compute_dtype="bfloat16"` model
+holds, loads and saves the same float32 trees as a float32 one (its bf16
+casts happen in the forward). `gp_params_from_jax` loads a JAX GP
+hyperparameter dict alone.
 
 `state_dict_to_jax` is the way back: the port's state dict as the flat
 JAX dict with each level's K steps stacked again, the layout the JAX

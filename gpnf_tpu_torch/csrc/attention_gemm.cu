@@ -80,9 +80,27 @@
 // products of a k step issued pass by pass within 0.7%, 128 x 64 large
 // tiles up to 15.2% and 64 x 32 warps up to 22.2% slower; none of them
 // more than 2.8% faster at any product.
+//
+// bf16 (MarScfConfig(compute_dtype="bfloat16"), serving): qkv = seq w^T
+// with seq and w in bf16, as `_kernel_proj_qkv` computes it on bf16
+// operands (fused_attention.py:383-390): products summed in fp32, the
+// result rounded once to bf16 (`gpnf_attention_gemm_bf16`, its own kernel,
+// `gemm_bf16_kernel`). bf16 mma.sync.m16n8k16 (mma_bf16.cuh) on 64 x 64
+// output tiles, 4 warps of 32 x 32, K in chunks of 32 through the same
+// 3-stage cp.async ring, each chunk summed into fresh accumulators and
+// added in fp32 as above; the tiles are rows of 32 + 8 bf16 values, read by
+// ldmatrix, conflict-free (mma_bf16.cuh). K is C (96 at the flagship: three
+// chunks, six k16 steps; 512 at the CLIs' width), short, so K is never
+// split: a call is one launch. What bounds it: bytes at the flagship (C =
+// 96, B 64, S 256: 0.9 GFLOP, ~0.9 us at the bf16 tensor cores' 989
+// TFLOP/s; 12.6 MB, ~3.8 us), operations at C = 512. The operands start on
+// 16-byte boundaries and K is a multiple of 8 (the wrapper copies or pads
+// what is not); any M and N.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -325,6 +343,134 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// -- bf16: qkv = seq w^T --------------------------------------------------------
+using gpnf::bf16;
+constexpr int kBf16Tile = 64;  // BM = BN
+constexpr int kBf16Warp = 32;  // a warp's WM = WN: 2 x 4 accumulators
+constexpr int kBf16Threads = 128;
+constexpr int kBf16Kc = 32;  // k values a stage holds: two k16 steps
+constexpr int kBf16Ld = kBf16Kc + gpnf::kBf16Pad;  // a tile row, in values
+constexpr int kBf16Stages = 3;
+
+// Rows [r0, r0 + 64) and values [k0, k0 + 32) of the row-major (rows x k)
+// src into dst (64 rows of kBf16Ld), zeros past the rows or past k (a
+// multiple of 8, so a 16-byte chunk is all in or all out).
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
+                                               int k, int r0, int k0,
+                                               int rows) {
+  constexpr int kRow = kBf16Kc / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < kBf16Tile * kRow / kBf16Threads; ++it) {
+    const int e = threadIdx.x + it * kBf16Threads;
+    const int r = e / kRow;
+    const int c = 8 * (e - r * kRow);
+    const bool valid = r0 + r < rows && k0 + c < k;
+    const bf16* from =
+        valid ? src + static_cast<long long>(r0 + r) * k + k0 + c : src;
+    gpnf::cp_async16_bf16(dst + r * kBf16Ld + c, from, valid);
+  }
+}
+
+// c (m x n, bf16) = a (m x k) b^T, b (n x k): fp32 sums, one rounding.
+__global__ void __launch_bounds__(kBf16Threads)
+    gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                     bf16* __restrict__ c, int m, int n, int k) {
+  constexpr int kTileVals = kBf16Tile * kBf16Ld;
+  __shared__ __align__(16) bf16 smem[kBf16Stages][2][kTileVals];
+  constexpr int MI = kBf16Warp / 16, NI = kBf16Warp / 8;
+  const int m0 = blockIdx.y * kBf16Tile, n0 = blockIdx.x * kBf16Tile;
+  const int nk = (k + kBf16Kc - 1) / kBf16Kc;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int wm = (warp >> 1) * kBf16Warp;
+  const int wn = (warp & 1) * kBf16Warp;
+
+  auto load_stage = [&](int stage, int k0) {
+    load_tile_bf16(smem[stage][0], a, k, m0, k0, m);
+    load_tile_bf16(smem[stage][1], b, k, n0, k0, n);
+  };
+#pragma unroll
+  for (int st = 0; st < kBf16Stages - 1; ++st) {
+    if (st < nk) load_stage(st, st * kBf16Kc);
+    gpnf::cp_async_commit();
+  }
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    }
+  }
+  for (int t = 0; t < nk; ++t) {
+    gpnf::cp_async_wait<kBf16Stages - 2>();
+    __syncthreads();  // chunk t is in; every warp is done with chunk t - 1
+    const int ahead = t + kBf16Stages - 1;  // into the stage chunk t - 1 held
+    if (ahead < nk) load_stage(ahead % kBf16Stages, ahead * kBf16Kc);
+    gpnf::cp_async_commit();
+    const bf16* as = smem[t % kBf16Stages][0];
+    const bf16* bs = smem[t % kBf16Stages][1];
+    float part[MI][NI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        part[i][j][0] = part[i][j][1] = part[i][j][2] = part[i][j][3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBf16Kc; kk += 16) {
+      uint32_t fb[NI / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < NI / 2; ++jp) {
+        gpnf::frag_b_bf16_pair<kBf16Ld>(fb[jp], bs, wn + 16 * jp, kk, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        uint32_t fa[4];
+        gpnf::frag_a_bf16<kBf16Ld>(fa, as, wm + 16 * i, kk, lane);
+#pragma unroll
+        for (int jp = 0; jp < NI / 2; ++jp) {
+          gpnf::mma_bf16(part[i][2 * jp], fa, fb[jp][0], fb[jp][1]);
+          gpnf::mma_bf16(part[i][2 * jp + 1], fa, fb[jp][2], fb[jp][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+      }
+    }
+  }
+  // c0 (gr, 2 tg), c1 (gr, 2 tg + 1), c2 (gr + 8, 2 tg), c3 (gr + 8, 2 tg + 1)
+  const bool pairs = n % 2 == 0;  // then (col, col + 1) is one 4-byte word
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + 16 * i + gr + 8 * h;
+      if (row >= m) continue;
+      bf16* dst = c + static_cast<long long>(row) * n;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tg;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if (pairs && col < n) {
+          *reinterpret_cast<uint32_t*>(dst + col) = gpnf::pack_bf16(x, y);
+        } else {
+          if (col < n) dst[col] = __float2bfloat16_rn(x);
+          if (col + 1 < n) dst[col + 1] = __float2bfloat16_rn(y);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // c (m x n) = A B as above; trans_a and trans_b are 0 or 1, not both 1
@@ -363,5 +509,26 @@ extern "C" int gpnf_attention_gemm(const float* a, const float* b, float* c,
   sum_splits_kernel<<<static_cast<unsigned>((count + kSumThreads - 1) /
                                             kSumThreads),
                       kSumThreads, 0, s>>>(partial, c, count, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c (m x n) = a (m x k) b^T in bf16, b (n x k): qkv = seq w^T with m = B S,
+// n = 3C, k = C. a, b and c start on 16-byte boundaries and k is a
+// multiple of 8; one launch, no split of K.
+extern "C" int gpnf_attention_gemm_bf16(const void* a, const void* b, void* c,
+                                        int m, int n, int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 8 != 0 ||
+      (m + kBf16Tile - 1) / kBf16Tile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned16(a) || !aligned16(b) || !aligned16(c)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  const dim3 grid((n + kBf16Tile - 1) / kBf16Tile,
+                  (m + kBf16Tile - 1) / kBf16Tile);
+  gemm_bf16_kernel<<<grid, kBf16Threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

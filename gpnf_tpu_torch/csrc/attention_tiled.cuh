@@ -50,6 +50,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "philox.cuh"
 
@@ -475,6 +476,236 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
       if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
       *reinterpret_cast<float2*>(dst + 8 * dn) =
           make_float2(acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
+    }
+  }
+}
+
+// The forward in bf16 (MarScfConfig(compute_dtype="bfloat16"), serving):
+// the same function at the JAX package's bf16 rounding points
+// (fused_attention.py's `_fwd_kernel_proj`, `_reference_qkv`, on bf16
+// qkv): q * q_scale rounded to bf16 (q_scale the bf16 constant Dh^-1/2),
+// the scores, softmax and dropout in fp32, P rounded to bf16 for P V, P V
+// summed in fp32 and the output rounded once. bf16 mma.sync.m16n8k16
+// (mma_bf16.cuh) at the widths built in bf16, Dh 24 and 128.
+//
+// A block per (64 queries, head, batch row), a warp per 16 query rows, as
+// the fp32 kernel. The block's q rows are copied unscaled, then scaled and
+// rounded in shared memory by the whole block, and each warp keeps its q
+// fragments in registers for every key tile (W / 16 k16 steps, W = Dh
+// rounded up to 16: Dh 24 runs in tiles 32 wide whose pad columns are
+// zeroed once and never copied or stored, as the fp32 kernel pads Dh 4).
+// K and V stream in tiles of 64 keys through a cp.async double buffer.
+// For a tile the warp computes S = (q scaled) K^T into fp32 accumulators
+// (K's B fragments by ldmatrix), masks keys past S, reduces the row max
+// across the quad and forms corr = exp(m_old - m_new), p = exp(s - m) (added
+// unrounded to the thread's fp32 denominator) and pd = keep p / (1 - rate)
+// rounded to bf16: the accumulators of two neighbouring n8 key tiles are
+// the A fragment of one k16 step of P V as they stand. V's B fragments come
+// by ldmatrix.trans. Each tile's P V is summed from zero and added to the
+// output rows by fmaf(out, corr, P V), in fp32, as in the fp32 kernel (a sum
+// kept in the tensor cores across tiles truncates). At the end the quad
+// adds its partial denominators in one order, and out = acc / l is rounded
+// to bf16 once.
+//
+// Rounding: the kernel rounds the unnormalised pd = exp(s - m) (m the
+// running max; times 1 / (1 - rate) where kept), where the JAX package
+// rounds the normalised p; either is within 2^-9 of its value, so the
+// output is within ~2^-8 |v|max of the plain version's (the bar is 2^-7
+// |v|max). The keep bits are the fp32 kernel's (philox.cuh), so the masks
+// agree. Sums run in a fixed order: two calls give the same bits.
+//
+// What bounds it on the H100: at the flagship's level 0 (B 64, S 256, Dh
+// 24, 4 heads) the two products are 2 x 2 x 64 x 4 x 256 x 256 x 24 = 1.6
+// GFLOP, ~1.6 us at the dense bf16 rate (989 TFLOP/s; 2.1 us as run, Dh
+// padded to 32), and the bytes (qkv in, out out: 12.6 MB) ~3.8 us: bytes.
+// At the 64-px level 0 (S 1024) the products are 25.8 GFLOP, ~26 us, the
+// bytes ~15 us; at the CLIs' C = 512 (B 16, S 256, Dh 128) 2.1 GFLOP, ~2 us,
+// and 16.8 MB, ~5 us. Both widths take tiles of 64 keys: shared memory
+// 25 KB a block at Dh 24, 85 KB at 128.
+template <int DH>
+struct MmaFwdBf16 {
+  static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
+  static constexpr int kLd = kWidth + kBf16Pad;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // queries a block
+  static constexpr int kKeys = 64;           // keys a tile
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (kRows + 2 * 2 * kKeys) * kLd;
+};
+
+template <class Layout, bool DROPOUT>
+__global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
+    attention_bf16_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                                  const bf16* __restrict__ q_in,
+                                  const bf16* __restrict__ k_in,
+                                  const bf16* __restrict__ v_in,
+                                  bf16* __restrict__ out, float q_scale,
+                                  uint32_t threshold, float keep_scale) {
+  constexpr int DH = Layout::kHeadDim;
+  using T = MmaFwdBf16<DH>;
+  constexpr int W = T::kWidth;
+  constexpr int LD = T::kLd;
+  constexpr int KT = T::kKeys;
+  constexpr int NT = KT / 8;   // n8 key tiles of a tile
+  constexpr int NKS = W / 16;  // k16 steps over W
+  constexpr int ND = W / 8;    // n8 tiles of out's columns
+  extern __shared__ float4 mma_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // (kRows, LD)
+  bf16* kv_s = q_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tg = lane & 3;
+  const int gr = lane >> 2;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int seq_len = lay.seq_len;
+  const int i0 = blockIdx.x * T::kRows;
+  const int r0 = 16 * warp;  // the warp's rows in the block
+  const bool active = i0 + r0 < seq_len;
+  const size_t row = lay.in_row();
+  const size_t head = lay.in_head(b, h);
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nk = (seq_len + KT - 1) / KT;
+
+  if constexpr (W != DH) {
+    zero_shared(reinterpret_cast<float*>(q_s), T::kBytes / sizeof(float));
+  }
+  load_rows_bf16<DH, T::kRows, LD>(q_s, q_in + head, i0, seq_len, row,
+                                   T::kThreads);
+  load_rows_bf16<DH, KT, LD>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_bf16<DH, KT, LD>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                             T::kThreads);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // q * q_scale rounded to bf16 in place, then each warp's q fragments
+  for (int e = threadIdx.x; e < T::kRows * DH; e += T::kThreads) {
+    bf16* x = q_s + (e / DH) * LD + e % DH;
+    *x = __float2bfloat16_rn(__bfloat162float(*x) * q_scale);
+  }
+  __syncthreads();
+  uint32_t qa[NKS][4];
+#pragma unroll
+  for (int ks = 0; ks < NKS; ++ks) {
+    frag_a_bf16<LD>(qa[ks], q_s, r0, 16 * ks, lane);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  for (int t = 0; t < nk; ++t) {
+    if (t > 0) {
+      cp_async_wait_all();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    }
+    if (t + 1 < nk) {
+      bf16* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
+      load_rows_bf16<DH, KT, LD>(next, k_in + head, (t + 1) * KT, seq_len,
+                                 row, T::kThreads);
+      load_rows_bf16<DH, KT, LD>(next + KT * LD, v_in + head, (t + 1) * KT,
+                                 seq_len, row, T::kThreads);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int j0 = t * KT;
+    const bf16* k_s = kv_s + (t & 1) * 2 * KT * LD;
+    const bf16* v_s = k_s + KT * LD;
+
+    // S = q K^T: the warp's 16 rows x the tile's KT keys
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        frag_b_bf16_pair<LD>(kb, k_s, 16 * np, 16 * ks, lane);
+        mma_bf16(s[2 * np], qa[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+      }
+    }
+    // -inf past S; the row max over the quad, and corr
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j0 + 8 * n + 2 * tg + (e & 1) >= seq_len) s[n][e] = -INFINITY;
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = expf(m[r] - mx);
+      l[r] *= corr[r];
+      m[r] = mx;
+    }
+    // p into the denominators, pd = keep p / (1 - rate) rounded: two n8
+    // tiles' accumulators make one k16 step's A fragment
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      if (DROPOUT) {
+        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[n][e] = !DROPOUT ? p : bits[e] >= threshold ? p * keep_scale : 0.f;
+      }
+      pa[n >> 1][2 * (n & 1)] = pack_bf16(s[n][0], s[n][1]);
+      pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(s[n][2], s[n][3]);
+    }
+    // out = corr out + Pd V: each pair of out's n8 tiles summed from zero
+    // over the tile's keys, then added by one fmaf each
+#pragma unroll
+    for (int dp = 0; dp < ND / 2; ++dp) {
+      float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kp = 0; kp < NT / 2; ++kp) {
+        uint32_t vb[4];
+        frag_b_bf16_trans_pair<LD>(vb, v_s, 16 * kp, 16 * dp, lane);
+        mma_bf16(pv[0], pa[kp], vb[0], vb[1]);
+        mma_bf16(pv[1], pa[kp], vb[2], vb[3]);
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * dp + x][e] = fmaf(acc[2 * dp + x][e], corr[e >> 1],
+                                    pv[x][e]);
+        }
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv_l = 1.f / lt;
+    const int i = i0 + r0 + gr + 8 * r;
+    if (i >= seq_len) continue;
+    bf16* dst = out + lay.out_head(b, h) + static_cast<size_t>(i) *
+                lay.out_row() + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      if (8 * dn >= DH) break;  // a pad column (Dh = 24)
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) = pack_bf16(
+          acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
     }
   }
 }
@@ -968,6 +1199,28 @@ inline int attention_packed_fwd(const int* seed, const float* qkv, float* out,
                                    keep_scale,
                                    static_cast<cudaStream_t>(stream));
       }));
+}
+
+// The bf16 forward of one layout (Dh 24 or 128): one launch. cp.async
+// copies 16-byte chunks, so q, k and v must start 16-byte aligned.
+template <class Layout>
+cudaError_t attention_tiled_fwd_bf16(Layout lay, int batch, const int* seed,
+                                     const bf16* q, const bf16* k,
+                                     const bf16* v, bf16* out, float q_scale,
+                                     uint32_t threshold, float keep_scale,
+                                     cudaStream_t stream) {
+  using T = MmaFwdBf16<Layout::kHeadDim>;
+  for (const bf16* p : {q, k, v}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  const dim3 grid((lay.seq_len + T::kRows - 1) / T::kRows, lay.heads, batch);
+  auto* kernel = threshold > 0
+                     ? &attention_bf16_fwd_kernel<Layout, true>
+                     : &attention_bf16_fwd_kernel<Layout, false>;
+  return launch_dynamic(kernel, grid, T::kThreads, T::kBytes, stream, lay,
+                        seed, q, k, v, out, q_scale, threshold, keep_scale);
 }
 
 // dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] from (seed, qkv, g);

@@ -66,6 +66,36 @@ extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
                                     keep_scale, stream);
 }
 
+// The same in bf16 (qkv and out bf16), q * q_scale rounded to bf16:
+// attention_tiled.cuh's `attention_bf16_fwd_kernel`, at the head widths
+// built in bf16, 24 and 128 (the wrappers' BF16_HEAD_DIMS);
+// cudaErrorInvalidValue at any other.
+extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
+                                            void* out, int batch, int seq_len,
+                                            int channels, int heads,
+                                            float q_scale, uint32_t threshold,
+                                            float keep_scale, void* stream) {
+  using gpnf::bf16;
+  if (heads <= 0 || channels % heads != 0 ||
+      !gpnf::attention_args_ok(batch, seq_len, heads, channels / heads,
+                               kMaxSeqLen, seed, threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bf16* in = static_cast<const bf16*>(qkv);
+  auto run = [&](auto lay) {
+    return gpnf::attention_tiled_fwd_bf16(
+        lay, batch, seed, in + 2 * channels, in, in + channels,
+        static_cast<bf16*>(out), q_scale, threshold, keep_scale,
+        static_cast<cudaStream_t>(stream));
+  };
+  switch (channels / heads) {
+    case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));
+    case 128:
+      return static_cast<int>(run(gpnf::PackedQkv<128>{seq_len, heads}));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // dqkv (B, S, 3C) from (seed, qkv, g); stats is the caller's (B, H, S, 3)
 // scratch.
 extern "C" int gpnf_attention_long_bwd(const int* seed, const float* qkv,

@@ -4,11 +4,16 @@ over the test loader, then an ancestral-sample grid as a PNG.
 The counterpart of `train_marscf.py --from_checkpoint`, with the same flags
 plus --device (default cuda; a host without a card raises unless
 --device cpu is given). Reads <checkpoint_dir>/marscf_<ds>_<coupling>_<K>_<C>/
-best.npz and writes samples/torch_<same id>.png. TF32 is switched off: the
-serving path is float32 throughout.
+best.npz and writes samples/torch_<same id>.png. TF32 is switched off, and
+so are bf16 products' reduced-precision sums: --compute_dtype float32 (the
+default, the JAX CLI's) serves in float32 throughout; bfloat16 runs the
+MixLogCDF coupling nets and the prior's likelihood in bf16, each product
+summed in float32 and rounded once, as the JAX package does (the mixture
+head and every log-det stay float32; the checkpoint is float32 either way).
 
     python -m gpnf_tpu_torch.eval_marscf --dataset_name synthetic \
-        --coupling mixlogcdf --L 3 --K 4 --C 96 --device cuda
+        --coupling mixlogcdf --L 3 --K 4 --C 96 --device cuda \
+        --compute_dtype bfloat16
 """
 from __future__ import annotations
 
@@ -34,6 +39,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint_dir", default="./checkpoints")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="coupling-net and prior-likelihood dtype (the "
+                        "log-dets stay float32)")
     return p.parse_args(argv)
 
 
@@ -49,13 +58,15 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"device: {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
-          f", tf32 off")
+          f", tf32 off, compute dtype {args.compute_dtype}")
 
     _, test_loader, image_shape = get_dataset(args.dataset_name,
                                               args.batch_size, args.data_root)
-    model = MarScfFlow(model_config(args, image_shape), device=device).eval()
+    model = MarScfFlow(model_config(args, image_shape, args.compute_dtype),
+                       device=device).eval()
     setting_id = f"marscf_{args.dataset_name}_{args.coupling}_{args.K}_{args.C}"
     CheckpointManager(os.path.join(args.checkpoint_dir, setting_id)).restore(
         model, best=True)

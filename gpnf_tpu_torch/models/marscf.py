@@ -22,9 +22,18 @@ It has the same parameters, and in eval mode or at dropout 0 the same
 numbers up to rounding; its Dropout2d mask comes from Philox. The JAX
 package's compile and memory options (scan_steps, scan_unroll, remat*,
 precompute_wn, prior_scan_unroll) change no numbers and have no
-counterpart here. Its `compute_dtype="bfloat16"` does change numbers (the
-coupling nets run in bf16, the mixture head and log-dets in fp32) and is
-not ported yet: the port runs float32 (or float64) throughout.
+counterpart here.
+
+`compute_dtype` ("float32", the default, or "bfloat16", `bench.py`'s) is
+the JAX package's: in bfloat16 the MixLogCDF coupling nets run in bf16
+(ops/mixlogcdf.py says where they round) and so does the ConvLSTM prior's
+log-likelihood, while the flow's actnorms, invertible convolutions and
+attentions, the mixture head and its kernels, every log-det and the prior's
+sampling stay float32. Parameters are float32 under either dtype. The bf16
+path serves (eval bits/dim, sampling) on the card; its backward kernels are
+not ported yet, so a bf16 model's first backward on the card raises, naming
+the kernel. `fused_gated_conv` runs float32 only, and a bfloat16 config
+with it is refused.
 """
 from __future__ import annotations
 
@@ -63,6 +72,24 @@ class MarScfConfig:
     prior_dp_rate: float = 0.0
     actnorm_scale: float = 1.0
     fused_gated_conv: bool = False
+    compute_dtype: str = "float32"  # "float32" | "bfloat16"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r} is not "
+                             f"one of {tuple(COMPUTE_DTYPES)}")
+        if self.compute_dtype == "bfloat16" and self.fused_gated_conv:
+            raise ValueError("fused_gated_conv runs float32 only: its "
+                             "bfloat16 kernels are not ported yet")
+
+    @property
+    def torch_compute_dtype(self):
+        """The coupling nets' and the prior likelihood's dtype: None (the
+        model's own, float32 or float64) or torch.bfloat16."""
+        return COMPUTE_DTYPES[self.compute_dtype]
+
+
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 class FlowStep(nn.Module):
@@ -80,7 +107,8 @@ class FlowStep(nn.Module):
             self.coupling = MixLogCDFCoupling(
                 channels, cfg.hidden_channels, num_blocks=cfg.num_blocks,
                 num_components=cfg.num_components, drop_prob=cfg.drop_prob,
-                generator=generator, fused_gconv=cfg.fused_gated_conv)
+                generator=generator, fused_gconv=cfg.fused_gated_conv,
+                compute_dtype=cfg.torch_compute_dtype)
             self.tuple_flip = TupleFlip()
         elif cfg.coupling == "affine":
             self.coupling = AffineCoupling(channels, channels,
@@ -172,7 +200,7 @@ class MarScfFlow(nn.Module):
             self.prior = ChannelPriorMultiScale(
                 cc, hh, ww, cfg.L, hidden_size=cfg.prior_hidden,
                 num_layers=cfg.prior_layers, dp_rate=cfg.prior_dp_rate,
-                generator=generator)
+                compute_dtype=cfg.torch_compute_dtype, generator=generator)
             self.splits = None
         elif cfg.prior == "gaussian":
             self.prior = None

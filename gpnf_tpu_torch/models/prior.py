@@ -6,6 +6,10 @@ of the ConvLSTM over the channel axis, and ancestral sampling is a loop
 over channels that carries the LSTM state and the previous channel. In
 training, `dp_rate` > 0 zeroes whole channels of the teacher-forced input
 (one keep per (sample, channel), not rescaled), as the JAX package does.
+With `compute_dtype=torch.bfloat16` the likelihood's encoder (its convs,
+the LSTM and its states) runs in bf16 on the bf16-cast input and weights,
+the output cast back to float32 for the Gaussian terms; sampling stays
+float32 with the float32 weights (the JAX prior's `sample(dtype=float32)`).
 """
 from __future__ import annotations
 
@@ -88,9 +92,10 @@ class ChannelPriorUniScale(nn.Module):
 
     def __init__(self, nc_base: int, height: int, width: int, level: int,
                  tot_levels: int, hidden_size: int = 32, num_layers: int = 1,
-                 dp_rate: float = 0.0, *, generator=None):
+                 dp_rate: float = 0.0, compute_dtype=None, *, generator=None):
         super().__init__()
         self.dp_rate = dp_rate
+        self.compute_dtype = compute_dtype
         self.height = height // (2 ** level)
         self.width = width // (2 ** level)
         self.is_final = level == tot_levels
@@ -125,7 +130,10 @@ class ChannelPriorUniScale(nn.Module):
             cond = self.cond(z1)[:, None].expand(b, t, 4, self.height,
                                                  self.width)
             lstm_input = torch.cat([lstm_input, cond], dim=2)
-        out = self.encoder(lstm_input)
+        if self.compute_dtype is None:
+            out = self.encoder(lstm_input)
+        else:
+            out = self.encoder(lstm_input.to(self.compute_dtype)).float()
         ll = self._likelihood(out[:, :, 0:1], out[:, :, 1:2], z2_seq)
         return torch.sum(ll.reshape(b, -1), dim=-1)
 
@@ -157,12 +165,13 @@ class ChannelPriorMultiScale(nn.Module):
 
     def __init__(self, nc_base: int, height: int, width: int, levels: int,
                  hidden_size: int = 32, num_layers: int = 2,
-                 dp_rate: float = 0.0, *, generator=None):
+                 dp_rate: float = 0.0, compute_dtype=None, *, generator=None):
         super().__init__()
         self.levels = nn.ModuleList(
             ChannelPriorUniScale(nc_base, height, width, level, levels,
                                  hidden_size=hidden_size, num_layers=num_layers,
-                                 dp_rate=dp_rate, generator=generator)
+                                 dp_rate=dp_rate, compute_dtype=compute_dtype,
+                                 generator=generator)
             for level in range(1, levels + 1))
 
     def log_likelihood(self, z, level, generator=None):

@@ -12,6 +12,14 @@ import torch
 LOG2PI = math.log(2.0 * math.pi)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """torch.sigmoid; on bf16, 1 / (1 + exp(-x)) with every step rounded to
+    bf16, which is how the JAX package's jax.nn.sigmoid computes in bf16."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
 def sum_except_batch(x: torch.Tensor) -> torch.Tensor:
     """Reduce all axes but the leading batch axis -> (B,)."""
     return torch.sum(x.reshape(x.shape[0], -1), dim=-1)

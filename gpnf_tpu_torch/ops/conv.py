@@ -6,6 +6,13 @@ weights; Glow's `Conv2d` (normal(0, 0.05) init with a fused actnorm) and
 coupling; and the weight-normalised conv and dense layers (torch's
 weight_norm: w = g * v / ||v||, the norm over every axis but the output
 axis).
+
+Under MarScfConfig(compute_dtype="bfloat16") the coupling nets run in
+bfloat16 as the JAX package runs them: each weight-normalised layer rounds
+v, g and b to bf16 first (its `_cast_params`), normalises in float32 and
+casts the weight to bf16 (`effective_weight(dtype)`); a product
+accumulates in float32 and is rounded once, and the bias is added after
+it, in bf16 (two roundings, the JAX `conv2d`'s `y + b`).
 """
 from __future__ import annotations
 
@@ -24,7 +31,15 @@ def same_pad(k: int, dilation: int):
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, *,
            dilation: int = 1) -> torch.Tensor:
-    """Stride-1 "SAME" 2-D convolution, x (B, C, H, W), w (O, I, kh, kw)."""
+    """Stride-1 "SAME" 2-D convolution, x (B, C, H, W), w (O, I, kh, kw).
+    A bf16 x takes w and b in bf16, the bias added after the product."""
+    if x.dtype == torch.bfloat16:
+        y = _conv2d(x, w.to(x.dtype), None, dilation)
+        return y if b is None else y + b.to(x.dtype).reshape(1, -1, 1, 1)
+    return _conv2d(x, w, b, dilation)
+
+
+def _conv2d(x, w, b, dilation):
     (ph0, ph1), (pw0, pw1) = (same_pad(w.shape[2], dilation),
                               same_pad(w.shape[3], dilation))
     if ph0 == ph1 and pw0 == pw1:
@@ -99,12 +114,17 @@ class WNConv2d(nn.Module):
                                                    dim=-1)))
         self.b = nn.Parameter(uniform_((out_ch,), bound, generator))
 
-    def effective_weight(self) -> torch.Tensor:
-        norm = torch.sqrt(torch.sum(self.v.reshape(self.v.shape[0], -1) ** 2,
-                                    dim=-1))
-        return self.v * (self.g / norm).reshape(-1, 1, 1, 1)
+    def effective_weight(self, dtype=None) -> torch.Tensor:
+        """g v / ||v||; with a dtype, v and g rounded to it first, the norm
+        taken in float32 and the weight cast to it."""
+        v, g = _rounded(self.v, self.g, dtype)
+        norm = torch.sqrt(torch.sum(v.reshape(v.shape[0], -1) ** 2, dim=-1))
+        w = v * (g / norm).reshape(-1, 1, 1, 1)
+        return w if dtype is None else w.to(dtype)
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return conv2d(x, self.effective_weight(x.dtype), self.b)
         return conv2d(x, self.effective_weight(), self.b)
 
 
@@ -121,9 +141,22 @@ class WNDense(nn.Module):
         self.b = (nn.Parameter(uniform_((out_f,), bound, generator))
                   if bias else None)
 
-    def effective_weight(self) -> torch.Tensor:
-        norm = torch.sqrt(torch.sum(self.v ** 2, dim=-1))
-        return self.v * (self.g / norm)[:, None]
+    def effective_weight(self, dtype=None) -> torch.Tensor:
+        """As WNConv2d's."""
+        v, g = _rounded(self.v, self.g, dtype)
+        w = v * (g / torch.sqrt(torch.sum(v ** 2, dim=-1)))[:, None]
+        return w if dtype is None else w.to(dtype)
 
     def forward(self, x):
-        return F.linear(x, self.effective_weight(), self.b)
+        if x.dtype != torch.bfloat16:
+            return F.linear(x, self.effective_weight(), self.b)
+        y = F.linear(x, self.effective_weight(x.dtype))
+        return y if self.b is None else y + self.b.to(x.dtype)
+
+
+def _rounded(v, g, dtype):
+    """v and g rounded to dtype and back to float32 (JAX's `_cast_params`,
+    then `effective_weight`'s upcast), or as they are."""
+    if dtype is None:
+        return v, g
+    return v.to(dtype).float(), g.to(dtype).float()

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn as nn
 
+from .basic import sigmoid
 from .conv import conv2d, uniform_
 
 
@@ -58,8 +59,8 @@ class ConvLSTM(nn.Module):
         h, c = state
         gates = igate + conv2d(h, layer.w_hh, layer.b_hh, dilation=self.dilation)
         i, f, g, o = torch.chunk(gates, 4, dim=1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+        h_new = sigmoid(o) * torch.tanh(c_new)
         return h_new, (h_new, c_new)
 
     def zero_states(self, batch, spatial, device, dtype=torch.float32):

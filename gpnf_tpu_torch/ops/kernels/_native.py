@@ -39,6 +39,8 @@ SIGNATURES = {
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
+        "gpnf_attention_long_fwd_bf16": [_P] * 3 + [_I] * 4 + [_F, _U, _F,
+                                                               _P],
     },
     "mixlogcdf_forward": {
         "gpnf_mixlogcdf_forward": [_P] * 8 + [_I, _I, _I, _P],
@@ -73,10 +75,11 @@ SIGNATURES = {
     },
     "attention_gemm": {
         "gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],
+        "gpnf_attention_gemm_bf16": [_P] * 3 + [_I] * 3 + [_P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

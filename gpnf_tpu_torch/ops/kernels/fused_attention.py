@@ -52,6 +52,21 @@ header says what bounds its kernels on the H100 and how they are laid
 out. The wrappers run the plain versions for CPU tensors, and the tests
 and chip_smoke.py hold the kernels against them.
 
+bfloat16 (MarScfConfig(compute_dtype="bfloat16"), serving): the forward
+entries take bf16 operands at the head widths BF16_HEAD_DIMS (the
+flagship's 24, the CLIs' --C 512's 128) and run the qkv GEMM and the
+tensor-core forward in bf16 mma.sync (`attention_qkv_gemm_bf16`,
+`attention_fwd_bf16` count those launches): qkv = seq w^T summed in
+float32 and rounded once; q * Dh^-1/2 rounded to bf16, the scale itself a
+bf16 constant, as in the JAX package's bf16 `q * dh ** -0.5`; scores,
+softmax and dropout in float32; P rounded to bf16 for PV, summed in
+float32; the output rounded once. The plain versions round at the JAX
+package's points (`bf16_matmul`: the float32 product of the bf16 values,
+rounded once, whatever cuBLAS's reduction switches say); the kernel rounds
+the unnormalised exp(s - m) where the JAX package rounds the normalised
+p. The backward wrappers and the dseq / dW GEMMs refuse bf16 on the card:
+their bf16 kernels come with the training slice.
+
 Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
 Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
 `bits >= rate * 2^32`; kept weights are scaled by 1 / (1 - rate). The bits
@@ -76,6 +91,9 @@ MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
 # Dh values the key-tiled kernels are built for, each on the tensor cores
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
+# the widths of the bf16 tensor-core forward: the flagship's Dh 24 (C 96, 4
+# heads) and the CLIs' default --C 512's Dh 128
+BF16_HEAD_DIMS = (24, 128)
 LANE_SPLIT_DIMS = (128, 256)
 # the proj route's rule, the fit of the fused forward kernel it was drawn
 # for (fused_attention_proj.cu, since replaced by the forward's stages): its
@@ -94,6 +112,8 @@ GEMM_KC = 32
 # the blocks `gemm_splits` aims at with small tiles: 2 for each of the
 # H100's 132 SMs
 GEMM_BLOCKS = 2 * 132
+# the bf16 GEMM copies K in 16-byte chunks of 8 values
+BF16_GEMM_ALIGN = 8
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -216,18 +236,63 @@ def attention_route(seq_len: int, channels: int,
     return AttentionRoute("wide", dh, padded_head_dim(dh))
 
 
+def bf16_scale(x: float) -> float:
+    """x rounded to bfloat16: the JAX package's bf16 `q * dh ** -0.5` takes
+    the Python scale as a bf16 constant, so q * scale is the rounded product
+    of two bf16 values."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 operands as the JAX package takes it (float32
+    accumulation, `preferred_element_type`): the float32 product of the bf16
+    values, rounded once to bf16."""
+    return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
+
+
+def bf16_product_close(got: torch.Tensor, want: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The bar of a bf16 product c = a b^T (a (M, K), b (N, K)) against its
+    plain version: |got - want| within one bf16 ulp of the larger of the
+    two, plus K 2^-24 sum_k |a_ik b_jk|. Both sum the same products in
+    float32, in different orders, and round once; where a sum cancels
+    below that spread an ulp of the result says nothing."""
+    a, b = a.reshape(-1, a.shape[-1]).float(), b.float()
+    got, want = got.reshape(a.shape[0], -1).float(), want.reshape(
+        a.shape[0], -1).float()
+    spread = a.shape[1] * 2.0 ** -24 * (a.abs() @ b.abs().t())
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - want).abs() <= ulp + spread).all())
+
+
+def qkv_plain(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """qkv = seq w^T: torch.matmul in float32 (and float64), `bf16_matmul`
+    in bf16 (the JAX `_proj`); the two operands of one dtype."""
+    if seq.dtype != w.dtype:
+        raise TypeError(f"qkv projection: seq is {seq.dtype}, w is "
+                        f"{w.dtype}; the operands take one dtype")
+    if seq.dtype == torch.bfloat16:
+        return bf16_matmul(seq, w.t())
+    return torch.matmul(seq, w.t())
+
+
 def _split_qkv(qkv, num_heads, q_scale=None):
     """k, v and q times q_scale (default Dh ** -0.5) of the packed qkv
-    (B, S, 3C), each (B, H, S, Dh)."""
+    (B, S, 3C), each (B, H, S, Dh); in bf16 the scale is `bf16_scale`d and
+    q * scale rounded to bf16."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
+    scale = dh ** -0.5 if q_scale is None else q_scale
+    if qkv.dtype == torch.bfloat16:
+        scale = bf16_scale(scale)
 
     def heads(t):
         return t.reshape(b, s, num_heads, dh).transpose(1, 2)
 
     k, v, q = (heads(t) for t in qkv.split(c, dim=-1))
-    return k, v, q * (dh ** -0.5 if q_scale is None else q_scale)
+    return k, v, q * scale
 
 
 def _merge_heads(t):
@@ -239,12 +304,19 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rate: float = 0.0,
                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dropout(softmax(q k^T)) v on q, k, v (B, H, S, Dh), q already
-    scaled -> (B, H, S, Dh)."""
+    scaled -> (B, H, S, Dh). bf16 operands: the scores, softmax and dropout
+    in float32, then P rounded to bf16 and P v rounded once (the JAX
+    `_reference`)."""
+    low = q.dtype == torch.bfloat16
+    if low:
+        q, k = q.float(), k.float()
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     if rate > 0.0:
         b, h, s, _ = q.shape
         p = torch.where(dropout_keep_plain(seed, b, h, s, rate),
                         p / (1.0 - rate), 0.0)
+    if low:
+        return bf16_matmul(p.to(torch.bfloat16), v)
     return torch.matmul(p, v)
 
 
@@ -309,8 +381,7 @@ def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
                          rate: float = 0.0,
                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """seq (B, S, C), w (3C, C) with rows [k | v | q] -> (B, S, C)."""
-    return attention_long_plain(torch.matmul(seq, w.t()), num_heads, rate,
-                                seed)
+    return attention_long_plain(qkv_plain(seq, w), num_heads, rate, seed)
 
 
 def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
@@ -366,10 +437,23 @@ def _aligned(*tensors):
     return out
 
 
+def _refuse_bf16(kernel, **tensors):
+    """Raise for a bf16 operand of a kernel that has no bf16 instantiation."""
+    for arg, t in tensors.items():
+        if t.dtype == torch.bfloat16:
+            raise TypeError(
+                f"{kernel}: '{arg}' is bfloat16, and this kernel is built in "
+                f"float32 only: in bf16 the port serves (the qkv GEMM and the "
+                f"attention forward); the bf16 backward kernels (dq, dK/dV, "
+                f"dseq, dW) come with the training slice (ROADMAP C.2)")
+
+
 def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
-               head_dims=HEAD_DIMS, **tensors):
-    """The kernel's own limits (S, head width, float32), then device and
-    layout; returns (device, seed pointer, threshold, keep scale)."""
+               head_dims=HEAD_DIMS, bf16=False, **tensors):
+    """The kernel's own limits (S, head width, float32, or bf16 at
+    BF16_HEAD_DIMS where the entry has a bf16 kernel, `bf16`; one dtype for
+    every operand), then device and layout; returns (device, seed pointer,
+    threshold, keep scale)."""
     if seq_len > max_s:
         raise ValueError(f"{kernel}: S={seq_len} > {max_s}, beyond the "
                          f"kernel's range")
@@ -378,11 +462,19 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
                          f"{head_dims}, the widths the kernel is built for "
                          f"(fused_attention_long, GatedAttn's wide route, "
                          f"pads any width up to {HEAD_DIMS[-1]})")
+    if not bf16:
+        _refuse_bf16(kernel, **tensors)
+    dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    dtype = next(iter(tensors.values())).dtype
     for arg, t in tensors.items():
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes or t.dtype != dtype:
             raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
-                            f"kernel takes float32 only")
-    device = _native.check_cuda_inputs(kernel, **tensors)
+                            f"kernel takes {' or '.join(map(str, dtypes))}, "
+                            f"one dtype for every operand")
+    if dtype == torch.bfloat16 and head_dim not in BF16_HEAD_DIMS:
+        raise ValueError(f"{kernel}: head width {head_dim} is not built in "
+                         f"bfloat16; the bf16 widths are {BF16_HEAD_DIMS}")
+    device = _native.check_cuda_inputs(kernel, dtypes=dtypes, **tensors)
     if rate == 0.0:
         return device, None, 0, 1.0
     if seed.device != device:
@@ -391,7 +483,8 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
     return device, seed.data_ptr(), keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, **tensors):
+def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, bf16=False,
+                    **tensors):
     """The proj route's shapes (`attention_route`'s fit rule), then
     `_cuda_args`."""
     b, s, c = seq.shape
@@ -406,7 +499,7 @@ def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, **tensors):
             f"(`attention_route`'s rule); fused_attention_long (GatedAttn's "
             f"wide route) computes the same function there")
     return _cuda_args(kernel, s, dh, MAX_S, rate, seed, PROJ_HEAD_DIMS,
-                      seq=seq, w=w, **tensors)
+                      bf16, seq=seq, w=w, **tensors)
 
 
 def _forward(seq, w, num_heads, rate, seed):
@@ -414,7 +507,7 @@ def _forward(seq, w, num_heads, rate, seed):
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return attention_proj_plain(seq, w, num_heads, rate, seed)
     _proj_cuda_args("fused_attention_proj", seq, w, num_heads, rate,
-                    seed)  # the checks; the stages launch
+                    seed, bf16=True)  # the checks; the stages launch
     out = _proj_fwd_stages(seq, w, num_heads, rate, seed)
     fused_attention_proj.launches += 1
     return out
@@ -425,10 +518,13 @@ def _proj_fwd_stages(seq, w, num_heads, rate, seed):
     batch: qkv = seq w^T (`attention_qkv_gemm`), then out by the
     tensor-core forward (`attention_long_qkv`, q scaled by `head_scale`,
     the backward's scale, so its scores and its mask are the ones the
-    backward regenerates). The qkv (B, S, 3C) lives only for the call.
-    CPU tensors take each wrapper's plain version."""
+    backward regenerates; in bf16 the bf16 constant Dh ** -0.5, the JAX
+    package's). The qkv (B, S, 3C) lives only for the call. CPU tensors take
+    each wrapper's plain version."""
+    q_scale = (None if seq.dtype == torch.bfloat16
+               else head_scale(seq.shape[2] // num_heads))
     return attention_long_qkv(attention_qkv_gemm(seq, w), num_heads, rate,
-                              seed, head_scale(seq.shape[2] // num_heads))
+                              seed, q_scale)
 
 
 def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
@@ -512,6 +608,10 @@ class LaunchCount:
 
 attention_lanes = LaunchCount("attention_lanes")
 attention_lanes_bwd = LaunchCount("attention_lanes_bwd")
+# the bf16 kernels' launches (the forward at Dh 24 and 128, the qkv GEMM),
+# counted also by the entry that launches them
+attention_fwd_bf16 = LaunchCount("attention_fwd_bf16")
+attention_qkv_gemm_bf16 = LaunchCount("attention_qkv_gemm_bf16")
 
 
 def _count_lanes(head_dim, counter):
@@ -520,22 +620,32 @@ def _count_lanes(head_dim, counter):
 
 
 def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
-                seed):
+                seed, bf16=False):
     """Launch the packed forward `fn` of library `source` (the long entry's
     or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks,
-    q scaled by q_scale (None: `head_scale`); returns out (B, S, C)."""
+    q scaled by q_scale (None: `head_scale`); returns out (B, S, C). With
+    `bf16` a bf16 qkv launches the bf16 instantiation (`fn` with the bf16
+    suffix), q scaled by `bf16_scale(q_scale)` (None: Dh ** -0.5)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
-    if q_scale is None:
-        q_scale = head_scale(c // num_heads)
+    dh = c // num_heads
     qkv, = _aligned(qkv)
     device, seed_ptr, threshold, scale = _cuda_args(
-        kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv)
+        kernel, s, dh, max_s, rate, seed, bf16=bf16, qkv=qkv)
+    low = qkv.dtype == torch.bfloat16
+    if low:
+        fn = f"{fn}_{_native.SUFFIX[qkv.dtype]}"
+        q_scale = bf16_scale(dh ** -0.5 if q_scale is None else q_scale)
+    elif q_scale is None:
+        q_scale = head_scale(dh)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
     _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
                    out.data_ptr(), b, s, c, num_heads, q_scale, threshold,
                    scale)
-    _count_lanes(c // num_heads, attention_lanes)
+    if low:
+        attention_fwd_bf16.launches += 1
+    else:
+        _count_lanes(dh, attention_lanes)
     return out
 
 
@@ -575,13 +685,13 @@ def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
     [k | v | q] -> (B, S, C), q scaled by q_scale (default Dh^-1/2). CPU
     tensors take `attention_long_plain` with the same arguments; CUDA
     tensors launch the kernel or raise (S > 2048, a head width outside
-    HEAD_DIMS, anything but float32)."""
+    HEAD_DIMS, or outside BF16_HEAD_DIMS in bf16, any other dtype)."""
     _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
         return attention_long_plain(qkv, num_heads, rate, seed, q_scale)
     out = _packed_fwd("fused_attention_long", "fused_attention_long",
                       "gpnf_attention_long_fwd", MAX_S_LONG, qkv, num_heads,
-                      q_scale, rate, seed)
+                      q_scale, rate, seed, bf16=True)
     fused_attention_long.launches += 1
     return out
 
@@ -692,13 +802,43 @@ def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b, splits=None):
     return c
 
 
+def _gemm_bf16(kernel, seq, w):
+    """qkv = seq w^T (B, S, N) in bf16 by attention_gemm.cu's bf16 kernel
+    on CUDA tensors: seq (B, S, K) and w (N, K), both bf16. The kernel
+    copies 16-byte chunks along K: an operand that does not start on a
+    16-byte boundary is copied first, and a K that is not a multiple of 8 is
+    zero-padded in both (zeros add nothing to the sums)."""
+    if seq.dim() != 3 or w.dim() != 2 or seq.shape[2] != w.shape[1]:
+        raise ValueError(f"{kernel}: seq {tuple(seq.shape)} and w "
+                         f"{tuple(w.shape)} are not (B, S, K) and (N, K)")
+    b, s, k = seq.shape
+    n = w.shape[0]
+    if k % BF16_GEMM_ALIGN:
+        pad = BF16_GEMM_ALIGN - k % BF16_GEMM_ALIGN
+        seq, w = F.pad(seq, (0, pad)), F.pad(w, (0, pad))
+    seq, w = _aligned(seq, w)
+    device = _native.check_cuda_inputs(kernel, dtypes=(torch.bfloat16,),
+                                       seq=seq, w=w)
+    out = torch.empty((b, s, n), dtype=seq.dtype, device=device)
+    _native.launch("attention_gemm", "gpnf_attention_gemm_bf16", device,
+                   seq.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, n,
+                   seq.shape[2])
+    return out
+
+
 def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """qkv = seq w^T, seq (B, S, C) and w (3C, C) -> (B, S, 3C): the
     projection that `_fwd_kernel_proj` computes in its body, on the wide
-    route and in the proj backward. CPU tensors take torch.matmul (its
-    plain version); CUDA tensors launch the kernel or raise."""
+    route and in the proj backward. CPU tensors take `qkv_plain`
+    (torch.matmul, or `bf16_matmul`); CUDA tensors launch the kernel (a bf16
+    pair the bf16 one, `_gemm_bf16`) or raise."""
     if seq.device.type == "cpu" and w.device.type == "cpu":
-        return torch.matmul(seq, w.t())
+        return qkv_plain(seq, w)
+    if seq.dtype == torch.bfloat16:
+        out = _gemm_bf16("attention_qkv_gemm", seq, w)
+        attention_qkv_gemm.launches += 1
+        attention_qkv_gemm_bf16.launches += 1
+        return out
     b, s, c = seq.shape
     out = _gemm("attention_qkv_gemm", seq, w, (b, s, w.shape[0]), b * s,
                 w.shape[0], c, False, True)
@@ -712,6 +852,7 @@ def attention_dseq_gemm(dqkv: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     tensors launch the kernel or raise."""
     if dqkv.device.type == "cpu" and w.device.type == "cpu":
         return torch.matmul(dqkv, w)
+    _refuse_bf16("attention_dseq_gemm", dqkv=dqkv, w=w)
     b, s, c3 = dqkv.shape
     out = _gemm("attention_dseq_gemm", dqkv, w, (b, s, w.shape[1]), b * s,
                 w.shape[1], c3, False, False)
@@ -725,6 +866,7 @@ def attention_dw_gemm(dqkv: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
     take torch.einsum; CUDA tensors launch the kernel or raise."""
     if dqkv.device.type == "cpu" and seq.device.type == "cpu":
         return torch.einsum("bso,bsc->oc", dqkv, seq)
+    _refuse_bf16("attention_dw_gemm", dqkv=dqkv, seq=seq)
     b, s, c3 = dqkv.shape
     out = _gemm("attention_dw_gemm", dqkv, seq, (c3, seq.shape[2]), c3,
                 seq.shape[2], b * s, True, False)
@@ -735,10 +877,10 @@ def attention_dw_gemm(dqkv: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
 def _long_project(seq, w):
     """qkv = seq w^T for the long entry: `attention_qkv_gemm` at S <= MAX_S,
     where the JAX package computes it inside `_fwd_kernel_proj`; above, as
-    its `fused_attention_long` leaves it to XLA, torch.matmul."""
+    its `fused_attention_long` leaves it to XLA, `qkv_plain`."""
     if seq.shape[1] <= MAX_S:
         return attention_qkv_gemm(seq, w)
-    return torch.matmul(seq, w.t())
+    return qkv_plain(seq, w)
 
 
 def _long_project_bwd(dqkv, seq, w):
@@ -785,6 +927,8 @@ def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
     kernels at S <= MAX_S, torch.matmul above (the JAX package's
     `_vjp_bwd_long`)."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long_bwd")
+    if not all(t.device.type == "cpu" for t in (seq, w, g)):
+        _refuse_bf16("fused_attention_long_bwd", seq=seq, w=w, g=g)
     dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
     dqkv = attention_long_qkv_bwd(
         _pad_heads(_long_project(seq, w), dh, width),

@@ -28,6 +28,16 @@ a head width it is built for, a block's shared memory: the flagship's C =
 long-sequence entry with its heads zero-padded to a built width (S = 1024
 at 64 px, as the JAX package dispatches; and C = 8, 48, 160, 256, 512 at
 any S, where the JAX package runs its jnp reference).
+
+`compute_dtype=torch.bfloat16` (MarScfConfig's "bfloat16", the JAX
+package's `compute_dtype`) runs in_conv, the blocks and out_conv in bf16
+at the JAX package's rounding points: the net's input cast once, weights
+rounded before the weight norm (ops/conv.py), the layer norms' statistics
+in float32, GatedAttn's positions added in bf16, its qkv projection and
+attention in the bf16 kernels (q * Dh^-1/2 rounded to bf16, the scores and
+softmax in float32, P rounded for PV), out_conv's output cast back to
+float32. `rescale`, the mixture head and its kernels and every log-det
+stay float32.
 """
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import logistic
-from .basic import split_channels, sum_except_batch
+from .basic import sigmoid, split_channels, sum_except_batch
 from .conv import WNConv2d, WNDense
 from .kernels import (attention_route, fused_attention_long,
                       fused_attention_proj, fused_gated_conv, mixlogcdf_forward,
@@ -66,8 +76,22 @@ class LayerNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(dim))
         self.beta = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x):
-        return F.layer_norm(x, (x.shape[-1],), self.gamma, self.beta, self.eps)
+    def forward(self, x, residual=None):
+        """LayerNorm(x + residual). In bf16 the sum is taken in float32 and
+        not rounded: XLA, which runs the JAX package, drops the rounding of
+        a bf16 sum that is upcast at once (its excess precision), and the
+        JAX LayerNorm upcasts its input to float32 first."""
+        if x.dtype != torch.bfloat16:
+            return F.layer_norm(x if residual is None else x + residual,
+                                (x.shape[-1],), self.gamma, self.beta,
+                                self.eps)
+        # the JAX LayerNorm under bf16: statistics in float32, xn rounded,
+        # then xn * gamma + beta in bf16 (two more roundings)
+        xf = x.float() if residual is None else x.float() + residual.float()
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+        xn = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return xn * self.gamma.to(x.dtype) + self.beta.to(x.dtype)
 
 
 class GatedConv(nn.Module):
@@ -85,7 +109,7 @@ class GatedConv(nn.Module):
         if self.training and self.drop_prob > 0.0:
             h = channel_dropout(h, self.drop_prob, generator)
         a, b = torch.chunk(self.gate(h), 2, dim=1)
-        return a * torch.sigmoid(b)
+        return a * sigmoid(b)
 
     def apply_fused(self, x, generator=None):
         """The block + x in one `fused_gated_conv` call, x (B, H, W, C)
@@ -141,7 +165,8 @@ class GatedAttn(nn.Module):
     def forward(self, x, generator=None):
         """x (B, H, W, C) channel-last."""
         b, h, w, c = x.shape
-        seq = x.reshape(b, h * w, c) + sinusoidal_pos_enc(h * w, c, x.device)
+        seq = x.reshape(b, h * w, c) + sinusoidal_pos_enc(
+            h * w, c, x.device).to(x.dtype)
         rate, seed = 0.0, None
         if self.training and self.drop_prob > 0.0:
             # drawn on the device: no host sync per call
@@ -150,11 +175,14 @@ class GatedAttn(nn.Module):
                                  dtype=torch.int32, device=x.device)
         fused = (fused_attention_proj if self.route(h * w).entry == "proj"
                  else fused_attention_long)
+        # in bf16 the weight is rounded once: the JAX package's `_proj`
+        # casts its in_proj weight to the input's dtype for the product
+        dtype = x.dtype if x.dtype == torch.bfloat16 else None
         attn = fused(seq.contiguous(),
-                     self.in_proj.effective_weight().contiguous(),
+                     self.in_proj.effective_weight(dtype).contiguous(),
                      self.num_heads, rate, seed)
         a, g = torch.chunk(self.gate(attn.reshape(b, h, w, c)), 2, dim=-1)
-        return a * torch.sigmoid(g)
+        return a * sigmoid(g)
 
 
 class ConvAttnBlock(nn.Module):
@@ -173,13 +201,13 @@ class ConvAttnBlock(nn.Module):
     def forward(self, x, generator=None):
         """x (B, C, H, W) -> (B, C, H, W)."""
         if self.fused_gconv:
-            x = self.conv.apply_fused(x.permute(0, 2, 3, 1).contiguous(),
-                                      generator)
+            x = self.norm1(self.conv.apply_fused(
+                x.permute(0, 2, 3, 1).contiguous(), generator))
         else:
-            x = (self.conv(x, generator) + x).permute(0, 2, 3, 1)
-        x = self.norm1(x)
+            x = self.norm1(self.conv(x, generator).permute(0, 2, 3, 1),
+                           x.permute(0, 2, 3, 1))
         if self.use_attn:
-            x = self.norm2(self.attn(x, generator) + x)
+            x = self.norm2(self.attn(x, generator), x)
         return x.permute(0, 3, 1, 2)
 
 
@@ -189,9 +217,10 @@ class MixLogCDFNet(nn.Module):
     def __init__(self, in_ch: int, num_ch: int, num_blocks: int,
                  num_components: int, use_attn: bool = True,
                  drop_prob: float = 0.0, *, generator=None,
-                 fused_gconv: bool = False):
+                 fused_gconv: bool = False, compute_dtype=None):
         super().__init__()
         self.k = num_components
+        self.compute_dtype = compute_dtype
         self.in_conv = WNConv2d(in_ch, num_ch, 3, generator=generator)
         self.blocks = nn.ModuleList(
             ConvAttnBlock(num_ch, use_attn, drop_prob, generator=generator,
@@ -203,10 +232,15 @@ class MixLogCDFNet(nn.Module):
 
     def forward(self, x, generator=None):
         b, c, h, w = x.shape
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         y = self.in_conv(x)
         for blk in self.blocks:
             y = blk(y, generator)
-        y = self.out_conv(y).reshape(b, 2 + 3 * self.k, c, h, w)
+        y = self.out_conv(y)
+        if self.compute_dtype is not None:
+            y = y.float()  # the mixture head stays float32
+        y = y.reshape(b, 2 + 3 * self.k, c, h, w)
         a, t = y[:, 0], y[:, 1]
         pi = y[:, 2: 2 + self.k]
         mu = y[:, 2 + self.k: 2 + 2 * self.k]
@@ -218,11 +252,12 @@ class MixLogCDFCoupling(nn.Module):
     def __init__(self, in_ch: int, mid_ch: int, num_blocks: int = 10,
                  num_components: int = 32, use_attn: bool = True,
                  drop_prob: float = 0.0, *, generator=None,
-                 fused_gconv: bool = False):
+                 fused_gconv: bool = False, compute_dtype=None):
         super().__init__()
         self.net = MixLogCDFNet(in_ch // 2, mid_ch, num_blocks, num_components,
                                 use_attn, drop_prob, generator=generator,
-                                fused_gconv=fused_gconv)
+                                fused_gconv=fused_gconv,
+                                compute_dtype=compute_dtype)
 
     def forward(self, x, logdet, generator=None):
         x_change, x_id = split_channels(x)

@@ -49,14 +49,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def model_config(args, image_shape=(32, 32, 3)):
+def model_config(args, image_shape=(32, 32, 3), compute_dtype="float32"):
     """The MarScfConfig of the parsed flags, for both CLIs (the train loop
-    sets the image shape from the dataset)."""
+    sets the image shape from the dataset; eval_marscf passes its
+    --compute_dtype)."""
     from .models.marscf import MarScfConfig
 
     return MarScfConfig(image_shape=image_shape, L=args.L, K=args.K,
                         hidden_channels=args.C, coupling=args.coupling,
-                        use_attention=not args.no_attention)
+                        use_attention=not args.no_attention,
+                        compute_dtype=compute_dtype)
 
 
 def main(argv=None) -> dict:

@@ -32,6 +32,7 @@ def cuda_device():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -1592,3 +1593,200 @@ def test_proj_bwd_runs_no_library_product_on_card(cuda_device):
     want = kernels.attention_plain_bwd(q, k, v, gh, 0.2, core_seed)
     for got, plain in zip(core_grads, want):
         assert _rel_max(got, plain) <= 1e-4
+
+
+# -- bf16 serving: the qkv GEMM and the attention forward in bf16 -------------------
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,s,c", [(64, 256, 96), (64, 64, 96),
+                                       (64, 16, 96), (16, 256, 512),
+                                       (3, 37, 96), (2, 33, 20)])
+def test_bf16_qkv_gemm_matches_plain_on_card(cuda_device, batch, s, c):
+    """The bf16 GEMM at the flagship's three levels, the CLIs' C 512, a
+    ragged M and N, and a K (20) that is not a multiple of 8 (zero-padded
+    by the wrapper): within one bf16 ulp of `bf16_matmul` (plus the float32
+    sums' spread, `bf16_product_close`), two calls bit for bit, one launch
+    counted on the entry and on the bf16 kernel."""
+    r = np.random.default_rng(30)
+    seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
+    before = (kernels.attention_qkv_gemm.launches,
+              kernels.attention_qkv_gemm_bf16.launches)
+    got = kernels.attention_qkv_gemm(seq, w)
+    assert (kernels.attention_qkv_gemm.launches,
+            kernels.attention_qkv_gemm_bf16.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (batch, s, 3 * c)
+    assert torch.equal(got, kernels.attention_qkv_gemm(seq, w))
+    assert fa.bf16_product_close(got, fa.bf16_matmul(seq, w.t()), seq, w)
+
+
+@pytest.mark.cuda
+def test_bf16_qkv_gemm_takes_unaligned_operands_on_card(cuda_device):
+    """An operand that starts off a 16-byte boundary is copied aligned by
+    the wrapper: the aligned call's bits."""
+    r = np.random.default_rng(31)
+    seq = _bf16(_normal(r, (4, 64, 96), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
+    want = kernels.attention_qkv_gemm(seq, w)
+    shifted = torch.empty(seq.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view_as(seq).copy_(seq)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(kernels.attention_qkv_gemm(shifted, w), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,s,c", [(64, 256, 96), (64, 64, 96),
+                                       (64, 16, 96), (4, 1024, 96),
+                                       (16, 256, 512), (3, 100, 96),
+                                       (2, 70, 512)])
+def test_bf16_forward_matches_plain_on_card(cuda_device, batch, s, c, rate):
+    """The bf16 tensor-core forward at Dh 24 (the flagship's levels, the
+    64-px level 0, a ragged S) and Dh 128 (the CLIs' C 512, a ragged S),
+    one seed for both (the same mask): within 2^-7 max|v| of
+    `attention_long_plain` (the kernel rounds the unnormalised P, the plain
+    version the normalised one, each within 2^-9), two calls bit for bit,
+    one launch counted on the entry and on the bf16 kernel."""
+    r = np.random.default_rng(32)
+    qkv = _bf16(_normal(r, (batch, s, 3 * c))).to(cuda_device)
+    seed = torch.tensor([9], dtype=torch.int32, device=cuda_device)
+    before = kernels.attention_fwd_bf16.launches
+    got = kernels.attention_long_qkv(qkv, 4, rate, seed)
+    assert kernels.attention_fwd_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, kernels.attention_long_qkv(qkv, 4, rate, seed))
+    want = kernels.attention_long_plain(qkv, 4, rate, seed)
+    bar = 2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= bar
+
+
+@pytest.mark.cuda
+def test_bf16_forward_takes_unaligned_operands_on_card(cuda_device):
+    """A bf16 qkv that starts off a 16-byte boundary is copied aligned by
+    the wrapper before the kernel's cp.async loads: the aligned call's bits,
+    one launch counted."""
+    r = np.random.default_rng(36)
+    qkv = _bf16(_normal(r, (2, 64, 288))).to(cuda_device)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    want = kernels.attention_long_qkv(qkv, 4, 0.2, seed)
+    shifted = torch.empty(qkv.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view_as(qkv).copy_(qkv)
+    assert shifted.data_ptr() % 16
+    before = kernels.attention_fwd_bf16.launches
+    assert torch.equal(kernels.attention_long_qkv(shifted, 4, 0.2, seed),
+                       want)
+    assert kernels.attention_fwd_bf16.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_bf16_proj_forward_launches_the_bf16_kernels(cuda_device):
+    """A bf16 proj forward (the flagship's level 1, rate 0.2) runs the bf16
+    qkv GEMM and the bf16 forward, one launch each, and no float32 or
+    library product: the plain proj forward's values within the forward's
+    bar."""
+    r = np.random.default_rng(33)
+    seq = _bf16(_normal(r, (8, 64, 96), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
+    seed = torch.tensor([4], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    with NoLibraryProducts():
+        out = kernels.fused_attention_proj(seq, w, 4, 0.2, seed)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_FWD_COUNTS,
+                      "attention_qkv_gemm_bf16": 1, "attention_fwd_bf16": 1}
+    want = kernels.attention_proj_plain(seq, w, 4, 0.2, seed)
+    qkv = fa.bf16_matmul(seq, w.t())
+    bar = 2.0 ** -7 * float(qkv[..., 96:192].float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= 2 * bar
+
+
+@pytest.mark.cuda
+def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
+    """No fallback: a bf16 backward on the card (the proj and long
+    backwards, the dseq and dW GEMMs), a bf16 head width not built (Dh 64)
+    and mixed bf16 / float32 operands raise before any launch."""
+    r = np.random.default_rng(34)
+    seq = _bf16(_normal(r, (2, 64, 96), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
+    g = _bf16(_normal(r, (2, 64, 96))).to(cuda_device)
+    dqkv = _bf16(_normal(r, (2, 64, 288))).to(cuda_device)
+    kernels.reset_launch_counts()
+    for call, name in (
+            (lambda: kernels.fused_attention_proj_bwd(seq, w, g, 4),
+             "fused_attention_proj_bwd"),
+            (lambda: kernels.fused_attention_long_bwd(seq, w, g, 4),
+             "fused_attention_long_bwd"),
+            (lambda: kernels.attention_long_qkv_bwd(dqkv, g, 4),
+             "fused_attention_long_bwd"),
+            (lambda: kernels.attention_dseq_gemm(dqkv, w),
+             "attention_dseq_gemm"),
+            (lambda: kernels.attention_dw_gemm(dqkv, seq),
+             "attention_dw_gemm")):
+        with pytest.raises(TypeError, match=f"{name}.*training slice"):
+            call()
+    wide = _bf16(_normal(r, (2, 64, 3 * 256))).to(cuda_device)  # Dh 64
+    with pytest.raises(ValueError, match="not built in bfloat16"):
+        kernels.attention_long_qkv(wide, 4)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernels.fused_attention_proj(seq, w.float(), 4)
+    with pytest.raises(TypeError):
+        kernels.attention_qkv_gemm(seq, w.float())
+    counts = kernels.launch_counts()
+    assert counts == dict.fromkeys(counts, 0)
+
+
+@pytest.mark.cuda
+def test_bf16_model_serves_on_card_and_refuses_its_backward(cuda_device):
+    """A small bf16 mAR-SCF on the card: encode bits/dim within the larger
+    of 1e-3 and half of the bf16-vs-float32 gap of the port on the CPU on
+    the same weights; in training mode its first backward raises, naming
+    the attention backward."""
+    small = dict(SMALL, hidden_channels=96)  # Dh 24, a width built in bf16
+    cfg = dict(small, compute_dtype="bfloat16")
+    cpu = MarScfFlow(MarScfConfig(**cfg), device="cpu").eval()
+    card = MarScfFlow(MarScfConfig(**cfg), device=cuda_device).eval()
+    card.load_state_dict(cpu.state_dict())
+    f32 = MarScfFlow(MarScfConfig(**small), device="cpu").eval()
+    f32.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(35).random(
+        (2, 3, 16, 16), dtype=np.float32) - 0.5)
+    noise = torch.full_like(x, 0.5)
+    with torch.no_grad():
+        want = cpu(x, noise=noise)[1]
+        gap = float((want - f32(x, noise=noise)[1]).abs().max())
+        got = card(x.to(cuda_device), noise=noise.to(cuda_device))[1].cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= max(1e-3, 0.5 * gap)
+    card.train()
+    loss = card(x.to(cuda_device), noise=noise.to(cuda_device))[1].mean()
+    with pytest.raises(TypeError, match="_bwd.*training slice"):
+        loss.backward()
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
+    """The bf16 GEMM and the bf16 forward (Dh 24 and 128, with and without
+    dropout) hold bf16 HMMA instructions (HMMA.16816.F32.BF16) in their
+    SASS."""
+    import os
+    import shutil
+
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    if not os.path.exists(shutil.which("cuobjdump")
+                          or "/usr/local/cuda/bin/cuobjdump"):
+        pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
+                    "read here")
+    for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 1),
+                               ("fused_attention_long",
+                                "attention_bf16_fwd_kernel", 4)):
+        _native.build([source])
+        hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
+                for fn, row in sass_counts(
+                    _native.library_path(source)).items() if pattern in fn}
+        assert len(hmma) == n and all(v > 0 for v in hmma.values()), hmma
