@@ -174,7 +174,28 @@ Phases, each of which raises (exit code != 0) when it fails:
      latent at each level), card vs CPU at batch 2, eval images/s in bf16 and float32 in turns, peak
      memory; one bf16 eval batch of the 64-px row and of phase 18's --C
      512 model. Every earlier phase asserts that it launches no bf16
-     kernel.
+     kernel;
+ 20. training the flagship in bf16 (`bench.py`'s default train step): the
+     bf16 dq and dK/dV pair against the plain bf16 backward (each of dK, dV
+     and dq within 2^-7 of its largest |plain|) at the flagship's three
+     levels (the proj entry's dq recipe), the 64-px level 0 and C 512 (the
+     long entry's), rate 0 and 0.2, and the forward and backward at every
+     other head width (Dh 4, 8, 16 run 24 wide, 32, 48, 64 run 128 wide,
+     and 256) at rate 0.2; the bf16 GEMM's dseq (one bf16 ulp plus the
+     float32 sums' spread) and dW (float32, within its sums' spread) at
+     phase 19's shapes; two calls bit for bit each; times beside the plain
+     versions', SDPA's autograd backward's and torch.matmul's on bf16, and
+     bounds at the bf16 rate; bf16 HMMA in the new kernels' SASS; then the
+     flagship in bf16 on phase 4's seeds and batches: 20 Adamax steps at
+     dropout 0.2 (losses finite and falling, exact launch counts a step:
+     every attention product on a bf16 kernel, none on a float32 one), peak
+     memory beside phase 4's, train images/s in turns with float32 (2
+     windows of 5 steps each), one step card vs CPU at batch 2 (the loss
+     against the port's bf16 on the CPU within the larger of 1e-3 and half
+     the CPU's bf16-vs-float32 gap; every gradient tensor within its own
+     bar, 3 times its CPU bf16 noise, and the whole gradient in L2); one bf16
+     train step of the flagship at C 192 (Dh 48, padded) and of phase 18's
+     --C 512 model, with exact launch counts.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
@@ -258,8 +279,9 @@ NO_CORE = dict.fromkeys(CORE, 0)
 # dq and dK/dV kernels of the long entry's backward, dseq and dW)
 LANES = ("attention_lanes", "attention_lanes_bwd")
 GEMMS = ("attention_qkv_gemm", "attention_dseq_gemm", "attention_dw_gemm")
-# the bf16 kernels (phase 19): no float32 path launches them
-BF16 = ("attention_qkv_gemm_bf16", "attention_fwd_bf16")
+# the bf16 kernels (phases 19 and 20): no float32 path launches them
+BF16 = ("attention_qkv_gemm_bf16", "attention_fwd_bf16", "attention_bwd_bf16",
+        "attention_dseq_gemm_bf16", "attention_dw_gemm_bf16")
 NO_WIDE = dict.fromkeys(LANES + GEMMS + BF16, 0)
 PROJ_FWD_STAGES = ("attention_qkv_gemm", "fused_attention_long")
 PROJ_BWD_STAGES = ("attention_qkv_gemm", "fused_attention_long_bwd",
@@ -2953,6 +2975,459 @@ def bf16_other_models(device, seed, card):
     return out
 
 
+# -- phase 20: training the flagship in bf16 --------------------------------------
+# (batch, S, C) of the bf16 backward's checks: the flagship's three levels
+# (the proj entry: dq scaled in float32), the 64-px level 0 and the CLIs'
+# C 512 at the 32-px level 0 (the long entry: dq rounded, then scaled in
+# bf16)
+BF16_BWD_CASES = BF16_GEMM_CASES[:3] + ((BATCH, 1024, 96),
+                                        (C512_BATCH, 256, 512))
+# every other width in HEAD_DIMS at one shape: Dh 4, 8, 16 (run 24 wide),
+# 32, 48, 64 (run 128 wide) and 256 (C 1024), batch 4, S 256
+BF16_WIDTHS = (4, 8, 16, 32, 48, 64, 256)
+BF16_WIDTH_SHAPE = (4, 256)
+BF16_BWD_BAR = 2.0 ** -7  # x max |plain| of each third of dqkv
+# the float32 spread of dW's sums: K 2^-24 sum_k |a_ik b_kj| (two orders)
+BF16_TRAIN_WINDOWS, BF16_TRAIN_WINDOW_STEPS = 2, 5
+# the card's bf16 gradient no further from the CPU's float32 one, in L2
+# over every parameter, than this times the CPU's bf16 gradient is (0.99
+# to 1.00 on an H100 80GB HBM3, PERF.md)
+BF16_GRAD_L2_BAR = 1.5
+# one bf16 train step at a padded width: the flagship at C 192 (Dh 48, run
+# 128 wide; the wide route at level 0, the proj entry at levels 1 and 2)
+C192 = dict(FLAGSHIP, hidden_channels=192)
+
+
+def bf16_step_counts(n_attn, n_proj, n_couplings):
+    """The launches of one bf16 train step (forward and backward) with
+    n_attn GatedAttn calls at S <= 512, n_proj of them on the proj entry,
+    and n_couplings MixLogCDF couplings: each call's projection (forward,
+    and recomputed in the backward), attention forward and backward, dseq
+    and dW, each on a bf16 kernel."""
+    return plus({"mixlogcdf_forward": n_couplings, "mixture_inverse": 0,
+                 **NO_GP, **NO_FGC, **NO_CORE, **NO_WIDE,
+                 **proj_stages(n_proj, n_proj)},
+                fused_attention_long=n_attn - n_proj,
+                fused_attention_long_bwd=n_attn - n_proj,
+                attention_qkv_gemm=2 * (n_attn - n_proj),
+                attention_dseq_gemm=n_attn - n_proj,
+                attention_dw_gemm=n_attn - n_proj,
+                attention_qkv_gemm_bf16=2 * n_attn,
+                attention_fwd_bf16=n_attn, attention_bwd_bf16=n_attn,
+                attention_dseq_gemm_bf16=n_attn,
+                attention_dw_gemm_bf16=n_attn)
+
+
+BF16_TRAIN = bf16_step_counts(120, 120, 12)
+
+
+def check_bf16_train_kernels(device, timer, reports):
+    """Phase 20's kernel checks: the bf16 dq and dK/dV pair against the
+    plain bf16 backward (each third of dqkv within 2^-7 of its largest
+    |plain|) at BF16_BWD_CASES, rate 0 and 0.2 (one seed: the same mask; at
+    S 1024 rate 0.2 compared at batch LONG_DROPOUT_BATCH), with each
+    entry's recipe for dq; the forward and the backward at every other
+    width (BF16_WIDTHS, padded by the wrappers) at rate 0.2; the bf16 GEMM's
+    dseq (within one bf16 ulp plus the float32 sums' spread) and dW (float32,
+    within the spread of two orders of its float32 sums) at
+    BF16_GEMM_CASES; two calls bit for bit each; times, the plain
+    versions', the library calls' (SDPA's autograd backward and
+    torch.matmul, on bf16) and bounds at the bf16 rate; bf16 HMMA in the
+    SASS of the new kernels and their ptxas registers and spills."""
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+    gen = torch.Generator(device=device).manual_seed(2020)
+    randn = lambda *shape, s=1.0: (torch.randn(
+        shape, generator=gen, device=device) * s).to(torch.bfloat16)
+    rows = {"attention_bwd_bf16": [], "attention_dseq_gemm_bf16": [],
+            "attention_dw_gemm_bf16": [], "attention_fwd_bf16_widths": []}
+    seed = torch.tensor([20], dtype=torch.int32, device=device)
+
+    def heads_of(x, dh, grad=False):
+        b, s, _ = x.shape
+        x = x.reshape(b, s, -1, dh).transpose(1, 2).contiguous()
+        return x.requires_grad_() if grad else x
+
+    def sdpa_bwd_ms(qkv, g, dh):
+        """Autograd backward of SDPA on bf16 heads, the graph built once
+        and its backward timed alone."""
+        k, v, q = (heads_of(t_, dh, True) for t_ in qkv.chunk(3, -1))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), heads_of(
+            g, dh), retain_graph=True))
+
+    def thirds_err(got, want, c):
+        return [float((got[..., i * c:(i + 1) * c].float() -
+                       want[..., i * c:(i + 1) * c].float()).abs().max() /
+                      want[..., i * c:(i + 1) * c].float().abs().max())
+                for i in range(3)]
+
+    def bwd_case(b, s, c, rate, timed):
+        heads, dh = 4, c // 4
+        in_fp32 = kernels.attention_route(s, c, heads).entry == "proj"
+        qkv, g = randn(b, s, 3 * c), randn(b, s, c, s=0.5)
+        run = lambda: kernels.attention_long_qkv_bwd(
+            qkv, g, heads, rate, seed, scale_dq_in_fp32=in_fp32)
+        got = run()
+        same = torch.equal(got, run())
+        sub = b if rate == 0.0 or s <= 256 else LONG_DROPOUT_BATCH
+        plain = lambda: kernels.attention_long_plain_bwd(
+            qkv[:sub], g[:sub], heads, rate, seed, None, in_fp32)
+        errs = thirds_err(got[:sub], plain(), c)
+        # the backward's five S x S x Dh products at the true width; qkv
+        # and g in, dqkv out
+        bound_ms, bound_by = _bf16_bound(2 * b * s * 7 * c,
+                                         10 * b * heads * s * s * dh)
+        row = dict(shape=[b, s, c], head_dim=dh, rate=rate,
+                   dq_recipe="fp32" if in_fp32 else "bf16",
+                   max_abs_err=max(errs), rel_err_dk_dv_dq=errs,
+                   bar=BF16_BWD_BAR, bound_ms=bound_ms, bound_by=bound_by)
+        if timed:
+            row["ms"] = timer(run)
+            if sub == b:
+                row["plain_ms"] = timer(plain)
+            if rate == 0.0:
+                row["library_ms"] = sdpa_bwd_ms(qkv, g, dh)
+        log(f"  bf16 dq and dK/dV (B, S, C) {(b, s, c)}, Dh {dh}, rate "
+            f"{rate}, dq {row['dq_recipe']}: max |got - plain| / max |plain| "
+            f"dK dV dq {[f'{e:.3g}' for e in errs]} (bar {BF16_BWD_BAR:.3g}; "
+            f"compared at batch {sub}); two calls bit for bit: {same}"
+            + (f" | kernel {row['ms']:.4f} ms plain "
+               f"{row.get('plain_ms', float('nan')):.4f} ms"
+               + (f" SDPA backward (bf16) {row['library_ms']:.4f} ms"
+                  if rate == 0.0 else "") if timed else "")
+            + f" | bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        if not (max(errs) <= BF16_BWD_BAR and same):
+            raise AssertionError(f"bf16 backward {(b, s, c)} rate {rate}: "
+                                 f"errs {errs} or repeat {same}")
+        return row
+
+    for b, s, c in BF16_BWD_CASES:
+        for rate in (0.0, RATE):
+            rows["attention_bwd_bf16"].append(bwd_case(b, s, c, rate, True))
+    b, s = BF16_WIDTH_SHAPE
+    for dh in BF16_WIDTHS:
+        c = 4 * dh
+        rows["attention_bwd_bf16"].append(bwd_case(b, s, c, RATE, False))
+        qkv = randn(b, s, 3 * c)
+        run = lambda: kernels.attention_long_qkv(qkv, 4, RATE, seed)
+        got = run()
+        same = torch.equal(got, run())
+        err = float((got.float() - kernels.attention_long_plain(
+            qkv, 4, RATE, seed).float()).abs().max())
+        bar = BF16_FWD_BAR * float(qkv[..., c:2 * c].float().abs().max())
+        rows["attention_fwd_bf16_widths"].append(dict(
+            shape=[b, s, c], head_dim=dh,
+            kernel_head_dim=fa.padded_head_dim(dh, fa.BF16_HEAD_DIMS), rate=RATE,
+            max_abs_err=err, bar=bar))
+        log(f"  bf16 forward (B, S, C) {(b, s, c)}, Dh {dh} (run "
+            f"{fa.padded_head_dim(dh, fa.BF16_HEAD_DIMS)} wide), rate {RATE}: max abs err "
+            f"{err:.3g} (bar {bar:.3g}); two calls bit for bit: {same}")
+        if not (err <= bar and same):
+            raise AssertionError(f"bf16 forward at Dh {dh}: {err} > {bar} or "
+                                 f"repeat {same}")
+
+    for b, s, c in BF16_GEMM_CASES:
+        seq, w, dqkv = randn(b, s, c, s=0.5), randn(3 * c, c, s=0.1), randn(
+            b, s, 3 * c, s=0.1)
+        d2, s2 = dqkv.reshape(-1, 3 * c), seq.reshape(-1, c)
+        for name, run, plain, library, a_, b_, m, n, k, out_bytes in (
+                ("attention_dseq_gemm_bf16",
+                 lambda: kernels.attention_dseq_gemm(dqkv, w),
+                 lambda: fa.bf16_matmul(dqkv, w),
+                 lambda: torch.matmul(dqkv, w), d2, w.t(), b * s, c, 3 * c,
+                 2),
+                ("attention_dw_gemm_bf16",
+                 lambda: kernels.attention_dw_gemm(dqkv, seq),
+                 lambda: fa.dw_plain(dqkv, seq),
+                 lambda: torch.matmul(d2.t(), s2), d2.t(), s2.t(), 3 * c, c,
+                 b * s, 4)):
+            got = run()
+            same = torch.equal(got, run())
+            want = plain()
+            if name == "attention_dseq_gemm_bf16":
+                ok = fa.bf16_product_close(got, want, a_, b_)
+            else:
+                spread = k * 2.0 ** -24 * (a_.float().abs() @
+                                           b_.float().abs().t())
+                ok = bool(((got - want).abs() <= spread).all())
+            err = float((got.float() - want.float()).abs().max())
+            bound_ms, bound_by = _bf16_bound(
+                2 * (m * k + n * k) + out_bytes * m * n, 2 * m * n * k)
+            row = dict(shape=[b, s, c], splits=fa.gemm_splits(m, n, k),
+                       max_abs_err=err, within_bar=ok, ms=timer(run),
+                       plain_ms=timer(plain), library_ms=timer(library),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows[name].append(row)
+            log(f"  bf16 {name.split('_')[1]} GEMM (B, S, C) {(b, s, c)}, "
+                f"{row['splits']} split(s), {got.dtype}: max abs err "
+                f"{err:.3g} within bar: {ok}; two calls bit for bit: {same} "
+                f"| kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+                f"torch.matmul (bf16) {row['library_ms']:.4f} ms | bound "
+                f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            if not (ok and same):
+                raise AssertionError(f"{name} {(b, s, c)}: within bar {ok}, "
+                                     f"repeat {same}")
+    sass = {}
+    for pattern in ("attention_bf16_dq_kernel", "attention_bf16_dkv_kernel",
+                    "gemm_bf16_kernel"):
+        source = ("attention_gemm" if pattern.startswith("gemm")
+                  else "fused_attention_long")
+        hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
+                for fn, row in sass_counts(
+                    _native.library_path(source)).items() if pattern in fn}
+        sass[pattern] = hmma
+        log(f"  {pattern}: HMMA.16816.F32.BF16 instructions in the SASS of "
+            f"each instantiation (cuobjdump -sass): {hmma}")
+        if not hmma or not all(hmma.values()):
+            raise AssertionError(f"{pattern}: no bf16 HMMA in {hmma}")
+    ptxas = {"attention_bwd_bf16": ptxas_kernels(
+                 reports.get("fused_attention_long", ""), "attention_bf16_d"),
+             "gemm_bf16_kernel": ptxas_kernels(
+                 reports.get("attention_gemm", ""), "gemm_bf16_kernel")}
+    log(f"  ptxas: {ptxas}")
+    return rows, {"sass_bf16_hmma": sass, "ptxas": ptxas}
+
+
+def _bf16_train_model(cfg, device, batches, seed):
+    """(model, optimizer, step function) of phase 4's seeds: the weights
+    from seed + 10, ddi on the first batch, dropout noise from seed + 11."""
+    from gpnf_tpu_torch.models.marscf import MarScfFlow
+    from gpnf_tpu_torch.training.loop import train_step
+    from gpnf_tpu_torch.training.optim import AdamaxWarmup
+
+    model = MarScfFlow(cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed + 10))
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    model.ddi(batches[0], generator=gen)
+    model.train()
+    opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=WARM_UP,
+                       batch_size=batches[0].shape[0])
+    step = [0]
+
+    def one_step():
+        loss = train_step(model, opt, batches[step[0] % len(batches)], gen)
+        step[0] += 1
+        return loss
+
+    return model, opt, one_step
+
+
+def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
+    """One training step at dropout 0 on `model`'s weights in bf16 on the
+    card and on the CPU, in float32 on the CPU, and in bf16 on the CPU on
+    weights moved by 2^-22 (two draws), the same images and noise: the loss
+    within the larger of 1e-3 bits/dim and half the CPU's bf16-vs-float32
+    gap; every gradient tensor within its own bar (`grad_parity`: the
+    larger of 1e-3 of its largest float32 value and 3 times its CPU bf16
+    noise, a tensor under 12 elements held to the noise pooled over its
+    namesakes); the whole gradient's L2 distance from the CPU's float32 one
+    at most BF16_GRAD_L2_BAR times the CPU bf16's."""
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.utils import grad_parity
+
+    noise = torch.rand(x.shape,
+                       generator=torch.Generator().manual_seed(noise_seed))
+    step = {}
+    for name, dev, dtype, weights in (
+            ("card", device, "bfloat16", model.state_dict()),
+            ("cpu16", "cpu", "bfloat16", model.state_dict()),
+            ("cpu32", "cpu", "float32", model.state_dict()),
+            *((f"moved{i}", "cpu", "bfloat16",
+               grad_parity.perturbed(model, i)) for i in (1, 2))):
+        net = MarScfFlow(MarScfConfig(**{**config, "drop_prob": 0.0,
+                                         "compute_dtype": dtype}), device=dev)
+        net.load_state_dict(weights)
+        loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
+        loss.backward()
+        step[name] = (float(loss.detach()), {
+            k: p.grad.detach().float().cpu() for k, p in
+            net.named_parameters()})
+        del net
+    (card, g16), (cpu16, c16), (cpu32, c32) = (step["card"], step["cpu16"],
+                                               step["cpu32"])
+    gap = abs(cpu16 - cpu32)
+    loss_bar = max(1e-3, 0.5 * gap)
+    rows = grad_parity.bf16_grad_parity(
+        g16, c16, c32, [step["moved1"][1], step["moved2"][1]])
+    # the same rule for a bf16 run the CPU made: the first moved draw
+    # against the reference, with the second as its only other draw
+    cpu_rows = grad_parity.bf16_grad_parity(step["moved1"][1], c16, c32,
+                                            [step["moved2"][1]])
+    # why one-element tensors are pooled: over a single gap of its own,
+    # the card's and a moved CPU run's distance from the reference
+    single = {run: max((float((g[k] - c16[k]).abs().max()) / max(
+                            float((c16[k] - c32[k]).abs().max()), 1e-30), k)
+                       for k in c32 if c32[k].numel() == 1)
+              for run, g in (("card", g16), ("moved", step["moved1"][1]))}
+    l2 = lambda a: math.sqrt(sum(float(((a[k] - c32[k]) ** 2).sum())
+                                 for k in c32))
+    l2_ratio = l2(g16) / l2(c16)
+    finite = all(torch.isfinite(g).all() for g in g16.values())
+    median = statistics.median(r[0] for r in rows)
+    fmt = lambda rs: [(round(r[0], 3), r[1], f"diff {r[2]:.3g}",
+                       f"noise {r[3]:.3g}", f"max {r[4]:.3g}", r[5])
+                      for r in rs[:4]]
+    log(f"  bf16 train step at batch {x.shape[0]}, dropout 0: loss card "
+        f"{card:.6f} CPU bf16 {cpu16:.6f} CPU float32 {cpu32:.6f} (diff "
+        f"{abs(card - cpu16):.3g}, bar {loss_bar:.3g}: the larger of 1e-3 and "
+        f"half the CPU's bf16-vs-float32 gap {gap:.3g}); {len(rows)} "
+        f"gradient tensors, each max |card - CPU bf16| over its bar (the "
+        f"larger of {grad_parity.FLOOR:g} of its max |float32| and "
+        f"{grad_parity.K:g} x its CPU bf16 noise): median {median:.3g}, "
+        f"worst (ratio, tensor, ...) {fmt(rows)}; a moved CPU bf16 run "
+        f"under the same rule: median "
+        f"{statistics.median(r[0] for r in cpu_rows):.3g}, worst "
+        f"{fmt(cpu_rows)}; one-element tensors over their own single gap, "
+        f"unpooled: card up to {single['card'][0]:.3g} "
+        f"({single['card'][1]}), a moved CPU run up to "
+        f"{single['moved'][0]:.3g} ({single['moved'][1]}); the whole "
+        f"gradient's L2 distance from the CPU's float32 {l2_ratio:.3g} x the "
+        f"CPU bf16's (bar {BF16_GRAD_L2_BAR})")
+    if not (finite and abs(card - cpu16) <= loss_bar and rows[0][0] <= 1.0
+            and l2_ratio <= BF16_GRAD_L2_BAR):
+        raise AssertionError(f"bf16 train step card vs CPU: loss "
+                             f"{abs(card - cpu16)} > {loss_bar}, worst "
+                             f"gradient {fmt(rows)} or L2 {l2_ratio} > "
+                             f"{BF16_GRAD_L2_BAR}")
+    return {"loss_card": card, "loss_cpu_bf16": cpu16,
+            "loss_cpu_float32": cpu32, "loss_bar": loss_bar,
+            "grad_bar_floor": grad_parity.FLOOR, "grad_bar_k": grad_parity.K,
+            "grad_l2_ratio": l2_ratio, "per_tensor_ratio_median": median,
+            "per_tensor_worst": rows[:4],
+            "moved_cpu_ratio_median": statistics.median(
+                r[0] for r in cpu_rows),
+            "moved_cpu_worst": cpu_rows[:4],
+            "one_element_over_own_gap": single}
+
+
+def bf16_train_flagship(device, loader, seed, card, peak32):
+    """Phase 20's flagship: phase 4's configuration, seeds and batches in a
+    compute_dtype="bfloat16" model: ddi, 20 Adamax steps at dropout 0.2
+    (every loss finite, the last 5 below the first, exact launch counts a
+    step, no non-finite update), peak memory beside phase 4's float32;
+    train images/s in turns with a float32 model on the same seeds and
+    batches (windows of BF16_TRAIN_WINDOW_STEPS); one step card vs CPU at
+    batch 2."""
+    import dataclasses
+
+    from gpnf_tpu_torch.models.marscf import MarScfConfig
+    from gpnf_tpu_torch.ops import kernels
+
+    cfg16 = MarScfConfig(**FLAGSHIP, compute_dtype="bfloat16")
+    batches = [torch.from_numpy(b).to(device)
+               for b, _ in zip(loader, range(16))]
+    model, opt, one_step = _bf16_train_model(cfg16, device, batches, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(TRAIN_STEPS)]  # gate: each read
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    log(f"  bf16: {TRAIN_STEPS} steps at batch {BATCH}, dropout {RATE}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} bits/dim; launches per step "
+        f"{per_step}")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    log(f"  bf16 train peak device memory {peak / 2 ** 30:.3f} GiB (float32, "
+        f"phase 4: {peak32 / 2 ** 30:.3f} GiB) [{card}]")
+    want = {k: BF16_TRAIN.get(k, 0) for k in counts}
+    if per_step != want:
+        raise AssertionError(f"bf16 train launches per step {per_step} != "
+                             f"{want}")
+    if not (all(math.isfinite(x) for x in losses)
+            and statistics.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"bf16 train losses not finite and falling: "
+                             f"{losses}")
+    if opt.total_notfinite:
+        raise AssertionError(f"{opt.total_notfinite} non-finite updates")
+
+    # train images/s, float32 and bf16 in turns on the same seeds and batches
+    _, _, step32 = _bf16_train_model(MarScfConfig(**FLAGSHIP), device,
+                                     batches, seed)
+    float(step32())  # the float32 model's first step, untimed
+    times = {"float32": [], "bfloat16": []}
+    for _ in range(BF16_TRAIN_WINDOWS):
+        for name, fn in (("float32", step32), ("bfloat16", one_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BF16_TRAIN_WINDOW_STEPS):
+                loss = fn()
+            float(loss)  # each window ends in a loss read
+            times[name].append(time.perf_counter() - t0)
+    ips = {k: BF16_TRAIN_WINDOW_STEPS * BATCH / statistics.median(v)
+           for k, v in times.items()}
+    log(f"  train images/s in turns (median of {BF16_TRAIN_WINDOWS} windows "
+        f"of {BF16_TRAIN_WINDOW_STEPS} steps at batch {BATCH}): float32 "
+        f"{ips['float32']:.1f}, bf16 {ips['bfloat16']:.1f} ({times}) [{card}]")
+    del step32
+    torch.cuda.empty_cache()
+    checks = bf16_card_vs_cpu_step(model, batches[1][:2].cpu(), device,
+                                   FLAGSHIP, 20)
+    return {"losses": losses, "launches": counts,
+            "launches_per_step": per_step, "train_peak_memory_bytes": peak,
+            "float32_train_peak_memory_bytes": peak32,
+            "train_images_per_s": ips, "train_window_s": times,
+            "card_vs_cpu": checks}
+
+
+def bf16_train_other_widths(device, seed, card):
+    """Phase 20's other widths: one bf16 train step (dropout 0.2) of the
+    flagship at C 192 (Dh 48, run 128 wide: the wide route at level 0) and
+    of phase 18's --C 512 model (L 3, K 2, batch 16, the config the train
+    CLI builds from --compute_dtype bfloat16), on random weights after
+    ddi: the loss and every gradient finite, exact launch counts."""
+    from gpnf_tpu_torch.data.datasets import NumpyLoader, get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.train_marscf import model_config, parse_args
+
+    c512 = model_config(parse_args([*C512_ARGS, "--compute_dtype",
+                                    "bfloat16"]), compute_dtype="bfloat16")
+    n192 = sum(1 for s, _ in LEVELS if kernels.attention_route(
+        s, 192, 4).entry == "proj") * 40
+    out = {}
+    for name, cfg, batch, want in (
+            ("c192", MarScfConfig(**C192, compute_dtype="bfloat16"), BATCH,
+             bf16_step_counts(120, n192, 12)),
+            ("c512", c512, C512_BATCH, bf16_step_counts(C512_ATTN, 0, 6))):
+        raw = get_dataset("synthetic", batch, seed=seed)[0].images[:batch]
+        x = torch.from_numpy(next(iter(NumpyLoader(raw, batch, shuffle=False
+                                                   )))).to(device)
+        model = MarScfFlow(cfg, device=device, generator=torch.Generator(
+            ).manual_seed(seed + 70))
+        gen = torch.Generator(device=device).manual_seed(seed + 71)
+        model.ddi(x, generator=gen)
+        model.train()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(x, generator=gen)[1].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        finite = math.isfinite(float(loss.detach())) and all(
+            torch.isfinite(p.grad).all() for p in model.parameters()
+            if p.grad is not None)
+        want = {k: want.get(k, 0) for k in counts}
+        log(f"  {name} in bf16: one train step at batch {batch}, loss "
+            f"{float(loss.detach()):.4f} bits/dim, every gradient finite: {finite}, "
+            f"{step_s:.3f} s with the first call's setup [{card}]; launches "
+            f"{counts}")
+        if counts != want or not finite:
+            raise AssertionError(f"{name} bf16 train step: finite {finite}, "
+                                 f"launches {counts} != {want}")
+        out[name] = {"loss": float(loss.detach()), "launches": counts}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -3104,6 +3579,17 @@ def main():
                          args.seed, card)
     bf16.update(bf16_other_models(device, args.seed, card))
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
+    log("== 20. training the flagship in bf16: the bf16 dq and dK/dV pair "
+        "and the bf16 GEMM's dseq and dW vs plain versions, every head "
+        "width, the flagship's train steps, C 192 and --C 512")
+    t0 = time.perf_counter()
+    bf16_train_rows, bf16_train_build = check_bf16_train_kernels(
+        device, timer, reports)
+    log(f"  phase 20's kernel checks took {time.perf_counter() - t0:.1f} s")
+    bf16_train = bf16_train_flagship(device, train_loader, args.seed, card,
+                                     trained["train_peak_memory_bytes"])
+    bf16_train.update(bf16_train_other_widths(device, args.seed, card))
+    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -3157,6 +3643,14 @@ def main():
                                     attention[1] + "393"),
         "attention_fwd_bf16": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
                                attention[1] + "393"),
+        # the bf16 training path (phase 20): the proj backward's stages in
+        # bf16, the dq and dK/dV pair also the long entry's (`_bwd_kernel_bh`)
+        "attention_bwd_bf16": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                               attention[1] + "416"),
+        "attention_dseq_gemm_bf16": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                                     attention[1] + "416"),
+        "attention_dw_gemm_bf16": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
+                                   attention[1] + "416"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -3193,7 +3687,10 @@ def main():
                     "eval_bf16": bf16["eval_launches"][name],
                     "sample_bf16": bf16["sample_launches"][name],
                     "eval64_bf16": bf16["imagenet64"]["eval_launches"][name],
-                    "eval_c512_bf16": bf16["c512"]["eval_launches"][name]}
+                    "eval_c512_bf16": bf16["c512"]["eval_launches"][name],
+                    "train_bf16": bf16_train["launches"][name],
+                    "train_c192_bf16": bf16_train["c192"]["launches"][name],
+                    "train_c512_bf16": bf16_train["c512"]["launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -3242,6 +3739,41 @@ def main():
                 ptxas=ptxas_kernels(reports.get("fused_gated_conv", ""),
                                     "gated_conv_mma_kernel"),
                 per_case=rows)
+        elif name in BF16 and name not in bf16_rows:
+            # phase 20's kernels at the flagship's level 0 (the backward at
+            # rate 0, beside SDPA's autograd backward; dseq and dW beside
+            # torch.matmul); every case, the 64-px level 0, C 512 and every
+            # other width among them, in per_case
+            rows = bf16_train_rows[name]
+            top = rows[0]
+            bwd = name == "attention_bwd_bf16"
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"],
+                shape=f"level 0 (B, S, C) {tuple(top['shape'])}" + (
+                    ", rate 0, dq scaled in float32 (the proj entry); "
+                    "max_abs_err the largest of max |got - plain| / max "
+                    "|plain| over dK, dV, dq; library_ms SDPA's autograd "
+                    "backward on bf16" if bwd else
+                    "; library_ms torch.matmul on bf16"),
+                bound_peak="bf16 989 TFLOP/s", per_case=rows,
+                device_kernels=(["attention_bf16_dq_kernel",
+                                 "attention_bf16_dkv_kernel"] if bwd else
+                                ["gemm_bf16_kernel", "sum_splits_bf16_kernel"
+                                 if name == "attention_dseq_gemm_bf16" else
+                                 "sum_splits_kernel"]),
+                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh"] + (
+                    ["gpnf_tpu_torch/csrc/philox.cuh"] if bwd else []),
+                ptxas=bf16_train_build["ptxas"][
+                    name if bwd else "gemm_bf16_kernel"],
+                sass_bf16_hmma=bf16_train_build["sass_bf16_hmma"][
+                    "attention_bf16_dq_kernel" if bwd
+                    else "gemm_bf16_kernel"])
+            if bwd:
+                entry["sass_bf16_hmma_dkv"] = bf16_train_build[
+                    "sass_bf16_hmma"]["attention_bf16_dkv_kernel"]
         elif name in BF16:
             # the flagship's level 0 (the forward at rate 0, beside SDPA);
             # every case, the 64-px level 0 and C 512 among them, in per_case
@@ -3265,6 +3797,9 @@ def main():
                 sass_bf16_hmma=bf16_build["sass_bf16_hmma"][
                     "gemm_bf16_kernel" if gemm
                     else "attention_bf16_fwd_kernel"])
+            if not gemm:  # every other width, padded (phase 20)
+                entry["per_width"] = bf16_train_rows[
+                    "attention_fwd_bf16_widths"]
         elif name in CORE:
             # the 32-px level 0's shape at rate 0: kernel, plain version,
             # SDPA and bound on the same inputs (every case in per_case)
@@ -3404,10 +3939,10 @@ def main():
                                   "agreement": core_kernels["agreement"]},
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],
                         "flagship_routes": flagship_routes},
-               "bf16": bf16, "kernels": record}
+               "bf16": bf16, "bf16_train": bf16_train, "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-19 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-20 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

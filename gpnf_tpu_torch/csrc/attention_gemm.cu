@@ -81,21 +81,25 @@
 // tiles up to 15.2% and 64 x 32 warps up to 22.2% slower; none of them
 // more than 2.8% faster at any product.
 //
-// bf16 (MarScfConfig(compute_dtype="bfloat16"), serving): qkv = seq w^T
-// with seq and w in bf16, as `_kernel_proj_qkv` computes it on bf16
-// operands (fused_attention.py:383-390): products summed in fp32, the
-// result rounded once to bf16 (`gpnf_attention_gemm_bf16`, its own kernel,
-// `gemm_bf16_kernel`). bf16 mma.sync.m16n8k16 (mma_bf16.cuh) on 64 x 64
-// output tiles, 4 warps of 32 x 32, K in chunks of 32 through the same
-// 3-stage cp.async ring, each chunk summed into fresh accumulators and
-// added in fp32 as above; the tiles are rows of 32 + 8 bf16 values, read by
-// ldmatrix, conflict-free (mma_bf16.cuh). K is C (96 at the flagship: three
-// chunks, six k16 steps; 512 at the CLIs' width), short, so K is never
-// split: a call is one launch. What bounds it: bytes at the flagship (C =
-// 96, B 64, S 256: 0.9 GFLOP, ~0.9 us at the bf16 tensor cores' 989
-// TFLOP/s; 12.6 MB, ~3.8 us), operations at C = 512. The operands start on
-// 16-byte boundaries and K is a multiple of 8 (the wrapper copies or pads
-// what is not); any M and N.
+// bf16 (MarScfConfig(compute_dtype="bfloat16"), serving and training): the
+// same three products on bf16 operands, as `_kernel_proj_qkv` and
+// `_bwd_kernel_proj` compute them (fused_attention.py:383-390, :453-470):
+// products summed in fp32, qkv and dseq rounded once to bf16, dW written in
+// fp32 (the wrapper rounds it to w's dtype, as `_vjp_bwd_proj` does)
+// (`gpnf_attention_gemm_bf16`, its own kernel, `gemm_bf16_kernel`). bf16
+// mma.sync.m16n8k16 (mma_bf16.cuh) on the fp32 kernel's tiles, warps, K
+// splits and 3-stage cp.async ring, K in chunks of 32 values (two k16
+// steps), each chunk summed into fresh accumulators and added in fp32 as
+// above, the splits' fp32 partials added in split order by a second launch
+// (and rounded there, for qkv and dseq): two calls give the same bits.
+// Tiles keep the arrays' layouts as in fp32, rows of 32 + 8 or BM / BN + 8
+// bf16 values, read by ldmatrix (A of dW and B of dseq and dW transposed,
+// ldmatrix.trans), conflict-free (mma_bf16.cuh). Operands: 16-byte copies
+// where both bases are 16-byte aligned and both row strides are multiples
+// of 8 values, else one value at a time (VEC = false). What bounds it:
+// bytes at the flagship (C = 96, B 64, S 256: each product 0.9 GFLOP,
+// ~0.9 us at the bf16 tensor cores' 989 TFLOP/s; each 12.6 MB, ~3.8 us),
+// operations at C = 512 (6.4 GFLOP, ~6.5 us; 18.4 MB, ~5.5 us).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -343,57 +347,107 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// -- bf16: qkv = seq w^T --------------------------------------------------------
+// -- bf16: qkv = seq w^T, dseq = dqkv w, dW = dqkv^T seq --------------------------
 using gpnf::bf16;
-constexpr int kBf16Tile = 64;  // BM = BN
-constexpr int kBf16Warp = 32;  // a warp's WM = WN: 2 x 4 accumulators
-constexpr int kBf16Threads = 128;
 constexpr int kBf16Kc = 32;  // k values a stage holds: two k16 steps
-constexpr int kBf16Ld = kBf16Kc + gpnf::kBf16Pad;  // a tile row, in values
-constexpr int kBf16Stages = 3;
 
-// Rows [r0, r0 + 64) and values [k0, k0 + 32) of the row-major (rows x k)
-// src into dst (64 rows of kBf16Ld), zeros past the rows or past k (a
-// multiple of 8, so a 16-byte chunk is all in or all out).
+// The shared memory of one bf16 stage: A's tile, then B's, in bf16 values;
+// a tile whose rows run along k has rows of KC + 8 values, one whose rows
+// run along m or n rows of BM + 8 or BN + 8 (mma_bf16.cuh: conflict-free).
+template <class T, bool TRANS_A, bool TRANS_B>
+struct StageBf16 {
+  static constexpr int kLda = TRANS_A ? T::BM + gpnf::kBf16Pad
+                                      : kBf16Kc + gpnf::kBf16Pad;
+  static constexpr int kLdb = TRANS_B ? kBf16Kc + gpnf::kBf16Pad
+                                      : T::BN + gpnf::kBf16Pad;
+  static constexpr int kA = TRANS_A ? kBf16Kc * kLda : T::BM * kLda;
+  static constexpr int kB = TRANS_B ? T::BN * kLdb : kBf16Kc * kLdb;
+  static constexpr int kVals = kA + kB;
+  static constexpr size_t kBytes = sizeof(bf16) * T::kStages * kVals;
+};
+
+// Rows [r0, r0 + R) and columns [c0, c0 + W) of the row-major bf16 src (row
+// stride ld values) into dst (R rows of LD values), zeros where the row is
+// >= rows or the column >= cols. VEC: 16-byte cp.async copies (src and ld
+// multiples of 8 values, cols too, so a chunk is all in or all out),
+// asynchronous, the caller commits and waits; else one value at a time by
+// plain loads and stores, which the barrier before the stage's use orders.
+template <int R, int W, int LD, int THREADS, bool VEC>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               int k, int r0, int k0,
-                                               int rows) {
-  constexpr int kRow = kBf16Kc / 8;  // 16-byte chunks a row
+                                               long long ld, int r0, int c0,
+                                               int rows, int cols) {
+  if constexpr (VEC) {
+    constexpr int kRow = W / 8;
+    static_assert((R * kRow) % THREADS == 0, "whole copies a thread");
 #pragma unroll
-  for (int it = 0; it < kBf16Tile * kRow / kBf16Threads; ++it) {
-    const int e = threadIdx.x + it * kBf16Threads;
-    const int r = e / kRow;
-    const int c = 8 * (e - r * kRow);
-    const bool valid = r0 + r < rows && k0 + c < k;
-    const bf16* from =
-        valid ? src + static_cast<long long>(r0 + r) * k + k0 + c : src;
-    gpnf::cp_async16_bf16(dst + r * kBf16Ld + c, from, valid);
+    for (int it = 0; it < R * kRow / THREADS; ++it) {
+      const int e = threadIdx.x + it * THREADS;
+      const int r = e / kRow;
+      const int c = 8 * (e - r * kRow);
+      const bool valid = r0 + r < rows && c0 + c < cols;
+      const bf16* from =
+          valid ? src + static_cast<long long>(r0 + r) * ld + c0 + c : src;
+      gpnf::cp_async16_bf16(dst + r * LD + c, from, valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * W; e += THREADS) {
+      const int r = e / W;
+      const int c = e - r * W;
+      const bool valid = r0 + r < rows && c0 + c < cols;
+      dst[r * LD + c] =
+          valid ? src[static_cast<long long>(r0 + r) * ld + c0 + c]
+                : __float2bfloat16_rn(0.f);
+    }
   }
 }
 
-// c (m x n, bf16) = a (m x k) b^T, b (n x k): fp32 sums, one rounding.
-__global__ void __launch_bounds__(kBf16Threads)
+// Split z = blockIdx.z of c = A B in bf16 (A m x k, B k x n): the K rows
+// [z chunk, min(k, (z + 1) chunk)) summed in fp32, each KC chunk into fresh
+// accumulators, into out + z m n: bf16 (rounded once) where out_bf16, else
+// float32 (dW, and the partials of a split product).
+template <class T, bool TRANS_A, bool TRANS_B, bool VEC>
+__global__ void __launch_bounds__(T::kThreads)
     gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
-                     bf16* __restrict__ c, int m, int n, int k) {
-  constexpr int kTileVals = kBf16Tile * kBf16Ld;
-  __shared__ __align__(16) bf16 smem[kBf16Stages][2][kTileVals];
-  constexpr int MI = kBf16Warp / 16, NI = kBf16Warp / 8;
-  const int m0 = blockIdx.y * kBf16Tile, n0 = blockIdx.x * kBf16Tile;
-  const int nk = (k + kBf16Kc - 1) / kBf16Kc;
+                     void* __restrict__ out, int m, int n, int k, int chunk,
+                     int out_bf16) {
+  using S = StageBf16<T, TRANS_A, TRANS_B>;
+  constexpr int MI = T::MI, NI = T::NI;
+  extern __shared__ float4 gemm_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(gemm_smem);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * chunk;
+  const int k_end = min(k, k_begin + chunk);
+  const int nk = (k_end - k_begin + kBf16Kc - 1) / kBf16Kc;
+  const long long z_off = static_cast<long long>(blockIdx.z) * m * n;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int tg = lane & 3;
-  const int wm = (warp >> 1) * kBf16Warp;
-  const int wn = (warp & 1) * kBf16Warp;
+  const int wm = (warp / T::kWarpsN) * T::WM;
+  const int wn = (warp % T::kWarpsN) * T::WN;
 
   auto load_stage = [&](int stage, int k0) {
-    load_tile_bf16(smem[stage][0], a, k, m0, k0, m);
-    load_tile_bf16(smem[stage][1], b, k, n0, k0, n);
+    bf16* as = smem + stage * S::kVals;
+    bf16* bs = as + S::kA;
+    if (TRANS_A) {  // a is (k, m): KC rows of BM
+      load_tile_bf16<kBf16Kc, T::BM, S::kLda, T::kThreads, VEC>(
+          as, a, m, k0, m0, k_end, m);
+    } else {  // a is (m, k): BM rows of KC
+      load_tile_bf16<T::BM, kBf16Kc, S::kLda, T::kThreads, VEC>(
+          as, a, k, m0, k0, m, k_end);
+    }
+    if (TRANS_B) {  // b is (n, k): BN rows of KC
+      load_tile_bf16<T::BN, kBf16Kc, S::kLdb, T::kThreads, VEC>(
+          bs, b, k, n0, k0, n, k_end);
+    } else {  // b is (k, n): KC rows of BN
+      load_tile_bf16<kBf16Kc, T::BN, S::kLdb, T::kThreads, VEC>(
+          bs, b, n, k0, n0, k_end, n);
+    }
   };
+
 #pragma unroll
-  for (int st = 0; st < kBf16Stages - 1; ++st) {
-    if (st < nk) load_stage(st, st * kBf16Kc);
+  for (int s = 0; s < T::kStages - 1; ++s) {
+    if (s < nk) load_stage(s, k_begin + s * kBf16Kc);
     gpnf::cp_async_commit();
   }
   float acc[MI][NI][4];
@@ -405,13 +459,13 @@ __global__ void __launch_bounds__(kBf16Threads)
     }
   }
   for (int t = 0; t < nk; ++t) {
-    gpnf::cp_async_wait<kBf16Stages - 2>();
+    gpnf::cp_async_wait<T::kStages - 2>();
     __syncthreads();  // chunk t is in; every warp is done with chunk t - 1
-    const int ahead = t + kBf16Stages - 1;  // into the stage chunk t - 1 held
-    if (ahead < nk) load_stage(ahead % kBf16Stages, ahead * kBf16Kc);
+    const int ahead = t + T::kStages - 1;  // into the stage chunk t - 1 held
+    if (ahead < nk) load_stage(ahead % T::kStages, k_begin + ahead * kBf16Kc);
     gpnf::cp_async_commit();
-    const bf16* as = smem[t % kBf16Stages][0];
-    const bf16* bs = smem[t % kBf16Stages][1];
+    const bf16* as = smem + (t % T::kStages) * S::kVals;
+    const bf16* bs = as + S::kA;
     float part[MI][NI][4];
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
@@ -425,12 +479,21 @@ __global__ void __launch_bounds__(kBf16Threads)
       uint32_t fb[NI / 2][4];
 #pragma unroll
       for (int jp = 0; jp < NI / 2; ++jp) {
-        gpnf::frag_b_bf16_pair<kBf16Ld>(fb[jp], bs, wn + 16 * jp, kk, lane);
+        if (TRANS_B) {
+          gpnf::frag_b_bf16_pair<S::kLdb>(fb[jp], bs, wn + 16 * jp, kk, lane);
+        } else {
+          gpnf::frag_b_bf16_trans_pair<S::kLdb>(fb[jp], bs, kk, wn + 16 * jp,
+                                                lane);
+        }
       }
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         uint32_t fa[4];
-        gpnf::frag_a_bf16<kBf16Ld>(fa, as, wm + 16 * i, kk, lane);
+        if (TRANS_A) {
+          gpnf::frag_a_bf16_trans<S::kLda>(fa, as, kk, wm + 16 * i, lane);
+        } else {
+          gpnf::frag_a_bf16<S::kLda>(fa, as, wm + 16 * i, kk, lane);
+        }
 #pragma unroll
         for (int jp = 0; jp < NI / 2; ++jp) {
           gpnf::mma_bf16(part[i][2 * jp], fa, fb[jp][0], fb[jp][1]);
@@ -448,27 +511,83 @@ __global__ void __launch_bounds__(kBf16Threads)
     }
   }
   // c0 (gr, 2 tg), c1 (gr, 2 tg + 1), c2 (gr + 8, 2 tg), c3 (gr + 8, 2 tg + 1)
-  const bool pairs = n % 2 == 0;  // then (col, col + 1) is one 4-byte word
+  const bool pairs = n % 2 == 0;  // then (col, col + 1) is one aligned word
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + 16 * i + gr + 8 * h;
       if (row >= m) continue;
-      bf16* dst = c + static_cast<long long>(row) * n;
+      const long long at = z_off + static_cast<long long>(row) * n;
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
         const int col = n0 + wn + 8 * j + 2 * tg;
         const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
-        if (pairs && col < n) {
-          *reinterpret_cast<uint32_t*>(dst + col) = gpnf::pack_bf16(x, y);
+        if (out_bf16) {
+          bf16* dst = static_cast<bf16*>(out) + at;
+          if (pairs && col < n) {
+            *reinterpret_cast<uint32_t*>(dst + col) = gpnf::pack_bf16(x, y);
+          } else {
+            if (col < n) dst[col] = __float2bfloat16_rn(x);
+            if (col + 1 < n) dst[col + 1] = __float2bfloat16_rn(y);
+          }
         } else {
-          if (col < n) dst[col] = __float2bfloat16_rn(x);
-          if (col + 1 < n) dst[col + 1] = __float2bfloat16_rn(y);
+          float* dst = static_cast<float*>(out) + at;
+          if (pairs && col < n) {
+            *reinterpret_cast<float2*>(dst + col) = make_float2(x, y);
+          } else {
+            if (col < n) dst[col] = x;
+            if (col + 1 < n) dst[col + 1] = y;
+          }
         }
       }
     }
   }
+}
+
+// c[i] = sum over z of partial[z][i], z in order, rounded once to bf16.
+__global__ void __launch_bounds__(kSumThreads)
+    sum_splits_bf16_kernel(const float* __restrict__ partial,
+                           bf16* __restrict__ c, long long count,
+                           int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * kSumThreads +
+                      threadIdx.x;
+  if (i >= count) return;
+  float acc = partial[i];
+  for (int z = 1; z < splits; ++z) acc += partial[z * count + i];
+  c[i] = __float2bfloat16_rn(acc);
+}
+
+template <class T, bool TRANS_A, bool TRANS_B, bool VEC>
+cudaError_t launch_tiles_bf16(const bf16* a, const bf16* b, void* out, int m,
+                              int n, int k, int splits, int chunk,
+                              int out_bf16, cudaStream_t stream) {
+  using S = StageBf16<T, TRANS_A, TRANS_B>;
+  const auto kernel = gemm_bf16_kernel<T, TRANS_A, TRANS_B, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(S::kBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, splits);
+  kernel<<<grid, T::kThreads, S::kBytes, stream>>>(a, b, out, m, n, k, chunk,
+                                                   out_bf16);
+  return cudaGetLastError();
+}
+
+template <bool TRANS_A, bool TRANS_B>
+cudaError_t launch_bf16(bool large, bool vec, const bf16* a, const bf16* b,
+                        void* out, int m, int n, int k, int splits, int chunk,
+                        int out_bf16, cudaStream_t s) {
+  if (large) {
+    return vec ? launch_tiles_bf16<Large, TRANS_A, TRANS_B, true>(
+                     a, b, out, m, n, k, splits, chunk, out_bf16, s)
+               : launch_tiles_bf16<Large, TRANS_A, TRANS_B, false>(
+                     a, b, out, m, n, k, splits, chunk, out_bf16, s);
+  }
+  return vec ? launch_tiles_bf16<Small, TRANS_A, TRANS_B, true>(
+                   a, b, out, m, n, k, splits, chunk, out_bf16, s)
+             : launch_tiles_bf16<Small, TRANS_A, TRANS_B, false>(
+                   a, b, out, m, n, k, splits, chunk, out_bf16, s);
 }
 
 }  // namespace
@@ -512,23 +631,53 @@ extern "C" int gpnf_attention_gemm(const float* a, const float* b, float* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// c (m x n) = a (m x k) b^T in bf16, b (n x k): qkv = seq w^T with m = B S,
-// n = 3C, k = C. a, b and c start on 16-byte boundaries and k is a
-// multiple of 8; one launch, no split of K.
+// c (m x n) = A B in bf16, as gpnf_attention_gemm lays out A and B:
+// qkv = seq w^T (trans_b), dseq = dqkv w (neither), dW = dqkv^T seq
+// (trans_a); the same tiles (`pick_large`) and K splits (`splits`, chunk
+// as above, `partial` the caller's float32 (splits, m, n) scratch). The
+// sums are float32; c is bf16, rounded once, where out_bf16, else float32.
+// Any contiguous operands: 16-byte copies where both bases are 16-byte
+// aligned and both row strides multiples of 8 values, else one value at a
+// time, with the same bits.
 extern "C" int gpnf_attention_gemm_bf16(const void* a, const void* b, void* c,
-                                        int m, int n, int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 8 != 0 ||
-      (m + kBf16Tile - 1) / kBf16Tile > 65535) {
+                                        float* partial, int m, int n, int k,
+                                        int trans_a, int trans_b, int splits,
+                                        int out_bf16, void* stream) {
+  const int chunks = (k + KC - 1) / KC;
+  const int chunk = splits > 0 ? KC * ((chunks + splits - 1) / splits) : 0;
+  const bool large = m > 0 && n > 0 && pick_large(m, n);
+  const int block_rows = large ? Large::BM : Small::BM;
+  if (m <= 0 || n <= 0 || k <= 0 || (m + block_rows - 1) / block_rows > 65535 ||
+      (trans_a && trans_b) || splits <= 0 || splits > 65535 ||
+      static_cast<long long>(splits - 1) * chunk >= k ||
+      (splits > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!aligned16(a) || !aligned16(b) || !aligned16(c)) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  const bf16* pa = static_cast<const bf16*>(a);
+  const bf16* pb = static_cast<const bf16*>(b);
+  void* out = splits > 1 ? static_cast<void*>(partial) : c;
+  const int direct_bf16 = splits > 1 ? 0 : out_bf16;
+  const int lda = trans_a ? m : k, ldb = trans_b ? k : n;
+  const bool vec = aligned16(a) && aligned16(b) && lda % 8 == 0 &&
+                   ldb % 8 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      trans_a   ? launch_bf16<true, false>(large, vec, pa, pb, out, m, n, k,
+                                           splits, chunk, direct_bf16, s)
+      : trans_b ? launch_bf16<false, true>(large, vec, pa, pb, out, m, n, k,
+                                           splits, chunk, direct_bf16, s)
+                : launch_bf16<false, false>(large, vec, pa, pb, out, m, n, k,
+                                            splits, chunk, direct_bf16, s);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long count = static_cast<long long>(m) * n;
+  const unsigned blocks =
+      static_cast<unsigned>((count + kSumThreads - 1) / kSumThreads);
+  if (out_bf16) {
+    sum_splits_bf16_kernel<<<blocks, kSumThreads, 0, s>>>(
+        partial, static_cast<bf16*>(c), count, splits);
+  } else {
+    sum_splits_kernel<<<blocks, kSumThreads, 0, s>>>(
+        partial, static_cast<float*>(c), count, splits);
   }
-  const dim3 grid((n + kBf16Tile - 1) / kBf16Tile,
-                  (m + kBf16Tile - 1) / kBf16Tile);
-  gemm_bf16_kernel<<<grid, kBf16Threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -520,19 +520,41 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
 // padded to 32), and the bytes (qkv in, out out: 12.6 MB) ~3.8 us: bytes.
 // At the 64-px level 0 (S 1024) the products are 25.8 GFLOP, ~26 us, the
 // bytes ~15 us; at the CLIs' C = 512 (B 16, S 256, Dh 128) 2.1 GFLOP, ~2 us,
-// and 16.8 MB, ~5 us. Both widths take tiles of 64 keys: shared memory
-// 25 KB a block at Dh 24, 85 KB at 128.
+// and 16.8 MB, ~5 us. Dh 24 and 128 take tiles of 64 keys, with each warp's
+// q fragments in registers: shared memory 25 KB a block at Dh 24, 85 KB at
+// 128. Dh 256 (the widest head a wide-route GatedAttn takes) would hold
+// 128 output accumulators a thread, and ptxas spilled 228 bytes with
+// dropout: there a block has 8 warps, two to each 16 query rows, each of
+// the two computing the rows' scores and softmax alike (the product twice)
+// and P V for one half of the output columns, in tiles of 16 keys, its q
+// fragments read from shared memory at each k16 step: 66 KB. Every other
+// head width runs zero-padded to one of these three
+// (ops/kernels/fused_attention.py, `padded_head_dim`).
 template <int DH>
 struct MmaFwdBf16 {
   static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
   static constexpr int kLd = kWidth + kBf16Pad;
-  static constexpr int kWarps = 4;
+  static constexpr int kColSplit = kWidth <= 128 ? 1 : 2;  // warps a row
+  static constexpr int kWarps = 4 * kColSplit;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRows = 16 * kWarps;  // queries a block
-  static constexpr int kKeys = 64;           // keys a tile
+  static constexpr int kRows = 64;  // queries a block
+  static constexpr int kKeys = kWidth <= 128 ? 64 : 16;  // keys a tile
+  static constexpr bool kQInRegisters = kWidth <= 128;
   static constexpr size_t kBytes =
       sizeof(bf16) * (kRows + 2 * 2 * kKeys) * kLd;
 };
+
+// The first `cols` values of `rows` rows of a bf16 tile (LD-value rows)
+// times q_scale, rounded to bf16 in place, by all `threads` threads.
+template <int LD>
+__device__ __forceinline__ void scale_rows_bf16(bf16* tile, int rows,
+                                                int cols, float q_scale,
+                                                int threads) {
+  for (int e = threadIdx.x; e < rows * cols; e += threads) {
+    bf16* x = tile + (e / cols) * LD + e % cols;
+    *x = __float2bfloat16_rn(__bfloat162float(*x) * q_scale);
+  }
+}
 
 template <class Layout, bool DROPOUT>
 __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
@@ -549,7 +571,7 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
   constexpr int KT = T::kKeys;
   constexpr int NT = KT / 8;   // n8 key tiles of a tile
   constexpr int NKS = W / 16;  // k16 steps over W
-  constexpr int ND = W / 8;    // n8 tiles of out's columns
+  constexpr int ND = W / 8 / T::kColSplit;  // n8 tiles of the warp's out
   extern __shared__ float4 mma_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // (kRows, LD)
   bf16* kv_s = q_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
@@ -561,7 +583,8 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
   const int h = blockIdx.y;
   const int seq_len = lay.seq_len;
   const int i0 = blockIdx.x * T::kRows;
-  const int r0 = 16 * warp;  // the warp's rows in the block
+  const int r0 = 16 * (warp % 4);  // the warp's rows in the block
+  const int c0 = (warp / 4) * 8 * ND;  // the warp's first output column
   const bool active = i0 + r0 < seq_len;
   const size_t row = lay.in_row();
   const size_t head = lay.in_head(b, h);
@@ -580,15 +603,15 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
   cp_async_wait_all();
   __syncthreads();
   // q * q_scale rounded to bf16 in place, then each warp's q fragments
-  for (int e = threadIdx.x; e < T::kRows * DH; e += T::kThreads) {
-    bf16* x = q_s + (e / DH) * LD + e % DH;
-    *x = __float2bfloat16_rn(__bfloat162float(*x) * q_scale);
-  }
+  scale_rows_bf16<LD>(q_s, T::kRows, DH, q_scale, T::kThreads);
   __syncthreads();
-  uint32_t qa[NKS][4];
+  constexpr int NQA = T::kQInRegisters ? NKS : 1;
+  uint32_t qa[NQA][4];
+  if constexpr (T::kQInRegisters) {
 #pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) {
-    frag_a_bf16<LD>(qa[ks], q_s, r0, 16 * ks, lane);
+    for (int ks = 0; ks < NKS; ++ks) {
+      frag_a_bf16<LD>(qa[ks], q_s, r0, 16 * ks, lane);
+    }
   }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -621,12 +644,16 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < NKS; ++ks) {
+      if constexpr (!T::kQInRegisters) {
+        frag_a_bf16<LD>(qa[0], q_s, r0, 16 * ks, lane);
+      }
+      const uint32_t(&a)[4] = qa[T::kQInRegisters ? ks : 0];
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kb[4];
         frag_b_bf16_pair<LD>(kb, k_s, 16 * np, 16 * ks, lane);
-        mma_bf16(s[2 * np], qa[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+        mma_bf16(s[2 * np], a, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
       }
     }
     // -inf past S; the row max over the quad, and corr
@@ -677,7 +704,7 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
 #pragma unroll
       for (int kp = 0; kp < NT / 2; ++kp) {
         uint32_t vb[4];
-        frag_b_bf16_trans_pair<LD>(vb, v_s, 16 * kp, 16 * dp, lane);
+        frag_b_bf16_trans_pair<LD>(vb, v_s, 16 * kp, c0 + 16 * dp, lane);
         mma_bf16(pv[0], pa[kp], vb[0], vb[1]);
         mma_bf16(pv[1], pa[kp], vb[2], vb[3]);
       }
@@ -700,12 +727,487 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
     const int i = i0 + r0 + gr + 8 * r;
     if (i >= seq_len) continue;
     bf16* dst = out + lay.out_head(b, h) + static_cast<size_t>(i) *
-                lay.out_row() + 2 * tg;
+                lay.out_row() + c0 + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      if (c0 + 8 * dn >= DH) break;  // a pad column (Dh = 24)
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) = pack_bf16(
+          acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
+    }
+  }
+}
+
+// The backward in bf16 (MarScfConfig(compute_dtype="bfloat16"), training):
+// the fp32 pair's function and two-kernel design (a dq kernel with passes A
+// and B over the key tiles, writing (m, 1/l, D) to a float32 (B, H, S, 3)
+// scratch; a dK/dV kernel streaming query tiles past a block's keys) at
+// the JAX package's bf16 rounding points, `_bwd_kernel_proj` and
+// `_bwd_kernel_bh` (gpnf_tpu/ops/pallas/fused_attention.py) on bf16 qkv and
+// g: q * q_scale rounded to bf16 as the forward rounds it (q_scale the bf16
+// constant), so the scores, P and the mask are the forward's; the scores,
+// P, dP = keep dPd / (1 - rate) and D in float32; Pd rounded to bf16 for
+// dV = Pd^T g; dS = P (dP - D) rounded to bf16 for dq = dS K and
+// dK = dS^T (q scaled and rounded); every product summed in float32 on the
+// tensor cores (bf16 mma.sync.m16n8k16, mma_bf16.cuh) and rounded once. dq
+// leaves in one of the two recipes the wrapper names: times dq_scale in
+// float32 and rounded once (`_bwd_kernel_proj`, dq_scale = Dh^-1/2 in
+// float32), or rounded, then times the bf16 constant and rounded again
+// (`_bwd_kernel_bh`'s bf16 dq scaled by `_vjp_bwd_long`, dq_round_first).
+// dK, dV and dq are written in bf16 into the packed dqkv.
+//
+// dq kernel: a block per (64 queries, head, batch row), a warp per 16 query
+// rows; the block's q rows (scaled and rounded in place) and g rows sit in
+// shared memory, and each k16 step reads their A fragments by ldmatrix. K
+// and V stream in tiles of kKeys keys through a cp.async double buffer.
+// For a tile the warp computes S = q K^T and dPd = g V^T (K's and V's B
+// fragments by ldmatrix), and pass A keeps the online (m, l, D) as the
+// fp32 kernel does; pass B forms dS = P (dP - D) in the accumulators,
+// rounded and paired into the A fragments of dq += dS K (K's B fragments by
+// ldmatrix.trans), dq's sums kept in the accumulators across tiles.
+//
+// dK/dV kernel: a block per (32 keys, head, batch row), a pair of warps per
+// 16 keys, whose K and V rows sit in shared memory. Query tiles of q, g and
+// the stats stream by cp.async; each q tile is scaled and rounded in place
+// when it arrives. The even warp computes S^T = K q^T, the odd one
+// dPd^T = V g^T (16 keys x kQueries queries), both into the pair's float32
+// exchange tiles; the pair's 64 threads turn them into Pd and dS (one
+// Philox call for 4 keys of one query, the words of every other kernel);
+// then the even warp accumulates dV += Pd^T g and the odd one dK += dS^T q,
+// the exchange rows rounded and paired into A fragments, q's and g's B
+// fragments by ldmatrix.trans. Queries past S take P = 0.
+//
+// Tiles by width (W = Dh rounded up to 16; Dh 24 runs 32 wide, its pad
+// columns zeroed once and never copied or stored): dq's kKeys 64 / 32 / 16
+// and dK/dV's kQueries 64 / 32 / 16 at W 32 / 128 / 256, so that a
+// thread's accumulators (dq's W / 2 floats, and 2 kKeys / 4 of S and dPd)
+// stay in registers. Shared memory a block, dq / dK/dV: 30 / 45 KB at Dh
+// 24, 68 / 62 KB at 128, 99 / 72 KB at 256. Sums run in a fixed order and
+// each output element is written once: two calls give the same bits.
+//
+// What bounds them on the H100: at the flagship's level 0 (B 64, S 256, Dh
+// 24 run 32 wide, 4 heads) the five S x S x Dh products of the pair (the
+// scores and dPd twice in dq, dq, and S^T, dPd^T, dV, dK in dK/dV: 7 as
+// run) are 7 x 2 x 64 x 4 x 256^2 x 32 = 7.5 GFLOP, ~7.6 us at the dense
+// bf16 rate (989 TFLOP/s), and the bytes (qkv, g, dqkv in bf16 and the
+// stats: ~26 MB) ~7.8 us: about even. At the CLIs' C 512 (B 16, S 256,
+// Dh 128) 7.5 GFLOP and ~21 MB; at the 64-px level 0 (S 1024) 120 GFLOP,
+// ~121 us: operations.
+template <int DH>
+struct MmaDqBf16 {
+  static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
+  static constexpr int kLd = kWidth + kBf16Pad;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // queries a block
+  static constexpr int kKeys = kWidth <= 32 ? 64 : kWidth <= 128 ? 32 : 16;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * (2 * kRows + 2 * 2 * kKeys) * kLd;
+};
+
+template <int DH>
+struct MmaDkvBf16 {
+  static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
+  static constexpr int kLd = kWidth + kBf16Pad;
+  static constexpr int kPairs = 2;
+  static constexpr int kThreads = 64 * kPairs;
+  static constexpr int kKeys = 16 * kPairs;  // keys a block
+  // queries a tile
+  static constexpr int kQueries = kWidth <= 32 ? 64 : kWidth <= 128 ? 32 : 16;
+  static constexpr int kPad = kQueries + 8;  // an exchange row, in floats
+  static constexpr size_t kTileBytes =
+      sizeof(bf16) * (2 * kKeys + 2 * 2 * kQueries) * kLd;
+  static constexpr size_t kBytes =
+      kTileBytes + sizeof(float) * (2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
+};
+
+// Backward kernel 1 in bf16: dq, and (m, 1/l, D) of each query row into the
+// float32 stats (B, H, S, 3).
+template <class Layout, bool DROPOUT>
+__global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
+    attention_bf16_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                             const bf16* __restrict__ q_in,
+                             const bf16* __restrict__ k_in,
+                             const bf16* __restrict__ v_in,
+                             const bf16* __restrict__ g,
+                             bf16* __restrict__ dq_out,
+                             float* __restrict__ stats, float q_scale,
+                             float dq_scale, int dq_round_first,
+                             uint32_t threshold, float keep_scale) {
+  constexpr int DH = Layout::kHeadDim;
+  using T = MmaDqBf16<DH>;
+  constexpr int W = T::kWidth;
+  constexpr int LD = T::kLd;
+  constexpr int KT = T::kKeys;
+  constexpr int NT = KT / 8;   // n8 key tiles of a tile
+  constexpr int NKS = W / 16;  // k16 steps over W
+  constexpr int ND = W / 8;    // n8 tiles of dq's columns
+  extern __shared__ float4 mma_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // (kRows, LD), scaled
+  bf16* g_s = q_s + T::kRows * LD;
+  bf16* kv_s = g_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int seq_len = lay.seq_len;
+  const int i0 = blockIdx.x * T::kRows;
+  const int r0 = 16 * warp;  // the warp's rows in the block
+  const bool active = i0 + r0 < seq_len;
+  const size_t row = lay.in_row();
+  const size_t head = lay.in_head(b, h);
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nk = (seq_len + KT - 1) / KT;
+
+  if constexpr (W != DH) {
+    zero_shared(reinterpret_cast<float*>(q_s), T::kBytes / sizeof(float));
+  }
+  load_rows_bf16<DH, T::kRows, LD>(q_s, q_in + head, i0, seq_len, row,
+                                   T::kThreads);
+  load_rows_bf16<DH, T::kRows, LD>(g_s, g + lay.out_head(b, h), i0, seq_len,
+                                   lay.out_row(), T::kThreads);
+  load_rows_bf16<DH, KT, LD>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
+  load_rows_bf16<DH, KT, LD>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
+                             T::kThreads);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  scale_rows_bf16<LD>(q_s, T::kRows, DH, q_scale, T::kThreads);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float dsum[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, big_d[2] = {0.f, 0.f};
+  float dq[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn) {
+    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+  }
+  // tiles 0 .. nk - 1 are pass A, nk .. 2 nk - 1 pass B, over the same keys
+  for (int t = 0; t < 2 * nk; ++t) {
+    if (t > 0) cp_async_wait_all();
+    __syncthreads();  // tile t (and q scaled) is in; tile t - 1 is done
+    if (t + 1 < 2 * nk) {
+      const int jn = ((t + 1) % nk) * KT;
+      bf16* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
+      load_rows_bf16<DH, KT, LD>(next, k_in + head, jn, seq_len, row,
+                                 T::kThreads);
+      load_rows_bf16<DH, KT, LD>(next + KT * LD, v_in + head, jn, seq_len,
+                                 row, T::kThreads);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int j0 = (t % nk) * KT;
+    const bf16* k_s = kv_s + (t & 1) * 2 * KT * LD;
+    const bf16* v_s = k_s + KT * LD;
+
+    // S = q K^T and dPd = g V^T: the warp's 16 rows x the tile's KT keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      uint32_t qa[4], ga[4];
+      frag_a_bf16<LD>(qa, q_s, r0, 16 * ks, lane);
+      frag_a_bf16<LD>(ga, g_s, r0, 16 * ks, lane);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4], vb[4];
+        frag_b_bf16_pair<LD>(kb, k_s, 16 * np, 16 * ks, lane);
+        frag_b_bf16_pair<LD>(vb, v_s, 16 * np, 16 * ks, lane);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], ga, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
+      }
+    }
+    // -inf past S, and dP = keep * dPd / (1 - rate)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      if (DROPOUT) {
+        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j0 + 8 * n + 2 * tg + (e & 1) >= seq_len) s[n][e] = -INFINITY;
+        if (DROPOUT) {
+          dp[n][e] = bits[e] >= threshold ? dp[n][e] * keep_scale : 0.f;
+        }
+      }
+    }
+    if (t < nk) {
+      // pass A: the row max over the quad, then the thread's own sums,
+      // rescaled with m
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float corr = expf(m[r] - mx);
+        l[r] *= corr;
+        dsum[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float ex = expf(s[n][e] - mx);
+            l[r] += ex;
+            dsum[r] = fmaf(ex, dp[n][e], dsum[r]);
+          }
+        }
+        m[r] = mx;
+      }
+      if (t == nk - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+          lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+          float dt = dsum[r] + __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+          dt += __shfl_xor_sync(0xffffffffu, dt, 2);
+          inv_l[r] = 1.f / lt;
+          big_d[r] = dt * inv_l[r];
+        }
+      }
+      continue;
+    }
+    // pass B: dS = P (dP - D), rounded and paired into the A fragments of
+    // dq += dS K, 16 keys a k16 step
+#pragma unroll
+    for (int kp = 0; kp < NT / 2; ++kp) {
+      float d[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *
+                    (dp[2 * kp + x][e] - big_d[r]);
+        }
+      }
+      const uint32_t da[4] = {pack_bf16(d[0][0], d[0][1]),
+                              pack_bf16(d[0][2], d[0][3]),
+                              pack_bf16(d[1][0], d[1][1]),
+                              pack_bf16(d[1][2], d[1][3])};
+#pragma unroll
+      for (int dp2 = 0; dp2 < ND / 2; ++dp2) {
+        uint32_t kb[4];
+        frag_b_bf16_trans_pair<LD>(kb, k_s, 16 * kp, 16 * dp2, lane);
+        mma_bf16(dq[2 * dp2], da, kb[0], kb[1]);
+        mma_bf16(dq[2 * dp2 + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + r0 + gr + 8 * r;
+    if (i >= seq_len) continue;
+    bf16* dst = dq_out + head + static_cast<size_t>(i) * row + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn) {
       if (8 * dn >= DH) break;  // a pad column (Dh = 24)
-      *reinterpret_cast<uint32_t*>(dst + 8 * dn) = pack_bf16(
-          acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
+      float x = dq[dn][2 * r], y = dq[dn][2 * r + 1];
+      if (dq_round_first) {
+        x = __bfloat162float(__float2bfloat16_rn(x));
+        y = __bfloat162float(__float2bfloat16_rn(y));
+      }
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
+          pack_bf16(x * dq_scale, y * dq_scale);
+    }
+    if (tg == 0) {
+      float* st =
+          stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + i) * 3;
+      st[0] = m[r];
+      st[1] = inv_l[r];
+      st[2] = big_d[r];
+    }
+  }
+}
+
+// Backward kernel 2 in bf16: dK and dV.
+template <class Layout, bool DROPOUT>
+__global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
+    attention_bf16_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
+                              const bf16* __restrict__ q_in,
+                              const bf16* __restrict__ k_in,
+                              const bf16* __restrict__ v_in,
+                              const bf16* __restrict__ g,
+                              const float* __restrict__ stats,
+                              bf16* __restrict__ dk_out,
+                              bf16* __restrict__ dv_out, float q_scale,
+                              uint32_t threshold, float keep_scale) {
+  constexpr int DH = Layout::kHeadDim;
+  using T = MmaDkvBf16<DH>;
+  constexpr int W = T::kWidth;
+  constexpr int LD = T::kLd;
+  constexpr int QT = T::kQueries;
+  constexpr int NQ = QT / 8;   // n8 query tiles of a tile
+  constexpr int NKS = W / 16;  // k16 steps over W
+  constexpr int ND = W / 8;    // n8 tiles of dK's and dV's columns
+  constexpr int XP = T::kPad;
+  extern __shared__ float4 mma_smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // (kKeys, LD)
+  bf16* v_s = k_s + T::kKeys * LD;
+  bf16* qg_s = v_s + T::kKeys * LD;  // stage st: q, then g, at 2 st QT LD
+  float* st_s = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(mma_smem) + T::kTileBytes);  // 3 st QT
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int tg = lane & 3;
+  const int pair = warp >> 1;
+  const int role = warp & 1;  // 0: S^T and dV, 1: dPd^T and dK
+  float* xs = st_s + 2 * 3 * QT + pair * 2 * 16 * XP;  // S^T, then Pd^T
+  float* xd = xs + 16 * XP;                            // dPd^T, then dS^T
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int seq_len = lay.seq_len;
+  const int k0 = blockIdx.x * T::kKeys + 16 * pair;  // the pair's first key
+  const int kr0 = 16 * pair;
+  const bool active = k0 < seq_len;
+  const size_t row = lay.in_row();
+  const size_t head = lay.in_head(b, h);
+  const bf16* g_head = g + lay.out_head(b, h);
+  const float* st_head =
+      stats + (static_cast<size_t>(b) * lay.heads + h) * seq_len * 3;
+  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const int nq = (seq_len + QT - 1) / QT;
+  const int n_st = 3 * seq_len;
+
+  const int kb0 = blockIdx.x * T::kKeys;
+  if constexpr (W != DH) {
+    zero_shared(reinterpret_cast<float*>(mma_smem), T::kBytes / sizeof(float));
+  }
+  load_rows_bf16<DH, T::kKeys, LD>(k_s, k_in + head, kb0, seq_len, row,
+                                   T::kThreads);
+  load_rows_bf16<DH, T::kKeys, LD>(v_s, v_in + head, kb0, seq_len, row,
+                                   T::kThreads);
+  auto load_tile_async = [&](int i0, int stage) {
+    bf16* q_t = qg_s + stage * 2 * QT * LD;
+    load_rows_bf16<DH, QT, LD>(q_t, q_in + head, i0, seq_len, row,
+                               T::kThreads);
+    load_rows_bf16<DH, QT, LD>(q_t + QT * LD, g_head, i0, seq_len,
+                               lay.out_row(), T::kThreads);
+    for (int e = threadIdx.x; e < 3 * QT; e += T::kThreads) {
+      const bool valid = 3 * i0 + e < n_st;
+      cp_async4(st_s + stage * 3 * QT + e, st_head + (valid ? 3 * i0 + e : 0),
+                valid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async(0, 0);
+
+  float acc[ND][4];  // dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn) {
+    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  }
+  const bf16* a_s = role ? v_s : k_s;  // the rows of the first product's A
+  float* x_own = role ? xd : xs;
+  for (int t = 0; t < nq; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < nq) load_tile_async((t + 1) * QT, (t + 1) & 1);
+    bf16* q_t = qg_s + (t & 1) * 2 * QT * LD;
+    scale_rows_bf16<LD>(q_t, QT, DH, q_scale, T::kThreads);
+    __syncthreads();  // q scaled and rounded
+    if (!active) continue;
+    const int i0 = t * QT;
+    const bf16* g_t = q_t + QT * LD;
+    const float* st = st_s + (t & 1) * 3 * QT;
+
+    // S^T = K q^T (even warp) or dPd^T = V g^T (odd): 16 keys x QT queries
+    {
+      const bf16* b_s = role ? g_t : q_t;
+      float x[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < NKS; ++ks) {
+        uint32_t fa[4];
+        frag_a_bf16<LD>(fa, a_s, kr0, 16 * ks, lane);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t fb[4];
+          frag_b_bf16_pair<LD>(fb, b_s, 16 * np, 16 * ks, lane);
+          mma_bf16(x[2 * np], fa, fb[0], fb[1]);
+          mma_bf16(x[2 * np + 1], fa, fb[2], fb[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        *reinterpret_cast<float2*>(x_own + gr * XP + 8 * n + 2 * tg) =
+            make_float2(x[n][0], x[n][1]);
+        *reinterpret_cast<float2*>(x_own + (gr + 8) * XP + 8 * n + 2 * tg) =
+            make_float2(x[n][2], x[n][3]);
+      }
+    }
+    pair_sync<T::kPairs>(pair);
+    // Pd = keep P / (1 - rate) and dS = P (dP - D): one Philox call for the
+    // 4 keys of a quad and one query
+    for (int u = 32 * role + lane; u < 4 * QT; u += 64) {
+      const int qi = u % QT;
+      const int quad = u / QT;
+      const int i = i0 + qi;
+      const float mi = st[3 * qi], li = st[3 * qi + 1], di = st[3 * qi + 2];
+      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, i, k0 / 4 + quad);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int at = (4 * quad + r) * XP + qi;
+        const bool live = i < seq_len && k0 + 4 * quad + r < seq_len;
+        const float p = live ? expf(xs[at] - mi) * li : 0.f;
+        float pd = p, dpv = xd[at];
+        if (DROPOUT) {
+          const bool keep = philox_word(bits, r) >= threshold;
+          pd = keep ? p * keep_scale : 0.f;
+          dpv = keep ? dpv * keep_scale : 0.f;
+        }
+        xs[at] = pd;
+        xd[at] = p * (dpv - di);
+      }
+    }
+    pair_sync<T::kPairs>(pair);
+    // dV += Pd^T g (even warp) or dK += dS^T q (odd), 16 queries a k16 step
+    const bf16* b2 = role ? q_t : g_t;
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const float* top = x_own + gr * XP + 16 * kk + 2 * tg;
+      const float* bot = top + 8 * XP;
+      const float2 a0 = *reinterpret_cast<const float2*>(top);
+      const float2 a1 = *reinterpret_cast<const float2*>(bot);
+      const float2 a2 = *reinterpret_cast<const float2*>(top + 8);
+      const float2 a3 = *reinterpret_cast<const float2*>(bot + 8);
+      const uint32_t fa[4] = {pack_bf16(a0.x, a0.y), pack_bf16(a1.x, a1.y),
+                              pack_bf16(a2.x, a2.y), pack_bf16(a3.x, a3.y)};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t fb[4];
+        frag_b_bf16_trans_pair<LD>(fb, b2, 16 * kk, 16 * dp, lane);
+        mma_bf16(acc[2 * dp], fa, fb[0], fb[1]);
+        mma_bf16(acc[2 * dp + 1], fa, fb[2], fb[3]);
+      }
+    }
+  }
+  if (!active) return;
+  bf16* out = role ? dk_out : dv_out;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + gr + 8 * r;
+    if (j >= seq_len) continue;
+    bf16* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn) {
+      if (8 * dn >= DH) break;  // a pad column (Dh = 24)
+      *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
+          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
     }
   }
 }
@@ -1221,6 +1723,45 @@ cudaError_t attention_tiled_fwd_bf16(Layout lay, int batch, const int* seed,
                      : &attention_bf16_fwd_kernel<Layout, false>;
   return launch_dynamic(kernel, grid, T::kThreads, T::kBytes, stream, lay,
                         seed, q, k, v, out, q_scale, threshold, keep_scale);
+}
+
+// The bf16 backward of one layout (Dh 24, 128 or 256): the dq and dK/dV
+// kernels, two launches; stats is float32. cp.async copies 16-byte chunks,
+// so q, k, v and g must start 16-byte aligned.
+template <class Layout>
+cudaError_t attention_tiled_bwd_bf16(Layout lay, int batch, const int* seed,
+                                     const bf16* q, const bf16* k,
+                                     const bf16* v, const bf16* g, bf16* dq,
+                                     bf16* dk, bf16* dv, float* stats,
+                                     float q_scale, float dq_scale,
+                                     int dq_round_first, uint32_t threshold,
+                                     float keep_scale, cudaStream_t stream) {
+  constexpr int DH = Layout::kHeadDim;
+  using Q = MmaDqBf16<DH>;
+  using KV = MmaDkvBf16<DH>;
+  for (const bf16* p : {q, k, v, g}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
+  }
+  const dim3 dq_grid((lay.seq_len + Q::kRows - 1) / Q::kRows, lay.heads,
+                     batch);
+  auto* dq_kernel = threshold > 0 ? &attention_bf16_dq_kernel<Layout, true>
+                                  : &attention_bf16_dq_kernel<Layout, false>;
+  cudaError_t err =
+      launch_dynamic(dq_kernel, dq_grid, Q::kThreads, Q::kBytes, stream, lay,
+                     seed, q, k, v, g, dq, stats, q_scale, dq_scale,
+                     dq_round_first, threshold, keep_scale);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid((lay.seq_len + KV::kKeys - 1) / KV::kKeys, lay.heads,
+                     batch);
+  auto* dkv_kernel = threshold > 0
+                         ? &attention_bf16_dkv_kernel<Layout, true>
+                         : &attention_bf16_dkv_kernel<Layout, false>;
+  return launch_dynamic(dkv_kernel, kv_grid, KV::kThreads, KV::kBytes, stream,
+                        lay, seed, q, k, v, g,
+                        static_cast<const float*>(stats), dk, dv, q_scale,
+                        threshold, keep_scale);
 }
 
 // dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] from (seed, qkv, g);

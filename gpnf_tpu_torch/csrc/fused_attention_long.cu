@@ -68,8 +68,8 @@ extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
 
 // The same in bf16 (qkv and out bf16), q * q_scale rounded to bf16:
 // attention_tiled.cuh's `attention_bf16_fwd_kernel`, at the head widths
-// built in bf16, 24 and 128 (the wrappers' BF16_HEAD_DIMS);
-// cudaErrorInvalidValue at any other.
+// built in bf16, 24, 128 and 256 (the wrappers' BF16_HEAD_DIMS, which pad
+// every other width to one of them); cudaErrorInvalidValue at any other.
 extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
                                             void* out, int batch, int seq_len,
                                             int channels, int heads,
@@ -92,6 +92,46 @@ extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
     case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));
     case 128:
       return static_cast<int>(run(gpnf::PackedQkv<128>{seq_len, heads}));
+    case 256:
+      return static_cast<int>(run(gpnf::PackedQkv<256>{seq_len, heads}));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward in bf16: dqkv (B, S, 3C, bf16) packed [dK | dV | dq] from
+// (seed, qkv, g), all bf16, q scaled by the bf16 constant q_scale as the
+// forward scales it; stats is the caller's float32 (B, H, S, 3) scratch.
+// dq leaves as dS K times dq_scale rounded once, or, with dq_round_first,
+// rounded first and then times dq_scale (the bf16 constant) and rounded
+// again: attention_tiled.cuh's `attention_bf16_dq_kernel` and
+// `attention_bf16_dkv_kernel`, at the widths built in bf16 (24, 128, 256);
+// cudaErrorInvalidValue at any other.
+extern "C" int gpnf_attention_long_bwd_bf16(
+    const int* seed, const void* qkv, const void* g, void* dqkv, float* stats,
+    int batch, int seq_len, int channels, int heads, float q_scale,
+    float dq_scale, int dq_round_first, uint32_t threshold, float keep_scale,
+    void* stream) {
+  using gpnf::bf16;
+  if (heads <= 0 || channels % heads != 0 ||
+      !gpnf::attention_args_ok(batch, seq_len, heads, channels / heads,
+                               kMaxSeqLen, seed, threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* out = static_cast<bf16*>(dqkv);
+  auto run = [&](auto lay) {
+    return gpnf::attention_tiled_bwd_bf16(
+        lay, batch, seed, in + 2 * channels, in, in + channels,
+        static_cast<const bf16*>(g), out + 2 * channels, out, out + channels,
+        stats, q_scale, dq_scale, dq_round_first, threshold, keep_scale,
+        static_cast<cudaStream_t>(stream));
+  };
+  switch (channels / heads) {
+    case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));
+    case 128:
+      return static_cast<int>(run(gpnf::PackedQkv<128>{seq_len, heads}));
+    case 256:
+      return static_cast<int>(run(gpnf::PackedQkv<256>{seq_len, heads}));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // bf16 tensor-core products and the shared-memory fragment loads of the
-// bf16 kernels: the qkv projection GEMM (attention_gemm.cu) and the
-// attention forward (attention_tiled.cuh), which serve the flagship under
+// bf16 kernels: the GEMM of the projection and of dseq and dW
+// (attention_gemm.cu) and the attention forward, dq and dK/dV kernels
+// (attention_tiled.cuh), which serve and train the flagship under
 // MarScfConfig(compute_dtype="bfloat16").
 //
 // The product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: bf16
@@ -20,10 +21,10 @@
 // Tiles live in shared memory as rows of W bf16 values padded to LD = W + 8
 // (16 bytes more), W a multiple of 16. `ldmatrix` reads four 8 x 8 blocks
 // in four phases of 8 row addresses, 16 bytes each; a row starts at 2 LD r
-// bytes, and 2 LD / 16 = W / 8 + 1 is odd at W = 32 and 128 (LD 40 and
-// 136), so the 8 rows of a phase fall in 8 distinct 16-byte groups of the 32
-// banks: no fragment load conflicts (tests/test_torch_bf16_mma.py counts the
-// banks of every load).
+// bytes, and 2 LD / 16 = W / 8 + 1 is odd for every W that is a multiple of
+// 16 (W = 32, 64, 128, 256: LD 40, 72, 136, 264), so the 8 rows of a phase
+// fall in 8 distinct 16-byte groups of the 32 banks: no fragment load
+// conflicts (tests/test_torch_bf16_mma.py counts the banks of every load).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +78,18 @@ template <int LD>
 __device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4], const bf16* tile,
                                             int r0, int c0, int lane) {
   ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LD + c0 + ((lane >> 4) << 3));
+}
+
+// The A fragment of rows m0 .. m0 + 15, columns k0 .. k0 + 15 of A read
+// from a tile that holds A transposed, rows along k and columns along m, by
+// ldmatrix.trans (blocks: k0 .. k0 + 7 of columns m0, then m0 + 8, then
+// k0 + 8 .. k0 + 15 of each).
+template <int LD>
+__device__ __forceinline__ void frag_a_bf16_trans(uint32_t (&a)[4],
+                                                  const bf16* tile, int k0,
+                                                  int m0, int lane) {
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           m0 + (((lane >> 3) & 1) << 3));
 }
 
 // The B fragments of two n8 tiles read from rows n0 .. n0 + 15 (n) and

@@ -30,10 +30,11 @@ the JAX package's: in bfloat16 the MixLogCDF coupling nets run in bf16
 log-likelihood, while the flow's actnorms, invertible convolutions and
 attentions, the mixture head and its kernels, every log-det and the prior's
 sampling stay float32. Parameters are float32 under either dtype. The bf16
-path serves (eval bits/dim, sampling) on the card; its backward kernels are
-not ported yet, so a bf16 model's first backward on the card raises, naming
-the kernel. `fused_gated_conv` runs float32 only, and a bfloat16 config
-with it is refused.
+path serves (eval bits/dim, sampling) and trains on the card: the
+attention's forward and backward run bf16 kernels at every head width, and
+parameters, the Adamax state, the loss and every log-det stay float32.
+`fused_gated_conv` runs float32 only, and a bfloat16 config with it is
+refused.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
 from .cholesky import cholesky, cholesky_device_launches, cholesky_plain
-from .fused_attention import (attention_dseq_gemm, attention_dw_gemm,
+from .fused_attention import (attention_bwd_bf16, attention_dseq_gemm,
+                              attention_dseq_gemm_bf16, attention_dw_gemm,
+                              attention_dw_gemm_bf16,
                               attention_fwd_bf16, attention_lanes,
                               attention_lanes_bwd,
                               attention_long_plain, attention_long_plain_bwd,
@@ -33,7 +35,9 @@ KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            fused_gated_conv_bwd, fused_attention, fused_attention_bwd,
            fused_attention_qkv, fused_attention_qkv_bwd, attention_lanes,
            attention_lanes_bwd, attention_qkv_gemm, attention_dseq_gemm,
-           attention_dw_gemm, attention_qkv_gemm_bf16, attention_fwd_bf16)
+           attention_dw_gemm, attention_qkv_gemm_bf16, attention_fwd_bf16,
+           attention_bwd_bf16, attention_dseq_gemm_bf16,
+           attention_dw_gemm_bf16)
 
 
 def reset_launch_counts() -> None:

@@ -41,6 +41,8 @@ SIGNATURES = {
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_fwd_bf16": [_P] * 3 + [_I] * 4 + [_F, _U, _F,
                                                                _P],
+        "gpnf_attention_long_bwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I,
+                                                               _U, _F, _P],
     },
     "mixlogcdf_forward": {
         "gpnf_mixlogcdf_forward": [_P] * 8 + [_I, _I, _I, _P],
@@ -75,7 +77,7 @@ SIGNATURES = {
     },
     "attention_gemm": {
         "gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],
-        "gpnf_attention_gemm_bf16": [_P] * 3 + [_I] * 3 + [_P],
+        "gpnf_attention_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

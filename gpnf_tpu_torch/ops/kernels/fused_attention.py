@@ -52,20 +52,30 @@ header says what bounds its kernels on the H100 and how they are laid
 out. The wrappers run the plain versions for CPU tensors, and the tests
 and chip_smoke.py hold the kernels against them.
 
-bfloat16 (MarScfConfig(compute_dtype="bfloat16"), serving): the forward
-entries take bf16 operands at the head widths BF16_HEAD_DIMS (the
-flagship's 24, the CLIs' --C 512's 128) and run the qkv GEMM and the
-tensor-core forward in bf16 mma.sync (`attention_qkv_gemm_bf16`,
-`attention_fwd_bf16` count those launches): qkv = seq w^T summed in
-float32 and rounded once; q * Dh^-1/2 rounded to bf16, the scale itself a
-bf16 constant, as in the JAX package's bf16 `q * dh ** -0.5`; scores,
-softmax and dropout in float32; P rounded to bf16 for PV, summed in
-float32; the output rounded once. The plain versions round at the JAX
-package's points (`bf16_matmul`: the float32 product of the bf16 values,
-rounded once, whatever cuBLAS's reduction switches say); the kernel rounds
-the unnormalised exp(s - m) where the JAX package rounds the normalised
-p. The backward wrappers and the dseq / dW GEMMs refuse bf16 on the card:
-their bf16 kernels come with the training slice.
+bfloat16 (MarScfConfig(compute_dtype="bfloat16"), serving and training):
+the proj and long entries, their forward and backward, take bf16 operands
+at every head width in HEAD_DIMS and run bf16 mma.sync kernels: one GEMM
+for qkv, dseq and dW (`attention_qkv_gemm_bf16`,
+`attention_dseq_gemm_bf16`, `attention_dw_gemm_bf16` count its launches),
+the tensor-core forward (`attention_fwd_bf16`) and the dq and dK/dV pair
+(`attention_bwd_bf16`), built at the widths BF16_HEAD_DIMS (the
+flagship's 24, the CLIs' --C 512's 128, and 256); every other width is
+zero-padded to the next of them (`padded_head_dim`), q scaled by the
+true width's constant. They round where the JAX package's bf16 kernels
+round: qkv = seq w^T summed in float32 and rounded once; q * Dh^-1/2
+rounded to bf16, the scale itself a bf16 constant, as in the JAX package's
+bf16 `q * dh ** -0.5`; scores, softmax and dropout in float32; P rounded to
+bf16 for PV, summed in float32; the output rounded once. Backward
+(`_bwd_kernel_proj`, `_bwd_kernel_bh`): Pd rounded for dV, dS rounded for
+dq and dK, dK from the rounded, scaled q, dqkv written in bf16; dq scaled
+by Dh^-1/2 in float32 and rounded once on the proj entry, rounded and then
+scaled in bf16 on the long one (`_vjp_bwd_long`); dseq the float32 sums of
+dqkv w rounded once, dW summed in float32 and rounded to w's dtype. The
+plain versions round at the JAX package's points (`bf16_matmul`: the
+float32 product of the bf16 values, rounded once, whatever cuBLAS's
+reduction switches say); the forward kernel rounds the unnormalised
+exp(s - m) where the JAX package rounds the normalised p. No bf16 path
+detours through float32 kernels; the core entries take float32 only.
 
 Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
 Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
@@ -91,9 +101,9 @@ MAX_S = 512  # above this the JAX package switches to fused_attention_long
 MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
 # Dh values the key-tiled kernels are built for, each on the tensor cores
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
-# the widths of the bf16 tensor-core forward: the flagship's Dh 24 (C 96, 4
-# heads) and the CLIs' default --C 512's Dh 128
-BF16_HEAD_DIMS = (24, 128)
+# the widths the bf16 kernels are built for: the flagship's Dh 24 (C 96, 4
+# heads), the CLIs' default --C 512's Dh 128, and 256; the others pad to them
+BF16_HEAD_DIMS = (24, 128, 256)
 LANE_SPLIT_DIMS = (128, 256)
 # the proj route's rule, the fit of the fused forward kernel it was drawn
 # for (fused_attention_proj.cu, since replaced by the forward's stages): its
@@ -112,8 +122,6 @@ GEMM_KC = 32
 # the blocks `gemm_splits` aims at with small tiles: 2 for each of the
 # H100's 132 SMs
 GEMM_BLOCKS = 2 * 132
-# the bf16 GEMM copies K in 16-byte chunks of 8 values
-BF16_GEMM_ALIGN = 8
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -192,14 +200,16 @@ class AttentionRoute(NamedTuple):
     kernel_head_dim: int
 
 
-def padded_head_dim(head_dim: int) -> int:
-    """The narrowest width in HEAD_DIMS that holds `head_dim`."""
-    for width in HEAD_DIMS:
+def padded_head_dim(head_dim: int, widths=HEAD_DIMS) -> int:
+    """The narrowest of `widths` that holds `head_dim`: HEAD_DIMS, the
+    float32 kernels' widths, or BF16_HEAD_DIMS, where Dh 4, 8, 16 and 24 run
+    24 wide and 32 to 128 run 128 wide."""
+    for width in widths:
         if width >= head_dim:
             return width
-    raise ValueError(f"head width {head_dim} > {HEAD_DIMS[-1]}, the widest "
+    raise ValueError(f"head width {head_dim} > {widths[-1]}, the widest "
                      f"the attention kernels are built for (C > "
-                     f"{4 * HEAD_DIMS[-1]} with 4 heads)")
+                     f"{4 * widths[-1]} with 4 heads)")
 
 
 def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
@@ -211,8 +221,8 @@ def proj_shared_floats(seq_len: int, channels: int, head_dim: int) -> int:
     return 3 * head_dim * cp + PROJ_ROWS * cp + 3 * seq_len * head_dim
 
 
-def attention_route(seq_len: int, channels: int,
-                    num_heads: int) -> AttentionRoute:
+def attention_route(seq_len: int, channels: int, num_heads: int,
+                    dtype: torch.dtype = torch.float32) -> AttentionRoute:
     """Which entry computes GatedAttn's attention for S = seq_len, C =
     channels: the proj entry where the head width is one of
     PROJ_HEAD_DIMS, S <= MAX_S and the fused forward kernel the route was
@@ -222,7 +232,8 @@ def attention_route(seq_len: int, channels: int,
     stays so that every shape keeps its entry, its padding and its bits
     (folding the two routes is left for later). Decided from the shape
     alone, before any launch; raises for S > MAX_S_LONG or a head width
-    above 256."""
+    above 256. In bfloat16 both entries run the heads zero-padded to the
+    next of BF16_HEAD_DIMS, and `kernel_head_dim` says that width."""
     if channels % num_heads:
         raise ValueError(f"C={channels} is not a multiple of {num_heads} "
                          f"heads")
@@ -231,9 +242,12 @@ def attention_route(seq_len: int, channels: int,
                          f"kernels' range")
     dh = channels // num_heads
     fits = proj_shared_floats(seq_len, channels, dh) <= PROJ_SHARED_FLOATS
+    bf16 = dtype == torch.bfloat16
     if dh in PROJ_HEAD_DIMS and seq_len <= MAX_S and fits:
-        return AttentionRoute("proj", dh, dh)
-    return AttentionRoute("wide", dh, padded_head_dim(dh))
+        return AttentionRoute(
+            "proj", dh, padded_head_dim(dh, BF16_HEAD_DIMS) if bf16 else dh)
+    return AttentionRoute("wide", dh, padded_head_dim(
+        dh, BF16_HEAD_DIMS if bf16 else HEAD_DIMS))
 
 
 def bf16_scale(x: float) -> float:
@@ -322,11 +336,19 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, rate: float = 0.0,
-                        seed: Optional[torch.Tensor] = None):
+                        seed: Optional[torch.Tensor] = None,
+                        dq_scale: Optional[float] = None):
     """(dq, dk, dv) of `attention_plain` for the cotangent g (B, H, S, Dh),
     by the formulas of the JAX module's docstring:
         dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
-        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q"""
+        dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q
+    bf16 operands (`_bwd_kernel_bh`'s rounding points): P, dP and dS in
+    float32, Pd rounded to bf16 for dV, dS rounded to bf16 for dQ and dK,
+    each product summed in float32 and rounded once; with `dq_scale` dQ is
+    multiplied by it in float32 before its rounding (`_bwd_kernel_proj`).
+    float32 operands ignore `dq_scale`."""
+    if q.dtype == torch.bfloat16:
+        return _attention_plain_bwd_bf16(q, k, v, g, rate, seed, dq_scale)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     dpd = torch.matmul(g, v.transpose(-1, -2))
     if rate > 0.0:
@@ -339,6 +361,25 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.matmul(pd.transpose(-1, -2), g)
     ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
     return torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q), dv
+
+
+def _attention_plain_bwd_bf16(q, k, v, g, rate, seed, dq_scale):
+    """`attention_plain_bwd` on bf16 q (already scaled), k, v, g."""
+    low = torch.bfloat16
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)), -1)
+    dpd = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    if rate > 0.0:
+        b, h, s, _ = q.shape
+        keep = dropout_keep_plain(seed, b, h, s, rate)
+        pd = torch.where(keep, p / (1.0 - rate), 0.0)
+        dp = torch.where(keep, dpd / (1.0 - rate), 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = bf16_matmul(pd.to(low).transpose(-1, -2), g)
+    ds = (p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))).to(low)
+    dq = torch.matmul(ds.float(), k.float())
+    dq = (dq if dq_scale is None else dq * np.float32(dq_scale)).to(low)
+    return dq, bf16_matmul(ds.transpose(-1, -2), q), dv
 
 
 def attention_long_plain(qkv: torch.Tensor, num_heads: int,
@@ -357,24 +398,49 @@ def attention_long_plain(qkv: torch.Tensor, num_heads: int,
 def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
                              num_heads: int, rate: float = 0.0,
                              seed: Optional[torch.Tensor] = None,
-                             q_scale: Optional[float] = None) -> torch.Tensor:
+                             q_scale: Optional[float] = None,
+                             scale_dq_in_fp32: bool = False) -> torch.Tensor:
     """dqkv (B, S, 3C), packed [dK | dV | dq * q_scale], of
     `attention_long_plain` for the cotangent g (B, S, C), by
-    `attention_plain_bwd` on the heads."""
+    `attention_plain_bwd` on the heads. bf16: q scaled as the forward
+    scales it (`_split_qkv`), and dq either rounded and then scaled in bf16
+    by the bf16 constant (`_vjp_bwd_long` on `_bwd_kernel_bh`'s dq, the
+    default) or, with `scale_dq_in_fp32`, scaled by q_scale in float32 and
+    rounded once (`_bwd_kernel_proj`)."""
     b, s, c3 = qkv.shape
     dh = c3 // 3 // num_heads
     if q_scale is None:
         q_scale = dh ** -0.5
     k, v, q = _split_qkv(qkv, num_heads, q_scale)
     gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
-    dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed)
-    return torch.cat([_merge_heads(dk), _merge_heads(dv),
-                      _merge_heads(dq * q_scale)], dim=-1)
+    low = qkv.dtype == torch.bfloat16
+    in_fp32 = low and scale_dq_in_fp32
+    dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed,
+                                     q_scale if in_fp32 else None)
+    if low and not in_fp32:
+        dq = (dq.float() * bf16_scale(q_scale)).to(torch.bfloat16)
+    elif not low:
+        dq = dq * q_scale
+    return torch.cat([_merge_heads(dk), _merge_heads(dv), _merge_heads(dq)],
+                     dim=-1)
 
 
 def _project_bwd(dqkv, seq, w):
-    """(dseq, dW) of qkv = seq w^T for the cotangent dqkv."""
-    return torch.matmul(dqkv, w), torch.einsum("bso,bsc->oc", dqkv, seq)
+    """(dseq, dW) of qkv = seq w^T for the cotangent dqkv. bf16: dseq the
+    float32 sums rounded once (`bf16_matmul`), dW summed in float32 and
+    rounded to w's dtype (`_vjp_bwd_proj`, `_vjp_bwd_long`)."""
+    if dqkv.dtype == torch.bfloat16:
+        return bf16_matmul(dqkv, w), dw_plain(dqkv, seq).to(w.dtype)
+    return torch.matmul(dqkv, w), dw_plain(dqkv, seq)
+
+
+def dw_plain(dqkv: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """dW = dqkv^T seq summed over (B, S): torch.einsum in the operands'
+    float32 or float64, and in float32 for bf16 operands (the JAX
+    package's dW, summed in float32 before its rounding to w's dtype)."""
+    if dqkv.dtype == torch.bfloat16:
+        dqkv, seq = dqkv.float(), seq.float()
+    return torch.einsum("bso,bsc->oc", dqkv, seq)
 
 
 def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
@@ -387,10 +453,11 @@ def attention_proj_plain(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
 def attention_proj_plain_bwd(seq, w, g, num_heads: int, rate: float = 0.0,
                              seed: Optional[torch.Tensor] = None):
     """(dseq, dW) of `attention_proj_plain` for the cotangent g (B, S, C):
-    dqkv as `attention_long_plain_bwd`, then dseq = dqkv w and
+    dqkv as `attention_long_plain_bwd` (in bf16 with `_bwd_kernel_proj`'s
+    dq, scaled in float32 and rounded once), then dseq = dqkv w and
     dW = dqkv^T seq."""
-    dqkv = attention_long_plain_bwd(torch.matmul(seq, w.t()), g, num_heads,
-                                    rate, seed)
+    dqkv = attention_long_plain_bwd(qkv_plain(seq, w), g, num_heads, rate,
+                                    seed, scale_dq_in_fp32=True)
     return _project_bwd(dqkv, seq, w)
 
 
@@ -437,23 +504,12 @@ def _aligned(*tensors):
     return out
 
 
-def _refuse_bf16(kernel, **tensors):
-    """Raise for a bf16 operand of a kernel that has no bf16 instantiation."""
-    for arg, t in tensors.items():
-        if t.dtype == torch.bfloat16:
-            raise TypeError(
-                f"{kernel}: '{arg}' is bfloat16, and this kernel is built in "
-                f"float32 only: in bf16 the port serves (the qkv GEMM and the "
-                f"attention forward); the bf16 backward kernels (dq, dK/dV, "
-                f"dseq, dW) come with the training slice (ROADMAP C.2)")
-
-
 def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
                head_dims=HEAD_DIMS, bf16=False, **tensors):
-    """The kernel's own limits (S, head width, float32, or bf16 at
-    BF16_HEAD_DIMS where the entry has a bf16 kernel, `bf16`; one dtype for
-    every operand), then device and layout; returns (device, seed pointer,
-    threshold, keep scale)."""
+    """The kernel's own limits (S, head width, float32, or bf16 where the
+    entry has bf16 kernels, `bf16`; one dtype for every operand), then
+    device and layout; returns (device, seed pointer, threshold, keep
+    scale)."""
     if seq_len > max_s:
         raise ValueError(f"{kernel}: S={seq_len} > {max_s}, beyond the "
                          f"kernel's range")
@@ -462,8 +518,6 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
                          f"{head_dims}, the widths the kernel is built for "
                          f"(fused_attention_long, GatedAttn's wide route, "
                          f"pads any width up to {HEAD_DIMS[-1]})")
-    if not bf16:
-        _refuse_bf16(kernel, **tensors)
     dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
     dtype = next(iter(tensors.values())).dtype
     for arg, t in tensors.items():
@@ -471,9 +525,6 @@ def _cuda_args(kernel, seq_len, head_dim, max_s, rate, seed,
             raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, the "
                             f"kernel takes {' or '.join(map(str, dtypes))}, "
                             f"one dtype for every operand")
-    if dtype == torch.bfloat16 and head_dim not in BF16_HEAD_DIMS:
-        raise ValueError(f"{kernel}: head width {head_dim} is not built in "
-                         f"bfloat16; the bf16 widths are {BF16_HEAD_DIMS}")
     device = _native.check_cuda_inputs(kernel, dtypes=dtypes, **tensors)
     if rate == 0.0:
         return device, None, 0, 1.0
@@ -544,7 +595,7 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
     if all(t.device.type == "cpu" for t in (seq, w, g)):
         return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
     _proj_cuda_args("fused_attention_proj_bwd", seq, w, num_heads, rate,
-                    seed, g=g)  # the checks; the stages launch
+                    seed, bf16=True, g=g)  # the checks; the stages launch
     dseq, dw = _proj_bwd_stages(seq, w, g, num_heads, rate, seed)
     fused_attention_proj_bwd.launches += 1
     return dseq, dw
@@ -554,13 +605,16 @@ def _proj_bwd_stages(seq, w, g, num_heads, rate, seed):
     """`_bwd_kernel_proj`'s work in three stages, each across the whole
     batch: qkv = seq w^T recomputed (`attention_qkv_gemm`); dqkv by the
     tensor-core dq and dK/dV kernels (`attention_long_qkv_bwd`, with the
-    forward kernel's q scale, 1.f / sqrtf(Dh), and so its scores and its
-    mask); then dseq = dqkv w and dW = dqkv^T seq (`attention_dseq_gemm`,
-    `attention_dw_gemm`, K split where few output tiles meet a long K).
-    CPU tensors take each wrapper's plain version."""
+    forward's q scale, 1.f / sqrtf(Dh) in float32 and the bf16 constant in
+    bf16, and so its scores and its mask; in bf16 dq scaled in float32 and
+    rounded once); then dseq = dqkv w and dW = dqkv^T seq
+    (`attention_dseq_gemm`, `attention_dw_gemm`, K split where few output
+    tiles meet a long K; dW rounded to w's dtype). CPU tensors take each
+    wrapper's plain version."""
     dqkv = attention_long_qkv_bwd(attention_qkv_gemm(seq, w), g, num_heads,
-                                  rate, seed)
-    return attention_dseq_gemm(dqkv, w), attention_dw_gemm(dqkv, seq)
+                                  rate, seed, scale_dq_in_fp32=True)
+    return (attention_dseq_gemm(dqkv, w),
+            attention_dw_gemm(dqkv, seq).to(w.dtype))
 
 
 class _AttentionProj(torch.autograd.Function):
@@ -608,10 +662,14 @@ class LaunchCount:
 
 attention_lanes = LaunchCount("attention_lanes")
 attention_lanes_bwd = LaunchCount("attention_lanes_bwd")
-# the bf16 kernels' launches (the forward at Dh 24 and 128, the qkv GEMM),
-# counted also by the entry that launches them
+# the bf16 kernels' launches (the forward, the dq and dK/dV pair, the GEMM
+# for each of its three products), counted also by the entry that launches
+# them
 attention_fwd_bf16 = LaunchCount("attention_fwd_bf16")
+attention_bwd_bf16 = LaunchCount("attention_bwd_bf16")
 attention_qkv_gemm_bf16 = LaunchCount("attention_qkv_gemm_bf16")
+attention_dseq_gemm_bf16 = LaunchCount("attention_dseq_gemm_bf16")
+attention_dw_gemm_bf16 = LaunchCount("attention_dw_gemm_bf16")
 
 
 def _count_lanes(head_dim, counter):
@@ -625,48 +683,75 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
     or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks,
     q scaled by q_scale (None: `head_scale`); returns out (B, S, C). With
     `bf16` a bf16 qkv launches the bf16 instantiation (`fn` with the bf16
-    suffix), q scaled by `bf16_scale(q_scale)` (None: Dh ** -0.5)."""
+    suffix) on heads zero-padded to the next of BF16_HEAD_DIMS, q scaled by
+    `bf16_scale(q_scale)` (None: the true Dh ** -0.5)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
     qkv, = _aligned(qkv)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, dh, max_s, rate, seed, bf16=bf16, qkv=qkv)
-    low = qkv.dtype == torch.bfloat16
-    if low:
-        fn = f"{fn}_{_native.SUFFIX[qkv.dtype]}"
+    if qkv.dtype == torch.bfloat16:
+        width = padded_head_dim(dh, BF16_HEAD_DIMS)
         q_scale = bf16_scale(dh ** -0.5 if q_scale is None else q_scale)
-    elif q_scale is None:
+        qkv = _pad_heads(qkv, dh, width)
+        out = torch.empty((b, s, num_heads * width), dtype=qkv.dtype,
+                          device=device)
+        _native.launch(source, f"{fn}_bf16", device, seed_ptr,
+                       qkv.data_ptr(), out.data_ptr(), b, s,
+                       num_heads * width, num_heads, q_scale, threshold,
+                       scale)
+        attention_fwd_bf16.launches += 1
+        return _unpad_heads(out, dh, width)
+    if q_scale is None:
         q_scale = head_scale(dh)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
     _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
                    out.data_ptr(), b, s, c, num_heads, q_scale, threshold,
                    scale)
-    if low:
-        attention_fwd_bf16.launches += 1
-    else:
-        _count_lanes(dh, attention_lanes)
+    _count_lanes(dh, attention_lanes)
     return out
 
 
 def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
-                seed):
+                seed, bf16=False, scale_dq_in_fp32=False):
     """Launch the packed backward `fn` of library `source` on CUDA tensors
     after the kernel's checks, q scaled by q_scale (None: `head_scale`);
-    returns dqkv (B, S, 3C)."""
+    returns dqkv (B, S, 3C). With `bf16` a bf16 qkv and g launch the bf16
+    pair (`fn` with the bf16 suffix) on heads zero-padded as `_packed_fwd`
+    pads them, q scaled by `bf16_scale(q_scale)` (None: the true
+    Dh ** -0.5), the stats in float32, and dq scaled by q_scale in float32
+    and rounded once where `scale_dq_in_fp32`, else rounded and then scaled
+    by the bf16 constant (`attention_long_plain_bwd`'s two recipes)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
-    if q_scale is None:
-        q_scale = head_scale(c // num_heads)
+    dh = c // num_heads
     qkv, g = _aligned(qkv, g)
     device, seed_ptr, threshold, scale = _cuda_args(
-        kernel, s, c // num_heads, max_s, rate, seed, qkv=qkv, g=g)
+        kernel, s, dh, max_s, rate, seed, bf16=bf16, qkv=qkv, g=g)
+    stats = torch.empty((b, num_heads, s, 3), dtype=torch.float32,
+                        device=device)
+    if qkv.dtype == torch.bfloat16:
+        width = padded_head_dim(dh, BF16_HEAD_DIMS)
+        true_scale = dh ** -0.5 if q_scale is None else q_scale
+        qkv, g = _pad_heads(qkv, dh, width), _pad_heads(g, dh, width)
+        dqkv = torch.empty_like(qkv)
+        _native.launch(source, f"{fn}_bf16", device, seed_ptr,
+                       qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                       stats.data_ptr(), b, s, num_heads * width, num_heads,
+                       bf16_scale(true_scale),
+                       true_scale if scale_dq_in_fp32
+                       else bf16_scale(true_scale),
+                       int(not scale_dq_in_fp32), threshold, scale)
+        attention_bwd_bf16.launches += 1
+        return _unpad_heads(dqkv, dh, width)
+    if q_scale is None:
+        q_scale = head_scale(dh)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((b, num_heads, s, 3), dtype=qkv.dtype, device=device)
     _native.launch(source, fn, device, seed_ptr, qkv.data_ptr(),
                    g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, s, c,
                    num_heads, q_scale, threshold, scale)
-    _count_lanes(c // num_heads, attention_lanes_bwd)
+    _count_lanes(dh, attention_lanes_bwd)
     return dqkv
 
 
@@ -684,8 +769,9 @@ def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
     """The forward kernel at its own boundary: qkv (B, S, 3C) packed
     [k | v | q] -> (B, S, C), q scaled by q_scale (default Dh^-1/2). CPU
     tensors take `attention_long_plain` with the same arguments; CUDA
-    tensors launch the kernel or raise (S > 2048, a head width outside
-    HEAD_DIMS, or outside BF16_HEAD_DIMS in bf16, any other dtype)."""
+    tensors launch the kernel (float32 or bf16, in bf16 on heads padded to
+    `padded_head_dim`) or raise (S > 2048, a head width outside
+    HEAD_DIMS, any other dtype)."""
     _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
         return attention_long_plain(qkv, num_heads, rate, seed, q_scale)
@@ -699,19 +785,23 @@ def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
 def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                            rate: float = 0.0,
                            seed: Optional[torch.Tensor] = None,
-                           q_scale: Optional[float] = None) -> torch.Tensor:
+                           q_scale: Optional[float] = None,
+                           scale_dq_in_fp32: bool = False) -> torch.Tensor:
     """The backward kernels at their own boundary: dqkv (B, S, 3C) of
     `attention_long_qkv` for the cotangent g (B, S, C), the mask regenerated
-    from `seed`. CPU tensors take `attention_long_plain_bwd` with the same
-    arguments; CUDA tensors launch the kernels or raise."""
+    from `seed`; in bf16 dq by the recipe `scale_dq_in_fp32` names
+    (`attention_long_plain_bwd`). CPU tensors take
+    `attention_long_plain_bwd` with the same arguments; CUDA tensors launch
+    the kernels (float32 or bf16) or raise."""
     _validate_qkv("fused_attention_long_bwd", qkv, num_heads, rate, seed)
     _check_cotangent("fused_attention_long_bwd", qkv, g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return attention_long_plain_bwd(qkv, g, num_heads, rate, seed,
-                                        q_scale)
+                                        q_scale, scale_dq_in_fp32)
     dqkv = _packed_bwd("fused_attention_long_bwd", "fused_attention_long",
                        "gpnf_attention_long_bwd", MAX_S_LONG, qkv, g,
-                       num_heads, q_scale, rate, seed)
+                       num_heads, q_scale, rate, seed, bf16=True,
+                       scale_dq_in_fp32=scale_dq_in_fp32)
     fused_attention_long_bwd.launches += 1
     return dqkv
 
@@ -802,28 +892,30 @@ def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b, splits=None):
     return c
 
 
-def _gemm_bf16(kernel, seq, w):
-    """qkv = seq w^T (B, S, N) in bf16 by attention_gemm.cu's bf16 kernel
-    on CUDA tensors: seq (B, S, K) and w (N, K), both bf16. The kernel
-    copies 16-byte chunks along K: an operand that does not start on a
-    16-byte boundary is copied first, and a K that is not a multiple of 8 is
-    zero-padded in both (zeros add nothing to the sums)."""
-    if seq.dim() != 3 or w.dim() != 2 or seq.shape[2] != w.shape[1]:
-        raise ValueError(f"{kernel}: seq {tuple(seq.shape)} and w "
-                         f"{tuple(w.shape)} are not (B, S, K) and (N, K)")
-    b, s, k = seq.shape
-    n = w.shape[0]
-    if k % BF16_GEMM_ALIGN:
-        pad = BF16_GEMM_ALIGN - k % BF16_GEMM_ALIGN
-        seq, w = F.pad(seq, (0, pad)), F.pad(w, (0, pad))
-    seq, w = _aligned(seq, w)
-    device = _native.check_cuda_inputs(kernel, dtypes=(torch.bfloat16,),
-                                       seq=seq, w=w)
-    out = torch.empty((b, s, n), dtype=seq.dtype, device=device)
+def _gemm_bf16(kernel, a, b, shape, m, n, k, trans_a, trans_b, out_dtype):
+    """c = A B in bf16 by attention_gemm.cu's bf16 kernel on CUDA tensors,
+    A and B laid out as `_gemm` takes them, both bf16; the sums in float32,
+    c (the given shape) bf16, rounded once, or float32 (`out_dtype`); K cut
+    into `gemm_splits` ranges, the float32 partials added in split order. A
+    strided view is copied into a contiguous tensor first; the kernel takes
+    any alignment (16-byte copies where both bases and row strides allow
+    them, else one value at a time, with the same bits)."""
+    if a.numel() != m * k or b.numel() != k * n or a.dim() != 3:
+        raise ValueError(f"{kernel}: {tuple(a.shape)} and {tuple(b.shape)} "
+                         f"do not make a product")
+    a, b = a.contiguous(), b.contiguous()
+    device = _native.check_cuda_inputs(kernel, dtypes=(torch.bfloat16,), a=a,
+                                       b=b)
+    splits = gemm_splits(m, n, k)
+    c = torch.empty(shape, dtype=out_dtype, device=device)
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
+               if splits > 1 else None)
     _native.launch("attention_gemm", "gpnf_attention_gemm_bf16", device,
-                   seq.data_ptr(), w.data_ptr(), out.data_ptr(), b * s, n,
-                   seq.shape[2])
-    return out
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   None if partial is None else partial.data_ptr(), m, n, k,
+                   int(trans_a), int(trans_b), splits,
+                   int(out_dtype == torch.bfloat16))
+    return c
 
 
 def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -831,45 +923,57 @@ def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     projection that `_fwd_kernel_proj` computes in its body, on the wide
     route and in the proj backward. CPU tensors take `qkv_plain`
     (torch.matmul, or `bf16_matmul`); CUDA tensors launch the kernel (a bf16
-    pair the bf16 one, `_gemm_bf16`) or raise."""
+    pair the bf16 one) or raise."""
     if seq.device.type == "cpu" and w.device.type == "cpu":
         return qkv_plain(seq, w)
-    if seq.dtype == torch.bfloat16:
-        out = _gemm_bf16("attention_qkv_gemm", seq, w)
-        attention_qkv_gemm.launches += 1
-        attention_qkv_gemm_bf16.launches += 1
-        return out
     b, s, c = seq.shape
-    out = _gemm("attention_qkv_gemm", seq, w, (b, s, w.shape[0]), b * s,
-                w.shape[0], c, False, True)
+    args = ("attention_qkv_gemm", seq, w, (b, s, w.shape[0]), b * s,
+            w.shape[0], c, False, True)
+    if seq.dtype == torch.bfloat16:
+        out = _gemm_bf16(*args, torch.bfloat16)
+        attention_qkv_gemm_bf16.launches += 1
+    else:
+        out = _gemm(*args)
     attention_qkv_gemm.launches += 1
     return out
 
 
 def attention_dseq_gemm(dqkv: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dseq = dqkv w, dqkv (B, S, 3C) and w (3C, C) -> (B, S, C), as
-    `_bwd_kernel_proj` computes it. CPU tensors take torch.matmul; CUDA
-    tensors launch the kernel or raise."""
+    `_bwd_kernel_proj` computes it (bf16: float32 sums rounded once). CPU
+    tensors take torch.matmul (`bf16_matmul`); CUDA tensors launch the
+    kernel (a bf16 pair the bf16 one) or raise."""
     if dqkv.device.type == "cpu" and w.device.type == "cpu":
-        return torch.matmul(dqkv, w)
-    _refuse_bf16("attention_dseq_gemm", dqkv=dqkv, w=w)
+        return (bf16_matmul(dqkv, w) if dqkv.dtype == torch.bfloat16
+                else torch.matmul(dqkv, w))
     b, s, c3 = dqkv.shape
-    out = _gemm("attention_dseq_gemm", dqkv, w, (b, s, w.shape[1]), b * s,
-                w.shape[1], c3, False, False)
+    args = ("attention_dseq_gemm", dqkv, w, (b, s, w.shape[1]), b * s,
+            w.shape[1], c3, False, False)
+    if dqkv.dtype == torch.bfloat16:
+        out = _gemm_bf16(*args, torch.bfloat16)
+        attention_dseq_gemm_bf16.launches += 1
+    else:
+        out = _gemm(*args)
     attention_dseq_gemm.launches += 1
     return out
 
 
 def attention_dw_gemm(dqkv: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
     """dW = dqkv^T seq summed over (B, S), dqkv (B, S, 3C) and seq
-    (B, S, C) -> (3C, C), as `_bwd_kernel_proj` computes it. CPU tensors
-    take torch.einsum; CUDA tensors launch the kernel or raise."""
+    (B, S, C) -> (3C, C), as `_bwd_kernel_proj` computes it: float32 for
+    bf16 operands too (its dW output; the callers round it to w's dtype, as
+    `_vjp_bwd_proj` does). CPU tensors take `dw_plain`; CUDA tensors launch
+    the kernel (a bf16 pair the bf16 one) or raise."""
     if dqkv.device.type == "cpu" and seq.device.type == "cpu":
-        return torch.einsum("bso,bsc->oc", dqkv, seq)
-    _refuse_bf16("attention_dw_gemm", dqkv=dqkv, seq=seq)
+        return dw_plain(dqkv, seq)
     b, s, c3 = dqkv.shape
-    out = _gemm("attention_dw_gemm", dqkv, seq, (c3, seq.shape[2]), c3,
-                seq.shape[2], b * s, True, False)
+    args = ("attention_dw_gemm", dqkv, seq, (c3, seq.shape[2]), c3,
+            seq.shape[2], b * s, True, False)
+    if dqkv.dtype == torch.bfloat16:
+        out = _gemm_bf16(*args, torch.float32)
+        attention_dw_gemm_bf16.launches += 1
+    else:
+        out = _gemm(*args)
     attention_dw_gemm.launches += 1
     return out
 
@@ -886,7 +990,8 @@ def _long_project(seq, w):
 def _long_project_bwd(dqkv, seq, w):
     """(dseq, dW) of `_long_project` for the cotangent dqkv."""
     if seq.shape[1] <= MAX_S:
-        return attention_dseq_gemm(dqkv, w), attention_dw_gemm(dqkv, seq)
+        return (attention_dseq_gemm(dqkv, w),
+                attention_dw_gemm(dqkv, seq).to(w.dtype))
     return _project_bwd(dqkv, seq, w)
 
 
@@ -927,8 +1032,6 @@ def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
     kernels at S <= MAX_S, torch.matmul above (the JAX package's
     `_vjp_bwd_long`)."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long_bwd")
-    if not all(t.device.type == "cpu" for t in (seq, w, g)):
-        _refuse_bf16("fused_attention_long_bwd", seq=seq, w=w, g=g)
     dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
     dqkv = attention_long_qkv_bwd(
         _pad_heads(_long_project(seq, w), dh, width),

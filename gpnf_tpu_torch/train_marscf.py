@@ -6,14 +6,22 @@ port plus --device (default cuda; a host without a card raises unless
 --device cpu is given). The coupling is MixLogCDF (the port's default) or
 affine, the invertible attentions are on unless --no_attention. Adamax at
 lr 1e-4 with the lagged warmup counted in samples, dropout 0.2 in the
-MixLogCDF couplings, float32 with TF32 off; the best test NLL's parameters
-go to <checkpoint_dir>/marscf_<ds>_<coupling>_<K>_<C>/ in the JAX
-package's npz layout, so either package restores them.
+MixLogCDF couplings, TF32 off; the best test NLL's parameters go to
+<checkpoint_dir>/marscf_<ds>_<coupling>_<K>_<C>/ in the JAX package's npz
+layout, so either package restores them. --compute_dtype float32 (the
+default, the JAX CLI's) trains in float32 throughout; bfloat16 (`bench.py`'s
+train step) runs the MixLogCDF coupling nets and the prior's likelihood in
+bf16, forward and backward, each product summed in float32 and rounded
+once, as the JAX package does: parameters, Adamax state, the loss and every
+log-det stay float32, and so do the checkpoints.
 
     python -m gpnf_tpu_torch.train_marscf --dataset_name cifar10 \\
         --batch_size 64 --L 3 --K 4 --C 96 --device cuda
     python -m gpnf_tpu_torch.train_marscf --dataset_name imagenet_64 \\
         --batch_size 64 --L 3 --K 4 --C 96 --device cuda
+    python -m gpnf_tpu_torch.train_marscf --dataset_name cifar10 \\
+        --batch_size 64 --L 3 --K 4 --C 96 --device cuda \\
+        --compute_dtype bfloat16
 """
 from __future__ import annotations
 
@@ -46,6 +54,10 @@ def parse_args(argv=None):
                    help="append the log and eval records here as JSON lines")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="coupling-net and prior-likelihood dtype (the "
+                        "log-dets stay float32)")
     return p.parse_args(argv)
 
 
@@ -69,10 +81,11 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f"device: {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})"
-          f", tf32 off")
-    model_cfg = model_config(args)
+          f", tf32 off, compute dtype {args.compute_dtype}")
+    model_cfg = model_config(args, compute_dtype=args.compute_dtype)
     train_cfg = TrainConfig(
         dataset=args.dataset_name, data_root=args.data_root,
         batch_size=args.batch_size, warm_up=args.warm_up, epochs=args.epochs,

@@ -1,24 +1,31 @@
-"""The layout and arithmetic of the bf16 kernels (the qkv GEMM of
-gpnf_tpu_torch/csrc/attention_gemm.cu and the attention forward of
-attention_tiled.cuh, on mma_bf16.cuh), checked on the CPU: the
-shared-memory banks of every ldmatrix fragment load at the padded row
-strides the kernels use, the constants against the sources, and the
-kernels' rounding points emulated (q * scale rounded to bf16, the
-unnormalised P rounded to bf16, each key tile's P V summed in fp32; the
-GEMM's 32-deep chunks summed apart in fp32, one rounding) and held to the
-plain versions and the JAX package within the kernels' bars. The kernels
+"""The layout and arithmetic of the bf16 kernels (the GEMM of
+gpnf_tpu_torch/csrc/attention_gemm.cu, which computes qkv, dseq and dW,
+and the attention forward, dq and dK/dV kernels of attention_tiled.cuh, on
+mma_bf16.cuh), checked on the CPU: the shared-memory banks of every
+ldmatrix fragment load at the padded row strides the kernels use, at
+every tile, layout and width, the constants against the sources, and the
+kernels' rounding points emulated in their tile order and held to the
+plain versions and the JAX package within the kernels' bars: the forward
+(q * scale rounded to bf16, the unnormalised P rounded to bf16, each key
+tile's P V summed in fp32), the backward (passes A and B of the dq kernel
+over its key tiles, dS rounded for dq, the dK/dV kernel's query tiles
+with Pd and dS rounded, dq by either recipe), and the GEMM (32-deep chunks
+summed apart in fp32, the splits of K added in order, one rounding, dW in
+fp32). The padded widths are held to the true ones. The kernels
 themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 import importlib
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from gpnf_tpu.ops.pallas import fused_attention as jfa
+from gpnf_tpu_torch.ops import kernels
 from torch_parity import rng
 
 fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
@@ -35,16 +42,60 @@ def const(name, text):
 
 
 PAD = const("kBf16Pad", MMA)
-GEMM_TILE = const("kBf16Tile", GEMM)
-GEMM_WARP = const("kBf16Warp", GEMM)
 GEMM_KC = const("kBf16Kc", GEMM)
-FWD_KEYS = const("kKeys", TILED[TILED.index("struct MmaFwdBf16"):])
-FWD_WARPS = const("kWarps", TILED[TILED.index("struct MmaFwdBf16"):])
+# {"large" / "small": (BM, BN, WM, WN, stages)}, the fp32 GEMM's tiles
+GEMM_TILES = {name: tuple(map(int, re.search(
+    rf"using {name.capitalize()} = Tile<(\d+), (\d+), (\d+), (\d+), "
+    rf"(\d+)>;", GEMM).groups())) for name in ("large", "small")}
+# (trans_a, trans_b) of the three products: qkv = seq w^T, dseq = dqkv w,
+# dW = dqkv^T seq
+LAYOUTS = {"qkv": (False, True), "dseq": (False, False), "dw": (True, False)}
+
+
+def struct(name):
+    """The body of `struct name` in attention_tiled.cuh."""
+    body = TILED[TILED.index(f"struct {name} {{"):]
+    return body[:body.index("};")]
+
+
+def ternary(expr, width):
+    """A tile constant's C expression (`kWidth <= A ? X : ...` or a
+    number) at kWidth = width."""
+    expr = expr.strip()
+    m = re.fullmatch(r"kWidth <= (\d+) \? (\d+) : (.*)", expr)
+    if m is None:
+        return int(expr)
+    return int(m.group(2)) if width <= int(m.group(1)) else ternary(
+        m.group(3), width)
+
+
+def tile_const(struct_name, name, width):
+    expr = re.search(rf"static constexpr int {name} =\s*([^;]*);",
+                     struct(struct_name)).group(1)
+    return ternary(expr, width)
+
+
+FWD_ROWS = tile_const("MmaFwdBf16", "kRows", 32)  # 16 a warp's row group
 
 
 def fwd_width(dh):
-    """MmaFwdBf16's kWidth: Dh rounded up to a whole k16 step."""
+    """The bf16 kernels' kWidth: Dh rounded up to a whole k16 step."""
     return -(-dh // 16) * 16
+
+
+def fwd_keys(dh):
+    return tile_const("MmaFwdBf16", "kKeys", fwd_width(dh))
+
+
+def dq_keys(dh):
+    return tile_const("MmaDqBf16", "kKeys", fwd_width(dh))
+
+
+def dkv_queries(dh):
+    return tile_const("MmaDkvBf16", "kQueries", fwd_width(dh))
+
+
+FWD_KEYS = fwd_keys(24)
 
 
 # -- banks --------------------------------------------------------------------
@@ -81,32 +132,76 @@ def frag_b_trans_pair(base, ld, k0, c0):
 
 def test_constants_match_the_sources():
     assert PAD == 8 and GEMM_KC % 16 == 0 and FWD_KEYS % 16 == 0
-    assert (GEMM_TILE, GEMM_WARP, GEMM_KC, FWD_KEYS, FWD_WARPS) == (
-        64, 32, 32, 64, 4)
+    assert (GEMM_KC, FWD_KEYS, FWD_ROWS) == (32, 64, 64)
+    assert GEMM_TILES == {"large": (128, 128, 64, 32, 3),
+                          "small": (64, 64, 32, 32, 3)}
+    assert {k: v[:2] for k, v in GEMM_TILES.items()} == fa.GEMM_TILES
     long_cu = (CSRC / "fused_attention_long.cu").read_text()
-    body = long_cu[long_cu.index("int gpnf_attention_long_fwd_bf16"):]
-    body = body[:body.index("\n}\n")]
-    cases = tuple(int(x) for x in re.findall(r"case (\d+):", body))
-    assert cases == fa.BF16_HEAD_DIMS == (24, 128)
+    for entry in ("gpnf_attention_long_fwd_bf16", "gpnf_attention_long_bwd_bf16"):
+        body = long_cu[long_cu.index(f"int {entry}"):]
+        body = body[:body.index("\n}\n")]
+        cases = tuple(int(x) for x in re.findall(r"case (\d+):", body))
+        assert cases == fa.BF16_HEAD_DIMS == (24, 128, 256), entry
     assert "gpnf_attention_gemm_bf16" in GEMM
     assert "m16n8k16.row.col.f32.bf16.bf16.f32" in MMA
+    # the tiles by width: keys of the forward and of dq, queries of dK/dV
+    assert [fwd_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 64, 16]
+    # Dh 256's forward: two warps to each row group, half the columns each
+    assert [tile_const("MmaFwdBf16", "kColSplit", fwd_width(d))
+            for d in fa.BF16_HEAD_DIMS] == [1, 1, 2]
+    assert "static constexpr int kWarps = 4 * kColSplit;" in struct(
+        "MmaFwdBf16")
+    assert [dq_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
+    assert [dkv_queries(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
+    assert tile_const("MmaDkvBf16", "kPairs", 32) == 2
+    assert "static constexpr int kKeys = 16 * kPairs;" in struct("MmaDkvBf16")
+    # the rounding points the emulations below model
+    for line in ("x = __bfloat162float(__float2bfloat16_rn(x));",
+                 "pack_bf16(x * dq_scale, y * dq_scale);",
+                 "const float p = live ? expf(xs[at] - mi) * li : 0.f;",
+                 "pd = keep ? p * keep_scale : 0.f;",
+                 "xd[at] = p * (dpv - di);",
+                 "scale_rows_bf16<LD>(q_t, QT, DH, q_scale, T::kThreads);",
+                 "d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *"):
+        assert line in TILED, line
+    for line in ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];",
+                 "acc += partial[z * count + i];",
+                 "c[i] = __float2bfloat16_rn(acc);"):
+        assert line in GEMM, line
 
 
-def gemm_loads():
-    """Every fragment load of gemm_bf16_kernel: 4 warps of 32 x 32 in a
-    64 x 64 tile, k steps 0 and 16 of a chunk, in each of the 3 stages."""
-    ld = GEMM_KC + PAD
-    tile = 2 * GEMM_TILE * ld
+def frag_a_trans(base, ld, k0, m0):
+    """Of `frag_a_bf16_trans<LD>`."""
+    return [base + 2 * ((k0 + (lane & 7) + ((lane >> 4) << 3)) * ld + m0 +
+                        (((lane >> 3) & 1) << 3)) for lane in range(32)]
+
+
+def gemm_loads(layout, tile):
+    """Every fragment load of gemm_bf16_kernel at one layout and tile: each
+    warp's A and B fragments at k steps 0 and 16 of a chunk, in every
+    stage of the ring."""
+    trans_a, trans_b = LAYOUTS[layout]
+    bm, bn, wm_, wn_, stages = GEMM_TILES[tile]
+    lda = bm + PAD if trans_a else GEMM_KC + PAD
+    ldb = GEMM_KC + PAD if trans_b else bn + PAD
+    size_a = GEMM_KC * lda if trans_a else bm * lda
+    size_b = bn * ldb if trans_b else GEMM_KC * ldb
     loads = []
-    for stage in range(3):
-        a_base, b_base = 2 * stage * tile, (2 * stage + 1) * tile
-        for warp in range(4):
-            wm, wn = (warp >> 1) * GEMM_WARP, (warp & 1) * GEMM_WARP
+    for stage in range(stages):
+        a_base = 2 * stage * (size_a + size_b)
+        b_base = a_base + 2 * size_a
+        for warp in range((bm // wm_) * (bn // wn_)):
+            wm, wn = (warp // (bn // wn_)) * wm_, (warp % (bn // wn_)) * wn_
             for kk in range(0, GEMM_KC, 16):
-                loads += [frag_a(a_base, ld, wm + 16 * i, kk)
-                          for i in range(GEMM_WARP // 16)]
-                loads += [frag_b_pair(b_base, ld, wn + 16 * jp, kk)
-                          for jp in range(GEMM_WARP // 16)]
+                for i in range(wm_ // 16):
+                    loads.append(frag_a_trans(a_base, lda, kk, wm + 16 * i)
+                                 if trans_a else
+                                 frag_a(a_base, lda, wm + 16 * i, kk))
+                for jp in range(wn_ // 16):
+                    loads.append(frag_b_pair(b_base, ldb, wn + 16 * jp, kk)
+                                 if trans_b else
+                                 frag_b_trans_pair(b_base, ldb, kk,
+                                                   wn + 16 * jp))
     return loads
 
 
@@ -116,23 +211,76 @@ def fwd_loads(dh):
     pairs, in both stages of the K / V double buffer."""
     w = fwd_width(dh)
     ld = w + PAD
-    rows = 16 * FWD_WARPS
-    loads = [frag_a(0, ld, 16 * warp, 16 * ks)
-             for warp in range(FWD_WARPS) for ks in range(w // 16)]
+    rows, keys = FWD_ROWS, fwd_keys(dh)
+    loads = [frag_a(0, ld, r0, 16 * ks)
+             for r0 in range(0, rows, 16) for ks in range(w // 16)]
     for stage in range(2):
-        k_base = 2 * (rows + 2 * stage * FWD_KEYS) * ld
-        v_base = k_base + 2 * FWD_KEYS * ld
+        k_base = 2 * (rows + 2 * stage * keys) * ld
+        v_base = k_base + 2 * keys * ld
         loads += [frag_b_pair(k_base, ld, 16 * np_, 16 * ks)
-                  for ks in range(w // 16) for np_ in range(FWD_KEYS // 16)]
+                  for ks in range(w // 16) for np_ in range(keys // 16)]
         loads += [frag_b_trans_pair(v_base, ld, 16 * kp, 16 * dp)
-                  for kp in range(FWD_KEYS // 16) for dp in range(w // 16)]
+                  for kp in range(keys // 16) for dp in range(w // 16)]
     return loads
 
 
-@pytest.mark.parametrize("kernel", ["gemm", "fwd_24", "fwd_128"])
+def dq_loads(dh):
+    """Of attention_bf16_dq_kernel: each warp's q and g fragments, K's and
+    V's pairs of key tiles, and K's transposed pairs for dq += dS K, in both
+    stages."""
+    w = fwd_width(dh)
+    ld = w + PAD
+    rows, keys = FWD_ROWS, dq_keys(dh)
+    loads = [frag_a(base, ld, r0, 16 * ks)
+             for base in (0, 2 * rows * ld) for r0 in range(0, rows, 16)
+             for ks in range(w // 16)]
+    for stage in range(2):
+        k_base = 2 * (2 * rows + 2 * stage * keys) * ld
+        v_base = k_base + 2 * keys * ld
+        for base in (k_base, v_base):
+            loads += [frag_b_pair(base, ld, 16 * np_, 16 * ks)
+                      for ks in range(w // 16) for np_ in range(keys // 16)]
+        loads += [frag_b_trans_pair(k_base, ld, 16 * kp, 16 * dp)
+                  for kp in range(keys // 16) for dp in range(w // 16)]
+    return loads
+
+
+def dkv_loads(dh):
+    """Of attention_bf16_dkv_kernel: each pair's K and V fragments, the
+    query tiles' q and g pairs (S^T, dPd^T) and transposed pairs (dV, dK),
+    in both stages."""
+    w = fwd_width(dh)
+    ld = w + PAD
+    keys = 16 * tile_const("MmaDkvBf16", "kPairs", w)
+    queries = dkv_queries(dh)
+    loads = [frag_a(base, ld, 16 * pair, 16 * ks)
+             for base in (0, 2 * keys * ld) for pair in range(keys // 16)
+             for ks in range(w // 16)]
+    for stage in range(2):
+        q_base = 2 * (2 * keys + 2 * stage * queries) * ld
+        for base in (q_base, q_base + 2 * queries * ld):
+            loads += [frag_b_pair(base, ld, 16 * np_, 16 * ks)
+                      for ks in range(w // 16)
+                      for np_ in range(queries // 16)]
+            loads += [frag_b_trans_pair(base, ld, 16 * kk, 16 * dp)
+                      for kk in range(queries // 16)
+                      for dp in range(w // 16)]
+    return loads
+
+
+@pytest.mark.parametrize("kernel", [
+    "gemm", "fwd_24", "fwd_128", "fwd_256", "dq_24", "dq_128", "dq_256",
+    "dkv_24", "dkv_128", "dkv_256"])
 def test_fragment_loads_are_conflict_free(kernel):
-    loads = gemm_loads() if kernel == "gemm" else fwd_loads(
-        int(kernel.split("_")[1]))
+    """Every ldmatrix of every kernel: the GEMM at each layout and tile,
+    the attention kernels at each width built in bf16."""
+    if kernel == "gemm":
+        loads = [x for layout in LAYOUTS for tile in GEMM_TILES
+                 for x in gemm_loads(layout, tile)]
+    else:
+        name, dh = kernel.split("_")
+        loads = {"fwd": fwd_loads, "dq": dq_loads, "dkv": dkv_loads}[name](
+            int(dh))
     assert loads and all(ldmatrix_conflicts(a) == 0 for a in loads)
 
 
@@ -146,25 +294,37 @@ def test_other_pads_would_conflict(pad):
 
 
 # -- arithmetic ------------------------------------------------------------------
-def emulated_gemm_bf16(a, b):
-    """c = a b^T as gemm_bf16_kernel sums it: chunks of GEMM_KC summed
-    apart in float32 and added in order, then one rounding to bf16."""
-    acc = torch.zeros(a.shape[0], b.shape[0])
-    for k0 in range(0, a.shape[1], GEMM_KC):
-        acc = acc + a[:, k0:k0 + GEMM_KC].float() @ b[:, k0:k0 + GEMM_KC] \
-            .float().t()
-    return acc.to(BF16)
+def emulated_gemm_bf16(a, b, splits=1, out_dtype=BF16):
+    """c = a b (a (m, k), b (k, n), bf16) as gemm_bf16_kernel sums it: each
+    split's K range in chunks of GEMM_KC summed apart in float32 and added
+    in order, the splits' sums added in split order, then one rounding to
+    bf16 (or none, out_dtype float32: dW)."""
+    a, b = a.float(), b.float()
+    chunk = fa.gemm_chunk(a.shape[1], splits)
+    total = None
+    for k0 in range(0, a.shape[1], chunk):
+        acc = torch.zeros(a.shape[0], b.shape[1])
+        for c0 in range(k0, min(a.shape[1], k0 + chunk), GEMM_KC):
+            acc = acc + a[:, c0:c0 + GEMM_KC] @ b[c0:c0 + GEMM_KC]
+        total = acc if total is None else total + acc
+    return total.to(out_dtype)
+
+
+def _bf16_normal(r, shape, scale):
+    return torch.from_numpy(r.standard_normal(shape).astype(np.float32)
+                            * scale).to(BF16)
 
 
 @pytest.mark.parametrize("m,n,k", [(1024, 288, 96), (256, 1536, 512),
                                    (37, 30, 40)])
 def test_gemm_emulation_is_within_an_ulp(m, n, k):
+    """qkv = seq w^T, split as `gemm_splits` splits the shape, within one
+    bf16 ulp plus the float32 sums' spread of the plain version and of the
+    JAX `_proj`."""
     r = rng(1)
-    a = torch.from_numpy(r.standard_normal((m, k)).astype(np.float32)
-                         * 0.5).to(BF16)
-    b = torch.from_numpy(r.standard_normal((n, k)).astype(np.float32)
-                         * 0.1).to(BF16)
-    got = emulated_gemm_bf16(a, b)
+    a = _bf16_normal(r, (m, k), 0.5)
+    b = _bf16_normal(r, (n, k), 0.1)
+    got = emulated_gemm_bf16(a, b.t(), fa.gemm_splits(m, n, k))
     assert fa.bf16_product_close(got, fa.bf16_matmul(a, b.t()), a, b)
     want = jfa._proj(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)[None],
                      jnp.asarray(b.float().numpy()))[0]
@@ -172,16 +332,53 @@ def test_gemm_emulation_is_within_an_ulp(m, n, k):
     assert fa.bf16_product_close(got, want, a, b)
 
 
-def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None, keys=FWD_KEYS):
-    """attention_bf16_fwd_kernel's rounding points on the CPU: q *
-    bf16(Dh^-1/2) rounded to bf16; per tile of `keys` keys the float32
-    scores, the running max m and corr = exp(m_old - m), p = exp(s - m)
-    added unrounded to the denominator, pd = keep p / (1 - rate) rounded to
+@pytest.mark.parametrize("b,s,c", [(16, 64, 96), (4, 256, 96), (2, 16, 512),
+                                   (3, 37, 20)])
+def test_gemm_backward_products_emulated(b, s, c):
+    """dseq = dqkv w (bf16, rounded once) and dW = dqkv^T seq (float32),
+    K split as `gemm_splits` splits each shape (dW's K = B S), against the
+    plain versions (`attention_dseq_gemm`, `attention_dw_gemm` on the CPU)
+    and `_bwd_kernel_proj`'s formulas in jnp: dseq within one bf16 ulp plus
+    the sums' spread, dW within 2^-22 of the sum of |products| (two
+    float32 sums of B S products in different orders)."""
+    r = rng(b * s + c)
+    seq = _bf16_normal(r, (b, s, c), 0.5)
+    w = _bf16_normal(r, (3 * c, c), 0.1)
+    dqkv = _bf16_normal(r, (b, s, 3 * c), 0.1)
+    d2, s2 = dqkv.reshape(-1, 3 * c), seq.reshape(-1, c)
+    dseq = emulated_gemm_bf16(d2, w, fa.gemm_splits(b * s, c, 3 * c))
+    want = kernels.attention_dseq_gemm(dqkv, w).reshape(-1, c)
+    assert fa.bf16_product_close(dseq, want, d2, w.t())
+    jd, jw, js = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                  for x in (d2, w, s2))
+    jdseq = jax.lax.dot_general(jd, jw, (((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.float32)
+    jdseq = torch.from_numpy(np.array(jdseq.astype(jnp.bfloat16)
+                                      .astype(jnp.float32))).to(BF16)
+    assert fa.bf16_product_close(dseq, jdseq, d2, w.t())
+    splits = fa.gemm_splits(3 * c, c, b * s)
+    dw = emulated_gemm_bf16(d2.t(), s2, splits, torch.float32)
+    spread = 2.0 ** -22 * (d2.float().abs().t() @ s2.float().abs())
+    want = kernels.attention_dw_gemm(dqkv, seq)
+    assert want.dtype == dw.dtype == torch.float32
+    assert bool(((dw - want).abs() <= spread).all())
+    jdw = jax.lax.dot_general(jd, js, (((0,), (0,)), ((), ())),
+                              preferred_element_type=jnp.float32)
+    assert bool(((dw - torch.from_numpy(np.array(jdw))).abs()
+                 <= spread).all())
+
+
+def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None):
+    """attention_bf16_fwd_kernel's rounding points on the CPU, in its key
+    tiles: q * bf16(Dh^-1/2) rounded to bf16; per tile the float32 scores,
+    the running max m and corr = exp(m_old - m), p = exp(s - m) added
+    unrounded to the denominator, pd = keep p / (1 - rate) rounded to
     bf16, the tile's pd V summed in float32 and added as out corr + pd V;
     out / l rounded once."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // heads
+    keys = fwd_keys(dh)
     k, v, q = fa._split_qkv(qkv, heads)  # q * scale rounded, as the kernel
     q, k, v = q.float(), k.float(), v.float()
     keep = (fa.dropout_keep_plain(seed, b, heads, s, rate) if rate > 0.0
@@ -203,17 +400,22 @@ def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None, keys=FWD_KEYS):
     return fa._merge_heads((acc / l).to(BF16))
 
 
+def _qkv(b, s, c, seed=2):
+    return torch.from_numpy(rng(seed).standard_normal((b, s, 3 * c))
+                            .astype(np.float32)).to(BF16)
+
+
 @pytest.mark.parametrize("dh,s,rate", [(24, 256, 0.0), (24, 100, 0.2),
                                        (24, 64, 0.0), (128, 96, 0.0),
-                                       (128, 70, 0.2)])
+                                       (128, 70, 0.2), (256, 40, 0.0),
+                                       (256, 35, 0.2)])
 def test_forward_emulation_is_within_the_kernels_bar(dh, s, rate):
     """Within 2^-7 max|v| of `attention_long_plain` (which rounds the
     normalised p, as the JAX package does), and of the JAX `_reference_qkv`
     at rate 0."""
     heads, b = 4, 2
     c = heads * dh
-    qkv = torch.from_numpy(rng(2).standard_normal((b, s, 3 * c))
-                           .astype(np.float32)).to(BF16)
+    qkv = _qkv(b, s, c)
     seed = torch.tensor([5], dtype=torch.int32)
     got = emulated_fwd_bf16(qkv, heads, rate, seed)
     bar = 2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
@@ -227,14 +429,151 @@ def test_forward_emulation_is_within_the_kernels_bar(dh, s, rate):
         assert float((got.float() - ref).abs().max()) <= bar
 
 
+def emulated_bwd_bf16(qkv, g, heads, rate=0.0, seed=None,
+                      scale_dq_in_fp32=False):
+    """dqkv as attention_bf16_dq_kernel and attention_bf16_dkv_kernel round
+    it, in their tiles. dq: q * bf16(Dh^-1/2) rounded; pass A over key
+    tiles keeps m, l and D = sum exp(s - m) dP online in float32; pass B
+    forms dS = exp(s - m) / l (dP - D) per key tile, rounds it to bf16 and
+    adds dS K in float32; dq leaves by the recipe. dK/dV: per query tile P
+    from the stats (m, 1/l, D), Pd = keep P keep_scale and dS = P (dP - D)
+    rounded to bf16, dV += Pd^T g and dK += dS^T q in float32; each output
+    rounded once."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // heads
+    true = dh ** -0.5
+    k, v, q = fa._split_qkv(qkv, heads)
+    q, k, v = q.float(), k.float(), v.float()
+    gh = g.reshape(b, s, heads, dh).transpose(1, 2).float()
+    keep_scale = float(np.float32(1.0) / np.float32(1.0 - rate))
+    keep = (fa.dropout_keep_plain(seed, b, heads, s, rate) if rate > 0.0
+            else torch.ones((b, heads, s, s), dtype=torch.bool))
+
+    def tile(i, j):
+        """Scores and dP of query rows i and key columns j."""
+        sc = q[:, :, i] @ k[:, :, j].transpose(-1, -2)
+        dp = gh[:, :, i] @ v[:, :, j].transpose(-1, -2)
+        kept = keep[:, :, i][..., j]
+        return sc, torch.where(kept, dp * keep_scale, 0.0), kept
+
+    rows = slice(0, s)
+    keys = dq_keys(dh)
+    m = torch.full((b, heads, s, 1), -torch.inf)
+    l = torch.zeros((b, heads, s, 1))
+    dsum = torch.zeros((b, heads, s, 1))
+    for j0 in range(0, s, keys):
+        sc, dp, _ = tile(rows, slice(j0, j0 + keys))
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - mx)
+        ex = torch.exp(sc - mx)
+        l = l * corr + ex.sum(-1, keepdim=True)
+        dsum = dsum * corr + (ex * dp).sum(-1, keepdim=True)
+        m = mx
+    inv_l = 1.0 / l
+    big_d = dsum * inv_l
+    dq = torch.zeros((b, heads, s, dh))
+    for j0 in range(0, s, keys):
+        sc, dp, _ = tile(rows, slice(j0, j0 + keys))
+        ds = (torch.exp(sc - m) * inv_l * (dp - big_d)).to(BF16).float()
+        dq = dq + ds @ k[:, :, j0:j0 + keys]
+    if scale_dq_in_fp32:
+        dq = (dq * float(np.float32(true))).to(BF16)
+    else:
+        dq = (dq.to(BF16).float() * fa.bf16_scale(true)).to(BF16)
+    queries = dkv_queries(dh)
+    dk = torch.zeros((b, heads, s, dh))
+    dv = torch.zeros((b, heads, s, dh))
+    for i0 in range(0, s, queries):
+        i = slice(i0, i0 + queries)
+        sc, dp, kept = tile(i, rows)
+        p = torch.exp(sc - m[:, :, i]) * inv_l[:, :, i]
+        pd = torch.where(kept, p * keep_scale, 0.0).to(BF16).float()
+        ds = (p * (dp - big_d[:, :, i])).to(BF16).float()
+        dv = dv + pd.transpose(-1, -2) @ gh[:, :, i]
+        dk = dk + ds.transpose(-1, -2) @ q[:, :, i]
+    return torch.cat([fa._merge_heads(dk.to(BF16)),
+                      fa._merge_heads(dv.to(BF16)), fa._merge_heads(dq)], -1)
+
+
+@pytest.mark.parametrize("dh,s,rate,in_fp32", [
+    (24, 100, 0.0, True), (24, 64, 0.2, False), (128, 70, 0.0, False),
+    (128, 48, 0.2, True), (256, 40, 0.0, True), (256, 33, 0.2, False)])
+def test_backward_emulation_is_within_the_kernels_bar(dh, s, rate, in_fp32):
+    """dK, dV and dq each within 2^-7 of the largest |plain| of their third
+    of `attention_long_plain_bwd` (the kernels round the same values, in
+    their tiles' order), at both recipes of dq."""
+    heads, b = 4, 2
+    c = heads * dh
+    qkv = _qkv(b, s, c, seed=dh + s)
+    g = torch.from_numpy(rng(s).standard_normal((b, s, c))
+                         .astype(np.float32) * 0.5).to(BF16)
+    seed = torch.tensor([11], dtype=torch.int32)
+    got = emulated_bwd_bf16(qkv, g, heads, rate, seed, in_fp32)
+    want = fa.attention_long_plain_bwd(qkv, g, heads, rate, seed, None,
+                                       in_fp32)
+    assert got.dtype == want.dtype == BF16
+    for part in range(3):
+        x = got[..., part * c:(part + 1) * c].float()
+        y = want[..., part * c:(part + 1) * c].float()
+        assert float((x - y).abs().max()) <= 2.0 ** -7 * float(
+            y.abs().max()), part
+
+
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64])
+def test_padded_heads_compute_the_true_widths_function(dh):
+    """Each head zero-padded to the next of BF16_HEAD_DIMS (24 or 128) with q
+    scaled by the true Dh's bf16 constant: the forward and the backward at
+    the padded width, sliced back, within the kernels' bar of the plain
+    versions at the true width (the zeros add nothing; only the float32
+    sums' blocking differs)."""
+    heads, b, s = 4, 2, 40
+    width = fa.padded_head_dim(dh, fa.BF16_HEAD_DIMS)
+    assert width == (24 if dh <= 24 else 128)
+    c = heads * dh
+    qkv = _qkv(b, s, c, seed=dh)
+    g = torch.from_numpy(rng(dh + 1).standard_normal((b, s, c))
+                         .astype(np.float32)).to(BF16)
+    seed = torch.tensor([3], dtype=torch.int32)
+    pad = lambda t: fa._pad_heads(t, dh, width)
+    out = fa._unpad_heads(fa.attention_long_plain(
+        pad(qkv), heads, 0.2, seed, dh ** -0.5), dh, width)
+    want = fa.attention_long_plain(qkv, heads, 0.2, seed)
+    bar = 2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= bar
+    dqkv = fa._unpad_heads(fa.attention_long_plain_bwd(
+        pad(qkv), pad(g), heads, 0.2, seed, dh ** -0.5), dh, width)
+    want = fa.attention_long_plain_bwd(qkv, g, heads, 0.2, seed)
+    for part in range(3):
+        x = dqkv[..., part * c:(part + 1) * c].float()
+        y = want[..., part * c:(part + 1) * c].float()
+        assert float((x - y).abs().max()) <= 2.0 ** -7 * float(
+            y.abs().max()), part
+
+
+def test_bf16_kernel_width_covers_every_head_width():
+    widths = [24, 24, 24, 24, 128, 128, 128, 128, 256]
+    assert [fa.padded_head_dim(d, fa.BF16_HEAD_DIMS)
+            for d in fa.HEAD_DIMS] == widths
+    # the route reports the width the bf16 kernels run, on either entry
+    routes = [fa.attention_route(s, 4 * d, 4, torch.bfloat16)
+              for d in fa.HEAD_DIMS for s in (16, 1024)]
+    assert [r.kernel_head_dim for r in routes] == [
+        w for w in widths for _ in range(2)]
+    assert {r.entry for r in routes} == {"proj", "wide"}
+    with pytest.raises(ValueError, match="256"):
+        fa.padded_head_dim(257, fa.BF16_HEAD_DIMS)
+
+
 def test_scale_is_the_bf16_constant():
     """q is scaled by Dh^-1/2 rounded to bf16, the JAX package's weakly
     typed `q * dh ** -0.5` on a bf16 q: not a power of two at Dh 24 or
-    128, so q * scale is itself rounded."""
+    128, so q * scale is itself rounded (at 256 it is 1/16, exact)."""
     for dh in fa.BF16_HEAD_DIMS:
         scale = fa.bf16_scale(dh ** -0.5)
         want = float(jnp.asarray(dh ** -0.5).astype(jnp.bfloat16))
-        assert scale == want != dh ** -0.5
+        assert scale == want
+        assert (scale != dh ** -0.5) == (dh != 256)
         q = jnp.asarray(rng(3).standard_normal(64).astype(np.float32)) \
             .astype(jnp.bfloat16)
         jax_q = np.array((q * dh ** -0.5).astype(jnp.float32))

@@ -16,6 +16,7 @@ from torch.overrides import TorchFunctionMode
 
 from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
 from gpnf_tpu_torch.ops import kernels, logistic
+from gpnf_tpu_torch.utils import grad_parity
 
 fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 
@@ -1605,11 +1606,12 @@ def _bf16(t):
                                        (64, 16, 96), (16, 256, 512),
                                        (3, 37, 96), (2, 33, 20)])
 def test_bf16_qkv_gemm_matches_plain_on_card(cuda_device, batch, s, c):
-    """The bf16 GEMM at the flagship's three levels, the CLIs' C 512, a
-    ragged M and N, and a K (20) that is not a multiple of 8 (zero-padded
-    by the wrapper): within one bf16 ulp of `bf16_matmul` (plus the float32
-    sums' spread, `bf16_product_close`), two calls bit for bit, one launch
-    counted on the entry and on the bf16 kernel."""
+    """The bf16 GEMM at the flagship's three levels (level 2's K split in 3),
+    the CLIs' C 512 (128 x 128 tiles), a ragged M and N, and a K (20) that
+    is not a multiple of 8 (the kernel's one-value copies): within one bf16
+    ulp of `bf16_matmul` (plus the float32 sums' spread,
+    `bf16_product_close`), two calls bit for bit, one launch counted on the
+    entry and on the bf16 kernel."""
     r = np.random.default_rng(30)
     seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
@@ -1626,8 +1628,8 @@ def test_bf16_qkv_gemm_matches_plain_on_card(cuda_device, batch, s, c):
 
 @pytest.mark.cuda
 def test_bf16_qkv_gemm_takes_unaligned_operands_on_card(cuda_device):
-    """An operand that starts off a 16-byte boundary is copied aligned by
-    the wrapper: the aligned call's bits."""
+    """An operand that starts off a 16-byte boundary takes the kernel's
+    one-value copies: the aligned call's bits."""
     r = np.random.default_rng(31)
     seq = _bf16(_normal(r, (4, 64, 96), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
@@ -1706,46 +1708,74 @@ def test_bf16_proj_forward_launches_the_bf16_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
-    """No fallback: a bf16 backward on the card (the proj and long
-    backwards, the dseq and dW GEMMs), a bf16 head width not built (Dh 64)
-    and mixed bf16 / float32 operands raise before any launch."""
+    """No fallback: what the bf16 kernels do not take raises before any
+    launch: a head width above 256 (on the card as on the CPU), mixed bf16
+    / float32 operands (the proj entry, the GEMMs, the backward), the core
+    entries' float32-only kernels, and bf16 with the fused gated conv (at
+    config time)."""
     r = np.random.default_rng(34)
     seq = _bf16(_normal(r, (2, 64, 96), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
     g = _bf16(_normal(r, (2, 64, 96))).to(cuda_device)
     dqkv = _bf16(_normal(r, (2, 64, 288))).to(cuda_device)
     kernels.reset_launch_counts()
-    for call, name in (
-            (lambda: kernels.fused_attention_proj_bwd(seq, w, g, 4),
-             "fused_attention_proj_bwd"),
-            (lambda: kernels.fused_attention_long_bwd(seq, w, g, 4),
-             "fused_attention_long_bwd"),
-            (lambda: kernels.attention_long_qkv_bwd(dqkv, g, 4),
-             "fused_attention_long_bwd"),
-            (lambda: kernels.attention_dseq_gemm(dqkv, w),
-             "attention_dseq_gemm"),
-            (lambda: kernels.attention_dw_gemm(dqkv, seq),
-             "attention_dw_gemm")):
-        with pytest.raises(TypeError, match=f"{name}.*training slice"):
-            call()
-    wide = _bf16(_normal(r, (2, 64, 3 * 256))).to(cuda_device)  # Dh 64
-    with pytest.raises(ValueError, match="not built in bfloat16"):
+    wide = _bf16(_normal(r, (2, 64, 3 * 4 * 264))).to(cuda_device)  # Dh 264
+    with pytest.raises(ValueError, match="264 not in"):
         kernels.attention_long_qkv(wide, 4)
-    with pytest.raises(TypeError, match="one dtype"):
-        kernels.fused_attention_proj(seq, w.float(), 4)
-    with pytest.raises(TypeError):
-        kernels.attention_qkv_gemm(seq, w.float())
+    with pytest.raises(ValueError, match="264 not in"):
+        kernels.attention_long_qkv_bwd(wide, wide[..., :4 * 264], 4)
+    with pytest.raises(ValueError, match="264 > 256"):
+        kernels.attention_route(64, 4 * 264, 4)
+    for call in (lambda: kernels.fused_attention_proj(seq, w.float(), 4),
+                 lambda: kernels.fused_attention_proj_bwd(seq, w, g.float(),
+                                                          4),
+                 lambda: kernels.attention_long_qkv_bwd(dqkv, g.float(), 4),
+                 lambda: kernels.attention_qkv_gemm(seq, w.float()),
+                 lambda: kernels.attention_dseq_gemm(dqkv, w.float()),
+                 lambda: kernels.attention_dw_gemm(dqkv.float(), seq)):
+        with pytest.raises(TypeError, match="dtype"):
+            call()
+    q = _bf16(_normal(r, (2, 4, 64, 24))).to(cuda_device)
+    with pytest.raises(TypeError, match="fused_attention.*float32"):
+        kernels.fused_attention(q, q, q)
+    with pytest.raises(TypeError, match="fused_attention_qkv.*float32"):
+        kernels.fused_attention_qkv(dqkv, 4)
+    with pytest.raises(ValueError, match="fused_gated_conv"):
+        MarScfConfig(compute_dtype="bfloat16", fused_gated_conv=True)
     counts = kernels.launch_counts()
     assert counts == dict.fromkeys(counts, 0)
 
 
+class NoUpcast(TorchFunctionMode):
+    """Raises where a bf16 tensor is converted to float32 or float64: a
+    bf16 attention entry that detoured through the float32 kernels would
+    (the model itself upcasts by design: the weight norm of its bf16
+    layers is float32, as the JAX package's)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (getattr(func, "__name__", "") in ("float", "double", "to", "type")
+                and isinstance(args[0], torch.Tensor)
+                and args[0].dtype == torch.bfloat16
+                and isinstance(out, torch.Tensor)
+                and out.dtype in (torch.float32, torch.float64)):
+            raise AssertionError(f"bf16 upcast by {func.__name__}")
+        return out
+
+
 @pytest.mark.cuda
-def test_bf16_model_serves_on_card_and_refuses_its_backward(cuda_device):
-    """A small bf16 mAR-SCF on the card: encode bits/dim within the larger
-    of 1e-3 and half of the bf16-vs-float32 gap of the port on the CPU on
-    the same weights; in training mode its first backward raises, naming
-    the attention backward."""
-    small = dict(SMALL, hidden_channels=96)  # Dh 24, a width built in bf16
+def test_bf16_model_trains_on_card(cuda_device):
+    """A small bf16 mAR-SCF (C 96, Dh 24) on the card: encode bits/dim and
+    one training step at dropout 0 against the port on the CPU on the same
+    weights, the loss within the larger of 1e-3 and half of the CPU's
+    bf16-vs-float32 gap; every gradient float32, finite and within its own
+    bar (grad_parity: the larger of 1e-3 of its largest float32 value and
+    3 times its CPU bf16 noise, from the CPU's float32 step and two CPU
+    bf16 steps on weights moved by 2^-22), and the whole gradient's L2
+    distance from the CPU's float32 at most 1.5 times the CPU bf16's; a
+    training step with dropout launches the bf16 backward kernels for
+    every attention call and no float32 attention or GEMM kernel."""
+    small = dict(SMALL, hidden_channels=96, drop_prob=0.0)
     cfg = dict(small, compute_dtype="bfloat16")
     cpu = MarScfFlow(MarScfConfig(**cfg), device="cpu").eval()
     card = MarScfFlow(MarScfConfig(**cfg), device=cuda_device).eval()
@@ -1761,15 +1791,54 @@ def test_bf16_model_serves_on_card_and_refuses_its_backward(cuda_device):
         got = card(x.to(cuda_device), noise=noise.to(cuda_device))[1].cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= max(1e-3, 0.5 * gap)
-    card.train()
-    loss = card(x.to(cuda_device), noise=noise.to(cuda_device))[1].mean()
-    with pytest.raises(TypeError, match="_bwd.*training slice"):
+    moved = []
+    for seed in (1, 2):
+        net = MarScfFlow(MarScfConfig(**cfg), device="cpu")
+        net.load_state_dict(grad_parity.perturbed(cpu, seed))
+        moved.append(net)
+    losses, grads = [], []  # dropout 0: one function on the card and CPU
+    for net, dev in ((cpu, "cpu"), (f32, "cpu"), (card, cuda_device),
+                     *((net, "cpu") for net in moved)):
+        net.train()
+        loss = net(x.to(dev), noise=noise.to(dev))[1].mean()
         loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad.detach().cpu()
+                      for k, p in net.named_parameters()})
+    assert abs(losses[2] - losses[0]) <= max(1e-3, 0.5 * abs(
+        losses[0] - losses[1]))
+    for p in card.parameters():
+        assert p.grad.dtype == torch.float32 and torch.isfinite(
+            p.grad).all()
+    c16, c32, got = grads[:3]
+    rows = grad_parity.bf16_grad_parity(got, c16, c32, grads[3:])
+    assert len(rows) == len(list(card.parameters())) and rows[0][0] <= 1.0, (
+        rows[:4])
+    l2 = lambda g: sum(float(((g[k] - c32[k]) ** 2).sum()) for k in c32)
+    assert l2(got) <= 1.5 ** 2 * l2(c16), (l2(got), l2(c16))
+    train = MarScfFlow(MarScfConfig(**dict(cfg, drop_prob=0.2)),
+                       device=cuda_device).train()
+    train.load_state_dict(cpu.state_dict())
+    kernels.reset_launch_counts()
+    loss = train(x.to(cuda_device), generator=torch.Generator(
+        device=cuda_device).manual_seed(1))[1].mean()
+    loss.backward()
+    counts = kernels.launch_counts()
+    n = counts["attention_fwd_bf16"]
+    assert n > 0 and counts["attention_bwd_bf16"] == n
+    assert counts["attention_qkv_gemm_bf16"] == counts[
+        "attention_qkv_gemm"] == 2 * n
+    for name in ("dseq", "dw"):
+        assert counts[f"attention_{name}_gemm_bf16"] == counts[
+            f"attention_{name}_gemm"] == n
+    assert counts["fused_attention_long_bwd"] == n
+    assert counts["attention_lanes"] == counts["attention_lanes_bwd"] == 0
 
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
-    """The bf16 GEMM and the bf16 forward (Dh 24 and 128, with and without
+    """The bf16 GEMM (every tile, layout and copy width), the bf16 forward
+    and the dq and dK/dV kernels (Dh 24, 128 and 256, with and without
     dropout) hold bf16 HMMA instructions (HMMA.16816.F32.BF16) in their
     SASS."""
     import os
@@ -1782,11 +1851,182 @@ def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
                           or "/usr/local/cuda/bin/cuobjdump"):
         pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
                     "read here")
-    for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 1),
+    for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 12),
                                ("fused_attention_long",
-                                "attention_bf16_fwd_kernel", 4)):
+                                "attention_bf16_fwd_kernel", 6),
+                               ("fused_attention_long",
+                                "attention_bf16_dq_kernel", 6),
+                               ("fused_attention_long",
+                                "attention_bf16_dkv_kernel", 6)):
         _native.build([source])
         hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
                 for fn, row in sass_counts(
                     _native.library_path(source)).items() if pattern in fn}
         assert len(hmma) == n and all(v > 0 for v in hmma.values()), hmma
+
+
+# -- bf16 training: the dq and dK/dV pair, dseq and dW in bf16 ---------------------
+def _bwd_thirds_err(got, want, c):
+    """max |got - want| / max |want| of each third of dqkv (dK, dV, dq)."""
+    return [float((got[..., i * c:(i + 1) * c].float()
+                   - want[..., i * c:(i + 1) * c].float()).abs().max()
+                  / want[..., i * c:(i + 1) * c].float().abs().max())
+            for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,s,c,in_fp32", [
+    (64, 256, 96, True), (64, 64, 96, True), (64, 16, 96, True),
+    (4, 1024, 96, False), (16, 256, 512, False), (3, 100, 96, False),
+    (2, 70, 512, True), (2, 40, 1024, False)])
+def test_bf16_backward_matches_plain_on_card(cuda_device, batch, s, c,
+                                             in_fp32, rate):
+    """The bf16 dq and dK/dV pair at Dh 24 (the flagship's levels with the
+    proj entry's dq, the 64-px level 0, a ragged S), 128 (the CLIs' C 512,
+    a ragged S) and 256, one seed for kernel and plain version (the same
+    mask): each of dK, dV and dq within 2^-7 of its largest |plain| (the
+    forward's bar: the kernels round the same values, summed in another
+    order), two calls bit for bit, one launch counted."""
+    r = np.random.default_rng(40)
+    qkv = _bf16(_normal(r, (batch, s, 3 * c))).to(cuda_device)
+    g = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
+    seed = torch.tensor([12], dtype=torch.int32, device=cuda_device)
+    run = lambda: kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed,
+                                                 scale_dq_in_fp32=in_fp32)
+    before = kernels.attention_bwd_bf16.launches
+    got = run()
+    assert kernels.attention_bwd_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    assert torch.equal(got, run())
+    want = kernels.attention_long_plain_bwd(qkv, g, 4, rate, seed, None,
+                                            in_fp32)
+    assert max(_bwd_thirds_err(got, want, c)) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64, 256])
+def test_bf16_every_width_trains_on_card(cuda_device, dh):
+    """Every head width in HEAD_DIMS that is not built in bf16 runs padded
+    (Dh 4, 8, 16 to 24; 32, 48, 64 to 128), and 256 as it is: the long
+    entry's forward and backward through autograd (rate 0.2, one seed)
+    against the plain versions on the card, the forward within 2^-7 max |v|
+    of the projection, the gradients dseq and dW within 2^-7 of their
+    largest |plain|; the bf16 kernels launched, once each."""
+    r = np.random.default_rng(41 + dh)
+    c = 4 * dh
+    seq = _bf16(_normal(r, (3, 40, c), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
+    g = _bf16(_normal(r, (3, 40, c), 0.5)).to(cuda_device)
+    seed = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    seq_t, w_t = seq.clone().requires_grad_(), w.clone().requires_grad_()
+    out = kernels.fused_attention_long(seq_t, w_t, 4, 0.2, seed)
+    out.backward(g)
+    counts = kernels.launch_counts()
+    assert (counts["attention_fwd_bf16"], counts["attention_bwd_bf16"],
+            counts["attention_dseq_gemm_bf16"],
+            counts["attention_dw_gemm_bf16"]) == (1, 1, 1, 1)
+    pad = fa.padded_head_dim(dh)
+    want = fa._unpad_heads(kernels.attention_long_plain(
+        fa._pad_heads(fa.qkv_plain(seq, w), dh, pad), 4, 0.2, seed,
+        None if pad == dh else dh ** -0.5), dh, pad)
+    bar = 2.0 ** -7 * float(fa.qkv_plain(seq, w)[..., c:2 * c].float()
+                            .abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= bar
+    dqkv = fa._unpad_heads(kernels.attention_long_plain_bwd(
+        fa._pad_heads(fa.qkv_plain(seq, w), dh, pad),
+        fa._pad_heads(g, dh, pad), 4, 0.2, seed,
+        None if pad == dh else dh ** -0.5), dh, pad)
+    dseq, dw = fa._project_bwd(dqkv, seq, w)
+    for got, plain in ((seq_t.grad, dseq), (w_t.grad, dw)):
+        assert got.dtype == torch.bfloat16
+        assert float((got.float() - plain.float()).abs().max()) <= \
+            2.0 ** -7 * float(plain.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_unaligned_operands_on_card(cuda_device):
+    """A bf16 qkv and g that start off a 16-byte boundary are copied
+    aligned by the wrapper before the kernels' cp.async loads: the aligned
+    call's bits, one launch counted."""
+    r = np.random.default_rng(42)
+    qkv = _bf16(_normal(r, (2, 64, 288))).to(cuda_device)
+    g = _bf16(_normal(r, (2, 64, 96))).to(cuda_device)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    want = kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed)
+    shift = lambda t: torch.empty(t.numel() + 1, dtype=torch.bfloat16,
+                                  device=cuda_device)[1:].view_as(t).copy_(t)
+    sq, sg = shift(qkv), shift(g)
+    assert sq.data_ptr() % 16 and sg.data_ptr() % 16
+    before = kernels.attention_bwd_bf16.launches
+    assert torch.equal(kernels.attention_long_qkv_bwd(sq, sg, 4, 0.2, seed),
+                       want)
+    assert kernels.attention_bwd_bf16.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,s,c", [(64, 256, 96), (64, 64, 96),
+                                       (64, 16, 96), (16, 256, 512),
+                                       (3, 37, 96), (2, 33, 20)])
+def test_bf16_dseq_and_dw_gemms_match_plain_on_card(cuda_device, batch, s,
+                                                    c):
+    """dseq = dqkv w (bf16, one bf16 ulp plus the float32 sums' spread of
+    `bf16_matmul`) and dW = dqkv^T seq (float32, within the spread of two
+    orders of its float32 sums of `dw_plain`) at the flagship's levels (dW
+    split along B S), the CLIs' C 512, a ragged M and N and a C (20) that
+    is not a multiple of 8 (one-value copies); two calls bit for bit; one
+    launch counted on each entry and its bf16 kernel; an operand off a
+    16-byte boundary gives the same bits."""
+    r = np.random.default_rng(43)
+    seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
+    dqkv = _bf16(_normal(r, (batch, s, 3 * c), 0.1)).to(cuda_device)
+    before = (kernels.attention_dseq_gemm_bf16.launches,
+              kernels.attention_dw_gemm_bf16.launches)
+    dseq = kernels.attention_dseq_gemm(dqkv, w)
+    dw = kernels.attention_dw_gemm(dqkv, seq)
+    assert (kernels.attention_dseq_gemm_bf16.launches,
+            kernels.attention_dw_gemm_bf16.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert dseq.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert torch.equal(dseq, kernels.attention_dseq_gemm(dqkv, w))
+    assert torch.equal(dw, kernels.attention_dw_gemm(dqkv, seq))
+    d2, s2 = dqkv.reshape(-1, 3 * c), seq.reshape(-1, c)
+    assert fa.bf16_product_close(dseq, fa.bf16_matmul(dqkv, w), d2, w.t())
+    spread = batch * s * 2.0 ** -24 * (d2.float().abs().t()
+                                       @ s2.float().abs())
+    assert bool(((dw - fa.dw_plain(dqkv, seq)).abs() <= spread).all())
+    shifted = torch.empty(dqkv.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view_as(dqkv).copy_(dqkv)
+    assert torch.equal(kernels.attention_dseq_gemm(shifted, w), dseq)
+    assert torch.equal(kernels.attention_dw_gemm(shifted, seq), dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_bf16_proj_backward_launches_the_bf16_kernels(cuda_device, rate):
+    """A bf16 proj backward (the flagship's level 1) runs the bf16 qkv GEMM,
+    the bf16 dq and dK/dV pair and the bf16 dseq and dW GEMMs, one launch
+    each, no library product and no bf16 tensor upcast: dseq and dW (bf16,
+    w's dtype) within 2^-7 of the largest |plain| of
+    `attention_proj_plain_bwd`."""
+    r = np.random.default_rng(44)
+    seq = _bf16(_normal(r, (8, 64, 96), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
+    g = _bf16(_normal(r, (8, 64, 96), 0.5)).to(cuda_device)
+    seed = torch.tensor([4], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    with NoLibraryProducts(), NoUpcast():
+        dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate,
+                                                    seed)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), **PROJ_BWD_COUNTS,
+                      "attention_qkv_gemm_bf16": 1, "attention_bwd_bf16": 1,
+                      "attention_dseq_gemm_bf16": 1,
+                      "attention_dw_gemm_bf16": 1}
+    want = kernels.attention_proj_plain_bwd(seq, w, g, 4, rate, seed)
+    for got, plain in zip((dseq, dw), want):
+        assert got.dtype == plain.dtype == torch.bfloat16
+        assert float((got.float() - plain.float()).abs().max()) <= \
+            2.0 ** -7 * float(plain.float().abs().max())
