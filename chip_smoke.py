@@ -102,10 +102,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      float64 refused, each C = 96 case with its time, the plain version's,
      the port's unfused chain's (forward, forward + backward) and its bound
      (3xTF32's, fp32's beside it), and C = 512 at 16x16 timed; the flagship
-     with the flag on phase 4's seeds and batches (ddi, 20 steps, launches
+     with the flag on phase 4's seeds and batches (ddi, 10 steps, launches
      120 / 120 gated conv, 120 / 120 attention, 12 mixlogcdf a step, train
-     images/s, the median of 3 windows of 10 steps as phase 4's, and peak
-     memory beside phase 4's), eval over 4 batches and
+     images/s over one window of 10 steps, and peak memory beside phase
+     4's), eval over 4 batches and
      one sampling pass on phase 5's weights (120 gated-conv launches each,
      images/s; with --profile, one fused train step traced), fused against
      unfused encode on the card (1e-5 bits/dim), card against CPU at batch
@@ -195,13 +195,43 @@ Phases, each of which raises (exit code != 0) when it fails:
      the CPU's bf16-vs-float32 gap; every gradient tensor within its own
      bar, 3 times its CPU bf16 noise, and the whole gradient in L2); one bf16
      train step of the flagship at C 192 (Dh 48, padded) and of phase 18's
-     --C 512 model, with exact launch counts.
+     --C 512 model, with exact launch counts;
+ 21. the flagship in bf16 with the fused GatedConv (`bench.py`'s
+     BENCH_FUSED_GCONV=1 step): the bf16 gated-conv kernels (the float32
+     kernels' template on bf16 operands, bf16 mma.sync) against their plain
+     bf16 versions at batch 64 on the 32-px levels and the 64-px level 0
+     (C 96), --C 512's 16x16 and 8x8 at batch 16, and C 12 (the narrow
+     path), 48, 160 at batch 4, rate 0 and 0.2 (one seed), out and dx
+     within one bf16 ulp of the largest |plain| plus their sums' spread
+     with at most 5% (out) and 10% (dx) of their values differing, the
+     weight gradients within 4 times the root sum of squares of their
+     terms' bf16 rounding errors element by element and 0.18 times it in
+     rms (`gated_conv_bf16_readings`, which also reads the plain versions
+     with a rounding point moved: each must fail a bar), two calls bit
+     for bit, each call's device launches (a CUDA graph) against the
+     source's plan, each C 96 case
+     timed beside the plain version, the unfused bf16 chain and the
+     float32 kernels, bound at the bf16 rate, bf16 HMMA in every bf16
+     instantiation's SASS, their registers and spills; then the flagship
+     in bf16 with the flag on phase 4's seeds and batches: 10 Adamax steps
+     at dropout 0.2 (losses finite and falling, exact launch counts a
+     step: 120 / 120 gated convs on the bf16 kernels, none on the float32
+     ones, the attention as in phase 20), peak memory beside phase 20's,
+     train images/s in turns with phase 20's unfused bf16 step (2 windows
+     of 5), one step card vs CPU at batch 2 (phase 20's bars; the same
+     step on the card with the gated conv's plain versions in place of its
+     kernels logged beside it), one eval batch and one sampling pass with
+     exact counts; one bf16 fused train
+     step of the 64-px row and of phase 18's --C 512 model, with exact
+     launch counts. Every earlier phase asserts that it launches no bf16
+     gated-conv kernel.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import importlib
 import itertools
@@ -266,7 +296,10 @@ BENCH_SIZES = (1024, 2048, 4096)
 IMAGENET64 = dict(FLAGSHIP, image_shape=(64, 64, 3))
 TRAIN64_STEPS, WINDOW64_STEPS = 10, 5
 FGC = ("fused_gated_conv", "fused_gated_conv_bwd")
-NO_FGC = dict.fromkeys(FGC, 0)  # the default paths launch none
+# the bf16 gated-conv kernels' own counters (phase 21); a bf16 call counts
+# on its entry's too
+FGC_BF16 = ("fused_gated_conv_bf16", "fused_gated_conv_bwd_bf16")
+NO_FGC = dict.fromkeys(FGC + FGC_BF16, 0)  # the default paths launch none
 # the core attention entries (phase 17): no path of the system runs them
 CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
@@ -643,10 +676,12 @@ def check_kernels(device, model, timer):
 
 
 # -- phase 4 -------------------------------------------------------------------
-def train(device, loader, out_dir, seed, card, fused=False):
-    """The flagship training path: ddi, then Adamax steps with dropout; with
-    `fused`, MarScfConfig(fused_gated_conv=True) on the same seeds and
-    batches, timed as the default path is, without the batch-256 step and
+def train(device, loader, out_dir, seed, card, fused=False,
+          steps=TRAIN_STEPS, windows=WINDOWS):
+    """The flagship training path: ddi, then `steps` Adamax steps with
+    dropout, then `windows` timed windows of WINDOW_STEPS; with `fused`,
+    MarScfConfig(fused_gated_conv=True) on the same seeds and batches
+    (phase 16: FGC_TRAIN_STEPS, one window), without the batch-256 step and
     the checkpoint."""
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
     from gpnf_tpu_torch.ops import kernels
@@ -674,15 +709,15 @@ def train(device, loader, out_dir, seed, card, fused=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launch_counts()
-    losses = [float(one_step()) for _ in range(TRAIN_STEPS)]  # gate: each read
+    losses = [float(one_step()) for _ in range(steps)]  # gate: each read
     counts = kernels.launch_counts()
-    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
-    log(f"  {TRAIN_STEPS} steps at batch {BATCH}, dropout {RATE}, warmup "
+    per_step = {k: v / steps for k, v in counts.items()}
+    log(f"  {steps} steps at batch {BATCH}, dropout {RATE}, warmup "
         f"{WARM_UP} samples: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"bits/dim; launches per step {per_step}")
     log(f"  losses {[round(x, 4) for x in losses]}")
     want = {"mixlogcdf_forward": 12, "mixture_inverse": 0, **NO_GP,
-            **NO_CORE, **NO_WIDE, **proj_stages(120, 120),
+            **NO_CORE, **NO_WIDE, **proj_stages(120, 120), **NO_FGC,
             **dict.fromkeys(FGC, 120 if fused else 0)}
     if per_step != want:
         raise AssertionError(f"train launches per step {per_step} != {want}")
@@ -693,7 +728,7 @@ def train(device, loader, out_dir, seed, card, fused=False):
         raise AssertionError(f"{opt.total_notfinite} non-finite updates")
 
     window_s = []
-    for _ in range(WINDOWS):
+    for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(WINDOW_STEPS):
@@ -702,7 +737,7 @@ def train(device, loader, out_dir, seed, card, fused=False):
         window_s.append(time.perf_counter() - t0)
     images_per_s = WINDOW_STEPS * BATCH / statistics.median(window_s)
     peak = torch.cuda.max_memory_allocated(device)
-    log(f"  train {images_per_s:.1f} images/s (median of {WINDOWS} windows "
+    log(f"  train {images_per_s:.1f} images/s (median of {windows} windows "
         f"of {WINDOW_STEPS} steps at batch {BATCH}: {window_s} s) [{card}]")
     log(f"  train peak device memory {peak / 2 ** 30:.3f} GiB at batch "
         f"{BATCH} [{card}]")
@@ -764,9 +799,8 @@ def serve(model, loader, device, seed):
         raise AssertionError(f"eval bits/dim {nll} is not finite and < 30")
     fgc = 120 * n_batches if model.cfg.fused_gated_conv else 0
     want = {"mixlogcdf_forward": 12 * n_batches, "mixture_inverse": 0,
-            **NO_GP, **NO_CORE, **NO_WIDE,
-            **proj_stages(120 * n_batches), "fused_gated_conv": fgc,
-            "fused_gated_conv_bwd": 0}
+            **NO_GP, **NO_CORE, **NO_WIDE, **NO_FGC,
+            **proj_stages(120 * n_batches), "fused_gated_conv": fgc}
     if counts != want:
         raise AssertionError(f"eval launches {counts} != {want}")
     return nll, counts
@@ -784,9 +818,8 @@ def sample(model, out_dir, device, seed, name="samples.png"):
     log(f"  wrote {path} ({os.path.getsize(path)} bytes); {nan_count} NaN "
         f"before the clamp; launches {counts}")
     want = {"mixlogcdf_forward": 0, "mixture_inverse": 12, **NO_GP,
-            **NO_CORE, **NO_WIDE, **proj_stages(120),
-            "fused_gated_conv": 120 if model.cfg.fused_gated_conv else 0,
-            "fused_gated_conv_bwd": 0}
+            **NO_CORE, **NO_WIDE, **NO_FGC, **proj_stages(120),
+            "fused_gated_conv": 120 if model.cfg.fused_gated_conv else 0}
     if counts != want:
         raise AssertionError(f"sampling launches {counts} != {want}")
     with open(path, "rb") as f:
@@ -1620,6 +1653,9 @@ GCONV_WIDTHS = ((12, 16, 16), (12, 4, 4), (48, 16, 16), (48, 4, 4),
                 (160, 16, 16), (160, 4, 4), (512, 16, 16), (512, 8, 8),
                 (512, 4, 4))
 C512_FGC_STEPS = 3  # train steps of the --C 512 model with the flag
+# the flagship with the flag: train steps before one timed window (phase 4
+# takes 20, then three)
+FGC_TRAIN_STEPS = 10
 
 
 def _gated_conv_checks(kernels, wts, g, rate, seed, tag):
@@ -1823,7 +1859,7 @@ def fused_flagship(device, train_loader, loader, out_dir, seed, card, model,
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
 
     out, one_step = train(device, train_loader, out_dir, seed, card,
-                          fused=True)
+                          fused=True, steps=FGC_TRAIN_STEPS, windows=1)
     log(f"  beside phase 4 (unfused, this run): train "
         f"{trained['train_images_per_s']:.1f} images/s, peak "
         f"{trained['train_peak_memory_bytes'] / 2 ** 30:.3f} GiB [{card}]")
@@ -3217,7 +3253,24 @@ def _bf16_train_model(cfg, device, batches, seed):
     return model, opt, one_step
 
 
-def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
+@contextlib.contextmanager
+def gated_conv_through_plain():
+    """A probe, not a path of the system: inside it the fused GatedConv's
+    autograd function computes its plain versions (`gated_conv_plain`,
+    `gated_conv_plain_bwd`) on the card in place of the kernels."""
+    fgc = importlib.import_module(
+        "gpnf_tpu_torch.ops.kernels.fused_gated_conv")
+    saved = fgc._forward, fgc.fused_gated_conv_bwd
+    fgc._forward, fgc.fused_gated_conv_bwd = (fgc.gated_conv_plain,
+                                              fgc.gated_conv_plain_bwd)
+    try:
+        yield
+    finally:
+        fgc._forward, fgc.fused_gated_conv_bwd = saved
+
+
+def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
+                          probe_plain_gated_conv=False):
     """One training step at dropout 0 on `model`'s weights in bf16 on the
     card and on the CPU, in float32 on the CPU, and in bf16 on the CPU on
     weights moved by 2^-22 (two draws), the same images and noise: the loss
@@ -3226,24 +3279,32 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
     larger of 1e-3 of its largest float32 value and 3 times its CPU bf16
     noise, a tensor under 12 elements held to the noise pooled over its
     namesakes); the whole gradient's L2 distance from the CPU's float32 one
-    at most BF16_GRAD_L2_BAR times the CPU bf16's."""
+    at most BF16_GRAD_L2_BAR times the CPU bf16's. probe_plain_gated_conv:
+    the same step once more on the card with the fused GatedConv's plain
+    versions in place of its kernels (`gated_conv_through_plain`), logged
+    beside the card's, not held to a bar: which part of the card's distance
+    from the CPU stays with the kernels."""
     from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
     from gpnf_tpu_torch.utils import grad_parity
 
     noise = torch.rand(x.shape,
                        generator=torch.Generator().manual_seed(noise_seed))
     step = {}
+    probe = (("card_plain_gconv", device, "bfloat16", model.state_dict()),
+             ) if probe_plain_gated_conv else ()
     for name, dev, dtype, weights in (
             ("card", device, "bfloat16", model.state_dict()),
             ("cpu16", "cpu", "bfloat16", model.state_dict()),
             ("cpu32", "cpu", "float32", model.state_dict()),
             *((f"moved{i}", "cpu", "bfloat16",
-               grad_parity.perturbed(model, i)) for i in (1, 2))):
+               grad_parity.perturbed(model, i)) for i in (1, 2)), *probe):
         net = MarScfFlow(MarScfConfig(**{**config, "drop_prob": 0.0,
                                          "compute_dtype": dtype}), device=dev)
         net.load_state_dict(weights)
-        loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
-        loss.backward()
+        with (gated_conv_through_plain() if name == "card_plain_gconv"
+              else contextlib.nullcontext()):
+            loss = torch.mean(net(x.to(dev), noise=noise.to(dev))[1])
+            loss.backward()
         step[name] = (float(loss.detach()), {
             k: p.grad.detach().float().cpu() for k, p in
             net.named_parameters()})
@@ -3269,13 +3330,18 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
     l2_ratio = l2(g16) / l2(c16)
     finite = all(torch.isfinite(g).all() for g in g16.values())
     median = statistics.median(r[0] for r in rows)
+    # the loss's own bf16 spread: the moved CPU runs' distance from the
+    # reference CPU bf16 loss (weights x (1 +- 2^-22))
+    moved_loss = [abs(step[f"moved{i}"][0] - cpu16) for i in (1, 2)]
     fmt = lambda rs: [(round(r[0], 3), r[1], f"diff {r[2]:.3g}",
                        f"noise {r[3]:.3g}", f"max {r[4]:.3g}", r[5])
                       for r in rs[:4]]
     log(f"  bf16 train step at batch {x.shape[0]}, dropout 0: loss card "
         f"{card:.6f} CPU bf16 {cpu16:.6f} CPU float32 {cpu32:.6f} (diff "
         f"{abs(card - cpu16):.3g}, bar {loss_bar:.3g}: the larger of 1e-3 and "
-        f"half the CPU's bf16-vs-float32 gap {gap:.3g}); {len(rows)} "
+        f"half the CPU's bf16-vs-float32 gap {gap:.3g}; two moved CPU bf16 "
+        f"runs {moved_loss[0]:.3g}, {moved_loss[1]:.3g} from the CPU bf16 "
+        f"loss); {len(rows)} "
         f"gradient tensors, each max |card - CPU bf16| over its bar (the "
         f"larger of {grad_parity.FLOOR:g} of its max |float32| and "
         f"{grad_parity.K:g} x its CPU bf16 noise): median {median:.3g}, "
@@ -3288,6 +3354,25 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
         f"{single['moved'][0]:.3g} ({single['moved'][1]}); the whole "
         f"gradient's L2 distance from the CPU's float32 {l2_ratio:.3g} x the "
         f"CPU bf16's (bar {BF16_GRAD_L2_BAR})")
+    probed = {}
+    if probe:
+        loss_p, grads_p = step["card_plain_gconv"]
+        rows_p = grad_parity.bf16_grad_parity(
+            grads_p, c16, c32, [step["moved1"][1], step["moved2"][1]])
+        probed = {"loss": loss_p, "loss_diff_cpu_bf16": abs(loss_p - cpu16),
+                  "loss_diff_card": abs(loss_p - card),
+                  "per_tensor_ratio_median": statistics.median(
+                      r[0] for r in rows_p),
+                  "per_tensor_worst": rows_p[:4],
+                  "grad_l2_ratio": l2(grads_p) / l2(c16)}
+        log(f"  probe, the same step on the card with the fused GatedConv's "
+            f"plain bf16 versions in place of its kernels: loss "
+            f"{loss_p:.6f}, {probed['loss_diff_cpu_bf16']:.3g} from the CPU "
+            f"bf16 loss and {probed['loss_diff_card']:.3g} from the card's "
+            f"with the kernels; gradient tensors over their bars: median "
+            f"{probed['per_tensor_ratio_median']:.3g}, worst "
+            f"{fmt(rows_p)}; L2 {probed['grad_l2_ratio']:.3g} x the CPU "
+            f"bf16's")
     if not (finite and abs(card - cpu16) <= loss_bar and rows[0][0] <= 1.0
             and l2_ratio <= BF16_GRAD_L2_BAR):
         raise AssertionError(f"bf16 train step card vs CPU: loss "
@@ -3295,7 +3380,9 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed):
                              f"gradient {fmt(rows)} or L2 {l2_ratio} > "
                              f"{BF16_GRAD_L2_BAR}")
     return {"loss_card": card, "loss_cpu_bf16": cpu16,
+            "card_plain_gated_conv_probe": probed,
             "loss_cpu_float32": cpu32, "loss_bar": loss_bar,
+            "loss_moved_cpu_bf16_diff": moved_loss,
             "grad_bar_floor": grad_parity.FLOOR, "grad_bar_k": grad_parity.K,
             "grad_l2_ratio": l2_ratio, "per_tensor_ratio_median": median,
             "per_tensor_worst": rows[:4],
@@ -3422,6 +3509,371 @@ def bf16_train_other_widths(device, seed, card):
         if counts != want or not finite:
             raise AssertionError(f"{name} bf16 train step: finite {finite}, "
                                  f"launches {counts} != {want}")
+        out[name] = {"loss": float(loss.detach()), "launches": counts}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 21: training and serving the flagship in bf16 with the fused GatedConv --
+# (batch, H, W, C) of the bf16 gated-conv kernels' checks: the flagship's
+# 32-px levels and the 64-px level 0 (each timed), --C 512's 16x16 and 8x8
+# at its batch, and C 12 (the narrow path: one value a copy), 48 and 160 at
+# a small batch
+FGC_BF16_CASES = ((BATCH, 16, 16, 96), (BATCH, 8, 8, 96), (BATCH, 4, 4, 96),
+                  (BATCH, 32, 32, 96), (C512_BATCH, 16, 16, 512),
+                  (C512_BATCH, 8, 8, 512), (4, 8, 8, 12), (4, 8, 8, 48),
+                  (4, 4, 4, 160))
+GCONV_RESULTS = ("out", "dx", "dw1", "db1", "dwg", "dbg")
+FGC_BF16_STEPS = 10  # train steps of the bf16 fused flagship
+
+
+def fgc_bf16(counts, fwd, bwd=None):
+    """counts with `fwd` bf16 gated-conv forward calls and `bwd` backward
+    calls (as many as forwards by default), on the entries' and the bf16
+    kernels' counters."""
+    bwd = fwd if bwd is None else bwd
+    return {**counts, **dict.fromkeys(FGC[:1] + FGC_BF16[:1], fwd),
+            **dict.fromkeys(FGC[1:] + FGC_BF16[1:], bwd)}
+
+
+# a bf16 fused train step, eval batch and sampling pass: phase 20's and
+# 19's with every GatedConv on the bf16 kernels
+BF16_FGC_TRAIN = fgc_bf16(BF16_TRAIN, FGC_PER_PASS)
+BF16_FGC_EVAL = fgc_bf16(BF16_EVAL, FGC_PER_PASS, 0)
+BF16_FGC_SAMPLE = fgc_bf16(BF16_SAMPLE, FGC_PER_PASS, 0)
+
+
+def check_gated_conv_bf16_kernels(device, timer, reports):
+    """Phase 21's kernel checks: the bf16 forward and backward against the
+    plain bf16 versions at FGC_BF16_CASES, rate 0 and 0.2 (one seed: the
+    same mask), out and dx within one bf16 ulp of the largest |plain| plus
+    their last product's float32 spread with at most 5% (out) and 10%
+    (dx) of their values differing, the weight and bias gradients within GATED_CONV_WGRAD_BAR
+    times the root sum of squares of their terms' bf16 rounding errors,
+    element by element, and GATED_CONV_WGRAD_RMS times it in rms
+    (`gated_conv_bf16_readings`); the plain versions with a rounding point
+    moved or a split's pixels dropped (GATED_CONV_MOVED) each outside
+    those bars; two calls of each bit for bit; the device launches of
+    each call (a CUDA graph) against the source's plan; each C 96 case
+    timed beside the plain version, the
+    port's unfused bf16 chain (the GatedConv module + x on bf16: cuDNN
+    convs and ATen; forward, forward + backward) and the float32 kernels on
+    the same values, bound at the bf16 rate; bf16 HMMA in the SASS of every
+    bf16 instantiation and their ptxas registers and spills."""
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.ops.kernels import _native
+    from gpnf_tpu_torch.ops.mixlogcdf import GatedConv
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
+    fgc = importlib.import_module(
+        "gpnf_tpu_torch.ops.kernels.fused_gated_conv")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(2121)
+    rows = {name: [] for name in FGC_BF16}
+    for batch, h, w, c in FGC_BF16_CASES:
+        module = GatedConv(c, generator=torch.Generator().manual_seed(
+            c + h)).to(device)
+        with torch.no_grad():
+            w1 = module.conv.effective_weight(bf16).permute(
+                2, 3, 1, 0).contiguous()
+            wg = module.gate.effective_weight(bf16)[:, :, 0, 0].t(
+                ).contiguous()
+        b1, bg = (module.conv.b.detach().to(bf16),
+                  module.gate.b.detach().to(bf16))
+        x = torch.randn((batch, h, w, c), generator=gen,
+                        device=device).to(bf16)
+        g = torch.randn((batch, h, w, c), generator=gen,
+                        device=device).to(bf16)
+        args = (x, w1, b1, wg, bg)
+        pixels = batch * h * w
+        timed = c == FLAGSHIP["hidden_channels"]
+        for rate in (0.0, RATE):
+            seed = torch.tensor([2100 + h + c], dtype=torch.int32,
+                                device=device)
+            tag = f"bf16 gated conv (B, H, W, C) {(batch, h, w, c)} rate {rate}"
+            fwd = lambda: kernels.fused_gated_conv(*args, rate, seed)
+            bwd = lambda: kernels.fused_gated_conv_bwd(*args, g, rate, seed)
+            with torch.no_grad():
+                got = (fwd(), *bwd())
+                again = (fwd(), *bwd())
+                sound = fgc.gated_conv_bf16_readings(got, *args, g, rate,
+                                                     seed)
+                # the plain versions with a rounding point moved: each
+                # must fall outside the bars
+                moved = {m: fgc.gated_conv_bf16_readings(
+                    got, *args, g, rate, seed, (m,))
+                    for m in fgc.GATED_CONV_MOVED}
+            errs = {n: sound[n]["max_abs"] for n in GCONV_RESULTS}
+            over = {n: sound[n]["over_bar"] for n in GCONV_RESULTS}
+            weights = GCONV_RESULTS[2:]
+            unit = {k: {n: round(sound[n][k], 4) for n in weights}
+                    for k in ("over_spread", "over_mass", "over_rss",
+                              "rms_over_rss")}
+            shares = {n: sound[n]["share"] for n in ("out", "dx")}
+            caught = {m: not r["held"] for m, r in moved.items()}
+            moved_rss = {m: round(max(r[n]["rms_over_rss"] for n in weights),
+                                  3) for m, r in moved.items()}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            vec = c % 8 == 0
+            plan = {part: fgc.gated_conv_plan(batch, h, w, c, rate > 0.0,
+                                              part == "bwd", vec, bf16)[1]
+                    for part in ("fwd", "bwd")}
+            launches = {"fwd": graph_launches(fwd), "bwd": graph_launches(bwd)}
+            log(f"  {tag}: max |kernel - plain| {errs}; over its bar (<= 1) "
+                f"worst {max(over.values()):.3g}; values differing (<= "
+                f"{fgc.GATED_CONV_BF16_SHARE}) {shares}; weight gradients' "
+                f"worst |diff| over their sums' spread P 2^-24 sum|ab| "
+                f"{unit['over_spread']}, over sum|ab| {unit['over_mass']}, "
+                f"over 2^-8 (sum (ab)^2)^1/2 {unit['over_rss']} (bar "
+                f"{fgc.GATED_CONV_WGRAD_BAR}), its rms {unit['rms_over_rss']}"
+                f" (bar {fgc.GATED_CONV_WGRAD_RMS}); "
+                f"plain versions with a moved rounding point caught: "
+                f"{caught}, their worst weight gradient's rms over 2^-8 "
+                f"(sum (ab)^2)^1/2 {moved_rss}; "
+                f"two calls bit for bit: {same}; device launches "
+                f"{launches} (plan {plan})")
+            if not (sound["held"] and all(caught.values()) and same
+                    and launches == plan):
+                raise AssertionError(f"{tag}: {sound}, moved caught "
+                                     f"{caught}, repeat {same}, launches "
+                                     f"{launches} != {plan}")
+            common = dict(shape=[batch, h, w, c], rate=rate, library_ms=None,
+                          bar_ratio=over, differing_share=shares,
+                          weight_readings=unit, moved_caught=caught,
+                          moved_rms_over_rss=moved_rss, deterministic=same)
+            times = {}
+            if timed:
+                args32, g32 = tuple(t_.float() for t_ in args), g.float()
+                x_nchw = x.permute(0, 3, 1, 2).contiguous()
+                g_nchw = g.permute(0, 3, 1, 2).contiguous()
+                with torch.no_grad():
+                    times = dict(
+                        fwd=timer(fwd), bwd=timer(bwd),
+                        plain_fwd=timer(lambda: kernels.gated_conv_plain(
+                            *args, rate, seed)),
+                        plain_bwd=timer(lambda: kernels.gated_conv_plain_bwd(
+                            *args, g, rate, seed)),
+                        f32_fwd=timer(lambda: kernels.fused_gated_conv(
+                            *args32, rate, seed)),
+                        f32_bwd=timer(lambda: kernels.fused_gated_conv_bwd(
+                            *args32, g32, rate, seed)))
+                module.drop_prob = rate
+                module.train(rate > 0.0)  # the module's own Dropout2d
+                chain = lambda xx: module(xx) + xx
+                with torch.no_grad():
+                    times["unfused_fwd"] = timer(lambda: chain(x_nchw))
+                xr = x_nchw.clone().requires_grad_()
+                params = list(module.parameters())
+                times["unfused_fwd_bwd"] = timer(lambda: torch.autograd.grad(
+                    chain(xr), [xr] + params, g_nchw))
+                module.eval()
+            notes = []
+            for name, part in zip(FGC_BF16, ("fwd", "bwd")):
+                bound_ms, bound_by = _bf16_bound(*fgc.gated_conv_work(
+                    pixels, c, part == "bwd", bf16))
+                row = dict(common, max_abs_err=max(
+                    errs[n] for n in (("out",) if part == "fwd" else
+                                      GCONV_RESULTS[1:])),
+                    max_abs_err_by_result={n: errs[n] for n in (
+                        ("out",) if part == "fwd" else GCONV_RESULTS[1:])},
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    bound_peak="bf16 989 TFLOP/s",
+                    device_launches=launches[part])
+                if timed:
+                    row.update(
+                        ms=times[part], plain_ms=times[f"plain_{part}"],
+                        float32_kernel_ms=times[f"f32_{part}"],
+                        unfused_bf16_ms=times["unfused_fwd" if part == "fwd"
+                                              else "unfused_fwd_bwd"])
+                rows[name].append(row)
+                notes.append(f"{bound_ms * 1e3:.2f} us ({bound_by})")
+            if timed:
+                log(f"  {tag}: kernel fwd {times['fwd']:.4f} bwd "
+                    f"{times['bwd']:.4f} ms | plain bf16 fwd "
+                    f"{times['plain_fwd']:.4f} bwd {times['plain_bwd']:.4f} "
+                    f"ms | float32 kernels fwd {times['f32_fwd']:.4f} bwd "
+                    f"{times['f32_bwd']:.4f} ms | unfused bf16 chain fwd "
+                    f"{times['unfused_fwd']:.4f} fwd+bwd "
+                    f"{times['unfused_fwd_bwd']:.4f} ms | bounds (bf16) "
+                    f"{notes[0]} / {notes[1]}")
+    hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
+            for fn, row in sass_counts(_native.library_path(
+                "fused_gated_conv")).items()
+            if "gated_conv_mma_kernel" in fn and "OpBf16" in fn}
+    ptxas = [r for r in ptxas_kernels(reports.get("fused_gated_conv", ""),
+                                      "gated_conv_mma_kernel")
+             if "OpBf16" in r["kernel"]]
+    log(f"  gated_conv_mma_kernel<OpBf16, ...>: {len(hmma)} instantiations, "
+        f"HMMA.16816.F32.BF16 a SASS: {sorted(hmma.values())}; ptxas "
+        f"registers {sorted({r.get('registers') for r in ptxas})}, spill "
+        f"stores {sorted({r.get('spill_stores') for r in ptxas})}")
+    if not hmma or not all(hmma.values()):
+        raise AssertionError(f"bf16 gated conv: no bf16 HMMA in {hmma}")
+    return rows, {"sass_bf16_hmma": hmma, "ptxas": ptxas}
+
+
+def bf16_fused_flagship(device, loader, test_loader, out_dir, seed, card,
+                        peak20):
+    """Phase 21's flagship: phase 4's configuration, seeds and batches with
+    compute_dtype="bfloat16" and fused_gated_conv=True: ddi, FGC_BF16_STEPS
+    Adamax steps at dropout 0.2 (every loss finite, the last 3 below the
+    first, exact launch counts a step: every GatedConv on the bf16 kernels,
+    none on the float32 ones, the attention as in phase 20), peak memory
+    beside phase 20's; train images/s in turns with phase 20's unfused bf16
+    step (windows of BF16_TRAIN_WINDOW_STEPS); one step card vs CPU at
+    batch 2 (phase 20's bars), and the same step on the card through the
+    plain versions of the gated conv (a probe, logged); one eval batch and
+    one sampling pass, every image finite, with exact launch counts."""
+    from gpnf_tpu_torch.data.datasets import NumpyLoader
+    from gpnf_tpu_torch.models.marscf import MarScfConfig
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.training.loop import evaluate, save_sample_grid
+
+    config = {**FLAGSHIP, "fused_gated_conv": True}
+    batches = [torch.from_numpy(b).to(device)
+               for b, _ in zip(loader, range(16))]
+    model, opt, one_step = _bf16_train_model(
+        MarScfConfig(**config, compute_dtype="bfloat16"), device, batches,
+        seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    losses = [float(one_step()) for _ in range(FGC_BF16_STEPS)]
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = {k: v / FGC_BF16_STEPS for k, v in counts.items()}
+    want = {k: BF16_FGC_TRAIN.get(k, 0) for k in counts}
+    log(f"  bf16 fused: {FGC_BF16_STEPS} steps at batch {BATCH}, dropout "
+        f"{RATE}: losses {[round(v, 4) for v in losses]}; launches per step "
+        f"{per_step}")
+    log(f"  bf16 fused train peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"(phase 20's unfused bf16: {peak20 / 2 ** 30:.3f} GiB) [{card}]")
+    if per_step != want:
+        raise AssertionError(f"bf16 fused train launches per step {per_step}"
+                             f" != {want}")
+    if not (all(math.isfinite(v) for v in losses)
+            and statistics.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"bf16 fused train losses not finite and "
+                             f"falling: {losses}")
+    if opt.total_notfinite:
+        raise AssertionError(f"{opt.total_notfinite} non-finite updates")
+
+    # train images/s, phase 20's unfused bf16 step and the fused one in turns
+    _, _, unfused = _bf16_train_model(
+        MarScfConfig(**FLAGSHIP, compute_dtype="bfloat16"), device, batches,
+        seed)
+    float(unfused())  # its first step, untimed
+    times = {"unfused": [], "fused": []}
+    for _ in range(BF16_TRAIN_WINDOWS):
+        for name, fn in (("unfused", unfused), ("fused", one_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(BF16_TRAIN_WINDOW_STEPS):
+                loss = fn()
+            float(loss)  # each window ends in a loss read
+            times[name].append(time.perf_counter() - t0)
+    ips = {k: BF16_TRAIN_WINDOW_STEPS * BATCH / statistics.median(v)
+           for k, v in times.items()}
+    log(f"  bf16 train images/s in turns (median of {BF16_TRAIN_WINDOWS} "
+        f"windows of {BF16_TRAIN_WINDOW_STEPS} steps at batch {BATCH}): "
+        f"unfused {ips['unfused']:.1f}, fused {ips['fused']:.1f} ({times}) "
+        f"[{card}]")
+    del unfused
+    torch.cuda.empty_cache()
+    checks = bf16_card_vs_cpu_step(model, batches[1][:2].cpu(), device,
+                                   config, 21, probe_plain_gated_conv=True)
+
+    model.eval()
+    eval_loader = NumpyLoader(test_loader.images[:BATCH], BATCH,
+                              shuffle=False)
+    kernels.reset_launch_counts()
+    nll = evaluate(model, eval_loader, generator=torch.Generator(
+        device=device).manual_seed(seed + 80))
+    eval_counts = kernels.launch_counts()
+    want = {k: BF16_FGC_EVAL.get(k, 0) for k in eval_counts}
+    log(f"  bf16 fused eval bits/dim {nll:.4f} over one batch of {BATCH}; "
+        f"launches {eval_counts}")
+    if eval_counts != want or not (math.isfinite(nll) and nll < 30.0):
+        raise AssertionError(f"bf16 fused eval: {nll}, launches "
+                             f"{eval_counts} != {want}")
+    kernels.reset_launch_counts()
+    path, nan_count = save_sample_grid(
+        model, os.path.join(out_dir, "samples_bf16_fgc.png"), n=BATCH,
+        generator=torch.Generator(device=device).manual_seed(seed + 81))
+    sample_counts = kernels.launch_counts()
+    want = {k: BF16_FGC_SAMPLE.get(k, 0) for k in sample_counts}
+    log(f"  bf16 fused sampling pass: wrote {path}; {nan_count} NaN before "
+        f"the clamp; launches {sample_counts}")
+    if sample_counts != want or nan_count:
+        raise AssertionError(f"bf16 fused sampling: {nan_count} NaN, "
+                             f"launches {sample_counts} != {want}")
+    return {"losses": losses, "launches": counts,
+            "launches_per_step": per_step, "train_peak_memory_bytes": peak,
+            "unfused_bf16_train_peak_memory_bytes": peak20,
+            "train_images_per_s": ips, "train_window_s": times,
+            "card_vs_cpu": checks, "eval_bits_per_dim": nll,
+            "eval_launches": eval_counts, "sample_launches": sample_counts}
+
+
+def bf16_fused_other_models(device, seed, card):
+    """Phase 21's other models: one bf16 fused train step (dropout 0.2) of
+    the 64-px row (phase 14's configuration; level 0 the long entry at S
+    1024) and of phase 18's --C 512 model (L 3, K 2, batch 16), on random
+    weights after ddi: the loss and every gradient finite, exact launch
+    counts."""
+    import dataclasses
+
+    from gpnf_tpu_torch.data.datasets import NumpyLoader, get_dataset
+    from gpnf_tpu_torch.models.marscf import MarScfConfig, MarScfFlow
+    from gpnf_tpu_torch.ops import kernels
+    from gpnf_tpu_torch.train_marscf import model_config, parse_args
+
+    c512 = dataclasses.replace(model_config(parse_args(
+        [*C512_ARGS, "--compute_dtype", "bfloat16"]),
+        compute_dtype="bfloat16"), fused_gated_conv=True)
+    # 64 px: levels 1 and 2 on the proj entry (80 calls a pass), level 0 on
+    # the long one, its projection a plain product, its attention the bf16
+    # forward and backward kernels
+    step64 = plus(bf16_step_counts(80, 80, 12), fused_attention_long=40,
+                  fused_attention_long_bwd=40, attention_fwd_bf16=40,
+                  attention_bwd_bf16=40)
+    out = {}
+    for name, cfg, batch, want in (
+            ("imagenet64", MarScfConfig(**IMAGENET64, fused_gated_conv=True,
+                                        compute_dtype="bfloat16"), BATCH,
+             fgc_bf16(step64, FGC_PER_PASS)),
+            ("c512", c512, C512_BATCH,
+             fgc_bf16(bf16_step_counts(C512_ATTN, 0, 6), C512_ATTN))):
+        raw = get_dataset("imagenet_64" if name == "imagenet64" else
+                          "synthetic", batch, seed=seed)[0].images[:batch]
+        x = torch.from_numpy(next(iter(NumpyLoader(raw, batch, shuffle=False
+                                                   )))).to(device)
+        model = MarScfFlow(cfg, device=device, generator=torch.Generator(
+            ).manual_seed(seed + 90))
+        gen = torch.Generator(device=device).manual_seed(seed + 91)
+        model.ddi(x, generator=gen)
+        model.train()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(x, generator=gen)[1].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        finite = math.isfinite(float(loss.detach())) and all(
+            torch.isfinite(p.grad).all() for p in model.parameters()
+            if p.grad is not None)
+        want = {k: want.get(k, 0) for k in counts}
+        log(f"  {name} in bf16 with the flag: one train step at batch "
+            f"{batch}, loss {float(loss.detach()):.4f} bits/dim, every "
+            f"gradient finite: {finite}, {step_s:.3f} s with the first "
+            f"call's setup [{card}]; launches {counts}")
+        if counts != want or not finite:
+            raise AssertionError(f"{name} bf16 fused train step: finite "
+                                 f"{finite}, launches {counts} != {want}")
         out[name] = {"loss": float(loss.detach()), "launches": counts}
         del model
         torch.cuda.empty_cache()
@@ -3590,6 +4042,18 @@ def main():
                                      trained["train_peak_memory_bytes"])
     bf16_train.update(bf16_train_other_widths(device, args.seed, card))
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
+    log("== 21. the flagship in bf16 with the fused GatedConv: the bf16 "
+        "gated-conv kernels vs plain versions, the flagship's train steps, "
+        "eval and sampling, the 64-px row and --C 512")
+    t0 = time.perf_counter()
+    fgc16_rows, fgc16_build = check_gated_conv_bf16_kernels(device, timer,
+                                                            reports)
+    log(f"  phase 21's kernel checks took {time.perf_counter() - t0:.1f} s")
+    fgc16 = bf16_fused_flagship(device, train_loader, test_loader, args.out,
+                                args.seed, card,
+                                bf16_train["train_peak_memory_bytes"])
+    fgc16.update(bf16_fused_other_models(device, args.seed, card))
+    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -3651,6 +4115,13 @@ def main():
                                      attention[1] + "416"),
         "attention_dw_gemm_bf16": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
                                    attention[1] + "416"),
+        # the bf16 fused GatedConv (phase 21): the same kernel template on
+        # bf16 operands
+        "fused_gated_conv_bf16": ("gpnf_tpu_torch/csrc/fused_gated_conv.cu",
+                                  "gpnf_tpu/ops/pallas/fused_gated_conv.py:139"),
+        "fused_gated_conv_bwd_bf16": (
+            "gpnf_tpu_torch/csrc/fused_gated_conv.cu",
+            "gpnf_tpu/ops/pallas/fused_gated_conv.py:150"),
     }
     # the headline shape of each GP kernel on the titular run (n = 1024):
     # the Cholesky in float32, the solve of the Cholesky VJP (p = n, L^T),
@@ -3690,7 +4161,12 @@ def main():
                     "eval_c512_bf16": bf16["c512"]["eval_launches"][name],
                     "train_bf16": bf16_train["launches"][name],
                     "train_c192_bf16": bf16_train["c192"]["launches"][name],
-                    "train_c512_bf16": bf16_train["c512"]["launches"][name]}
+                    "train_c512_bf16": bf16_train["c512"]["launches"][name],
+                    "train_fgc_bf16": fgc16["launches"][name],
+                    "eval_fgc_bf16": fgc16["eval_launches"][name],
+                    "sample_fgc_bf16": fgc16["sample_launches"][name],
+                    "train64_fgc_bf16": fgc16["imagenet64"]["launches"][name],
+                    "train_c512_fgc_bf16": fgc16["c512"]["launches"][name]}
         entry = {"name": name, "route": "cuda", "source": meta[name][0],
                  "replaces": meta[name][1],
                  "launches": sum(launches.values()),
@@ -3715,6 +4191,35 @@ def main():
             if name == "tril_solve":
                 entry["device_launches"] = gp_kernels[
                     "tril_solve_device_launches"]
+        elif name in FGC_BF16:
+            # the 32-px level 0 (16x16) at the training rate; the port's
+            # unfused bf16 chain and the float32 kernels beside it, as no
+            # library call computes the block
+            rows = fgc16_rows[name]
+            top = [r for r in rows if (tuple(r["shape"]), r["rate"]) ==
+                   ((BATCH, 16, 16, FLAGSHIP["hidden_channels"]), RATE)][0]
+            bwd = name == "fused_gated_conv_bwd_bf16"
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                bound_peak=top["bound_peak"], library_ms=None,
+                unfused_bf16_ms=top["unfused_bf16_ms"],
+                float32_kernel_ms=top["float32_kernel_ms"],
+                device_launches_a_call=top["device_launches"],
+                shape=f"32-px level 0 (16x16), batch {BATCH}, C 96, rate "
+                      f"{RATE}; unfused_bf16_ms the GatedConv module + x on "
+                      f"bf16, " + ("forward + backward" if bwd else
+                                   "forward"),
+                # bf16 mma.sync implicit GEMMs, mma_bf16.cuh
+                device_kernels=["gated_conv_mma_kernel<OpBf16, ...>",
+                                "sum_splits_kernel", "drop_scale_kernel"] + (
+                    ["col_sums_kernel"] if bwd else []),
+                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh",
+                         "gpnf_tpu_torch/csrc/philox.cuh"],
+                ptxas=fgc16_build["ptxas"],
+                sass_bf16_hmma=fgc16_build["sass_bf16_hmma"],
+                per_case=rows)
         elif name in FGC:
             # the 32-px level 0 (16x16) at the training rate; the unfused
             # chain's times beside it, as no library call computes the block
@@ -3736,8 +4241,9 @@ def main():
                                 "sum_splits_kernel", "drop_scale_kernel"],
                 headers=["gpnf_tpu_torch/csrc/mma_tf32.cuh",
                          "gpnf_tpu_torch/csrc/philox.cuh"],
-                ptxas=ptxas_kernels(reports.get("fused_gated_conv", ""),
-                                    "gated_conv_mma_kernel"),
+                ptxas=[r for r in ptxas_kernels(
+                    reports.get("fused_gated_conv", ""),
+                    "gated_conv_mma_kernel") if "OpF32" in r["kernel"]],
                 per_case=rows)
         elif name in BF16 and name not in bf16_rows:
             # phase 20's kernels at the flagship's level 0 (the backward at
@@ -3939,10 +4445,11 @@ def main():
                                   "agreement": core_kernels["agreement"]},
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],
                         "flagship_routes": flagship_routes},
-               "bf16": bf16, "bf16_train": bf16_train, "kernels": record}
+               "bf16": bf16, "bf16_train": bf16_train,
+               "bf16_fused_gated_conv": fgc16, "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    log(f"== phases 1-20 passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== phases 1-21 passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

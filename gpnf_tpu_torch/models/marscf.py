@@ -33,8 +33,8 @@ sampling stay float32. Parameters are float32 under either dtype. The bf16
 path serves (eval bits/dim, sampling) and trains on the card: the
 attention's forward and backward run bf16 kernels at every head width, and
 parameters, the Adamax state, the loss and every log-det stay float32.
-`fused_gated_conv` runs float32 only, and a bfloat16 config with it is
-refused.
+With `fused_gated_conv` in bfloat16 the fused GatedConv runs its bf16
+kernels (`bench.py`'s BENCH_FUSED_GCONV=1 step).
 """
 from __future__ import annotations
 
@@ -79,9 +79,6 @@ class MarScfConfig:
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {self.compute_dtype!r} is not "
                              f"one of {tuple(COMPUTE_DTYPES)}")
-        if self.compute_dtype == "bfloat16" and self.fused_gated_conv:
-            raise ValueError("fused_gated_conv runs float32 only: its "
-                             "bfloat16 kernels are not ported yet")
 
     @property
     def torch_compute_dtype(self):

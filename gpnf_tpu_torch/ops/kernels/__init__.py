@@ -21,7 +21,9 @@ from .fused_attention import (attention_bwd_bf16, attention_dseq_gemm,
                               fused_attention_proj, fused_attention_proj_bwd,
                               fused_attention_qkv, fused_attention_qkv_bwd)
 from .fused_coupling import fused_affine_forward, fused_affine_plain
-from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bwd,
+from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bf16,
+                               fused_gated_conv_bwd,
+                               fused_gated_conv_bwd_bf16,
                                gated_conv_keep_plain, gated_conv_plain,
                                gated_conv_plain_bwd)
 from .fused_mixlogcdf import mixlogcdf_forward, mixlogcdf_plain
@@ -37,7 +39,8 @@ KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            attention_lanes_bwd, attention_qkv_gemm, attention_dseq_gemm,
            attention_dw_gemm, attention_qkv_gemm_bf16, attention_fwd_bf16,
            attention_bwd_bf16, attention_dseq_gemm_bf16,
-           attention_dw_gemm_bf16)
+           attention_dw_gemm_bf16, fused_gated_conv_bf16,
+           fused_gated_conv_bwd_bf16)
 
 
 def reset_launch_counts() -> None:

@@ -66,7 +66,9 @@ SIGNATURES = {
     "fused_gated_conv": {
         "gpnf_gated_conv_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _L, _P],
         "gpnf_gated_conv_bwd": [_P] * 16 + [_I] * 4 + [_U, _F, _L, _P],
-        "gpnf_gated_conv_plan": [_I] * 7 + [ctypes.POINTER(_L),
+        "gpnf_gated_conv_fwd_bf16": [_P] * 8 + [_I] * 4 + [_U, _F, _L, _P],
+        "gpnf_gated_conv_bwd_bf16": [_P] * 17 + [_I] * 4 + [_U, _F, _L, _P],
+        "gpnf_gated_conv_plan": [_I] * 8 + [ctypes.POINTER(_L),
                                             ctypes.POINTER(_I)],
     },
     "fused_attention": {

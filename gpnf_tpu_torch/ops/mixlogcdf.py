@@ -115,17 +115,24 @@ class GatedConv(nn.Module):
         """The block + x in one `fused_gated_conv` call, x (B, H, W, C)
         channel-last and contiguous -> (B, H, W, C): the JAX package's
         `GatedConv.apply_fused`. Gradients reach v, g and b through the
-        effective weights."""
-        w1 = self.conv.effective_weight().permute(2, 3, 1, 0).contiguous()
-        wg = self.gate.effective_weight()[:, :, 0, 0].t().contiguous()
+        effective weights. On bf16 x the weights and biases are bf16, as the
+        JAX package's `_cast_params` leaves them: the weights rounded as
+        the unfused layers round theirs (`effective_weight(dtype)`), the
+        biases rounded once."""
+        dtype = x.dtype if x.dtype == torch.bfloat16 else None
+        w1 = self.conv.effective_weight(dtype).permute(2, 3, 1,
+                                                       0).contiguous()
+        wg = self.gate.effective_weight(dtype)[:, :, 0, 0].t().contiguous()
+        b1, bg = self.conv.b, self.gate.b
+        if dtype is not None:
+            b1, bg = b1.to(dtype), bg.to(dtype)
         rate, seed = 0.0, None
         if self.training and self.drop_prob > 0.0:
             # drawn on the device: no host sync per call
             rate = self.drop_prob
             seed = torch.randint(0, 2 ** 30, (1,), generator=generator,
                                  dtype=torch.int32, device=x.device)
-        return fused_gated_conv(x, w1, self.conv.b, wg, self.gate.b, rate,
-                                seed)
+        return fused_gated_conv(x, w1, b1, wg, bg, rate, seed)
 
 
 def sinusoidal_pos_enc(seq_len: int, num_channels: int, device=None):

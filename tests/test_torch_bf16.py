@@ -245,8 +245,19 @@ def test_config_rejects_other_dtypes(bad):
 
 
 def test_config_refuses_bf16_with_the_fused_gated_conv():
-    with pytest.raises(ValueError, match="fused_gated_conv"):
-        MarScfConfig(compute_dtype="bfloat16", fused_gated_conv=True)
+    """No longer refused: the config builds, and its couplings carry the
+    flag in bf16 (every block's GatedConv runs the fused entry on bf16
+    data, whose bf16 kernels tests/test_torch_gated_conv_bf16.py holds to
+    the Pallas ones)."""
+    cfg = MarScfConfig(**TINY, compute_dtype="bfloat16",
+                       fused_gated_conv=True)
+    assert cfg.torch_compute_dtype == torch.bfloat16 and cfg.fused_gated_conv
+    nets = [m for m in MarScfFlow(cfg, device="cpu").modules()
+            if isinstance(m, tmix.MixLogCDFNet)]
+    assert len(nets) == TINY["L"] * TINY["K"]
+    for net in nets:
+        assert net.compute_dtype == torch.bfloat16
+        assert all(block.fused_gconv for block in net.blocks)
 
 
 class _Stop(Exception):

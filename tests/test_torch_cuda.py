@@ -1710,9 +1710,9 @@ def test_bf16_proj_forward_launches_the_bf16_kernels(cuda_device):
 def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
     """No fallback: what the bf16 kernels do not take raises before any
     launch: a head width above 256 (on the card as on the CPU), mixed bf16
-    / float32 operands (the proj entry, the GEMMs, the backward), the core
-    entries' float32-only kernels, and bf16 with the fused gated conv (at
-    config time)."""
+    / float32 operands (the proj entry, the GEMMs, the backward, the fused
+    gated conv's forward and backward), the core entries' float32-only
+    kernels."""
     r = np.random.default_rng(34)
     seq = _bf16(_normal(r, (2, 64, 96), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
@@ -1740,8 +1740,14 @@ def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
         kernels.fused_attention(q, q, q)
     with pytest.raises(TypeError, match="fused_attention_qkv.*float32"):
         kernels.fused_attention_qkv(dqkv, 4)
-    with pytest.raises(ValueError, match="fused_gated_conv"):
-        MarScfConfig(compute_dtype="bfloat16", fused_gated_conv=True)
+    x, w1, b1, wg, bg, g = (_bf16(t_).to(cuda_device) for t_ in
+                            _gated_conv_inputs("cpu", 16, 8, 8))
+    for call in (lambda: kernels.fused_gated_conv(x, w1.float(), b1, wg, bg),
+                 lambda: kernels.fused_gated_conv(x, w1, b1, wg, bg.float()),
+                 lambda: kernels.fused_gated_conv_bwd(x, w1, b1, wg, bg,
+                                                      g.float())):
+        with pytest.raises(TypeError, match="fused_gated_conv.*dtype"):
+            call()
     counts = kernels.launch_counts()
     assert counts == dict.fromkeys(counts, 0)
 
@@ -2030,3 +2036,209 @@ def test_bf16_proj_backward_launches_the_bf16_kernels(cuda_device, rate):
         assert got.dtype == plain.dtype == torch.bfloat16
         assert float((got.float() - plain.float()).abs().max()) <= \
             2.0 ** -7 * float(plain.float().abs().max())
+
+
+# -- the fused GatedConv in bf16 (compute_dtype="bfloat16", fused_gated_conv) --------
+GATED_CONV_NAMES = ("out", "dx", "dw1", "db1", "dwg", "dbg")
+
+
+def _gated_conv_bf16_inputs(device, c, h, w, batch, seed=0):
+    return [_bf16(t_).to(device) for t_ in _gated_conv_inputs(
+        "cpu", c, h, w, batch=batch, seed=seed)]
+
+
+def _gated_conv_bf16_held(got, args, rate, seed, moved=False):
+    """Each result of the bf16 kernels (out, then dx, dw1, db1, dwg, dbg)
+    within its bar of the plain bf16 versions (`gated_conv_bf16_readings`:
+    out and dx bf16 with at most 5% and 10% of their values differing,
+    the weight and bias gradients float32); with `moved`, the plain
+    versions with a rounding point moved each outside them (C >= 48: a
+    bias gradient of a few channels may miss a fault that moves each term
+    by a third of its rounding error)."""
+    x, w1, b1, wg, bg, g = args
+    fgc = importlib.import_module(
+        "gpnf_tpu_torch.ops.kernels.fused_gated_conv")
+    for name, a in zip(GATED_CONV_NAMES, got):
+        assert a.dtype == (torch.bfloat16 if name in ("out", "dx")
+                           else torch.float32), name
+        assert torch.isfinite(a).all(), name
+    readings = fgc.gated_conv_bf16_readings(got, *args, rate, seed)
+    assert readings["held"], "; ".join(
+        f"{n} " + " ".join(f"{k} {v:.4g}" for k, v in readings[n].items()
+                           if k in ("over_bar", "share", "rms_over_rss"))
+        for n in GATED_CONV_NAMES)
+    for point in fgc.GATED_CONV_MOVED if moved else ():
+        assert not fgc.gated_conv_bf16_readings(got, *args, rate, seed,
+                                                (point,))["held"], point
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("c,h,w,batch", [
+    (96, 16, 16, 64), (96, 8, 8, 64), (96, 4, 4, 64), (96, 32, 32, 16),
+    (512, 16, 16, 16), (512, 8, 8, 16), (512, 4, 4, 16), (12, 16, 16, 16),
+    (12, 4, 4, 16), (48, 16, 16, 16), (48, 4, 4, 16), (160, 16, 16, 16),
+    (160, 4, 4, 16), (13, 5, 7, 4), (4, 6, 6, 4), (128, 8, 8, 4)])
+def test_gated_conv_bf16_kernels_match_plain_on_card(cuda_device, c, h, w,
+                                                     batch, rate):
+    """One seed for kernel and plain version (the same mask): out and dx
+    within one bf16 ulp of the largest |plain| plus their last product's
+    float32 spread with at most 5% (out) and 10% (dx) of their values
+    differing, each weight and bias gradient within its bar
+    (`gated_conv_bf16_readings`), which the plain versions with a rounding
+    point moved miss; a call counts
+    one launch on its entry and one on its bf16 counter. The paths' shapes
+    (the 32-px levels at batch 64, the 64-px level 0, --C 512's levels),
+    the narrow path (C 13, C 4) and every tile (C 96 on 64 x 96, C 128 on 64
+    x 128, C 512 on 128 x 128), split K at the small images."""
+    args = _gated_conv_bf16_inputs(cuda_device, c, h, w, batch)
+    seed = torch.tensor([4242 + c], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    out = kernels.fused_gated_conv(*args[:5], rate, seed)
+    grads = kernels.fused_gated_conv_bwd(*args, rate, seed)
+    counts = kernels.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "fused_gated_conv": 1,
+                      "fused_gated_conv_bf16": 1, "fused_gated_conv_bwd": 1,
+                      "fused_gated_conv_bwd_bf16": 1}
+    _gated_conv_bf16_held((out, *grads), args, rate, seed, moved=c >= 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [96, 160])
+def test_gated_conv_bf16_bwd_repeats_bit_for_bit(cuda_device, c):
+    """Two calls of the bf16 forward and backward give the same bits (the
+    splits and db1's row ranges summed in a fixed order)."""
+    args = _gated_conv_bf16_inputs(cuda_device, c, 16, 16, 8)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(kernels.fused_gated_conv(*args[:5], 0.2, seed),
+                       kernels.fused_gated_conv(*args[:5], 0.2, seed))
+    first = kernels.fused_gated_conv_bwd(*args, 0.2, seed)
+    again = kernels.fused_gated_conv_bwd(*args, 0.2, seed)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_gated_conv_bf16_takes_misaligned_operands(cuda_device):
+    """x and g starting 2 bytes past a 16-byte boundary take the narrow
+    path (one value a copy): within the bars of the plain versions on the
+    aligned tensors."""
+    args = _gated_conv_bf16_inputs(cuda_device, 16, 8, 8, 4)
+    shift = lambda t_: torch.cat([t_.new_zeros(1), t_.flatten()])[1:].view(
+        t_.shape)
+    xs, gs = shift(args[0]), shift(args[5])
+    assert xs.data_ptr() % 16 == 2 and xs.is_contiguous()
+    out = kernels.fused_gated_conv(xs, *args[1:5])
+    grads = kernels.fused_gated_conv_bwd(xs, *args[1:5], gs)
+    _gated_conv_bf16_held((out, *grads), args, 0.0, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 16, 16, 96), (64, 4, 4, 96),
+                                   (64, 32, 32, 96), (16, 16, 16, 512),
+                                   (16, 4, 4, 512), (4, 5, 7, 13)])
+def test_gated_conv_bf16_plan_launches(cuda_device, shape):
+    """A bf16 call launches as many kernels as the source's plan says (the
+    kernel nodes of a CUDA graph that captures it): its products, their
+    split sums, the mask table at rate > 0, and in the backward db1's two
+    column-sum launches (so at least 8 a backward call)."""
+    from gpnf_tpu_torch.ops.kernels.fused_gated_conv import gated_conv_plan
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+    b, h, w, c = shape
+    args = _gated_conv_bf16_inputs(cuda_device, c, h, w, b)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    for rate in (0.0, 0.2):
+        fwd = gated_conv_plan(b, h, w, c, rate > 0.0, False, c % 8 == 0,
+                              torch.bfloat16)[1]
+        bwd = gated_conv_plan(b, h, w, c, rate > 0.0, True, c % 8 == 0,
+                              torch.bfloat16)[1]
+        assert graph_launches(lambda: kernels.fused_gated_conv(
+            *args[:5], rate, seed)) == fwd
+        assert graph_launches(lambda: kernels.fused_gated_conv_bwd(
+            *args, rate, seed)) == bwd
+        assert bwd >= 8 + (rate > 0.0)
+
+
+@pytest.mark.cuda
+def test_gated_conv_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
+    """Every bf16 instantiation of the gated-conv kernel (OpBf16: each
+    product, tile and copy width) holds bf16 HMMA instructions
+    (HMMA.16816.F32.BF16) and no TF32 one; the float32 ones the reverse."""
+    import os
+    import shutil
+
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    if not os.path.exists(shutil.which("cuobjdump")
+                          or "/usr/local/cuda/bin/cuobjdump"):
+        pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
+                    "read here")
+    _native.build(["fused_gated_conv"])
+    rows = {fn: row["hmma_ops"] for fn, row in sass_counts(
+        _native.library_path("fused_gated_conv")).items()
+        if "gated_conv_mma_kernel" in fn}
+    bf16 = {fn: ops for fn, ops in rows.items() if "OpBf16" in fn}
+    f32 = {fn: ops for fn, ops in rows.items() if "OpF32" in fn}
+    assert bf16 and f32 and len(bf16) + len(f32) == len(rows)
+    for ops in bf16.values():
+        assert ops.get("HMMA.16816.F32.BF16", 0) > 0 and not any(
+            "TF32" in op for op in ops), ops
+    for ops in f32.values():
+        assert ops.get("HMMA.1688.F32.TF32", 0) > 0 and not any(
+            "BF16" in op for op in ops), ops
+
+
+@pytest.mark.cuda
+def test_bf16_fused_model_trains_on_card(cuda_device):
+    """A small bf16 mAR-SCF with fused_gated_conv (C 96) on the card: one
+    training step at dropout 0 against the port on the CPU on the same
+    weights, the loss within the larger of 1e-3 and half of the CPU's
+    bf16-vs-float32 gap, every gradient within its own grad_parity bar
+    (the CPU's float32 step and two CPU bf16 steps on moved weights) and
+    the whole gradient's L2 distance from the CPU's float32 at most 1.5
+    times the CPU bf16's; a step at dropout 0.2 launches only bf16
+    gated-conv kernels, one each way a block."""
+    small = dict(SMALL, hidden_channels=96, drop_prob=0.0,
+                 fused_gated_conv=True)
+    cfg = dict(small, compute_dtype="bfloat16")
+    cpu = MarScfFlow(MarScfConfig(**cfg), device="cpu")
+    card = MarScfFlow(MarScfConfig(**cfg), device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    f32 = MarScfFlow(MarScfConfig(**small), device="cpu")
+    f32.load_state_dict(cpu.state_dict())
+    moved = []
+    for seed in (1, 2):
+        net = MarScfFlow(MarScfConfig(**cfg), device="cpu")
+        net.load_state_dict(grad_parity.perturbed(cpu, seed))
+        moved.append(net)
+    x = torch.from_numpy(np.random.default_rng(36).random(
+        (2, 3, 16, 16), dtype=np.float32) - 0.5)
+    noise = torch.full_like(x, 0.5)
+    losses, grads = [], []
+    for net, dev in ((cpu, "cpu"), (f32, "cpu"), (card, cuda_device),
+                     *((net, "cpu") for net in moved)):
+        net.train()
+        loss = net(x.to(dev), noise=noise.to(dev))[1].mean()
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad.detach().cpu()
+                      for k, p in net.named_parameters()})
+    assert abs(losses[2] - losses[0]) <= max(1e-3, 0.5 * abs(
+        losses[0] - losses[1]))
+    c16, c32, got = grads[:3]
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in got.values())
+    rows = grad_parity.bf16_grad_parity(got, c16, c32, grads[3:])
+    assert len(rows) == len(c32) and rows[0][0] <= 1.0, rows[:4]
+    l2 = lambda g: sum(float(((g[k] - c32[k]) ** 2).sum()) for k in c32)
+    assert l2(got) <= 1.5 ** 2 * l2(c16), (l2(got), l2(c16))
+    train = MarScfFlow(MarScfConfig(**dict(cfg, drop_prob=0.2)),
+                       device=cuda_device).train()
+    train.load_state_dict(cpu.state_dict())
+    kernels.reset_launch_counts()
+    train(x.to(cuda_device), generator=torch.Generator(
+        device=cuda_device).manual_seed(1))[1].mean().backward()
+    counts = kernels.launch_counts()
+    blocks = SMALL["L"] * SMALL["K"] * SMALL["num_blocks"]
+    for name in ("fused_gated_conv", "fused_gated_conv_bwd"):
+        assert counts[name] == counts[f"{name}_bf16"] == blocks, counts
