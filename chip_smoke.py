@@ -164,7 +164,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      (within one bf16 ulp plus the fp32 sums' spread) at the flagship's
      three levels and C 512, the bf16 tensor-core forward (within 2^-7
      max |v|) there and at the 64-px level 0, rate 0 and 0.2, two calls
-     bit for bit, each with its time, the plain version's, the library
+     bit for bit, out bit for bit the same with the statistics' store
+     that training's forward adds (its (m, 1/l) within 1e-4 of the plain
+     statistics), each with its time, the plain version's, the library
      call's on bf16 and its bound at the bf16 rate, and bf16 HMMA in each
      kernel's SASS; then phase 5's weights in bf16: eval bits/dim over
      phase 5's batches (exact launch counts, 2 device launches a proj
@@ -176,8 +178,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      512 model. Every earlier phase asserts that it launches no bf16
      kernel;
  20. training the flagship in bf16 (`bench.py`'s default train step): the
-     bf16 dq and dK/dV pair against the plain bf16 backward (each of dK, dV
-     and dq within 2^-7 of its largest |plain|) at the flagship's three
+     bf16 dq and dK/dV pair from the forward's statistics against the
+     plain bf16 backward (each of dK, dV and dq within 2^-7 of its largest
+     |plain|; 2 device launches a call, from a CUDA graph) at the flagship's three
      levels (the proj entry's dq recipe), the 64-px level 0 and C 512 (the
      long entry's), rate 0 and 0.2, and the forward and backward at every
      other head width (Dh 4, 8, 16 run 24 wide, 32, 48, 64 run 128 wide,
@@ -233,6 +236,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import importlib
 import itertools
 import json
@@ -2742,6 +2746,16 @@ def check_bf16_kernels(device, timer, reports):
             run = lambda: kernels.attention_long_qkv(qkv, heads, rate, seed)
             got = run()
             same = torch.equal(got, run())
+            # training's forward: the same out, and the (m, 1/l) it keeps
+            # for the backward against the plain statistics
+            with_stats = lambda: kernels.attention_long_qkv(
+                qkv, heads, rate, seed, with_stats=True)
+            out_st, stats = with_stats()
+            same_stats_off = torch.equal(out_st, got)
+            st_plain = fa.attention_stats_plain(qkv, heads)
+            stats_err = [float((stats[..., 0] - st_plain[..., 0]).abs().max()),
+                         float(((stats[..., 1] - st_plain[..., 1])
+                                / st_plain[..., 1]).abs().max())]
             sub = (b if rate == 0.0 or s <= 256 else LONG_DROPOUT_BATCH)
             want = kernels.attention_long_plain(qkv[:sub], heads, rate, seed)
             err = float((got[:sub].float() - want.float()).abs().max())
@@ -2750,6 +2764,9 @@ def check_bf16_kernels(device, timer, reports):
                                              4 * b * heads * s * s * dh)
             row = dict(shape=[b, s, c], head_dim=dh, rate=rate,
                        max_abs_err=err, bar=bar, ms=timer(run),
+                       stats_ms=timer(with_stats),
+                       same_bits_with_stats=same_stats_off,
+                       stats_err_m_and_rel_inv_l=stats_err,
                        bound_ms=bound_ms, bound_by=bound_by)
             if sub == b:
                 row["plain_ms"] = timer(lambda: kernels.attention_long_plain(
@@ -2762,15 +2779,23 @@ def check_bf16_kernels(device, timer, reports):
             rows["attention_fwd_bf16"].append(row)
             log(f"  bf16 forward (B, S, C) {(b, s, c)}, Dh {dh}, rate {rate}"
                 f": max abs err {err:.3g} (bar {bar:.3g}; compared at batch "
-                f"{sub}); two calls bit for bit: {same} | kernel "
-                f"{row['ms']:.4f} ms plain "
-                f"{row.get('plain_ms', float('nan')):.4f} ms"
+                f"{sub}); two calls bit for bit: {same}; with the "
+                f"statistics' store out bit for bit the same: "
+                f"{same_stats_off}, (m, 1/l) against the plain statistics: "
+                f"max abs {stats_err[0]:.3g}, max rel {stats_err[1]:.3g} | "
+                f"kernel {row['ms']:.4f} ms ({row['stats_ms']:.4f} with the "
+                f"statistics) plain {row.get('plain_ms', float('nan')):.4f} ms"
                 + (f" SDPA (bf16) {row['library_ms']:.4f} ms"
                    if rate == 0.0 else "")
                 + f" | bound {bound_ms * 1e3:.2f} us ({bound_by})")
-            if not (err <= bar and same):
-                raise AssertionError(f"bf16 forward {(b, s, c)} rate {rate}:"
-                                     f" err {err} > {bar} or repeat {same}")
+            if not (err <= bar and same and same_stats_off
+                    and stats_err[0] <= BF16_STATS_BAR
+                    and stats_err[1] <= BF16_STATS_BAR):
+                raise AssertionError(
+                    f"bf16 forward {(b, s, c)} rate {rate}: err {err} > {bar}"
+                    f", repeat {same}, out with the statistics "
+                    f"{same_stats_off} or statistics {stats_err} > "
+                    f"{BF16_STATS_BAR}")
     sass = {}
     for source, pattern in (("attention_gemm", "gemm_bf16_kernel"),
                             ("fused_attention_long",
@@ -3023,6 +3048,14 @@ BF16_BWD_CASES = BF16_GEMM_CASES[:3] + ((BATCH, 1024, 96),
 BF16_WIDTHS = (4, 8, 16, 32, 48, 64, 256)
 BF16_WIDTH_SHAPE = (4, 256)
 BF16_BWD_BAR = 2.0 ** -7  # x max |plain| of each third of dqkv
+# the forward's (m, 1/l) against `attention_stats_plain`: m's max abs
+# difference and 1/l's max relative one (float32 sums of the same scores
+# in another order)
+BF16_STATS_BAR = 1e-4
+# device launches of one bf16 backward call given the forward's statistics,
+# at a width the kernels are built for (a padded width adds the wrapper's
+# pad and slice copies)
+BF16_BWD_LAUNCHES = 2
 # the float32 spread of dW's sums: K 2^-24 sum_k |a_ik b_kj| (two orders)
 BF16_TRAIN_WINDOWS, BF16_TRAIN_WINDOW_STEPS = 2, 5
 # the card's bf16 gradient no further from the CPU's float32 one, in L2
@@ -3073,6 +3106,7 @@ def check_bf16_train_kernels(device, timer, reports):
     from gpnf_tpu_torch.bench_mixture import sass_counts
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.ops.kernels import _native
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
 
     fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
     gen = torch.Generator(device=device).manual_seed(2020)
@@ -3106,22 +3140,29 @@ def check_bf16_train_kernels(device, timer, reports):
         heads, dh = 4, c // 4
         in_fp32 = kernels.attention_route(s, c, heads).entry == "proj"
         qkv, g = randn(b, s, 3 * c), randn(b, s, c, s=0.5)
+        # the pair as training runs it, from the forward's statistics
+        _, stats = kernels.attention_long_qkv(qkv, heads, rate, seed,
+                                              with_stats=True)
         run = lambda: kernels.attention_long_qkv_bwd(
-            qkv, g, heads, rate, seed, scale_dq_in_fp32=in_fp32)
+            qkv, g, heads, rate, seed, scale_dq_in_fp32=in_fp32,
+            stats=stats)
         got = run()
         same = torch.equal(got, run())
+        launches = graph_launches(run)
         sub = b if rate == 0.0 or s <= 256 else LONG_DROPOUT_BATCH
         plain = lambda: kernels.attention_long_plain_bwd(
             qkv[:sub], g[:sub], heads, rate, seed, None, in_fp32)
         errs = thirds_err(got[:sub], plain(), c)
-        # the backward's five S x S x Dh products at the true width; qkv
-        # and g in, dqkv out
-        bound_ms, bound_by = _bf16_bound(2 * b * s * 7 * c,
+        # the backward's five S x S x Dh products at the true width; qkv,
+        # g and the forward's float32 (m, 1/l) in, dqkv out
+        bound_ms, bound_by = _bf16_bound(2 * b * s * 7 * c + 8 * b * heads * s,
                                          10 * b * heads * s * s * dh)
+        built = dh in fa.BF16_HEAD_DIMS
         row = dict(shape=[b, s, c], head_dim=dh, rate=rate,
                    dq_recipe="fp32" if in_fp32 else "bf16",
                    max_abs_err=max(errs), rel_err_dk_dv_dq=errs,
-                   bar=BF16_BWD_BAR, bound_ms=bound_ms, bound_by=bound_by)
+                   bar=BF16_BWD_BAR, device_launches=launches,
+                   bound_ms=bound_ms, bound_by=bound_by)
         if timed:
             row["ms"] = timer(run)
             if sub == b:
@@ -3131,15 +3172,19 @@ def check_bf16_train_kernels(device, timer, reports):
         log(f"  bf16 dq and dK/dV (B, S, C) {(b, s, c)}, Dh {dh}, rate "
             f"{rate}, dq {row['dq_recipe']}: max |got - plain| / max |plain| "
             f"dK dV dq {[f'{e:.3g}' for e in errs]} (bar {BF16_BWD_BAR:.3g}; "
-            f"compared at batch {sub}); two calls bit for bit: {same}"
+            f"compared at batch {sub}); two calls bit for bit: {same}; "
+            f"{launches} device launches a call"
+            + ("" if built else " (the padding's copies beside the pair)")
             + (f" | kernel {row['ms']:.4f} ms plain "
                f"{row.get('plain_ms', float('nan')):.4f} ms"
                + (f" SDPA backward (bf16) {row['library_ms']:.4f} ms"
                   if rate == 0.0 else "") if timed else "")
             + f" | bound {bound_ms * 1e3:.2f} us ({bound_by})")
-        if not (max(errs) <= BF16_BWD_BAR and same):
+        if not (max(errs) <= BF16_BWD_BAR and same
+                and (launches == BF16_BWD_LAUNCHES or not built)):
             raise AssertionError(f"bf16 backward {(b, s, c)} rate {rate}: "
-                                 f"errs {errs} or repeat {same}")
+                                 f"errs {errs}, repeat {same} or {launches} "
+                                 f"device launches")
         return row
 
     for b, s, c in BF16_BWD_CASES:
@@ -3227,6 +3272,15 @@ def check_bf16_train_kernels(device, timer, reports):
                  reports.get("attention_gemm", ""), "gemm_bf16_kernel")}
     log(f"  ptxas: {ptxas}")
     return rows, {"sass_bf16_hmma": sass, "ptxas": ptxas}
+
+
+def _settled_memory(device):
+    """The device memory allocated once the garbage of earlier phases is
+    collected, with the peak reset: what a phase's peak stands on."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
 
 
 def _bf16_train_model(cfg, device, batches, seed):
@@ -3409,8 +3463,7 @@ def bf16_train_flagship(device, loader, seed, card, peak32):
     batches = [torch.from_numpy(b).to(device)
                for b, _ in zip(loader, range(16))]
     model, opt, one_step = _bf16_train_model(cfg16, device, batches, seed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
+    base = _settled_memory(device)
     kernels.reset_launch_counts()
     losses = [float(one_step()) for _ in range(TRAIN_STEPS)]  # gate: each read
     counts = kernels.launch_counts()
@@ -3420,8 +3473,9 @@ def bf16_train_flagship(device, loader, seed, card, peak32):
         f"{losses[0]:.4f} -> {losses[-1]:.4f} bits/dim; launches per step "
         f"{per_step}")
     log(f"  losses {[round(x, 4) for x in losses]}")
-    log(f"  bf16 train peak device memory {peak / 2 ** 30:.3f} GiB (float32, "
-        f"phase 4: {peak32 / 2 ** 30:.3f} GiB) [{card}]")
+    log(f"  bf16 train peak device memory {peak / 2 ** 30:.3f} GiB, "
+        f"{base / 2 ** 30:.3f} allocated before the steps (float32, phase 4: "
+        f"{peak32 / 2 ** 30:.3f} GiB) [{card}]")
     want = {k: BF16_TRAIN.get(k, 0) for k in counts}
     if per_step != want:
         raise AssertionError(f"bf16 train launches per step {per_step} != "
@@ -3457,6 +3511,7 @@ def bf16_train_flagship(device, loader, seed, card, peak32):
                                    FLAGSHIP, 20)
     return {"losses": losses, "launches": counts,
             "launches_per_step": per_step, "train_peak_memory_bytes": peak,
+            "memory_before_steps_bytes": base,
             "float32_train_peak_memory_bytes": peak32,
             "train_images_per_s": ips, "train_window_s": times,
             "card_vs_cpu": checks}
@@ -3737,8 +3792,7 @@ def bf16_fused_flagship(device, loader, test_loader, out_dir, seed, card,
     model, opt, one_step = _bf16_train_model(
         MarScfConfig(**config, compute_dtype="bfloat16"), device, batches,
         seed)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
+    base = _settled_memory(device)
     kernels.reset_launch_counts()
     losses = [float(one_step()) for _ in range(FGC_BF16_STEPS)]
     counts = kernels.launch_counts()
@@ -3748,8 +3802,9 @@ def bf16_fused_flagship(device, loader, test_loader, out_dir, seed, card,
     log(f"  bf16 fused: {FGC_BF16_STEPS} steps at batch {BATCH}, dropout "
         f"{RATE}: losses {[round(v, 4) for v in losses]}; launches per step "
         f"{per_step}")
-    log(f"  bf16 fused train peak device memory {peak / 2 ** 30:.3f} GiB "
-        f"(phase 20's unfused bf16: {peak20 / 2 ** 30:.3f} GiB) [{card}]")
+    log(f"  bf16 fused train peak device memory {peak / 2 ** 30:.3f} GiB, "
+        f"{base / 2 ** 30:.3f} allocated before the steps (phase 20's "
+        f"unfused bf16: {peak20 / 2 ** 30:.3f} GiB) [{card}]")
     if per_step != want:
         raise AssertionError(f"bf16 fused train launches per step {per_step}"
                              f" != {want}")
@@ -3811,6 +3866,7 @@ def bf16_fused_flagship(device, loader, test_loader, out_dir, seed, card,
                              f"launches {sample_counts} != {want}")
     return {"losses": losses, "launches": counts,
             "launches_per_step": per_step, "train_peak_memory_bytes": peak,
+            "memory_before_steps_bytes": base,
             "unfused_bf16_train_peak_memory_bytes": peak20,
             "train_images_per_s": ips, "train_window_s": times,
             "card_vs_cpu": checks, "eval_bits_per_dim": nll,

@@ -2,8 +2,10 @@
 sources.
 
     python -m gpnf_tpu_torch.bench_attention
-        [--kernel proj|gemm|rows|lanes|lanes_bwd|rows_bwd] [--ref NAME=DIR ...]
-        [--ref-splits parent|change] [--targets N,...] [--out FILE]
+        [--kernel proj|gemm|rows|lanes|lanes_bwd|rows_bwd|train]
+        [--ref NAME=DIR ...]
+        [--dtype float32|bfloat16] [--ref-splits parent|change]
+        [--targets N,...] [--out FILE]
 
 DIR holds another version's csrc/ (its sources with the headers they
 include): say the parent commit's, from `git archive <commit>
@@ -90,6 +92,33 @@ ptxas lines of every version.
   autograd of F.linear + SDPA at rate 0 beside them, the bound, and one
   call of each under torch.profiler.
 
+`--dtype bfloat16` (with `--kernel rows_bwd` or `proj`): the bf16 kernels
+(MarScfConfig(compute_dtype="bfloat16")) at BF16_SHAPES, B 64, C 96 at S
+256 / 64 / 16 (the flagship's 32-px levels, the proj entry's dq recipe),
+S 1024 (the 64-px level 0) and B 16, C 512 at S 256 (the CLIs' default
+width; both the long entry's recipe), rate 0 and 0.2. `rows_bwd`: the dq
+and dK/dV pair (`attention_long_qkv_bwd` with the forward's statistics,
+`attention_bwd_bf16`) and each ref's `gpnf_attention_long_bwd_bf16` in
+turns, a ref from before the forward kept its statistics (its source has
+no `dsum`) called with its own (B, H, S, 3) scratch; dqkv against the
+plain bf16 backward (each third relative to its largest entry, the bar
+2^-7); two calls bit for bit; autograd of SDPA on the bf16 heads at rate 0;
+the bound at the dense bf16 rate (989 TFLOP/s: five S x S x Dh products;
+qkv, g and the statistics in, dqkv out); the bf16 forward with and without
+its statistics' store in turns (out bit for bit the same); device time by
+kernel. `proj`: the bf16 proj backward (`fused_attention_proj_bwd` with the
+statistics) and, for each ref, the package's GEMMs around the ref's pair,
+in turns, beside autograd of F.linear + SDPA on bf16. `train`: the bf16
+flagship's train step (L 3, K 4, C 96, batch 64, dropout 0.2, Adamax;
+`bench.py`'s default step) at 32 px and at 64 px, on the synthetic sets,
+in windows of TRAIN_WINDOW_STEPS steps timed on the host clock to a loss
+read, in turns, refs, change, change, refs reversed (TRAIN_TURNS rounds),
+each ref's pair patched in place of the package's
+(`attention_long_qkv_bwd`) with the rest of the step the package's; train
+images/s from the median window; the peak device memory of a step with
+each pair, and with no statistics kept, beside what was allocated before
+it.
+
 Prints the card's name and power limit and one JSON object per result, and
 writes all of them to --out.
 """
@@ -100,6 +129,7 @@ import ctypes
 import importlib
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -128,8 +158,17 @@ ATTENTION_SHAPES = {
 ATTENTION_SHAPES["lanes_bwd"] = ATTENTION_SHAPES["lanes"]
 # H100 SXM (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s off the tensor
 # cores, and dense TF32 FLOP/s over the three products of 3xTF32 (a kernel
-# on the tensor cores is read against this one)
+# on the tensor cores is read against this one), and dense bf16 FLOP/s
 PEAK_BYTES, PEAK_OPS, PEAK_OPS_3XTF32 = 3.35e12, 67e12, 495e12 / 3
+PEAK_OPS_BF16 = 989e12
+# --kernel train: the flagship's configuration, windows and rounds of turns
+TRAIN_CONFIG = dict(L=3, K=4, hidden_channels=96, num_blocks=10,
+                    num_components=32, drop_prob=0.2, prior_hidden=32,
+                    prior_layers=3, compute_dtype="bfloat16")
+TRAIN_BATCH, TRAIN_WINDOW_STEPS, TRAIN_TURNS = 64, 5, 2
+# (B, C, S) of --dtype bfloat16
+BF16_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
+               (16, 512, 256))
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the refs' C entries; a ref source need not have every entry of its file
@@ -141,15 +180,26 @@ REF_SIGNATURES = {
     "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P]},
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
-        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P]},
+        "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
+        "gpnf_attention_long_fwd_bf16": [_P] * 4 + [_I] * 4 + [_F, _U, _F,
+                                                               _P],
+        "gpnf_attention_long_bwd_bf16": [_P] * 7 + [_I] * 4 + [_F, _F, _I,
+                                                               _U, _F, _P]},
 }
+# the bf16 entries of a fused_attention_long.cu from before the forward kept
+# its statistics for the backward (no `dsum` in the source)
+REF_SIGNATURES_BF16_STATELESS = {
+    "gpnf_attention_long_fwd_bf16": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
+    "gpnf_attention_long_bwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I, _U, _F,
+                                                           _P]}
 # the sources each --kernel builds from each ref, and from the package
 REF_SOURCES = {"proj": ("fused_attention_proj",),
                "gemm": ("attention_gemm",),
                "rows": ("fused_attention_long",),
                "lanes": ("fused_attention_long",),
                "lanes_bwd": ("fused_attention_long",),
-               "rows_bwd": ("fused_attention_long",)}
+               "rows_bwd": ("fused_attention_long",),
+               "train": ("fused_attention_long",)}
 CHANGE_SOURCES = {**REF_SOURCES,
                   "proj": ("attention_gemm", "fused_attention_long")}
 # the SIMT GEMM's split of K (64 x 64 output tiles, 32-row chunks, aimed
@@ -180,7 +230,13 @@ def build_refs(refs, sources, signatures=REF_SIGNATURES, out_dir=OUT_DIR):
             continue
         reports[f"{name}/{source}"] = _ptxas_lines(out + err)
         loaded = ctypes.CDLL(str(lib))
-        for fn, argtypes in signatures[source].items():
+        table = dict(signatures[source])
+        loaded.stateless_bf16 = (source == "fused_attention_long" and "dsum"
+                                 not in open(os.path.join(
+                                     refs[name], f"{source}.cu")).read())
+        if loaded.stateless_bf16:
+            table.update(REF_SIGNATURES_BF16_STATELESS)
+        for fn, argtypes in table.items():
             if hasattr(loaded, fn):
                 getattr(loaded, fn).argtypes = argtypes
                 getattr(loaded, fn).restype = ctypes.c_int
@@ -512,6 +568,243 @@ def attention_rows(device, libs, timer, card, kind, head_dims=(4, 8, 24, 64)):
             yield row
 
 
+def _dq_recipe(s, c):
+    """The proj entry's dq (scaled in float32) where GatedAttn takes it,
+    else the long entry's (rounded, then scaled in bf16)."""
+    return kernels.attention_route(s, c, HEADS).entry == "proj"
+
+
+def ref_long_bwd_bf16(lib, qkv, g, rate, seed, in_fp32, stats):
+    """A ref's bf16 pair at the kernels' boundary, called as its
+    `attention_long_qkv_bwd` called it: the forward's statistics (and a D
+    scratch), or, before the forward kept them, a (B, H, S, 3) scratch."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    scale = fa.bf16_scale((c // HEADS) ** -0.5)
+    dqkv = torch.empty_like(qkv)
+    args = (b, s, c, HEADS, scale, (c // HEADS) ** -0.5 if in_fp32 else scale,
+            int(not in_fp32), fa.keep_threshold(rate) if rate else 0,
+            1.0 / (1.0 - rate), _stream())
+    seed_ptr = seed.data_ptr() if rate > 0 else None
+    if lib.stateless_bf16:
+        scratch = torch.empty((b, HEADS, s, 3), device=qkv.device)
+        err = lib.gpnf_attention_long_bwd_bf16(
+            seed_ptr, qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+            scratch.data_ptr(), *args)
+    else:
+        dsum = torch.empty((b, HEADS, s), device=qkv.device)
+        keep = fa.keep_bits_scratch(b, HEADS, s, rate, qkv.device)
+        err = lib.gpnf_attention_long_bwd_bf16(
+            seed_ptr, qkv.data_ptr(), g.data_ptr(), stats.data_ptr(),
+            dsum.data_ptr(), None if keep is None else keep.data_ptr(),
+            dqkv.data_ptr(), *args)
+    _check(err, "ref long bwd bf16")
+    return dqkv
+
+
+def bf16_rows_bwd(device, libs, timer, card):
+    """`--kernel rows_bwd --dtype bfloat16`: the bf16 pair and each ref's in
+    turns at BF16_SHAPES, beside SDPA's autograd on bf16; the forward with
+    and without its statistics."""
+    for batch, c, s in BF16_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(c + s)
+        qkv = torch.randn((batch, s, 3 * c), generator=gen,
+                          device=device).to(torch.bfloat16)
+        g = (torch.randn((batch, s, c), generator=gen, device=device)
+             * 0.5).to(torch.bfloat16)
+        seed = torch.tensor([1357 + s + c], dtype=torch.int32, device=device)
+        dh = c // HEADS
+        in_fp32 = _dq_recipe(s, c)
+        scores = batch * HEADS * s * s
+        for rate in RATES:
+            _, stats = kernels.attention_long_qkv(qkv, HEADS, rate, seed,
+                                                  with_stats=True)
+            runs = {name: (lambda lib=lib: ref_long_bwd_bf16(
+                lib["fused_attention_long"], qkv, g, rate, seed, in_fp32,
+                stats)) for name, lib in libs.items()}
+            runs["change"] = lambda: kernels.attention_long_qkv_bwd(
+                qkv, g, HEADS, rate, seed, scale_dq_in_fp32=in_fp32,
+                stats=stats)
+            want = kernels.attention_long_plain_bwd(qkv, g, HEADS, rate, seed,
+                                                    None, in_fp32)
+            bound_ms, bound_by = bound(
+                2 * batch * s * 7 * c + 8 * batch * HEADS * s,
+                5 * 2 * scores * dh, PEAK_OPS_BF16)
+            row = {"kind": "rows_bwd_bf16", "batch": batch, "C": c, "S": s,
+                   "head_dim": dh, "rate": rate, "card": card,
+                   "dq_recipe": "fp32" if in_fp32 else "bf16",
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_peak": "bf16 989 TFLOP/s"}
+            for name, run in runs.items():
+                got, again = run(), run()
+                row[f"{name}_err"] = [_rel(got[..., i * c:(i + 1) * c],
+                                           want[..., i * c:(i + 1) * c])
+                                      for i in range(3)]
+                row[f"{name}_repeats"] = torch.equal(got, again)
+            row.update(_turns(timer, runs))
+            row["library_ms"] = (timer(sdpa_bwd(qkv, g)) if rate == 0.0
+                                 else None)
+            # the forward with its statistics' store ("change") and without
+            fwd = {"no_stats": lambda: kernels.attention_long_qkv(
+                       qkv, HEADS, rate, seed),
+                   "change": lambda: kernels.attention_long_qkv(
+                       qkv, HEADS, rate, seed, with_stats=True)}
+            row["fwd_same_bits"] = torch.equal(fwd["change"]()[0],
+                                               fwd["no_stats"]())
+            row["fwd_ms"] = _turns(timer, fwd)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+
+def ref_proj_bwd_bf16(lib, seq, w, g, rate, seed, stats):
+    """The bf16 proj backward with a ref's pair between the package's
+    GEMMs."""
+    dqkv = ref_long_bwd_bf16(lib, kernels.attention_qkv_gemm(seq, w), g,
+                             rate, seed, True, stats)
+    return (kernels.attention_dseq_gemm(dqkv, w),
+            kernels.attention_dw_gemm(dqkv, seq).to(w.dtype))
+
+
+def bf16_proj_rows(device, libs, timer, card):
+    """`--kernel proj --dtype bfloat16`: the bf16 proj backward with the
+    change's pair and with each ref's, in turns, beside autograd of
+    F.linear + SDPA on bf16."""
+    for batch, c, s in BF16_SHAPES:
+        if not _dq_recipe(s, c):
+            continue
+        gen = torch.Generator(device=device).manual_seed(c + s)
+        bf = lambda *shape, x=1.0: (torch.randn(
+            shape, generator=gen, device=device) * x).to(torch.bfloat16)
+        seq, w, g = bf(batch, s, c, x=0.5), bf(3 * c, c, x=0.1), bf(
+            batch, s, c)
+        seed = torch.tensor([4321 + s], dtype=torch.int32, device=device)
+        for rate in RATES:
+            _, stats = kernels.attention_long_qkv(
+                kernels.attention_qkv_gemm(seq, w), HEADS, rate, seed,
+                with_stats=True)
+            runs = {name: (lambda lib=lib: ref_proj_bwd_bf16(
+                lib["fused_attention_long"], seq, w, g, rate, seed, stats))
+                for name, lib in libs.items()}
+            runs["change"] = lambda: kernels.fused_attention_proj_bwd(
+                seq, w, g, HEADS, rate, seed, stats)
+            want = kernels.attention_proj_plain_bwd(seq, w, g, HEADS, rate,
+                                                    seed)
+            row = {"kind": "proj_bwd_bf16", "batch": batch, "C": c, "S": s,
+                   "rate": rate, "card": card}
+            for name, run in runs.items():
+                got, again = run(), run()
+                row[f"{name}_err"] = [_rel(x, y) for x, y in zip(got, want)]
+                row[f"{name}_repeats"] = all(torch.equal(x, y)
+                                             for x, y in zip(got, again))
+            row.update(_turns(timer, runs))
+            row["library_ms"] = (timer(library_bwd(seq, w, g)) if rate == 0.0
+                                 else None)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+
+class _RefPair:
+    """Within it, the bf16 proj and long entries' backward runs a ref's
+    pair (`ref_long_bwd_bf16`, unpadded heads) in place of the package's;
+    any other call goes to the package's."""
+
+    def __init__(self, lib):
+        self.lib, self.orig = lib, fa.attention_long_qkv_bwd
+
+    def __call__(self, qkv, g, num_heads, rate=0.0, seed=None, q_scale=None,
+                 scale_dq_in_fp32=False, stats=None):
+        if (qkv.dtype != torch.bfloat16 or q_scale is not None
+                or qkv.shape[2] // 3 // num_heads not in fa.BF16_HEAD_DIMS):
+            return self.orig(qkv, g, num_heads, rate, seed, q_scale,
+                             scale_dq_in_fp32, stats)
+        return ref_long_bwd_bf16(self.lib, qkv.contiguous(), g.contiguous(),
+                                 rate, seed, scale_dq_in_fp32, stats)
+
+    def __enter__(self):
+        fa.attention_long_qkv_bwd = self
+
+    def __exit__(self, *exc):
+        fa.attention_long_qkv_bwd = self.orig
+
+
+class _NoStats:
+    """Within it, no bf16 forward keeps its statistics for the backward."""
+
+    def __enter__(self):
+        self.orig = fa._keeps_stats
+        fa._keeps_stats = lambda seq, w: False
+
+    def __exit__(self, *exc):
+        fa._keeps_stats = self.orig
+
+
+def bf16_train_rows(device, libs, card):
+    """`--kernel train --dtype bfloat16`: the bf16 flagship's train step at
+    32 and 64 px with the change's pair and each ref's, in turns."""
+    import contextlib
+
+    from .data.datasets import get_dataset
+    from .models.marscf import MarScfConfig, MarScfFlow
+    from .training.loop import train_step
+    from .training.optim import AdamaxWarmup
+
+    for dataset, size in (("synthetic", 32), ("imagenet_64", 64)):
+        cfg = MarScfConfig(image_shape=(size, size, 3), **TRAIN_CONFIG)
+        loader = get_dataset(dataset, TRAIN_BATCH, seed=0)[0]
+        batches = [torch.from_numpy(b).to(device)
+                   for b, _ in zip(loader, range(4))]
+        model = MarScfFlow(cfg, device=device,
+                           generator=torch.Generator().manual_seed(10))
+        gen = torch.Generator(device=device).manual_seed(11)
+        model.ddi(batches[0], generator=gen)
+        model.train()
+        opt = AdamaxWarmup(model.parameters(), lr=1e-4, warm_up=64,
+                           batch_size=TRAIN_BATCH)
+        step = [0]
+
+        def window(n):
+            for _ in range(n):
+                loss = train_step(model, opt, batches[step[0] % 4], gen)
+                step[0] += 1
+            return float(loss)  # the window ends in a loss read
+
+        contexts = {name: (lambda lib=lib: _RefPair(
+            lib["fused_attention_long"])) for name, lib in libs.items()}
+        contexts["change"] = contextlib.nullcontext
+        # a step's peak and what was allocated before it, with each pair,
+        # and with the change's pair but no statistics kept (the forward's
+        # store off, the backward running the forward for them)
+        peak = {}
+        for name, ctx in [*contexts.items(), ("change_no_stats", _NoStats)]:
+            with ctx():
+                window(2)  # builds, first calls
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                base = torch.cuda.memory_allocated(device)
+                window(1)
+                torch.cuda.synchronize()
+                peak[name] = [torch.cuda.max_memory_allocated(device), base]
+        refs = [name for name in contexts if name != "change"]
+        times = {name: [] for name in contexts}
+        for _ in range(TRAIN_TURNS):
+            for name in [*refs, "change", "change", *reversed(refs)]:
+                with contexts[name]():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    window(TRAIN_WINDOW_STEPS)
+                    times[name].append(time.perf_counter() - t0)
+        yield {"kind": "train_bf16", "image_size": size,
+               "batch": TRAIN_BATCH, "window_steps": TRAIN_WINDOW_STEPS,
+               "card": card, "peak_and_base_bytes": peak,
+               "window_s": times, "images_per_s": {
+                   name: TRAIN_WINDOW_STEPS * TRAIN_BATCH
+                   / statistics.median(v) for name, v in times.items()}}
+        del model, opt, batches
+        torch.cuda.empty_cache()
+
+
 def gemm_cases(device):
     """(tag, a, b, shape, m, n, k, trans_a, trans_b, torch.matmul of the
     same product) of each GEMM of the proj backward and the wide route."""
@@ -590,6 +883,10 @@ def main(argv=None):
                         "GEMM's wrapper did, or as the change's does")
     p.add_argument("--targets", default=",".join(map(str, TARGETS)),
                    help="block targets of the GEMM split sweep")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="bfloat16: the bf16 kernels (--kernel rows_bwd or "
+                        "proj)")
     p.add_argument("--head-dims", default="4,8,24,64",
                    help="--kernel rows: the head widths")
     p.add_argument("--out", default=None,
@@ -601,14 +898,26 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bf16 = args.dtype == "bfloat16"
+    if bf16 != (args.kernel == "train") and not (
+            bf16 and args.kernel in ("rows_bwd", "proj")):
+        raise SystemExit("bench_attention: --dtype bfloat16 times --kernel "
+                         "rows_bwd, proj or train, and --kernel train takes "
+                         "--dtype bfloat16")
     card = card_line()
     print(card, flush=True)
     refs = dict(spec.split("=", 1) for spec in args.ref)
     if "change" in refs:
         raise SystemExit("bench_attention: 'change' names the package's source")
     t0 = time.perf_counter()
-    change_reports = _native.build(CHANGE_SOURCES[args.kernel])
-    libs, reports = build_refs(refs, REF_SOURCES[args.kernel])
+    sources = (("fused_attention_long",) if bf16
+               else REF_SOURCES[args.kernel])
+    change_reports = _native.build(
+        _native.SOURCES if args.kernel == "train"
+        else ("attention_gemm", "fused_attention_long") if bf16
+        else CHANGE_SOURCES[args.kernel])
+    libs, reports = build_refs(refs, sources)
     results = [{"card": card, "build_s": time.perf_counter() - t0,
                 "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
                                         for k, v in change_reports.items()}}}]
@@ -619,6 +928,11 @@ def main(argv=None):
         rows = gemm_rows(device, libs, timer, card, targets,
                          parent_gemm_splits if args.ref_splits == "parent"
                          else fa.gemm_splits)
+    elif args.kernel == "train":
+        rows = bf16_train_rows(device, libs, card)
+    elif bf16:
+        rows = (bf16_rows_bwd if args.kernel == "rows_bwd"
+                else bf16_proj_rows)(device, libs, timer, card)
     elif args.kernel == "proj":
         rows = proj_rows(device, libs, timer, card)
     else:

@@ -505,7 +505,11 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
 // output rows by fmaf(out, corr, P V), in fp32, as in the fp32 kernel (a sum
 // kept in the tensor cores across tiles truncates). At the end the quad
 // adds its partial denominators in one order, and out = acc / l is rounded
-// to bf16 once.
+// to bf16 once. With STATS (training: a forward whose backward is to come)
+// the kernel also stores each query row's float32 (m, 1/l), the running max
+// after the last key tile and the inverse of its denominator, into a (B, H,
+// S, 2) buffer for the backward; out keeps its bits either way, and
+// serving, sampling and no_grad calls run it without.
 //
 // Rounding: the kernel rounds the unnormalised pd = exp(s - m) (m the
 // running max; times 1 / (1 - rate) where kept), where the JAX package
@@ -556,14 +560,15 @@ __device__ __forceinline__ void scale_rows_bf16(bf16* tile, int rows,
   }
 }
 
-template <class Layout, bool DROPOUT>
+template <class Layout, bool DROPOUT, bool STATS>
 __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
     attention_bf16_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                                  const bf16* __restrict__ q_in,
-                                  const bf16* __restrict__ k_in,
-                                  const bf16* __restrict__ v_in,
-                                  bf16* __restrict__ out, float q_scale,
-                                  uint32_t threshold, float keep_scale) {
+                              const bf16* __restrict__ q_in,
+                              const bf16* __restrict__ k_in,
+                              const bf16* __restrict__ v_in,
+                              bf16* __restrict__ out,
+                              float* __restrict__ stats, float q_scale,
+                              uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaFwdBf16<DH>;
   constexpr int W = T::kWidth;
@@ -726,6 +731,11 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
     const float inv_l = 1.f / lt;
     const int i = i0 + r0 + gr + 8 * r;
     if (i >= seq_len) continue;
+    if (STATS && tg == 0 && c0 == 0) {
+      *reinterpret_cast<float2*>(
+          stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + i) *
+                      2) = make_float2(m[r], inv_l);
+    }
     bf16* dst = out + lay.out_head(b, h) + static_cast<size_t>(i) *
                 lay.out_row() + c0 + 2 * tg;
 #pragma unroll
@@ -738,9 +748,6 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
 }
 
 // The backward in bf16 (MarScfConfig(compute_dtype="bfloat16"), training):
-// the fp32 pair's function and two-kernel design (a dq kernel with passes A
-// and B over the key tiles, writing (m, 1/l, D) to a float32 (B, H, S, 3)
-// scratch; a dK/dV kernel streaming query tiles past a block's keys) at
 // the JAX package's bf16 rounding points, `_bwd_kernel_proj` and
 // `_bwd_kernel_bh` (gpnf_tpu/ops/pallas/fused_attention.py) on bf16 qkv and
 // g: q * q_scale rounded to bf16 as the forward rounds it (q_scale the bf16
@@ -755,43 +762,65 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
 // (`_bwd_kernel_bh`'s bf16 dq scaled by `_vjp_bwd_long`, dq_round_first).
 // dK, dV and dq are written in bf16 into the packed dqkv.
 //
+// Two kernels, after FlashAttention-2's backward kept deterministic. The
+// forward saved each query row's float32 (m, 1/l), its softmax's max and
+// inverse denominator (`attention_bf16_fwd_kernel` with STATS, a (B, H, S,
+// 2) buffer), so P = exp(s - m) / l needs no online rescale here.
+//
 // dq kernel: a block per (64 queries, head, batch row), a warp per 16 query
 // rows; the block's q rows (scaled and rounded in place) and g rows sit in
 // shared memory, and each k16 step reads their A fragments by ldmatrix. K
-// and V stream in tiles of kKeys keys through a cp.async double buffer.
-// For a tile the warp computes S = q K^T and dPd = g V^T (K's and V's B
-// fragments by ldmatrix), and pass A keeps the online (m, l, D) as the
-// fp32 kernel does; pass B forms dS = P (dP - D) in the accumulators,
-// rounded and paired into the A fragments of dq += dS K (K's B fragments by
-// ldmatrix.trans), dq's sums kept in the accumulators across tiles.
+// and V stream in tiles of kKeys keys through a cp.async double buffer,
+// twice. For a tile the warp computes S = q K^T and dPd = g V^T (K's and
+// V's B fragments by ldmatrix). Pass A sums the thread's share of
+// D = sum_j P dP with P = exp(s - m) from the saved m (times the saved 1/l
+// once at the end, after the quad adds its shares in one order); pass B
+// forms dS = exp(s - m) / l (dP - D) in the accumulators, rounded and
+// paired into the A fragments of dq += dS K (K's B fragments by
+// ldmatrix.trans), dq's sums kept in the accumulators across tiles. D goes
+// to a float32 (B, H, S) buffer for the dK/dV kernel. D is FlashAttention's
+// sum_j P dP, not its rowsum(g * out): out is rounded to bf16 (and its P
+// before P V), and D from it put dK and dq past the 2^-7 bar against the
+// plain version (tests/test_torch_bf16_mma.py).
 //
-// dK/dV kernel: a block per (32 keys, head, batch row), a pair of warps per
-// 16 keys, whose K and V rows sit in shared memory. Query tiles of q, g and
-// the stats stream by cp.async; each q tile is scaled and rounded in place
-// when it arrives. The even warp computes S^T = K q^T, the odd one
-// dPd^T = V g^T (16 keys x kQueries queries), both into the pair's float32
-// exchange tiles; the pair's 64 threads turn them into Pd and dS (one
-// Philox call for 4 keys of one query, the words of every other kernel);
-// then the even warp accumulates dV += Pd^T g and the odd one dK += dS^T q,
-// the exchange rows rounded and paired into A fragments, q's and g's B
-// fragments by ldmatrix.trans. Queries past S take P = 0.
+// Dropout: pass A draws each score's keep bit once (Philox, the words of
+// `fragment_keep_words`, one call for 4 scores) and stores it in the pair's
+// keep-bit buffer, one 32-bit word a fragment element by __ballot_sync
+// (`keep_group`); pass B and the dK/dV kernel read the bits back. So the
+// pair draws each score once, where it drew it three times, and the buffer
+// (S^2 / 8 bytes a head) lives only for the call.
+//
+// dK/dV kernel: a block per (64 keys, head, batch row), a warp per 16 keys
+// (two warps at W 256, each computing the keys' scores alike and dK and dV
+// for half the columns, so that its sums stay in registers); K's and V's
+// rows sit in shared memory, their A fragments in registers for the whole
+// block at W 32. Query tiles of q, g, the saved (m, 1/l) and D stream
+// through a kStages cp.async ring that all warps share; each q tile is
+// scaled and rounded in place when it arrives. For a tile the warp computes
+// S^T = K q^T and dPd^T = V g^T (16 keys x kQueries queries, q's and g's B
+// fragments by ldmatrix) into its own accumulators, forms Pd^T and dS^T
+// there (a thread's four keep bits from two words of the buffer), and the
+// C fragments of two neighbouring n8 query tiles, rounded and paired, are
+// the A fragment of one k16 step of dV += Pd^T g and dK += dS^T q (q's and
+// g's B fragments by ldmatrix.trans). Queries past S come with q, g and
+// the stats zero, so their P is 0.
 //
 // Tiles by width (W = Dh rounded up to 16; Dh 24 runs 32 wide, its pad
 // columns zeroed once and never copied or stored): dq's kKeys 64 / 32 / 16
 // and dK/dV's kQueries 64 / 32 / 16 at W 32 / 128 / 256, so that a
-// thread's accumulators (dq's W / 2 floats, and 2 kKeys / 4 of S and dPd)
-// stay in registers. Shared memory a block, dq / dK/dV: 30 / 45 KB at Dh
-// 24, 68 / 62 KB at 128, 99 / 72 KB at 256. Sums run in a fixed order and
-// each output element is written once: two calls give the same bits.
+// thread's accumulators (dq's W / 2 floats and 2 kKeys / 4 of S and dPd;
+// dK's and dV's W / 4 (W / 8 at 256) and 2 kQueries / 4 of S^T and dPd^T)
+// stay in registers. Sums run in a fixed order and each output element is
+// written once: two calls give the same bits.
 //
 // What bounds them on the H100: at the flagship's level 0 (B 64, S 256, Dh
-// 24 run 32 wide, 4 heads) the five S x S x Dh products of the pair (the
-// scores and dPd twice in dq, dq, and S^T, dPd^T, dV, dK in dK/dV: 7 as
-// run) are 7 x 2 x 64 x 4 x 256^2 x 32 = 7.5 GFLOP, ~7.6 us at the dense
-// bf16 rate (989 TFLOP/s), and the bytes (qkv, g, dqkv in bf16 and the
-// stats: ~26 MB) ~7.8 us: about even. At the CLIs' C 512 (B 16, S 256,
-// Dh 128) 7.5 GFLOP and ~21 MB; at the 64-px level 0 (S 1024) 120 GFLOP,
-// ~121 us: operations.
+// 24 run 32 wide, 4 heads) the pair's nine S x S x W products (S and dPd
+// twice and dq in the dq kernel; S^T, dPd^T, dV and dK in dK/dV) are
+// 9 x 2 x 64 x 4 x 256^2 x 32 = 9.7 GFLOP, ~9.8 us at the dense bf16 rate
+// (989 TFLOP/s), five of them at the true width ~5.4 us; the bytes (qkv,
+// g, the stats in; D out and in; dqkv out) ~8 us. At the CLIs' C 512 (B 16,
+// S 256, Dh 128) 9.7 GFLOP and ~21 MB; at the 64-px level 0 (S 1024)
+// 155 GFLOP, ~157 us: operations.
 template <int DH>
 struct MmaDqBf16 {
   static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
@@ -808,20 +837,39 @@ template <int DH>
 struct MmaDkvBf16 {
   static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
   static constexpr int kLd = kWidth + kBf16Pad;
-  static constexpr int kPairs = 2;
-  static constexpr int kThreads = 64 * kPairs;
-  static constexpr int kKeys = 16 * kPairs;  // keys a block
+  static constexpr int kColSplit = kWidth <= 128 ? 1 : 2;  // warps a key
+  static constexpr int kWarps = 4 * kColSplit;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kKeys = 64;  // keys a block, 16 a warp
   // queries a tile
   static constexpr int kQueries = kWidth <= 32 ? 64 : kWidth <= 128 ? 32 : 16;
-  static constexpr int kPad = kQueries + 8;  // an exchange row, in floats
+  static constexpr int kStages = 2;  // the query tiles' ring
+  static constexpr bool kKvInRegisters = kWidth <= 32;
   static constexpr size_t kTileBytes =
-      sizeof(bf16) * (2 * kKeys + 2 * 2 * kQueries) * kLd;
+      sizeof(bf16) * (2 * kKeys + kStages * 2 * kQueries) * kLd;
+  // a stage's stats: (m, 1/l) of each query, then D
   static constexpr size_t kBytes =
-      kTileBytes + sizeof(float) * (2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
+      kTileBytes + sizeof(float) * kStages * 3 * kQueries;
 };
 
-// Backward kernel 1 in bf16: dq, and (m, 1/l, D) of each query row into the
-// float32 stats (B, H, S, 3).
+// The first of the four words of the keep-bit buffer that hold query rows
+// i .. i + 15 (i a multiple of 16) and keys j .. j + 7 (j a multiple of 8)
+// of head bh, in a buffer of S rounded up to 64 rows and keys (padded_len,
+// so that every tile of either kernel lies inside it): word e (0 .. 3)
+// holds rows i + 8 (e >> 1) + r and keys j + 2 c + (e & 1) at bit 4 r + c,
+// the ballot of the dq kernel's m16n8 C fragment element e.
+__device__ __forceinline__ size_t keep_group(int bh, int padded_len, int i,
+                                             int j) {
+  return ((static_cast<size_t>(bh) * (padded_len / 16) + i / 16) *
+              (padded_len / 8) + j / 8) * 4;
+}
+
+__device__ __forceinline__ int keep_padded_len(int seq_len) {
+  return (seq_len + 63) / 64 * 64;
+}
+
+// Backward kernel 1 in bf16: dq, and D of each query row into dsum
+// (B, H, S), from the forward's (m, 1/l) in stats (B, H, S, 2).
 template <class Layout, bool DROPOUT>
 __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
     attention_bf16_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
@@ -829,8 +877,10 @@ __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
                              const bf16* __restrict__ k_in,
                              const bf16* __restrict__ v_in,
                              const bf16* __restrict__ g,
+                             const float* __restrict__ stats,
                              bf16* __restrict__ dq_out,
-                             float* __restrict__ stats, float q_scale,
+                             float* __restrict__ dsum,
+                             uint32_t* __restrict__ keep, float q_scale,
                              float dq_scale, int dq_round_first,
                              uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
@@ -857,8 +907,11 @@ __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
   const bool active = i0 + r0 < seq_len;
   const size_t row = lay.in_row();
   const size_t head = lay.in_head(b, h);
+  const size_t row_stats = (static_cast<size_t>(b) * lay.heads + h) * seq_len;
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
   const int nk = (seq_len + KT - 1) / KT;
+  const int bh = b * lay.heads + h;
+  const int padded_len = keep_padded_len(seq_len);
 
   if constexpr (W != DH) {
     zero_shared(reinterpret_cast<float*>(q_s), T::kBytes / sizeof(float));
@@ -871,12 +924,24 @@ __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
   load_rows_bf16<DH, KT, LD>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
                              T::kThreads);
   cp_async_commit();
+  // the forward's (m, 1/l) of the thread's rows gr and gr + 8; rows past S
+  // take 1/l = 0, so their dS is 0
+  float m[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + r0 + gr + 8 * r;
+    if (i < seq_len) {
+      const float2 st =
+          *reinterpret_cast<const float2*>(stats + (row_stats + i) * 2);
+      m[r] = st.x;
+      inv_l[r] = st.y;
+    }
+  }
   cp_async_wait_all();
   __syncthreads();
   scale_rows_bf16<LD>(q_s, T::kRows, DH, q_scale, T::kThreads);
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float dsum[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, big_d[2] = {0.f, 0.f};
+  float dpart[2] = {0.f, 0.f}, big_d[2] = {0.f, 0.f};
   float dq[ND][4];
 #pragma unroll
   for (int dn = 0; dn < ND; ++dn) {
@@ -923,55 +988,50 @@ __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
         mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
       }
     }
-    // -inf past S, and dP = keep * dPd / (1 - rate)
+    // -inf past S, and dP = keep * dPd / (1 - rate): pass A draws the keep
+    // bits and stores the fragment's four ballots, pass B reads them
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      uint4 kw = make_uint4(0u, 0u, 0u, 0u);
       if (DROPOUT) {
-        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
+        uint32_t* at = keep + keep_group(bh, padded_len, i0 + r0, j0 + 8 * n);
+        if (t < nk) {
+          uint32_t bits[4];
+          fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
+          kw = make_uint4(__ballot_sync(0xffffffffu, bits[0] >= threshold),
+                          __ballot_sync(0xffffffffu, bits[1] >= threshold),
+                          __ballot_sync(0xffffffffu, bits[2] >= threshold),
+                          __ballot_sync(0xffffffffu, bits[3] >= threshold));
+          if (lane == 0) *reinterpret_cast<uint4*>(at) = kw;
+        } else {
+          kw = *reinterpret_cast<const uint4*>(at);
+        }
       }
+      const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (j0 + 8 * n + 2 * tg + (e & 1) >= seq_len) s[n][e] = -INFINITY;
         if (DROPOUT) {
-          dp[n][e] = bits[e] >= threshold ? dp[n][e] * keep_scale : 0.f;
+          dp[n][e] = (words[e] >> lane) & 1u ? dp[n][e] * keep_scale : 0.f;
         }
       }
     }
     if (t < nk) {
-      // pass A: the row max over the quad, then the thread's own sums,
-      // rescaled with m
+      // pass A: the thread's share of sum_j exp(s - m) dP; the quad's
+      // shares added in one order after the last tile, then times 1/l
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m[r];
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        for (int e = 0; e < 4; ++e) {
+          dpart[e >> 1] =
+              fmaf(expf(s[n][e] - m[e >> 1]), dp[n][e], dpart[e >> 1]);
         }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float corr = expf(m[r] - mx);
-        l[r] *= corr;
-        dsum[r] *= corr;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-          for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            const float ex = expf(s[n][e] - mx);
-            l[r] += ex;
-            dsum[r] = fmaf(ex, dp[n][e], dsum[r]);
-          }
-        }
-        m[r] = mx;
       }
       if (t == nk - 1) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
-          lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-          float dt = dsum[r] + __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+          float dt = dpart[r] + __shfl_xor_sync(0xffffffffu, dpart[r], 1);
           dt += __shfl_xor_sync(0xffffffffu, dt, 2);
-          inv_l[r] = 1.f / lt;
           big_d[r] = dt * inv_l[r];
         }
       }
@@ -1021,28 +1081,25 @@ __global__ void __launch_bounds__(MmaDqBf16<Layout::kHeadDim>::kThreads)
       *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
           pack_bf16(x * dq_scale, y * dq_scale);
     }
-    if (tg == 0) {
-      float* st =
-          stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + i) * 3;
-      st[0] = m[r];
-      st[1] = inv_l[r];
-      st[2] = big_d[r];
-    }
+    if (tg == 0) dsum[row_stats + i] = big_d[r];
   }
 }
 
-// Backward kernel 2 in bf16: dK and dV.
+// Backward kernel 2 in bf16: dK and dV, from the forward's (m, 1/l) in
+// stats (B, H, S, 2), the dq kernel's D in dsum (B, H, S) and, with
+// dropout, its keep bits.
 template <class Layout, bool DROPOUT>
 __global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
-    attention_bf16_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
+    attention_bf16_dkv_kernel(Layout lay, const uint32_t* __restrict__ keep,
                               const bf16* __restrict__ q_in,
                               const bf16* __restrict__ k_in,
                               const bf16* __restrict__ v_in,
                               const bf16* __restrict__ g,
                               const float* __restrict__ stats,
+                              const float* __restrict__ dsum,
                               bf16* __restrict__ dk_out,
                               bf16* __restrict__ dv_out, float q_scale,
-                              uint32_t threshold, float keep_scale) {
+                              float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaDkvBf16<DH>;
   constexpr int W = T::kWidth;
@@ -1050,8 +1107,9 @@ __global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
   constexpr int QT = T::kQueries;
   constexpr int NQ = QT / 8;   // n8 query tiles of a tile
   constexpr int NKS = W / 16;  // k16 steps over W
-  constexpr int ND = W / 8;    // n8 tiles of dK's and dV's columns
-  constexpr int XP = T::kPad;
+  constexpr int ND = W / 8 / T::kColSplit;  // n8 tiles of the warp's dK, dV
+  constexpr int NS = T::kStages;
+  constexpr int NKA = T::kKvInRegisters ? NKS : 1;
   extern __shared__ float4 mma_smem[];
   bf16* k_s = reinterpret_cast<bf16*>(mma_smem);  // (kKeys, LD)
   bf16* v_s = k_s + T::kKeys * LD;
@@ -1062,26 +1120,24 @@ __global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
   const int tg = lane & 3;
-  const int pair = warp >> 1;
-  const int role = warp & 1;  // 0: S^T and dV, 1: dPd^T and dK
-  float* xs = st_s + 2 * 3 * QT + pair * 2 * 16 * XP;  // S^T, then Pd^T
-  float* xd = xs + 16 * XP;                            // dPd^T, then dS^T
+  const int kr0 = 16 * (warp % 4);  // the warp's keys in the block
+  const int c0 = (warp / 4) * 8 * ND;  // its first column of dK and dV
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int seq_len = lay.seq_len;
-  const int k0 = blockIdx.x * T::kKeys + 16 * pair;  // the pair's first key
-  const int kr0 = 16 * pair;
+  const int kb0 = blockIdx.x * T::kKeys;
+  const int k0 = kb0 + kr0;
   const bool active = k0 < seq_len;
   const size_t row = lay.in_row();
   const size_t head = lay.in_head(b, h);
   const bf16* g_head = g + lay.out_head(b, h);
-  const float* st_head =
-      stats + (static_cast<size_t>(b) * lay.heads + h) * seq_len * 3;
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
+  const size_t row_stats = (static_cast<size_t>(b) * lay.heads + h) * seq_len;
+  const float* st_head = stats + 2 * row_stats;
+  const float* d_head = dsum + row_stats;
+  const int bh = b * lay.heads + h;
+  const int padded_len = keep_padded_len(seq_len);
   const int nq = (seq_len + QT - 1) / QT;
-  const int n_st = 3 * seq_len;
 
-  const int kb0 = blockIdx.x * T::kKeys;
   if constexpr (W != DH) {
     zero_shared(reinterpret_cast<float*>(mma_smem), T::kBytes / sizeof(float));
   }
@@ -1089,125 +1145,159 @@ __global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
                                    T::kThreads);
   load_rows_bf16<DH, T::kKeys, LD>(v_s, v_in + head, kb0, seq_len, row,
                                    T::kThreads);
-  auto load_tile_async = [&](int i0, int stage) {
-    bf16* q_t = qg_s + stage * 2 * QT * LD;
-    load_rows_bf16<DH, QT, LD>(q_t, q_in + head, i0, seq_len, row,
-                               T::kThreads);
-    load_rows_bf16<DH, QT, LD>(q_t + QT * LD, g_head, i0, seq_len,
-                               lay.out_row(), T::kThreads);
-    for (int e = threadIdx.x; e < 3 * QT; e += T::kThreads) {
-      const bool valid = 3 * i0 + e < n_st;
-      cp_async4(st_s + stage * 3 * QT + e, st_head + (valid ? 3 * i0 + e : 0),
-                valid);
+  cp_async_commit();
+  // query tile `tile` into its stage: q, g, (m, 1/l) and D, zero past S;
+  // a commit even with nothing to load keeps every thread's count of groups
+  auto load_tile_async = [&](int tile) {
+    if (tile < nq) {
+      const int i0 = tile * QT;
+      bf16* q_t = qg_s + (tile % NS) * 2 * QT * LD;
+      float* st = st_s + (tile % NS) * 3 * QT;
+      load_rows_bf16<DH, QT, LD>(q_t, q_in + head, i0, seq_len, row,
+                                 T::kThreads);
+      load_rows_bf16<DH, QT, LD>(q_t + QT * LD, g_head, i0, seq_len,
+                                 lay.out_row(), T::kThreads);
+      for (int e = threadIdx.x; e < 3 * QT; e += T::kThreads) {
+        const bool ml = e < 2 * QT;
+        const int at = ml ? 2 * i0 + e : i0 + e - 2 * QT;
+        const bool valid = at < (ml ? 2 * seq_len : seq_len);
+        cp_async4(st + e, (ml ? st_head : d_head) + (valid ? at : 0), valid);
+      }
     }
     cp_async_commit();
   };
-  load_tile_async(0, 0);
+#pragma unroll
+  for (int p = 0; p < NS - 1; ++p) load_tile_async(p);
+  cp_async_wait<NS - 1>();  // K and V are in
+  __syncthreads();
+  uint32_t ka[NKA][4], va[NKA][4];
+  if constexpr (T::kKvInRegisters) {
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      frag_a_bf16<LD>(ka[ks], k_s, kr0, 16 * ks, lane);
+      frag_a_bf16<LD>(va[ks], v_s, kr0, 16 * ks, lane);
+    }
+  }
 
-  float acc[ND][4];  // dV (role 0) or dK (role 1)
+  float dk[ND][4], dv[ND][4];
 #pragma unroll
   for (int dn = 0; dn < ND; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
   }
-  const bf16* a_s = role ? v_s : k_s;  // the rows of the first product's A
-  float* x_own = role ? xd : xs;
   for (int t = 0; t < nq; ++t) {
-    cp_async_wait_all();
+    cp_async_wait<NS - 2>();
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    if (t + 1 < nq) load_tile_async((t + 1) * QT, (t + 1) & 1);
-    bf16* q_t = qg_s + (t & 1) * 2 * QT * LD;
+    load_tile_async(t + NS - 1);  // into tile t - 1's stage
+    bf16* q_t = qg_s + (t % NS) * 2 * QT * LD;
     scale_rows_bf16<LD>(q_t, QT, DH, q_scale, T::kThreads);
     __syncthreads();  // q scaled and rounded
     if (!active) continue;
     const int i0 = t * QT;
     const bf16* g_t = q_t + QT * LD;
-    const float* st = st_s + (t & 1) * 3 * QT;
+    const float* st = st_s + (t % NS) * 3 * QT;
 
-    // S^T = K q^T (even warp) or dPd^T = V g^T (odd): 16 keys x QT queries
-    {
-      const bf16* b_s = role ? g_t : q_t;
-      float x[NQ][4];
+    // S^T = K q^T and dPd^T = V g^T: the warp's 16 keys x QT queries
+    float sx[NQ][4], dx[NQ][4];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+    for (int n = 0; n < NQ; ++n) {
 #pragma unroll
-      for (int ks = 0; ks < NKS; ++ks) {
-        uint32_t fa[4];
-        frag_a_bf16<LD>(fa, a_s, kr0, 16 * ks, lane);
+      for (int e = 0; e < 4; ++e) sx[n][e] = dx[n][e] = 0.f;
+    }
 #pragma unroll
-        for (int np = 0; np < NQ / 2; ++np) {
-          uint32_t fb[4];
-          frag_b_bf16_pair<LD>(fb, b_s, 16 * np, 16 * ks, lane);
-          mma_bf16(x[2 * np], fa, fb[0], fb[1]);
-          mma_bf16(x[2 * np + 1], fa, fb[2], fb[3]);
-        }
+    for (int ks = 0; ks < NKS; ++ks) {
+      if constexpr (!T::kKvInRegisters) {
+        frag_a_bf16<LD>(ka[0], k_s, kr0, 16 * ks, lane);
+        frag_a_bf16<LD>(va[0], v_s, kr0, 16 * ks, lane);
       }
+      const uint32_t(&kf)[4] = ka[T::kKvInRegisters ? ks : 0];
+      const uint32_t(&vf)[4] = va[T::kKvInRegisters ? ks : 0];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        *reinterpret_cast<float2*>(x_own + gr * XP + 8 * n + 2 * tg) =
-            make_float2(x[n][0], x[n][1]);
-        *reinterpret_cast<float2*>(x_own + (gr + 8) * XP + 8 * n + 2 * tg) =
-            make_float2(x[n][2], x[n][3]);
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t qb[4], gb[4];
+        frag_b_bf16_pair<LD>(qb, q_t, 16 * np, 16 * ks, lane);
+        frag_b_bf16_pair<LD>(gb, g_t, 16 * np, 16 * ks, lane);
+        mma_bf16(sx[2 * np], kf, qb[0], qb[1]);
+        mma_bf16(sx[2 * np + 1], kf, qb[2], qb[3]);
+        mma_bf16(dx[2 * np], vf, gb[0], gb[1]);
+        mma_bf16(dx[2 * np + 1], vf, gb[2], gb[3]);
       }
     }
-    pair_sync<T::kPairs>(pair);
-    // Pd = keep P / (1 - rate) and dS = P (dP - D): one Philox call for the
-    // 4 keys of a quad and one query
-    for (int u = 32 * role + lane; u < 4 * QT; u += 64) {
-      const int qi = u % QT;
-      const int quad = u / QT;
-      const int i = i0 + qi;
-      const float mi = st[3 * qi], li = st[3 * qi + 1], di = st[3 * qi + 2];
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (DROPOUT) bits = attention_dropout_bits(seed, b, h, i, k0 / 4 + quad);
+    // Pd^T = keep P^T / (1 - rate) and dS^T = P^T (dP^T - D), in place; a
+    // thread's queries 2 tg and 2 tg + 1 of each n8 tile take their stats
+    // by one float4 and one float2, and the keep bits of its keys gr and
+    // gr + 8 from one word each (`keep_group`: bit 4 (query & 7) +
+    // ((key & 7) >> 1) of word 2 ((query >> 3) & 1) + (key & 1))
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int at = (4 * quad + r) * XP + qi;
-        const bool live = i < seq_len && k0 + 4 * quad + r < seq_len;
-        const float p = live ? expf(xs[at] - mi) * li : 0.f;
-        float pd = p, dpv = xd[at];
+    for (int n = 0; n < NQ; ++n) {
+      uint32_t kw[2] = {0u, 0u};
+      if (DROPOUT) {
+        const uint32_t* at = keep + keep_group(bh, padded_len, i0 + 8 * n,
+                                               k0) +
+                             2 * (((i0 + 8 * n) >> 3) & 1) + (gr & 1);
+        kw[0] = at[0];
+        kw[1] = at[4];  // keys k0 + 8 ..
+      }
+      const float4 ml = *reinterpret_cast<const float4*>(st + 2 * (8 * n +
+                                                                   2 * tg));
+      const float2 dd =
+          *reinterpret_cast<const float2*>(st + 2 * QT + 8 * n + 2 * tg);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e & 1;
+        const float p =
+            expf(sx[n][e] - (odd ? ml.z : ml.x)) * (odd ? ml.w : ml.y);
+        float pd = p, dpv = dx[n][e];
         if (DROPOUT) {
-          const bool keep = philox_word(bits, r) >= threshold;
-          pd = keep ? p * keep_scale : 0.f;
-          dpv = keep ? dpv * keep_scale : 0.f;
+          const bool kept = (kw[e >> 1] >> (4 * (2 * tg + odd) + (gr >> 1))) &
+                            1u;
+          pd = kept ? p * keep_scale : 0.f;
+          dpv = kept ? dpv * keep_scale : 0.f;
         }
-        xs[at] = pd;
-        xd[at] = p * (dpv - di);
+        sx[n][e] = pd;
+        dx[n][e] = p * (dpv - (odd ? dd.y : dd.x));
       }
     }
-    pair_sync<T::kPairs>(pair);
-    // dV += Pd^T g (even warp) or dK += dS^T q (odd), 16 queries a k16 step
-    const bf16* b2 = role ? q_t : g_t;
+    // dV += Pd^T g and dK += dS^T q, 16 queries a k16 step: two n8 tiles'
+    // accumulators, rounded and paired, are the step's A fragments
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
-      const float* top = x_own + gr * XP + 16 * kk + 2 * tg;
-      const float* bot = top + 8 * XP;
-      const float2 a0 = *reinterpret_cast<const float2*>(top);
-      const float2 a1 = *reinterpret_cast<const float2*>(bot);
-      const float2 a2 = *reinterpret_cast<const float2*>(top + 8);
-      const float2 a3 = *reinterpret_cast<const float2*>(bot + 8);
-      const uint32_t fa[4] = {pack_bf16(a0.x, a0.y), pack_bf16(a1.x, a1.y),
-                              pack_bf16(a2.x, a2.y), pack_bf16(a3.x, a3.y)};
+      const uint32_t pa[4] = {
+          pack_bf16(sx[2 * kk][0], sx[2 * kk][1]),
+          pack_bf16(sx[2 * kk][2], sx[2 * kk][3]),
+          pack_bf16(sx[2 * kk + 1][0], sx[2 * kk + 1][1]),
+          pack_bf16(sx[2 * kk + 1][2], sx[2 * kk + 1][3])};
+      const uint32_t da[4] = {
+          pack_bf16(dx[2 * kk][0], dx[2 * kk][1]),
+          pack_bf16(dx[2 * kk][2], dx[2 * kk][3]),
+          pack_bf16(dx[2 * kk + 1][0], dx[2 * kk + 1][1]),
+          pack_bf16(dx[2 * kk + 1][2], dx[2 * kk + 1][3])};
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t fb[4];
-        frag_b_bf16_trans_pair<LD>(fb, b2, 16 * kk, 16 * dp, lane);
-        mma_bf16(acc[2 * dp], fa, fb[0], fb[1]);
-        mma_bf16(acc[2 * dp + 1], fa, fb[2], fb[3]);
+        uint32_t gb[4], qb[4];
+        frag_b_bf16_trans_pair<LD>(gb, g_t, 16 * kk, c0 + 16 * dp, lane);
+        frag_b_bf16_trans_pair<LD>(qb, q_t, 16 * kk, c0 + 16 * dp, lane);
+        mma_bf16(dv[2 * dp], pa, gb[0], gb[1]);
+        mma_bf16(dv[2 * dp + 1], pa, gb[2], gb[3]);
+        mma_bf16(dk[2 * dp], da, qb[0], qb[1]);
+        mma_bf16(dk[2 * dp + 1], da, qb[2], qb[3]);
       }
     }
   }
+  cp_async_wait_all();  // the ring's empty groups
   if (!active) return;
-  bf16* out = role ? dk_out : dv_out;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int j = k0 + gr + 8 * r;
     if (j >= seq_len) continue;
-    bf16* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
+    const size_t at = head + static_cast<size_t>(j) * row + c0 + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn) {
-      if (8 * dn >= DH) break;  // a pad column (Dh = 24)
-      *reinterpret_cast<uint32_t*>(dst + 8 * dn) =
-          pack_bf16(acc[dn][2 * r], acc[dn][2 * r + 1]);
+      if (c0 + 8 * dn >= DH) break;  // a pad column (Dh = 24)
+      *reinterpret_cast<uint32_t*>(dk_out + at + 8 * dn) =
+          pack_bf16(dk[dn][2 * r], dk[dn][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + at + 8 * dn) =
+          pack_bf16(dv[dn][2 * r], dv[dn][2 * r + 1]);
     }
   }
 }
@@ -1703,14 +1793,16 @@ inline int attention_packed_fwd(const int* seed, const float* qkv, float* out,
       }));
 }
 
-// The bf16 forward of one layout (Dh 24 or 128): one launch. cp.async
-// copies 16-byte chunks, so q, k and v must start 16-byte aligned.
+// The bf16 forward of one layout (Dh 24, 128 or 256): one launch; with
+// stats (not null) the kernel also stores each query row's float32 (m, 1/l)
+// there, (B, H, S, 2), for the backward. cp.async copies 16-byte chunks, so
+// q, k and v must start 16-byte aligned.
 template <class Layout>
 cudaError_t attention_tiled_fwd_bf16(Layout lay, int batch, const int* seed,
                                      const bf16* q, const bf16* k,
-                                     const bf16* v, bf16* out, float q_scale,
-                                     uint32_t threshold, float keep_scale,
-                                     cudaStream_t stream) {
+                                     const bf16* v, bf16* out, float* stats,
+                                     float q_scale, uint32_t threshold,
+                                     float keep_scale, cudaStream_t stream) {
   using T = MmaFwdBf16<Layout::kHeadDim>;
   for (const bf16* p : {q, k, v}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
@@ -1718,22 +1810,31 @@ cudaError_t attention_tiled_fwd_bf16(Layout lay, int batch, const int* seed,
     }
   }
   const dim3 grid((lay.seq_len + T::kRows - 1) / T::kRows, lay.heads, batch);
-  auto* kernel = threshold > 0
-                     ? &attention_bf16_fwd_kernel<Layout, true>
-                     : &attention_bf16_fwd_kernel<Layout, false>;
+  const bool drop = threshold > 0;
+  auto* kernel =
+      stats != nullptr
+          ? (drop ? &attention_bf16_fwd_kernel<Layout, true, true>
+                  : &attention_bf16_fwd_kernel<Layout, false, true>)
+          : (drop ? &attention_bf16_fwd_kernel<Layout, true, false>
+                  : &attention_bf16_fwd_kernel<Layout, false, false>);
   return launch_dynamic(kernel, grid, T::kThreads, T::kBytes, stream, lay,
-                        seed, q, k, v, out, q_scale, threshold, keep_scale);
+                        seed, q, k, v, out, stats, q_scale, threshold,
+                        keep_scale);
 }
 
 // The bf16 backward of one layout (Dh 24, 128 or 256): the dq and dK/dV
-// kernels, two launches; stats is float32. cp.async copies 16-byte chunks,
-// so q, k, v and g must start 16-byte aligned.
+// kernels, two launches, from the forward's float32 stats (B, H, S, 2);
+// dsum is the float32 (B, H, S) scratch of D, and keep, where threshold >
+// 0, the scratch of the keep bits (B H Sp^2 / 32 words, Sp = S rounded up
+// to 64). cp.async copies 16-byte chunks, so q, k, v and g must start
+// 16-byte aligned.
 template <class Layout>
 cudaError_t attention_tiled_bwd_bf16(Layout lay, int batch, const int* seed,
                                      const bf16* q, const bf16* k,
-                                     const bf16* v, const bf16* g, bf16* dq,
-                                     bf16* dk, bf16* dv, float* stats,
-                                     float q_scale, float dq_scale,
+                                     const bf16* v, const bf16* g,
+                                     const float* stats, float* dsum,
+                                     uint32_t* keep, bf16* dq, bf16* dk,
+                                     bf16* dv, float q_scale, float dq_scale,
                                      int dq_round_first, uint32_t threshold,
                                      float keep_scale, cudaStream_t stream) {
   constexpr int DH = Layout::kHeadDim;
@@ -1744,14 +1845,18 @@ cudaError_t attention_tiled_bwd_bf16(Layout lay, int batch, const int* seed,
       return cudaErrorMisalignedAddress;
     }
   }
+  if (stats == nullptr || dsum == nullptr ||
+      (threshold > 0 && keep == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   const dim3 dq_grid((lay.seq_len + Q::kRows - 1) / Q::kRows, lay.heads,
                      batch);
   auto* dq_kernel = threshold > 0 ? &attention_bf16_dq_kernel<Layout, true>
                                   : &attention_bf16_dq_kernel<Layout, false>;
   cudaError_t err =
       launch_dynamic(dq_kernel, dq_grid, Q::kThreads, Q::kBytes, stream, lay,
-                     seed, q, k, v, g, dq, stats, q_scale, dq_scale,
-                     dq_round_first, threshold, keep_scale);
+                     seed, q, k, v, g, stats, dq, dsum, keep, q_scale,
+                     dq_scale, dq_round_first, threshold, keep_scale);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid((lay.seq_len + KV::kKeys - 1) / KV::kKeys, lay.heads,
                      batch);
@@ -1759,9 +1864,9 @@ cudaError_t attention_tiled_bwd_bf16(Layout lay, int batch, const int* seed,
                          ? &attention_bf16_dkv_kernel<Layout, true>
                          : &attention_bf16_dkv_kernel<Layout, false>;
   return launch_dynamic(dkv_kernel, kv_grid, KV::kThreads, KV::kBytes, stream,
-                        lay, seed, q, k, v, g,
-                        static_cast<const float*>(stats), dk, dv, q_scale,
-                        threshold, keep_scale);
+                        lay, static_cast<const uint32_t*>(keep), q, k, v, g,
+                        stats, static_cast<const float*>(dsum), dk, dv,
+                        q_scale, keep_scale);
 }
 
 // dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] from (seed, qkv, g);

@@ -70,8 +70,12 @@ extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
 // attention_tiled.cuh's `attention_bf16_fwd_kernel`, at the head widths
 // built in bf16, 24, 128 and 256 (the wrappers' BF16_HEAD_DIMS, which pad
 // every other width to one of them); cudaErrorInvalidValue at any other.
+// With stats (a float32 (B, H, S, 2), or null) the kernel also stores each
+// query row's (m, 1/l), the residuals of the bf16 backward; out's bits are
+// the same either way.
 extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
-                                            void* out, int batch, int seq_len,
+                                            void* out, float* stats,
+                                            int batch, int seq_len,
                                             int channels, int heads,
                                             float q_scale, uint32_t threshold,
                                             float keep_scale, void* stream) {
@@ -85,7 +89,7 @@ extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
   auto run = [&](auto lay) {
     return gpnf::attention_tiled_fwd_bf16(
         lay, batch, seed, in + 2 * channels, in, in + channels,
-        static_cast<bf16*>(out), q_scale, threshold, keep_scale,
+        static_cast<bf16*>(out), stats, q_scale, threshold, keep_scale,
         static_cast<cudaStream_t>(stream));
   };
   switch (channels / heads) {
@@ -100,17 +104,21 @@ extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
 
 // The backward in bf16: dqkv (B, S, 3C, bf16) packed [dK | dV | dq] from
 // (seed, qkv, g), all bf16, q scaled by the bf16 constant q_scale as the
-// forward scales it; stats is the caller's float32 (B, H, S, 3) scratch.
-// dq leaves as dS K times dq_scale rounded once, or, with dq_round_first,
-// rounded first and then times dq_scale (the bf16 constant) and rounded
-// again: attention_tiled.cuh's `attention_bf16_dq_kernel` and
+// forward scales it, and the forward's stats (float32 (B, H, S, 2), its
+// (m, 1/l)); dsum is the caller's float32 (B, H, S) scratch of D and keep,
+// read only when threshold > 0, its int32 scratch of the keep bits, B H Sp^2
+// / 32 words (Sp = S rounded up to 64). dq leaves
+// as dS K times dq_scale rounded once, or, with dq_round_first, rounded
+// first and then times dq_scale (the bf16 constant) and rounded again:
+// attention_tiled.cuh's `attention_bf16_dq_kernel` and
 // `attention_bf16_dkv_kernel`, at the widths built in bf16 (24, 128, 256);
 // cudaErrorInvalidValue at any other.
 extern "C" int gpnf_attention_long_bwd_bf16(
-    const int* seed, const void* qkv, const void* g, void* dqkv, float* stats,
-    int batch, int seq_len, int channels, int heads, float q_scale,
-    float dq_scale, int dq_round_first, uint32_t threshold, float keep_scale,
-    void* stream) {
+    const int* seed, const void* qkv, const void* g, const float* stats,
+    float* dsum, void* keep, void* dqkv, int batch, int seq_len, int channels,
+    int heads,
+    float q_scale, float dq_scale, int dq_round_first, uint32_t threshold,
+    float keep_scale, void* stream) {
   using gpnf::bf16;
   if (heads <= 0 || channels % heads != 0 ||
       !gpnf::attention_args_ok(batch, seq_len, heads, channels / heads,
@@ -122,9 +130,10 @@ extern "C" int gpnf_attention_long_bwd_bf16(
   auto run = [&](auto lay) {
     return gpnf::attention_tiled_bwd_bf16(
         lay, batch, seed, in + 2 * channels, in, in + channels,
-        static_cast<const bf16*>(g), out + 2 * channels, out, out + channels,
-        stats, q_scale, dq_scale, dq_round_first, threshold, keep_scale,
-        static_cast<cudaStream_t>(stream));
+        static_cast<const bf16*>(g), stats, dsum, static_cast<uint32_t*>(keep),
+        out + 2 * channels, out,
+        out + channels, q_scale, dq_scale, dq_round_first, threshold,
+        keep_scale, static_cast<cudaStream_t>(stream));
   };
   switch (channels / heads) {
     case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));

@@ -39,9 +39,9 @@ SIGNATURES = {
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
-        "gpnf_attention_long_fwd_bf16": [_P] * 3 + [_I] * 4 + [_F, _U, _F,
+        "gpnf_attention_long_fwd_bf16": [_P] * 4 + [_I] * 4 + [_F, _U, _F,
                                                                _P],
-        "gpnf_attention_long_bwd_bf16": [_P] * 5 + [_I] * 4 + [_F, _F, _I,
+        "gpnf_attention_long_bwd_bf16": [_P] * 7 + [_I] * 4 + [_F, _F, _I,
                                                                _U, _F, _P],
     },
     "mixlogcdf_forward": {

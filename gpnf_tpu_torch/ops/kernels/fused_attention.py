@@ -75,7 +75,15 @@ plain versions round at the JAX package's points (`bf16_matmul`: the
 float32 product of the bf16 values, rounded once, whatever cuBLAS's
 reduction switches say); the forward kernel rounds the unnormalised
 exp(s - m) where the JAX package rounds the normalised p. No bf16 path
-detours through float32 kernels; the core entries take float32 only.
+detours through float32 kernels; the core entries take float32 only. A
+bf16 forward with a backward to come (`_keeps_stats`) also keeps each
+query row's softmax statistics (m, 1/l), float32 (B, H, S, 2), and the
+autograd functions save them beside (seq, w, seed), the JAX package's
+residuals: the backward's dq kernel needs no online rescale, and computes
+D = sum_j P dP in a pass of its own (rowsum(g * out) from the bf16 output
+misses the kernels' bar, tests/test_torch_bf16_mma.py). The pair draws
+each dropout bit once (the dq kernel) into a scratch of one bit a score
+(`keep_bits_scratch`) that both kernels read.
 
 Dropout: the keep bit of score (b, h, i, j) is word (j & 3) of
 Philox4x32-10 at counter (j >> 2, i, h, b) and key (seed, 0), kept when
@@ -395,6 +403,20 @@ def attention_long_plain(qkv: torch.Tensor, num_heads: int,
     return _merge_heads(attention_plain(q, k, v, rate, seed))
 
 
+def attention_stats_plain(qkv: torch.Tensor, num_heads: int,
+                          q_scale: Optional[float] = None) -> torch.Tensor:
+    """The float32 (B, H, S, 2) statistics the bf16 forward kernel keeps for
+    the backward: each query row's softmax max m and inverse denominator
+    1 / sum_j exp(s_j - m), over the scores of `attention_long_plain` (q
+    scaled as `_split_qkv` scales it), so that m + log l is the row's
+    logsumexp. Independent of the dropout, which scales only P V."""
+    k, _, q = _split_qkv(qkv, num_heads, q_scale)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    m = scores.amax(-1)
+    inv_l = 1.0 / torch.exp(scores - m[..., None]).sum(-1)
+    return torch.stack([m, inv_l], dim=-1)
+
+
 def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
                              num_heads: int, rate: float = 0.0,
                              seed: Optional[torch.Tensor] = None,
@@ -553,37 +575,44 @@ def _proj_cuda_args(kernel, seq, w, num_heads, rate, seed, bf16=False,
                       bf16, seq=seq, w=w, **tensors)
 
 
-def _forward(seq, w, num_heads, rate, seed):
+def _forward(seq, w, num_heads, rate, seed, with_stats=False):
+    """out, or (out, the bf16 forward's statistics) `with_stats`."""
     _validate(seq, w, num_heads, rate, seed)
     if seq.device.type == "cpu" and w.device.type == "cpu":
-        return attention_proj_plain(seq, w, num_heads, rate, seed)
+        out = attention_proj_plain(seq, w, num_heads, rate, seed)
+        if with_stats:
+            return out, attention_stats_plain(qkv_plain(seq, w), num_heads)
+        return out
     _proj_cuda_args("fused_attention_proj", seq, w, num_heads, rate,
                     seed, bf16=True)  # the checks; the stages launch
-    out = _proj_fwd_stages(seq, w, num_heads, rate, seed)
+    out = _proj_fwd_stages(seq, w, num_heads, rate, seed, with_stats)
     fused_attention_proj.launches += 1
     return out
 
 
-def _proj_fwd_stages(seq, w, num_heads, rate, seed):
+def _proj_fwd_stages(seq, w, num_heads, rate, seed, with_stats=False):
     """`_fwd_kernel_proj`'s work in two stages, each across the whole
     batch: qkv = seq w^T (`attention_qkv_gemm`), then out by the
     tensor-core forward (`attention_long_qkv`, q scaled by `head_scale`,
     the backward's scale, so its scores and its mask are the ones the
     backward regenerates; in bf16 the bf16 constant Dh ** -0.5, the JAX
-    package's). The qkv (B, S, 3C) lives only for the call. CPU tensors take
-    each wrapper's plain version."""
+    package's, and `with_stats` the forward's statistics beside out). The
+    qkv (B, S, 3C) lives only for the call. CPU tensors take each
+    wrapper's plain version."""
     q_scale = (None if seq.dtype == torch.bfloat16
                else head_scale(seq.shape[2] // num_heads))
     return attention_long_qkv(attention_qkv_gemm(seq, w), num_heads, rate,
-                              seed, q_scale)
+                              seed, q_scale, with_stats)
 
 
 def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
                              g: torch.Tensor, num_heads: int,
                              rate: float = 0.0,
-                             seed: Optional[torch.Tensor] = None):
+                             seed: Optional[torch.Tensor] = None,
+                             stats: Optional[torch.Tensor] = None):
     """(dseq, dW) of `fused_attention_proj` for the cotangent g, with the
-    forward's dropout mask regenerated from `seed`. CPU tensors take the
+    forward's dropout mask regenerated from `seed`; in bf16 `stats` are the
+    forward's statistics (`attention_long_qkv_bwd`). CPU tensors take the
     plain version; CUDA tensors launch the kernels (`_proj_bwd_stages`) or
     raise. It takes the shapes the forward takes (`attention_route`'s
     "proj"). One call counts one launch here and one in each stage's
@@ -596,12 +625,12 @@ def fused_attention_proj_bwd(seq: torch.Tensor, w: torch.Tensor,
         return attention_proj_plain_bwd(seq, w, g, num_heads, rate, seed)
     _proj_cuda_args("fused_attention_proj_bwd", seq, w, num_heads, rate,
                     seed, bf16=True, g=g)  # the checks; the stages launch
-    dseq, dw = _proj_bwd_stages(seq, w, g, num_heads, rate, seed)
+    dseq, dw = _proj_bwd_stages(seq, w, g, num_heads, rate, seed, stats)
     fused_attention_proj_bwd.launches += 1
     return dseq, dw
 
 
-def _proj_bwd_stages(seq, w, g, num_heads, rate, seed):
+def _proj_bwd_stages(seq, w, g, num_heads, rate, seed, stats=None):
     """`_bwd_kernel_proj`'s work in three stages, each across the whole
     batch: qkv = seq w^T recomputed (`attention_qkv_gemm`); dqkv by the
     tensor-core dq and dK/dV kernels (`attention_long_qkv_bwd`, with the
@@ -612,27 +641,44 @@ def _proj_bwd_stages(seq, w, g, num_heads, rate, seed):
     tiles meet a long K; dW rounded to w's dtype). CPU tensors take each
     wrapper's plain version."""
     dqkv = attention_long_qkv_bwd(attention_qkv_gemm(seq, w), g, num_heads,
-                                  rate, seed, scale_dq_in_fp32=True)
+                                  rate, seed, scale_dq_in_fp32=True,
+                                  stats=stats)
     return (attention_dseq_gemm(dqkv, w),
             attention_dw_gemm(dqkv, seq).to(w.dtype))
 
 
+def _keeps_stats(seq, w):
+    """Whether a forward saves the bf16 kernels' statistics for its
+    backward: bf16 operands, and a backward to come (grad mode on and seq
+    or w requiring grad). Eval, sampling and no_grad calls run the forward
+    kernel without its store."""
+    return (seq.dtype == torch.bfloat16 and torch.is_grad_enabled()
+            and (seq.requires_grad or w.requires_grad))
+
+
 class _AttentionProj(torch.autograd.Function):
     """Saves (seq, w, seed), the residuals of the JAX package's
-    `_vjp_fwd_proj`: the projection and the mask are recomputed."""
+    `_vjp_fwd_proj`: the projection and the mask are recomputed. In bf16
+    (`keep_stats`) it also saves the forward's (B, H, S, 2) statistics, so
+    that the backward's kernels need not rebuild each row's softmax."""
 
     @staticmethod
-    def forward(ctx, seq, w, seed, num_heads, rate):
-        ctx.save_for_backward(seq, w, seed)
+    def forward(ctx, seq, w, seed, num_heads, rate, keep_stats):
         ctx.num_heads, ctx.rate = num_heads, rate
-        return _forward(seq, w, num_heads, rate, seed)
+        if not keep_stats:
+            ctx.save_for_backward(seq, w, seed)
+            return _forward(seq, w, num_heads, rate, seed)
+        out, stats = _forward(seq, w, num_heads, rate, seed, with_stats=True)
+        ctx.save_for_backward(seq, w, seed, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        seq, w, seed = ctx.saved_tensors
+        seq, w, seed, *stats = ctx.saved_tensors
         dseq, dw = fused_attention_proj_bwd(seq, w, g.contiguous(),
-                                            ctx.num_heads, ctx.rate, seed)
-        return dseq, dw, None, None, None
+                                            ctx.num_heads, ctx.rate, seed,
+                                            *stats)
+        return dseq, dw, None, None, None, None
 
 
 def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
@@ -644,7 +690,8 @@ def fused_attention_proj(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     plain versions; CUDA tensors launch the kernels (`_proj_fwd_stages`,
     `_proj_bwd_stages`) or raise. A call counts one launch here and one
     in each stage's count, forward and backward alike."""
-    return _AttentionProj.apply(seq, w, seed, num_heads, rate)
+    return _AttentionProj.apply(seq, w, seed, num_heads, rate,
+                                _keeps_stats(seq, w))
 
 
 # -- the packed entries' kernels: qkv in, the key axis tiled -------------------------
@@ -678,13 +725,15 @@ def _count_lanes(head_dim, counter):
 
 
 def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
-                seed, bf16=False):
+                seed, bf16=False, with_stats=False):
     """Launch the packed forward `fn` of library `source` (the long entry's
     or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks,
     q scaled by q_scale (None: `head_scale`); returns out (B, S, C). With
     `bf16` a bf16 qkv launches the bf16 instantiation (`fn` with the bf16
     suffix) on heads zero-padded to the next of BF16_HEAD_DIMS, q scaled by
-    `bf16_scale(q_scale)` (None: the true Dh ** -0.5)."""
+    `bf16_scale(q_scale)` (None: the true Dh ** -0.5); `with_stats` (bf16
+    only) returns (out, stats), the kernel's float32 (B, H, S, 2) (m, 1/l)
+    of each query row (`attention_stats_plain`)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
@@ -697,12 +746,19 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
         qkv = _pad_heads(qkv, dh, width)
         out = torch.empty((b, s, num_heads * width), dtype=qkv.dtype,
                           device=device)
+        stats = (torch.empty((b, num_heads, s, 2), dtype=torch.float32,
+                             device=device) if with_stats else None)
         _native.launch(source, f"{fn}_bf16", device, seed_ptr,
-                       qkv.data_ptr(), out.data_ptr(), b, s,
+                       qkv.data_ptr(), out.data_ptr(),
+                       None if stats is None else stats.data_ptr(), b, s,
                        num_heads * width, num_heads, q_scale, threshold,
                        scale)
         attention_fwd_bf16.launches += 1
-        return _unpad_heads(out, dh, width)
+        out = _unpad_heads(out, dh, width)
+        return (out, stats) if with_stats else out
+    if with_stats:
+        raise TypeError(f"{kernel}: the statistics are the bf16 kernel's; "
+                        f"qkv is {qkv.dtype}")
     if q_scale is None:
         q_scale = head_scale(dh)
     out = torch.empty((b, s, c), dtype=qkv.dtype, device=device)
@@ -714,37 +770,58 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
 
 
 def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
-                seed, bf16=False, scale_dq_in_fp32=False):
+                seed, bf16=False, scale_dq_in_fp32=False, stats=None):
     """Launch the packed backward `fn` of library `source` on CUDA tensors
     after the kernel's checks, q scaled by q_scale (None: `head_scale`);
     returns dqkv (B, S, 3C). With `bf16` a bf16 qkv and g launch the bf16
     pair (`fn` with the bf16 suffix) on heads zero-padded as `_packed_fwd`
     pads them, q scaled by `bf16_scale(q_scale)` (None: the true
-    Dh ** -0.5), the stats in float32, and dq scaled by q_scale in float32
-    and rounded once where `scale_dq_in_fp32`, else rounded and then scaled
-    by the bf16 constant (`attention_long_plain_bwd`'s two recipes)."""
+    Dh ** -0.5), from the forward's statistics `stats` (float32 (B, H, S,
+    2); None: the forward kernel runs first for them, one launch more), D
+    in a float32 (B, H, S) scratch, and dq scaled by q_scale in float32 and
+    rounded once where `scale_dq_in_fp32`, else rounded and then scaled by
+    the bf16 constant (`attention_long_plain_bwd`'s two recipes)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
     qkv, g = _aligned(qkv, g)
     device, seed_ptr, threshold, scale = _cuda_args(
         kernel, s, dh, max_s, rate, seed, bf16=bf16, qkv=qkv, g=g)
-    stats = torch.empty((b, num_heads, s, 3), dtype=torch.float32,
-                        device=device)
     if qkv.dtype == torch.bfloat16:
+        if stats is None:
+            stats = _packed_fwd(kernel, source, fn.replace("_bwd", "_fwd"),
+                                max_s, qkv, num_heads, q_scale, rate, seed,
+                                bf16, with_stats=True)[1]
+        elif (stats.shape != (b, num_heads, s, 2)
+              or stats.dtype != torch.float32 or stats.device != device):
+            raise ValueError(f"{kernel}: stats {tuple(stats.shape)} "
+                             f"{stats.dtype} on {stats.device} are not the "
+                             f"forward's float32 {(b, num_heads, s, 2)} on "
+                             f"{device}")
+        stats = stats.contiguous()
         width = padded_head_dim(dh, BF16_HEAD_DIMS)
         true_scale = dh ** -0.5 if q_scale is None else q_scale
         qkv, g = _pad_heads(qkv, dh, width), _pad_heads(g, dh, width)
         dqkv = torch.empty_like(qkv)
+        dsum = torch.empty((b, num_heads, s), dtype=torch.float32,
+                           device=device)
+        keep = keep_bits_scratch(b, num_heads, s, rate, device)
         _native.launch(source, f"{fn}_bf16", device, seed_ptr,
-                       qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                       stats.data_ptr(), b, s, num_heads * width, num_heads,
-                       bf16_scale(true_scale),
+                       qkv.data_ptr(), g.data_ptr(), stats.data_ptr(),
+                       dsum.data_ptr(),
+                       None if keep is None else keep.data_ptr(),
+                       dqkv.data_ptr(), b, s,
+                       num_heads * width, num_heads, bf16_scale(true_scale),
                        true_scale if scale_dq_in_fp32
                        else bf16_scale(true_scale),
                        int(not scale_dq_in_fp32), threshold, scale)
         attention_bwd_bf16.launches += 1
         return _unpad_heads(dqkv, dh, width)
+    if stats is not None:
+        raise TypeError(f"{kernel}: the statistics are the bf16 kernels'; "
+                        f"qkv is {qkv.dtype}")
+    stats = torch.empty((b, num_heads, s, 3), dtype=torch.float32,
+                        device=device)
     if q_scale is None:
         q_scale = head_scale(dh)
     dqkv = torch.empty_like(qkv)
@@ -753,6 +830,19 @@ def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
                    num_heads, q_scale, threshold, scale)
     _count_lanes(dh, attention_lanes_bwd)
     return dqkv
+
+
+def keep_bits_scratch(batch: int, heads: int, seq_len: int, rate: float,
+                      device) -> Optional[torch.Tensor]:
+    """The bf16 backward pair's scratch of keep bits at rate > 0 (None at
+    rate 0): one bit a score, B H Sp^2 / 32 int32 words with Sp = S rounded
+    up to 64 (csrc/attention_tiled.cuh, `keep_group`), drawn by the dq
+    kernel and read by both kernels."""
+    if rate == 0.0:
+        return None
+    padded = -(-seq_len // 64) * 64
+    return torch.empty(batch * heads * padded * padded // 32,
+                       dtype=torch.int32, device=device)
 
 
 def _check_cotangent(kernel, qkv, g):
@@ -765,19 +855,26 @@ def _check_cotangent(kernel, qkv, g):
 # -- the long-sequence (and wide) entry ----------------------------------------------
 def attention_long_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
                        seed: Optional[torch.Tensor] = None,
-                       q_scale: Optional[float] = None) -> torch.Tensor:
+                       q_scale: Optional[float] = None,
+                       with_stats: bool = False):
     """The forward kernel at its own boundary: qkv (B, S, 3C) packed
-    [k | v | q] -> (B, S, C), q scaled by q_scale (default Dh^-1/2). CPU
-    tensors take `attention_long_plain` with the same arguments; CUDA
-    tensors launch the kernel (float32 or bf16, in bf16 on heads padded to
-    `padded_head_dim`) or raise (S > 2048, a head width outside
-    HEAD_DIMS, any other dtype)."""
+    [k | v | q] -> (B, S, C), q scaled by q_scale (default Dh^-1/2); with
+    `with_stats` (bf16 only) (out, stats), stats the float32 (B, H, S, 2)
+    (m, 1/l) of each query row that the bf16 backward takes
+    (`attention_stats_plain`; out's bits are the same either way). CPU
+    tensors take `attention_long_plain` (and `attention_stats_plain`) with
+    the same arguments; CUDA tensors launch the kernel (float32 or bf16, in
+    bf16 on heads padded to `padded_head_dim`) or raise (S > 2048, a head
+    width outside HEAD_DIMS, any other dtype)."""
     _validate_qkv("fused_attention_long", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
-        return attention_long_plain(qkv, num_heads, rate, seed, q_scale)
+        out = attention_long_plain(qkv, num_heads, rate, seed, q_scale)
+        if with_stats:
+            return out, attention_stats_plain(qkv, num_heads, q_scale)
+        return out
     out = _packed_fwd("fused_attention_long", "fused_attention_long",
                       "gpnf_attention_long_fwd", MAX_S_LONG, qkv, num_heads,
-                      q_scale, rate, seed, bf16=True)
+                      q_scale, rate, seed, bf16=True, with_stats=with_stats)
     fused_attention_long.launches += 1
     return out
 
@@ -786,13 +883,17 @@ def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
                            rate: float = 0.0,
                            seed: Optional[torch.Tensor] = None,
                            q_scale: Optional[float] = None,
-                           scale_dq_in_fp32: bool = False) -> torch.Tensor:
+                           scale_dq_in_fp32: bool = False,
+                           stats: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The backward kernels at their own boundary: dqkv (B, S, 3C) of
     `attention_long_qkv` for the cotangent g (B, S, C), the mask regenerated
     from `seed`; in bf16 dq by the recipe `scale_dq_in_fp32` names
-    (`attention_long_plain_bwd`). CPU tensors take
-    `attention_long_plain_bwd` with the same arguments; CUDA tensors launch
-    the kernels (float32 or bf16) or raise."""
+    (`attention_long_plain_bwd`), from `stats`, the forward's (m, 1/l)
+    (`attention_long_qkv(..., with_stats=True)`), which the call computes
+    first by the forward kernel where they are not given. CPU tensors take
+    `attention_long_plain_bwd` with the same arguments (the stats unused);
+    CUDA tensors launch the kernels (float32 or bf16) or raise."""
     _validate_qkv("fused_attention_long_bwd", qkv, num_heads, rate, seed)
     _check_cotangent("fused_attention_long_bwd", qkv, g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
@@ -801,7 +902,7 @@ def attention_long_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, num_heads: int,
     dqkv = _packed_bwd("fused_attention_long_bwd", "fused_attention_long",
                        "gpnf_attention_long_bwd", MAX_S_LONG, qkv, g,
                        num_heads, q_scale, rate, seed, bf16=True,
-                       scale_dq_in_fp32=scale_dq_in_fp32)
+                       scale_dq_in_fp32=scale_dq_in_fp32, stats=stats)
     fused_attention_long_bwd.launches += 1
     return dqkv
 
@@ -1025,41 +1126,49 @@ def _wide_widths(c, num_heads):
 def fused_attention_long_bwd(seq: torch.Tensor, w: torch.Tensor,
                              g: torch.Tensor, num_heads: int,
                              rate: float = 0.0,
-                             seed: Optional[torch.Tensor] = None):
+                             seed: Optional[torch.Tensor] = None,
+                             stats: Optional[torch.Tensor] = None):
     """(dseq, dW) of `fused_attention_long` for the cotangent g: the
     projection recomputed, dqkv from the kernels (heads padded as the
-    forward pads them), then dseq = dqkv w and dW = dqkv^T seq: the GEMM
-    kernels at S <= MAX_S, torch.matmul above (the JAX package's
-    `_vjp_bwd_long`)."""
+    forward pads them; in bf16 from the forward's `stats` where given),
+    then dseq = dqkv w and dW = dqkv^T seq: the GEMM kernels at
+    S <= MAX_S, torch.matmul above (the JAX package's `_vjp_bwd_long`)."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long_bwd")
     dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
     dqkv = attention_long_qkv_bwd(
         _pad_heads(_long_project(seq, w), dh, width),
-        _pad_heads(g, dh, width), num_heads, rate, seed, q_scale)
+        _pad_heads(g, dh, width), num_heads, rate, seed, q_scale,
+        stats=stats)
     return _long_project_bwd(_unpad_heads(dqkv, dh, width).contiguous(),
                              seq, w)
 
 
 class _AttentionLong(torch.autograd.Function):
     """Saves (seq, w, seed), the residuals of the JAX package's
-    `_vjp_fwd_long`: the projection and the mask are recomputed."""
+    `_vjp_fwd_long`: the projection and the mask are recomputed; in bf16
+    (`keep_stats`) also the forward's statistics, as `_AttentionProj`."""
 
     @staticmethod
-    def forward(ctx, seq, w, seed, num_heads, rate):
-        ctx.save_for_backward(seq, w, seed)
+    def forward(ctx, seq, w, seed, num_heads, rate, keep_stats):
         ctx.num_heads, ctx.rate = num_heads, rate
         dh, width, q_scale = _wide_widths(seq.shape[2], num_heads)
         out = attention_long_qkv(
             _pad_heads(_long_project(seq, w), dh, width), num_heads, rate,
-            seed, q_scale)
+            seed, q_scale, keep_stats)
+        if keep_stats:
+            out, stats = out
+            ctx.save_for_backward(seq, w, seed, stats)
+        else:
+            ctx.save_for_backward(seq, w, seed)
         return _unpad_heads(out, dh, width)
 
     @staticmethod
     def backward(ctx, g):
-        seq, w, seed = ctx.saved_tensors
+        seq, w, seed, *stats = ctx.saved_tensors
         dseq, dw = fused_attention_long_bwd(seq, w, g.contiguous(),
-                                            ctx.num_heads, ctx.rate, seed)
-        return dseq, dw, None, None, None
+                                            ctx.num_heads, ctx.rate, seed,
+                                            *stats)
+        return dseq, dw, None, None, None, None
 
 
 def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
@@ -1078,7 +1187,8 @@ def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
     versions after the same padding; CUDA tensors launch the kernels or
     raise."""
     _validate(seq, w, num_heads, rate, seed, "fused_attention_long")
-    return _AttentionLong.apply(seq, w, seed, num_heads, rate)
+    return _AttentionLong.apply(seq, w, seed, num_heads, rate,
+                                _keeps_stats(seq, w))
 
 
 # -- the core entries: separate q, k, v, or packed qkv, S <= 512 --------------------

@@ -7,13 +7,16 @@ every tile, layout and width, the constants against the sources, and the
 kernels' rounding points emulated in their tile order and held to the
 plain versions and the JAX package within the kernels' bars: the forward
 (q * scale rounded to bf16, the unnormalised P rounded to bf16, each key
-tile's P V summed in fp32), the backward (passes A and B of the dq kernel
-over its key tiles, dS rounded for dq, the dK/dV kernel's query tiles
-with Pd and dS rounded, dq by either recipe), and the GEMM (32-deep chunks
-summed apart in fp32, the splits of K added in order, one rounding, dW in
-fp32). The padded widths are held to the true ones. The kernels
-themselves are held against the plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py."""
+tile's P V summed in fp32, and the (m, 1/l) it keeps for the backward),
+the backward (the dq kernel's D pass and dS pass over its key tiles from
+the forward's (m, 1/l), dS rounded for dq, the dK/dV kernel's query tiles
+with Pd and dS rounded, dq by either recipe; the keep-bit buffer the dq
+kernel writes and both kernels read, bit for bit; and why D is sum_j P dP
+and not rowsum(g * out)), and the GEMM (32-deep chunks summed apart in
+fp32, the splits of K added in order, one rounding, dW in fp32). The
+padded widths are held to the true ones. The kernels themselves are held
+against the plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py."""
 import importlib
 import re
 from pathlib import Path
@@ -96,6 +99,7 @@ def dkv_queries(dh):
 
 
 FWD_KEYS = fwd_keys(24)
+DKV_STAGES = tile_const("MmaDkvBf16", "kStages", 32)
 
 
 # -- banks --------------------------------------------------------------------
@@ -153,16 +157,32 @@ def test_constants_match_the_sources():
         "MmaFwdBf16")
     assert [dq_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
     assert [dkv_queries(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
-    assert tile_const("MmaDkvBf16", "kPairs", 32) == 2
-    assert "static constexpr int kKeys = 16 * kPairs;" in struct("MmaDkvBf16")
+    # dK/dV: a warp to 16 keys (two at W 256, half the columns each), 64
+    # keys a block, the query tiles in a ring of DKV_STAGES
+    assert [tile_const("MmaDkvBf16", "kColSplit", fwd_width(d))
+            for d in fa.BF16_HEAD_DIMS] == [1, 1, 2]
+    assert (tile_const("MmaDkvBf16", "kKeys", 32), DKV_STAGES) == (64, 2)
+    assert "static constexpr int kWarps = 4 * kColSplit;" in struct(
+        "MmaDkvBf16")
+    # the keep-bit buffer's rows and keys, S rounded up to a whole tile of
+    # either kernel (64), as `keep_bits_scratch` sizes it
+    assert "return (seq_len + 63) / 64 * 64;" in TILED
+    assert fa.keep_bits_scratch(2, 4, 100, 0.2, "cpu").numel() == \
+        2 * 4 * 128 * 128 // 32
+    assert fa.keep_bits_scratch(2, 4, 100, 0.0, "cpu") is None
     # the rounding points the emulations below model
     for line in ("x = __bfloat162float(__float2bfloat16_rn(x));",
                  "pack_bf16(x * dq_scale, y * dq_scale);",
-                 "const float p = live ? expf(xs[at] - mi) * li : 0.f;",
-                 "pd = keep ? p * keep_scale : 0.f;",
-                 "xd[at] = p * (dpv - di);",
+                 "fmaf(expf(s[n][e] - m[e >> 1]), dp[n][e], dpart[e >> 1]);",
+                 "big_d[r] = dt * inv_l[r];",
+                 "expf(sx[n][e] - (odd ? ml.z : ml.x)) * (odd ? ml.w : ml.y);",
+                 "pd = kept ? p * keep_scale : 0.f;",
+                 "dx[n][e] = p * (dpv - (odd ? dd.y : dd.x));",
                  "scale_rows_bf16<LD>(q_t, QT, DH, q_scale, T::kThreads);",
-                 "d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *"):
+                 "d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *",
+                 "stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len"
+                 " + i) *",
+                 "2) = make_float2(m[r], inv_l);"):
         assert line in TILED, line
     for line in ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];",
                  "acc += partial[z * count + i];",
@@ -225,9 +245,9 @@ def fwd_loads(dh):
 
 
 def dq_loads(dh):
-    """Of attention_bf16_dq_kernel: each warp's q and g fragments, K's and
-    V's pairs of key tiles, and K's transposed pairs for dq += dS K, in both
-    stages."""
+    """Of attention_bf16_dq_kernel: each warp's q and g fragments (once, at
+    W 32, or at every key tile), K's and V's pairs of key tiles, and K's
+    transposed pairs for dq += dS K, in both stages."""
     w = fwd_width(dh)
     ld = w + PAD
     rows, keys = FWD_ROWS, dq_keys(dh)
@@ -246,17 +266,18 @@ def dq_loads(dh):
 
 
 def dkv_loads(dh):
-    """Of attention_bf16_dkv_kernel: each pair's K and V fragments, the
-    query tiles' q and g pairs (S^T, dPd^T) and transposed pairs (dV, dK),
-    in both stages."""
+    """Of attention_bf16_dkv_kernel: each warp's K and V fragments (its 16
+    keys), the query tiles' q and g pairs (S^T, dPd^T) and transposed pairs
+    (dV, dK; each warp of a key's two at W 256 its half of the columns), in
+    every stage of the ring."""
     w = fwd_width(dh)
     ld = w + PAD
-    keys = 16 * tile_const("MmaDkvBf16", "kPairs", w)
+    keys = tile_const("MmaDkvBf16", "kKeys", w)
     queries = dkv_queries(dh)
-    loads = [frag_a(base, ld, 16 * pair, 16 * ks)
-             for base in (0, 2 * keys * ld) for pair in range(keys // 16)
+    loads = [frag_a(base, ld, k0, 16 * ks)
+             for base in (0, 2 * keys * ld) for k0 in range(0, keys, 16)
              for ks in range(w // 16)]
-    for stage in range(2):
+    for stage in range(DKV_STAGES):
         q_base = 2 * (2 * keys + 2 * stage * queries) * ld
         for base in (q_base, q_base + 2 * queries * ld):
             loads += [frag_b_pair(base, ld, 16 * np_, 16 * ks)
@@ -368,13 +389,14 @@ def test_gemm_backward_products_emulated(b, s, c):
                  <= spread).all())
 
 
-def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None):
+def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None, with_stats=False):
     """attention_bf16_fwd_kernel's rounding points on the CPU, in its key
     tiles: q * bf16(Dh^-1/2) rounded to bf16; per tile the float32 scores,
     the running max m and corr = exp(m_old - m), p = exp(s - m) added
     unrounded to the denominator, pd = keep p / (1 - rate) rounded to
     bf16, the tile's pd V summed in float32 and added as out corr + pd V;
-    out / l rounded once."""
+    out / l rounded once. `with_stats`: also the (B, H, S, 2) (m, 1/l) the
+    kernel stores for the backward, its last running max and 1 / l."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // heads
@@ -397,7 +419,10 @@ def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None):
         pv = p.to(BF16).float() @ v[:, :, j0:j0 + keys]
         acc = acc * corr + pv
         m = mx
-    return fa._merge_heads((acc / l).to(BF16))
+    out = fa._merge_heads((acc / l).to(BF16))
+    if with_stats:
+        return out, torch.cat([m, 1.0 / l], dim=-1)
+    return out
 
 
 def _qkv(b, s, c, seed=2):
@@ -430,19 +455,23 @@ def test_forward_emulation_is_within_the_kernels_bar(dh, s, rate):
 
 
 def emulated_bwd_bf16(qkv, g, heads, rate=0.0, seed=None,
-                      scale_dq_in_fp32=False):
+                      scale_dq_in_fp32=False, d_from_out=False):
     """dqkv as attention_bf16_dq_kernel and attention_bf16_dkv_kernel round
-    it, in their tiles. dq: q * bf16(Dh^-1/2) rounded; pass A over key
-    tiles keeps m, l and D = sum exp(s - m) dP online in float32; pass B
-    forms dS = exp(s - m) / l (dP - D) per key tile, rounds it to bf16 and
-    adds dS K in float32; dq leaves by the recipe. dK/dV: per query tile P
-    from the stats (m, 1/l, D), Pd = keep P keep_scale and dS = P (dP - D)
-    rounded to bf16, dV += Pd^T g and dK += dS^T q in float32; each output
-    rounded once."""
+    it, in their tiles, from the forward's (m, 1/l) (`emulated_fwd_bf16`).
+    dq: q * bf16(Dh^-1/2) rounded; pass A over the key tiles sums
+    exp(s - m) dP in float32, D its sum times 1/l; pass B forms dS =
+    exp(s - m) / l (dP - D) per key tile, rounds it to bf16 and adds dS K in
+    float32; dq leaves by the recipe. dK/dV: per query tile P from the
+    stats, Pd = keep P keep_scale and dS = P (dP - D) rounded to bf16,
+    dV += Pd^T g and dK += dS^T q in float32; each output rounded once.
+    `d_from_out`: D = rowsum(g * out) of the forward's bf16 out instead,
+    FlashAttention's recipe, which the kernels do not take."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // heads
     true = dh ** -0.5
+    out, stats = emulated_fwd_bf16(qkv, heads, rate, seed, with_stats=True)
+    m, inv_l = stats[..., :1], stats[..., 1:]
     k, v, q = fa._split_qkv(qkv, heads)
     q, k, v = q.float(), k.float(), v.float()
     gh = g.reshape(b, s, heads, dh).transpose(1, 2).float()
@@ -459,19 +488,14 @@ def emulated_bwd_bf16(qkv, g, heads, rate=0.0, seed=None,
 
     rows = slice(0, s)
     keys = dq_keys(dh)
-    m = torch.full((b, heads, s, 1), -torch.inf)
-    l = torch.zeros((b, heads, s, 1))
     dsum = torch.zeros((b, heads, s, 1))
     for j0 in range(0, s, keys):
         sc, dp, _ = tile(rows, slice(j0, j0 + keys))
-        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
-        corr = torch.exp(m - mx)
-        ex = torch.exp(sc - mx)
-        l = l * corr + ex.sum(-1, keepdim=True)
-        dsum = dsum * corr + (ex * dp).sum(-1, keepdim=True)
-        m = mx
-    inv_l = 1.0 / l
+        dsum = dsum + (torch.exp(sc - m) * dp).sum(-1, keepdim=True)
     big_d = dsum * inv_l
+    if d_from_out:
+        oh = out.reshape(b, s, heads, dh).transpose(1, 2).float()
+        big_d = (gh * oh).sum(-1, keepdim=True)
     dq = torch.zeros((b, heads, s, dh))
     for j0 in range(0, s, keys):
         sc, dp, _ = tile(rows, slice(j0, j0 + keys))
@@ -496,6 +520,15 @@ def emulated_bwd_bf16(qkv, g, heads, rate=0.0, seed=None,
                       fa._merge_heads(dv.to(BF16)), fa._merge_heads(dq)], -1)
 
 
+def _thirds_over_bar(got, want, c):
+    """max |got - want| of each third of dqkv (dK, dV, dq) over its bar,
+    2^-7 of the third's largest |want|."""
+    return [float((got[..., i * c:(i + 1) * c].float()
+                   - want[..., i * c:(i + 1) * c].float()).abs().max())
+            / (2.0 ** -7 * float(want[..., i * c:(i + 1) * c].float()
+                                 .abs().max())) for i in range(3)]
+
+
 @pytest.mark.parametrize("dh,s,rate,in_fp32", [
     (24, 100, 0.0, True), (24, 64, 0.2, False), (128, 70, 0.0, False),
     (128, 48, 0.2, True), (256, 40, 0.0, True), (256, 33, 0.2, False)])
@@ -513,11 +546,163 @@ def test_backward_emulation_is_within_the_kernels_bar(dh, s, rate, in_fp32):
     want = fa.attention_long_plain_bwd(qkv, g, heads, rate, seed, None,
                                        in_fp32)
     assert got.dtype == want.dtype == BF16
-    for part in range(3):
-        x = got[..., part * c:(part + 1) * c].float()
-        y = want[..., part * c:(part + 1) * c].float()
-        assert float((x - y).abs().max()) <= 2.0 ** -7 * float(
-            y.abs().max()), part
+    assert max(_thirds_over_bar(got, want, c)) <= 1.0
+
+
+def test_d_from_the_bf16_output_would_miss_the_bar():
+    """Why the dq kernel sums D = sum_j P dP over the keys and does not take
+    FlashAttention's D = rowsum(g * out): out is rounded to bf16 (its P
+    before P V too), so that D is off by ~2^-9 of |g| |out|, and at the
+    flagship's level 0 width and the training rate the emulated kernels
+    with it miss the 2^-7 bar; with sum_j P dP they hold it by a wide
+    margin."""
+    heads, b, dh, s, rate = 4, 2, 24, 256, 0.2
+    c = heads * dh
+    qkv = _qkv(b, s, c, seed=dh + s)
+    g = torch.from_numpy(rng(s).standard_normal((b, s, c))
+                         .astype(np.float32) * 0.5).to(BF16)
+    seed = torch.tensor([11], dtype=torch.int32)
+    want = fa.attention_long_plain_bwd(qkv, g, heads, rate, seed, None, True)
+    shipped = _thirds_over_bar(emulated_bwd_bf16(
+        qkv, g, heads, rate, seed, True), want, c)
+    from_out = _thirds_over_bar(emulated_bwd_bf16(
+        qkv, g, heads, rate, seed, True, d_from_out=True), want, c)
+    assert max(shipped) <= 0.25
+    assert max(from_out) > 1.0
+
+
+@pytest.mark.parametrize("dh,s,rate", [(24, 100, 0.2), (128, 70, 0.0),
+                                       (256, 35, 0.2)])
+def test_forward_keeps_each_rows_statistics(dh, s, rate):
+    """The (m, 1/l) the forward kernel stores, emulated in its key tiles
+    (the running max after the last tile, 1 / the rescaled sum), are each
+    row's softmax statistics: m the largest score, m + log l its
+    logsumexp, whatever the dropout; `attention_stats_plain` (the CPU's
+    residual) gives the same; out is the same with or without them."""
+    heads, b = 4, 2
+    c = heads * dh
+    qkv = _qkv(b, s, c, seed=dh + 1)
+    seed = torch.tensor([7], dtype=torch.int32)
+    out, stats = emulated_fwd_bf16(qkv, heads, rate, seed, with_stats=True)
+    assert torch.equal(out, emulated_fwd_bf16(qkv, heads, rate, seed))
+    assert stats.shape == (b, heads, s, 2) and stats.dtype == torch.float32
+    k, _, q = fa._split_qkv(qkv, heads)
+    scores = (q.float() @ k.float().transpose(-1, -2)).double()
+    lse = torch.logsumexp(scores, -1)
+    m, inv_l = stats[..., 0].double(), stats[..., 1].double()
+    assert torch.allclose(m, scores.amax(-1), rtol=0, atol=1e-6)
+    assert torch.allclose(m - torch.log(inv_l), lse, rtol=0, atol=1e-5)
+    plain = fa.attention_stats_plain(qkv, heads)
+    assert torch.allclose(plain.double(), stats.double(), rtol=1e-5,
+                          atol=1e-6)
+
+
+def keep_group(bh, padded, i, j):
+    """attention_tiled.cuh's `keep_group`: the first of the four words of
+    rows i .. i + 15 and keys j .. j + 7 of head bh."""
+    return ((bh * (padded // 16) + i // 16) * (padded // 8) + j // 8) * 4
+
+
+@pytest.mark.parametrize("s", [100, 64, 16])
+def test_keep_bit_buffer_holds_the_mask_bit_for_bit(s):
+    """The keep bits the dq kernel draws once and both kernels read back:
+    the buffer filled as the dq kernel fills it (each warp's m16n8 C
+    fragments of rows i0 + r0 .., keys j0 + 8 n ..: word e the ballot of
+    element e over the lanes 4 gr + tg, one Philox word a score, the
+    words of `dropout_keep_plain`), then read as the dK/dV kernel reads
+    it (a thread's keys k0 + gr and k0 + gr + 8, queries i0 + 8 n + 2 tg
+    and + 1, from words 2 ((i >> 3) & 1) + (gr & 1) and 4 past it, bit
+    4 (2 tg + c) + (gr >> 1)) and as the dq kernel's pass B reads it: the
+    mask, bit for bit, at a ragged S."""
+    b, heads, rate = 2, 3, 0.2
+    seed = torch.tensor([13], dtype=torch.int32)
+    keep = fa.dropout_keep_plain(seed, b, heads, s, rate)
+    padded = -(-s // 64) * 64
+    assert fa.keep_bits_scratch(b, heads, s, rate, "cpu").numel() == \
+        b * heads * padded * padded // 32
+    buf = np.zeros(b * heads * padded * padded // 32, dtype=np.uint64)
+    kp = np.zeros((b * heads, padded, padded), dtype=bool)
+    kp[:, :s, :s] = keep.reshape(b * heads, s, s).numpy()
+    lane = np.arange(32)
+    gr, tg = lane >> 2, lane & 3
+    # the writer: dq kernel warps (rows of 16) and n8 key tiles
+    for bh in range(b * heads):
+        for i in range(0, padded, 16):
+            for j in range(0, padded, 8):
+                at = keep_group(bh, padded, i, j)
+                for e in range(4):
+                    bits = kp[bh, i + gr + 8 * (e >> 1), j + 2 * tg + (e & 1)]
+                    buf[at + e] = int(np.sum(bits.astype(np.uint64)
+                                             << lane.astype(np.uint64)))
+    # the dK/dV kernel's reads: warps of 16 keys, query tiles in n8 groups
+    got = np.zeros_like(kp)
+    for bh in range(b * heads):
+        for k0 in range(0, padded, 16):
+            for i8 in range(0, padded, 8):
+                at = (keep_group(bh, padded, i8, k0) + 2 * ((i8 >> 3) & 1)
+                      + (gr & 1))
+                for e in range(4):
+                    c, d = e & 1, e >> 1
+                    word = buf[at + 4 * d]
+                    bit = (word >> (4 * (2 * tg + c) + (gr >> 1)).astype(
+                        np.uint64)) & 1
+                    got[bh, i8 + 2 * tg + c, k0 + gr + 8 * d] = bit.astype(
+                        bool)
+    assert np.array_equal(got[:, :s, :s], kp[:, :s, :s])
+    # the dq kernel's pass B: the word of its own element e, its lane's bit
+    for bh in range(b * heads):
+        for i in range(0, s, 16):
+            for j in range(0, s, 8):
+                at = keep_group(bh, padded, i, j)
+                for e in range(4):
+                    bit = (buf[at + e] >> lane.astype(np.uint64)) & 1
+                    want = kp[bh, i + gr + 8 * (e >> 1), j + 2 * tg + (e & 1)]
+                    assert np.array_equal(bit.astype(bool), want)
+
+
+@pytest.mark.parametrize("entry", ["proj", "long"])
+def test_bf16_autograd_saves_the_forward_statistics(entry):
+    """A bf16 forward with a backward to come saves the forward's (B, H, S,
+    2) statistics beside (seq, w, seed) (`attention_stats_plain` on the
+    CPU, the kernel's store on the card), float32 and calls with no
+    gradient to come save (seq, w, seed) alone, the JAX package's
+    residuals; the gradients are the plain backward's either way."""
+    heads, b, s, c = 4, 2, 24, 96
+    r = rng(5)
+    seq = torch.from_numpy(r.standard_normal((b, s, c)).astype(np.float32)
+                           * 0.5)
+    w = torch.from_numpy(r.standard_normal((3 * c, c)).astype(np.float32)
+                         * 0.1)
+    g = torch.from_numpy(r.standard_normal((b, s, c)).astype(np.float32))
+    seed = torch.tensor([2], dtype=torch.int32)
+    fn = {"proj": kernels.fused_attention_proj,
+          "long": kernels.fused_attention_long}[entry]
+    for dtype in (BF16, torch.float32):
+        x, wt = (seq.to(dtype, copy=True).requires_grad_(),
+                 w.to(dtype, copy=True).requires_grad_())
+        out = fn(x, wt, heads, 0.2, seed)
+        saved = out.grad_fn.saved_tensors
+        assert saved[0] is x or torch.equal(saved[0], x)
+        if dtype == BF16:
+            assert len(saved) == 4
+            qkv = fa.qkv_plain(x.detach(), wt.detach())
+            assert torch.equal(saved[3], fa.attention_stats_plain(
+                qkv, heads))
+        else:
+            assert len(saved) == 3
+        out.backward(g.to(dtype))
+        # the entry's backward at its boundary, on the CPU its plain version
+        plain = {"proj": kernels.fused_attention_proj_bwd,
+                 "long": kernels.fused_attention_long_bwd}[entry](
+            x.detach(), wt.detach(), g.to(dtype), heads, 0.2, seed)
+        assert torch.equal(x.grad, plain[0])
+        assert torch.equal(wt.grad, plain[1])
+    # no gradient to come: no statistics
+    for grad in (False, True):
+        x = seq.to(BF16).requires_grad_(grad)
+        with torch.set_grad_enabled(not grad):
+            out = fn(x, w.to(BF16), heads, 0.2, seed)
+        assert out.grad_fn is None or len(out.grad_fn.saved_tensors) == 3
 
 
 @pytest.mark.parametrize("dh", [4, 8, 16, 32, 48, 64])

@@ -1844,9 +1844,9 @@ def test_bf16_model_trains_on_card(cuda_device):
 @pytest.mark.cuda
 def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
     """The bf16 GEMM (every tile, layout and copy width), the bf16 forward
-    and the dq and dK/dV kernels (Dh 24, 128 and 256, with and without
-    dropout) hold bf16 HMMA instructions (HMMA.16816.F32.BF16) in their
-    SASS."""
+    (with and without the statistics' store) and the dq and dK/dV kernels
+    (Dh 24, 128 and 256, with and without dropout) hold bf16 HMMA
+    instructions (HMMA.16816.F32.BF16) in their SASS."""
     import os
     import shutil
 
@@ -1859,7 +1859,7 @@ def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
                     "read here")
     for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 12),
                                ("fused_attention_long",
-                                "attention_bf16_fwd_kernel", 6),
+                                "attention_bf16_fwd_kernel", 12),
                                ("fused_attention_long",
                                 "attention_bf16_dq_kernel", 6),
                                ("fused_attention_long",
@@ -1908,6 +1908,39 @@ def test_bf16_backward_matches_plain_on_card(cuda_device, batch, s, c,
     want = kernels.attention_long_plain_bwd(qkv, g, 4, rate, seed, None,
                                             in_fp32)
     assert max(_bwd_thirds_err(got, want, c)) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("batch,s,c", [(64, 256, 96), (4, 1024, 96),
+                                       (16, 256, 512), (3, 100, 96),
+                                       (2, 40, 1024)])
+def test_bf16_backward_from_the_forward_statistics_on_card(cuda_device, batch,
+                                                           s, c, rate):
+    """Training's pair: the forward with its statistics' store gives out
+    bit for bit as without it, and (m, 1/l) within 1e-4 of
+    `attention_stats_plain` (m absolute, 1/l relative); the backward given
+    them is 2 device launches (the dq and dK/dV kernels) and the same bits
+    as the backward that runs the forward first for them (3 launches)."""
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
+    r = np.random.default_rng(45)
+    qkv = _bf16(_normal(r, (batch, s, 3 * c))).to(cuda_device)
+    g = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
+    seed = torch.tensor([6], dtype=torch.int32, device=cuda_device)
+    out, stats = kernels.attention_long_qkv(qkv, 4, rate, seed,
+                                            with_stats=True)
+    assert torch.equal(out, kernels.attention_long_qkv(qkv, 4, rate, seed))
+    assert stats.shape == (batch, 4, s, 2) and stats.dtype == torch.float32
+    plain = fa.attention_stats_plain(qkv, 4)
+    assert float((stats[..., 0] - plain[..., 0]).abs().max()) <= 1e-4
+    assert float(((stats[..., 1] - plain[..., 1]) / plain[..., 1]).abs()
+                 .max()) <= 1e-4
+    given = lambda: kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed,
+                                                   stats=stats)
+    alone = lambda: kernels.attention_long_qkv_bwd(qkv, g, 4, rate, seed)
+    assert torch.equal(given(), alone())
+    assert (graph_launches(given), graph_launches(alone)) == (2, 3)
 
 
 @pytest.mark.cuda
@@ -2012,9 +2045,10 @@ def test_bf16_dseq_and_dw_gemms_match_plain_on_card(cuda_device, batch, s,
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_bf16_proj_backward_launches_the_bf16_kernels(cuda_device, rate):
-    """A bf16 proj backward (the flagship's level 1) runs the bf16 qkv GEMM,
-    the bf16 dq and dK/dV pair and the bf16 dseq and dW GEMMs, one launch
-    each, no library product and no bf16 tensor upcast: dseq and dW (bf16,
+    """A bf16 proj backward (the flagship's level 1) from the forward's
+    statistics runs the bf16 qkv GEMM, the bf16 dq and dK/dV pair and the
+    bf16 dseq and dW GEMMs, one launch each (no forward), no library product
+    and no bf16 tensor upcast: dseq and dW (bf16,
     w's dtype) within 2^-7 of the largest |plain| of
     `attention_proj_plain_bwd`."""
     r = np.random.default_rng(44)
@@ -2022,10 +2056,12 @@ def test_bf16_proj_backward_launches_the_bf16_kernels(cuda_device, rate):
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
     g = _bf16(_normal(r, (8, 64, 96), 0.5)).to(cuda_device)
     seed = torch.tensor([4], dtype=torch.int32, device=cuda_device)
+    # the forward's statistics, as training's autograd passes them
+    _, stats = fa._forward(seq, w, 4, rate, seed, with_stats=True)
     kernels.reset_launch_counts()
     with NoLibraryProducts(), NoUpcast():
         dseq, dw = kernels.fused_attention_proj_bwd(seq, w, g, 4, rate,
-                                                    seed)
+                                                    seed, stats)
     counts = kernels.launch_counts()
     assert counts == {**dict.fromkeys(counts, 0), **PROJ_BWD_COUNTS,
                       "attention_qkv_gemm_bf16": 1, "attention_bwd_bf16": 1,

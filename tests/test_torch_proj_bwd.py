@@ -113,7 +113,8 @@ def test_proj_bwd_stages_drop_the_plain_backwards_scores(s):
 
 def test_proj_bwd_takes_the_stages_off_the_cpu(monkeypatch):
     """A tensor off the CPU (meta here) runs the three stages after the
-    proj checks, and the call counts one launch."""
+    proj checks (heads, rate, seed and the forward's statistics, none
+    given here, passed on), and the call counts one launch."""
     seq = torch.zeros((2, 16, 96), device="meta")
     w = torch.zeros((288, 96), device="meta")
     calls = []
@@ -123,7 +124,7 @@ def test_proj_bwd_takes_the_stages_off_the_cpu(monkeypatch):
     before = kernels.fused_attention_proj_bwd.launches
     assert kernels.fused_attention_proj_bwd(seq, w, seq, HEADS) == ("dseq",
                                                                      "dw")
-    assert len(calls) == 1 and calls[0][3:] == (HEADS, 0.0, None)
+    assert len(calls) == 1 and calls[0][3:] == (HEADS, 0.0, None, None)
     assert kernels.fused_attention_proj_bwd.launches == before + 1
 
 
