@@ -167,8 +167,10 @@ Phases, each of which raises (exit code != 0) when it fails:
      bit for bit, out bit for bit the same with the statistics' store
      that training's forward adds (its (m, 1/l) within 1e-4 of the plain
      statistics), each with its time, the plain version's, the library
-     call's on bf16 and its bound at the bf16 rate, and bf16 HMMA in each
-     kernel's SASS; then phase 5's weights in bf16: eval bits/dim over
+     call's on bf16 and its bound at the bf16 rate, the GEMM's plan (the
+     TMA + wgmma route, its tile, splits and ring) and one device launch a
+     call (a CUDA graph), bf16 HGMMA and UTMALDG in the GEMM's SASS and
+     bf16 HMMA in the forward's; then phase 5's weights in bf16: eval bits/dim over
      phase 5's batches (exact launch counts, 2 device launches a proj
      forward, no backward launch) and its gap to phase 5's float32, one
      sampling pass (every image finite), a test batch's latents through
@@ -176,7 +178,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      latent at each level), card vs CPU at batch 2, eval images/s in bf16 and float32 in turns, peak
      memory; one bf16 eval batch of the 64-px row and of phase 18's --C
      512 model. Every earlier phase asserts that it launches no bf16
-     kernel;
+     kernel; phases 19, 20 and 21 each that no bf16 GEMM call so far took
+     its unaligned route;
  20. training the flagship in bf16 (`bench.py`'s default train step): the
      bf16 dq and dK/dV pair from the forward's statistics against the
      plain bf16 backward (each of dK, dV and dq within 2^-7 of its largest
@@ -185,10 +188,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      long entry's), rate 0 and 0.2, and the forward and backward at every
      other head width (Dh 4, 8, 16 run 24 wide, 32, 48, 64 run 128 wide,
      and 256) at rate 0.2; the bf16 GEMM's dseq (one bf16 ulp plus the
-     float32 sums' spread) and dW (float32, within its sums' spread) at
-     phase 19's shapes; two calls bit for bit each; times beside the plain
-     versions', SDPA's autograd backward's and torch.matmul's on bf16, and
-     bounds at the bf16 rate; bf16 HMMA in the new kernels' SASS; then the
+     float32 sums' spread; at K = 16,384 also its error over sum |products|
+     against float64) at phase 19's shapes, on the TMA + wgmma route, one
+     device launch a call with K split inside it; two calls bit for bit
+     each; times beside the plain versions', SDPA's autograd backward's and
+     torch.matmul's on bf16, and bounds at the bf16 rate; bf16 HMMA in the
+     pair's SASS, HGMMA and UTMALDG in the GEMM's; then the
      flagship in bf16 on phase 4's seeds and batches: 20 Adamax steps at
      dropout 0.2 (losses finite and falling, exact launch counts a step:
      every attention product on a bf16 kernel, none on a float32 one), peak
@@ -2694,6 +2699,43 @@ def _bf16_bound(bytes_moved, ops):
     return bound(bytes_moved, ops, PEAK_OPS_BF16)
 
 
+def wgmma_sass():
+    """{instantiation: {"hgmma": {opcode: n}, "tma": {opcode: n}}} of the
+    bf16 GEMM's TMA + wgmma kernel (cuobjdump -sass); raises unless each of
+    its 24 instantiations (3 layouts, 2 tile widths, bf16 or float32 c,
+    clusters of 8 or 2) holds bf16 warpgroup products (HGMMA ... BF16) and
+    TMA loads (UTMALDG)."""
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    out = {fn: {"hgmma": row["hgmma_ops"], "tma": row["tma_ops"]}
+           for fn, row in sass_counts(
+               _native.library_path("attention_gemm")).items()
+           if "gemm_wgmma_bf16_kernel" in fn}
+    log(f"  gemm_wgmma_bf16_kernel: HGMMA and TMA instructions in the SASS "
+        f"of each instantiation (cuobjdump -sass): {out}")
+    if len(out) != 24 or not all(
+            any("BF16" in op for op in row["hgmma"]) and row["tma"].get(
+                "UTMALDG", 0) for row in out.values()):
+        raise AssertionError(f"gemm_wgmma_bf16_kernel: no bf16 HGMMA or "
+                             f"UTMALDG in {out}")
+    return out
+
+
+def check_aligned_route(phase):
+    """The bf16 GEMM's calls in this run so far all took the TMA + wgmma
+    kernel: the unaligned route's count (never reset) is 0."""
+    from gpnf_tpu_torch.ops import kernels
+
+    n = kernels.attention_gemm_bf16_unaligned.launches
+    log(f"  the bf16 GEMM's unaligned route: {n} launches through phase "
+        f"{phase}")
+    if n:
+        raise AssertionError(f"phase {phase}: {n} bf16 GEMM calls took the "
+                             f"unaligned route")
+    return n
+
+
 def check_bf16_kernels(device, timer, reports):
     """Phase 19's kernel checks: the bf16 qkv GEMM (within one bf16 ulp of
     its plain version plus the float32 sums' spread, `bf16_product_close`)
@@ -2707,6 +2749,7 @@ def check_bf16_kernels(device, timer, reports):
     from gpnf_tpu_torch.bench_mixture import sass_counts
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.ops.kernels import _native
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
 
     fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
     gen = torch.Generator(device=device).manual_seed(1919)
@@ -2715,29 +2758,37 @@ def check_bf16_kernels(device, timer, reports):
     rows = {"attention_qkv_gemm_bf16": [], "attention_fwd_bf16": []}
     for b, s, c in BF16_GEMM_CASES:
         seq, w = randn(b, s, c, s=0.5), randn(3 * c, c, s=0.1)
-        got = kernels.attention_qkv_gemm(seq, w)
+        run = lambda: kernels.attention_qkv_gemm(seq, w)
+        got = run()
         want = fa.bf16_matmul(seq, w.t())
-        same = torch.equal(got, kernels.attention_qkv_gemm(seq, w))
+        same = torch.equal(got, run())
         ok = fa.bf16_product_close(got, want, seq, w)
         err = float((got.float() - want.float()).abs().max())
         m, n, k = b * s, 3 * c, c
+        plan = fa.gemm_bf16_plan(m, n, k, seq.data_ptr(), w.data_ptr(),
+                                 got.data_ptr(), False, True, 1)
+        launches = graph_launches(run)
         bound_ms, bound_by = _bf16_bound(2 * (m * k + n * k + m * n),
                                          2 * m * n * k)
         row = dict(shape=[b, s, c], max_abs_err=err, within_bar=ok,
-                   ms=timer(lambda: kernels.attention_qkv_gemm(seq, w)),
+                   plan=plan._asdict(), device_launches=launches,
+                   ms=timer(run),
                    plain_ms=timer(lambda: fa.bf16_matmul(seq, w.t())),
                    library_ms=timer(lambda: torch.matmul(seq, w.t())),
                    bound_ms=bound_ms, bound_by=bound_by)
         rows["attention_qkv_gemm_bf16"].append(row)
         log(f"  bf16 qkv GEMM (B, S, C) {(b, s, c)}: max abs err {err:.3g} "
             f"within one bf16 ulp + the fp32 sums' spread: {ok}; two calls "
-            f"bit for bit: {same} | kernel {row['ms']:.4f} ms plain "
+            f"bit for bit: {same}; {plan.route} route, tile 128 x "
+            f"{plan.tile}, {plan.splits} split(s), {plan.stages} stages, "
+            f"{launches} device launch(es) | kernel {row['ms']:.4f} ms plain "
             f"{row['plain_ms']:.4f} ms torch.matmul (bf16) "
             f"{row['library_ms']:.4f} ms | bound {bound_ms * 1e3:.2f} us "
             f"({bound_by})")
-        if not (ok and same):
+        if not (ok and same and plan.route == "wgmma" and launches == 1):
             raise AssertionError(f"bf16 qkv GEMM {(b, s, c)}: within bar "
-                                 f"{ok}, repeat {same}")
+                                 f"{ok}, repeat {same}, {plan}, {launches} "
+                                 f"device launches")
     seed = torch.tensor([19], dtype=torch.int32, device=device)
     for b, s, c in BF16_FWD_CASES:
         heads, dh = 4, c // 4
@@ -2796,10 +2847,9 @@ def check_bf16_kernels(device, timer, reports):
                     f", repeat {same}, out with the statistics "
                     f"{same_stats_off} or statistics {stats_err} > "
                     f"{BF16_STATS_BAR}")
-    sass = {}
-    for source, pattern in (("attention_gemm", "gemm_bf16_kernel"),
-                            ("fused_attention_long",
-                             "attention_bf16_fwd_kernel")):
+    sass = {"gemm_wgmma_bf16_kernel": wgmma_sass()}
+    for source, pattern in (("fused_attention_long",
+                             "attention_bf16_fwd_kernel"),):
         hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
                 for fn, row in sass_counts(
                     _native.library_path(source)).items() if pattern in fn}
@@ -2809,7 +2859,7 @@ def check_bf16_kernels(device, timer, reports):
         if not hmma or not all(hmma.values()):
             raise AssertionError(f"{pattern}: no bf16 HMMA in {hmma}")
     ptxas = {"attention_qkv_gemm_bf16": ptxas_kernels(
-                 reports.get("attention_gemm", ""), "gemm_bf16_kernel"),
+                 reports.get("attention_gemm", ""), "gemm_wgmma_bf16_kernel"),
              "attention_fwd_bf16": ptxas_kernels(
                  reports.get("fused_attention_long", ""),
                  "attention_bf16_fwd_kernel")}
@@ -3230,34 +3280,55 @@ def check_bf16_train_kernels(device, timer, reports):
             got = run()
             same = torch.equal(got, run())
             want = plain()
+            # dW's error over sum |products| against the float64 product,
+            # the plain version's beside it (K = B S = 16,384 at level 0)
+            f64 = {}
             if name == "attention_dseq_gemm_bf16":
                 ok = fa.bf16_product_close(got, want, a_, b_)
             else:
                 spread = k * 2.0 ** -24 * (a_.float().abs() @
                                            b_.float().abs().t())
                 ok = bool(((got - want).abs() <= spread).all())
+                exact = a_.double() @ b_.double().t()
+                mag = (a_.double().abs() @ b_.double().abs().t()).clamp_min(
+                    1e-30)
+                f64 = {"err_over_sum_abs": float(
+                           ((got.double() - exact).abs() / mag).max()),
+                       "plain_err_over_sum_abs": float(
+                           ((want.double() - exact).abs() / mag).max()),
+                       "bar_over_sum_abs": k * 2.0 ** -24}
             err = float((got.float() - want.float()).abs().max())
+            plan = fa.gemm_bf16_plan(m, n, k, a_.data_ptr(), b_.data_ptr(),
+                                     got.data_ptr(), name.endswith("dw_gemm_bf16"),
+                                     False)
+            launches = graph_launches(run)
             bound_ms, bound_by = _bf16_bound(
                 2 * (m * k + n * k) + out_bytes * m * n, 2 * m * n * k)
-            row = dict(shape=[b, s, c], splits=fa.gemm_splits(m, n, k),
-                       max_abs_err=err, within_bar=ok, ms=timer(run),
+            row = dict(shape=[b, s, c], plan=plan._asdict(),
+                       splits=plan.splits, device_launches=launches,
+                       max_abs_err=err, within_bar=ok, **f64, ms=timer(run),
                        plain_ms=timer(plain), library_ms=timer(library),
                        bound_ms=bound_ms, bound_by=bound_by)
             rows[name].append(row)
             log(f"  bf16 {name.split('_')[1]} GEMM (B, S, C) {(b, s, c)}, "
-                f"{row['splits']} split(s), {got.dtype}: max abs err "
-                f"{err:.3g} within bar: {ok}; two calls bit for bit: {same} "
-                f"| kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
-                f"torch.matmul (bf16) {row['library_ms']:.4f} ms | bound "
+                f"{plan.route} route, tile 128 x {plan.tile}, "
+                f"{plan.splits} split(s) of {plan.per} k-blocks, "
+                f"{launches} device launch(es), {got.dtype}: max abs err "
+                f"{err:.3g} within bar: {ok}; two calls bit for bit: {same}"
+                + (f"; against float64: {f64['err_over_sum_abs']:.3g} of "
+                   f"sum |products| (plain "
+                   f"{f64['plain_err_over_sum_abs']:.3g}, bar "
+                   f"{f64['bar_over_sum_abs']:.3g})" if f64 else "")
+                + f" | kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f}"
+                f" ms torch.matmul (bf16) {row['library_ms']:.4f} ms | bound "
                 f"{bound_ms * 1e3:.2f} us ({bound_by})")
-            if not (ok and same):
+            if not (ok and same and plan.route == "wgmma" and launches == 1):
                 raise AssertionError(f"{name} {(b, s, c)}: within bar {ok}, "
-                                     f"repeat {same}")
-    sass = {}
-    for pattern in ("attention_bf16_dq_kernel", "attention_bf16_dkv_kernel",
-                    "gemm_bf16_kernel"):
-        source = ("attention_gemm" if pattern.startswith("gemm")
-                  else "fused_attention_long")
+                                     f"repeat {same}, {plan}, {launches} "
+                                     f"device launches")
+    sass = {"gemm_wgmma_bf16_kernel": wgmma_sass()}
+    for pattern in ("attention_bf16_dq_kernel", "attention_bf16_dkv_kernel"):
+        source = "fused_attention_long"
         hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
                 for fn, row in sass_counts(
                     _native.library_path(source)).items() if pattern in fn}
@@ -3268,8 +3339,8 @@ def check_bf16_train_kernels(device, timer, reports):
             raise AssertionError(f"{pattern}: no bf16 HMMA in {hmma}")
     ptxas = {"attention_bwd_bf16": ptxas_kernels(
                  reports.get("fused_attention_long", ""), "attention_bf16_d"),
-             "gemm_bf16_kernel": ptxas_kernels(
-                 reports.get("attention_gemm", ""), "gemm_bf16_kernel")}
+             "gemm_wgmma_bf16_kernel": ptxas_kernels(
+                 reports.get("attention_gemm", ""), "gemm_wgmma_bf16_kernel")}
     log(f"  ptxas: {ptxas}")
     return rows, {"sass_bf16_hmma": sass, "ptxas": ptxas}
 
@@ -4086,6 +4157,7 @@ def main():
     bf16 = bf16_flagship(device, model, loader, proto, nll, args.out,
                          args.seed, card)
     bf16.update(bf16_other_models(device, args.seed, card))
+    check_aligned_route(19)
     log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
     log("== 20. training the flagship in bf16: the bf16 dq and dK/dV pair "
         "and the bf16 GEMM's dseq and dW vs plain versions, every head "
@@ -4097,6 +4169,7 @@ def main():
     bf16_train = bf16_train_flagship(device, train_loader, args.seed, card,
                                      trained["train_peak_memory_bytes"])
     bf16_train.update(bf16_train_other_widths(device, args.seed, card))
+    check_aligned_route(20)
     log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
     log("== 21. the flagship in bf16 with the fused GatedConv: the bf16 "
         "gated-conv kernels vs plain versions, the flagship's train steps, "
@@ -4109,6 +4182,7 @@ def main():
                                 args.seed, card,
                                 bf16_train["train_peak_memory_bytes"])
     fgc16.update(bf16_fused_other_models(device, args.seed, card))
+    unaligned = check_aligned_route(21)
     log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
@@ -4323,19 +4397,23 @@ def main():
                 bound_peak="bf16 989 TFLOP/s", per_case=rows,
                 device_kernels=(["attention_bf16_dq_kernel",
                                  "attention_bf16_dkv_kernel"] if bwd else
-                                ["gemm_bf16_kernel", "sum_splits_bf16_kernel"
-                                 if name == "attention_dseq_gemm_bf16" else
-                                 "sum_splits_kernel"]),
-                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh"] + (
-                    ["gpnf_tpu_torch/csrc/philox.cuh"] if bwd else []),
+                                ["gemm_wgmma_bf16_kernel"]),
+                headers=["gpnf_tpu_torch/csrc/philox.cuh",
+                         "gpnf_tpu_torch/csrc/mma_bf16.cuh"] if bwd else
+                ["gpnf_tpu_torch/csrc/wgmma_bf16.cuh"],
                 ptxas=bf16_train_build["ptxas"][
-                    name if bwd else "gemm_bf16_kernel"],
-                sass_bf16_hmma=bf16_train_build["sass_bf16_hmma"][
-                    "attention_bf16_dq_kernel" if bwd
-                    else "gemm_bf16_kernel"])
+                    name if bwd else "gemm_wgmma_bf16_kernel"])
             if bwd:
-                entry["sass_bf16_hmma_dkv"] = bf16_train_build[
-                    "sass_bf16_hmma"]["attention_bf16_dkv_kernel"]
+                entry.update(sass_bf16_hmma=bf16_train_build[
+                                 "sass_bf16_hmma"]["attention_bf16_dq_kernel"],
+                             sass_bf16_hmma_dkv=bf16_train_build[
+                                 "sass_bf16_hmma"]["attention_bf16_dkv_kernel"])
+            else:  # one device launch a call, no call on the unaligned route
+                entry.update(sass_hgmma_tma=bf16_train_build[
+                                 "sass_bf16_hmma"]["gemm_wgmma_bf16_kernel"],
+                             device_launches_a_call=sorted(
+                                 {r["device_launches"] for r in rows}),
+                             unaligned_route_launches=unaligned)
         elif name in BF16:
             # the flagship's level 0 (the forward at rate 0, beside SDPA);
             # every case, the 64-px level 0 and C 512 among them, in per_case
@@ -4351,17 +4429,23 @@ def main():
                     "; library_ms torch.matmul on bf16" if gemm else
                     ", rate 0; library_ms SDPA on bf16"),
                 bound_peak="bf16 989 TFLOP/s", per_case=rows,
-                device_kernels=["gemm_bf16_kernel" if gemm
+                device_kernels=["gemm_wgmma_bf16_kernel" if gemm
                                 else "attention_bf16_fwd_kernel"],
-                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh"] + (
-                    [] if gemm else ["gpnf_tpu_torch/csrc/philox.cuh"]),
-                ptxas=bf16_build["ptxas"][name],
-                sass_bf16_hmma=bf16_build["sass_bf16_hmma"][
-                    "gemm_bf16_kernel" if gemm
-                    else "attention_bf16_fwd_kernel"])
-            if not gemm:  # every other width, padded (phase 20)
-                entry["per_width"] = bf16_train_rows[
-                    "attention_fwd_bf16_widths"]
+                headers=["gpnf_tpu_torch/csrc/wgmma_bf16.cuh"] if gemm else
+                ["gpnf_tpu_torch/csrc/mma_bf16.cuh",
+                 "gpnf_tpu_torch/csrc/philox.cuh"],
+                ptxas=bf16_build["ptxas"][name])
+            if gemm:  # one device launch a call, none on the unaligned route
+                entry.update(sass_hgmma_tma=bf16_build["sass_bf16_hmma"][
+                                 "gemm_wgmma_bf16_kernel"],
+                             device_launches_a_call=sorted(
+                                 {r["device_launches"] for r in rows}),
+                             unaligned_route_launches=unaligned)
+            else:  # every other width, padded (phase 20)
+                entry.update(sass_bf16_hmma=bf16_build["sass_bf16_hmma"][
+                                 "attention_bf16_fwd_kernel"],
+                             per_width=bf16_train_rows[
+                                 "attention_fwd_bf16_widths"])
         elif name in CORE:
             # the 32-px level 0's shape at rate 0: kernel, plain version,
             # SDPA and bound on the same inputs (every case in per_case)

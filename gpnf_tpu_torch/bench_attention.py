@@ -92,6 +92,23 @@ ptxas lines of every version.
   autograd of F.linear + SDPA at rate 0 beside them, the bound, and one
   call of each under torch.profiler.
 
+`--kernel gemm --dtype bfloat16`: the bf16 GEMM (attention_gemm.cu's
+`gpnf_attention_gemm_bf16`, on TMA and wgmma) at BF16_GEMM_SHAPES (B 64,
+C 96 at S 256 / 64 / 16, the flagship's 32-px levels; C 192 at S 64; B 16,
+C 512 at S 256), qkv, dseq and dW through their wrappers, and each ref's
+bf16 entry (the 12-argument one of the mma.sync kernel before it, K split
+by `gemm_splits`, the partials added by a second launch) in turns, refs,
+change, change, refs reversed, torch.matmul on bf16 beside them: the error
+against the plain version (`bf16_product_close`; dW within K 2^-24 sum
+|products| of `dw_plain`, and its largest error over sum |products|
+against the float64 product, the plain version's beside it), two calls bit
+for bit, the bound at 989 TFLOP/s and 3.35 TB/s, each call's device
+launches (a CUDA graph) and host microseconds (no synchronize; the
+change's wrapper, the change called as a ref is called, and each C entry
+alone on outputs made beforehand), one call of each under torch.profiler,
+the change's plan (tile, splits, ring), the change at every split count of
+BF16_SPLIT_SWEEP for dseq and dW, and the ptxas lines of every version.
+
 `--dtype bfloat16` (with `--kernel rows_bwd` or `proj`): the bf16 kernels
 (MarScfConfig(compute_dtype="bfloat16")) at BF16_SHAPES, B 64, C 96 at S
 256 / 64 / 16 (the flagship's 32-px levels, the proj entry's dq recipe),
@@ -169,6 +186,12 @@ TRAIN_BATCH, TRAIN_WINDOW_STEPS, TRAIN_TURNS = 64, 5, 2
 # (B, C, S) of --dtype bfloat16
 BF16_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
                (16, 512, 256))
+# --kernel gemm --dtype bfloat16: the flagship's 32-px levels, the C 192
+# step's level 1, the CLIs' C 512 at the 32-px level 0; the splits swept for
+# dseq and dW
+BF16_GEMM_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 192, 64),
+                    (16, 512, 256))
+BF16_SPLIT_SWEEP = (1, 2, 4, 6, 8, 16, 24, 32, 40, 48, 56, 64, 96, 128)
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the refs' C entries; a ref source need not have every entry of its file
@@ -177,7 +200,11 @@ REF_SIGNATURES = {
     "fused_attention_proj": {
         "gpnf_attention_proj_fwd": [_P] * 4 + [_I] * 4 + [_U, _F, _P],
         "gpnf_attention_proj_bwd": [_P] * 8 + [_I] * 4 + [_U, _F, _I, _P]},
-    "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P]},
+    # the bf16 entry of a ref from before the TMA + wgmma kernel (the
+    # mma.sync kernel's: a, b, c, the split partials, m, n, k, trans_a,
+    # trans_b, splits, out_bf16)
+    "attention_gemm": {"gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],
+                       "gpnf_attention_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P]},
     "fused_attention_long": {
         "gpnf_attention_long_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_long_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
@@ -869,6 +896,198 @@ def gemm_rows(device, libs, timer, card, targets, split_refs):
         yield row
 
 
+def ref_gemm_bf16(lib, a, b, shape, m, n, k, trans_a, trans_b, out_dtype):
+    """A ref's bf16 GEMM from before the TMA + wgmma kernel, K split as its
+    wrapper split it (`gemm_splits`), the partials added by its second
+    launch."""
+    splits = fa.gemm_splits(m, n, k)
+    c = torch.empty(shape, dtype=out_dtype, device=a.device)
+    partial = (torch.empty((splits, m, n), device=a.device) if splits > 1
+               else None)
+    _check(lib.gpnf_attention_gemm_bf16(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if partial is None else partial.data_ptr(), m, n, k,
+        int(trans_a), int(trans_b), splits,
+        int(out_dtype == torch.bfloat16), _stream()), "ref gemm bf16")
+    return c
+
+
+def lean_gemm_bf16(a, b, shape, m, n, k, trans_a, trans_b, out_dtype):
+    """The change's bf16 GEMM called as `ref_gemm_bf16` calls a ref's (no
+    wrapper checks): its plan, the output and scratch, its C entry."""
+    c = torch.empty(shape, dtype=out_dtype, device=a.device)
+    plan = fa.gemm_bf16_plan(m, n, k, a.data_ptr(), b.data_ptr(),
+                             c.data_ptr(), trans_a, trans_b,
+                             1 if trans_b else None)
+    partial = counters = None
+    cluster = fa.wgmma_cluster(plan.splits)
+    if plan.splits > cluster:
+        tiles = -(-m // fa.WGMMA_BM) * -(-n // plan.tile)
+        partial = torch.empty((plan.splits // cluster, tiles,
+                               fa.WGMMA_BM * plan.tile), device=a.device)
+        counters = fa.wgmma_counters(a.device, tiles * cluster)
+    _check(_native.load("attention_gemm").gpnf_attention_gemm_bf16(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(), m, n, k,
+        int(trans_a), int(trans_b), plan.splits,
+        int(out_dtype == torch.bfloat16), _stream()), "change gemm bf16")
+    return c
+
+
+def host_us(fn, calls=200, windows=5):
+    """Host microseconds of one call of `fn`, no synchronize between calls
+    (the enqueue: the wrapper's checks, allocations, the C entry's tensor
+    maps and launch): the median of `windows` windows of `calls` calls."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def c_entry(lib, version, a, b, shape, m, n, k, ta, tb, out_dtype):
+    """One call of a version's bf16 C entry alone, its output and scratch
+    made beforehand: the change's (its plan's splits, partial slabs and
+    counters) or a ref's (`gemm_splits`, the (splits, m, n) partials)."""
+    device = a.device
+    c = torch.empty(shape, dtype=out_dtype, device=device)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    stream = _stream()
+    if version == "change":
+        plan = fa.gemm_bf16_plan(m, n, k, a.data_ptr(), b.data_ptr(),
+                                 c.data_ptr(), ta, tb, 1 if tb else None)
+        tiles = -(-m // fa.WGMMA_BM) * -(-n // plan.tile)
+        cluster = fa.wgmma_cluster(plan.splits)
+        partial = torch.empty((plan.splits // cluster, tiles,
+                               fa.WGMMA_BM * plan.tile), device=device)
+        counters = fa.wgmma_counters(device, tiles * cluster)
+        args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), partial.data_ptr(),
+                counters.data_ptr(), m, n, k, int(ta), int(tb), plan.splits,
+                out_bf16, stream)
+    else:
+        splits = fa.gemm_splits(m, n, k)
+        partial = torch.empty((splits, m, n), device=device)
+        args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), partial.data_ptr(),
+                m, n, k, int(ta), int(tb), splits, out_bf16, stream)
+    fn = lib.gpnf_attention_gemm_bf16
+    return lambda: _check(fn(*args), f"{version} gemm bf16 entry")
+
+
+def sweep_splits(m, n, k):
+    """The split counts of BF16_SPLIT_SWEEP the kernel takes for this K
+    (`wgmma_cluster`, no range empty)."""
+    kb = -(-k // fa.WGMMA_BK)
+    return [s for s in BF16_SPLIT_SWEEP
+            if s == 1 or (s <= kb and (s - 1) * -(-kb // s) < kb
+                          and fa.wgmma_cluster(s))]
+
+
+def bf16_gemm_rows(device, libs, timer, card):
+    """`--kernel gemm --dtype bfloat16`: qkv, dseq and dW of the bf16 GEMM
+    at BF16_GEMM_SHAPES, the change (its wrappers) and each ref in turns,
+    beside torch.matmul on bf16: the error against the plain version (dW
+    also against float64), two calls bit for bit, the bound at the dense
+    bf16 rate, each call's device launches (a CUDA graph) and host time
+    (the wrapper, and its C entry alone), a trace of one call, and for dseq
+    and dW the change at every split count of BF16_SPLIT_SWEEP."""
+    from .utils.cuda_timing import graph_launches
+
+    for batch, c, s in BF16_GEMM_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(11 * c + s)
+        bf = lambda *shape, x=1.0: (torch.randn(
+            shape, generator=gen, device=device) * x).to(torch.bfloat16)
+        seq, w, dqkv = bf(batch, s, c, x=0.5), bf(3 * c, c, x=0.1), bf(
+            batch, s, 3 * c, x=0.1)
+        d2, s2 = dqkv.reshape(-1, 3 * c), seq.reshape(-1, c)
+        rows = batch * s
+        for name, a, b, shape, m, n, k, ta, tb, out, entry, plain, lib in (
+                ("qkv", seq, w, (batch, s, 3 * c), rows, 3 * c, c, False,
+                 True, torch.bfloat16, kernels.attention_qkv_gemm,
+                 lambda: fa.bf16_matmul(seq, w.t()),
+                 lambda: torch.matmul(seq, w.t())),
+                ("dseq", dqkv, w, (batch, s, c), rows, c, 3 * c, False, False,
+                 torch.bfloat16, kernels.attention_dseq_gemm,
+                 lambda: fa.bf16_matmul(dqkv, w),
+                 lambda: torch.matmul(dqkv, w)),
+                ("dW", dqkv, seq, (3 * c, c), 3 * c, c, rows, True, False,
+                 torch.float32, kernels.attention_dw_gemm,
+                 lambda: fa.dw_plain(dqkv, seq),
+                 lambda: torch.matmul(d2.t(), s2))):
+            runs = {ref: (lambda lib=lib_, a=a, b=b, shape=shape, m=m, n=n,
+                          k=k, ta=ta, tb=tb, out=out: ref_gemm_bf16(
+                              lib["attention_gemm"], a, b, shape, m, n, k, ta,
+                              tb, out))
+                    for ref, lib_ in libs.items()}
+            runs["change"] = lambda entry=entry, a=a, b=b: entry(a, b)
+            plan = fa.gemm_bf16_plan(m, n, k, a.data_ptr(), b.data_ptr(), 0,
+                                     ta, tb, 1 if name == "qkv" else None)
+            out_bytes = 2 if out == torch.bfloat16 else 4
+            bound_ms, bound_by = bound(2 * (m * k + k * n) + out_bytes * m * n,
+                                       2 * m * n * k, PEAK_OPS_BF16)
+            row = {"kind": "gemm_bf16", "gemm": name, "batch": batch, "C": c,
+                   "S": s, "m": m, "n": n, "k": k, "card": card,
+                   "plan": plan._asdict(),
+                   "ref_splits": fa.gemm_splits(m, n, k),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_peak": "bf16 989 TFLOP/s"}
+            want = plain()
+            a2, b2 = ((seq.reshape(rows, c), w) if name == "qkv" else
+                      (d2, w.t()) if name == "dseq" else (d2.t(), s2.t()))
+            for ver, run in runs.items():
+                got = run()
+                row[f"{ver}_max_abs_err"] = float(
+                    (got.float() - want.float()).abs().max())
+                if name == "dW":
+                    spread = k * 2.0 ** -24 * (a2.float().abs()
+                                               @ b2.float().abs().t())
+                    row[f"{ver}_within_bar"] = bool(
+                        ((got - want).abs() <= spread).all())
+                    exact = a2.double() @ b2.double().t()
+                    row[f"{ver}_err_over_sum_abs"] = float(
+                        ((got.double() - exact).abs()
+                         / (a2.double().abs() @ b2.double().abs().t())
+                         .clamp_min(1e-30)).max())
+                else:
+                    row[f"{ver}_within_bar"] = fa.bf16_product_close(
+                        got, want, a2, b2)
+                row[f"{ver}_repeats"] = torch.equal(got, run())
+                row[f"{ver}_device_launches"] = graph_launches(run)
+                row[f"{ver}_host_us"] = host_us(run)
+                lib_c = (_native.load("attention_gemm") if ver == "change"
+                         else libs[ver]["attention_gemm"])
+                row[f"{ver}_c_entry_host_us"] = host_us(c_entry(
+                    lib_c, ver, a, b, shape, m, n, k, ta, tb, out))
+            # the change called as the refs are, beside its wrapper's time
+            row["change_lean_host_us"] = host_us(
+                lambda a=a, b=b, shape=shape, m=m, n=n, k=k, ta=ta, tb=tb,
+                out=out: lean_gemm_bf16(a, b, shape, m, n, k, ta, tb, out))
+            if name == "dW":
+                exact = a2.double() @ b2.double().t()
+                row["plain_err_over_sum_abs"] = float(
+                    ((want.double() - exact).abs()
+                     / (a2.double().abs() @ b2.double().abs().t())
+                     .clamp_min(1e-30)).max())
+            row.update(_turns(timer, runs))
+            row["library_ms"] = timer(lib)
+            row["library_host_us"] = host_us(lib)
+            row["unaligned_launches"] = \
+                kernels.attention_gemm_bf16_unaligned.launches
+            if name != "qkv":
+                row["sweep"] = {str(sp): timer(
+                    lambda sp=sp, a=a, b=b, shape=shape, m=m, n=n, k=k, ta=ta,
+                    tb=tb, out=out: fa._gemm_bf16(
+                        "bench", a, b, shape, m, n, k, ta, tb, out, sp))
+                    for sp in sweep_splits(m, n, k)}
+            row["profile"] = {ver: by_kernel(run) for ver, run in runs.items()}
+            yield row
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=sorted(REF_SOURCES), default="proj",
@@ -885,8 +1104,8 @@ def main(argv=None):
                    help="block targets of the GEMM split sweep")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32",
-                   help="bfloat16: the bf16 kernels (--kernel rows_bwd or "
-                        "proj)")
+                   help="bfloat16: the bf16 kernels (--kernel rows_bwd, "
+                        "proj or gemm)")
     p.add_argument("--head-dims", default="4,8,24,64",
                    help="--kernel rows: the head widths")
     p.add_argument("--out", default=None,
@@ -901,20 +1120,21 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     bf16 = args.dtype == "bfloat16"
     if bf16 != (args.kernel == "train") and not (
-            bf16 and args.kernel in ("rows_bwd", "proj")):
+            bf16 and args.kernel in ("rows_bwd", "proj", "gemm")):
         raise SystemExit("bench_attention: --dtype bfloat16 times --kernel "
-                         "rows_bwd, proj or train, and --kernel train takes "
-                         "--dtype bfloat16")
+                         "rows_bwd, proj, gemm or train, and --kernel train "
+                         "takes --dtype bfloat16")
     card = card_line()
     print(card, flush=True)
     refs = dict(spec.split("=", 1) for spec in args.ref)
     if "change" in refs:
         raise SystemExit("bench_attention: 'change' names the package's source")
     t0 = time.perf_counter()
-    sources = (("fused_attention_long",) if bf16
-               else REF_SOURCES[args.kernel])
+    sources = (REF_SOURCES[args.kernel] if not bf16 or args.kernel == "gemm"
+               else ("fused_attention_long",))
     change_reports = _native.build(
         _native.SOURCES if args.kernel == "train"
+        else ("attention_gemm",) if args.kernel == "gemm"
         else ("attention_gemm", "fused_attention_long") if bf16
         else CHANGE_SOURCES[args.kernel])
     libs, reports = build_refs(refs, sources)
@@ -924,7 +1144,9 @@ def main(argv=None):
     print(json.dumps(results[0]), flush=True)
     timer = Timer(device)
     targets = [int(x) for x in args.targets.split(",")]
-    if args.kernel == "gemm":
+    if args.kernel == "gemm" and bf16:
+        rows = bf16_gemm_rows(device, libs, timer, card)
+    elif args.kernel == "gemm":
         rows = gemm_rows(device, libs, timer, card, targets,
                          parent_gemm_splits if args.ref_splits == "parent"
                          else fa.gemm_splits)

@@ -73,7 +73,9 @@ def sass_counts(lib_path):
     "hmma": n, "hmma_ops": {opcode: n}}} of the SASS in one built library
     (cuobjdump -sass; an instruction every 16 bytes on sm_90; HMMA: the
     tensor cores' products, by shape and type, e.g.
-    HMMA.16816.F32.BF16)."""
+    HMMA.16816.F32.BF16), with "hgmma_ops" {opcode: n} of the warpgroup
+    products (HGMMA.64x96x16.F32.BF16 ...) and "tma_ops" {opcode: n} of the
+    TMA's loads and stores (UTMALDG, UTMASTG)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True).stdout
@@ -84,7 +86,9 @@ def sass_counts(lib_path):
             row = counts[head.group(1)] = {"instructions": 0, "loops": [],
                                            "mufu": collections.Counter(),
                                            "hmma": 0,
-                                           "hmma_ops": collections.Counter()}
+                                           "hmma_ops": collections.Counter(),
+                                           "hgmma_ops": collections.Counter(),
+                                           "tma_ops": collections.Counter()}
             continue
         ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
         if row is None or not ins:
@@ -94,12 +98,20 @@ def sass_counts(lib_path):
         if "HMMA." in op:
             row["hmma"] += 1
             row["hmma_ops"][re.search(r"HMMA\.\S+", op).group(0)] += 1
+        hgmma = re.search(r"HGMMA\.\S+", op)
+        if hgmma:
+            row["hgmma_ops"][hgmma.group(0)] += 1
+        tma = re.search(r"\bUTMA(?:LDG|STG)\b", op)
+        if tma:
+            row["tma_ops"][tma.group(0)] += 1
         for kind in re.findall(r"MUFU\.(\w+)", op):
             row["mufu"][kind] += 1
         target = re.search(r"BRA\s+0x([0-9a-f]+)", op)
         if target and int(target.group(1), 16) < addr:
             row["loops"].append((addr - int(target.group(1), 16)) // 16 + 1)
-    return {k: dict(v, mufu=dict(v["mufu"]), hmma_ops=dict(v["hmma_ops"]))
+    return {k: dict(v, mufu=dict(v["mufu"]), hmma_ops=dict(v["hmma_ops"]),
+                    hgmma_ops=dict(v["hgmma_ops"]),
+                    tma_ops=dict(v["tma_ops"]))
             for k, v in counts.items()}
 
 

@@ -1,0 +1,356 @@
+// Hopper's own machinery for bf16 tensor-core kernels (sm_90a): mbarriers,
+// 2-D TMA loads and stores, the shared-memory matrix descriptors of
+// swizzled tiles, and warpgroup products (wgmma) with fp32 accumulators.
+// The projection GEMM (attention_gemm.cu, `gemm_wgmma_bf16_kernel`) is
+// built on it; so are the kernels meant to move to wgmma after it.
+//
+// Tiles. A TMA box lands in shared memory as dense rows, every 16-byte
+// chunk of a row moved by the swizzle: chunk c of byte offset o goes to
+// chunk c ^ ((o >> 7) & (W / 16 - 1)), W the swizzle's span (128 bytes for
+// the operands, CuTe's Swizzle<3,4,3>), on addresses aligned to 8 W bytes
+// (the pattern repeats every 8 rows of W bytes). A box's rows are at most
+// W bytes. wgmma reads an operand through a descriptor (start address,
+// LBO, SBO, swizzle; PTX ISA, "Matrix Descriptor Format") and the hardware
+// applies the same XOR to the addresses it forms:
+//   K-major (rows along m or n, k contiguous: 64 bf16 values of k a row):
+//   element (r, k) of a 64- or N-row operand at start + (r / 8) SBO
+//   + (r % 8) W + 2 k, SBO = 8 W = 1024. LBO is not read. The k16 step kk
+//   of a 64-deep stage starts 32 kk bytes in, inside the swizzle span: the
+//   XOR depends only on bits 7-9, the row.
+//   MN-major (rows along k, m or n contiguous: atoms of 64 values along m
+//   or n): element (j, k) at start + (j / 64) LBO + 2 (j % 64)
+//   + (k / 8) SBO + (k % 8) W, SBO = 8 W = 1024 (the next 8 rows of k),
+//   LBO the next atom along m or n (a box of 64 values by the stage's 64
+//   rows of k: 8192 bytes). The k16 step kk starts 16 W kk = 2048 kk bytes
+//   in. With LBO and SBO swapped the card computes wrong products.
+// tests/test_torch_wgmma.py models the swizzle and both descriptors and
+// checks, for every layout the GEMM uses and every k16 step, that element
+// (r, k) of a stage lands where the descriptor reads it.
+//
+// Products. wgmma.mma_async m64nNk16: a warpgroup (4 warps, 128 threads)
+// adds a 64 x N by 16 product into 64 x N fp32 accumulators, N / 2 a
+// thread: warp w holds rows 16 w .. 16 w + 15; lane l, values 4 j .. 4 j + 3
+// rows 16 w + l / 4 (+ 8 for values 4 j + 2, 4 j + 3), columns 8 j + 2 (l % 4)
+// and the next (the m16n8 C fragment of each n8 block). Issued
+// asynchronously: `wgmma_fence` before a batch (the accumulators were
+// written since), `wgmma_commit` after it, `wgmma_wait<G>` for all but G
+// batches to finish before the registers or the shared memory are touched.
+#pragma once
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gpnf {
+namespace wgmma {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers -------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// The inits visible to the async proxy (TMA's complete_tx) before use.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive and expect `bytes` more of transactions (a TMA load's box bytes,
+// counted whole even where the box reaches past the tensor's edge).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Until the phase of parity `parity` has completed: a barrier starts in
+// phase 0, and its n-th use (from 0) completes the phase of parity n & 1.
+// A wait past 10 s (a phase that never completes) traps: the launch fails
+// with a CUDA error instead of holding the card.
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// -- TMA -------------------------------------------------------------------------
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// The box at element coordinates (c0 innermost, c1) of `map` into shared
+// memory at dst; its bytes complete on the mbarrier `bar`. Elements past
+// the tensor's edge are written as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Shared memory at src to the box at (c0, c1) of `map`; elements past the
+// tensor's edge are not written. The writes of src by other threads must
+// be fenced (`fence_proxy_async`) and synchronised first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Until the committed stores have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Shared-memory writes of this thread visible to the async proxy (a TMA
+// store that reads them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A barrier of `threads` threads (a multiple of 32) on named barrier `id`
+// (1 .. 15; 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- clusters --------------------------------------------------------------------
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: this block's shared-memory
+// writes before it visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Four floats at shared address `addr` (16-byte aligned) of the cluster's
+// block `rank` (the same offset as `addr` in this block's shared memory).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// -- descriptors -----------------------------------------------------------------
+enum Swizzle : uint64_t { kSwizzle128 = 1 };
+
+// The descriptor of an operand at shared address `addr` (bits 0-13: addr
+// >> 4; 16-29: LBO >> 4; 32-45: SBO >> 4; 49-51: base offset 0, every
+// tile aligned to its pattern; 62-63: the swizzle).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, Swizzle swz) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swz) << 62);
+}
+
+// -- products --------------------------------------------------------------------
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int G>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(G) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across an asynchronous product that owns them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 96, fp32) += A (64 x 16) B (16 x 96), bf16 operands in shared
+// memory read through their descriptors; TA / TB: A / B MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n96k16(float (&d)[48], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, fp32) += A (64 x 16) B (16 x 128), bf16 operands in shared
+// memory read through their descriptors; TA / TB: A / B MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+
+// D += A B at the widths the kernels use: N = 96 or 128.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(N == 96 || N == 128, "instantiated widths");
+  if constexpr (N == 96) {
+    mma_m64n96k16<TA, TB>(d, da, db, scale_d);
+  } else {
+    mma_m64n128k16<TA, TB>(d, da, db, scale_d);
+  }
+}
+
+}  // namespace wgmma
+
+// -- host: tensor maps -----------------------------------------------------------
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no -lcuda at link time); null where libcuda has none.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a row-major (rows x cols) matrix at `base` (row stride `ld`
+// elements of `bytes` bytes, a multiple of 16 bytes) read or written in
+// boxes of box_rows x box_cols, zero-filled past its edge; false where
+// libcuda refuses it.
+inline bool encode_tmap_2d(CUtensorMap* map, const void* base,
+                           CUtensorMapDataType type, int bytes, int rows,
+                           int cols, long long ld, int box_rows, int box_cols,
+                           CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace gpnf

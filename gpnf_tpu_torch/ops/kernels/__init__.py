@@ -8,7 +8,8 @@ from .cholesky import cholesky, cholesky_device_launches, cholesky_plain
 from .fused_attention import (attention_bwd_bf16, attention_dseq_gemm,
                               attention_dseq_gemm_bf16, attention_dw_gemm,
                               attention_dw_gemm_bf16,
-                              attention_fwd_bf16, attention_lanes,
+                              attention_fwd_bf16,
+                              attention_gemm_bf16_unaligned, attention_lanes,
                               attention_lanes_bwd,
                               attention_long_plain, attention_long_plain_bwd,
                               attention_long_qkv, attention_long_qkv_bwd,

@@ -79,7 +79,8 @@ SIGNATURES = {
     },
     "attention_gemm": {
         "gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],
-        "gpnf_attention_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
+        "gpnf_attention_gemm_bf16": [_P] * 5 + [_I] * 7 + [_P],
+        "gpnf_attention_gemm_bf16_unaligned": [_P] * 3 + [_I] * 6 + [_P],
     },
 }
 # the C entry point's suffix for each dtype a kernel takes

@@ -54,10 +54,11 @@ and chip_smoke.py hold the kernels against them.
 
 bfloat16 (MarScfConfig(compute_dtype="bfloat16"), serving and training):
 the proj and long entries, their forward and backward, take bf16 operands
-at every head width in HEAD_DIMS and run bf16 mma.sync kernels: one GEMM
-for qkv, dseq and dW (`attention_qkv_gemm_bf16`,
-`attention_dseq_gemm_bf16`, `attention_dw_gemm_bf16` count its launches),
-the tensor-core forward (`attention_fwd_bf16`) and the dq and dK/dV pair
+at every head width in HEAD_DIMS and run bf16 kernels: one GEMM for qkv,
+dseq and dW on TMA and wgmma (`attention_qkv_gemm_bf16`,
+`attention_dseq_gemm_bf16`, `attention_dw_gemm_bf16` count its launches;
+`gemm_bf16_plan` routes each call), and on bf16 mma.sync the tensor-core
+forward (`attention_fwd_bf16`) and the dq and dK/dV pair
 (`attention_bwd_bf16`), built at the widths BF16_HEAD_DIMS (the
 flagship's 24, the CLIs' --C 512's 128, and 256); every other width is
 zero-padded to the next of them (`padded_head_dim`), q scaled by the
@@ -97,6 +98,7 @@ not.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -130,6 +132,21 @@ GEMM_KC = 32
 # the blocks `gemm_splits` aims at with small tiles: 2 for each of the
 # H100's 132 SMs
 GEMM_BLOCKS = 2 * 132
+# attention_gemm.cu's bf16 kernel on TMA and wgmma (`gemm_wgmma_bf16_kernel`):
+# output tiles of WGMMA_BM rows and `wgmma_tile` columns, K in blocks of
+# WGMMA_BK through a ring of `wgmma_stages` stages (WGMMA_STAGES: the least,
+# the most where two blocks share an SM, the most where the grid fits
+# WGMMA_SMS); dseq's and dW's long K split (`wgmma_splits`) into about
+# WGMMA_SPLIT_KB k-blocks a split where the tiles are few, the splits of a
+# tile summed a cluster of WGMMA_CLUSTER (or, for 2, 4 or 6 splits,
+# WGMMA_PAIR) blocks at a time (`wgmma_cluster`)
+WGMMA_BM, WGMMA_BK = 128, 64
+WGMMA_BN = (96, 128)
+WGMMA_STAGES = (2, 3, 6)
+WGMMA_SMS = 132
+WGMMA_SPLIT_KB = 8
+WGMMA_CLUSTER = 8
+WGMMA_PAIR = 2
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -717,6 +734,10 @@ attention_bwd_bf16 = LaunchCount("attention_bwd_bf16")
 attention_qkv_gemm_bf16 = LaunchCount("attention_qkv_gemm_bf16")
 attention_dseq_gemm_bf16 = LaunchCount("attention_dseq_gemm_bf16")
 attention_dw_gemm_bf16 = LaunchCount("attention_dw_gemm_bf16")
+# the bf16 GEMM's calls that `wgmma_route` sends to the kernel of one-value
+# copies (none on any path: chip_smoke.py holds it at 0); each also counts
+# on its product's entry and bf16 counter
+attention_gemm_bf16_unaligned = LaunchCount("attention_gemm_bf16_unaligned")
 
 
 def _count_lanes(head_dim, counter):
@@ -993,29 +1014,177 @@ def _gemm(kernel, a, b, shape, m, n, k, trans_a, trans_b, splits=None):
     return c
 
 
-def _gemm_bf16(kernel, a, b, shape, m, n, k, trans_a, trans_b, out_dtype):
-    """c = A B in bf16 by attention_gemm.cu's bf16 kernel on CUDA tensors,
-    A and B laid out as `_gemm` takes them, both bf16; the sums in float32,
-    c (the given shape) bf16, rounded once, or float32 (`out_dtype`); K cut
-    into `gemm_splits` ranges, the float32 partials added in split order. A
-    strided view is copied into a contiguous tensor first; the kernel takes
-    any alignment (16-byte copies where both bases and row strides allow
-    them, else one value at a time, with the same bits)."""
+def wgmma_tile(n: int) -> int:
+    """The output tile's width of the bf16 TMA + wgmma GEMM for n columns,
+    as attention_gemm.cu's `wgmma_bn` picks it: 128 where it divides n (the
+    CLIs' C 512: n 1536 and 512), else 96 (the flagship's n 288 and 96 in
+    whole tiles)."""
+    return WGMMA_BN[1] if n % WGMMA_BN[1] == 0 else WGMMA_BN[0]
+
+
+def wgmma_stages(per: int, blocks: int) -> int:
+    """The ring's depth for a grid of `blocks` blocks whose splits are `per`
+    k-blocks, as `wgmma_stages` in attention_gemm.cu: per, held to
+    WGMMA_STAGES[0] .. WGMMA_STAGES[1] (two blocks an SM), or
+    .. WGMMA_STAGES[2] where the grid fits WGMMA_SMS."""
+    most = WGMMA_STAGES[2] if blocks <= WGMMA_SMS else WGMMA_STAGES[1]
+    return min(max(per, WGMMA_STAGES[0]), most)
+
+
+def wgmma_cluster(splits: int) -> int:
+    """The blocks of a cluster that sums `splits` splits of a tile, as
+    attention_gemm.cu's `wgmma_cluster`: 1 unsplit, WGMMA_CLUSTER for a
+    multiple of it, WGMMA_PAIR for 2, 4 or 6; 0 for a count the kernel
+    refuses."""
+    if splits == 1:
+        return 1
+    if splits % WGMMA_CLUSTER == 0:
+        return WGMMA_CLUSTER
+    return WGMMA_PAIR if splits in (2, 4, 6) else 0
+
+
+def wgmma_splits(m: int, n: int, k: int, sms: int = WGMMA_SMS) -> int:
+    """How many ranges of K the bf16 TMA + wgmma GEMM sums apart for an
+    (m x n) product over K = k, all in its one launch: a multiple of
+    WGMMA_CLUSTER, about WGMMA_SPLIT_KB k-blocks a split and at least one
+    cluster, the most that keeps tiles x splits within `sms` (one block an
+    SM, the deepest ring); else, where the tiles are too many for that, 6,
+    4 or 2 (clusters of WGMMA_PAIR) with at least WGMMA_SPLIT_KB k-blocks
+    a split; no range empty; one where no count qualifies (the tiles fill
+    the card, or K is short). A pure function of the shape: the same shape
+    always sums in the same order. The qkv projection never splits (its K
+    is C); dseq and dW take it. `python -m gpnf_tpu_torch.bench_attention
+    --kernel gemm --dtype bfloat16` sweeps the counts."""
+    tiles = -(-m // WGMMA_BM) * -(-n // wgmma_tile(n))
+    kb = -(-k // WGMMA_BK)
+
+    def fits(splits):
+        return tiles * splits <= sms and (splits - 1) * -(-kb // splits) < kb
+
+    splits = max(WGMMA_CLUSTER, kb // WGMMA_SPLIT_KB // WGMMA_CLUSTER
+                 * WGMMA_CLUSTER)
+    for splits in range(splits, 0, -WGMMA_CLUSTER):
+        if fits(splits):
+            return splits
+    for splits in (6, 4, 2):
+        if kb >= splits * WGMMA_SPLIT_KB and fits(splits):
+            return splits
+    return 1
+
+
+def wgmma_per(k: int, splits: int) -> int:
+    """The k-blocks of WGMMA_BK of each split but the last."""
+    kb = -(-k // WGMMA_BK)
+    return -(-kb // splits)
+
+
+def wgmma_route(a_ptr: int, b_ptr: int, c_ptr: int, lda: int, ldb: int,
+                n: int) -> bool:
+    """Whether the bf16 GEMM takes the TMA + wgmma kernel: every base on a
+    16-byte boundary and the row strides of A, B and c (lda, ldb, n values)
+    multiples of 8 values, TMA's rule for a tensor map. Every product on the
+    paths meets it (C is 96, 192 or 512; the wrapper allocates c); the rest,
+    say C = 20, goes to the kernel of one-value copies
+    (`attention_gemm_bf16_unaligned` counts it). A choice by the operands'
+    addresses, not a fallback: each kernel raises where it fails."""
+    return (a_ptr % 16 == 0 and b_ptr % 16 == 0 and c_ptr % 16 == 0
+            and lda % 8 == 0 and ldb % 8 == 0 and n % 8 == 0)
+
+
+# the arrival counters of the split bf16 GEMM, one int32 for each block rank
+# of a cluster of each output tile, for each (device, stream): zeroed once
+# when made (or grown), and left zero by every launch (the last cluster to
+# arrive resets each). Calls on one stream run in order, so one buffer a
+# stream is never shared by two launches at once; the port runs one stream.
+_WGMMA_COUNTERS: dict = {}
+WGMMA_COUNTERS_MIN = 1024
+
+
+def wgmma_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """The counters of the current stream of `device`, at least `tiles`."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _WGMMA_COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, WGMMA_COUNTERS_MIN), dtype=torch.int32,
+                          device=device)
+        _WGMMA_COUNTERS[key] = buf
+    return buf
+
+
+class GemmBf16Plan(NamedTuple):
+    """How the bf16 GEMM runs one product: `route` "wgmma" (the TMA + wgmma
+    kernel) or "unaligned" (the kernel of one-value copies), and on the
+    wgmma route its output tile's width, the splits of K, the k-blocks of a
+    split and the ring's depth. Every plan is one device launch."""
+    route: str
+    tile: int = 0
+    splits: int = 1
+    per: int = 0
+    stages: int = 0
+
+
+def gemm_bf16_plan(m: int, n: int, k: int, a_ptr: int, b_ptr: int,
+                   c_ptr: int, trans_a: bool, trans_b: bool,
+                   splits: Optional[int] = None) -> GemmBf16Plan:
+    """The plan of `_gemm_bf16` for an (m x n) product over K = k with
+    operands at these addresses (A read from (k x m) where trans_a, B from
+    (n x k) where trans_b): `wgmma_route`, `wgmma_tile`, the splits
+    (`wgmma_splits` unless given), `wgmma_per` and `wgmma_stages`."""
+    if not wgmma_route(a_ptr, b_ptr, c_ptr, m if trans_a else k,
+                       k if trans_b else n, n):
+        return GemmBf16Plan("unaligned")
+    return _wgmma_plan(m, n, k, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(m, n, k, splits):
+    """The wgmma route's plan of a shape: a pure function of it, kept so
+    that a call's host time does not recompute it."""
+    if splits is None:
+        splits = wgmma_splits(m, n, k)
+    per, tile = wgmma_per(k, splits), wgmma_tile(n)
+    blocks = -(-m // WGMMA_BM) * -(-n // tile) * splits
+    return GemmBf16Plan("wgmma", tile, splits, per, wgmma_stages(per, blocks))
+
+
+def _gemm_bf16(kernel, a, b, shape, m, n, k, trans_a, trans_b, out_dtype,
+               splits=None):
+    """c = A B in bf16 on CUDA tensors, A and B laid out as `_gemm` takes
+    them, both bf16; the sums in float32, c (the given shape) bf16, rounded
+    once, or float32 (`out_dtype`), as `gemm_bf16_plan` routes it: on
+    attention_gemm.cu's TMA + wgmma kernel, K cut into `splits` ranges
+    (`wgmma_splits` unless given) summed in its one launch, or on its
+    kernel of one-value copies, K unsplit. A strided view is copied into a
+    contiguous tensor first."""
     if a.numel() != m * k or b.numel() != k * n or a.dim() != 3:
         raise ValueError(f"{kernel}: {tuple(a.shape)} and {tuple(b.shape)} "
                          f"do not make a product")
     a, b = a.contiguous(), b.contiguous()
     device = _native.check_cuda_inputs(kernel, dtypes=(torch.bfloat16,), a=a,
                                        b=b)
-    splits = gemm_splits(m, n, k)
     c = torch.empty(shape, dtype=out_dtype, device=device)
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
-               if splits > 1 else None)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    plan = gemm_bf16_plan(m, n, k, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                          trans_a, trans_b, splits)
+    if plan.route == "unaligned":
+        _native.launch("attention_gemm", "gpnf_attention_gemm_bf16_unaligned",
+                       device, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n,
+                       k, int(trans_a), int(trans_b), out_bf16)
+        attention_gemm_bf16_unaligned.launches += 1
+        return c
+    partial = counters = None
+    cluster = wgmma_cluster(plan.splits)
+    if plan.splits > cluster:  # each cluster's sums, then the last's
+        tiles = -(-m // WGMMA_BM) * -(-n // plan.tile)
+        partial = torch.empty((plan.splits // cluster, tiles,
+                               WGMMA_BM * plan.tile), dtype=torch.float32,
+                              device=device)
+        counters = wgmma_counters(device, tiles * cluster)
     _native.launch("attention_gemm", "gpnf_attention_gemm_bf16", device,
                    a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   None if partial is None else partial.data_ptr(), m, n, k,
-                   int(trans_a), int(trans_b), splits,
-                   int(out_dtype == torch.bfloat16))
+                   None if partial is None else partial.data_ptr(),
+                   None if counters is None else counters.data_ptr(), m, n, k,
+                   int(trans_a), int(trans_b), plan.splits, out_bf16)
     return c
 
 
@@ -1031,7 +1200,7 @@ def attention_qkv_gemm(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     args = ("attention_qkv_gemm", seq, w, (b, s, w.shape[0]), b * s,
             w.shape[0], c, False, True)
     if seq.dtype == torch.bfloat16:
-        out = _gemm_bf16(*args, torch.bfloat16)
+        out = _gemm_bf16(*args, torch.bfloat16, splits=1)
         attention_qkv_gemm_bf16.launches += 1
     else:
         out = _gemm(*args)

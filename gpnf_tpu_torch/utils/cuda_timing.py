@@ -122,13 +122,17 @@ def graph_launches(fn) -> int:
     that captures the call (libcuda's cuGraphGetNodes and
     cuGraphNodeGetType), every launch it enqueues on the current stream.
     No profiler: a trace can lose launches (`device_launches`), a capture
-    cannot. `fn` runs once before the capture (builds, allocations)."""
+    cannot. `fn` runs once before the capture (builds, allocations), on
+    the stream the capture runs on (state a wrapper keeps for each stream,
+    such as the split GEMM's counters, is then made outside the graph)."""
     import ctypes
 
-    fn()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         fn()
     libcuda = ctypes.CDLL("libcuda.so.1")
     libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,

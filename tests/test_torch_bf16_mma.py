@@ -12,8 +12,9 @@ the backward (the dq kernel's D pass and dS pass over its key tiles from
 the forward's (m, 1/l), dS rounded for dq, the dK/dV kernel's query tiles
 with Pd and dS rounded, dq by either recipe; the keep-bit buffer the dq
 kernel writes and both kernels read, bit for bit; and why D is sum_j P dP
-and not rowsum(g * out)), and the GEMM (32-deep chunks summed apart in
-fp32, the splits of K added in order, one rounding, dW in fp32). The
+and not rowsum(g * out)), and the GEMM (each split of K one fp32 sum,
+the splits added in order, one rounding, dW in fp32; the ldmatrix banks
+of its kernel for operands TMA cannot take). The
 padded widths are held to the true ones. The kernels themselves are held
 against the plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py."""
@@ -184,9 +185,12 @@ def test_constants_match_the_sources():
                  " + i) *",
                  "2) = make_float2(m[r], inv_l);"):
         assert line in TILED, line
+    # the unaligned route's 32-deep chunks summed apart; the wgmma kernel's
+    # splits added in order within a cluster, then rounded once
     for line in ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];",
-                 "acc += partial[z * count + i];",
-                 "c[i] = __float2bfloat16_rn(acc);"):
+                 "for (int z = 1; z < CS; ++z) {",
+                 "*reinterpret_cast<uint32_t*>(half + off) = gpnf::pack_bf16("
+                 "x, y);"):
         assert line in GEMM, line
 
 
@@ -316,18 +320,23 @@ def test_other_pads_would_conflict(pad):
 
 # -- arithmetic ------------------------------------------------------------------
 def emulated_gemm_bf16(a, b, splits=1, out_dtype=BF16):
-    """c = a b (a (m, k), b (k, n), bf16) as gemm_bf16_kernel sums it: each
-    split's K range in chunks of GEMM_KC summed apart in float32 and added
-    in order, the splits' sums added in split order, then one rounding to
-    bf16 (or none, out_dtype float32: dW)."""
+    """c = a b (a (m, k), b (k, n), bf16) as the bf16 GEMM on the paths
+    (gemm_wgmma_bf16_kernel) sums it: each split's range of `wgmma_per`
+    k-blocks one float32 sum (kept in the tensor core), the splits of each
+    cluster (`wgmma_cluster`) added in split order and the clusters' sums in
+    cluster order, then one rounding to bf16 (or none, out_dtype float32:
+    dW)."""
     a, b = a.float(), b.float()
-    chunk = fa.gemm_chunk(a.shape[1], splits)
+    chunk = fa.wgmma_per(a.shape[1], splits) * fa.WGMMA_BK
+    parts = [a[:, k0:k0 + chunk] @ b[k0:k0 + chunk]
+             for k0 in range(0, a.shape[1], chunk)]
     total = None
-    for k0 in range(0, a.shape[1], chunk):
-        acc = torch.zeros(a.shape[0], b.shape[1])
-        for c0 in range(k0, min(a.shape[1], k0 + chunk), GEMM_KC):
-            acc = acc + a[:, c0:c0 + GEMM_KC] @ b[c0:c0 + GEMM_KC]
-        total = acc if total is None else total + acc
+    size = fa.wgmma_cluster(splits)
+    for c0 in range(0, len(parts), size):
+        cluster = parts[c0]
+        for part in parts[c0 + 1:c0 + size]:
+            cluster = cluster + part
+        total = cluster if total is None else total + cluster
     return total.to(out_dtype)
 
 
@@ -339,13 +348,12 @@ def _bf16_normal(r, shape, scale):
 @pytest.mark.parametrize("m,n,k", [(1024, 288, 96), (256, 1536, 512),
                                    (37, 30, 40)])
 def test_gemm_emulation_is_within_an_ulp(m, n, k):
-    """qkv = seq w^T, split as `gemm_splits` splits the shape, within one
-    bf16 ulp plus the float32 sums' spread of the plain version and of the
-    JAX `_proj`."""
+    """qkv = seq w^T (never split), within one bf16 ulp plus the float32
+    sums' spread of the plain version and of the JAX `_proj`."""
     r = rng(1)
     a = _bf16_normal(r, (m, k), 0.5)
     b = _bf16_normal(r, (n, k), 0.1)
-    got = emulated_gemm_bf16(a, b.t(), fa.gemm_splits(m, n, k))
+    got = emulated_gemm_bf16(a, b.t())
     assert fa.bf16_product_close(got, fa.bf16_matmul(a, b.t()), a, b)
     want = jfa._proj(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)[None],
                      jnp.asarray(b.float().numpy()))[0]
@@ -357,7 +365,7 @@ def test_gemm_emulation_is_within_an_ulp(m, n, k):
                                    (3, 37, 20)])
 def test_gemm_backward_products_emulated(b, s, c):
     """dseq = dqkv w (bf16, rounded once) and dW = dqkv^T seq (float32),
-    K split as `gemm_splits` splits each shape (dW's K = B S), against the
+    K split as `wgmma_splits` splits each shape (dW's K = B S), against the
     plain versions (`attention_dseq_gemm`, `attention_dw_gemm` on the CPU)
     and `_bwd_kernel_proj`'s formulas in jnp: dseq within one bf16 ulp plus
     the sums' spread, dW within 2^-22 of the sum of |products| (two
@@ -367,7 +375,7 @@ def test_gemm_backward_products_emulated(b, s, c):
     w = _bf16_normal(r, (3 * c, c), 0.1)
     dqkv = _bf16_normal(r, (b, s, 3 * c), 0.1)
     d2, s2 = dqkv.reshape(-1, 3 * c), seq.reshape(-1, c)
-    dseq = emulated_gemm_bf16(d2, w, fa.gemm_splits(b * s, c, 3 * c))
+    dseq = emulated_gemm_bf16(d2, w, fa.wgmma_splits(b * s, c, 3 * c))
     want = kernels.attention_dseq_gemm(dqkv, w).reshape(-1, c)
     assert fa.bf16_product_close(dseq, want, d2, w.t())
     jd, jw, js = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
@@ -377,7 +385,7 @@ def test_gemm_backward_products_emulated(b, s, c):
     jdseq = torch.from_numpy(np.array(jdseq.astype(jnp.bfloat16)
                                       .astype(jnp.float32))).to(BF16)
     assert fa.bf16_product_close(dseq, jdseq, d2, w.t())
-    splits = fa.gemm_splits(3 * c, c, b * s)
+    splits = fa.wgmma_splits(3 * c, c, b * s)
     dw = emulated_gemm_bf16(d2.t(), s2, splits, torch.float32)
     spread = 2.0 ** -22 * (d2.float().abs().t() @ s2.float().abs())
     want = kernels.attention_dw_gemm(dqkv, seq)

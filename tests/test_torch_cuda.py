@@ -1606,21 +1606,24 @@ def _bf16(t):
                                        (64, 16, 96), (16, 256, 512),
                                        (3, 37, 96), (2, 33, 20)])
 def test_bf16_qkv_gemm_matches_plain_on_card(cuda_device, batch, s, c):
-    """The bf16 GEMM at the flagship's three levels (level 2's K split in 3),
-    the CLIs' C 512 (128 x 128 tiles), a ragged M and N, and a K (20) that
-    is not a multiple of 8 (the kernel's one-value copies): within one bf16
-    ulp of `bf16_matmul` (plus the float32 sums' spread,
-    `bf16_product_close`), two calls bit for bit, one launch counted on the
-    entry and on the bf16 kernel."""
+    """The bf16 GEMM at the flagship's three levels (tiles 128 x 96), the
+    CLIs' C 512 (128 x 128), a ragged M (TMA's zero fill), all on the TMA +
+    wgmma kernel, and a K (20) that is not a multiple of 8 (the unaligned
+    route's one-value copies): within one bf16 ulp of `bf16_matmul` (plus
+    the float32 sums' spread, `bf16_product_close`), two calls bit for bit,
+    one launch counted on the entry and on the bf16 kernel, and on the
+    unaligned route's count only at C 20."""
     r = np.random.default_rng(30)
     seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
     before = (kernels.attention_qkv_gemm.launches,
-              kernels.attention_qkv_gemm_bf16.launches)
+              kernels.attention_qkv_gemm_bf16.launches,
+              kernels.attention_gemm_bf16_unaligned.launches)
     got = kernels.attention_qkv_gemm(seq, w)
     assert (kernels.attention_qkv_gemm.launches,
-            kernels.attention_qkv_gemm_bf16.launches) == (before[0] + 1,
-                                                          before[1] + 1)
+            kernels.attention_qkv_gemm_bf16.launches,
+            kernels.attention_gemm_bf16_unaligned.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + (c % 8 != 0))
     assert got.dtype == torch.bfloat16 and got.shape == (batch, s, 3 * c)
     assert torch.equal(got, kernels.attention_qkv_gemm(seq, w))
     assert fa.bf16_product_close(got, fa.bf16_matmul(seq, w.t()), seq, w)
@@ -1628,16 +1631,24 @@ def test_bf16_qkv_gemm_matches_plain_on_card(cuda_device, batch, s, c):
 
 @pytest.mark.cuda
 def test_bf16_qkv_gemm_takes_unaligned_operands_on_card(cuda_device):
-    """An operand that starts off a 16-byte boundary takes the kernel's
-    one-value copies: the aligned call's bits."""
+    """An operand that starts off a 16-byte boundary, which TMA cannot
+    take, goes to the unaligned route (the kernel's one-value copies, one
+    launch on its count): within the bar of the plain version, two calls
+    bit for bit; the aligned call stays on the TMA + wgmma kernel."""
     r = np.random.default_rng(31)
     seq = _bf16(_normal(r, (4, 64, 96), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
+    before = kernels.attention_gemm_bf16_unaligned.launches
     want = kernels.attention_qkv_gemm(seq, w)
+    assert kernels.attention_gemm_bf16_unaligned.launches == before
     shifted = torch.empty(seq.numel() + 1, dtype=torch.bfloat16,
                           device=cuda_device)[1:].view_as(seq).copy_(seq)
     assert shifted.data_ptr() % 16
-    assert torch.equal(kernels.attention_qkv_gemm(shifted, w), want)
+    got = kernels.attention_qkv_gemm(shifted, w)
+    assert kernels.attention_gemm_bf16_unaligned.launches == before + 1
+    assert torch.equal(got, kernels.attention_qkv_gemm(shifted, w))
+    assert fa.bf16_product_close(got, want, seq, w)
+    assert fa.bf16_product_close(got, fa.bf16_matmul(seq, w.t()), seq, w)
 
 
 @pytest.mark.cuda
@@ -1780,9 +1791,11 @@ def test_bf16_model_trains_on_card(cuda_device):
     bf16 steps on weights moved by 2^-22), and the whole gradient's L2
     distance from the CPU's float32 at most 1.5 times the CPU bf16's; a
     training step with dropout launches the bf16 backward kernels for
-    every attention call and no float32 attention or GEMM kernel."""
+    every attention call and no float32 attention or GEMM kernel, and no
+    bf16 GEMM call takes the unaligned route."""
     small = dict(SMALL, hidden_channels=96, drop_prob=0.0)
     cfg = dict(small, compute_dtype="bfloat16")
+    unaligned = kernels.attention_gemm_bf16_unaligned.launches
     cpu = MarScfFlow(MarScfConfig(**cfg), device="cpu").eval()
     card = MarScfFlow(MarScfConfig(**cfg), device=cuda_device).eval()
     card.load_state_dict(cpu.state_dict())
@@ -1839,13 +1852,14 @@ def test_bf16_model_trains_on_card(cuda_device):
             f"attention_{name}_gemm"] == n
     assert counts["fused_attention_long_bwd"] == n
     assert counts["attention_lanes"] == counts["attention_lanes_bwd"] == 0
+    assert kernels.attention_gemm_bf16_unaligned.launches == unaligned
 
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
-    """The bf16 GEMM (every tile, layout and copy width), the bf16 forward
-    (with and without the statistics' store) and the dq and dK/dV kernels
-    (Dh 24, 128 and 256, with and without dropout) hold bf16 HMMA
+    """The bf16 GEMM's unaligned route (every tile and layout), the bf16
+    forward (with and without the statistics' store) and the dq and dK/dV
+    kernels (Dh 24, 128 and 256, with and without dropout) hold bf16 HMMA
     instructions (HMMA.16816.F32.BF16) in their SASS."""
     import os
     import shutil
@@ -1857,7 +1871,7 @@ def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
                           or "/usr/local/cuda/bin/cuobjdump"):
         pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
                     "read here")
-    for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 12),
+    for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 6),
                                ("fused_attention_long",
                                 "attention_bf16_fwd_kernel", 12),
                                ("fused_attention_long",
@@ -2013,21 +2027,24 @@ def test_bf16_dseq_and_dw_gemms_match_plain_on_card(cuda_device, batch, s,
     """dseq = dqkv w (bf16, one bf16 ulp plus the float32 sums' spread of
     `bf16_matmul`) and dW = dqkv^T seq (float32, within the spread of two
     orders of its float32 sums of `dw_plain`) at the flagship's levels (dW
-    split along B S), the CLIs' C 512, a ragged M and N and a C (20) that
-    is not a multiple of 8 (one-value copies); two calls bit for bit; one
+    split along B S inside its one launch), the CLIs' C 512, a ragged M
+    and N on the TMA + wgmma kernel, and a C (20) that is not a multiple of
+    8 (the unaligned route's one-value copies); two calls bit for bit; one
     launch counted on each entry and its bf16 kernel; an operand off a
-    16-byte boundary gives the same bits."""
+    16-byte boundary goes to the unaligned route, within the same bars."""
     r = np.random.default_rng(43)
     seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
     dqkv = _bf16(_normal(r, (batch, s, 3 * c), 0.1)).to(cuda_device)
     before = (kernels.attention_dseq_gemm_bf16.launches,
-              kernels.attention_dw_gemm_bf16.launches)
+              kernels.attention_dw_gemm_bf16.launches,
+              kernels.attention_gemm_bf16_unaligned.launches)
     dseq = kernels.attention_dseq_gemm(dqkv, w)
     dw = kernels.attention_dw_gemm(dqkv, seq)
     assert (kernels.attention_dseq_gemm_bf16.launches,
-            kernels.attention_dw_gemm_bf16.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+            kernels.attention_dw_gemm_bf16.launches,
+            kernels.attention_gemm_bf16_unaligned.launches) == (
+                before[0] + 1, before[1] + 1, before[2] + 2 * (c % 8 != 0))
     assert dseq.dtype == torch.bfloat16 and dw.dtype == torch.float32
     assert torch.equal(dseq, kernels.attention_dseq_gemm(dqkv, w))
     assert torch.equal(dw, kernels.attention_dw_gemm(dqkv, seq))
@@ -2038,8 +2055,107 @@ def test_bf16_dseq_and_dw_gemms_match_plain_on_card(cuda_device, batch, s,
     assert bool(((dw - fa.dw_plain(dqkv, seq)).abs() <= spread).all())
     shifted = torch.empty(dqkv.numel() + 1, dtype=torch.bfloat16,
                           device=cuda_device)[1:].view_as(dqkv).copy_(dqkv)
-    assert torch.equal(kernels.attention_dseq_gemm(shifted, w), dseq)
-    assert torch.equal(kernels.attention_dw_gemm(shifted, seq), dw)
+    unaligned = kernels.attention_gemm_bf16_unaligned.launches
+    got = kernels.attention_dseq_gemm(shifted, w)
+    assert fa.bf16_product_close(got, fa.bf16_matmul(dqkv, w), d2, w.t())
+    got = kernels.attention_dw_gemm(shifted, seq)
+    assert bool(((got - fa.dw_plain(dqkv, seq)).abs() <= spread).all())
+    assert kernels.attention_gemm_bf16_unaligned.launches == unaligned + 2
+
+
+@pytest.mark.cuda
+def test_wgmma_gemm_runs_hgmma_and_tma_on_card(cuda_device):
+    """Every instantiation of the bf16 GEMM's TMA + wgmma kernel (three
+    layouts, tiles 96 and 128 wide, bf16 and float32 c, clusters of 8 and
+    2 for split K) holds bf16
+    warpgroup products (HGMMA ... BF16) and TMA loads and stores (UTMALDG,
+    UTMASTG) in its SASS, and no mma.sync (HMMA)."""
+    import os
+    import shutil
+
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    if not os.path.exists(shutil.which("cuobjdump")
+                          or "/usr/local/cuda/bin/cuobjdump"):
+        pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
+                    "read here")
+    _native.build(["attention_gemm"])
+    rows = {fn: row for fn, row in sass_counts(
+        _native.library_path("attention_gemm")).items()
+        if "gemm_wgmma_bf16_kernel" in fn}
+    assert len(rows) == 24, sorted(rows)
+    for fn, row in rows.items():
+        assert any(op.startswith("HGMMA.") and "BF16" in op
+                   for op in row["hgmma_ops"]), (fn, row["hgmma_ops"])
+        assert row["tma_ops"].get("UTMALDG", 0) > 0, (fn, row["tma_ops"])
+        assert row["tma_ops"].get("UTMASTG", 0) > 0, (fn, row["tma_ops"])
+        assert row["hmma"] == 0, fn
+
+
+# (B, S, C) of the bf16 GEMM's products on the paths: the flagship's 32-px
+# levels, the C 192 step's level 1, the CLIs' C 512 at the 32-px levels
+BF16_GEMM_PATH_SHAPES = [(64, 256, 96), (64, 64, 96), (64, 16, 96),
+                         (64, 64, 192), (16, 256, 512), (16, 64, 512),
+                         (16, 16, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,s,c", BF16_GEMM_PATH_SHAPES)
+def test_bf16_gemm_is_one_device_launch_on_card(cuda_device, batch, s, c):
+    """qkv, dseq and dW at the paths' shapes: the TMA + wgmma route
+    (`gemm_bf16_plan`), one device launch a call (a CUDA graph's kernel
+    nodes), split K included, and the split counters left zero."""
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
+    r = np.random.default_rng(45)
+    seq = _bf16(_normal(r, (batch, s, c), 0.5)).to(cuda_device)
+    w = _bf16(_normal(r, (3 * c, c), 0.1)).to(cuda_device)
+    dqkv = _bf16(_normal(r, (batch, s, 3 * c), 0.1)).to(cuda_device)
+    rows = batch * s
+    for run, (m, n, k, ta, tb, splits) in (
+            (lambda: kernels.attention_qkv_gemm(seq, w),
+             (rows, 3 * c, c, False, True, 1)),
+            (lambda: kernels.attention_dseq_gemm(dqkv, w),
+             (rows, c, 3 * c, False, False, None)),
+            (lambda: kernels.attention_dw_gemm(dqkv, seq),
+             (3 * c, c, rows, True, False, None))):
+        plan = fa.gemm_bf16_plan(m, n, k, 0, 0, 0, ta, tb, splits)
+        assert plan.route == "wgmma"
+        assert graph_launches(run) == 1, plan
+    torch.cuda.synchronize()
+    for buf in fa._WGMMA_COUNTERS.values():
+        assert int(buf.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_bf16_dw_gemm_at_long_k_against_float64(cuda_device):
+    """dW at the flagship's level 0 (K = B S = 16,384, split in
+    `wgmma_splits` ranges, each kept in the tensor core's fp32
+    accumulators): its error against the float64 product within K 2^-24
+    of sum |products| element by element (the bar of two float32 orders)
+    at split counts of one to 64 (clusters of 2 and 8), each bit for bit on a
+    second call; at the rule's count also within 8 times the plain float32
+    product's own error (one split, all 16,384 in the tensor core, read
+    1.06e-6 of sum |products| against the plain product's 1.4e-8 on an
+    H100)."""
+    r = np.random.default_rng(46)
+    seq = _bf16(_normal(r, (64, 256, 96), 0.5)).to(cuda_device)
+    dqkv = _bf16(_normal(r, (64, 256, 288), 0.1)).to(cuda_device)
+    d2, s2 = dqkv.reshape(-1, 288), seq.reshape(-1, 96)
+    exact = d2.double().t() @ s2.double()
+    mag = d2.double().abs().t() @ s2.double().abs()
+    k = d2.shape[0]
+    plain = float(((fa.dw_plain(dqkv, seq).double() - exact).abs()
+                   / mag).max())
+    for splits in (None, 1, 2, 4, 8, 16, 32, 64):
+        run = lambda: fa._gemm_bf16("dw", dqkv, seq, (288, 96), 288, 96, k,
+                                    True, False, torch.float32, splits)
+        got = run()
+        err = float(((got.double() - exact).abs() / mag).max())
+        assert err <= k * 2.0 ** -24, (splits, err)
+        assert splits is not None or err <= 8 * plain, (err, plain)
+        assert torch.equal(got, run())
 
 
 @pytest.mark.cuda
