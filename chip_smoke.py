@@ -162,15 +162,17 @@ Phases, each of which raises (exit code != 0) when it fails:
  19. serving the flagship in bf16 (MarScfConfig(compute_dtype="bfloat16"),
      `bench.py`'s default): the bf16 qkv GEMM against its plain version
      (within one bf16 ulp plus the fp32 sums' spread) at the flagship's
-     three levels and C 512, the bf16 tensor-core forward (within 2^-7
-     max |v|) there and at the 64-px level 0, rate 0 and 0.2, two calls
-     bit for bit, out bit for bit the same with the statistics' store
-     that training's forward adds (its (m, 1/l) within 1e-4 of the plain
-     statistics), each with its time, the plain version's, the library
-     call's on bf16 and its bound at the bf16 rate, the GEMM's plan (the
-     TMA + wgmma route, its tile, splits and ring) and one device launch a
-     call (a CUDA graph), bf16 HGMMA and UTMALDG in the GEMM's SASS and
-     bf16 HMMA in the forward's; then phase 5's weights in bf16: eval bits/dim over
+     three levels and C 512, the bf16 forward on TMA + wgmma (within 2^-7
+     max |v|) there, at the 64-px level 0 and at Dh 256 (C 1024, batch
+     4), rate 0 and 0.2, two calls bit for bit, out bit for bit the same
+     with the statistics' store that training's forward adds (its (m, 1/l)
+     within 1e-4 of the plain statistics), each with its time, the plain
+     version's, the library call's on bf16 (SDPA beside the forward) and
+     its bound at the bf16 rate (the forward's one exponential a score
+     beside it), the GEMM's plan (the TMA + wgmma route, its tile, splits
+     and ring) and one device launch a call of each (a CUDA graph), bf16
+     HGMMA and UTMALDG in the SASS of both, no spill in the forward's;
+     then phase 5's weights in bf16: eval bits/dim over
      phase 5's batches (exact launch counts, 2 device launches a proj
      forward, no backward launch) and its gap to phase 5's float32, one
      sampling pass (every image finite), a test batch's latents through
@@ -2677,9 +2679,14 @@ def cli_default_width(device, out_dir, card):
 # the CLIs' C 512 at the 32-px level 0; the forward also at the 64-px level 0
 BF16_GEMM_CASES = ((BATCH, 256, 96), (BATCH, 64, 96), (BATCH, 16, 96),
                    (C512_BATCH, 256, 512))
+C1024_BATCH = 4  # Dh 256: the widest head the bf16 kernels are built for
 BF16_FWD_CASES = BF16_GEMM_CASES[:3] + ((BATCH, 1024, 96),
-                                        (C512_BATCH, 256, 512))
+                                        (C512_BATCH, 256, 512),
+                                        (C1024_BATCH, 256, 1024))
 BF16_FWD_BAR = 2.0 ** -7  # x max |v|: P's rounding and the output's
+# the H100's special-function unit, ex2 results a second (the FlashAttention-3
+# paper's figure): the bf16 forward takes one exponential a score
+PEAK_EXP = 3.9e12
 # latents decoded by the sampling path and re-encoded, against themselves:
 # max abs diff over the largest |latent|, at each level. The bf16 nets see
 # inputs that agree only to the inverse's error, so a bf16 cast may differ
@@ -2697,6 +2704,29 @@ def _bf16_bound(bytes_moved, ops):
     """(least ms, "bytes" or "operations") at 3.35 TB/s and the dense bf16
     tensor-core rate."""
     return bound(bytes_moved, ops, PEAK_OPS_BF16)
+
+
+def wgmma_fwd_sass():
+    """{instantiation: {"hgmma": {opcode: n}, "tma": {opcode: n}}} of the
+    bf16 attention forward on TMA + wgmma (cuobjdump -sass); raises unless
+    each of its 12 instantiations (Dh 24, 128, 256, with and without
+    dropout and the statistics' store) holds bf16 warpgroup products
+    (HGMMA ... BF16) and TMA loads (UTMALDG)."""
+    from gpnf_tpu_torch.bench_mixture import sass_counts
+    from gpnf_tpu_torch.ops.kernels import _native
+
+    out = {fn: {"hgmma": row["hgmma_ops"], "tma": row["tma_ops"]}
+           for fn, row in sass_counts(
+               _native.library_path("fused_attention_long")).items()
+           if "attention_wgmma_fwd_kernel" in fn}
+    log(f"  attention_wgmma_fwd_kernel: HGMMA and TMA instructions in the "
+        f"SASS of each instantiation (cuobjdump -sass): {out}")
+    if len(out) != 12 or not all(
+            any("BF16" in op for op in row["hgmma"]) and row["tma"].get(
+                "UTMALDG", 0) for row in out.values()):
+        raise AssertionError(f"attention_wgmma_fwd_kernel: no bf16 HGMMA or "
+                             f"UTMALDG in {out}")
+    return out
 
 
 def wgmma_sass():
@@ -2742,13 +2772,13 @@ def check_bf16_kernels(device, timer, reports):
     and the bf16 tensor-core forward (within 2^-7 max |v|) at
     BF16_GEMM_CASES / BF16_FWD_CASES, rate 0 and 0.2 for the forward (one
     seed: the same mask; at S 1024 rate 0.2 compared at batch
-    LONG_DROPOUT_BATCH), two calls bit for bit, each with its time, the
-    plain version's, the library call's (torch.matmul / SDPA on bf16) and
-    its bound at the bf16 rate; the bf16 HMMA of each kernel's SASS and its
-    ptxas registers and spills."""
-    from gpnf_tpu_torch.bench_mixture import sass_counts
+    LONG_DROPOUT_BATCH), two calls bit for bit, one device launch a call,
+    each with its time, the plain version's, the library call's
+    (torch.matmul / SDPA on bf16) and its bound at the bf16 rate (the
+    forward's exponentials beside it); the bf16 HGMMA and UTMALDG of each
+    kernel's SASS and its ptxas registers and spills (none in the
+    forward)."""
     from gpnf_tpu_torch.ops import kernels
-    from gpnf_tpu_torch.ops.kernels import _native
     from gpnf_tpu_torch.utils.cuda_timing import graph_launches
 
     fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
@@ -2797,6 +2827,7 @@ def check_bf16_kernels(device, timer, reports):
             run = lambda: kernels.attention_long_qkv(qkv, heads, rate, seed)
             got = run()
             same = torch.equal(got, run())
+            launches = graph_launches(run)
             # training's forward: the same out, and the (m, 1/l) it keeps
             # for the backward against the plain statistics
             with_stats = lambda: kernels.attention_long_qkv(
@@ -2818,7 +2849,9 @@ def check_bf16_kernels(device, timer, reports):
                        stats_ms=timer(with_stats),
                        same_bits_with_stats=same_stats_off,
                        stats_err_m_and_rel_inv_l=stats_err,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       device_launches=launches,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       exp_bound_ms=b * heads * s * s / PEAK_EXP * 1e3)
             if sub == b:
                 row["plain_ms"] = timer(lambda: kernels.attention_long_plain(
                     qkv, heads, rate, seed))
@@ -2833,37 +2866,34 @@ def check_bf16_kernels(device, timer, reports):
                 f"{sub}); two calls bit for bit: {same}; with the "
                 f"statistics' store out bit for bit the same: "
                 f"{same_stats_off}, (m, 1/l) against the plain statistics: "
-                f"max abs {stats_err[0]:.3g}, max rel {stats_err[1]:.3g} | "
+                f"max abs {stats_err[0]:.3g}, max rel {stats_err[1]:.3g}, "
+                f"{launches} device launch(es) | "
                 f"kernel {row['ms']:.4f} ms ({row['stats_ms']:.4f} with the "
                 f"statistics) plain {row.get('plain_ms', float('nan')):.4f} ms"
                 + (f" SDPA (bf16) {row['library_ms']:.4f} ms"
                    if rate == 0.0 else "")
-                + f" | bound {bound_ms * 1e3:.2f} us ({bound_by})")
+                + f" | bound {bound_ms * 1e3:.2f} us ({bound_by}; one "
+                f"exponential a score {row['exp_bound_ms'] * 1e3:.2f} us)")
             if not (err <= bar and same and same_stats_off
                     and stats_err[0] <= BF16_STATS_BAR
-                    and stats_err[1] <= BF16_STATS_BAR):
+                    and stats_err[1] <= BF16_STATS_BAR and launches == 1):
                 raise AssertionError(
                     f"bf16 forward {(b, s, c)} rate {rate}: err {err} > {bar}"
                     f", repeat {same}, out with the statistics "
-                    f"{same_stats_off} or statistics {stats_err} > "
-                    f"{BF16_STATS_BAR}")
-    sass = {"gemm_wgmma_bf16_kernel": wgmma_sass()}
-    for source, pattern in (("fused_attention_long",
-                             "attention_bf16_fwd_kernel"),):
-        hmma = {fn: row["hmma_ops"].get("HMMA.16816.F32.BF16", 0)
-                for fn, row in sass_counts(
-                    _native.library_path(source)).items() if pattern in fn}
-        sass[pattern] = hmma
-        log(f"  {pattern}: HMMA.16816.F32.BF16 instructions in the SASS of "
-            f"each instantiation (cuobjdump -sass): {hmma}")
-        if not hmma or not all(hmma.values()):
-            raise AssertionError(f"{pattern}: no bf16 HMMA in {hmma}")
+                    f"{same_stats_off}, statistics {stats_err} > "
+                    f"{BF16_STATS_BAR} or {launches} device launches")
+    sass = {"gemm_wgmma_bf16_kernel": wgmma_sass(),
+            "attention_wgmma_fwd_kernel": wgmma_fwd_sass()}
     ptxas = {"attention_qkv_gemm_bf16": ptxas_kernels(
                  reports.get("attention_gemm", ""), "gemm_wgmma_bf16_kernel"),
              "attention_fwd_bf16": ptxas_kernels(
                  reports.get("fused_attention_long", ""),
-                 "attention_bf16_fwd_kernel")}
+                 "attention_wgmma_fwd_kernel")}
     log(f"  ptxas: {ptxas}")
+    spilled = [r["kernel"] for r in ptxas["attention_fwd_bf16"]
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"attention_wgmma_fwd_kernel spills in {spilled}")
     return rows, {"sass_bf16_hmma": sass, "ptxas": ptxas}
 
 
@@ -4235,7 +4265,7 @@ def main():
         # in bf16, the forward also the 64-px level 0's (`_fwd_kernel_bh`)
         "attention_qkv_gemm_bf16": ("gpnf_tpu_torch/csrc/attention_gemm.cu",
                                     attention[1] + "393"),
-        "attention_fwd_bf16": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
+        "attention_fwd_bf16": ("gpnf_tpu_torch/csrc/attention_wgmma.cuh",
                                attention[1] + "393"),
         # the bf16 training path (phase 20): the proj backward's stages in
         # bf16, the dq and dK/dV pair also the long entry's (`_bwd_kernel_bh`)
@@ -4430,20 +4460,20 @@ def main():
                     ", rate 0; library_ms SDPA on bf16"),
                 bound_peak="bf16 989 TFLOP/s", per_case=rows,
                 device_kernels=["gemm_wgmma_bf16_kernel" if gemm
-                                else "attention_bf16_fwd_kernel"],
-                headers=["gpnf_tpu_torch/csrc/wgmma_bf16.cuh"] if gemm else
-                ["gpnf_tpu_torch/csrc/mma_bf16.cuh",
-                 "gpnf_tpu_torch/csrc/philox.cuh"],
-                ptxas=bf16_build["ptxas"][name])
-            if gemm:  # one device launch a call, none on the unaligned route
+                                else "attention_wgmma_fwd_kernel"],
+                headers=["gpnf_tpu_torch/csrc/wgmma_bf16.cuh"] + ([] if gemm
+                         else ["gpnf_tpu_torch/csrc/philox.cuh"]),
+                ptxas=bf16_build["ptxas"][name],
+                device_launches_a_call=sorted(
+                    {r["device_launches"] for r in rows}))
+            if gemm:  # none on the unaligned route
                 entry.update(sass_hgmma_tma=bf16_build["sass_bf16_hmma"][
                                  "gemm_wgmma_bf16_kernel"],
-                             device_launches_a_call=sorted(
-                                 {r["device_launches"] for r in rows}),
                              unaligned_route_launches=unaligned)
-            else:  # every other width, padded (phase 20)
-                entry.update(sass_bf16_hmma=bf16_build["sass_bf16_hmma"][
-                                 "attention_bf16_fwd_kernel"],
+            else:  # one exponential a score; every other width (phase 20)
+                entry.update(sass_hgmma_tma=bf16_build["sass_bf16_hmma"][
+                                 "attention_wgmma_fwd_kernel"],
+                             exp_bound_ms=top["exp_bound_ms"],
                              per_width=bf16_train_rows[
                                  "attention_fwd_bf16_widths"])
         elif name in CORE:

@@ -109,6 +109,21 @@ alone on outputs made beforehand), one call of each under torch.profiler,
 the change's plan (tile, splits, ring), the change at every split count of
 BF16_SPLIT_SWEEP for dseq and dW, and the ptxas lines of every version.
 
+`--kernel rows --dtype bfloat16`: the bf16 forward (attention_wgmma.cuh's
+`attention_wgmma_fwd_kernel`, counted by `attention_fwd_bf16`) at
+BF16_FWD_SHAPES (BF16_SHAPES below and B 4, C 1024, S 256: Dh 256), rate 0
+and 0.2, without and with its statistics' store, and each ref's
+`gpnf_attention_long_fwd_bf16` in turns, refs, change, change, refs
+reversed, SDPA on bf16 beside them: out against the plain version (over
+the 2^-7 max |v| bar), the statistics against `attention_stats_plain`,
+two calls bit for bit, out the same bits with and without the store,
+device launches a call (a CUDA graph), host microseconds a call (the
+wrapper; the C entry called as a ref is; each C entry alone on an output
+made beforehand, in turns), the bounds (bytes, the two products at the
+dense bf16 rate, one exponential a score at PEAK_EXP), device time by
+kernel, and the SASS of every version's forward (HGMMA, UTMALDG, MUFU;
+the key loop's FP32 and integer instructions a score, `key_loop_counts`).
+
 `--dtype bfloat16` (with `--kernel rows_bwd` or `proj`): the bf16 kernels
 (MarScfConfig(compute_dtype="bfloat16")) at BF16_SHAPES, B 64, C 96 at S
 256 / 64 / 16 (the flagship's 32-px levels, the proj entry's dq recipe),
@@ -142,12 +157,16 @@ writes all of them to --out.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import importlib
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
+import threading
 import time
 
 import torch
@@ -192,6 +211,12 @@ BF16_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 96, 1024),
 BF16_GEMM_SHAPES = ((64, 96, 256), (64, 96, 64), (64, 96, 16), (64, 192, 64),
                     (16, 512, 256))
 BF16_SPLIT_SWEEP = (1, 2, 4, 6, 8, 16, 24, 32, 40, 48, 56, 64, 96, 128)
+# --kernel rows --dtype bfloat16: BF16_SHAPES and Dh 256 (C 1024, B 4)
+BF16_FWD_SHAPES = BF16_SHAPES + ((4, 1024, 256),)
+# the H100's special-function unit: ex2 results a second (132 SMs x 16 a
+# clock at ~1.8 GHz; the FlashAttention-3 paper's figure), the bf16
+# forward's floor at one exponential a score
+PEAK_EXP = 3.9e12
 OUT_DIR = _native.BUILD_DIR.parent / "bench_attention"
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the refs' C entries; a ref source need not have every entry of its file
@@ -359,6 +384,63 @@ def by_kernel(fn):
         row = out.setdefault(name.split("<")[0], [0, 0.0])
         row[0] += 1
         row[1] += us
+    return out
+
+
+# opcode classes of `key_loop_counts`: FP32-pipe arithmetic, integer
+# arithmetic and logic (by the SASS opcode's first word)
+FP32_OPS = ("FFMA", "FADD", "FMUL", "FMNMX", "FSEL", "FSETP", "FSET")
+INT_OPS = ("IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "ISETP", "IMNMX",
+           "SEL", "LEA", "PRMT", "IABS", "POPC", "FLO", "BMSK", "BREV")
+
+
+def key_loop_counts(lib_path, pattern, scores_a_tile):
+    """{kernel: counts} of each kernel of a built library whose name holds
+    `pattern`: the opcodes of its key loop (the longest loop body of its
+    SASS, cuobjdump -sass, from a backward branch's target to the branch)
+    by class, and per score. A tile's softmax takes one MUFU.EX2 a score
+    and 2 for the rows' corrections, so the loop body's scores are its EX2
+    count times n / (n + 2), n = scores_a_tile(kernel name), the scores a
+    thread holds of one key tile."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = [] if pattern in name else None
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if name and funcs.get(name) is not None and ins:
+            funcs[name].append((int(ins.group(1), 16), ins.group(2).strip()))
+    out = {}
+    for fn, code in funcs.items():
+        if not code:
+            continue
+        spans = [(int(t.group(1), 16), addr) for addr, op in code
+                 for t in [re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)",
+                                     op)]
+                 if t and int(t.group(1), 16) < addr]
+        if not spans:
+            continue
+        lo, hi = max(spans, key=lambda s: s[1] - s[0])
+        ops = collections.Counter(
+            re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            for addr, op in code if lo <= addr <= hi)
+        fp32 = sum(n for op, n in ops.items() if op in FP32_OPS)
+        ints = sum(n for op, n in ops.items() if op in INT_OPS)
+        ex2 = sum(1 for addr, op in code
+                  if lo <= addr <= hi and "MUFU.EX2" in op)
+        n = scores_a_tile(fn)
+        scores = ex2 * n / (n + 2)
+        out[fn] = {"instructions": sum(ops.values()), "ex2": ex2,
+                   "scores": scores, "fp32": fp32, "int": ints,
+                   "fp32_a_score": fp32 / scores if scores else None,
+                   "int_a_score": ints / scores if scores else None,
+                   "all_a_score": sum(ops.values()) / scores if scores
+                   else None, "opcodes": dict(ops.most_common())}
     return out
 
 
@@ -1088,6 +1170,181 @@ def bf16_gemm_rows(device, libs, timer, card):
             yield row
 
 
+# the bf16 forward's kernels: the change's, and the mma.sync one before it
+FWD_KERNELS = ("attention_wgmma_fwd_kernel", "attention_bf16_fwd_kernel")
+
+
+def fwd_scores_a_tile(fn):
+    """The scores a thread holds of one key tile in a bf16 forward kernel,
+    by its mangled name: `attention_wgmma_fwd_kernel` kKeys / 2 (64 keys at
+    W 32 and 128 without dropout, else 32: attention_wgmma.cuh's WgFwd);
+    `attention_bf16_fwd_kernel` (the mma.sync kernel before it) a warp's 16
+    rows by 64 keys (16 at W 256) over its 32 lanes."""
+    dh, drop = re.search(r"PackedQkvILi(\d+)EEELb(\d)", fn).groups()
+    width = 32 if int(dh) <= 32 else 128 if int(dh) <= 128 else 256
+    if "wgmma" in fn:
+        return (64 if width <= 128 and drop == "0" else 32) // 2
+    return 16 * (64 if width <= 128 else 16) // 32
+
+
+def fwd_sass(libs):
+    """{version: {kernel: {"hgmma", "tma", "mufu", "key_loop"}}} of the bf16
+    forward's instantiations in the change's library and each ref's: the
+    warpgroup products, TMA loads and MUFU operations of the whole SASS,
+    and the opcodes of the key loop (`key_loop_counts`) per score."""
+    from .bench_mixture import sass_counts
+
+    paths = {"change": _native.library_path("fused_attention_long"),
+             **{name: OUT_DIR / name / "fused_attention_long.so"
+                for name in libs}}
+    out = {}
+    for version, path in paths.items():
+        loops = {}
+        for pattern in FWD_KERNELS:
+            loops.update(key_loop_counts(path, pattern, fwd_scores_a_tile))
+        out[version] = {
+            fn: {"hgmma": row["hgmma_ops"], "tma": row["tma_ops"],
+                 "mufu": row["mufu"], "hmma": row["hmma_ops"],
+                 "key_loop": loops.get(fn)}
+            for fn, row in sass_counts(path).items()
+            if any(p in fn for p in FWD_KERNELS)}
+    return out
+
+
+def ref_long_fwd_bf16(lib, qkv, rate, seed, with_stats=False):
+    """A ref's bf16 forward at the kernel's boundary, called as its
+    `attention_long_qkv` called it: with its (B, H, S, 2) statistics where
+    asked (a ref from before the forward kept them has no such argument)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
+    stats = (torch.empty((b, HEADS, s, 2), device=qkv.device)
+             if with_stats else None)
+    args = (b, s, c, HEADS, fa.bf16_scale((c // HEADS) ** -0.5),
+            fa.keep_threshold(rate) if rate else 0, 1.0 / (1.0 - rate),
+            _stream())
+    seed_ptr = seed.data_ptr() if rate > 0 else None
+    if lib.stateless_bf16:
+        err = lib.gpnf_attention_long_fwd_bf16(seed_ptr, qkv.data_ptr(),
+                                               out.data_ptr(), *args)
+    else:
+        err = lib.gpnf_attention_long_fwd_bf16(
+            seed_ptr, qkv.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), *args)
+    _check(err, "ref long fwd bf16")
+    return (out, stats) if with_stats else out
+
+
+def fwd_c_entry(lib, qkv, rate, seed):
+    """One call of a version's bf16 forward C entry alone, its output made
+    beforehand (no statistics)."""
+    b, s, c3 = qkv.shape
+    c = c3 // 3
+    out = torch.empty((b, s, c), dtype=qkv.dtype, device=qkv.device)
+    args = [seed.data_ptr() if rate > 0 else None, qkv.data_ptr(),
+            out.data_ptr(), b, s, c, HEADS,
+            fa.bf16_scale((c // HEADS) ** -0.5),
+            fa.keep_threshold(rate) if rate else 0, 1.0 / (1.0 - rate),
+            _stream()]
+    if not lib.stateless_bf16:
+        args.insert(3, None)
+    fn = lib.gpnf_attention_long_fwd_bf16
+    return lambda: _check(fn(*args), "bf16 forward entry")
+
+
+def bf16_rows_fwd(device, libs, timer, card):
+    """`--kernel rows --dtype bfloat16`: the bf16 forward
+    (`attention_long_qkv`, `attention_fwd_bf16`) and each ref's
+    `gpnf_attention_long_fwd_bf16` in turns at BF16_FWD_SHAPES, rates 0
+    and 0.2, without and with the statistics' store, beside SDPA on bf16:
+    out against the plain version (max abs error over 2^-7 max |v|), the
+    statistics against `attention_stats_plain`, two calls bit for bit, out
+    the same with and without the statistics, device launches a call (a
+    CUDA graph), host microseconds a call (the wrapper; the C entry called
+    as a ref is; each C entry alone, in turns), the bounds (bytes, the two products at the dense bf16
+    rate, one exponential a score at PEAK_EXP), device time by kernel; and
+    once, the SASS of every version's forward (`fwd_sass`)."""
+    from .utils.cuda_timing import graph_launches
+
+    change_lib = _native.load("fused_attention_long")
+    change_lib.stateless_bf16 = False
+    yield {"kind": "rows_fwd_bf16_sass", "card": card,
+           "sass": fwd_sass(libs)}
+    for batch, c, s in BF16_FWD_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(c + s)
+        qkv = torch.randn((batch, s, 3 * c), generator=gen,
+                          device=device).to(torch.bfloat16)
+        seed = torch.tensor([1357 + s + c], dtype=torch.int32, device=device)
+        dh = c // HEADS
+        scores = batch * HEADS * s * s
+        bytes_moved = 2 * (batch * s * 3 * c + batch * s * c)
+        bytes_ms = bytes_moved / PEAK_BYTES * 1e3
+        ops_ms = 2 * 2 * scores * dh / PEAK_OPS_BF16 * 1e3
+        exp_ms = scores / PEAK_EXP * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"),
+                                 (exp_ms, "exponentials"))
+        bar = 2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
+        stats_want = fa.attention_stats_plain(qkv, HEADS)
+        for rate in RATES:
+            want = kernels.attention_long_plain(qkv, HEADS, rate, seed)
+            row = {"kind": "rows_fwd_bf16", "batch": batch, "C": c, "S": s,
+                   "head_dim": dh, "rate": rate, "card": card, "bar": bar,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+                   "bound_exp_ms": exp_ms,
+                   "bound_peak": "bf16 989 TFLOP/s, 3.35 TB/s, ex2 3.9e12/s"}
+            for with_stats in (False, True):
+                tag = "stats_" if with_stats else ""
+                runs = {name: (lambda lib=lib: ref_long_fwd_bf16(
+                    lib["fused_attention_long"], qkv, rate, seed, with_stats))
+                    for name, lib in libs.items()
+                    if not (with_stats and
+                            lib["fused_attention_long"].stateless_bf16)}
+                runs["change"] = lambda: kernels.attention_long_qkv(
+                    qkv, HEADS, rate, seed, with_stats=with_stats)
+                for name, run in runs.items():
+                    got = run()
+                    out = got[0] if with_stats else got
+                    row[f"{tag}{name}_err_over_bar"] = float(
+                        (out.float() - want.float()).abs().max()) / bar
+                    again = run()
+                    row[f"{tag}{name}_repeats"] = torch.equal(
+                        out, again[0] if with_stats else again)
+                    if with_stats:
+                        st = got[1]
+                        row[f"{name}_stats_err"] = [
+                            float((st[..., 0] - stats_want[..., 0]).abs()
+                                  .max()),
+                            float(((st[..., 1] - stats_want[..., 1])
+                                   / stats_want[..., 1]).abs().max())]
+                        plain_run = (libs[name]["fused_attention_long"]
+                                     if name != "change" else change_lib)
+                        row[f"{name}_same_bits_with_stats"] = torch.equal(
+                            out, ref_long_fwd_bf16(plain_run, qkv, rate,
+                                                   seed))
+                    else:
+                        row[f"{name}_device_launches"] = graph_launches(run)
+                        row[f"{name}_host_us"] = host_us(run)
+                row.update({f"{tag}{k}": v
+                            for k, v in _turns(timer, runs).items()})
+            row["change_lean_host_us"] = host_us(
+                lambda: ref_long_fwd_bf16(change_lib, qkv, rate, seed))
+            # each C entry alone (its tensor map, its launch), in turns
+            entries = {name: fwd_c_entry(lib["fused_attention_long"], qkv,
+                                         rate, seed)
+                       for name, lib in libs.items()}
+            entries["change"] = fwd_c_entry(change_lib, qkv, rate, seed)
+            order = [n for n in entries if n != "change"]
+            for name in [*order, "change", "change", *reversed(order)]:
+                row.setdefault(f"{name}_c_entry_host_us", []).append(
+                    host_us(entries[name]))
+            row["library_ms"] = (timer(sdpa_fwd(qkv)) if rate == 0.0
+                                 else None)
+            row["profile"] = {name: by_kernel(run)
+                              for name, run in runs.items()}
+            yield row
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--kernel", choices=sorted(REF_SOURCES), default="proj",
@@ -1104,8 +1361,8 @@ def main(argv=None):
                    help="block targets of the GEMM split sweep")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="float32",
-                   help="bfloat16: the bf16 kernels (--kernel rows_bwd, "
-                        "proj or gemm)")
+                   help="bfloat16: the bf16 kernels (--kernel rows, "
+                        "rows_bwd, proj or gemm)")
     p.add_argument("--head-dims", default="4,8,24,64",
                    help="--kernel rows: the head widths")
     p.add_argument("--out", default=None,
@@ -1120,10 +1377,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     bf16 = args.dtype == "bfloat16"
     if bf16 != (args.kernel == "train") and not (
-            bf16 and args.kernel in ("rows_bwd", "proj", "gemm")):
+            bf16 and args.kernel in ("rows", "rows_bwd", "proj", "gemm")):
         raise SystemExit("bench_attention: --dtype bfloat16 times --kernel "
-                         "rows_bwd, proj, gemm or train, and --kernel train "
-                         "takes --dtype bfloat16")
+                         "rows, rows_bwd, proj, gemm or train, and --kernel "
+                         "train takes --dtype bfloat16")
     card = card_line()
     print(card, flush=True)
     refs = dict(spec.split("=", 1) for spec in args.ref)
@@ -1132,12 +1389,24 @@ def main(argv=None):
     t0 = time.perf_counter()
     sources = (REF_SOURCES[args.kernel] if not bf16 or args.kernel == "gemm"
                else ("fused_attention_long",))
-    change_reports = _native.build(
+    change_sources = (
         _native.SOURCES if args.kernel == "train"
         else ("attention_gemm",) if args.kernel == "gemm"
+        else ("fused_attention_long",) if bf16 and args.kernel == "rows"
         else ("attention_gemm", "fused_attention_long") if bf16
         else CHANGE_SOURCES[args.kernel])
-    libs, reports = build_refs(refs, sources)
+    # the change's build beside the refs' (nvcc processes all at once)
+    built = {}
+    change_build = threading.Thread(target=lambda: built.update(
+        reports=_native.build(change_sources)))
+    change_build.start()
+    try:
+        libs, reports = build_refs(refs, sources)
+    finally:
+        change_build.join()
+    if "reports" not in built:
+        raise RuntimeError("bench_attention: the change's build failed")
+    change_reports = built["reports"]
     results = [{"card": card, "build_s": time.perf_counter() - t0,
                 "ptxas": {**reports, **{f"change/{k}": _ptxas_lines(v)
                                         for k, v in change_reports.items()}}}]
@@ -1153,8 +1422,9 @@ def main(argv=None):
     elif args.kernel == "train":
         rows = bf16_train_rows(device, libs, card)
     elif bf16:
-        rows = (bf16_rows_bwd if args.kernel == "rows_bwd"
-                else bf16_proj_rows)(device, libs, timer, card)
+        rows = {"rows": bf16_rows_fwd, "rows_bwd": bf16_rows_bwd,
+                "proj": bf16_proj_rows}[args.kernel](device, libs, timer,
+                                                      card)
     elif args.kernel == "proj":
         rows = proj_rows(device, libs, timer, card)
     else:

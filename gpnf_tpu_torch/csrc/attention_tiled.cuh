@@ -480,74 +480,6 @@ __global__ void __launch_bounds__(MmaFwd<Layout::kHeadDim>::kThreads)
   }
 }
 
-// The forward in bf16 (MarScfConfig(compute_dtype="bfloat16"), serving):
-// the same function at the JAX package's bf16 rounding points
-// (fused_attention.py's `_fwd_kernel_proj`, `_reference_qkv`, on bf16
-// qkv): q * q_scale rounded to bf16 (q_scale the bf16 constant Dh^-1/2),
-// the scores, softmax and dropout in fp32, P rounded to bf16 for P V, P V
-// summed in fp32 and the output rounded once. bf16 mma.sync.m16n8k16
-// (mma_bf16.cuh) at the widths built in bf16, Dh 24 and 128.
-//
-// A block per (64 queries, head, batch row), a warp per 16 query rows, as
-// the fp32 kernel. The block's q rows are copied unscaled, then scaled and
-// rounded in shared memory by the whole block, and each warp keeps its q
-// fragments in registers for every key tile (W / 16 k16 steps, W = Dh
-// rounded up to 16: Dh 24 runs in tiles 32 wide whose pad columns are
-// zeroed once and never copied or stored, as the fp32 kernel pads Dh 4).
-// K and V stream in tiles of 64 keys through a cp.async double buffer.
-// For a tile the warp computes S = (q scaled) K^T into fp32 accumulators
-// (K's B fragments by ldmatrix), masks keys past S, reduces the row max
-// across the quad and forms corr = exp(m_old - m_new), p = exp(s - m) (added
-// unrounded to the thread's fp32 denominator) and pd = keep p / (1 - rate)
-// rounded to bf16: the accumulators of two neighbouring n8 key tiles are
-// the A fragment of one k16 step of P V as they stand. V's B fragments come
-// by ldmatrix.trans. Each tile's P V is summed from zero and added to the
-// output rows by fmaf(out, corr, P V), in fp32, as in the fp32 kernel (a sum
-// kept in the tensor cores across tiles truncates). At the end the quad
-// adds its partial denominators in one order, and out = acc / l is rounded
-// to bf16 once. With STATS (training: a forward whose backward is to come)
-// the kernel also stores each query row's float32 (m, 1/l), the running max
-// after the last key tile and the inverse of its denominator, into a (B, H,
-// S, 2) buffer for the backward; out keeps its bits either way, and
-// serving, sampling and no_grad calls run it without.
-//
-// Rounding: the kernel rounds the unnormalised pd = exp(s - m) (m the
-// running max; times 1 / (1 - rate) where kept), where the JAX package
-// rounds the normalised p; either is within 2^-9 of its value, so the
-// output is within ~2^-8 |v|max of the plain version's (the bar is 2^-7
-// |v|max). The keep bits are the fp32 kernel's (philox.cuh), so the masks
-// agree. Sums run in a fixed order: two calls give the same bits.
-//
-// What bounds it on the H100: at the flagship's level 0 (B 64, S 256, Dh
-// 24, 4 heads) the two products are 2 x 2 x 64 x 4 x 256 x 256 x 24 = 1.6
-// GFLOP, ~1.6 us at the dense bf16 rate (989 TFLOP/s; 2.1 us as run, Dh
-// padded to 32), and the bytes (qkv in, out out: 12.6 MB) ~3.8 us: bytes.
-// At the 64-px level 0 (S 1024) the products are 25.8 GFLOP, ~26 us, the
-// bytes ~15 us; at the CLIs' C = 512 (B 16, S 256, Dh 128) 2.1 GFLOP, ~2 us,
-// and 16.8 MB, ~5 us. Dh 24 and 128 take tiles of 64 keys, with each warp's
-// q fragments in registers: shared memory 25 KB a block at Dh 24, 85 KB at
-// 128. Dh 256 (the widest head a wide-route GatedAttn takes) would hold
-// 128 output accumulators a thread, and ptxas spilled 228 bytes with
-// dropout: there a block has 8 warps, two to each 16 query rows, each of
-// the two computing the rows' scores and softmax alike (the product twice)
-// and P V for one half of the output columns, in tiles of 16 keys, its q
-// fragments read from shared memory at each k16 step: 66 KB. Every other
-// head width runs zero-padded to one of these three
-// (ops/kernels/fused_attention.py, `padded_head_dim`).
-template <int DH>
-struct MmaFwdBf16 {
-  static constexpr int kWidth = (DH + 15) / 16 * 16;  // a tile row's values
-  static constexpr int kLd = kWidth + kBf16Pad;
-  static constexpr int kColSplit = kWidth <= 128 ? 1 : 2;  // warps a row
-  static constexpr int kWarps = 4 * kColSplit;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRows = 64;  // queries a block
-  static constexpr int kKeys = kWidth <= 128 ? 64 : 16;  // keys a tile
-  static constexpr bool kQInRegisters = kWidth <= 128;
-  static constexpr size_t kBytes =
-      sizeof(bf16) * (kRows + 2 * 2 * kKeys) * kLd;
-};
-
 // The first `cols` values of `rows` rows of a bf16 tile (LD-value rows)
 // times q_scale, rounded to bf16 in place, by all `threads` threads.
 template <int LD>
@@ -557,193 +489,6 @@ __device__ __forceinline__ void scale_rows_bf16(bf16* tile, int rows,
   for (int e = threadIdx.x; e < rows * cols; e += threads) {
     bf16* x = tile + (e / cols) * LD + e % cols;
     *x = __float2bfloat16_rn(__bfloat162float(*x) * q_scale);
-  }
-}
-
-template <class Layout, bool DROPOUT, bool STATS>
-__global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
-    attention_bf16_fwd_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                              const bf16* __restrict__ q_in,
-                              const bf16* __restrict__ k_in,
-                              const bf16* __restrict__ v_in,
-                              bf16* __restrict__ out,
-                              float* __restrict__ stats, float q_scale,
-                              uint32_t threshold, float keep_scale) {
-  constexpr int DH = Layout::kHeadDim;
-  using T = MmaFwdBf16<DH>;
-  constexpr int W = T::kWidth;
-  constexpr int LD = T::kLd;
-  constexpr int KT = T::kKeys;
-  constexpr int NT = KT / 8;   // n8 key tiles of a tile
-  constexpr int NKS = W / 16;  // k16 steps over W
-  constexpr int ND = W / 8 / T::kColSplit;  // n8 tiles of the warp's out
-  extern __shared__ float4 mma_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(mma_smem);  // (kRows, LD)
-  bf16* kv_s = q_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tg = lane & 3;
-  const int gr = lane >> 2;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int seq_len = lay.seq_len;
-  const int i0 = blockIdx.x * T::kRows;
-  const int r0 = 16 * (warp % 4);  // the warp's rows in the block
-  const int c0 = (warp / 4) * 8 * ND;  // the warp's first output column
-  const bool active = i0 + r0 < seq_len;
-  const size_t row = lay.in_row();
-  const size_t head = lay.in_head(b, h);
-  const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
-  const int nk = (seq_len + KT - 1) / KT;
-
-  if constexpr (W != DH) {
-    zero_shared(reinterpret_cast<float*>(q_s), T::kBytes / sizeof(float));
-  }
-  load_rows_bf16<DH, T::kRows, LD>(q_s, q_in + head, i0, seq_len, row,
-                                   T::kThreads);
-  load_rows_bf16<DH, KT, LD>(kv_s, k_in + head, 0, seq_len, row, T::kThreads);
-  load_rows_bf16<DH, KT, LD>(kv_s + KT * LD, v_in + head, 0, seq_len, row,
-                             T::kThreads);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  // q * q_scale rounded to bf16 in place, then each warp's q fragments
-  scale_rows_bf16<LD>(q_s, T::kRows, DH, q_scale, T::kThreads);
-  __syncthreads();
-  constexpr int NQA = T::kQInRegisters ? NKS : 1;
-  uint32_t qa[NQA][4];
-  if constexpr (T::kQInRegisters) {
-#pragma unroll
-    for (int ks = 0; ks < NKS; ++ks) {
-      frag_a_bf16<LD>(qa[ks], q_s, r0, 16 * ks, lane);
-    }
-  }
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int dn = 0; dn < ND; ++dn) {
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  }
-  for (int t = 0; t < nk; ++t) {
-    if (t > 0) {
-      cp_async_wait_all();
-      __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    }
-    if (t + 1 < nk) {
-      bf16* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
-      load_rows_bf16<DH, KT, LD>(next, k_in + head, (t + 1) * KT, seq_len,
-                                 row, T::kThreads);
-      load_rows_bf16<DH, KT, LD>(next + KT * LD, v_in + head, (t + 1) * KT,
-                                 seq_len, row, T::kThreads);
-      cp_async_commit();
-    }
-    if (!active) continue;
-    const int j0 = t * KT;
-    const bf16* k_s = kv_s + (t & 1) * 2 * KT * LD;
-    const bf16* v_s = k_s + KT * LD;
-
-    // S = q K^T: the warp's 16 rows x the tile's KT keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < NKS; ++ks) {
-      if constexpr (!T::kQInRegisters) {
-        frag_a_bf16<LD>(qa[0], q_s, r0, 16 * ks, lane);
-      }
-      const uint32_t(&a)[4] = qa[T::kQInRegisters ? ks : 0];
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kb[4];
-        frag_b_bf16_pair<LD>(kb, k_s, 16 * np, 16 * ks, lane);
-        mma_bf16(s[2 * np], a, kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
-      }
-    }
-    // -inf past S; the row max over the quad, and corr
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (j0 + 8 * n + 2 * tg + (e & 1) >= seq_len) s[n][e] = -INFINITY;
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      corr[r] = expf(m[r] - mx);
-      l[r] *= corr[r];
-      m[r] = mx;
-    }
-    // p into the denominators, pd = keep p / (1 - rate) rounded: two n8
-    // tiles' accumulators make one k16 step's A fragment
-    uint32_t pa[NT / 2][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint32_t bits[4] = {0u, 0u, 0u, 0u};
-      if (DROPOUT) {
-        fragment_keep_words(bits, seed, b, h, i0 + r0, j0 + 8 * n, lane);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[n][e] = !DROPOUT ? p : bits[e] >= threshold ? p * keep_scale : 0.f;
-      }
-      pa[n >> 1][2 * (n & 1)] = pack_bf16(s[n][0], s[n][1]);
-      pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(s[n][2], s[n][3]);
-    }
-    // out = corr out + Pd V: each pair of out's n8 tiles summed from zero
-    // over the tile's keys, then added by one fmaf each
-#pragma unroll
-    for (int dp = 0; dp < ND / 2; ++dp) {
-      float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kp = 0; kp < NT / 2; ++kp) {
-        uint32_t vb[4];
-        frag_b_bf16_trans_pair<LD>(vb, v_s, 16 * kp, c0 + 16 * dp, lane);
-        mma_bf16(pv[0], pa[kp], vb[0], vb[1]);
-        mma_bf16(pv[1], pa[kp], vb[2], vb[3]);
-      }
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[2 * dp + x][e] = fmaf(acc[2 * dp + x][e], corr[e >> 1],
-                                    pv[x][e]);
-        }
-      }
-    }
-  }
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const float inv_l = 1.f / lt;
-    const int i = i0 + r0 + gr + 8 * r;
-    if (i >= seq_len) continue;
-    if (STATS && tg == 0 && c0 == 0) {
-      *reinterpret_cast<float2*>(
-          stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len + i) *
-                      2) = make_float2(m[r], inv_l);
-    }
-    bf16* dst = out + lay.out_head(b, h) + static_cast<size_t>(i) *
-                lay.out_row() + c0 + 2 * tg;
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn) {
-      if (c0 + 8 * dn >= DH) break;  // a pad column (Dh = 24)
-      *reinterpret_cast<uint32_t*>(dst + 8 * dn) = pack_bf16(
-          acc[dn][2 * r] * inv_l, acc[dn][2 * r + 1] * inv_l);
-    }
   }
 }
 
@@ -764,8 +509,9 @@ __global__ void __launch_bounds__(MmaFwdBf16<Layout::kHeadDim>::kThreads)
 //
 // Two kernels, after FlashAttention-2's backward kept deterministic. The
 // forward saved each query row's float32 (m, 1/l), its softmax's max and
-// inverse denominator (`attention_bf16_fwd_kernel` with STATS, a (B, H, S,
-// 2) buffer), so P = exp(s - m) / l needs no online rescale here.
+// inverse denominator (attention_wgmma.cuh's `attention_wgmma_fwd_kernel`
+// with STATS, a (B, H, S, 2) buffer), so P = exp(s - m) / l needs no online
+// rescale here.
 //
 // dq kernel: a block per (64 queries, head, batch row), a warp per 16 query
 // rows; the block's q rows (scaled and rounded in place) and g rows sit in
@@ -1791,35 +1537,6 @@ inline int attention_packed_fwd(const int* seed, const float* qkv, float* out,
                                    keep_scale,
                                    static_cast<cudaStream_t>(stream));
       }));
-}
-
-// The bf16 forward of one layout (Dh 24, 128 or 256): one launch; with
-// stats (not null) the kernel also stores each query row's float32 (m, 1/l)
-// there, (B, H, S, 2), for the backward. cp.async copies 16-byte chunks, so
-// q, k and v must start 16-byte aligned.
-template <class Layout>
-cudaError_t attention_tiled_fwd_bf16(Layout lay, int batch, const int* seed,
-                                     const bf16* q, const bf16* k,
-                                     const bf16* v, bf16* out, float* stats,
-                                     float q_scale, uint32_t threshold,
-                                     float keep_scale, cudaStream_t stream) {
-  using T = MmaFwdBf16<Layout::kHeadDim>;
-  for (const bf16* p : {q, k, v}) {
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
-      return cudaErrorMisalignedAddress;
-    }
-  }
-  const dim3 grid((lay.seq_len + T::kRows - 1) / T::kRows, lay.heads, batch);
-  const bool drop = threshold > 0;
-  auto* kernel =
-      stats != nullptr
-          ? (drop ? &attention_bf16_fwd_kernel<Layout, true, true>
-                  : &attention_bf16_fwd_kernel<Layout, false, true>)
-          : (drop ? &attention_bf16_fwd_kernel<Layout, true, false>
-                  : &attention_bf16_fwd_kernel<Layout, false, false>);
-  return launch_dynamic(kernel, grid, T::kThreads, T::kBytes, stream, lay,
-                        seed, q, k, v, out, stats, q_scale, threshold,
-                        keep_scale);
 }
 
 // The bf16 backward of one layout (Dh 24, 128 or 256): the dq and dK/dV

@@ -47,8 +47,11 @@
 // kernel, no atomics. Both read packed qkv and write packed dqkv
 // (B, S, 3C) directly, so no head split or merge copies. The forward and
 // the backward run at every width as the header's tensor-core kernels
-// (3xTF32 mma.sync, mma_tf32.cuh), the tiles in dynamic shared memory.
+// (3xTF32 mma.sync, mma_tf32.cuh), the tiles in dynamic shared memory. In
+// bf16 the forward is attention_wgmma.cuh's TMA + wgmma kernel and the
+// backward the header's bf16 mma.sync pair.
 #include "attention_tiled.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 constexpr int kMaxSeqLen = 2048;  // the wrappers' MAX_S_LONG
@@ -67,9 +70,10 @@ extern "C" int gpnf_attention_long_fwd(const int* seed, const float* qkv,
 }
 
 // The same in bf16 (qkv and out bf16), q * q_scale rounded to bf16:
-// attention_tiled.cuh's `attention_bf16_fwd_kernel`, at the head widths
-// built in bf16, 24, 128 and 256 (the wrappers' BF16_HEAD_DIMS, which pad
-// every other width to one of them); cudaErrorInvalidValue at any other.
+// attention_wgmma.cuh's `attention_wgmma_fwd_kernel` (TMA and wgmma), at
+// the head widths built in bf16, 24, 128 and 256 (the wrappers'
+// BF16_HEAD_DIMS, which pad every other width to one of them);
+// cudaErrorInvalidValue at any other.
 // With stats (a float32 (B, H, S, 2), or null) the kernel also stores each
 // query row's (m, 1/l), the residuals of the bf16 backward; out's bits are
 // the same either way.
@@ -85,10 +89,9 @@ extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
                                kMaxSeqLen, seed, threshold)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bf16* in = static_cast<const bf16*>(qkv);
   auto run = [&](auto lay) {
-    return gpnf::attention_tiled_fwd_bf16(
-        lay, batch, seed, in + 2 * channels, in, in + channels,
+    return gpnf::attention_wgmma_fwd(
+        lay, batch, seed, static_cast<const bf16*>(qkv),
         static_cast<bf16*>(out), stats, q_scale, threshold, keep_scale,
         static_cast<cudaStream_t>(stream));
   };

@@ -1,17 +1,21 @@
 // Hopper's own machinery for bf16 tensor-core kernels (sm_90a): mbarriers,
-// 2-D TMA loads and stores, the shared-memory matrix descriptors of
-// swizzled tiles, and warpgroup products (wgmma) with fp32 accumulators.
-// The projection GEMM (attention_gemm.cu, `gemm_wgmma_bf16_kernel`) is
-// built on it; so are the kernels meant to move to wgmma after it.
+// 2-D and 4-D TMA loads and 2-D stores, the shared-memory matrix
+// descriptors of swizzled tiles, and warpgroup products (wgmma) with fp32
+// accumulators, A from shared memory or from registers. The projection
+// GEMM (attention_gemm.cu, `gemm_wgmma_bf16_kernel`) and the attention
+// forward (attention_wgmma.cuh, `attention_wgmma_fwd_kernel`) are built on
+// it.
 //
 // Tiles. A TMA box lands in shared memory as dense rows, every 16-byte
 // chunk of a row moved by the swizzle: chunk c of byte offset o goes to
-// chunk c ^ ((o >> 7) & (W / 16 - 1)), W the swizzle's span (128 bytes for
-// the operands, CuTe's Swizzle<3,4,3>), on addresses aligned to 8 W bytes
-// (the pattern repeats every 8 rows of W bytes). A box's rows are at most
-// W bytes. wgmma reads an operand through a descriptor (start address,
-// LBO, SBO, swizzle; PTX ISA, "Matrix Descriptor Format") and the hardware
-// applies the same XOR to the addresses it forms:
+// chunk c ^ ((o >> 7) & (W / 16 - 1)), W the swizzle's span (128 bytes,
+// CuTe's Swizzle<3,4,3>, or 64 for the attention forward's rows of 32
+// values, Swizzle<2,4,3>), on addresses aligned to 8 W bytes (the pattern
+// repeats every 8 rows of W bytes). A box's rows are at most W bytes. wgmma
+// reads an operand through a descriptor (start address, LBO, SBO, swizzle;
+// PTX ISA, "Matrix Descriptor Format") and the hardware applies the same
+// XOR to the addresses it forms (below at W = 128; at 64, W for 128 and
+// atoms of 32 values):
 //   K-major (rows along m or n, k contiguous: 64 bf16 values of k a row):
 //   element (r, k) of a 64- or N-row operand at start + (r / 8) SBO
 //   + (r % 8) W + 2 k, SBO = 8 W = 1024. LBO is not read. The k16 step kk
@@ -31,10 +35,17 @@
 // adds a 64 x N by 16 product into 64 x N fp32 accumulators, N / 2 a
 // thread: warp w holds rows 16 w .. 16 w + 15; lane l, values 4 j .. 4 j + 3
 // rows 16 w + l / 4 (+ 8 for values 4 j + 2, 4 j + 3), columns 8 j + 2 (l % 4)
-// and the next (the m16n8 C fragment of each n8 block). Issued
+// and the next (the m16n8 C fragment of each n8 block). With A from
+// registers each warp holds its 16 rows as mma.m16n8k16's A fragment (4
+// registers of 2 bf16 values), so the accumulators of two neighbouring n8
+// blocks, rounded and packed in pairs, are one k16 step's A. Issued
 // asynchronously: `wgmma_fence` before a batch (the accumulators were
 // written since), `wgmma_commit` after it, `wgmma_wait<G>` for all but G
 // batches to finish before the registers or the shared memory are touched.
+// No other instruction may touch the accumulators of a product in flight
+// (ptxas then serialises every product of the kernel: the attention
+// forward settles each product's registers before its batch, and at N 32
+// sums P V from zero and adds it after the wait, for that reason).
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -122,6 +133,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 4-D map, at element coordinates (c0 innermost, .., c3).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
 // Shared memory at src to the box at (c0, c1) of `map`; elements past the
 // tensor's edge are not written. The writes of src by other threads must
 // be fenced (`fence_proxy_async`) and synchronised first.
@@ -187,7 +210,7 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr, uint32_t rank) {
 }
 
 // -- descriptors -----------------------------------------------------------------
-enum Swizzle : uint64_t { kSwizzle128 = 1 };
+enum Swizzle : uint64_t { kSwizzle128 = 1, kSwizzle64 = 2 };
 
 // The descriptor of an operand at shared address `addr` (bits 0-13: addr
 // >> 4; 16-29: LBO >> 4; 32-45: SBO >> 4; 49-51: base offset 0, every
@@ -220,6 +243,15 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R, int C>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
 }
 
 // D (64 x 96, fp32) += A (64 x 16) B (16 x 96), bf16 operands in shared
@@ -289,15 +321,138 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da,
 }
 
 
-// D += A B at the widths the kernels use: N = 96 or 128.
+// D (64 x 32, fp32) += A (64 x 16) B (16 x 32), bf16 operands in shared
+// memory read through their descriptors; TA / TB: A / B MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n32k16(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, fp32) += A (64 x 16) B (16 x 64), bf16 operands in shared
+// memory read through their descriptors; TA / TB: A / B MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n64k16(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 32, fp32) += A (64 x 16) B (16 x 32): A bf16 from registers (the
+// m16n8k16 A fragment of each warp's 16 rows, `a`), B in shared memory
+// read through its descriptor; TB: B MN-major.
+template <int TB>
+__device__ __forceinline__ void mma_rs_m64n32k16(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// D (64 x 128, fp32) += A (64 x 16) B (16 x 128): A bf16 from registers (the
+// m16n8k16 A fragment of each warp's 16 rows, `a`), B in shared memory
+// read through its descriptor; TB: B MN-major.
+template <int TB>
+__device__ __forceinline__ void mma_rs_m64n128k16(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+
+// D += A B at the widths the kernels use: N = 32, 64 (the attention
+// forward's scores), 96 or 128 (the GEMM's tiles).
 template <int N, int TA, int TB>
 __device__ __forceinline__ void mma_m64k16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int scale_d) {
-  static_assert(N == 96 || N == 128, "instantiated widths");
-  if constexpr (N == 96) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128,
+                "instantiated widths");
+  if constexpr (N == 32) {
+    mma_m64n32k16<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (N == 64) {
+    mma_m64n64k16<TA, TB>(d, da, db, scale_d);
+  } else if constexpr (N == 96) {
     mma_m64n96k16<TA, TB>(d, da, db, scale_d);
   } else {
     mma_m64n128k16<TA, TB>(d, da, db, scale_d);
+  }
+}
+
+// D += A B with A from registers at the widths the attention forward's
+// P V uses: N = 32 or 128 (a 256-wide output is two of 128).
+template <int N, int TB>
+__device__ __forceinline__ void mma_rs_m64k16(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 128, "instantiated widths");
+  if constexpr (N == 32) {
+    mma_rs_m64n32k16<TB>(d, a, db, scale_d);
+  } else {
+    mma_rs_m64n128k16<TB>(d, a, db, scale_d);
   }
 }
 
@@ -348,6 +503,30 @@ inline bool encode_tmap_2d(CUtensorMap* map, const void* base,
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a 4-D array at `base` (dims[0] innermost, contiguous; strides
+// in bytes of dims 1 .. 3, each a multiple of 16) read in boxes of
+// box[0 .. 3] elements, zero-filled past its edge in any dimension; false
+// where libcuda refuses it.
+inline bool encode_tmap_4d(CUtensorMap* map, const void* base,
+                           CUtensorMapDataType type, const long long dims[4],
+                           const long long strides[3], const int box[4],
+                           CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    if (i < 3) s[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  return fn(map, type, 4, const_cast<void*>(base), d, s, b, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

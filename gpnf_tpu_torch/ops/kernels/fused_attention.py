@@ -57,9 +57,9 @@ the proj and long entries, their forward and backward, take bf16 operands
 at every head width in HEAD_DIMS and run bf16 kernels: one GEMM for qkv,
 dseq and dW on TMA and wgmma (`attention_qkv_gemm_bf16`,
 `attention_dseq_gemm_bf16`, `attention_dw_gemm_bf16` count its launches;
-`gemm_bf16_plan` routes each call), and on bf16 mma.sync the tensor-core
-forward (`attention_fwd_bf16`) and the dq and dK/dV pair
-(`attention_bwd_bf16`), built at the widths BF16_HEAD_DIMS (the
+`gemm_bf16_plan` routes each call), the attention forward on TMA and
+wgmma too (`attention_fwd_bf16`), and on bf16 mma.sync the dq and dK/dV
+pair (`attention_bwd_bf16`), built at the widths BF16_HEAD_DIMS (the
 flagship's 24, the CLIs' --C 512's 128, and 256); every other width is
 zero-padded to the next of them (`padded_head_dim`), q scaled by the
 true width's constant. They round where the JAX package's bf16 kernels
@@ -531,7 +531,8 @@ def _validate_qkv(kernel, qkv, num_heads, rate, seed):
 def _aligned(*tensors):
     """The tensors as the key-tiled kernels take them: a CUDA tensor
     contiguous and starting on a 16-byte boundary (their cp.async copies
-    move 16-byte chunks), copied into a fresh tensor where it is not; any
+    move 16-byte chunks, and a tensor map's base is 16-byte aligned),
+    copied into a fresh tensor where it is not; any
     other tensor as it is, for `_cuda_args` to refuse."""
     out = []
     for t in tensors:

@@ -1,13 +1,15 @@
 """The layout and arithmetic of the bf16 kernels (the GEMM of
 gpnf_tpu_torch/csrc/attention_gemm.cu, which computes qkv, dseq and dW,
-and the attention forward, dq and dK/dV kernels of attention_tiled.cuh, on
-mma_bf16.cuh), checked on the CPU: the shared-memory banks of every
-ldmatrix fragment load at the padded row strides the kernels use, at
-every tile, layout and width, the constants against the sources, and the
-kernels' rounding points emulated in their tile order and held to the
-plain versions and the JAX package within the kernels' bars: the forward
-(q * scale rounded to bf16, the unnormalised P rounded to bf16, each key
-tile's P V summed in fp32, and the (m, 1/l) it keeps for the backward),
+the attention forward of attention_wgmma.cuh, on TMA and wgmma, and the dq
+and dK/dV kernels of attention_tiled.cuh, on mma_bf16.cuh), checked on the
+CPU: the shared-memory banks of every ldmatrix fragment load at the padded
+row strides the kernels use, at every tile, layout and width, the
+constants against the sources, and the kernels' rounding points emulated
+in their tile order and held to the plain versions and the JAX package
+within the kernels' bars: the forward (q * scale rounded to bf16, p and
+its correction as 2^(s log2e - m log2e), the unnormalised P rounded to
+bf16, each key tile's P V summed in fp32, and the (m, 1/l) it keeps for
+the backward),
 the backward (the dq kernel's D pass and dS pass over its key tiles from
 the forward's (m, 1/l), dS rounded for dq, the dK/dV kernel's query tiles
 with Pd and dS rounded, dq by either recipe; the keep-bit buffer the dq
@@ -37,6 +39,7 @@ fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
 CSRC = Path(fa.__file__).resolve().parents[2] / "csrc"
 GEMM = (CSRC / "attention_gemm.cu").read_text()
 TILED = (CSRC / "attention_tiled.cuh").read_text()
+WGFWD = (CSRC / "attention_wgmma.cuh").read_text()
 MMA = (CSRC / "mma_bf16.cuh").read_text()
 BF16 = torch.bfloat16
 
@@ -79,16 +82,32 @@ def tile_const(struct_name, name, width):
     return ternary(expr, width)
 
 
-FWD_ROWS = tile_const("MmaFwdBf16", "kRows", 32)  # 16 a warp's row group
-
-
 def fwd_width(dh):
     """The bf16 kernels' kWidth: Dh rounded up to a whole k16 step."""
     return -(-dh // 16) * 16
 
 
-def fwd_keys(dh):
-    return tile_const("MmaFwdBf16", "kKeys", fwd_width(dh))
+def wgfwd_const(name, width, dropout):
+    """A WgFwd<DH, DROPOUT> constant of attention_wgmma.cuh (the forward on
+    TMA + wgmma) at kWidth = width: `kWidth <= A && !DROPOUT ? X : Y`."""
+    body = WGFWD[WGFWD.index("struct WgFwd {"):]
+    expr = re.search(rf"static constexpr int {name} =\s*([^;]*);",
+                     body[:body.index("\n};")]).group(1)
+    m = re.fullmatch(r"kWidth <= (\d+) && !DROPOUT \? (\d+) : (\d+)",
+                     " ".join(expr.split()))
+    if m is None:
+        return int(expr)
+    return int(m.group(2)) if width <= int(m.group(1)) and not dropout \
+        else int(m.group(3))
+
+
+FWD_ROWS = int(re.search(r"static constexpr int kRows = (\d+);",
+                         WGFWD).group(1))  # a warpgroup's
+
+
+def fwd_keys(dh, dropout=False):
+    """The forward's key tile: 64 at W 32 and 128 without dropout, else 32."""
+    return wgfwd_const("kKeys", fwd_width(dh), dropout)
 
 
 def dq_keys(dh):
@@ -137,6 +156,7 @@ def frag_b_trans_pair(base, ld, k0, c0):
 
 def test_constants_match_the_sources():
     assert PAD == 8 and GEMM_KC % 16 == 0 and FWD_KEYS % 16 == 0
+    assert "struct MmaFwdBf16" not in TILED
     assert (GEMM_KC, FWD_KEYS, FWD_ROWS) == (32, 64, 64)
     assert GEMM_TILES == {"large": (128, 128, 64, 32, 3),
                           "small": (64, 64, 32, 32, 3)}
@@ -149,13 +169,10 @@ def test_constants_match_the_sources():
         assert cases == fa.BF16_HEAD_DIMS == (24, 128, 256), entry
     assert "gpnf_attention_gemm_bf16" in GEMM
     assert "m16n8k16.row.col.f32.bf16.bf16.f32" in MMA
-    # the tiles by width: keys of the forward and of dq, queries of dK/dV
-    assert [fwd_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 64, 16]
-    # Dh 256's forward: two warps to each row group, half the columns each
-    assert [tile_const("MmaFwdBf16", "kColSplit", fwd_width(d))
-            for d in fa.BF16_HEAD_DIMS] == [1, 1, 2]
-    assert "static constexpr int kWarps = 4 * kColSplit;" in struct(
-        "MmaFwdBf16")
+    # the tiles by width: keys of the forward (without and with dropout)
+    # and of dq, queries of dK/dV
+    assert [fwd_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 64, 32]
+    assert [fwd_keys(d, True) for d in fa.BF16_HEAD_DIMS] == [32, 32, 32]
     assert [dq_keys(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
     assert [dkv_queries(d) for d in fa.BF16_HEAD_DIMS] == [64, 32, 16]
     # dK/dV: a warp to 16 keys (two at W 256, half the columns each), 64
@@ -171,7 +188,7 @@ def test_constants_match_the_sources():
     assert fa.keep_bits_scratch(2, 4, 100, 0.2, "cpu").numel() == \
         2 * 4 * 128 * 128 // 32
     assert fa.keep_bits_scratch(2, 4, 100, 0.0, "cpu") is None
-    # the rounding points the emulations below model
+    # the rounding points the emulations below model: the backward's
     for line in ("x = __bfloat162float(__float2bfloat16_rn(x));",
                  "pack_bf16(x * dq_scale, y * dq_scale);",
                  "fmaf(expf(s[n][e] - m[e >> 1]), dp[n][e], dpart[e >> 1]);",
@@ -180,11 +197,34 @@ def test_constants_match_the_sources():
                  "pd = kept ? p * keep_scale : 0.f;",
                  "dx[n][e] = p * (dpv - (odd ? dd.y : dd.x));",
                  "scale_rows_bf16<LD>(q_t, QT, DH, q_scale, T::kThreads);",
-                 "d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *",
-                 "stats + ((static_cast<size_t>(b) * lay.heads + h) * seq_len"
-                 " + i) *",
-                 "2) = make_float2(m[r], inv_l);"):
+                 "d[x][e] = expf(s[2 * kp + x][e] - m[r]) * inv_l[r] *"):
         assert line in TILED, line
+    # the forward's: q * q_scale rounded once in shared memory, p and corr
+    # as one FFMA and one ex2 (q comes scaled), pd rounded for P V, each
+    # tile's P V from zero (W 32) or in place (wider), out = acc / l and
+    # the (m, 1/l) store
+    wgfwd = " ".join(WGFWD.split())
+    for line in ("w[e] = pack_bf16(f.x * q_scale, f.y * q_scale);",
+                 "ml[r] = mx * kLog2e;",
+                 "corr[r] = ex2_approx(fmaf(m[r], kLog2e, -ml[r]));",
+                 "l[r] *= corr[r];",
+                 "const float p = ex2_approx(fmaf(s[4 * n + e], kLog2e, "
+                 "-ml[e >> 1]));",
+                 "l[e >> 1] += p;",
+                 "s[4 * n + e] = !DROPOUT ? p : bits[e] >= threshold ? p * "
+                 "keep_scale : 0.f;",
+                 "asm(\"ex2.approx.ftz.f32 %0, %1;\" : \"=f\"(y) : \"f\"(x));",
+                 "constexpr float kLog2e = 1.4426950408889634f;",
+                 "acc[x][i] = fmaf(acc[x][i], (i >> 1) & 1 ? c1 : c0, "
+                 "pv[x][i]);",
+                 "acc[x][i] *= (i >> 1) & 1 ? c1 : c0;",
+                 "static constexpr bool kPvFromZero = kWidth == 32;",
+                 "const float inv_l = 1.f / lt;",
+                 "pack_bf16(a[4 * jj + 2 * r] * inv_l, a[4 * jj + 2 * r + 1] "
+                 "* inv_l);",
+                 "stats + ((static_cast<size_t>(b) * lay.heads + h) * "
+                 "seq_len + i) * 2) = make_float2(m[r], inv_l);"):
+        assert line in wgfwd, line
     # the unaligned route's 32-deep chunks summed apart; the wgmma kernel's
     # splits added in order within a cluster, then rounded once
     for line in ("for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];",
@@ -226,25 +266,6 @@ def gemm_loads(layout, tile):
                                  if trans_b else
                                  frag_b_trans_pair(b_base, ldb, kk,
                                                    wn + 16 * jp))
-    return loads
-
-
-def fwd_loads(dh):
-    """Every fragment load of attention_bf16_fwd_kernel at width dh:
-    each warp's q fragments, K's pairs of key tiles and V's transposed
-    pairs, in both stages of the K / V double buffer."""
-    w = fwd_width(dh)
-    ld = w + PAD
-    rows, keys = FWD_ROWS, fwd_keys(dh)
-    loads = [frag_a(0, ld, r0, 16 * ks)
-             for r0 in range(0, rows, 16) for ks in range(w // 16)]
-    for stage in range(2):
-        k_base = 2 * (rows + 2 * stage * keys) * ld
-        v_base = k_base + 2 * keys * ld
-        loads += [frag_b_pair(k_base, ld, 16 * np_, 16 * ks)
-                  for ks in range(w // 16) for np_ in range(keys // 16)]
-        loads += [frag_b_trans_pair(v_base, ld, 16 * kp, 16 * dp)
-                  for kp in range(keys // 16) for dp in range(w // 16)]
     return loads
 
 
@@ -294,18 +315,18 @@ def dkv_loads(dh):
 
 
 @pytest.mark.parametrize("kernel", [
-    "gemm", "fwd_24", "fwd_128", "fwd_256", "dq_24", "dq_128", "dq_256",
-    "dkv_24", "dkv_128", "dkv_256"])
+    "gemm", "dq_24", "dq_128", "dq_256", "dkv_24", "dkv_128", "dkv_256"])
 def test_fragment_loads_are_conflict_free(kernel):
     """Every ldmatrix of every kernel: the GEMM at each layout and tile,
-    the attention kernels at each width built in bf16."""
+    the backward's attention kernels at each width built in bf16 (the
+    forward reads its tiles by wgmma descriptors: tests/test_torch_wgmma.py
+    models them)."""
     if kernel == "gemm":
         loads = [x for layout in LAYOUTS for tile in GEMM_TILES
                  for x in gemm_loads(layout, tile)]
     else:
         name, dh = kernel.split("_")
-        loads = {"fwd": fwd_loads, "dq": dq_loads, "dkv": dkv_loads}[name](
-            int(dh))
+        loads = {"dq": dq_loads, "dkv": dkv_loads}[name](int(dh))
     assert loads and all(ldmatrix_conflicts(a) == 0 for a in loads)
 
 
@@ -397,18 +418,26 @@ def test_gemm_backward_products_emulated(b, s, c):
                  <= spread).all())
 
 
+def _fma32(a, b, c):
+    """fmaf on float32 tensors: the exact a b + c (float64 holds the
+    product of two float32 values) rounded once to float32."""
+    return (a.double() * b + c.double()).float()
+
+
 def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None, with_stats=False):
-    """attention_bf16_fwd_kernel's rounding points on the CPU, in its key
-    tiles: q * bf16(Dh^-1/2) rounded to bf16; per tile the float32 scores,
-    the running max m and corr = exp(m_old - m), p = exp(s - m) added
-    unrounded to the denominator, pd = keep p / (1 - rate) rounded to
-    bf16, the tile's pd V summed in float32 and added as out corr + pd V;
-    out / l rounded once. `with_stats`: also the (B, H, S, 2) (m, 1/l) the
-    kernel stores for the backward, its last running max and 1 / l."""
+    """attention_wgmma_fwd_kernel's rounding points on the CPU, in its key
+    tiles (`fwd_keys` at the rate): q * bf16(Dh^-1/2) rounded to bf16; per
+    tile the float32 scores, the running max m, ml = m log2e and corr =
+    2^fma(m_old, log2e, -ml), p = 2^fma(s, log2e, -ml) added unrounded to
+    the denominator, pd = keep p / (1 - rate) rounded to bf16, the tile's
+    pd V summed in float32 and added as out corr + pd V; out / l rounded
+    once. `with_stats`: also the (B, H, S, 2) (m, 1/l) the kernel stores
+    for the backward, its last running max and 1 / l."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // heads
-    keys = fwd_keys(dh)
+    keys = fwd_keys(dh, rate > 0.0)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
     k, v, q = fa._split_qkv(qkv, heads)  # q * scale rounded, as the kernel
     q, k, v = q.float(), k.float(), v.float()
     keep = (fa.dropout_keep_plain(seed, b, heads, s, rate) if rate > 0.0
@@ -419,15 +448,16 @@ def emulated_fwd_bf16(qkv, heads, rate=0.0, seed=None, with_stats=False):
     for j0 in range(0, s, keys):
         sc = q @ k[:, :, j0:j0 + keys].transpose(-1, -2)
         mx = torch.maximum(m, sc.amax(-1, keepdim=True))
-        corr = torch.exp(m - mx)
-        p = torch.exp(sc - mx)
+        ml = mx * log2e
+        corr = torch.exp2(_fma32(m, log2e, -ml))
+        p = torch.exp2(_fma32(sc, log2e, -ml))
         l = l * corr + p.sum(-1, keepdim=True)
         if keep is not None:
             p = torch.where(keep[..., j0:j0 + keys], p / (1.0 - rate), 0.0)
         pv = p.to(BF16).float() @ v[:, :, j0:j0 + keys]
         acc = acc * corr + pv
         m = mx
-    out = fa._merge_heads((acc / l).to(BF16))
+    out = fa._merge_heads((acc * (1.0 / l)).to(BF16))
     if with_stats:
         return out, torch.cat([m, 1.0 / l], dim=-1)
     return out

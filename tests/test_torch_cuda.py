@@ -1656,14 +1656,20 @@ def test_bf16_qkv_gemm_takes_unaligned_operands_on_card(cuda_device):
 @pytest.mark.parametrize("batch,s,c", [(64, 256, 96), (64, 64, 96),
                                        (64, 16, 96), (4, 1024, 96),
                                        (16, 256, 512), (3, 100, 96),
-                                       (2, 70, 512)])
+                                       (2, 70, 512), (4, 256, 1024),
+                                       (2, 40, 1024)])
 def test_bf16_forward_matches_plain_on_card(cuda_device, batch, s, c, rate):
-    """The bf16 tensor-core forward at Dh 24 (the flagship's levels, the
-    64-px level 0, a ragged S) and Dh 128 (the CLIs' C 512, a ragged S),
-    one seed for both (the same mask): within 2^-7 max|v| of
-    `attention_long_plain` (the kernel rounds the unnormalised P, the plain
-    version the normalised one, each within 2^-9), two calls bit for bit,
-    one launch counted on the entry and on the bf16 kernel."""
+    """The bf16 forward on TMA + wgmma at Dh 24 (the flagship's levels, the
+    64-px level 0, a ragged S), Dh 128 (the CLIs' C 512, a ragged S) and
+    Dh 256 (C 1024, a ragged S), one seed for both (the same mask): within
+    2^-7 max|v| of `attention_long_plain` (the kernel rounds the
+    unnormalised P, the plain version the normalised one, each within
+    2^-9), its (m, 1/l) within 1e-4 of `attention_stats_plain` (m
+    absolute, 1/l relative), two calls bit for bit, out the same bits with
+    and without the statistics' store, one device launch a call (a CUDA
+    graph), one launch counted on the entry and on the bf16 kernel."""
+    from gpnf_tpu_torch.utils.cuda_timing import graph_launches
+
     r = np.random.default_rng(32)
     qkv = _bf16(_normal(r, (batch, s, 3 * c))).to(cuda_device)
     seed = torch.tensor([9], dtype=torch.int32, device=cuda_device)
@@ -1675,13 +1681,22 @@ def test_bf16_forward_matches_plain_on_card(cuda_device, batch, s, c, rate):
     want = kernels.attention_long_plain(qkv, 4, rate, seed)
     bar = 2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= bar
+    out, stats = kernels.attention_long_qkv(qkv, 4, rate, seed,
+                                            with_stats=True)
+    assert torch.equal(out, got)
+    plain = fa.attention_stats_plain(qkv, 4)
+    assert float((stats[..., 0] - plain[..., 0]).abs().max()) <= 1e-4
+    assert float(((stats[..., 1] - plain[..., 1]) / plain[..., 1]).abs()
+                 .max()) <= 1e-4
+    assert graph_launches(
+        lambda: kernels.attention_long_qkv(qkv, 4, rate, seed)) == 1
 
 
 @pytest.mark.cuda
 def test_bf16_forward_takes_unaligned_operands_on_card(cuda_device):
     """A bf16 qkv that starts off a 16-byte boundary is copied aligned by
-    the wrapper before the kernel's cp.async loads: the aligned call's bits,
-    one launch counted."""
+    the wrapper before the kernel's TMA loads (a tensor map's base is
+    16-byte aligned): the aligned call's bits, one launch counted."""
     r = np.random.default_rng(36)
     qkv = _bf16(_normal(r, (2, 64, 288))).to(cuda_device)
     seed = torch.tensor([3], dtype=torch.int32, device=cuda_device)
@@ -1857,10 +1872,12 @@ def test_bf16_model_trains_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
-    """The bf16 GEMM's unaligned route (every tile and layout), the bf16
-    forward (with and without the statistics' store) and the dq and dK/dV
-    kernels (Dh 24, 128 and 256, with and without dropout) hold bf16 HMMA
-    instructions (HMMA.16816.F32.BF16) in their SASS."""
+    """The bf16 GEMM's unaligned route (every tile and layout) and the dq
+    and dK/dV kernels (Dh 24, 128 and 256, with and without dropout) hold
+    bf16 HMMA instructions (HMMA.16816.F32.BF16) in their SASS; the bf16
+    forward (Dh 24, 128 and 256, with and without dropout and the
+    statistics' store) bf16 warpgroup products (HGMMA ... BF16) and TMA
+    loads (UTMALDG)."""
     import os
     import shutil
 
@@ -1871,9 +1888,13 @@ def test_bf16_kernels_run_bf16_on_the_tensor_cores(cuda_device):
                           or "/usr/local/cuda/bin/cuobjdump"):
         pytest.skip("no cuobjdump in the CUDA toolkit: the SASS cannot be "
                     "read here")
+    _native.build(["fused_attention_long"])
+    fwd = {fn: row for fn, row in sass_counts(_native.library_path(
+        "fused_attention_long")).items() if "attention_wgmma_fwd_kernel" in fn}
+    assert len(fwd) == 12 and all(
+        any("BF16" in op for op in row["hgmma_ops"])
+        and row["tma_ops"].get("UTMALDG", 0) for row in fwd.values()), fwd
     for source, pattern, n in (("attention_gemm", "gemm_bf16_kernel", 6),
-                               ("fused_attention_long",
-                                "attention_bf16_fwd_kernel", 12),
                                ("fused_attention_long",
                                 "attention_bf16_dq_kernel", 6),
                                ("fused_attention_long",

@@ -1,5 +1,7 @@
-"""The bf16 projection GEMM on TMA and wgmma (attention_gemm.cu's
-`gemm_wgmma_bf16_kernel`, on csrc/wgmma_bf16.cuh), checked on the CPU.
+"""The bf16 kernels on TMA and wgmma (csrc/wgmma_bf16.cuh): the projection
+GEMM (attention_gemm.cu's `gemm_wgmma_bf16_kernel`) and the attention
+forward (attention_wgmma.cuh's `attention_wgmma_fwd_kernel`), checked on
+the CPU.
 
 - Layouts: a model of the TMA's 128- and 64-byte swizzles and of the wgmma
   descriptor's addressing (the canonical K-major and MN-major layouts of
@@ -18,7 +20,12 @@
   splits of a cluster added in split order, the clusters' sums in cluster
   order) emulated against `dw_plain` and the JAX `_bwd_kernel_proj`
   formula for dW.
-The kernel itself is held against the plain versions on the card by
+- The forward: its tiles at each width and rate against the source; q's,
+  K's (K-major) and V's (MN-major) boxes at every k16 step under the 64-
+  and 128-byte swizzles; the score accumulators repacked as P V's
+  register A fragments; each accumulator's Philox word; the rows a block,
+  the ring and the shared memory at the paths' shapes.
+The kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py."""
 import importlib
 import re
@@ -431,3 +438,342 @@ def test_split_dw_sum_against_jax(b, s, c):
     if splits > 1:
         assert not torch.equal(got, emulated_wgmma_gemm(d2.t(), s2, 1,
                                                         torch.float32))
+
+
+# -- the bf16 attention forward (attention_wgmma.cuh) ----------------------------
+# One 4-D tensor map over the packed qkv serves q, K and V in boxes of
+# kBoxCols values by kKeys rows; q (wgmma's A) and K (S's B) are read
+# K-major, V (P V's B) MN-major, and the scores' accumulators become P V's
+# register A fragments. Each width and rate has its own tiles (WgFwd).
+FWD = (CSRC / "attention_wgmma.cuh").read_text()
+FWD_FLAT = flat(FWD)
+FWD_WIDTHS = (24, 128, 256)  # the widths built in bf16 (BF16_HEAD_DIMS)
+# (B, S, C) of the forward on the paths: the flagship's 32-px levels and
+# 64-px level 0, the C 192 step (Dh 48, run 128 wide), the CLIs' C 512 at
+# the 32-px levels, C 1024 (Dh 256)
+FWD_PATH_SHAPES = [(64, 256, 96), (64, 64, 96), (64, 16, 96), (64, 1024, 96),
+                   (64, 64, 192), (16, 256, 512), (16, 64, 512),
+                   (16, 16, 512), (4, 256, 1024)]
+
+
+def c_value(expr, env):
+    """A C constant expression of the header (integers, comparisons, &&,
+    ||, !, ?:, arithmetic) evaluated in Python."""
+    expr = expr.strip()
+    depth = 0
+    for i, ch in enumerate(expr):
+        depth += (ch == "(") - (ch == ")")
+        if ch == "?" and depth == 0:
+            d, nest = 0, 0
+            for j in range(i + 1, len(expr)):
+                c = expr[j]
+                d += (c == "(") - (c == ")")
+                if d == 0 and c == "?":
+                    nest += 1
+                elif d == 0 and c == ":":
+                    if nest == 0:
+                        branch = expr[i + 1:j] if c_value(expr[:i], env) \
+                            else expr[j + 1:]
+                        return c_value(branch, env)
+                    nest -= 1
+    py = expr.replace("&&", " and ").replace("||", " or ")
+    py = re.sub(r"!(?!=)", " not ", py)
+    py = re.sub(r"(?<![/])/(?![/])", "//", py)
+    return eval(py, {}, env)
+
+
+def wg_fwd(dh, dropout):
+    """WgFwd<DH, DROPOUT>'s constants, evaluated from the header."""
+    body = FWD[FWD.index("struct WgFwd {"):]
+    body = body[:body.index("\n};")]
+    env = {"DH": dh, "DROPOUT": dropout}
+    for name, expr in re.findall(
+            r"static constexpr (?:int|bool) (\w+) =\s*([^;]*);", body):
+        env[name] = c_value(" ".join(expr.split()), env)
+    return env
+
+
+def fwd_consumers(t, batch, s, heads):
+    """`wgmma_fwd_consumers`: 2 warpgroups where S is above 64 and 128-row
+    blocks give half the SMs a block (and the width takes 2), else 1."""
+    blocks = -(-s // 128) * heads * batch
+    return 2 if t["kMaxConsumers"] > 1 and s > 64 and blocks >= 132 // 2 \
+        else 1
+
+
+def fwd_bytes(t, consumers, stages):
+    """WgFwd::bytes: the alignment slack, the warpgroups' q, the ring and
+    its full and empty barriers and q's."""
+    return 1024 + consumers * t["kQBytes"] + stages * t["kStageBytes"] + \
+        8 * (2 * t["kMaxStages"] + 1)
+
+
+def fwd_placed(t, operand):
+    """{(row, col): byte} where the TMA boxes put a tile: q's 64 rows (a
+    column box of 64 rows, loaded kKeys rows at a time, each row one
+    swizzle span), or K's or V's kKeys keys; col the head's value."""
+    span, cols = t["kSpan"], t["kBoxCols"]
+    rows = t["kRows"] if operand == "q" else t["kKeys"]
+    box = t["kQBoxBytes"] if operand == "q" else t["kBoxBytes"]
+    base = t["kTileBytes"] if operand == "v" else 0
+    return {(r, c): base + (c // cols) * box + swizzle(r * span + 2 * (c % cols),
+                                                     span)
+            for r in range(rows) for c in range(t["kWidth"])}
+
+
+def fwd_mismatches(t, operand, lbo_sbo_swap=False, span=None):
+    """Elements of the operand that the kernel's descriptors read elsewhere
+    than the TMA put them, over every k16 step: q and K K-major (step kk at
+    column 16 kk, in box 16 kk / kBoxCols, 2 (16 kk % kBoxCols) bytes in),
+    V MN-major (step kp 16 kp rows of keys in, each half of the output
+    columns NV halves apart)."""
+    span = span or t["kSpan"]
+    sbo = 8 * span
+    placed = fwd_placed(t, operand)
+    bad = []
+    if operand in ("q", "k"):
+        rows = t["kRows"] if operand == "q" else t["kKeys"]
+        box = t["kQBoxBytes"] if operand == "q" else t["kBoxBytes"]
+        for step in range(t["kWidth"] // 16):
+            col = 16 * step
+            start = (col // t["kBoxCols"]) * box + 2 * (col % t["kBoxCols"])
+            for j in range(rows):
+                for kk in range(16):
+                    if desc_read(start, 16, sbo, span, False, j, kk) != \
+                            placed[(j, col + kk)]:
+                        bad.append((step, j, kk))
+        return bad
+    nv = 1 if t["kWidth"] <= 128 else 2
+    lbo = t["kBoxBytes"]
+    if lbo_sbo_swap:
+        lbo, sbo = sbo, lbo
+    for half in range(nv):
+        for kp in range(t["kKeys"] // 16):
+            start = t["kTileBytes"] + half * (t["kBoxes"] // nv) * \
+                t["kBoxBytes"] + kp * 16 * t["kSpan"]
+            for n in range(t["kWidth"] // nv):
+                for kk in range(16):
+                    if desc_read(start, lbo, sbo, span, True, n, kk) != \
+                            placed[(16 * kp + kk, half * t["kWidth"] // nv
+                                    + n)]:
+                        bad.append((half, kp, n, kk))
+    return bad
+
+
+def test_forward_constants_match_the_source():
+    """The tiles each width and rate takes, the boxes and descriptors the
+    kernel is written with (the layout the tests below model), the tensor
+    map's box and swizzle, the 64-byte swizzle's descriptor code."""
+    got = {(dh, drop): tuple(wg_fwd(dh, drop)[k] for k in (
+        "kWidth", "kSpan", "kBoxCols", "kBoxes", "kKeys", "kMaxConsumers",
+        "kMinBlocks", "kPvFromZero"))
+        for dh in FWD_WIDTHS for drop in (False, True)}
+    assert got == {(24, False): (32, 64, 32, 1, 64, 2, 2, True),
+                   (24, True): (32, 64, 32, 1, 32, 1, 3, True),
+                   (128, False): (128, 128, 64, 2, 64, 2, 1, False),
+                   (128, True): (128, 128, 64, 2, 32, 2, 1, False),
+                   (256, False): (256, 128, 64, 4, 32, 1, 1, False),
+                   (256, True): (256, 128, 64, 4, 32, 1, 1, False)}
+    for line in (
+            "return wg::make_desc(q_tile + (col / T::kBoxCols) * "
+            "T::kQBoxBytes + 2 * (col % T::kBoxCols), 16, kSbo, kSwz);",
+            "return wg::make_desc(ring + st * T::kStageBytes + (col / "
+            "T::kBoxCols) * T::kBoxBytes + 2 * (col % T::kBoxCols), 16, "
+            "kSbo, kSwz);",
+            "return wg::make_desc(ring + st * T::kStageBytes + T::kTileBytes "
+            "+ half * (T::kBoxes / NV) * T::kBoxBytes + kp * 16 * T::kSpan, "
+            "T::kBoxBytes, kSbo, kSwz);",
+            "constexpr uint32_t kSbo = 8 * T::kSpan;",
+            "constexpr wg::Swizzle kSwz = T::kSpan == 128 ? wg::kSwizzle128 "
+            ": wg::kSwizzle64;",
+            "constexpr int NV = W <= 128 ? 1 : 2;",
+            "wg::tma_load_4d(base + g * T::kQBytes + c * T::kQBoxBytes + r * "
+            "T::kSpan, &tmap, c * T::kBoxCols, 2 * lay.heads + h, i0 + "
+            "T::kRows * g + r, b, qbar);",
+            "wg::tma_load_4d(k_dst + c * T::kBoxBytes, &tmap, c * "
+            "T::kBoxCols, h, t * KT, b, bar);",
+            "wg::tma_load_4d(k_dst + T::kTileBytes + c * T::kBoxBytes, &tmap, "
+            "c * T::kBoxCols, lay.heads + h, t * KT, b, bar);",
+            "const int box[4] = {T::kBoxCols, 1, T::kKeys, 1};",
+            "const long long dims[4] = {DH, 3LL * lay.heads, lay.seq_len, "
+            "batch};",
+            "const long long strides[3] = {DH * 2, row, row * lay.seq_len};",
+            "T::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : "
+            "CU_TENSOR_MAP_SWIZZLE_64B",
+            "const uint32_t base = (raw + 1023) & ~1023u;",
+            "wg::mma_m64k16<KT, 0, 0>(s, q_desc(kk), k_desc(st, kk), kk > 0);",
+            "wg::mma_rs_m64k16<W / NV, 1>(acc[x], pc[kp], v_desc(st, kp, x), "
+            "1);",
+            "wg::mma_rs_m64k16<W / NV, 1>(pv[x], pc[kp], v_desc(st, kp, x), "
+            "kp > 0);"):
+        assert line in FWD_FLAT, line
+    assert "kSwizzle128 = 1, kSwizzle64 = 2" in HEADER
+    for form in ("m64n32k16", "m64n64k16"):
+        assert f"wgmma.mma_async.sync.aligned.{form}.f32.bf16.bf16" in HEADER
+    # the register-A form: P V at N 32 and 128 (256 as two of 128)
+    assert HEADER.count("}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;") == 1
+    assert HEADER.count("}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;") == 1
+    # the head stride of the map: Dh 24's 48 bytes are a multiple of 16
+    assert all(dh * 2 % 16 == 0 for dh in FWD_WIDTHS)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dh", FWD_WIDTHS)
+def test_forward_descriptors_read_what_the_tma_wrote(dh, dropout, operand):
+    """For each width and rate, every element of the forward's q tile (S's
+    A), its K tile (S's B) and its V tile (P V's B) at every k16 step lands,
+    by the TMA box's swizzle (64 bytes at W 32, 128 above), at the byte the
+    descriptor reads for it; every box on its swizzle's period."""
+    t = wg_fwd(dh, dropout)
+    period = 8 * t["kSpan"]
+    assert t["kQBoxBytes"] % period == 0 and t["kBoxBytes"] % period == 0
+    assert fwd_mismatches(t, operand) == []
+
+
+@pytest.mark.parametrize("wrong", ["lbo_sbo_swapped", "swizzle_128"])
+def test_forward_wrong_descriptors_would_read_elsewhere(wrong):
+    """The forward's model is not vacuous: V's LBO and SBO swapped (W 128,
+    two boxes of output columns) or W 32's tiles read as 128-byte
+    swizzled."""
+    if wrong == "lbo_sbo_swapped":
+        assert fwd_mismatches(wg_fwd(128, False), "v", lbo_sbo_swap=True)
+    else:
+        for operand in ("q", "k", "v"):
+            assert fwd_mismatches(wg_fwd(24, False), operand, span=128)
+
+
+def wgmma_c(warp, lane, i):
+    """(row, column) of accumulator i of lane `lane` of warp `warp` of a
+    warpgroup: the m16n8 C fragment of each n8 block (wgmma_bf16.cuh)."""
+    j, e = divmod(i, 4)
+    return (16 * warp + lane // 4 + 8 * (e >> 1), 8 * j + 2 * (lane % 4)
+            + (e & 1))
+
+
+def rs_a(warp, lane, reg, half):
+    """(row, k) of bf16 `half` of A-fragment register `reg` of a k16 step
+    of wgmma's register-A form: a warp's 16 rows as mma.m16n8k16's A."""
+    gr, tg = lane // 4, lane % 4
+    return (16 * warp + gr + 8 * (reg & 1), 2 * tg + half + 8 * (reg >> 1))
+
+
+@pytest.mark.parametrize("keys", [32, 64])
+def test_score_accumulators_are_the_rs_a_fragments(keys):
+    """P's repack: pa[n / 2][2 (n % 2)] packs accumulators 4 n, 4 n + 1 and
+    pa[n / 2][2 (n % 2) + 1] 4 n + 2, 4 n + 3 of n8 key block n; each
+    packed value sits where P V's A fragment of k16 step n / 2 wants that
+    (row, key)."""
+    for line in ("pa[n >> 1][2 * (n & 1)] = pack_bf16(s[4 * n], s[4 * n + "
+                 "1]);",
+                 "pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(s[4 * n + 2], s[4 "
+                 "* n + 3]);"):
+        assert line in FWD_FLAT, line
+    for warp in range(4):
+        for lane in range(32):
+            for n in range(keys // 8):
+                for reg_off, (i0, i1) in enumerate(((4 * n, 4 * n + 1),
+                                                    (4 * n + 2, 4 * n + 3))):
+                    kp, reg = n >> 1, 2 * (n & 1) + reg_off
+                    for half, i in enumerate((i0, i1)):
+                        row, key = wgmma_c(warp, lane, i)
+                        a_row, a_k = rs_a(warp, lane, reg, half)
+                        assert (row, key) == (a_row, 16 * kp + a_k)
+
+
+def fragment_keep_words(seed, b, h, row0, j):
+    """attention_tiled.cuh's `fragment_keep_words` for the 32 lanes of a
+    warp: {lane: the four words of its m16n8 fragment of rows row0 ..,
+    keys j .. j + 7}, one Philox call a lane and two words traded with
+    lane ^ 1."""
+    calls = {}
+    for lane in range(32):
+        gr, tg = lane >> 2, lane & 3
+        odd = tg & 1
+        calls[lane] = [int(w) for w in fa.philox4x32_10(
+            j // 4 + (tg >> 1), row0 + gr + (8 if odd else 0), h, b, seed,
+            0)]
+    out = {}
+    for lane in range(32):
+        r, other = calls[lane], calls[lane ^ 1]
+        odd = lane & 1
+        own0, own1 = (r[2], r[3]) if odd else (r[0], r[1])
+        # the even lane sends its z and w, the odd one its x and y
+        got0, got1 = (other[2], other[3]) if odd else (other[0], other[1])
+        out[lane] = ([got0, got1, own0, own1] if odd
+                     else [own0, own1, got0, got1])
+    return out
+
+
+@pytest.mark.parametrize("group", [0, 1])
+def test_each_accumulator_draws_todays_keep_word(group):
+    """The keep bit of each score accumulator (warpgroup `group` of a block
+    at query row i0, warp w, n8 key block n of a tile at key j0) is the
+    word of Philox at its own (b, h, row, key): word key & 3 of the call at
+    counter (key >> 2, row, h, b), the word `dropout_keep_plain` and the
+    bf16 backward draw for that score; the kernel hands the warp's first
+    row and the block's first key to `fragment_keep_words`."""
+    for line in ("const int row0 = i0 + T::kRows * g + 16 * (warp & 3);",
+                 "fragment_keep_words(bits, seed, b, h, row0, j0 + 8 * n, "
+                 "lane);",
+                 "wgmma_fwd_softmax<false, DROPOUT>(s, pa, m, l, corr_next, "
+                 "t * KT, seq_len, seed, b, h, row0, lane, threshold, "
+                 "keep_scale);"):
+        assert line in FWD_FLAT, line
+    seed, b, h, i0, j0 = 987654321, 3, 2, 128, 64
+    for warp in range(4):
+        row0 = i0 + 64 * group + 16 * warp
+        for n in (0, 3, 7):
+            words = fragment_keep_words(seed, b, h, row0, j0 + 8 * n)
+            for lane in range(32):
+                for e in range(4):
+                    row, col = wgmma_c(warp, lane, 4 * n + e)
+                    row, key = i0 + 64 * group + row, j0 + col
+                    want = int(fa.philox4x32_10(key >> 2, row, h, b, seed,
+                                                0)[key & 3])
+                    assert words[lane][e] == want, (warp, n, lane, e)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("dh", FWD_WIDTHS)
+def test_forward_fit_and_rows_a_block(dh, dropout):
+    """At every path shape of the width: the rows a block (two warpgroups
+    at the S > 64 levels where 128-row blocks still fill half the card,
+    one at the 32-px levels 1 and 2, with dropout at W 32, and at W 256),
+    the ring (as many stages as key tiles, at most kMaxStages), and the
+    shared memory of the kMinBlocks blocks an SM is asked to hold within
+    the H100's 228 KB (227 KB a block, 1 KB each reserved)."""
+    assert flat("return most > 1 && seq_len > 64 && blocks >= 132 / 2 ? 2 "
+                ": 1;") in FWD_FLAT
+    assert flat("return 1024 + static_cast<size_t>(consumers) * kQBytes + "
+                "static_cast<size_t>(stages) * kStageBytes + 8 * (2 * "
+                "kMaxStages + 1);") in FWD_FLAT
+    t = wg_fwd(dh, dropout)
+    assert t["kThreads"] == 128 * t["kMaxConsumers"] + 32
+    for b, s, c in FWD_PATH_SHAPES:
+        width = fa.padded_head_dim(c // 4, fa.BF16_HEAD_DIMS)
+        if width != dh:
+            continue
+        consumers = fwd_consumers(t, b, s, 4)
+        want = 2 if (dh == 128 and s > 64) or (
+            dh == 24 and not dropout and s > 64) else 1
+        assert consumers == want, (b, s, c)
+        stages = min(-(-s // t["kKeys"]), t["kMaxStages"])
+        size = fwd_bytes(t, consumers, stages)
+        assert size <= 232448
+        assert t["kMinBlocks"] * (size + 1024) <= 228 * 1024, (b, s, c)
+
+
+def test_bench_counts_a_tiles_scores_as_the_source():
+    """bench_attention's per-score count of the forward's key loop divides
+    by the scores a thread holds of a key tile: kKeys / 2 for each
+    instantiation of attention_wgmma_fwd_kernel (a warpgroup's 64 rows by
+    kKeys keys over 128 threads)."""
+    from gpnf_tpu_torch import bench_attention
+
+    for dh in FWD_WIDTHS:
+        for drop in (0, 1):
+            name = (f"_ZN4gpnf26attention_wgmma_fwd_kernelINS_9PackedQkvILi"
+                    f"{dh}EEELb{drop}ELb0EEEv14CUtensorMap_st")
+            assert bench_attention.fwd_scores_a_tile(name) == \
+                wg_fwd(dh, bool(drop))["kKeys"] // 2
