@@ -75,7 +75,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      against their plain versions at the 64-px row's level 0 (batch 64,
      S = 1024) and a ragged (batch 4, S = 576), at dropout rate 0 and 0.2
      (rate 0.2 compared at batch 8: the plain mask at batch 64 needs ~10
-     GB), two backward calls bit for bit the same, S = 2049 refused; each
+     GB), two backward calls bit for bit the same, S = MAX_S_LONG + 1
+     (715,827,883, past the kernels' int indices) refused; each
      with its time, the plain version's, SDPA's (rate 0) and its bound
      (forward and backward on the tensor cores: at 3xTF32's rate, the
      fp32 rate's beside it);
@@ -130,8 +131,21 @@ Phases, each of which raises (exit code != 0) when it fails:
      rate
      0.2 and one seed the packed entry against the proj entry and, bit for
      bit, the long entry, and the q, k, v entry against the packed one;
-     then one drive through both entries' autograd (launches 1 of each).
-     Every earlier phase asserts that its path launches none of the four;
+     the four entries on bf16 operands at the same shapes (and the split
+     one at Dh 4, through its zero-padded copy, and 48), rate 0 and 0.2,
+     two calls bit for bit: the forwards within 2^-7 max |v|, the split
+     backward within one bf16 ulp of each gradient's largest with at most
+     5% of its values differing, the packed one within 2^-7 of each
+     third's largest, each with its time, the plain version's, SDPA's on
+     bf16 (rate 0) and its bound at the bf16 rate (the exponentials
+     within it); S 2304 (a 48 x 48 level 0, past the 2048 the long kernels
+     once stopped at): GatedAttn (C 96, batch 2, rate 0.2) forward and
+     backward in float32 and bf16 against the same module on the plain
+     versions, the bf16 forward at Dh 128 and 256, and the bf16 backward
+     at batch 64 (its 170 MB keep-bit scratch); then one drive through
+     both entries' autograd in float32 and in bf16 (launches 2 of each
+     entry, 1 of each bf16 kernel). Every earlier phase asserts that its
+     path launches none of the eight;
  18. GatedAttn at every width: the tensor-core forward and backward (Dh
      = 128 and 256, through the long entry's wrappers) against their plain
      versions at the CLIs' width C = 512 (batch 16, S = 256 / 64 / 16) and
@@ -311,10 +325,12 @@ FGC = ("fused_gated_conv", "fused_gated_conv_bwd")
 # on its entry's too
 FGC_BF16 = ("fused_gated_conv_bf16", "fused_gated_conv_bwd_bf16")
 NO_FGC = dict.fromkeys(FGC + FGC_BF16, 0)  # the default paths launch none
-# the core attention entries (phase 17): no path of the system runs them
+# the core attention entries (phase 17): no path of the system runs them;
+# their bf16 kernels' own counters (a bf16 call counts on its entry's too)
 CORE = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
         "fused_attention_qkv_bwd")
-NO_CORE = dict.fromkeys(CORE, 0)
+CORE_BF16 = tuple(name + "_bf16" for name in CORE)
+NO_CORE = dict.fromkeys(CORE + CORE_BF16, 0)
 # the Dh = 128 / 256 kernels (phase 18): no C = 96 path runs
 # them. The GEMMs (the projection and dseq / dW at S <= 512) run on the wide
 # route and in every proj call, whose stages are one launch each of
@@ -1495,13 +1511,14 @@ def check_long_kernels(device, timer, w, heads):
                            timer(lambda: fwd(qkv)), None, None, True)
                     record("fused_attention_long_bwd", batch, s, rate, None,
                            timer(lambda: bwd(qkv, g)), None, None, False)
-        too_long = torch.zeros((1, MAX_S_LONG + 1, 3 * c), device=device)
+        # past the kernels' int indices (on the meta device: checked first)
+        too_long = torch.zeros((1, MAX_S_LONG + 1, 3 * c), device="meta")
         try:
             kernels.attention_long_qkv(too_long, heads)
         except ValueError as e:
             log(f"  S = {too_long.shape[1]} refused: {e}")
         else:
-            raise AssertionError("the long attention took S > 2048")
+            raise AssertionError(f"the long attention took S > {MAX_S_LONG}")
     return results
 
 
@@ -2093,7 +2110,7 @@ def check_core_attention(device, timer):
     from gpnf_tpu_torch.ops import kernels
 
     counts = kernels.launch_counts()
-    if any(counts[n] for n in CORE):
+    if any(counts[n] for n in CORE + CORE_BF16):
         raise AssertionError(f"an earlier phase launched a core attention "
                              f"kernel: {counts}")
     gen = torch.Generator(device=device).manual_seed(9753)
@@ -2287,34 +2304,323 @@ def check_core_attention(device, timer):
                                          f"{label}")
             log(f"  {label} refused before the device: {message}")
 
+    t0 = time.perf_counter()
+    results.update(check_core_bf16(device, timer))
+    log(f"  the bf16 checks took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    results["beyond_2048"] = check_beyond_2048(device)
+    log(f"  the S 2304 checks took {time.perf_counter() - t0:.1f} s")
+
     # the drive: both public entries through autograd at the flagship's
-    # level 0, rate 0.2, the counts set to 0 just before
+    # level 0, rate 0.2, in float32 and in bf16, the counts set to 0 just
+    # before
     b, h, s, dh = CORE_SHAPES[0]
     q, k, v, g = (randn(*CORE_SHAPES[0]) * 0.5 for _ in range(4))
     qkv, g3 = randn(b, s, 3 * h * dh) * 0.5, randn(b, s, h * dh)
     seed = torch.tensor([31], dtype=torch.int32, device=device)
-    leaves = [t_.clone().requires_grad_() for t_ in (q, k, v, qkv)]
+    runs = [[t_.to(dtype).clone().requires_grad_() for t_ in (q, k, v, qkv)]
+            for dtype in (torch.float32, torch.bfloat16)]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    kernels.fused_attention(*leaves[:3], RATE, seed).backward(g)
-    kernels.fused_attention_qkv(leaves[3], h, RATE, seed).backward(g3)
+    for leaves in runs:
+        dtype = leaves[0].dtype
+        kernels.fused_attention(*leaves[:3], RATE, seed).backward(g.to(dtype))
+        kernels.fused_attention_qkv(leaves[3], h, RATE, seed).backward(
+            g3.to(dtype))
     torch.cuda.synchronize()
     drive = kernels.launch_counts()
-    want = {name: int(name in CORE) for name in drive}
+    want = {name: 2 * (name in CORE) + (name in CORE_BF16) for name in drive}
     log(f"  drive through fused_attention and fused_attention_qkv (autograd, "
-        f"B={b} H={h} S={s} Dh={dh}, rate {RATE}): launches {drive}")
+        f"B={b} H={h} S={s} Dh={dh}, rate {RATE}, float32 then bf16): "
+        f"launches {drive}")
     if drive != want:
         raise AssertionError(f"core attention drive launches {drive} != "
                              f"{want}")
     with torch.no_grad():
-        grads = (*kernels.fused_attention_bwd(q, k, v, g, RATE, seed),
-                 kernels.fused_attention_qkv_bwd(qkv, g3, h, RATE, seed))
-    if not all(torch.equal(leaf.grad, want_) and bool(
-            torch.isfinite(leaf.grad).all())
-            for leaf, want_ in zip(leaves, grads)):
-        raise AssertionError("the drive's gradients are not the backward "
-                             "kernels' or not finite")
+        for leaves in runs:
+            q_, k_, v_, qkv_ = (t_.detach() for t_ in leaves)
+            grads = (*kernels.fused_attention_bwd(q_, k_, v_,
+                                                  g.to(q_.dtype), RATE, seed),
+                     kernels.fused_attention_qkv_bwd(qkv_, g3.to(q_.dtype), h,
+                                                     RATE, seed))
+            if not all(torch.equal(leaf.grad, want_) and bool(
+                    torch.isfinite(leaf.grad).all())
+                    for leaf, want_ in zip(leaves, grads)):
+                raise AssertionError(f"the {q_.dtype} drive's gradients are "
+                                     f"not the backward kernels' or not "
+                                     f"finite")
     return results, drive
+
+
+def _core_bf16_bound(name, shape):
+    """(bound_ms, bound_by, the exponentials' ms) of a bf16 core entry at
+    (B, H, S, Dh): the bytes of its bf16 operands in and out at 3.35 TB/s,
+    against its products: the forward's two (q K^T, P V) and the packed
+    backward's five (Pd and dS rounded to bf16) at the dense bf16 rate;
+    the split backward's q K^T and g V^T at that rate and its three
+    products of a float32 intermediate (dV = Pd^T g, dq = dS K, dK = dS^T
+    q) at a third of it (a float32 value is three bf16 parts, 24 bits);
+    and the exponentials, one a score, at the special-function unit's
+    ~3.9e12 a second (PEAK_EXP), operations too, whose time is also
+    returned alone."""
+    b, h, s, dh = shape
+    core = 2 * b * h * s * s * dh
+    elems = b * h * s * dh
+    exp_ms = b * h * s * s / PEAK_EXP * 1e3
+    if name.endswith("_bwd_bf16"):
+        bytes_moved = 2 * 7 * elems
+        ops = 5 * core if "qkv" in name else 2 * core + 3 * 3 * core
+    else:
+        bytes_moved, ops = 2 * 4 * elems, 2 * core
+    bound_ms, bound_by = _bf16_bound(bytes_moved, ops)
+    if exp_ms > bound_ms:
+        bound_ms, bound_by = exp_ms, "operations"
+    return bound_ms, bound_by, exp_ms
+
+
+def check_core_bf16(device, timer):
+    """Phase 17 on bf16 operands: the four core entries against their plain
+    bf16 versions at CORE_SHAPES, rate 0 and 0.2 (one seed: the same mask):
+    the forwards within BF16_FWD_BAR max |v| (P rounded at another point,
+    as in phase 19); the split backward (`_bwd_kernel`'s recipe: 3xTF32's
+    float32 products on the widened values, rounded once) within one bf16
+    ulp of each gradient's largest |plain| with at most 5% of its values
+    differing (`bf16_top_ulp_readings`); the packed backward (the bf16
+    pair of phase 20) within BF16_BWD_BAR of each third's largest; two
+    calls of each bit for bit; each with its time, its plain version's,
+    SDPA's on bf16 at rate 0 (scale 1 on the split heads; SDPA's autograd
+    backward for the backwards) and its bound. Then the split entry at Dh
+    4 (its zero-padded copy, counted) and 48, S 256."""
+    from gpnf_tpu_torch.ops import kernels
+
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+    gen = torch.Generator(device=device).manual_seed(1717)
+    randn = lambda *shape: (torch.randn(shape, generator=gen, device=device)
+                            * 0.5).to(torch.bfloat16)
+    rows = {name: [] for name in CORE_BF16}
+
+    def sdpa_bwd_ms(q, k, v, g, scale):
+        q, k, v = (t_.clone().requires_grad_() for t_ in (q, k, v))
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                 retain_graph=True))
+
+    def held(name, got, want, v):
+        """(max abs err, the readings) of a result against its plain
+        version, and whether it holds its bar."""
+        if name in ("fused_attention_bf16", "fused_attention_qkv_bf16"):
+            err = float((got[0].float() - want[0].float()).abs().max())
+            bar = BF16_FWD_BAR * float(v.float().abs().max())
+            return err, {"bar": bar}, err <= bar
+        if name == "fused_attention_bwd_bf16":
+            readings = [fa.bf16_top_ulp_readings(a, b_)
+                        for a, b_ in zip(got, want)]
+            return (max(r[0] for r in readings),
+                    {"dq_dk_dv_err_ulp_share": [r[:3] for r in readings]},
+                    all(r[3] for r in readings))
+        c = got[0].shape[-1] // 3
+        errs = [float((got[0][..., i * c:(i + 1) * c].float()
+                       - want[0][..., i * c:(i + 1) * c].float()).abs().max()
+                      / want[0][..., i * c:(i + 1) * c].float().abs().max())
+                for i in range(3)]
+        return max(errs), {"rel_err_dk_dv_dq": errs}, max(errs) <= BF16_BWD_BAR
+
+    shapes = CORE_SHAPES + ((BATCH, 4, 256, 4), (BATCH, 4, 256, 48))
+    with torch.no_grad():
+        for shape in shapes:
+            b, h, s, dh = shape
+            q, k, v, g = (randn(*shape) for _ in range(4))
+            merge = lambda x: x.transpose(1, 2).reshape(b, s, h * dh)
+            qkv = torch.cat([merge(k), merge(v), merge(q)], dim=-1)
+            g3 = merge(g).contiguous()
+            kk, vv, qq = (t_.reshape(b, s, h, dh).transpose(1, 2).contiguous()
+                          for t_ in qkv.split(h * dh, dim=-1))
+            seed = torch.tensor([2025 + s + dh], dtype=torch.int32,
+                                device=device)
+            packed = shape in CORE_SHAPES
+            for rate in (0.0, RATE):
+                cases = [
+                    ("fused_attention_bf16",
+                     lambda: (kernels.fused_attention(q, k, v, rate, seed),),
+                     lambda: (kernels.attention_plain(q, k, v, rate, seed),),
+                     lambda: timer(lambda: F.scaled_dot_product_attention(
+                         q, k, v, scale=1.0)), v),
+                    ("fused_attention_bwd_bf16",
+                     lambda: kernels.fused_attention_bwd(q, k, v, g, rate,
+                                                         seed),
+                     lambda: kernels.attention_plain_bwd(q, k, v, g, rate,
+                                                         seed),
+                     lambda: sdpa_bwd_ms(q, k, v, g, 1.0), v)]
+                if packed:
+                    cases += [
+                        ("fused_attention_qkv_bf16",
+                         lambda: (kernels.fused_attention_qkv(qkv, h, rate,
+                                                              seed),),
+                         lambda: (kernels.attention_long_plain(qkv, h, rate,
+                                                               seed),),
+                         lambda: timer(lambda: F.scaled_dot_product_attention(
+                             qq, kk, vv)), vv),
+                        ("fused_attention_qkv_bwd_bf16",
+                         lambda: (kernels.fused_attention_qkv_bwd(
+                             qkv, g3, h, rate, seed),),
+                         lambda: (kernels.attention_long_plain_bwd(
+                             qkv, g3, h, rate, seed,
+                             scale_dq_in_fp32=True),),
+                         lambda: sdpa_bwd_ms(qq, kk, vv, g, None), vv)]
+                for name, run, plain, library, vals in cases:
+                    padded = kernels.core_bf16_padded.launches
+                    got = run()
+                    again = run()
+                    same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+                    err, extra, ok = held(name, got, plain(), vals)
+                    bound_ms, bound_by, exp_ms = _core_bf16_bound(name, shape)
+                    row = dict(shape=list(shape), rate=rate, max_abs_err=err,
+                               **extra, ms=timer(run), plain_ms=timer(plain),
+                               library_ms=library() if rate == 0.0 else None,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               exp_bound_ms=exp_ms,
+                               bound_peak="bf16 989 TFLOP/s",
+                               padded_copy=kernels.core_bf16_padded.launches
+                               > padded)
+                    rows[name].append(row)
+                    lib = row["library_ms"]
+                    log(f"  {name} {shape} rate {rate}: max abs err {err:.3g}"
+                        f" {extra}; two calls bit for bit: {same}"
+                        + ("; Dh 4 through a zero-padded copy"
+                           if row["padded_copy"] else "")
+                        + f" | kernel {row['ms']:.4f} ms plain "
+                        f"{row['plain_ms']:.4f} ms"
+                        + (f" SDPA (bf16) {lib:.4f} ms" if lib else "")
+                        + f" | bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+                        f"exponentials {exp_ms * 1e3:.2f} us)")
+                    if not (ok and same):
+                        raise AssertionError(f"{name} {shape} rate {rate}: "
+                                             f"within bar {ok}, repeat {same}"
+                                             f": {extra}")
+        mixed = torch.zeros((1, 4, 64, 24), device=device)
+        try:
+            kernels.fused_attention(mixed.to(torch.bfloat16), mixed, mixed)
+        except TypeError as e:
+            log(f"  mixed dtypes refused before the device: {e}")
+        else:
+            raise AssertionError("a core attention kernel took bf16 and "
+                                 "float32 operands together")
+    return rows
+
+
+def check_beyond_2048(device):
+    """S 2304 (a 48 x 48 level 0), past the 2048 the long kernels once
+    stopped at: GatedAttn (C 96, batch 2, training, rate 0.2, one seed)
+    forward and backward on the long entry's kernels against the same
+    module with the plain versions in their place (mixlogcdf's
+    `fused_attention_long` patched), in float32 (out within 1e-5, every
+    gradient within 1e-4 of its largest) and bf16 (out, dx and each
+    weight's gradient within `grad_parity`'s bar of the plain bf16
+    module's: 3 times its distance from the float32 module's); the bf16
+    forward at Dh 24 and at W 128 and 256 (C 96, 512 and 1024, batch 2,
+    rate 0 and 0.2; the wide tiles sum P V in the accumulators over 36 or
+    72 key tiles) against its plain version (BF16_FWD_BAR max |v|);
+    and the bf16 backward at batch 64, H 4 (its keep bits' scratch, B H
+    Sp^2 / 8 bytes, 170 MB), two calls bit for bit and its first two batch
+    rows against the plain version (BF16_BWD_BAR)."""
+    from gpnf_tpu_torch.ops import kernels, mixlogcdf
+
+    fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+    out = {}
+    gen = torch.Generator(device=device).manual_seed(2304)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    attn = mixlogcdf.GatedAttn(96, drop_prob=RATE).to(device).train()
+    x32, g32 = randn(2, 48, 48, 96), randn(2, 48, 48, 96) * 0.5
+    kernel_entry = mixlogcdf.fused_attention_long
+
+    def plain_entry(seq, w, heads, rate, seed):
+        return kernels.attention_long_plain(fa.qkv_plain(seq, w), heads,
+                                            rate, seed)
+
+    from gpnf_tpu_torch.utils import grad_parity
+
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for path, entry in (("kernels", kernel_entry), ("plain", plain_entry)):
+            mixlogcdf.fused_attention_long = entry
+            try:
+                attn.zero_grad()
+                leaf = x32.to(dtype).clone().requires_grad_()
+                kernels.reset_launch_counts()
+                y = attn(leaf, generator=torch.Generator(
+                    device=device).manual_seed(5))
+                y.backward(g32.to(dtype))
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+            finally:
+                mixlogcdf.fused_attention_long = kernel_entry
+            runs[dtype, path] = {
+                "out": y.detach().float(), "dx": leaf.grad.float(),
+                **{n: p_.grad.float() for n, p_ in attn.named_parameters()}}
+            if path == "kernels" and (
+                    counts["fused_attention_long"],
+                    counts["fused_attention_long_bwd"]) != (1, 1):
+                raise AssertionError(f"GatedAttn at S 2304 ran {counts}")
+    got, want = runs[torch.float32, "kernels"], runs[torch.float32, "plain"]
+    errs = {n: float((got[n] - b_).abs().max() / b_.abs().max())
+            for n, b_ in want.items()}
+    abs_out = float((got["out"] - want["out"]).abs().max())
+    out["float32"] = dict(out_max_abs_err=abs_out,
+                          rel_err_out_dx_weights=errs)
+    log(f"  GatedAttn C 96, 48 x 48 (S 2304), batch 2, rate {RATE}, float32: "
+        f"kernels vs plain max |out| err {abs_out:.3g}, max err / max |plain|"
+        f" {[f'{e:.3g}' for e in errs.values()]}")
+    if not (abs_out <= 1e-5 and max(v for n, v in errs.items()
+                                    if n != "out") <= 1e-4):
+        raise AssertionError(f"GatedAttn at S 2304 float32: {errs}")
+    got16 = runs[torch.bfloat16, "kernels"]
+    rows = grad_parity.bf16_grad_parity(got16, runs[torch.bfloat16, "plain"],
+                                        want)
+    out["bf16"] = dict(worst_ratio=rows[0][0], rows=[list(r) for r in rows])
+    log(f"  GatedAttn at S 2304 in bf16: out, dx and each weight's gradient "
+        f"against the plain bf16 module, within grad_parity's bar (3 x its "
+        f"distance from the float32 module): worst {rows[0][0]:.3g} "
+        f"({rows[0][1]})")
+    if rows[0][0] > 1.0 or not all(bool(torch.isfinite(a).all())
+                                   for a in got16.values()):
+        raise AssertionError(f"GatedAttn at S 2304 bf16: {rows[:3]}")
+    seed = torch.tensor([23], dtype=torch.int32, device=device)
+    out["bf16_forward"] = []
+    for c in (96, 512, 1024):
+        qkv = randn(2, 2304, 3 * c).to(torch.bfloat16)
+        for rate in (0.0, RATE):
+            got = kernels.attention_long_qkv(qkv, 4, rate, seed)
+            want = kernels.attention_long_plain(qkv, 4, rate, seed)
+            err = float((got.float() - want.float()).abs().max())
+            vmax = float(qkv[..., c:2 * c].float().abs().max())
+            out["bf16_forward"].append(dict(c=c, rate=rate, max_abs_err=err,
+                                            err_over_max_v=err / vmax))
+            log(f"  bf16 forward C {c} (Dh {c // 4}), S 2304, rate {rate}: "
+                f"max abs err {err:.3g} = {err / vmax:.3g} max |v| (bar "
+                f"{BF16_FWD_BAR:.3g})")
+            if err > BF16_FWD_BAR * vmax:
+                raise AssertionError(f"bf16 forward C {c} at S 2304: {err}")
+    qkv = (randn(64, 2304, 288) * 0.5).to(torch.bfloat16)
+    g3 = randn(64, 2304, 96).to(torch.bfloat16)
+    scratch = fa.keep_bits_scratch(64, 4, 2304, RATE, "meta").numel() * 4
+    dqkv = kernels.attention_long_qkv_bwd(qkv, g3, 4, RATE, seed)
+    same = torch.equal(dqkv, kernels.attention_long_qkv_bwd(qkv, g3, 4, RATE,
+                                                            seed))
+    want = kernels.attention_long_plain_bwd(qkv[:2], g3[:2], 4, RATE, seed)
+    errs = [float((dqkv[:2, :, i * 96:(i + 1) * 96].float()
+                   - want[..., i * 96:(i + 1) * 96].float()).abs().max()
+                  / want[..., i * 96:(i + 1) * 96].float().abs().max())
+            for i in range(3)]
+    out["bf16_backward_b64"] = dict(keep_scratch_bytes=scratch,
+                                    bit_for_bit=same, rel_err_dk_dv_dq=errs)
+    log(f"  bf16 backward B 64, H 4, S 2304, rate {RATE}: keep-bit scratch "
+        f"{scratch} bytes; two calls bit for bit: {same}; rows 0-1 vs plain "
+        f"max err / max |plain| dK dV dq {[f'{e:.3g}' for e in errs]}")
+    if not (same and bool(torch.isfinite(dqkv).all())
+            and max(errs) <= BF16_BWD_BAR):
+        raise AssertionError(f"bf16 backward at B 64, S 2304: {same} {errs}")
+    return out
 
 
 # -- phase 18: GatedAttn at every width, the CLIs' default --C 512 -----------------
@@ -4248,6 +4554,21 @@ def main():
                                 attention[1] + "230"),
         "fused_attention_qkv_bwd": ("gpnf_tpu_torch/csrc/fused_attention.cu",
                                     attention[1] + "257"),
+        # the same four on bf16 operands (phase 17): the split forward on
+        # TMA + wgmma, the split backward the 3xTF32 pair on widened bf16,
+        # the packed pair the long entry's bf16 kernels
+        "fused_attention_bf16": (
+            "gpnf_tpu_torch/csrc/fused_attention_bf16.cu",
+            attention[1] + "43"),
+        "fused_attention_bwd_bf16": (
+            "gpnf_tpu_torch/csrc/fused_attention_bf16.cu",
+            attention[1] + "62"),
+        "fused_attention_qkv_bf16": (
+            "gpnf_tpu_torch/csrc/fused_attention_bf16.cu",
+            attention[1] + "230"),
+        "fused_attention_qkv_bwd_bf16": (
+            "gpnf_tpu_torch/csrc/fused_attention_bf16.cu",
+            attention[1] + "257"),
         # on phase 18's path (C = 512, S <= 512) the Dh = 128 kernels and
         # the GEMMs do together what the TPU's proj kernels do at that width
         "attention_lanes": ("gpnf_tpu_torch/csrc/attention_tiled.cuh",
@@ -4476,6 +4797,60 @@ def main():
                              exp_bound_ms=top["exp_bound_ms"],
                              per_width=bf16_train_rows[
                                  "attention_fwd_bf16_widths"])
+        elif name in CORE_BF16:
+            # the 32-px level 0's shape at rate 0 on bf16: kernel, plain
+            # version, SDPA on bf16 and bound on the same inputs
+            rows = core_kernels[name]
+            top = [r for r in rows if (tuple(r["shape"]), r["rate"]) ==
+                   (CORE_SHAPES[0], 0.0)][0]
+            report = reports.get("fused_attention_bf16", "")
+            ptxas = {
+                "fused_attention_bf16": [
+                    r for r in ptxas_kernels(report,
+                                             "attention_wgmma_fwd_kernel")
+                    if "SplitHeadsTma" in r["kernel"]],
+                "fused_attention_bwd_bf16": [
+                    r for r in ptxas_kernels(report, "attention_mma_d")],
+                "fused_attention_qkv_bf16": [
+                    r for r in ptxas_kernels(report,
+                                             "attention_wgmma_fwd_kernel")
+                    if "PackedQkv" in r["kernel"]],
+                "fused_attention_qkv_bwd_bf16": ptxas_kernels(
+                    report, "attention_bf16_d")}[name]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                bound_peak=top["bound_peak"],
+                exp_bound_ms=top["exp_bound_ms"],
+                library_ms=top["library_ms"],
+                shape=f"(B, H, S, Dh) {CORE_SHAPES[0]}, bf16, rate 0; "
+                      f"library_ms SDPA on bf16" + (
+                          " (scale 1)" if "qkv" not in name else "") + (
+                          ", its autograd backward" if "bwd" in name
+                          else ""),
+                device_kernels={
+                    "fused_attention_bf16": [
+                        "attention_wgmma_fwd_kernel<SplitHeadsTma<W>>"],
+                    "fused_attention_bwd_bf16": [
+                        "attention_mma_dq_kernel<SplitHeads<D>, bf16>",
+                        "attention_mma_dkv_kernel<SplitHeads<D>, bf16>"],
+                    "fused_attention_qkv_bf16": [
+                        "attention_wgmma_fwd_kernel<PackedQkv<D>>"],
+                    "fused_attention_qkv_bwd_bf16": [
+                        "attention_bf16_dq_kernel",
+                        "attention_bf16_dkv_kernel"]
+                }[name],
+                headers=(["gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                          "gpnf_tpu_torch/csrc/mma_tf32.cuh"]
+                         if name == "fused_attention_bwd_bf16" else
+                         ["gpnf_tpu_torch/csrc/attention_tiled.cuh",
+                          "gpnf_tpu_torch/csrc/mma_bf16.cuh"]
+                         if "bwd" in name else
+                         ["gpnf_tpu_torch/csrc/attention_wgmma.cuh",
+                          "gpnf_tpu_torch/csrc/wgmma_bf16.cuh"])
+                + ["gpnf_tpu_torch/csrc/philox.cuh"],
+                ptxas=ptxas, per_case=rows)
         elif name in CORE:
             # the 32-px level 0's shape at rate 0: kernel, plain version,
             # SDPA and bound on the same inputs (every case in per_case)
@@ -4612,7 +4987,8 @@ def main():
                "fused_gated_conv": {"flagship": fgc, "imagenet64": fgc64,
                                     "c512": fgc512},
                "core_attention": {"drive_launches": core_drive,
-                                  "agreement": core_kernels["agreement"]},
+                                  "agreement": core_kernels["agreement"],
+                                  "beyond_2048": core_kernels["beyond_2048"]},
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],
                         "flagship_routes": flagship_routes},
                "bf16": bf16, "bf16_train": bf16_train,

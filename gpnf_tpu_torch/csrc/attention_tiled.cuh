@@ -50,6 +50,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "philox.cuh"
@@ -85,6 +87,98 @@ struct SplitHeads {
   __device__ size_t out_head(int b, int h) const { return in_head(b, h); }
   __device__ size_t out_row() const { return D; }
 };
+
+// -- operands of the tensor-core backward: float32, or bf16 widened ----------
+// The dq and dK/dV kernels below take float32 operands (every entry) or bf16
+// ones (`fused_attention_bwd` on bf16: `_bwd_kernel`'s recipe, every product
+// in float32 from the widened operands, only dq, dk and dv rounded). A bf16
+// tile stays bf16 in shared memory (cp.async moves 16-byte chunks, so Dh is a
+// multiple of 8: the wrapper pads Dh 4 to 8), in rows of `tile_ld` values, W
+// rounded down to 16 plus 8, an odd multiple of 8: a fragment read as A or
+// B^T touches words (LD / 2) gr + tg / 2 + const, LD / 2 an odd multiple of
+// 4, and one read as B words LD tg + gr / 2 + const, 16 distinct banks
+// either way, the two lanes of a word sharing it: no conflicts. A widened
+// value is its bf16 bits shifted up by 16, exact in TF32 (8 significant bits
+// of its 11), so its split has lo = 0, and a product drops the passes that
+// lo would feed: q K^T and g V^T (both operands widened) take one TF32 pass,
+// hi hi; dS K, Pd^T g and dS^T q (a float32 intermediate by a widened
+// operand) two, lo hi then hi hi, where float32 operands take three. The
+// sums are 3xTF32's, less terms that are zero.
+template <class In, int W>
+__host__ __device__ constexpr int tile_ld() {
+  return std::is_same<In, bf16>::value ? W / 16 * 16 + 8 : W + kTilePad;
+}
+
+struct FragAHi {
+  uint32_t hi[4];
+};
+struct FragBHi {
+  uint32_t hi[2];
+};
+
+__device__ __forceinline__ uint32_t widened(bf16 x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
+}
+
+// `tile_frag_a`, `tile_frag_bt` and `tile_frag_b` of mma_tf32.cuh on a bf16
+// tile: the same elements, widened.
+template <int W>
+__device__ __forceinline__ FragAHi tile_frag_a(const bf16* tile, int r,
+                                               int c) {
+  constexpr int LD = tile_ld<bf16, W>();
+  return {{widened(tile[r * LD + c]), widened(tile[(r + 8) * LD + c]),
+           widened(tile[r * LD + c + 4]),
+           widened(tile[(r + 8) * LD + c + 4])}};
+}
+
+template <int W>
+__device__ __forceinline__ FragBHi tile_frag_bt(const bf16* tile, int r,
+                                                int c) {
+  constexpr int LD = tile_ld<bf16, W>();
+  return {{widened(tile[r * LD + c]), widened(tile[r * LD + c + 4])}};
+}
+
+template <int W>
+__device__ __forceinline__ FragBHi tile_frag_b(const bf16* tile, int r,
+                                               int c) {
+  constexpr int LD = tile_ld<bf16, W>();
+  return {{widened(tile[r * LD + c]), widened(tile[(r + 1) * LD + c])}};
+}
+
+// d += a b in the TF32 passes the operands' splits need.
+__device__ __forceinline__ void mma_split(float (&d)[4], const FragA& a,
+                                          const FragB& b) {
+  mma_3xtf32(d, a, b);
+}
+
+__device__ __forceinline__ void mma_split(float (&d)[4], const FragA& a,
+                                          const FragBHi& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+__device__ __forceinline__ void mma_split(float (&d)[4], const FragAHi& a,
+                                          const FragBHi& b) {
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// `load_rows_async` into a bf16 tile of `tile_ld` rows.
+template <int W, int ROWS, int TW = W>
+__device__ __forceinline__ void load_rows_async(bf16* dst, const bf16* src,
+                                                int r0, int seq_len,
+                                                size_t stride, int threads) {
+  load_rows_bf16<W, ROWS, tile_ld<bf16, TW>()>(dst, src, r0, seq_len, stride,
+                                               threads);
+}
+
+// Two neighbouring outputs, float32 or rounded to bf16.
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store_pair(bf16* dst, float x, float y) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x, y);
+}
 
 // -- the tensor-core kernels ---------------------------------------------------
 // Every S x S x Dh product runs on the tensor cores in 3xTF32
@@ -160,27 +254,38 @@ struct SplitHeads {
 // every width runs these kernels.
 template <int DH>
 struct MmaDq {
-  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's floats
+  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's values
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;  // queries a block
   static constexpr int kKeys = DH <= 24 ? 64 : DH <= 64 ? 32 : 16;  // a tile
-  static constexpr size_t kBytes =
-      sizeof(float) * (2 * kRows + 2 * 2 * kKeys) * (kWidth + kTilePad);
+  // the shared memory of a block whose tiles hold operands of type In
+  template <class In>
+  __host__ __device__ static constexpr size_t bytes() {
+    return sizeof(In) * (2 * kRows + 2 * 2 * kKeys) * tile_ld<In, kWidth>();
+  }
 };
 
 template <int DH>
 struct MmaDkv {
-  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's floats
+  static constexpr int kWidth = DH < 8 ? 8 : DH;  // a tile row's values
   static constexpr int kPairs = 2;
   static constexpr int kThreads = 64 * kPairs;
   static constexpr int kKeys = 16 * kPairs;  // keys a block
   // queries a tile
   static constexpr int kQueries = DH <= 24 ? 64 : DH <= 128 ? 32 : 16;
   static constexpr int kPad = kQueries + 8;  // an exchange row, in floats
-  static constexpr size_t kBytes =
-      sizeof(float) * (2 * (kKeys + 2 * kQueries) * (kWidth + kTilePad) +
-                       2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
+  // K, V and the two stages of q and g, of operand type In; then the
+  // stages' stats and the pairs' float exchange tiles
+  template <class In>
+  __host__ __device__ static constexpr size_t tile_bytes() {
+    return sizeof(In) * 2 * (kKeys + 2 * kQueries) * tile_ld<In, kWidth>();
+  }
+  template <class In>
+  __host__ __device__ static constexpr size_t bytes() {
+    return tile_bytes<In>() +
+           sizeof(float) * (2 * 3 * kQueries + kPairs * 2 * 16 * kPad);
+  }
 };
 
 // Zero the `floats` floats of dynamic shared memory at smem, then sync: the
@@ -1049,15 +1154,16 @@ __global__ void __launch_bounds__(MmaDkvBf16<Layout::kHeadDim>::kThreads)
 }
 
 // Backward kernel 1 on the tensor cores: dq (times q_scale), and (m, 1/l, D)
-// of each query row into stats (B, H, S, 3).
-template <class Layout, bool DROPOUT>
+// of each query row into stats (B, H, S, 3); operands of type In, float32 or
+// bf16 (widened as they are read, dq rounded at the store).
+template <class Layout, class In, bool DROPOUT>
 __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     attention_mma_dq_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                            const float* __restrict__ q_in,
-                            const float* __restrict__ k_in,
-                            const float* __restrict__ v_in,
-                            const float* __restrict__ g,
-                            float* __restrict__ dq_out,
+                            const In* __restrict__ q_in,
+                            const In* __restrict__ k_in,
+                            const In* __restrict__ v_in,
+                            const In* __restrict__ g,
+                            In* __restrict__ dq_out,
                             float* __restrict__ stats, float q_scale,
                             uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
@@ -1066,11 +1172,11 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   constexpr int KT = T::kKeys;
   constexpr int NT = KT / 8;  // columns of 8 keys in a tile
   constexpr int NK = W / 8;   // k steps over W, and dq's columns of 8
-  constexpr int LD = W + kTilePad;
+  constexpr int LD = tile_ld<In, W>();
   extern __shared__ float4 mma_smem[];
-  float* q_s = reinterpret_cast<float*>(mma_smem);  // (kRows, LD), unscaled
-  float* g_s = q_s + T::kRows * LD;
-  float* kv_s = g_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
+  In* q_s = reinterpret_cast<In*>(mma_smem);  // (kRows, LD), unscaled
+  In* g_s = q_s + T::kRows * LD;
+  In* kv_s = g_s + T::kRows * LD;  // stage st: K, then V, at 2 st KT LD
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
@@ -1086,7 +1192,10 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
   const int nk = (seq_len + KT - 1) / KT;
 
-  if constexpr (W != DH) zero_shared(q_s, T::kBytes / sizeof(float));
+  if constexpr (W != DH) {
+    zero_shared(reinterpret_cast<float*>(mma_smem),
+                T::template bytes<In>() / sizeof(float));
+  }
   load_rows_async<DH, T::kRows, W>(q_s, q_in + head, i0, seq_len, row,
                                    T::kThreads);
   load_rows_async<DH, T::kRows, W>(g_s, g + lay.out_head(b, h), i0, seq_len,
@@ -1109,7 +1218,7 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
     if (t + 1 < 2 * nk) {
       const int jn = ((t + 1) % nk) * KT;
-      float* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
+      In* next = kv_s + ((t + 1) & 1) * 2 * KT * LD;
       load_rows_async<DH, KT, W>(next, k_in + head, jn, seq_len, row,
                                  T::kThreads);
       load_rows_async<DH, KT, W>(next + KT * LD, v_in + head, jn, seq_len,
@@ -1118,8 +1227,8 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
     }
     if (!active) continue;
     const int j0 = (t % nk) * KT;
-    const float* k_s = kv_s + (t & 1) * 2 * KT * LD;
-    const float* v_s = k_s + KT * LD;
+    const In* k_s = kv_s + (t & 1) * 2 * KT * LD;
+    const In* v_s = k_s + KT * LD;
 
     // S = q K^T and dPd = g V^T: the warp's 16 rows x the tile's KT keys
     float s[NT][4], dp[NT][4];
@@ -1131,12 +1240,12 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
 #pragma unroll 8
     for (int ks = 0; ks < NK; ++ks) {
       const int c = 8 * ks + tg;
-      const FragA qa = tile_frag_a<W>(q_s, r0 + gr, c);
-      const FragA ga = tile_frag_a<W>(g_s, r0 + gr, c);
+      const auto qa = tile_frag_a<W>(q_s, r0 + gr, c);
+      const auto ga = tile_frag_a<W>(g_s, r0 + gr, c);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        mma_3xtf32(s[n], qa, tile_frag_bt<W>(k_s, 8 * n + gr, c));
-        mma_3xtf32(dp[n], ga, tile_frag_bt<W>(v_s, 8 * n + gr, c));
+        mma_split(s[n], qa, tile_frag_bt<W>(k_s, 8 * n + gr, c));
+        mma_split(dp[n], ga, tile_frag_bt<W>(v_s, 8 * n + gr, c));
       }
     }
     // scaled scores (-inf past S) and dP = keep * dPd / (1 - rate)
@@ -1208,8 +1317,8 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
       const FragA da = frag_a_from_c(s[n]);
 #pragma unroll
       for (int dn = 0; dn < NK; ++dn) {
-        mma_3xtf32(dq[dn], da,
-                   tile_frag_b<W>(k_s, 8 * n + 2 * tg, 8 * dn + gr));
+        mma_split(dq[dn], da,
+                  tile_frag_b<W>(k_s, 8 * n + 2 * tg, 8 * dn + gr));
       }
     }
   }
@@ -1218,12 +1327,12 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   for (int r = 0; r < 2; ++r) {
     const int i = i0 + r0 + gr + 8 * r;
     if (i >= seq_len) continue;
-    float* dst = dq_out + head + static_cast<size_t>(i) * row + 2 * tg;
+    In* dst = dq_out + head + static_cast<size_t>(i) * row + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < NK; ++dn) {
       if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
-      *reinterpret_cast<float2*>(dst + 8 * dn) =
-          make_float2(dq[dn][2 * r] * q_scale, dq[dn][2 * r + 1] * q_scale);
+      store_pair(dst + 8 * dn, dq[dn][2 * r] * q_scale,
+                 dq[dn][2 * r + 1] * q_scale);
     }
     if (tg == 0) {
       float* st =
@@ -1235,17 +1344,19 @@ __global__ void __launch_bounds__(MmaDq<Layout::kHeadDim>::kThreads)
   }
 }
 
-// Backward kernel 2 on the tensor cores: dK and dV.
-template <class Layout, bool DROPOUT>
+// Backward kernel 2 on the tensor cores: dK and dV; operands of type In,
+// float32 or bf16 (widened as they are read, dK and dV rounded at the
+// store).
+template <class Layout, class In, bool DROPOUT>
 __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
     attention_mma_dkv_kernel(Layout lay, const int* __restrict__ seed_ptr,
-                             const float* __restrict__ q_in,
-                             const float* __restrict__ k_in,
-                             const float* __restrict__ v_in,
-                             const float* __restrict__ g,
+                             const In* __restrict__ q_in,
+                             const In* __restrict__ k_in,
+                             const In* __restrict__ v_in,
+                             const In* __restrict__ g,
                              const float* __restrict__ stats,
-                             float* __restrict__ dk_out,
-                             float* __restrict__ dv_out, float q_scale,
+                             In* __restrict__ dk_out,
+                             In* __restrict__ dv_out, float q_scale,
                              uint32_t threshold, float keep_scale) {
   constexpr int DH = Layout::kHeadDim;
   using T = MmaDkv<DH>;
@@ -1253,13 +1364,15 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
   constexpr int QT = T::kQueries;
   constexpr int NQ = QT / 8;  // columns of 8 queries in a tile
   constexpr int NK = W / 8;   // k steps over W, and dK's columns of 8
-  constexpr int LD = W + kTilePad;
+  constexpr int LD = tile_ld<In, W>();
   constexpr int XP = T::kPad;
   extern __shared__ float4 mma_smem[];
-  float* k_s = reinterpret_cast<float*>(mma_smem);  // (kKeys, LD)
-  float* v_s = k_s + T::kKeys * LD;
-  float* qg_s = v_s + T::kKeys * LD;  // stage st: q (unscaled), g at 2 st QT LD
-  float* st_s = qg_s + 2 * 2 * QT * LD;  // stage st: (m, 1/l, D) at 3 st QT
+  In* k_s = reinterpret_cast<In*>(mma_smem);  // (kKeys, LD)
+  In* v_s = k_s + T::kKeys * LD;
+  In* qg_s = v_s + T::kKeys * LD;  // stage st: q (unscaled), g at 2 st QT LD
+  // stage st: (m, 1/l, D) at 3 st QT, after the tiles
+  float* st_s = reinterpret_cast<float*>(reinterpret_cast<char*>(mma_smem) +
+                                         T::template tile_bytes<In>());
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2;
@@ -1276,7 +1389,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
   const bool active = k0 < seq_len;
   const size_t row = lay.in_row();
   const size_t head = lay.in_head(b, h);
-  const float* g_head = g + lay.out_head(b, h);
+  const In* g_head = g + lay.out_head(b, h);
   const float* st_head =
       stats + (static_cast<size_t>(b) * lay.heads + h) * seq_len * 3;
   const uint32_t seed = DROPOUT ? static_cast<uint32_t>(*seed_ptr) : 0u;
@@ -1284,13 +1397,16 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
   const int n_st = 3 * seq_len;
 
   const int kb0 = blockIdx.x * T::kKeys;
-  if constexpr (W != DH) zero_shared(k_s, T::kBytes / sizeof(float));
+  if constexpr (W != DH) {
+    zero_shared(reinterpret_cast<float*>(mma_smem),
+                T::template bytes<In>() / sizeof(float));
+  }
   load_rows_async<DH, T::kKeys, W>(k_s, k_in + head, kb0, seq_len, row,
                                    T::kThreads);
   load_rows_async<DH, T::kKeys, W>(v_s, v_in + head, kb0, seq_len, row,
                                    T::kThreads);
   auto load_tile_async = [&](int i0, int stage) {
-    float* q_t = qg_s + stage * 2 * QT * LD;
+    In* q_t = qg_s + stage * 2 * QT * LD;
     load_rows_async<DH, QT, W>(q_t, q_in + head, i0, seq_len, row,
                                T::kThreads);
     load_rows_async<DH, QT, W>(q_t + QT * LD, g_head, i0, seq_len,
@@ -1309,7 +1425,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
   for (int dn = 0; dn < NK; ++dn) {
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   }
-  const float* a_s = role ? v_s : k_s;  // the rows of the first product's A
+  const In* a_s = role ? v_s : k_s;  // the rows of the first product's A
   float* x_own = role ? xd : xs;
   for (int t = 0; t < nq; ++t) {
     cp_async_wait_all();
@@ -1317,15 +1433,15 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
     if (t + 1 < nq) load_tile_async((t + 1) * QT, (t + 1) & 1);
     if (!active) continue;
     const int i0 = t * QT;
-    const float* q_t = qg_s + (t & 1) * 2 * QT * LD;
-    const float* g_t = q_t + QT * LD;
+    const In* q_t = qg_s + (t & 1) * 2 * QT * LD;
+    const In* g_t = q_t + QT * LD;
     const float* st = st_s + (t & 1) * 3 * QT;
 
     // S^T = K q^T (even warp) or dPd^T = V g^T (odd): 16 keys x QT queries,
     // even and odd k steps in separate accumulators for more products in
     // flight (an odd NK's last step alone)
     {
-      const float* b_s = role ? g_t : q_t;
+      const In* b_s = role ? g_t : q_t;
       float x[2][NQ][4];
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
@@ -1341,10 +1457,10 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
         for (int p = 0; p < 2; ++p) {
           if (ks + p >= NK) break;
           const int c = 8 * (ks + p) + tg;
-          const FragA fa = tile_frag_a<W>(a_s, kr0 + gr, c);
+          const auto fa = tile_frag_a<W>(a_s, kr0 + gr, c);
 #pragma unroll
           for (int n = 0; n < NQ; ++n) {
-            mma_3xtf32(x[p][n], fa, tile_frag_bt<W>(b_s, 8 * n + gr, c));
+            mma_split(x[p][n], fa, tile_frag_bt<W>(b_s, 8 * n + gr, c));
           }
         }
       }
@@ -1383,7 +1499,7 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
     }
     pair_sync<T::kPairs>(pair);
     // dV += Pd^T g (even warp) or dK += dS^T q (odd), 8 queries a k step
-    const float* b2 = role ? q_t : g_t;
+    const In* b2 = role ? q_t : g_t;
 #pragma unroll
     for (int kk = 0; kk < NQ; ++kk) {
       const float2 top =
@@ -1393,24 +1509,24 @@ __global__ void __launch_bounds__(MmaDkv<Layout::kHeadDim>::kThreads)
       const FragA fa = frag_a(top.x, bot.x, top.y, bot.y);
 #pragma unroll
       for (int dn = 0; dn < NK; ++dn) {
-        mma_3xtf32(acc[dn], fa,
-                   tile_frag_b<W>(b2, 8 * kk + 2 * tg, 8 * dn + gr));
+        mma_split(acc[dn], fa,
+                  tile_frag_b<W>(b2, 8 * kk + 2 * tg, 8 * dn + gr));
       }
     }
   }
   if (!active) return;
-  float* out = role ? dk_out : dv_out;
+  In* out = role ? dk_out : dv_out;
   const float scale = role ? q_scale : 1.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int j = k0 + gr + 8 * r;
     if (j >= seq_len) continue;
-    float* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
+    In* dst = out + head + static_cast<size_t>(j) * row + 2 * tg;
 #pragma unroll
     for (int dn = 0; dn < NK; ++dn) {
       if (8 * dn + 2 * tg >= DH) break;  // a pad column (Dh = 4)
-      *reinterpret_cast<float2*>(dst + 8 * dn) =
-          make_float2(acc[dn][2 * r] * scale, acc[dn][2 * r + 1] * scale);
+      store_pair(dst + 8 * dn, acc[dn][2 * r] * scale,
+                 acc[dn][2 * r + 1] * scale);
     }
   }
 }
@@ -1452,50 +1568,55 @@ cudaError_t attention_tiled_fwd(Layout lay, int batch, const int* seed,
 }
 
 // The backward of one layout, at every width: the tensor-core dq and dK/dV
-// kernels, two launches. cp.async copies 16-byte chunks, so every operand
+// kernels, two launches, on operands of type In (float32, or bf16 at a width
+// that is a multiple of 8). cp.async copies 16-byte chunks, so every operand
 // must start 16-byte aligned (the wrappers' fresh tensors do; a view at an
 // odd offset is refused, with no launch).
-template <class Layout>
+template <class Layout, class In>
 cudaError_t attention_tiled_bwd(Layout lay, int batch, const int* seed,
-                                const float* q, const float* k,
-                                const float* v, const float* g, float* dq,
-                                float* dk, float* dv, float* stats,
-                                float q_scale, uint32_t threshold,
-                                float keep_scale, cudaStream_t stream) {
+                                const In* q, const In* k, const In* v,
+                                const In* g, In* dq, In* dk, In* dv,
+                                float* stats, float q_scale,
+                                uint32_t threshold, float keep_scale,
+                                cudaStream_t stream) {
   constexpr int DH = Layout::kHeadDim;
   using Q = MmaDq<DH>;
   using KV = MmaDkv<DH>;
-  for (const float* p : {q, k, v, g}) {
+  for (const In* p : {q, k, v, g}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
       return cudaErrorMisalignedAddress;
     }
   }
   const dim3 dq_grid((lay.seq_len + Q::kRows - 1) / Q::kRows, lay.heads,
                      batch);
-  auto* dq_kernel = threshold > 0 ? &attention_mma_dq_kernel<Layout, true>
-                                  : &attention_mma_dq_kernel<Layout, false>;
-  cudaError_t err =
-      launch_dynamic(dq_kernel, dq_grid, Q::kThreads, Q::kBytes, stream, lay,
-                     seed, q, k, v, g, dq, stats, q_scale, threshold,
-                     keep_scale);
+  auto* dq_kernel = threshold > 0
+                        ? &attention_mma_dq_kernel<Layout, In, true>
+                        : &attention_mma_dq_kernel<Layout, In, false>;
+  cudaError_t err = launch_dynamic(
+      dq_kernel, dq_grid, Q::kThreads, Q::template bytes<In>(), stream, lay,
+      seed, q, k, v, g, dq, stats, q_scale, threshold, keep_scale);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid((lay.seq_len + KV::kKeys - 1) / KV::kKeys, lay.heads,
                      batch);
-  auto* dkv_kernel = threshold > 0 ? &attention_mma_dkv_kernel<Layout, true>
-                                   : &attention_mma_dkv_kernel<Layout, false>;
-  return launch_dynamic(dkv_kernel, kv_grid, KV::kThreads, KV::kBytes, stream,
-                        lay, seed, q, k, v, g,
-                        static_cast<const float*>(stats), dk, dv, q_scale,
+  auto* dkv_kernel = threshold > 0
+                         ? &attention_mma_dkv_kernel<Layout, In, true>
+                         : &attention_mma_dkv_kernel<Layout, In, false>;
+  return launch_dynamic(dkv_kernel, kv_grid, KV::kThreads,
+                        KV::template bytes<In>(), stream, lay, seed, q, k, v,
+                        g, static_cast<const float*>(stats), dk, dv, q_scale,
                         threshold, keep_scale);
 }
 
 // fn(Layout<D>{seq_len, heads}) for D = head_dim among the widths built (the
 // wrappers' HEAD_DIMS; the forward and the backward run on the tensor cores
-// at every one); cudaErrorInvalidValue for any other.
-template <template <int> class Layout, class Fn>
+// at every one; without DH4, the bf16 backward's, every one but 4);
+// cudaErrorInvalidValue for any other.
+template <template <int> class Layout, bool DH4 = true, class Fn>
 cudaError_t with_head_dim(int head_dim, int seq_len, int heads, Fn fn) {
   switch (head_dim) {
-    case 4: return fn(Layout<4>{seq_len, heads});
+    case 4:
+      if constexpr (DH4) return fn(Layout<4>{seq_len, heads});
+      return cudaErrorInvalidValue;
     case 8: return fn(Layout<8>{seq_len, heads});
     case 16: return fn(Layout<16>{seq_len, heads});
     case 24: return fn(Layout<24>{seq_len, heads});
@@ -1518,12 +1639,15 @@ inline bool attention_args_ok(int batch, int seq_len, int heads,
 
 // out (B, S, C) from qkv (B, S, 3C) packed [k | v | q], q scaled by
 // q_scale as it is loaded: Dh^-1/2, 1.f / sqrtf(Dh), or the true width's
-// where the caller zero-padded the heads to a built width.
-inline int attention_packed_fwd(const int* seed, const float* qkv, float* out,
-                                int batch, int seq_len, int channels,
-                                int heads, int max_seq_len, float q_scale,
-                                uint32_t threshold, float keep_scale,
-                                void* stream) {
+// where the caller zero-padded the heads to a built width. A template (T is
+// float) so that a source that includes this header without calling it
+// builds none of its kernels.
+template <class T>
+int attention_packed_fwd(const int* seed, const T* qkv, T* out, int batch,
+                         int seq_len, int channels, int heads,
+                         int max_seq_len, float q_scale, uint32_t threshold,
+                         float keep_scale, void* stream) {
+  static_assert(std::is_same<T, float>::value, "the float32 kernels");
   if (heads <= 0 || channels % heads != 0 ||
       !attention_args_ok(batch, seq_len, heads, channels / heads, max_seq_len,
                          seed, threshold)) {
@@ -1587,13 +1711,14 @@ cudaError_t attention_tiled_bwd_bf16(Layout lay, int batch, const int* seed,
 }
 
 // dqkv (B, S, 3C) packed [dK | dV | dq * q_scale] from (seed, qkv, g);
-// stats is the caller's (B, H, S, 3) scratch.
-inline int attention_packed_bwd(const int* seed, const float* qkv,
-                                const float* g, float* dqkv, float* stats,
-                                int batch, int seq_len, int channels,
-                                int heads, int max_seq_len, float q_scale,
-                                uint32_t threshold, float keep_scale,
-                                void* stream) {
+// stats is the caller's (B, H, S, 3) scratch. A template as
+// `attention_packed_fwd`.
+template <class T>
+int attention_packed_bwd(const int* seed, const T* qkv, const T* g, T* dqkv,
+                         float* stats, int batch, int seq_len, int channels,
+                         int heads, int max_seq_len, float q_scale,
+                         uint32_t threshold, float keep_scale, void* stream) {
+  static_assert(std::is_same<T, float>::value, "the float32 kernels");
   if (heads <= 0 || channels % heads != 0 ||
       !attention_args_ok(batch, seq_len, heads, channels / heads, max_seq_len,
                          seed, threshold)) {

@@ -79,10 +79,33 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tiled.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace gpnf {
+
+// q, k, v and out: separate (B, H, S, dh) bf16 tensors, `fused_attention`'s
+// layout (q already scaled), in a kernel built D wide (the tiles of a width
+// D: 32, 128 or 256), dh a multiple of 8 up to D given at run time. Each
+// operand has a tensor map of its own over (dh, S, H, B), which zero-fills
+// a box's columns past dh as the packed map does Dh 24's columns 24 to 31,
+// so every width up to D runs on these tiles with no copy.
+template <int D>
+struct SplitHeadsTma {
+  static constexpr int kHeadDim = D;
+  int seq_len, heads, head_dim;
+  __device__ size_t out_head(int b, int h) const {
+    return (static_cast<size_t>(b) * heads + h) * seq_len * head_dim;
+  }
+  __device__ size_t out_row() const { return head_dim; }
+};
+
+template <class Layout>
+struct SplitMaps : std::false_type {};
+template <int D>
+struct SplitMaps<SplitHeadsTma<D>> : std::true_type {};
 
 // The tiles of one width and rate. Dropout's Philox draws take registers:
 // without them a Dh 24 tile is 64 keys and a block two warpgroups, two
@@ -186,11 +209,15 @@ __device__ __forceinline__ void wgmma_fwd_softmax(
   }
 }
 
+// tmap is the packed qkv's map, or q's on split heads, where tmap_k and
+// tmap_v are K's and V's (the packed layout passes its map in all three).
 template <class Layout, bool DROPOUT, bool STATS>
 __global__ void __launch_bounds__(
     WgFwd<Layout::kHeadDim, DROPOUT>::kThreads,
     WgFwd<Layout::kHeadDim, DROPOUT>::kMinBlocks)
     attention_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap tmap,
+                               const __grid_constant__ CUtensorMap tmap_k,
+                               const __grid_constant__ CUtensorMap tmap_v,
                                Layout lay, const int* __restrict__ seed_ptr,
                                bf16* __restrict__ out,
                                float* __restrict__ stats, float q_scale,
@@ -208,6 +235,7 @@ __global__ void __launch_bounds__(
   constexpr wg::Swizzle kSwz = T::kSpan == 128 ? wg::kSwizzle128
                                                : wg::kSwizzle64;
   constexpr uint32_t kSbo = 8 * T::kSpan;  // the next 8 rows
+  constexpr bool kSplit = SplitMaps<Layout>::value;
   extern __shared__ uint8_t wgfwd_smem_raw[];
   const uint32_t raw = wg::smem_u32(wgfwd_smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -238,14 +266,25 @@ __global__ void __launch_bounds__(
   if (warp == 4 * consumers) {  // the producer
     if (lane == 0) {
       wg::prefetch_tmap(&tmap);
+      if constexpr (kSplit) {
+        wg::prefetch_tmap(&tmap_k);
+        wg::prefetch_tmap(&tmap_v);
+      }
       wg::mbar_expect_tx(qbar, consumers * T::kQBytes);
       for (int g = 0; g < consumers; ++g) {
         for (int c = 0; c < T::kBoxes; ++c) {
           for (int r = 0; r < T::kRows; r += KT) {
-            wg::tma_load_4d(base + g * T::kQBytes + c * T::kQBoxBytes +
-                                r * T::kSpan,
-                            &tmap, c * T::kBoxCols, 2 * lay.heads + h,
-                            i0 + T::kRows * g + r, b, qbar);
+            if constexpr (kSplit) {  // q's map: (dh, S, H, B)
+              wg::tma_load_4d(base + g * T::kQBytes + c * T::kQBoxBytes +
+                                  r * T::kSpan,
+                              &tmap, c * T::kBoxCols, i0 + T::kRows * g + r,
+                              h, b, qbar);
+            } else {
+              wg::tma_load_4d(base + g * T::kQBytes + c * T::kQBoxBytes +
+                                  r * T::kSpan,
+                              &tmap, c * T::kBoxCols, 2 * lay.heads + h,
+                              i0 + T::kRows * g + r, b, qbar);
+            }
           }
         }
       }
@@ -256,10 +295,17 @@ __global__ void __launch_bounds__(
         wg::mbar_expect_tx(bar, T::kStageBytes);
         const uint32_t k_dst = ring + s * T::kStageBytes;
         for (int c = 0; c < T::kBoxes; ++c) {
-          wg::tma_load_4d(k_dst + c * T::kBoxBytes, &tmap, c * T::kBoxCols, h,
-                          t * KT, b, bar);
-          wg::tma_load_4d(k_dst + T::kTileBytes + c * T::kBoxBytes, &tmap,
-                          c * T::kBoxCols, lay.heads + h, t * KT, b, bar);
+          if constexpr (kSplit) {
+            wg::tma_load_4d(k_dst + c * T::kBoxBytes, &tmap_k,
+                            c * T::kBoxCols, t * KT, h, b, bar);
+            wg::tma_load_4d(k_dst + T::kTileBytes + c * T::kBoxBytes,
+                            &tmap_v, c * T::kBoxCols, t * KT, h, b, bar);
+          } else {
+            wg::tma_load_4d(k_dst + c * T::kBoxBytes, &tmap, c * T::kBoxCols,
+                            h, t * KT, b, bar);
+            wg::tma_load_4d(k_dst + T::kTileBytes + c * T::kBoxBytes, &tmap,
+                            c * T::kBoxCols, lay.heads + h, t * KT, b, bar);
+          }
         }
       }
     }
@@ -438,6 +484,9 @@ __global__ void __launch_bounds__(
     step(t, pa, pb, false, false);
   }
 
+  // the head's columns: Dh, or on split heads the run-time width
+  int cols = DH;
+  if constexpr (kSplit) cols = lay.head_dim;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -454,7 +503,7 @@ __global__ void __launch_bounds__(
                 lay.out_row() + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
-      if (8 * j >= DH) break;  // a pad column (Dh = 24)
+      if (8 * j >= cols) break;  // a pad column (Dh = 24)
       const float* a = acc[j / (W / 8 / NV)];
       const int jj = j % (W / 8 / NV);
       *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -474,25 +523,48 @@ inline int wgmma_fwd_consumers(int batch, int seq_len, int heads,
   return most > 1 && seq_len > 64 && blocks >= 132 / 2 ? 2 : 1;
 }
 
-// One launch of the kernel of one layout and rate: its tensor map, its
-// rows a block and its ring.
+// One launch of the kernel of one layout and rate: its tensor maps (one
+// over the packed qkv, at q, or q's, K's and V's on split heads), its rows a
+// block and its ring. Split heads keep no statistics.
 template <class Layout, bool DROPOUT>
 cudaError_t launch_wgmma_fwd(Layout lay, int batch, const int* seed,
-                             const bf16* qkv, bf16* out, float* stats,
-                             float q_scale, uint32_t threshold,
-                             float keep_scale, cudaStream_t stream) {
+                             const bf16* q, const bf16* k, const bf16* v,
+                             bf16* out, float* stats, float q_scale,
+                             uint32_t threshold, float keep_scale,
+                             cudaStream_t stream) {
   constexpr int DH = Layout::kHeadDim;
   using T = WgFwd<DH, DROPOUT>;
-  const long long row = 3LL * lay.heads * DH * 2;  // bytes
-  const long long dims[4] = {DH, 3LL * lay.heads, lay.seq_len, batch};
-  const long long strides[3] = {DH * 2, row, row * lay.seq_len};
-  const int box[4] = {T::kBoxCols, 1, T::kKeys, 1};
-  CUtensorMap map;
-  if (!encode_tmap_4d(&map, qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims,
-                      strides, box,
-                      T::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                      : CU_TENSOR_MAP_SWIZZLE_64B)) {
-    return cudaErrorInvalidValue;
+  constexpr bool kSplit = SplitMaps<Layout>::value;
+  const CUtensorMapSwizzle swizzle =
+      T::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap maps[3];
+  if constexpr (kSplit) {
+    if (stats != nullptr || lay.head_dim % 8 != 0 || lay.head_dim > DH) {
+      return cudaErrorInvalidValue;
+    }
+    const long long row = 2LL * lay.head_dim;  // bytes
+    const long long dims[4] = {lay.head_dim, lay.seq_len, lay.heads, batch};
+    const long long strides[3] = {row, row * lay.seq_len,
+                                  row * lay.seq_len * lay.heads};
+    const int box[4] = {T::kBoxCols, T::kKeys, 1, 1};
+    const bf16* bases[3] = {q, k, v};
+    for (int i = 0; i < 3; ++i) {
+      if (!encode_tmap_4d(&maps[i], bases[i],
+                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims, strides, box,
+                          swizzle)) {
+        return cudaErrorInvalidValue;
+      }
+    }
+  } else {
+    const long long row = 3LL * lay.heads * DH * 2;  // bytes
+    const long long dims[4] = {DH, 3LL * lay.heads, lay.seq_len, batch};
+    const long long strides[3] = {DH * 2, row, row * lay.seq_len};
+    const int box[4] = {T::kBoxCols, 1, T::kKeys, 1};
+    if (!encode_tmap_4d(&maps[0], q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims,
+                        strides, box, swizzle)) {
+      return cudaErrorInvalidValue;
+    }
+    maps[1] = maps[2] = maps[0];
   }
   const int consumers = wgmma_fwd_consumers(batch, lay.seq_len, lay.heads,
                                             T::kMaxConsumers);
@@ -501,7 +573,7 @@ cudaError_t launch_wgmma_fwd(Layout lay, int batch, const int* seed,
   const dim3 grid((lay.seq_len + T::kRows * consumers - 1) /
                       (T::kRows * consumers),
                   lay.heads, batch);
-  auto* with = &attention_wgmma_fwd_kernel<Layout, DROPOUT, true>;
+  auto* with = &attention_wgmma_fwd_kernel<Layout, DROPOUT, !kSplit>;
   auto* without = &attention_wgmma_fwd_kernel<Layout, DROPOUT, false>;
   // the largest ring's shared memory allowed once, not at every call
   static const cudaError_t allowed = [&] {
@@ -518,30 +590,104 @@ cudaError_t launch_wgmma_fwd(Layout lay, int batch, const int* seed,
   if (allowed != cudaSuccess) return allowed;
   auto* kernel = stats != nullptr ? with : without;
   kernel<<<grid, 128 * consumers + 32, T::bytes(consumers, stages),
-           stream>>>(map, lay, seed, out, stats, q_scale, threshold,
-                     keep_scale, stages);
+           stream>>>(maps[0], maps[1], maps[2], lay, seed, out, stats,
+                     q_scale, threshold, keep_scale, stages);
   return cudaGetLastError();
 }
 
-// The bf16 forward of one layout (Dh 24, 128 or 256): one launch; with
-// stats (not null) the kernel also stores each query row's float32 (m, 1/l)
-// there, (B, H, S, 2), for the backward. The tensor map needs qkv 16-byte
-// aligned; it is encoded on the host each call.
+// The bf16 forward of one layout: the packed qkv (Dh 24, 128 or 256) as q,
+// k and v all three, or split heads' q, k and v; one launch. With stats (not
+// null; packed only) the kernel also stores each query row's float32
+// (m, 1/l) there, (B, H, S, 2), for the backward. The tensor maps need their
+// bases 16-byte aligned; they are encoded on the host each call.
 template <class Layout>
 cudaError_t attention_wgmma_fwd(Layout lay, int batch, const int* seed,
-                                const bf16* qkv, bf16* out, float* stats,
-                                float q_scale, uint32_t threshold,
-                                float keep_scale, cudaStream_t stream) {
-  if (reinterpret_cast<uintptr_t>(qkv) % 16 != 0) {
-    return cudaErrorMisalignedAddress;
+                                const bf16* q, const bf16* k, const bf16* v,
+                                bf16* out, float* stats, float q_scale,
+                                uint32_t threshold, float keep_scale,
+                                cudaStream_t stream) {
+  for (const bf16* p : {q, k, v}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) {
+      return cudaErrorMisalignedAddress;
+    }
   }
   return threshold > 0
-             ? launch_wgmma_fwd<Layout, true>(lay, batch, seed, qkv, out,
+             ? launch_wgmma_fwd<Layout, true>(lay, batch, seed, q, k, v, out,
                                               stats, q_scale, threshold,
                                               keep_scale, stream)
-             : launch_wgmma_fwd<Layout, false>(lay, batch, seed, qkv, out,
+             : launch_wgmma_fwd<Layout, false>(lay, batch, seed, q, k, v, out,
                                                stats, q_scale, threshold,
                                                keep_scale, stream);
+}
+
+// out (B, S, C, bf16) from packed bf16 qkv (B, S, 3C), q * q_scale rounded
+// to bf16, at the head widths built in bf16, 24, 128 and 256 (the wrappers'
+// BF16_HEAD_DIMS, which pad every other width to one of them);
+// cudaErrorInvalidValue at any other. With stats (a float32 (B, H, S, 2),
+// or null) the kernel also stores each query row's (m, 1/l); out's bits are
+// the same either way.
+inline int attention_packed_fwd_bf16(const int* seed, const void* qkv,
+                                     void* out, float* stats, int batch,
+                                     int seq_len, int channels, int heads,
+                                     int max_seq_len, float q_scale,
+                                     uint32_t threshold, float keep_scale,
+                                     void* stream) {
+  if (heads <= 0 || channels % heads != 0 ||
+      !attention_args_ok(batch, seq_len, heads, channels / heads, max_seq_len,
+                         seed, threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bf16* in = static_cast<const bf16*>(qkv);
+  auto run = [&](auto lay) {
+    return attention_wgmma_fwd(lay, batch, seed, in, in, in,
+                               static_cast<bf16*>(out), stats, q_scale,
+                               threshold, keep_scale,
+                               static_cast<cudaStream_t>(stream));
+  };
+  switch (channels / heads) {
+    case 24: return static_cast<int>(run(PackedQkv<24>{seq_len, heads}));
+    case 128: return static_cast<int>(run(PackedQkv<128>{seq_len, heads}));
+    case 256: return static_cast<int>(run(PackedQkv<256>{seq_len, heads}));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The bf16 backward on packed bf16 qkv and g: dqkv (B, S, 3C) packed
+// [dK | dV | dq], q scaled by the bf16 constant q_scale as the forward scales
+// it, from the forward's stats (float32 (B, H, S, 2), its (m, 1/l)); dsum is
+// the caller's float32 (B, H, S) scratch of D and keep, read only when
+// threshold > 0, its int32 scratch of the keep bits, B H Sp^2 / 32 words (Sp
+// = S rounded up to 64). dq leaves as dS K times dq_scale rounded once, or,
+// with dq_round_first, rounded first and then times dq_scale (the bf16
+// constant) and rounded again: `attention_bf16_dq_kernel` and
+// `attention_bf16_dkv_kernel`, at the widths built in bf16 (24, 128, 256);
+// cudaErrorInvalidValue at any other.
+inline int attention_packed_bwd_bf16(
+    const int* seed, const void* qkv, const void* g, const float* stats,
+    float* dsum, void* keep, void* dqkv, int batch, int seq_len, int channels,
+    int heads, int max_seq_len, float q_scale, float dq_scale,
+    int dq_round_first, uint32_t threshold, float keep_scale, void* stream) {
+  if (heads <= 0 || channels % heads != 0 ||
+      !attention_args_ok(batch, seq_len, heads, channels / heads, max_seq_len,
+                         seed, threshold)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bf16* in = static_cast<const bf16*>(qkv);
+  bf16* out = static_cast<bf16*>(dqkv);
+  auto run = [&](auto lay) {
+    return attention_tiled_bwd_bf16(
+        lay, batch, seed, in + 2 * channels, in, in + channels,
+        static_cast<const bf16*>(g), stats, dsum, static_cast<uint32_t*>(keep),
+        out + 2 * channels, out, out + channels, q_scale, dq_scale,
+        dq_round_first, threshold, keep_scale,
+        static_cast<cudaStream_t>(stream));
+  };
+  switch (channels / heads) {
+    case 24: return static_cast<int>(run(PackedQkv<24>{seq_len, heads}));
+    case 128: return static_cast<int>(run(PackedQkv<128>{seq_len, heads}));
+    case 256: return static_cast<int>(run(PackedQkv<256>{seq_len, heads}));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace gpnf

@@ -13,6 +13,8 @@
 //     [dK | dV | dq * q_scale].
 // Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256. The forward and the
 // backward run on the tensor cores at every width (attention_tiled.cuh).
+// These are the float32 kernels; fused_attention_bf16.cu holds the same
+// four entries on bf16 operands.
 // For every batch row b and head h:
 //   P = softmax(q k^T);  Pd = keep * P / (1 - rate);  out = Pd v
 // and the backward of the JAX module's docstring:

@@ -1,5 +1,5 @@
-// Multi-head self-attention for long sequences (512 < S <= 2048), for
-// GatedAttn's wide route at any S <= 2048 (ops/kernels/fused_attention.py,
+// Multi-head self-attention for long sequences (512 < S), for GatedAttn's
+// wide route at any S (ops/kernels/fused_attention.py,
 // `attention_route`; there, at S <= 512, the projection and dseq / dW
 // around these kernels are attention_gemm.cu's), and for the proj route
 // (`fused_attention_proj` and its backward: these kernels after and between
@@ -54,7 +54,10 @@
 #include "attention_wgmma.cuh"
 
 namespace {
-constexpr int kMaxSeqLen = 2048;  // the wrappers' MAX_S_LONG
+// the wrappers' MAX_S_LONG: the largest S whose indices the kernels hold in
+// an int (3 S, the float32 dK/dV kernel's statistics); the grids, the keep
+// bits' scratch and every other index take more
+constexpr int kMaxSeqLen = 2147483647 / 3;
 }  // namespace
 
 // out (B, S, C) from qkv (B, S, 3C), q scaled by q_scale; seed is a device
@@ -83,26 +86,10 @@ extern "C" int gpnf_attention_long_fwd_bf16(const int* seed, const void* qkv,
                                             int channels, int heads,
                                             float q_scale, uint32_t threshold,
                                             float keep_scale, void* stream) {
-  using gpnf::bf16;
-  if (heads <= 0 || channels % heads != 0 ||
-      !gpnf::attention_args_ok(batch, seq_len, heads, channels / heads,
-                               kMaxSeqLen, seed, threshold)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto run = [&](auto lay) {
-    return gpnf::attention_wgmma_fwd(
-        lay, batch, seed, static_cast<const bf16*>(qkv),
-        static_cast<bf16*>(out), stats, q_scale, threshold, keep_scale,
-        static_cast<cudaStream_t>(stream));
-  };
-  switch (channels / heads) {
-    case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));
-    case 128:
-      return static_cast<int>(run(gpnf::PackedQkv<128>{seq_len, heads}));
-    case 256:
-      return static_cast<int>(run(gpnf::PackedQkv<256>{seq_len, heads}));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return gpnf::attention_packed_fwd_bf16(seed, qkv, out, stats, batch,
+                                         seq_len, channels, heads, kMaxSeqLen,
+                                         q_scale, threshold, keep_scale,
+                                         stream);
 }
 
 // The backward in bf16: dqkv (B, S, 3C, bf16) packed [dK | dV | dq] from
@@ -122,30 +109,10 @@ extern "C" int gpnf_attention_long_bwd_bf16(
     int heads,
     float q_scale, float dq_scale, int dq_round_first, uint32_t threshold,
     float keep_scale, void* stream) {
-  using gpnf::bf16;
-  if (heads <= 0 || channels % heads != 0 ||
-      !gpnf::attention_args_ok(batch, seq_len, heads, channels / heads,
-                               kMaxSeqLen, seed, threshold)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bf16* in = static_cast<const bf16*>(qkv);
-  bf16* out = static_cast<bf16*>(dqkv);
-  auto run = [&](auto lay) {
-    return gpnf::attention_tiled_bwd_bf16(
-        lay, batch, seed, in + 2 * channels, in, in + channels,
-        static_cast<const bf16*>(g), stats, dsum, static_cast<uint32_t*>(keep),
-        out + 2 * channels, out,
-        out + channels, q_scale, dq_scale, dq_round_first, threshold,
-        keep_scale, static_cast<cudaStream_t>(stream));
-  };
-  switch (channels / heads) {
-    case 24: return static_cast<int>(run(gpnf::PackedQkv<24>{seq_len, heads}));
-    case 128:
-      return static_cast<int>(run(gpnf::PackedQkv<128>{seq_len, heads}));
-    case 256:
-      return static_cast<int>(run(gpnf::PackedQkv<256>{seq_len, heads}));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return gpnf::attention_packed_bwd_bf16(
+      seed, qkv, g, stats, dsum, keep, dqkv, batch, seq_len, channels, heads,
+      kMaxSeqLen, q_scale, dq_scale, dq_round_first, threshold, keep_scale,
+      stream);
 }
 
 // dqkv (B, S, 3C) from (seed, qkv, g); stats is the caller's (B, H, S, 3)

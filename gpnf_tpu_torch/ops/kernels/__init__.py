@@ -16,11 +16,14 @@ from .fused_attention import (attention_bwd_bf16, attention_dseq_gemm,
                               attention_plain, attention_plain_bwd,
                               attention_proj_plain, attention_proj_plain_bwd,
                               attention_qkv_gemm, attention_qkv_gemm_bf16,
-                              attention_route,
-                              fused_attention, fused_attention_bwd,
+                              attention_route, core_bf16_padded,
+                              fused_attention, fused_attention_bf16,
+                              fused_attention_bwd, fused_attention_bwd_bf16,
                               fused_attention_long, fused_attention_long_bwd,
                               fused_attention_proj, fused_attention_proj_bwd,
-                              fused_attention_qkv, fused_attention_qkv_bwd)
+                              fused_attention_qkv, fused_attention_qkv_bf16,
+                              fused_attention_qkv_bwd,
+                              fused_attention_qkv_bwd_bf16)
 from .fused_coupling import fused_affine_forward, fused_affine_plain
 from .fused_gated_conv import (fused_gated_conv, fused_gated_conv_bf16,
                                fused_gated_conv_bwd,
@@ -41,7 +44,9 @@ KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            attention_dw_gemm, attention_qkv_gemm_bf16, attention_fwd_bf16,
            attention_bwd_bf16, attention_dseq_gemm_bf16,
            attention_dw_gemm_bf16, fused_gated_conv_bf16,
-           fused_gated_conv_bwd_bf16)
+           fused_gated_conv_bwd_bf16, fused_attention_bf16,
+           fused_attention_bwd_bf16, fused_attention_qkv_bf16,
+           fused_attention_qkv_bwd_bf16)
 
 
 def reset_launch_counts() -> None:

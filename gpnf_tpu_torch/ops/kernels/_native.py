@@ -23,11 +23,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "gpnf_tpu_torch"
+# -fno-gnu-unique: a static local of an inline or template function (the
+# bf16 forward's once-a-kernel shared-memory attribute) is otherwise one
+# object for the whole process, and two libraries that instantiate the same
+# template (fused_attention_long and fused_attention_bf16 both launch the
+# packed bf16 kernels) would share it: the second's kernel would launch
+# without its attribute set
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique", "-Xptxas", "-v")
 SOURCES = ("fused_attention_long", "mixlogcdf_forward", "mixture_inverse",
            "fused_affine", "tril_solve", "cholesky", "fused_gated_conv",
-           "fused_attention", "attention_gemm")
+           "fused_attention", "fused_attention_bf16", "attention_gemm")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,6 +83,14 @@ SIGNATURES = {
         "gpnf_attention_bwd": [_P] * 9 + [_I] * 4 + [_U, _F, _P],
         "gpnf_attention_qkv_fwd": [_P] * 3 + [_I] * 4 + [_F, _U, _F, _P],
         "gpnf_attention_qkv_bwd": [_P] * 5 + [_I] * 4 + [_F, _U, _F, _P],
+    },
+    "fused_attention_bf16": {
+        "gpnf_attention_fwd_bf16": [_P] * 5 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_bwd_bf16": [_P] * 9 + [_I] * 4 + [_U, _F, _P],
+        "gpnf_attention_qkv_fwd_bf16": [_P] * 4 + [_I] * 4 + [_F, _U, _F,
+                                                              _P],
+        "gpnf_attention_qkv_bwd_bf16": [_P] * 7 + [_I] * 4 + [_F, _F, _I,
+                                                              _U, _F, _P],
     },
     "attention_gemm": {
         "gpnf_attention_gemm": [_P] * 4 + [_I] * 6 + [_P],

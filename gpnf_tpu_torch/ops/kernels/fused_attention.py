@@ -20,10 +20,11 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   `attention_long_plain_bwd` are its plain versions at the kernels' own
   boundary (qkv in, out or dqkv out). For S > 512 the projection and
   dseq/dW are torch.matmul outside the kernels, as the JAX package leaves
-  them to XLA there. It is also GatedAttn's wide route: every S <= 2048
-  and every head width up to 256, a width the kernels are not built for
-  zero-padded to the next one that is (q scaled by the true Dh^-1/2), the
-  outputs sliced back. At S <= 512, where the JAX package computes the
+  them to XLA there. It is also GatedAttn's wide route: every S up to
+  MAX_S_LONG (the 48-px level 0's 2304 among them, where the JAX package
+  computes its jnp reference) and every head width up to 256, a width
+  the kernels are not built for zero-padded to the next one that is (q
+  scaled by the true Dh^-1/2), the outputs sliced back. At S <= 512, where the JAX package computes the
   projection and dseq/dW inside `_fwd_kernel_proj` and `_bwd_kernel_proj`
   at every width, the wide route runs them in the GEMM kernels of
   gpnf_tpu_torch/csrc/attention_gemm.cu (`attention_qkv_gemm`,
@@ -37,8 +38,22 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   `_bwd_kernel_qkv`): packed qkv (B, S, 3C) in, (B, S, C) out; its plain
   versions are the long entry's, which compute the same function. Both
   run the long entry's key-tiled kernels (csrc/attention_tiled.cuh) from
-  gpnf_tpu_torch/csrc/fused_attention.cu, up to S = 512. Above that the
-  JAX package runs its jnp reference, even on a TPU; the port raises.
+  gpnf_tpu_torch/csrc/fused_attention.cu (on bf16 operands from
+  fused_attention_bf16.cu), up to S = 512. Above that the
+  JAX package runs its jnp reference, even on a TPU; the port raises. On
+  bf16 operands (`_fwd_kernel` and the others on bf16) the packed entry
+  runs the long entry's bf16 kernels (the TMA + wgmma forward, the bf16
+  dq and dK/dV pair, dq scaled in float32 and rounded once, as
+  `_bwd_kernel_qkv`), its autograd keeping the forward's (m, 1/l); the
+  split entry's forward is the same TMA + wgmma kernel on three tensor
+  maps (Dh, S, H, B), no scale, and its backward the float32 entry's
+  3xTF32 dq and dK/dV pair on the bf16 values widened inside the kernels
+  (`_bwd_kernel`: every product in float32 from unrounded P, Pd, dP and
+  dS, only dq, dk and dv rounded). `fused_attention_bf16`,
+  `fused_attention_bwd_bf16`, `fused_attention_qkv_bf16` and
+  `fused_attention_qkv_bwd_bf16` count those launches; Dh 4, whose 8-byte
+  rows neither TMA nor the 16-byte copies take, runs 8 wide through a
+  zero-padded copy (`core_bf16_padded` counts the calls).
 The key-tiled kernels are built for the head widths HEAD_DIMS. The
 forward and the backward run on the tensor cores at every width (3xTF32
 mma.sync tiles, csrc/mma_tf32.cuh: one forward kernel, and the dq and
@@ -76,7 +91,7 @@ plain versions round at the JAX package's points (`bf16_matmul`: the
 float32 product of the bf16 values, rounded once, whatever cuBLAS's
 reduction switches say); the forward kernel rounds the unnormalised
 exp(s - m) where the JAX package rounds the normalised p. No bf16 path
-detours through float32 kernels; the core entries take float32 only. A
+detours through float32 kernels. A
 bf16 forward with a backward to come (`_keeps_stats`) also keeps each
 query row's softmax statistics (m, 1/l), float32 (B, H, S, 2), and the
 autograd functions save them beside (seq, w, seed), the JAX package's
@@ -99,6 +114,7 @@ not.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -108,7 +124,12 @@ import torch.nn.functional as F
 from . import _native
 
 MAX_S = 512  # above this the JAX package switches to fused_attention_long
-MAX_S_LONG = 2048  # the long entry's range, as the JAX package's
+# the long entry's range (GatedAttn's wide route): the largest S whose
+# indices the key-tiled kernels hold in an int, 3 S in the float32 dK/dV
+# kernel's statistics; the grids and every other index and scratch take more.
+# Above 2048 the JAX package computes its jnp reference, even on a TPU;
+# the port runs the same kernels, whose keys stream in tiles
+MAX_S_LONG = (2 ** 31 - 1) // 3
 # Dh values the key-tiled kernels are built for, each on the tensor cores
 HEAD_DIMS = (4, 8, 16, 24, 32, 48, 64, 128, 256)
 # the widths the bf16 kernels are built for: the flagship's Dh 24 (C 96, 4
@@ -305,6 +326,22 @@ def bf16_product_close(got: torch.Tensor, want: torch.Tensor,
     return bool(((got - want).abs() <= ulp + spread).all())
 
 
+def bf16_top_ulp_readings(got: torch.Tensor, want: torch.Tensor,
+                          max_share: float = 0.05):
+    """(largest |got - want|, one bf16 ulp at the largest |want|, the share
+    of values that differ, whether the bar holds): the bar of a bf16
+    result that its kernel and its plain version both round once from
+    float32 sums of the same terms, in different orders. The largest
+    difference within that ulp, and at most `max_share` of the values
+    differing (a sum near a rounding boundary flips its last bit)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    top = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    largest, share = float(diff.max()), float((diff > 0).float().mean())
+    return largest, ulp, share, largest <= ulp and share <= max_share
+
+
 def qkv_plain(seq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """qkv = seq w^T: torch.matmul in float32 (and float64), `bf16_matmul`
     in bf16 (the JAX `_proj`); the two operands of one dtype."""
@@ -361,19 +398,18 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         g: torch.Tensor, rate: float = 0.0,
-                        seed: Optional[torch.Tensor] = None,
-                        dq_scale: Optional[float] = None):
+                        seed: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of `attention_plain` for the cotangent g (B, H, S, Dh),
     by the formulas of the JAX module's docstring:
         dV = Pd^T g;  dPd = g V^T;  dP = mask * dPd / (1 - r)
         dS = P (dP - rowsum(dP P));  dQ = dS K;  dK = dS^T Q
-    bf16 operands (`_bwd_kernel_bh`'s rounding points): P, dP and dS in
-    float32, Pd rounded to bf16 for dV, dS rounded to bf16 for dQ and dK,
-    each product summed in float32 and rounded once; with `dq_scale` dQ is
-    multiplied by it in float32 before its rounding (`_bwd_kernel_proj`).
-    float32 operands ignore `dq_scale`."""
+    bf16 operands (`_bwd_kernel`'s recipe): q, k, v and g widened to
+    float32, every product in float32 from unrounded P, Pd, dP and dS, and
+    only dq, dk and dv rounded to bf16, once each."""
     if q.dtype == torch.bfloat16:
-        return _attention_plain_bwd_bf16(q, k, v, g, rate, seed, dq_scale)
+        grads = attention_plain_bwd(q.float(), k.float(), v.float(),
+                                    g.float(), rate, seed)
+        return tuple(x.to(torch.bfloat16) for x in grads)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), -1)
     dpd = torch.matmul(g, v.transpose(-1, -2))
     if rate > 0.0:
@@ -389,7 +425,11 @@ def attention_plain_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _attention_plain_bwd_bf16(q, k, v, g, rate, seed, dq_scale):
-    """`attention_plain_bwd` on bf16 q (already scaled), k, v, g."""
+    """`attention_plain_bwd`'s formulas on bf16 q (already scaled), k, v, g
+    at `_bwd_kernel_bh`'s rounding points: P, dP and dS in float32, Pd
+    rounded to bf16 for dV, dS rounded to bf16 for dQ and dK, each product
+    summed in float32 and rounded once; with `dq_scale` dQ is multiplied by
+    it in float32 before its rounding (`_bwd_kernel_proj`)."""
     low = torch.bfloat16
     p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)), -1)
     dpd = torch.matmul(g.float(), v.float().transpose(-1, -2))
@@ -454,8 +494,11 @@ def attention_long_plain_bwd(qkv: torch.Tensor, g: torch.Tensor,
     gh = g.reshape(b, s, num_heads, dh).transpose(1, 2)
     low = qkv.dtype == torch.bfloat16
     in_fp32 = low and scale_dq_in_fp32
-    dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed,
-                                     q_scale if in_fp32 else None)
+    if low:
+        dq, dk, dv = _attention_plain_bwd_bf16(q, k, v, gh, rate, seed,
+                                               q_scale if in_fp32 else None)
+    else:
+        dq, dk, dv = attention_plain_bwd(q, k, v, gh, rate, seed)
     if low and not in_fp32:
         dq = (dq.float() * bf16_scale(q_scale)).to(torch.bfloat16)
     elif not low:
@@ -739,6 +782,18 @@ attention_dw_gemm_bf16 = LaunchCount("attention_dw_gemm_bf16")
 # copies (none on any path: chip_smoke.py holds it at 0); each also counts
 # on its product's entry and bf16 counter
 attention_gemm_bf16_unaligned = LaunchCount("attention_gemm_bf16_unaligned")
+# the core entries' bf16 kernels (fused_attention_bf16.cu), counted also by
+# the entry that launches them: the split forward (TMA + wgmma on three
+# tensor maps), the split backward (the 3xTF32 dq and dK/dV pair on widened
+# bf16), the packed forward and the packed dq and dK/dV pair
+fused_attention_bf16 = LaunchCount("fused_attention_bf16")
+fused_attention_bwd_bf16 = LaunchCount("fused_attention_bwd_bf16")
+fused_attention_qkv_bf16 = LaunchCount("fused_attention_qkv_bf16")
+fused_attention_qkv_bwd_bf16 = LaunchCount("fused_attention_qkv_bwd_bf16")
+# the split entry's bf16 calls at Dh 4, whose operands go through a copy
+# zero-padded to Dh 8 (rows of 8 bytes take neither a tensor map nor the
+# kernels' 16-byte copies); each also counts as its kernel's launch
+core_bf16_padded = LaunchCount("core_bf16_padded")
 
 
 def _count_lanes(head_dim, counter):
@@ -747,15 +802,18 @@ def _count_lanes(head_dim, counter):
 
 
 def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
-                seed, bf16=False, with_stats=False):
+                seed, bf16=False, with_stats=False,
+                counter=attention_fwd_bf16, bf16_source=None):
     """Launch the packed forward `fn` of library `source` (the long entry's
     or `fused_attention_qkv`'s) on CUDA tensors after the kernel's checks,
     q scaled by q_scale (None: `head_scale`); returns out (B, S, C). With
     `bf16` a bf16 qkv launches the bf16 instantiation (`fn` with the bf16
-    suffix) on heads zero-padded to the next of BF16_HEAD_DIMS, q scaled by
-    `bf16_scale(q_scale)` (None: the true Dh ** -0.5); `with_stats` (bf16
-    only) returns (out, stats), the kernel's float32 (B, H, S, 2) (m, 1/l)
-    of each query row (`attention_stats_plain`)."""
+    suffix, of library `bf16_source` (default `source`), its launch
+    counted on `counter`) on heads zero-padded to the
+    next of BF16_HEAD_DIMS, q scaled by `bf16_scale(q_scale)` (None: the
+    true Dh ** -0.5); `with_stats` (bf16 only) returns (out, stats), the
+    kernel's float32 (B, H, S, 2) (m, 1/l) of each query row
+    (`attention_stats_plain`)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
@@ -770,12 +828,12 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
                           device=device)
         stats = (torch.empty((b, num_heads, s, 2), dtype=torch.float32,
                              device=device) if with_stats else None)
-        _native.launch(source, f"{fn}_bf16", device, seed_ptr,
-                       qkv.data_ptr(), out.data_ptr(),
+        _native.launch(bf16_source or source, f"{fn}_bf16", device,
+                       seed_ptr, qkv.data_ptr(), out.data_ptr(),
                        None if stats is None else stats.data_ptr(), b, s,
                        num_heads * width, num_heads, q_scale, threshold,
                        scale)
-        attention_fwd_bf16.launches += 1
+        counter.launches += 1
         out = _unpad_heads(out, dh, width)
         return (out, stats) if with_stats else out
     if with_stats:
@@ -792,17 +850,21 @@ def _packed_fwd(kernel, source, fn, max_s, qkv, num_heads, q_scale, rate,
 
 
 def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
-                seed, bf16=False, scale_dq_in_fp32=False, stats=None):
+                seed, bf16=False, scale_dq_in_fp32=False, stats=None,
+                counters=(attention_fwd_bf16, attention_bwd_bf16),
+                bf16_source=None):
     """Launch the packed backward `fn` of library `source` on CUDA tensors
     after the kernel's checks, q scaled by q_scale (None: `head_scale`);
     returns dqkv (B, S, 3C). With `bf16` a bf16 qkv and g launch the bf16
-    pair (`fn` with the bf16 suffix) on heads zero-padded as `_packed_fwd`
-    pads them, q scaled by `bf16_scale(q_scale)` (None: the true
-    Dh ** -0.5), from the forward's statistics `stats` (float32 (B, H, S,
-    2); None: the forward kernel runs first for them, one launch more), D
-    in a float32 (B, H, S) scratch, and dq scaled by q_scale in float32 and
-    rounded once where `scale_dq_in_fp32`, else rounded and then scaled by
-    the bf16 constant (`attention_long_plain_bwd`'s two recipes)."""
+    pair (`fn` with the bf16 suffix, of library `bf16_source` (default
+    `source`), counted on the second of `counters`) on heads zero-padded
+    as `_packed_fwd` pads them, q scaled by
+    `bf16_scale(q_scale)` (None: the true Dh ** -0.5), from the forward's
+    statistics `stats` (float32 (B, H, S, 2); None: the forward kernel runs
+    first for them, one launch more, counted on the first), D in a float32
+    (B, H, S) scratch, and dq scaled by q_scale in float32 and rounded once
+    where `scale_dq_in_fp32`, else rounded and then scaled by the bf16
+    constant (`attention_long_plain_bwd`'s two recipes)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
@@ -813,7 +875,8 @@ def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
         if stats is None:
             stats = _packed_fwd(kernel, source, fn.replace("_bwd", "_fwd"),
                                 max_s, qkv, num_heads, q_scale, rate, seed,
-                                bf16, with_stats=True)[1]
+                                bf16, with_stats=True, counter=counters[0],
+                                bf16_source=bf16_source)[1]
         elif (stats.shape != (b, num_heads, s, 2)
               or stats.dtype != torch.float32 or stats.device != device):
             raise ValueError(f"{kernel}: stats {tuple(stats.shape)} "
@@ -828,8 +891,9 @@ def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
         dsum = torch.empty((b, num_heads, s), dtype=torch.float32,
                            device=device)
         keep = keep_bits_scratch(b, num_heads, s, rate, device)
-        _native.launch(source, f"{fn}_bf16", device, seed_ptr,
-                       qkv.data_ptr(), g.data_ptr(), stats.data_ptr(),
+        _native.launch(bf16_source or source, f"{fn}_bf16", device,
+                       seed_ptr, qkv.data_ptr(), g.data_ptr(),
+                       stats.data_ptr(),
                        dsum.data_ptr(),
                        None if keep is None else keep.data_ptr(),
                        dqkv.data_ptr(), b, s,
@@ -837,7 +901,7 @@ def _packed_bwd(kernel, source, fn, max_s, qkv, g, num_heads, q_scale, rate,
                        true_scale if scale_dq_in_fp32
                        else bf16_scale(true_scale),
                        int(not scale_dq_in_fp32), threshold, scale)
-        attention_bwd_bf16.launches += 1
+        counters[1].launches += 1
         return _unpad_heads(dqkv, dh, width)
     if stats is not None:
         raise TypeError(f"{kernel}: the statistics are the bf16 kernels'; "
@@ -1362,12 +1426,33 @@ def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
 
 
 # -- the core entries: separate q, k, v, or packed qkv, S <= 512 --------------------
+def _check_one_dtype(kernel, **tensors):
+    """Raise unless every operand has the first one's dtype (on every
+    device: the plain versions would otherwise mix them)."""
+    (first, ref), *rest = tensors.items()
+    for arg, t in rest:
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{kernel}: '{arg}' has dtype {t.dtype}, "
+                            f"'{first}' {ref.dtype}; the operands take one "
+                            f"dtype")
+
+
 def _validate_split(kernel, rate, seed, **tensors):
     shapes = {arg: tuple(t.shape) for arg, t in tensors.items()}
     if len(set(shapes.values())) != 1 or len(shapes["q"]) != 4:
         raise ValueError(f"{kernel}: {shapes} are not one (B, H, S, Dh) "
                          f"shape")
+    _check_one_dtype(kernel, **tensors)
     _check_rate(kernel, rate, seed)
+
+
+def _split_bf16_width(head_dim, *tensors):
+    """The bf16 split kernels' operands and width: as they are, or at Dh 4
+    zero-padded to 8 in a fresh copy (`core_bf16_padded` counts it)."""
+    if head_dim % 8 == 0:
+        return head_dim, tensors
+    core_bf16_padded.launches += 1
+    return 8, tuple(F.pad(t, (0, 8 - head_dim)) for t in tensors)
 
 
 def _attention_forward(q, k, v, rate, seed):
@@ -1377,7 +1462,17 @@ def _attention_forward(q, k, v, rate, seed):
     b, h, s, dh = q.shape
     q, k, v = _aligned(q, k, v)
     device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention", s, dh, MAX_S, rate, seed, q=q, k=k, v=v)
+        "fused_attention", s, dh, MAX_S, rate, seed, bf16=True, q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        width, (q, k, v) = _split_bf16_width(dh, q, k, v)
+        out = torch.empty_like(q)
+        _native.launch("fused_attention_bf16", "gpnf_attention_fwd_bf16",
+                       device,
+                       seed_ptr, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, h, s, width, threshold, scale)
+        fused_attention_bf16.launches += 1
+        fused_attention.launches += 1
+        return out[..., :dh] if width != dh else out
     out = torch.empty_like(q)
     _native.launch("fused_attention", "gpnf_attention_fwd", device, seed_ptr,
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -1392,22 +1487,34 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         seed: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of `fused_attention` for the cotangent g (B, H, S, Dh),
     the forward's mask regenerated from `seed`. CPU tensors take
-    `attention_plain_bwd`; CUDA tensors launch the kernels or raise."""
+    `attention_plain_bwd`; CUDA tensors launch the kernels (float32, or
+    bf16: the same dq and dK/dV pair on the bf16 values, widened in the
+    kernels, dq, dk and dv rounded once) or raise."""
     _validate_split("fused_attention_bwd", rate, seed, q=q, k=k, v=v, g=g)
     if all(t.device.type == "cpu" for t in (q, k, v, g)):
         return attention_plain_bwd(q, k, v, g, rate, seed)
     b, h, s, dh = q.shape
     q, k, v, g = _aligned(q, k, v, g)
     device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_bwd", s, dh, MAX_S, rate, seed, q=q, k=k, v=v, g=g)
+        "fused_attention_bwd", s, dh, MAX_S, rate, seed, bf16=True, q=q, k=k,
+        v=v, g=g)
+    bf16 = q.dtype == torch.bfloat16
+    width, (q, k, v, g) = (_split_bf16_width(dh, q, k, v, g) if bf16
+                           else (dh, (q, k, v, g)))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((b, h, s, 3), dtype=q.dtype, device=device)
-    _native.launch("fused_attention", "gpnf_attention_bwd", device, seed_ptr,
-                   q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                   stats.data_ptr(), b, h, s, dh, threshold, scale)
-    _count_lanes(dh, attention_lanes_bwd)
+    stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=device)
+    _native.launch("fused_attention_bf16" if bf16 else "fused_attention",
+                   "gpnf_attention_bwd_bf16" if bf16 else "gpnf_attention_bwd",
+                   device, seed_ptr, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   stats.data_ptr(), b, h, s, width, threshold, scale)
+    if bf16:
+        fused_attention_bwd_bf16.launches += 1
+    else:
+        _count_lanes(dh, attention_lanes_bwd)
     fused_attention_bwd.launches += 1
+    if width != dh:
+        return dq[..., :dh], dk[..., :dh], dv[..., :dh]
     return dq, dk, dv
 
 
@@ -1435,57 +1542,78 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dropout(softmax(q k^T)) v on q, k, v (B, H, S, Dh), q already scaled;
     `seed` is a (1,) int32 tensor on q's device, read only when rate > 0.
     Differentiable in q, k and v. CPU tensors take the plain versions; CUDA
-    tensors launch the kernels or raise (S > 512, a head width outside
-    HEAD_DIMS, anything but float32)."""
+    tensors launch the kernels (float32 or bf16, one dtype for all three)
+    or raise (S > 512, a head width outside HEAD_DIMS, any other dtype)."""
     return _Attention.apply(q, k, v, seed, rate)
 
 
-def _attention_qkv_forward(qkv, num_heads, rate, seed):
+def _attention_qkv_forward(qkv, num_heads, rate, seed, with_stats=False):
+    """out, or (out, the bf16 forward's statistics) `with_stats`."""
     _validate_qkv("fused_attention_qkv", qkv, num_heads, rate, seed)
     if qkv.device.type == "cpu":
-        return attention_long_plain(qkv, num_heads, rate, seed)
+        out = attention_long_plain(qkv, num_heads, rate, seed)
+        if with_stats:
+            return out, attention_stats_plain(qkv, num_heads)
+        return out
     out = _packed_fwd("fused_attention_qkv", "fused_attention",
                       "gpnf_attention_qkv_fwd", MAX_S, qkv, num_heads, None,
-                      rate, seed)
+                      rate, seed, bf16=True, with_stats=with_stats,
+                      counter=fused_attention_qkv_bf16,
+                      bf16_source="fused_attention_bf16")
     fused_attention_qkv.launches += 1
     return out
 
 
 def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor,
                             num_heads: int, rate: float = 0.0,
-                            seed: Optional[torch.Tensor] = None
+                            seed: Optional[torch.Tensor] = None,
+                            stats: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """dqkv (B, S, 3C), packed [dK | dV | dq * Dh^-1/2], of
     `fused_attention_qkv` for the cotangent g (B, S, C), the mask
-    regenerated from `seed`. CPU tensors take `attention_long_plain_bwd`;
-    CUDA tensors launch the kernels or raise."""
+    regenerated from `seed`; in bf16 dq scaled in float32 and rounded once
+    (`_bwd_kernel_qkv`), from `stats`, the forward's (m, 1/l), which the
+    call computes first by the forward kernel where they are not given.
+    CPU tensors take `attention_long_plain_bwd` (the stats unused); CUDA
+    tensors launch the kernels (float32 or bf16) or raise."""
     _validate_qkv("fused_attention_qkv_bwd", qkv, num_heads, rate, seed)
     _check_cotangent("fused_attention_qkv_bwd", qkv, g)
+    _check_one_dtype("fused_attention_qkv_bwd", qkv=qkv, g=g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
-        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed)
+        return attention_long_plain_bwd(qkv, g, num_heads, rate, seed,
+                                        scale_dq_in_fp32=True)
     dqkv = _packed_bwd("fused_attention_qkv_bwd", "fused_attention",
                        "gpnf_attention_qkv_bwd", MAX_S, qkv, g, num_heads,
-                       None, rate, seed)
+                       None, rate, seed, bf16=True, scale_dq_in_fp32=True,
+                       stats=stats, counters=(fused_attention_qkv_bf16,
+                                              fused_attention_qkv_bwd_bf16),
+                       bf16_source="fused_attention_bf16")
     fused_attention_qkv_bwd.launches += 1
     return dqkv
 
 
 class _AttentionQkv(torch.autograd.Function):
     """Saves (qkv, seed), the residuals of the JAX package's
-    `_vjp_fwd_qkv`: the mask is regenerated."""
+    `_vjp_fwd_qkv`: the mask is regenerated; in bf16 (`keep_stats`) also
+    the forward's statistics, as `_AttentionProj`."""
 
     @staticmethod
-    def forward(ctx, qkv, seed, num_heads, rate):
-        ctx.save_for_backward(qkv, seed)
+    def forward(ctx, qkv, seed, num_heads, rate, keep_stats):
         ctx.num_heads, ctx.rate = num_heads, rate
-        return _attention_qkv_forward(qkv, num_heads, rate, seed)
+        if not keep_stats:
+            ctx.save_for_backward(qkv, seed)
+            return _attention_qkv_forward(qkv, num_heads, rate, seed)
+        out, stats = _attention_qkv_forward(qkv, num_heads, rate, seed,
+                                            with_stats=True)
+        ctx.save_for_backward(qkv, seed, stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, seed = ctx.saved_tensors
+        qkv, seed, *stats = ctx.saved_tensors
         dqkv = fused_attention_qkv_bwd(qkv, g.contiguous(), ctx.num_heads,
-                                       ctx.rate, seed)
-        return dqkv, None, None, None
+                                       ctx.rate, seed, *stats)
+        return dqkv, None, None, None, None
 
 
 def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
@@ -1494,9 +1622,11 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
     packed qkv (B, S, 3C) laid out [k | v | q] (GatedAttn's in_proj order)
     -> (B, S, C); `seed` as `fused_attention`'s. Differentiable in qkv. CPU
     tensors take the plain versions (`attention_long_plain[_bwd]`, the same
-    function); CUDA tensors launch the kernels or raise (S > 512, a head
-    width outside HEAD_DIMS, anything but float32)."""
-    return _AttentionQkv.apply(qkv, seed, num_heads, rate)
+    function); CUDA tensors launch the kernels (float32 or bf16) or raise
+    (S > 512, a head width outside HEAD_DIMS, any other dtype)."""
+    keep_stats = (qkv.dtype == torch.bfloat16 and torch.is_grad_enabled()
+                  and qkv.requires_grad)
+    return _AttentionQkv.apply(qkv, seed, num_heads, rate, keep_stats)
 
 
 fused_attention_proj.launches = 0

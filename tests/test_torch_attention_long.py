@@ -130,7 +130,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
 
 
 @pytest.mark.parametrize("fault,error,match", [
-    ("long", ValueError, "2048"), ("head_width", ValueError, "head width"),
+    ("long", ValueError, str(fa.MAX_S_LONG)),
+    ("head_width", ValueError, "head width"),
     ("float64", TypeError, "float32"), ("no_seed", ValueError, "seed"),
     ("shape", ValueError, "3C")])
 def test_wrapper_checks(fault, error, match):

@@ -46,8 +46,9 @@ def test_route_table(c, s, entry, width):
                                  and c // HEADS in fa.PROJ_HEAD_DIMS)
 
 
-@pytest.mark.parametrize("c,s,match", [(2048, 16, "256"), (96, 2049, "2048"),
-                                       (90, 16, "multiple")])
+@pytest.mark.parametrize("c,s,match", [
+    (2048, 16, "256"), (96, fa.MAX_S_LONG + 1, str(fa.MAX_S_LONG)),
+    (90, 16, "multiple")])
 def test_route_raises_beyond_the_kernels(c, s, match):
     with pytest.raises(ValueError, match=match):
         kernels.attention_route(s, c, HEADS)

@@ -161,12 +161,15 @@ def test_constants_match_the_sources():
     assert GEMM_TILES == {"large": (128, 128, 64, 32, 3),
                           "small": (64, 64, 32, 32, 3)}
     assert {k: v[:2] for k, v in GEMM_TILES.items()} == fa.GEMM_TILES
-    long_cu = (CSRC / "fused_attention_long.cu").read_text()
-    for entry in ("gpnf_attention_long_fwd_bf16", "gpnf_attention_long_bwd_bf16"):
-        body = long_cu[long_cu.index(f"int {entry}"):]
+    # the packed bf16 entries (the long one's and `fused_attention_qkv`'s)
+    # call the headers' helpers, which take the widths built in bf16
+    for helper in ("attention_packed_fwd_bf16", "attention_packed_bwd_bf16"):
+        body = WGFWD[WGFWD.index(f"inline int {helper}("):]
         body = body[:body.index("\n}\n")]
         cases = tuple(int(x) for x in re.findall(r"case (\d+):", body))
-        assert cases == fa.BF16_HEAD_DIMS == (24, 128, 256), entry
+        assert cases == fa.BF16_HEAD_DIMS == (24, 128, 256), helper
+        for cu in ("fused_attention_long.cu", "fused_attention_bf16.cu"):
+            assert f"gpnf::{helper}(" in (CSRC / cu).read_text(), (cu, helper)
     assert "gpnf_attention_gemm_bf16" in GEMM
     assert "m16n8k16.row.col.f32.bf16.bf16.f32" in MMA
     # the tiles by width: keys of the forward (without and with dropout)

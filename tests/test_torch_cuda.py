@@ -367,11 +367,12 @@ def test_long_attention_autograd_launches_both_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_long_attention_rejects_what_the_kernels_do_not_take(cuda_device):
-    qkv, g, _ = _qkv_inputs(cuda_device, 2049, batch=1)
-    with pytest.raises(ValueError, match="2048"):
-        kernels.attention_long_qkv(qkv, 4)
-    with pytest.raises(ValueError, match="2048"):
-        kernels.attention_long_qkv_bwd(qkv, g, 4)
+    # S past the kernels' int indices, on the meta device (checked first)
+    too_long = torch.zeros((1, fa.MAX_S_LONG + 1, 288), device="meta")
+    with pytest.raises(ValueError, match=str(fa.MAX_S_LONG)):
+        kernels.attention_long_qkv(too_long, 4)
+    with pytest.raises(ValueError, match=str(fa.MAX_S_LONG)):
+        kernels.attention_long_qkv_bwd(too_long, too_long[..., :96], 4)
     qkv, g, _ = _qkv_inputs(cuda_device, 576, batch=1)
     with pytest.raises(TypeError, match="float32"):
         kernels.attention_long_qkv(qkv.double(), 4)
@@ -965,6 +966,252 @@ def test_core_attention_rejects_what_the_kernels_do_not_take(cuda_device):
                 call()
 
 
+# -- the core entries on bf16 operands -----------------------------------------
+def _core_bf16_inputs(device, shape, seed=0):
+    """`_core_inputs` rounded to bf16."""
+    return tuple(_bf16(t) if t.dtype == torch.float32 else t
+                 for t in _core_inputs(device, shape, seed))
+
+
+def _split_bwd_held(grads, want):
+    """The split bf16 backward's bar (`bf16_top_ulp_readings`): dq, dk and
+    dv within one bf16 ulp of their largest |plain|, at most 5% of their
+    values differing."""
+    for got, plain in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        readings = fa.bf16_top_ulp_readings(got, plain)
+        assert readings[-1], readings
+
+
+def _packed_bwd_held(dqkv, want, c):
+    """The packed bf16 pair's bar (phase 20's for the same kernels): dK, dV
+    and dq each within 2^-7 of its largest |plain|."""
+    for i in range(3):
+        got, plain = (x[..., i * c:(i + 1) * c].float() for x in (dqkv, want))
+        assert float((got - plain).abs().max()) <= \
+            2.0 ** -7 * float(plain.abs().max()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("shape", CORE_SHAPES)
+def test_core_bf16_kernels_match_plain_on_card(cuda_device, shape, rate,
+                                               layout):
+    """bf16 q, k, v (or qkv) and g, one seed for kernel and plain version:
+    the forward within 2^-7 max |v|; the split backward (`_bwd_kernel`'s
+    recipe) within one bf16 ulp of each gradient's largest value, at most
+    5% of the values differing; the packed backward within 2^-7 of each
+    third's largest; two calls bit for bit; one launch of each bf16 kernel
+    a call, counted on the entry too."""
+    q, k, v, g, qkv, g3, seed = _core_bf16_inputs(cuda_device, shape)
+    heads, dh = shape[1], shape[3]
+    kernels.reset_launch_counts()
+    if layout == "split":
+        got = kernels.fused_attention(q, k, v, rate, seed)
+        want = kernels.attention_plain(q, k, v, rate, seed)
+        grads = kernels.fused_attention_bwd(q, k, v, g, rate, seed)
+        assert all(torch.equal(a, b) for a, b in zip(
+            grads, kernels.fused_attention_bwd(q, k, v, g, rate, seed)))
+        _split_bwd_held(grads, kernels.attention_plain_bwd(q, k, v, g, rate,
+                                                           seed))
+        names = ("fused_attention", "fused_attention_bwd")
+    else:
+        got = kernels.fused_attention_qkv(qkv, heads, rate, seed)
+        want = kernels.attention_long_plain(qkv, heads, rate, seed)
+        dqkv = kernels.fused_attention_qkv_bwd(qkv, g3, heads, rate, seed)
+        assert torch.equal(dqkv, kernels.fused_attention_qkv_bwd(
+            qkv, g3, heads, rate, seed))
+        _packed_bwd_held(dqkv, kernels.attention_long_plain_bwd(
+            qkv, g3, heads, rate, seed, scale_dq_in_fp32=True), heads * dh)
+        names = ("fused_attention_qkv", "fused_attention_qkv_bwd")
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2.0 ** -7 * float(v.float().abs().max())
+    counts = kernels.launch_counts()
+    # one forward and two backward calls; the packed backward without the
+    # forward's statistics runs the forward kernel first for them
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts.update({names[0]: 1, names[1]: 2,
+                        names[0] + "_bf16": 1 + 2 * (layout == "packed"),
+                        names[1] + "_bf16": 2})
+    assert counts == want_counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_core_bf16_every_width_matches_plain_on_card(cuda_device, dh):
+    """The split entry at every built width (Dh 4 through its zero-padded
+    copy to 8, counted) and the packed one (each width padded to 24, 128
+    or 256 as the long entry pads it), S 100, rate 0.2, the bars of
+    `test_core_bf16_kernels_match_plain_on_card`."""
+    shape = (3, 4, 100, dh)
+    q, k, v, g, qkv, g3, seed = _core_bf16_inputs(cuda_device, shape)
+    padded = kernels.core_bf16_padded.launches
+    out = kernels.fused_attention(q, k, v, 0.2, seed)
+    assert out.shape == q.shape
+    assert float((out.float() - kernels.attention_plain(
+        q, k, v, 0.2, seed).float()).abs().max()) <= \
+        2.0 ** -7 * float(v.float().abs().max())
+    _split_bwd_held(kernels.fused_attention_bwd(q, k, v, g, 0.2, seed),
+                    kernels.attention_plain_bwd(q, k, v, g, 0.2, seed))
+    assert kernels.core_bf16_padded.launches == padded + 2 * (dh == 4)
+    out = kernels.fused_attention_qkv(qkv, 4, 0.2, seed)
+    assert float((out.float() - kernels.attention_long_plain(
+        qkv, 4, 0.2, seed).float()).abs().max()) <= \
+        2.0 ** -7 * float(v.float().abs().max())
+    _packed_bwd_held(kernels.fused_attention_qkv_bwd(qkv, g3, 4, 0.2, seed),
+                     kernels.attention_long_plain_bwd(
+                         qkv, g3, 4, 0.2, seed, scale_dq_in_fp32=True),
+                     4 * dh)
+
+
+@pytest.mark.cuda
+def test_core_bf16_autograd_launches_each_kernel_once(cuda_device):
+    """Both entries through autograd on bf16: one launch of each of the four
+    bf16 kernels (the packed forward keeps its statistics, so its backward
+    runs no forward), the gradients the backward kernels' own."""
+    q, k, v, g, qkv, g3, seed = _core_bf16_inputs(cuda_device, (4, 4, 64, 24))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, qkv)]
+    kernels.reset_launch_counts()
+    kernels.fused_attention(*leaves[:3], 0.2, seed).backward(g)
+    kernels.fused_attention_qkv(leaves[3], 4, 0.2, seed).backward(g3)
+    counts = kernels.launch_counts()
+    core = ("fused_attention", "fused_attention_bwd", "fused_attention_qkv",
+            "fused_attention_qkv_bwd")
+    want = dict.fromkeys(counts, 0)
+    want.update({n: 1 for n in core}, **{n + "_bf16": 1 for n in core})
+    assert counts == want
+    grads = (*kernels.fused_attention_bwd(q, k, v, g, 0.2, seed),
+             kernels.fused_attention_qkv_bwd(qkv, g3, 4, 0.2, seed))
+    assert all(torch.equal(leaf.grad, w) for leaf, w in zip(leaves, grads))
+
+
+@pytest.mark.cuda
+def test_core_bf16_takes_unaligned_operands_on_card(cuda_device):
+    """bf16 operands off a 16-byte boundary are copied aligned before the
+    tensor maps and cp.async loads: the aligned call's bits."""
+    q, k, v, g, _, _, seed = _core_bf16_inputs(cuda_device, (2, 4, 64, 24))
+    shift = lambda t: torch.empty(t.numel() + 1, dtype=torch.bfloat16,
+                                  device=cuda_device)[1:].view_as(t).copy_(t)
+    assert shift(q).data_ptr() % 16
+    assert torch.equal(kernels.fused_attention(shift(q), k, shift(v), 0.2,
+                                               seed),
+                       kernels.fused_attention(q, k, v, 0.2, seed))
+    for a, b in zip(kernels.fused_attention_bwd(q, shift(k), v, shift(g),
+                                                0.2, seed),
+                    kernels.fused_attention_bwd(q, k, v, g, 0.2, seed)):
+        assert torch.equal(a, b)
+
+
+def _gated_attn_through_plain(monkeypatch):
+    """GatedAttn's attention on the plain versions (autograd through them),
+    on whatever device its tensors are."""
+    from gpnf_tpu_torch.ops import mixlogcdf
+
+    def plain(seq, w, heads, rate, seed):
+        return kernels.attention_long_plain(fa.qkv_plain(seq, w), heads,
+                                            rate, seed)
+    monkeypatch.setattr(mixlogcdf, "fused_attention_long", plain)
+
+
+def _gated_attn_runs(device, monkeypatch, dtypes):
+    """{(dtype, "kernels" or "plain"): {"out", "dx", each weight's gradient
+    by name}} of
+    GatedAttn (C 96) at 48 x 48, S 2304, batch 2, in training (rate 0.2,
+    one seed), on the long entry's kernels and with the plain versions in
+    their place."""
+    from gpnf_tpu_torch.ops import mixlogcdf
+
+    attn = mixlogcdf.GatedAttn(96, drop_prob=0.2).to(device).train()
+    assert attn.route(2304).entry == "wide"
+    r = np.random.default_rng(77)
+    x = _normal(r, (2, 48, 48, 96)).to(device)
+    g = _normal(r, (2, 48, 48, 96), 0.5).to(device)
+    runs = {}
+    for path in ("kernels", "plain"):
+        if path == "plain":
+            _gated_attn_through_plain(monkeypatch)
+        for dtype in dtypes:
+            attn.zero_grad()
+            leaf = x.to(dtype).clone().requires_grad_()
+            kernels.reset_launch_counts()
+            out = attn(leaf, generator=torch.Generator(
+                device=device).manual_seed(5))
+            out.backward(g.to(dtype))
+            counts = kernels.launch_counts()
+            assert (counts["fused_attention_long"],
+                    counts["fused_attention_long_bwd"]) == (
+                        (0, 0) if path == "plain" else (1, 1))
+            runs[dtype, path] = {
+                "out": out.detach().float(), "dx": leaf.grad.float(),
+                **{name: p.grad.float()
+                   for name, p in attn.named_parameters()}}
+    return runs
+
+
+@pytest.mark.cuda
+def test_gated_attn_beyond_2048_matches_plain_on_card(cuda_device,
+                                                      monkeypatch):
+    """GatedAttn (C 96) at 48 x 48, S 2304, batch 2, in training (rate 0.2,
+    one seed): forward and backward on the long entry's kernels against the
+    same module on the plain versions. float32 within 1e-5 (out) and 1e-4
+    of each gradient's largest. bf16, whose gate's products round what the
+    attention hands them: out, dx and each weight's gradient within
+    `grad_parity`'s bar of the plain bf16 module's (3 times its own
+    distance from the float32 module's; the attention's own bar, 2^-7
+    max |v|, is `test_bf16_forward_beyond_2048_at_wide_tiles`')."""
+    runs = _gated_attn_runs(cuda_device, monkeypatch,
+                            (torch.float32, torch.bfloat16))
+    got, want = runs[torch.float32, "kernels"], runs[torch.float32, "plain"]
+    assert float((got["out"] - want["out"]).abs().max()) <= 1e-5
+    for name, b in want.items():
+        if name != "out":
+            assert float((got[name] - b).abs().max()) <= 1e-4 * float(
+                b.abs().max()), name
+    got16 = runs[torch.bfloat16, "kernels"]
+    assert all(torch.isfinite(a).all() for a in got16.values())
+    rows = grad_parity.bf16_grad_parity(got16, runs[torch.bfloat16, "plain"],
+                                        want)
+    assert rows[0][0] <= 1.0, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("c", [96, 512, 1024])
+def test_bf16_forward_beyond_2048_at_wide_tiles(cuda_device, c, rate):
+    """The bf16 forward at S 2304: Dh 24 (GatedAttn's C 96), and its
+    in-place P V sum at W 128 and 256 (C 512, 1024; 36 or 72 key tiles,
+    past the 64 of S 2048): within 2^-7 max |v| of the plain version."""
+    r = np.random.default_rng(78)
+    qkv = _bf16(_normal(r, (2, 2304, 3 * c))).to(cuda_device)
+    seed = torch.tensor([12], dtype=torch.int32, device=cuda_device)
+    got = kernels.attention_long_qkv(qkv, 4, rate, seed)
+    want = kernels.attention_long_plain(qkv, 4, rate, seed)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2.0 ** -7 * float(qkv[..., c:2 * c].float().abs().max())
+
+
+@pytest.mark.cuda
+def test_bf16_keep_bits_at_s_2304_batch_64(cuda_device):
+    """The bf16 backward's keep-bit scratch at B 64, H 4, S 2304 (B H Sp^2 /
+    8 bytes, 170 MB): two calls bit for bit, finite, and the first two batch
+    rows (the same rows and masks as a call at batch 2) against the plain
+    version within phase 20's bar."""
+    r = np.random.default_rng(79)
+    qkv = _bf16(_normal(r, (64, 2304, 288), 0.5)).to(cuda_device)
+    g = _bf16(_normal(r, (64, 2304, 96))).to(cuda_device)
+    seed = torch.tensor([13], dtype=torch.int32, device=cuda_device)
+    assert fa.keep_bits_scratch(64, 4, 2304, 0.2, "meta").numel() * 4 == \
+        64 * 4 * 2304 ** 2 // 8
+    dqkv = kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2, seed)
+    assert torch.equal(dqkv, kernels.attention_long_qkv_bwd(qkv, g, 4, 0.2,
+                                                            seed))
+    assert torch.isfinite(dqkv).all()
+    want = kernels.attention_long_plain_bwd(qkv[:2], g[:2], 4, 0.2, seed)
+    _packed_bwd_held(dqkv[:2], want, 96)
+
+
 # -- the lane-split kernels (Dh = 128, 256) and GatedAttn at every width -----------
 def _lane_counts():
     return (kernels.attention_lanes.launches,
@@ -1262,8 +1509,9 @@ def _hmma_counts(pattern, sources=("fused_attention_long",
 def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
     """Every instantiation of the tensor-core dq and dK/dV kernels (the 9
     built widths, the flagship's Dh 24 among them, with and without
-    dropout, in both libraries that build them) holds HMMA instructions in
-    its SASS. Skipped only where the toolkit has no cuobjdump to read the
+    dropout, in both libraries that build them, and the split heads' bf16
+    ones at every width but 4 in their own) holds HMMA instructions in its
+    SASS. Skipped only where the toolkit has no cuobjdump to read the
     SASS with."""
     for source, hmma in _hmma_counts("attention_mma_d").items():
         layouts = 1 if source == "fused_attention_long" else 2
@@ -1271,6 +1519,12 @@ def test_mma_backward_kernels_run_on_the_tensor_cores(cuda_device):
         dh24 = [n for name, n in hmma.items() if "ILi24E" in name]
         assert len(dh24) == 2 * 2 * layouts, sorted(hmma)
         assert all(n > 0 for n in hmma.values()), hmma
+    # the split heads on bf16 operands (fused_attention_bf16.cu), at every
+    # width but 4
+    hmma = _hmma_counts("attention_mma_d", ("fused_attention_bf16",))[
+        "fused_attention_bf16"]
+    assert len(hmma) == 2 * 2 * (len(fa.HEAD_DIMS) - 1), sorted(hmma)
+    assert all("nv_bfloat16" in name and n > 0 for name, n in hmma.items())
 
 
 @pytest.mark.cuda
@@ -1737,8 +1991,7 @@ def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
     """No fallback: what the bf16 kernels do not take raises before any
     launch: a head width above 256 (on the card as on the CPU), mixed bf16
     / float32 operands (the proj entry, the GEMMs, the backward, the fused
-    gated conv's forward and backward), the core entries' float32-only
-    kernels."""
+    gated conv's forward and backward, the core entries)."""
     r = np.random.default_rng(34)
     seq = _bf16(_normal(r, (2, 64, 96), 0.5)).to(cuda_device)
     w = _bf16(_normal(r, (288, 96), 0.1)).to(cuda_device)
@@ -1762,10 +2015,10 @@ def test_bf16_refusals_name_the_kernel_and_the_limit(cuda_device):
         with pytest.raises(TypeError, match="dtype"):
             call()
     q = _bf16(_normal(r, (2, 4, 64, 24))).to(cuda_device)
-    with pytest.raises(TypeError, match="fused_attention.*float32"):
-        kernels.fused_attention(q, q, q)
-    with pytest.raises(TypeError, match="fused_attention_qkv.*float32"):
-        kernels.fused_attention_qkv(dqkv, 4)
+    with pytest.raises(TypeError, match="fused_attention.*dtype"):
+        kernels.fused_attention(q, q.float(), q)
+    with pytest.raises(TypeError, match="fused_attention_qkv_bwd.*dtype"):
+        kernels.fused_attention_qkv_bwd(dqkv, g.float(), 4)
     x, w1, b1, wg, bg, g = (_bf16(t_).to(cuda_device) for t_ in
                             _gated_conv_inputs("cpu", 16, 8, 8))
     for call in (lambda: kernels.fused_gated_conv(x, w1.float(), b1, wg, bg),
