@@ -56,7 +56,18 @@ Phases, each of which raises (exit code != 0) when it fails:
      affine coupling ((1024, 384), (1024, 192), (4096, 384)), each with its
      time, the plain version's, the library call's and its bound; and each
      kernel's backward on the card against float64 autograd of the plain
-     version on the CPU;
+     version on the CPU; the Cholesky's trailing_precision="high" (its
+     trailing launch's bf16x3 branch on the tensor cores) against plain
+     "high" (1e-5 relative and by the residual) at n = 63, 65, 129, 200,
+     1000, 2048 (P 64, 128) and 200, 2048 in float64, and timed at n =
+     1024, 2048, 4096 (P 256) and 1024 in float64 beside "highest" on the
+     same matrix and cholesky_ex, bound by its bf16x3 products at the bf16
+     rate and the rest at fp32's; two calls bit for bit, not "highest"'s
+     factor, NaN without an error, 2 ceil(n/64) - 1 device launches, the
+     trailing kernel alone (one launch for one panel) against its plain
+     version within the float32 sums' spread; then one call through
+     `cholesky(a, "high")` at n = 4096 with the counts set to 0 just before
+     (cholesky 1, cholesky_high 1). Phases 11 and 12 launch no "high";
  11. the flow -> GP run of `train_gp --flow` at full size (n_train 1024,
      n_test 256, 16x16x3, affine L=2 K=2 hidden 32, Gaussian priors, 100
      pretrain + 150 fit steps each for the raw, frozen and joint models)
@@ -123,9 +134,12 @@ Phases, each of which raises (exit code != 0) when it fails:
      `fused_attention_qkv` on packed qkv, which no path of the system
      runs): their four kernels against their plain versions at batch 64,
      4 heads, S = 256 / 64 / 16 / 512 / 100 at Dh = 24 and S = 512 at
-     Dh = 64, and the packed forward at Dh = 4, 8, 16, 32, 48 (S = 256),
-     rate 0 and 0.2 (one seed: the same mask), two calls of each bit for
-     bit the same, S = 513, Dh = 20 and float64 refused, each with its
+     Dh = 64, at the long entry's shapes past the JAX kernels' (S 1024 at
+     batch 8 and 2304 at batch 2, Dh 24; Dh 40 and 96, padded to 48 and
+     128, at S 256), and the packed forward at Dh = 4, 8, 16, 32, 48 (S =
+     256), rate 0 and 0.2 (one seed: the same mask), two calls of each bit
+     for bit the same, S = MAX_S_LONG + 1, Dh = 260 and float64 refused,
+     each with its
      time, the plain version's, SDPA's (rate 0) and its bound (at 3xTF32's
      rate, every kernel on the tensor cores; the fp32 rate's beside it); at
      rate
@@ -249,7 +263,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      step of the 64-px row and of phase 18's --C 512 model, with exact
      launch counts. Every earlier phase asserts that it launches no bf16
      gated-conv kernel.
-The line before the last is the kernels' JSON record; the last line is
+Each phase logs its time (`phase_s` in chip_smoke.json). The line before
+the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. TF32 is off throughout.
 """
 from __future__ import annotations
@@ -291,7 +306,9 @@ LEVELS = [(256, 1536), (64, 768), (16, 384)]
 AFFINE_OPS = 10     # per element: add, exp, log1p, two selects, add,
                     # divide, multiply-add, sum
 GP_KERNELS = ("fused_affine_forward", "cholesky", "tril_solve")
-NO_GP = dict.fromkeys(GP_KERNELS, 0)  # the flagship paths launch none
+# the flagship paths launch none; nor does any path the Cholesky's
+# trailing_precision="high" (`cholesky_high`, phase 10's own drive)
+NO_GP = dict.fromkeys(GP_KERNELS + ("cholesky_high",), 0)
 # the titular flow -> GP run (the JAX package's docs/evidence record of
 # `train_gp.py --flow`)
 GP_RUN = ["--flow", "--n_train", "1024", "--n_test", "256", "--steps", "150",
@@ -313,6 +330,15 @@ CHOL_EDGES = tuple((n, dtype) for dtype in (torch.float32, torch.float64)
 # trailing launch (64, 128), the first pivot, one inside a tile, and one in
 # a ragged last tile
 CHOL_NAN = ((512, 0), (512, 64), (512, 128), (512, 300), (200, 195))
+# trailing_precision="high" (phase 10): timed at the default panel width
+# (256 up to n = 4096) beside "highest" and cholesky_ex; checked, not timed,
+# at the blocking's edges and other panel widths, (n, P), in float32 and,
+# the last two, float64; the trailing kernel alone at (n, P, panel j)
+CHOL_HIGH_CASES = ((1024, torch.float32), (2048, torch.float32),
+                   (4096, torch.float32), (1024, torch.float64))
+CHOL_HIGH_EDGES = ((63, 64), (65, 64), (129, 64), (200, 64), (1000, 128),
+                   (2048, 64), (200, 64), (2048, 128))
+CHOL_TRAILING = ((1024, 128, 0), (1024, 128, 2), (1000, 64, 5))
 SOLVE_SIZES = (1024, 4096)
 POSTERIOR_P = 256  # the posterior's L^-1 K_* at n = 1024 (n_test 256)
 AFFINE_SHAPES = ((1024, 384), (1024, 192), (4096, 384))
@@ -386,14 +412,15 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def bound(bytes_moved, ops, peak_ops=PEAK_OPS, tc_ops=0):
+def bound(bytes_moved, ops, peak_ops=PEAK_OPS, tc_ops=0, bf16_ops=0):
     """(least ms, "bytes" or "operations") at the card's memory rate and
     `peak_ops`: PEAK_OPS for SIMT fp32, PEAK_OPS_3XTF32 for a kernel whose
     products run on the tensor cores; `tc_ops` more operations at
     PEAK_OPS_3XTF32 (a call with some of its work off the tensor cores
-    and its products on them)."""
+    and its products on them), `bf16_ops` more at PEAK_OPS_BF16."""
     t_bytes = bytes_moved / PEAK_BYTES
-    t_ops = ops / peak_ops + tc_ops / PEAK_OPS_3XTF32
+    t_ops = (ops / peak_ops + tc_ops / PEAK_OPS_3XTF32
+             + bf16_ops / PEAK_OPS_BF16)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1040,8 +1067,8 @@ def check_gp_kernels(device, timer):
                                         device=device)).to(dtype)
 
     def record(name, shape, err, ms, plain_ms, library_ms, bytes_moved, ops,
-               **extra):
-        bound_ms, bound_by = bound(bytes_moved, ops)
+               bf16_ops=0, **extra):
+        bound_ms, bound_by = bound(bytes_moved, ops, bf16_ops=bf16_ops)
         row = dict(shape=shape, **extra, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
@@ -1097,13 +1124,21 @@ def check_gp_kernels(device, timer):
             f"leading block finite, the upper triangle zero")
         a = spd(1024, torch.float32)
         want = kernels.cholesky_device_launches(1024)
-        chol = {k: c for k, c in device_launches(
-            lambda: kernels.cholesky(a)).items() if k.startswith("chol_")}
-        log(f"  device launches of one factorization at n=1024: "
-            f"{sum(chol.values())} {chol} (want {want}: 2 ceil(n/64) - 1)")
-        if sum(chol.values()) != want:
-            raise AssertionError(f"cholesky launched {chol}, want {want}")
-        launches_1024 = {"launches": sum(chol.values()), "by_kernel": chol}
+        launches_1024 = {}
+        for mode in ("highest", "high"):
+            chol = {k: c for k, c in device_launches(
+                lambda: kernels.cholesky(a, mode)).items()
+                if k.startswith("chol_")}
+            log(f"  device launches of one {mode} factorization at n=1024: "
+                f"{sum(chol.values())} {chol} (want {want}: 2 ceil(n/64) - "
+                f"1)")
+            if sum(chol.values()) != want:
+                raise AssertionError(f"cholesky {mode} launched {chol}, want "
+                                     f"{want}")
+            launches_1024[mode] = {"launches": sum(chol.values()),
+                                   "by_kernel": chol}
+        results["cholesky_high_trailing"] = check_cholesky_high(
+            device, kernels, spd, timer, slow, record)
 
         solve_launches = {}
         for n in SOLVE_SIZES:
@@ -1198,9 +1233,118 @@ def check_gp_kernels(device, timer):
             f"(bar 1e-10)")
         if not backward[name] <= 1e-10:
             raise AssertionError(f"{name} backward: {backward[name]}")
-    results["cholesky_device_launches_n1024"] = launches_1024
+    results["cholesky_device_launches_n1024"] = launches_1024["highest"]
+    results["cholesky_high_device_launches_n1024"] = launches_1024["high"]
     results["tril_solve_device_launches"] = solve_launches
+    # the drive: one "high" factorization through the public entry at
+    # n = 4096, the counts set to 0 just before
+    a = spd(4096, torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    l = kernels.cholesky(a, "high")
+    torch.cuda.synchronize()
+    drive = kernels.launch_counts()
+    want = {**dict.fromkeys(drive, 0), "cholesky": 1, "cholesky_high": 1}
+    log(f"  drive: cholesky(a, \"high\") at n=4096, launches {drive}")
+    if drive != want or not bool(torch.isfinite(l).all()):
+        raise AssertionError(f"the high drive launched {drive} (want "
+                             f"{want}) or gave a factor not finite")
+    results["cholesky_high_drive"] = drive
     return results, backward
+
+
+def check_cholesky_high(device, kernels, spd, timer, slow, record):
+    """Phase 10's trailing_precision="high": the kernel against plain "high"
+    (1e-5 relative to max |L|, and by the residual), two calls bit for bit,
+    the factor not "highest"'s; timed at CHOL_HIGH_CASES beside "highest"
+    on the same matrix and cholesky_ex, the bound the bf16x3 products at
+    the bf16 rate (three each) and the rest at the fp32 rate
+    (`cholesky_high_flops`); checked at CHOL_HIGH_EDGES; NaN without an
+    error where a pivot is negative; the trailing kernel alone
+    (`trailing_high`) against its plain version within its float32 sums'
+    spread. Returns the trailing checks' readings."""
+    ch = importlib.import_module("gpnf_tpu_torch.ops.kernels.cholesky")
+
+    def check(n, p, dtype):
+        a = spd(n, dtype)
+        l = kernels.cholesky(a, "high", p)
+        plain = kernels.cholesky_plain(a, "high", p)
+        err, resid = _rel(l, plain), _rel(l @ l.T, a)
+        same = torch.equal(l, kernels.cholesky(a, "high", p))
+        highest = kernels.cholesky(a)
+        # from n = 2 P many products cross a P-block: not "highest"'s bits
+        crosses = n >= 2 * p
+        log(f"  cholesky high n={n} P={p} {dtype}: |L - plain| / max|L| "
+            f"{err:.3g}, |L L^T - A| / max|A| {resid:.3g} (bar 1e-5 each), "
+            f"two calls bit for bit the same: {same}, |L - highest| / "
+            f"max|L| {_rel(l, highest):.3g}")
+        if not (err <= 1e-5 and resid <= 1e-5 and same
+                and not (crosses and torch.equal(l, highest))
+                and int(torch.count_nonzero(torch.triu(l, 1))) == 0):
+            raise AssertionError(f"cholesky high n={n} P={p} {dtype}: err "
+                                 f"{err}, residual {resid}, repeat {same}, "
+                                 f"or the factor is highest's")
+        return a, plain, err, resid
+
+    for i, (n, p) in enumerate(CHOL_HIGH_EDGES):
+        check(n, p, torch.float32 if i < len(CHOL_HIGH_EDGES) - 2
+              else torch.float64)
+    for n, dtype in CHOL_HIGH_CASES:
+        p = ch.hbm_panel_width(n)
+        a, plain, err, resid = check(n, p, dtype)
+        cross, other = ch.cholesky_high_flops(n, p)
+        record("cholesky_high", f"n={n}", err * float(plain.abs().max()),
+               timer(lambda: kernels.cholesky(a, "high")),
+               slow(lambda: kernels.cholesky_plain(a, "high")),
+               timer(lambda: torch.linalg.cholesky_ex(a)),
+               2 * n * n * a.element_size(), other, bf16_ops=3 * cross,
+               dtype=str(dtype).removeprefix("torch."), panel_width=p,
+               residual=resid, highest_ms=timer(lambda: kernels.cholesky(a)),
+               bf16x3_share=cross / (n ** 3 / 3))
+    for n, row in ((512, 300), (200, 195)):
+        bad = spd(n, torch.float32)
+        bad[row, row] = -1.0
+        l_bad = kernels.cholesky(bad, "high", 64)  # raises nothing
+        torch.cuda.synchronize()
+        if not (torch.isnan(l_bad).any()
+                and torch.isfinite(l_bad[:row, :row]).all()):
+            raise AssertionError(f"cholesky high n={n}, negative pivot at "
+                                 f"row {row}: no NaN or a leading block not "
+                                 f"finite")
+    log("  cholesky high of a matrix that is not positive definite: NaN, no "
+        "error, the leading block finite")
+    readings = []
+    for (n, p, j), dtype in itertools.product(
+            CHOL_TRAILING, (torch.float32, torch.float64)):
+        gen = torch.Generator(device=device).manual_seed(n + j)
+        a = (10 * torch.eye(n, device=device, dtype=torch.float64)
+             + 0.1 * torch.randn((n, n), generator=gen, device=device,
+                                 dtype=torch.float64)).to(dtype)
+        got, want = ch.trailing_high(a, j, p), ch.trailing_high_plain(a, j, p)
+        s = 64 * (j + 1)
+        e = min(n, s + 64)
+        panel = a[:, s - 64:s].double().abs()
+        spread = 2 * 64 * 2.0 ** -24 * (panel @ panel.T) + 2.0 ** -23 * (
+            want.double().abs())
+        lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=device))
+        lower[:s] = False
+        lower[:, :s] = False
+        lower[s:e, s:e] = False
+        diff = (got.double() - want.double()).abs()
+        share = float((diff[lower] / spread[lower]).max())
+        tile = _rel(torch.tril(got[s:e, s:e]), torch.tril(want[s:e, s:e]))
+        log(f"  trailing kernel alone, n={n} P={p} panel {j} {dtype}: max "
+            f"|got - plain| / spread {share:.3g} (bar 1), the factored tile "
+            f"{tile:.3g} (bar 1e-5)")
+        if not (share <= 1.0 and tile <= 1e-5
+                and torch.equal(got[:s], a[:s])):
+            raise AssertionError(f"trailing kernel n={n} P={p} j={j} "
+                                 f"{dtype}: {share} of the spread, tile "
+                                 f"{tile}")
+        readings.append(dict(n=n, panel_width=p, panel=j,
+                             dtype=str(dtype).removeprefix("torch."),
+                             max_err_over_spread=share, tile_rel_err=tile))
+    return readings
 
 
 def gp_run(device, card):
@@ -1218,6 +1362,9 @@ def gp_run(device, card):
     counts = kernels.launch_counts()
     log(f"  launches on the whole GP path {counts}; per joint fit step on "
         f"average {out['joint']['launches_per_step']}")
+    if counts["cholesky_high"]:
+        raise AssertionError(f"the GP path launched the Cholesky's \"high\" "
+                             f"mode: {counts}")
     if any(counts[k] for k in counts if k not in GP_KERNELS):
         raise AssertionError(f"the GP path launched a flagship kernel: {counts}")
     fgp, x, y = bench_flow_gp.build(1024, device, np.random.default_rng(0))
@@ -2096,6 +2243,11 @@ CORE_SHAPES = ((BATCH, 4, 256, 24), (BATCH, 4, 64, 24), (BATCH, 4, 16, 24),
                (BATCH, 4, 512, 24), (BATCH, 4, 512, 64), (BATCH, 4, 100, 24))
 # the forward's other narrow instantiations, packed, at S = 256
 NARROW_WIDTHS = (4, 8, 16, 32, 48)
+# the long entry's shapes that the core entries take on the card too: S
+# 1024 (the 64-px level 0) and 2304 (a 48 x 48 level 0), past the JAX
+# kernels' 512, and Dh 40 and 96, padded to the built 48 and 128
+CORE_WIDE_SHAPES = ((8, 4, 1024, 24), (2, 4, 2304, 24), (BATCH, 4, 256, 40),
+                    (BATCH, 4, 256, 96))
 
 
 def check_core_attention(device, timer):
@@ -2168,7 +2320,7 @@ def check_core_attention(device, timer):
                                                  retain_graph=True))
 
     with torch.no_grad():
-        for shape in CORE_SHAPES:
+        for shape in CORE_SHAPES + CORE_WIDE_SHAPES:
             b, h, s, dh = shape
             q, k, v, g = (randn(*shape) * 0.5 for _ in range(4))
             merge = lambda x: x.transpose(1, 2).reshape(b, s, h * dh)
@@ -2281,16 +2433,20 @@ def check_core_attention(device, timer):
             results.setdefault("agreement", []).append(
                 dict(s=s, long_bit_for_bit=long_equal, **same))
 
+        # where the long entry raises (S past MAX_S_LONG: zero-stride
+        # operands, refused before any copy; Dh above 256), and float64
+        fa = importlib.import_module(
+            "gpnf_tpu_torch.ops.kernels.fused_attention")
         refusals = {
-            "S=513": ((1, 4, 513, 24), torch.float32),
-            "Dh=20": ((1, 4, 64, 20), torch.float32),
+            f"S={fa.MAX_S_LONG + 1}": ((1, 4, fa.MAX_S_LONG + 1, 24),
+                                       torch.float32),
+            "Dh=260": ((1, 4, 64, 260), torch.float32),
             "float64": ((1, 4, 64, 24), torch.float64)}
         for label, (shape, dtype) in refusals.items():
-            q = torch.zeros(shape, dtype=dtype, device=device)
-            qkv = torch.zeros((1, shape[2], 3 * 4 * shape[3]), dtype=dtype,
-                              device=device)
-            g3 = torch.zeros((1, shape[2], 4 * shape[3]), dtype=dtype,
-                             device=device)
+            zero = torch.zeros(1, dtype=dtype, device=device)
+            q = zero.expand(shape)
+            qkv = zero.expand((1, shape[2], 3 * 4 * shape[3]))
+            g3 = zero.expand((1, shape[2], 4 * shape[3]))
             for call in (lambda: kernels.fused_attention(q, q, q),
                          lambda: kernels.fused_attention_bwd(q, q, q, q),
                          lambda: kernels.fused_attention_qkv(qkv, 4),
@@ -2426,7 +2582,8 @@ def check_core_bf16(device, timer):
                 for i in range(3)]
         return max(errs), {"rel_err_dk_dv_dq": errs}, max(errs) <= BF16_BWD_BAR
 
-    shapes = CORE_SHAPES + ((BATCH, 4, 256, 4), (BATCH, 4, 256, 48))
+    shapes = CORE_SHAPES + CORE_WIDE_SHAPES + ((BATCH, 4, 256, 4),
+                                               (BATCH, 4, 256, 48))
     with torch.no_grad():
         for shape in shapes:
             b, h, s, dh = shape
@@ -2438,7 +2595,7 @@ def check_core_bf16(device, timer):
                           for t_ in qkv.split(h * dh, dim=-1))
             seed = torch.tensor([2025 + s + dh], dtype=torch.int32,
                                 device=device)
-            packed = shape in CORE_SHAPES
+            packed = shape in CORE_SHAPES + CORE_WIDE_SHAPES
             for rate in (0.0, RATE):
                 cases = [
                     ("fused_attention_bf16",
@@ -3733,10 +3890,14 @@ def gated_conv_through_plain():
 def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
                           probe_plain_gated_conv=False):
     """One training step at dropout 0 on `model`'s weights in bf16 on the
-    card and on the CPU, in float32 on the CPU, and in bf16 on the CPU on
-    weights moved by 2^-22 (two draws), the same images and noise: the loss
-    within the larger of 1e-3 bits/dim and half the CPU's bf16-vs-float32
-    gap; every gradient tensor within its own bar (`grad_parity`: the
+    card and on the CPU, in float32 on the CPU, and in bf16 on the card and
+    on the CPU on weights moved by 2^-22 (two draws), the same images and
+    noise: the card's loss minus the CPU bf16 loss on the same weights,
+    averaged over the three weight draws, within the larger of 1e-3
+    bits/dim and half the CPU's bf16-vs-float32 gap (a weight move of
+    2^-22 moves one draw's bf16 loss by as much as the bar's order; a
+    fault of the card's moves all three draws); every gradient tensor (on the
+    unmoved weights) within its own bar (`grad_parity`: the
     larger of 1e-3 of its largest float32 value and 3 times its CPU bf16
     noise, a tensor under 12 elements held to the noise pooled over its
     namesakes); the whole gradient's L2 distance from the CPU's float32 one
@@ -3757,8 +3918,10 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
             ("card", device, "bfloat16", model.state_dict()),
             ("cpu16", "cpu", "bfloat16", model.state_dict()),
             ("cpu32", "cpu", "float32", model.state_dict()),
-            *((f"moved{i}", "cpu", "bfloat16",
-               grad_parity.perturbed(model, i)) for i in (1, 2)), *probe):
+            *((f"{run}{i}", dev, "bfloat16", grad_parity.perturbed(model, i))
+              for i in (1, 2)
+              for run, dev in (("moved", "cpu"), ("card_moved", device))),
+            *probe):
         net = MarScfFlow(MarScfConfig(**{**config, "drop_prob": 0.0,
                                          "compute_dtype": dtype}), device=dev)
         net.load_state_dict(weights)
@@ -3774,6 +3937,10 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
                                                step["cpu32"])
     gap = abs(cpu16 - cpu32)
     loss_bar = max(1e-3, 0.5 * gap)
+    # card minus CPU bf16 on each of the three weight draws, and their mean
+    paired = [card - cpu16] + [step[f"card_moved{i}"][0] - step[f"moved{i}"][0]
+                               for i in (1, 2)]
+    loss_diff = abs(statistics.mean(paired))
     rows = grad_parity.bf16_grad_parity(
         g16, c16, c32, [step["moved1"][1], step["moved2"][1]])
     # the same rule for a bf16 run the CPU made: the first moved draw
@@ -3798,11 +3965,13 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
                        f"noise {r[3]:.3g}", f"max {r[4]:.3g}", r[5])
                       for r in rs[:4]]
     log(f"  bf16 train step at batch {x.shape[0]}, dropout 0: loss card "
-        f"{card:.6f} CPU bf16 {cpu16:.6f} CPU float32 {cpu32:.6f} (diff "
-        f"{abs(card - cpu16):.3g}, bar {loss_bar:.3g}: the larger of 1e-3 and "
-        f"half the CPU's bf16-vs-float32 gap {gap:.3g}; two moved CPU bf16 "
-        f"runs {moved_loss[0]:.3g}, {moved_loss[1]:.3g} from the CPU bf16 "
-        f"loss); {len(rows)} "
+        f"{card:.6f} CPU bf16 {cpu16:.6f} CPU float32 {cpu32:.6f}; card "
+        f"minus CPU bf16 on the trained and the two moved weights "
+        f"{[f'{d:.3g}' for d in paired]}, mean {loss_diff:.3g} (bar "
+        f"{loss_bar:.3g}: the larger of 1e-3 and half the CPU's "
+        f"bf16-vs-float32 gap {gap:.3g}); two moved CPU bf16 runs "
+        f"{moved_loss[0]:.3g}, {moved_loss[1]:.3g} from the CPU bf16 "
+        f"loss; {len(rows)} "
         f"gradient tensors, each max |card - CPU bf16| over its bar (the "
         f"larger of {grad_parity.FLOOR:g} of its max |float32| and "
         f"{grad_parity.K:g} x its CPU bf16 noise): median {median:.3g}, "
@@ -3834,16 +4003,19 @@ def bf16_card_vs_cpu_step(model, x, device, config, noise_seed,
             f"{probed['per_tensor_ratio_median']:.3g}, worst "
             f"{fmt(rows_p)}; L2 {probed['grad_l2_ratio']:.3g} x the CPU "
             f"bf16's")
-    if not (finite and abs(card - cpu16) <= loss_bar and rows[0][0] <= 1.0
+    if not (finite and loss_diff <= loss_bar and rows[0][0] <= 1.0
             and l2_ratio <= BF16_GRAD_L2_BAR):
         raise AssertionError(f"bf16 train step card vs CPU: loss "
-                             f"{abs(card - cpu16)} > {loss_bar}, worst "
+                             f"{loss_diff} (mean of {paired}) > {loss_bar}, "
+                             f"worst "
                              f"gradient {fmt(rows)} or L2 {l2_ratio} > "
                              f"{BF16_GRAD_L2_BAR}")
     return {"loss_card": card, "loss_cpu_bf16": cpu16,
             "card_plain_gated_conv_probe": probed,
             "loss_cpu_float32": cpu32, "loss_bar": loss_bar,
             "loss_moved_cpu_bf16_diff": moved_loss,
+            "loss_card_minus_cpu_bf16_by_draw": paired,
+            "loss_card_minus_cpu_bf16_mean": loss_diff,
             "grad_bar_floor": grad_parity.FLOOR, "grad_bar_k": grad_parity.K,
             "grad_l2_ratio": l2_ratio, "per_tensor_ratio_median": median,
             "per_tensor_worst": rows[:4],
@@ -4356,8 +4528,21 @@ def main():
                         "batch of the CLIs' default C = 512")
     args = p.parse_args()
     t_start = time.perf_counter()
+    phase_s, opened = {}, []  # each phase's seconds, header to header
 
-    log("== 1. device")
+    def phase(title=None):
+        """Log a phase's header (None: the end), closing the phase before
+        with its time."""
+        now = time.perf_counter()
+        if opened:
+            number, since = opened.pop()
+            phase_s[number] = now - since
+            log(f"  phase {number} took {phase_s[number]:.1f} s")
+        if title:
+            opened.append((int(title.split(".")[0]), now))
+            log(f"== {title}")
+
+    phase("1. device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); the port's paths need the card")
@@ -4378,7 +4563,7 @@ def main():
     from gpnf_tpu_torch.ops import kernels
     from gpnf_tpu_torch.ops.kernels import _native
 
-    log("== 2. build")
+    phase("2. build")
     t0 = time.perf_counter()
     reports = _native.build()
     for name in _native.SOURCES:
@@ -4403,50 +4588,55 @@ def main():
               generator=torch.Generator(device=device).manual_seed(args.seed))
     loader = NumpyLoader(test_loader.images[:4 * BATCH], BATCH, shuffle=False)
 
-    log("== 3. kernels vs plain versions (batch 64, the three levels)")
+    phase("3. kernels vs plain versions (batch 64, the three levels)")
     timer = Timer(device)
     per_level = check_kernels(device, model, timer)
 
-    log(f"== 4. train: flagship, dropout {RATE}, batch {BATCH}")
+    phase(f"4. train: flagship, dropout {RATE}, batch {BATCH}")
     trained, train_step_fn = train(device, train_loader, args.out, args.seed,
                                    card)
-    log("== 5. serve: flagship eval bits/dim")
+    phase("5. serve: flagship eval bits/dim")
     nll, eval_counts = serve(model, loader, device, args.seed)
-    log("== 6. sample: ancestral grid")
+    phase("6. sample: ancestral grid")
     sample_counts, nan_count = sample(model, args.out, device, args.seed)
-    log("== 7. card vs CPU")
+    phase("7. card vs CPU")
     checks = card_vs_cpu(model, proto, device)
-    log("== 8. timings")
+    phase("8. timings")
     times = timings(model, loader, device, card)
     if args.profile:
-        log("== 9. profile: device time by kernel")
+        phase("9. profile: device time by kernel")
         times["profile"] = profile(flagship_runs(model, loader, device,
                                                  train_step_fn), device, card)
     del train_step_fn
-    log("== 10. GP kernels vs plain versions")
+    phase("10. GP kernels vs plain versions")
     gp_kernels, gp_backward = check_gp_kernels(device, timer)
-    log("== 11. flow -> GP: train_gp --flow at full size, tabular, card vs CPU")
+    phase("11. flow -> GP: train_gp --flow at full size, tabular, card vs CPU")
     gp_out, gp_tab, gp_counts, gp_checks = gp_run(device, card)
-    log("== 12. GP timings")
+    phase("12. GP timings")
     gp_times = gp_timings(device, card, gp_out, args.profile)
+    # from phase 11's last count reset: its joint NLML + gradient, card vs
+    # CPU and phase 12 take the default precision
+    if kernels.cholesky_high.launches:
+        raise AssertionError(f"phases 11-12 launched the Cholesky's \"high\" "
+                             f"mode {kernels.cholesky_high.launches} times")
 
     model64 = MarScfFlow(MarScfConfig(**IMAGENET64), device=device,
                          generator=torch.Generator().manual_seed(args.seed + 40))
     attn64 = model64.levels[0].steps[0].coupling.net.blocks[0].attn
-    log("== 13. long attention kernels vs plain versions (64-px level 0)")
+    phase("13. long attention kernels vs plain versions (64-px level 0)")
     with torch.no_grad():
         w64 = attn64.in_proj.effective_weight().contiguous()  # (288, 96)
     long_kernels = check_long_kernels(device, timer, w64, attn64.num_heads)
-    log(f"== 14. the ImageNet-64 row: train, eval, sample at batch {BATCH}")
+    phase(f"14. the ImageNet-64 row: train, eval, sample at batch {BATCH}")
     row64, x64 = imagenet64_row(model64, device, args.out, args.seed, card,
                                 args.profile)
-    log("== 15. card vs CPU at 64 px")
+    phase("15. card vs CPU at 64 px")
     row64.update(encode_and_step_card_vs_cpu(model64, x64, device, IMAGENET64,
                                              9))
     state64 = model64.state_dict()
     del model64, attn64
 
-    log("== 16. fused GatedConv: kernels vs plain versions, the flagship with "
+    phase("16. fused GatedConv: kernels vs plain versions, the flagship with "
         "fused_gated_conv=True at 32 and 64 px")
     t0 = time.perf_counter()
     gconv = model.levels[0].steps[0].coupling.net.blocks[0].conv
@@ -4465,17 +4655,13 @@ def main():
     t1 = time.perf_counter()
     fgc512 = c512_fused(device, args.seed, card)
     torch.cuda.empty_cache()
-    log(f"  phase 16's C = 512 path took {time.perf_counter() - t1:.1f} s; "
-        f"phase 16 took {time.perf_counter() - t0:.1f} s")
-    log("== 17. core attention kernels (fused_attention, fused_attention_qkv) "
+    log(f"  phase 16's C = 512 path took {time.perf_counter() - t1:.1f} s")
+    phase("17. core attention kernels (fused_attention, fused_attention_qkv) "
         "vs plain versions")
-    t0 = time.perf_counter()
     core_kernels, core_drive = check_core_attention(device, timer)
-    log(f"  phase 17 took {time.perf_counter() - t0:.1f} s")
-    log("== 18. GatedAttn at every width: the tensor-core kernels (Dh = 128, "
+    phase("18. GatedAttn at every width: the tensor-core kernels (Dh = 128, "
         "256) vs plain versions, the flagship's routes, the CLIs' default "
         "--C 512 trained and served")
-    t0 = time.perf_counter()
     lane_kernels = check_lane_kernels(device, timer)
     flagship_routes = flagship_routes_unchanged(device, model)
     c512 = cli_default_width(device, args.out, card)
@@ -4483,8 +4669,7 @@ def main():
         c512["profile"] = profile(c512_runs(device), device, card,
                                   keep=("gpnf::attention_lanes",
                                         "gpnf::attention_mma"))
-    log(f"  phase 18 took {time.perf_counter() - t0:.1f} s")
-    log("== 19. serving the flagship in bf16: the bf16 qkv GEMM and "
+    phase("19. serving the flagship in bf16: the bf16 qkv GEMM and "
         "attention forward vs plain versions, the flagship's eval and "
         "sampling, the 64-px row and --C 512")
     t0 = time.perf_counter()
@@ -4494,8 +4679,7 @@ def main():
                          args.seed, card)
     bf16.update(bf16_other_models(device, args.seed, card))
     check_aligned_route(19)
-    log(f"  phase 19 took {time.perf_counter() - t0:.1f} s")
-    log("== 20. training the flagship in bf16: the bf16 dq and dK/dV pair "
+    phase("20. training the flagship in bf16: the bf16 dq and dK/dV pair "
         "and the bf16 GEMM's dseq and dW vs plain versions, every head "
         "width, the flagship's train steps, C 192 and --C 512")
     t0 = time.perf_counter()
@@ -4506,8 +4690,7 @@ def main():
                                      trained["train_peak_memory_bytes"])
     bf16_train.update(bf16_train_other_widths(device, args.seed, card))
     check_aligned_route(20)
-    log(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
-    log("== 21. the flagship in bf16 with the fused GatedConv: the bf16 "
+    phase("21. the flagship in bf16 with the fused GatedConv: the bf16 "
         "gated-conv kernels vs plain versions, the flagship's train steps, "
         "eval and sampling, the 64-px row and --C 512")
     t0 = time.perf_counter()
@@ -4519,7 +4702,7 @@ def main():
                                 bf16_train["train_peak_memory_bytes"])
     fgc16.update(bf16_fused_other_models(device, args.seed, card))
     unaligned = check_aligned_route(21)
-    log(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+    phase()
 
     attention = ("gpnf_tpu_torch/csrc/fused_attention_long.cu",
                  "gpnf_tpu/ops/pallas/fused_attention.py:")
@@ -4538,6 +4721,11 @@ def main():
                                  "gpnf_tpu/ops/pallas/fused_coupling.py:22"),
         "cholesky": ("gpnf_tpu_torch/csrc/cholesky.cu",
                      "gpnf_tpu/ops/pallas/cholesky.py:220"),
+        # trailing_precision="high": the same factorization, its trailing
+        # launch with a bf16x3 branch (`_hbm_chol_kernel`'s :344 branch on
+        # `_dot_bf16x3` :54)
+        "cholesky_high": ("gpnf_tpu_torch/csrc/cholesky.cu",
+                          "gpnf_tpu/ops/pallas/cholesky.py:291"),
         "tril_solve": ("gpnf_tpu_torch/csrc/tril_solve.cu",
                        "gpnf_tpu/ops/pallas/trisolve.py:84"),
         "fused_attention_long": (attention[0], attention[1] + "533"),
@@ -4634,6 +4822,7 @@ def main():
                     "train_c512_fgc": fgc512["launches"][name],
                     "eval_c512_fgc": fgc512["eval_launches"][name],
                     "core_attention": core_drive[name],
+                    "cholesky_high": gp_kernels["cholesky_high_drive"][name],
                     "train_c512": c512["launches"][name],
                     "serve_c512": c512["eval_launches"][name],
                     "eval_bf16": bf16["eval_launches"][name],
@@ -4672,6 +4861,33 @@ def main():
             if name == "tril_solve":
                 entry["device_launches"] = gp_kernels[
                     "tril_solve_device_launches"]
+        elif name == "cholesky_high":
+            # n = 4096 in float32, where the trailing products dominate;
+            # "highest" on the same matrix and cholesky_ex beside it
+            rows = gp_kernels[name]
+            top = [r for r in rows if (r["shape"], r["dtype"]) ==
+                   ("n=4096", "float32")][0]
+            entry.update(
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=top["ms"], plain_ms=top["plain_ms"],
+                bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                library_ms=top["library_ms"], highest_ms=top["highest_ms"],
+                shape=f"n=4096, float32, panel width "
+                      f"{top['panel_width']}; library_ms cholesky_ex",
+                bound_peak="bf16x3 products at bf16 989 TFLOP/s (three "
+                           "each), the rest at fp32 67 TFLOP/s",
+                also_replaces="gpnf_tpu/ops/pallas/cholesky.py:344 "
+                              "(`_dot_bf16x3` :54)",
+                device_kernels=["chol_diag_kernel", "chol_panel_kernel",
+                                "chol_trailing_kernel<T, true>"],
+                headers=["gpnf_tpu_torch/csrc/mma_bf16.cuh",
+                         "gpnf_tpu_torch/csrc/tile_mm.cuh"],
+                device_launches_n1024=gp_kernels[
+                    "cholesky_high_device_launches_n1024"],
+                trailing_alone=gp_kernels["cholesky_high_trailing"],
+                ptxas=ptxas_kernels(reports.get("cholesky", ""),
+                                    "chol_trailing_kernel"),
+                per_shape=rows)
         elif name in FGC_BF16:
             # the 32-px level 0 (16x16) at the training rate; the port's
             # unfused bf16 chain and the float32 kernels beside it, as no
@@ -4992,7 +5208,8 @@ def main():
                "c512": {**c512, "wide_route": lane_kernels["wide_route"],
                         "flagship_routes": flagship_routes},
                "bf16": bf16, "bf16_train": bf16_train,
-               "bf16_fused_gated_conv": fgc16, "kernels": record}
+               "bf16_fused_gated_conv": fgc16, "phase_s": phase_s,
+               "kernels": record}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     log(f"== phases 1-21 passed in {time.perf_counter() - t_start:.1f} s")

@@ -21,6 +21,13 @@ the package's csrc/. Then, on one card, for each build:
 - one call under torch.profiler at the profiled shapes: launches and
   device time by kernel.
 
+For the Cholesky also the change's trailing_precision="high" at the JAX
+package's default panel width (`hbm_panel_width(n)`), `change_high`: its
+error against float64 and its time, taken in the same turns (refs,
+change, change_high, change_high, change, refs reversed), and its device
+time by kernel; and each ref's result against the change's, bit for bit
+(`<ref>_same_bits`: a change that leaves "highest" alone keeps its bits).
+
 cholesky: n = 1000, 1024, 2048, 4096 in float32 and 1024, 4096 in
 float64. tril_solve: (n, p) = (1024, 1), (4096, 1), (1024, 1024),
 (4096, 4096) and the posterior's (1024, 256) in float32, (4096, 1) and
@@ -41,6 +48,7 @@ import time
 import torch
 
 from .ops.kernels import _native
+from .ops.kernels.cholesky import hbm_panel_width
 from .ops.kernels.trisolve import tril_solve_scratch_words
 from .utils.cuda_timing import Timer, card_line, trace
 
@@ -81,8 +89,9 @@ def build_all(kernel, sources):
         reports[name] = out + err
         libs[name] = ctypes.CDLL(str(lib))
         for fn, argtypes in _native.SIGNATURES[kernel].items():
-            getattr(libs[name], fn).argtypes = argtypes
-            getattr(libs[name], fn).restype = ctypes.c_int
+            if hasattr(libs[name], fn):  # a ref may predate an entry
+                getattr(libs[name], fn).argtypes = argtypes
+                getattr(libs[name], fn).restype = ctypes.c_int
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed))
     return libs, reports
@@ -105,16 +114,24 @@ def dtype_name(dtype):
 
 
 def cholesky_case(n, dtype, device):
-    """`a` copied into `out` and factored there in place by a build."""
+    """`a` copied into `out` and factored there in place by a build; the
+    build "change_high" is the change's trailing_precision="high" at the
+    default panel width."""
     a = spd(n, dtype, device)
     out = torch.empty_like(a)
     inv = torch.empty((64, 64), dtype=dtype, device=device)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    def run(lib):
+    def run(lib, high=False):
         out.copy_(a)
-        fn = getattr(lib, f"gpnf_cholesky_{_native.SUFFIX[dtype]}")
-        check(fn(out.data_ptr(), inv.data_ptr(), n,
-                 torch.cuda.current_stream().cuda_stream), "cholesky")
+        suffix = _native.SUFFIX[dtype]
+        if high:
+            check(getattr(lib, f"gpnf_cholesky_high_{suffix}")(
+                out.data_ptr(), inv.data_ptr(), n, hbm_panel_width(n),
+                stream()), "cholesky high")
+            return out
+        fn = getattr(lib, f"gpnf_cholesky_{suffix}")
+        check(fn(out.data_ptr(), inv.data_ptr(), n, stream()), "cholesky")
         return out
 
     want = torch.linalg.cholesky(a.double())
@@ -214,6 +231,13 @@ def main(argv=None):
                           for k, v in reports.items()}}]
     print(json.dumps(results[0]), flush=True)
     names = [*refs, "change"]
+    # the builds timed in turns, each a runner of the library it names
+    runners = {name: (lambda run, lib=libs[name]: run(lib)) for name in names}
+    if args.kernel == "cholesky":
+        names.append("change_high")
+        runners["change_high"] = lambda run: run(libs["change"], high=True)
+    turns = [*refs, *names[len(refs):], *reversed(names[len(refs):]),
+             *reversed(refs)]
     timer = Timer(device)
 
     def emit(row):
@@ -224,18 +248,22 @@ def main(argv=None):
                                                       False):
         row = {**key, "card": card}
         scale = want.abs().max()
+        change = runners["change"](run).clone()
         for name in names:
-            got = run(libs[name]).double()
-            row[f"{name}_err"] = float((got - want).abs().max() / scale)
+            got = runners[name](run)
+            row[f"{name}_err"] = float((got.double() - want).abs().max()
+                                       / scale)
+            if name in refs:
+                row[f"{name}_same_bits"] = torch.equal(got, change)
         times = {name: [] for name in names}
-        for name in [*refs, "change", "change", *reversed(refs)]:
-            times[name].append(timer(lambda lib=libs[name]: run(lib)))
+        for name in turns:
+            times[name].append(timer(lambda f=runners[name]: f(run)))
         row.update({f"{name}_ms": times[name] for name in names})
         row[library_key] = timer(library)
         emit(row)
     for key, run, _, _, _ in cases(args.kernel, device, True):
         for name in names:
-            kernels, total = by_kernel(lambda lib=libs[name]: run(lib),
+            kernels, total = by_kernel(lambda f=runners[name]: f(run),
                                        KERNEL_PREFIX[args.kernel])
             emit({"profile": name, **key,
                   "launches": sum(c for c, _ in kernels.values()),

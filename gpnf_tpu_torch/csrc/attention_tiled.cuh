@@ -1,9 +1,9 @@
 // Key-tiled multi-head attention: the forward with in-kernel dropout and
 // the backward's two kernels, shared by fused_attention_long.cu (packed
-// qkv, 512 < S <= 2048) and fused_attention.cu (separate q, k, v, or packed
-// qkv, S <= 512). One template of device code serves every entry; a layout
-// says where head (b, h) of each operand starts and how far apart its rows
-// are.
+// qkv) and fused_attention.cu (separate q, k, v, or packed qkv), both at
+// S <= (2^31 - 1) / 3. One template of device code serves every entry; a
+// layout says where head (b, h) of each operand starts and how far apart
+// its rows are.
 //
 // For every batch row b and head h, with q, k, v the head's (S, Dh) rows:
 //   P = softmax((q_scale q) k^T);  Pd = keep * P / (1 - rate);  out = Pd v

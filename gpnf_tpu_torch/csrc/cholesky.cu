@@ -66,11 +66,43 @@
 // and the trailing products (FMAs from shared memory, 4 x 4 register
 // tiles, no tensor cores) at large n.
 //
-// Float32 and float64 (two instantiations); the C entry points take the
-// matrix (overwritten by L) and a BS x BS scratch for the inverse.
+// trailing_precision="high" (`gpnf_cholesky_high_*`): also replaces the
+// "high" mode of `_hbm_chol_kernel` (gpnf_tpu/ops/pallas/cholesky.py:291,
+// its branch at :344 on `_dot_bf16x3` :54), where the trailing GEMM runs
+// as three bf16 products, hi hi^T + hi lo^T + lo hi^T with float32 sums,
+// while the diagonal factor and the panel solve stay at full precision.
+// The JAX kernel is left-looking over P-wide panels (P the caller's panel
+// width), so factor column c's contribution to entry (r, r') is a bf16x3
+// product exactly when c's P-block precedes r''s. Here, right-looking over
+// 64-wide panels, panel j's update of tile column J is bf16x3 iff
+// floor(64 j / P) < floor(64 J / P), the float32 (float64) product
+// otherwise: the same products as the JAX kernel's at the same P, summed
+// in another order. The predicate is uniform in a block of the trailing
+// launch (`chol_trailing_kernel<T, true>`), whose bf16x3 branch
+// (`bf16x3_tile`) splits the two 64 x 64 panel tiles into hi and lo bf16
+// tiles in shared memory as JAX splits them (hi = bf16(x), lo = bf16(x -
+// hi), rounded to nearest even; a float64 x through float32, as JAX's and
+// torch's casts go), runs the three products as mma.sync.m16n8k16 bf16
+// products into float32 accumulators (mma_bf16.cuh: hi hi^T in one, hi
+// lo^T and lo hi^T in another, added last, as JAX's (hh + hl) + lh), and
+// subtracts the sum from the tile in the matrix's own dtype. Everything
+// else, the look-ahead and the launch count included, is the "highest"
+// factorization's; its instantiation (`<T, false>`) is unchanged.
+// What bounds it on the H100: operations, the bf16x3 products three bf16
+// products each at 989 TFLOP/s, the rest of the n^3 / 3 FLOPs (diagonal
+// tiles, panel solves, products inside a P-block) at the fp32 rate
+// (`cholesky_high_flops`): at n = 4096, P = 256, where 91% of the FLOPs
+// cross P-blocks, 63.1 + 31.3 = 94.4 us, against 40.1 us for n^2 4 2 bytes.
+// In practice, as for "highest", the chain of launches and the diagonal
+// steps set the time at small n.
+//
+// Float32 and float64 (two instantiations each); the C entry points take
+// the matrix (overwritten by L) and a BS x BS scratch for the inverse.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "tile_mm.cuh"
 
 namespace {
@@ -376,19 +408,124 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// the bf16 tiles of the bf16x3 branch: rows of BS values padded to
+// BS + 8 (mma_bf16.cuh's conflict-free ldmatrix layout)
+constexpr int LDH = BS + kBf16Pad;
+constexpr int kSplitBytes = 4 * BS * LDH * static_cast<int>(sizeof(bf16));
+
 // shared memory of the trailing kernel: the GEMM's staging buffers, and
-// the diagonal step's two tiles over the same bytes
-template <typename T>
+// the diagonal step's two tiles over the same bytes; with HIGH also the
+// bf16x3 branch's four bf16 tiles (hi and lo of both panel tiles), then
+// its float32 product tile, over the same bytes
+template <typename T, bool HIGH>
 constexpr int trailing_smem() {
   const int gemm = (BS * LDA + KC * TileShape<BS>::LDB) * sizeof(T);
   const int diag = 2 * BS * LDT * sizeof(T);
-  return diag > gemm ? diag : gemm;
+  const int most = diag > gemm ? diag : gemm;
+  return HIGH && kSplitBytes > most ? kSplitBytes : most;
 }
 
+// x as JAX's `_dot_bf16x3` splits it: hi = bf16(x), lo = bf16(x - hi),
+// each rounded to nearest even; a double goes through float32 first, as
+// JAX's and torch's float64 -> bf16 casts do (x - hi is exact in x's type).
 template <typename T>
+__device__ __forceinline__ void split_bf16(T x, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16_rn(static_cast<float>(x));
+  lo = __float2bfloat16_rn(
+      static_cast<float>(x - static_cast<T>(__bfloat162float(hi))));
+}
+
+// Rows row0 .. row0 + BS - 1, columns col0 .. col0 + BS - 1 of the (n, n)
+// matrix `a` (zero past its edge) into the hi and lo bf16 tiles, two
+// neighbouring values a thread at a time (coalesced reads).
+template <typename T>
+__device__ __forceinline__ void stage_split(bf16* hi, bf16* lo,
+                                            const T* __restrict__ a, int n,
+                                            int row0, int col0) {
+  for (int e = 2 * threadIdx.x; e < BS * BS; e += 2 * kThreads) {
+    const int r = e / BS, c = e % BS;
+    const int gr = row0 + r, gc = col0 + c;
+    const T* src = a + static_cast<long long>(gr) * n + gc;
+    const T x0 = gr < n && gc < n ? src[0] : T(0);
+    const T x1 = gr < n && gc + 1 < n ? src[1] : T(0);
+    bf16 h0, l0, h1, l1;
+    split_bf16(x0, h0, l0);
+    split_bf16(x1, h1, l1);
+    *reinterpret_cast<__nv_bfloat162*>(hi + r * LDH + c) =
+        __halves2bfloat162(h0, h1);
+    *reinterpret_cast<__nv_bfloat162*>(lo + r * LDH + c) =
+        __halves2bfloat162(l0, l1);
+  }
+}
+
+// acc = P_I . P_J^T in bf16x3 on the tensor cores, P_I = L[I tile][panel
+// j], in TileShape<BS>'s register layout (so the SIMT branch's epilogue
+// takes it as it is). Warp w owns rows 16 (w % 4) .. + 15 and columns
+// 32 (w / 4) .. + 31 of the product: four n8 tiles, four k16 steps, three
+// products each. Ends with a barrier after which all shared memory is free.
+template <typename T>
+__device__ __forceinline__ void bf16x3_tile(const T* __restrict__ a, int n,
+                                            int I, int J, int j,
+                                            unsigned char* smem,
+                                            T (&acc)[4][4]) {
+  using S = TileShape<BS>;
+  bf16* ah = reinterpret_cast<bf16*>(smem);
+  bf16* al = ah + BS * LDH;
+  bf16* bh = al + BS * LDH;
+  bf16* bl = bh + BS * LDH;
+  stage_split(ah, al, a, n, I * BS, j * BS);
+  stage_split(bh, bl, a, n, J * BS, j * BS);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  float hh[4][4] = {}, cross[4][4] = {};
+#pragma unroll
+  for (int k0 = 0; k0 < BS; k0 += 16) {
+    uint32_t fh[4], fl[4];
+    frag_a_bf16<LDH>(fh, ah, m0, k0, lane);
+    frag_a_bf16<LDH>(fl, al, m0, k0, lane);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t gh[4], gl[4];
+      frag_b_bf16_pair<LDH>(gh, bh, n0 + 16 * np, k0, lane);
+      frag_b_bf16_pair<LDH>(gl, bl, n0 + 16 * np, k0, lane);
+      mma_bf16(hh[2 * np], fh, gh[0], gh[1]);
+      mma_bf16(hh[2 * np + 1], fh, gh[2], gh[3]);
+      mma_bf16(cross[2 * np], fh, gl[0], gl[1]);
+      mma_bf16(cross[2 * np + 1], fh, gl[2], gl[3]);
+      mma_bf16(cross[2 * np], fl, gh[0], gh[1]);
+      mma_bf16(cross[2 * np + 1], fl, gh[2], gh[3]);
+    }
+  }
+  __syncthreads();  // the bf16 tiles are read: the product goes over them
+  float* ps = reinterpret_cast<float*>(smem);
+  const int gr = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = n0 + 8 * nt + 2 * tg;
+    ps[(m0 + gr) * LDT + c] = hh[nt][0] + cross[nt][0];
+    ps[(m0 + gr) * LDT + c + 1] = hh[nt][1] + cross[nt][1];
+    ps[(m0 + gr + 8) * LDT + c] = hh[nt][2] + cross[nt][2];
+    ps[(m0 + gr + 8) * LDT + c + 1] = hh[nt][3] + cross[nt][3];
+  }
+  __syncthreads();
+  const int cg = threadIdx.x % S::CG, rg = threadIdx.x / S::CG;
+#pragma unroll
+  for (int x = 0; x < S::RPT; ++x)
+#pragma unroll
+    for (int y = 0; y < S::CPT; ++y) {
+      acc[x][y] = static_cast<T>(ps[(rg + S::RG * x) * LDT + cg + S::CG * y]);
+    }
+  __syncthreads();
+}
+
+// panel j's update of the lower tiles of the trailing matrix, the product
+// of tile column J in bf16x3 where HIGH and floor(BS j / p) < floor(BS J /
+// p) (p the caller's panel width), else in T on the SIMT units
+template <typename T, bool HIGH>
 __global__ void __launch_bounds__(kThreads)
     chol_trailing_kernel(T* __restrict__ a, T* __restrict__ inv, int n,
-                         int j) {
+                         int j, int p) {
   using S = TileShape<BS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);
@@ -402,13 +539,18 @@ __global__ void __launch_bounds__(kThreads)
   const int I = j + 1 + static_cast<int>(ti);
   const int J = j + 1 + static_cast<int>(t - ti * (ti + 1) / 2);
   T acc[S::RPT][S::CPT] = {};
-  for (int kc = 0; kc < BS; kc += KC) {
-    load_direct(As, LDA, BS, KC, a, n, I * BS, j * BS + kc, n, n);
-    // Bs[k][c] = L[J * BS + c][j * BS + kc + k]: the product is P_I . P_J^T
-    load_transposed(Bs, S::LDB, KC, BS, a, n, J * BS, j * BS + kc, n, n);
-    __syncthreads();
-    mma_chunk<T, BS>(As, Bs, acc);
-    __syncthreads();
+  if (HIGH && (j * BS) / p < (J * BS) / p) {
+    bf16x3_tile(a, n, I, J, j, smem_raw, acc);
+  } else {
+    for (int kc = 0; kc < BS; kc += KC) {
+      load_direct(As, LDA, BS, KC, a, n, I * BS, j * BS + kc, n, n);
+      // Bs[k][c] = L[J * BS + c][j * BS + kc + k]: the product is
+      // P_I . P_J^T
+      load_transposed(Bs, S::LDB, KC, BS, a, n, J * BS, j * BS + kc, n, n);
+      __syncthreads();
+      mma_chunk<T, BS>(As, Bs, acc);
+      __syncthreads();
+    }
   }
   if (t == 0) {
     // the updated tile goes to shared memory (over the staging buffers, free
@@ -441,19 +583,29 @@ __global__ void __launch_bounds__(kThreads)
                     n - I * BS, n - J * BS, acc, true);
 }
 
-template <typename T>
-int cholesky(T* a, T* inv, int n, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int diag_smem = 2 * BS * LDT * static_cast<int>(sizeof(T));
-  const int trail_smem = trailing_smem<T>();
+// Attributes of the trailing kernel (its shared memory may exceed 48 KB)
+// and the diagonal kernel.
+template <typename T, bool HIGH>
+cudaError_t set_smem() {
   cudaError_t err = cudaFuncSetAttribute(
       chol_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      diag_smem);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(chol_trailing_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               trail_smem);
+      2 * BS * LDT * static_cast<int>(sizeof(T)));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chol_trailing_kernel<T, HIGH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              trailing_smem<T, HIGH>());
+}
+
+// The factorization: trailing updates by `chol_trailing_kernel<T, HIGH>`,
+// p the "high" mode's panel width (a multiple of BS; unread without HIGH).
+template <typename T, bool HIGH>
+int cholesky(T* a, T* inv, int n, int p, cudaStream_t stream) {
+  if (n <= 0 || (HIGH && (p <= 0 || p % BS != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int diag_smem = 2 * BS * LDT * static_cast<int>(sizeof(T));
+  const int trail_smem = trailing_smem<T, HIGH>();
+  cudaError_t err = set_smem<T, HIGH>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nb = (n + BS - 1) / BS;
   chol_diag_kernel<T><<<1, kThreads, diag_smem, stream>>>(a, inv, n, 0);
@@ -463,19 +615,66 @@ int cholesky(T* a, T* inv, int n, cudaStream_t stream) {
     chol_panel_kernel<T><<<m, kThreads, 0, stream>>>(a, inv, n, j);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const unsigned tiles = static_cast<unsigned>(m) * (m + 1) / 2;
-    chol_trailing_kernel<T><<<tiles, kThreads, trail_smem, stream>>>(
-        a, inv, n, j);
+    chol_trailing_kernel<T, HIGH><<<tiles, kThreads, trail_smem, stream>>>(
+        a, inv, n, j, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
+// One launch of the "high" trailing kernel for panel j (0 <= j, j + 1 <
+// ceil(n / BS)) on `a` as it stands: the lower tiles of rows and columns
+// from BS (j + 1) take A -= P_I P_J^T, and tile (j + 1, j + 1) is then
+// factored in place, its inverse written to `inv`. A test entry: it lets
+// the card hold the bf16x3 product alone against its plain version.
+template <typename T>
+int trailing_high(T* a, T* inv, int n, int j, int p, cudaStream_t stream) {
+  const int nb = (n + BS - 1) / BS;
+  if (n <= 0 || j < 0 || j + 1 >= nb || p <= 0 || p % BS != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = set_smem<T, true>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m = nb - j - 1;
+  const unsigned tiles = static_cast<unsigned>(m) * (m + 1) / 2;
+  chol_trailing_kernel<T, true><<<tiles, kThreads, trailing_smem<T, true>(),
+                                  stream>>>(a, inv, n, j, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int gpnf_cholesky_f32(float* a, float* inv, int n, void* stream) {
-  return cholesky<float>(a, inv, n, static_cast<cudaStream_t>(stream));
+  return cholesky<float, false>(a, inv, n, 0,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gpnf_cholesky_f64(double* a, double* inv, int n, void* stream) {
-  return cholesky<double>(a, inv, n, static_cast<cudaStream_t>(stream));
+  return cholesky<double, false>(a, inv, n, 0,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// trailing_precision="high" with panel width p (a multiple of 64)
+extern "C" int gpnf_cholesky_high_f32(float* a, float* inv, int n, int p,
+                                      void* stream) {
+  return cholesky<float, true>(a, inv, n, p,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gpnf_cholesky_high_f64(double* a, double* inv, int n, int p,
+                                      void* stream) {
+  return cholesky<double, true>(a, inv, n, p,
+                                static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gpnf_cholesky_trailing_high_f32(float* a, float* inv, int n,
+                                               int j, int p, void* stream) {
+  return trailing_high<float>(a, inv, n, j, p,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gpnf_cholesky_trailing_high_f64(double* a, double* inv, int n,
+                                               int j, int p, void* stream) {
+  return trailing_high<double>(a, inv, n, j, p,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// Multi-head softmax attention for S <= 512 on separate q, k, v or on a
-// packed qkv, forward with in-kernel dropout and backward, hand-written for
-// Hopper (sm_90a).
+// Multi-head softmax attention on separate q, k, v or on a packed qkv, at
+// every S the long entry takes (the JAX kernels' S <= 512 and, where the
+// JAX package computes its jnp reference, above), forward with in-kernel
+// dropout and backward, hand-written for Hopper (sm_90a).
 //
 // Replaces: gpnf_tpu/ops/pallas/fused_attention.py,
 //   - `_fwd_kernel` and `_bwd_kernel` (launched by `_run_fwd` and
@@ -11,7 +12,8 @@
 //     in the kernel, q scaled by q_scale (the wrapper's Dh^-1/2) as it is
 //     loaded; out (B, S, C); the backward gives dqkv (B, S, 3C) packed
 //     [dK | dV | dq * q_scale].
-// Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256. The forward and the
+// Head widths: 4, 8, 16, 24, 32, 48, 64, 128, 256 (the wrappers pad any
+// other up to 256 to the next of them). The forward and the
 // backward run on the tensor cores at every width (attention_tiled.cuh).
 // These are the float32 kernels; fused_attention_bf16.cu holds the same
 // four entries on bf16 operands.
@@ -44,7 +46,9 @@
 #include "attention_tiled.cuh"
 
 namespace {
-constexpr int kMaxSeqLen = 512;  // the wrappers' MAX_S, the JAX MAX_S
+// the long entry's range (the wrappers' MAX_S_LONG): the same key-tiled
+// kernels, whose largest S holds its indices in an int
+constexpr int kMaxSeqLen = 2147483647 / 3;
 }  // namespace
 
 // out (B, H, S, Dh) from q, k, v (B, H, S, Dh), q already scaled; seed is a

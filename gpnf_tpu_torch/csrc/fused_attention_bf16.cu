@@ -1,9 +1,9 @@
-// Multi-head softmax attention for S <= 512 on bf16 operands, separate q, k,
-// v or a packed qkv, forward with in-kernel dropout and backward,
-// hand-written for Hopper (sm_90a): the bf16 instantiations of the core
-// entries, whose float32 ones are fused_attention.cu's (a source of their
-// own so that the two build in parallel: in one file they took one nvcc of
-// 173 s, 66 s past the next longest source).
+// Multi-head softmax attention on bf16 operands at every S the long entry
+// takes, separate q, k, v or a packed qkv, forward with in-kernel dropout
+// and backward, hand-written for Hopper (sm_90a): the bf16 instantiations
+// of the core entries, whose float32 ones are fused_attention.cu's (a
+// source of their own so that the two build in parallel: in one file they
+// took one nvcc of 173 s, 66 s past the next longest source).
 //
 // Replaces: gpnf_tpu/ops/pallas/fused_attention.py on bf16 operands,
 //   - `_fwd_kernel` :43 (`_run_fwd`), from `fused_attention`: q (already
@@ -53,7 +53,9 @@
 #include "attention_wgmma.cuh"
 
 namespace {
-constexpr int kMaxSeqLen = 512;  // the wrappers' MAX_S, the JAX MAX_S
+// the long entry's range (the wrappers' MAX_S_LONG): the same key-tiled
+// kernels, whose largest S holds its indices in an int
+constexpr int kMaxSeqLen = 2147483647 / 3;
 
 // out (B, H, S, dh, bf16) from q (already scaled), k and v (B, H, S, dh),
 // all bf16, on split heads: tiles 32 wide up to dh 32, 128 up to 128, 256

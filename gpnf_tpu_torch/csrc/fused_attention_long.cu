@@ -41,7 +41,7 @@
 //
 // Design: attention_tiled.cuh, whose key-tiled kernels this file
 // instantiates for the packed layout (PackedQkv), as fused_attention.cu
-// does for `fused_attention_qkv` (S <= 512) and `fused_attention`: a block
+// does for `fused_attention_qkv` and `fused_attention`: a block
 // per (queries, head, batch row) with an online softmax forward; a dq
 // kernel that writes (m, 1/l, D) to a (B, H, S, 3) scratch and a dK/dV
 // kernel, no atomics. Both read packed qkv and write packed dqkv

@@ -4,7 +4,8 @@ Each module holds a wrapper with a `launches` count, the kernel's plain
 PyTorch version, and the shape, dtype and device checks. The sources are in
 gpnf_tpu_torch/csrc/; `_native` builds and loads them.
 """
-from .cholesky import cholesky, cholesky_device_launches, cholesky_plain
+from .cholesky import (cholesky, cholesky_device_launches, cholesky_high,
+                       cholesky_plain)
 from .fused_attention import (attention_bwd_bf16, attention_dseq_gemm,
                               attention_dseq_gemm_bf16, attention_dw_gemm,
                               attention_dw_gemm_bf16,
@@ -46,7 +47,7 @@ KERNELS = (fused_attention_proj, fused_attention_proj_bwd, fused_attention_long,
            attention_dw_gemm_bf16, fused_gated_conv_bf16,
            fused_gated_conv_bwd_bf16, fused_attention_bf16,
            fused_attention_bwd_bf16, fused_attention_qkv_bf16,
-           fused_attention_qkv_bwd_bf16)
+           fused_attention_qkv_bwd_bf16, cholesky_high)
 
 
 def reset_launch_counts() -> None:

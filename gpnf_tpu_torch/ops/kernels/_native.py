@@ -69,6 +69,10 @@ SIGNATURES = {
     "cholesky": {
         "gpnf_cholesky_f32": [_P, _P, _I, _P],
         "gpnf_cholesky_f64": [_P, _P, _I, _P],
+        "gpnf_cholesky_high_f32": [_P, _P, _I, _I, _P],
+        "gpnf_cholesky_high_f64": [_P, _P, _I, _I, _P],
+        "gpnf_cholesky_trailing_high_f32": [_P, _P, _I, _I, _I, _P],
+        "gpnf_cholesky_trailing_high_f64": [_P, _P, _I, _I, _I, _P],
     },
     "fused_gated_conv": {
         "gpnf_gated_conv_fwd": [_P] * 8 + [_I] * 4 + [_U, _F, _L, _P],

@@ -1,6 +1,6 @@
 """Multi-head self-attention kernels: the fused-projection entry, the
 long (or wide) entry for what the proj entry does not take, and the core
-entries on separate q, k, v or a packed qkv for S <= 512.
+entries on separate q, k, v or a packed qkv.
 
 Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
 - `fused_attention_proj` (forward and backward, dropout inside both), at
@@ -39,8 +39,11 @@ Counterpart of gpnf_tpu/ops/pallas/fused_attention.py:
   versions are the long entry's, which compute the same function. Both
   run the long entry's key-tiled kernels (csrc/attention_tiled.cuh) from
   gpnf_tpu_torch/csrc/fused_attention.cu (on bf16 operands from
-  fused_attention_bf16.cu), up to S = 512. Above that the
-  JAX package runs its jnp reference, even on a TPU; the port raises. On
+  fused_attention_bf16.cu), at every S and head width the long entry
+  takes: S up to MAX_S_LONG (above 512 the JAX package computes its jnp
+  reference, even on a TPU) and any Dh up to 256, zero-padded to the next
+  built width as the long entry pads it (`_split_padded`; the packed
+  entry scales q by the true Dh^-1/2). On
   bf16 operands (`_fwd_kernel` and the others on bf16) the packed entry
   runs the long entry's bf16 kernels (the TMA + wgmma forward, the bf16
   dq and dK/dV pair, dq scaled in float32 and rounded once, as
@@ -1425,7 +1428,7 @@ def fused_attention_long(seq: torch.Tensor, w: torch.Tensor, num_heads: int,
                                 _keeps_stats(seq, w))
 
 
-# -- the core entries: separate q, k, v, or packed qkv, S <= 512 --------------------
+# -- the core entries: separate q, k, v, or packed qkv ------------------------------
 def _check_one_dtype(kernel, **tensors):
     """Raise unless every operand has the first one's dtype (on every
     device: the plain versions would otherwise mix them)."""
@@ -1446,13 +1449,29 @@ def _validate_split(kernel, rate, seed, **tensors):
     _check_rate(kernel, rate, seed)
 
 
-def _split_bf16_width(head_dim, *tensors):
-    """The bf16 split kernels' operands and width: as they are, or at Dh 4
-    zero-padded to 8 in a fresh copy (`core_bf16_padded` counts it)."""
-    if head_dim % 8 == 0:
-        return head_dim, tensors
-    core_bf16_padded.launches += 1
-    return 8, tuple(F.pad(t, (0, 8 - head_dim)) for t in tensors)
+def _check_seq_len(kernel, seq_len):
+    """The core entries' limit on S on the card: the long entry's, whose
+    kernels they run."""
+    if seq_len > MAX_S_LONG:
+        raise ValueError(f"{kernel}: S={seq_len} > {MAX_S_LONG}, beyond the "
+                         f"kernel's range")
+
+
+def _split_padded(kernel, seq_len, head_dim, *tensors):
+    """The split kernels' width and operands: Dh zero-padded to the next
+    built width as the long entry pads it (`padded_head_dim`, which raises
+    above 256), and on bf16 a width of 4 to 8 (rows of 8 bytes take
+    neither a tensor map nor the kernels' 16-byte copies;
+    `core_bf16_padded` counts those calls); fresh copies where padded.
+    q is already scaled, so its zero columns change no score."""
+    _check_seq_len(kernel, seq_len)
+    width = padded_head_dim(head_dim)
+    if width == 4 and tensors[0].dtype == torch.bfloat16:
+        core_bf16_padded.launches += 1
+        width = 8
+    if width == head_dim:
+        return width, tensors
+    return width, tuple(F.pad(t, (0, width - head_dim)) for t in tensors)
 
 
 def _attention_forward(q, k, v, rate, seed):
@@ -1460,26 +1479,25 @@ def _attention_forward(q, k, v, rate, seed):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_plain(q, k, v, rate, seed)
     b, h, s, dh = q.shape
+    width, (q, k, v) = _split_padded("fused_attention", s, dh, q, k, v)
     q, k, v = _aligned(q, k, v)
     device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention", s, dh, MAX_S, rate, seed, bf16=True, q=q, k=k, v=v)
+        "fused_attention", s, width, MAX_S_LONG, rate, seed, bf16=True, q=q,
+        k=k, v=v)
+    out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
-        width, (q, k, v) = _split_bf16_width(dh, q, k, v)
-        out = torch.empty_like(q)
         _native.launch("fused_attention_bf16", "gpnf_attention_fwd_bf16",
                        device,
                        seed_ptr, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), b, h, s, width, threshold, scale)
         fused_attention_bf16.launches += 1
-        fused_attention.launches += 1
-        return out[..., :dh] if width != dh else out
-    out = torch.empty_like(q)
-    _native.launch("fused_attention", "gpnf_attention_fwd", device, seed_ptr,
-                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, h, s, dh, threshold, scale)
-    _count_lanes(dh, attention_lanes)
+    else:
+        _native.launch("fused_attention", "gpnf_attention_fwd", device,
+                       seed_ptr, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, h, s, width, threshold, scale)
+        _count_lanes(width, attention_lanes)
     fused_attention.launches += 1
-    return out
+    return out[..., :dh] if width != dh else out
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1489,18 +1507,19 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the forward's mask regenerated from `seed`. CPU tensors take
     `attention_plain_bwd`; CUDA tensors launch the kernels (float32, or
     bf16: the same dq and dK/dV pair on the bf16 values, widened in the
-    kernels, dq, dk and dv rounded once) or raise."""
+    kernels, dq, dk and dv rounded once; heads padded as the forward pads
+    them) or raise."""
     _validate_split("fused_attention_bwd", rate, seed, q=q, k=k, v=v, g=g)
     if all(t.device.type == "cpu" for t in (q, k, v, g)):
         return attention_plain_bwd(q, k, v, g, rate, seed)
     b, h, s, dh = q.shape
+    width, (q, k, v, g) = _split_padded("fused_attention_bwd", s, dh, q, k,
+                                        v, g)
     q, k, v, g = _aligned(q, k, v, g)
     device, seed_ptr, threshold, scale = _cuda_args(
-        "fused_attention_bwd", s, dh, MAX_S, rate, seed, bf16=True, q=q, k=k,
-        v=v, g=g)
+        "fused_attention_bwd", s, width, MAX_S_LONG, rate, seed, bf16=True,
+        q=q, k=k, v=v, g=g)
     bf16 = q.dtype == torch.bfloat16
-    width, (q, k, v, g) = (_split_bf16_width(dh, q, k, v, g) if bf16
-                           else (dh, (q, k, v, g)))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((b, h, s, 3), dtype=torch.float32, device=device)
     _native.launch("fused_attention_bf16" if bf16 else "fused_attention",
@@ -1511,7 +1530,7 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bf16:
         fused_attention_bwd_bf16.launches += 1
     else:
-        _count_lanes(dh, attention_lanes_bwd)
+        _count_lanes(width, attention_lanes_bwd)
     fused_attention_bwd.launches += 1
     if width != dh:
         return dq[..., :dh], dk[..., :dh], dv[..., :dh]
@@ -1542,8 +1561,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dropout(softmax(q k^T)) v on q, k, v (B, H, S, Dh), q already scaled;
     `seed` is a (1,) int32 tensor on q's device, read only when rate > 0.
     Differentiable in q, k and v. CPU tensors take the plain versions; CUDA
-    tensors launch the kernels (float32 or bf16, one dtype for all three)
-    or raise (S > 512, a head width outside HEAD_DIMS, any other dtype)."""
+    tensors launch the kernels (float32 or bf16, one dtype for all three;
+    a width the kernels are not built for zero-padded to the next one) or
+    raise where the long entry raises (S > MAX_S_LONG, Dh > 256), and for
+    any other dtype."""
     return _Attention.apply(q, k, v, seed, rate)
 
 
@@ -1555,13 +1576,18 @@ def _attention_qkv_forward(qkv, num_heads, rate, seed, with_stats=False):
         if with_stats:
             return out, attention_stats_plain(qkv, num_heads)
         return out
+    _check_seq_len("fused_attention_qkv", qkv.shape[1])
+    dh, width, q_scale = _wide_widths(qkv.shape[2] // 3, num_heads)
     out = _packed_fwd("fused_attention_qkv", "fused_attention",
-                      "gpnf_attention_qkv_fwd", MAX_S, qkv, num_heads, None,
-                      rate, seed, bf16=True, with_stats=with_stats,
+                      "gpnf_attention_qkv_fwd", MAX_S_LONG,
+                      _pad_heads(qkv, dh, width), num_heads, q_scale, rate,
+                      seed, bf16=True, with_stats=with_stats,
                       counter=fused_attention_qkv_bf16,
                       bf16_source="fused_attention_bf16")
     fused_attention_qkv.launches += 1
-    return out
+    if with_stats:
+        return _unpad_heads(out[0], dh, width), out[1]
+    return _unpad_heads(out, dh, width)
 
 
 def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor,
@@ -1575,21 +1601,26 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor,
     (`_bwd_kernel_qkv`), from `stats`, the forward's (m, 1/l), which the
     call computes first by the forward kernel where they are not given.
     CPU tensors take `attention_long_plain_bwd` (the stats unused); CUDA
-    tensors launch the kernels (float32 or bf16) or raise."""
+    tensors launch the kernels (float32 or bf16; heads padded as the
+    forward pads them) or raise."""
     _validate_qkv("fused_attention_qkv_bwd", qkv, num_heads, rate, seed)
     _check_cotangent("fused_attention_qkv_bwd", qkv, g)
     _check_one_dtype("fused_attention_qkv_bwd", qkv=qkv, g=g)
     if qkv.device.type == "cpu" and g.device.type == "cpu":
         return attention_long_plain_bwd(qkv, g, num_heads, rate, seed,
                                         scale_dq_in_fp32=True)
+    _check_seq_len("fused_attention_qkv_bwd", qkv.shape[1])
+    dh, width, q_scale = _wide_widths(g.shape[2], num_heads)
     dqkv = _packed_bwd("fused_attention_qkv_bwd", "fused_attention",
-                       "gpnf_attention_qkv_bwd", MAX_S, qkv, g, num_heads,
-                       None, rate, seed, bf16=True, scale_dq_in_fp32=True,
-                       stats=stats, counters=(fused_attention_qkv_bf16,
-                                              fused_attention_qkv_bwd_bf16),
+                       "gpnf_attention_qkv_bwd", MAX_S_LONG,
+                       _pad_heads(qkv, dh, width), _pad_heads(g, dh, width),
+                       num_heads, q_scale, rate, seed, bf16=True,
+                       scale_dq_in_fp32=True, stats=stats,
+                       counters=(fused_attention_qkv_bf16,
+                                 fused_attention_qkv_bwd_bf16),
                        bf16_source="fused_attention_bf16")
     fused_attention_qkv_bwd.launches += 1
-    return dqkv
+    return _unpad_heads(dqkv, dh, width)
 
 
 class _AttentionQkv(torch.autograd.Function):
@@ -1622,8 +1653,10 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, rate: float = 0.0,
     packed qkv (B, S, 3C) laid out [k | v | q] (GatedAttn's in_proj order)
     -> (B, S, C); `seed` as `fused_attention`'s. Differentiable in qkv. CPU
     tensors take the plain versions (`attention_long_plain[_bwd]`, the same
-    function); CUDA tensors launch the kernels (float32 or bf16) or raise
-    (S > 512, a head width outside HEAD_DIMS, any other dtype)."""
+    function); CUDA tensors launch the kernels (float32 or bf16; a width
+    the kernels are not built for zero-padded to the next one, q scaled by
+    the true Dh^-1/2, as the long entry pads it) or raise where the long
+    entry raises (S > MAX_S_LONG, Dh > 256), and for any other dtype."""
     keep_stats = (qkv.dtype == torch.bfloat16 and torch.is_grad_enabled()
                   and qkv.requires_grad)
     return _AttentionQkv.apply(qkv, seed, num_heads, rate, keep_stats)

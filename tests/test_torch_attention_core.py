@@ -230,18 +230,20 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
 @pytest.mark.parametrize("fault,error,match", [
     ("shape", ValueError, "one \\(B, H, S, Dh\\) shape"),
     ("rate", ValueError, "rate"), ("no_seed", ValueError, "seed"),
-    ("long", ValueError, "512"), ("head_width", ValueError, "head width"),
+    ("long", ValueError, str(fa.MAX_S_LONG)),
+    ("head_width", ValueError, "head width"),
     ("float64", TypeError, "float32")])
 def test_wrapper_checks(fault, error, match):
     """A bad shape, rate or seed raises on every device; the kernels' own
-    limits (S <= 512, the head widths built, float32) are checked before
-    the device: a tensor off the CPU (here on the meta device) takes the
-    kernel's path and its checks."""
+    limits, the long entry's (S <= MAX_S_LONG, a head width up to 256, the
+    narrower ones padded), and float32 are checked before the device: a
+    tensor off the CPU (here on the meta device) takes the kernel's path
+    and its checks."""
     s, dh, dtype, rate = 64, 24, torch.float32, 0.0
     if fault == "long":
-        s = fa.MAX_S + 1
+        s = fa.MAX_S_LONG + 1
     elif fault == "head_width":
-        dh = 20
+        dh = 260
     elif fault == "float64":
         dtype = torch.float64
     elif fault == "rate":

@@ -282,12 +282,12 @@ def test_mixed_dtypes_raise(device):
 
 
 def test_bf16_core_limits_are_the_float32_ones():
-    """On bf16 the core entries take the float32 entries' widths and S:
-    S 513 and a width outside HEAD_DIMS raise before the device, and so
-    do float16 operands."""
+    """On bf16 the core entries take the float32 entries' widths and S,
+    the long entry's: S above MAX_S_LONG and a width above 256 raise
+    before the device, and so do float16 operands."""
     for s, dh, dtype, error, match in (
-            (fa.MAX_S + 1, 24, BF16, ValueError, "512"),
-            (64, 20, BF16, ValueError, "head width"),
+            (fa.MAX_S_LONG + 1, 24, BF16, ValueError, str(fa.MAX_S_LONG)),
+            (64, 260, BF16, ValueError, "head width"),
             (64, 24, torch.float16, TypeError, "bfloat16")):
         q = torch.zeros((1, HEADS, s, dh), dtype=dtype, device="meta")
         qkv = torch.zeros((1, s, 3 * HEADS * dh), dtype=dtype, device="meta")

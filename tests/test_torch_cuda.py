@@ -19,6 +19,7 @@ from gpnf_tpu_torch.ops import kernels, logistic
 from gpnf_tpu_torch.utils import grad_parity
 
 fa = importlib.import_module("gpnf_tpu_torch.ops.kernels.fused_attention")
+ch = importlib.import_module("gpnf_tpu_torch.ops.kernels.cholesky")
 
 SMALL = dict(image_shape=(16, 16, 3), L=2, K=2, hidden_channels=16,
              num_blocks=2, num_components=4, prior_hidden=8, prior_layers=3)
@@ -479,6 +480,122 @@ def test_cholesky_kernel_gives_nan_when_not_positive_definite(cuda_device,
 def test_cholesky_kernel_repeats_bit_for_bit(cuda_device, n, dtype):
     a = _spd(n, dtype, seed=5).to(cuda_device)
     assert torch.equal(kernels.cholesky(a), kernels.cholesky(a))
+
+
+# -- trailing_precision="high": the trailing update's bf16x3 branch ---------------
+# (n, P, dtype): the edges of the 64-wide blocking and the look-ahead at
+# both P, the GP sizes, and float64 at two of them
+CHOL_HIGH_CASES = [(n, p, torch.float32) for n in (63, 65, 129, 200, 1000,
+                                                   1024, 2048)
+                   for p in (64, 256)] + [
+    (200, 64, torch.float64), (1024, 64, torch.float64),
+    (1024, 256, torch.float64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,dtype", CHOL_HIGH_CASES)
+def test_cholesky_high_kernel_matches_plain_on_card(cuda_device, n, p, dtype):
+    """Against plain "high" (the same bf16x3 products, summed in another
+    order) on the card, at the HIGHEST test's float32 bar in both dtypes:
+    1e-5 relative to max |L| and by the residual; the upper triangle zero;
+    one call counted on `cholesky` and on `cholesky_high`."""
+    a = _spd(n, dtype).to(cuda_device)
+    before = kernels.cholesky.launches, kernels.cholesky_high.launches
+    l = kernels.cholesky(a, "high", p)
+    assert (kernels.cholesky.launches, kernels.cholesky_high.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(l, kernels.cholesky_plain(a, "high", p)) <= 1e-5
+    assert _rel(l @ l.T, a) <= 1e-5
+    assert int(torch.count_nonzero(torch.triu(l, 1))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,p", [(200, 64), (1024, 256), (2048, 128)])
+def test_cholesky_high_kernel_repeats_bit_for_bit_and_is_not_highest(
+        cuda_device, n, p, dtype):
+    """Two calls give the same bits; the factor differs from "highest"'s
+    (each n has products that cross P-blocks), and by the default P at
+    n = 1024 (256) it is the call with P given."""
+    a = _spd(n, dtype, seed=5).to(cuda_device)
+    l = kernels.cholesky(a, "high", p)
+    assert torch.equal(l, kernels.cholesky(a, "high", p))
+    assert not torch.equal(l, kernels.cholesky(a))
+    if p == ch.hbm_panel_width(n):
+        assert torch.equal(l, kernels.cholesky(a, "high"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [200, 1024])
+def test_cholesky_high_device_launches(cuda_device, n):
+    """2 ceil(n / 64) - 1 device launches, as "highest"."""
+    from gpnf_tpu_torch.utils.cuda_timing import device_launches
+
+    a = _spd(n, torch.float32).to(cuda_device)
+    got = {k: c for k, c in device_launches(
+        lambda: kernels.cholesky(a, "high", 64)).items()
+        if k.startswith("chol_")}
+    assert sum(got.values()) == kernels.cholesky_device_launches(n), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,row", [(300, 150), (300, 128), (200, 195)])
+def test_cholesky_high_kernel_gives_nan_when_not_positive_definite(
+        cuda_device, dtype, n, row):
+    a = _spd(n, dtype).to(cuda_device)
+    a[row, row] = -5.0
+    l = kernels.cholesky(a, "high", 64)  # raises nothing
+    assert torch.isnan(l).any()
+    assert torch.isfinite(l[:row, :row]).all()
+    assert int(torch.count_nonzero(torch.triu(l, 1))) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,p,j", [(1000, 128, 0), (1000, 128, 2),
+                                   (1024, 64, 1), (1024, 256, 5)])
+def test_cholesky_high_trailing_update_matches_bf16x3_plain(cuda_device, n,
+                                                            p, j, dtype):
+    """One launch of the trailing kernel (`trailing_high`) against its
+    plain version: each lower entry of the trailing matrix outside the
+    tile it then factors within the float32 sums' spread, 2 K 2^-24
+    sum_k |L_ik L_jk| (K = 64) plus one rounding of the result; that tile
+    (its factor) within 1e-5 relative; the rows above untouched. Both
+    kinds of tile column: P 128 at j 0 and 2, P 256 at j 5, take the
+    product in the matrix's dtype for the columns in panel j's P-block."""
+    r = np.random.default_rng(n + j)
+    a = torch.from_numpy(10 * np.eye(n) + 0.1 * r.standard_normal((n, n)))
+    a = a.to(dtype).to(cuda_device)
+    got, want = ch.trailing_high(a, j, p), ch.trailing_high_plain(a, j, p)
+    s = 64 * (j + 1)
+    e = min(n, s + 64)
+    panel = a[:, s - 64:s].double().abs()
+    spread = 2 * 64 * 2.0 ** -24 * (panel @ panel.T) + 2.0 ** -23 * (
+        want.double().abs())
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool,
+                                  device=cuda_device))
+    lower[:s] = False
+    lower[:, :s] = False
+    lower[s:e, s:e] = False
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff[lower] <= spread[lower]).all()), float(
+        (diff[lower] / spread[lower]).max())
+    assert _rel(torch.tril(got[s:e, s:e]), torch.tril(want[s:e, s:e])) <= 1e-5
+    assert torch.equal(got[:s], a[:s])
+
+
+@pytest.mark.cuda
+def test_cholesky_high_wrapper_rejects_bad_inputs_on_card(cuda_device):
+    a = _spd(256, torch.float32).to(cuda_device)
+    with pytest.raises(ValueError):
+        kernels.cholesky(a, "HIGH")
+    with pytest.raises(ValueError):
+        kernels.cholesky(a, "high", 96)
+    with pytest.raises(TypeError):
+        kernels.cholesky(a.half(), "high")
+    with pytest.raises(ValueError, match="trailing"):
+        ch.trailing_high(a, 3, 64)
 
 
 @pytest.mark.cuda
@@ -950,13 +1067,22 @@ def test_core_attention_autograd_launches_both_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_core_attention_rejects_what_the_kernels_do_not_take(cuda_device):
-    """S = 513, Dh = 20 and float64 raise before the device."""
-    cases = {"512": ((1, 4, 513, 24), torch.float32, ValueError),
-             "head width": ((1, 4, 64, 20), torch.float32, ValueError),
+    """Where the long entry raises, S above MAX_S_LONG (zero-stride
+    operands: the check comes before any copy) and Dh 260, and float64:
+    before the device."""
+    cases = {str(fa.MAX_S_LONG): ((1, 4, fa.MAX_S_LONG + 1, 24),
+                                  torch.float32, ValueError),
+             "head width": ((1, 4, 64, 260), torch.float32, ValueError),
              "float32": ((1, 4, 64, 24), torch.float64, TypeError)}
     for match, (shape, dtype, error) in cases.items():
-        q, k, v, g, qkv, g3, _ = (t.to(dtype) for t in _core_inputs(
-            cuda_device, shape))
+        if shape[2] > fa.MAX_S_LONG:
+            b, h, s, dh = shape
+            zero = torch.zeros(1, device=cuda_device)
+            q = k = v = g = zero.expand(shape)
+            qkv, g3 = zero.expand(b, s, 3 * h * dh), zero.expand(b, s, h * dh)
+        else:
+            q, k, v, g, qkv, g3, _ = (t.to(dtype) for t in _core_inputs(
+                cuda_device, shape))
         heads = shape[1]
         for call in (lambda: kernels.fused_attention(q, k, v),
                      lambda: kernels.fused_attention_bwd(q, k, v, g),
@@ -964,6 +1090,84 @@ def test_core_attention_rejects_what_the_kernels_do_not_take(cuda_device):
                      lambda: kernels.fused_attention_qkv_bwd(qkv, g3, heads)):
             with pytest.raises(error, match=match):
                 call()
+
+
+# -- the core entries at every S and width the long entry takes -----------------
+# (B, H, S, Dh): S 1024 (the 64-px level 0) and 2304 (a 48 x 48 level 0),
+# past the JAX kernels' 512; Dh 40 and 96, which the kernels take padded to
+# 48 and 128
+CORE_WIDE_SHAPES = [(2, 4, 1024, 24), (1, 4, 2304, 24), (4, 4, 256, 40),
+                    (4, 4, 256, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["split", "packed"])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("shape", CORE_WIDE_SHAPES)
+def test_core_wide_entries_match_plain_on_card(cuda_device, shape, rate,
+                                               layout, dtype):
+    """The four core entries against their plain versions at the bars of
+    `test_core_attention_kernels_match_plain_on_card` (float32) and
+    `test_core_bf16_kernels_match_plain_on_card` (bf16), one seed for
+    kernel and plain version; the outputs at the true width; one launch
+    counted on each entry a call."""
+    q, k, v, g, qkv, g3, seed = (_core_bf16_inputs if dtype == torch.bfloat16
+                                 else _core_inputs)(cuda_device, shape)
+    heads, dh = shape[1], shape[3]
+    before = kernels.launch_counts()
+    if layout == "split":
+        got = kernels.fused_attention(q, k, v, rate, seed)
+        want = kernels.attention_plain(q, k, v, rate, seed)
+        grads = kernels.fused_attention_bwd(q, k, v, g, rate, seed)
+        want_grads = kernels.attention_plain_bwd(q, k, v, g, rate, seed)
+        names = ("fused_attention", "fused_attention_bwd")
+    else:
+        got = kernels.fused_attention_qkv(qkv, heads, rate, seed)
+        want = kernels.attention_long_plain(qkv, heads, rate, seed)
+        grads = (kernels.fused_attention_qkv_bwd(qkv, g3, heads, rate, seed),)
+        want_grads = (kernels.attention_long_plain_bwd(
+            qkv, g3, heads, rate, seed, scale_dq_in_fp32=True),)
+        names = ("fused_attention_qkv", "fused_attention_qkv_bwd")
+    counts = kernels.launch_counts()
+    assert [counts[n] - before[n] for n in names] == [1, 1]
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        _close(got, want, rtol=0, atol=1e-5)
+        for a, b in zip(grads, want_grads):
+            assert torch.isfinite(a).all()
+            assert _rel_max(a, b) <= 1e-4
+        return
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2.0 ** -7 * float(v.float().abs().max())
+    if layout == "split":
+        _split_bwd_held(grads, want_grads)
+    else:
+        _packed_bwd_held(grads[0], want_grads[0], heads * dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_core_wide_autograd_through_padded_heads(cuda_device, dtype):
+    """S 1024 at Dh 40, rate 0.2: autograd through both entries (the bf16
+    packed one keeps the forward's statistics) against the plain
+    backwards at the bars above."""
+    shape = (2, 4, 1024, 40)
+    q, k, v, g, qkv, g3, seed = (_core_bf16_inputs if dtype == torch.bfloat16
+                                 else _core_inputs)(cuda_device, shape)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, qkv)]
+    kernels.fused_attention(*leaves[:3], 0.2, seed).backward(g)
+    kernels.fused_attention_qkv(leaves[3], 4, 0.2, seed).backward(g3)
+    split = kernels.attention_plain_bwd(q, k, v, g, 0.2, seed)
+    packed = kernels.attention_long_plain_bwd(qkv, g3, 4, 0.2, seed,
+                                              scale_dq_in_fp32=True)
+    if dtype == torch.float32:
+        for leaf, w in zip(leaves[:3], split):
+            assert _rel_max(leaf.grad, w) <= 1e-4
+        assert _rel_max(leaves[3].grad, packed) <= 1e-4
+    else:
+        _split_bwd_held([leaf.grad for leaf in leaves[:3]], split)
+        _packed_bwd_held(leaves[3].grad, packed, 4 * 40)
 
 
 # -- the core entries on bf16 operands -----------------------------------------
